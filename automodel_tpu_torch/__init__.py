@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of automodel_tpu, slice by slice.
+
+The package mirrors ``automodel_tpu``'s module paths so each module's
+counterpart is found at the same place. It imports ``torch`` and never
+``jax``, and nothing of ``automodel_tpu``: the JAX package is the reference
+the port is held against in ``tests/test_torch_*.py``.
+
+Ported so far: the serving path (``serve``) for the llama family, with the
+paged-attention decode kernel written in CUDA C++ for Hopper
+(``csrc/paged_attention.cu``). Entry points run on CUDA unless the caller
+asks for the CPU (``device: cpu``); there is no silent CPU fallback.
+"""
+
+from automodel_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

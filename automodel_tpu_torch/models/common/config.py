@@ -1,0 +1,137 @@
+"""Dense-transformer config and the backend choices the port takes.
+
+Port of ``automodel_tpu/models/common/config.py``. ``BackendConfig`` keeps
+the param and compute dtypes only; ``attn`` must be ``sdpa`` (the port's
+attention is plain torch for prefill and the paged kernel for decode), and
+any other value, or any key the JAX backend has but the port does not, is
+refused rather than ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from automodel_tpu_torch.ops.rope import RopeConfig
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def dtype_from_str(s: str | torch.dtype) -> torch.dtype:
+    if isinstance(s, torch.dtype):
+        return s
+    return _DTYPES[str(s).replace("torch.", "").replace("jnp.", "")]
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendConfig:
+    attn: str = "sdpa"
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.attn != "sdpa":
+            raise ValueError(
+                f"backend.attn={self.attn!r} is not ported: the torch port "
+                "attends with plain sdpa (prefill, gather decode) and the "
+                "paged-attention kernel (fused decode); set attn: sdpa"
+            )
+        for key in ("param_dtype", "compute_dtype"):
+            if getattr(self, key) not in _DTYPES:
+                raise ValueError(f"backend.{key}={getattr(self, key)!r} (want {sorted(_DTYPES)})")
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "BackendConfig":
+        d = dict(d or {})
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(
+                f"backend keys {sorted(unknown)} are not ported to the torch "
+                f"backend (it takes {sorted(known)})"
+            )
+        return cls(**d)
+
+    @property
+    def param_torch_dtype(self) -> torch.dtype:
+        return dtype_from_str(self.param_dtype)
+
+    @property
+    def compute_torch_dtype(self) -> torch.dtype:
+        return dtype_from_str(self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Llama-family dense transformer hyperparameters, HF-ingestible."""
+
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope: RopeConfig = RopeConfig()
+    rms_eps: float = 1e-6
+    max_position_embeddings: int = 8192
+    tie_embeddings: bool = False
+    attention_bias: bool = False
+    mlp_bias: bool = False
+    qk_norm: bool = False  # qwen3-style per-head RMSNorm on q/k
+    act: str = "silu"
+    logits_soft_cap: Optional[float] = None
+    attn_soft_cap: Optional[float] = None
+    sliding_window: Optional[int] = None
+    # HF qwen2 convention: the first `max_window_layers` layers attend fully
+    max_window_layers: int = 0
+    attn_scale: Optional[float] = None  # override 1/sqrt(head_dim)
+
+    @classmethod
+    def from_hf(cls, hf_cfg: Any) -> "TransformerConfig":
+        """Ingest an HF transformers config (LlamaConfig/Qwen2Config/...)."""
+        get = lambda k, d=None: (
+            hf_cfg.get(k, d) if isinstance(hf_cfg, dict) else getattr(hf_cfg, k, d)
+        )
+        if (get("partial_rotary_factor", 1.0) or 1.0) != 1.0:
+            raise ValueError("partial_rotary_factor != 1 is not ported to the torch backend")
+        heads = get("num_attention_heads")
+        hidden = get("hidden_size")
+        model_type = get("model_type", "llama")
+        return cls(
+            vocab_size=get("vocab_size"),
+            hidden_size=hidden,
+            intermediate_size=get("intermediate_size"),
+            num_layers=get("num_hidden_layers"),
+            num_heads=heads,
+            num_kv_heads=get("num_key_value_heads", heads),
+            head_dim=get("head_dim") or hidden // heads,
+            rope=RopeConfig.from_hf(hf_cfg),
+            rms_eps=get("rms_norm_eps", 1e-6),
+            max_position_embeddings=get("max_position_embeddings", 8192),
+            tie_embeddings=bool(get("tie_word_embeddings", False)),
+            attention_bias=bool(get("attention_bias", model_type in ("qwen2", "qwen2_moe"))),
+            mlp_bias=bool(get("mlp_bias", False)),
+            qk_norm=model_type in ("qwen3", "qwen3_moe"),
+            act=get("hidden_act", "silu"),
+            sliding_window=(
+                get("sliding_window", None)
+                if get("use_sliding_window", model_type in ("mistral", "mixtral", "phi3"))
+                else None
+            ),
+            max_window_layers=get("max_window_layers", 0) or 0,
+        )
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim

@@ -1,0 +1,233 @@
+"""Dense Llama-family causal LM as an ``nn.Module``.
+
+Port of the generic path of ``automodel_tpu/models/llama/model.py`` (no
+fp8, LoRA or NF4). Parameter names follow HF transformers
+(``model.layers.{i}.self_attn.q_proj.weight``, ``[out, in]``), so a later
+``from_pretrained`` maps safetensors keys one to one; ``state_dict_adapter``
+carries the JAX package's stacked ``[L, in, out]`` tree over.
+
+Arithmetic follows the JAX model: weights are cast to the compute dtype at
+each use, RMSNorm accumulates in fp32, RoPE is applied in the compute
+dtype, logits come out in the compute dtype.
+
+The KV-cache hook is the JAX one: with ``cache`` given, each attention
+layer calls ``cache.write(layer, k, v)`` with its post-RoPE keys and
+values and then ``cache.attend(layer, q, layer_kv, ...)``; the cache object
+owns where K/V live and which attention runs (serving/paged.py).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+from automodel_tpu_torch.ops.attention import sdpa_decode
+from automodel_tpu_torch.ops.norms import rms_norm
+from automodel_tpu_torch.ops.rope import apply_rope, rope_table
+
+ACT_FNS = {
+    "silu": F.silu,
+    "gelu": F.gelu,
+    "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+def _linear(
+    in_features: int, out_features: int, bias: bool, dtype: torch.dtype, device
+) -> nn.Linear:
+    return nn.utils.skip_init(
+        nn.Linear, in_features, out_features, bias=bias, device=device, dtype=dtype
+    )
+
+
+def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    y = F.linear(x, lin.weight.to(x.dtype))
+    if lin.bias is not None:
+        y = y + lin.bias.to(x.dtype)
+    return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype, device):
+        super().__init__()
+        D = cfg.hidden_size
+        self.q_proj = _linear(D, cfg.q_dim, cfg.attention_bias, dtype, device)
+        self.k_proj = _linear(D, cfg.kv_dim, cfg.attention_bias, dtype, device)
+        self.v_proj = _linear(D, cfg.kv_dim, cfg.attention_bias, dtype, device)
+        self.o_proj = _linear(cfg.q_dim, D, False, dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(cfg.head_dim, cfg.rms_eps, dtype, device)
+            self.k_norm = RMSNorm(cfg.head_dim, cfg.rms_eps, dtype, device)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype, device):
+        super().__init__()
+        D, I = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = _linear(D, I, cfg.mlp_bias, dtype, device)
+        self.up_proj = _linear(D, I, cfg.mlp_bias, dtype, device)
+        self.down_proj = _linear(I, D, cfg.mlp_bias, dtype, device)
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype, device):
+        super().__init__()
+        self.self_attn = LlamaAttention(cfg, dtype, device)
+        self.mlp = LlamaMLP(cfg, dtype, device)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype, device):
+        super().__init__()
+        self.embed_tokens = nn.utils.skip_init(
+            nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype
+        )
+        self.layers = nn.ModuleList(
+            LlamaDecoderLayer(cfg, dtype, device) for _ in range(cfg.num_layers)
+        )
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
+
+
+def layer_sliding_window(cfg: TransformerConfig, layer_idx: int) -> Optional[int]:
+    """HF qwen2 semantics: layers < max_window_layers attend fully."""
+    if cfg.sliding_window is None:
+        return None
+    if cfg.max_window_layers and layer_idx < cfg.max_window_layers:
+        return None
+    return cfg.sliding_window
+
+
+class LlamaForCausalLM(nn.Module):
+    """Inference module: parameters are created uninitialized on ``device``
+    in the param dtype; ``init_weights`` fills them from a generator,
+    ``load_state_dict`` from a carried checkpoint."""
+
+    supports_kv_cache = True
+
+    def __init__(
+        self, config: TransformerConfig, backend: BackendConfig = BackendConfig(), device=None
+    ):
+        super().__init__()
+        self.config = config
+        self.backend = backend
+        pd = backend.param_torch_dtype
+        self.model = LlamaModel(config, pd, device)
+        if not config.tie_embeddings:
+            self.lm_head = _linear(config.hidden_size, config.vocab_size, False, pd, device)
+        self.requires_grad_(False)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Random init with the JAX package's scales (model.py init_params):
+        projection kernels ``N(0,1) / sqrt(fan_in)``, embeddings
+        ``N(0,1) * 0.02``, norms one, biases zero. Draws happen on the
+        generator's device in parameter order."""
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
+            elif name == "model.embed_tokens.weight":
+                x = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
+                p.copy_(x.to(p.dtype) * 0.02)
+            else:
+                fan_in = p.shape[1]
+                x = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
+                denom = torch.tensor(math.sqrt(fan_in), dtype=p.dtype, device=p.device)
+                p.copy_(x.to(p.dtype) / denom)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.backend.compute_torch_dtype
+
+    def _attention(
+        self, i: int, h: torch.Tensor, cos, sin, cache: Any
+    ) -> torch.Tensor:
+        cfg = self.config
+        layer = self.model.layers[i]
+        attn = layer.self_attn
+        B, S, _ = h.shape
+        x = layer.input_layernorm(h)
+        q = _proj(x, attn.q_proj).reshape(B, S, cfg.num_heads, cfg.head_dim)
+        k = _proj(x, attn.k_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        v = _proj(x, attn.v_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = attn.q_norm(q)
+            k = attn.k_norm(k)
+        q, k = apply_rope(q, k, cos, sin)
+        window = layer_sliding_window(cfg, i)
+        if cache is not None:
+            layer_kv = cache.write(i, k, v)
+            out = cache.attend(
+                i, q, layer_kv, sliding_window=window,
+                scale=cfg.attn_scale, logits_soft_cap=cfg.attn_soft_cap,
+            )
+        else:
+            qpos = torch.arange(S, device=h.device)
+            mask = qpos[None, :] <= qpos[:, None]
+            if window is not None:
+                mask = mask & (qpos[:, None] - qpos[None, :] < window)
+            out = sdpa_decode(
+                q, k, v, kv_mask=mask[None].expand(B, S, S),
+                scale=cfg.attn_scale, logits_soft_cap=cfg.attn_soft_cap,
+            )
+        return h + _proj(out.reshape(B, S, cfg.q_dim), attn.o_proj)
+
+    def hidden(
+        self,
+        input_ids: torch.Tensor,
+        position_ids: Optional[torch.Tensor] = None,
+        cache: Any = None,
+    ) -> torch.Tensor:
+        """Embed + decoder stack → final-norm hidden states [B, S, D] in
+        the compute dtype."""
+        cfg = self.config
+        cd = self.compute_dtype
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
+            position_ids = position_ids[None, :].expand(input_ids.shape)
+        h = self.model.embed_tokens.weight[input_ids].to(cd)
+        cos, sin = rope_table(position_ids, cfg.head_dim, cfg.rope)
+        act = ACT_FNS[cfg.act]
+        for i, layer in enumerate(self.model.layers):
+            h = self._attention(i, h, cos, sin, cache)
+            x = layer.post_attention_layernorm(h)
+            mlp = layer.mlp
+            h = h + _proj(act(_proj(x, mlp.gate_proj)) * _proj(x, mlp.up_proj), mlp.down_proj)
+        return self.model.norm(h)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Hidden states → logits in h's dtype (soft-capped if configured)."""
+        w = self.model.embed_tokens.weight if self.config.tie_embeddings else self.lm_head.weight
+        logits = F.linear(h, w.to(h.dtype))
+        cap = self.config.logits_soft_cap
+        if cap is not None:
+            logits = cap * torch.tanh(logits / cap)
+        return logits
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        position_ids: Optional[torch.Tensor] = None,
+        cache: Any = None,
+    ) -> torch.Tensor:
+        """Full forward → logits [B, S, V] in the compute dtype."""
+        return self.logits(self.hidden(input_ids, position_ids, cache))

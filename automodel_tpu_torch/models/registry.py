@@ -1,0 +1,51 @@
+"""HF architecture → the port's model family.
+
+Port of ``automodel_tpu/models/registry.py`` for the one family the port
+has: ``LlamaForCausalLM``. A config naming another architecture is refused;
+a config naming none builds the generic llama, as in the JAX registry.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+
+_REGISTRY: dict[str, Callable] = {}
+
+
+def register_architecture(*names: str):
+    def deco(builder: Callable):
+        for n in names:
+            _REGISTRY[n] = builder
+        return builder
+
+    return deco
+
+
+@register_architecture("LlamaForCausalLM")
+def _llama_builder(hf_config: Any, backend: BackendConfig, device=None):
+    from automodel_tpu_torch.models.llama import LlamaForCausalLM
+
+    return LlamaForCausalLM(TransformerConfig.from_hf(hf_config), backend, device=device)
+
+
+def resolve_architecture(hf_config: Any) -> Callable:
+    archs = (
+        hf_config.get("architectures")
+        if isinstance(hf_config, dict)
+        else getattr(hf_config, "architectures", None)
+    ) or []
+    if not archs:
+        return _llama_builder
+    for a in archs:
+        if a in _REGISTRY:
+            return _REGISTRY[a]
+    raise ValueError(
+        f"architectures {list(archs)} are not ported to the torch backend "
+        f"(it has {available_architectures()})"
+    )
+
+
+def available_architectures() -> list[str]:
+    return sorted(_REGISTRY)

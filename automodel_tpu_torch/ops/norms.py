@@ -1,0 +1,14 @@
+"""RMSNorm, port of ``automodel_tpu/ops/norms.py``: fp32 accumulation,
+cast back to the input dtype."""
+
+from __future__ import annotations
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with fp32 accumulation, cast back to x.dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)

@@ -1,0 +1,98 @@
+"""Rotary position embeddings, port of ``automodel_tpu/ops/rope.py``.
+
+Rotate-half layout (HF transformers convention). Scalings: none, ``linear``
+and ``llama3``; ``yarn`` is refused until a family that needs it is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeConfig:
+    theta: float = 10000.0
+    scaling: str | None = None  # None | "llama3" | "linear"
+    factor: float = 1.0
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position: int = 8192
+
+    SUPPORTED_SCALINGS = (None, "llama3", "linear")
+
+    def __post_init__(self):
+        if self.scaling not in self.SUPPORTED_SCALINGS:
+            raise ValueError(
+                f"Unsupported rope_scaling type {self.scaling!r} in the torch "
+                f"port; supported: {self.SUPPORTED_SCALINGS}"
+            )
+
+    @staticmethod
+    def from_hf(cfg) -> "RopeConfig":
+        """Build from an HF config object / dict (rope_scaling conventions)."""
+        get = lambda k, d=None: (cfg.get(k, d) if isinstance(cfg, dict) else getattr(cfg, k, d))
+        rs = get("rope_scaling") or {}
+        rtype = rs.get("rope_type", rs.get("type"))
+        return RopeConfig(
+            theta=get("rope_theta", 10000.0),
+            scaling=None if rtype in (None, "default") else rtype,
+            factor=rs.get("factor", 1.0),
+            low_freq_factor=rs.get("low_freq_factor", 1.0),
+            high_freq_factor=rs.get("high_freq_factor", 4.0),
+            original_max_position=rs.get(
+                "original_max_position_embeddings", get("max_position_embeddings", 8192)
+            ),
+        )
+
+
+def inv_freq(head_dim: int, cfg: RopeConfig, device=None) -> torch.Tensor:
+    """[head_dim // 2] fp32 inverse frequencies, scaling applied."""
+    inv = 1.0 / (
+        cfg.theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
+    )
+    if cfg.scaling == "linear":
+        inv = inv / cfg.factor
+    elif cfg.scaling == "llama3":
+        # HF Llama-3 frequency-dependent scaling
+        low = cfg.original_max_position / cfg.low_freq_factor
+        high = cfg.original_max_position / cfg.high_freq_factor
+        wavelen = 2 * math.pi / inv
+        smooth = (cfg.original_max_position / wavelen - cfg.low_freq_factor) / (
+            cfg.high_freq_factor - cfg.low_freq_factor
+        )
+        inv = torch.where(
+            wavelen < high,
+            inv,
+            torch.where(
+                wavelen > low, inv / cfg.factor, (1 - smooth) * inv / cfg.factor + smooth * inv
+            ),
+        )
+    return inv
+
+
+def rope_table(
+    position_ids: torch.Tensor, head_dim: int, cfg: RopeConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [..., seq, head_dim] for given positions (fp32)."""
+    inv = inv_freq(head_dim, cfg, device=position_ids.device)
+    freqs = position_ids[..., None].float() * inv  # [..., S, hd/2]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(
+    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply rotate-half RoPE in q's dtype. q/k: [B, S, N, H]; cos/sin:
+    [B, S, H]."""
+    c = cos[..., None, :].to(q.dtype)
+    s = sin[..., None, :].to(q.dtype)
+    return q * c + _rotate_half(q) * s, k * c + _rotate_half(k) * s

@@ -1,0 +1,541 @@
+#!/usr/bin/env python3
+"""Drive the torch port's serving path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py          # from the repository root, one CUDA card
+
+Phases, each fatal on failure (exit 1, and no final ``ok`` line):
+
+1. the card: ``nvidia-smi`` name and power limit, and torch's device name;
+2. build every CUDA kernel of the path from ``automodel_tpu_torch/csrc``
+   with nvcc (one process per source, all at once);
+3. each kernel against its plain torch version on the card at the serving
+   path's shapes (paged attention: B=16, N=32, Nkv=8, H=128, BS=16,
+   ragged lengths 1..4096; Sq 1 and 5, bf16 and int8 pools, a window case,
+   a soft-cap case, and cases whose attention is sharp, with q four times
+   larger), with times of the kernel, the plain version, and
+   ``scaled_dot_product_attention`` over the gathered view as the library
+   yardstick, beside the least time the card could take;
+4. the serving engine at full Llama-3-8B width (random bf16 weights from a
+   seed), built by the ``serve`` CLI's own ``build_engine`` from a config
+   dict: 16 greedy requests, 8 of them sharing a 512-token prefix, on a
+   bf16 pool; then a profile of decode steps with every slot busy; then 8
+   requests on an int8 pool. Every request must end with ``length`` or
+   ``stop`` and the paged kernel must have launched once per layer per
+   decode forward;
+5. one decode step at full width on the fused backend (the kernel) against
+   the gather backend (plain attention over the gathered view): logits
+   must agree.
+
+The ``kernels`` JSON line comes third from last, the ``nvidia-smi`` card
+line second, and the last line is ``{"ok": true, "device": {...}}``. It
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
+
+LLAMA3_8B = dict(  # meta-llama/Meta-Llama-3-8B config.json widths
+    architectures=["LlamaForCausalLM"], model_type="llama",
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=128, rope_theta=500000.0, rms_norm_eps=1e-5,
+    max_position_embeddings=8192, tie_word_embeddings=False,
+)
+BF16 = dict(attn="sdpa", param_dtype="bfloat16", compute_dtype="bfloat16")
+MAX_NEW = 64  # generated tokens per serving request
+# kernel vs plain, per output row (one query head at one position):
+# |out - ref| / |ref| over the row's H channels. Both versions round an fp32
+# result to bf16; an element that flips by one bf16 ulp moves by at most
+# 2^-7 of itself, so a row whose elements all agree within one ulp moves by
+# at most 2^-7 of its norm. A
+# masking fault moves rows much further: one row dropped at a window's edge
+# moves the worst row by more than 4x this limit, in near-uniform and in
+# sharp attention (tests/test_torch_cuda_kernels.py::
+# test_row_check_catches_one_masked_row).
+KERNEL_ROW_REL_TOL = 2.0**-7
+# fused vs gather logits after 32 bf16 layers: the gather path rounds
+# attention probabilities to bf16 before the value product (as the JAX sdpa
+# does), the kernel keeps them fp32, and each layer's bf16 rounding carries
+# into the next. Limits at about 3x and 5x what three runs on an H100 read
+# (max |diff| 2.06% of max |logit|, min cosine 0.99982; PERF.md).
+LOGITS_REL_TOL = 0.06
+LOGITS_MIN_COSINE = 0.999
+
+
+def row_rel_err(out, ref) -> float:
+    """Worst row's |out - ref| / |ref| over the last axis; a row of ref that
+    is all zeros must be matched exactly."""
+    d = (out.float() - ref.float()).norm(dim=-1)
+    r = ref.float().norm(dim=-1)
+    return float((d / r.clamp_min(1e-30)).max())
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0 or not out.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- phase 3: paged attention against its plain version ----------------------
+
+
+def paged_case(torch, dev, sq: int, quantized: bool, seed: int = 0, uniform: int | None = None,
+               sharp: float = 1.0):
+    """The serving path's decode shapes: B=16 sequences of ragged lengths
+    1..4096 (or all of length ``uniform``) over one layer's pool. q is
+    standard normal times ``sharp``: at 1 the attention over random keys is
+    near uniform, at 4 a few rows carry most of each row's weight."""
+    from automodel_tpu_torch.ops.paged_attention import quantize_kv_rows
+
+    B, N, Nkv, H, BS = 16, 32, 8, 128, 16
+    nbseq = -(-(4096 + sq) // BS)
+    nb = B * nbseq + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(1, 4097, (B,), generator=g, device=dev)
+    lengths[0], lengths[1] = 1, 4096
+    if uniform is not None:
+        lengths.fill_(uniform)
+    tables = (torch.randperm(nb - 1, generator=g, device=dev) + 1).reshape(B, nbseq)
+    q = (torch.randn((B, sq, N, H), generator=g, device=dev) * sharp).to(torch.bfloat16)
+    kp = torch.randn((nb, BS, Nkv, H), generator=g, device=dev)
+    vp = torch.randn((nb, BS, Nkv, H), generator=g, device=dev)
+    if quantized:
+        kq, ks = quantize_kv_rows(kp)
+        vq, vs = quantize_kv_rows(vp)
+        pool = (kq, vq, tables.to(torch.int32), lengths.to(torch.int32), ks, vs)
+    else:
+        pool = (kp.to(torch.bfloat16), vp.to(torch.bfloat16), tables.to(torch.int32),
+                lengths.to(torch.int32))
+    return q, pool
+
+
+def paged_bound(q, pool, window) -> tuple[float, str, int]:
+    """Least time for one call: every attended KV row (and its scale) read
+    once, q read once, the output written once, over HBM bandwidth; and
+    the attention's 4*H flops per (query head, attended row) over the bf16
+    peak. → (ms, what bounds it, bytes)."""
+    B, Sq, N, H = q.shape
+    k_pool, lengths = pool[0], pool[3]
+    Nkv = k_pool.shape[2]
+    rows = 0
+    for length in lengths.tolist():
+        lo = 0 if window is None else max(0, length - window + 1)
+        rows += length + Sq - lo
+    per_row = 2 * Nkv * H * k_pool.element_size() + (2 * Nkv * 4 if len(pool) > 4 else 0)
+    nbytes = rows * per_row + 2 * q.numel() * q.element_size() + B * 4
+    flops = 4 * H * (N // Nkv) * Nkv * rows * Sq
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+
+
+def sdpa_library_ms(torch, q, pool, window) -> float:
+    """``scaled_dot_product_attention`` over the gathered (dequantized) view
+    under the same mask; the gather itself is not timed."""
+    import torch.nn.functional as F
+
+    from automodel_tpu_torch.ops.paged_attention import dequantize_kv
+
+    B, Sq, N, H = q.shape
+    k_pool, v_pool, tables, lengths = pool[:4]
+    _, BS, Nkv, _ = k_pool.shape
+    t = tables.long()
+    if len(pool) > 4:
+        k = dequantize_kv(k_pool[t], pool[4][t], torch.bfloat16)
+        v = dequantize_kv(v_pool[t], pool[5][t], torch.bfloat16)
+    else:
+        k, v = k_pool[t], v_pool[t]
+    C = t.shape[1] * BS
+    rep = N // Nkv
+    k = k.reshape(B, C, Nkv, H).transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+    v = v.reshape(B, C, Nkv, H).transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+    pos = torch.arange(C, device=q.device)
+    q_abs = lengths.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
+    mask = pos[None, None, :] <= q_abs[:, :, None]
+    if window is not None:
+        mask = mask & (q_abs[:, :, None] - pos[None, None, :] < window)
+    mask = mask[:, None]
+    qt = q.transpose(1, 2).contiguous()
+    return cuda_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask), iters=20)
+
+
+def phase_kernels(torch, dev) -> dict:
+    from automodel_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
+
+    # the two main cases are timed against the plain version and the library
+    # call; the uniform ones time the kernel against the longest sequence,
+    # since each CTA walks one sequence's blocks alone
+    cases = [
+        dict(sq=1, quantized=False, main=True),
+        dict(sq=1, quantized=True, main=True),
+        dict(sq=5, quantized=False),
+        dict(sq=5, quantized=True),
+        dict(sq=1, quantized=False, window=1024),
+        dict(sq=1, quantized=False, cap=30.0),
+        dict(sq=1, quantized=False, sharp=4.0),
+        dict(sq=5, quantized=True, sharp=4.0),
+        dict(sq=1, quantized=False, window=1024, sharp=4.0),
+        dict(sq=1, quantized=False, uniform=256),
+        dict(sq=1, quantized=False, uniform=1024),
+        dict(sq=1, quantized=False, uniform=4096),
+    ]
+    results = []
+    for i, c in enumerate(cases):
+        c = dict(dict(window=None, cap=None, main=False, uniform=None, sharp=1.0), **c)
+        q, pool = paged_case(torch, dev, c["sq"], c["quantized"], seed=i, uniform=c["uniform"],
+                             sharp=c["sharp"])
+        kw = dict(sliding_window=c["window"], logits_soft_cap=c["cap"])
+        out = paged_attend(q, *pool, **kw)
+        torch.cuda.synchronize()
+        ref = paged_attend_plain(q, *pool, **kw)
+        max_err = float((out.float() - ref.float()).abs().max())
+        row_err = row_rel_err(out, ref)
+        ok = row_err <= KERNEL_ROW_REL_TOL
+        if not bool(torch.isfinite(out.float()).all()):
+            raise RuntimeError(f"paged kernel produced non-finite values in case {c}")
+        row = dict(
+            sq=c["sq"], pool="int8" if c["quantized"] else "bf16", window=c["window"],
+            cap=c["cap"], sharp=c["sharp"],
+            lengths=f"all {c['uniform']}" if c["uniform"] else "ragged 1-4096",
+            max_abs_err=max_err, max_row_rel_err=row_err, ok=ok,
+        )
+        if c["main"] or c["uniform"]:
+            row["ms"] = cuda_ms(lambda: paged_attend(q, *pool, **kw), iters=50)
+            row["bound_ms"], row["bound_by"], row["bytes"] = paged_bound(q, pool, c["window"])
+        if c["main"]:
+            row["plain_ms"] = cuda_ms(lambda: paged_attend_plain(q, *pool, **kw), iters=5, warmup=1)
+            row["library_ms"] = sdpa_library_ms(torch, q, pool, c["window"])
+        results.append(row)
+        print(f"kernel paged_attention vs plain: {json.dumps(row)}", flush=True)
+        del q, pool, out, ref
+        torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise RuntimeError(
+            f"paged kernel disagrees with its plain version beyond a row-relative "
+            f"error of {KERNEL_ROW_REL_TOL}: {bad}"
+        )
+    return {"cases": results}
+
+
+# -- phase 4: serving at full width -------------------------------------------
+
+
+def serve_requests(engine, prompts: list[list[int]], shared: int, max_new: int):
+    """Submit one sharing request and the non-sharing ones, step until the
+    sharer's prompt is prefilled (so its blocks are in the prefix cache),
+    then submit the other sharers and drain. → (records, wall seconds)."""
+    t0 = time.perf_counter()
+    ids = {}
+    first_wave = [0] + list(range(shared, len(prompts)))
+    for i in first_wave:
+        ids[i] = engine.submit(prompts[i], request_id=f"r{i}", max_new_tokens=max_new)
+    recs = []
+    for _ in range(-(-len(prompts[0]) // engine.config.prefill_chunk)):
+        recs += engine.step()
+    for i in range(1, shared):
+        ids[i] = engine.submit(prompts[i], request_id=f"r{i}", max_new_tokens=max_new)
+    recs += engine.run()
+    import torch
+
+    torch.cuda.synchronize()
+    return recs, time.perf_counter() - t0
+
+
+def make_prompts(n: int, shared: int, seed: int, vocab: int) -> list[list[int]]:
+    import random
+
+    rng = random.Random(seed)
+    prefix = [rng.randrange(1, vocab) for _ in range(512)]
+    prompts = []
+    for i in range(n):
+        length = rng.randint(128, 2048)
+        if i < shared:
+            length = max(length, 513)
+            prompts.append(prefix + [rng.randrange(1, vocab) for _ in range(length - 512)])
+        else:
+            prompts.append([rng.randrange(1, vocab) for _ in range(length)])
+    return prompts
+
+
+def serve_config(kv_cache_dtype: str) -> dict:
+    """The ``serve`` config, as a dict (no YAML reader needed): Llama-3-8B
+    widths with random bf16 weights from seed 0 on the card, the pool and
+    scheduler of automodel_tpu_torch/configs/serve_llama3_8b.yaml at half
+    its blocks and context, greedy decoding."""
+    return dict(
+        seed=0, device="cuda",
+        model=dict(hf_config=LLAMA3_8B, backend=BF16),
+        generation=dict(max_new_tokens=MAX_NEW, greedy=True, seed=0),
+        serving=dict(
+            slots=16, block_size=16, num_blocks=4096, prefill_chunk=512, max_seq_len=4096,
+            prefix_cache=True, kv_cache_dtype=kv_cache_dtype, decode_kernel="auto",
+        ),
+    )
+
+
+def phase_serving(torch, engine, n: int, shared: int) -> dict:
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+
+    kv_cache_dtype = engine.config.kv_cache_dtype
+    max_new = engine.gen_config.max_new_tokens
+    auto = engine.auto
+    prompts = make_prompts(n, shared, seed=1 if kv_cache_dtype == "bf16" else 2,
+                           vocab=auto.config.vocab_size)
+    # the main path's run: every count set to 0 just before, read just after
+    paged_attend.launches = 0
+    recs, wall = serve_requests(engine, prompts, shared, max_new)
+    launches = paged_attend.launches
+    layers = auto.config.num_layers
+    if len(recs) != n:
+        raise RuntimeError(f"{len(recs)} records for {n} requests")
+    reasons = {r["completion_reason"] for r in recs}
+    if not reasons <= {"length", "stop"}:
+        raise RuntimeError(f"requests ended with {reasons}")
+    if launches != engine.decode_forwards * layers or launches == 0:
+        raise RuntimeError(
+            f"paged kernel launched {launches} times for {engine.decode_forwards} decode "
+            f"forwards x {layers} layers"
+        )
+    hits = [r["prefix_hit_tokens"] for r in recs if r["request_id"] in {f"r{i}" for i in range(1, shared)}]
+    if min(hits) < 512:
+        raise RuntimeError(f"shared-prefix requests missed the prefix cache: hits {hits}")
+    gen = sum(r["n_generated"] for r in recs)
+    ttfts = sorted(r["ttft_s"] for r in recs)
+    out = dict(
+        kv_cache_dtype=kv_cache_dtype, requests=n, generated_tokens=gen,
+        prompt_tokens=sum(len(p) for p in prompts), wall_s=wall, tokens_per_s=gen / wall,
+        ttft_p50_s=statistics.median(ttfts), ttft_max_s=ttfts[-1],
+        decode_forwards=engine.decode_forwards, prefill_chunks=engine.prefill_chunks,
+        paged_attend_launches=launches, prefix_hit_tokens=sum(hits),
+        pool_gib=engine.pool_bytes / 2**30,
+    )
+    print(f"serving {kv_cache_dtype}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_profile(torch, engine, steps: int = 8) -> dict:
+    """Where a decode step's time goes at full width: every slot decoding
+    (prompts of 1024 tokens), ``steps`` scheduler steps timed by the host
+    clock, then the same number under ``torch.profiler`` for the device
+    kernels by name. The idle share is 1 - kernel time / profiled wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(20)
+    for i in range(engine.config.slots):
+        prompt = torch.randint(1, engine.auto.config.vocab_size, (1024,), generator=g).tolist()
+        engine.submit(prompt, request_id=f"p{i}", max_new_tokens=2 * steps + 4)
+    while engine.queue_depth or not bool(engine.decode_batch()[3].all()):
+        engine.step()
+    engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    engine.run()
+    by_name: dict[str, float] = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    out = dict(slots=engine.config.slots, context=1024, step_ms=step_ms)
+    if not by_name:
+        out["profile"] = "no device events from torch.profiler: not measured"
+    else:
+        busy = sum(by_name.values())
+
+        def share(pred):
+            return sum(v for k, v in by_name.items() if pred(k.lower())) / steps
+
+        gemm = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
+        out.update(
+            profiled_step_ms=wall_ms / steps, device_busy_ms_per_step=busy / steps,
+            idle_share=1.0 - busy / wall_ms, device_ops_per_step=n_kernels / steps,
+            paged_attention_ms_per_step=share(lambda k: "paged_attention" in k),
+            matmul_ms_per_step=share(lambda k: any(s in k for s in gemm)),
+            top=[dict(name=k[:80], ms_per_step=v / steps)
+                 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
+        )
+    print(f"decode step profile: {json.dumps(out)}", flush=True)
+    return out
+
+
+# -- phase 5: one decode step, fused against gather ---------------------------
+
+
+def phase_fused_vs_gather(torch, auto) -> dict:
+    from automodel_tpu_torch.generation.engine import GenerationConfig
+    from automodel_tpu_torch.serving import paged
+    from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
+
+    engine = ServingEngine(
+        auto,
+        ServeConfig(slots=4, block_size=16, num_blocks=1024, prefill_chunk=512, max_seq_len=4096),
+        GenerationConfig(max_new_tokens=64, greedy=True),
+    )
+    g = torch.Generator().manual_seed(10)
+    for length in (100, 700, 1500, 2000):
+        engine.submit(torch.randint(1, auto.config.vocab_size, (length,), generator=g).tolist())
+    batch = engine.decode_batch()
+    while not bool(batch[3].all()):  # step until every prompt is prefilled
+        engine.step()
+        batch = engine.decode_batch()
+    kw = dict(block_size=16, compute_dtype=torch.bfloat16)
+    pool = engine.kv_pool
+
+    def clone(p):
+        side = lambda s: tuple(t.clone() for t in s) if isinstance(s, tuple) else s.clone()
+        return paged.PagedKV(k=side(p.k), v=side(p.v))
+
+    with torch.inference_mode():
+        fused = paged.decode_logits(auto.model, clone(pool), *batch[:2], batch[2][:, None], batch[3], backend="fused", **kw)
+        gather = paged.decode_logits(auto.model, clone(pool), *batch[:2], batch[2][:, None], batch[3], backend="gather", **kw)
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(fused).all()) and bool(torch.isfinite(gather).all())):
+        raise RuntimeError("non-finite logits")
+    diff = float((fused - gather).abs().max())
+    scale = float(gather.abs().max())
+    cos = torch.nn.functional.cosine_similarity(fused.flatten(1), gather.flatten(1), dim=-1)
+    out = dict(
+        max_abs_diff=diff, max_abs_logit=scale, rel=diff / max(scale, 1e-30),
+        min_cosine=float(cos.min()),
+        argmax_agree=int((fused.argmax(-1) == gather.argmax(-1)).sum()), slots=fused.shape[0],
+    )
+    print(f"decode step fused vs gather: {json.dumps(out)}", flush=True)
+    if out["rel"] > LOGITS_REL_TOL or out["min_cosine"] < LOGITS_MIN_COSINE:
+        raise RuntimeError(
+            f"fused and gather logits disagree: {out} (limits: rel {LOGITS_REL_TOL}, "
+            f"min cosine {LOGITS_MIN_COSINE})"
+        )
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA card")
+    try:
+        from automodel_tpu_torch.config import ConfigNode
+        from automodel_tpu_torch.generation.engine import GenerationConfig
+        from automodel_tpu_torch.ops import _cuda_build
+        from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
+        from automodel_tpu_torch.serving.server import build_engine
+    except ImportError as e:
+        fail(f"run from the repository root: the automodel_tpu_torch package is missing ({e})")
+    dev = torch.device("cuda")
+    try:
+        card = card_line()
+        name = torch.cuda.get_device_name(0)
+        print(f"card: {card} | torch: {name} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+        t0 = time.perf_counter()
+        _cuda_build.build(["paged_attention"])
+        print(f"kernel build: {time.perf_counter() - t0:.1f}s (nvcc, sm_90a)", flush=True)
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels = phase_kernels(torch, dev)
+
+        # the serve CLI's own builder, from a config dict
+        t0 = time.perf_counter()
+        engine = build_engine(ConfigNode(serve_config("bf16")))
+        auto = engine.auto
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in auto.model.parameters())
+        print(f"model: Llama-3-8B widths, {n_params} params bf16, random init and pool {time.perf_counter() - t0:.1f}s", flush=True)
+        serving_bf16 = phase_serving(torch, engine, n=16, shared=8)
+        profile_bf16 = phase_profile(torch, engine)
+        del engine
+        torch.cuda.empty_cache()
+
+        cfg = serve_config("int8")
+        engine = ServingEngine(
+            auto, ServeConfig.from_dict(cfg["serving"]), GenerationConfig.from_dict(cfg["generation"])
+        )
+        serving_int8 = phase_serving(torch, engine, n=8, shared=4)
+        del engine
+        torch.cuda.empty_cache()
+        phase_fused_vs_gather(torch, auto)
+
+        timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
+        main_case = timed["bf16"]
+        line = {
+            "kernels": [
+                {
+                    "name": "paged_attention",
+                    "route": "cuda",
+                    "source": "automodel_tpu_torch/csrc/paged_attention.cu",
+                    "replaces": "automodel_tpu/ops/paged_attention.py:97",
+                    "launches": serving_bf16["paged_attend_launches"],
+                    "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
+                    "max_row_rel_err": max(c["max_row_rel_err"] for c in kernels["cases"]),
+                    "ms": main_case["ms"],
+                    "plain_ms": main_case["plain_ms"],
+                    "bound_ms": main_case["bound_ms"],
+                    "bound_by": main_case["bound_by"],
+                    "library_ms": main_case["library_ms"],
+                    "kernel_ms": main_case["ms"],
+                    "bytes": main_case["bytes"],
+                    "int8": {k: timed["int8"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")},
+                    "launches_int8_run": serving_int8["paged_attend_launches"],
+                    "decode_forwards": serving_bf16["decode_forwards"],
+                    "paged_attention_ms_per_decode_step": profile_bf16.get("paged_attention_ms_per_step"),
+                }
+            ]
+        }
+        print(json.dumps(line), flush=True)
+        print(card_line(), flush=True)
+    except Exception:
+        traceback.print_exc()
+        fail("a phase failed (traceback above)")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
