@@ -41,12 +41,17 @@ def from_config(
     backend: BackendConfig | dict | None = None,
     device: str | torch.device | None = None,
     seed: int = 0,
+    trainable: bool = False,
 ) -> AutoModel:
     """Random-init constructor. ``device`` defaults to CUDA (and raises
     without it); the weights are drawn on that device from
-    ``torch.Generator(device).manual_seed(seed)``."""
+    ``torch.Generator(device).manual_seed(seed)``. ``trainable`` builds the
+    parameters with ``requires_grad`` (the finetune recipe); serving builds
+    them frozen."""
     dev = resolve_device(device)
-    model = resolve_architecture(hf_config)(hf_config, _as_backend(backend), device=dev)
+    model = resolve_architecture(hf_config)(
+        hf_config, _as_backend(backend), device=dev, trainable=trainable
+    )
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     model.init_weights(gen)

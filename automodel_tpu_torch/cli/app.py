@@ -1,10 +1,13 @@
 """CLI entry point of the torch port.
 
     python -m automodel_tpu_torch.cli.app serve -c cfg.yaml [--dotted.key=value ...]
+    python -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml [--dotted.key=value ...]
 
-``serve`` runs the stdin-JSONL serving front (serving/server.py) on the
-config's ``device`` (``cuda`` unless ``--device=cpu``). The JAX package's
-other commands are not ported yet; each exits 2 saying so.
+``serve`` runs the stdin-JSONL serving front (serving/server.py);
+``finetune llm`` and ``pretrain llm`` run the training recipe
+(recipes/train_ft.py), as ``automodel_tpu/cli/app.py:184-185`` routes them.
+Both run on the config's ``device`` (``cuda`` unless ``--device=cpu``). The
+JAX package's other commands are not ported yet; each exits 2 saying so.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ import sys
 
 from automodel_tpu_torch.config.arg_parser import parse_args_and_load_config
 
+TRAIN_COMMANDS = ("finetune", "pretrain")
 NOT_PORTED = (
-    "finetune", "pretrain", "kd", "dpo", "grpo", "benchmark", "mine", "generate",
+    "kd", "dpo", "grpo", "benchmark", "mine", "generate",
     "route", "fleet-status", "profile", "report", "goodput", "trace", "verify-ckpt",
 )
 
@@ -23,8 +27,19 @@ def _usage() -> str:
     return (
         "usage: python -m automodel_tpu_torch.cli.app serve -c config.yaml "
         "[--device=cpu] [--dotted.key=value ...]  (stdin JSONL in, one JSON "
-        "line per finished request out)"
+        "line per finished request out)\n"
+        "       python -m automodel_tpu_torch.cli.app {finetune|pretrain} llm -c config.yaml "
+        "[--device=cpu] [--dotted.key=value ...]"
     )
+
+
+def _not_ported(what: str) -> int:
+    print(
+        f"{what} is not ported to the torch backend yet; use "
+        f"python -m automodel_tpu.cli.app {what} for the JAX package",
+        file=sys.stderr,
+    )
+    return 2
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -37,13 +52,16 @@ def main(argv: list[str] | None = None) -> int:
         from automodel_tpu_torch.serving.server import main as serve_main
 
         return serve_main(parse_args_and_load_config(argv[1:]))
+    if command in TRAIN_COMMANDS:
+        domain = argv[1] if len(argv) > 1 else ""
+        if domain != "llm":
+            return _not_ported(f"{command} {domain}".strip())
+        from automodel_tpu_torch.recipes.train_ft import main as train_main
+
+        train_main(parse_args_and_load_config(argv[2:]))
+        return 0
     if command in NOT_PORTED:
-        print(
-            f"{command} is not ported to the torch backend yet; use "
-            f"python -m automodel_tpu.cli.app {command} for the JAX package",
-            file=sys.stderr,
-        )
-        return 2
+        return _not_ported(command)
     print(f"unknown command {command!r}. {_usage()}", file=sys.stderr)
     return 2
 

@@ -64,9 +64,9 @@ def model_max_positions(mcfg: Any) -> Optional[int]:
     return int(v) if v else None
 
 
-def build_auto_from_model_section(mcfg: Any, device: Any, seed: int = 0) -> Any:
+def build_auto_from_model_section(mcfg: Any, device: Any, seed: int = 0, trainable: bool = False) -> Any:
     """AutoModel from a ``model:``-shaped section (``hf_config`` +
-    ``backend``) on ``device``."""
+    ``backend``) on ``device``; ``trainable`` for the finetune recipe."""
     from automodel_tpu_torch import auto_model
 
     get = mcfg.get if hasattr(mcfg, "get") else dict(mcfg).get
@@ -83,7 +83,7 @@ def build_auto_from_model_section(mcfg: Any, device: Any, seed: int = 0) -> Any:
     return auto_model.from_config(
         hf.to_dict() if hasattr(hf, "to_dict") else dict(hf),
         backend.to_dict() if hasattr(backend, "to_dict") else dict(backend),
-        device=device, seed=seed,
+        device=device, seed=seed, trainable=trainable,
     )
 
 

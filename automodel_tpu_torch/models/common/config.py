@@ -1,10 +1,12 @@
 """Dense-transformer config and the backend choices the port takes.
 
 Port of ``automodel_tpu/models/common/config.py``. ``BackendConfig`` keeps
-the param and compute dtypes only; ``attn`` must be ``sdpa`` (the port's
-attention is plain torch for prefill and the paged kernel for decode), and
-any other value, or any key the JAX backend has but the port does not, is
-refused rather than ignored.
+the attention backend and the param and compute dtypes; ``attn`` is
+``sdpa`` (plain torch) or ``flash`` (the flash-attention kernels,
+ops/ring_flash.py) for the no-cache forward that training runs. Any other
+value, or any key the JAX backend has but the port does not (``remat``,
+``scan_layers``, ``fp8``, ``attn_block_*``, ...), is refused rather than
+ignored.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Any, Optional
 import torch
 
 from automodel_tpu_torch.ops.rope import RopeConfig
+
+ATTN_BACKENDS = ("sdpa", "flash")
 
 _DTYPES = {
     "float32": torch.float32,
@@ -36,11 +40,10 @@ class BackendConfig:
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
-        if self.attn != "sdpa":
+        if self.attn not in ATTN_BACKENDS:
             raise ValueError(
-                f"backend.attn={self.attn!r} is not ported: the torch port "
-                "attends with plain sdpa (prefill, gather decode) and the "
-                "paged-attention kernel (fused decode); set attn: sdpa"
+                f"backend.attn={self.attn!r} is not ported to the torch backend "
+                f"(it takes {list(ATTN_BACKENDS)})"
             )
         for key in ("param_dtype", "compute_dtype"):
             if getattr(self, key) not in _DTYPES:

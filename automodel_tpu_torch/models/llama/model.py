@@ -10,6 +10,11 @@ Arithmetic follows the JAX model: weights are cast to the compute dtype at
 each use, RMSNorm accumulates in fp32, RoPE is applied in the compute
 dtype, logits come out in the compute dtype.
 
+Without a cache (the training forward) each layer attends through
+``ops.attention.attention`` with the configured backend (``sdpa``, or
+``flash``: the flash-attention kernels), causal over the token index, with
+packed ``segment_ids`` if given; RoPE follows ``position_ids``.
+
 The KV-cache hook is the JAX one: with ``cache`` given, each attention
 layer calls ``cache.write(layer, k, v)`` with its post-RoPE keys and
 values and then ``cache.attend(layer, q, layer_kv, ...)``; the cache object
@@ -26,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
-from automodel_tpu_torch.ops.attention import sdpa_decode
+from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.rope import apply_rope, rope_table
 
@@ -116,14 +121,19 @@ def layer_sliding_window(cfg: TransformerConfig, layer_idx: int) -> Optional[int
 
 
 class LlamaForCausalLM(nn.Module):
-    """Inference module: parameters are created uninitialized on ``device``
-    in the param dtype; ``init_weights`` fills them from a generator,
-    ``load_state_dict`` from a carried checkpoint."""
+    """Parameters are created uninitialized on ``device`` in the param
+    dtype; ``init_weights`` fills them from a generator, ``load_state_dict``
+    from a carried checkpoint. They require grad only when the model is
+    built ``trainable`` (the finetune recipe); serving builds it frozen."""
 
     supports_kv_cache = True
 
     def __init__(
-        self, config: TransformerConfig, backend: BackendConfig = BackendConfig(), device=None
+        self,
+        config: TransformerConfig,
+        backend: BackendConfig = BackendConfig(),
+        device=None,
+        trainable: bool = False,
     ):
         super().__init__()
         self.config = config
@@ -132,7 +142,7 @@ class LlamaForCausalLM(nn.Module):
         self.model = LlamaModel(config, pd, device)
         if not config.tie_embeddings:
             self.lm_head = _linear(config.hidden_size, config.vocab_size, False, pd, device)
-        self.requires_grad_(False)
+        self.requires_grad_(trainable)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -159,7 +169,7 @@ class LlamaForCausalLM(nn.Module):
         return self.backend.compute_torch_dtype
 
     def _attention(
-        self, i: int, h: torch.Tensor, cos, sin, cache: Any
+        self, i: int, h: torch.Tensor, cos, sin, cache: Any, segment_ids: Optional[torch.Tensor]
     ) -> torch.Tensor:
         cfg = self.config
         layer = self.model.layers[i]
@@ -181,13 +191,10 @@ class LlamaForCausalLM(nn.Module):
                 scale=cfg.attn_scale, logits_soft_cap=cfg.attn_soft_cap,
             )
         else:
-            qpos = torch.arange(S, device=h.device)
-            mask = qpos[None, :] <= qpos[:, None]
-            if window is not None:
-                mask = mask & (qpos[:, None] - qpos[None, :] < window)
-            out = sdpa_decode(
-                q, k, v, kv_mask=mask[None].expand(B, S, S),
-                scale=cfg.attn_scale, logits_soft_cap=cfg.attn_soft_cap,
+            out = attention(
+                q, k, v, backend=self.backend.attn, causal=True, scale=cfg.attn_scale,
+                segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
+                sliding_window=window,
             )
         return h + _proj(out.reshape(B, S, cfg.q_dim), attn.o_proj)
 
@@ -196,6 +203,7 @@ class LlamaForCausalLM(nn.Module):
         input_ids: torch.Tensor,
         position_ids: Optional[torch.Tensor] = None,
         cache: Any = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Embed + decoder stack → final-norm hidden states [B, S, D] in
         the compute dtype."""
@@ -208,16 +216,19 @@ class LlamaForCausalLM(nn.Module):
         cos, sin = rope_table(position_ids, cfg.head_dim, cfg.rope)
         act = ACT_FNS[cfg.act]
         for i, layer in enumerate(self.model.layers):
-            h = self._attention(i, h, cos, sin, cache)
+            h = self._attention(i, h, cos, sin, cache, segment_ids)
             x = layer.post_attention_layernorm(h)
             mlp = layer.mlp
             h = h + _proj(act(_proj(x, mlp.gate_proj)) * _proj(x, mlp.up_proj), mlp.down_proj)
         return self.model.norm(h)
 
+    def lm_head_weight(self) -> torch.Tensor:
+        """The output projection [V, D] (the embedding when tied)."""
+        return self.model.embed_tokens.weight if self.config.tie_embeddings else self.lm_head.weight
+
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """Hidden states → logits in h's dtype (soft-capped if configured)."""
-        w = self.model.embed_tokens.weight if self.config.tie_embeddings else self.lm_head.weight
-        logits = F.linear(h, w.to(h.dtype))
+        logits = F.linear(h, self.lm_head_weight().to(h.dtype))
         cap = self.config.logits_soft_cap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)
@@ -228,6 +239,7 @@ class LlamaForCausalLM(nn.Module):
         input_ids: torch.Tensor,
         position_ids: Optional[torch.Tensor] = None,
         cache: Any = None,
+        segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Full forward → logits [B, S, V] in the compute dtype."""
-        return self.logits(self.hidden(input_ids, position_ids, cache))
+        return self.logits(self.hidden(input_ids, position_ids, cache, segment_ids))

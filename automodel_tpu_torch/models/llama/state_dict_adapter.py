@@ -6,7 +6,9 @@ per-layer leaves on a leading layer axis and stores projection kernels
 ``[in, out]``; the port's ``LlamaForCausalLM`` uses HF names with one
 module per layer and ``nn.Linear`` weights ``[out, in]``. Input is the tree
 as nested numpy arrays (``jax.device_get``); output is a state dict of CPU
-tensors for ``load_state_dict``.
+tensors for ``load_state_dict``. A gradient (or optimizer-moment) tree has
+the same structure as the params, so it carries over the same way and the
+tests compare grads key by key.
 """
 
 from __future__ import annotations
@@ -41,8 +43,9 @@ def _tensor(x: Any) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX Llama param tree (numpy leaves) → the port's state dict. Raises
-    on a leaf it does not know (fp8, LoRA and NF4 trees are not ported)."""
+    """JAX Llama param (or gradient) tree, numpy leaves → the port's state
+    dict. Raises on a leaf it does not know (fp8, LoRA and NF4 trees are not
+    ported)."""
     sd: dict[str, torch.Tensor] = {}
     seen: set[tuple] = set()
 

@@ -24,10 +24,10 @@ def register_architecture(*names: str):
 
 
 @register_architecture("LlamaForCausalLM")
-def _llama_builder(hf_config: Any, backend: BackendConfig, device=None):
+def _llama_builder(hf_config: Any, backend: BackendConfig, device=None, trainable: bool = False):
     from automodel_tpu_torch.models.llama import LlamaForCausalLM
 
-    return LlamaForCausalLM(TransformerConfig.from_hf(hf_config), backend, device=device)
+    return LlamaForCausalLM(TransformerConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
 
 
 def resolve_architecture(hf_config: Any) -> Callable:

@@ -1,11 +1,17 @@
-"""Cache-attending attention in plain torch, port of the ``repeat_kv`` /
-``sdpa`` / ``sdpa_decode`` part of ``automodel_tpu/ops/attention.py``.
+"""Attention backends, port of ``automodel_tpu/ops/attention.py``.
 
-The same arithmetic as the JAX code: einsum logits in fp32, scale, soft
-cap, mask with ``DEFAULT_MASK_VALUE``, fp32 softmax, probabilities cast to
-q's dtype before the value product. Chunked prefill and the gather decode
-backend run through ``sdpa_decode``; it is the plain reference the paged
-kernel is held to, not a kernel.
+- ``sdpa``: plain torch scaled dot-product attention in the JAX arithmetic
+  (einsum logits in fp32, scale, soft cap, mask with
+  ``DEFAULT_MASK_VALUE``, fp32 softmax, probabilities cast to q's dtype
+  before the value product). It is the reference the flash kernels' plain
+  version is held to; chunked prefill and the gather decode backend run
+  through ``sdpa_decode``.
+- ``flash``: the flash-attention kernels of ``ops/ring_flash.py``
+  (``csrc/flash_attention.cu`` on a CUDA tensor, their plain version on a
+  CPU tensor). It never goes to ``sdpa``: what the kernels do not carry
+  (logits soft cap, sinks) raises.
+
+The JAX ``ring`` backend waits for the context-parallel port.
 """
 
 from __future__ import annotations
@@ -25,6 +31,47 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x[:, :, :, None, :].expand(b, s, nkv, n_rep, h).reshape(b, s, nkv * n_rep, h)
 
 
+def sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    logits_soft_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """q [B, Sq, N, H], k/v [B, Sk, Nkv, H] → [B, Sq, N, H] in q.dtype.
+    Causal and window masks align the last query with the last key, as in
+    JAX; ``segment_ids`` [B, S] keep packed documents apart; ``kv_mask``
+    [B, Sk] (one mask for every query) or [B, Sq, Sk] ANDs onto the rest."""
+    sq, n, h = q.shape[1], q.shape[2], q.shape[3]
+    sk, n_kv = k.shape[1], k.shape[2]
+    k = repeat_kv(k, n // n_kv)
+    v = repeat_kv(v, n // n_kv)
+    scale = scale if scale is not None else 1.0 / (h**0.5)
+    logits = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) * scale
+    if logits_soft_cap is not None:
+        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.tril(mask, diagonal=sk - sq)
+    if sliding_window is not None:
+        pos_q = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        pos_k = torch.arange(sk, device=q.device)[None, :]
+        mask = mask & (pos_q - pos_k < sliding_window)
+    mask = mask[None, None]
+    if segment_ids is not None:
+        mask = mask & (segment_ids[:, None, :, None] == segment_ids[:, None, None, :])
+    if kv_mask is not None:
+        mask = mask & (kv_mask[:, None, :, :] if kv_mask.dim() == 3 else kv_mask[:, None, None, :])
+    logits = torch.where(mask, logits, torch.full_like(logits, DEFAULT_MASK_VALUE))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknh->bqnh", probs, v.to(q.dtype))
+
+
 def sdpa_decode(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -38,15 +85,46 @@ def sdpa_decode(
     kv_mask: [B, C] (one mask for every query) or [B, Sq, C] (per-query,
     the chunked-prefill form). The mask already encodes causality and any
     window, so no causal mask is applied here. → [B, Sq, N, H] in q.dtype."""
-    n, h = q.shape[2], q.shape[3]
-    n_kv = k.shape[2]
-    k = repeat_kv(k, n // n_kv)
-    v = repeat_kv(v, n // n_kv)
-    scale = scale if scale is not None else 1.0 / (h**0.5)
-    logits = torch.einsum("bqnh,bknh->bnqk", q.float(), k.float()) * scale
+    return sdpa(q, k, v, causal=False, scale=scale, logits_soft_cap=logits_soft_cap, kv_mask=kv_mask)
+
+
+def flash(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    logits_soft_cap: Optional[float] = None,
+    sliding_window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Flash attention through ``ops/ring_flash.flash_attention``: the CUDA
+    kernels for CUDA tensors, their plain version for CPU tensors. The
+    logits soft cap and sinks are not carried by the kernels and raise."""
+    from automodel_tpu_torch.ops import ring_flash
+
     if logits_soft_cap is not None:
-        logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
-    mask = kv_mask[:, None, :, :] if kv_mask.dim() == 3 else kv_mask[:, None, None, :]
-    logits = torch.where(mask, logits, torch.full_like(logits, DEFAULT_MASK_VALUE))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bnqk,bknh->bqnh", probs, v.to(q.dtype))
+        raise ValueError(
+            "attention backend 'flash': the logits soft cap is not ported to the "
+            "torch backend's flash kernels; use attn: sdpa"
+        )
+    return ring_flash.flash_attention(
+        q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
+        sliding_window=sliding_window, sinks=sinks,
+    )
+
+
+ATTENTION_BACKENDS = {"sdpa": sdpa, "flash": flash}
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backend: str = "sdpa", **kwargs) -> torch.Tensor:
+    """Dispatch on ``backend`` (``sdpa`` | ``flash``); anything else raises."""
+    fn = ATTENTION_BACKENDS.get(backend)
+    if fn is None:
+        raise ValueError(
+            f"Unknown attention backend {backend!r}; the torch backend has {sorted(ATTENTION_BACKENDS)} "
+            "(ring waits for the context-parallel port)"
+        )
+    return fn(q, k, v, **kwargs)

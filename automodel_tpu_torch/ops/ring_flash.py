@@ -1,0 +1,336 @@
+"""Blockwise (flash) attention: the forward and the dq / dkv backward, with
+positional masking, and the single-device ``flash_attention`` built on them.
+
+Port of ``automodel_tpu/ops/ring_flash.py``. ``flash_block_fwd``,
+``flash_block_dq`` and ``flash_block_dkv`` wrap the three hand-written
+Hopper kernels of ``csrc/flash_attention.cu`` (which replace the Pallas
+``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``): given CUDA tensors
+they launch the kernel or raise, given CPU tensors they run
+``_flash_fwd_plain`` / ``_flash_dq_plain`` / ``_flash_dkv_plain``, the same
+functions in plain fp32 torch. There is no path from a CUDA tensor to a
+plain version.
+
+Masking is positional, as in the JAX kernels: callers pass the global
+position of every query row (``q_pos``) and key (``kv_pos``); entry (i, j)
+is visible when the segment ids agree, ``q_pos[i] >= kv_pos[j]`` under
+``causal`` and ``q_pos[i] - kv_pos[j] < window`` under a window. A row that
+sees nothing gets out 0 and lse ``NEG_INF``. The CUDA kernels find their
+live tiles from the positions, so there the positions must be
+non-decreasing (the single-device and contiguous layouts); the zigzag ring
+layout and ``merge_partials`` wait for the context-parallel ring.
+
+The kernels round P (and dS) to bf16 before the P.V (dS.K, dS^T.Q) products
+where the JAX kernels keep them fp32; the plain versions keep them fp32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+# the CUDA kernels' limits (csrc/flash_attention.cu)
+CUDA_HEAD_DIMS = (64, 128)
+CUDA_DTYPES = (torch.bfloat16,)
+
+
+# -- plain versions ---------------------------------------------------------------
+
+
+def _mask(q_pos, kv_pos, seg_q, seg_kv, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """[B or 1, Sq, Sk] bool: which (query, key) pairs are visible."""
+    qp = q_pos.long()[:, None]
+    kp = kv_pos.long()[None, :]
+    m = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m = m & (qp >= kp)
+    if window is not None:
+        m = m & (qp - kp < window)
+    m = m[None]
+    if seg_q is not None:
+        m = m & (seg_q[:, :, None] == seg_kv[:, None, :])
+    return m
+
+
+def _probs(q, k, lse, mask, scale: float) -> torch.Tensor:
+    """Recomputed P = exp(s - lse) over visible pairs, [B, Nkv, rep, Sq, Sk]
+    fp32 (lse given), as the backward kernels do."""
+    s = _scores(q, k, scale)
+    B, Nkv, rep, Sq, _ = s.shape
+    lse = lse.float().reshape(B, Nkv, rep, Sq, 1)
+    m = mask[:, None, None]
+    return torch.where(m, torch.exp(torch.where(m, s - lse, torch.zeros_like(s))), torch.zeros_like(s))
+
+
+def _scores(q, k, scale: float) -> torch.Tensor:
+    """scale * q.k in fp32, [B, Nkv, rep, Sq, Sk] (head n = g * rep + r)."""
+    B, Sq, N, H = q.shape
+    Nkv = k.shape[2]
+    qf = q.float().reshape(B, Sq, Nkv, N // Nkv, H)
+    return torch.einsum("bqgrh,bkgh->bgrqk", qf, k.float()) * scale
+
+
+def _flash_fwd_plain(q, k, v, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale):
+    """The forward kernel's function in plain fp32 torch: → (out [B, Sq, N, H]
+    in q.dtype, lse [B, N, Sq] fp32)."""
+    B, Sq, N, H = q.shape
+    s = _scores(q, k, scale)
+    m = _mask(q_pos, kv_pos, seg_q, seg_kv, causal, window)[:, None, None]
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.where(m, torch.exp(s - mx), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bgrqk,bkgh->bgrqh", p, v.float())
+    safe = l.clamp_min(1e-30)
+    out = torch.where(l > 0, acc / safe, torch.zeros_like(acc))
+    lse = torch.where(l > 0, mx + torch.log(safe), torch.full_like(l, NEG_INF))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, N, H).to(q.dtype)
+    return out, lse.reshape(B, N, Sq)
+
+
+def _flash_dq_plain(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale):
+    """The dq kernel's function in plain fp32 torch: → dq [B, Sq, N, H] fp32."""
+    B, Sq, N, H = q.shape
+    Nkv = k.shape[2]
+    rep = N // Nkv
+    p = _probs(q, k, lse, _mask(q_pos, kv_pos, seg_q, seg_kv, causal, window), scale)
+    dof = do.float().reshape(B, Sq, Nkv, rep, H)
+    dp = torch.einsum("bqgrh,bkgh->bgrqk", dof, v.float())
+    ds = p * (dp - delta.float().reshape(B, Nkv, rep, Sq, 1))
+    dq = scale * torch.einsum("bgrqk,bkgh->bqgrh", ds, k.float())
+    return dq.reshape(B, Sq, N, H)
+
+
+def _flash_dkv_plain(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale):
+    """The dkv kernel's function in plain fp32 torch: → (dk, dv) [B, Sk,
+    Nkv, H] fp32, summed over the q heads of each kv head."""
+    B, Sq, N, H = q.shape
+    Nkv = k.shape[2]
+    rep = N // Nkv
+    p = _probs(q, k, lse, _mask(q_pos, kv_pos, seg_q, seg_kv, causal, window), scale)
+    dof = do.float().reshape(B, Sq, Nkv, rep, H)
+    dv = torch.einsum("bgrqk,bqgrh->bkgh", p, dof)
+    dp = torch.einsum("bqgrh,bkgh->bgrqk", dof, v.float())
+    ds = p * (dp - delta.float().reshape(B, Nkv, rep, Sq, 1))
+    dk = scale * torch.einsum("bgrqk,bqgrh->bkgh", ds, q.float().reshape(B, Sq, Nkv, rep, H))
+    return dk, dv
+
+
+# -- the CUDA kernels -------------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    from automodel_tpu_torch.ops import _cuda_build
+
+    lib = _cuda_build.load("flash_attention")
+    if not hasattr(lib, "_flash_bound"):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        shape = [i] * 8 + [f, p]  # B, Sq, Sk, N, Nkv, H, causal, window, scale, stream
+        lib.flash_attention_fwd.argtypes = [p] * 9 + shape
+        lib.flash_attention_dq.argtypes = [p] * 11 + shape
+        lib.flash_attention_dkv.argtypes = [p] * 12 + shape
+        for fn in (lib.flash_attention_fwd, lib.flash_attention_dq, lib.flash_attention_dkv):
+            fn.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib._flash_bound = True
+    return lib
+
+
+def _check_cuda(name: str, q, k, v, q_pos, kv_pos, seg_q, seg_kv, window, **more) -> None:
+    """Raise on what the kernels do not take; positions must be
+    non-decreasing, which is checked on the card without a host sync."""
+    if q.dtype not in CUDA_DTYPES:
+        raise ValueError(f"{name}: the CUDA kernel takes {CUDA_DTYPES} q/k/v, got {q.dtype}")
+    B, Sq, N, H = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != H or v.shape != k.shape:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    Sk, Nkv = k.shape[1], k.shape[2]
+    if N % Nkv:
+        raise ValueError(f"{name}: {N} heads not a multiple of {Nkv} kv heads")
+    if H not in CUDA_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {H} (the CUDA kernel takes {CUDA_HEAD_DIMS})")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: sliding window {window} must be >= 1")
+    tensors = dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos, **more)
+    if seg_q is not None:
+        tensors.update(seg_q=seg_q, seg_kv=seg_kv)
+    for t_name, t in tensors.items():
+        if t.device != q.device:
+            raise ValueError(f"{name}: {t_name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {t_name} must be contiguous")
+        if t_name in ("q", "k", "v", "dout") and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {t_name} must start on a 16-byte boundary (cp.async)")
+    for t_name, t in tensors.items():
+        if t_name in ("k", "v", "dout") and t.dtype != q.dtype:
+            raise ValueError(f"{name}: {t_name} is {t.dtype}, q is {q.dtype}")
+        if t_name in ("lse", "delta") and (t.dtype != torch.float32 or tuple(t.shape) != (B, N, Sq)):
+            raise ValueError(f"{name}: {t_name} must be fp32 [{B}, {N}, {Sq}]")
+    want = dict(q_pos=(Sq,), kv_pos=(Sk,), seg_q=(B, Sq), seg_kv=(B, Sk))
+    for t_name, shape in want.items():
+        t = tensors.get(t_name)
+        if t is not None and (t.dtype != torch.int32 or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: {t_name} must be int32 {list(shape)}")
+    if Sq > 1:
+        torch._assert_async(torch.all(q_pos[1:] >= q_pos[:-1]), f"{name}: q_pos must be non-decreasing")
+    if Sk > 1:
+        torch._assert_async(torch.all(kv_pos[1:] >= kv_pos[:-1]), f"{name}: kv_pos must be non-decreasing")
+
+
+def _shape_args(q, k, causal, window, scale) -> list:
+    B, Sq, N, H = q.shape
+    Sk, Nkv = k.shape[1], k.shape[2]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return [B, Sq, Sk, N, Nkv, H, int(bool(causal)), -1 if window is None else int(window), float(scale), stream]
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(lib, rc: int, which: str) -> None:
+    if rc != 0:
+        msg = lib.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention_{which} kernel launch failed ({rc}): {msg}")
+
+
+def _device_kind(name: str, q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    return q.device.type
+
+
+# -- the wrappers -----------------------------------------------------------------
+
+
+def flash_block_fwd(q, k, v, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale):
+    """q [B, Sq, N, H] x k/v [B, Sk, Nkv, H] → (out [B, Sq, N, H] in q.dtype,
+    lse [B, N, Sq] fp32). Positions int32 [Sq] / [Sk]; segment ids int32
+    [B, Sq] / [B, Sk] or None. CUDA tensors launch the forward kernel (and
+    count it in ``flash_block_fwd.launches``); CPU tensors run the plain
+    version."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if _device_kind("flash_block_fwd", q) == "cpu":
+        return _flash_fwd_plain(q, k, v, q_pos, kv_pos, seg_q, seg_kv, **kw)
+    _check_cuda("flash_block_fwd", q, k, v, q_pos, kv_pos, seg_q, seg_kv, window)
+    B, Sq, N, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, N, Sq), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+            _ptr(seg_q), _ptr(seg_kv), out.data_ptr(), lse.data_ptr(),
+            *_shape_args(q, k, causal, window, scale),
+        )
+    _raise_on(lib, rc, "fwd")
+    flash_block_fwd.launches += 1
+    return out, lse
+
+
+def flash_block_dq(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale):
+    """→ dq [B, Sq, N, H] fp32 from the saved lse and delta = rowsum(dO *
+    out), both [B, N, Sq] fp32. CUDA tensors launch the dq kernel (counted
+    in ``flash_block_dq.launches``); CPU tensors run the plain version."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if _device_kind("flash_block_dq", q) == "cpu":
+        return _flash_dq_plain(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, **kw)
+    _check_cuda("flash_block_dq", q, k, v, q_pos, kv_pos, seg_q, seg_kv, window, dout=do, lse=lse, delta=delta)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            q_pos.data_ptr(), kv_pos.data_ptr(), _ptr(seg_q), _ptr(seg_kv), dq.data_ptr(),
+            *_shape_args(q, k, causal, window, scale),
+        )
+    _raise_on(lib, rc, "dq")
+    flash_block_dq.launches += 1
+    return dq
+
+
+def flash_block_dkv(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale):
+    """→ (dk, dv) [B, Sk, Nkv, H] fp32, already summed over each GQA group.
+    CUDA tensors launch the dkv kernel (counted in
+    ``flash_block_dkv.launches``); CPU tensors run the plain version."""
+    kw = dict(causal=causal, window=window, scale=scale)
+    if _device_kind("flash_block_dkv", q) == "cpu":
+        return _flash_dkv_plain(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, **kw)
+    _check_cuda("flash_block_dkv", q, k, v, q_pos, kv_pos, seg_q, seg_kv, window, dout=do, lse=lse, delta=delta)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            q_pos.data_ptr(), kv_pos.data_ptr(), _ptr(seg_q), _ptr(seg_kv), dk.data_ptr(), dv.data_ptr(),
+            *_shape_args(q, k, causal, window, scale),
+        )
+    _raise_on(lib, rc, "dkv")
+    flash_block_dkv.launches += 1
+    return dk, dv
+
+
+flash_block_fwd.launches = 0
+flash_block_dq.launches = 0
+flash_block_dkv.launches = 0
+
+
+def flash_block_bwd(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale):
+    """The JAX ``flash_block_bwd``: → (dq [B, Sq, N, H], dk, dv [B, Sk, Nkv,
+    H]), all fp32."""
+    args = (q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv)
+    kw = dict(causal=causal, window=window, scale=scale)
+    dq = flash_block_dq(*args, **kw)
+    dk, dv = flash_block_dkv(*args, **kw)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, pos, seg, causal, window, scale):
+        out, lse = flash_block_fwd(q, k, v, pos, pos, seg, seg, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, pos, seg)
+        ctx.kw = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, pos, seg = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, N, S]
+        dq, dk, dv = flash_block_bwd(q, k, v, dout, lse, delta, pos, pos, seg, seg, **ctx.kw)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    sliding_window: Optional[int] = None,
+    sinks: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-device flash attention over the blockwise kernels, one kv
+    "ring step" covering the whole sequence. q [B, S, N, H] x k/v [B, S,
+    Nkv, H] → [B, S, N, H] in q.dtype; differentiable (the backward runs
+    the dq and dkv kernels). Any S: the kernels mask the ragged edge
+    themselves. Sinks are not ported (gpt-oss); they raise."""
+    if sinks is not None:
+        raise ValueError(
+            "flash_attention: sinks are not ported to the torch backend's flash kernels"
+        )
+    S, H = q.shape[1], q.shape[3]
+    scale = scale if scale is not None else 1.0 / (H**0.5)
+    pos = torch.arange(S, dtype=torch.int32, device=q.device)
+    seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
+    return _FlashAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), pos, seg, causal, sliding_window, scale
+    )

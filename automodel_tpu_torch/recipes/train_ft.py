@@ -1,0 +1,186 @@
+"""LLM finetune / pretrain recipe, port of the core of
+``TrainFinetuneRecipeForNextTokenPrediction`` in
+``automodel_tpu/recipes/train_ft.py`` (setup :74, loop :1109).
+
+    python -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml [--device=cpu]
+
+Sections read: ``seed``, ``device`` (``cuda`` unless ``cpu``), ``model``
+(``hf_config`` + ``backend``, random weights from the seed), ``dataset``
+(``MockSFTDataset``), ``dataloader``, ``step_scheduler``, ``optimizer``,
+``loss_fn``, ``logging.metrics_path`` (default
+``<output_dir>/train_metrics.jsonl``), ``fault_tolerance.on_nonfinite``
+(``raise`` | ``skip``). One log record per ``log_every_steps`` carries
+``loss``, ``grad_norm``, ``lr``, ``num_label_tokens``, ``step``,
+``step_time_s`` and ``tps``.
+
+Sections the port does not run are refused with a ``ValueError`` naming
+them, never ignored: ``checkpoint`` when enabled, ``peft``, ``qat``,
+``telemetry``, ``profiling``, ``distributed_guard``, ``metrics_server``,
+``data`` (prefetch), ``generation``, ``validation_dataset``, any other
+``fault_tolerance`` key, and any ``distributed`` degree other than 1.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from automodel_tpu_torch.data.collators import stack_microbatches
+from automodel_tpu_torch.data.loader import DataLoader
+from automodel_tpu_torch.data.sft import MockSFTDataset
+from automodel_tpu_torch.device import resolve_device
+from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+from automodel_tpu_torch.loggers.metric_logger import MetricLogger
+from automodel_tpu_torch.optim.builders import build_optimizer
+from automodel_tpu_torch.optim.scheduler import build_lr_schedule
+from automodel_tpu_torch.training.step_scheduler import StepScheduler
+from automodel_tpu_torch.training.train_state import TrainState
+from automodel_tpu_torch.training.train_step import build_train_step, make_causal_lm_loss
+
+logger = logging.getLogger(__name__)
+
+# top-level sections the recipe reads; every other one is refused
+READ_SECTIONS = (
+    "seed", "device", "output_dir", "model", "dataset", "dataloader", "step_scheduler",
+    "optimizer", "loss_fn", "logging", "checkpoint", "fault_tolerance", "distributed",
+)
+DEGREES = ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep")
+DATASETS = {"MockSFTDataset": MockSFTDataset}
+
+
+def _plain(section: Any) -> Any:
+    return section.to_dict() if hasattr(section, "to_dict") else section
+
+
+def _refuse(name: str, why: str) -> None:
+    raise ValueError(f"{name}: {why} is not ported to the torch backend yet")
+
+
+def check_sections(cfg: Any) -> None:
+    """Raise ``ValueError`` naming the first section the port does not run."""
+    for name in cfg:
+        if name not in READ_SECTIONS and cfg[name] is not None:
+            section = _plain(cfg[name])
+            keys = f" ({', '.join(map(str, section))})" if isinstance(section, dict) and section else ""
+            _refuse(f"{name}{keys}", f"the {name} section")
+    ckpt = _plain(cfg.get("checkpoint", None)) or {}
+    if ckpt.get("enabled", False):
+        _refuse("checkpoint.enabled", "checkpointing")
+    ft = dict(_plain(cfg.get("fault_tolerance", None)) or {})
+    if ft.pop("on_nonfinite", "raise") not in ("raise", "skip"):
+        _refuse("fault_tolerance.on_nonfinite", "a policy other than raise|skip")
+    if ft:
+        _refuse(f"fault_tolerance ({', '.join(ft)})", "resilience beyond on_nonfinite")
+    dist = dict(_plain(cfg.get("distributed", None)) or {})
+    other = {k: v for k, v in dist.items() if k not in DEGREES or v not in (None, 1)}
+    if other:
+        _refuse(f"distributed {other}", "running on more than one device")
+    log_cfg = dict(_plain(cfg.get("logging", None)) or {})
+    log_cfg.pop("metrics_path", None)
+    if log_cfg:
+        _refuse(f"logging ({', '.join(log_cfg)})", "a metrics sink other than the JSONL file")
+
+
+def build_dataset(section: Any) -> Any:
+    """The ``dataset:`` section: ``_target_`` naming ``MockSFTDataset`` (of
+    either package) plus its arguments."""
+    kw = dict(_plain(section) or {})
+    target = str(kw.pop("_target_", ""))
+    cls = DATASETS.get(target.rsplit(".", 1)[-1])
+    if cls is None:
+        _refuse(f"dataset._target_={target!r}", f"a dataset other than {sorted(DATASETS)}")
+    return cls(**kw)
+
+
+class TrainFinetuneRecipeForNextTokenPrediction:
+    def __init__(self, cfg: Any):
+        self.cfg = cfg
+
+    def setup(self) -> None:
+        cfg = self.cfg
+        check_sections(cfg)
+        self.device = resolve_device(cfg.get("device", None))
+        seed = int(cfg.get("seed", 42))
+        self.auto = build_auto_from_model_section(cfg.model, self.device, seed=seed, trainable=True)
+        self.model = self.auto.model
+        params = list(self.model.parameters())
+
+        ocfg = dict(_plain(cfg.get("optimizer", None)) or {"name": "adamw"})
+        ocfg.pop("_target_", None)
+        self.lr_schedule = build_lr_schedule(lr=ocfg.get("lr", 1e-4), **dict(ocfg.get("lr_schedule") or {}))
+        self.state = TrainState(params=params, optimizer=build_optimizer(params, **ocfg))
+
+        lcfg = dict(_plain(cfg.get("loss_fn", None)) or {})
+        lcfg.pop("_target_", None)
+        loss_name = lcfg.pop("name", "masked_ce")
+        self.loss_fn = make_causal_lm_loss(self.model, loss=loss_name, **lcfg)
+        on_nonfinite = (_plain(cfg.get("fault_tolerance", None)) or {}).get("on_nonfinite", "raise")
+        self.on_nonfinite = on_nonfinite
+        self.train_step = build_train_step(self.loss_fn, self.lr_schedule, on_nonfinite=on_nonfinite)
+
+        if cfg.get("dataset", None) is None:
+            raise ValueError("A `dataset:` section is required")
+        dl = dict(_plain(cfg.get("dataloader", None)) or {})
+        dl.pop("_target_", None)
+        self.dataloader = DataLoader(build_dataset(cfg.dataset), seed=seed, **dl)
+        scfg = dict(_plain(cfg.get("step_scheduler", None)) or {})
+        self.step_scheduler = StepScheduler(dataloader=self.dataloader, **scfg)
+
+        out_dir = Path(cfg.get("output_dir", None) or "runs/torch_finetune")
+        path = cfg.get("logging.metrics_path", None) or str(out_dir / "train_metrics.jsonl")
+        self.metric_logger = MetricLogger(path)
+        logger.info("training on %s, metrics to %s", self.device, path)
+
+    def _place(self, stacked: dict) -> dict:
+        """[A]-stacked numpy batch → tensors on the training device."""
+        return {
+            k: torch.from_numpy(v).to(self.device, non_blocking=True)
+            for k, v in stacked.items()
+            if isinstance(v, np.ndarray)
+        }
+
+    def run_train_validation_loop(self) -> dict:
+        last: dict = {}
+        tokens_window = steps_window = 0
+        first = True
+        t_window = time.perf_counter()
+        for group in self.step_scheduler:
+            stacked = stack_microbatches(group)
+            metrics = self.train_step(self.state, self._place(stacked))
+            step = self.step_scheduler.step
+            if self.on_nonfinite == "raise" and bool(metrics["nonfinite"]):
+                raise FloatingPointError(
+                    f"non-finite loss or gradient at step {step} (fault_tolerance.on_nonfinite: raise)"
+                )
+            tokens_window += int(stacked["input_ids"].size)
+            steps_window += 1
+            if not (first or self.step_scheduler.is_log_step):
+                continue
+            rec = {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
+            dt = time.perf_counter() - t_window
+            if first:
+                # kernel builds and allocator warm-up land here, as the first
+                # JAX step's compile does in compile_time_s
+                rec["first_step_s"] = dt
+            else:
+                rec.update(steps_spanned=steps_window, step_time_s=dt / steps_window, tps=tokens_window / dt)
+            if first and not self.step_scheduler.is_log_step:
+                logger.info("first step %.3fs", dt)
+            else:
+                self.metric_logger.log(rec, step=step)
+                last = rec
+            first = False
+            tokens_window = steps_window = 0
+            t_window = time.perf_counter()
+        return last
+
+
+def main(cfg: Any) -> dict:
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(cfg)
+    recipe.setup()
+    return recipe.run_train_validation_loop()

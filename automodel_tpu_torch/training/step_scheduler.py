@@ -1,0 +1,49 @@
+"""Step scheduling, port of ``automodel_tpu/training/step_scheduler.py``:
+epochs, grad-accumulation groups, ``max_steps`` and the log cadence.
+Signal handling, ``ckpt_every_steps`` and ``val_every_steps`` wait with
+checkpointing and validation (a section that sets them is refused as an
+unexpected argument)."""
+
+from __future__ import annotations
+
+from typing import Any, Iterator, Optional
+
+
+class StepScheduler:
+    def __init__(
+        self,
+        grad_acc_steps: int = 1,
+        log_every_steps: int = 1,
+        num_epochs: int = 1,
+        max_steps: Optional[int] = None,
+        dataloader: Any = None,
+    ):
+        self.grad_acc_steps = int(grad_acc_steps)
+        self.log_every_steps = int(log_every_steps)
+        self.num_epochs = int(num_epochs)
+        self.max_steps = max_steps
+        self.dataloader = dataloader
+        self.step = 0  # optimizer steps taken
+        self.epoch = 0
+
+    def __iter__(self) -> Iterator[list]:
+        """One item per optimizer step: a list of ``grad_acc_steps``
+        microbatches. A trailing partial group of an epoch is dropped."""
+        while self.epoch < self.num_epochs:
+            group: list = []
+            for batch in self.dataloader:
+                group.append(batch)
+                if len(group) < self.grad_acc_steps:
+                    continue
+                if self.max_steps is not None and self.step >= self.max_steps:
+                    return
+                # the step number of the optimizer step being taken, as
+                # TrainState.step reads after it
+                self.step += 1
+                yield group
+                group = []
+            self.epoch += 1
+
+    @property
+    def is_log_step(self) -> bool:
+        return self.log_every_steps > 0 and self.step % self.log_every_steps == 0

@@ -1,0 +1,115 @@
+"""The training step, port of ``build_train_step`` (:30) and
+``make_causal_lm_loss`` (:295) of ``automodel_tpu/training/train_step.py``.
+
+One step takes a batch whose leaves carry a leading microbatch axis [A,
+...]: gradients of every microbatch's summed token loss, accumulated in
+fp32 when A > 1 and kept in the param dtype when A == 1 (:135-148);
+normalized by the global label-token count of all microbatches (:170-176);
+the fp32 global grad norm; a ``nonfinite`` flag; and the optimizer update.
+With ``on_nonfinite: skip`` a non-finite step applies nothing, so params
+and Adam moments stay bit-identical (:211-224); the step counter still
+advances. MoE extras, pipeline info, ``bound_params``, QAT and LoRA hooks
+are not ported.
+
+``nonfinite`` is read from the loss and the fp32 grad norm: any NaN or Inf
+gradient element makes the norm non-finite. Deciding whether to apply the
+update reads it on the host (one synchronisation per step).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from automodel_tpu_torch.optim.builders import global_norm_fp32
+from automodel_tpu_torch.training.train_state import TrainState
+
+ON_NONFINITE = ("raise", "skip")
+
+
+def build_train_step(
+    loss_fn: Callable[[dict], tuple],
+    lr_schedule: Optional[Callable[[int], float]] = None,
+    on_nonfinite: str = "raise",
+) -> Callable[[TrainState, dict], dict]:
+    """(state, batch) → metrics, updating ``state`` in place.
+
+    ``loss_fn(microbatch) -> (loss_sum, n_valid_tokens)``, loss_sum the
+    un-normalized token-loss sum. Metrics are tensors on the batch's device
+    (``loss``, ``grad_norm``, ``num_label_tokens``, ``nonfinite``) plus the
+    host ints/floats ``step``, ``lr`` and, under ``skip``, ``skipped``. With
+    ``raise`` the caller checks ``nonfinite`` (recipes/train_ft.py)."""
+    if on_nonfinite not in ON_NONFINITE:
+        raise ValueError(f"on_nonfinite={on_nonfinite!r} is not ported (want one of {ON_NONFINITE})")
+
+    def step_fn(state: TrainState, batch: dict) -> dict:
+        params = state.params
+        n_mb = batch["input_ids"].shape[0]
+        loss_sum = n_tokens = grads = None
+        for i in range(n_mb):
+            mb = {k: v[i] for k, v in batch.items() if isinstance(v, torch.Tensor)}
+            mb_loss, mb_n = loss_fn(mb)
+            mb_loss = mb_loss.float()
+            mb_grads = torch.autograd.grad(mb_loss, params)
+            mb_loss = mb_loss.detach()
+            if n_mb == 1:
+                # no accumulation: the grads stay in the param dtype
+                loss_sum, n_tokens, grads = mb_loss, mb_n, list(mb_grads)
+            elif grads is None:
+                loss_sum, n_tokens = mb_loss, mb_n
+                grads = [g.float() for g in mb_grads]
+            else:
+                loss_sum, n_tokens = loss_sum + mb_loss, n_tokens + mb_n
+                for acc, g in zip(grads, mb_grads):
+                    acc.add_(g)  # in fp32, without an fp32 copy of g
+            del mb_grads
+        denom = torch.clamp(n_tokens, min=1).float()
+        # divide in fp32 even for bf16 grads (a bf16-rounded token count is
+        # off by up to 0.4%)
+        if n_mb == 1:
+            grads = [(g.float() / denom).to(g.dtype) for g in grads]
+        else:
+            for g in grads:
+                g.div_(denom)
+        grad_norm = global_norm_fp32(grads)
+        nonfinite = ~(torch.isfinite(loss_sum) & torch.isfinite(grad_norm))
+        metrics: dict[str, Any] = {
+            "loss": loss_sum / denom,
+            "grad_norm": grad_norm,
+            "num_label_tokens": n_tokens,
+            "nonfinite": nonfinite,
+            "step": state.step + 1,
+        }
+        if lr_schedule is not None:
+            metrics["lr"] = float(lr_schedule(state.step))
+        skip = on_nonfinite == "skip" and bool(nonfinite)
+        if not skip:
+            state.optimizer.update(grads, grad_norm)
+        if on_nonfinite == "skip":
+            metrics["skipped"] = skip
+        state.step += 1
+        return metrics
+
+    return step_fn
+
+
+def make_causal_lm_loss(model: Any, loss: str = "masked_ce", **loss_kwargs: Any) -> Callable[[dict], tuple]:
+    """Next-token-prediction loss over the port's causal LM: labels are
+    already shifted by the collator. ``fused_linear_ce`` never materializes
+    the full logits (ops/losses.py)."""
+    from automodel_tpu_torch.ops import losses as L
+
+    build = None if loss == "fused_linear_ce" else L.build_loss(loss, **loss_kwargs)
+
+    def loss_fn(mb: dict):
+        kw = {k: mb[k] for k in ("position_ids", "segment_ids") if mb.get(k) is not None}
+        if build is None:
+            hidden = model.hidden(mb["input_ids"], **kw)
+            kernel = model.lm_head_weight().to(hidden.dtype).t()
+            return L.fused_linear_cross_entropy(
+                hidden, kernel, mb["labels"], logits_soft_cap=model.config.logits_soft_cap, **loss_kwargs
+            )
+        return build(model(mb["input_ids"], **kw), mb["labels"])
+
+    return loss_fn

@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the torch port's serving path on one NVIDIA card and check it.
+"""Drive the torch port's serving and training paths on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Phases, each fatal on failure (exit 1, and no final ``ok`` line):
 
 1. the card: ``nvidia-smi`` name and power limit, and torch's device name;
-2. build every CUDA kernel of the path from ``automodel_tpu_torch/csrc``
+2. build every CUDA kernel of the paths from ``automodel_tpu_torch/csrc``
    with nvcc (one process per source, all at once);
-3. each kernel against its plain torch version on the card at the serving
-   path's shapes (paged attention: B=16, N=32, Nkv=8, H=128, BS=16,
-   ragged lengths 1..4096; Sq 1 and 5, bf16 and int8 pools, a window case,
-   a soft-cap case, and cases whose attention is sharp, with q four times
-   larger), with times of the kernel, the plain version, and
-   ``scaled_dot_product_attention`` over the gathered view as the library
-   yardstick, beside the least time the card could take;
+3. each kernel against its plain torch version on the card at its path's
+   shapes, with times of the kernel, the plain version and a library
+   yardstick, beside the least time the card could take:
+   - paged attention (serving): B=16, N=32, Nkv=8, H=128, BS=16, ragged
+     lengths 1..4096; Sq 1 and 5, bf16 and int8 pools, a window case, a
+     soft-cap case, and cases whose attention is sharp (q four times
+     larger); the yardstick is ``scaled_dot_product_attention`` over the
+     gathered view;
+   - flash attention forward, dq and dk/dv (training): B=1, S=4096, N=32,
+     Nkv=8, H=128, causal; then a 1024 window, 4 packed documents,
+     non-causal, H=64, S=4000 and sharp attention; the yardstick is
+     ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
+     forward, and forward+backward;
 4. the serving engine at full Llama-3-8B width (random bf16 weights from a
    seed), built by the ``serve`` CLI's own ``build_engine`` from a config
    dict: 16 greedy requests, 8 of them sharing a 512-token prefix, on a
@@ -24,7 +31,15 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    decode forward;
 5. one decode step at full width on the fused backend (the kernel) against
    the gather backend (plain attention over the gathered view): logits
-   must agree.
+   must agree;
+6. training at Llama-3-8B widths cut to 8 layers
+   (``automodel_tpu_torch/configs/sft_llama3_8b.yaml``), built by the
+   ``finetune`` CLI's own recipe class: 4 steps of 2 microbatches of 4096
+   tokens through the flash kernels. Every loss and grad norm must be
+   finite, the weights must move, and each flash kernel must have launched
+   layers x microbatches x steps times; then a profile of one step;
+7. one step's loss and grad norm at those widths with ``attn: flash``
+   against ``attn: sdpa`` (plain attention), same weights and batch.
 
 The ``kernels`` JSON line comes third from last, the ``nvidia-smi`` card
 line second, and the last line is ``{"ok": true, "device": {...}}``. It
@@ -69,6 +84,48 @@ KERNEL_ROW_REL_TOL = 2.0**-7
 # (max |diff| 2.06% of max |logit|, min cosine 0.99982; PERF.md).
 LOGITS_REL_TOL = 0.06
 LOGITS_MIN_COSINE = 0.999
+
+
+# flash kernels vs plain (tests/test_torch_cuda_kernels.py holds the same
+# limits): out per row as above (the kernel also rounds P to bf16 before
+# P.V, ~2^-8 in a CPU emulation); dq/dk/dv per row within 2^-6 (P and dS
+# rounded to bf16 before the second products, ~2^-8 emulated), a row judged
+# against at least 1/8 of the tensor's RMS row norm (a row whose exact value
+# cancels to ~0 holds only rounding noise); lse, fp32 in both, within 1e-3.
+# Excluding the causal diagonal or cutting a 1024 window to 1023 moves the
+# worst row of each past 4x its limit
+# (tests/test_torch_cuda_kernels.py::test_flash_row_check_catches_an_off_by_one_mask).
+FLASH_OUT_TOL = 2.0**-7
+FLASH_GRAD_TOL = 2.0**-6
+FLASH_GRAD_FLOOR = 0.125
+FLASH_LSE_TOL = 1e-3
+# The training recipe's config, automodel_tpu_torch/configs/sft_llama3_8b.yaml
+# as a dict (the card has no YAML reader; tests/test_torch_cli.py checks the
+# two agree): Llama-3-8B widths, depth cut to 8 layers.
+SFT_LLAMA3_8B = dict(
+    seed=42,
+    model=dict(
+        hf_config=dict(LLAMA3_8B, num_hidden_layers=8),
+        backend=dict(attn="flash", param_dtype="bfloat16", compute_dtype="bfloat16"),
+    ),
+    dataset=dict(_target_="automodel_tpu_torch.data.sft.MockSFTDataset", vocab_size=128256,
+                 seq_length=4096, num_samples=1024),
+    dataloader=dict(global_batch_size=1),
+    step_scheduler=dict(grad_acc_steps=1, num_epochs=1, log_every_steps=10),
+    optimizer=dict(name="adamw", lr=1e-5, weight_decay=0.01, betas=[0.9, 0.95], grad_clip_norm=1.0,
+                   lr_schedule=dict(style="cosine", warmup_steps=100, decay_steps=2000)),
+    loss_fn=dict(name="fused_linear_ce"),
+    logging=dict(metrics_path="runs/torch_sft_llama3_8b/train_metrics.jsonl"),
+)
+TRAIN_STEPS = 4
+TRAIN_ACC = 2
+# attn flash vs sdpa over one step at 8 layers (loss and fp32 grad norm,
+# relative): the kernels round P and dS to bf16 where sdpa keeps the
+# backward in fp32, and sdpa rounds P to bf16 before P.V where the kernel
+# keeps the forward's normalisation in fp32. Limits at ~7x the first reading
+# on an H100 (loss 1.33e-5, grad norm 2.78e-5; PERF.md).
+STEP_LOSS_REL_TOL = 1e-4
+STEP_GRAD_NORM_REL_TOL = 2e-4
 
 
 def row_rel_err(out, ref) -> float:
@@ -455,6 +512,384 @@ def phase_fused_vs_gather(torch, auto) -> dict:
     return out
 
 
+# -- phase 3: flash attention against its plain versions ----------------------
+
+
+def grad_row_err(out, ref) -> float:
+    """Worst row's |out - ref| / max(|ref|, FLASH_GRAD_FLOOR x RMS row norm)."""
+    import torch
+
+    d = (out.float() - ref.float()).norm(dim=-1)
+    r = ref.float().norm(dim=-1)
+    floor = FLASH_GRAD_FLOOR * r.pow(2).mean().sqrt()
+    return float((d / torch.maximum(r, floor).clamp_min(1e-30)).max())
+
+
+def flash_case(torch, dev, S=4096, H=128, B=1, N=32, Nkv=8, sharp=1.0, docs=0, seed=0):
+    """bf16 q/k/v/dO from a seeded generator on the card, positions 0..S-1,
+    and with ``docs`` packed documents of ragged lengths segment ids."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, S, N, H), generator=g, device=dev) * sharp).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Nkv, H), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    do = torch.randn((B, S, N, H), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    seg = None
+    if docs:
+        cuts = torch.stack([torch.randperm(S - 1, generator=g, device=dev)[: docs - 1] + 1 for _ in range(B)])
+        seg = (pos[None, :, None] >= cuts.sort(dim=1).values[:, None, :]).sum(-1).to(torch.int32)
+    return q, k, v, do, pos, seg
+
+
+def flash_bound(q, k, pairs: int) -> dict:
+    """Least time of each kernel: its bf16 products over the live (q, k)
+    pairs (fwd 2, dq 3, dkv 4 products of 2*H flops per pair and q head)
+    over the peak, against its bytes (each input read once, each output
+    written once) over HBM bandwidth. → {kernel: (ms, bound_by)}."""
+    B, S, N, H = q.shape
+    Sk, Nkv = k.shape[1], k.shape[2]
+    qb, kb, lse_b = B * S * N * H * 2, B * Sk * Nkv * H * 2, B * N * S * 4
+    work = dict(
+        fwd=(2, qb + 2 * kb + qb + lse_b),
+        dq=(3, 2 * qb + 2 * kb + 2 * lse_b + 2 * qb),
+        dkv=(4, 2 * qb + 2 * kb + 2 * lse_b + 4 * kb),
+    )
+    out = {}
+    for name, (products, nbytes) in work.items():
+        t_ops = products * 2 * H * pairs * N / BF16_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name] = (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def flash_library_ms(torch, q, k, v, do, causal: bool) -> tuple[float, float]:
+    """``scaled_dot_product_attention`` on the [B, N, S, H] views, forward
+    and forward+backward (a yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(is_causal=causal, enable_gqa=True)
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=20)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+
+    def fwd_bwd():
+        F.scaled_dot_product_attention(*leaves, **kw).backward(dot)
+
+    return fwd, cuda_ms(fwd_bwd, iters=10)
+
+
+def phase_flash_kernels(torch, dev) -> dict:
+    from automodel_tpu_torch.ops import ring_flash as rf
+
+    cases = [
+        dict(name="causal", main=True),
+        dict(name="window 1024", window=1024),
+        dict(name="4 packed documents", docs=4),
+        dict(name="non-causal", causal=False),
+        dict(name="H=64", H=64),
+        dict(name="S=4000", S=4000),
+        dict(name="sharp (q x 4)", sharp=4.0),
+    ]
+    results = []
+    for i, c in enumerate(cases):
+        c = dict(dict(main=False, window=None, causal=True, S=4096, H=128, docs=0, sharp=1.0), **c)
+        q, k, v, do, pos, seg = flash_case(torch, dev, S=c["S"], H=c["H"], sharp=c["sharp"], docs=c["docs"], seed=i)
+        kw = dict(causal=c["causal"], window=c["window"], scale=c["H"] ** -0.5)
+        out, lse = rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw)
+        r_out, r_lse = rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)
+        # both backward versions read the plain forward's lse and delta
+        delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+        bargs = (q, k, v, do, r_lse, delta, pos, pos, seg, seg)
+        dq = rf.flash_block_dq(*bargs, **kw)
+        dk, dv = rf.flash_block_dkv(*bargs, **kw)
+        torch.cuda.synchronize()
+        r_dq = rf._flash_dq_plain(*bargs, **kw)
+        r_dk, r_dv = rf._flash_dkv_plain(*bargs, **kw)
+        got, want = (out, dq, dk, dv), (r_out, r_dq, r_dk, r_dv)
+        if not all(bool(torch.isfinite(t.float()).all()) for t in (*got, lse)):
+            raise RuntimeError(f"flash kernels produced non-finite values in case {c['name']}")
+        mask = rf._mask(pos, pos, seg, seg, c["causal"], c["window"])
+        pairs = int(mask.sum()) * (q.shape[0] if seg is None else 1)
+        row = dict(
+            case=c["name"], S=c["S"], H=c["H"], live_pairs=pairs,
+            out_row_err=row_rel_err(out, r_out), lse_err=float((lse - r_lse).abs().max()),
+            dq_row_err=grad_row_err(dq, r_dq), dk_row_err=grad_row_err(dk, r_dk),
+            dv_row_err=grad_row_err(dv, r_dv),
+            max_abs_err=dict(
+                fwd=float((out.float() - r_out.float()).abs().max()),
+                dq=float((dq - r_dq).abs().max()),
+                dkv=max(float((dk - r_dk).abs().max()), float((dv - r_dv).abs().max())),
+            ),
+        )
+        row["ok"] = (row["out_row_err"] <= FLASH_OUT_TOL and row["lse_err"] <= FLASH_LSE_TOL
+                     and max(row["dq_row_err"], row["dk_row_err"], row["dv_row_err"]) <= FLASH_GRAD_TOL)
+        del r_out, r_lse, r_dq, r_dk, r_dv, mask
+        torch.cuda.empty_cache()
+        if c["main"]:
+            bound = flash_bound(q, k, pairs)
+            timed = dict(
+                fwd=(lambda: rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw),
+                     lambda: rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)),
+                dq=(lambda: rf.flash_block_dq(*bargs, **kw), lambda: rf._flash_dq_plain(*bargs, **kw)),
+                dkv=(lambda: rf.flash_block_dkv(*bargs, **kw), lambda: rf._flash_dkv_plain(*bargs, **kw)),
+            )
+            lib_fwd, lib_fwd_bwd = flash_library_ms(torch, q, k, v, do, c["causal"])
+            row["timed"] = {
+                name: dict(ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                           bound_ms=bound[name][0], bound_by=bound[name][1],
+                           library_ms=lib_fwd if name == "fwd" else None)
+                for name, (kern, plain) in timed.items()
+            }
+            row["library_fwd_ms"], row["library_fwd_bwd_ms"] = lib_fwd, lib_fwd_bwd
+            torch.cuda.empty_cache()
+        results.append(row)
+        print(f"kernel flash_attention vs plain: {json.dumps(row)}", flush=True)
+        del q, k, v, do, out, lse, dq, dk, dv, bargs
+        torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise RuntimeError(
+            f"flash kernels disagree with their plain versions (limits: out {FLASH_OUT_TOL}, lse "
+            f"{FLASH_LSE_TOL}, grads {FLASH_GRAD_TOL} per row): {bad}"
+        )
+    return {"cases": results}
+
+
+# -- phase 6: training at Llama-3-8B widths through the flash kernels ---------
+
+
+def train_config() -> dict:
+    """SFT_LLAMA3_8B on the card with the smoke's step plan. The schedule is
+    a constant lr of 1e-4: the recipe's 100-step warmup gives an lr of at
+    most 3e-7 over 4 steps, below half a bf16 ulp of weights near
+    1/sqrt(4096), so the weights would not move."""
+    cfg = json.loads(json.dumps(SFT_LLAMA3_8B))
+    cfg["device"] = "cuda"
+    cfg["step_scheduler"].update(grad_acc_steps=TRAIN_ACC, max_steps=TRAIN_STEPS, log_every_steps=1)
+    cfg["optimizer"].update(lr=1e-4, lr_schedule=dict(style="constant"))
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"train_metrics_{time.time_ns()}.jsonl")
+    return cfg
+
+
+def attention_flops(cfg: dict, seq: int) -> float:
+    """Attention products of one causal sequence over all layers, forward
+    (2 products) and backward (4), 2*H flops per live pair and q head."""
+    hf = cfg["model"]["hf_config"]
+    pairs = seq * (seq + 1) // 2
+    return 12 * hf["head_dim"] * hf["num_attention_heads"] * pairs * hf["num_hidden_layers"]
+
+
+def profile_train_step(torch, recipe) -> dict:
+    """One more step under torch.profiler: device ms by kernel family and
+    the device's idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from automodel_tpu_torch.data.collators import stack_microbatches
+
+    dl = recipe.dataloader
+    batch = recipe._place(stack_microbatches([dl.batch_for(0, 100 + i) for i in range(TRAIN_ACC)]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        recipe.train_step(recipe.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        return {"profile": "no device events from torch.profiler: not measured", "wall_ms": wall_ms}
+    gemm = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
+
+    def ms(pred):
+        return sum(v for k, v in by_name.items() if pred(k.lower()))
+
+    busy = sum(by_name.values())
+    out = dict(
+        profiled_step_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+        flash_fwd_ms=ms(lambda k: "flash_fwd_kernel" in k),
+        flash_dq_ms=ms(lambda k: "flash_dq_kernel" in k),
+        flash_dkv_ms=ms(lambda k: "flash_dkv_kernel" in k),
+        matmul_ms=ms(lambda k: "flash" not in k and any(s in k for s in gemm)),
+    )
+    out["rest_ms"] = busy - out["flash_fwd_ms"] - out["flash_dq_ms"] - out["flash_dkv_ms"] - out["matmul_ms"]
+    out["top"] = [dict(name=k[:80], ms=v) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:16]]
+    return out
+
+
+def phase_training(torch) -> dict:
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+
+    cfg = train_config()
+    print("training: lr schedule overridden to a constant 1e-4 (the recipe's 100-step warmup "
+          "would leave bf16 weights unmoved over 4 steps)", flush=True)
+    t0 = time.perf_counter()
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    torch.cuda.synchronize()
+    params = recipe.state.params
+    n_params = sum(p.numel() for p in params)
+    print(f"training model: {n_params} params bf16, 8 layers at Llama-3-8B widths, set up in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    names = [n for n, _ in recipe.model.named_parameters()]
+    before = [p.detach().flatten()[::997].clone() for p in params]
+    # the main path's run: every count set to 0 just before, read just after
+    kernels = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
+    for f in kernels:
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels)))
+    layers = cfg["model"]["hf_config"]["num_hidden_layers"]
+    want = layers * TRAIN_ACC * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        raise RuntimeError(f"flash launches {launches}, want {want} (= {layers} layers x {TRAIN_ACC} "
+                           f"microbatches x {TRAIN_STEPS} steps) each")
+    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)):
+        raise RuntimeError(f"metric rows for steps {[r['step'] for r in rows]}")
+    for r in rows:
+        if r.get("loss") is None or r.get("grad_norm") is None or r["nonfinite"]:
+            raise RuntimeError(f"non-finite step: {r}")
+    moved = [n for n, p, b in zip(names, params, before) if not torch.equal(p.detach().flatten()[::997], b)]
+    # norm weights start at 1.0, where a bf16 ulp (2^-7) is far above what
+    # 4 steps at lr 1e-4 move them; every matrix must move
+    still = [n for n in names if n not in moved and not n.endswith("norm.weight")]
+    if still:
+        raise RuntimeError(f"weights unchanged after {TRAIN_STEPS} steps: {still}")
+    seq = cfg["dataset"]["seq_length"]
+    tokens = seq * TRAIN_ACC * cfg["dataloader"]["global_batch_size"]
+    step_s = statistics.median(r["step_time_s"] for r in rows[1:])
+    embed = recipe.model.model.embed_tokens.weight.numel()
+    flops = 6 * (n_params - embed) * tokens + TRAIN_ACC * attention_flops(cfg, seq)
+    out = dict(
+        params=n_params, layers=layers, tokens_per_step=tokens, steps=TRAIN_STEPS, microbatches=TRAIN_ACC,
+        losses=[r["loss"] for r in rows], grad_norms=[r["grad_norm"] for r in rows],
+        first_step_s=rows[0].get("first_step_s"), step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+        model_flop_per_step=flops, model_flops_share_of_989=flops / step_s / BF16_FLOPS,
+        wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        flash_launches=launches, matrices_moved=len(moved),
+    )
+    out["profile"] = profile_train_step(torch, recipe)
+    # the fp32-moment AdamW alone over every parameter (zero grads), after
+    # the checks above: how much of the step's elementwise time is the update
+    zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    out["optimizer_update_ms"] = cuda_ms(lambda: recipe.state.optimizer.update(zeros), iters=3, warmup=1)
+    del zeros
+    print(f"training: {json.dumps(out)}", flush=True)
+    del recipe, params, before
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 7: one step's loss and grad norm, flash against sdpa ---------------
+
+
+def phase_flash_vs_sdpa(torch) -> dict:
+    """The training step's loss and fp32 grad norm (one microbatch of 4096
+    tokens, no update) at the same widths, from the same weights and batch,
+    with the attention backend switched between the kernels and the plain
+    ``sdpa``."""
+    import dataclasses
+
+    from automodel_tpu_torch.data.collators import default_collater
+    from automodel_tpu_torch.data.sft import MockSFTDataset
+    from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+    from automodel_tpu_torch.optim.builders import global_norm_fp32
+    from automodel_tpu_torch.training.train_step import make_causal_lm_loss
+
+    cfg = train_config()
+    dev = torch.device(cfg["device"])
+    auto = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True)
+    model = auto.model
+    params = list(model.parameters())
+    ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[7]]).items() if hasattr(v, "shape")}
+    out = {}
+    for attn in ("flash", "sdpa"):
+        model.backend = dataclasses.replace(model.backend, attn=attn)
+        loss_sum, n = make_causal_lm_loss(model, loss="fused_linear_ce")(mb)
+        grads = torch.autograd.grad(loss_sum.float(), params)
+        denom = n.clamp_min(1).float()
+        norm = global_norm_fp32(g.float() / denom for g in grads)
+        out[attn] = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm))
+        del grads, loss_sum
+        torch.cuda.empty_cache()
+    f, s = out["flash"], out["sdpa"]
+    out["loss_rel"] = abs(f["loss"] - s["loss"]) / abs(s["loss"])
+    out["grad_norm_rel"] = abs(f["grad_norm"] - s["grad_norm"]) / abs(s["grad_norm"])
+    print(f"one step, flash vs sdpa: {json.dumps(out)}", flush=True)
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), (f["loss"], s["loss"], f["grad_norm"], s["grad_norm"]))):
+        raise RuntimeError(f"non-finite loss or grad norm: {out}")
+    if out["loss_rel"] > STEP_LOSS_REL_TOL or out["grad_norm_rel"] > STEP_GRAD_NORM_REL_TOL:
+        raise RuntimeError(f"flash and sdpa steps disagree: {out} (limits: loss {STEP_LOSS_REL_TOL}, "
+                           f"grad norm {STEP_GRAD_NORM_REL_TOL}, relative)")
+    del auto, model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training) -> dict:
+    """The ``{"kernels": [...]}`` line: each kernel of the two paths, its
+    launches on its path's run and its times at the main case."""
+    timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
+    main_case = timed["bf16"]
+    line = {
+        "kernels": [
+            {
+                "name": "paged_attention",
+                "route": "cuda",
+                "source": "automodel_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "automodel_tpu/ops/paged_attention.py:97",
+                "launches": serving_bf16["paged_attend_launches"],
+                "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
+                "max_row_rel_err": max(c["max_row_rel_err"] for c in kernels["cases"]),
+                "ms": main_case["ms"],
+                "plain_ms": main_case["plain_ms"],
+                "bound_ms": main_case["bound_ms"],
+                "bound_by": main_case["bound_by"],
+                "library_ms": main_case["library_ms"],
+                "kernel_ms": main_case["ms"],
+                "bytes": main_case["bytes"],
+                "int8": {k: timed["int8"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")},
+                "launches_int8_run": serving_int8["paged_attend_launches"],
+                "decode_forwards": serving_bf16["decode_forwards"],
+                "paged_attention_ms_per_decode_step": profile_bf16.get("paged_attention_ms_per_step"),
+            }
+        ]
+    }
+    main_flash = next(c for c in flash["cases"] if "timed" in c)
+    # the Pallas kernel each replaces (ring_flash.py), and its row errors
+    replaces = dict(fwd=62, dq=102, dkv=134)
+    row_errs = dict(fwd=("out_row_err",), dq=("dq_row_err",), dkv=("dk_row_err", "dv_row_err"))
+    for name, line_no in replaces.items():
+        t = main_flash["timed"][name]
+        line["kernels"].append({
+            "name": f"flash_attention_{name}",
+            "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"automodel_tpu/ops/ring_flash.py:{line_no}",
+            "launches": training["flash_launches"][name],
+            "max_abs_err": max(c["max_abs_err"][name] for c in flash["cases"]),
+            "max_row_rel_err": max(c[k] for c in flash["cases"] for k in row_errs[name]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_fwd_bwd_ms": main_flash["library_fwd_bwd_ms"],
+            "shape": "B=1 S=4096 N=32 Nkv=8 H=128 causal",
+        })
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -475,11 +910,12 @@ def main() -> int:
         print(f"card: {card} | torch: {name} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
         t0 = time.perf_counter()
-        _cuda_build.build(["paged_attention"])
+        _cuda_build.build(["paged_attention", "flash_attention"])
         print(f"kernel build: {time.perf_counter() - t0:.1f}s (nvcc, sm_90a)", flush=True)
 
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)
+        flash = phase_flash_kernels(torch, dev)
 
         # the serve CLI's own builder, from a config dict
         t0 = time.perf_counter()
@@ -501,33 +937,13 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
         phase_fused_vs_gather(torch, auto)
+        del auto
+        torch.cuda.empty_cache()
 
-        timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
-        main_case = timed["bf16"]
-        line = {
-            "kernels": [
-                {
-                    "name": "paged_attention",
-                    "route": "cuda",
-                    "source": "automodel_tpu_torch/csrc/paged_attention.cu",
-                    "replaces": "automodel_tpu/ops/paged_attention.py:97",
-                    "launches": serving_bf16["paged_attend_launches"],
-                    "max_abs_err": max(c["max_abs_err"] for c in kernels["cases"]),
-                    "max_row_rel_err": max(c["max_row_rel_err"] for c in kernels["cases"]),
-                    "ms": main_case["ms"],
-                    "plain_ms": main_case["plain_ms"],
-                    "bound_ms": main_case["bound_ms"],
-                    "bound_by": main_case["bound_by"],
-                    "library_ms": main_case["library_ms"],
-                    "kernel_ms": main_case["ms"],
-                    "bytes": main_case["bytes"],
-                    "int8": {k: timed["int8"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")},
-                    "launches_int8_run": serving_int8["paged_attend_launches"],
-                    "decode_forwards": serving_bf16["decode_forwards"],
-                    "paged_attention_ms_per_decode_step": profile_bf16.get("paged_attention_ms_per_step"),
-                }
-            ]
-        }
+        training = phase_training(torch)
+        phase_flash_vs_sdpa(torch)
+
+        line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training)
         print(json.dumps(line), flush=True)
         print(card_line(), flush=True)
     except Exception:

@@ -1,6 +1,7 @@
-"""The torch port's ``serve`` CLI: stdin JSONL in, one record per request
-out, on the CPU by ``--device=cpu``; bad lines answered and skipped;
-unported sections and a missing CUDA refused loudly."""
+"""The torch port's CLI. ``serve``: stdin JSONL in, one record per request
+out, on the CPU by ``--device=cpu``; bad lines answered and skipped.
+``finetune llm``: the training recipe on the CPU, JSONL rows with a falling
+loss. Unported sections and a missing CUDA are refused loudly."""
 
 import io
 import json
@@ -11,10 +12,9 @@ import torch
 
 from automodel_tpu_torch.cli import app
 
-CFG = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "automodel_tpu_torch", "configs", "serve_tiny_cpu.yaml",
-)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "serve_tiny_cpu.yaml")
+SFT_CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "sft_tiny_cpu.yaml")
 
 
 def _serve(monkeypatch, capsys, lines, *overrides):
@@ -81,7 +81,96 @@ def test_cuda_device_without_cuda_raises(monkeypatch, capsys):
         _serve(monkeypatch, capsys, ['{"prompt_ids": [1]}'], "--device=cuda")
 
 
-@pytest.mark.parametrize("command", ["finetune", "generate", "route"])
+@pytest.mark.parametrize("command", ["kd", "generate", "route"])
 def test_other_commands_exit_2(command, capsys):
     assert app.main([command, "llm", "-c", CFG]) == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_finetune_vlm_is_not_ported(capsys):
+    assert app.main(["finetune", "vlm", "-c", SFT_CFG]) == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("command", ["finetune", "pretrain"])
+def test_finetune_tiny_on_cpu_writes_falling_loss(command, tmp_path):
+    metrics = tmp_path / "train_metrics.jsonl"
+    rc = app.main([command, "llm", "-c", SFT_CFG, "--device=cpu", f"--logging.metrics_path={metrics}"])
+    assert rc == 0
+    rows = [json.loads(s) for s in metrics.read_text().splitlines()]
+    assert [r["step"] for r in rows] == list(range(1, 9))
+    for r in rows:
+        assert {"loss", "grad_norm", "lr", "num_label_tokens", "ts"} <= set(r)
+        assert r["num_label_tokens"] == 2 * 4 * 48 and r["nonfinite"] is False
+    assert all("step_time_s" in r and r["tps"] > 0 for r in rows[1:])
+    losses = [r["loss"] for r in rows]
+    assert losses[-1] < losses[0] - 0.5
+
+
+def test_finetune_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal needs a host without it")
+    with pytest.raises(RuntimeError, match="torch.cuda"):
+        app.main(["finetune", "llm", "-c", SFT_CFG])
+
+
+@pytest.mark.parametrize(
+    "override,name",
+    [
+        ("--checkpoint.enabled=true", "checkpoint"),
+        ("--peft.dim=8", "peft"),
+        ("--qat.enabled=true", "qat"),
+        ("--telemetry.memory_every_steps=50", "telemetry"),
+        ("--profiling.cost_attribution=true", "profiling"),
+        ("--distributed_guard.sync_timeout_s=600", "distributed_guard"),
+        ("--metrics_server.port=9100", "metrics_server"),
+        ("--fault_tolerance.emergency_checkpoint=false", "fault_tolerance"),
+        ("--fault_tolerance.on_nonfinite=rollback", "on_nonfinite"),
+        ("--data.prefetch.depth=2", "prefetch"),
+        ("--generation.max_new_tokens=8", "generation"),
+        ("--validation_dataset.seq_length=8", "validation_dataset"),
+        ("--distributed.dp_shard=-1", "distributed"),
+        ("--distributed.tp=2", "distributed"),
+        ("--logging.wandb.project=x", "wandb"),
+        ("--model.backend.remat=selective", "remat"),
+        ("--dataset._target_=automodel_tpu.data.sft.SQuAD", "SQuAD"),
+        ("--model.pretrained_model_name_or_path=meta-llama/Meta-Llama-3-8B", "pretrained_model_name_or_path"),
+    ],
+)
+def test_finetune_refuses_unported_sections_by_name(override, name, tmp_path):
+    with pytest.raises(ValueError, match=name):
+        app.main(["finetune", "llm", "-c", SFT_CFG, "--device=cpu", override,
+                  f"--logging.metrics_path={tmp_path / 'm.jsonl'}"])
+
+
+def test_jax_8b_recipe_is_refused_and_the_port_8b_config_is_accepted():
+    """The committed JAX recipe asks for sections the port does not run;
+    the port's own 8B config passes the section check at the published
+    Llama-3-8B widths with the depth cut to 8."""
+    from automodel_tpu_torch.config.loader import load_yaml_config
+    from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+    from automodel_tpu_torch.recipes.train_ft import check_sections
+
+    with pytest.raises(ValueError, match="not ported"):
+        check_sections(load_yaml_config(os.path.join(REPO, "examples", "llm_finetune", "llama3_8b_sft.yaml")))
+    cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "sft_llama3_8b.yaml"))
+    check_sections(cfg)
+    tc = TransformerConfig.from_hf(cfg.model.hf_config.to_dict())
+    assert (tc.hidden_size, tc.num_heads, tc.num_kv_heads, tc.head_dim) == (4096, 32, 8, 128)
+    assert (tc.intermediate_size, tc.vocab_size, tc.num_layers) == (14336, 128256, 8)
+    assert BackendConfig.from_dict(cfg.model.backend.to_dict()).attn == "flash"
+    assert cfg.dataset.seq_length == 4096 and cfg.loss_fn.name == "fused_linear_ce"
+
+
+def test_chip_smoke_trains_the_committed_8b_config():
+    """chip_smoke.py carries sft_llama3_8b.yaml as a dict (the card has no
+    YAML reader); the two must not drift apart."""
+    import importlib.util
+
+    from automodel_tpu_torch.config.loader import load_yaml_config
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "sft_llama3_8b.yaml"))
+    assert chip_smoke.SFT_LLAMA3_8B == cfg.to_dict()

@@ -5,8 +5,8 @@ on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-The unmarked test runs on the CPU: it shows that the limit the kernel is
-held to would catch a masking fault of a single row.
+The unmarked tests run on the CPU: they show that the limits the kernels
+are held to would catch a masking fault of a single row or key.
 """
 
 import pytest
@@ -14,6 +14,7 @@ import torch
 
 from automodel_tpu_torch.ops import _cuda_build
 from automodel_tpu_torch.ops import paged_attention as tpa
+from automodel_tpu_torch.ops import ring_flash as trf
 
 # per output row, |out - ref| / |ref|: both versions round an fp32 result to
 # bf16, and one bf16 ulp is at most 2^-7 of an element (chip_smoke.py holds
@@ -93,3 +94,192 @@ def test_cuda_kernel_matches_plain(sq, window, cap, h, sharp, pool):
     ref = tpa.paged_attend_plain(q, *args, sliding_window=window, logits_soft_cap=cap)
     assert bool(torch.isfinite(out.float()).all())
     assert row_rel_err(out, ref) <= ROW_REL_TOL
+
+
+# -- flash attention (csrc/flash_attention.cu) ----------------------------------
+
+# The flash kernels against their plain versions, per output row (one query
+# head at one position, or one kv head at one key for dk/dv). out: the same
+# 2^-7 as above (both round an fp32 result to bf16), and the kernel also
+# rounds P to bf16 before P.V, which alone reads ~2^-8 on the CPU
+# (emulated). dq/dk/dv come out in fp32, but the kernels round P and dS to
+# bf16 before their second products: ~2^-8 emulated, so the limit is 2^-6.
+# A gradient row whose exact value cancels to ~0 (dq of the first token of a
+# document: P = 1 there, so dS = dP - delta = 0) holds only rounding noise,
+# so rows are judged against at least 1/8 of the tensor's RMS row norm. lse
+# is fp32 in both, ~1e-6 apart; 1e-3 is far under what a dropped key moves.
+FLASH_OUT_TOL = 2.0**-7
+FLASH_GRAD_TOL = 2.0**-6
+FLASH_GRAD_FLOOR = 0.125
+FLASH_LSE_TOL = 1e-3
+
+
+def grad_row_err(out, ref, floor=FLASH_GRAD_FLOOR) -> float:
+    d = (out.float() - ref.float()).norm(dim=-1)
+    r = ref.float().norm(dim=-1)
+    return float((d / torch.maximum(r, floor * r.pow(2).mean().sqrt()).clamp_min(1e-30)).max())
+
+
+def flash_case(dev, S=1000, H=128, B=2, N=8, Nkv=2, sharp=1.0, segments=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, S, N, H), generator=g, device=dev) * sharp).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, Nkv, H), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    do = torch.randn((B, S, N, H), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    seg = None
+    if segments:  # 4 packed documents of ragged lengths per row
+        cuts = torch.stack([torch.randperm(S - 1, generator=g, device=dev)[:3] + 1 for _ in range(B)])
+        seg = (pos[None, :, None] >= cuts.sort(dim=1).values[:, None, :]).sum(-1).to(torch.int32)
+    return q, k, v, do, pos, seg
+
+
+def flash_all(q, k, v, do, pos, seg, *, causal, window, plain: bool):
+    """(out, lse, dq, dk, dv) from the wrappers or the plain versions; the
+    backward of both reads the plain forward's out and lse."""
+    kw = dict(causal=causal, window=window, scale=q.shape[-1] ** -0.5)
+    fwd = trf._flash_fwd_plain if plain else trf.flash_block_fwd
+    dq_fn = trf._flash_dq_plain if plain else trf.flash_block_dq
+    dkv_fn = trf._flash_dkv_plain if plain else trf.flash_block_dkv
+    out, lse = fwd(q, k, v, pos, pos, seg, seg, **kw)
+    ref_out, ref_lse = trf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, ref_lse, delta, pos, pos, seg, seg)
+    return (out, lse, dq_fn(*args, **kw), *dkv_fn(*args, **kw))
+
+
+def flash_errors(got, want) -> dict:
+    out, lse, dq, dk, dv = got
+    r_out, r_lse, r_dq, r_dk, r_dv = want
+    return dict(
+        out=row_rel_err(out, r_out), lse=float((lse - r_lse).abs().max()),
+        dq=grad_row_err(dq, r_dq), dk=grad_row_err(dk, r_dk), dv=grad_row_err(dv, r_dv),
+    )
+
+
+def flash_ok(err: dict) -> bool:
+    return (err["out"] <= FLASH_OUT_TOL and err["lse"] <= FLASH_LSE_TOL
+            and max(err["dq"], err["dk"], err["dv"]) <= FLASH_GRAD_TOL)
+
+
+@pytest.mark.parametrize("sharp", [1.0, 4.0])
+@pytest.mark.parametrize("fault", ["diagonal", "window_edge"])
+def test_flash_row_check_catches_an_off_by_one_mask(fault, sharp):
+    """On the CPU: the plain versions with the causal diagonal excluded (or
+    a 1024 window cut to 1023) move the worst row of out and of each
+    gradient past 4x its limit, in near-uniform and in sharp attention."""
+    q, k, v, do, pos, _ = flash_case(torch.device("cpu"), S=2048, B=1, N=4, Nkv=1, sharp=sharp)
+    window = 1024 if fault == "window_edge" else None
+    right = flash_all(q, k, v, do, pos, None, causal=True, window=window, plain=True)
+    kw = dict(causal=True, scale=q.shape[-1] ** -0.5, window=1023 if window else None)
+    kv_pos = pos + 1 if fault == "diagonal" else pos
+    out, _ = trf._flash_fwd_plain(q, k, v, pos, kv_pos, None, None, **kw)
+    delta = (do.float() * right[0].float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, right[1], delta, pos, kv_pos, None, None)
+    err = flash_errors((out, right[1], trf._flash_dq_plain(*args, **kw), *trf._flash_dkv_plain(*args, **kw)), right)
+    assert err["out"] > 4 * FLASH_OUT_TOL
+    assert min(err["dq"], err["dk"], err["dv"]) > 4 * FLASH_GRAD_TOL
+
+
+def _need_cuda(source: str) -> None:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    try:
+        _cuda_build.nvcc_path()
+    except RuntimeError as e:
+        pytest.skip(f"needs nvcc to build csrc/{source}.cu: {e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S,H,causal,window,segments,sharp",
+    [
+        (1024, 128, True, None, False, 1.0),
+        (1000, 128, True, 200, False, 1.0),
+        (1000, 128, True, None, True, 1.0),
+        (1000, 128, False, None, False, 1.0),
+        (777, 64, True, None, False, 1.0),
+        (1000, 64, False, 128, True, 1.0),
+        (1024, 128, True, None, False, 4.0),
+        (100, 128, True, 16, True, 4.0),
+    ],
+)
+def test_flash_kernels_match_plain(S, H, causal, window, segments, sharp):
+    """fwd (out, lse), dq and dk/dv kernels against their plain versions on
+    the card, each launched once."""
+    _need_cuda("flash_attention")
+    case = flash_case(torch.device("cuda"), S=S, H=H, sharp=sharp, segments=segments)
+    counts = [f.launches for f in (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)]
+    got = flash_all(*case, causal=causal, window=window, plain=False)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)] == [c + 1 for c in counts]
+    want = flash_all(*case, causal=causal, window=window, plain=True)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    err = flash_errors(got, want)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "Sq,Sk,window",
+    [(1, 300, None), (130, 700, None), (65, 129, 2), (200, 1000, 64)],
+)
+def test_flash_kernels_edge_shapes_match_plain(Sq, Sk, window):
+    """Queries at the end of a longer key range (q_pos = Sk - Sq + i, the
+    chunked-prefill layout), a single query row, and a window of 2: every
+    kernel against its plain version. (A row that sees one key alone has
+    P = 1 and dS = dP - delta = 0 exactly, so its dq holds only rounding
+    noise; such shapes check nothing in the gradients.)"""
+    _need_cuda("flash_attention")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, N, Nkv, H = 2, 8, 2, 128
+    q = torch.randn((B, Sq, N, H), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, Sk, Nkv, H), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    do = torch.randn((B, Sq, N, H), generator=g, device=dev).to(torch.bfloat16)
+    kv_pos = torch.arange(Sk, dtype=torch.int32, device=dev)
+    q_pos = kv_pos[Sk - Sq:].contiguous()
+    kw = dict(causal=True, window=window, scale=H**-0.5)
+    out, lse = trf.flash_block_fwd(q, k, v, q_pos, kv_pos, None, None, **kw)
+    r_out, r_lse = trf._flash_fwd_plain(q, k, v, q_pos, kv_pos, None, None, **kw)
+    delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, r_lse, delta, q_pos, kv_pos, None, None)
+    got = (out, lse, trf.flash_block_dq(*args, **kw), *trf.flash_block_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    want = (r_out, r_lse, trf._flash_dq_plain(*args, **kw), *trf._flash_dkv_plain(*args, **kw))
+    err = flash_errors(got, want)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card():
+    """flash_attention's backward on the card is the dq and dkv kernels fed
+    with the forward kernel's out and lse: bit-identical to calling the
+    three wrappers by hand (the kernels use no atomics, so they repeat
+    exactly), each launched once more."""
+    _need_cuda("flash_attention")
+    q, k, v, do, pos, _ = flash_case(torch.device("cuda"), S=512, H=128)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kernels = (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)
+    before = [f.launches for f in kernels]
+    out = trf.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    assert [f.launches for f in kernels] == [c + 1 for c in before]
+    kw = dict(causal=True, window=None, scale=128**-0.5)
+    ref_out, lse = trf.flash_block_fwd(q, k, v, pos, pos, None, None, **kw)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = trf.flash_block_bwd(q, k, v, do, lse, delta, pos, pos, None, None, **kw)
+    assert torch.equal(out.detach(), ref_out)
+    for name, leaf, g in zip(("dq", "dk", "dv"), leaves, ref):
+        assert leaf.grad.dtype == torch.bfloat16 and torch.equal(leaf.grad, g.to(torch.bfloat16)), name
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_the_kernels_do_not_take():
+    _need_cuda("flash_attention")
+    q, k, v, _, pos, _ = flash_case(torch.device("cuda"), S=64, H=128)
+    kw = dict(causal=True, window=None, scale=0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        trf.flash_block_fwd(q[..., :96].contiguous(), k[..., :96].contiguous(), v[..., :96].contiguous(),
+                            pos, pos, None, None, **kw)
+    with pytest.raises(ValueError, match="float16|bfloat16"):
+        trf.flash_block_fwd(q.float(), k.float(), v.float(), pos, pos, None, None, **kw)

@@ -1,0 +1,118 @@
+"""The port's flash attention (plain path on the CPU, fp32) against the JAX
+package's blockwise flash kernels run in interpret mode: output, the
+forward's logsumexp, and dq/dk/dv through autograd, over causal, sliding
+window, packed segment ids, non-causal, GQA, head_dim 64 and 128, and an
+unpadded length. Tolerances are the ones tests/test_block_flash.py holds the
+JAX kernels to: out and lse atol 2e-4, grads atol 5e-3."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from automodel_tpu.ops import ring_flash as jrf
+from automodel_tpu_torch.ops import attention as tattn
+from automodel_tpu_torch.ops import ring_flash as trf
+
+CASES = {
+    "causal": dict(S=256, H=64),
+    "window": dict(S=256, H=128, window=64),
+    "segments": dict(S=256, H=64, segments=True),
+    "noncausal": dict(S=256, H=64, causal=False),
+    "noncausal_window": dict(S=128, H=64, causal=False, window=32),
+    "unpadded": dict(S=200, H=64, B=1),
+}
+
+
+def _inputs(S, H, B=2, N=4, NKV=2, segments=False, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.normal(size=(B, S, n, H)).astype(np.float32) for n in (N, NKV, NKV, N))
+    seg = None
+    if segments:  # three packed documents of ragged lengths per row
+        cuts = np.sort(rng.choice(np.arange(1, S), size=(B, 2), replace=False), axis=1)
+        seg = (np.arange(S)[None, :] >= cuts[:, :1]).astype(np.int32) + (np.arange(S)[None, :] >= cuts[:, 1:])
+    return q, k, v, do, seg
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_attention_matches_jax_blockwise_kernels(case):
+    c = dict(CASES[case])
+    causal, window = c.pop("causal", True), c.pop("window", None)
+    q, k, v, do, seg = _inputs(**c)
+    S, H = q.shape[1], q.shape[3]
+    scale = 1.0 / H**0.5
+
+    def jax_loss(q_, k_, v_):
+        out = jrf.flash_attention(
+            q_, k_, v_, causal=causal, sliding_window=window,
+            segment_ids=None if seg is None else jnp.asarray(seg), interpret=True,
+        )
+        return (out * jnp.asarray(do)).sum(), out
+
+    (_, j_out), j_grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    )
+    pos = np.arange(S, dtype=np.int32)
+    segj = jnp.asarray(seg if seg is not None else np.zeros((q.shape[0], S), np.int32))
+    _, j_lse = jrf.flash_block_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos), jnp.asarray(pos), segj, segj,
+        causal=causal, window=window, scale=scale, interpret=True,
+    )
+
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    tseg = None if seg is None else torch.tensor(seg)
+    out = trf.flash_attention(tq, tk, tv, causal=causal, sliding_window=window, segment_ids=tseg)
+    (out * torch.tensor(do)).sum().backward()
+    tpos = torch.tensor(pos)
+    _, t_lse = trf.flash_block_fwd(
+        tq.detach(), tk.detach(), tv.detach(), tpos, tpos, tseg, tseg,
+        causal=causal, window=window, scale=scale,
+    )
+
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=2e-4)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(j_lse), atol=2e-4, rtol=1e-6)
+    for name, t, j in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), j_grads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=5e-3, err_msg=name)
+
+
+def test_fully_masked_rows_give_zero_out_and_neg_inf_lse():
+    """A query whose segment holds no visible key (a window of 1 over a
+    position before every key) outputs 0 and lse NEG_INF, as the JAX
+    kernel's all-masked guard does."""
+    q, k, v, _, _ = _inputs(S=16, H=64, B=1, N=2, NKV=1)
+    tq, tk, tv = map(torch.tensor, (q, k, v))
+    q_pos = torch.arange(16, dtype=torch.int32)
+    kv_pos = q_pos + 8  # keys start after the first 8 queries
+    out, lse = trf.flash_block_fwd(tq, tk, tv, q_pos, kv_pos, None, None, causal=True, window=None, scale=0.125)
+    assert bool((out[:, :8] == 0).all()) and bool((lse[:, :, :8] == trf.NEG_INF).all())
+    assert bool(torch.isfinite(lse[:, :, 8:]).all())
+
+
+@pytest.mark.parametrize("window,segments", [(None, False), (48, False), (None, True)])
+def test_sdpa_matches_jax_sdpa_and_plain_flash(window, segments):
+    """The port's ``sdpa`` (the reference the plain flash version is held
+    to) against JAX ``sdpa``, and ``attention(backend='flash')`` on the CPU
+    against it."""
+    from automodel_tpu.ops.attention import sdpa as jax_sdpa
+
+    q, k, v, _, seg = _inputs(S=96, H=64, segments=segments, seed=3)
+    kw = dict(causal=True, sliding_window=window)
+    ref = jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   segment_ids=None if seg is None else jnp.asarray(seg), **kw)
+    tseg = None if seg is None else torch.tensor(seg)
+    args = (torch.tensor(q), torch.tensor(k), torch.tensor(v))
+    out = tattn.sdpa(*args, segment_ids=tseg, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    flash = tattn.attention(*args, backend="flash", segment_ids=tseg, **kw)
+    np.testing.assert_allclose(flash.numpy(), out.numpy(), atol=2e-5)
+
+
+def test_flash_refuses_sinks_soft_cap_and_unknown_backends():
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="sinks"):
+        tattn.attention(q, q, q, backend="flash", sinks=torch.zeros(2))
+    with pytest.raises(ValueError, match="soft cap"):
+        tattn.attention(q, q, q, backend="flash", logits_soft_cap=30.0)
+    with pytest.raises(ValueError, match="ring"):
+        tattn.attention(q, q, q, backend="ring")

@@ -63,9 +63,11 @@ def test_cuda_device_without_cuda_raises():
 
 
 def test_backend_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="attn='flash'"):
-        BackendConfig(attn="flash")
-    with pytest.raises(ValueError, match="remat"):
-        BackendConfig.from_dict({"attn": "sdpa", "remat": "full"})
+    assert BackendConfig(attn="flash").attn == "flash"
+    with pytest.raises(ValueError, match="attn='ring'"):
+        BackendConfig(attn="ring")
+    for key, value in (("remat", "full"), ("scan_layers", True), ("fp8", True), ("attn_block_q", 256)):
+        with pytest.raises(ValueError, match=key):
+            BackendConfig.from_dict({"attn": "flash", key: value})
     with pytest.raises(ValueError, match="Qwen2ForCausalLM"):
         auto_model.from_config(dict(HF_TINY, architectures=["Qwen2ForCausalLM"]), FP32_BACKEND, device="cpu")

@@ -53,14 +53,15 @@ def jax_tiny(seed: int = 0, hf: dict | None = None):
     return model, params, AutoModel(model=model, params=params, adapter=None, mesh_ctx=None)
 
 
-def torch_twin(jax_params, hf: dict | None = None):
+def torch_twin(jax_params, hf: dict | None = None, attn: str = "sdpa", trainable: bool = False):
     """The port's model on the CPU holding the JAX weights → AutoModel."""
     from automodel_tpu_torch.auto_model import AutoModel
     from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
     from automodel_tpu_torch.models.llama import LlamaForCausalLM, params_from_jax
 
     model = LlamaForCausalLM(
-        TransformerConfig.from_hf(hf or HF_TINY), BackendConfig(**FP32_BACKEND), device=CPU
+        TransformerConfig.from_hf(hf or HF_TINY), BackendConfig(**dict(FP32_BACKEND, attn=attn)),
+        device=CPU, trainable=trainable,
     )
     model.load_state_dict(params_from_jax(jax.device_get(jax_params)))
     return AutoModel(model=model, device=CPU)
