@@ -3,9 +3,13 @@
 Port of ``automodel_tpu/models/common/config.py``. ``BackendConfig`` keeps
 the attention backend and the param and compute dtypes; ``attn`` is
 ``sdpa`` (plain torch) or ``flash`` (the flash-attention kernels,
-ops/ring_flash.py) for the no-cache forward that training runs. Any other
-value, or any key the JAX backend has but the port does not (``remat``,
-``scan_layers``, ``fp8``, ``attn_block_*``, ...), is refused rather than
+ops/ring_flash.py) for the no-cache forward that training runs.
+``experts`` names the MoE experts backend (default ``gspmd``, as in JAX;
+an MoE model runs ``ragged``, the grouped-matmul kernels, or ``dense``,
+and raises naming any other) and ``fake_balanced_gate`` swaps the router
+for deterministic balanced routing. Any other attention value, or any key
+the JAX backend has but the port does not (``remat``, ``scan_layers``,
+``fp8``, ``fp8_experts``, ``attn_block_*``, ...), is refused rather than
 ignored.
 """
 
@@ -19,6 +23,9 @@ import torch
 from automodel_tpu_torch.ops.rope import RopeConfig
 
 ATTN_BACKENDS = ("sdpa", "flash")
+# every experts backend the JAX package names; moe/experts.py runs the first
+# two and refuses the rest by name
+EXPERTS_NAMES = ("dense", "ragged", "gspmd", "ragged_fused", "a2a", "a2a_fused")
 
 _DTYPES = {
     "float32": torch.float32,
@@ -38,8 +45,12 @@ class BackendConfig:
     attn: str = "sdpa"
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    experts: str = "gspmd"
+    fake_balanced_gate: bool = False
 
     def __post_init__(self):
+        if self.experts not in EXPERTS_NAMES:
+            raise ValueError(f"backend.experts={self.experts!r} (want one of {list(EXPERTS_NAMES)})")
         if self.attn not in ATTN_BACKENDS:
             raise ValueError(
                 f"backend.attn={self.attn!r} is not ported to the torch backend "

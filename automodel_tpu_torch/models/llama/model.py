@@ -120,6 +120,47 @@ def layer_sliding_window(cfg: TransformerConfig, layer_idx: int) -> Optional[int
     return cfg.sliding_window
 
 
+def attention_block(
+    cfg: TransformerConfig,
+    backend: BackendConfig,
+    layer: nn.Module,
+    i: int,
+    h: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cache: Any = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """h + self-attention of decoder layer ``i`` (its ``input_layernorm``
+    and ``self_attn``), shared by the llama and MoE families: through the
+    configured backend (``flash``: the flash kernels) without a cache, and
+    through ``cache.write`` / ``cache.attend`` with one."""
+    attn = layer.self_attn
+    B, S, _ = h.shape
+    x = layer.input_layernorm(h)
+    q = _proj(x, attn.q_proj).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = _proj(x, attn.k_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = _proj(x, attn.v_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = attn.q_norm(q)
+        k = attn.k_norm(k)
+    q, k = apply_rope(q, k, cos, sin)
+    window = layer_sliding_window(cfg, i)
+    if cache is not None:
+        layer_kv = cache.write(i, k, v)
+        out = cache.attend(
+            i, q, layer_kv, sliding_window=window,
+            scale=cfg.attn_scale, logits_soft_cap=cfg.attn_soft_cap,
+        )
+    else:
+        out = attention(
+            q, k, v, backend=backend.attn, causal=True, scale=cfg.attn_scale,
+            segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
+            sliding_window=window,
+        )
+    return h + _proj(out.reshape(B, S, cfg.q_dim), attn.o_proj)
+
+
 class LlamaForCausalLM(nn.Module):
     """Parameters are created uninitialized on ``device`` in the param
     dtype; ``init_weights`` fills them from a generator, ``load_state_dict``
@@ -168,36 +209,6 @@ class LlamaForCausalLM(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return self.backend.compute_torch_dtype
 
-    def _attention(
-        self, i: int, h: torch.Tensor, cos, sin, cache: Any, segment_ids: Optional[torch.Tensor]
-    ) -> torch.Tensor:
-        cfg = self.config
-        layer = self.model.layers[i]
-        attn = layer.self_attn
-        B, S, _ = h.shape
-        x = layer.input_layernorm(h)
-        q = _proj(x, attn.q_proj).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = _proj(x, attn.k_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = _proj(x, attn.v_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:
-            q = attn.q_norm(q)
-            k = attn.k_norm(k)
-        q, k = apply_rope(q, k, cos, sin)
-        window = layer_sliding_window(cfg, i)
-        if cache is not None:
-            layer_kv = cache.write(i, k, v)
-            out = cache.attend(
-                i, q, layer_kv, sliding_window=window,
-                scale=cfg.attn_scale, logits_soft_cap=cfg.attn_soft_cap,
-            )
-        else:
-            out = attention(
-                q, k, v, backend=self.backend.attn, causal=True, scale=cfg.attn_scale,
-                segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
-                sliding_window=window,
-            )
-        return h + _proj(out.reshape(B, S, cfg.q_dim), attn.o_proj)
-
     def hidden(
         self,
         input_ids: torch.Tensor,
@@ -216,7 +227,7 @@ class LlamaForCausalLM(nn.Module):
         cos, sin = rope_table(position_ids, cfg.head_dim, cfg.rope)
         act = ACT_FNS[cfg.act]
         for i, layer in enumerate(self.model.layers):
-            h = self._attention(i, h, cos, sin, cache, segment_ids)
+            h = attention_block(cfg, self.backend, layer, i, h, cos, sin, cache, segment_ids)
             x = layer.post_attention_layernorm(h)
             mlp = layer.mlp
             h = h + _proj(act(_proj(x, mlp.gate_proj)) * _proj(x, mlp.up_proj), mlp.down_proj)

@@ -1,8 +1,10 @@
 """HF architecture → the port's model family.
 
-Port of ``automodel_tpu/models/registry.py`` for the one family the port
-has: ``LlamaForCausalLM``. A config naming another architecture is refused;
-a config naming none builds the generic llama, as in the JAX registry.
+Port of ``automodel_tpu/models/registry.py`` for the families the port
+has: ``LlamaForCausalLM`` and ``Qwen3MoeForCausalLM`` (the MoE family of
+``models/qwen3_moe``, registered at :130 of the JAX registry). A config
+naming another architecture is refused; a config naming none builds the
+generic llama, as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ def _llama_builder(hf_config: Any, backend: BackendConfig, device=None, trainabl
     from automodel_tpu_torch.models.llama import LlamaForCausalLM
 
     return LlamaForCausalLM(TransformerConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
+
+
+@register_architecture("Qwen3MoeForCausalLM")
+def _moe_builder(hf_config: Any, backend: BackendConfig, device=None, trainable: bool = False):
+    from automodel_tpu_torch.models.qwen3_moe import MoEForCausalLM, MoETransformerConfig
+
+    return MoEForCausalLM(MoETransformerConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
 
 
 def resolve_architecture(hf_config: Any) -> Callable:

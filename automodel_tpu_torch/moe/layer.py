@@ -1,0 +1,108 @@
+"""The MoE block: gate → experts → (shared experts) → combine.
+
+Port of ``automodel_tpu/moe/layer.py``: ``make_act2`` (:29), ``moe_block``
+(:64) and ``MoEAux``. ``MoEBlock`` holds one layer's parameters under HF
+names (``gate.weight`` [E, D], the transpose of the JAX ``router/weight``;
+``shared_experts.{gate,up,down}_proj``, ``shared_expert_gate``) with the
+stacked expert weights ``experts.gate_up`` [E, D, 2I] and ``experts.down``
+[E, I, D] in the JAX layout, which is the grouped-matmul kernels' rhs
+layout. The aux-free selection bias (``gate.bias``, [E] fp32) is a buffer:
+it gets no gradient and is moved only by ``update_gate_bias`` after the
+optimizer step. Init scales follow ``init_moe_params`` (:137): the router
+and gate_up with fan_in D, down with fan_in I (``init_weights`` of the
+model applies them).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from automodel_tpu_torch.moe.config import MoEConfig
+from automodel_tpu_torch.moe.experts import expert_backend
+from automodel_tpu_torch.moe.gate import fake_balanced_gate, gate
+
+
+class MoEAux(NamedTuple):
+    expert_counts: torch.Tensor  # [E] int32
+    aux_loss: torch.Tensor  # scalar fp32
+
+
+def make_act2(cfg: MoEConfig, base_act: Callable) -> Callable:
+    """Two-argument gated activation: ``act(g) * u`` (the gpt-oss clamped
+    and the relu2 variants are refused by ``MoEConfig``)."""
+    return lambda g, u: base_act(g) * u
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+class Experts(nn.Module):
+    def __init__(self, cfg: MoEConfig, hidden_size: int, dtype: torch.dtype, device):
+        super().__init__()
+        E, D, I = cfg.num_experts, hidden_size, cfg.moe_intermediate_size
+        self.gate_up = _param((E, D, 2 * I), dtype, device)
+        self.down = _param((E, I, D), dtype, device)
+
+
+class Router(nn.Module):
+    def __init__(self, cfg: MoEConfig, hidden_size: int, dtype: torch.dtype, device):
+        super().__init__()
+        self.weight = _param((cfg.num_experts, hidden_size), dtype, device)
+        if cfg.bias_update_factor > 0 or cfg.expert_bias:
+            self.register_buffer("bias", torch.zeros(cfg.num_experts, dtype=torch.float32, device=device))
+        else:
+            self.bias = None
+
+
+class SharedExperts(nn.Module):
+    def __init__(self, cfg: MoEConfig, hidden_size: int, dtype: torch.dtype, device):
+        super().__init__()
+        SI = (cfg.shared_expert_intermediate_size or cfg.moe_intermediate_size) * cfg.num_shared_experts
+        D = hidden_size
+        self.gate_proj = nn.utils.skip_init(nn.Linear, D, SI, bias=False, device=device, dtype=dtype)
+        self.up_proj = nn.utils.skip_init(nn.Linear, D, SI, bias=False, device=device, dtype=dtype)
+        self.down_proj = nn.utils.skip_init(nn.Linear, SI, D, bias=False, device=device, dtype=dtype)
+
+
+class MoEBlock(nn.Module):
+    """One MoE layer's parameters, which ``moe_block`` runs."""
+
+    def __init__(self, cfg: MoEConfig, hidden_size: int, dtype: torch.dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.gate = Router(cfg, hidden_size, dtype, device)
+        self.experts = Experts(cfg, hidden_size, dtype, device)
+        if cfg.num_shared_experts > 0:
+            self.shared_experts = SharedExperts(cfg, hidden_size, dtype, device)
+            if cfg.shared_expert_gate:
+                self.shared_expert_gate = nn.utils.skip_init(
+                    nn.Linear, hidden_size, 1, bias=False, device=device, dtype=dtype
+                )
+
+
+def moe_block(
+    x: torch.Tensor, block: MoEBlock, act: Callable, experts_backend: str = "ragged", fake_gate: bool = False
+) -> tuple[torch.Tensor, MoEAux]:
+    """x [B, S, D] → (out [B, S, D], MoEAux)."""
+    cfg = block.cfg
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    if fake_gate:
+        gout = fake_balanced_gate(xt, cfg)
+    else:
+        gout = gate(xt, block.gate.weight, cfg, bias=block.gate.bias, seq_len=S)
+    act2 = make_act2(cfg, act)
+    out = expert_backend(experts_backend)(xt, gout, dict(block.experts.named_parameters()), cfg, act2)
+    if cfg.num_shared_experts > 0:
+        sp = block.shared_experts
+        lin = lambda h, m: F.linear(h, m.weight.to(h.dtype))
+        shared = lin(act2(lin(xt, sp.gate_proj), lin(xt, sp.up_proj)), sp.down_proj)
+        if cfg.shared_expert_gate:
+            shared = shared * torch.sigmoid(lin(xt, block.shared_expert_gate))
+        out = out + shared
+    return out.reshape(B, S, D), MoEAux(gout.expert_counts, gout.aux_loss)

@@ -11,7 +11,10 @@ Sections read: ``seed``, ``device`` (``cuda`` unless ``cpu``), ``model``
 ``<output_dir>/train_metrics.jsonl``), ``fault_tolerance.on_nonfinite``
 (``raise`` | ``skip``). One log record per ``log_every_steps`` carries
 ``loss``, ``grad_norm``, ``lr``, ``num_label_tokens``, ``step``,
-``step_time_s`` and ``tps``.
+``step_time_s`` and ``tps``; an MoE model's steps add ``moe_aux_loss``,
+``expert_load_imbalance`` and ``expert_load_imbalance_per_layer`` (a JSON
+array), and its ``post_step_fn`` (aux-free router-bias balancing) runs
+after each applied update.
 
 Sections the port does not run are refused with a ``ValueError`` naming
 them, never ignored: ``checkpoint`` when enabled, ``peft``, ``qat``,
@@ -121,7 +124,10 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.loss_fn = make_causal_lm_loss(self.model, loss=loss_name, **lcfg)
         on_nonfinite = (_plain(cfg.get("fault_tolerance", None)) or {}).get("on_nonfinite", "raise")
         self.on_nonfinite = on_nonfinite
-        self.train_step = build_train_step(self.loss_fn, self.lr_schedule, on_nonfinite=on_nonfinite)
+        self.train_step = build_train_step(
+            self.loss_fn, self.lr_schedule, on_nonfinite=on_nonfinite,
+            post_step_fn=getattr(self.model, "post_step_fn", None),
+        )
 
         if cfg.get("dataset", None) is None:
             raise ValueError("A `dataset:` section is required")
@@ -161,7 +167,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             steps_window += 1
             if not (first or self.step_scheduler.is_log_step):
                 continue
-            rec = {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
+            rec = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
             dt = time.perf_counter() - t_window
             if first:
                 # kernel builds and allocator warm-up land here, as the first

@@ -8,8 +8,13 @@ normalized by the global label-token count of all microbatches (:170-176);
 the fp32 global grad norm; a ``nonfinite`` flag; and the optimizer update.
 With ``on_nonfinite: skip`` a non-finite step applies nothing, so params
 and Adam moments stay bit-identical (:211-224); the step counter still
-advances. MoE extras, pipeline info, ``bound_params``, QAT and LoRA hooks
-are not ported.
+advances. A loss function may return a third value, per-microbatch
+``extras``: the MoE models' ``moe_aux_loss`` and ``expert_counts`` are
+summed over microbatches and reported as ``moe_aux_loss`` (divided by the
+microbatch count, :225-226), ``expert_load_imbalance`` and its per-layer
+list (:243-249); ``post_step_fn(extras)`` runs after an applied update
+(:192), the aux-free router-bias slot. Pipeline info, ``bound_params``,
+QAT and LoRA hooks are not ported.
 
 ``nonfinite`` is read from the loss and the fp32 grad norm: any NaN or Inf
 gradient element makes the norm non-finite. Deciding whether to apply the
@@ -32,11 +37,12 @@ def build_train_step(
     loss_fn: Callable[[dict], tuple],
     lr_schedule: Optional[Callable[[int], float]] = None,
     on_nonfinite: str = "raise",
+    post_step_fn: Optional[Callable[[dict], None]] = None,
 ) -> Callable[[TrainState, dict], dict]:
     """(state, batch) → metrics, updating ``state`` in place.
 
-    ``loss_fn(microbatch) -> (loss_sum, n_valid_tokens)``, loss_sum the
-    un-normalized token-loss sum. Metrics are tensors on the batch's device
+    ``loss_fn(microbatch) -> (loss_sum, n_valid_tokens[, extras])``,
+    loss_sum the un-normalized token-loss sum. Metrics are tensors on the batch's device
     (``loss``, ``grad_norm``, ``num_label_tokens``, ``nonfinite``) plus the
     host ints/floats ``step``, ``lr`` and, under ``skip``, ``skipped``. With
     ``raise`` the caller checks ``nonfinite`` (recipes/train_ft.py)."""
@@ -47,9 +53,12 @@ def build_train_step(
         params = state.params
         n_mb = batch["input_ids"].shape[0]
         loss_sum = n_tokens = grads = None
+        extras_sum: dict = {}
         for i in range(n_mb):
             mb = {k: v[i] for k, v in batch.items() if isinstance(v, torch.Tensor)}
-            mb_loss, mb_n = loss_fn(mb)
+            mb_loss, mb_n, *rest = loss_fn(mb)
+            for k, v in (rest[0] if rest else {}).items():
+                extras_sum[k] = v if k not in extras_sum else extras_sum[k] + v
             mb_loss = mb_loss.float()
             mb_grads = torch.autograd.grad(mb_loss, params)
             mb_loss = mb_loss.detach()
@@ -81,11 +90,20 @@ def build_train_step(
             "nonfinite": nonfinite,
             "step": state.step + 1,
         }
+        if "moe_aux_loss" in extras_sum:
+            metrics["moe_aux_loss"] = extras_sum["moe_aux_loss"] / n_mb
+        if "expert_counts" in extras_sum:
+            c = extras_sum["expert_counts"].float()  # [L, E]
+            per_layer = c.amax(dim=-1) / c.mean(dim=-1).clamp_min(1.0)
+            metrics["expert_load_imbalance"] = per_layer.mean()
+            metrics["expert_load_imbalance_per_layer"] = per_layer
         if lr_schedule is not None:
             metrics["lr"] = float(lr_schedule(state.step))
         skip = on_nonfinite == "skip" and bool(nonfinite)
         if not skip:
             state.optimizer.update(grads, grad_norm)
+            if post_step_fn is not None:
+                post_step_fn(extras_sum)
         if on_nonfinite == "skip":
             metrics["skipped"] = skip
         state.step += 1
@@ -97,7 +115,11 @@ def build_train_step(
 def make_causal_lm_loss(model: Any, loss: str = "masked_ce", **loss_kwargs: Any) -> Callable[[dict], tuple]:
     """Next-token-prediction loss over the port's causal LM: labels are
     already shifted by the collator. ``fused_linear_ce`` never materializes
-    the full logits (ops/losses.py)."""
+    the full logits (ops/losses.py). An MoE model (whose forward and
+    ``hidden`` return ``(output, aux)``) adds ``aux_loss x n`` to the loss
+    sum, so the global token normalization averages it by token, and
+    returns ``extras`` with ``moe_aux_loss`` and ``expert_counts``
+    (:338-349)."""
     from automodel_tpu_torch.ops import losses as L
 
     build = None if loss == "fused_linear_ce" else L.build_loss(loss, **loss_kwargs)
@@ -105,11 +127,20 @@ def make_causal_lm_loss(model: Any, loss: str = "masked_ce", **loss_kwargs: Any)
     def loss_fn(mb: dict):
         kw = {k: mb[k] for k in ("position_ids", "segment_ids") if mb.get(k) is not None}
         if build is None:
-            hidden = model.hidden(mb["input_ids"], **kw)
+            out = model.hidden(mb["input_ids"], **kw)
+            hidden, maux = out if isinstance(out, tuple) else (out, None)
             kernel = model.lm_head_weight().to(hidden.dtype).t()
-            return L.fused_linear_cross_entropy(
+            loss_sum, n = L.fused_linear_cross_entropy(
                 hidden, kernel, mb["labels"], logits_soft_cap=model.config.logits_soft_cap, **loss_kwargs
             )
-        return build(model(mb["input_ids"], **kw), mb["labels"])
+        else:
+            out = model(mb["input_ids"], **kw)
+            logits, maux = out if isinstance(out, tuple) else (out, None)
+            loss_sum, n = build(logits, mb["labels"])
+        if maux is None:
+            return loss_sum, n
+        loss_sum = loss_sum + maux.aux_loss * n.float()
+        extras = {"moe_aux_loss": maux.aux_loss.detach(), "expert_counts": maux.expert_counts}
+        return loss_sum, n, extras
 
     return loss_fn

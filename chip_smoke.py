@@ -19,7 +19,8 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
      gathered view;
    - flash attention forward, dq and dk/dv (training): B=1, S=4096, N=32,
      Nkv=8, H=128, causal; then a 1024 window, 4 packed documents,
-     non-causal, H=64, S=4000 and sharp attention; the yardstick is
+     non-causal, H=64, S=4000, sharp attention and Nkv=4 (Qwen3's 8 q heads
+     per kv head); the yardstick is
      ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
      forward, and forward+backward;
 4. the serving engine at full Llama-3-8B width (random bf16 weights from a
@@ -39,7 +40,25 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    finite, the weights must move, and each flash kernel must have launched
    layers x microbatches x steps times; then a profile of one step;
 7. one step's loss and grad norm at those widths with ``attn: flash``
-   against ``attn: sdpa`` (plain attention), same weights and batch.
+   against ``attn: sdpa`` (plain attention), same weights and batch;
+8. the grouped-matmul kernels (gmm, gmm with a transposed rhs, tgmm)
+   against their plain versions at Qwen3-30B-A3B's MoE shapes (4096
+   tokens routed top-8 over 128 experts: M = 32768 rows, hidden 2048,
+   expert width 768): routing from a real gate (all six launches of a
+   layer's forward and backward, timed against the plain versions,
+   ``torch._grouped_mm`` and the bound), balanced routing, skewed groups
+   (empty first and last experts, one expert holding a quarter of the
+   rows) and K = N = 1000;
+9. MoE training at Qwen3-30B-A3B widths cut to 4 layers
+   (``automodel_tpu_torch/configs/pretrain_qwen3_moe_a3b.yaml``), built by
+   the ``pretrain`` CLI's recipe class: 4 steps of 2 microbatches of 4096
+   tokens through the grouped-matmul and flash kernels. Every loss, grad
+   norm and aux loss must be finite, every weight matrix and every expert
+   slab that received rows must move, and each kernel must have launched
+   its count; then a profile of one step;
+10. one step at 1 layer of those widths and 2048 tokens with ``experts:
+   ragged`` (the kernels) against ``experts: dense`` (plain torch): loss,
+   grad norm and aux loss must agree.
 
 The ``kernels`` JSON line comes third from last, the ``nvidia-smi`` card
 line second, and the last line is ``{"ok": true, "device": {...}}``. It
@@ -49,6 +68,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -126,6 +146,52 @@ TRAIN_ACC = 2
 # on an H100 (loss 1.33e-5, grad norm 2.78e-5; PERF.md).
 STEP_LOSS_REL_TOL = 1e-4
 STEP_GRAD_NORM_REL_TOL = 2e-4
+
+QWEN3_MOE_A3B = dict(  # Qwen/Qwen3-30B-A3B config.json widths
+    architectures=["Qwen3MoeForCausalLM"], model_type="qwen3_moe",
+    vocab_size=151936, hidden_size=2048, intermediate_size=6144, moe_intermediate_size=768,
+    num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+    num_experts=128, num_experts_per_tok=8, norm_topk_prob=True, router_aux_loss_coef=0.001,
+    rope_theta=1000000.0, rms_norm_eps=1e-6, max_position_embeddings=40960, tie_word_embeddings=False,
+)
+# automodel_tpu_torch/configs/pretrain_qwen3_moe_a3b.yaml as a dict
+# (tests/test_torch_cli.py checks the two agree): depth cut to 4 layers.
+PRETRAIN_QWEN3_MOE_A3B = dict(
+    seed=42,
+    model=dict(
+        hf_config=dict(QWEN3_MOE_A3B, num_hidden_layers=4),
+        backend=dict(attn="flash", experts="ragged", param_dtype="bfloat16", compute_dtype="bfloat16"),
+    ),
+    dataset=dict(_target_="automodel_tpu_torch.data.sft.MockSFTDataset", vocab_size=151936,
+                 seq_length=4096, num_samples=1024),
+    dataloader=dict(global_batch_size=1),
+    step_scheduler=dict(grad_acc_steps=2, num_epochs=1, log_every_steps=10),
+    optimizer=dict(name="adamw", lr=3e-4, weight_decay=0.1, betas=[0.9, 0.95], grad_clip_norm=1.0,
+                   lr_schedule=dict(style="cosine", warmup_steps=2000, decay_steps=100000)),
+    loss_fn=dict(name="fused_linear_ce"),
+    logging=dict(metrics_path="runs/torch_qwen3_moe_a3b/train_metrics.jsonl"),
+)
+MOE_STEPS = 4
+# grouped-matmul kernels vs plain (tests/test_torch_cuda_kernels.py holds
+# the same limits): gmm and gmm_t per output row within 2^-7 (both round an
+# fp32 sum to bf16, one ulp at most per element; a row past the groups must
+# be exactly zero); tgmm per row of each [K, N] slab within 2^-13 (fp32 sums
+# of exact bf16 products, apart only by their order). First readings on an
+# H100: gmm rows at most 0.00087, tgmm slab rows at most 9.6e-6 (the skewed
+# case's 8192-row group; PERF.md). A group that gains or loses one row
+# moves the worst row of each past 4x its limit
+# (tests/test_torch_cuda_kernels.py::test_grouped_row_check_catches_a_one_row_boundary_shift).
+GMM_ROW_TOL = 2.0**-7
+TGMM_ROW_TOL = 2.0**-13
+# experts ragged vs dense over one step at 1 layer (relative): the same
+# routing (identical gate inputs, so the aux loss agrees exactly), but
+# dense runs every expert over every token and sums the [T, E] combine in
+# bf16 where ragged sums the K picks in fp32. First reading on an H100:
+# loss 0, grad norm 1.13e-5, aux 0 (PERF.md); the limits are ~9x the grad
+# norm's reading, as phase 7's are.
+MOE_STEP_LOSS_REL_TOL = 1e-4
+MOE_STEP_GRAD_NORM_REL_TOL = 1e-4
+MOE_STEP_AUX_REL_TOL = 1e-6
 
 
 def row_rel_err(out, ref) -> float:
@@ -588,11 +654,13 @@ def phase_flash_kernels(torch, dev) -> dict:
         dict(name="H=64", H=64),
         dict(name="S=4000", S=4000),
         dict(name="sharp (q x 4)", sharp=4.0),
+        dict(name="rep 8 (Qwen3: N=32, Nkv=4)", Nkv=4),
     ]
     results = []
     for i, c in enumerate(cases):
-        c = dict(dict(main=False, window=None, causal=True, S=4096, H=128, docs=0, sharp=1.0), **c)
-        q, k, v, do, pos, seg = flash_case(torch, dev, S=c["S"], H=c["H"], sharp=c["sharp"], docs=c["docs"], seed=i)
+        c = dict(dict(main=False, window=None, causal=True, S=4096, H=128, docs=0, sharp=1.0, Nkv=8), **c)
+        q, k, v, do, pos, seg = flash_case(torch, dev, S=c["S"], H=c["H"], Nkv=c["Nkv"], sharp=c["sharp"],
+                                           docs=c["docs"], seed=i)
         kw = dict(causal=c["causal"], window=c["window"], scale=c["H"] ** -0.5)
         out, lse = rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw)
         r_out, r_lse = rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)
@@ -610,7 +678,7 @@ def phase_flash_kernels(torch, dev) -> dict:
         mask = rf._mask(pos, pos, seg, seg, c["causal"], c["window"])
         pairs = int(mask.sum()) * (q.shape[0] if seg is None else 1)
         row = dict(
-            case=c["name"], S=c["S"], H=c["H"], live_pairs=pairs,
+            case=c["name"], S=c["S"], H=c["H"], Nkv=c["Nkv"], live_pairs=pairs,
             out_row_err=row_rel_err(out, r_out), lse_err=float((lse - r_lse).abs().max()),
             dq_row_err=grad_row_err(dq, r_dq), dk_row_err=grad_row_err(dk, r_dk),
             dv_row_err=grad_row_err(dv, r_dv),
@@ -836,8 +904,385 @@ def phase_flash_vs_sdpa(torch) -> dict:
     return out
 
 
-def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training) -> dict:
-    """The ``{"kernels": [...]}`` line: each kernel of the two paths, its
+# -- phase 8: grouped matmul against its plain versions -----------------------
+
+
+def moe_rows(torch, dev, routing: str, seed: int):
+    """One 4096-token microbatch at Qwen3-30B-A3B's MoE widths: its token
+    rows sorted by expert ([32768, 2048] bf16) and the int32 group sizes.
+    ``gate``: a real gate (top-8 of a softmax over 128 experts, normalized)
+    over random tokens and a random router; ``balanced``: the fake balanced
+    gate; ``skewed``: random rows in groups where the first and last
+    experts (and three more) are empty and expert 5 holds a quarter."""
+    from automodel_tpu_torch.moe.config import MoEConfig
+    from automodel_tpu_torch.moe.gate import fake_balanced_gate, gate
+
+    hf = QWEN3_MOE_A3B
+    T, D, E, K = 4096, hf["hidden_size"], hf["num_experts"], hf["num_experts_per_tok"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+    if routing == "skewed":
+        M = T * K
+        w = torch.rand(E, generator=g, device=dev) + 0.05
+        w[[0, E - 1, 17, 64, 90, 5]] = 0.0
+        sizes = torch.floor(w / w.sum() * (M - M // 4)).long()
+        sizes[1] += M - M // 4 - int(sizes.sum())
+        sizes[5] = M // 4
+        rows = torch.randn((M, D), generator=g, device=dev).to(torch.bfloat16)
+        return rows, sizes.to(torch.int32)
+    cfg = MoEConfig(num_experts=E, num_experts_per_tok=K, moe_intermediate_size=hf["moe_intermediate_size"],
+                    norm_topk_prob=True)
+    if routing == "balanced":
+        gout = fake_balanced_gate(x, cfg)
+    else:
+        router = (torch.randn((E, D), generator=g, device=dev) / D**0.5).to(torch.bfloat16)
+        gout = gate(x, router, cfg)
+    order = torch.argsort(gout.topk_idx.reshape(-1), stable=True)
+    return x.index_select(0, order // K), gout.expert_counts
+
+
+def grouped_bound(kind: str, a, b, gs, n_out: int) -> tuple[float, str]:
+    """Least time of one launch: 2 flops per routed row and (k, n) pair
+    over the bf16 peak, against the bytes (lhs and the second operand read
+    once, only the rhs slabs of groups that received rows, the output
+    written once) over HBM bandwidth. gmm / gmm_t: a [M, K], b the stacked
+    rhs, output [M, n_out] bf16; tgmm: a [M, K], b dout [M, N], output
+    [G, K, N] fp32."""
+    M, K = a.shape
+    rows = int(gs.sum())
+    G = gs.shape[0]
+    if kind == "tgmm":
+        N = b.shape[1]
+        nbytes = a.numel() * 2 + b.numel() * 2 + G * K * N * 4
+    else:
+        N = n_out
+        nbytes = a.numel() * 2 + int((gs > 0).sum()) * K * N * 2 + M * N * 2
+    t_ops, t_bytes = 2 * rows * K * N / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def grouped_library_ms(torch, kind: str, a, b, gs):
+    """``torch._grouped_mm`` on the same operands (a yardstick only; the
+    port never calls it), or None where this torch has none or refuses."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    calls = dict(
+        gmm=lambda: fn(a, b, offs=offs),
+        gmm_t=lambda: fn(a, b.transpose(-2, -1), offs=offs),
+        tgmm=lambda: fn(a.t(), b, offs=offs),
+    )
+    try:
+        return cuda_ms(calls[kind], iters=20)
+    except (RuntimeError, TypeError, ValueError) as e:
+        print(f"torch._grouped_mm refused the {kind} case: {str(e)[:200]}", flush=True)
+        return None
+
+
+def phase_grouped_kernels(torch, dev) -> dict:
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+
+    hf = QWEN3_MOE_A3B
+    D, I, E = hf["hidden_size"], hf["moe_intermediate_size"], hf["num_experts"]
+    g = torch.Generator(device=dev).manual_seed(100)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    w_gu = randn(E, D, 2 * I, scale=D**-0.5)
+    w_dn = randn(E, I, D, scale=I**-0.5)
+    results = []
+    for ci, (case, routing) in enumerate((("gate", "gate"), ("balanced", "balanced"), ("skewed", "skewed"),
+                                          ("K=N=1000", "gate"))):
+        xs, gs = moe_rows(torch, dev, routing, seed=ci)
+        M = xs.shape[0]
+        if case == "K=N=1000":
+            w_odd = randn(E, 1000, 1000, scale=1000**-0.5)
+            lhs = randn(M, 1000)
+            launches = dict(gmm=(lhs, w_odd, 1000), gmm_t=(randn(M, 1000), w_odd, 1000),
+                            tgmm=(lhs, randn(M, 1000), None))
+        else:
+            dgu = randn(M, 2 * I)
+            launches = dict(gmm=(xs, w_gu, 2 * I), gmm_t=(dgu, w_gu, D), tgmm=(xs, dgu, None))
+            if case == "gate":  # the down projection's three launches as well
+                h, dy = randn(M, I), randn(M, D)
+                launches.update(gmm_down=(h, w_dn, D), gmm_t_down=(dy, w_dn, I), tgmm_down=(h, dy, None))
+        for name, (a, b, n_out) in launches.items():
+            kind = name.split("_down")[0]
+            if kind == "tgmm":
+                run, plain = (lambda a=a, b=b: gm.tgmm(a, b, gs)), (lambda a=a, b=b: gm._tgmm_plain(a, b, gs))
+            else:
+                t = kind == "gmm_t"
+                run = lambda a=a, b=b, t=t: gm.gmm(a, b, gs, transpose_rhs=t)
+                plain = lambda a=a, b=b, t=t: gm._gmm_plain(a, b, gs, transpose_rhs=t)
+            out = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            if not bool(torch.isfinite(out.float()).all()):
+                raise RuntimeError(f"grouped kernel {name} produced non-finite values in case {case}")
+            tol = TGMM_ROW_TOL if kind == "tgmm" else GMM_ROW_TOL
+            row = dict(case=case, launch=name, kind=kind, M=M, K=a.shape[1],
+                       N=b.shape[1] if kind == "tgmm" else n_out, groups_with_rows=int((gs > 0).sum()),
+                       largest_group=int(gs.max()), max_abs_err=float((out.float() - ref.float()).abs().max()),
+                       max_row_rel_err=row_rel_err(out, ref), limit=tol)
+            row["ok"] = row["max_row_rel_err"] <= tol
+            del out, ref
+            if case == "gate":
+                row["ms"] = cuda_ms(run, iters=20)
+                row["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+                row["bound_ms"], row["bound_by"] = grouped_bound(kind, a, b, gs, n_out)
+                row["library_ms"] = grouped_library_ms(torch, kind, a, b, gs)
+            results.append(row)
+            print(f"kernel grouped_matmul vs plain: {json.dumps(row)}", flush=True)
+            torch.cuda.empty_cache()
+        del xs, launches
+        torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"grouped-matmul kernels disagree with their plain versions: {bad}")
+    return {"cases": results}
+
+
+# -- phase 9: MoE training at Qwen3-30B-A3B widths ------------------------------
+
+
+def moe_train_config() -> dict:
+    """PRETRAIN_QWEN3_MOE_A3B on the card with the smoke's step plan and a
+    constant lr of 3e-4 (the example's peak): its 2000-step warmup would
+    leave the bf16 weights unmoved over 4 steps."""
+    cfg = json.loads(json.dumps(PRETRAIN_QWEN3_MOE_A3B))
+    cfg["device"] = "cuda"
+    cfg["step_scheduler"].update(max_steps=MOE_STEPS, log_every_steps=1)
+    cfg["optimizer"].update(lr=3e-4, lr_schedule=dict(style="constant"))
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"moe_metrics_{time.time_ns()}.jsonl")
+    return cfg
+
+
+def profile_moe_step(torch, recipe, acc: int) -> dict:
+    """One more step under torch.profiler: device ms by kernel family and
+    the device's idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from automodel_tpu_torch.data.collators import stack_microbatches
+
+    dl = recipe.dataloader
+    batch = recipe._place(stack_microbatches([dl.batch_for(0, 100 + i) for i in range(acc)]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        recipe.train_step(recipe.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        return {"profile": "no device events from torch.profiler: not measured", "wall_ms": wall_ms}
+    gemm = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
+    families = dict(
+        gmm_ms=lambda k: "gmm_kernel<false>" in k,
+        gmm_t_ms=lambda k: "gmm_kernel<true>" in k,
+        tgmm_ms=lambda k: "tgmm_kernel" in k,
+        flash_fwd_ms=lambda k: "flash_fwd_kernel" in k,
+        flash_dq_ms=lambda k: "flash_dq_kernel" in k,
+        flash_dkv_ms=lambda k: "flash_dkv_kernel" in k,
+        cublas_ms=lambda k: "flash" not in k and "gmm_kernel" not in k and any(s in k for s in gemm),
+    )
+    busy = sum(by_name.values())
+    out = dict(profiled_step_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms)
+    for fam, pred in families.items():
+        out[fam] = sum(v for k, v in by_name.items() if pred(k.lower()))
+    out["rest_ms"] = busy - sum(out[f] for f in families)
+    out["top"] = [dict(name=k[:80], ms=v) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:16]]
+    return out
+
+
+def phase_moe_training(torch) -> dict:
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.moe import layer as moe_layer
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+
+    cfg = moe_train_config()
+    acc = cfg["step_scheduler"]["grad_acc_steps"]
+    print("moe training: lr schedule overridden to a constant 3e-4 (the example's 2000-step warmup "
+          "would leave bf16 weights unmoved over 4 steps)", flush=True)
+    t0 = time.perf_counter()
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    torch.cuda.synchronize()
+    params = recipe.state.params
+    n_params = sum(p.numel() for p in params)
+    layers = cfg["model"]["hf_config"]["num_hidden_layers"]
+    print(f"moe training model: {n_params} params bf16, {layers} layers at Qwen3-30B-A3B widths, set up in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    names = [n for n, _ in recipe.model.named_parameters()]
+    # the stacked expert weights are kept whole on the host (4.8 GB), so
+    # every [E, ...] slab is compared in full: a slab fed a few rows moves
+    # only a few of its elements by a bf16 ulp in 4 steps
+    before = [p.detach().to("cpu", copy=True) if ".experts." in n else p.detach().flatten()[::997].clone()
+              for n, p in zip(names, params)]
+    # which expert slabs receive rows over the run: each MoE layer's picks,
+    # and each microbatch's labels, in the order the run makes them. In the
+    # last layer a token without a label (the masked prompt quarter of a
+    # MockSFTDataset sample) has no gradient at all, since nothing after
+    # that layer reads its row: there only labeled tokens' rows count
+    # (tests/test_torch_moe_model.py::
+    # test_last_layer_expert_fed_only_unlabeled_rows_gets_exactly_zero_grad).
+    picks: dict[int, list] = {}
+    labels_seen: list = []
+    real_gate, real_place = moe_layer.gate, recipe._place
+
+    def recording_gate(x, weight, *a, **kw):
+        out = real_gate(x, weight, *a, **kw)
+        picks.setdefault(weight.data_ptr(), []).append(out.topk_idx)
+        return out
+
+    def recording_place(stacked):
+        placed = real_place(stacked)
+        labels_seen.extend(placed["labels"].unbind(0))
+        return placed
+
+    kernels = dict(gmm=(gm.gmm, "launches"), gmm_t=(gm.gmm, "launches_t"), tgmm=(gm.tgmm, "launches"),
+                   flash_fwd=(rf.flash_block_fwd, "launches"), flash_dq=(rf.flash_block_dq, "launches"),
+                   flash_dkv=(rf.flash_block_dkv, "launches"))
+    moe_layer.gate, recipe._place = recording_gate, recording_place
+    try:
+        # the main path's run: every count set to 0 just before, read just after
+        for f, attr in kernels.values():
+            setattr(f, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(f, attr) for k, (f, attr) in kernels.items()}
+    finally:
+        moe_layer.gate, recipe._place = real_gate, real_place
+    want = dict(gmm=2, gmm_t=2, tgmm=2, flash_fwd=1, flash_dq=1, flash_dkv=1)
+    want = {k: v * layers * acc * MOE_STEPS for k, v in want.items()}
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches}, want {want} ({layers} layers x {acc} microbatches x "
+                           f"{MOE_STEPS} steps; two gmm, gmm_t and tgmm launches per MoE layer)")
+    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    if [r["step"] for r in rows] != list(range(1, MOE_STEPS + 1)):
+        raise RuntimeError(f"metric rows for steps {[r['step'] for r in rows]}")
+    for r in rows:
+        if any(r.get(k) is None for k in ("loss", "grad_norm", "moe_aux_loss")) or r["nonfinite"]:
+            raise RuntimeError(f"non-finite step: {r}")
+    blocks = recipe.model.moe_layers()
+    E = blocks[0].cfg.num_experts
+    fed_rows_by_layer = []
+    for li, blk in enumerate(blocks):
+        n_rows = torch.zeros(E, dtype=torch.long, device=blk.gate.weight.device)
+        for idx, labels in zip(picks[blk.gate.weight.data_ptr()], labels_seen):
+            keep = torch.ones_like(idx) if li < len(blocks) - 1 else (labels.reshape(-1, 1) != -100).expand_as(idx)
+            n_rows.scatter_add_(0, idx.reshape(-1), keep.reshape(-1).long())
+        fed_rows_by_layer.append(n_rows.cpu())
+    moe_layer_of = {id(blk): li for li, blk in enumerate(blocks)}
+    still, slabs_moved, slabs_fed, fed_rows = [], 0, 0, []
+    for (n, p), b in zip(recipe.model.named_parameters(), before):
+        if ".experts." in n:
+            rows_e = fed_rows_by_layer[moe_layer_of[id(recipe.model.model.layers[int(n.split(".")[2])].mlp)]]
+            fed = rows_e > 0
+            moved = (p.detach().cpu() != b).flatten(1).any(dim=1)
+            slabs_fed += int(fed.sum())
+            slabs_moved += int((moved & fed).sum())
+            fed_rows += rows_e[fed].tolist()
+            bad = torch.nonzero(fed & ~moved).flatten().tolist()
+            if bad:
+                still.append(f"{n}: experts {bad} (rows reaching the loss {rows_e[bad].tolist()})")
+        elif not n.endswith("norm.weight") and torch.equal(p.detach().flatten()[::997], b):
+            still.append(n)
+    if still:
+        raise RuntimeError(f"weights unchanged after {MOE_STEPS} steps: {still}")
+    seq = cfg["dataset"]["seq_length"]
+    tokens = seq * acc * cfg["dataloader"]["global_batch_size"]
+    step_s = statistics.median(r["step_time_s"] for r in rows[1:])
+    out = dict(
+        params=n_params, layers=layers, tokens_per_step=tokens, steps=MOE_STEPS, microbatches=acc,
+        losses=[r["loss"] for r in rows], grad_norms=[r["grad_norm"] for r in rows],
+        moe_aux_losses=[r["moe_aux_loss"] for r in rows],
+        expert_load_imbalance=[r["expert_load_imbalance"] for r in rows],
+        expert_load_imbalance_per_layer=rows[-1]["expert_load_imbalance_per_layer"],
+        first_step_s=rows[0].get("first_step_s"), step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+        wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+        expert_slabs_fed=slabs_fed, expert_slabs_moved=slabs_moved, fewest_rows_of_a_fed_slab=min(fed_rows),
+    )
+    out["profile"] = profile_moe_step(torch, recipe, acc)
+    zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+    out["optimizer_update_ms"] = cuda_ms(lambda: recipe.state.optimizer.update(zeros), iters=3, warmup=1)
+    del zeros
+    print(f"moe training: {json.dumps(out)}", flush=True)
+    del recipe, params, before
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 10: one step, experts ragged against dense ---------------------------
+
+
+def phase_ragged_vs_dense(torch) -> dict:
+    """One step's loss, fp32 grad norm and aux loss (one microbatch of 2048
+    tokens, no update) at 1 layer of Qwen3-30B-A3B's widths, from the same
+    weights and batch, with the experts backend switched between the
+    kernels (``ragged``) and plain torch (``dense``)."""
+    import dataclasses
+
+    from automodel_tpu_torch.data.collators import default_collater
+    from automodel_tpu_torch.data.sft import MockSFTDataset
+    from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+    from automodel_tpu_torch.optim.builders import global_norm_fp32
+    from automodel_tpu_torch.training.train_step import make_causal_lm_loss
+
+    cfg = moe_train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = 1
+    cfg["dataset"]["seq_length"] = 2048
+    dev = torch.device(cfg["device"])
+    model = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True).model
+    params = list(model.parameters())
+    ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[3]]).items() if hasattr(v, "shape")}
+    out = {}
+    for experts in ("ragged", "dense"):
+        model.backend = dataclasses.replace(model.backend, experts=experts)
+        before = (gm.gmm.launches, gm.gmm.launches_t, gm.tgmm.launches)
+        loss_sum, n, extras = make_causal_lm_loss(model, loss="fused_linear_ce")(mb)
+        grads = torch.autograd.grad(loss_sum.float(), params)
+        denom = n.clamp_min(1).float()
+        norm = global_norm_fp32(g.float() / denom for g in grads)
+        torch.cuda.synchronize()
+        after = (gm.gmm.launches, gm.gmm.launches_t, gm.tgmm.launches)
+        out[experts] = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm),
+                            moe_aux_loss=float(extras["moe_aux_loss"]),
+                            grouped_launches=[b - a for a, b in zip(before, after)])
+        del grads, loss_sum, extras
+        torch.cuda.empty_cache()
+    r, d = out["ragged"], out["dense"]
+    for key in ("loss", "grad_norm", "moe_aux_loss"):
+        out[f"{key}_rel"] = abs(r[key] - d[key]) / abs(d[key])
+    print(f"one step, experts ragged vs dense: {json.dumps(out)}", flush=True)
+    if r["grouped_launches"] != [2, 2, 2] or d["grouped_launches"] != [0, 0, 0]:
+        raise RuntimeError(f"ragged must launch gmm, gmm_t, tgmm twice each and dense none: {out}")
+    if not all(math.isfinite(x[k]) for x in (r, d) for k in ("loss", "grad_norm", "moe_aux_loss")):
+        raise RuntimeError(f"non-finite loss, grad norm or aux loss: {out}")
+    if (out["loss_rel"] > MOE_STEP_LOSS_REL_TOL or out["grad_norm_rel"] > MOE_STEP_GRAD_NORM_REL_TOL
+            or out["moe_aux_loss_rel"] > MOE_STEP_AUX_REL_TOL):
+        raise RuntimeError(f"ragged and dense steps disagree: {out} (limits: loss {MOE_STEP_LOSS_REL_TOL}, "
+                           f"grad norm {MOE_STEP_GRAD_NORM_REL_TOL}, aux {MOE_STEP_AUX_REL_TOL}, relative)")
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe) -> dict:
+    """The ``{"kernels": [...]}`` line: each kernel of the three paths, its
     launches on its path's run and its times at the main case."""
     timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
     main_case = timed["bf16"]
@@ -887,6 +1332,28 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "library_fwd_bwd_ms": main_flash["library_fwd_bwd_ms"],
             "shape": "B=1 S=4096 N=32 Nkv=8 H=128 causal",
         })
+    # grouped matmul: times at the gate_up-shaped launch of the gate-routed
+    # case, the down-shaped launch beside them
+    timed = {r["launch"]: r for r in grouped["cases"] if "ms" in r}
+    for kind, line_no in (("gmm", 155), ("gmm_t", 155), ("tgmm", 230)):
+        t, down = timed[kind], timed[f"{kind}_down"]
+        rows = [r for r in grouped["cases"] if r["kind"] == kind]
+        line["kernels"].append({
+            "name": f"grouped_matmul_{kind}",
+            "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/grouped_matmul.cu",
+            "replaces": f"automodel_tpu/ops/grouped_matmul.py:{line_no}",
+            "launches": moe["launches"][kind],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_row_rel_err": max(r["max_row_rel_err"] for r in rows),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"M={t['M']} K={t['K']} N={t['N']} G=128, gate-routed (gate_up projection)",
+            "down": {k: down[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "K", "N")},
+        })
     return line
 
 
@@ -910,12 +1377,13 @@ def main() -> int:
         print(f"card: {card} | torch: {name} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
         t0 = time.perf_counter()
-        _cuda_build.build(["paged_attention", "flash_attention"])
+        _cuda_build.build(["paged_attention", "flash_attention", "grouped_matmul"])
         print(f"kernel build: {time.perf_counter() - t0:.1f}s (nvcc, sm_90a)", flush=True)
 
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)
         flash = phase_flash_kernels(torch, dev)
+        grouped = phase_grouped_kernels(torch, dev)
 
         # the serve CLI's own builder, from a config dict
         t0 = time.perf_counter()
@@ -942,8 +1410,10 @@ def main() -> int:
 
         training = phase_training(torch)
         phase_flash_vs_sdpa(torch)
+        moe = phase_moe_training(torch)
+        phase_ragged_vs_dense(torch)
 
-        line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training)
+        line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe)
         print(json.dumps(line), flush=True)
         print(card_line(), flush=True)
     except Exception:

@@ -174,3 +174,16 @@ def test_chip_smoke_trains_the_committed_8b_config():
     spec.loader.exec_module(chip_smoke)
     cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "sft_llama3_8b.yaml"))
     assert chip_smoke.SFT_LLAMA3_8B == cfg.to_dict()
+
+
+def test_chip_smoke_trains_the_committed_moe_config():
+    """chip_smoke.py carries pretrain_qwen3_moe_a3b.yaml as a dict too."""
+    import importlib.util
+
+    from automodel_tpu_torch.config.loader import load_yaml_config
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "pretrain_qwen3_moe_a3b.yaml"))
+    assert chip_smoke.PRETRAIN_QWEN3_MOE_A3B == cfg.to_dict()

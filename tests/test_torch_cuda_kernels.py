@@ -283,3 +283,133 @@ def test_flash_refuses_what_the_kernels_do_not_take():
                             pos, pos, None, None, **kw)
     with pytest.raises(ValueError, match="float16|bfloat16"):
         trf.flash_block_fwd(q.float(), k.float(), v.float(), pos, pos, None, None, **kw)
+
+
+# -- grouped matmul (csrc/grouped_matmul.cu) ------------------------------------
+
+from automodel_tpu_torch.ops import grouped_matmul as tgm  # noqa: E402
+
+# gmm and gmm with a transposed rhs, per output row: both versions round an
+# fp32 sum to bf16 (the kernel's tensor-core sum over K in another order),
+# so a row moves by at most one bf16 ulp per element, 2^-7 of its norm (as
+# ROW_REL_TOL). A row past the groups must be exactly zero. tgmm, per row of
+# each [K, N] slab: both are fp32 sums of exact bf16 x bf16 products, apart
+# only by the order of the sum, so 2^-13; the first readings on an H100 were
+# at most 0.00087 (gmm) and 9.6e-6 (tgmm, an 8192-row group). A group that
+# gains or loses one row moves the worst row of each past 4x its limit
+# (test_grouped_row_check_catches_a_one_row_boundary_shift).
+GMM_ROW_TOL = 2.0**-7
+TGMM_ROW_TOL = 2.0**-13
+
+
+def grouped_case(dev, M, K, N, sizes, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G = len(sizes)
+    lhs = torch.randn((M, K), generator=g).to(torch.bfloat16)
+    rhs = (torch.randn((G, K, N), generator=g) / K**0.5).to(torch.bfloat16)
+    dout = torch.randn((M, N), generator=g).to(torch.bfloat16)
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    return tuple(t.to(dev) for t in (lhs, rhs, dout, gs))
+
+
+def ragged_sizes(M, G, seed=0, empty=(), big=None):
+    """G group sizes summing to M: random cuts, the groups in ``empty``
+    forced to 0 and group ``big`` taking a quarter of the rows."""
+    g = torch.Generator().manual_seed(seed)
+    w = torch.rand(G, generator=g) + 0.05
+    for e in empty:
+        w[e] = 0.0
+    if big is not None:
+        w[big] = 0.0
+    rest = M - (M // 4 if big is not None else 0)
+    sizes = torch.floor(w / w.sum() * rest).long()
+    sizes[int(torch.nonzero(w).max())] += rest - int(sizes.sum())
+    if big is not None:
+        sizes[big] = M // 4
+    return sizes.tolist()
+
+
+def grouped_errors(lhs, rhs, dout, gs, plain: bool, shift=None):
+    """(gmm, gmm_t, tgmm) row errors of the kernels (or, on the CPU, of the
+    plain versions with group_sizes ``shift``ed) against the plain ones."""
+    gmm_fn = tgm._gmm_plain if plain else tgm.gmm
+    tgmm_fn = tgm._tgmm_plain if plain else tgm.tgmm
+    gs_got = gs if shift is None else shift
+    got = (gmm_fn(lhs, rhs, gs_got), gmm_fn(dout, rhs, gs_got, True), tgmm_fn(lhs, dout, gs_got))
+    if lhs.is_cuda:
+        torch.cuda.synchronize()
+    want = (tgm._gmm_plain(lhs, rhs, gs), tgm._gmm_plain(dout, rhs, gs, True), tgm._tgmm_plain(lhs, dout, gs))
+    return dict(gmm=row_rel_err(got[0], want[0]), gmm_t=row_rel_err(got[1], want[1]),
+                tgmm=row_rel_err(got[2], want[2]))
+
+
+@pytest.mark.parametrize("case", ["random", "skewed"])
+def test_grouped_row_check_catches_a_one_row_boundary_shift(case):
+    """On the CPU: one row handed from a group to its neighbour moves the
+    worst gmm / gmm_t row and the worst tgmm slab row past 4x their limits,
+    with ~256-row groups and with one group holding a quarter of the rows
+    (the card's skewed case, where one row is the smallest share)."""
+    M = 4096
+    sizes = ragged_sizes(M, 16, seed=1, big=3 if case == "skewed" else None)
+    lhs, rhs, dout, gs = grouped_case(torch.device("cpu"), M, 256, 256, sizes)
+    b = 3  # the big group in the skewed case; it gives its last row away
+    shifted = gs.clone()
+    shifted[b] -= 1
+    shifted[b + 1] += 1
+    err = grouped_errors(lhs, rhs, dout, gs, plain=True, shift=shifted)
+    assert err["gmm"] > 4 * GMM_ROW_TOL and err["gmm_t"] > 4 * GMM_ROW_TOL, err
+    assert err["tgmm"] > 4 * TGMM_ROW_TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "M,K,N,sizes",
+    [
+        (4096, 512, 768, ragged_sizes(4096, 16)),
+        (4096, 768, 512, ragged_sizes(4096, 16, seed=2, empty=(0, 15), big=7)),
+        (1000, 1000, 1000, ragged_sizes(1000, 5, seed=3)),  # K and N off the 128/32 tiles
+        (130, 128, 128, [1, 129]),  # a tile across a group boundary
+        (96, 32, 40, [96, 0, 0]),  # one group takes every row
+        (300, 64, 64, [0, 50, 0, 78, 0]),  # empty groups at both ends, rows past the groups
+    ],
+)
+def test_grouped_kernels_match_plain(M, K, N, sizes):
+    """gmm, gmm with a transposed rhs and tgmm against their plain versions
+    on the card, each launched once."""
+    _need_cuda("grouped_matmul")
+    lhs, rhs, dout, gs = grouped_case(torch.device("cuda"), M, K, N, sizes)
+    before = (tgm.gmm.launches, tgm.gmm.launches_t, tgm.tgmm.launches)
+    err = grouped_errors(lhs, rhs, dout, gs, plain=False)
+    assert (tgm.gmm.launches, tgm.gmm.launches_t, tgm.tgmm.launches) == tuple(c + 1 for c in before)
+    assert err["gmm"] <= GMM_ROW_TOL and err["gmm_t"] <= GMM_ROW_TOL and err["tgmm"] <= TGMM_ROW_TOL, err
+
+
+@pytest.mark.cuda
+def test_ragged_dot_autograd_on_the_card():
+    """ragged_dot's backward on the card is gmm_t and tgmm: bit-identical to
+    calling the wrappers by hand (no atomics: the kernels repeat exactly)."""
+    _need_cuda("grouped_matmul")
+    lhs, rhs, dout, gs = grouped_case(torch.device("cuda"), 2048, 256, 384, ragged_sizes(2048, 8, seed=4))
+    leaves = [t.clone().requires_grad_(True) for t in (lhs, rhs)]
+    out = tgm.ragged_dot(*leaves, gs)
+    out.backward(dout)
+    assert torch.equal(out.detach(), tgm.gmm(lhs, rhs, gs))
+    assert torch.equal(leaves[0].grad, tgm.gmm(dout, rhs, gs, transpose_rhs=True))
+    assert torch.equal(leaves[1].grad, tgm.tgmm(lhs, dout, gs).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_grouped_kernels_refuse_what_they_do_not_take():
+    _need_cuda("grouped_matmul")
+    lhs, rhs, dout, gs = grouped_case(torch.device("cuda"), 64, 32, 40, [30, 34])
+    with pytest.raises(ValueError, match="bfloat16"):
+        tgm.gmm(lhs.float(), rhs.float(), gs)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tgm.gmm(lhs[:, :30].contiguous(), rhs[:, :30].contiguous(), gs)
+    # transposed rhs [G, N, K]: N=36 is its middle dim, which no last-dim check sees
+    with pytest.raises(ValueError, match="N=36 must be multiples of 8"):
+        tgm.gmm(lhs, rhs.transpose(1, 2)[:, :36].contiguous(), gs, transpose_rhs=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.tgmm(lhs.t().contiguous().t(), dout, gs)
+    with pytest.raises(ValueError, match="group_sizes"):
+        tgm.tgmm(lhs, dout, gs.long())

@@ -1,0 +1,204 @@
+"""The torch port's MoE layers (automodel_tpu_torch/moe) against the JAX
+package on the CPU: the gate in its routing modes, fake balanced routing,
+the aux-free bias update, the ragged and dense experts backends (forward
+and grads, JAX's ragged backend through its Pallas kernels in interpret
+mode) and the whole MoE block with shared experts. The same numpy-made fp32
+inputs go to both; tolerances are stated per test."""
+
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# the JAX moe package exports functions under its modules' names
+jcfg, jexp, jgate, jlayer = (importlib.import_module(f"automodel_tpu.moe.{m}")
+                             for m in ("config", "experts", "gate", "layer"))
+from automodel_tpu_torch.moe import config as tcfg
+from automodel_tpu_torch.moe import experts as texp
+from automodel_tpu_torch.moe import gate as tgate
+from automodel_tpu_torch.moe import layer as tlayer
+
+
+def _cfgs(**kw):
+    return jcfg.MoEConfig(**kw), tcfg.MoEConfig(**kw)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+GATE_CASES = {
+    "softmax_norm_aux": dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=8,
+                             norm_topk_prob=True, aux_loss_coeff=0.01),
+    "sigmoid_bias_scale": dict(num_experts=16, num_experts_per_tok=4, moe_intermediate_size=8,
+                               score_func="sigmoid", expert_bias=True, route_scale=2.5, norm_topk_prob=True),
+    "grouped_routing": dict(num_experts=16, num_experts_per_tok=3, moe_intermediate_size=8,
+                            score_func="sigmoid", n_group=4, topk_group=2, aux_loss_coeff=0.001),
+    "softmax_after_topk": dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=8,
+                               softmax_before_topk=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GATE_CASES))
+def test_gate_matches_jax(name):
+    """Expert ids and counts exactly; weights and the aux loss (with its
+    router grad) to 1e-6 (fp32, same reductions)."""
+    jc, tc = _cfgs(**GATE_CASES[name])
+    rng = np.random.default_rng(0)
+    T, D, E = 24, 16, jc.num_experts
+    x = rng.normal(size=(T, D)).astype(np.float32)
+    w = (rng.normal(size=(D, E)) * 0.5).astype(np.float32)
+    bias = (rng.normal(size=(E,)) * 0.1).astype(np.float32) if jc.expert_bias else None
+    jout = jgate.gate(jnp.asarray(x), jnp.asarray(w), jc, bias=None if bias is None else jnp.asarray(bias), seq_len=8)
+    tw = torch.tensor(w.T.copy(), requires_grad=True)
+    tout = tgate.gate(_t(x), tw, tc, bias=None if bias is None else _t(bias), seq_len=8)
+    np.testing.assert_array_equal(tout.topk_idx.numpy(), np.asarray(jout.topk_idx))
+    np.testing.assert_array_equal(tout.expert_counts.numpy(), np.asarray(jout.expert_counts))
+    assert tout.expert_counts.dtype == torch.int32
+    np.testing.assert_allclose(tout.topk_weights.detach().numpy(), np.asarray(jout.topk_weights), atol=1e-6)
+    np.testing.assert_allclose(float(tout.aux_loss.detach()), float(jout.aux_loss), rtol=1e-6, atol=1e-9)
+    if jc.aux_loss_coeff > 0:
+        jg = jax.grad(lambda ww: jgate.gate(jnp.asarray(x), ww, jc, seq_len=8).aux_loss)(jnp.asarray(w))
+        tout.aux_loss.backward()
+        np.testing.assert_allclose(tw.grad.numpy().T, np.asarray(jg), rtol=1e-5, atol=1e-9)
+
+
+def test_gate_breaks_ties_toward_the_lower_index():
+    jc, tc = _cfgs(num_experts=8, num_experts_per_tok=3, moe_intermediate_size=4)
+    x = np.ones((4, 2), np.float32)
+    w = np.zeros((2, 8), np.float32)
+    w[:, 5] = 1.0  # expert 5 wins, the rest tie
+    jidx = np.asarray(jgate.gate(jnp.asarray(x), jnp.asarray(w), jc).topk_idx)
+    tidx = tgate.gate(_t(x), _t(w.T.copy()), tc).topk_idx.numpy()
+    np.testing.assert_array_equal(tidx, jidx)
+    assert tidx[0].tolist() == [5, 0, 1]
+
+
+def test_fake_balanced_gate_and_bias_update_match_jax():
+    jc, tc = _cfgs(num_experts=8, num_experts_per_tok=3, moe_intermediate_size=4, route_scale=1.5)
+    x = np.zeros((10, 4), np.float32)
+    jout = jgate.fake_balanced_gate(jnp.asarray(x), jc, offset=2)
+    tout = tgate.fake_balanced_gate(_t(x), tc, offset=2)
+    np.testing.assert_array_equal(tout.topk_idx.numpy(), np.asarray(jout.topk_idx))
+    np.testing.assert_array_equal(tout.expert_counts.numpy(), np.asarray(jout.expert_counts))
+    np.testing.assert_allclose(tout.topk_weights.numpy(), np.asarray(jout.topk_weights))
+    bias = np.linspace(-0.1, 0.1, 8).astype(np.float32)
+    counts = np.array([3, 9, 4, 4, 0, 12, 4, 4], np.int32)
+    want = jgate.update_gate_bias(jnp.asarray(bias), jnp.asarray(counts), 0.001)
+    np.testing.assert_allclose(tgate.update_gate_bias(_t(bias), _t(counts), 0.001).numpy(), np.asarray(want))
+
+
+def _expert_inputs(seed=3, T=48, D=32, E=8, I=24):
+    rng = np.random.default_rng(seed)
+    return dict(
+        x=rng.normal(size=(T, D)).astype(np.float32),
+        router=(rng.normal(size=(D, E)) * 0.1).astype(np.float32),
+        gate_up=(rng.normal(size=(E, D, 2 * I)) * 0.1).astype(np.float32),
+        down=(rng.normal(size=(E, I, D)) * 0.1).astype(np.float32),
+        dout=rng.normal(size=(T, D)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("backend", ["ragged", "dense"])
+def test_experts_forward_and_grads_match_jax_ragged_kernels(backend, monkeypatch):
+    """Port ragged (the plain gmm/tgmm) and dense against JAX's ragged
+    backend through its Pallas kernels (interpreted): the output and the
+    grads of x, the router and both expert weights, to 2e-4 (the test at
+    tests/test_grouped_matmul.py:70 holds JAX's own two backends to the
+    same)."""
+    monkeypatch.setenv("AUTOMODEL_GMM_INTERPRET", "1")
+    jc, tc = _cfgs(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=24, norm_topk_prob=True)
+    a = _expert_inputs()
+
+    def jfn(x, router, gu, dn):
+        gout = jgate.gate(x, router, jc)
+        out = jexp.ragged_experts(x, gout, {"gate_up": gu, "down": dn}, jc, lambda g, u: jax.nn.silu(g) * u)
+        return (out * a["dout"]).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(jfn, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a[k]) for k in ("x", "router", "gate_up", "down"))
+    )
+    x, router, gu, dn = (torch.tensor(v, requires_grad=True) for v in (a["x"], a["router"].T.copy(), a["gate_up"], a["down"]))
+    gout = tgate.gate(x, router, tc)
+    act2 = lambda g, u: torch.nn.functional.silu(g) * u
+    out = texp.expert_backend(backend)(x, gout, {"gate_up": gu, "down": dn}, tc, act2)
+    (out * _t(a["dout"])).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=2e-4)
+    for got, want in zip((x.grad, router.grad.t(), gu.grad, dn.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+
+
+def test_unported_expert_backends_raise_by_name():
+    from automodel_tpu_torch.models.common.config import BackendConfig
+
+    for name in ("gspmd", "ragged_fused", "a2a", "a2a_fused"):
+        with pytest.raises(ValueError, match=name):
+            texp.expert_backend(name)
+    with pytest.raises(ValueError, match="fp8_experts"):
+        BackendConfig.from_dict({"experts": "ragged", "fp8_experts": True})
+    with pytest.raises(ValueError, match="experts='bogus'"):
+        BackendConfig(experts="bogus")
+    # the backend config's names are the experts module's, run or refused
+    from automodel_tpu_torch.models.common.config import EXPERTS_NAMES
+
+    assert set(EXPERTS_NAMES) == set(texp.EXPERT_BACKENDS) | set(texp.NOT_PORTED)
+
+
+@pytest.mark.parametrize("backend", ["ragged", "dense"])
+def test_moe_block_with_shared_experts_matches_jax(backend):
+    """moe_block with a shared expert and the sigmoid shared-expert gate
+    (qwen2-moe style) and the aux loss: output, counts and aux against
+    JAX's moe_block, same weights (fp32, 1e-5)."""
+    kw = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=16, norm_topk_prob=True,
+              num_shared_experts=1, shared_expert_intermediate_size=24, shared_expert_gate=True,
+              aux_loss_coeff=0.01)
+    jc, tc = _cfgs(**kw)
+    D = 32
+    mp = jlayer.init_moe_params(jax.random.key(4), jc, D, jnp.float32)
+    # a non-zero shared gate, so its path is exercised
+    mp["shared_gate"]["kernel"] = jax.random.normal(jax.random.key(5), (D, 1)) * 0.3
+    x = np.random.default_rng(6).normal(size=(2, 12, D)).astype(np.float32)
+    jout, jaux = jlayer.moe_block(jnp.asarray(x), mp, jc, jax.nn.silu, experts_backend="dense")
+    block = tlayer.MoEBlock(tc, D, torch.float32, torch.device("cpu"))
+    np_ = jax.tree.map(np.asarray, mp)
+    sd = {
+        "gate.weight": np_["router"]["weight"].T,
+        "experts.gate_up": np_["experts"]["gate_up"],
+        "experts.down": np_["experts"]["down"],
+        "shared_experts.gate_proj.weight": np_["shared"]["gate_proj"]["kernel"].T,
+        "shared_experts.up_proj.weight": np_["shared"]["up_proj"]["kernel"].T,
+        "shared_experts.down_proj.weight": np_["shared"]["down_proj"]["kernel"].T,
+        "shared_expert_gate.weight": np_["shared_gate"]["kernel"].T,
+    }
+    block.load_state_dict({k: _t(v) for k, v in sd.items()})
+    out, aux = tlayer.moe_block(_t(x), block, torch.nn.functional.silu, backend)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=1e-5)
+    np.testing.assert_array_equal(aux.expert_counts.numpy(), np.asarray(jaux.expert_counts))
+    np.testing.assert_allclose(float(aux.aux_loss.detach()), float(jaux.aux_loss), rtol=1e-6)
+
+
+def test_moe_config_from_hf_matches_jax():
+    hf = dict(num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768, norm_topk_prob=True,
+              router_aux_loss_coef=0.001, n_group=1, first_k_dense_replace=0)
+    want = dataclasses.asdict(jcfg.MoEConfig.from_hf(lambda k, d=None: hf.get(k, d)))
+    got = dataclasses.asdict(tcfg.MoEConfig.from_hf(lambda k, d=None: hf.get(k, d)))
+    # the port leaves out the gspmd / a2a dispatchers' capacity factors
+    assert got == {k: v for k, v in want.items() if k not in ("capacity_factor", "a2a_capacity_factor")}
+    with pytest.raises(ValueError, match="n_group"):
+        tcfg.MoEConfig(num_experts=6, num_experts_per_tok=2, moe_intermediate_size=4, n_group=4)
+
+
+@pytest.mark.parametrize("field,value", [("interleaved_gate_up", True), ("expert_mlp_bias", True),
+                                         ("activation", "swiglu_oai"), ("activation", "relu2"),
+                                         ("activation_limit", 7.0), ("router_linear_bias", True)])
+def test_moe_config_refuses_the_unported_expert_variants_by_name(field, value):
+    """gpt-oss and relu2 experts are not ported: each field that would turn
+    them on raises naming itself (JAX's MoEConfig takes them)."""
+    kw = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=4, **{field: value})
+    jcfg.MoEConfig(**kw)
+    with pytest.raises(ValueError, match=f"MoEConfig.{field}="):
+        tcfg.MoEConfig(**kw)
