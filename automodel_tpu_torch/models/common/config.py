@@ -5,9 +5,12 @@ the attention backend and the param and compute dtypes; ``attn`` is
 ``sdpa`` (plain torch) or ``flash`` (the flash-attention kernels,
 ops/ring_flash.py) for the no-cache forward that training runs.
 ``experts`` names the MoE experts backend (default ``gspmd``, as in JAX;
-an MoE model runs ``ragged``, the grouped-matmul kernels, or ``dense``,
-and raises naming any other) and ``fake_balanced_gate`` swaps the router
-for deterministic balanced routing. Any other attention value, or any key
+an MoE model runs ``ragged``, the grouped-matmul kernels, ``ragged_fused``,
+the fused expert-MLP kernels, or ``dense``, and raises naming any other)
+and ``fake_balanced_gate`` swaps the router for deterministic balanced
+routing. ``TransformerConfig.from_hf`` reads the rope scaling (yarn
+included), an explicit ``head_dim``, ``attention_bias`` and the sliding
+window. Any other attention value, or any key
 the JAX backend has but the port does not (``remat``, ``scan_layers``,
 ``fp8``, ``fp8_experts``, ``attn_block_*``, ...), is refused rather than
 ignored.
@@ -24,8 +27,8 @@ from automodel_tpu_torch.ops.rope import RopeConfig
 
 ATTN_BACKENDS = ("sdpa", "flash")
 # every experts backend the JAX package names; moe/experts.py runs the first
-# two and refuses the rest by name
-EXPERTS_NAMES = ("dense", "ragged", "gspmd", "ragged_fused", "a2a", "a2a_fused")
+# three and refuses the rest by name
+EXPERTS_NAMES = ("dense", "ragged", "ragged_fused", "gspmd", "a2a", "a2a_fused")
 
 _DTYPES = {
     "float32": torch.float32,

@@ -69,13 +69,13 @@ class RMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: TransformerConfig, dtype: torch.dtype, device, o_bias: bool = False):
         super().__init__()
         D = cfg.hidden_size
         self.q_proj = _linear(D, cfg.q_dim, cfg.attention_bias, dtype, device)
         self.k_proj = _linear(D, cfg.kv_dim, cfg.attention_bias, dtype, device)
         self.v_proj = _linear(D, cfg.kv_dim, cfg.attention_bias, dtype, device)
-        self.o_proj = _linear(cfg.q_dim, D, False, dtype, device)
+        self.o_proj = _linear(cfg.q_dim, D, o_bias, dtype, device)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(cfg.head_dim, cfg.rms_eps, dtype, device)
             self.k_norm = RMSNorm(cfg.head_dim, cfg.rms_eps, dtype, device)
@@ -112,9 +112,14 @@ class LlamaModel(nn.Module):
 
 
 def layer_sliding_window(cfg: TransformerConfig, layer_idx: int) -> Optional[int]:
-    """HF qwen2 semantics: layers < max_window_layers attend fully."""
+    """HF qwen2 semantics: layers < max_window_layers attend fully; a config
+    with ``layer_types`` (gpt-oss) windows its ``sliding_attention`` layers
+    only."""
     if cfg.sliding_window is None:
         return None
+    layer_types = getattr(cfg, "layer_types", ())
+    if layer_types:
+        return cfg.sliding_window if layer_types[layer_idx] == "sliding_attention" else None
     if cfg.max_window_layers and layer_idx < cfg.max_window_layers:
         return None
     return cfg.sliding_window
@@ -134,7 +139,8 @@ def attention_block(
     """h + self-attention of decoder layer ``i`` (its ``input_layernorm``
     and ``self_attn``), shared by the llama and MoE families: through the
     configured backend (``flash``: the flash kernels) without a cache, and
-    through ``cache.write`` / ``cache.attend`` with one."""
+    through ``cache.write`` / ``cache.attend`` with one. A ``self_attn``
+    with ``sinks`` (gpt-oss) attends with them."""
     attn = layer.self_attn
     B, S, _ = h.shape
     x = layer.input_layernorm(h)
@@ -156,7 +162,7 @@ def attention_block(
         out = attention(
             q, k, v, backend=backend.attn, causal=True, scale=cfg.attn_scale,
             segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
-            sliding_window=window,
+            sliding_window=window, sinks=getattr(attn, "sinks", None),
         )
     return h + _proj(out.reshape(B, S, cfg.q_dim), attn.o_proj)
 

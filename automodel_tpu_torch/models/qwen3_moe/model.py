@@ -8,8 +8,9 @@ forward returns ``(logits, MoEModelAux)`` and whose ``hidden`` returns
 on the device) and the summed aux loss. Attention is the llama block
 (``models/llama/model.attention_block``), so ``attn: flash`` runs the flash
 kernels; the routed experts run through ``backend.experts``: ``ragged``
-(the grouped-matmul kernels) or ``dense`` (plain torch). Any other experts
-backend raises by name.
+(the grouped-matmul kernels), ``ragged_fused`` (the fused expert-MLP
+kernels) or ``dense`` (plain torch). Any other experts backend raises by
+name.
 
 Parameter names follow HF (``model.layers.{i}.self_attn.*``,
 ``model.layers.{i}.mlp.gate.weight`` [E, D]) with the stacked expert
@@ -99,22 +100,25 @@ class MoEDecoderLayer(nn.Module):
 
 
 class MoEModel(nn.Module):
-    def __init__(self, cfg: MoETransformerConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: MoETransformerConfig, dtype: torch.dtype, device, layer_cls: type = MoEDecoderLayer):
         super().__init__()
         nd = cfg.moe.num_dense_layers
         self.embed_tokens = nn.utils.skip_init(
             nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype
         )
-        self.layers = nn.ModuleList(MoEDecoderLayer(cfg, i < nd, dtype, device) for i in range(cfg.num_layers))
+        self.layers = nn.ModuleList(layer_cls(cfg, i < nd, dtype, device) for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
 
 
 class MoEForCausalLM(nn.Module):
     """Built uninitialized on ``device`` in the param dtype;
     ``init_weights`` fills it from a generator, ``load_state_dict`` from a
-    carried checkpoint. Parameters require grad when built ``trainable``."""
+    carried checkpoint. Parameters require grad when built ``trainable``.
+    A family with other decoder layers (``models/gpt_oss``) subclasses it
+    with its own ``layer_cls``."""
 
     supports_kv_cache = False
+    layer_cls: type = MoEDecoderLayer
 
     def __init__(
         self,
@@ -130,7 +134,7 @@ class MoEForCausalLM(nn.Module):
         self.config = config
         self.backend = backend
         pd = backend.param_torch_dtype
-        self.model = MoEModel(config, pd, device)
+        self.model = MoEModel(config, pd, device, self.layer_cls)
         if not config.tie_embeddings:
             self.lm_head = _linear(config.hidden_size, config.vocab_size, False, pd, device)
         self.requires_grad_(trainable)
@@ -141,12 +145,12 @@ class MoEForCausalLM(nn.Module):
         router, the stacked experts, attention and dense-MLP projections)
         ``N(0,1) / sqrt(fan_in)`` with fan_in its second axis (D for the
         router and gate_up, I for down, the input width of an
-        ``nn.Linear``); embeddings ``N(0,1) * 0.02``; norms one; biases and
-        the shared-expert gate zero."""
+        ``nn.Linear``); embeddings ``N(0,1) * 0.02``; norms one; biases,
+        attention sinks and the shared-expert gate zero."""
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
-            elif name.endswith("bias") or name.endswith("shared_expert_gate.weight"):
+            elif name.endswith(("bias", "sinks", "shared_expert_gate.weight")):
                 p.zero_()
             else:
                 x = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
@@ -173,7 +177,9 @@ class MoEForCausalLM(nn.Module):
         """Embed + decoder stack → (final-norm hidden states [B, S, D] in
         the compute dtype, MoEModelAux)."""
         if cache is not None:
-            raise ValueError("MoEForCausalLM: KV-cache decode (cache=) is not ported to the torch backend yet")
+            raise ValueError(
+                f"{type(self).__name__}: KV-cache decode (cache=) is not ported to the torch backend yet"
+            )
         cfg = self.config
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
@@ -187,7 +193,9 @@ class MoEForCausalLM(nn.Module):
             x = layer.post_attention_layernorm(h)
             mlp = layer.mlp
             if isinstance(mlp, MoEBlock):
-                out, aux = moe_block(x, mlp, act, self.backend.experts, self.backend.fake_balanced_gate)
+                out, aux = moe_block(
+                    x, mlp, act, self.backend.experts, self.backend.fake_balanced_gate, act_name=cfg.act
+                )
                 counts.append(aux.expert_counts)
                 aux_losses.append(aux.aux_loss)
                 h = h + out
@@ -226,5 +234,6 @@ class MoEForCausalLM(nn.Module):
         if u <= 0 or "expert_counts" not in extras:
             return
         for block, c in zip(self.moe_layers(), extras["expert_counts"]):
-            if block.gate.bias is not None:
-                block.gate.bias.copy_(update_gate_bias(block.gate.bias, c, u))
+            router = getattr(block, block.router_name)
+            if router.bias is not None:
+                router.bias.copy_(update_gate_bias(router.bias, c, u))

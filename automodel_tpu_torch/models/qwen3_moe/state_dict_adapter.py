@@ -9,8 +9,9 @@ stacks in order under HF names. The MoE leaves map as:
 
 - ``moe/router/weight`` [L, D, E] → ``mlp.gate.weight`` [E, D];
 - ``moe/router/bias`` [L, E] → the ``mlp.gate.bias`` buffer;
-- ``moe/experts/{gate_up,down}`` [L, E, ...] → ``mlp.experts.{gate_up,down}``
-  (the same layout);
+  ``moe/router/linear_bias`` [L, E] → ``mlp.gate.linear_bias``;
+- ``moe/experts/{gate_up,down,gate_up_bias,down_bias}`` [L, E, ...] →
+  ``mlp.experts.*`` (the same layout);
 - ``moe/shared/*_proj/kernel`` → ``mlp.shared_experts.*_proj.weight``
   (transposed), ``moe/shared_gate/kernel`` [L, D, 1] →
   ``mlp.shared_expert_gate.weight`` [1, D].
@@ -29,6 +30,28 @@ from automodel_tpu_torch.models.llama.state_dict_adapter import _Taker, carry_en
 _SHARED = ("gate_proj", "up_proj", "down_proj")
 
 
+def carry_moe(sd: dict, take: _Taker, stack: str, n: int, offset: int = 0, router: str = "gate") -> None:
+    """The ``moe`` leaves of one stacked layer tree (``tree[stack]``, n
+    layers) into ``sd`` as layers ``offset``, ``offset + 1``, ..., the
+    router under ``mlp.<router>``."""
+    m = (stack, "moe")
+    per_layer: dict[str, torch.Tensor] = {f"mlp.{router}.weight": take(*m, "router", "weight").transpose(1, 2)}
+    for leaf in ("bias", "linear_bias"):
+        if take.has(*m, "router", leaf):
+            per_layer[f"mlp.{router}.{leaf}"] = take(*m, "router", leaf)
+    for name in ("gate_up", "down", "gate_up_bias", "down_bias"):
+        if take.has(*m, "experts", name):
+            per_layer[f"mlp.experts.{name}"] = take(*m, "experts", name)
+    for name in _SHARED:
+        if take.has(*m, "shared", name, "kernel"):
+            per_layer[f"mlp.shared_experts.{name}.weight"] = take(*m, "shared", name, "kernel").transpose(1, 2)
+    if take.has(*m, "shared_gate", "kernel"):
+        per_layer["mlp.shared_expert_gate.weight"] = take(*m, "shared_gate", "kernel").transpose(1, 2)
+    for key, stacked in per_layer.items():
+        for i in range(n):
+            sd[f"model.layers.{offset + i}.{key}"] = stacked[i].contiguous()
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """JAX MoE param (or gradient) tree, numpy leaves → the port's state
     dict. Raises on a leaf it does not know."""
@@ -37,19 +60,6 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     carry_ends(sd, take)
     nd = carry_stack(sd, take, "dense_layers") if "dense_layers" in tree else 0
     nm = carry_stack(sd, take, "moe_layers", offset=nd)
-    m = ("moe_layers", "moe")
-    per_layer: dict[str, torch.Tensor] = {"mlp.gate.weight": take(*m, "router", "weight").transpose(1, 2)}
-    if take.has(*m, "router", "bias"):
-        per_layer["mlp.gate.bias"] = take(*m, "router", "bias")
-    for name in ("gate_up", "down"):
-        per_layer[f"mlp.experts.{name}"] = take(*m, "experts", name)
-    for name in _SHARED:
-        if take.has(*m, "shared", name, "kernel"):
-            per_layer[f"mlp.shared_experts.{name}.weight"] = take(*m, "shared", name, "kernel").transpose(1, 2)
-    if take.has(*m, "shared_gate", "kernel"):
-        per_layer["mlp.shared_expert_gate.weight"] = take(*m, "shared_gate", "kernel").transpose(1, 2)
-    for key, stacked in per_layer.items():
-        for i in range(nm):
-            sd[f"model.layers.{nd + i}.{key}"] = stacked[i].contiguous()
+    carry_moe(sd, take, "moe_layers", nm, offset=nd)
     take.check_all_taken("qwen3_moe params_from_jax")
     return sd

@@ -1,8 +1,9 @@
 """HF architecture → the port's model family.
 
 Port of ``automodel_tpu/models/registry.py`` for the families the port
-has: ``LlamaForCausalLM`` and ``Qwen3MoeForCausalLM`` (the MoE family of
-``models/qwen3_moe``, registered at :130 of the JAX registry). A config
+has: ``LlamaForCausalLM``, ``Qwen3MoeForCausalLM`` (the MoE family of
+``models/qwen3_moe``, registered at :130 of the JAX registry) and
+``GptOssForCausalLM`` (``models/gpt_oss``, :106). A config
 naming another architecture is refused; a config naming none builds the
 generic llama, as in the JAX registry.
 """
@@ -37,6 +38,13 @@ def _moe_builder(hf_config: Any, backend: BackendConfig, device=None, trainable:
     from automodel_tpu_torch.models.qwen3_moe import MoEForCausalLM, MoETransformerConfig
 
     return MoEForCausalLM(MoETransformerConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
+
+
+@register_architecture("GptOssForCausalLM")
+def _gpt_oss_builder(hf_config: Any, backend: BackendConfig, device=None, trainable: bool = False):
+    from automodel_tpu_torch.models.gpt_oss import GptOssConfig, GptOssForCausalLM
+
+    return GptOssForCausalLM(GptOssConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
 
 
 def resolve_architecture(hf_config: Any) -> Callable:

@@ -2,10 +2,13 @@
 ``automodel_tpu/moe/config.py`` with its checks and ``from_hf`` (:72); the
 port imports nothing of the JAX package, so it keeps its own. The JAX
 dispatchers' capacity factors are left out with the gspmd and a2a
-backends. The gpt-oss and relu2 expert variants (interleaved gate/up,
-expert and router biases, the clamped and non-gated activations) keep their
-fields, so the two configs match field for field, but no family the port
-registers uses them: ``__post_init__`` refuses each by name."""
+backends. The gpt-oss expert variant (expert and router biases, the
+clamped ``swiglu_oai`` activation) is taken, as ``models/gpt_oss`` sets it.
+The other variants keep their fields, so the two configs match field for
+field, but no family the port registers uses them, and ``__post_init__``
+refuses each by name: interleaved gate/up (the JAX gpt-oss config keeps it
+off, its adapter de-interleaves at the HF boundary), the non-gated relu2
+experts (nemotron_v3) and the clamp ``activation_limit`` (step3p5)."""
 
 from __future__ import annotations
 
@@ -14,10 +17,8 @@ from typing import Any, Optional
 
 # expert variants of families the port does not register, with the only
 # value it takes
-_NOT_PORTED = dict(
-    interleaved_gate_up=False, expert_mlp_bias=False, activation="swiglu", activation_limit=None,
-    router_linear_bias=False,
-)
+_NOT_PORTED = dict(interleaved_gate_up=False, activation_limit=None)
+ACTIVATIONS = ("swiglu", "swiglu_oai")  # relu2 (non-gated, nemotron_v3) is not ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +43,10 @@ class MoEConfig:
     num_dense_layers: int = 0
     # shared-expert gating (qwen2-moe style sigmoid gate on shared output)
     shared_expert_gate: bool = False
-    # gpt-oss-style experts (gate/up interleaved on the fused dim, bias terms
-    # on both projections, clamped (up+1)*glu activation, a learned router
-    # bias) and relu2 experts: refused unless left at their defaults
+    # gpt-oss-style experts: bias terms on both projections, the clamped
+    # (up+1)*glu activation, a learned router bias that feeds both selection
+    # and weights. Interleaved gate/up, relu2 and the activation limit are
+    # refused unless left at their defaults
     interleaved_gate_up: bool = False
     expert_mlp_bias: bool = False
     activation: str = "swiglu"  # swiglu | swiglu_oai | relu2 (non-gated)
@@ -55,9 +57,14 @@ class MoEConfig:
         for name, default in _NOT_PORTED.items():
             if getattr(self, name) != default:
                 raise ValueError(
-                    f"MoEConfig.{name}={getattr(self, name)!r} (gpt-oss / relu2 experts) is not ported to "
-                    f"the torch backend"
+                    f"MoEConfig.{name}={getattr(self, name)!r} is not ported to the torch backend "
+                    f"(no family the port registers sets it)"
                 )
+        if self.activation not in ACTIVATIONS:
+            raise ValueError(
+                f"MoEConfig.activation={self.activation!r} is not ported to the torch backend "
+                f"(it takes {list(ACTIVATIONS)})"
+            )
         if self.score_func not in ("softmax", "sigmoid"):
             raise ValueError(f"score_func {self.score_func!r}")
         if self.num_experts % self.n_group != 0:

@@ -47,14 +47,19 @@ def gate(
     cfg: MoEConfig,
     bias: Optional[torch.Tensor] = None,
     seq_len: Optional[int] = None,
+    linear_bias: Optional[torch.Tensor] = None,
 ) -> GateOutput:
     """Route tokens. x: [T, D]; weight: the router [E, D] (the HF
     ``mlp.gate.weight`` layout; the JAX tree holds its transpose); bias:
     [E] aux-free selection correction. Combine weights come from the
-    original scores: the bias only moves the selection."""
+    original scores: the bias only moves the selection. ``linear_bias``
+    [E] is a learned router bias (gpt-oss) added to the logits, so it feeds
+    both the selection and the weights (:53-54)."""
     T = x.shape[0]
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     logits = x.float() @ weight.float().t()  # [T, E]
+    if linear_bias is not None:
+        logits = logits + linear_bias.float()
 
     if cfg.softmax_before_topk or cfg.score_func == "sigmoid":
         scores = _score(logits, cfg)
@@ -91,7 +96,9 @@ def gate(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.aux_loss_coeff > 0:
         # sequence-level aux loss (DeepSeek style): within each sequence,
-        # fraction routed to expert e x mean prob of e, summed over experts
+        # fraction routed to expert e x mean prob of e, summed over experts.
+        # Under softmax after top-k the "probs" are the raw logits, as in JAX
+        # (:97-99)
         probs = scores if cfg.score_func == "softmax" else torch.softmax(logits, dim=-1)
         if seq_len is not None and T % seq_len == 0:
             S = seq_len

@@ -2,15 +2,19 @@
 
 Port of ``automodel_tpu/moe/layer.py``: ``make_act2`` (:29), ``moe_block``
 (:64) and ``MoEAux``. ``MoEBlock`` holds one layer's parameters under HF
-names (``gate.weight`` [E, D], the transpose of the JAX ``router/weight``;
-``shared_experts.{gate,up,down}_proj``, ``shared_expert_gate``) with the
+names: the router (``gate.weight`` [E, D] for Qwen3-MoE, ``router.weight``
+for GPT-OSS; the transpose of the JAX ``router/weight``),
+``shared_experts.{gate,up,down}_proj`` and ``shared_expert_gate``, with the
 stacked expert weights ``experts.gate_up`` [E, D, 2I] and ``experts.down``
 [E, I, D] in the JAX layout, which is the grouped-matmul kernels' rhs
-layout. The aux-free selection bias (``gate.bias``, [E] fp32) is a buffer:
-it gets no gradient and is moved only by ``update_gate_bias`` after the
-optimizer step. Init scales follow ``init_moe_params`` (:137): the router
-and gate_up with fan_in D, down with fan_in I (``init_weights`` of the
-model applies them).
+layout. The aux-free selection bias (``<router>.bias``, [E] fp32) is a
+buffer: it gets no gradient and is moved only by ``update_gate_bias`` after
+the optimizer step. The gpt-oss variant adds a learned router bias
+(``<router>.linear_bias``, [E] fp32, a parameter) and expert biases
+(``experts.gate_up_bias`` [E, 2I], ``experts.down_bias`` [E, D], in the
+param dtype). Init scales follow ``init_moe_params`` (:137): the router and
+gate_up with fan_in D, down with fan_in I, every bias zero (``init_weights``
+of the model applies them).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from torch import nn
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.experts import expert_backend
 from automodel_tpu_torch.moe.gate import fake_balanced_gate, gate
+from automodel_tpu_torch.ops.fused_expert_mlp import _act_core
 
 
 class MoEAux(NamedTuple):
@@ -32,8 +37,12 @@ class MoEAux(NamedTuple):
 
 
 def make_act2(cfg: MoEConfig, base_act: Callable) -> Callable:
-    """Two-argument gated activation: ``act(g) * u`` (the gpt-oss clamped
-    and the relu2 variants are refused by ``MoEConfig``)."""
+    """Two-argument gated activation from the config, in its inputs' dtype:
+    ``act(g) * u``, or gpt-oss's ``swiglu_oai`` (:31-41), the fused
+    kernels' formula, whose clamps (``torch.minimum`` / ``torch.maximum``)
+    split the gradient evenly at a bound as JAX's do."""
+    if cfg.activation == "swiglu_oai":
+        return lambda g, u: _act_core(g, u, "swiglu_oai", None)
     return lambda g, u: base_act(g) * u
 
 
@@ -47,6 +56,9 @@ class Experts(nn.Module):
         E, D, I = cfg.num_experts, hidden_size, cfg.moe_intermediate_size
         self.gate_up = _param((E, D, 2 * I), dtype, device)
         self.down = _param((E, I, D), dtype, device)
+        if cfg.expert_mlp_bias:
+            self.gate_up_bias = _param((E, 2 * I), dtype, device)
+            self.down_bias = _param((E, D), dtype, device)
 
 
 class Router(nn.Module):
@@ -57,6 +69,7 @@ class Router(nn.Module):
             self.register_buffer("bias", torch.zeros(cfg.num_experts, dtype=torch.float32, device=device))
         else:
             self.bias = None
+        self.linear_bias = _param((cfg.num_experts,), torch.float32, device) if cfg.router_linear_bias else None
 
 
 class SharedExperts(nn.Module):
@@ -70,12 +83,14 @@ class SharedExperts(nn.Module):
 
 
 class MoEBlock(nn.Module):
-    """One MoE layer's parameters, which ``moe_block`` runs."""
+    """One MoE layer's parameters, which ``moe_block`` runs; the router sits
+    under ``router_name`` (HF's name in the family)."""
 
-    def __init__(self, cfg: MoEConfig, hidden_size: int, dtype: torch.dtype, device):
+    def __init__(self, cfg: MoEConfig, hidden_size: int, dtype: torch.dtype, device, router_name: str = "gate"):
         super().__init__()
         self.cfg = cfg
-        self.gate = Router(cfg, hidden_size, dtype, device)
+        self.router_name = router_name
+        setattr(self, router_name, Router(cfg, hidden_size, dtype, device))
         self.experts = Experts(cfg, hidden_size, dtype, device)
         if cfg.num_shared_experts > 0:
             self.shared_experts = SharedExperts(cfg, hidden_size, dtype, device)
@@ -86,18 +101,27 @@ class MoEBlock(nn.Module):
 
 
 def moe_block(
-    x: torch.Tensor, block: MoEBlock, act: Callable, experts_backend: str = "ragged", fake_gate: bool = False
+    x: torch.Tensor,
+    block: MoEBlock,
+    act: Callable,
+    experts_backend: str = "ragged",
+    fake_gate: bool = False,
+    act_name: str = "silu",
 ) -> tuple[torch.Tensor, MoEAux]:
-    """x [B, S, D] → (out [B, S, D], MoEAux)."""
+    """x [B, S, D] → (out [B, S, D], MoEAux). ``act_name`` names ``act``
+    for ``ragged_fused``, whose kernels apply the activation themselves."""
     cfg = block.cfg
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     if fake_gate:
         gout = fake_balanced_gate(xt, cfg)
     else:
-        gout = gate(xt, block.gate.weight, cfg, bias=block.gate.bias, seq_len=S)
+        router = getattr(block, block.router_name)
+        gout = gate(xt, router.weight, cfg, bias=router.bias, seq_len=S, linear_bias=router.linear_bias)
     act2 = make_act2(cfg, act)
-    out = expert_backend(experts_backend)(xt, gout, dict(block.experts.named_parameters()), cfg, act2)
+    out = expert_backend(experts_backend)(
+        xt, gout, dict(block.experts.named_parameters()), cfg, act2, act_name=act_name
+    )
     if cfg.num_shared_experts > 0:
         sp = block.shared_experts
         lin = lambda h, m: F.linear(h, m.weight.to(h.dtype))

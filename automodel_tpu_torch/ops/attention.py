@@ -3,13 +3,13 @@
 - ``sdpa``: plain torch scaled dot-product attention in the JAX arithmetic
   (einsum logits in fp32, scale, soft cap, mask with
   ``DEFAULT_MASK_VALUE``, fp32 softmax, probabilities cast to q's dtype
-  before the value product). It is the reference the flash kernels' plain
-  version is held to; chunked prefill and the gather decode backend run
-  through ``sdpa_decode``.
+  before the value product), with gpt-oss sinks as an extra softmax
+  column. It is the reference the flash kernels' plain version is held to;
+  chunked prefill and the gather decode backend run through ``sdpa_decode``.
 - ``flash``: the flash-attention kernels of ``ops/ring_flash.py``
   (``csrc/flash_attention.cu`` on a CUDA tensor, their plain version on a
-  CPU tensor). It never goes to ``sdpa``: what the kernels do not carry
-  (logits soft cap, sinks) raises.
+  CPU tensor), with sinks folded around them. It never goes to ``sdpa``:
+  what the kernels do not carry (the logits soft cap) raises.
 
 The JAX ``ring`` backend waits for the context-parallel port.
 """
@@ -42,11 +42,15 @@ def sdpa(
     logits_soft_cap: Optional[float] = None,
     sliding_window: Optional[int] = None,
     kv_mask: Optional[torch.Tensor] = None,
+    sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q [B, Sq, N, H], k/v [B, Sk, Nkv, H] → [B, Sq, N, H] in q.dtype.
     Causal and window masks align the last query with the last key, as in
     JAX; ``segment_ids`` [B, S] keep packed documents apart; ``kv_mask``
-    [B, Sk] (one mask for every query) or [B, Sq, Sk] ANDs onto the rest."""
+    [B, Sk] (one mask for every query) or [B, Sq, Sk] ANDs onto the rest.
+    ``sinks`` [N]: per-head learned logits of a virtual key that absorbs
+    probability mass (gpt-oss): a column of the softmax, dropped after it
+    (:110-117)."""
     sq, n, h = q.shape[1], q.shape[2], q.shape[3]
     sk, n_kv = k.shape[1], k.shape[2]
     k = repeat_kv(k, n // n_kv)
@@ -68,7 +72,11 @@ def sdpa(
     if kv_mask is not None:
         mask = mask & (kv_mask[:, None, :, :] if kv_mask.dim() == 3 else kv_mask[:, None, None, :])
     logits = torch.where(mask, logits, torch.full_like(logits, DEFAULT_MASK_VALUE))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if sinks is not None:
+        sink_col = sinks.float()[None, :, None, None].expand(logits.shape[0], n, sq, 1)
+        probs = torch.softmax(torch.cat([logits, sink_col], dim=-1), dim=-1)[..., :-1].to(q.dtype)
+    else:
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v.to(q.dtype))
 
 
@@ -101,8 +109,9 @@ def flash(
     sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Flash attention through ``ops/ring_flash.flash_attention``: the CUDA
-    kernels for CUDA tensors, their plain version for CPU tensors. The
-    logits soft cap and sinks are not carried by the kernels and raise."""
+    kernels for CUDA tensors, their plain version for CPU tensors, sinks
+    folded around them. The logits soft cap is not carried by the kernels
+    and raises."""
     from automodel_tpu_torch.ops import ring_flash
 
     if logits_soft_cap is not None:

@@ -290,21 +290,43 @@ def flash_block_bwd(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, ca
     return dq, dk, dv
 
 
+def fold_sinks(out: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sink is one zero-value virtual key per head, folded in after the
+    kernel (JAX :358-371): lse' = logaddexp(lse, sink), out' = out *
+    exp(lse - lse') → (out' in out.dtype, lse' fp32 [B, N, S]). With lse'
+    saved, the backward kernels' P = exp(s - lse') are the probabilities of
+    the softmax extended by the sink column."""
+    lse_ext = torch.logaddexp(lse, sinks.float()[None, :, None])
+    scale = torch.exp(lse - lse_ext).transpose(1, 2)[..., None]  # [B, S, N, 1]
+    return (out.float() * scale).to(out.dtype), lse_ext
+
+
+def sinks_grad(lse_ext: torch.Tensor, delta: torch.Tensor, sinks: torch.Tensor) -> torch.Tensor:
+    """d_sinks [N] fp32: the sink column's dP is dO . v_sink = 0, so dS =
+    p_sink (0 - delta), summed over the batch and the rows (JAX :393-396)."""
+    p_sink = torch.exp(sinks.float()[None, :, None] - lse_ext)
+    return -(p_sink * delta).sum(dim=(0, 2))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, pos, seg, causal, window, scale):
+    def forward(ctx, q, k, v, pos, seg, sinks, causal, window, scale):
         out, lse = flash_block_fwd(q, k, v, pos, pos, seg, seg, causal=causal, window=window, scale=scale)
-        ctx.save_for_backward(q, k, v, out, lse, pos, seg)
+        if sinks is not None:
+            out, lse = fold_sinks(out, lse, sinks)
+        ctx.save_for_backward(q, k, v, out, lse, pos, seg, sinks)
         ctx.kw = dict(causal=causal, window=window, scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, pos, seg = ctx.saved_tensors
+        q, k, v, out, lse, pos, seg, sinks = ctx.saved_tensors
         dout = dout.contiguous()
+        # delta from the folded output and the kernels fed the extended lse
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, N, S]
         dq, dk, dv = flash_block_bwd(q, k, v, dout, lse, delta, pos, pos, seg, seg, **ctx.kw)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+        d_sinks = None if sinks is None else sinks_grad(lse, delta, sinks).to(sinks.dtype)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, d_sinks, None, None, None
 
 
 def flash_attention(
@@ -322,15 +344,14 @@ def flash_attention(
     "ring step" covering the whole sequence. q [B, S, N, H] x k/v [B, S,
     Nkv, H] → [B, S, N, H] in q.dtype; differentiable (the backward runs
     the dq and dkv kernels). Any S: the kernels mask the ragged edge
-    themselves. Sinks are not ported (gpt-oss); they raise."""
-    if sinks is not None:
-        raise ValueError(
-            "flash_attention: sinks are not ported to the torch backend's flash kernels"
-        )
-    S, H = q.shape[1], q.shape[3]
+    themselves. ``sinks`` [N] (gpt-oss) are folded in after the forward
+    kernel, with an exact gradient (``fold_sinks``, ``sinks_grad``)."""
+    S, N, H = q.shape[1], q.shape[2], q.shape[3]
+    if sinks is not None and tuple(sinks.shape) != (N,):
+        raise ValueError(f"flash_attention: sinks must be [{N}] (one per q head), got {tuple(sinks.shape)}")
     scale = scale if scale is not None else 1.0 / (H**0.5)
     pos = torch.arange(S, dtype=torch.int32, device=q.device)
     seg = None if segment_ids is None else segment_ids.to(torch.int32).contiguous()
     return _FlashAttention.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), pos, seg, causal, sliding_window, scale
+        q.contiguous(), k.contiguous(), v.contiguous(), pos, seg, sinks, causal, sliding_window, scale
     )

@@ -1,7 +1,10 @@
 """Rotary position embeddings, port of ``automodel_tpu/ops/rope.py``.
 
-Rotate-half layout (HF transformers convention). Scalings: none, ``linear``
-and ``llama3``; ``yarn`` is refused until a family that needs it is ported.
+Rotate-half layout (HF transformers convention). Scalings: none, ``linear``,
+``llama3`` and ``yarn`` (GPT-OSS), whose cos and sin carry the attention
+factor. As in the JAX package, yarn always floors and ceils the ramp's ends
+and ignores HF's ``truncate`` key; ``mrope_table`` and ``yarn_mscale`` are
+not ported.
 """
 
 from __future__ import annotations
@@ -20,8 +23,12 @@ class RopeConfig:
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
     original_max_position: int = 8192
+    # yarn
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float | None = None  # HF yarn cos/sin multiplier
 
-    SUPPORTED_SCALINGS = (None, "llama3", "linear")
+    SUPPORTED_SCALINGS = (None, "llama3", "linear", "yarn")
 
     def __post_init__(self):
         if self.scaling not in self.SUPPORTED_SCALINGS:
@@ -45,6 +52,9 @@ class RopeConfig:
             original_max_position=rs.get(
                 "original_max_position_embeddings", get("max_position_embeddings", 8192)
             ),
+            beta_fast=rs.get("beta_fast", 32.0),
+            beta_slow=rs.get("beta_slow", 1.0),
+            attention_factor=rs.get("attention_factor"),
         )
 
 
@@ -70,7 +80,30 @@ def inv_freq(head_dim: int, cfg: RopeConfig, device=None) -> torch.Tensor:
                 wavelen > low, inv / cfg.factor, (1 - smooth) * inv / cfg.factor + smooth * inv
             ),
         )
+    elif cfg.scaling == "yarn":
+        # the DeepSeek/Qwen YaRN ramp (JAX :86-100)
+        def find_dim(n_rot: float) -> float:
+            return (head_dim * math.log(cfg.original_max_position / (n_rot * 2 * math.pi))) / (
+                2 * math.log(cfg.theta)
+            )
+
+        low = max(math.floor(find_dim(cfg.beta_fast)), 0)
+        high = min(math.ceil(find_dim(cfg.beta_slow)), head_dim - 1)
+        ramp = torch.clamp(
+            (torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low) / max(high - low, 1e-3), 0, 1
+        )
+        inv = inv / cfg.factor * ramp + inv * (1 - ramp)
     return inv
+
+
+def attention_factor(cfg: RopeConfig) -> float:
+    """HF yarn multiplies cos and sin by ``attention_factor``, 0.1 ln(factor)
+    + 1 when unset (JAX ``_attention_factor``, :106-116); 1 otherwise."""
+    if cfg.scaling != "yarn":
+        return 1.0
+    if cfg.attention_factor is not None:
+        return cfg.attention_factor
+    return 0.1 * math.log(cfg.factor) + 1.0 if cfg.factor > 1.0 else 1.0
 
 
 def rope_table(
@@ -80,7 +113,8 @@ def rope_table(
     inv = inv_freq(head_dim, cfg, device=position_ids.device)
     freqs = position_ids[..., None].float() * inv  # [..., S, hd/2]
     emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
+    f = attention_factor(cfg)
+    return torch.cos(emb) * f, torch.sin(emb) * f
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -58,8 +58,33 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    its count; then a profile of one step;
 10. one step at 1 layer of those widths and 2048 tokens with ``experts:
    ragged`` (the kernels) against ``experts: dense`` (plain torch): loss,
-   grad norm and aux loss must agree.
+   grad norm and aux loss must agree;
+11. flash attention with gpt-oss sinks folded around the kernels at
+   GPT-OSS's attention shape (B=1, S=4096, N=64, Nkv=8, H=64, causal, a 128
+   window and full): out, dq, dk, dv and d_sinks against the same fold
+   around the plain versions;
+12. the fused expert-MLP kernels (the forward's two launches, bwd_gu,
+   bwd_dwd, bwd_dx) against their plain versions at gpt-oss-20b's MoE
+   shapes (4096 tokens routed top-4 over 32 experts by a real gate with a
+   learned bias: M = 16384 rows, hidden 2880, expert width 2880,
+   swiglu_oai, expert biases), timed against the plain versions, a
+   ``torch._grouped_mm`` composition and the bound; then Qwen3-30B-A3B's
+   shapes (swiglu, no biases), skewed groups, inputs scaled so that ~10%
+   of g and u pass the +-7 clamps, swiglu with a limit of 2, and a NaN tail
+   past the groups (every weight and bias grad finite and equal to the
+   clean tail's);
+13. GPT-OSS training at gpt-oss-20b widths cut to 3 layers
+   (``automodel_tpu_torch/configs/pretrain_gpt_oss_20b.yaml``) through the
+   ``pretrain`` recipe class: 4 steps of 2 microbatches of 4096 tokens
+   through the fused expert-MLP, grouped-matmul and flash kernels. Every
+   loss and grad norm must be finite, every weight matrix, bias and sink and
+   every expert slab that received rows must move, and each kernel must have
+   launched its count (tgmm none); then a profile of one step;
+14. one step at 1 layer of those widths and 2048 tokens with ``experts:
+   ragged_fused`` against ``experts: ragged``: loss and grad norm must
+   agree.
 
+Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10.
 The ``kernels`` JSON line comes third from last, the ``nvidia-smi`` card
 line second, and the last line is ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
@@ -67,6 +92,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -192,6 +218,62 @@ TGMM_ROW_TOL = 2.0**-13
 MOE_STEP_LOSS_REL_TOL = 1e-4
 MOE_STEP_GRAD_NORM_REL_TOL = 1e-4
 MOE_STEP_AUX_REL_TOL = 1e-6
+
+GPT_OSS_20B = dict(  # openai/gpt-oss-20b config.json widths and rope
+    architectures=["GptOssForCausalLM"], model_type="gpt_oss",
+    vocab_size=201088, hidden_size=2880, intermediate_size=2880, num_hidden_layers=24,
+    num_attention_heads=64, num_key_value_heads=8, head_dim=64, num_local_experts=32, num_experts_per_tok=4,
+    sliding_window=128, rope_theta=150000.0,
+    rope_scaling=dict(rope_type="yarn", factor=32.0, beta_fast=32.0, beta_slow=1.0,
+                      original_max_position_embeddings=4096, truncate=False),
+    rms_norm_eps=1e-5, attention_bias=True, max_position_embeddings=131072, tie_word_embeddings=False,
+)
+# automodel_tpu_torch/configs/pretrain_gpt_oss_20b.yaml as a dict
+# (tests/test_torch_gpt_oss.py checks the two agree): depth cut to 3 layers.
+PRETRAIN_GPT_OSS_20B = dict(
+    seed=42,
+    model=dict(
+        hf_config=dict(GPT_OSS_20B, num_hidden_layers=3),
+        backend=dict(attn="flash", experts="ragged_fused", param_dtype="bfloat16", compute_dtype="bfloat16"),
+    ),
+    dataset=dict(_target_="automodel_tpu_torch.data.sft.MockSFTDataset", vocab_size=201088,
+                 seq_length=4096, num_samples=1024, mask_ratio=0.0),
+    dataloader=dict(global_batch_size=1),
+    step_scheduler=dict(grad_acc_steps=2, num_epochs=1, max_steps=4, log_every_steps=1),
+    optimizer=dict(name="adamw", lr=1e-4),
+    loss_fn=dict(name="fused_linear_ce"),
+    logging=dict(metrics_path="runs/torch_gpt_oss_20b/train_metrics.jsonl"),
+)
+# fused expert-MLP kernels vs plain (tests/test_torch_cuda_kernels.py holds
+# the same limits and the reasons): out and dlhs per row within 2^-7, as
+# gmm; the weight grads (dW gate | up, dWd) per row of each slab within
+# 2^-10 (fp32 sums of bf16 products whose bf16 operand, dg, du or mid, the
+# two versions compute a few fp32 ulps apart and may round one ulp apart);
+# the bias grads per expert row within 2^-12 (fp32 sums in another order).
+# A group that gains or loses one row moves the worst row of each past 4x
+# its limit (tests/test_torch_cuda_kernels.py::
+# test_fused_row_check_catches_a_one_row_boundary_shift).
+FEM_ROW_TOL = 2.0**-7
+FEM_DW_ROW_TOL = 2.0**-10
+FEM_BIAS_ROW_TOL = 2.0**-12
+# flash with sinks vs plain with sinks: out and dq/dk/dv as phase 3's;
+# d_sinks = -sum over rows of p_sink x delta (delta = dO . out per row) is a
+# signed sum that cancels, so each head's error is judged against the sum of
+# its terms' magnitudes, sum p_sink |dO| |out|: with out rows within 2^-7,
+# |delta - delta'| <= 2^-7 |dO| |out|, so 2^-7 holds whatever the
+# cancellation (tests/test_torch_cuda_kernels.py holds the same; a limit of
+# 1e-3 of the largest element, set before any reading, was broken at 2.6e-3
+# by the first reading on an H100, S=1000, N=16)
+SINKS_GRAD_TOL = 2.0**-7
+# experts ragged_fused vs ragged over one step at 1 layer of gpt-oss-20b
+# widths (relative). Looser than ragged vs dense (1e-4 each, whose routing
+# and activation are the same): the fused forward keeps g, u and the
+# activation in fp32 and rounds mid once, where ragged rounds g | u to bf16,
+# adds the biases in bf16 and runs swiglu_oai in bf16 eager torch, as JAX's
+# make_act2 does; the backward differs the same way. First reading on an
+# H100: loss 1.79e-5, grad norm 4.96e-5 (PERF.md); the limits are ~10x it.
+FUSED_STEP_LOSS_REL_TOL = 2e-4
+FUSED_STEP_GRAD_NORM_REL_TOL = 5e-4
 
 
 def row_rel_err(out, ref) -> float:
@@ -1060,9 +1142,30 @@ def moe_train_config() -> dict:
     return cfg
 
 
-def profile_moe_step(torch, recipe, acc: int) -> dict:
-    """One more step under torch.profiler: device ms by kernel family and
-    the device's idle share of the step."""
+# kernel families of the MoE profiles, by the kernels' names
+QWEN_FAMILIES = dict(
+    gmm_ms=lambda k: "gmm_kernel<false>" in k,
+    gmm_t_ms=lambda k: "gmm_kernel<true>" in k,
+    tgmm_ms=lambda k: "tgmm_kernel" in k,
+    flash_fwd_ms=lambda k: "flash_fwd_kernel" in k,
+    flash_dq_ms=lambda k: "flash_dq_kernel" in k,
+    flash_dkv_ms=lambda k: "flash_dkv_kernel" in k,
+)
+GPT_OSS_FAMILIES = dict(
+    QWEN_FAMILIES,
+    fem_fwd_gu_act_ms=lambda k: "fwd_gu_act_kernel" in k,
+    fem_fwd_down_ms=lambda k: "fwd_down_kernel" in k,
+    fem_bwd_gu_ms=lambda k: "bwd_gu_kernel" in k,
+    fem_bwd_dwd_ms=lambda k: "bwd_dwd_kernel" in k,
+    fem_bwd_dx_ms=lambda k: "bwd_dx_kernel" in k,
+)
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
+
+
+def profile_moe_step(torch, recipe, acc: int, families: dict) -> dict:
+    """One more step under torch.profiler: device ms by kernel family (the
+    port's kernels by name, cuBLAS, and the rest) and the device's idle
+    share of the step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1082,16 +1185,9 @@ def profile_moe_step(torch, recipe, acc: int) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     if not by_name:
         return {"profile": "no device events from torch.profiler: not measured", "wall_ms": wall_ms}
-    gemm = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
-    families = dict(
-        gmm_ms=lambda k: "gmm_kernel<false>" in k,
-        gmm_t_ms=lambda k: "gmm_kernel<true>" in k,
-        tgmm_ms=lambda k: "tgmm_kernel" in k,
-        flash_fwd_ms=lambda k: "flash_fwd_kernel" in k,
-        flash_dq_ms=lambda k: "flash_dq_kernel" in k,
-        flash_dkv_ms=lambda k: "flash_dkv_kernel" in k,
-        cublas_ms=lambda k: "flash" not in k and "gmm_kernel" not in k and any(s in k for s in gemm),
-    )
+    ours = list(families.values())
+    families = dict(families, cublas_ms=lambda k: not any(f(k) for f in ours)
+                    and "flash" not in k and "gmm_kernel" not in k and any(s in k for s in GEMM_NAMES))
     busy = sum(by_name.values())
     out = dict(profiled_step_ms=wall_ms, device_busy_ms=busy, idle_share=1.0 - busy / wall_ms)
     for fam, pred in families.items():
@@ -1101,17 +1197,18 @@ def profile_moe_step(torch, recipe, acc: int) -> dict:
     return out
 
 
-def phase_moe_training(torch) -> dict:
+def run_moe_training(torch, cfg: dict, label: str, kernels: dict, want: dict, families: dict) -> dict:
+    """4 steps of an MoE config through the ``pretrain`` recipe class: every
+    loss, grad norm and aux loss finite; every kernel launched its ``want``
+    count (set to 0 just before the run, read just after); every weight
+    matrix, bias and sink moved, and every expert slab that received rows
+    reaching the loss; then a profile of one step and the optimizer's time."""
     from automodel_tpu_torch.config import ConfigNode
     from automodel_tpu_torch.moe import layer as moe_layer
-    from automodel_tpu_torch.ops import grouped_matmul as gm
-    from automodel_tpu_torch.ops import ring_flash as rf
     from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
 
-    cfg = moe_train_config()
     acc = cfg["step_scheduler"]["grad_acc_steps"]
-    print("moe training: lr schedule overridden to a constant 3e-4 (the example's 2000-step warmup "
-          "would leave bf16 weights unmoved over 4 steps)", flush=True)
+    steps = cfg["step_scheduler"]["max_steps"]
     t0 = time.perf_counter()
     recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
     recipe.setup()
@@ -1119,20 +1216,20 @@ def phase_moe_training(torch) -> dict:
     params = recipe.state.params
     n_params = sum(p.numel() for p in params)
     layers = cfg["model"]["hf_config"]["num_hidden_layers"]
-    print(f"moe training model: {n_params} params bf16, {layers} layers at Qwen3-30B-A3B widths, set up in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"{label} model: {n_params} params bf16, {layers} layers, set up in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     names = [n for n, _ in recipe.model.named_parameters()]
-    # the stacked expert weights are kept whole on the host (4.8 GB), so
-    # every [E, ...] slab is compared in full: a slab fed a few rows moves
-    # only a few of its elements by a bf16 ulp in 4 steps
+    # the stacked expert weights are kept whole on the host, so every
+    # [E, ...] slab is compared in full: a slab fed a few rows moves only a
+    # few of its elements by a bf16 ulp in 4 steps
     before = [p.detach().to("cpu", copy=True) if ".experts." in n else p.detach().flatten()[::997].clone()
               for n, p in zip(names, params)]
     # which expert slabs receive rows over the run: each MoE layer's picks,
     # and each microbatch's labels, in the order the run makes them. In the
     # last layer a token without a label (the masked prompt quarter of a
-    # MockSFTDataset sample) has no gradient at all, since nothing after
-    # that layer reads its row: there only labeled tokens' rows count
-    # (tests/test_torch_moe_model.py::
+    # MockSFTDataset sample, and every sample's last token) has no gradient
+    # at all, since nothing after that layer reads its row: there only
+    # labeled tokens' rows count (tests/test_torch_moe_model.py::
     # test_last_layer_expert_fed_only_unlabeled_rows_gets_exactly_zero_grad).
     picks: dict[int, list] = {}
     labels_seen: list = []
@@ -1148,9 +1245,6 @@ def phase_moe_training(torch) -> dict:
         labels_seen.extend(placed["labels"].unbind(0))
         return placed
 
-    kernels = dict(gmm=(gm.gmm, "launches"), gmm_t=(gm.gmm, "launches_t"), tgmm=(gm.tgmm, "launches"),
-                   flash_fwd=(rf.flash_block_fwd, "launches"), flash_dq=(rf.flash_block_dq, "launches"),
-                   flash_dkv=(rf.flash_block_dkv, "launches"))
     moe_layer.gate, recipe._place = recording_gate, recording_place
     try:
         # the main path's run: every count set to 0 just before, read just after
@@ -1163,14 +1257,15 @@ def phase_moe_training(torch) -> dict:
         wall = time.perf_counter() - t0
         launches = {k: getattr(f, attr) for k, (f, attr) in kernels.items()}
     finally:
-        moe_layer.gate, recipe._place = real_gate, real_place
-    want = dict(gmm=2, gmm_t=2, tgmm=2, flash_fwd=1, flash_dq=1, flash_dkv=1)
-    want = {k: v * layers * acc * MOE_STEPS for k, v in want.items()}
+        # delete the instance attribute: assigning the bound method back would
+        # make a reference cycle that keeps the model alive after the phase
+        moe_layer.gate = real_gate
+        del recipe._place
     if launches != want:
-        raise RuntimeError(f"kernel launches {launches}, want {want} ({layers} layers x {acc} microbatches x "
-                           f"{MOE_STEPS} steps; two gmm, gmm_t and tgmm launches per MoE layer)")
+        raise RuntimeError(f"{label}: kernel launches {launches}, want {want} ({layers} layers x {acc} microbatches "
+                           f"x {steps} steps)")
     rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
-    if [r["step"] for r in rows] != list(range(1, MOE_STEPS + 1)):
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
         raise RuntimeError(f"metric rows for steps {[r['step'] for r in rows]}")
     for r in rows:
         if any(r.get(k) is None for k in ("loss", "grad_norm", "moe_aux_loss")) or r["nonfinite"]:
@@ -1179,8 +1274,9 @@ def phase_moe_training(torch) -> dict:
     E = blocks[0].cfg.num_experts
     fed_rows_by_layer = []
     for li, blk in enumerate(blocks):
-        n_rows = torch.zeros(E, dtype=torch.long, device=blk.gate.weight.device)
-        for idx, labels in zip(picks[blk.gate.weight.data_ptr()], labels_seen):
+        router = getattr(blk, blk.router_name)
+        n_rows = torch.zeros(E, dtype=torch.long, device=router.weight.device)
+        for idx, labels in zip(picks[router.weight.data_ptr()], labels_seen):
             keep = torch.ones_like(idx) if li < len(blocks) - 1 else (labels.reshape(-1, 1) != -100).expand_as(idx)
             n_rows.scatter_add_(0, idx.reshape(-1), keep.reshape(-1).long())
         fed_rows_by_layer.append(n_rows.cpu())
@@ -1200,12 +1296,12 @@ def phase_moe_training(torch) -> dict:
         elif not n.endswith("norm.weight") and torch.equal(p.detach().flatten()[::997], b):
             still.append(n)
     if still:
-        raise RuntimeError(f"weights unchanged after {MOE_STEPS} steps: {still}")
+        raise RuntimeError(f"weights unchanged after {steps} steps: {still}")
     seq = cfg["dataset"]["seq_length"]
     tokens = seq * acc * cfg["dataloader"]["global_batch_size"]
     step_s = statistics.median(r["step_time_s"] for r in rows[1:])
     out = dict(
-        params=n_params, layers=layers, tokens_per_step=tokens, steps=MOE_STEPS, microbatches=acc,
+        params=n_params, layers=layers, tokens_per_step=tokens, steps=steps, microbatches=acc,
         losses=[r["loss"] for r in rows], grad_norms=[r["grad_norm"] for r in rows],
         moe_aux_losses=[r["moe_aux_loss"] for r in rows],
         expert_load_imbalance=[r["expert_load_imbalance"] for r in rows],
@@ -1214,75 +1310,440 @@ def phase_moe_training(torch) -> dict:
         wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
         expert_slabs_fed=slabs_fed, expert_slabs_moved=slabs_moved, fewest_rows_of_a_fed_slab=min(fed_rows),
     )
-    out["profile"] = profile_moe_step(torch, recipe, acc)
+    del before
+    out["profile"] = profile_moe_step(torch, recipe, acc, families)
     zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
     out["optimizer_update_ms"] = cuda_ms(lambda: recipe.state.optimizer.update(zeros), iters=3, warmup=1)
     del zeros
-    print(f"moe training: {json.dumps(out)}", flush=True)
-    del recipe, params, before
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    del recipe, params
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-# -- phase 10: one step, experts ragged against dense ---------------------------
+def phase_moe_training(torch) -> dict:
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+    from automodel_tpu_torch.ops import ring_flash as rf
+
+    cfg = moe_train_config()
+    print("moe training: lr schedule overridden to a constant 3e-4 (the example's 2000-step warmup "
+          "would leave bf16 weights unmoved over 4 steps)", flush=True)
+    kernels = dict(gmm=(gm.gmm, "launches"), gmm_t=(gm.gmm, "launches_t"), tgmm=(gm.tgmm, "launches"),
+                   flash_fwd=(rf.flash_block_fwd, "launches"), flash_dq=(rf.flash_block_dq, "launches"),
+                   flash_dkv=(rf.flash_block_dkv, "launches"))
+    # two gmm, gmm_t and tgmm launches per MoE layer
+    per = dict(gmm=2, gmm_t=2, tgmm=2, flash_fwd=1, flash_dq=1, flash_dkv=1)
+    n = cfg["model"]["hf_config"]["num_hidden_layers"] * cfg["step_scheduler"]["grad_acc_steps"] * MOE_STEPS
+    return run_moe_training(torch, cfg, "moe training", kernels, {k: v * n for k, v in per.items()}, QWEN_FAMILIES)
 
 
-def phase_ragged_vs_dense(torch) -> dict:
-    """One step's loss, fp32 grad norm and aux loss (one microbatch of 2048
-    tokens, no update) at 1 layer of Qwen3-30B-A3B's widths, from the same
-    weights and batch, with the experts backend switched between the
-    kernels (``ragged``) and plain torch (``dense``)."""
+# -- phase 13: GPT-OSS training at gpt-oss-20b widths ------------------------------
+
+
+def gpt_oss_train_config() -> dict:
+    """PRETRAIN_GPT_OSS_20B on the card with a JSONL path of its own (its
+    4 steps, its constant lr of 1e-4 and its per-step logging are the
+    config's)."""
+    cfg = json.loads(json.dumps(PRETRAIN_GPT_OSS_20B))
+    cfg["device"] = "cuda"
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"gpt_oss_metrics_{time.time_ns()}.jsonl")
+    return cfg
+
+
+def fused_kernel_counters() -> dict:
+    from automodel_tpu_torch.ops import fused_expert_mlp as fem
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+    from automodel_tpu_torch.ops import ring_flash as rf
+
+    return dict(fem_fwd=(fem.fwd, "launches"), fem_bwd_gu=(fem.bwd_gu, "launches"),
+                fem_bwd_dwd=(fem.bwd_dwd, "launches"), fem_bwd_dx=(fem.bwd_dx, "launches"),
+                gmm=(gm.gmm, "launches"), gmm_t=(gm.gmm, "launches_t"), tgmm=(gm.tgmm, "launches"),
+                flash_fwd=(rf.flash_block_fwd, "launches"), flash_dq=(rf.flash_block_dq, "launches"),
+                flash_dkv=(rf.flash_block_dkv, "launches"))
+
+
+def phase_gpt_oss_training(torch) -> dict:
+    cfg = gpt_oss_train_config()
+    n = (cfg["model"]["hf_config"]["num_hidden_layers"] * cfg["step_scheduler"]["grad_acc_steps"]
+         * cfg["step_scheduler"]["max_steps"])
+    # one call of each K3 kernel, one K2 gmm (the gu recompute) and gmm_t
+    # (dmid) per layer and microbatch; no tgmm on this path
+    want = dict(fem_fwd=n, fem_bwd_gu=n, fem_bwd_dwd=n, fem_bwd_dx=n, gmm=n, gmm_t=n, tgmm=0,
+                flash_fwd=n, flash_dq=n, flash_dkv=n)
+    return run_moe_training(torch, cfg, "gpt-oss training", fused_kernel_counters(), want, GPT_OSS_FAMILIES)
+
+
+# -- phases 10 and 14: one step, two experts backends ---------------------------
+
+
+def one_step_experts_ab(torch, cfg: dict, label: str, backends: tuple, want: dict, tols: dict) -> dict:
+    """One step's loss, fp32 grad norm and aux loss (one microbatch of the
+    config's tokens, no update) from the same weights and batch, with the
+    experts backend switched between ``backends``: each must launch the
+    grouped-matmul and fused expert-MLP kernels ``want[backend]`` times,
+    and each metric in ``tols`` must agree within its limit (relative to
+    the second backend's)."""
     import dataclasses
 
     from automodel_tpu_torch.data.collators import default_collater
     from automodel_tpu_torch.data.sft import MockSFTDataset
     from automodel_tpu_torch.generation.engine import build_auto_from_model_section
-    from automodel_tpu_torch.ops import grouped_matmul as gm
     from automodel_tpu_torch.optim.builders import global_norm_fp32
     from automodel_tpu_torch.training.train_step import make_causal_lm_loss
 
-    cfg = moe_train_config()
-    cfg["model"]["hf_config"]["num_hidden_layers"] = 1
-    cfg["dataset"]["seq_length"] = 2048
     dev = torch.device(cfg["device"])
     model = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True).model
     params = list(model.parameters())
     ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
     mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[3]]).items() if hasattr(v, "shape")}
+    counters = {k: v for k, v in fused_kernel_counters().items() if not k.startswith("flash")}
     out = {}
-    for experts in ("ragged", "dense"):
+    for experts in backends:
         model.backend = dataclasses.replace(model.backend, experts=experts)
-        before = (gm.gmm.launches, gm.gmm.launches_t, gm.tgmm.launches)
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
         loss_sum, n, extras = make_causal_lm_loss(model, loss="fused_linear_ce")(mb)
         grads = torch.autograd.grad(loss_sum.float(), params)
         denom = n.clamp_min(1).float()
         norm = global_norm_fp32(g.float() / denom for g in grads)
         torch.cuda.synchronize()
-        after = (gm.gmm.launches, gm.gmm.launches_t, gm.tgmm.launches)
+        launches = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
         out[experts] = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm),
-                            moe_aux_loss=float(extras["moe_aux_loss"]),
-                            grouped_launches=[b - a for a, b in zip(before, after)])
+                            moe_aux_loss=float(extras["moe_aux_loss"]), launches={k: v for k, v in launches.items() if v})
         del grads, loss_sum, extras
         torch.cuda.empty_cache()
-    r, d = out["ragged"], out["dense"]
-    for key in ("loss", "grad_norm", "moe_aux_loss"):
-        out[f"{key}_rel"] = abs(r[key] - d[key]) / abs(d[key])
-    print(f"one step, experts ragged vs dense: {json.dumps(out)}", flush=True)
-    if r["grouped_launches"] != [2, 2, 2] or d["grouped_launches"] != [0, 0, 0]:
-        raise RuntimeError(f"ragged must launch gmm, gmm_t, tgmm twice each and dense none: {out}")
-    if not all(math.isfinite(x[k]) for x in (r, d) for k in ("loss", "grad_norm", "moe_aux_loss")):
+    a, b = (out[e] for e in backends)
+    for key in tols:
+        out[f"{key}_rel"] = abs(a[key] - b[key]) / abs(b[key])
+    print(f"one step, {label}: {json.dumps(out)}", flush=True)
+    if any(out[e]["launches"] != want[e] for e in backends):
+        raise RuntimeError(f"{label}: kernel launches {[out[e]['launches'] for e in backends]}, want {want}")
+    if not all(math.isfinite(x[k]) for x in (a, b) for k in ("loss", "grad_norm", "moe_aux_loss")):
         raise RuntimeError(f"non-finite loss, grad norm or aux loss: {out}")
-    if (out["loss_rel"] > MOE_STEP_LOSS_REL_TOL or out["grad_norm_rel"] > MOE_STEP_GRAD_NORM_REL_TOL
-            or out["moe_aux_loss_rel"] > MOE_STEP_AUX_REL_TOL):
-        raise RuntimeError(f"ragged and dense steps disagree: {out} (limits: loss {MOE_STEP_LOSS_REL_TOL}, "
-                           f"grad norm {MOE_STEP_GRAD_NORM_REL_TOL}, aux {MOE_STEP_AUX_REL_TOL}, relative)")
+    if any(out[f"{key}_rel"] > tol for key, tol in tols.items()):
+        raise RuntimeError(f"{label}: the steps disagree: {out} (limits, relative: {tols})")
     del model, params
     torch.cuda.empty_cache()
     return out
 
 
-def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe) -> dict:
-    """The ``{"kernels": [...]}`` line: each kernel of the three paths, its
+def phase_ragged_vs_dense(torch) -> dict:
+    """One step at 1 layer of Qwen3-30B-A3B's widths and 2048 tokens with
+    the experts on the grouped-matmul kernels (``ragged``: two gmm, gmm_t
+    and tgmm launches) and on plain torch (``dense``)."""
+    cfg = moe_train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = 1
+    cfg["dataset"]["seq_length"] = 2048
+    want = dict(ragged=dict(gmm=2, gmm_t=2, tgmm=2), dense={})
+    tols = dict(loss=MOE_STEP_LOSS_REL_TOL, grad_norm=MOE_STEP_GRAD_NORM_REL_TOL, moe_aux_loss=MOE_STEP_AUX_REL_TOL)
+    return one_step_experts_ab(torch, cfg, "experts ragged vs dense", ("ragged", "dense"), want, tols)
+
+
+def phase_fused_vs_ragged(torch) -> dict:
+    """One step at 1 layer of gpt-oss-20b's widths and 2048 tokens with the
+    experts on the fused expert-MLP kernels (``ragged_fused``: the four K3
+    calls, K2's gmm and gmm_t once each) and on the grouped-matmul kernels
+    with the activation in bf16 eager torch (``ragged``). The aux loss is 0
+    here (the config sets no coefficient), so it is not compared."""
+    cfg = gpt_oss_train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = 1
+    cfg["dataset"]["seq_length"] = 2048
+    want = dict(ragged_fused=dict(fem_fwd=1, fem_bwd_gu=1, fem_bwd_dwd=1, fem_bwd_dx=1, gmm=1, gmm_t=1),
+                ragged=dict(gmm=2, gmm_t=2, tgmm=2))
+    tols = dict(loss=FUSED_STEP_LOSS_REL_TOL, grad_norm=FUSED_STEP_GRAD_NORM_REL_TOL)
+    return one_step_experts_ab(torch, cfg, "experts ragged_fused vs ragged", ("ragged_fused", "ragged"), want, tols)
+
+
+# -- phase 11: flash with sinks against its plain version ------------------------
+
+
+def phase_flash_sinks(torch, dev) -> dict:
+    """GPT-OSS's attention shape, B=1, S=4096, N=64, Nkv=8, H=64, causal,
+    with a 128 window and full, random sinks: the fold around the kernels
+    against the same fold around the plain versions. The folded out and the
+    extended lse; dq, dk and dv with both backward versions fed the plain
+    fold's extended lse and delta (as phase 3 feeds them the plain
+    forward's); d_sinks end to end, each side from its own out and lse."""
+    from automodel_tpu_torch.ops import ring_flash as rf
+
+    hf = GPT_OSS_20B
+    N, Nkv, H = hf["num_attention_heads"], hf["num_key_value_heads"], hf["head_dim"]
+    results = []
+    for i, window in enumerate((hf["sliding_window"], None)):
+        q, k, v, do, pos, _ = flash_case(torch, dev, S=4096, H=H, N=N, Nkv=Nkv, seed=20 + i)
+        sinks = torch.randn(N, generator=torch.Generator(device=dev).manual_seed(30 + i), device=dev) * 2
+        kw = dict(causal=True, window=window, scale=H**-0.5)
+        delta = lambda o: (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        out, lse = rf.fold_sinks(*rf.flash_block_fwd(q, k, v, pos, pos, None, None, **kw), sinks)
+        ds = rf.sinks_grad(lse, delta(out), sinks)
+        r_out, r_lse = rf.fold_sinks(*rf._flash_fwd_plain(q, k, v, pos, pos, None, None, **kw), sinks)
+        bargs = (q, k, v, do, r_lse, delta(r_out), pos, pos, None, None)
+        dq = rf.flash_block_dq(*bargs, **kw)
+        dk, dv = rf.flash_block_dkv(*bargs, **kw)
+        torch.cuda.synchronize()
+        r_dq = rf._flash_dq_plain(*bargs, **kw)
+        r_dk, r_dv = rf._flash_dkv_plain(*bargs, **kw)
+        r_ds = rf.sinks_grad(r_lse, delta(r_out), sinks)
+        if not all(bool(torch.isfinite(t.float()).all()) for t in (out, lse, dq, dk, dv, ds)):
+            raise RuntimeError(f"flash with sinks produced non-finite values (window {window})")
+        # each head's d_sinks error against the sum of its terms' magnitudes
+        p_sink = torch.exp(sinks[None, :, None] - r_lse)
+        mag = (p_sink * (do.float().norm(dim=-1) * r_out.float().norm(dim=-1)).transpose(1, 2)).sum(dim=(0, 2))
+        row = dict(
+            window=window, S=q.shape[1], N=N, Nkv=Nkv, H=H,
+            out_row_err=row_rel_err(out, r_out), lse_err=float((lse - r_lse).abs().max()),
+            dq_row_err=grad_row_err(dq, r_dq), dk_row_err=grad_row_err(dk, r_dk), dv_row_err=grad_row_err(dv, r_dv),
+            d_sinks_err=float(((ds - r_ds).abs() / mag.clamp_min(1e-30)).max()),
+            d_sinks_err_of_largest=float((ds - r_ds).abs().max() / r_ds.abs().max()),
+            sink_share=float(p_sink.mean()),
+        )
+        row["ok"] = (row["out_row_err"] <= FLASH_OUT_TOL and row["lse_err"] <= FLASH_LSE_TOL
+                     and max(row["dq_row_err"], row["dk_row_err"], row["dv_row_err"]) <= FLASH_GRAD_TOL
+                     and row["d_sinks_err"] <= SINKS_GRAD_TOL)
+        results.append(row)
+        print(f"kernel flash_attention with sinks vs plain: {json.dumps(row)}", flush=True)
+        del q, k, v, do, out, lse, dq, dk, dv, r_out, r_lse, r_dq, r_dk, r_dv, bargs, p_sink, mag
+        torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"flash with sinks disagrees with its plain version (limits: out {FLASH_OUT_TOL}, lse "
+                           f"{FLASH_LSE_TOL}, grads {FLASH_GRAD_TOL} per row, d_sinks {SINKS_GRAD_TOL}): {bad}")
+    return {"cases": results}
+
+
+# -- phase 12: the fused expert-MLP kernels against their plain versions ---------
+
+
+def gpt_oss_rows(torch, dev, routing: str, seed: int, scale: float = 1.0):
+    """One 4096-token microbatch at gpt-oss-20b's MoE widths: its token rows
+    sorted by expert ([16384, 2880] bf16, times ``scale``) and the int32
+    group sizes. ``gate``: the gpt-oss gate (top-4 of the raw logits of a
+    random router with a random learned bias, softmax over the picks) over
+    random tokens; ``skewed``: random rows in groups where the first and
+    last experts (and two more) are empty and expert 5 holds a quarter."""
+    from automodel_tpu_torch.moe.config import MoEConfig
+    from automodel_tpu_torch.moe.gate import gate
+
+    hf = GPT_OSS_20B
+    T, D, E, K = 4096, hf["hidden_size"], hf["num_local_experts"], hf["num_experts_per_tok"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if routing == "skewed":
+        M = T * K
+        w = torch.rand(E, generator=g, device=dev) + 0.05
+        w[[0, E - 1, 11, 5]] = 0.0
+        sizes = torch.floor(w / w.sum() * (M - M // 4)).long()
+        sizes[1] += M - M // 4 - int(sizes.sum())
+        sizes[5] = M // 4
+        rows = (torch.randn((M, D), generator=g, device=dev) * scale).to(torch.bfloat16)
+        return rows, sizes.to(torch.int32)
+    x = (torch.randn((T, D), generator=g, device=dev) * scale).to(torch.bfloat16)
+    cfg = MoEConfig(num_experts=E, num_experts_per_tok=K, moe_intermediate_size=hf["intermediate_size"],
+                    softmax_before_topk=False, router_linear_bias=True, expert_mlp_bias=True, activation="swiglu_oai")
+    router = (torch.randn((E, D), generator=g, device=dev) / D**0.5).to(torch.bfloat16)
+    lb = torch.randn(E, generator=g, device=dev) * 0.5
+    gout = gate(x, router, cfg, linear_bias=lb)
+    order = torch.argsort(gout.topk_idx.reshape(-1), stable=True)
+    return x.index_select(0, order // K), gout.expert_counts
+
+
+def fem_bound(kind: str, M: int, D: int, I: int, gs, biased: bool) -> tuple[float, str]:
+    """Least time of one call: its tensor-core products (2 flops per routed
+    row and (k, n) pair) over the bf16 peak, against its bytes over HBM
+    bandwidth: each operand read once (the routed rows of lhs, gu, dmid and
+    dy, the weight slabs of experts that received rows, the biases), each
+    output written once (out and dlhs [M, D] bf16, the weight grads fp32).
+    The activation's elementwise work is not counted."""
+    rows, fed, G = int(gs.sum()), int((gs > 0).sum()), gs.shape[0]
+    bf = 2
+    if kind == "fwd":
+        flops = 6 * rows * D * I
+        nbytes = rows * D * bf + fed * 3 * D * I * bf + (fed * (2 * I + D) * bf if biased else 0) + M * D * bf
+    elif kind == "bwd_gu":
+        flops = 4 * rows * D * I
+        nbytes = rows * (D + 3 * I) * bf + G * D * 2 * I * 4 + (G * 2 * I * 4 if biased else 0)
+    elif kind == "bwd_dwd":
+        flops = 2 * rows * I * D
+        nbytes = rows * (2 * I + D) * bf + G * I * D * 4 + (G * D * 4 if biased else 0)
+    else:  # bwd_dx
+        flops = 4 * rows * I * D
+        nbytes = rows * 3 * I * bf + fed * 2 * D * I * bf + M * D * bf
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fem_library_ms(torch, kind: str, xs, gu, dmid, dy, w_gu, w_dn, gs, gub, db, act, limit):
+    """A composition yardstick, since no one PyTorch call computes these:
+    ``torch._grouped_mm`` for the products, the activation (and its
+    backward, the bias adds) in eager torch. The port never calls it. None
+    where this torch has no ``_grouped_mm`` or it refuses."""
+    from automodel_tpu_torch.ops import fused_expert_mlp as fem
+
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    I = w_dn.shape[1]
+
+    def act_fwd(h):
+        return fem._act_core(h[:, :I].float(), h[:, I:].float(), act, limit).to(torch.bfloat16)
+
+    def act_bwd():
+        return torch.cat(fem._act_grads(gu[:, :I], gu[:, I:], dmid, act, limit), dim=1).to(torch.bfloat16)
+
+    def fwd():
+        h = fn(xs, w_gu, offs=offs)
+        h = h if gub is None else fem.add_row_bias(h, gub, gs)
+        y = fn(act_fwd(h), w_dn, offs=offs)
+        return y if db is None else fem.add_row_bias(y, db, gs)
+
+    calls = dict(
+        fwd=fwd,
+        bwd_gu=lambda: fn(xs.t(), act_bwd(), offs=offs),
+        bwd_dwd=lambda: fn(act_fwd(gu).t(), dy, offs=offs),
+        bwd_dx=lambda: fn(act_bwd(), w_gu.transpose(-2, -1), offs=offs),
+    )
+    try:
+        return cuda_ms(calls[kind], iters=10)
+    except (RuntimeError, TypeError, ValueError) as e:
+        print(f"torch._grouped_mm refused the {kind} composition: {str(e)[:200]}", flush=True)
+        return None
+
+
+def phase_fused_kernels(torch, dev) -> dict:
+    from automodel_tpu_torch.ops import fused_expert_mlp as fem
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+
+    cases = [
+        dict(name="gate (gpt-oss-20b)", widths="gpt_oss", act="swiglu_oai", main=True),
+        dict(name="Qwen3-30B-A3B", widths="qwen3", act="swiglu", biased=False),
+        dict(name="skewed", widths="gpt_oss", routing="skewed", act="swiglu_oai"),
+        # lhs x 4.26: g and u ~ N(0, 4.26^2), ~10% past 7 in magnitude
+        dict(name="clamped (~10% past +-7)", widths="gpt_oss", act="swiglu_oai", scale=4.26),
+        dict(name="swiglu limit 2.0", widths="gpt_oss", act="swiglu", limit=2.0, scale=1.5),
+        dict(name="NaN tail (last 10% of rows)", widths="gpt_oss", act="swiglu_oai", tail=0.1),
+    ]
+    results = []
+    weights = {}
+    for ci, c in enumerate(cases):
+        c = dict(dict(main=False, routing="gate", biased=True, limit=None, scale=1.0, tail=0.0), **c)
+        act, limit, biased = c["act"], c["limit"], c["biased"]
+        if c["widths"] == "qwen3":
+            xs, gs = moe_rows(torch, dev, "gate", seed=40 + ci)
+            D, I = QWEN3_MOE_A3B["hidden_size"], QWEN3_MOE_A3B["moe_intermediate_size"]
+        else:
+            xs, gs = gpt_oss_rows(torch, dev, c["routing"], seed=40 + ci, scale=c["scale"])
+            D, I = GPT_OSS_20B["hidden_size"], GPT_OSS_20B["intermediate_size"]
+        M, G = xs.shape[0], gs.shape[0]
+        if c["widths"] not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            g = torch.Generator(device=dev).manual_seed(50)
+            rnd = lambda *shape, s=1.0: (torch.randn(shape, generator=g, device=dev) * s).to(torch.bfloat16)
+            weights[c["widths"]] = dict(gate_up=rnd(G, D, 2 * I, s=D**-0.5), down=rnd(G, I, D, s=I**-0.5),
+                                        gate_up_bias=rnd(G, 2 * I, s=0.5), down_bias=rnd(G, D, s=0.5))
+        w = weights[c["widths"]]
+        gub, db = (w["gate_up_bias"], w["down_bias"]) if biased else (None, None)
+        dy = torch.randn((M, D), generator=torch.Generator(device=dev).manual_seed(60 + ci), device=dev).to(torch.bfloat16)
+        if c["tail"]:
+            # the groups end 10% before M; the rows past them hold NaN
+            n = M - int(M * c["tail"])
+            gs = torch.diff(torch.cumsum(gs.long(), 0).clamp_max(n), prepend=gs.new_zeros(1).long()).to(torch.int32)
+        n = int(gs.sum())
+        plan = gm.gmm_plan(gs, M)
+        W = plan.shape[1]
+
+        def run(lhs, dout, plain=False):
+            gu = gm.gmm(lhs, w["gate_up"], gs, plan=plan)
+            gu = gu if gub is None else fem.add_row_bias(gu, gub, gs)
+            dmid = gm.gmm(dout, w["down"], gs, transpose_rhs=True, plan=plan)
+            if plain:
+                f = (fem._fwd_plain, fem._bwd_gu_plain, fem._bwd_dwd_plain, fem._bwd_dx_plain)
+                out = f[0](lhs, w["gate_up"], w["down"], gs, gub, db, act, limit)
+            else:
+                f = (fem.fwd, fem.bwd_gu, fem.bwd_dwd, fem.bwd_dx)
+                out = f[0](lhs, w["gate_up"], w["down"], gs, gub, db, act, limit, plan=plan)
+            dw, dbias = f[1](lhs, gu, dmid, gs, act, limit, biased)
+            dwd, ddb = f[2](gu, dout, gs, act, limit, biased)
+            dlhs = f[3](gu, dmid, w["gate_up"], gs, act, limit) if plain else f[3](
+                gu, dmid, w["gate_up"], gs, act, limit, plan=plan)
+            return (out, dw, dbias, dwd, ddb, dlhs), gu, dmid
+
+        got, gu, dmid = run(xs, dy)
+        torch.cuda.synchronize()
+        want, _, _ = run(xs, dy, plain=True)
+        names = ("out", "dw", "dbias", "dwd", "ddb", "dlhs")
+        limits = dict(out=FEM_ROW_TOL, dlhs=FEM_ROW_TOL, dw=FEM_DW_ROW_TOL, dwd=FEM_DW_ROW_TOL,
+                      dbias=FEM_BIAS_ROW_TOL, ddb=FEM_BIAS_ROW_TOL)
+        if not all(bool(torch.isfinite(t.float()).all()) for t in got if t is not None):
+            raise RuntimeError(f"fused expert-MLP kernels produced non-finite values in case {c['name']}")
+        g_, u_ = gu[:n, :I].float(), gu[:n, I:].float()
+        row = dict(
+            case=c["name"], act=act, limit=limit, biased=biased, M=M, D=D, I=I, G=G, rows=n,
+            groups_with_rows=int((gs > 0).sum()), largest_group=int(gs.max()),
+            clamped_share=dict(g_above_7=float((g_ > 7).float().mean()), u_beyond_7=float((u_.abs() > 7).float().mean()),
+                               at_bound=float(((g_ == 7) | (u_.abs() == 7)).float().mean())),
+            row_err={k: row_rel_err(a, b) for k, a, b in zip(names, got, want) if b is not None},
+            max_abs_err={k: float((a.float() - b.float()).abs().max()) for k, a, b in zip(names, got, want)
+                         if b is not None},
+            tail_rows_zero=bool((got[0][n:] == 0).all()) and bool((got[5][n:] == 0).all()),
+        )
+        row["ok"] = row["tail_rows_zero"] and all(v <= limits[k] for k, v in row["row_err"].items())
+        if c["tail"]:
+            # NaN past the groups in lhs and dy: the kernels read no such row,
+            # so every output equals the clean tail's bit for bit
+            dirty_x, dirty_dy = xs.clone(), dy.clone()
+            dirty_x[n:] = float("nan")
+            dirty_dy[n:] = float("nan")
+            dirty, _, _ = run(dirty_x, dirty_dy)
+            torch.cuda.synchronize()
+            row["nan_tail_equal"] = all(torch.equal(a, b) for a, b in zip(dirty, got) if a is not None)
+            row["nan_tail_finite"] = all(bool(torch.isfinite(a.float()).all()) for a in dirty if a is not None)
+            row["ok"] = row["ok"] and row["nan_tail_equal"] and row["nan_tail_finite"]
+            del dirty, dirty_x, dirty_dy
+        del want
+        if c["main"]:
+            mid = fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, W, act, limit)
+            timed = dict(
+                fwd=(lambda: fem.fwd(xs, w["gate_up"], w["down"], gs, gub, db, act, limit, plan=plan),
+                     lambda: fem._fwd_plain(xs, w["gate_up"], w["down"], gs, gub, db, act, limit)),
+                bwd_gu=(lambda: fem.bwd_gu(xs, gu, dmid, gs, act, limit, biased),
+                        lambda: fem._bwd_gu_plain(xs, gu, dmid, gs, act, limit, biased)),
+                bwd_dwd=(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased),
+                         lambda: fem._bwd_dwd_plain(gu, dy, gs, act, limit, biased)),
+                bwd_dx=(lambda: fem.bwd_dx(gu, dmid, w["gate_up"], gs, act, limit, plan=plan),
+                        lambda: fem._bwd_dx_plain(gu, dmid, w["gate_up"], gs, act, limit)),
+            )
+            row["timed"] = {}
+            for kind, (kern, plain) in timed.items():
+                bound_ms, bound_by = fem_bound(kind, M, D, I, gs, biased)
+                row["timed"][kind] = dict(
+                    ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=2, warmup=1), bound_ms=bound_ms,
+                    bound_by=bound_by,
+                    library_ms=fem_library_ms(torch, kind, xs, gu, dmid, dy, w["gate_up"], w["down"], gs, gub, db,
+                                              act, limit),
+                )
+                torch.cuda.empty_cache()
+            row["timed"]["fwd"]["gu_act_ms"] = cuda_ms(
+                lambda: fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, W, act, limit), iters=10)
+            row["timed"]["fwd"]["down_ms"] = cuda_ms(lambda: fem._launch_fwd_down(mid, w["down"], db, plan, W), iters=10)
+            del mid
+        results.append(row)
+        print(f"kernel fused_expert_mlp vs plain: {json.dumps(row)}", flush=True)
+        del xs, dy, got, gu, dmid, plan
+        torch.cuda.empty_cache()
+    weights.clear()
+    torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"fused expert-MLP kernels disagree with their plain versions (limits per row: out and "
+                           f"dlhs {FEM_ROW_TOL}, dW {FEM_DW_ROW_TOL}, bias grads {FEM_BIAS_ROW_TOL}): {bad}")
+    return {"cases": results}
+
+
+def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
+                 gpt_oss) -> dict:
+    """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case."""
     timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
     main_case = timed["bf16"]
@@ -1331,6 +1792,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "library_ms": t["library_ms"],
             "library_fwd_bwd_ms": main_flash["library_fwd_bwd_ms"],
             "shape": "B=1 S=4096 N=32 Nkv=8 H=128 causal",
+            "with_sinks_max_row_rel_err": max(c[k] for c in sinks["cases"] for k in row_errs[name]),
         })
     # grouped matmul: times at the gate_up-shaped launch of the gate-routed
     # case, the down-shaped launch beside them
@@ -1354,6 +1816,34 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "shape": f"M={t['M']} K={t['K']} N={t['N']} G=128, gate-routed (gate_up projection)",
             "down": {k: down[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "K", "N")},
         })
+    # fused expert MLP: times at the gpt-oss gate-routed case; the forward's
+    # two launches count as one call, their times apart beside the total
+    fmain = next(c for c in fused["cases"] if "timed" in c)
+    outputs = dict(fwd=("out",), bwd_gu=("dw", "dbias"), bwd_dwd=("dwd", "ddb"), bwd_dx=("dlhs",))
+    for kind, line_no in (("fwd", 59), ("bwd_gu", 423), ("bwd_dwd", 530), ("bwd_dx", 615)):
+        t = fmain["timed"][kind]
+        entry = {
+            "name": f"fused_expert_mlp_{kind}",
+            "route": "cuda",
+            "source": "automodel_tpu_torch/csrc/fused_expert_mlp.cu",
+            "replaces": f"automodel_tpu/ops/fused_expert_mlp.py:{line_no}",
+            "launches": gpt_oss["launches"][f"fem_{kind}"],
+            "max_abs_err": max(c["max_abs_err"][k] for c in fused["cases"] for k in outputs[kind]
+                               if k in c["max_abs_err"]),
+            "max_row_rel_err": max(c["row_err"][k] for c in fused["cases"] for k in outputs[kind]
+                                   if k in c["row_err"]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "composition: torch._grouped_mm products, activation and biases in eager torch",
+            "shape": f"M={fmain['M']} D={fmain['D']} I={fmain['I']} G={fmain['G']}, gpt-oss gate-routed, "
+                     f"swiglu_oai with expert biases",
+        }
+        if kind == "fwd":
+            entry.update(gu_act_ms=t["gu_act_ms"], down_ms=t["down_ms"])
+        line["kernels"].append(entry)
     return line
 
 
@@ -1377,13 +1867,15 @@ def main() -> int:
         print(f"card: {card} | torch: {name} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
         t0 = time.perf_counter()
-        _cuda_build.build(["paged_attention", "flash_attention", "grouped_matmul"])
+        _cuda_build.build(["paged_attention", "flash_attention", "grouped_matmul", "fused_expert_mlp"])
         print(f"kernel build: {time.perf_counter() - t0:.1f}s (nvcc, sm_90a)", flush=True)
 
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)
         flash = phase_flash_kernels(torch, dev)
         grouped = phase_grouped_kernels(torch, dev)
+        sinks = phase_flash_sinks(torch, dev)
+        fused = phase_fused_kernels(torch, dev)
 
         # the serve CLI's own builder, from a config dict
         t0 = time.perf_counter()
@@ -1412,8 +1904,11 @@ def main() -> int:
         phase_flash_vs_sdpa(torch)
         moe = phase_moe_training(torch)
         phase_ragged_vs_dense(torch)
+        gpt_oss = phase_gpt_oss_training(torch)
+        phase_fused_vs_ragged(torch)
 
-        line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe)
+        line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
+                            fused, gpt_oss)
         print(json.dumps(line), flush=True)
         print(card_line(), flush=True)
     except Exception:

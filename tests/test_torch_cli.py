@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from automodel_tpu_torch.cli import app
+import torch_port_parity  # noqa: F401  (caps torch at one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "serve_tiny_cpu.yaml")

@@ -15,6 +15,7 @@ import torch
 from automodel_tpu_torch.ops import _cuda_build
 from automodel_tpu_torch.ops import paged_attention as tpa
 from automodel_tpu_torch.ops import ring_flash as trf
+import torch_port_parity  # noqa: F401  (caps torch at one thread)
 
 # per output row, |out - ref| / |ref|: both versions round an fp32 result to
 # bf16, and one bf16 ulp is at most 2^-7 of an element (chip_smoke.py holds
@@ -413,3 +414,244 @@ def test_grouped_kernels_refuse_what_they_do_not_take():
         tgm.tgmm(lhs.t().contiguous().t(), dout, gs)
     with pytest.raises(ValueError, match="group_sizes"):
         tgm.tgmm(lhs, dout, gs.long())
+
+
+# -- fused expert MLP (csrc/fused_expert_mlp.cu) --------------------------------
+
+from automodel_tpu_torch.ops import fused_expert_mlp as tfem  # noqa: E402
+
+# The fused expert-MLP kernels against their plain versions (chip_smoke.py
+# holds them to the same limits): out and dlhs per row within 2^-7, as gmm
+# (both round an fp32 sum to bf16; mid, dg and du are rounded to bf16 in
+# both before the second product, and an element whose fp32 value the two
+# compute a few fp32 ulps apart flips one bf16 ulp only rarely); rows past
+# the groups exactly zero. The weight grads dW (gate | up) and dWd per row of
+# each slab within 2^-10: fp32 sums of bf16 products, which tgmm holds to
+# 2^-13, but one operand (dg, du or mid) is the bf16 rounding of an fp32 the
+# kernel computes with expf where the plain version uses torch.sigmoid, and
+# a rare one-ulp flip among few rows moves a slab row by ~2^-14. The bias
+# grads per expert row within 2^-12: fp32 sums of fp32 values in another
+# order. A group that gains or loses one row moves the worst row of each
+# past 4x its limit (test_fused_row_check_catches_a_one_row_boundary_shift).
+FEM_ROW_TOL = 2.0**-7
+FEM_DW_ROW_TOL = 2.0**-10
+FEM_BIAS_ROW_TOL = 2.0**-12
+
+
+def fem_case(dev, M, D, I, sizes, biased=True, scale=1.0, seed=0, dtype=torch.bfloat16):
+    """lhs (times ``scale``), gate_up, down, biases, dy and group sizes from a
+    seeded CPU generator, at the JAX init scales."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G = len(sizes)
+    r = lambda *s: torch.randn(s, generator=g)
+    c = dict(
+        lhs=r(M, D) * scale, gate_up=r(G, D, 2 * I) / D**0.5, down=r(G, I, D) / I**0.5, dy=r(M, D),
+        gate_up_bias=r(G, 2 * I) * 0.5 if biased else None, down_bias=r(G, D) * 0.5 if biased else None,
+    )
+    c = {k: None if v is None else v.to(dtype).to(dev) for k, v in c.items()}
+    c["gs"] = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return c
+
+
+def fem_all(c, act, limit, gs=None, plain=False):
+    """(out, dW, dbias, dWd, ddb, dlhs) through the wrappers (or the plain
+    versions), the backward's gu and dmid recomputed as the autograd
+    function does (through gmm, bias added in the compute dtype)."""
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+
+    gs = c["gs"] if gs is None else gs
+    want_b = c["gate_up_bias"] is not None
+    gu = gm._gmm_plain(c["lhs"], c["gate_up"], gs)
+    if want_b:
+        gu = tfem.add_row_bias(gu, c["gate_up_bias"], gs)
+    dmid = gm._gmm_plain(c["dy"], c["down"], gs, True)
+    f = (tfem._fwd_plain, tfem._bwd_gu_plain, tfem._bwd_dwd_plain, tfem._bwd_dx_plain) if plain else (
+        tfem.fwd, tfem.bwd_gu, tfem.bwd_dwd, tfem.bwd_dx)
+    out = f[0](c["lhs"], c["gate_up"], c["down"], gs, c["gate_up_bias"], c["down_bias"], act, limit)
+    dw, dbias = f[1](c["lhs"], gu, dmid, gs, act, limit, want_b)
+    dwd, ddb = f[2](gu, c["dy"], gs, act, limit, want_b)
+    dlhs = f[3](gu, dmid, c["gate_up"], gs, act, limit)
+    return out, dw, dbias, dwd, ddb, dlhs
+
+
+def fem_errors(got, want) -> dict:
+    names = ("out", "dw", "dbias", "dwd", "ddb", "dlhs")
+    return {n: row_rel_err(a, b) for n, a, b in zip(names, got, want) if b is not None}
+
+
+def fem_ok(err: dict) -> bool:
+    tol = dict(out=FEM_ROW_TOL, dlhs=FEM_ROW_TOL, dw=FEM_DW_ROW_TOL, dwd=FEM_DW_ROW_TOL,
+               dbias=FEM_BIAS_ROW_TOL, ddb=FEM_BIAS_ROW_TOL)
+    return all(v <= tol[k] for k, v in err.items())
+
+
+@pytest.mark.parametrize("case", ["random", "skewed"])
+def test_fused_row_check_catches_a_one_row_boundary_shift(case):
+    """On the CPU, in bf16 as on the card: one row handed from a group to
+    its neighbour moves the worst row of out, dlhs, dW, dWd and the bias
+    grads past 4x their limits, with ~256-row groups and with one group
+    holding a quarter of the rows (where one row is the smallest share)."""
+    M = 2048
+    sizes = ragged_sizes(M, 8, seed=1, big=3 if case == "skewed" else None)
+    c = fem_case(torch.device("cpu"), M, 128, 128, sizes)
+    shifted = c["gs"].clone()
+    shifted[3] -= 1
+    shifted[4] += 1
+    right = fem_all(c, "swiglu_oai", None, plain=True)
+    err = fem_errors(fem_all(c, "swiglu_oai", None, gs=shifted, plain=True), right)
+    assert err["out"] > 4 * FEM_ROW_TOL and err["dlhs"] > 4 * FEM_ROW_TOL, err
+    assert err["dw"] > 4 * FEM_DW_ROW_TOL and err["dwd"] > 4 * FEM_DW_ROW_TOL, err
+    assert err["dbias"] > 4 * FEM_BIAS_ROW_TOL and err["ddb"] > 4 * FEM_BIAS_ROW_TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "M,D,I,sizes,act,limit,biased,scale",
+    [
+        (2048, 256, 384, ragged_sizes(2048, 8), "swiglu_oai", None, True, 1.0),
+        (2048, 384, 256, ragged_sizes(2048, 8, seed=2, empty=(0, 7), big=3), "swiglu", None, False, 1.0),
+        (1000, 1000, 1000, ragged_sizes(1000, 5, seed=3), "swiglu_oai", None, True, 1.0),  # off the tiles
+        (130, 128, 128, [1, 129], "swiglu_oai", None, True, 1.0),  # a tile across a group boundary
+        (300, 64, 64, [0, 50, 0, 78, 0], "swiglu", None, True, 1.0),  # empty ends, rows past the groups
+        (2048, 256, 256, ragged_sizes(2048, 8, seed=4), "swiglu_oai", None, True, 4.26),  # ~10% clamped
+        (2048, 256, 256, ragged_sizes(2048, 8, seed=5), "swiglu", 2.0, True, 1.5),  # swiglu's limit
+    ],
+)
+def test_fused_expert_mlp_kernels_match_plain(M, D, I, sizes, act, limit, biased, scale):
+    """fwd (both launches), bwd_gu, bwd_dwd and bwd_dx against their plain
+    versions on the card, each counted once; rows past the groups zero."""
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), M, D, I, sizes, biased=biased, scale=scale)
+    kernels = (tfem.fwd, tfem.bwd_gu, tfem.bwd_dwd, tfem.bwd_dx)
+    before = [f.launches for f in kernels]
+    got = fem_all(c, act, limit)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [n + 1 for n in before]
+    want = fem_all(c, act, limit, plain=True)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got if t is not None)
+    n = sum(sizes)
+    assert bool((got[0][n:] == 0).all()) and bool((got[5][n:] == 0).all())
+    err = fem_errors(got, want)
+    assert fem_ok(err), err
+
+
+@pytest.mark.cuda
+def test_fused_expert_mlp_nan_tail_on_the_card():
+    """NaN in lhs and dy past sum(group_sizes): every kernel output is
+    bit-identical to the clean-tail run (no CTA reads those rows), and
+    finite."""
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), 1024, 256, 256, [300, 0, 400, 200])
+    clean = fem_all(c, "swiglu_oai", None)
+    dirty = dict(c, lhs=c["lhs"].clone(), dy=c["dy"].clone())
+    dirty["lhs"][900:] = float("nan")
+    dirty["dy"][900:] = float("nan")
+    for a, b in zip(fem_all(dirty, "swiglu_oai", None), clean):
+        assert bool(torch.isfinite(a.float()).all()) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_expert_mlp_autograd_on_the_card():
+    """fused_expert_mlp's backward on the card is gmm, gmm_t and the three
+    backward kernels, bit-identical to calling them by hand (no atomics:
+    they repeat exactly), tgmm not launched."""
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), 2048, 256, 384, ragged_sizes(2048, 8, seed=6))
+    names = ("lhs", "gate_up", "down", "gate_up_bias", "down_bias")
+    leaves = {k: c[k].clone().requires_grad_(True) for k in names}
+    counts = lambda: (gm.gmm.launches, gm.gmm.launches_t, gm.tgmm.launches, tfem.fwd.launches, tfem.bwd_gu.launches,
+                      tfem.bwd_dwd.launches, tfem.bwd_dx.launches)
+    before = counts()
+    out = tfem.fused_expert_mlp(leaves["lhs"], leaves["gate_up"], leaves["down"], c["gs"], leaves["gate_up_bias"],
+                                leaves["down_bias"], "swiglu_oai")
+    out.backward(c["dy"])
+    assert [b - a for a, b in zip(before, counts())] == [1, 1, 0, 1, 1, 1, 1]
+    gu = tfem.add_row_bias(gm.gmm(c["lhs"], c["gate_up"], c["gs"]), c["gate_up_bias"], c["gs"])
+    dmid = gm.gmm(c["dy"], c["down"], c["gs"], transpose_rhs=True)
+    dw, dbias = tfem.bwd_gu(c["lhs"], gu, dmid, c["gs"], "swiglu_oai", None, True)
+    dwd, ddb = tfem.bwd_dwd(gu, c["dy"], c["gs"], "swiglu_oai", None, True)
+    assert torch.equal(out.detach(), tfem.fwd(*(c[k] for k in ("lhs", "gate_up", "down", "gs", "gate_up_bias",
+                                                                 "down_bias")), "swiglu_oai"))
+    assert torch.equal(leaves["lhs"].grad, tfem.bwd_dx(gu, dmid, c["gate_up"], c["gs"], "swiglu_oai"))
+    assert torch.equal(leaves["gate_up"].grad, dw.to(torch.bfloat16))
+    assert torch.equal(leaves["down"].grad, dwd.to(torch.bfloat16))
+    assert torch.equal(leaves["gate_up_bias"].grad, dbias.to(torch.bfloat16))
+    assert torch.equal(leaves["down_bias"].grad, ddb.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_fused_expert_mlp_refuses_what_the_kernels_do_not_take():
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), 64, 32, 40, [30, 34])
+    args = lambda **kw: {**{k: c[k] for k in ("lhs", "gate_up", "down")}, "group_sizes": c["gs"], **kw}
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfem.fwd(**args(lhs=c["lhs"].float()))
+    with pytest.raises(ValueError, match="multiple of 8|multiples of 8"):
+        tfem.fwd(c["lhs"][:, :30].contiguous(), c["gate_up"][:, :30].contiguous(), c["down"][..., :30].contiguous(),
+                 c["gs"])
+    with pytest.raises(ValueError, match="contiguous"):
+        tfem.bwd_dwd(torch.zeros(80, 64, dtype=torch.bfloat16, device="cuda").t(), c["dy"], c["gs"])
+    with pytest.raises(ValueError, match="group_sizes"):
+        tfem.fwd(**args(group_sizes=c["gs"].long()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 128])
+def test_flash_with_sinks_on_the_card_matches_plain(window):
+    """The sink fold around the kernels against the same fold around the
+    plain versions: the folded out per row within 2^-7 and the extended lse
+    within 1e-3; dq/dk/dv per row within 2^-6 (the flash kernels' limits),
+    both backward versions fed the plain fold's extended lse and delta, as
+    the flash checks above feed them the plain forward's; d_sinks end to
+    end, each side from its own out and lse, per head within SINKS_GRAD_TOL
+    of its terms' magnitudes (``sinks_grad_err``)."""
+    _need_cuda("flash_attention")
+    q, k, v, do, pos, _ = flash_case(torch.device("cuda"), S=1000, H=64, N=16, Nkv=2)
+    sinks = torch.randn(16, generator=torch.Generator().manual_seed(2)).cuda() * 2
+    kw = dict(causal=True, window=window, scale=64**-0.5)
+    out, lse = trf.fold_sinks(*trf.flash_block_fwd(q, k, v, pos, pos, None, None, **kw), sinks)
+    r_out, r_lse = trf.fold_sinks(*trf._flash_fwd_plain(q, k, v, pos, pos, None, None, **kw), sinks)
+    delta = lambda o: (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, r_lse, delta(r_out), pos, pos, None, None)
+    got = (trf.flash_block_dq(*args, **kw), *trf.flash_block_dkv(*args, **kw))
+    ds = trf.sinks_grad(lse, delta(out), sinks)
+    torch.cuda.synchronize()
+    want = (trf._flash_dq_plain(*args, **kw), *trf._flash_dkv_plain(*args, **kw))
+    r_ds = trf.sinks_grad(r_lse, delta(r_out), sinks)
+    assert row_rel_err(out, r_out) <= FLASH_OUT_TOL and float((lse - r_lse).abs().max()) <= FLASH_LSE_TOL
+    assert max(grad_row_err(a, b) for a, b in zip(got, want)) <= FLASH_GRAD_TOL
+    assert sinks_grad_err(ds, r_ds, sinks, r_out, r_lse, do) <= SINKS_GRAD_TOL
+
+
+# d_sinks = -sum over rows of p_sink x delta, delta = dO . out per row: a
+# signed sum that cancels, so each head's error is judged against the sum of
+# its terms' magnitudes, sum p_sink |dO| |out|. The two versions' out rows
+# are within 2^-7 of each other, so |delta - delta'| <= 2^-7 |dO| |out| and
+# the error is within 2^-7 of that sum whatever the cancellation (first
+# reading on an H100: 2.6e-3 of the largest element, S=1000, N=16).
+SINKS_GRAD_TOL = 2.0**-7
+
+
+def sinks_grad_err(ds, r_ds, sinks, out, lse, do) -> float:
+    """max over heads of |ds - r_ds| / sum_{b,s} p_sink |dO| |out| (the plain
+    fold's out and extended lse)."""
+    p_sink = torch.exp(sinks.float()[None, :, None] - lse)  # [B, N, S]
+    mag = (do.float().norm(dim=-1) * out.float().norm(dim=-1)).transpose(1, 2)  # [B, N, S]
+    return float(((ds - r_ds).abs() / (p_sink * mag).sum(dim=(0, 2)).clamp_min(1e-30)).max())
+
+
+def test_sinks_grad_check_catches_an_unfolded_delta():
+    """On the CPU: d_sinks taken with delta from the output before the sink
+    fold (out not rescaled by exp(lse - lse')) moves the worst head's error
+    past 4x SINKS_GRAD_TOL, in bf16 at N=16 over 8 kv heads."""
+    q, k, v, do, pos, _ = flash_case(torch.device("cpu"), S=512, H=64, N=16, Nkv=2, B=1)
+    sinks = torch.randn(16, generator=torch.Generator().manual_seed(1)) * 2
+    kw = dict(causal=True, window=None, scale=64**-0.5)
+    raw, lse0 = trf._flash_fwd_plain(q, k, v, pos, pos, None, None, **kw)
+    out, lse = trf.fold_sinks(raw, lse0, sinks)
+    delta = lambda o: (do.float() * o.float()).sum(-1).transpose(1, 2)
+    right = trf.sinks_grad(lse, delta(out), sinks)
+    wrong = trf.sinks_grad(lse, delta(raw), sinks)
+    assert sinks_grad_err(wrong, right, sinks, out, lse, do) > 4 * SINKS_GRAD_TOL

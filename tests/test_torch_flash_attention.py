@@ -2,8 +2,10 @@
 package's blockwise flash kernels run in interpret mode: output, the
 forward's logsumexp, and dq/dk/dv through autograd, over causal, sliding
 window, packed segment ids, non-causal, GQA, head_dim 64 and 128, and an
-unpadded length. Tolerances are the ones tests/test_block_flash.py holds the
-JAX kernels to: out and lse atol 2e-4, grads atol 5e-3."""
+unpadded length; and with gpt-oss sinks folded around the kernels (out,
+dq, dk, dv and d_sinks), with ``sdpa``'s sink column against JAX's.
+Tolerances are the ones tests/test_block_flash.py holds the JAX kernels to:
+out and lse atol 2e-4, grads atol 5e-3."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import torch
 from automodel_tpu.ops import ring_flash as jrf
 from automodel_tpu_torch.ops import attention as tattn
 from automodel_tpu_torch.ops import ring_flash as trf
+import torch_port_parity  # noqa: F401  (caps torch at one thread)
 
 CASES = {
     "causal": dict(S=256, H=64),
@@ -108,10 +111,59 @@ def test_sdpa_matches_jax_sdpa_and_plain_flash(window, segments):
     np.testing.assert_allclose(flash.numpy(), out.numpy(), atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_with_sinks_matches_jax(window):
+    """gpt-oss sinks (one learned logit per q head) folded around the
+    blockwise kernels: out, dq, dk, dv and d_sinks against JAX's
+    ring_flash.flash_attention(..., sinks=) in interpret mode, causal, full
+    and with a window, at head_dim 64 (d_sinks fp32 sums over B x S rows:
+    5e-3 as the other grads)."""
+    q, k, v, do, _ = _inputs(S=128, H=64, seed=4)
+    sinks = np.random.default_rng(8).normal(size=(4,)).astype(np.float32) * 2
+
+    def jax_loss(q_, k_, v_, s_):
+        out = jrf.flash_attention(q_, k_, v_, causal=True, sliding_window=window, sinks=s_, interpret=True)
+        return (out * jnp.asarray(do)).sum(), out
+
+    (_, j_out), j_grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v, sinks))
+    )
+    leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v, sinks)]
+    out = trf.flash_attention(*leaves[:3], causal=True, sliding_window=window, sinks=leaves[3])
+    (out * torch.tensor(do)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=2e-4)
+    for name, t, j in zip(("dq", "dk", "dv", "d_sinks"), leaves, j_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), atol=5e-3, err_msg=name)
+    assert float(leaves[3].grad.abs().min()) > 0  # every head's sink takes mass
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_sdpa_sinks_match_jax_and_the_flash_fold(window):
+    """``sdpa``'s sink column against JAX's sdpa (1e-5), and the flash fold
+    on the CPU against it (2e-5), out and the sinks' grad."""
+    from automodel_tpu.ops.attention import sdpa as jax_sdpa
+
+    q, k, v, do, _ = _inputs(S=96, H=64, seed=6)
+    sinks = np.random.default_rng(2).normal(size=(4,)).astype(np.float32)
+    kw = dict(causal=True, sliding_window=window)
+    ref = jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sinks=jnp.asarray(sinks), **kw)
+    args = (torch.tensor(q), torch.tensor(k), torch.tensor(v))
+    grads = []
+    for backend in ("sdpa", "flash"):
+        ts = torch.tensor(sinks, requires_grad=True)
+        out = tattn.attention(*args, backend=backend, sinks=ts, **kw)
+        (out * torch.tensor(do)).sum().backward()
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5 if backend == "sdpa" else 2e-5)
+        grads.append(ts.grad)
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(), atol=2e-5, rtol=1e-5)
+
+
 def test_flash_refuses_sinks_soft_cap_and_unknown_backends():
+    """Sinks must be one logit per q head; the soft cap and ring are not
+    carried by the flash backend."""
     q = torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="sinks"):
-        tattn.attention(q, q, q, backend="flash", sinks=torch.zeros(2))
+        tattn.attention(q, q, q, backend="flash", sinks=torch.zeros(3))
     with pytest.raises(ValueError, match="soft cap"):
         tattn.attention(q, q, q, backend="flash", logits_soft_cap=30.0)
     with pytest.raises(ValueError, match="ring"):

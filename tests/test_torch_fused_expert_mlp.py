@@ -1,0 +1,229 @@
+"""The torch port's fused expert MLP (automodel_tpu_torch/ops/fused_expert_mlp)
+against the JAX package's Pallas kernels run in interpret mode on the CPU:
+the plain forward and the three plain backward functions against ``_fwd``,
+``_bwd_gu``, ``_bwd_dwd`` and ``_bwd_dx``; the autograd function's seven
+grads (dlhs, dWg | dWu as one [G, D, 2I], dWd, dgb | dub, ddb) against
+``jax.vjp`` of ``fused_expert_mlp`` over the cases of
+tests/test_fused_backward.py, a NaN tail past the groups, empty experts and
+clamp ties. Inputs are made with numpy from a seed; fp32 throughout, atol
+5e-4 as tests/test_fused_backward.py holds the JAX kernels to, or tighter
+where stated."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from automodel_tpu.ops import fused_expert_mlp as jfem
+from automodel_tpu_torch.ops import fused_expert_mlp as tfem
+import torch_port_parity  # noqa: F401  (caps torch at one thread)
+
+ATOL = 5e-4
+# tests/test_fused_backward.py:60-68: (act, limit, biased, sizes) over M=128
+CASES = {
+    "swiglu_empty_mid": ("swiglu", None, False, [40, 0, 30, 58]),
+    "swiglu_limit_biased": ("swiglu", 2.0, True, [1, 63, 0, 64]),
+    "oai_empty_first_biased": ("swiglu_oai", None, True, [0, 50, 50, 28]),
+    "oai_balanced": ("swiglu_oai", None, False, [32, 32, 32, 32]),
+}
+
+
+def _case(seed, M, D, I, sizes, biased):
+    """numpy fp32: lhs, gate, up, down, gb, ub, db, dy, group sizes (the
+    weights at 0.3 as tests/test_fused_backward.py:_case)."""
+    rng = np.random.default_rng(seed)
+    G = len(sizes)
+    mk = lambda *s: rng.normal(size=s).astype(np.float32)
+    lhs = mk(M, D)
+    gate, up, down = mk(G, D, I) * 0.3, mk(G, D, I) * 0.3, mk(G, I, D) * 0.3
+    gb, ub, db = (mk(G, I), mk(G, I), mk(G, D)) if biased else (None, None, None)
+    return dict(lhs=lhs, gate=gate, up=up, down=down, gb=gb, ub=ub, db=db, dy=mk(M, D),
+                gs=np.asarray(sizes, np.int32))
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _t(x, grad=False):
+    return None if x is None else torch.tensor(x, requires_grad=grad)
+
+
+def _jax_vjp(c, act, limit):
+    """JAX's forward and its seven grads through the Pallas kernels
+    (interpreted)."""
+    biased = c["gb"] is not None
+    names = ("lhs", "gate", "up", "down") + (("gb", "ub", "db") if biased else ())
+
+    def f(*a):
+        b = a[4:] if biased else (None, None, None)
+        return jfem.fused_expert_mlp(a[0], a[1], a[2], a[3], jnp.asarray(c["gs"]), *b, act, limit, None, True)
+
+    y, vjp = jax.vjp(f, *(jnp.asarray(c[n]) for n in names))
+    return np.asarray(y), dict(zip(names, (np.asarray(g) for g in vjp(jnp.asarray(c["dy"])))))
+
+
+def _port_grads(c, act, limit):
+    """The port's forward and grads through its autograd function (the
+    plain versions on CPU tensors), the grads split as JAX's."""
+    I = c["gate"].shape[2]
+    lhs = _t(c["lhs"], True)
+    gate_up = torch.tensor(np.concatenate([c["gate"], c["up"]], axis=-1), requires_grad=True)
+    down = _t(c["down"], True)
+    gub = None if c["gb"] is None else torch.tensor(np.concatenate([c["gb"], c["ub"]], -1), requires_grad=True)
+    db = _t(c["db"], True)
+    y = tfem.fused_expert_mlp(lhs, gate_up, down, torch.from_numpy(c["gs"]), gub, db, act, limit)
+    y.backward(torch.from_numpy(c["dy"]))
+    grads = dict(lhs=lhs.grad, gate=gate_up.grad[..., :I], up=gate_up.grad[..., I:], down=down.grad)
+    if gub is not None:
+        grads.update(gb=gub.grad[:, :I], ub=gub.grad[:, I:], db=db.grad)
+    return y.detach().numpy(), {k: v.numpy() for k, v in grads.items()}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_versions_match_the_pallas_kernels(case):
+    """_fwd_plain, _bwd_gu_plain, _bwd_dwd_plain and _bwd_dx_plain against
+    JAX's _fwd, _bwd_gu, _bwd_dwd and _bwd_dx in interpret mode, on the same
+    lhs, weights, biases and (g, u, dmid) (fp32, 2e-4: the same products
+    summed in another order)."""
+    act, limit, biased, sizes = CASES[case]
+    c = _case(0, 128, 96, 80, sizes, biased)
+    I = 80
+    rng = np.random.default_rng(1)
+    g, u, dmid = (rng.normal(size=(128, I)).astype(np.float32) * 2 for _ in range(3))
+    gs_j, gs_t = jnp.asarray(c["gs"]), torch.from_numpy(c["gs"])
+    gate_up = torch.from_numpy(np.concatenate([c["gate"], c["up"]], -1))
+    gub = None if not biased else torch.from_numpy(np.concatenate([c["gb"], c["ub"]], -1))
+    gu = torch.from_numpy(np.concatenate([g, u], -1))
+
+    want = jfem._fwd(_j(c["lhs"]), _j(c["gate"]), _j(c["up"]), _j(c["down"]), gs_j, _j(c["gb"]), _j(c["ub"]),
+                     _j(c["db"]), act, limit, True)
+    got = tfem._fwd_plain(_t(c["lhs"]), gate_up, _t(c["down"]), gs_t, gub, _t(c["db"]), act, limit)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, err_msg="fwd")
+
+    dwg, dwu, dgb, dub = jfem._bwd_gu(_j(c["lhs"]), _j(g), _j(u), _j(dmid), gs_j, act, limit, True, biased)
+    dw, dbias = tfem._bwd_gu_plain(_t(c["lhs"]), gu, _t(dmid), gs_t, act, limit, want_bias=biased)
+    np.testing.assert_allclose(dw[..., :I].numpy(), np.asarray(dwg), atol=2e-4, err_msg="dWg")
+    np.testing.assert_allclose(dw[..., I:].numpy(), np.asarray(dwu), atol=2e-4, err_msg="dWu")
+    if biased:
+        np.testing.assert_allclose(dbias[:, :I].numpy(), np.asarray(dgb), atol=2e-4, err_msg="dgb")
+        np.testing.assert_allclose(dbias[:, I:].numpy(), np.asarray(dub), atol=2e-4, err_msg="dub")
+    else:
+        assert dbias is None and dgb is None
+
+    dy = c["dy"]
+    dwd, ddb = jfem._bwd_dwd(_j(g), _j(u), _j(dy), gs_j, act, limit, True, biased)
+    t_dwd, t_ddb = tfem._bwd_dwd_plain(gu, _t(dy), gs_t, act, limit, want_bias=biased)
+    np.testing.assert_allclose(t_dwd.numpy(), np.asarray(dwd), atol=2e-4, err_msg="dWd")
+    if biased:
+        np.testing.assert_allclose(t_ddb.numpy(), np.asarray(ddb), atol=2e-4, err_msg="ddb")
+
+    dlhs = jfem._bwd_dx(_j(g), _j(u), _j(dmid), _j(c["gate"]), _j(c["up"]), gs_j, True, act, limit)
+    t_dlhs = tfem._bwd_dx_plain(gu, _t(dmid), gate_up, gs_t, act, limit)
+    np.testing.assert_allclose(t_dlhs.numpy(), np.asarray(dlhs), atol=2e-4, err_msg="dlhs")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_autograd_grads_match_jax_vjp(case):
+    """The forward and all seven grads against jax.vjp of the JAX
+    fused_expert_mlp through its Pallas kernels (interpreted)."""
+    act, limit, biased, sizes = CASES[case]
+    c = _case(0, 128, 96, 80, sizes, biased)
+    jy, jg = _jax_vjp(c, act, limit)
+    ty, tg = _port_grads(c, act, limit)
+    np.testing.assert_allclose(ty, jy, atol=2e-4)
+    assert set(tg) == set(jg)
+    for name in jg:
+        np.testing.assert_allclose(tg[name], jg[name], atol=ATOL, err_msg=f"d{name} ({case})")
+
+
+def test_nan_tail_reaches_no_weight_or_bias_grad():
+    """Rows past sum(group_sizes) hold NaN in lhs and dy (the sentinel tail
+    of tests/test_fused_backward.py:84): every weight and bias grad stays
+    finite and equals JAX's on a clean tail; dlhs and out agree on the real
+    rows, and the port writes the tail rows as zeros."""
+    M, n_real = 96, 70
+    c = _case(7, M, 64, 48, [30, 0, 40], biased=True)
+    c["lhs"][n_real:] = np.nan
+    c["dy"][n_real:] = np.nan
+    clean = dict(c, lhs=np.where(np.isfinite(c["lhs"]), c["lhs"], 0.0).astype(np.float32),
+                 dy=np.where(np.isfinite(c["dy"]), c["dy"], 0.0).astype(np.float32))
+    jy, jg = _jax_vjp(clean, "swiglu_oai", None)
+    ty, tg = _port_grads(c, "swiglu_oai", None)
+    np.testing.assert_allclose(ty[:n_real], jy[:n_real], atol=2e-4)
+    assert (ty[n_real:] == 0).all() and (tg["lhs"][n_real:] == 0).all()
+    for name in jg:
+        got, want = tg[name], jg[name]
+        if name == "lhs":
+            got, want = got[:n_real], want[:n_real]
+        assert np.isfinite(got).all(), f"d{name} poisoned by the NaN tail"
+        np.testing.assert_allclose(got, want, atol=ATOL, err_msg=f"d{name}")
+        assert np.abs(got).max() > 0.0
+
+
+def test_empty_experts_get_zero_grads():
+    """tests/test_fused_backward.py:127: experts that receive no rows get
+    exactly zero weight and bias grads; the others match JAX."""
+    c = _case(3, 64, 32, 32, [30, 0, 34, 0], biased=True)
+    jy, jg = _jax_vjp(c, "swiglu", None)
+    ty, tg = _port_grads(c, "swiglu", None)
+    np.testing.assert_allclose(ty, jy, atol=2e-4)
+    for name in ("gate", "up", "down", "gb", "ub", "db"):
+        assert (tg[name][[1, 3]] == 0).all(), name
+        assert np.abs(tg[name][[0, 2]]).max() > 0, name
+        np.testing.assert_allclose(tg[name], jg[name], atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("act,limit", [("swiglu_oai", None), ("swiglu", 2.0)])
+def test_clamp_ties_take_half_the_gradient_as_in_jax(act, limit):
+    """g and u with entries exactly at a clamp's bound (+-7 for swiglu_oai,
+    +-limit for u under swiglu's limit): JAX's minimum and maximum split the
+    gradient there (0.5), which torch.clamp would not. The plain activation
+    backward and the plain bwd_gu and bwd_dx (which the kernels mirror)
+    against jax.vjp of JAX's _act_core and its interpreted _bwd_gu and
+    _bwd_dx, exactly on the activation (1e-6) and 2e-4 on the products."""
+    bound = 7.0 if act == "swiglu_oai" else limit
+    M, D, I, sizes = 64, 32, 48, [20, 0, 44]
+    rng = np.random.default_rng(5)
+    g = rng.normal(size=(M, I)).astype(np.float32) * bound
+    u = rng.normal(size=(M, I)).astype(np.float32) * bound
+    pick = rng.random((M, I))
+    if act == "swiglu_oai":
+        g[pick < 0.2] = 7.0
+    u[pick < 0.15] = bound
+    u[(pick >= 0.15) & (pick < 0.3)] = -bound
+    dmid = rng.normal(size=(M, I)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jfem._act_core(a, b, act, limit), jnp.asarray(g), jnp.asarray(u))
+    jdg, jdu = (np.asarray(t) for t in vjp(jnp.asarray(dmid)))
+    tdg, tdu = tfem._act_grads(torch.from_numpy(g), torch.from_numpy(u), torch.from_numpy(dmid), act, limit)
+    at_u = np.abs(u) == bound
+    assert at_u.sum() > 0.2 * M * I
+    np.testing.assert_allclose(tdg.numpy(), jdg, atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(tdu.numpy(), jdu, atol=1e-6, rtol=1e-6)
+    # torch.clamp's gradient at the bound would be the whole of it
+    clamp_du = torch.where(torch.from_numpy(at_u), tdu * 2, tdu)
+    assert not np.allclose(clamp_du.numpy(), jdu, atol=1e-3)
+
+    lhs = rng.normal(size=(M, D)).astype(np.float32)
+    gate = (rng.normal(size=(3, D, I)) * 0.3).astype(np.float32)
+    up = (rng.normal(size=(3, D, I)) * 0.3).astype(np.float32)
+    gs = np.asarray(sizes, np.int32)
+    gu = torch.from_numpy(np.concatenate([g, u], -1))
+    dwg, dwu, _, _ = jfem._bwd_gu(_j(lhs), _j(g), _j(u), _j(dmid), jnp.asarray(gs), act, limit, True, False)
+    dw, _ = tfem._bwd_gu_plain(torch.from_numpy(lhs), gu, torch.from_numpy(dmid), torch.from_numpy(gs), act, limit)
+    np.testing.assert_allclose(dw.numpy(), np.concatenate([np.asarray(dwg), np.asarray(dwu)], -1), atol=2e-4)
+    dlhs = jfem._bwd_dx(_j(g), _j(u), _j(dmid), _j(gate), _j(up), jnp.asarray(gs), True, act, limit)
+    t_dlhs = tfem._bwd_dx_plain(gu, torch.from_numpy(dmid), torch.from_numpy(np.concatenate([gate, up], -1)),
+                                torch.from_numpy(gs), act, limit)
+    np.testing.assert_allclose(t_dlhs.numpy(), np.asarray(dlhs), atol=2e-4)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    lhs = torch.zeros(8, 16)
+    with pytest.raises(ValueError, match="act_kind='relu2'"):
+        tfem.fwd(lhs, torch.zeros(2, 16, 16), torch.zeros(2, 8, 16), torch.tensor([4, 4], dtype=torch.int32),
+                 act_kind="relu2")
+    with pytest.raises(ValueError, match="limit"):
+        tfem.fused_expert_mlp(lhs, torch.zeros(2, 16, 16), torch.zeros(2, 8, 16),
+                              torch.tensor([4, 4], dtype=torch.int32), limit=-1.0)

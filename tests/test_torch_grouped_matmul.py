@@ -13,6 +13,7 @@ import torch
 
 from automodel_tpu.ops import grouped_matmul as jgm
 from automodel_tpu_torch.ops import grouped_matmul as tgm
+import torch_port_parity  # noqa: F401  (caps torch at one thread)
 
 CASES = [
     (64, 48, 40, 4, None),  # nothing divisible by tiles

@@ -1,9 +1,11 @@
 """The torch port's MoE layers (automodel_tpu_torch/moe) against the JAX
-package on the CPU: the gate in its routing modes, fake balanced routing,
-the aux-free bias update, the ragged and dense experts backends (forward
-and grads, JAX's ragged backend through its Pallas kernels in interpret
-mode) and the whole MoE block with shared experts. The same numpy-made fp32
-inputs go to both; tolerances are stated per test."""
+package on the CPU: the gate in its routing modes (the gpt-oss learned
+router bias included), fake balanced routing, the aux-free bias update,
+``make_act2``'s ``swiglu_oai``, the ragged, ragged_fused and dense experts
+backends with and without the gpt-oss expert biases (forward and grads,
+JAX's ragged and ragged_fused backends through their Pallas kernels in
+interpret mode) and the whole MoE block with shared experts. The same
+numpy-made fp32 inputs go to both; tolerances are stated per test."""
 
 import dataclasses
 import importlib
@@ -13,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_port_parity  # noqa: F401  (caps torch at one thread)
 
 # the JAX moe package exports functions under its modules' names
 jcfg, jexp, jgate, jlayer = (importlib.import_module(f"automodel_tpu.moe.{m}")
@@ -40,6 +43,11 @@ GATE_CASES = {
                             score_func="sigmoid", n_group=4, topk_group=2, aux_loss_coeff=0.001),
     "softmax_after_topk": dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=8,
                                softmax_before_topk=False),
+    # gpt-oss: a learned router bias, softmax over the picked logits, and the
+    # aux loss, whose "probs" are then the raw logits (JAX :97-99)
+    "linear_bias_softmax_after_topk_aux": dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=8,
+                                               softmax_before_topk=False, router_linear_bias=True,
+                                               aux_loss_coeff=0.01),
 }
 
 
@@ -53,18 +61,38 @@ def test_gate_matches_jax(name):
     x = rng.normal(size=(T, D)).astype(np.float32)
     w = (rng.normal(size=(D, E)) * 0.5).astype(np.float32)
     bias = (rng.normal(size=(E,)) * 0.1).astype(np.float32) if jc.expert_bias else None
-    jout = jgate.gate(jnp.asarray(x), jnp.asarray(w), jc, bias=None if bias is None else jnp.asarray(bias), seq_len=8)
+    lb = (rng.normal(size=(E,)) * 0.5).astype(np.float32) if jc.router_linear_bias else None
+    opt = lambda a, f: None if a is None else f(a)
+    jout = jgate.gate(jnp.asarray(x), jnp.asarray(w), jc, bias=opt(bias, jnp.asarray), seq_len=8,
+                      linear_bias=opt(lb, jnp.asarray))
     tw = torch.tensor(w.T.copy(), requires_grad=True)
-    tout = tgate.gate(_t(x), tw, tc, bias=None if bias is None else _t(bias), seq_len=8)
+    tlb = opt(lb, lambda a: torch.tensor(a, requires_grad=True))
+    tout = tgate.gate(_t(x), tw, tc, bias=opt(bias, _t), seq_len=8, linear_bias=tlb)
     np.testing.assert_array_equal(tout.topk_idx.numpy(), np.asarray(jout.topk_idx))
     np.testing.assert_array_equal(tout.expert_counts.numpy(), np.asarray(jout.expert_counts))
     assert tout.expert_counts.dtype == torch.int32
     np.testing.assert_allclose(tout.topk_weights.detach().numpy(), np.asarray(jout.topk_weights), atol=1e-6)
     np.testing.assert_allclose(float(tout.aux_loss.detach()), float(jout.aux_loss), rtol=1e-6, atol=1e-9)
     if jc.aux_loss_coeff > 0:
-        jg = jax.grad(lambda ww: jgate.gate(jnp.asarray(x), ww, jc, seq_len=8).aux_loss)(jnp.asarray(w))
-        tout.aux_loss.backward()
+        jlb = opt(lb, jnp.asarray)
+        jg = jax.grad(lambda ww: jgate.gate(jnp.asarray(x), ww, jc, seq_len=8, linear_bias=jlb).aux_loss)(
+            jnp.asarray(w))
+        tout.aux_loss.backward(retain_graph=True)
         np.testing.assert_allclose(tw.grad.numpy().T, np.asarray(jg), rtol=1e-5, atol=1e-9)
+    if tlb is not None:
+        # the learned bias feeds the combine weights as well: the router's
+        # grads (weight and bias) through both (fp32, 1e-6)
+        wsum = rng.normal(size=(T, jc.num_experts_per_tok)).astype(np.float32)
+
+        def jloss(ww, lbb):
+            out = jgate.gate(jnp.asarray(x), ww, jc, seq_len=8, linear_bias=lbb)
+            return out.aux_loss + (out.topk_weights * jnp.asarray(wsum)).sum()
+
+        jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(w), jnp.asarray(lb))
+        tw.grad, tlb.grad = None, None
+        (tout.aux_loss + (tout.topk_weights * _t(wsum)).sum()).backward()
+        np.testing.assert_allclose(tw.grad.numpy().T, np.asarray(jg[0]), atol=1e-6)
+        np.testing.assert_allclose(tlb.grad.numpy(), np.asarray(jg[1]), atol=1e-6)
 
 
 def test_gate_breaks_ties_toward_the_lower_index():
@@ -92,22 +120,90 @@ def test_fake_balanced_gate_and_bias_update_match_jax():
     np.testing.assert_allclose(tgate.update_gate_bias(_t(bias), _t(counts), 0.001).numpy(), np.asarray(want))
 
 
-def _expert_inputs(seed=3, T=48, D=32, E=8, I=24):
+def _expert_inputs(seed=3, T=48, D=32, E=8, I=24, biased=False):
     rng = np.random.default_rng(seed)
-    return dict(
+    a = dict(
         x=rng.normal(size=(T, D)).astype(np.float32),
         router=(rng.normal(size=(D, E)) * 0.1).astype(np.float32),
         gate_up=(rng.normal(size=(E, D, 2 * I)) * 0.1).astype(np.float32),
         down=(rng.normal(size=(E, I, D)) * 0.1).astype(np.float32),
         dout=rng.normal(size=(T, D)).astype(np.float32),
     )
+    if biased:
+        a.update(gate_up_bias=(rng.normal(size=(E, 2 * I)) * 0.5).astype(np.float32),
+                 down_bias=(rng.normal(size=(E, D)) * 0.5).astype(np.float32))
+    return a
 
 
-@pytest.mark.parametrize("backend", ["ragged", "dense"])
+def test_make_act2_swiglu_oai_matches_jax():
+    """gpt-oss's clamped activation and its grads against JAX's make_act2,
+    with entries beyond and exactly at the +-7 clamps (fp32, 1e-6; JAX's
+    minimum and maximum give half the gradient at a tie)."""
+    jc, tc = _cfgs(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=8, activation="swiglu_oai")
+    rng = np.random.default_rng(2)
+    g, u, d = (rng.normal(size=(16, 8)).astype(np.float32) * 6 for _ in range(3))
+    g[0, :4], u[1, :4], u[2, :4] = 7.0, 7.0, -7.0
+    ja = jlayer.make_act2(jc, jax.nn.silu)
+    jy, vjp = jax.vjp(ja, jnp.asarray(g), jnp.asarray(u))
+    jdg, jdu = vjp(jnp.asarray(d))
+    tg, tu = (torch.tensor(a, requires_grad=True) for a in (g, u))
+    ty = tlayer.make_act2(tc, torch.nn.functional.silu)(tg, tu)
+    ty.backward(_t(d))
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), atol=1e-6)
+    np.testing.assert_allclose(tg.grad.numpy(), np.asarray(jdg), atol=1e-6)
+    np.testing.assert_allclose(tu.grad.numpy(), np.asarray(jdu), atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["ragged_fused", "ragged", "dense"])
+def test_biased_oai_experts_match_jax_ragged_fused_kernels(backend, monkeypatch):
+    """gpt-oss experts (swiglu_oai, gate_up_bias and down_bias, a learned
+    router bias, softmax after top-k) through the port's ragged_fused
+    (the fused expert-MLP autograd over the plain versions), ragged and
+    dense backends, against JAX's ragged_fused backend through its Pallas
+    kernels (interpreted): the output and the grads of x, the router, its
+    bias and the four expert tensors, to 5e-4 (tests/test_fused_backward.py
+    holds JAX's fused kernels to its composition at the same)."""
+    monkeypatch.setenv("AUTOMODEL_GMM_INTERPRET", "1")
+    kw = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=24, softmax_before_topk=False,
+              router_linear_bias=True, expert_mlp_bias=True, activation="swiglu_oai")
+    jc, tc = _cfgs(**kw)
+    a = _expert_inputs(biased=True)
+    a["linear_bias"] = (np.random.default_rng(9).normal(size=(8,)) * 0.3).astype(np.float32)
+    names = ("x", "router", "linear_bias", "gate_up", "down", "gate_up_bias", "down_bias")
+
+    def jfn(x, router, lb, gu, dn, gub, db):
+        gout = jgate.gate(x, router, jc, linear_bias=lb)
+        w = {"gate_up": gu, "down": dn, "gate_up_bias": gub, "down_bias": db}
+        out = jexp.ragged_fused_experts(x, gout, w, jc, jlayer.make_act2(jc, jax.nn.silu))
+        return (out * a["dout"]).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(jfn, argnums=tuple(range(7)), has_aux=True)(
+        *(jnp.asarray(a[k]) for k in names)
+    )
+    t = {k: torch.tensor(a[k] if k != "router" else a[k].T.copy(), requires_grad=True) for k in names}
+    gout = tgate.gate(t["x"], t["router"], tc, linear_bias=t["linear_bias"])
+    w = {k: t[k] for k in ("gate_up", "down", "gate_up_bias", "down_bias")}
+    out = texp.expert_backend(backend)(t["x"], gout, w, tc, tlayer.make_act2(tc, torch.nn.functional.silu))
+    (out * _t(a["dout"])).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=2e-4)
+    for name, want in zip(names, jgrads):
+        got = t[name].grad.t() if name == "router" else t[name].grad
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-4, err_msg=name)
+
+
+def test_ragged_fused_refuses_another_base_activation():
+    _, tc = _cfgs(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=8)
+    with pytest.raises(ValueError, match="ragged_fused.*'gelu'"):
+        texp._fused_act_of(tc, "gelu")
+    assert texp._fused_act_of(tc, "silu") == ("swiglu", None)
+
+
+@pytest.mark.parametrize("backend", ["ragged", "dense", "ragged_fused"])
 def test_experts_forward_and_grads_match_jax_ragged_kernels(backend, monkeypatch):
-    """Port ragged (the plain gmm/tgmm) and dense against JAX's ragged
-    backend through its Pallas kernels (interpreted): the output and the
-    grads of x, the router and both expert weights, to 2e-4 (the test at
+    """Port ragged (the plain gmm/tgmm), ragged_fused (the plain fused
+    expert MLP) and dense against JAX's ragged backend through its Pallas
+    kernels (interpreted): the output and the grads of x, the router and
+    both expert weights, to 2e-4 (the test at
     tests/test_grouped_matmul.py:70 holds JAX's own two backends to the
     same)."""
     monkeypatch.setenv("AUTOMODEL_GMM_INTERPRET", "1")
@@ -135,7 +231,7 @@ def test_experts_forward_and_grads_match_jax_ragged_kernels(backend, monkeypatch
 def test_unported_expert_backends_raise_by_name():
     from automodel_tpu_torch.models.common.config import BackendConfig
 
-    for name in ("gspmd", "ragged_fused", "a2a", "a2a_fused"):
+    for name in ("gspmd", "a2a", "a2a_fused"):
         with pytest.raises(ValueError, match=name):
             texp.expert_backend(name)
     with pytest.raises(ValueError, match="fp8_experts"):
@@ -192,13 +288,16 @@ def test_moe_config_from_hf_matches_jax():
         tcfg.MoEConfig(num_experts=6, num_experts_per_tok=2, moe_intermediate_size=4, n_group=4)
 
 
-@pytest.mark.parametrize("field,value", [("interleaved_gate_up", True), ("expert_mlp_bias", True),
-                                         ("activation", "swiglu_oai"), ("activation", "relu2"),
-                                         ("activation_limit", 7.0), ("router_linear_bias", True)])
+@pytest.mark.parametrize("field,value", [("interleaved_gate_up", True), ("activation", "relu2"),
+                                         ("activation_limit", 7.0)])
 def test_moe_config_refuses_the_unported_expert_variants_by_name(field, value):
-    """gpt-oss and relu2 experts are not ported: each field that would turn
-    them on raises naming itself (JAX's MoEConfig takes them)."""
+    """Interleaved gate/up (which the JAX gpt-oss config keeps off), relu2
+    experts (nemotron_v3) and the activation limit (step3p5) are not ported:
+    each field that would turn them on raises naming itself (JAX's
+    MoEConfig takes them). The gpt-oss fields are taken."""
     kw = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=4, **{field: value})
     jcfg.MoEConfig(**kw)
     with pytest.raises(ValueError, match=f"MoEConfig.{field}="):
         tcfg.MoEConfig(**kw)
+    tcfg.MoEConfig(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=4, expert_mlp_bias=True,
+                   activation="swiglu_oai", router_linear_bias=True)

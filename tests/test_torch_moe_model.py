@@ -21,6 +21,7 @@ from automodel_tpu.models.qwen3_moe import MoEForCausalLM as JaxMoE
 from automodel_tpu.models.qwen3_moe import MoETransformerConfig as JaxMoEConfig
 from automodel_tpu_torch.models.common.config import BackendConfig
 from automodel_tpu_torch.models.qwen3_moe import MoEForCausalLM, MoETransformerConfig, params_from_jax
+import torch_port_parity  # noqa: F401  (caps torch at one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -56,11 +57,11 @@ def _pair(experts="ragged", hf=None, seed=0, trainable=False, fake_gate=False):
     return jmodel, params, tmodel
 
 
-@pytest.mark.parametrize("experts", ["ragged", "dense"])
+@pytest.mark.parametrize("experts", ["ragged", "dense", "ragged_fused"])
 def test_logits_and_aux_match_jax(experts, monkeypatch):
     """fp32 logits to 1e-5, expert counts exactly, aux loss to 1e-6
-    relative; JAX's ragged backend through its Pallas kernels
-    (interpreted)."""
+    relative; JAX's ragged and ragged_fused backends through their Pallas
+    kernels (interpreted)."""
     monkeypatch.setenv("AUTOMODEL_GMM_INTERPRET", "1")
     jmodel, params, tmodel = _pair(experts)
     ids = np.random.default_rng(0).integers(0, 128, size=(2, 16)).astype(np.int32)
@@ -104,7 +105,7 @@ def test_params_from_jax_covers_every_parameter_and_refusals():
     assert tuple(sd["model.layers.1.mlp.experts.gate_up"].shape) == (8, 64, 64)
     assert tuple(sd["model.layers.1.mlp.experts.down"].shape) == (8, 32, 64)
     assert tuple(sd["model.layers.0.mlp.gate.weight"].shape) == (8, 64)
-    for experts in ("gspmd", "ragged_fused", "a2a", "a2a_fused"):
+    for experts in ("gspmd", "a2a", "a2a_fused"):
         with pytest.raises(ValueError, match=experts):
             MoEForCausalLM(MoETransformerConfig.from_hf(HF_MOE_TINY), BackendConfig(experts=experts), device=CPU)
     with pytest.raises(ValueError, match="cache"):

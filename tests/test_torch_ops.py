@@ -1,5 +1,5 @@
 """The torch port's plain ops against the JAX package's, on the same
-numpy-made inputs: RMSNorm, RoPE (default and llama3 scaling),
+numpy-made inputs: RMSNorm, RoPE (default, llama3 and yarn scaling),
 ``repeat_kv``, ``sdpa_decode`` under the chunk mask, sampling filters, and
 the paged write targets and chunk mask. fp32, atol 1e-5 unless stated."""
 
@@ -34,7 +34,12 @@ def test_rms_norm():
     np.testing.assert_allclose(to_np(out), np.asarray(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("hf", [{"rope_theta": 10000.0}, HF_TINY], ids=["default", "llama3"])
+# gpt-oss's published rope (yarn, factor 32 over 4096 positions, theta 150000)
+HF_YARN = dict(rope_theta=150000.0, rope_scaling=dict(rope_type="yarn", factor=32.0, beta_fast=32.0, beta_slow=1.0,
+                                                      original_max_position_embeddings=4096, truncate=False))
+
+
+@pytest.mark.parametrize("hf", [{"rope_theta": 10000.0}, HF_TINY, HF_YARN], ids=["default", "llama3", "yarn"])
 def test_rope_table_and_apply(hf):
     jcfg, tcfg = jrope.RopeConfig.from_hf(hf), trope.RopeConfig.from_hf(hf)
     assert (tcfg.theta, tcfg.scaling, tcfg.factor, tcfg.original_max_position) == (
@@ -50,6 +55,31 @@ def test_rope_table_and_apply(hf):
     tq, tk = trope.apply_rope(torch.from_numpy(q), torch.from_numpy(k), tcos, tsin)
     np.testing.assert_allclose(to_np(tq), np.asarray(jq), atol=1e-5)
     np.testing.assert_allclose(to_np(tk), np.asarray(jk), atol=1e-5)
+
+
+def test_yarn_copies_jax_which_floors_the_ramp_whatever_truncate_says():
+    """The port's yarn frequencies and attention factor equal JAX's at
+    gpt-oss's head_dim 64 (1e-7 relative); both floor and ceil the ramp's
+    ends, which is HF's ``truncate: true``. HF with gpt-oss's published
+    ``truncate: false`` gives other frequencies (ROADMAP queue 3)."""
+    from transformers.modeling_rope_utils import _compute_yarn_parameters
+    from transformers import PretrainedConfig
+
+    tcfg = trope.RopeConfig.from_hf(HF_YARN)
+    inv = trope.inv_freq(64, tcfg)
+    np.testing.assert_allclose(inv.numpy(), np.asarray(jrope._inv_freq(64, jrope.RopeConfig.from_hf(HF_YARN))),
+                               rtol=1e-7)
+    assert trope.attention_factor(tcfg) == jrope._attention_factor(jrope.RopeConfig.from_hf(HF_YARN))
+    assert abs(trope.attention_factor(tcfg) - (0.1 * np.log(32.0) + 1.0)) < 1e-12
+
+    def hf_inv(truncate):
+        rs = dict(HF_YARN["rope_scaling"], truncate=truncate)
+        cfg = PretrainedConfig(rope_theta=150000.0, rope_scaling=rs, head_dim=64, hidden_size=2880,
+                               num_attention_heads=64, max_position_embeddings=131072)
+        return _compute_yarn_parameters(cfg, "cpu")[0].float().numpy()
+
+    np.testing.assert_allclose(inv.numpy(), hf_inv(True), rtol=1e-6)
+    assert np.abs(inv.numpy() / hf_inv(False) - 1).max() > 0.1
 
 
 def test_llama3_scaling_changes_low_frequencies():

@@ -3,6 +3,12 @@
 The same tiny Llama config goes to both packages; the JAX package draws the
 weights and ``params_from_jax`` carries them to the port, so both hold the
 same numbers. Inputs are made with numpy from a seed and handed to each.
+
+Importing this module caps torch at one intra-op thread. The suite runs
+several pytest workers on one host, and torch's default (a thread per core
+in each worker) oversubscribes it: the spinning pool threads slow the torch
+tests several-fold and steal the cores that the other workers' wall-clock
+comparisons time. At these tiny shapes one thread is the faster setting.
 """
 
 from __future__ import annotations
@@ -10,6 +16,8 @@ from __future__ import annotations
 import jax
 import numpy as np
 import torch
+
+torch.set_num_threads(1)
 
 # 2 layers, hidden 64, 4 heads over 2 kv heads, head_dim 16; llama3 rope
 # scaling with a small original context so the scaling bands all apply
