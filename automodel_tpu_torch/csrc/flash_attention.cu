@@ -1,29 +1,43 @@
 // Flash attention for training: the forward and the two backward kernels
-// (dq, and dk/dv), with positional masking.
+// (dq, and dk/dv), with positional masking and the logits soft cap.
 //
 // Replaces the Pallas TPU kernels of automodel_tpu/ops/ring_flash.py:
 // _fwd_kernel (:62, through flash_block_fwd :219), _dq_kernel (:102) and
 // _dkv_kernel (:134, both through flash_block_bwd :258); and with them the
 // library splash kernel that automodel_tpu/ops/attention.py:206
-// _splash_flash runs for `attn: flash` (logits soft cap and sinks are not
-// carried here).
+// _splash_flash runs for `attn: flash`, its attn_logits_soft_cap (:263)
+// included. gpt-oss sinks are folded around these kernels in
+// ops/ring_flash.py.
 //
 // Function (the same as the JAX kernels): q [B, Sq, N, H] attends k/v
-// [B, Sk, Nkv, H], all bf16, head n reading kv head n / (N / Nkv). Entry
-// (i, j) is visible when seg_q[b, i] == seg_kv[b, j] (if segment ids are
-// given), q_pos[i] >= kv_pos[j] (if causal) and q_pos[i] - kv_pos[j] <
-// window (if a window is given). Positions are global and non-decreasing.
-// s = scale * q.k in fp32; softmax in fp32; a row that sees nothing writes
-// out 0 and lse NEG_INF. Backward: P = exp(s - lse) recomputed from the
-// saved lse, dP = dO.V^T, dS = P * (dP - delta) with delta = rowsum(dO *
-// out), dq = scale * dS.K, dk = scale * dS^T.Q, dv = P^T.dO; dk and dv are
-// summed over the q heads of each kv head inside the kernel.
+// [B, Sk, Nkv, H], all bf16, H 64, 128 or 256, head n reading kv head
+// n / (N / Nkv). Entry (i, j) is visible when seg_q[b, i] == seg_kv[b, j]
+// (if segment ids are given), q_pos[i] >= kv_pos[j] (if causal) and
+// q_pos[i] - kv_pos[j] < window (if a window is given). Positions are
+// global and non-decreasing. s = scale * q.k in fp32; under a soft cap c
+// (cap > 0) s = c * tanh(scale * q.k / c), applied BEFORE the mask (a
+// masked score is NEG_INF, never c * tanh(NEG_INF / c) = -c, which would
+// let masked keys in with weight e^-(c + max)); softmax in fp32 over the
+// capped scores, so the lse is of them; a row that sees nothing writes out
+// 0 and lse NEG_INF. Backward: P = exp(s - lse) recomputed from the saved
+// lse, dP = dO.V^T, dS = P * (dP - delta) with delta = rowsum(dO * out),
+// times 1 - t^2 under the cap, where t = tanh(scale * q.k / c) is
+// recomputed from the fp32 scores (not from s / c); dq = scale * dS.K,
+// dk = scale * dS^T.Q, dv = P^T.dO; dk and dv are summed over the q heads
+// of each kv head inside the kernel.
+//
+// The cap's tanh is full-precision tanhf (at most 2 ulp), not
+// tanh.approx.f32: the approximation's relative error of ~2^-11 is up to
+// 0.024 in s at c = 50, ~2.4% in P, three times the 2^-7 held on output
+// rows. The cap is a template flag chosen at launch (cap <= 0: none), so
+// the kernels without it are the same code as before it existed.
 //
 // What bounds it on an H100: tensor-core operations. Per live (q, k) pair
 // and head the forward does 4*H flops (two products), dq 6*H (three) and
 // dkv 8*H (four), at 2*H/2 bytes of q/k/v per row reused across a whole
 // tile, far above the ~295 flops per byte where bandwidth would be the
-// limit. The least time is the live pairs' flops over 989 TFLOP/s bf16.
+// limit. The least time is the live pairs' flops over 989 TFLOP/s bf16
+// (the cap's tanh, one per live pair and head in each kernel, not counted).
 //
 // Design (simple first: mma.sync, cp.async, no wgmma/TMA/warp
 // specialisation yet):
@@ -43,8 +57,18 @@
 //   heads of the group and their live q tiles of 32 rows; dk and dv
 //   accumulate in fp32 registers, so the GQA sum needs no [B*N, Sk, H]
 //   intermediate and no atomics: the result is deterministic.
-// - shared-memory rows are padded by 16 bytes so ldmatrix's eight row
-//   addresses fall in different banks.
+// - H = 256: a warp's fp32 [16, 256] accumulator is 128 registers a
+//   thread, so the fwd's O and dq's dQ each fit (with Q and dO fragments
+//   read from shared memory at each k step instead of kept in registers,
+//   as at H <= 128), but dkv's dK and dV together (256) cannot. dkv at
+//   H = 256 runs 8 warps: two warps per 16-row kv strip, each owning half
+//   of the head dim of dK and dV, each recomputing the strip's S^T and dP^T
+//   (the two products over the whole head dim; 1.5x dkv's tensor work
+//   there, no shared-memory exchange and no extra barrier).
+// - shared memory per CTA, rows padded to H + 8: fwd 64 + 4 x 64 rows
+//   (168,960 B at H = 256), dq and dkv 2 x 64 + 4 x 32 rows (135,168 B),
+//   under the 227 KB a block may take; the 16-byte pad puts ldmatrix's
+//   eight row addresses in different banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +78,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kThreads = 128;  // 4 warps: fwd, dq, and dkv at H <= 128
 constexpr int kErrUnsupported = 100001;
 // NEG_INF of ring_flash.py: -0.7 * float32 max, rounded once to fp32
 constexpr float kNegInf = static_cast<float>(-0.7 * 3.4028234663852886e38);
@@ -77,6 +101,7 @@ struct Args {
   float* dv;
   int B, Sq, Sk, N, Nkv, causal, window;
   float scale;
+  float cap;  // logits soft cap; <= 0: none
 };
 
 // -- primitives ---------------------------------------------------------------
@@ -150,13 +175,13 @@ __device__ __forceinline__ const bf16* bt_addr(const bf16* t, int k0, int n0, in
 }
 
 // ROWS rows of H bf16 from `src` (row stride in elements) into a padded
-// shared tile; rows at or past n_rows are zero-filled
-template <int ROWS, int H>
+// shared tile, by THREADS threads; rows at or past n_rows are zero-filled
+template <int ROWS, int H, int THREADS = kThreads>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride, int row0,
                                           int n_rows) {
   constexpr int P = H + 8;
   constexpr int CPR = H / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += kThreads) {
+  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
     const int r = c / CPR;
     const int w = c - r * CPR;
     const bool ok = row0 + r < n_rows;
@@ -202,9 +227,12 @@ __device__ __forceinline__ void live_kv_tiles(const Args& a, int bk, int qmin, i
 
 // -- forward ------------------------------------------------------------------
 
-template <int H>
+template <int H, bool CAP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   constexpr int BQ = 64, BK = 64, P = H + 8, KC = H / 16, NT = BK / 8, HT = H / 8;
+  // Q fragments stay in registers at H <= 128; at H = 256 they are read from
+  // shared memory at each k step, leaving the registers to the accumulator
+  constexpr bool kRegs = H <= 128;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // [BQ][P]
   bf16* k_s = q_s + BQ * P;                   // [2][BK][P]
@@ -255,9 +283,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
   issue(t_lo);
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[KC][4];
+  uint32_t qf[kRegs ? KC : 1][4];
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk) ldsm_x4(qf[kk], a_addr<P>(q_s, warp * 16, kk * 16, lane));
+    for (int kk = 0; kk < KC; ++kk) ldsm_x4(qf[kk], a_addr<P>(q_s, warp * 16, kk * 16, lane));
+  }
 
   float o[HT][4];
 #pragma unroll
@@ -282,12 +312,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm_x4(qa, a_addr<P>(q_s, warp * 16, kk * 16, lane));
+      }
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t kf[4];
         ldsm_x4(kf, b_addr<P>(ks, j * 16, kk * 16, lane));
-        mma(s[2 * j], qf[kk], kf[0], kf[1]);
-        mma(s[2 * j + 1], qf[kk], kf[2], kf[3]);
+        mma(s[2 * j], qa, kf[0], kf[1]);
+        mma(s[2 * j + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -301,7 +338,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
         const int c = i * 8 + 2 * (lane & 3) + (e & 1);
         const bool ok = t * BK + c < a.Sk && visible(qp[h], kpos_s[st][c], a.causal, a.window) &&
                         (!segq || qs[h] == kseg_s[st][c]);
-        const float x = ok ? s[i][e] * a.scale : kNegInf;
+        float x;
+        if constexpr (CAP) {
+          x = ok ? a.cap * tanhf(s[i][e] * a.scale / a.cap) : kNegInf;  // the cap, then the mask
+        } else {
+          x = ok ? s[i][e] * a.scale : kNegInf;
+        }
         s[i][e] = x;
         live |= static_cast<uint32_t>(ok) << (i * 4 + e);
         mx[h] = fmaxf(mx[h], x);
@@ -373,9 +415,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
 
 // -- backward: dq ---------------------------------------------------------------
 
-template <int H>
+template <int H, bool CAP>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
   constexpr int BQ = 64, BK = 32, P = H + 8, KC = H / 16, NT = BK / 8, HT = H / 8;
+  constexpr bool kRegs = H <= 128;  // Q and dO fragments in registers, as in the fwd
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // [BQ][P]
   bf16* do_s = q_s + BQ * P;                  // [BQ][P]
@@ -433,11 +476,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
   issue(t_lo);
   cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[KC][4], df[KC][4];
+  uint32_t qf[kRegs ? KC : 1][4], df[kRegs ? KC : 1][4];
+  if constexpr (kRegs) {
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    ldsm_x4(qf[kk], a_addr<P>(q_s, warp * 16, kk * 16, lane));
-    ldsm_x4(df[kk], a_addr<P>(do_s, warp * 16, kk * 16, lane));
+    for (int kk = 0; kk < KC; ++kk) {
+      ldsm_x4(qf[kk], a_addr<P>(q_s, warp * 16, kk * 16, lane));
+      ldsm_x4(df[kk], a_addr<P>(do_s, warp * 16, kk * 16, lane));
+    }
   }
 
   float dq[HT][4];
@@ -461,15 +506,26 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
+      uint32_t qa[4], da[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[kk][e];
+          da[e] = df[kk][e];
+        }
+      } else {
+        ldsm_x4(qa, a_addr<P>(q_s, warp * 16, kk * 16, lane));
+        ldsm_x4(da, a_addr<P>(do_s, warp * 16, kk * 16, lane));
+      }
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t kf[4], vf[4];
         ldsm_x4(kf, b_addr<P>(ks, j * 16, kk * 16, lane));
-        mma(s[2 * j], qf[kk], kf[0], kf[1]);
-        mma(s[2 * j + 1], qf[kk], kf[2], kf[3]);
+        mma(s[2 * j], qa, kf[0], kf[1]);
+        mma(s[2 * j + 1], qa, kf[2], kf[3]);
         ldsm_x4(vf, b_addr<P>(vs, j * 16, kk * 16, lane));
-        mma(dp[2 * j], df[kk], vf[0], vf[1]);
-        mma(dp[2 * j + 1], df[kk], vf[2], vf[3]);
+        mma(dp[2 * j], da, vf[0], vf[1]);
+        mma(dp[2 * j + 1], da, vf[2], vf[3]);
       }
     }
 #pragma unroll
@@ -480,8 +536,15 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
         const int c = i * 8 + 2 * (lane & 3) + (e & 1);
         const bool ok = t * BK + c < a.Sk && visible(qp[h], kpos_s[st][c], a.causal, a.window) &&
                         (!segq || qs[h] == kseg_s[st][c]);
-        const float p = ok ? __expf(s[i][e] * a.scale - lse[h]) : 0.f;
-        s[i][e] = p * (dp[i][e] - dlt[h]);  // dS
+        if constexpr (CAP) {
+          // t from the fp32 scores, as the forward computed it
+          const float t = ok ? tanhf(s[i][e] * a.scale / a.cap) : 0.f;
+          const float p = ok ? __expf(a.cap * t - lse[h]) : 0.f;
+          s[i][e] = p * (dp[i][e] - dlt[h]) * (1.f - t * t);  // dS, through the cap
+        } else {
+          const float p = ok ? __expf(s[i][e] * a.scale - lse[h]) : 0.f;
+          s[i][e] = p * (dp[i][e] - dlt[h]);  // dS
+        }
       }
     }
 #pragma unroll
@@ -514,9 +577,18 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
 
 // -- backward: dk, dv -----------------------------------------------------------
 
+// dkv's tiling: at H = 256 two warps share each 16-row kv strip, each
+// owning H / 2 columns of dK and dV
 template <int H>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
-  constexpr int BK = 64, BQ = 32, P = H + 8, KC = H / 16, NT = BQ / 8, HT = H / 8;
+struct DkvTiling {
+  static constexpr int kSplit = H > 128 ? 2 : 1;  // warps per strip
+  static constexpr int kThreads = 128 * kSplit;
+};
+
+template <int H, bool CAP>
+__global__ void __launch_bounds__(DkvTiling<H>::kThreads) flash_dkv_kernel(const Args a) {
+  constexpr int SPLIT = DkvTiling<H>::kSplit, THREADS = DkvTiling<H>::kThreads;
+  constexpr int BK = 64, BQ = 32, P = H + 8, KC = H / 16, NT = BQ / 8, HW = H / SPLIT, HT = HW / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // [BK][P]
   bf16* v_s = k_s + BK * P;                   // [BK][P]
@@ -532,6 +604,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   const int g = blockIdx.y - b * a.Nkv;
   const int rep = a.N / a.Nkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int strip = warp / SPLIT, col0 = (warp % SPLIT) * HW;  // 16 kv rows, HW columns of dK/dV
   const int k0 = kt * BK;
   const long long q_stride = static_cast<long long>(a.N) * H;
   const long long kv_stride = static_cast<long long>(a.Nkv) * H;
@@ -542,7 +615,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
   int row[2], kp[2], ksg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    row[h] = k0 + warp * 16 + (lane >> 2) + 8 * h;
+    row[h] = k0 + strip * 16 + (lane >> 2) + 8 * h;
     const int r = min(row[h], a.Sk - 1);
     kp[h] = a.kv_pos[r];
     ksg[h] = segk ? segk[r] : 0;
@@ -564,8 +637,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
       const int head = g * rep + i / n_live;
       const int q0 = (lo + i % n_live) * BQ;
       const long long base = (static_cast<long long>(b) * a.Sq * a.N + head) * H;
-      load_rows<BQ, H>(q_s + st * BQ * P, a.q + base, q_stride, q0, a.Sq);
-      load_rows<BQ, H>(do_s + st * BQ * P, a.dout + base, q_stride, q0, a.Sq);
+      load_rows<BQ, H, THREADS>(q_s + st * BQ * P, a.q + base, q_stride, q0, a.Sq);
+      load_rows<BQ, H, THREADS>(do_s + st * BQ * P, a.dout + base, q_stride, q0, a.Sq);
       if (threadIdx.x < BQ) {
         const int c = min(q0 + static_cast<int>(threadIdx.x), a.Sq - 1);
         const long long rb = (static_cast<long long>(b) * a.N + head) * a.Sq;
@@ -578,8 +651,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
     cp_async_commit();
   };
 
-  load_rows<BK, H>(k_s, a.k + kv_base, kv_stride, k0, a.Sk);
-  load_rows<BK, H>(v_s, a.v + kv_base, kv_stride, k0, a.Sk);
+  load_rows<BK, H, THREADS>(k_s, a.k + kv_base, kv_stride, k0, a.Sk);
+  load_rows<BK, H, THREADS>(v_s, a.v + kv_base, kv_stride, k0, a.Sk);
   cp_async_commit();
   issue(0);
 
@@ -598,7 +671,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
     const bf16* qs = q_s + st * BQ * P;
     const bf16* dos = do_s + st * BQ * P;
 
-    // S^T = K.Q^T and dP^T = V.dO^T for this warp's 16 kv rows
+    // S^T = K.Q^T and dP^T = V.dO^T for this warp's 16 kv rows (over the
+    // whole head dim: at H = 256 both warps of a strip compute them)
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -607,8 +681,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       uint32_t ka[4], va[4];
-      ldsm_x4(ka, a_addr<P>(k_s, warp * 16, kk * 16, lane));
-      ldsm_x4(va, a_addr<P>(v_s, warp * 16, kk * 16, lane));
+      ldsm_x4(ka, a_addr<P>(k_s, strip * 16, kk * 16, lane));
+      ldsm_x4(va, a_addr<P>(v_s, strip * 16, kk * 16, lane));
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t qb[4], ob[4];
@@ -629,12 +703,19 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
         const bool ok = q0 + c < a.Sq && row[h] < a.Sk &&
                         visible(qpos_s[st][c], kp[h], a.causal, a.window) &&
                         (!segq || qseg_s[st][c] == ksg[h]);
-        const float p = ok ? __expf(s[j][e] * a.scale - lse_s[st][c]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dlt_s[st][c]);  // dS^T
+        if constexpr (CAP) {
+          const float t = ok ? tanhf(s[j][e] * a.scale / a.cap) : 0.f;
+          const float p = ok ? __expf(a.cap * t - lse_s[st][c]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dlt_s[st][c]) * (1.f - t * t);  // dS^T, through the cap
+        } else {
+          const float p = ok ? __expf(s[j][e] * a.scale - lse_s[st][c]) : 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dlt_s[st][c]);  // dS^T
+        }
       }
     }
-    // dV += P^T.dO, dK += dS^T.Q
+    // dV += P^T.dO, dK += dS^T.Q over this warp's HW columns
 #pragma unroll
     for (int kc = 0; kc < BQ / 16; ++kc) {
       uint32_t pa[4], da[4];
@@ -643,10 +724,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < HT / 2; ++j) {
         uint32_t ob[4], qb[4];
-        ldsm_x4_t(ob, bt_addr<P>(dos, kc * 16, j * 16, lane));
+        ldsm_x4_t(ob, bt_addr<P>(dos, kc * 16, col0 + j * 16, lane));
         mma(dv[2 * j], pa, ob[0], ob[1]);
         mma(dv[2 * j + 1], pa, ob[2], ob[3]);
-        ldsm_x4_t(qb, bt_addr<P>(qs, kc * 16, j * 16, lane));
+        ldsm_x4_t(qb, bt_addr<P>(qs, kc * 16, col0 + j * 16, lane));
         mma(dk[2 * j], da, qb[0], qb[1]);
         mma(dk[2 * j + 1], da, qb[2], qb[3]);
       }
@@ -658,7 +739,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= a.Sk) continue;
-    const long long off = ((static_cast<long long>(b) * a.Sk + row[h]) * a.Nkv + g) * H + 2 * (lane & 3);
+    const long long off = ((static_cast<long long>(b) * a.Sk + row[h]) * a.Nkv + g) * H + col0 + 2 * (lane & 3);
 #pragma unroll
     for (int i = 0; i < HT; ++i) {
       *reinterpret_cast<float2*>(a.dk + off + i * 8) =
@@ -671,11 +752,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Args a) {
 // -- launch -------------------------------------------------------------------
 
 template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t stream) {
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a, cudaStream_t stream) {
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -687,20 +768,25 @@ constexpr size_t rows_bytes(int rows) {
 
 enum Which { kFwd, kDq, kDkv };
 
-template <int H>
-int dispatch(Which w, const Args& a, cudaStream_t stream) {
+template <int H, bool CAP>
+int dispatch_cap(Which w, const Args& a, cudaStream_t stream) {
   switch (w) {
     case kFwd:
-      return launch(flash_fwd_kernel<H>, dim3((a.Sq + 63) / 64, a.B * a.N), rows_bytes<H>(64 + 4 * 64), a,
-                    stream);
+      return launch(flash_fwd_kernel<H, CAP>, dim3((a.Sq + 63) / 64, a.B * a.N), kThreads,
+                    rows_bytes<H>(64 + 4 * 64), a, stream);
     case kDq:
-      return launch(flash_dq_kernel<H>, dim3((a.Sq + 63) / 64, a.B * a.N), rows_bytes<H>(2 * 64 + 4 * 32), a,
-                    stream);
+      return launch(flash_dq_kernel<H, CAP>, dim3((a.Sq + 63) / 64, a.B * a.N), kThreads,
+                    rows_bytes<H>(2 * 64 + 4 * 32), a, stream);
     case kDkv:
-      return launch(flash_dkv_kernel<H>, dim3((a.Sk + 63) / 64, a.B * a.Nkv),
+      return launch(flash_dkv_kernel<H, CAP>, dim3((a.Sk + 63) / 64, a.B * a.Nkv), DkvTiling<H>::kThreads,
                     rows_bytes<H>(2 * 64 + 4 * 32), a, stream);
   }
   return kErrUnsupported;
+}
+
+template <int H>
+int dispatch(Which w, const Args& a, cudaStream_t stream) {
+  return a.cap > 0.f ? dispatch_cap<H, true>(w, a, stream) : dispatch_cap<H, false>(w, a, stream);
 }
 
 int run(Which w, const Args& a, int H, void* stream_ptr) {
@@ -710,13 +796,14 @@ int run(Which w, const Args& a, int H, void* stream_ptr) {
   switch (H) {
     case 64: return dispatch<64>(w, a, stream);
     case 128: return dispatch<128>(w, a, stream);
+    case 256: return dispatch<256>(w, a, stream);
   }
   return kErrUnsupported;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const int* q_pos, const int* kv_pos,
                const int* seg_q, const int* seg_kv, int B, int Sq, int Sk, int N, int Nkv, int causal,
-               int window, float scale) {
+               int window, float scale, float cap) {
   Args a = {};
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -733,6 +820,7 @@ Args make_args(const void* q, const void* k, const void* v, const int* q_pos, co
   a.causal = causal;
   a.window = window;
   a.scale = scale;
+  a.cap = cap;
   return a;
 }
 
@@ -742,12 +830,13 @@ extern "C" {
 
 // Each launches on `stream`, allocates nothing and returns cudaGetLastError()
 // after the launch (0 = launched), or an error code for a shape it does not
-// take. window <= 0 means no window; seg_q/seg_kv may be null.
+// take. window <= 0 means no window, cap <= 0 no soft cap; seg_q/seg_kv
+// may be null.
 
 int flash_attention_fwd(const void* q, const void* k, const void* v, const int* q_pos, const int* kv_pos,
                         const int* seg_q, const int* seg_kv, void* out, float* lse, int B, int Sq, int Sk,
-                        int N, int Nkv, int H, int causal, int window, float scale, void* stream) {
-  Args a = make_args(q, k, v, q_pos, kv_pos, seg_q, seg_kv, B, Sq, Sk, N, Nkv, causal, window, scale);
+                        int N, int Nkv, int H, int causal, int window, float scale, float cap, void* stream) {
+  Args a = make_args(q, k, v, q_pos, kv_pos, seg_q, seg_kv, B, Sq, Sk, N, Nkv, causal, window, scale, cap);
   a.out = static_cast<bf16*>(out);
   a.lse_out = lse;
   return run(kFwd, a, H, stream);
@@ -756,8 +845,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, const int* 
 int flash_attention_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                        const float* delta, const int* q_pos, const int* kv_pos, const int* seg_q,
                        const int* seg_kv, float* dq, int B, int Sq, int Sk, int N, int Nkv, int H,
-                       int causal, int window, float scale, void* stream) {
-  Args a = make_args(q, k, v, q_pos, kv_pos, seg_q, seg_kv, B, Sq, Sk, N, Nkv, causal, window, scale);
+                       int causal, int window, float scale, float cap, void* stream) {
+  Args a = make_args(q, k, v, q_pos, kv_pos, seg_q, seg_kv, B, Sq, Sk, N, Nkv, causal, window, scale, cap);
   a.dout = static_cast<const bf16*>(dout);
   a.lse = lse;
   a.delta = delta;
@@ -768,8 +857,8 @@ int flash_attention_dq(const void* q, const void* k, const void* v, const void* 
 int flash_attention_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                         const float* delta, const int* q_pos, const int* kv_pos, const int* seg_q,
                         const int* seg_kv, float* dk, float* dv, int B, int Sq, int Sk, int N, int Nkv,
-                        int H, int causal, int window, float scale, void* stream) {
-  Args a = make_args(q, k, v, q_pos, kv_pos, seg_q, seg_kv, B, Sq, Sk, N, Nkv, causal, window, scale);
+                        int H, int causal, int window, float scale, float cap, void* stream) {
+  Args a = make_args(q, k, v, q_pos, kv_pos, seg_q, seg_kv, B, Sq, Sk, N, Nkv, causal, window, scale, cap);
   a.dout = static_cast<const bf16*>(dout);
   a.lse = lse;
   a.delta = delta;

@@ -103,6 +103,7 @@ class TransformerConfig:
     mlp_bias: bool = False
     qk_norm: bool = False  # qwen3-style per-head RMSNorm on q/k
     act: str = "silu"
+    embed_scale: float = 1.0  # gemma multiplies embeddings by sqrt(hidden)
     logits_soft_cap: Optional[float] = None
     attn_soft_cap: Optional[float] = None
     sliding_window: Optional[int] = None

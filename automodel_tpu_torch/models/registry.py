@@ -2,10 +2,12 @@
 
 Port of ``automodel_tpu/models/registry.py`` for the families the port
 has: ``LlamaForCausalLM``, ``Qwen3MoeForCausalLM`` (the MoE family of
-``models/qwen3_moe``, registered at :130 of the JAX registry) and
-``GptOssForCausalLM`` (``models/gpt_oss``, :106). A config
-naming another architecture is refused; a config naming none builds the
-generic llama, as in the JAX registry.
+``models/qwen3_moe``, registered at :130 of the JAX registry),
+``GptOssForCausalLM`` (``models/gpt_oss``, :106) and
+``Gemma2ForCausalLM`` / ``Gemma3ForCausalLM`` (``models/gemma``, :70). A
+config naming another architecture (``Gemma3ForConditionalGeneration``,
+the vision-language Gemma 3, among them) is refused; a config naming none
+builds the generic llama, as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -45,6 +47,13 @@ def _gpt_oss_builder(hf_config: Any, backend: BackendConfig, device=None, traina
     from automodel_tpu_torch.models.gpt_oss import GptOssConfig, GptOssForCausalLM
 
     return GptOssForCausalLM(GptOssConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
+
+
+@register_architecture("Gemma2ForCausalLM", "Gemma3ForCausalLM")
+def _gemma_builder(hf_config: Any, backend: BackendConfig, device=None, trainable: bool = False):
+    from automodel_tpu_torch.models.gemma import GemmaConfig, GemmaForCausalLM
+
+    return GemmaForCausalLM(GemmaConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
 
 
 def resolve_architecture(hf_config: Any) -> Callable:

@@ -3,9 +3,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so`` (the hash is of the source, so an edited
-source never loads a stale library). ``build`` starts one ``nvcc`` per
-source at once and waits for all of them; ``load`` builds on first use.
-Nothing is built or imported when this module is imported.
+source never loads a stale library), with ptxas's report of each kernel's
+registers, spills and shared memory (``-Xptxas -v``) kept beside it as
+``lib<name>-<hash>.log`` and read by ``ptxas_usage``. ``build`` starts one
+``nvcc`` per source at once and waits for all of them; ``load`` builds on
+first use. Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,7 +25,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -72,6 +75,7 @@ def build(names: list[str]) -> dict[str, Path]:
         if proc.returncode != 0:
             failures.append(f"nvcc {name}.cu failed (rc {proc.returncode}):\n{log}")
             continue
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
     if failures:
         raise RuntimeError("\n".join(failures))
@@ -85,3 +89,45 @@ def load(name: str) -> ctypes.CDLL:
         path = build([name])[name]
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``..16flash_fwd_kernelILi256ELb1EE..`` → ``flash_fwd_kernel<256, 1>``:
+    the length-prefixed name ending in ``_kernel`` that opens a template
+    argument list, with its integer and bool arguments; the mangled name
+    as it is when there is none."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):  # the length's digits may follow other digits
+            n, end = int(mangled[i:m.end()]), m.end()
+            name = mangled[end:end + n]
+            if len(name) == n and name.endswith("_kernel") and mangled[end + n:end + n + 1] == "I":
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end + n:])
+                if args:
+                    return f"{name}<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+    return mangled
+
+
+def parse_ptxas(log: str) -> list[dict]:
+    """ptxas's ``-v`` report → one dict per kernel: ``kernel`` (its template
+    arguments spelled out where it has any), ``registers`` a thread,
+    ``spill_stores`` and ``spill_loads`` in bytes."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            out.append(dict(kernel=_kernel_name(m.group(1))))
+        elif out and (m := _SPILLS.search(line)):
+            out[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif out and (m := _USED.search(line)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_usage(name: str) -> list[dict]:
+    """``parse_ptxas`` of the report kept when ``csrc/<name>.cu`` was built
+    (building it first if need be)."""
+    return parse_ptxas(build([name])[name].with_suffix(".log").read_text())

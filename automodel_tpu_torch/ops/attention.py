@@ -8,8 +8,10 @@
   chunked prefill and the gather decode backend run through ``sdpa_decode``.
 - ``flash``: the flash-attention kernels of ``ops/ring_flash.py``
   (``csrc/flash_attention.cu`` on a CUDA tensor, their plain version on a
-  CPU tensor), with sinks folded around them. It never goes to ``sdpa``:
-  what the kernels do not carry (the logits soft cap) raises.
+  CPU tensor), with the logits soft cap applied inside them (Gemma 2) and
+  sinks folded around them (gpt-oss), at head_dim 64, 128 and 256. It
+  never goes to ``sdpa``: what the kernels do not take (another head_dim,
+  another dtype on the card) raises.
 
 The JAX ``ring`` backend waits for the context-parallel port.
 """
@@ -109,19 +111,13 @@ def flash(
     sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Flash attention through ``ops/ring_flash.flash_attention``: the CUDA
-    kernels for CUDA tensors, their plain version for CPU tensors, sinks
-    folded around them. The logits soft cap is not carried by the kernels
-    and raises."""
+    kernels for CUDA tensors, their plain version for CPU tensors, the
+    logits soft cap applied inside them and sinks folded around them."""
     from automodel_tpu_torch.ops import ring_flash
 
-    if logits_soft_cap is not None:
-        raise ValueError(
-            "attention backend 'flash': the logits soft cap is not ported to the "
-            "torch backend's flash kernels; use attn: sdpa"
-        )
     return ring_flash.flash_attention(
         q, k, v, causal=causal, scale=scale, segment_ids=segment_ids,
-        sliding_window=sliding_window, sinks=sinks,
+        sliding_window=sliding_window, sinks=sinks, soft_cap=logits_soft_cap,
     )
 
 

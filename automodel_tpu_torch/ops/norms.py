@@ -1,5 +1,6 @@
-"""RMSNorm, port of ``automodel_tpu/ops/norms.py``: fp32 accumulation,
-cast back to the input dtype."""
+"""RMSNorm and Gemma's zero-centered RMSNorm, port of
+``automodel_tpu/ops/norms.py``: fp32 accumulation, cast back to the input
+dtype."""
 
 from __future__ import annotations
 
@@ -12,3 +13,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def rms_norm_gemma(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Gemma-style RMSNorm, zero-centered: x̂ · (1 + scale) in fp32, cast
+    back to x.dtype."""
+    return rms_norm(x, 1.0 + scale.float(), eps)

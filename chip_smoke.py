@@ -23,6 +23,14 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
      per kv head); the yardstick is
      ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
      forward, and forward+backward;
+   - the flash kernels with Gemma 2's logits soft cap (phase 3b): B=1,
+     S=8192, N=16, Nkv=8, H=256, scale 1/16, cap 50, causal and with the
+     4096 window (both timed; the yardstick is ``torch.compile`` of
+     ``flex_attention`` with a tanh ``score_mod``, and SDPA without the
+     cap beside it); the cap saturated (q x 64), where the plain dq with the
+     cap's factor 1 - t^2 dropped must miss by more than 4x the limit (a
+     planted fault); 4 packed documents; S=8000; H=256 without a cap; and
+     Gemma 2 27B's heads (N=32, Nkv=16, H=128, scale 144^-0.5) with the cap;
 4. the serving engine at full Llama-3-8B width (random bf16 weights from a
    seed), built by the ``serve`` CLI's own ``build_engine`` from a config
    dict: 16 greedy requests, 8 of them sharing a 512-token prefix, on a
@@ -82,9 +90,21 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    launched its count (tgmm none); then a profile of one step;
 14. one step at 1 layer of those widths and 2048 tokens with ``experts:
    ragged_fused`` against ``experts: ragged``: loss and grad norm must
-   agree.
+   agree;
+15. Gemma 2 training at gemma-2-9b widths cut to 8 layers
+   (``automodel_tpu_torch/configs/pretrain_gemma2_9b.yaml``) through the
+   ``pretrain`` recipe class: 4 steps of 2 microbatches of 8192 tokens
+   through the flash kernels with the cap of 50 inside them (head_dim 256,
+   a 4096 window on the even layers). Every loss and grad norm must be
+   finite, every weight matrix must move, and each flash kernel must have
+   launched 8 x 2 x 4 times; then a profile of one step;
+16. one step at 2 layers of those widths (a sliding and a full layer) and
+   8192 tokens with ``attn: flash`` against ``attn: sdpa``: loss and grad
+   norm must agree within phase 7's limits.
 
-Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10.
+Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
+phase 3b right after phase 3, phases 15 and 16 last. After the build the
+script prints ptxas's registers and spills for each flash kernel.
 The ``kernels`` JSON line comes third from last, the ``nvidia-smi`` card
 line second, and the last line is ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
@@ -274,6 +294,31 @@ SINKS_GRAD_TOL = 2.0**-7
 # H100: loss 1.79e-5, grad norm 4.96e-5 (PERF.md); the limits are ~10x it.
 FUSED_STEP_LOSS_REL_TOL = 2e-4
 FUSED_STEP_GRAD_NORM_REL_TOL = 5e-4
+
+GEMMA2_9B = dict(  # google/gemma-2-9b config.json widths
+    architectures=["Gemma2ForCausalLM"], model_type="gemma2",
+    vocab_size=256000, hidden_size=3584, intermediate_size=14336, num_hidden_layers=42,
+    num_attention_heads=16, num_key_value_heads=8, head_dim=256, query_pre_attn_scalar=256,
+    attn_logit_softcapping=50.0, final_logit_softcapping=30.0, sliding_window=4096, rope_theta=10000.0,
+    rms_norm_eps=1e-6, hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True,
+    max_position_embeddings=8192,
+)
+# automodel_tpu_torch/configs/pretrain_gemma2_9b.yaml as a dict
+# (tests/test_torch_gemma.py checks the two agree): depth cut to 8 layers.
+PRETRAIN_GEMMA2_9B = dict(
+    seed=42,
+    model=dict(
+        hf_config=dict(GEMMA2_9B, num_hidden_layers=8),
+        backend=dict(attn="flash", param_dtype="bfloat16", compute_dtype="bfloat16"),
+    ),
+    dataset=dict(_target_="automodel_tpu_torch.data.sft.MockSFTDataset", vocab_size=256000,
+                 seq_length=8192, num_samples=1024, mask_ratio=0.0),
+    dataloader=dict(global_batch_size=1),
+    step_scheduler=dict(grad_acc_steps=2, num_epochs=1, max_steps=4, log_every_steps=1),
+    optimizer=dict(name="adamw", lr=1e-4),
+    loss_fn=dict(name="fused_linear_ce"),
+    logging=dict(metrics_path="runs/torch_gemma2_9b/train_metrics.jsonl"),
+)
 
 
 def row_rel_err(out, ref) -> float:
@@ -692,7 +737,8 @@ def flash_bound(q, k, pairs: int) -> dict:
     """Least time of each kernel: its bf16 products over the live (q, k)
     pairs (fwd 2, dq 3, dkv 4 products of 2*H flops per pair and q head)
     over the peak, against its bytes (each input read once, each output
-    written once) over HBM bandwidth. → {kernel: (ms, bound_by)}."""
+    written once) over HBM bandwidth. A soft cap's tanh is not counted.
+    → {kernel: (ms, bound_by)}."""
     B, S, N, H = q.shape
     Sk, Nkv = k.shape[1], k.shape[2]
     qb, kb, lse_b = B * S * N * H * 2, B * Sk * Nkv * H * 2, B * N * S * 4
@@ -709,13 +755,13 @@ def flash_bound(q, k, pairs: int) -> dict:
     return out
 
 
-def flash_library_ms(torch, q, k, v, do, causal: bool) -> tuple[float, float]:
+def flash_library_ms(torch, q, k, v, do, causal: bool, scale=None) -> tuple[float, float]:
     """``scaled_dot_product_attention`` on the [B, N, S, H] views, forward
     and forward+backward (a yardstick only; the port never calls it)."""
     import torch.nn.functional as F
 
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    kw = dict(is_causal=causal, enable_gqa=True)
+    kw = dict(is_causal=causal, enable_gqa=True, scale=scale)
     fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=20)
     leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
 
@@ -725,9 +771,138 @@ def flash_library_ms(torch, q, k, v, do, causal: bool) -> tuple[float, float]:
     return fwd, cuda_ms(fwd_bwd, iters=10)
 
 
-def phase_flash_kernels(torch, dev) -> dict:
+def flex_library_ms(torch, q, k, v, do, cap: float, window, scale: float) -> tuple[float, float]:
+    """``torch.compile(flex_attention)`` with the soft cap as a tanh
+    ``score_mod`` and a causal (or causal window) block mask: the same
+    function as the capped kernels, forward and forward+backward (a
+    yardstick only; the port never calls it)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = q_idx >= kv_idx
+        return keep & (q_idx - kv_idx < window) if window is not None else keep
+
+    S = q.shape[1]
+    block_mask = create_block_mask(mask_mod, None, None, S, S, device=q.device)
+    flex = torch.compile(flex_attention)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(score_mod=score_mod, block_mask=block_mask, scale=scale, enable_gqa=True)
+    fwd = cuda_ms(lambda: flex(qt, kt, vt, **kw), iters=20)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+
+    def fwd_bwd():
+        flex(*leaves, **kw).backward(dot)
+
+    return fwd, cuda_ms(fwd_bwd, iters=10)
+
+
+FLASH_CASE_DEFAULTS = dict(main=False, window=None, causal=True, S=4096, H=128, N=32, Nkv=8, docs=0, sharp=1.0,
+                           cap=None, scale=None, fault=False)
+
+
+def flash_check(torch, dev, c: dict, seed: int) -> dict:
+    """One case: the forward, dq and dkv kernels against their plain
+    versions, both backward versions fed the plain forward's lse and delta.
+    With ``fault`` the plain dq with the soft cap's factor 1 - t^2 dropped
+    must move the worst row past 4x its limit. With ``main`` the kernels,
+    the plain versions and the library yardsticks are timed beside the
+    bound."""
     from automodel_tpu_torch.ops import ring_flash as rf
 
+    c = dict(FLASH_CASE_DEFAULTS, **c)
+    q, k, v, do, pos, seg = flash_case(torch, dev, S=c["S"], H=c["H"], N=c["N"], Nkv=c["Nkv"], sharp=c["sharp"],
+                                       docs=c["docs"], seed=seed)
+    scale = c["scale"] or c["H"] ** -0.5
+    kw = dict(causal=c["causal"], window=c["window"], scale=scale, soft_cap=c["cap"])
+    out, lse = rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw)
+    r_out, r_lse = rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)
+    # both backward versions read the plain forward's lse and delta
+    delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (q, k, v, do, r_lse, delta, pos, pos, seg, seg)
+    dq = rf.flash_block_dq(*bargs, **kw)
+    dk, dv = rf.flash_block_dkv(*bargs, **kw)
+    torch.cuda.synchronize()
+    r_dq = rf._flash_dq_plain(*bargs, **kw)
+    r_dk, r_dv = rf._flash_dkv_plain(*bargs, **kw)
+    got = (out, dq, dk, dv)
+    if not all(bool(torch.isfinite(t.float()).all()) for t in (*got, lse)):
+        raise RuntimeError(f"flash kernels produced non-finite values in case {c['name']}")
+    mask = rf._mask(pos, pos, seg, seg, c["causal"], c["window"])
+    pairs = int(mask.sum()) * (q.shape[0] if seg is None else 1)
+    row = dict(
+        case=c["name"], S=c["S"], H=c["H"], N=c["N"], Nkv=c["Nkv"], cap=c["cap"], live_pairs=pairs,
+        out_row_err=row_rel_err(out, r_out), lse_err=float((lse - r_lse).abs().max()),
+        dq_row_err=grad_row_err(dq, r_dq), dk_row_err=grad_row_err(dk, r_dk),
+        dv_row_err=grad_row_err(dv, r_dv),
+        max_abs_err=dict(
+            fwd=float((out.float() - r_out.float()).abs().max()),
+            dq=float((dq - r_dq).abs().max()),
+            dkv=max(float((dk - r_dk).abs().max()), float((dv - r_dv).abs().max())),
+        ),
+    )
+    row["ok"] = (row["out_row_err"] <= FLASH_OUT_TOL and row["lse_err"] <= FLASH_LSE_TOL
+                 and max(row["dq_row_err"], row["dk_row_err"], row["dv_row_err"]) <= FLASH_GRAD_TOL)
+    if c["fault"]:
+        # the planted fault: the plain dq without the cap's factor 1 - t^2
+        scores = rf._scores
+        rf._scores = lambda *a: (scores(*a)[0], None)
+        try:
+            wrong = rf._flash_dq_plain(*bargs, **kw)
+        finally:
+            rf._scores = scores
+        row["fault_dq_row_err"] = grad_row_err(wrong, r_dq)
+        row["ok"] = row["ok"] and row["fault_dq_row_err"] > 4 * FLASH_GRAD_TOL
+        del wrong
+    del r_out, r_lse, r_dq, r_dk, r_dv, mask
+    torch.cuda.empty_cache()
+    if c["main"]:
+        bound = flash_bound(q, k, pairs)
+        timed = dict(
+            fwd=(lambda: rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw),
+                 lambda: rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)),
+            dq=(lambda: rf.flash_block_dq(*bargs, **kw), lambda: rf._flash_dq_plain(*bargs, **kw)),
+            dkv=(lambda: rf.flash_block_dkv(*bargs, **kw), lambda: rf._flash_dkv_plain(*bargs, **kw)),
+        )
+        if c["cap"] is None:
+            lib_fwd, lib_fwd_bwd = flash_library_ms(torch, q, k, v, do, c["causal"])
+        else:
+            # no SDPA call computes the cap: flex_attention with a tanh
+            # score_mod does; SDPA without the cap (causal) stands beside it
+            lib_fwd, lib_fwd_bwd = flex_library_ms(torch, q, k, v, do, c["cap"], c["window"], scale)
+            row["sdpa_no_cap_fwd_ms"], row["sdpa_no_cap_fwd_bwd_ms"] = flash_library_ms(
+                torch, q, k, v, do, True, scale)
+        row["timed"] = {
+            name: dict(ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                       bound_ms=bound[name][0], bound_by=bound[name][1],
+                       library_ms=lib_fwd if name == "fwd" else None)
+            for name, (kern, plain) in timed.items()
+        }
+        row["library_fwd_ms"], row["library_fwd_bwd_ms"] = lib_fwd, lib_fwd_bwd
+        torch.cuda.empty_cache()
+    del q, k, v, do, out, lse, dq, dk, dv, bargs
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_flash_cases(torch, dev, cases: list, label: str, seed0: int = 0) -> dict:
+    results = []
+    for i, c in enumerate(cases):
+        row = flash_check(torch, dev, c, seed0 + i)
+        results.append(row)
+        print(f"kernel {label} vs plain: {json.dumps(row)}", flush=True)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise RuntimeError(
+            f"{label} kernels disagree with their plain versions (limits: out {FLASH_OUT_TOL}, lse "
+            f"{FLASH_LSE_TOL}, grads {FLASH_GRAD_TOL} per row; a planted fault past 4x): {bad}"
+        )
+    return {"cases": results}
+
+
+def phase_flash_kernels(torch, dev) -> dict:
     cases = [
         dict(name="causal", main=True),
         dict(name="window 1024", window=1024),
@@ -738,70 +913,30 @@ def phase_flash_kernels(torch, dev) -> dict:
         dict(name="sharp (q x 4)", sharp=4.0),
         dict(name="rep 8 (Qwen3: N=32, Nkv=4)", Nkv=4),
     ]
-    results = []
-    for i, c in enumerate(cases):
-        c = dict(dict(main=False, window=None, causal=True, S=4096, H=128, docs=0, sharp=1.0, Nkv=8), **c)
-        q, k, v, do, pos, seg = flash_case(torch, dev, S=c["S"], H=c["H"], Nkv=c["Nkv"], sharp=c["sharp"],
-                                           docs=c["docs"], seed=i)
-        kw = dict(causal=c["causal"], window=c["window"], scale=c["H"] ** -0.5)
-        out, lse = rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw)
-        r_out, r_lse = rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)
-        # both backward versions read the plain forward's lse and delta
-        delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
-        bargs = (q, k, v, do, r_lse, delta, pos, pos, seg, seg)
-        dq = rf.flash_block_dq(*bargs, **kw)
-        dk, dv = rf.flash_block_dkv(*bargs, **kw)
-        torch.cuda.synchronize()
-        r_dq = rf._flash_dq_plain(*bargs, **kw)
-        r_dk, r_dv = rf._flash_dkv_plain(*bargs, **kw)
-        got, want = (out, dq, dk, dv), (r_out, r_dq, r_dk, r_dv)
-        if not all(bool(torch.isfinite(t.float()).all()) for t in (*got, lse)):
-            raise RuntimeError(f"flash kernels produced non-finite values in case {c['name']}")
-        mask = rf._mask(pos, pos, seg, seg, c["causal"], c["window"])
-        pairs = int(mask.sum()) * (q.shape[0] if seg is None else 1)
-        row = dict(
-            case=c["name"], S=c["S"], H=c["H"], Nkv=c["Nkv"], live_pairs=pairs,
-            out_row_err=row_rel_err(out, r_out), lse_err=float((lse - r_lse).abs().max()),
-            dq_row_err=grad_row_err(dq, r_dq), dk_row_err=grad_row_err(dk, r_dk),
-            dv_row_err=grad_row_err(dv, r_dv),
-            max_abs_err=dict(
-                fwd=float((out.float() - r_out.float()).abs().max()),
-                dq=float((dq - r_dq).abs().max()),
-                dkv=max(float((dk - r_dk).abs().max()), float((dv - r_dv).abs().max())),
-            ),
-        )
-        row["ok"] = (row["out_row_err"] <= FLASH_OUT_TOL and row["lse_err"] <= FLASH_LSE_TOL
-                     and max(row["dq_row_err"], row["dk_row_err"], row["dv_row_err"]) <= FLASH_GRAD_TOL)
-        del r_out, r_lse, r_dq, r_dk, r_dv, mask
-        torch.cuda.empty_cache()
-        if c["main"]:
-            bound = flash_bound(q, k, pairs)
-            timed = dict(
-                fwd=(lambda: rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw),
-                     lambda: rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)),
-                dq=(lambda: rf.flash_block_dq(*bargs, **kw), lambda: rf._flash_dq_plain(*bargs, **kw)),
-                dkv=(lambda: rf.flash_block_dkv(*bargs, **kw), lambda: rf._flash_dkv_plain(*bargs, **kw)),
-            )
-            lib_fwd, lib_fwd_bwd = flash_library_ms(torch, q, k, v, do, c["causal"])
-            row["timed"] = {
-                name: dict(ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                           bound_ms=bound[name][0], bound_by=bound[name][1],
-                           library_ms=lib_fwd if name == "fwd" else None)
-                for name, (kern, plain) in timed.items()
-            }
-            row["library_fwd_ms"], row["library_fwd_bwd_ms"] = lib_fwd, lib_fwd_bwd
-            torch.cuda.empty_cache()
-        results.append(row)
-        print(f"kernel flash_attention vs plain: {json.dumps(row)}", flush=True)
-        del q, k, v, do, out, lse, dq, dk, dv, bargs
-        torch.cuda.empty_cache()
-    bad = [r for r in results if not r["ok"]]
-    if bad:
-        raise RuntimeError(
-            f"flash kernels disagree with their plain versions (limits: out {FLASH_OUT_TOL}, lse "
-            f"{FLASH_LSE_TOL}, grads {FLASH_GRAD_TOL} per row): {bad}"
-        )
-    return {"cases": results}
+    return run_flash_cases(torch, dev, cases, "flash_attention")
+
+
+def phase_flash_cap(torch, dev) -> dict:
+    """Gemma 2 9B's attention (B=1, S=8192, N=16, Nkv=8, H=256, the scale
+    query_pre_attn_scalar^-0.5 = 1/16, soft cap 50), causal and with the
+    4096 window, both timed; then the cap saturated (q x 64: scale * q.k
+    ~ N(0, 64^2), most tanh near +-1), with the planted fault; 4 packed
+    documents; S=8000; H=256 without a cap; and Gemma 2 27B's head shape
+    (N=32, Nkv=16, H=128, scale 144^-0.5) with the cap."""
+    hf = GEMMA2_9B
+    g = dict(S=8192, H=hf["head_dim"], N=hf["num_attention_heads"], Nkv=hf["num_key_value_heads"],
+             cap=hf["attn_logit_softcapping"], scale=hf["query_pre_attn_scalar"] ** -0.5)
+    cases = [
+        dict(g, name="gemma2-9b causal, cap 50", main=True),
+        dict(g, name="gemma2-9b window 4096, cap 50", window=hf["sliding_window"], main=True),
+        dict(g, name="saturated cap (q x 64), planted fault", sharp=64.0, fault=True),
+        dict(g, name="4 packed documents, cap 50", docs=4),
+        dict(g, name="S=8000, cap 50", S=8000),
+        dict(g, name="H=256 without a cap", cap=None),
+        dict(g, name="gemma2-27b heads (N=32, Nkv=16, H=128), cap 50", S=4096, H=128, N=32, Nkv=16,
+             scale=144**-0.5),
+    ]
+    return run_flash_cases(torch, dev, cases, "flash_attention with soft cap", seed0=40)
 
 
 # -- phase 6: training at Llama-3-8B widths through the flash kernels ---------
@@ -821,15 +956,23 @@ def train_config() -> dict:
     return cfg
 
 
-def attention_flops(cfg: dict, seq: int) -> float:
+def live_pairs(seq: int, window) -> int:
+    """Live (q, k) pairs of one causal sequence, under a window if given."""
+    if window is None or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
+def attention_flops(cfg: dict, seq: int, windows=None) -> float:
     """Attention products of one causal sequence over all layers, forward
-    (2 products) and backward (4), 2*H flops per live pair and q head."""
+    (2 products) and backward (4), 2*H flops per live pair and q head;
+    ``windows`` gives each layer's window (None: full causal)."""
     hf = cfg["model"]["hf_config"]
-    pairs = seq * (seq + 1) // 2
-    return 12 * hf["head_dim"] * hf["num_attention_heads"] * pairs * hf["num_hidden_layers"]
+    windows = windows or [None] * hf["num_hidden_layers"]
+    return 12 * hf["head_dim"] * hf["num_attention_heads"] * sum(live_pairs(seq, w) for w in windows)
 
 
-def profile_train_step(torch, recipe) -> dict:
+def profile_train_step(torch, recipe, acc: int = TRAIN_ACC) -> dict:
     """One more step under torch.profiler: device ms by kernel family and
     the device's idle share of the step."""
     from torch.autograd import DeviceType
@@ -838,7 +981,7 @@ def profile_train_step(torch, recipe) -> dict:
     from automodel_tpu_torch.data.collators import stack_microbatches
 
     dl = recipe.dataloader
-    batch = recipe._place(stack_microbatches([dl.batch_for(0, 100 + i) for i in range(TRAIN_ACC)]))
+    batch = recipe._place(stack_microbatches([dl.batch_for(0, 100 + i) for i in range(acc)]))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -870,21 +1013,33 @@ def profile_train_step(torch, recipe) -> dict:
 
 
 def phase_training(torch) -> dict:
+    cfg = train_config()
+    print("training: lr schedule overridden to a constant 1e-4 (the recipe's 100-step warmup "
+          "would leave bf16 weights unmoved over 4 steps)", flush=True)
+    return run_dense_training(torch, cfg, "training")
+
+
+def run_dense_training(torch, cfg: dict, label: str) -> dict:
+    """The config's steps through the ``finetune`` / ``pretrain`` recipe
+    class: each flash kernel launched layers x microbatches x steps times
+    (counts set to 0 just before the run, read just after), every loss and
+    grad norm finite, every weight matrix moved; then a profile of one step
+    and the optimizer's time alone."""
     from automodel_tpu_torch.config import ConfigNode
     from automodel_tpu_torch.ops import ring_flash as rf
     from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
 
-    cfg = train_config()
-    print("training: lr schedule overridden to a constant 1e-4 (the recipe's 100-step warmup "
-          "would leave bf16 weights unmoved over 4 steps)", flush=True)
+    acc = cfg["step_scheduler"]["grad_acc_steps"]
+    steps = cfg["step_scheduler"]["max_steps"]
     t0 = time.perf_counter()
     recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
     recipe.setup()
     torch.cuda.synchronize()
     params = recipe.state.params
     n_params = sum(p.numel() for p in params)
-    print(f"training model: {n_params} params bf16, 8 layers at Llama-3-8B widths, set up in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    layers = cfg["model"]["hf_config"]["num_hidden_layers"]
+    print(f"{label} model: {n_params} params bf16, {layers} layers of {cfg['model']['hf_config']['architectures'][0]}"
+          f" widths, set up in {time.perf_counter() - t0:.1f}s", flush=True)
     names = [n for n, _ in recipe.model.named_parameters()]
     before = [p.detach().flatten()[::997].clone() for p in params]
     # the main path's run: every count set to 0 just before, read just after
@@ -897,44 +1052,48 @@ def phase_training(torch) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels)))
-    layers = cfg["model"]["hf_config"]["num_hidden_layers"]
-    want = layers * TRAIN_ACC * TRAIN_STEPS
+    want = layers * acc * steps
     if any(n != want for n in launches.values()):
-        raise RuntimeError(f"flash launches {launches}, want {want} (= {layers} layers x {TRAIN_ACC} "
-                           f"microbatches x {TRAIN_STEPS} steps) each")
+        raise RuntimeError(f"{label}: flash launches {launches}, want {want} (= {layers} layers x {acc} "
+                           f"microbatches x {steps} steps) each")
     rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
-    if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)):
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
         raise RuntimeError(f"metric rows for steps {[r['step'] for r in rows]}")
     for r in rows:
         if r.get("loss") is None or r.get("grad_norm") is None or r["nonfinite"]:
             raise RuntimeError(f"non-finite step: {r}")
     moved = [n for n, p, b in zip(names, params, before) if not torch.equal(p.detach().flatten()[::997], b)]
-    # norm weights start at 1.0, where a bf16 ulp (2^-7) is far above what
-    # 4 steps at lr 1e-4 move them; every matrix must move
+    # llama's norm weights start at 1.0, where a bf16 ulp (2^-7) is far
+    # above what 4 steps at lr 1e-4 move them (Gemma's zero-centered ones
+    # start at 0 and move); every matrix must move
     still = [n for n in names if n not in moved and not n.endswith("norm.weight")]
     if still:
-        raise RuntimeError(f"weights unchanged after {TRAIN_STEPS} steps: {still}")
+        raise RuntimeError(f"weights unchanged after {steps} steps: {still}")
     seq = cfg["dataset"]["seq_length"]
-    tokens = seq * TRAIN_ACC * cfg["dataloader"]["global_batch_size"]
+    tokens = seq * acc * cfg["dataloader"]["global_batch_size"]
     step_s = statistics.median(r["step_time_s"] for r in rows[1:])
-    embed = recipe.model.model.embed_tokens.weight.numel()
-    flops = 6 * (n_params - embed) * tokens + TRAIN_ACC * attention_flops(cfg, seq)
+    mcfg = recipe.model.config
+    windows = [mcfg.layer_window(i) for i in range(layers)] if hasattr(mcfg, "layer_window") else None
+    # the tied lm_head is the embedding: its product counts
+    embed = 0 if mcfg.tie_embeddings else recipe.model.model.embed_tokens.weight.numel()
+    flops = 6 * (n_params - embed) * tokens + acc * attention_flops(cfg, seq, windows)
     out = dict(
-        params=n_params, layers=layers, tokens_per_step=tokens, steps=TRAIN_STEPS, microbatches=TRAIN_ACC,
+        params=n_params, layers=layers, tokens_per_step=tokens, steps=steps, microbatches=acc,
         losses=[r["loss"] for r in rows], grad_norms=[r["grad_norm"] for r in rows],
         first_step_s=rows[0].get("first_step_s"), step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
         model_flop_per_step=flops, model_flops_share_of_989=flops / step_s / BF16_FLOPS,
         wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         flash_launches=launches, matrices_moved=len(moved),
     )
-    out["profile"] = profile_train_step(torch, recipe)
+    out["profile"] = profile_train_step(torch, recipe, acc)
     # the fp32-moment AdamW alone over every parameter (zero grads), after
     # the checks above: how much of the step's elementwise time is the update
     zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
     out["optimizer_update_ms"] = cuda_ms(lambda: recipe.state.optimizer.update(zeros), iters=3, warmup=1)
     del zeros
-    print(f"training: {json.dumps(out)}", flush=True)
+    print(f"{label}: {json.dumps(out)}", flush=True)
     del recipe, params, before
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -942,11 +1101,11 @@ def phase_training(torch) -> dict:
 # -- phase 7: one step's loss and grad norm, flash against sdpa ---------------
 
 
-def phase_flash_vs_sdpa(torch) -> dict:
-    """The training step's loss and fp32 grad norm (one microbatch of 4096
-    tokens, no update) at the same widths, from the same weights and batch,
-    with the attention backend switched between the kernels and the plain
-    ``sdpa``."""
+def phase_flash_vs_sdpa(torch, cfg=None, label: str = "flash vs sdpa") -> dict:
+    """The training step's loss and fp32 grad norm (one microbatch of the
+    config's tokens, no update; by default the Llama training config) from
+    the same weights and batch, with the attention backend switched between
+    the kernels and the plain ``sdpa``."""
     import dataclasses
 
     from automodel_tpu_torch.data.collators import default_collater
@@ -955,7 +1114,7 @@ def phase_flash_vs_sdpa(torch) -> dict:
     from automodel_tpu_torch.optim.builders import global_norm_fp32
     from automodel_tpu_torch.training.train_step import make_causal_lm_loss
 
-    cfg = train_config()
+    cfg = cfg or train_config()
     dev = torch.device(cfg["device"])
     auto = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True)
     model = auto.model
@@ -975,11 +1134,11 @@ def phase_flash_vs_sdpa(torch) -> dict:
     f, s = out["flash"], out["sdpa"]
     out["loss_rel"] = abs(f["loss"] - s["loss"]) / abs(s["loss"])
     out["grad_norm_rel"] = abs(f["grad_norm"] - s["grad_norm"]) / abs(s["grad_norm"])
-    print(f"one step, flash vs sdpa: {json.dumps(out)}", flush=True)
+    print(f"one step, {label}: {json.dumps(out)}", flush=True)
     if not all(map(lambda x: x == x and abs(x) != float("inf"), (f["loss"], s["loss"], f["grad_norm"], s["grad_norm"]))):
         raise RuntimeError(f"non-finite loss or grad norm: {out}")
     if out["loss_rel"] > STEP_LOSS_REL_TOL or out["grad_norm_rel"] > STEP_GRAD_NORM_REL_TOL:
-        raise RuntimeError(f"flash and sdpa steps disagree: {out} (limits: loss {STEP_LOSS_REL_TOL}, "
+        raise RuntimeError(f"{label}: the steps disagree: {out} (limits: loss {STEP_LOSS_REL_TOL}, "
                            f"grad norm {STEP_GRAD_NORM_REL_TOL}, relative)")
     del auto, model, params
     torch.cuda.empty_cache()
@@ -1375,6 +1534,35 @@ def phase_gpt_oss_training(torch) -> dict:
     return run_moe_training(torch, cfg, "gpt-oss training", fused_kernel_counters(), want, GPT_OSS_FAMILIES)
 
 
+# -- phases 15 and 16: Gemma 2 training at gemma-2-9b widths ----------------------
+
+
+def gemma_train_config() -> dict:
+    """PRETRAIN_GEMMA2_9B on the card with a JSONL path of its own (its 4
+    steps, its constant lr of 1e-4 and its per-step logging are the
+    config's)."""
+    cfg = json.loads(json.dumps(PRETRAIN_GEMMA2_9B))
+    cfg["device"] = "cuda"
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"gemma2_metrics_{time.time_ns()}.jsonl")
+    return cfg
+
+
+def phase_gemma_training(torch) -> dict:
+    """4 steps of 2 x 8192 tokens at gemma-2-9b widths cut to 8 layers
+    (sliding and full alternating) through the flash kernels with the cap
+    of 50 inside them: each flash kernel 8 x 2 x 4 launches."""
+    return run_dense_training(torch, gemma_train_config(), "gemma2 training")
+
+
+def phase_gemma_flash_vs_sdpa(torch) -> dict:
+    """One step at 2 layers of gemma-2-9b widths (a sliding and a full
+    layer) and 8192 tokens, the flash kernels against plain ``sdpa``."""
+    cfg = gemma_train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = 2
+    return phase_flash_vs_sdpa(torch, cfg, "gemma2 flash vs sdpa")
+
+
 # -- phases 10 and 14: one step, two experts backends ---------------------------
 
 
@@ -1741,8 +1929,31 @@ def phase_fused_kernels(torch, dev) -> dict:
     return {"cases": results}
 
 
+def gemma_flash_entry(name: str, flash_cap: dict, gemma: dict, errs: tuple) -> dict:
+    """One flash kernel on the Gemma 2 path: its launches in the Gemma run,
+    its times at the causal and the 4096-window layer (cap 50, H=256), and
+    its worst row error over the soft-cap cases."""
+    timed = {("window" if c["case"].startswith("gemma2-9b window") else "causal"): c
+             for c in flash_cap["cases"] if "timed" in c}
+    out = dict(
+        launches=gemma["flash_launches"][name],
+        shape="B=1 S=8192 N=16 Nkv=8 H=256 scale 1/16 soft cap 50",
+        max_row_rel_err=max(c[k] for c in flash_cap["cases"] for k in errs),
+        max_abs_err=max(c["max_abs_err"][name] for c in flash_cap["cases"]),
+        library="torch.compile(flex_attention) with a tanh score_mod and the block mask (fwd only in "
+                "library_ms; fwd+bwd beside it); SDPA without the cap beside it",
+    )
+    for layer, c in timed.items():
+        t = c["timed"][name]
+        out[layer] = dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                          library_ms=t["library_ms"], library_fwd_bwd_ms=c["library_fwd_bwd_ms"],
+                          sdpa_no_cap_fwd_ms=c["sdpa_no_cap_fwd_ms"],
+                          sdpa_no_cap_fwd_bwd_ms=c["sdpa_no_cap_fwd_bwd_ms"], live_pairs=c["live_pairs"])
+    return out
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
-                 gpt_oss) -> dict:
+                 gpt_oss, flash_cap, gemma) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case."""
     timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
@@ -1793,6 +2004,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "library_fwd_bwd_ms": main_flash["library_fwd_bwd_ms"],
             "shape": "B=1 S=4096 N=32 Nkv=8 H=128 causal",
             "with_sinks_max_row_rel_err": max(c[k] for c in sinks["cases"] for k in row_errs[name]),
+            "gemma2": gemma_flash_entry(name, flash_cap, gemma, row_errs[name]),
         })
     # grouped matmul: times at the gate_up-shaped launch of the gate-routed
     # case, the down-shaped launch beside them
@@ -1869,10 +2081,12 @@ def main() -> int:
         t0 = time.perf_counter()
         _cuda_build.build(["paged_attention", "flash_attention", "grouped_matmul", "fused_expert_mlp"])
         print(f"kernel build: {time.perf_counter() - t0:.1f}s (nvcc, sm_90a)", flush=True)
+        print(f"ptxas flash_attention: {json.dumps(_cuda_build.ptxas_usage('flash_attention'))}", flush=True)
 
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)
         flash = phase_flash_kernels(torch, dev)
+        flash_cap = phase_flash_cap(torch, dev)
         grouped = phase_grouped_kernels(torch, dev)
         sinks = phase_flash_sinks(torch, dev)
         fused = phase_fused_kernels(torch, dev)
@@ -1906,9 +2120,11 @@ def main() -> int:
         phase_ragged_vs_dense(torch)
         gpt_oss = phase_gpt_oss_training(torch)
         phase_fused_vs_ragged(torch)
+        gemma = phase_gemma_training(torch)
+        phase_gemma_flash_vs_sdpa(torch)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
-                            fused, gpt_oss)
+                            fused, gpt_oss, flash_cap, gemma)
         print(json.dumps(line), flush=True)
         print(card_line(), flush=True)
     except Exception:

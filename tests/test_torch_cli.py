@@ -188,3 +188,22 @@ def test_chip_smoke_trains_the_committed_moe_config():
     spec.loader.exec_module(chip_smoke)
     cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "pretrain_qwen3_moe_a3b.yaml"))
     assert chip_smoke.PRETRAIN_QWEN3_MOE_A3B == cfg.to_dict()
+
+
+GEMMA_CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "gemma2_tiny_cpu.yaml")
+
+
+def test_pretrain_gemma2_tiny_on_cpu_writes_falling_loss(tmp_path):
+    """The Gemma 2 path (attention soft cap inside the flash kernels' plain
+    versions, final cap in fused_linear_ce): 8 rows, a falling loss; without
+    --device=cpu on a host with no card it raises naming torch.cuda."""
+    metrics = tmp_path / "train_metrics.jsonl"
+    rc = app.main(["pretrain", "llm", "-c", GEMMA_CFG, "--device=cpu", f"--logging.metrics_path={metrics}"])
+    assert rc == 0
+    rows = [json.loads(s) for s in metrics.read_text().splitlines()]
+    assert [r["step"] for r in rows] == list(range(1, 9))
+    assert all(r["nonfinite"] is False and r["num_label_tokens"] == 2 * 4 * 48 for r in rows)
+    assert rows[-1]["loss"] < rows[0]["loss"] - 0.5
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda"):
+            app.main(["pretrain", "llm", "-c", GEMMA_CFG, f"--logging.metrics_path={metrics}"])

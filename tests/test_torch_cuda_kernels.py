@@ -134,10 +134,10 @@ def flash_case(dev, S=1000, H=128, B=2, N=8, Nkv=2, sharp=1.0, segments=False, s
     return q, k, v, do, pos, seg
 
 
-def flash_all(q, k, v, do, pos, seg, *, causal, window, plain: bool):
+def flash_all(q, k, v, do, pos, seg, *, causal, window, plain: bool, soft_cap=None):
     """(out, lse, dq, dk, dv) from the wrappers or the plain versions; the
     backward of both reads the plain forward's out and lse."""
-    kw = dict(causal=causal, window=window, scale=q.shape[-1] ** -0.5)
+    kw = dict(causal=causal, window=window, scale=q.shape[-1] ** -0.5, soft_cap=soft_cap)
     fwd = trf._flash_fwd_plain if plain else trf.flash_block_fwd
     dq_fn = trf._flash_dq_plain if plain else trf.flash_block_dq
     dkv_fn = trf._flash_dkv_plain if plain else trf.flash_block_dkv
@@ -181,6 +181,22 @@ def test_flash_row_check_catches_an_off_by_one_mask(fault, sharp):
     assert min(err["dq"], err["dk"], err["dv"]) > 4 * FLASH_GRAD_TOL
 
 
+def test_flash_row_check_catches_a_dropped_cap_factor(monkeypatch):
+    """On the CPU, at Gemma 2's head_dim 256 and cap 50 with q x 64 (the
+    scores far past the cap, most tanh saturated): the plain backward with
+    the cap's factor 1 - t^2 dropped moves the worst dq row past 4x its
+    limit, and the plain forward without the cap moves the worst out row
+    past 4x its limit."""
+    q, k, v, do, pos, _ = flash_case(torch.device("cpu"), S=1024, H=256, B=1, N=4, Nkv=1, sharp=64.0)
+    right = flash_all(q, k, v, do, pos, None, causal=True, window=None, plain=True, soft_cap=50.0)
+    uncapped, _ = trf._flash_fwd_plain(q, k, v, pos, pos, None, None, causal=True, window=None, scale=1 / 16)
+    assert row_rel_err(uncapped, right[0]) > 4 * FLASH_OUT_TOL
+    scores = trf._scores
+    monkeypatch.setattr(trf, "_scores", lambda *a: (scores(*a)[0], None))  # no 1 - t^2
+    wrong = flash_all(q, k, v, do, pos, None, causal=True, window=None, plain=True, soft_cap=50.0)
+    assert grad_row_err(wrong[2], right[2]) > 4 * FLASH_GRAD_TOL
+
+
 def _need_cuda(source: str) -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
@@ -214,6 +230,37 @@ def test_flash_kernels_match_plain(S, H, causal, window, segments, sharp):
     torch.cuda.synchronize()
     assert [f.launches for f in (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)] == [c + 1 for c in counts]
     want = flash_all(*case, causal=causal, window=window, plain=True)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    err = flash_errors(got, want)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S,H,causal,window,segments,sharp,cap",
+    [
+        (1024, 256, True, None, False, 1.0, None),
+        (1000, 256, False, 128, True, 1.0, None),
+        (1024, 256, True, None, False, 1.0, 50.0),
+        (1000, 256, True, 200, False, 1.0, 50.0),
+        (1000, 256, True, None, True, 1.0, 50.0),
+        (777, 256, True, None, False, 64.0, 50.0),
+        (1000, 128, True, None, False, 4.0, 50.0),
+        (777, 64, True, 100, True, 1.0, 50.0),
+    ],
+)
+def test_flash_kernels_soft_cap_and_head_dim_256_match_plain(S, H, causal, window, segments, sharp, cap):
+    """Head_dim 256 (its own dkv tiling: two warps per kv strip) with and
+    without the logits soft cap, and the cap at head_dim 128 and 64: each
+    kernel against its plain version, launched once."""
+    _need_cuda("flash_attention")
+    case = flash_case(torch.device("cuda"), S=S, H=H, sharp=sharp, segments=segments)
+    kernels = (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)
+    counts = [f.launches for f in kernels]
+    got = flash_all(*case, causal=causal, window=window, plain=False, soft_cap=cap)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [c + 1 for c in counts]
+    want = flash_all(*case, causal=causal, window=window, plain=True, soft_cap=cap)
     assert all(bool(torch.isfinite(t.float()).all()) for t in got)
     err = flash_errors(got, want)
     assert flash_ok(err), err
@@ -284,6 +331,33 @@ def test_flash_refuses_what_the_kernels_do_not_take():
                             pos, pos, None, None, **kw)
     with pytest.raises(ValueError, match="float16|bfloat16"):
         trf.flash_block_fwd(q.float(), k.float(), v.float(), pos, pos, None, None, **kw)
+    with pytest.raises(ValueError, match="soft cap"):
+        trf.flash_block_fwd(q, k, v, pos, pos, None, None, soft_cap=-1.0, **kw)
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    """The build keeps ptxas's -v report beside each library;
+    ``parse_ptxas`` reads registers and spills per kernel, with the
+    template arguments spelled out (PERF.md records them per head_dim)."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_dkv_kernelILi256ELb1EEEvNS_4ArgsE' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_dkv_kernelILi256ELb1EEEvNS_4ArgsE\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 1024 bytes smem, 544 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN40_INTERNAL_e3b5d1a2_18_flash_attention_cu_c138979115flash_dq_kernelILi64ELb0EEEvNS_4ArgsE' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 158 registers, used 1 barriers, 1024 bytes smem, 544 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function 'paged_attention_fwd' for 'sm_90a'\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n"
+    )
+    assert _cuda_build.parse_ptxas(log) == [
+        dict(kernel="flash_dkv_kernel<256, 1>", spill_stores=4, spill_loads=12, registers=255),
+        dict(kernel="flash_dq_kernel<64, 0>", spill_stores=0, spill_loads=0, registers=158),
+        dict(kernel="paged_attention_fwd", registers=96),
+    ]
 
 
 # -- grouped matmul (csrc/grouped_matmul.cu) ------------------------------------

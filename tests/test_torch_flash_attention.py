@@ -2,10 +2,13 @@
 package's blockwise flash kernels run in interpret mode: output, the
 forward's logsumexp, and dq/dk/dv through autograd, over causal, sliding
 window, packed segment ids, non-causal, GQA, head_dim 64 and 128, and an
-unpadded length; and with gpt-oss sinks folded around the kernels (out,
-dq, dk, dv and d_sinks), with ``sdpa``'s sink column against JAX's.
-Tolerances are the ones tests/test_block_flash.py holds the JAX kernels to:
-out and lse atol 2e-4, grads atol 5e-3."""
+unpadded length; with gpt-oss sinks folded around the kernels (out, dq,
+dk, dv and d_sinks), with ``sdpa``'s sink column against JAX's; and with
+Gemma 2's logits soft cap of 50 at head_dim 256 and 64 against the JAX
+package's ``flash`` on the library splash kernel, run in interpret mode
+(``AUTOMODEL_FLASH_INTERPRET=1``, as tests/test_flash_attention.py runs
+it). Tolerances are the ones tests/test_block_flash.py holds the JAX
+kernels to: out and lse atol 2e-4, grads atol 5e-3."""
 
 import jax
 import jax.numpy as jnp
@@ -159,12 +162,91 @@ def test_sdpa_sinks_match_jax_and_the_flash_fold(window):
 
 
 def test_flash_refuses_sinks_soft_cap_and_unknown_backends():
-    """Sinks must be one logit per q head; the soft cap and ring are not
-    carried by the flash backend."""
-    q = torch.zeros(1, 4, 2, 64)
+    """Sinks must be one logit per q head and a soft cap must be positive;
+    a soft cap of 30 is carried (the plain flash equals ``sdpa`` with the
+    cap); the kernels' checks refuse head_dim 96 by name; ring is not a
+    flash backend."""
+    q, k, v, _, _ = _inputs(S=32, H=64, seed=9)
+    args = (torch.tensor(q) * 8, torch.tensor(k), torch.tensor(v))  # x8: the cap of 30 bites
     with pytest.raises(ValueError, match="sinks"):
-        tattn.attention(q, q, q, backend="flash", sinks=torch.zeros(3))
+        tattn.attention(*args, backend="flash", sinks=torch.zeros(3))
     with pytest.raises(ValueError, match="soft cap"):
-        tattn.attention(q, q, q, backend="flash", logits_soft_cap=30.0)
+        tattn.attention(*args, backend="flash", logits_soft_cap=0.0)
+    capped = tattn.attention(*args, backend="flash", logits_soft_cap=30.0)
+    np.testing.assert_allclose(capped.numpy(), tattn.sdpa(*args, logits_soft_cap=30.0).numpy(), atol=2e-5)
+    assert float((capped - tattn.attention(*args, backend="flash")).abs().max()) > 1e-2
+    h96 = torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16)
+    pos = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        trf._check_cuda("flash_block_fwd", h96, h96, h96, pos, pos, None, None, None, 50.0)
     with pytest.raises(ValueError, match="ring"):
-        tattn.attention(q, q, q, backend="ring")
+        tattn.attention(*args, backend="ring")
+
+
+# -- the logits soft cap (Gemma 2), against the JAX package's splash kernel ------
+
+CAP_CASES = {
+    "h256_causal": dict(S=128, H=256),
+    "h256_window": dict(S=128, H=256, window=32),
+    "h256_segments": dict(S=128, H=256, segments=True),
+    "h256_unaligned": dict(S=200, H=256),
+    "h64_causal": dict(S=128, H=64),
+    "h64_window": dict(S=128, H=64, window=32),
+    "h64_segments": dict(S=128, H=64, segments=True),
+    "h64_unaligned": dict(S=200, H=64, window=48),
+    # q x 64: scale * q.k ~ N(0, 64^2), far past the cap of 50, so the tanh
+    # saturates and 1 - t^2 is small (0 in fp32 for most pairs)
+    "h256_sharp": dict(S=128, H=256, sharp=64.0),
+}
+SOFT_CAP = 50.0
+
+
+def _splash_capped(q, k, v, do, seg, window, monkeypatch):
+    """JAX ``ops.attention.flash`` with the cap (the splash kernel in
+    interpret mode; a fall back to sdpa fails the test): out, and dq/dk/dv
+    through ``jax.vjp``."""
+    from automodel_tpu.ops import attention as jattn
+
+    monkeypatch.setenv("AUTOMODEL_FLASH_INTERPRET", "1")
+
+    def no_fallback(*a, **kw):
+        raise AssertionError("JAX flash fell back to sdpa: the splash kernel was not taken")
+
+    monkeypatch.setattr(jattn, "sdpa", no_fallback)
+    fn = lambda q_, k_, v_: jattn.flash(
+        q_, k_, v_, causal=True, segment_ids=None if seg is None else jnp.asarray(seg),
+        logits_soft_cap=SOFT_CAP, sliding_window=window,
+    )
+    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("case", sorted(CAP_CASES))
+def test_soft_capped_flash_matches_jax_splash(case, monkeypatch):
+    """Gemma 2's attention (cap 50): the port's flash (plain versions on the
+    CPU) against splash's ``attn_logits_soft_cap``, out atol 2e-4 and
+    dq/dk/dv atol 5e-3, causal, windowed, with packed segments and at an S
+    that is no multiple of the kernels' tiles (splash pads it to 256)."""
+    c = dict(CAP_CASES[case])
+    window, sharp = c.pop("window", None), c.pop("sharp", 1.0)
+    q, k, v, do, seg = _inputs(B=1, **c)
+    q = q * sharp
+    j_out, j_grads = _splash_capped(q, k, v, do, seg, window, monkeypatch)
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    tseg = None if seg is None else torch.tensor(seg)
+    out = trf.flash_attention(*leaves, causal=True, sliding_window=window, segment_ids=tseg, soft_cap=SOFT_CAP)
+    (out * torch.tensor(do)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), j_out, atol=2e-4)
+    for name, t, j in zip(("dq", "dk", "dv"), leaves, j_grads):
+        np.testing.assert_allclose(t.grad.numpy(), j, atol=5e-3, err_msg=name)
+    if sharp > 1:
+        # the cap decides here: without it, or without its factor 1 - t^2 in
+        # the backward, the port would be far off splash
+        tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+        uncapped = trf.flash_attention(tq, tk, tv, causal=True)
+        assert float(np.abs(uncapped.numpy() - j_out).max()) > 100 * 2e-4
+        scores = trf._scores
+        monkeypatch.setattr(trf, "_scores", lambda *a: (scores(*a)[0], None))  # drop 1 - t^2
+        faulty = trf.flash_attention(tq.requires_grad_(True), tk, tv, causal=True, soft_cap=SOFT_CAP)
+        (faulty * tdo).sum().backward()
+        assert float(np.abs(tq.grad.numpy() - j_grads[0]).max()) > 100 * 5e-3

@@ -34,6 +34,17 @@ def test_rms_norm():
     np.testing.assert_allclose(to_np(out), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_gemma(dtype):
+    """Gemma's zero-centered norm, x̂ · (1 + w) in fp32, cast back: fp32 to
+    1e-5, and bf16 to one rounding of the same fp32 value."""
+    x, s = _rand(2, 5, 64, scale=3.0), _rand(64)
+    ref = jnorms.rms_norm_gemma(jnp.asarray(x).astype(dtype), jnp.asarray(s), 1e-6)
+    out = tnorms.rms_norm_gemma(torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(s), 1e-6)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(to_np(out), np.asarray(ref, np.float32), atol=1e-5 if dtype == "float32" else 2**-7 * 8)
+
+
 # gpt-oss's published rope (yarn, factor 32 over 4096 positions, theta 150000)
 HF_YARN = dict(rope_theta=150000.0, rope_scaling=dict(rope_type="yarn", factor=32.0, beta_fast=32.0, beta_slow=1.0,
                                                       original_max_position_embeddings=4096, truncate=False))
