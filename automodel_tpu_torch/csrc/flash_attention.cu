@@ -1,5 +1,5 @@
-// Flash attention for training: the forward and the two backward kernels
-// (dq, and dk/dv), with positional masking and the logits soft cap.
+// Flash attention for training on Hopper: the forward and the two backward
+// kernels (dq, and dk/dv), with positional masking and the logits soft cap.
 //
 // Replaces the Pallas TPU kernels of automodel_tpu/ops/ring_flash.py:
 // _fwd_kernel (:62, through flash_block_fwd :219), _dq_kernel (:102) and
@@ -16,60 +16,97 @@
 // q_pos[i] - kv_pos[j] < window (if a window is given). Positions are
 // global and non-decreasing. s = scale * q.k in fp32; under a soft cap c
 // (cap > 0) s = c * tanh(scale * q.k / c), applied BEFORE the mask (a
-// masked score is NEG_INF, never c * tanh(NEG_INF / c) = -c, which would
-// let masked keys in with weight e^-(c + max)); softmax in fp32 over the
-// capped scores, so the lse is of them; a row that sees nothing writes out
-// 0 and lse NEG_INF. Backward: P = exp(s - lse) recomputed from the saved
-// lse, dP = dO.V^T, dS = P * (dP - delta) with delta = rowsum(dO * out),
-// times 1 - t^2 under the cap, where t = tanh(scale * q.k / c) is
-// recomputed from the fp32 scores (not from s / c); dq = scale * dS.K,
-// dk = scale * dS^T.Q, dv = P^T.dO; dk and dv are summed over the q heads
-// of each kv head inside the kernel.
-//
-// The cap's tanh is full-precision tanhf (at most 2 ulp), not
-// tanh.approx.f32: the approximation's relative error of ~2^-11 is up to
-// 0.024 in s at c = 50, ~2.4% in P, three times the 2^-7 held on output
-// rows. The cap is a template flag chosen at launch (cap <= 0: none), so
-// the kernels without it are the same code as before it existed.
+// masked score is -inf, never c * tanh(-inf) = -c, which would let masked
+// keys in with weight e^-(c + max)); softmax in fp32 over the capped
+// scores, so the lse is of them; a row that sees nothing writes out 0 and
+// lse NEG_INF. Backward: P = exp(s - lse) recomputed from the saved lse,
+// dP = dO.V^T, dS = P * (dP - delta) with delta = rowsum(dO * out), times
+// 1 - t^2 under the cap, where t = tanh(scale * q.k / c) is recomputed from
+// the fp32 scores (not from s / c); dq = scale * dS.K, dk = scale *
+// dS^T.Q, dv = P^T.dO; dk and dv are summed over the q heads of each kv
+// head inside the kernel. The cap's tanh is full-precision tanhf (at most
+// 2 ulp), not tanh.approx.f32, whose ~2^-11 is up to 2.4% in P at c = 50;
+// the cap is a template flag chosen at launch (cap <= 0: none).
 //
 // What bounds it on an H100: tensor-core operations. Per live (q, k) pair
-// and head the forward does 4*H flops (two products), dq 6*H (three) and
-// dkv 8*H (four), at 2*H/2 bytes of q/k/v per row reused across a whole
-// tile, far above the ~295 flops per byte where bandwidth would be the
-// limit. The least time is the live pairs' flops over 989 TFLOP/s bf16
-// (the cap's tanh, one per live pair and head in each kernel, not counted).
+// and q head the forward does 4*H flops (two products), dq 6*H (three)
+// and dkv 8*H (four), at 2*H bytes of q/k/v a row reused across a whole
+// tile, far above the ~295 flops per byte where bandwidth would bound it.
+// The least time is the live pairs' flops over 989 TFLOP/s bf16 (the
+// cap's tanh, one per live pair and head in each kernel, not counted).
+// The tiles cover a few more pairs than are live (the causal diagonal's
+// tiles: 3% at S = 4096); PERF.md has each kernel's time against the bound.
 //
-// Design (simple first: mma.sync, cp.async, no wgmma/TMA/warp
-// specialisation yet):
-// - fwd: one CTA of 4 warps per (batch, q head, 64 q rows); each warp owns
-//   16 rows. A loop over kv tiles of 64 rows replaces the TPU's sequential
-//   grid axis; it runs from the first tile the window can see to the last
-//   tile at or before the causal diagonal (found by binary search over the
-//   positions), so dead tiles are never read. K/V tiles are staged in
-//   shared memory with cp.async, two stages. S = Q.K^T and O += P.V are
-//   mma.sync m16n8k16 bf16 with fp32 accumulation; the online softmax runs
-//   in fp32 registers; P is rounded to bf16 for the P.V product (the TPU
-//   kernel keeps it fp32). The ragged edge is masked in the kernel: rows
-//   past S load as zeros and are never stored, so no padding copy.
-// - dq: one CTA per (batch, q head, 64 q rows), loop over live kv tiles of
-//   32 rows; dq accumulates in fp32 registers and is written in fp32.
-// - dkv: one CTA per (batch, kv head, 64 kv rows), loop over the rep q
-//   heads of the group and their live q tiles of 32 rows; dk and dv
-//   accumulate in fp32 registers, so the GQA sum needs no [B*N, Sk, H]
-//   intermediate and no atomics: the result is deterministic.
-// - H = 256: a warp's fp32 [16, 256] accumulator is 128 registers a
-//   thread, so the fwd's O and dq's dQ each fit (with Q and dO fragments
-//   read from shared memory at each k step instead of kept in registers,
-//   as at H <= 128), but dkv's dK and dV together (256) cannot. dkv at
-//   H = 256 runs 8 warps: two warps per 16-row kv strip, each owning half
-//   of the head dim of dK and dV, each recomputing the strip's S^T and dP^T
-//   (the two products over the whole head dim; 1.5x dkv's tensor work
-//   there, no shared-memory exchange and no extra barrier).
-// - shared memory per CTA, rows padded to H + 8: fwd 64 + 4 x 64 rows
-//   (168,960 B at H = 256), dq and dkv 2 x 64 + 4 x 32 rows (135,168 B),
-//   under the 227 KB a block may take; the 16-byte pad puts ldmatrix's
-//   eight row addresses in different banks.
+// Design (Hopper: wgmma, TMA, mbarriers, warp specialisation):
+// - Every product is wgmma.mma_async m64nNk16 bf16 -> fp32. The first
+//   products (S = Q.K^T, dP = dO.V^T, and their transposes in dkv) read
+//   both operands from shared memory, K-major. The second products
+//   (O += P.V, dQ += dS.K, dV += P^T.dO, dK += dS^T.Q) take P or dS from
+//   registers as the A operand (the fp32 accumulator of the first product,
+//   rounded to bf16, is the A fragment's layout) and read B from shared
+//   memory MN-major through the transpose bit, so no transposed copy is
+//   ever made. In the accumulator a thread holds rows warp%4*16 + lane/4 +
+//   8i and columns 8j + 2(lane%4) + {0,1}; the mask, the cap and the
+//   softmax run in that layout.
+// - Tiles arrive by TMA (cp.async.bulk.tensor) into 128-byte-swizzled
+//   shared memory, the layout the wgmma descriptors name (K-major: stride
+//   1024 bytes between 8-row groups; MN-major: the same, and the box's
+//   bytes between 64-column chunks). The host builds 4-D tensor maps (H,
+//   heads, S, B) once per call (cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint, so the library links no -lcuda); a box is 64
+//   columns (128 bytes) by the tile's rows of one head of one batch
+//   element, so H = 128 loads as two boxes and H = 256 as four, a box never
+//   crosses into the next batch element, and rows past S arrive as zeros
+//   (no padding copy). An mbarrier's transaction count is the whole box,
+//   zero-filled rows included.
+// - Each CTA is 384 threads: warpgroup 0 is the producer (setmaxnreg 24;
+//   one warp: lane 0 issues the loads, then the 32 lanes copy the tile's
+//   positions, segment ids, lse and delta into shared memory and arrive on
+//   the stage's full barrier), warpgroups 1 and 2 consume (setmaxnreg 240;
+//   128 x 24 + 256 x 240 = 64,512 of the 65,536 registers). Rings of
+//   stages, each with a full and an empty mbarrier, keep the next tiles in
+//   flight while the consumers work; every consumer thread arrives on the
+//   empty barrier once its last read of the stage is done. (ptxas gives the
+//   consumers their 240 registers only while no __trap() or call sits in
+//   the kernel: a watchdog in the barrier wait made every H = 256 kernel
+//   spill.)
+// - The mask: a tile every pair of which is visible (found from the tile's
+//   first and last positions, no segment ids) takes a path with no mask at
+//   all; any other tile computes each pair's mask without branches (a
+//   branch per element costs more than the tile's products).
+// - fwd: one CTA per (batch, q head, 128 q rows), each consumer owning 64
+//   rows; Q is loaded once; K and V tiles of 128 rows (H <= 128) or 64
+//   (H = 256) from the first tile the window can see to the last tile at or
+//   before the causal diagonal (binary search over the positions), so dead
+//   tiles are never read; two stages of K and V. Online softmax in fp32,
+//   in log2 units (one FFMA and one ex2 a score); P is rounded to bf16 for
+//   P.V (the TPU kernel keeps it fp32). Shared memory at H = 256: Q 64 KB +
+//   K and V 128 KB.
+// - dq: one CTA per (batch, q head, 128 q rows), Q and dO loaded once, K
+//   and V tiles of 64 rows in four stages (32 rows in three at H = 256,
+//   where Q and dO take 128 KB); dS is rounded to bf16 for dS.K, which is
+//   left running into the next tile's S and dP; dQ accumulates in fp32
+//   registers.
+// - dkv: one CTA per (batch, kv head, 128 kv rows; 64 at H = 256), K and V
+//   loaded once, looping over the rep q heads of the group and their live
+//   q tiles of 64 rows in four stages (two at H = 256). At H <= 128 each
+//   consumer owns 64 kv rows and the whole head dim. At H = 256, dK and dV
+//   of 64 rows would be 256 fp32 registers a thread, so the two consumers
+//   share the 64 kv rows and each owns 128 columns of dK and dV,
+//   recomputing S^T and dP^T over the whole head dim (1.5x the tensor work
+//   there, no exchange between them). dS^T is computed while dV += P^T.dO
+//   runs.
+// - No atomics: dQ sums over its kv tiles inside one CTA, and dK / dV sum
+//   over the rep q heads and their q tiles inside one CTA, in a fixed
+//   order, so two launches give the same bits.
+// - Causal grids launch the longest tiles first: blockIdx.x walks the heads
+//   and blockIdx.y the q tiles from the last (fwd, dq) or the kv tiles from
+//   the first (dkv).
+// - Where the result rounds: S, dP and every sum are fp32; P and dS round
+//   to bf16 once, before the second products; out rounds to bf16 once; lse,
+//   dq, dk and dv are written in fp32.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,10 +115,25 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps: fwd, dq, and dkv at H <= 128
+constexpr int kThreads = 384;        // producer warpgroup + two consumer warpgroups
+constexpr int kConsumers = 256;      // threads arriving on an empty barrier
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <= 65536, "register split");
 constexpr int kErrUnsupported = 100001;
+constexpr int kErrTensorMap = 100002;
 // NEG_INF of ring_flash.py: -0.7 * float32 max, rounded once to fp32
 constexpr float kNegInf = static_cast<float>(-0.7 * 3.4028234663852886e38);
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// tiles per head dim (ring_flash.kernel_tiles mirrors these, KERNEL_REGS the register split)
+template <int H>
+struct Tiles {
+  static constexpr int kFwdBq = 128, kFwdBk = H <= 128 ? 128 : 64, kFwdStages = 2;
+  static constexpr int kDqBq = 128, kDqBk = H <= 128 ? 64 : 32, kDqStages = H <= 128 ? 4 : 3;
+  static constexpr bool kDkvSplit = H > 128;
+  static constexpr int kDkvBk = kDkvSplit ? 64 : 128, kDkvBq = 64, kDkvStages = kDkvSplit ? 2 : 4;
+};
 
 struct Args {
   const bf16* q;
@@ -106,41 +158,225 @@ struct Args {
 
 // -- primitives ---------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-// four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
 }
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+// raise the phase's transaction count without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity (no
+// watchdog: a __trap() here stops ptxas from giving the consumers the
+// registers setmaxnreg raises them to)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map, coordinates innermost first: (column, head, row, batch)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ROWS rows of one head of one batch element: H / 64 boxes, chunk c at
+// dst + c * ROWS * 128 bytes
+template <int H, int ROWS>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar, int head, int row0,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < H / 64; ++c) tma_load(dst + c * ROWS * 64, map, bar, c * 64, head, row0, b);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: the start address, the
+// leading and stride byte offsets in 16-byte units, layout type 1 (B128)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+
+// K-major operand: rows of 64-column chunks (chunk stride `rows` rows);
+// k-step kk of 16 columns starts 32 bytes into its chunk's 128-byte row
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int rows, int row0, int kk) {
+  return smem_desc(tile + (kk >> 2) * rows * 64 + row0 * 64 + (kk & 3) * 16, 16, 1024);
+}
+
+// MN-major operand for the second products: the k-step's 16 rows, N
+// spanning the chunks `rows` rows apart (the leading byte offset)
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int rows, int chunk0, int kc) {
+  return smem_desc(tile + chunk0 * rows * 64 + kc * 16 * 64, rows * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulators across the
+// asynchronous products' issue and wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for A fragments: their registers must not be reused while a
+// product that reads them is in flight
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// d[64 x N] (+)= A[64 x 16] . B[16 x N]: A and B K-major in shared memory
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+// d[64 x N] += A[64 x 16] . B[16 x N]: A in registers, B MN-major in shared memory
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -148,50 +384,26 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// an A fragment (16 rows x 16 k) from the accumulators of two 16x8 tiles
-// (columns k0..k0+7 and k0+8..k0+15), rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// ldmatrix row addresses inside a [rows][P] tile, for the lane:
-// A fragment (16 rows from r0, 16 columns from c0)
-template <int P>
-__device__ __forceinline__ const bf16* a_addr(const bf16* t, int r0, int c0, int lane) {
-  return t + (r0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + c0 + (lane >> 4) * 8;
-}
-// B fragments of two n-tiles from a row-major [n][k] tile (n from n0, k from k0)
-template <int P>
-__device__ __forceinline__ const bf16* b_addr(const bf16* t, int n0, int k0, int lane) {
-  return t + (n0 + (lane >> 4) * 8 + (lane & 7)) * P + k0 + ((lane >> 3) & 1) * 8;
-}
-// B fragments of two n-tiles from a row-major [k][n] tile, for ldsm_x4_t
-template <int P>
-__device__ __forceinline__ const bf16* bt_addr(const bf16* t, int k0, int n0, int lane) {
-  return t + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + n0 + (lane >> 4) * 8;
-}
-
-// ROWS rows of H bf16 from `src` (row stride in elements) into a padded
-// shared tile, by THREADS threads; rows at or past n_rows are zero-filled
-template <int ROWS, int H, int THREADS = kThreads>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long stride, int row0,
-                                          int n_rows) {
-  constexpr int P = H + 8;
-  constexpr int CPR = H / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
-    const int r = c / CPR;
-    const int w = c - r * CPR;
-    const bool ok = row0 + r < n_rows;
-    const bf16* s = ok ? src + static_cast<long long>(row0 + r) * stride + w * 8 : src;
-    cp_async16(dst + r * P + w * 8, s, ok);
+// the A fragments (16 columns each) of a [64 x N] fp32 accumulator, rounded to bf16
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kc][e] = pack_bf16(d[8 * kc + 2 * e], d[8 * kc + 2 * e + 1]);
   }
 }
 
-__device__ __forceinline__ bool visible(int qp, int kp, int causal, int window) {
-  return (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the mask of one (q row, kv row) pair whose rows are `in_range`, without
+// branches (bitwise, every operand loaded)
+__device__ __forceinline__ bool visible_at(const Args& a, bool in_range, int qp, int qs, int kp, int ks, bool segs) {
+  return in_range & (!a.causal | (qp >= kp)) & ((a.window <= 0) | (qp - kp < a.window)) & (!segs | (qs == ks));
 }
 
 // Tiles of `tile` rows over non-decreasing pos[0, len): the number of tiles
@@ -225,564 +437,716 @@ __device__ __forceinline__ void live_kv_tiles(const Args& a, int bk, int qmin, i
   lo = a.window > 0 ? first_tile_last_gt(a.kv_pos, a.Sk, bk, n, static_cast<long long>(qmin) - a.window) : 0;
 }
 
+// every pair of q rows [q_lo, q_hi] x kv rows [k_lo, k_hi] (all in range)
+// is visible: the tile needs no mask
+__device__ __forceinline__ bool all_visible(const Args& a, int qmin, int qmax, int kmin, int kmax) {
+  return !a.seg_q && (!a.causal || qmin >= kmax) && (a.window <= 0 || qmax - kmin < a.window);
+}
+
+// The online softmax of one tile of scores, in the accumulator's layout and
+// in log2 units: s (raw q.k) becomes P = 2^(x - m2) in place, where x is
+// scale * q.k (capped under CAP) times log2(e) and m2 the running row max;
+// l (this thread's share of the row sums) and corr (the factor for what was
+// summed before) follow. A masked score is -inf before the max, so its P is
+// 2^-inf = 0 and a row with nothing visible yet keeps m2 = NEG_INF.
+template <int BK, bool CAP>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m2)[2], float (&l)[2], float (&corr)[2],
+                                             const Args& a, bool full_tile, int k0, const int* kpos,
+                                             const int* kseg, const int (&qp)[2], const int (&qs)[2], bool segs,
+                                             int lane) {
+  const float c = CAP ? 1.f : a.scale * kLog2e;  // x = c * s where s holds what the max is taken of
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (full_tile) {  // uniform across the warpgroup: no mask at all
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) {
+      if constexpr (CAP) s[x] = a.cap * tanhf(s[x] * a.scale / a.cap) * kLog2e;
+      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, col = 8 * j + 2 * (lane & 3) + (e & 1);
+        const bool ok = visible_at(a, k0 + col < a.Sk, qp[h], qs[h], kpos[col], kseg[col], segs);
+        float x = s[4 * j + e];
+        if constexpr (CAP) x = a.cap * tanhf(x * a.scale / a.cap) * kLog2e;  // the cap, then the mask
+        s[4 * j + e] = ok ? x : -INFINITY;
+        mx[h] = fmaxf(mx[h], s[4 * j + e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m2[h], mx[h] * c);
+    corr[h] = ex2(m2[h] - m_new);
+    m2[h] = m_new;
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[4 * j + e], c, -m2[e >> 1]));
+      s[4 * j + e] = p;
+      l[e >> 1] += p;
+    }
+  }
+}
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
+// dynamic shared memory from a 1024-byte boundary (the 128-byte swizzle's
+// period, which the descriptors assume)
+__device__ __forceinline__ unsigned char* smem_base(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// the producer warp's per-row copy of one kv tile's positions and segment
+// ids (rows past Sk repeat the last: they are masked by index)
+__device__ __forceinline__ void copy_kv_meta(const Args& a, const int* segk, int row0, int rows, int lane,
+                                             int* kpos, int* kseg) {
+  for (int r = lane; r < rows; r += 32) {
+    const int c = min(row0 + r, a.Sk - 1);
+    kpos[r] = a.kv_pos[c];
+    kseg[r] = segk ? segk[c] : 0;
+  }
+}
+
 // -- forward ------------------------------------------------------------------
 
-template <int H, bool CAP>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args a) {
-  constexpr int BQ = 64, BK = 64, P = H + 8, KC = H / 16, NT = BK / 8, HT = H / 8;
-  // Q fragments stay in registers at H <= 128; at H = 256 they are read from
-  // shared memory at each k step, leaving the registers to the accumulator
-  constexpr bool kRegs = H <= 128;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [BQ][P]
-  bf16* k_s = q_s + BQ * P;                   // [2][BK][P]
-  bf16* v_s = k_s + 2 * BK * P;               // [2][BK][P]
-  __shared__ int kpos_s[2][BK];
-  __shared__ int kseg_s[2][BK];
+template <int H>
+struct FwdSmem {
+  static constexpr int BQ = Tiles<H>::kFwdBq, BK = Tiles<H>::kFwdBk, kStages = Tiles<H>::kFwdStages;
+  static constexpr int kQ = 0, kK = kQ + BQ * H * 2, kV = kK + kStages * BK * H * 2;
+  static constexpr int kPos = kV + kStages * BK * H * 2, kSeg = kPos + kStages * BK * 4;
+  static constexpr int kBars = kSeg + kStages * BK * 4, kRange = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kBytes = kRange + 16 + 1024;  // + the alignment slack
+};
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
-  const int b = blockIdx.y / a.N;
-  const int n = blockIdx.y - b * a.N;
+template <int H, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const Args a, const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv) {
+  using L = FwdSmem<H>;
+  constexpr int kStages = L::kStages;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(sm + L::kQ);
+  bf16* k_s = reinterpret_cast<bf16*>(sm + L::kK);
+  bf16* v_s = reinterpret_cast<bf16*>(sm + L::kV);
+  int* kpos_s = reinterpret_cast<int*>(sm + L::kPos);
+  int* kseg_s = reinterpret_cast<int*>(sm + L::kSeg);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  int* range = reinterpret_cast<int*>(sm + L::kRange);
+
+  const int bn = blockIdx.x, b = bn / a.N, n = bn - b * a.N;
   const int g = n / (a.N / a.Nkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = qt * BQ;
-  const long long kv_stride = static_cast<long long>(a.Nkv) * H;
-  const bf16* kb = a.k + (static_cast<long long>(b) * a.Sk * a.Nkv + g) * H;
-  const bf16* vb = a.v + (static_cast<long long>(b) * a.Sk * a.Nkv + g) * H;
-  const int* segq = a.seg_q ? a.seg_q + static_cast<long long>(b) * a.Sq : nullptr;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the longest causal rows first
+  if (threadIdx.x == 0) {
+    int lo, hi;
+    live_kv_tiles(a, BK, a.q_pos[q0], a.q_pos[min(q0 + BQ, a.Sq) - 1], lo, hi);
+    range[0] = lo;
+    range[1] = max(hi - lo, 0);
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes: the loads' bytes and the positions
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int t_lo = range[0], n_tiles = range[1];
   const int* segk = a.seg_kv ? a.seg_kv + static_cast<long long>(b) * a.Sk : nullptr;
 
-  int row[2], qp[2], qs[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = q0 + warp * 16 + (lane >> 2) + 8 * h;
-    const int r = min(row[h], a.Sq - 1);
-    qp[h] = a.q_pos[r];
-    qs[h] = segq ? segq[r] : 0;
-  }
-  int t_lo, t_hi;
-  live_kv_tiles(a, BK, a.q_pos[q0], a.q_pos[min(q0 + BQ, a.Sq) - 1], t_lo, t_hi);
-
-  auto issue = [&](int t) {
-    if (t < t_hi) {
-      const int st = (t - t_lo) & 1;
-      load_rows<BK, H>(k_s + st * BK * P, kb, kv_stride, t * BK, a.Sk);
-      load_rows<BK, H>(v_s + st * BK * P, vb, kv_stride, t * BK, a.Sk);
-      if (threadIdx.x < BK) {
-        const int c = min(t * BK + static_cast<int>(threadIdx.x), a.Sk - 1);
-        kpos_s[st][threadIdx.x] = a.kv_pos[c];
-        kseg_s[st][threadIdx.x] = segk ? segk[c] : 0;
-      }
+  if (threadIdx.x < 128) {
+    // -- producer: one warp loads Q once, then each tile's K and V (with
+    // the tile's positions) into the ring
+    producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0 && n_tiles > 0) {
+      mbar_arrive_expect_tx(q_full, BQ * H * 2);
+      tma_tile<H, BQ>(q_s, &tq, q_full, n, q0, b);
     }
-    cp_async_commit();
-  };
-
-  load_rows<BQ, H>(q_s, a.q + (static_cast<long long>(b) * a.Sq * a.N + n) * H,
-                   static_cast<long long>(a.N) * H, q0, a.Sq);
-  cp_async_commit();
-  issue(t_lo);
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[kRegs ? KC : 1][4];
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) ldsm_x4(qf[kk], a_addr<P>(q_s, warp * 16, kk * 16, lane));
-  }
-
-  float o[HT][4];
-#pragma unroll
-  for (int i = 0; i < HT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    issue(t + 1);
-    cp_async_wait<1>();
-    __syncthreads();  // tile t has landed
-    const int st = (t - t_lo) & 1;
-    const bf16* ks = k_s + st * BK * P;
-    const bf16* vs = v_s + st * BK * P;
-
-    float s[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t qa[4];
-      if constexpr (kRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-      } else {
-        ldsm_x4(qa, a_addr<P>(q_s, warp * 16, kk * 16, lane));
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+      const int row0 = (t_lo + i) * BK;
+      if (lane == 0) {  // the loads first: the copy's global reads wait beside them
+        mbar_expect_tx(&full[st], 2 * BK * H * 2);
+        tma_tile<H, BK>(k_s + st * BK * H, &tk, &full[st], g, row0, b);
+        tma_tile<H, BK>(v_s + st * BK * H, &tv, &full[st], g, row0, b);
       }
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t kf[4];
-        ldsm_x4(kf, b_addr<P>(ks, j * 16, kk * 16, lane));
-        mma(s[2 * j], qa, kf[0], kf[1]);
-        mma(s[2 * j + 1], qa, kf[2], kf[3]);
-      }
+      copy_kv_meta(a, segk, row0, BK, lane, kpos_s + st * BK, kseg_s + st * BK);
+      mbar_arrive(&full[st]);
     }
-
-    uint32_t live = 0;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int c = i * 8 + 2 * (lane & 3) + (e & 1);
-        const bool ok = t * BK + c < a.Sk && visible(qp[h], kpos_s[st][c], a.causal, a.window) &&
-                        (!segq || qs[h] == kseg_s[st][c]);
-        float x;
-        if constexpr (CAP) {
-          x = ok ? a.cap * tanhf(s[i][e] * a.scale / a.cap) : kNegInf;  // the cap, then the mask
-        } else {
-          x = ok ? s[i][e] * a.scale : kNegInf;
-        }
-        s[i][e] = x;
-        live |= static_cast<uint32_t>(ok) << (i * 4 + e);
-        mx[h] = fmaxf(mx[h], x);
-      }
-    }
-    float corr[2];
+  } else {
+    // -- consumers: 64 q rows each
+    consumer_regs();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int* segq = a.seg_q ? a.seg_q + static_cast<long long>(b) * a.Sq : nullptr;
+    const int wq0 = q0 + wg * 64;
+    int row[2], qp[2], qs[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      corr[h] = __expf(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= corr[h];
+      row[h] = wq0 + warp * 16 + (lane >> 2) + 8 * h;
+      const int r = min(row[h], a.Sq - 1);
+      qp[h] = a.q_pos[r];
+      qs[h] = segq ? segq[r] : 0;
     }
+    const int qmin = a.q_pos[min(wq0, a.Sq - 1)], qmax = a.q_pos[min(wq0 + 63, a.Sq - 1)];
+    float o[H / 2];
+    zero(o);
+    float m2[2] = {kNegInf, kNegInf};  // running row max, log2 units
+    float l[2] = {0.f, 0.f};           // this thread's share of the row sums
+    float s[BK / 2];
+    uint32_t pf[BK / 16][4];
+    const bool segs = segq != nullptr;
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages, k0 = (t_lo + i) * BK;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      zero(s);
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
+      for (int kk = 0; kk < H / 16; ++kk)
+        wgmma_ss<BK>(s, desc_k(q_s, BQ, wg * 64, kk), desc_k(k_s + st * BK * H, BK, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      const int* kpos = kpos_s + st * BK;
+      const bool full_tile = k0 + BK <= a.Sk && all_visible(a, qmin, qmax, kpos[0], kpos[BK - 1]);
+      float corr[2];
+      softmax_tile<BK, CAP>(s, m2, l, corr, a, full_tile, k0, kpos, kseg_s + st * BK, qp, qs, segs, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float p = (live >> (i * 4 + e)) & 1u ? __expf(s[i][e] - m[h]) : 0.f;
-        s[i][e] = p;
-        l[h] += p;
+      for (int j = 0; j < H / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
       }
-    }
+      acc_to_a<BK>(pf, s);
+
+      fence_regs(o);
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < HT; ++i) {
-      o[i][0] *= corr[0];
-      o[i][1] *= corr[0];
-      o[i][2] *= corr[1];
-      o[i][3] *= corr[1];
+      for (int kc = 0; kc < BK / 16; ++kc) wgmma_rs<H>(o, pf[kc], desc_mn(v_s + st * BK * H, BK, 0, kc));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pf);
+      mbar_arrive(&empty[st]);
     }
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int j = 0; j < HT / 2; ++j) {
-        uint32_t vf[4];
-        ldsm_x4_t(vf, bt_addr<P>(vs, kc * 16, j * 16, lane));
-        mma(o[2 * j], pa, vf[0], vf[1]);
-        mma(o[2 * j + 1], pa, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  cp_async_wait<0>();
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float lh = l[h];
-    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
-    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
-    if (row[h] >= a.Sq) continue;
-    const float denom = fmaxf(lh, 1e-30f);
-    bf16* orow = a.out + ((static_cast<long long>(b) * a.Sq + row[h]) * a.N + n) * H + 2 * (lane & 3);
+    for (int h = 0; h < 2; ++h) {
+      float lh = l[h];
+      lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+      lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+      if (row[h] >= a.Sq) continue;
+      const float denom = fmaxf(lh, 1e-30f);
+      const float inv = lh > 0.f ? __fdividef(1.f, denom) : 0.f;  // denom >= 1: the row max's own term
+      bf16* orow = a.out + ((static_cast<long long>(b) * a.Sq + row[h]) * a.N + n) * H + 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < HT; ++i) {
-      const float x0 = lh > 0.f ? o[i][2 * h] / denom : 0.f;
-      const float x1 = lh > 0.f ? o[i][2 * h + 1] / denom : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) = __floats2bfloat162_rn(x0, x1);
-    }
-    if ((lane & 3) == 0) {
-      a.lse_out[(static_cast<long long>(b) * a.N + n) * a.Sq + row[h]] =
-          lh > 0.f ? m[h] + logf(denom) : kNegInf;
+      for (int j = 0; j < H / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      }
+      if ((lane & 3) == 0) {
+        a.lse_out[(static_cast<long long>(b) * a.N + n) * a.Sq + row[h]] =
+            lh > 0.f ? m2[h] * kLn2 + logf(denom) : kNegInf;
+      }
     }
   }
 }
 
 // -- backward: dq ---------------------------------------------------------------
 
+template <int H>
+struct DqSmem {
+  static constexpr int BQ = Tiles<H>::kDqBq, BK = Tiles<H>::kDqBk, kStages = Tiles<H>::kDqStages;
+  static constexpr int kQ = 0, kDo = kQ + BQ * H * 2, kK = kDo + BQ * H * 2, kV = kK + kStages * BK * H * 2;
+  static constexpr int kPos = kV + kStages * BK * H * 2, kSeg = kPos + kStages * BK * 4;
+  static constexpr int kBars = kSeg + kStages * BK * 4, kRange = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kBytes = kRange + 16 + 1024;
+};
+
 template <int H, bool CAP>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Args a) {
-  constexpr int BQ = 64, BK = 32, P = H + 8, KC = H / 16, NT = BK / 8, HT = H / 8;
-  constexpr bool kRegs = H <= 128;  // Q and dO fragments in registers, as in the fwd
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [BQ][P]
-  bf16* do_s = q_s + BQ * P;                  // [BQ][P]
-  bf16* k_s = do_s + BQ * P;                  // [2][BK][P]
-  bf16* v_s = k_s + 2 * BK * P;               // [2][BK][P]
-  __shared__ int kpos_s[2][BK];
-  __shared__ int kseg_s[2][BK];
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_kernel(const Args a, const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo) {
+  using L = DqSmem<H>;
+  constexpr int kStages = L::kStages;
+  constexpr int BQ = L::BQ, BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(sm + L::kQ);
+  bf16* do_s = reinterpret_cast<bf16*>(sm + L::kDo);
+  bf16* k_s = reinterpret_cast<bf16*>(sm + L::kK);
+  bf16* v_s = reinterpret_cast<bf16*>(sm + L::kV);
+  int* kpos_s = reinterpret_cast<int*>(sm + L::kPos);
+  int* kseg_s = reinterpret_cast<int*>(sm + L::kSeg);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  int* range = reinterpret_cast<int*>(sm + L::kRange);
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / a.N;
-  const int n = blockIdx.y - b * a.N;
+  const int bn = blockIdx.x, b = bn / a.N, n = bn - b * a.N;
   const int g = n / (a.N / a.Nkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = qt * BQ;
-  const long long q_stride = static_cast<long long>(a.N) * H;
-  const long long kv_stride = static_cast<long long>(a.Nkv) * H;
-  const long long q_base = (static_cast<long long>(b) * a.Sq * a.N + n) * H;
-  const bf16* kb = a.k + (static_cast<long long>(b) * a.Sk * a.Nkv + g) * H;
-  const bf16* vb = a.v + (static_cast<long long>(b) * a.Sk * a.Nkv + g) * H;
-  const int* segq = a.seg_q ? a.seg_q + static_cast<long long>(b) * a.Sq : nullptr;
-  const int* segk = a.seg_kv ? a.seg_kv + static_cast<long long>(b) * a.Sk : nullptr;
-  const long long row_base = (static_cast<long long>(b) * a.N + n) * a.Sq;
-
-  int row[2], qp[2], qs[2];
-  float lse[2], dlt[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = q0 + warp * 16 + (lane >> 2) + 8 * h;
-    const int r = min(row[h], a.Sq - 1);
-    qp[h] = a.q_pos[r];
-    qs[h] = segq ? segq[r] : 0;
-    lse[h] = a.lse[row_base + r];
-    dlt[h] = a.delta[row_base + r];
-  }
-  int t_lo, t_hi;
-  live_kv_tiles(a, BK, a.q_pos[q0], a.q_pos[min(q0 + BQ, a.Sq) - 1], t_lo, t_hi);
-
-  auto issue = [&](int t) {
-    if (t < t_hi) {
-      const int st = (t - t_lo) & 1;
-      load_rows<BK, H>(k_s + st * BK * P, kb, kv_stride, t * BK, a.Sk);
-      load_rows<BK, H>(v_s + st * BK * P, vb, kv_stride, t * BK, a.Sk);
-      if (threadIdx.x < BK) {
-        const int c = min(t * BK + static_cast<int>(threadIdx.x), a.Sk - 1);
-        kpos_s[st][threadIdx.x] = a.kv_pos[c];
-        kseg_s[st][threadIdx.x] = segk ? segk[c] : 0;
-      }
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  if (threadIdx.x == 0) {
+    int lo, hi;
+    live_kv_tiles(a, BK, a.q_pos[q0], a.q_pos[min(q0 + BQ, a.Sq) - 1], lo, hi);
+    range[0] = lo;
+    range[1] = max(hi - lo, 0);
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
     }
-    cp_async_commit();
-  };
-
-  load_rows<BQ, H>(q_s, a.q + q_base, q_stride, q0, a.Sq);
-  load_rows<BQ, H>(do_s, a.dout + q_base, q_stride, q0, a.Sq);
-  cp_async_commit();
-  issue(t_lo);
-  cp_async_wait<1>();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qf[kRegs ? KC : 1][4], df[kRegs ? KC : 1][4];
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      ldsm_x4(qf[kk], a_addr<P>(q_s, warp * 16, kk * 16, lane));
-      ldsm_x4(df[kk], a_addr<P>(do_s, warp * 16, kk * 16, lane));
+  const int t_lo = range[0], n_tiles = range[1];
+  const int* segk = a.seg_kv ? a.seg_kv + static_cast<long long>(b) * a.Sk : nullptr;
+
+  if (threadIdx.x < 128) {
+    producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0 && n_tiles > 0) {
+      mbar_arrive_expect_tx(q_full, 2 * BQ * H * 2);
+      tma_tile<H, BQ>(q_s, &tq, q_full, n, q0, b);
+      tma_tile<H, BQ>(do_s, &tdo, q_full, n, q0, b);
     }
-  }
-
-  float dq[HT][4];
-#pragma unroll
-  for (int i = 0; i < HT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
-
-  for (int t = t_lo; t < t_hi; ++t) {
-    issue(t + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = (t - t_lo) & 1;
-    const bf16* ks = k_s + st * BK * P;
-    const bf16* vs = v_s + st * BK * P;
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t qa[4], da[4];
-      if constexpr (kRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          qa[e] = qf[kk][e];
-          da[e] = df[kk][e];
-        }
-      } else {
-        ldsm_x4(qa, a_addr<P>(q_s, warp * 16, kk * 16, lane));
-        ldsm_x4(da, a_addr<P>(do_s, warp * 16, kk * 16, lane));
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+      const int row0 = (t_lo + i) * BK;
+      if (lane == 0) {  // the loads first: the copy's global reads wait beside them
+        mbar_expect_tx(&full[st], 2 * BK * H * 2);
+        tma_tile<H, BK>(k_s + st * BK * H, &tk, &full[st], g, row0, b);
+        tma_tile<H, BK>(v_s + st * BK * H, &tv, &full[st], g, row0, b);
       }
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, b_addr<P>(ks, j * 16, kk * 16, lane));
-        mma(s[2 * j], qa, kf[0], kf[1]);
-        mma(s[2 * j + 1], qa, kf[2], kf[3]);
-        ldsm_x4(vf, b_addr<P>(vs, j * 16, kk * 16, lane));
-        mma(dp[2 * j], da, vf[0], vf[1]);
-        mma(dp[2 * j + 1], da, vf[2], vf[3]);
-      }
+      copy_kv_meta(a, segk, row0, BK, lane, kpos_s + st * BK, kseg_s + st * BK);
+      mbar_arrive(&full[st]);
     }
+  } else {
+    consumer_regs();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int* segq = a.seg_q ? a.seg_q + static_cast<long long>(b) * a.Sq : nullptr;
+    const long long row_base = (static_cast<long long>(b) * a.N + n) * a.Sq;
+    const int wq0 = q0 + wg * 64;
+    int row[2], qp[2], qs[2];
+    float lse[2], dlt[2];
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
+    for (int h = 0; h < 2; ++h) {
+      row[h] = wq0 + warp * 16 + (lane >> 2) + 8 * h;
+      const int r = min(row[h], a.Sq - 1);
+      qp[h] = a.q_pos[r];
+      qs[h] = segq ? segq[r] : 0;
+      lse[h] = a.lse[row_base + r];
+      dlt[h] = a.delta[row_base + r];
+    }
+    const int qmin = a.q_pos[min(wq0, a.Sq - 1)], qmax = a.q_pos[min(wq0 + 63, a.Sq - 1)];
+    const bool segs = segq != nullptr;
+    float dq[H / 2];
+    zero(dq);
+    uint32_t df[BK / 16][4];  // dS of the tile whose dS.K is in flight
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+
+    // Per tile: S = Q.K^T and dP = dO.V^T issued together; P (times the
+    // cap's 1 - t^2) computed while dP is on the tensor cores; then dS and
+    // dQ += dS.K, left in flight into the next tile's products
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      const bf16* ks = k_s + st * BK * H;
+      const bf16* vs = v_s + st * BK * H;
+      const int* kpos = kpos_s + st * BK;
+      const int* kseg = kseg_s + st * BK;
+      const int k0 = (t_lo + i) * BK;
+
+      float s[BK / 2], dp[BK / 2];
+      zero(s);
+      zero(dp);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int c = i * 8 + 2 * (lane & 3) + (e & 1);
-        const bool ok = t * BK + c < a.Sk && visible(qp[h], kpos_s[st][c], a.causal, a.window) &&
-                        (!segq || qs[h] == kseg_s[st][c]);
+      for (int kk = 0; kk < H / 16; ++kk)
+        wgmma_ss<BK>(s, desc_k(q_s, BQ, wg * 64, kk), desc_k(ks, BK, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk)
+        wgmma_ss<BK>(dp, desc_k(do_s, BQ, wg * 64, kk), desc_k(vs, BK, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the last tile's dS.K and this S; dP may still run
+      fence_regs(s);
+      fence_regs(df);
+      if (i > 0) mbar_arrive(&empty[(i - 1) % kStages]);
+
+      const bool full_tile = k0 + BK <= a.Sk && all_visible(a, qmin, qmax, kpos[0], kpos[BK - 1]);
+      auto prob = [&](float sc, int h) {  // P (times the cap's 1 - t^2) of one visible score
         if constexpr (CAP) {
-          // t from the fp32 scores, as the forward computed it
-          const float t = ok ? tanhf(s[i][e] * a.scale / a.cap) : 0.f;
-          const float p = ok ? __expf(a.cap * t - lse[h]) : 0.f;
-          s[i][e] = p * (dp[i][e] - dlt[h]) * (1.f - t * t);  // dS, through the cap
+          const float t = tanhf(sc * a.scale / a.cap);  // t from the fp32 scores, as the forward computed it
+          return __expf(a.cap * t - lse[h]) * (1.f - t * t);
         } else {
-          const float p = ok ? __expf(s[i][e] * a.scale - lse[h]) : 0.f;
-          s[i][e] = p * (dp[i][e] - dlt[h]);  // dS
+          return __expf(sc * a.scale - lse[h]);
+        }
+      };
+      if (full_tile) {  // uniform across the warpgroup
+#pragma unroll
+        for (int x = 0; x < BK / 2; ++x) s[x] = prob(s[x], (x >> 1) & 1);
+      } else {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1, c = 8 * j + 2 * (lane & 3) + (e & 1), x = 4 * j + e;
+            const bool ok = visible_at(a, k0 + c < a.Sk, qp[h], qs[h], kpos[c], kseg[c], segs);
+            s[x] = ok ? prob(s[x], h) : 0.f;
+          }
         }
       }
-    }
+      wgmma_wait<0>();
+      fence_regs(dp);
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kc], s[2 * kc + 1]);
+      for (int x = 0; x < BK / 2; ++x) s[x] *= dp[x] - dlt[(x >> 1) & 1];  // dS
+      acc_to_a<BK>(df, s);
+
+      fence_regs(dq);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < HT / 2; ++j) {
-        uint32_t kf[4];
-        ldsm_x4_t(kf, bt_addr<P>(ks, kc * 16, j * 16, lane));
-        mma(dq[2 * j], da, kf[0], kf[1]);
-        mma(dq[2 * j + 1], da, kf[2], kf[3]);
-      }
+      for (int kc = 0; kc < BK / 16; ++kc) wgmma_rs<H>(dq, df[kc], desc_mn(ks, BK, 0, kc));
+      wgmma_commit();
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+    wgmma_wait<0>();  // the last dS.K (none pending when there were no tiles)
+    fence_regs(dq);
+    fence_regs(df);
+    if (n_tiles > 0) mbar_arrive(&empty[(n_tiles - 1) % kStages]);
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= a.Sq) continue;
-    float* drow = a.dq + ((static_cast<long long>(b) * a.Sq + row[h]) * a.N + n) * H + 2 * (lane & 3);
+    for (int h = 0; h < 2; ++h) {
+      if (row[h] >= a.Sq) continue;
+      float* drow = a.dq + ((static_cast<long long>(b) * a.Sq + row[h]) * a.N + n) * H + 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < HT; ++i) {
-      *reinterpret_cast<float2*>(drow + i * 8) =
-          make_float2(a.scale * dq[i][2 * h], a.scale * dq[i][2 * h + 1]);
+      for (int j = 0; j < H / 8; ++j) {
+        *reinterpret_cast<float2*>(drow + 8 * j) =
+            make_float2(a.scale * dq[4 * j + 2 * h], a.scale * dq[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
 // -- backward: dk, dv -----------------------------------------------------------
 
-// dkv's tiling: at H = 256 two warps share each 16-row kv strip, each
-// owning H / 2 columns of dK and dV
 template <int H>
-struct DkvTiling {
-  static constexpr int kSplit = H > 128 ? 2 : 1;  // warps per strip
-  static constexpr int kThreads = 128 * kSplit;
+struct DkvSmem {
+  static constexpr int BK = Tiles<H>::kDkvBk, BQ = Tiles<H>::kDkvBq, kStages = Tiles<H>::kDkvStages;
+  static constexpr int kK = 0, kV = kK + BK * H * 2, kQ = kV + BK * H * 2, kDo = kQ + kStages * BQ * H * 2;
+  static constexpr int kPos = kDo + kStages * BQ * H * 2, kSeg = kPos + kStages * BQ * 4;
+  static constexpr int kLse = kSeg + kStages * BQ * 4, kDlt = kLse + kStages * BQ * 4;
+  static constexpr int kBars = kDlt + kStages * BQ * 4, kRange = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kBytes = kRange + 16 + 1024;
 };
 
 template <int H, bool CAP>
-__global__ void __launch_bounds__(DkvTiling<H>::kThreads) flash_dkv_kernel(const Args a) {
-  constexpr int SPLIT = DkvTiling<H>::kSplit, THREADS = DkvTiling<H>::kThreads;
-  constexpr int BK = 64, BQ = 32, P = H + 8, KC = H / 16, NT = BQ / 8, HW = H / SPLIT, HT = HW / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [BK][P]
-  bf16* v_s = k_s + BK * P;                   // [BK][P]
-  bf16* q_s = v_s + BK * P;                   // [2][BQ][P]
-  bf16* do_s = q_s + 2 * BQ * P;              // [2][BQ][P]
-  __shared__ int qpos_s[2][BQ];
-  __shared__ int qseg_s[2][BQ];
-  __shared__ float lse_s[2][BQ];
-  __shared__ float dlt_s[2][BQ];
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_kernel(const Args a, const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo) {
+  using L = DkvSmem<H>;
+  constexpr int kStages = L::kStages;
+  constexpr int BK = L::BK, BQ = L::BQ;
+  constexpr bool SPLIT = Tiles<H>::kDkvSplit;
+  constexpr int HW = SPLIT ? H / 2 : H;  // columns of dK and dV a consumer owns
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(sm + L::kK);
+  bf16* v_s = reinterpret_cast<bf16*>(sm + L::kV);
+  bf16* q_s = reinterpret_cast<bf16*>(sm + L::kQ);
+  bf16* do_s = reinterpret_cast<bf16*>(sm + L::kDo);
+  int* qpos_s = reinterpret_cast<int*>(sm + L::kPos);
+  int* qseg_s = reinterpret_cast<int*>(sm + L::kSeg);
+  float* lse_s = reinterpret_cast<float*>(sm + L::kLse);
+  float* dlt_s = reinterpret_cast<float*>(sm + L::kDlt);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  int* range = reinterpret_cast<int*>(sm + L::kRange);
 
-  const int kt = blockIdx.x;  // under causal the first kv tiles see the most rows
-  const int b = blockIdx.y / a.Nkv;
-  const int g = blockIdx.y - b * a.Nkv;
+  const int bg = blockIdx.x, b = bg / a.Nkv, g = bg - b * a.Nkv;
   const int rep = a.N / a.Nkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int strip = warp / SPLIT, col0 = (warp % SPLIT) * HW;  // 16 kv rows, HW columns of dK/dV
-  const int k0 = kt * BK;
-  const long long q_stride = static_cast<long long>(a.N) * H;
-  const long long kv_stride = static_cast<long long>(a.Nkv) * H;
-  const long long kv_base = (static_cast<long long>(b) * a.Sk * a.Nkv + g) * H;
-  const int* segq = a.seg_q ? a.seg_q + static_cast<long long>(b) * a.Sq : nullptr;
-  const int* segk = a.seg_kv ? a.seg_kv + static_cast<long long>(b) * a.Sk : nullptr;
-
-  int row[2], kp[2], ksg[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    row[h] = k0 + strip * 16 + (lane >> 2) + 8 * h;
-    const int r = min(row[h], a.Sk - 1);
-    kp[h] = a.kv_pos[r];
-    ksg[h] = segk ? segk[r] : 0;
-  }
-  // live q tiles: causal needs a row at or after the tile's first key,
-  // a window a row within `window` of its last key
+  const int k0 = blockIdx.y * BK;  // under causal the first kv tiles see the most rows
   const int n_qt = (a.Sq + BQ - 1) / BQ;
-  const int kmin = a.kv_pos[k0], kmax = a.kv_pos[min(k0 + BK, a.Sk) - 1];
-  const int lo = a.causal ? first_tile_last_gt(a.q_pos, a.Sq, BQ, n_qt, static_cast<long long>(kmin) - 1) : 0;
-  const int hi = a.window > 0
-                     ? tiles_first_le(a.q_pos, BQ, n_qt, static_cast<long long>(kmax) + a.window - 1)
-                     : n_qt;
-  const int n_live = max(hi - lo, 0);
-  const int total = rep * n_live;
+  if (threadIdx.x == 0) {
+    // live q tiles: causal needs a row at or after the tile's first key, a
+    // window a row within `window` of its last key
+    const int kmin = a.kv_pos[k0], kmax = a.kv_pos[min(k0 + BK, a.Sk) - 1];
+    const int lo = a.causal ? first_tile_last_gt(a.q_pos, a.Sq, BQ, n_qt, static_cast<long long>(kmin) - 1) : 0;
+    const int hi = a.window > 0 ? tiles_first_le(a.q_pos, BQ, n_qt, static_cast<long long>(kmax) + a.window - 1)
+                                : n_qt;
+    range[0] = lo;
+    range[1] = max(hi - lo, 0);
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int lo = range[0], n_live = range[1], total = rep * n_live;
 
-  auto issue = [&](int i) {
-    if (i < total) {
-      const int st = i & 1;
+  if (threadIdx.x < 128) {
+    producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const int* segq = a.seg_q ? a.seg_q + static_cast<long long>(b) * a.Sq : nullptr;
+    if (lane == 0 && total > 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * BK * H * 2);
+      tma_tile<H, BK>(k_s, &tk, kv_full, g, k0, b);
+      tma_tile<H, BK>(v_s, &tv, kv_full, g, k0, b);
+    }
+    for (int i = 0; i < total; ++i) {
+      const int st = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
       const int head = g * rep + i / n_live;
       const int q0 = (lo + i % n_live) * BQ;
-      const long long base = (static_cast<long long>(b) * a.Sq * a.N + head) * H;
-      load_rows<BQ, H, THREADS>(q_s + st * BQ * P, a.q + base, q_stride, q0, a.Sq);
-      load_rows<BQ, H, THREADS>(do_s + st * BQ * P, a.dout + base, q_stride, q0, a.Sq);
-      if (threadIdx.x < BQ) {
-        const int c = min(q0 + static_cast<int>(threadIdx.x), a.Sq - 1);
-        const long long rb = (static_cast<long long>(b) * a.N + head) * a.Sq;
-        qpos_s[st][threadIdx.x] = a.q_pos[c];
-        qseg_s[st][threadIdx.x] = segq ? segq[c] : 0;
-        lse_s[st][threadIdx.x] = a.lse[rb + c];
-        dlt_s[st][threadIdx.x] = a.delta[rb + c];
+      const long long rb = (static_cast<long long>(b) * a.N + head) * a.Sq;
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], 2 * BQ * H * 2);
+        tma_tile<H, BQ>(q_s + st * BQ * H, &tq, &full[st], head, q0, b);
+        tma_tile<H, BQ>(do_s + st * BQ * H, &tdo, &full[st], head, q0, b);
       }
-    }
-    cp_async_commit();
-  };
-
-  load_rows<BK, H, THREADS>(k_s, a.k + kv_base, kv_stride, k0, a.Sk);
-  load_rows<BK, H, THREADS>(v_s, a.v + kv_base, kv_stride, k0, a.Sk);
-  cp_async_commit();
-  issue(0);
-
-  float dk[HT][4], dv[HT][4];
-#pragma unroll
-  for (int i = 0; i < HT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int i = 0; i < total; ++i) {
-    issue(i + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = i & 1;
-    const int q0 = (lo + i % n_live) * BQ;
-    const bf16* qs = q_s + st * BQ * P;
-    const bf16* dos = do_s + st * BQ * P;
-
-    // S^T = K.Q^T and dP^T = V.dO^T for this warp's 16 kv rows (over the
-    // whole head dim: at H = 256 both warps of a strip compute them)
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, a_addr<P>(k_s, strip * 16, kk * 16, lane));
-      ldsm_x4(va, a_addr<P>(v_s, strip * 16, kk * 16, lane));
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t qb[4], ob[4];
-        ldsm_x4(qb, b_addr<P>(qs, j * 16, kk * 16, lane));
-        mma(s[2 * j], ka, qb[0], qb[1]);
-        mma(s[2 * j + 1], ka, qb[2], qb[3]);
-        ldsm_x4(ob, b_addr<P>(dos, j * 16, kk * 16, lane));
-        mma(dp[2 * j], va, ob[0], ob[1]);
-        mma(dp[2 * j + 1], va, ob[2], ob[3]);
+      for (int r = lane; r < BQ; r += 32) {
+        const int c = min(q0 + r, a.Sq - 1);
+        qpos_s[st * BQ + r] = a.q_pos[c];
+        qseg_s[st * BQ + r] = segq ? segq[c] : 0;
+        lse_s[st * BQ + r] = a.lse[rb + c];
+        dlt_s[st * BQ + r] = a.delta[rb + c];
       }
+      mbar_arrive(&full[st]);
     }
+  } else {
+    consumer_regs();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int row0 = SPLIT ? 0 : wg * 64;     // this consumer's kv rows in the tile
+    const int chunk0 = SPLIT ? wg * (HW / 64) : 0;  // and its first 64-column chunk of dK, dV
+    const int* segk = a.seg_kv ? a.seg_kv + static_cast<long long>(b) * a.Sk : nullptr;
+    int krow[2], kp[2], ksg[2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int h = 0; h < 2; ++h) {
+      krow[h] = k0 + row0 + warp * 16 + (lane >> 2) + 8 * h;
+      const int r = min(krow[h], a.Sk - 1);
+      kp[h] = a.kv_pos[r];
+      ksg[h] = segk ? segk[r] : 0;
+    }
+    const bool rows_in = k0 + row0 + 64 <= a.Sk, segs = segk != nullptr;
+    const bool krow_in[2] = {krow[0] < a.Sk, krow[1] < a.Sk};
+    const int kmin = a.kv_pos[min(k0 + row0, a.Sk - 1)], kmax = a.kv_pos[min(k0 + row0 + 63, a.Sk - 1)];
+    float dk[HW / 2], dv[HW / 2];
+    zero(dk);
+    zero(dv);
+    if (total > 0) mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < total; ++i) {
+      const int st = i % kStages;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      const bf16* qs = q_s + st * BQ * H;
+      const bf16* dos = do_s + st * BQ * H;
+      const int* qpos = qpos_s + st * BQ;
+      const int* qseg = qseg_s + st * BQ;
+      const float* lse = lse_s + st * BQ;
+      const float* dlt = dlt_s + st * BQ;
+      const int q0 = (lo + i % n_live) * BQ;
+
+      // S^T = K.Q^T and dP^T = V.dO^T for this consumer's 64 kv rows, over
+      // the whole head dim; dS^T is computed while dV += P^T.dO runs
+      float s[BQ / 2], dp[BQ / 2];
+      zero(s);
+      zero(dp);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int c = j * 8 + 2 * (lane & 3) + (e & 1);
-        const bool ok = q0 + c < a.Sq && row[h] < a.Sk &&
-                        visible(qpos_s[st][c], kp[h], a.causal, a.window) &&
-                        (!segq || qseg_s[st][c] == ksg[h]);
+      for (int kk = 0; kk < H / 16; ++kk)
+        wgmma_ss<BQ>(s, desc_k(k_s, BK, row0, kk), desc_k(qs, BQ, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk)
+        wgmma_ss<BQ>(dp, desc_k(v_s, BK, row0, kk), desc_k(dos, BQ, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const bool full_tile = rows_in && q0 + BQ <= a.Sq && all_visible(a, qpos[0], qpos[BQ - 1], kmin, kmax);
+      uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+      auto prob = [&](int x, int c, bool ok) {  // P^T of one score; s[x] becomes what dS^T multiplies
+        float p;
         if constexpr (CAP) {
-          const float t = ok ? tanhf(s[j][e] * a.scale / a.cap) : 0.f;
-          const float p = ok ? __expf(a.cap * t - lse_s[st][c]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dlt_s[st][c]) * (1.f - t * t);  // dS^T, through the cap
+          const float t = tanhf(s[x] * a.scale / a.cap);
+          p = ok ? __expf(a.cap * t - lse[c]) : 0.f;
+          s[x] = p * (1.f - t * t);  // through the cap
         } else {
-          const float p = ok ? __expf(s[j][e] * a.scale - lse_s[st][c]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dlt_s[st][c]);  // dS^T
+          p = ok ? __expf(s[x] * a.scale - lse[c]) : 0.f;
+          s[x] = p;
+        }
+        return p;
+      };
+      if (full_tile) {  // uniform across the warpgroup
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = 8 * j + 2 * (lane & 3), x = 4 * j + 2 * h;
+            pf[j >> 1][(j & 1) * 2 + h] = pack_bf16(prob(x, c, true), prob(x + 1, c + 1, true));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = 8 * j + 2 * (lane & 3), x = 4 * j + 2 * h;
+            bool ok[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              ok[e] = visible_at(a, (q0 + c + e < a.Sq) & krow_in[h], qpos[c + e], qseg[c + e], kp[h], ksg[h], segs);
+            pf[j >> 1][(j & 1) * 2 + h] = pack_bf16(prob(x, c, ok[0]), prob(x + 1, c + 1, ok[1]));
+          }
         }
       }
-    }
-    // dV += P^T.dO, dK += dS^T.Q over this warp's HW columns
+
+      // dV += P^T.dO over this consumer's HW columns
+      fence_regs(dv);
+      wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < BQ / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kc], s[2 * kc + 1]);
-      acc_to_a(da, dp[2 * kc], dp[2 * kc + 1]);
+      for (int kc = 0; kc < BQ / 16; ++kc) wgmma_rs<HW>(dv, pf[kc], desc_mn(dos, BQ, chunk0, kc));
+      wgmma_commit();
 #pragma unroll
-      for (int j = 0; j < HT / 2; ++j) {
-        uint32_t ob[4], qb[4];
-        ldsm_x4_t(ob, bt_addr<P>(dos, kc * 16, col0 + j * 16, lane));
-        mma(dv[2 * j], pa, ob[0], ob[1]);
-        mma(dv[2 * j + 1], pa, ob[2], ob[3]);
-        ldsm_x4_t(qb, bt_addr<P>(qs, kc * 16, col0 + j * 16, lane));
-        mma(dk[2 * j], da, qb[0], qb[1]);
-        mma(dk[2 * j + 1], da, qb[2], qb[3]);
-      }
+      for (int x = 0; x < BQ / 2; ++x) s[x] *= dp[x] - dlt[8 * (x >> 2) + 2 * (lane & 3) + (x & 1)];  // dS^T
+      acc_to_a<BQ>(df, s);
+
+      // dK += dS^T.Q
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) wgmma_rs<HW>(dk, df[kc], desc_mn(qs, BQ, chunk0, kc));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pf);
+      fence_regs(df);
+      mbar_arrive(&empty[st]);
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= a.Sk) continue;
-    const long long off = ((static_cast<long long>(b) * a.Sk + row[h]) * a.Nkv + g) * H + col0 + 2 * (lane & 3);
+    for (int h = 0; h < 2; ++h) {
+      if (krow[h] >= a.Sk) continue;
+      const long long off =
+          ((static_cast<long long>(b) * a.Sk + krow[h]) * a.Nkv + g) * H + chunk0 * 64 + 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < HT; ++i) {
-      *reinterpret_cast<float2*>(a.dk + off + i * 8) =
-          make_float2(a.scale * dk[i][2 * h], a.scale * dk[i][2 * h + 1]);
-      *reinterpret_cast<float2*>(a.dv + off + i * 8) = make_float2(dv[i][2 * h], dv[i][2 * h + 1]);
+      for (int j = 0; j < HW / 8; ++j) {
+        *reinterpret_cast<float2*>(a.dk + off + 8 * j) =
+            make_float2(a.scale * dk[4 * j + 2 * h], a.scale * dk[4 * j + 2 * h + 1]);
+        *reinterpret_cast<float2*>(a.dv + off + 8 * j) = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
 // -- launch -------------------------------------------------------------------
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Args& a, cudaStream_t stream) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, threads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
-// dynamic shared memory: padded bf16 rows
-template <int H>
-constexpr size_t rows_bytes(int rows) {
-  return static_cast<size_t>(rows) * (H + 8) * sizeof(bf16);
+// the 4-D map (H, heads, S, B) of a bf16 [B, S, heads, H] tensor, boxes of
+// 64 columns x `rows` rows of one head of one batch element, 128-byte
+// swizzle, rows past S read as zeros
+int tensor_map(CUtensorMap* map, const bf16* base, int H, int heads, int S, int B, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return kErrTensorMap;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(H) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <typename Kernel, typename... Maps>
+int launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, const Args& a, const Maps&... maps) {
+  if (grid.y > 65535) return kErrUnsupported;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, smem, stream>>>(a, maps...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 enum Which { kFwd, kDq, kDkv };
 
 template <int H, bool CAP>
 int dispatch_cap(Which w, const Args& a, cudaStream_t stream) {
+  using T = Tiles<H>;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = 0;
   switch (w) {
     case kFwd:
-      return launch(flash_fwd_kernel<H, CAP>, dim3((a.Sq + 63) / 64, a.B * a.N), kThreads,
-                    rows_bytes<H>(64 + 4 * 64), a, stream);
+      if ((rc = tensor_map(&tq, a.q, H, a.N, a.Sq, a.B, T::kFwdBq)) || (rc = tensor_map(&tk, a.k, H, a.Nkv, a.Sk, a.B, T::kFwdBk)) ||
+          (rc = tensor_map(&tv, a.v, H, a.Nkv, a.Sk, a.B, T::kFwdBk)))
+        return rc;
+      return launch(flash_fwd_kernel<H, CAP>, dim3(a.B * a.N, (a.Sq + T::kFwdBq - 1) / T::kFwdBq), FwdSmem<H>::kBytes,
+                    stream, a, tq, tk, tv);
     case kDq:
-      return launch(flash_dq_kernel<H, CAP>, dim3((a.Sq + 63) / 64, a.B * a.N), kThreads,
-                    rows_bytes<H>(2 * 64 + 4 * 32), a, stream);
+      if ((rc = tensor_map(&tq, a.q, H, a.N, a.Sq, a.B, T::kDqBq)) || (rc = tensor_map(&tdo, a.dout, H, a.N, a.Sq, a.B, T::kDqBq)) ||
+          (rc = tensor_map(&tk, a.k, H, a.Nkv, a.Sk, a.B, T::kDqBk)) || (rc = tensor_map(&tv, a.v, H, a.Nkv, a.Sk, a.B, T::kDqBk)))
+        return rc;
+      return launch(flash_dq_kernel<H, CAP>, dim3(a.B * a.N, (a.Sq + T::kDqBq - 1) / T::kDqBq), DqSmem<H>::kBytes,
+                    stream, a, tq, tk, tv, tdo);
     case kDkv:
-      return launch(flash_dkv_kernel<H, CAP>, dim3((a.Sk + 63) / 64, a.B * a.Nkv), DkvTiling<H>::kThreads,
-                    rows_bytes<H>(2 * 64 + 4 * 32), a, stream);
+      if ((rc = tensor_map(&tq, a.q, H, a.N, a.Sq, a.B, T::kDkvBq)) || (rc = tensor_map(&tdo, a.dout, H, a.N, a.Sq, a.B, T::kDkvBq)) ||
+          (rc = tensor_map(&tk, a.k, H, a.Nkv, a.Sk, a.B, T::kDkvBk)) || (rc = tensor_map(&tv, a.v, H, a.Nkv, a.Sk, a.B, T::kDkvBk)))
+        return rc;
+      return launch(flash_dkv_kernel<H, CAP>, dim3(a.B * a.Nkv, (a.Sk + T::kDkvBk - 1) / T::kDkvBk),
+                    DkvSmem<H>::kBytes, stream, a, tq, tk, tv, tdo);
   }
   return kErrUnsupported;
 }
+
+static_assert(FwdSmem<256>::kBytes <= 232448 && DqSmem<256>::kBytes <= 232448 && DkvSmem<256>::kBytes <= 232448,
+              "shared memory per block");
+static_assert(FwdSmem<128>::kBytes <= 232448 && DqSmem<128>::kBytes <= 232448 && DkvSmem<128>::kBytes <= 232448,
+              "shared memory per block");
 
 template <int H>
 int dispatch(Which w, const Args& a, cudaStream_t stream) {
@@ -790,8 +1154,7 @@ int dispatch(Which w, const Args& a, cudaStream_t stream) {
 }
 
 int run(Which w, const Args& a, int H, void* stream_ptr) {
-  if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.Nkv < 1 || a.N % a.Nkv != 0 || a.B * a.N > 65535)
-    return kErrUnsupported;
+  if (a.B < 1 || a.Sq < 1 || a.Sk < 1 || a.Nkv < 1 || a.N % a.Nkv != 0) return kErrUnsupported;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   switch (H) {
     case 64: return dispatch<64>(w, a, stream);
@@ -830,8 +1193,9 @@ extern "C" {
 
 // Each launches on `stream`, allocates nothing and returns cudaGetLastError()
 // after the launch (0 = launched), or an error code for a shape it does not
-// take. window <= 0 means no window, cap <= 0 no soft cap; seg_q/seg_kv
-// may be null.
+// take or a tensor map the driver refused. window <= 0 means no window,
+// cap <= 0 no soft cap; seg_q/seg_kv may be null. q, k, v and dout must
+// start on a 16-byte boundary (TMA).
 
 int flash_attention_fwd(const void* q, const void* k, const void* v, const int* q_pos, const int* kv_pos,
                         const int* seg_q, const int* seg_kv, void* out, float* lse, int B, int Sq, int Sk,
@@ -869,6 +1233,7 @@ int flash_attention_dkv(const void* q, const void* k, const void* v, const void*
 
 const char* flash_attention_error_string(int code) {
   if (code == kErrUnsupported) return "shape not supported by the flash-attention kernels";
+  if (code == kErrTensorMap) return "cuTensorMapEncodeTiled refused a tensor map (or the driver lacks it)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -127,6 +127,35 @@ def parse_ptxas(log: str) -> list[dict]:
     return out
 
 
+def parse_sass_registers(sass: str) -> dict:
+    """``cuobjdump -sass`` output → {kernel: {"registers": one past the
+    highest register index its code names, "setmaxnreg_dec" / "_inc": the
+    counts its ``setmaxnreg.dec`` / ``.inc`` set, in order}}: where
+    warpgroups raise their count with setmaxnreg, ``registers`` is more
+    than ptxas's count at entry."""
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", fn)]
+        setmax = re.findall(r"USETMAXREG\.(DEALLOC|TRY_ALLOC|ALLOC)\S*\s+(?:\w+,\s*)?(0x[0-9a-f]+|\d+)", fn)
+        out[_kernel_name(fn.split("\n", 1)[0].strip())] = dict(
+            registers=max(regs, default=-1) + 1,
+            setmaxnreg_dec=sorted({int(v, 0) for kind, v in setmax if kind == "DEALLOC"}),
+            setmaxnreg_inc=sorted({int(v, 0) for kind, v in setmax if kind != "DEALLOC"}),
+        )
+    return out
+
+
+def sass_registers(name: str) -> dict:
+    """``parse_sass_registers`` of the library built from ``csrc/<name>.cu``
+    (building it first if need be); empty when the toolkit has no
+    cuobjdump."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    lib = build([name])[name]
+    return parse_sass_registers(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout)
+
+
 def ptxas_usage(name: str) -> list[dict]:
     """``parse_ptxas`` of the report kept when ``csrc/<name>.cu`` was built
     (building it first if need be)."""

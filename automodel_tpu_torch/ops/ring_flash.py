@@ -190,7 +190,7 @@ def _check_cuda(name: str, q, k, v, q_pos, kv_pos, seg_q, seg_kv, window, soft_c
         if not t.is_contiguous():
             raise ValueError(f"{name}: {t_name} must be contiguous")
         if t_name in ("q", "k", "v", "dout") and t.data_ptr() % 16:
-            raise ValueError(f"{name}: {t_name} must start on a 16-byte boundary (cp.async)")
+            raise ValueError(f"{name}: {t_name} must start on a 16-byte boundary (TMA)")
     for t_name, t in tensors.items():
         if t_name in ("k", "v", "dout") and t.dtype != q.dtype:
             raise ValueError(f"{name}: {t_name} is {t.dtype}, q is {q.dtype}")

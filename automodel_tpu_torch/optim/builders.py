@@ -12,6 +12,13 @@ back to p's dtype, as ``optax.apply_updates`` and the cast at
 params the second moment's ``(1 - b2) * g**2`` increment rounds away and
 it freezes, the fault :33-44 of the JAX module documents.
 
+Grads in bf16 (one microbatch with bf16 params) round where optax 0.2.6
+rounds them: the clip scale is cast to the grad's dtype (:84), and
+``(1-b1)·g``, ``g²`` and ``(1-b2)·g²`` are computed in that dtype, the
+decay constants rounded to it, before each is added into its fp32 moment.
+fp32 grads keep every step in fp32. The bias corrections ``1 - b**count``
+are fp32, as optax's.
+
 Updates are in place (params and moments), since a torch step owns its
 buffers; the caller decides beforehand whether a step is applied at all.
 """
@@ -21,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Iterable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
@@ -62,15 +70,23 @@ class AdamFP32:
             norm = grad_norm if grad_norm is not None else global_norm_fp32(grads)
             clip = torch.clamp(self.grad_clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
         count = self.count + 1
-        bc1 = 1.0 - self.b1**count
-        bc2 = 1.0 - self.b2**count
+        # the bias corrections in fp32, as optax computes 1 - b**count
+        bc1 = float(1 - np.float32(self.b1) ** np.float32(count))
+        bc2 = float(1 - np.float32(self.b2) ** np.float32(count))
         lr = float(self.schedule(self.count))
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            g32 = g.float()
-            if clip is not None:
-                g32 = g32 * clip
-            mu.mul_(self.b1).add_(g32, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g32, g32, value=1.0 - self.b2)
+            if g.dtype == torch.float32:
+                g32 = g if clip is None else g * clip
+                mu.mul_(self.b1).add_(g32, alpha=1.0 - self.b1)
+                nu.mul_(self.b2).addcmul_(g32, g32, value=1.0 - self.b2)
+            else:
+                # optax's moment update in the grad's dtype (tree_update_moment):
+                # the clip scale, (1 - b1)·g, g² and (1 - b2)·g² each rounded to
+                # it, the decay constants too, then added into the fp32 moment
+                if clip is not None:
+                    g = g * clip.to(g.dtype)
+                mu.mul_(self.b1).add_(g * torch.tensor(1.0 - self.b1, dtype=g.dtype))
+                nu.mul_(self.b2).add_((g * g) * torch.tensor(1.0 - self.b2, dtype=g.dtype))
             u = (mu / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
             if self.weight_decay:
                 u.add_(p.float(), alpha=self.weight_decay)

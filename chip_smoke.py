@@ -21,13 +21,17 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
      Nkv=8, H=128, causal; then a 1024 window, 4 packed documents,
      non-causal, H=64, S=4000, sharp attention and Nkv=4 (Qwen3's 8 q heads
      per kv head); the yardstick is
-     ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
-     forward, and forward+backward;
+     ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``:
+     its forward beside fwd, its backward alone beside dq + dkv (no library
+     call computes dq, or dk and dv, alone); each time is printed beside
+     the recorded time of K1's earlier ``mma.sync`` kernels (PERF.md) and
+     the speed-up;
    - the flash kernels with Gemma 2's logits soft cap (phase 3b): B=1,
      S=8192, N=16, Nkv=8, H=256, scale 1/16, cap 50, causal and with the
-     4096 window (both timed; the yardstick is ``torch.compile`` of
-     ``flex_attention`` with a tanh ``score_mod``, and SDPA without the
-     cap beside it); the cap saturated (q x 64), where the plain dq with the
+     4096 window (both timed beside the earlier kernels' times; the yardstick is
+     ``torch.compile`` of ``flex_attention`` with a tanh ``score_mod``,
+     forward and backward apart, and SDPA without the cap beside it); the
+     cap saturated (q x 64), where the plain dq with the
      cap's factor 1 - t^2 dropped must miss by more than 4x the limit (a
      planted fault); 4 packed documents; S=8000; H=256 without a cap; and
      Gemma 2 27B's heads (N=32, Nkv=16, H=128, scale 144^-0.5) with the cap;
@@ -70,7 +74,9 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
 11. flash attention with gpt-oss sinks folded around the kernels at
    GPT-OSS's attention shape (B=1, S=4096, N=64, Nkv=8, H=64, causal, a 128
    window and full): out, dq, dk, dv and d_sinks against the same fold
-   around the plain versions;
+   around the plain versions; each kernel timed beside its bound and a
+   yardstick without sinks (SDPA causal for the full layer, compiled
+   ``flex_attention`` with the window's block mask for the windowed one);
 12. the fused expert-MLP kernels (the forward's two launches, bwd_gu,
    bwd_dwd, bwd_dx) against their plain versions at gpt-oss-20b's MoE
    shapes (4096 tokens routed top-4 over 32 experts by a real gate with a
@@ -104,7 +110,11 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
 phase 3b right after phase 3, phases 15 and 16 last. After the build the
-script prints ptxas's registers and spills for each flash kernel.
+script prints ptxas's registers and spills for each flash kernel, with the
+registers its SASS names and the counts its ``setmaxnreg`` instructions
+set, and fails if any of the 18 spills; the register split read from the
+SASS is printed just before the ``kernels`` line, and each flash entry
+carries the SASS reading of its instantiations.
 The ``kernels`` JSON line comes third from last, the ``nvidia-smi`` card
 line second, and the last line is ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
@@ -755,27 +765,50 @@ def flash_bound(q, k, pairs: int) -> dict:
     return out
 
 
-def flash_library_ms(torch, q, k, v, do, causal: bool, scale=None) -> tuple[float, float]:
-    """``scaled_dot_product_attention`` on the [B, N, S, H] views, forward
-    and forward+backward (a yardstick only; the port never calls it)."""
+def _library_times(fwd_fn, leaves, dot, iters: int = 10, warmup: int = 2) -> tuple[float, float, float]:
+    """A library attention's forward, forward+backward, and backward alone:
+    ``torch.autograd.grad`` on a fresh forward each time (a compiled
+    backward may not run twice over one graph), the events around the
+    backward only."""
+    import torch
+
+    fwd = cuda_ms(lambda: fwd_fn(*(t.detach() for t in leaves)), iters=20)
+
+    def fwd_bwd():
+        fwd_fn(*leaves).backward(dot)
+
+    fwd_bwd_ms = cuda_ms(fwd_bwd, iters=iters)
+    bwd = 0.0
+    for i in range(warmup + iters):
+        out = fwd_fn(*leaves)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, leaves, dot)
+        end.record()
+        end.synchronize()
+        bwd += start.elapsed_time(end) if i >= warmup else 0.0
+        del out
+    return fwd, fwd_bwd_ms, bwd / iters
+
+
+def flash_library_ms(torch, q, k, v, do, causal: bool, scale=None) -> tuple[float, float, float]:
+    """``scaled_dot_product_attention`` on the [B, N, S, H] views: forward,
+    forward+backward, and the backward alone (a yardstick only; the port
+    never calls it)."""
     import torch.nn.functional as F
 
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     kw = dict(is_causal=causal, enable_gqa=True, scale=scale)
-    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw), iters=20)
     leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
-
-    def fwd_bwd():
-        F.scaled_dot_product_attention(*leaves, **kw).backward(dot)
-
-    return fwd, cuda_ms(fwd_bwd, iters=10)
+    return _library_times(lambda *a: F.scaled_dot_product_attention(*a, **kw), leaves, dot)
 
 
-def flex_library_ms(torch, q, k, v, do, cap: float, window, scale: float) -> tuple[float, float]:
+def flex_library_ms(torch, q, k, v, do, cap, window, scale: float) -> tuple[float, float, float]:
     """``torch.compile(flex_attention)`` with the soft cap as a tanh
-    ``score_mod`` and a causal (or causal window) block mask: the same
-    function as the capped kernels, forward and forward+backward (a
-    yardstick only; the port never calls it)."""
+    ``score_mod`` (none when ``cap`` is None) and a causal (or causal
+    window) block mask: the same function as the kernels, forward,
+    forward+backward and the backward alone (a yardstick only; the port
+    never calls it)."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     def score_mod(score, b, h, q_idx, kv_idx):
@@ -789,14 +822,60 @@ def flex_library_ms(torch, q, k, v, do, cap: float, window, scale: float) -> tup
     block_mask = create_block_mask(mask_mod, None, None, S, S, device=q.device)
     flex = torch.compile(flex_attention)
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    kw = dict(score_mod=score_mod, block_mask=block_mask, scale=scale, enable_gqa=True)
-    fwd = cuda_ms(lambda: flex(qt, kt, vt, **kw), iters=20)
+    kw = dict(score_mod=score_mod if cap is not None else None, block_mask=block_mask, scale=scale, enable_gqa=True)
     leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    return _library_times(lambda *a: flex(*a, **kw), leaves, dot)
 
-    def fwd_bwd():
-        flex(*leaves, **kw).backward(dot)
 
-    return fwd, cuda_ms(fwd_bwd, iters=10)
+def set_flash_library_ms(row: dict, lib: tuple) -> None:
+    """The library's forward beside fwd; dq and dkv get none, since no
+    library call computes dq, or dk and dv, alone: the library's backward
+    stands beside the two together (``flash_backward_pair``)."""
+    for name in ("fwd", "dq", "dkv"):
+        row["timed"][name]["library_ms"] = lib[0] if name == "fwd" else None
+
+
+def flash_backward_pair(c: dict) -> dict:
+    """dq and dkv together at one timed case against the library's
+    backward alone (dq, dk and dv at once): their summed times and bounds,
+    and the sum over the library's time."""
+    dq, dkv = c["timed"]["dq"], c["timed"]["dkv"]
+    ms = dq["ms"] + dkv["ms"]
+    return dict(kernels="flash_attention_dq + flash_attention_dkv", ms=ms, bound_ms=dq["bound_ms"] + dkv["bound_ms"],
+                library_ms=c["library_bwd_ms"], ms_over_library_ms=ms / c["library_bwd_ms"],
+                library_fwd_bwd_ms=c["library_fwd_bwd_ms"])
+
+
+# K1's times with its earlier mma.sync kernels (PERF.md section 6, on an
+# NVIDIA H100 80GB HBM3, 700.00 W), by case: printed beside each reading
+K1_MMA_SYNC_MS = {
+    "causal": dict(fwd=1.3864, dq=1.7402, dkv=2.8311),
+    "gemma2-9b causal, cap 50": dict(fwd=8.3934, dq=10.1396, dkv=12.5767),
+    "gemma2-9b window 4096, cap 50": dict(fwd=6.6723, dq=7.7972, dkv=9.8729),
+}
+
+
+def time_flash(torch, rf, label: str, args: tuple, kw: dict, bound: dict, before: dict | None) -> dict:
+    """The three kernels and their plain versions timed at one case, each
+    beside its bound; the printed line puts the earlier kernel's recorded
+    time beside each reading, where there is one."""
+    q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv = args
+    calls = dict(
+        fwd=(lambda: rf.flash_block_fwd(q, k, v, q_pos, kv_pos, seg_q, seg_kv, **kw),
+             lambda: rf._flash_fwd_plain(q, k, v, q_pos, kv_pos, seg_q, seg_kv, **kw)),
+        dq=(lambda: rf.flash_block_dq(*args, **kw), lambda: rf._flash_dq_plain(*args, **kw)),
+        dkv=(lambda: rf.flash_block_dkv(*args, **kw), lambda: rf._flash_dkv_plain(*args, **kw)),
+    )
+    out = {}
+    for name, (kern, plain_fn) in calls.items():
+        out[name] = dict(ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain_fn, iters=3, warmup=1),
+                         bound_ms=bound[name][0], bound_by=bound[name][1])
+    torch.cuda.empty_cache()
+    print(f"timed {label}: " + ", ".join(
+        f"{n} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}"
+        + (f", mma.sync kernel {before[n]:.4f} recorded, {before[n] / t['ms']:.2f}x" if before else ", no earlier time")
+        + ")" for n, t in out.items()), flush=True)
+    return out
 
 
 FLASH_CASE_DEFAULTS = dict(main=False, window=None, causal=True, S=4096, H=128, N=32, Nkv=8, docs=0, sharp=1.0,
@@ -859,28 +938,18 @@ def flash_check(torch, dev, c: dict, seed: int) -> dict:
     del r_out, r_lse, r_dq, r_dk, r_dv, mask
     torch.cuda.empty_cache()
     if c["main"]:
-        bound = flash_bound(q, k, pairs)
-        timed = dict(
-            fwd=(lambda: rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw),
-                 lambda: rf._flash_fwd_plain(q, k, v, pos, pos, seg, seg, **kw)),
-            dq=(lambda: rf.flash_block_dq(*bargs, **kw), lambda: rf._flash_dq_plain(*bargs, **kw)),
-            dkv=(lambda: rf.flash_block_dkv(*bargs, **kw), lambda: rf._flash_dkv_plain(*bargs, **kw)),
-        )
+        row["timed"] = time_flash(torch, rf, c["name"], bargs, kw, flash_bound(q, k, pairs),
+                                  K1_MMA_SYNC_MS.get(c["name"]))
         if c["cap"] is None:
-            lib_fwd, lib_fwd_bwd = flash_library_ms(torch, q, k, v, do, c["causal"])
+            lib = flash_library_ms(torch, q, k, v, do, c["causal"])
         else:
             # no SDPA call computes the cap: flex_attention with a tanh
             # score_mod does; SDPA without the cap (causal) stands beside it
-            lib_fwd, lib_fwd_bwd = flex_library_ms(torch, q, k, v, do, c["cap"], c["window"], scale)
-            row["sdpa_no_cap_fwd_ms"], row["sdpa_no_cap_fwd_bwd_ms"] = flash_library_ms(
+            lib = flex_library_ms(torch, q, k, v, do, c["cap"], c["window"], scale)
+            row["sdpa_no_cap_fwd_ms"], row["sdpa_no_cap_fwd_bwd_ms"], row["sdpa_no_cap_bwd_ms"] = flash_library_ms(
                 torch, q, k, v, do, True, scale)
-        row["timed"] = {
-            name: dict(ms=cuda_ms(kern, iters=20), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                       bound_ms=bound[name][0], bound_by=bound[name][1],
-                       library_ms=lib_fwd if name == "fwd" else None)
-            for name, (kern, plain) in timed.items()
-        }
-        row["library_fwd_ms"], row["library_fwd_bwd_ms"] = lib_fwd, lib_fwd_bwd
+        row["library_fwd_ms"], row["library_fwd_bwd_ms"], row["library_bwd_ms"] = lib
+        set_flash_library_ms(row, lib)
         torch.cuda.empty_cache()
     del q, k, v, do, out, lse, dq, dk, dv, bargs
     torch.cuda.empty_cache()
@@ -1689,9 +1758,27 @@ def phase_flash_sinks(torch, dev) -> dict:
         row["ok"] = (row["out_row_err"] <= FLASH_OUT_TOL and row["lse_err"] <= FLASH_LSE_TOL
                      and max(row["dq_row_err"], row["dk_row_err"], row["dv_row_err"]) <= FLASH_GRAD_TOL
                      and row["d_sinks_err"] <= SINKS_GRAD_TOL)
+        del r_out, r_dq, r_dk, r_dv, p_sink, mag
+        torch.cuda.empty_cache()
+        # the kernels at this shape (the fold around them is plain torch),
+        # each beside its bound; the yardstick has no sinks: SDPA causal for
+        # the full layers, flex_attention with the window's block mask for
+        # the windowed ones
+        pairs = int(rf._mask(pos, pos, None, None, True, window).sum())
+        row["live_pairs"] = pairs
+        row["timed"] = time_flash(torch, rf, f"gpt-oss-20b sinks, window {window}", bargs, kw,
+                                  flash_bound(q, k, pairs), None)
+        if window is None:
+            lib = flash_library_ms(torch, q, k, v, do, True, H**-0.5)
+            row["library"] = "scaled_dot_product_attention, causal, no sinks"
+        else:
+            lib = flex_library_ms(torch, q, k, v, do, None, window, H**-0.5)
+            row["library"] = f"torch.compile(flex_attention), the {window} window's block mask, no sinks"
+        row["library_fwd_ms"], row["library_fwd_bwd_ms"], row["library_bwd_ms"] = lib
+        set_flash_library_ms(row, lib)
         results.append(row)
         print(f"kernel flash_attention with sinks vs plain: {json.dumps(row)}", flush=True)
-        del q, k, v, do, out, lse, dq, dk, dv, r_out, r_lse, r_dq, r_dk, r_dv, bargs, p_sink, mag
+        del q, k, v, do, out, lse, dq, dk, dv, r_lse, bargs
         torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -1940,22 +2027,38 @@ def gemma_flash_entry(name: str, flash_cap: dict, gemma: dict, errs: tuple) -> d
         shape="B=1 S=8192 N=16 Nkv=8 H=256 scale 1/16 soft cap 50",
         max_row_rel_err=max(c[k] for c in flash_cap["cases"] for k in errs),
         max_abs_err=max(c["max_abs_err"][name] for c in flash_cap["cases"]),
-        library="torch.compile(flex_attention) with a tanh score_mod and the block mask (fwd only in "
-                "library_ms; fwd+bwd beside it); SDPA without the cap beside it",
+        library="torch.compile(flex_attention) with a tanh score_mod and the block mask: its forward beside fwd, "
+                "its backward alone (dq, dk and dv at once) beside dq + dkv under dq's backward; SDPA without the "
+                "cap beside both",
     )
     for layer, c in timed.items():
-        t = c["timed"][name]
-        out[layer] = dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                          library_ms=t["library_ms"], library_fwd_bwd_ms=c["library_fwd_bwd_ms"],
-                          sdpa_no_cap_fwd_ms=c["sdpa_no_cap_fwd_ms"],
-                          sdpa_no_cap_fwd_bwd_ms=c["sdpa_no_cap_fwd_bwd_ms"], live_pairs=c["live_pairs"])
+        out[layer] = dict(c["timed"][name], live_pairs=c["live_pairs"])
+        if name == "fwd":
+            out[layer]["sdpa_no_cap_fwd_ms"] = c["sdpa_no_cap_fwd_ms"]
+        if name == "dq":
+            out[layer]["backward"] = dict(flash_backward_pair(c), sdpa_no_cap_bwd_ms=c["sdpa_no_cap_bwd_ms"],
+                                          sdpa_no_cap_fwd_bwd_ms=c["sdpa_no_cap_fwd_bwd_ms"])
+    return out
+
+
+def sinks_flash_entry(name: str, sinks: dict) -> dict:
+    """One flash kernel at GPT-OSS's attention shape (phase 11): its time,
+    bound and library time with the 128 window and without (for dq, the
+    library's backward beside dq + dkv)."""
+    out = {}
+    for c in sinks["cases"]:
+        out[f"window {c['window']}"] = dict(c["timed"][name], library=c["library"], live_pairs=c["live_pairs"])
+        if name == "dq":
+            out[f"window {c['window']}"]["backward"] = flash_backward_pair(c)
     return out
 
 
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
-                 gpt_oss, flash_cap, gemma) -> dict:
+                 gpt_oss, flash_cap, gemma, flash_sass) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
-    launches on its path's run and its times at the main case."""
+    launches on its path's run and its times at the main case; the flash
+    kernels with what this build's SASS names (``flash_sass``) at each
+    shape's instantiation."""
     timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
     main_case = timed["bf16"]
     line = {
@@ -2001,11 +2104,18 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "library_fwd_bwd_ms": main_flash["library_fwd_bwd_ms"],
+            "library": "scaled_dot_product_attention: its forward beside fwd; its backward alone (dq, dk and dv "
+                       "at once) beside dq + dkv, under dq's backward; none computes dq, or dk and dv, alone",
+            "live_pairs": main_flash["live_pairs"],
             "shape": "B=1 S=4096 N=32 Nkv=8 H=128 causal",
+            "sass": {f"<{H}, {cap}>": flash_sass.get(f"flash_{name}_kernel<{H}, {cap}>")
+                     for H, cap in ((128, 0), (256, 1), (64, 0))},
             "with_sinks_max_row_rel_err": max(c[k] for c in sinks["cases"] for k in row_errs[name]),
+            "gpt_oss_sinks": sinks_flash_entry(name, sinks),
             "gemma2": gemma_flash_entry(name, flash_cap, gemma, row_errs[name]),
         })
+        if name == "dq":
+            line["kernels"][-1]["backward"] = flash_backward_pair(main_flash)
     # grouped matmul: times at the gate_up-shaped launch of the gate-routed
     # case, the down-shaped launch beside them
     timed = {r["launch"]: r for r in grouped["cases"] if "ms" in r}
@@ -2081,7 +2191,19 @@ def main() -> int:
         t0 = time.perf_counter()
         _cuda_build.build(["paged_attention", "flash_attention", "grouped_matmul", "fused_expert_mlp"])
         print(f"kernel build: {time.perf_counter() - t0:.1f}s (nvcc, sm_90a)", flush=True)
-        print(f"ptxas flash_attention: {json.dumps(_cuda_build.ptxas_usage('flash_attention'))}", flush=True)
+        flash_ptxas = _cuda_build.ptxas_usage("flash_attention")
+        flash_sass = _cuda_build.sass_registers("flash_attention")
+        print(f"ptxas flash_attention: {json.dumps(flash_ptxas)}", flush=True)
+        for u in flash_ptxas:
+            sass = flash_sass.get(u["kernel"], {})
+            print(f"ptxas {u['kernel']}: {u.get('registers')} registers at entry, "
+                  f"{sass.get('registers', 'unknown')} named in its code (SASS setmaxnreg dec "
+                  f"{sass.get('setmaxnreg_dec', 'unknown')}, inc {sass.get('setmaxnreg_inc', 'unknown')}), "
+                  f"{u.get('spill_stores', 0)} bytes spill stores, {u.get('spill_loads', 0)} bytes spill loads",
+                  flush=True)
+        spilled = [u for u in flash_ptxas if u.get("spill_stores") or u.get("spill_loads")]
+        if len(flash_ptxas) != 18 or spilled:
+            raise RuntimeError(f"flash kernels: want 18 instantiations and no spills, ptxas reports {flash_ptxas}")
 
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)
@@ -2124,7 +2246,11 @@ def main() -> int:
         phase_gemma_flash_vs_sdpa(torch)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
-                            fused, gpt_oss, flash_cap, gemma)
+                            fused, gpt_oss, flash_cap, gemma, flash_sass)
+        splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
+        print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
+              + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"
+                          for d, i in splits), flush=True)
         print(json.dumps(line), flush=True)
         print(card_line(), flush=True)
     except Exception:

@@ -321,6 +321,132 @@ def test_flash_attention_autograd_on_the_card():
         assert leaf.grad.dtype == torch.bfloat16 and torch.equal(leaf.grad, g.to(torch.bfloat16)), name
 
 
+def tiled_case(dev, Sq, Sk, H, N=8, Nkv=2, B=2, cuts=None, sharp=1.0, seed=5):
+    """bf16 q [B, Sq, N, H] whose rows sit at the end of the key range
+    (q_pos = Sk - Sq + i, the chunked-prefill layout; Sq = Sk is plain
+    self-attention), k/v [B, Sk, Nkv, H], dO; with ``cuts`` the documents'
+    first positions (the same in every row). → (q, k, v, do, q_pos, kv_pos,
+    seg_q, seg_kv)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, Sq, N, H), generator=g, device=dev) * sharp).to(torch.bfloat16)
+    k, v = (torch.randn((B, Sk, Nkv, H), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    do = torch.randn((B, Sq, N, H), generator=g, device=dev).to(torch.bfloat16)
+    kv_pos = torch.arange(Sk, dtype=torch.int32, device=dev)
+    q_pos = kv_pos[Sk - Sq:].contiguous()
+    seg_q = seg_kv = None
+    if cuts:
+        edges = torch.tensor(cuts, dtype=torch.int32, device=dev)
+        seg_kv = (kv_pos[:, None] >= edges[None, :]).sum(-1).to(torch.int32).expand(B, Sk).contiguous()
+        seg_q = seg_kv[:, Sk - Sq:].contiguous()
+    return q, k, v, do, q_pos, kv_pos, seg_q, seg_kv
+
+
+def tiled_errors(case, causal=True, window=None, soft_cap=None):
+    """Each kernel, launched once, against its plain version (the backward of
+    both fed the plain forward's lse and delta). A gradient that is exactly
+    zero in the plain version (every row sees one key alone: P = 1, dS = 0)
+    holds only rounding noise, so there it is held to 1e-4 absolute."""
+    q, k, v, do, q_pos, kv_pos, seg_q, seg_kv = case
+    kw = dict(causal=causal, window=window, scale=q.shape[-1] ** -0.5, soft_cap=soft_cap)
+    pos = (q_pos, kv_pos, seg_q, seg_kv)
+    out, lse = trf.flash_block_fwd(q, k, v, *pos, **kw)
+    r_out, r_lse = trf._flash_fwd_plain(q, k, v, *pos, **kw)
+    delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, r_lse, delta, *pos)
+    got = (out, lse, trf.flash_block_dq(*args, **kw), *trf.flash_block_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    want = (r_out, r_lse, trf._flash_dq_plain(*args, **kw), *trf._flash_dkv_plain(*args, **kw))
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    err = flash_errors(got, want)
+    for name, g_, w_ in (("dq", got[2], want[2]), ("dk", got[3], want[3])):
+        if not bool(w_.abs().gt(1e-4).any()):
+            err[name] = 0.0 if float(g_.abs().max()) <= 1e-4 else float("inf")
+    return err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 4000])
+def test_flash_kernels_at_tile_edges_match_plain(S, H):
+    """Self-attention lengths around the kernels' tiles (64-row warpgroup
+    slices, 128-row CTAs, 32-128-row streamed tiles, a ring of two stages):
+    one row, one short of a tile, a tile, one past, and a length that is no
+    multiple of any tile."""
+    _need_cuda("flash_attention")
+    case = tiled_case(torch.device("cuda"), S, S, H, B=1 if S == 4000 else 2)
+    err = tiled_errors(case)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk", [(1, 129), (63, 4000), (64, 65), (65, 127), (127, 129), (129, 4000)])
+def test_flash_kernels_chunked_prefill_match_plain(Sq, Sk, H):
+    """Fewer queries than keys, the queries at the end of the key range (the
+    chunked-prefill layout): the live kv tiles start at the first key and
+    end on a diagonal that crosses the kernels' tiles off their edges."""
+    _need_cuda("flash_attention")
+    err = tiled_errors(tiled_case(torch.device("cuda"), Sq, Sk, H))
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_flash_kernels_gqa_reps_match_plain(rep, H):
+    """1, 2, 4 and 8 query heads per kv head: dkv sums dk and dv over the
+    rep heads' q tiles inside one CTA."""
+    _need_cuda("flash_attention")
+    err = tiled_errors(tiled_case(torch.device("cuda"), 1000, 1000, H, N=8, Nkv=8 // rep))
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 50.0])
+@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("window", [64, 128, 129])
+def test_flash_kernels_window_edge_on_a_tile_boundary(window, H, cap):
+    """A causal window of 64 or 128 keys (the streamed tiles' rows: its
+    edge falls on a tile boundary) and of 129 (one past), with and without
+    the soft cap."""
+    _need_cuda("flash_attention")
+    err = tiled_errors(tiled_case(torch.device("cuda"), 1024, 1024, H), window=window, soft_cap=cap)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 50.0])
+@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_document_boundary_inside_a_tile(causal, H, cap):
+    """Packed documents whose boundaries fall inside tiles (positions 40,
+    100 and 333), on a 64-row edge (192) and on a 128-row edge (512): the
+    segment mask inside a tile, with and without the soft cap."""
+    _need_cuda("flash_attention")
+    case = tiled_case(torch.device("cuda"), 700, 700, H, cuts=[40, 100, 192, 333, 512])
+    err = tiled_errors(case, causal=causal, soft_cap=cap)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,cap", [(128, None), (256, 50.0), (64, None)])
+def test_flash_backward_repeats_bit_for_bit(H, cap):
+    """No atomics: two launches of dq and of dkv on the same inputs give the
+    same bits (dk and dv summed over 8 q heads a kv head, and at H=256 over
+    the two consumers' halves of the head dim)."""
+    _need_cuda("flash_attention")
+    q, k, v, do, q_pos, kv_pos, _, _ = tiled_case(torch.device("cuda"), 1000, 1000, H, N=16, Nkv=2)
+    kw = dict(causal=True, window=None, scale=H**-0.5, soft_cap=cap)
+    out, lse = trf.flash_block_fwd(q, k, v, q_pos, kv_pos, None, None, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, q_pos, kv_pos, None, None)
+    first = (trf.flash_block_dq(*args, **kw), *trf.flash_block_dkv(*args, **kw))
+    second = (trf.flash_block_dq(*args, **kw), *trf.flash_block_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.cuda
 def test_flash_refuses_what_the_kernels_do_not_take():
     _need_cuda("flash_attention")
@@ -358,6 +484,28 @@ def test_ptxas_report_is_parsed_per_kernel():
         dict(kernel="flash_dq_kernel<64, 0>", spill_stores=0, spill_loads=0, registers=158),
         dict(kernel="paged_attention_fwd", registers=96),
     ]
+
+
+def test_sass_registers_are_read_per_kernel():
+    """``parse_sass_registers`` reads the highest register a kernel's code
+    names (the consumers' count after setmaxnreg, which ptxas's report at
+    entry does not show) and the counts its setmaxnreg instructions set,
+    the template arguments spelled out."""
+    sass = (
+        "\n\tcode for sm_90a\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelILi128ELb0EEEvNS_4ArgsE14CUtensorMap_stS2_S2_\n"
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;\n"
+        "        /*0010*/                   USETMAXREG.TRY_ALLOC.CTAPOOL UP0, 0xf0 ;\n"
+        "        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT, gsb0 ;\n"
+        "        /*0030*/                   FMUL R174, R24, R3 ;\n"
+        "        /*0040*/                   USETMAXREG.DEALLOC.CTAPOOL 0x18 ;\n"
+        "\t\tFunction : paged_attention_fwd\n"
+        "        /*0000*/                   IADD3 R7, R2, 0x1, RZ ;\n"
+    )
+    assert _cuda_build.parse_sass_registers(sass) == {
+        "flash_fwd_kernel<128, 0>": dict(registers=175, setmaxnreg_dec=[24], setmaxnreg_inc=[240]),
+        "paged_attention_fwd": dict(registers=8, setmaxnreg_dec=[], setmaxnreg_inc=[]),
+    }
 
 
 # -- grouped matmul (csrc/grouped_matmul.cu) ------------------------------------

@@ -250,3 +250,62 @@ def test_soft_capped_flash_matches_jax_splash(case, monkeypatch):
         faulty = trf.flash_attention(tq.requires_grad_(True), tk, tv, causal=True, soft_cap=SOFT_CAP)
         (faulty * tdo).sum().backward()
         assert float(np.abs(tq.grad.numpy() - j_grads[0]).max()) > 100 * 5e-3
+
+
+
+# -- the blocks at the edges of the CUDA kernels' tiles, against JAX ----------
+# The card tests hold the kernels to the plain versions at these layouts
+# (tests/test_torch_cuda_kernels.py); here the plain versions, what the
+# wrappers run on the CPU, are held to the JAX blocks at the same layouts.
+
+EDGE_CASES = {
+    # lengths at and around the kernels' 64- and 128-row tiles
+    **{f"S={S}": dict(Sq=S, Sk=S) for S in (1, 63, 64, 65, 127, 129)},
+    # the q rows at the end of the key range (the chunked prefill layout)
+    **{f"prefill Sq={Sq} Sk={Sk}": dict(Sq=Sq, Sk=Sk) for Sq, Sk in ((1, 129), (63, 200), (65, 127), (129, 300))},
+    # GQA: rep q heads per kv head
+    **{f"rep {r}": dict(Sq=129, Sk=129, N=8, NKV=8 // r) for r in (1, 2, 4, 8)},
+    # a window whose edge falls on a tile boundary, causal and not
+    "window 64 on a tile edge": dict(Sq=256, Sk=256, window=64),
+    "window 128 on a tile edge": dict(Sq=256, Sk=256, window=128),
+    "non-causal window 64": dict(Sq=192, Sk=192, window=64, causal=False),
+    # a document boundary inside a tile
+    "document boundary at 100": dict(Sq=200, Sk=200, cut=100),
+    # the wider head dims
+    "H=128 S=65": dict(Sq=65, Sk=65, H=128),
+    "H=256 S=65": dict(Sq=65, Sk=65, H=256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_flash_blocks_match_jax_at_tile_edges(case):
+    """``flash_block_fwd`` / ``_dq`` / ``_dkv`` on the CPU against JAX's
+    ``flash_block_fwd`` / ``flash_block_bwd`` in interpret mode with the
+    same positions, segment ids, lse and delta: out and lse atol 2e-4,
+    dq/dk/dv atol 5e-3, as tests/test_block_flash.py holds the JAX kernels."""
+    c = dict(dict(H=64, N=4, NKV=2, window=None, causal=True, cut=None), **EDGE_CASES[case])
+    Sq, Sk, H = c["Sq"], c["Sk"], c["H"]
+    rng = np.random.default_rng(11)
+    q, do = (rng.normal(size=(1, Sq, c["N"], H)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(1, Sk, c["NKV"], H)).astype(np.float32) for _ in range(2))
+    kv_pos = np.arange(Sk, dtype=np.int32)
+    q_pos = kv_pos[Sk - Sq:] if Sq <= Sk else np.arange(Sq, dtype=np.int32)
+    cut = c["cut"] if c["cut"] is not None else Sk + 1
+    seg_q, seg_kv = ((p >= cut).astype(np.int32)[None] for p in (q_pos, kv_pos))
+    kw = dict(causal=c["causal"], window=c["window"], scale=H**-0.5)
+
+    j_args = [jnp.asarray(x) for x in (q, k, v, q_pos, kv_pos, seg_q, seg_kv)]
+    j_out, j_lse = jrf.flash_block_fwd(*j_args, interpret=True, **kw)
+    delta = (np.asarray(j_out) * do).sum(-1).transpose(0, 2, 1)  # [B, N, Sq]
+    j_grads = jrf.flash_block_bwd(*j_args[:3], jnp.asarray(do), j_lse, jnp.asarray(delta), *j_args[3:],
+                                  interpret=True, **kw)
+
+    tq, tk, tv, tdo, tqp, tkp, tsq, tsk = map(torch.tensor, (q, k, v, do, q_pos, kv_pos, seg_q, seg_kv))
+    out, lse = trf.flash_block_fwd(tq, tk, tv, tqp, tkp, tsq, tsk, **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=2e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=2e-4, rtol=1e-6)
+    bargs = (tq, tk, tv, tdo, torch.tensor(np.asarray(j_lse)), torch.tensor(delta), tqp, tkp, tsq, tsk)
+    dq = trf.flash_block_dq(*bargs, **kw)
+    dk, dv = trf.flash_block_dkv(*bargs, **kw)
+    for name, t, j in zip(("dq", "dk", "dv"), (dq, dk, dv), j_grads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=5e-3, err_msg=name)
