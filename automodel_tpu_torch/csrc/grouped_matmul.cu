@@ -13,244 +13,300 @@
 //   past sum(group_sizes) are written as zeros (the TPU kernel leaves them
 //   uninitialised).
 // - tgmm: lhs [M, K], dout [M, N] bf16 -> out[g] = lhs_g^T @ dout_g, [G, K, N]
-//   fp32; an empty group writes zeros.
+//   in fp32 or bf16 (the same fp32 sum, rounded once); an empty group writes
+//   zeros. The bf16 output is JAX's _grouped_matmul_bwd drhs.astype(rhs.dtype)
+//   (:318-333) taken inside the kernel.
 //
-// What bounds them on an H100 at the MoE shapes (M = 32768 rows over 128
-// experts of Qwen3-30B-A3B): bytes. Each group's rhs slab ([2048, 1536] bf16,
-// 6 MB) serves only ~256 rows, so the weights stream from device memory at
-// ~130 flops per byte, under the ~295 where the tensor cores would be the
-// limit; tgmm also writes a [G, K, N] fp32 result. The least time is the
-// operands and the output moved once over 3.35 TB/s.
+// What bounds them on an H100 at Qwen3-30B-A3B's MoE shapes (M = 32768 rows
+// over 128 experts): bytes. Each group's rhs slab ([2048, 1536] bf16, 6 MB)
+// serves only ~256 rows, ~130 flops per byte, under the ~295 where the
+// tensor cores would be the limit; tgmm writes a [G, K, N] result, 87% of its
+// bytes in fp32. At gpt-oss-20b's (M = 16384 over 32 experts, K = 2880) gmm
+// is bound by operations. The least time is the larger of the operands and
+// the output moved once over 3.35 TB/s and the products over 989 TFLOP/s.
 //
-// Design (simple first: mma.sync m16n8k16 with fp32 accumulators, cp.async
-// staging in three stages, no wgmma/TMA/persistent scheduling yet):
-// - gmm: a fixed grid of (n tile, work unit). A work unit is one (group,
-//   m tile) pair that overlaps: the plan (ops/grouped_matmul.py gmm_plan,
-//   built on the device with torch ops, as the JAX _plan :70 is) gives W =
-//   ceil(M/128) + G + 1 units, the last group being the tail past
-//   sum(group_sizes), which writes zeros. A unit loads and stores only the
-//   rows of its own group: an m tile that spans a group boundary is computed
-//   by two CTAs that run at the same time and write disjoint rows, where the
-//   TPU kernel blends the tile in place across consecutive grid steps
-//   (:169-172), which the GPU's unordered CTAs would make a race. Units past
-//   the plan's end exit at once. K and N edges are zero-filled by cp.async.
-//   A transposed rhs is read in place ([N][K] rows, ldmatrix without .trans)
-//   and never copied.
-// - tgmm: one CTA per (group, k tile, n tile) loops over its group's rows in
-//   chunks of 32 and accumulates lhs^T.dout in fp32 registers (lhs^T is the
-//   A operand, loaded from lhs rows by ldmatrix.trans); it writes its slab
-//   once. No atomics and no plan, so the result repeats bit for bit. A CTA's
-//   time follows its group's row count: uneven groups leave SMs idle at the
-//   end (a later PR's load balancing).
-// - shared-memory rows are padded by 16 bytes so ldmatrix's eight row
-//   addresses fall in different banks.
+// Design (Hopper: wgmma, TMA, mbarriers, warp specialisation, persistent):
+// - Each CTA is 384 threads: warpgroup 0 is the producer (setmaxnreg 24;
+//   one thread issues every TMA load), warpgroups 1 and 2 consume
+//   (setmaxnreg 240), each owning 64 rows of the 128-row output tile. A ring
+//   of stages in shared memory, each with a full and an empty mbarrier,
+//   keeps the loads in flight across tile and item boundaries; every
+//   consumer thread arrives on a stage's empty barrier (an arrival from one
+//   thread for its warpgroup let a warp that skips the products run a ring
+//   ahead of its siblings, and the kernel hung). Every product is
+//   wgmma.mma_async m64nNk16 bf16 -> fp32 with both operands in
+//   128-byte-swizzled shared memory. One CTA per SM walks a static list of
+//   items (blockIdx.x, then every gridDim.x-th), so no work is handed out at
+//   run time.
+// - Tensor maps are built on the host per call (cuTensorMapEncodeTiled,
+//   through cudaGetDriverEntryPoint: no -lcuda, after binding the device's
+//   context to the calling thread) and passed as __grid_constant__. Reads
+//   past M, K or N arrive as zeros; the K = N = 1000 case ends its last
+//   boxes there.
+// - gmm: the items are (work unit, n tile) pairs, a unit being one (group,
+//   128-row tile) pair that overlaps, then the tail past sum(group_sizes)
+//   (ops/grouped_matmul.py gmm_plan: int32 [4, W], W = ceil(M/128) + G + 1,
+//   the groups' units in order), so the units of a group run at the same
+//   time on neighbouring CTAs. Within a group the items go unit by unit
+//   over the n tiles or, where the output is at least as wide as the
+//   contraction (N >= K), n tile by n tile over the units (gmm_item; the
+//   kernel finds a unit's group extent from the plan and the groups' ends).
+//   Units past the plan's end close a CTA's walk at the first one. lhs
+//   boxes are 128 rows x 64 k
+//   from a 2-D map over [M, K]; rhs boxes come from a 3-D map over (N, K, G)
+//   (MN-major B, through wgmma's transpose bit) or, under transpose_rhs,
+//   over (K, N, G) (K-major B), read in place. A box may hold rows of a
+//   neighbouring group: a row of the product depends on its own lhs row
+//   only, and the epilogue stores only the unit's rows [row_lo, row_hi), so
+//   a tile across a group boundary is written by two CTAs, each its own
+//   rows. A consumer whose 64 rows hold none of the unit's skips the
+//   products. A consumer frees a stage once its products are done (holding
+//   it until the next stage's products were issued was slower: the loads,
+//   not the products, bound the kernel on an H100). The epilogue passes each
+//   warp's 8 rows at a time through a padded staging tile of its own and
+//   stores them in 16-byte pieces, whole rows at a time (the accumulator's
+//   4-byte pieces, stored directly, held the consumers far longer). The tail
+//   unit loads nothing and writes zeros. The n tile is 256 columns (4
+//   stages of 48 KB): a narrower N ends its boxes past N, which read as
+//   zeros, and its stores stop at N.
+// - tgmm: the items are (group, k tile, n tile), 128 x 128 tiles of the
+//   [K, N] slab, the groups taken largest first (an order the wrapper sorts
+//   on the device; the host never reads the sizes), so under skew the long
+//   contractions start first. Each item contracts its group's rows in
+//   chunks of 64 that start at the group's first row: A is lhs^T, the lhs
+//   chunk read MN-major through wgmma's transpose bit for A, B the dout
+//   chunk, MN-major; one group of products stays in flight. Only the
+//   group's last chunk can hold rows past its end (a neighbour's, or past
+//   sum(group_sizes), which may hold anything): the consumers zero those
+//   rows in both operands, fence the generic writes to the async proxy and
+//   meet at a named barrier before the products read them. The epilogue
+//   writes the accumulator, rounded to the output type, into a swizzled
+//   staging tile per consumer and stores it with a TMA store
+//   (cp.async.bulk.tensor, one bulk group), which runs on while the consumer
+//   goes on to the next item; its staging tile is rewritten only after the
+//   store has read it (wait_group.read). Stores past K or N are clipped by
+//   the map. An empty group writes its zeros by the same path.
+// - No atomics and no split over K or over rows: every output element is
+//   one CTA's sum in a fixed order, so two launches give the same bits, and
+//   tgmm's bf16 output is its fp32 output rounded to nearest even.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;  // 8 warps: 2 along m x 4 along n
-constexpr int kStages = 3;
+constexpr int kThreads = 384;    // producer warpgroup + two consumer warpgroups
+constexpr int kConsumers = 256;  // threads arriving on an empty barrier: every consumer thread
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <= 65536, "register split");
 constexpr int kErrUnsupported = 100001;
+constexpr int kErrTensorMap = 100002;
+constexpr int kSmemLimit = 232448;  // shared memory a block can use on an H100
+constexpr int kBoxBytes = 64 * 128;  // a 64-row box of 128-byte rows
 
-// gmm tiles
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int PA = BK + 8;  // padded row of an lhs tile [BM][BK]
-constexpr int PB = BN + 8;  // padded row of an rhs tile [BK][BN]
-constexpr int PBT = BK + 8; // padded row of a transposed rhs tile [BN][BK]
-// tgmm tiles: out tile [TK][TN], rows consumed in chunks of TR
-constexpr int TK = 128, TN = 128, TR = 32;
-constexpr int PL = TK + 8;  // padded row of an lhs chunk [TR][TK]
-constexpr int PD = TN + 8;  // padded row of a dout chunk [TR][TN]
-
-// -- primitives (as in flash_attention.cu) -------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ldmatrix row addresses for the lane, inside a tile with padded row P:
-// A fragment (16 rows from r0, 16 columns from c0) of a row-major [m][k] tile
-template <int P>
-__device__ __forceinline__ const bf16* a_addr(const bf16* t, int r0, int c0, int lane) {
-  return t + (r0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + c0 + (lane >> 4) * 8;
-}
-// A fragment (16 m from m0, 16 k from k0) of a tile stored [k][m], for ldsm_x4_t
-template <int P>
-__device__ __forceinline__ const bf16* at_addr(const bf16* t, int m0, int k0, int lane) {
-  return t + (k0 + (lane >> 4) * 8 + (lane & 7)) * P + m0 + ((lane >> 3) & 1) * 8;
-}
-// B fragments of two n tiles from a tile stored [n][k] (n from n0, k from k0)
-template <int P>
-__device__ __forceinline__ const bf16* b_addr(const bf16* t, int n0, int k0, int lane) {
-  return t + (n0 + (lane >> 4) * 8 + (lane & 7)) * P + k0 + ((lane >> 3) & 1) * 8;
-}
-// B fragments of two n tiles from a tile stored [k][n], for ldsm_x4_t
-template <int P>
-__device__ __forceinline__ const bf16* bt_addr(const bf16* t, int k0, int n0, int lane) {
-  return t + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * P + n0 + (lane >> 4) * 8;
-}
-
-// ROWS x COLS bf16 from a row-major matrix (row stride `ld`) into a padded
-// shared tile: row r is taken when row0 + r lies in [row_lo, row_hi), column
-// chunk c (8 values) when col0 + 8c < n_cols; everything else is zero
-template <int ROWS, int COLS, int P>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld, int row0, int row_lo,
-                                          int row_hi, int col0, int n_cols) {
-  constexpr int CPR = COLS / 8;
-  for (int c = threadIdx.x; c < ROWS * CPR; c += kThreads) {
-    const int r = c / CPR;
-    const int w = c - r * CPR;
-    const int row = row0 + r;
-    const int col = col0 + w * 8;
-    const bool ok = row >= row_lo && row < row_hi && col < n_cols;
-    const bf16* s = ok ? src + static_cast<long long>(row) * ld + col : src;
-    cp_async16(dst + r * P + w * 8, s, ok);
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int stages) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&full[s], 1);  // the producer's arrive, with the loads' bytes
+    mbar_init(&empty[s], kConsumers);
   }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // -- gmm ---------------------------------------------------------------------
 
 struct GmmArgs {
-  const bf16* lhs;  // [M, K]
-  const bf16* rhs;  // [G, K, N], or [G, N, K] when transposed
   const int* plan;  // [4, W]: group, m tile, first row, end row (G = the zero tail)
+  const int* ends;  // [G] inclusive cumsum of group_sizes
   bf16* out;        // [M, N]
   int M, K, N, G, W;
+  int n_major;  // a group's items n tile by n tile (gmm_item); needs ends
 };
 
-template <bool TRANS>
-__global__ void __launch_bounds__(kThreads) gmm_kernel(const GmmArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int B_STAGE = TRANS ? BN * PBT : BK * PB;
-  bf16* a_s = reinterpret_cast<bf16*>(smem);  // [kStages][BM][PA]
-  bf16* b_s = a_s + kStages * BM * PA;        // [kStages][B_STAGE]
+constexpr int BK = 64;   // k values a stage: 128-byte rows, the 128-byte swizzle
+constexpr int BN = 256;  // the n tile
 
-  const int unit = blockIdx.y;
-  const int g = a.plan[unit];
-  const int tile = a.plan[a.W + unit];
-  const int row_lo = a.plan[2 * a.W + unit];
-  const int row_hi = min(a.plan[3 * a.W + unit], a.M);
-  if (row_lo >= row_hi) return;  // past the plan's end (uniform over the CTA)
-  const int n0 = blockIdx.x * BN;
-  const int m0 = tile * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: 64 rows x 32 columns
+// a stage: the lhs box (128 rows x BK k) and the rhs (BN/64 boxes of BK k x
+// 64 n, or one of BN n x BK k), as many stages as shared memory holds
+// beside each consumer warp's staging tile of 8 output rows (BN + 8 values
+// a row: the padding puts the rows a warp writes at once in different banks)
+struct GmmSmem {
+  static constexpr int kA = 128 * BK * 2;
+  static constexpr int kB = BN * BK * 2;
+  static constexpr int kStage = kA + kB;
+  static constexpr int kOutRow = BN + 8;
+  static constexpr int kOutWarp = 8 * kOutRow * 2;
+  static constexpr int kFree = kSmemLimit - 1024 - 16 * 16 - 8 * kOutWarp;
+  static constexpr int kStages = kFree / kStage < 16 ? kFree / kStage : 16;
+  static constexpr int kOut = kStages * kStage;
+  static constexpr int kBars = kOut + 8 * kOutWarp;
+  static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;  // + the alignment slack
+};
 
-  if (g >= a.G) {  // the tail past sum(group_sizes): zeros
-    const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
-    for (int c = threadIdx.x; c < BM * (BN / 2); c += kThreads) {
-      const int r = m0 + c / (BN / 2);
-      const int col = n0 + 2 * (c % (BN / 2));
-      if (r >= row_lo && r < row_hi && col < a.N)
-        *reinterpret_cast<__nv_bfloat162*>(a.out + static_cast<long long>(r) * a.N + col) = z;
-    }
-    return;
+// The unit and n tile of an item, false once the walk is past the plan's
+// end. A group's units u in [first, first + count) own the items
+// [first * n_tiles, (first + count) * n_tiles): unit by unit, each over the
+// n tiles, or under n_major n tile by n tile, each over the units. Unit by
+// unit, a unit's items share its lhs rows; n tile by n tile, the group's
+// units read its columns [n0, n0 + BN) at the same time. Which is faster
+// was measured, not derived (grouped_matmul_gmm_n_major). The tail's units
+// go one by one.
+__device__ __forceinline__ bool gmm_item(const GmmArgs& a, int item, int n_tiles, int& unit, int& n0) {
+  const int u = item / n_tiles;
+  if (a.plan[2 * a.W + u] >= min(a.plan[3 * a.W + u], a.M)) return false;
+  if (!a.n_major) {
+    unit = u;
+    n0 = (item - u * n_tiles) * BN;
+    return true;
   }
+  const int g = a.plan[u];
+  int first = u, count = 1;
+  if (g < a.G) {
+    const int end = min(a.ends[g], a.M), start = g > 0 ? min(a.ends[g - 1], end) : 0;
+    first = u - (a.plan[a.W + u] - start / 128);
+    count = (end - 1) / 128 - start / 128 + 1;  // the group has a unit, so rows
+  }
+  const int j = item - first * n_tiles;
+  unit = first + j % count;
+  n0 = (j / count) * BN;
+  return true;
+}
 
-  const bf16* rhs_g = a.rhs + static_cast<long long>(g) * a.K * a.N;
+// the plan's unit: its group, its tile's first row and its rows [lo, hi)
+__device__ __forceinline__ void gmm_unit(const GmmArgs& a, int unit, int& g, int& m0, int& lo, int& hi) {
+  lo = a.plan[2 * a.W + unit];
+  hi = min(a.plan[3 * a.W + unit], a.M);
+  g = a.plan[unit];
+  m0 = a.plan[a.W + unit] * 128;
+}
+
+template <bool TRANS>
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_kernel(const GmmArgs a, const __grid_constant__ CUtensorMap t_lhs, const __grid_constant__ CUtensorMap t_rhs) {
+  using L = GmmSmem;
+  static_assert(L::kBytes <= kSmemLimit, "gmm shared memory");
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) init_ring(full, empty, kStages);
+  __syncthreads();
+
+  const int n_tiles = (a.N + BN - 1) / BN;
   const int n_k = (a.K + BK - 1) / BK;
-  auto issue = [&](int kt) {
-    if (kt < n_k) {
-      const int st = kt % kStages;
-      load_tile<BM, BK, PA>(a_s + st * BM * PA, a.lhs, a.K, m0, row_lo, row_hi, kt * BK, a.K);
-      if (TRANS)  // rhs_g is [N][K]: rows n0.., columns kt*BK..
-        load_tile<BN, BK, PBT>(b_s + st * B_STAGE, rhs_g, a.K, n0, 0, a.N, kt * BK, a.K);
-      else  // rhs_g is [K][N]: rows kt*BK.., columns n0..
-        load_tile<BK, BN, PB>(b_s + st * B_STAGE, rhs_g, a.N, kt * BK, 0, a.K, n0, a.N);
-    }
-    cp_async_commit();
-  };
+  const int items = a.W * n_tiles;
 
-  float acc[4][4][4];
+  if (threadIdx.x < 128) {
+    // -- producer: one thread loads each item's lhs and rhs boxes, k by k
+    producer_regs();
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      int unit, n0, g, m0, lo, hi;
+      if (!gmm_item(a, item, n_tiles, unit, n0)) break;
+      gmm_unit(a, unit, g, m0, lo, hi);
+      if (g >= a.G) continue;  // the zero tail: nothing to load
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        unsigned char* as = sm + st * L::kStage;
+        bf16* bs = reinterpret_cast<bf16*>(as + L::kA);
+        mbar_arrive_expect_tx(&full[st], L::kStage);
+        tma_load_2d(as, &t_lhs, &full[st], kt * BK, m0);
+        if (TRANS) {
+          tma_load_3d(bs, &t_rhs, &full[st], kt * BK, n0, g);
+        } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt has landed, and every warp is done with tile kt - 1
-    issue(kt + kStages - 1);
-    const int st = kt % kStages;
-    const bf16* as = a_s + st * BM * PA;
-    const bf16* bs = b_s + st * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) ldsm_x4(af[mi], a_addr<PA>(as, wm * 64 + mi * 16, kk * 16, lane));
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t bf[4];
-        if (TRANS)
-          ldsm_x4(bf, b_addr<PBT>(bs, wn * 32 + j * 16, kk * 16, lane));
-        else
-          ldsm_x4_t(bf, bt_addr<PB>(bs, kk * 16, wn * 32 + j * 16, lane));
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma(acc[mi][2 * j], af[mi], bf[0], bf[1]);
-          mma(acc[mi][2 * j + 1], af[mi], bf[2], bf[3]);
+          for (int c = 0; c < BN / 64; ++c) tma_load_3d(bs + c * BK * 64, &t_rhs, &full[st], n0 + c * 64, kt * BK, g);
         }
       }
     }
-  }
-  cp_async_wait<0>();
+  } else {
+    // -- consumers: 64 rows of the tile each
+    consumer_regs();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    bf16* stage_out = reinterpret_cast<bf16*>(sm + L::kOut + (wg * 4 + warp) * L::kOutWarp);
+    float acc[BN / 2];
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      int unit, n0, g, m0, lo, hi;
+      if (!gmm_item(a, item, n_tiles, unit, n0)) break;
+      gmm_unit(a, unit, g, m0, lo, hi);
+      const int w0 = m0 + wg * 64;          // this consumer's first row
+      const int r0 = w0 + warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+      const int c0 = n0 + 2 * (lane & 3);           // and columns c0 + 8j, c0 + 8j + 1
+      if (g >= a.G) {  // the tail past sum(group_sizes): zeros
+        const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (r < lo || r >= hi) continue;
+          bf16* orow = a.out + static_cast<long long>(r) * a.N;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+            if (c0 + 8 * j < a.N) *reinterpret_cast<__nv_bfloat162*>(orow + c0 + 8 * j) = z;
+        }
+        continue;
+      }
+      const bool active = w0 < hi && w0 + 64 > lo;  // uniform over the warpgroup
+      zero(acc);
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int st = it % kStages;
+        mbar_wait(&full[st], (it / kStages) & 1);
+        if (active) {
+          const bf16* as = reinterpret_cast<const bf16*>(sm + st * L::kStage);
+          const bf16* bs = as + L::kA / 2;
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            const uint64_t da = desc_k(as, 128, wg * 64, kk);
+            if (TRANS)
+              wgmma_ss_t<0, 0>(acc, da, desc_k(bs, BN, 0, kk), 1);
+            else
+              wgmma_ss_t<0, 1>(acc, da, desc_mn(bs, BK, 0, kk), 1);
+          }
+          wgmma_commit();
+          // this stage's products done before it is freed: where the loads
+          // bound the kernel, a stage held until the next one has arrived
+          // costs more than the products' overlap gains
+          wgmma_wait<0>();
+          fence_regs(acc);
+        }
+        mbar_arrive(&empty[st]);
+      }
+      if (!active) continue;
 
-  // only this unit's rows: a neighbouring unit may own the rest of the tile
+      // only this unit's rows (a neighbouring unit may own the rest of the
+      // tile), in two passes of the warp's 8 rows through its staging tile:
+      // 4-byte writes in the accumulator's layout, then each row out in
+      // 16-byte stores, a warp writing 512 contiguous bytes at a time
+      const int r8 = lane >> 2;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
-      if (r < row_lo || r >= row_hi) continue;
-      bf16* orow = a.out + static_cast<long long>(r) * a.N;
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(stage_out + r8 * L::kOutRow + 8 * j + 2 * (lane & 3)) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        __syncwarp();
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
-        if (col < a.N)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        for (int i = 0; i < 8; ++i) {
+          const int r = w0 + warp * 16 + 8 * h + i;
+          if (r < lo || r >= hi) continue;
+          bf16* orow = a.out + static_cast<long long>(r) * a.N + n0;
+#pragma unroll
+          for (int c = 8 * lane; c < BN; c += 256)
+            if (n0 + c < a.N)
+              *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<const uint4*>(stage_out + i * L::kOutRow + c);
+        }
+        __syncwarp();
       }
     }
   }
@@ -259,103 +315,232 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(const GmmArgs a) {
 // -- tgmm --------------------------------------------------------------------
 
 struct TgmmArgs {
-  const bf16* lhs;   // [M, K]
-  const bf16* dout;  // [M, N]
   const int* ends;   // [G] inclusive cumsum of group_sizes
-  float* out;        // [G, K, N]
+  const int* order;  // [G] the groups, largest first
   int M, K, N, G;
 };
 
-__global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* l_s = reinterpret_cast<bf16*>(smem);  // [kStages][TR][PL]
-  bf16* d_s = l_s + kStages * TR * PL;        // [kStages][TR][PD]
+template <bool BF16_OUT>
+struct TgmmSmem {
+  static constexpr int kStages = BF16_OUT ? 6 : 5;
+  static constexpr int kL = 2 * kBoxBytes;  // lhs chunk: 64 rows x 128 k, two boxes
+  static constexpr int kD = 2 * kBoxBytes;  // dout chunk: 64 rows x 128 n, two boxes
+  static constexpr int kStage = kL + kD;
+  // a consumer's staging tile, 64 x 128 of the output: boxes of 64 rows x
+  // 128 bytes (32 fp32 or 64 bf16 columns)
+  static constexpr int kOutBoxes = BF16_OUT ? 2 : 4;
+  static constexpr int kOutTile = kOutBoxes * kBoxBytes;
+  static constexpr int kOut = kStages * kStage;
+  static constexpr int kBars = kOut + 2 * kOutTile;
+  static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;
+};
+static_assert(TgmmSmem<true>::kBytes <= kSmemLimit && TgmmSmem<false>::kBytes <= kSmemLimit,
+              "tgmm shared memory");
 
-  const int g = blockIdx.z;
-  const int k0 = blockIdx.y * TK;
-  const int n0 = blockIdx.x * TN;
-  const int end = min(a.ends[g], a.M);
-  const int start = min(g > 0 ? a.ends[g - 1] : 0, end);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: 64 of k x 32 of n
+// the group of an item and its rows [start, end)
+__device__ __forceinline__ int tgmm_group(const TgmmArgs& a, int gi, int& start, int& end) {
+  const int g = a.order[gi];
+  end = min(a.ends[g], a.M);
+  start = min(g > 0 ? a.ends[g - 1] : 0, end);
+  return g;
+}
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+template <bool BF16_OUT>
+__global__ void __launch_bounds__(kThreads, 1)
+    tgmm_kernel(const TgmmArgs a, const __grid_constant__ CUtensorMap t_lhs, const __grid_constant__ CUtensorMap t_dout,
+                const __grid_constant__ CUtensorMap t_out) {
+  using L = TgmmSmem<BF16_OUT>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) init_ring(full, empty, kStages);
+  __syncthreads();
 
-  const int n_chunks = (end - start + TR - 1) / TR;
-  auto issue = [&](int c) {
-    if (c < n_chunks) {
-      const int st = c % kStages;
-      const int r0 = start + c * TR;
-      load_tile<TR, TK, PL>(l_s + st * TR * PL, a.lhs, a.K, r0, start, end, k0, a.K);
-      load_tile<TR, TN, PD>(d_s + st * TR * PD, a.dout, a.N, r0, start, end, n0, a.N);
+  const int n_tiles = (a.N + 127) / 128;
+  const int per_group = ((a.K + 127) / 128) * n_tiles;
+  const int items = a.G * per_group;
+
+  if (threadIdx.x < 128) {
+    // -- producer: one thread loads each item's chunks of lhs and dout rows
+    producer_regs();
+    if (threadIdx.x != 0) return;
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int gi = item / per_group, rest = item - gi * per_group;
+      const int k0 = (rest / n_tiles) * 128, n0 = (rest % n_tiles) * 128;
+      int start, end;
+      tgmm_group(a, gi, start, end);
+      for (int r = start; r < end; r += 64, ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        unsigned char* ls = sm + st * L::kStage;
+        unsigned char* ds = ls + L::kL;
+        mbar_arrive_expect_tx(&full[st], L::kStage);
+        tma_load_2d(ls, &t_lhs, &full[st], k0, r);
+        tma_load_2d(ls + kBoxBytes, &t_lhs, &full[st], k0 + 64, r);
+        tma_load_2d(ds, &t_dout, &full[st], n0, r);
+        tma_load_2d(ds + kBoxBytes, &t_dout, &full[st], n0 + 64, r);
+      }
     }
-    cp_async_commit();
-  };
+  } else {
+    // -- consumers: 64 k rows of the 128 x 128 slab tile each
+    consumer_regs();
+    const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    unsigned char* stage_out = sm + L::kOut + wg * L::kOutTile;
+    float acc[64];
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int gi = item / per_group, rest = item - gi * per_group;
+      const int k0 = (rest / n_tiles) * 128, n0 = (rest % n_tiles) * 128;
+      int start, end;
+      const int g = tgmm_group(a, gi, start, end);
+      zero(acc);
+      int prev = 0;
+      for (int r = start; r < end; r += 64, ++it) {
+        const int st = it % kStages;
+        mbar_wait(&full[st], (it / kStages) & 1);
+        unsigned char* ls = sm + st * L::kStage;
+        const int valid = end - r;
+        if (valid < 64) {
+          // the group's last chunk: its rows from `valid` on belong to
+          // another group or lie past the groups, so zero them in all four
+          // boxes (whole 128-byte rows: the swizzle permutes within a row)
+          const int first = valid * 128 / 16, per_box = kBoxBytes / 16;
+          for (int i = threadIdx.x - 128; i < 4 * (per_box - first); i += kConsumers) {
+            const int box = i / (per_box - first), off = first + i % (per_box - first);
+            reinterpret_cast<uint4*>(ls + box * kBoxBytes)[off] = make_uint4(0, 0, 0, 0);
+          }
+          fence_proxy_async();
+          named_barrier(1, kConsumers);
+        }
+        const bf16* lsb = reinterpret_cast<const bf16*>(ls);
+        const bf16* dsb = lsb + L::kL / 2;
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    issue(c + kStages - 1);
-    const int st = c % kStages;
-    const bf16* ls = l_s + st * TR * PL;
-    const bf16* ds = d_s + st * TR * PD;
+        for (int kc = 0; kc < 4; ++kc) wgmma_ss_t<1, 1>(acc, desc_mn(lsb, 64, wg, kc), desc_mn(dsb, 64, 0, kc), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if (r > start) mbar_arrive(&empty[prev]);
+        prev = st;
+      }
+      wgmma_wait<0>();  // also where no chunk ran: ptxas then sees no product in flight
+      fence_regs(acc);
+      if (end > start) mbar_arrive(&empty[prev]);
+
+      // the epilogue: the staging tile is free once the previous store has read it
+      if (tid == 0) bulk_wait_read<0>();
+      named_barrier(2 + wg, 128);
 #pragma unroll
-    for (int kk = 0; kk < TR / 16; ++kk) {  // contraction over 16 rows at a time
-      uint32_t af[4][4];
+      for (int j = 0; j < 16; ++j) {
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) ldsm_x4_t(af[mi], at_addr<PL>(ls, wm * 64 + mi * 16, kk * 16, lane));
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, bt_addr<PD>(ds, kk * 16, wn * 32 + j * 16, lane));
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma(acc[mi][2 * j], af[mi], bf[0], bf[1]);
-          mma(acc[mi][2 * j + 1], af[mi], bf[2], bf[3]);
+        for (int h = 0; h < 2; ++h) {
+          const int row = warp * 16 + (lane >> 2) + 8 * h;
+          const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+          if (BF16_OUT) {  // box j / 8, 16-byte chunk j % 8 of the row, swizzled
+            unsigned char* p = stage_out + (j >> 3) * kBoxBytes + row * 128 + (((j & 7) ^ (row & 7)) << 4) +
+                               (lane & 3) * 4;
+            *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+          } else {  // box j / 4, 16-byte chunk 2 (j % 4) + (lane % 4) / 2, swizzled
+            const int chunk = 2 * (j & 3) + ((lane & 3) >> 1);
+            unsigned char* p = stage_out + (j >> 2) * kBoxBytes + row * 128 + ((chunk ^ (row & 7)) << 4) +
+                               (lane & 1) * 8;
+            *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+          }
         }
       }
-    }
-  }
-  cp_async_wait<0>();
-
-  float* out_g = a.out + static_cast<long long>(g) * a.K * a.N;
+      fence_proxy_async();
+      named_barrier(2 + wg, 128);
+      if (tid == 0) {
+        constexpr int kCols = BF16_OUT ? 64 : 32;  // columns of a box
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kr = k0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
-      if (kr >= a.K) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
-        if (col < a.N)
-          *reinterpret_cast<float2*>(out_g + static_cast<long long>(kr) * a.N + col) =
-              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+        for (int b = 0; b < L::kOutBoxes; ++b)
+          tma_store_3d(&t_out, stage_out + b * kBoxBytes, n0 + b * kCols, k0 + wg * 64, g);
+        bulk_commit();
       }
     }
+    if (tid == 0) bulk_wait<0>();
   }
 }
 
 // -- launch ------------------------------------------------------------------
 
-template <typename Kernel, typename A>
-int launch(Kernel kernel, dim3 grid, size_t smem, const A& a, cudaStream_t stream) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// a tensor map over a row-major tensor of `rank` dims (innermost first),
+// boxes `box` of 128-byte rows, 128-byte swizzle, reads past the bounds as
+// zeros
+int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base, int rank,
+               const long long* dims, const int* box) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return kErrTensorMap;
+  cuuint64_t d[3], strides[2];
+  cuuint32_t b[3], unit[3] = {1, 1, 1};
+  cuuint64_t stride = static_cast<cuuint64_t>(elem_bytes);
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    if (i > 0) strides[i - 1] = stride;
+    stride *= d[i];
+  }
+  CUresult r = fn(map, type, rank, const_cast<void*>(base), d, strides, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+// one CTA per SM, no more than there are items
+int persistent_grid(int items) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  return max(1, min(items, sms));
+}
+
+template <typename Kernel, typename A, typename... Maps>
+int launch(Kernel kernel, int grid, int smem, cudaStream_t stream, const A& a, const Maps&... maps) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a, maps...);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool shape_ok(int M, int K, int N, int G) {
   return M >= 1 && K >= 8 && N >= 8 && G >= 1 && K % 8 == 0 && N % 8 == 0;
+}
+
+template <bool TRANS>
+int gmm_launch(const GmmArgs& a, const void* lhs, const void* rhs, cudaStream_t stream) {
+  if (int rc = bind_primary_context()) return rc;
+  CUtensorMap t_lhs, t_rhs;
+  const long long lhs_dims[2] = {a.K, a.M};
+  const int lhs_box[2] = {BK, 128};
+  const long long rhs_dims[3] = {TRANS ? a.K : a.N, TRANS ? a.N : a.K, a.G};
+  const int rhs_box[3] = {TRANS ? BK : 64, TRANS ? BN : BK, 1};
+  int rc;
+  if ((rc = tensor_map(&t_lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs, 2, lhs_dims, lhs_box)) ||
+      (rc = tensor_map(&t_rhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rhs, 3, rhs_dims, rhs_box)))
+    return rc;
+  const int items = a.W * ((a.N + BN - 1) / BN);
+  return launch(gmm_kernel<TRANS>, persistent_grid(items), GmmSmem::kBytes, stream, a, t_lhs, t_rhs);
+}
+
+template <bool BF16_OUT>
+int tgmm_launch(const TgmmArgs& a, const void* lhs, const void* dout, void* out, cudaStream_t stream) {
+  if (int rc = bind_primary_context()) return rc;
+  CUtensorMap t_lhs, t_dout, t_out;
+  const long long lhs_dims[2] = {a.K, a.M}, dout_dims[2] = {a.N, a.M}, out_dims[3] = {a.N, a.K, a.G};
+  const int in_box[2] = {64, 64};
+  const int out_box[3] = {BF16_OUT ? 64 : 32, 64, 1};
+  int rc;
+  if ((rc = tensor_map(&t_lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs, 2, lhs_dims, in_box)) ||
+      (rc = tensor_map(&t_dout, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dout, 2, dout_dims, in_box)) ||
+      (rc = tensor_map(&t_out, BF16_OUT ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       BF16_OUT ? 2 : 4, out, 3, out_dims, out_box)))
+    return rc;
+  const int items = a.G * ((a.K + 127) / 128) * ((a.N + 127) / 128);
+  return launch(tgmm_kernel<BF16_OUT>, persistent_grid(items), TgmmSmem<BF16_OUT>::kBytes, stream, a, t_lhs,
+                t_dout, t_out);
 }
 
 }  // namespace
@@ -364,36 +549,40 @@ extern "C" {
 
 // Each launches on `stream`, allocates nothing and returns cudaGetLastError()
 // after the launch (0 = launched), or an error code for a shape it does not
-// take (K or N not a multiple of 8).
+// take (K or N not a multiple of 8) or a tensor map the driver refused. Every
+// tensor must start on a 16-byte boundary (TMA).
+
+// The order of a group's items the wrapper gives gmm: n tile by n tile (1)
+// where the output is at least as wide as the contraction, else unit by unit
+// (0). Fitted to readings, not derived: on an H100 it picked the faster
+// order at five of the six launches chip_smoke.py times both ways.
+int grouped_matmul_gmm_n_major(int K, int N) { return N >= K; }
 
 // plan: int32 [4, W] from ops/grouped_matmul.py gmm_plan with tile 128 and
-// W = ceil(M / 128) + G + 1
-int grouped_matmul_gmm(const void* lhs, const void* rhs, const int* plan, void* out, int M, int K, int N,
-                       int G, int W, int transpose_rhs, void* stream) {
-  if (!shape_ok(M, K, N, G) || W < 1 || W > 65535) return kErrUnsupported;
-  GmmArgs a = {static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs), plan, static_cast<bf16*>(out),
-               M, K, N, G, W};
-  const dim3 grid((N + BN - 1) / BN, W);
-  const size_t a_bytes = static_cast<size_t>(kStages) * BM * PA * sizeof(bf16);
+// W = ceil(M / 128) + G + 1; n_major: 1 a group's items n tile by n tile,
+// 0 unit by unit; ends: int32 [G], the inclusive cumsum of group_sizes,
+// read only under n_major (may be null otherwise)
+int grouped_matmul_gmm(const void* lhs, const void* rhs, const int* plan, const int* ends, void* out, int M, int K,
+                       int N, int G, int W, int transpose_rhs, int n_major, void* stream) {
+  if (!shape_ok(M, K, N, G) || W < 1 || (n_major && !ends)) return kErrUnsupported;
+  GmmArgs a = {plan, ends, static_cast<bf16*>(out), M, K, N, G, W, n_major != 0};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (transpose_rhs)
-    return launch(gmm_kernel<true>, grid, a_bytes + static_cast<size_t>(kStages) * BN * PBT * sizeof(bf16), a,
-                  s);
-  return launch(gmm_kernel<false>, grid, a_bytes + static_cast<size_t>(kStages) * BK * PB * sizeof(bf16), a, s);
+  return transpose_rhs ? gmm_launch<true>(a, lhs, rhs, s) : gmm_launch<false>(a, lhs, rhs, s);
 }
 
-// ends: int32 [G], the inclusive cumsum of group_sizes
-int grouped_matmul_tgmm(const void* lhs, const void* dout, const int* ends, float* out, int M, int K, int N,
-                        int G, void* stream) {
-  if (!shape_ok(M, K, N, G) || G > 65535) return kErrUnsupported;
-  TgmmArgs a = {static_cast<const bf16*>(lhs), static_cast<const bf16*>(dout), ends, out, M, K, N, G};
-  const dim3 grid((N + TN - 1) / TN, (K + TK - 1) / TK, G);
-  const size_t smem = static_cast<size_t>(kStages) * (TR * PL + TR * PD) * sizeof(bf16);
-  return launch(tgmm_kernel, grid, smem, a, reinterpret_cast<cudaStream_t>(stream));
+// ends: int32 [G], the inclusive cumsum of group_sizes; order: int32 [G],
+// every group once, largest first; out [G, K, N] fp32 (out_bf16 = 0) or bf16
+int grouped_matmul_tgmm(const void* lhs, const void* dout, const int* ends, const int* order, void* out, int M,
+                        int K, int N, int G, int out_bf16, void* stream) {
+  if (!shape_ok(M, K, N, G)) return kErrUnsupported;
+  TgmmArgs a = {ends, order, M, K, N, G};
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return out_bf16 ? tgmm_launch<true>(a, lhs, dout, out, s) : tgmm_launch<false>(a, lhs, dout, out, s);
 }
 
 const char* grouped_matmul_error_string(int code) {
   if (code == kErrUnsupported) return "shape not supported by the grouped-matmul kernels";
+  if (code == kErrTensorMap) return "cuTensorMapEncodeTiled refused a tensor map (or the driver lacks it)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -2,8 +2,9 @@
 ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/lib<name>-<hash>.so`` (the hash is of the source, so an edited
-source never loads a stale library), with ptxas's report of each kernel's
+``_build/lib<name>-<hash>.so`` (the hash is of the source and of every
+``csrc`` header it includes, so an edited source or header never loads a
+stale library), with ptxas's report of each kernel's
 registers, spills and shared memory (``-Xptxas -v``) kept beside it as
 ``lib<name>-<hash>.log`` and read by ``ptxas_usage``. ``build`` starts one
 ``nvcc`` per source at once and waits for all of them; ``load`` builds on
@@ -44,10 +45,28 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` file it includes with quotes,
+    directly or through another, each once, in the order they are met."""
+    found: list[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC_DIR / inc for inc in _INCLUDE.findall(path.read_text()) if (CSRC_DIR / inc).is_file()]
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str]) -> dict[str, Path]:

@@ -14,12 +14,15 @@ of the cumsum of ``group_sizes`` (int32, on lhs's device). Rows at or past
 ``sum(group_sizes)`` come out of ``gmm`` as zeros; the TPU kernel leaves
 them uninitialised.
 
-The gmm kernel walks a fixed grid of work units, one per (group, 128-row
-tile) pair that overlaps, plus the tail past the last group. ``gmm_plan``
-builds that schedule on the device with torch ops (cumsum, searchsorted),
-with no host sync, as the JAX ``_plan`` (:70) does; a caller that runs
-several products over the same groups (the MoE layer: two forward and two
-backward gmms) builds it once and passes it on.
+The gmm kernel walks work units, one per (group, 128-row tile) pair that
+overlaps, plus the tail past the last group, each against every n tile, on
+a persistent grid in the units' order. ``gmm_plan`` builds that list on the
+device with torch ops (cumsum, searchsorted), with no host sync, as the JAX
+``_plan`` (:70) does; a caller that runs several products over the same
+groups (the MoE layer: two forward and two backward gmms) builds it once
+and passes it on. The tgmm kernel walks (group, k tile, n tile) items with
+the groups largest first, in the order ``tgmm_group_order`` sorts on the
+device.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 # the CUDA kernels' limits (csrc/grouped_matmul.cu)
 CUDA_DTYPES = (torch.bfloat16,)
 GMM_TILE_M = 128
-ALIGN = 8  # K and N in multiples of 8 elements (16-byte cp.async chunks)
+ALIGN = 8  # K and N in multiples of 8 elements (TMA's 16-byte global strides)
+TGMM_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 # -- the work-unit plan -------------------------------------------------------------
@@ -67,6 +71,13 @@ def gmm_plan(group_sizes: torch.Tensor, m: int, tm: int = GMM_TILE_M) -> torch.T
     return torch.stack([g, tile, row_s, row_e]).to(torch.int32).contiguous()
 
 
+def tgmm_group_order(group_sizes: torch.Tensor) -> torch.Tensor:
+    """int32 [G] on group_sizes' device: every group once, the largest
+    first (ties in index order), the order in which the tgmm kernel takes
+    the groups' items, so that the longest contractions start first."""
+    return torch.argsort(group_sizes, descending=True, stable=True).to(torch.int32)
+
+
 # -- plain versions -----------------------------------------------------------------
 
 
@@ -89,15 +100,15 @@ def _gmm_plain(lhs, rhs, group_sizes, transpose_rhs: bool = False) -> torch.Tens
     return out.to(lhs.dtype)
 
 
-def _tgmm_plain(lhs, dout, group_sizes) -> torch.Tensor:
-    """tgmm in fp32 torch: [G, K, N] fp32, lhs_g^T @ dout_g, zeros for an
-    empty group."""
+def _tgmm_plain(lhs, dout, group_sizes, out_dtype=torch.float32) -> torch.Tensor:
+    """tgmm in fp32 torch: [G, K, N], lhs_g^T @ dout_g summed in fp32 and
+    cast once to ``out_dtype``, zeros for an empty group."""
     M, K = lhs.shape
     out = torch.zeros((group_sizes.shape[0], K, dout.shape[1]), dtype=torch.float32, device=lhs.device)
     for g, (s, e) in enumerate(_bounds(group_sizes, M)):
         if e > s:
             out[g] = lhs[s:e].float().t() @ dout[s:e].float()
-    return out
+    return out.to(out_dtype)
 
 
 # -- the CUDA kernels ---------------------------------------------------------------
@@ -109,9 +120,11 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda_build.load("grouped_matmul")
     if not hasattr(lib, "_gmm_bound"):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_matmul_gmm.argtypes = [p] * 4 + [i] * 6 + [p]  # ..., M, K, N, G, W, transpose, stream
-        lib.grouped_matmul_tgmm.argtypes = [p] * 4 + [i] * 4 + [p]  # ..., M, K, N, G, stream
+        lib.grouped_matmul_gmm.argtypes = [p] * 5 + [i] * 7 + [p]  # ..., M, K, N, G, W, transpose, n_major, stream
+        lib.grouped_matmul_tgmm.argtypes = [p] * 5 + [i] * 5 + [p]  # ..., M, K, N, G, out_bf16, stream
         lib.grouped_matmul_gmm.restype = i
+        lib.grouped_matmul_gmm_n_major.argtypes = [i, i]  # K, N -> 1: a group's items n tile by n tile
+        lib.grouped_matmul_gmm_n_major.restype = i
         lib.grouped_matmul_tgmm.restype = i
         lib.grouped_matmul_error_string.argtypes = [i]
         lib.grouped_matmul_error_string.restype = ctypes.c_char_p
@@ -136,7 +149,7 @@ def _check_cuda(name: str, group_sizes: torch.Tensor, **tensors: torch.Tensor) -
         if not t.is_contiguous():
             raise ValueError(f"{name}: {t_name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {t_name} must start on a 16-byte boundary (cp.async)")
+            raise ValueError(f"{name}: {t_name} must start on a 16-byte boundary (TMA)")
         if t.shape[-1] % ALIGN:
             raise ValueError(f"{name}: {t_name}'s last dim {t.shape[-1]} must be a multiple of {ALIGN}")
     if group_sizes.dtype != torch.int32 or group_sizes.dim() != 1 or group_sizes.device != first.device:
@@ -185,15 +198,7 @@ def gmm(
     W = -(-M // GMM_TILE_M) + G + 1
     if plan.dtype != torch.int32 or tuple(plan.shape) != (4, W) or plan.device != lhs.device:
         raise ValueError(f"gmm: plan must be int32 [4, {W}] on {lhs.device} (gmm_plan(group_sizes, {M}))")
-    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
-    lib = _lib()
-    with torch.cuda.device(lhs.device):
-        stream = torch.cuda.current_stream(lhs.device).cuda_stream
-        rc = lib.grouped_matmul_gmm(
-            lhs.data_ptr(), rhs.data_ptr(), plan.data_ptr(), out.data_ptr(),
-            M, K, N, G, W, int(bool(transpose_rhs)), stream,
-        )
-    _raise_on(lib, rc, "gmm")
+    out = _gmm_launch(lhs, rhs, group_sizes, plan, N, transpose_rhs, bool(_lib().grouped_matmul_gmm_n_major(K, N)))
     if transpose_rhs:
         gmm.launches_t += 1
     else:
@@ -201,24 +206,52 @@ def gmm(
     return out
 
 
-def tgmm(lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
-    """Per group lhs_g^T @ dout_g: lhs [M, K] x dout [M, N] → [G, K, N]
-    fp32, zeros for an empty group. CUDA tensors launch the kernel
-    (counted in ``tgmm.launches``); CPU tensors run the plain version."""
+def _gmm_launch(lhs, rhs, group_sizes, plan, N: int, transpose_rhs: bool, n_major: bool) -> torch.Tensor:
+    """One launch of the gmm kernel on checked operands, a group's items
+    n tile by n tile under ``n_major``, else unit by unit. ``gmm`` takes
+    ``grouped_matmul_gmm_n_major(K, N)``; the tests and chip_smoke.py call
+    this to time or check the other order."""
+    M, K = lhs.shape
+    G, W = rhs.shape[0], plan.shape[1]
+    # the groups' ends: only the order n tile by n tile reads them
+    ends = torch.cumsum(group_sizes, 0, dtype=torch.int32) if n_major else None
+    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+    lib = _lib()
+    with torch.cuda.device(lhs.device):
+        stream = torch.cuda.current_stream(lhs.device).cuda_stream
+        rc = lib.grouped_matmul_gmm(
+            lhs.data_ptr(), rhs.data_ptr(), plan.data_ptr(), None if ends is None else ends.data_ptr(),
+            out.data_ptr(), M, K, N, G, W, int(bool(transpose_rhs)), int(n_major), stream,
+        )
+    _raise_on(lib, rc, "gmm")
+    return out
+
+
+def tgmm(
+    lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor, out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Per group lhs_g^T @ dout_g: lhs [M, K] x dout [M, N] → [G, K, N],
+    summed in fp32 and written in ``out_dtype`` (fp32, JAX's ``_tgmm``, or
+    bf16, the backward's cast taken in the kernel), zeros for an empty
+    group. CUDA tensors launch the kernel (counted in ``tgmm.launches``);
+    CPU tensors run the plain version."""
     M, K = lhs.shape
     if dout.dim() != 2 or dout.shape[0] != M or group_sizes.dim() != 1:
         raise ValueError(f"tgmm: lhs {tuple(lhs.shape)} and dout {tuple(dout.shape)} do not match")
     G, N = group_sizes.shape[0], dout.shape[1]
     if _device_kind("tgmm", lhs) == "cpu":
-        return _tgmm_plain(lhs, dout, group_sizes)
+        return _tgmm_plain(lhs, dout, group_sizes, out_dtype)
     _check_cuda("tgmm", group_sizes, lhs=lhs, dout=dout)
+    if out_dtype not in TGMM_OUT_DTYPES:
+        raise ValueError(f"tgmm: the CUDA kernel writes {TGMM_OUT_DTYPES}, not {out_dtype}")
     ends = torch.cumsum(group_sizes, 0, dtype=torch.int32)
-    out = torch.empty((G, K, N), dtype=torch.float32, device=lhs.device)
+    order = tgmm_group_order(group_sizes)
+    out = torch.empty((G, K, N), dtype=out_dtype, device=lhs.device)
     lib = _lib()
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
-        rc = lib.grouped_matmul_tgmm(lhs.data_ptr(), dout.data_ptr(), ends.data_ptr(), out.data_ptr(),
-                                     M, K, N, G, stream)
+        rc = lib.grouped_matmul_tgmm(lhs.data_ptr(), dout.data_ptr(), ends.data_ptr(), order.data_ptr(),
+                                     out.data_ptr(), M, K, N, G, int(out_dtype == torch.bfloat16), stream)
     _raise_on(lib, rc, "tgmm")
     tgmm.launches += 1
     return out
@@ -232,7 +265,8 @@ tgmm.launches = 0
 class _RaggedDot(torch.autograd.Function):
     """The JAX custom VJP (:318-333): dlhs = gmm(dout, rhs) against the
     opposite axis of rhs, drhs = tgmm(lhs, dout) (or tgmm(dout, lhs) under
-    transpose_rhs), both cast to their primal's dtype."""
+    transpose_rhs), both cast to their primal's dtype (drhs's cast inside
+    tgmm: the fp32 sum rounded once)."""
 
     @staticmethod
     def forward(ctx, lhs, rhs, group_sizes, transpose_rhs, plan):
@@ -249,7 +283,7 @@ class _RaggedDot(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dlhs = gmm(dout, rhs, group_sizes, transpose_rhs=not t, plan=plan).to(lhs.dtype)
         if ctx.needs_input_grad[1]:
-            drhs = (tgmm(dout, lhs, group_sizes) if t else tgmm(lhs, dout, group_sizes)).to(rhs.dtype)
+            drhs = tgmm(dout, lhs, group_sizes, rhs.dtype) if t else tgmm(lhs, dout, group_sizes, rhs.dtype)
         return dlhs, drhs, None, None, None
 
 

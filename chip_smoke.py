@@ -53,14 +53,21 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    layers x microbatches x steps times; then a profile of one step;
 7. one step's loss and grad norm at those widths with ``attn: flash``
    against ``attn: sdpa`` (plain attention), same weights and batch;
-8. the grouped-matmul kernels (gmm, gmm with a transposed rhs, tgmm)
-   against their plain versions at Qwen3-30B-A3B's MoE shapes (4096
-   tokens routed top-8 over 128 experts: M = 32768 rows, hidden 2048,
-   expert width 768): routing from a real gate (all six launches of a
-   layer's forward and backward, timed against the plain versions,
-   ``torch._grouped_mm`` and the bound), balanced routing, skewed groups
-   (empty first and last experts, one expert holding a quarter of the
-   rows) and K = N = 1000;
+8. the grouped-matmul kernels (gmm, gmm with a transposed rhs, tgmm with
+   an fp32 and a bf16 output) against their plain versions at
+   Qwen3-30B-A3B's MoE shapes (4096 tokens routed top-8 over 128 experts:
+   M = 32768 rows, hidden 2048, expert width 768): routing from a real gate
+   (all six launches of a layer's forward and backward, tgmm in both
+   output types, timed against the plain versions, ``torch._grouped_mm``
+   and the bound of the output type written), balanced routing, skewed
+   groups (empty first and last experts, one expert holding a quarter of
+   the rows) and K = N = 1000; then gmm and gmm_t at gpt-oss-20b's
+   recompute shapes in K3's backward (4096 tokens routed top-4 over 32
+   experts by the gpt-oss gate: M = 16384, (K, N) = (2880, 5760) and
+   (2880, 2880)), timed the same way. tgmm's bf16 output must equal its
+   fp32 output cast to bf16 bit for bit; gmm's times are taken with the
+   plan given, as the MoE layer runs it, and in each of the kernel's two
+   orders of a group's items beside the one gmm picks;
 9. MoE training at Qwen3-30B-A3B widths cut to 4 layers
    (``automodel_tpu_torch/configs/pretrain_qwen3_moe_a3b.yaml``), built by
    the ``pretrain`` CLI's recipe class: 4 steps of 2 microbatches of 4096
@@ -110,11 +117,12 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
 phase 3b right after phase 3, phases 15 and 16 last. After the build the
-script prints ptxas's registers and spills for each flash kernel, with the
-registers its SASS names and the counts its ``setmaxnreg`` instructions
-set, and fails if any of the 18 spills; the register split read from the
-SASS is printed just before the ``kernels`` line, and each flash entry
-carries the SASS reading of its instantiations.
+script prints ptxas's registers and spills for each flash and grouped-matmul
+kernel, with the registers its SASS names and the counts its ``setmaxnreg``
+instructions set, and fails if any of the 18 flash or 4 grouped-matmul
+instantiations spills; the flash register split read from the SASS is
+printed just before the ``kernels`` line, and each flash and grouped-matmul
+entry carries the readings of its instantiations.
 The ``kernels`` JSON line comes third from last, the ``nvidia-smi`` card
 line second, and the last line is ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
@@ -1251,19 +1259,19 @@ def moe_rows(torch, dev, routing: str, seed: int):
     return x.index_select(0, order // K), gout.expert_counts
 
 
-def grouped_bound(kind: str, a, b, gs, n_out: int) -> tuple[float, str]:
+def grouped_bound(kind: str, a, b, gs, n_out: int, out_bytes: int = 2) -> tuple[float, str]:
     """Least time of one launch: 2 flops per routed row and (k, n) pair
     over the bf16 peak, against the bytes (lhs and the second operand read
     once, only the rhs slabs of groups that received rows, the output
     written once) over HBM bandwidth. gmm / gmm_t: a [M, K], b the stacked
     rhs, output [M, n_out] bf16; tgmm: a [M, K], b dout [M, N], output
-    [G, K, N] fp32."""
+    [G, K, N] of ``out_bytes`` an element (4 fp32, 2 bf16)."""
     M, K = a.shape
     rows = int(gs.sum())
     G = gs.shape[0]
     if kind == "tgmm":
         N = b.shape[1]
-        nbytes = a.numel() * 2 + b.numel() * 2 + G * K * N * 4
+        nbytes = a.numel() * 2 + b.numel() * 2 + G * K * N * out_bytes
     else:
         N = n_out
         nbytes = a.numel() * 2 + int((gs > 0).sum()) * K * N * 2 + M * N * 2
@@ -1271,82 +1279,116 @@ def grouped_bound(kind: str, a, b, gs, n_out: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def grouped_library_ms(torch, kind: str, a, b, gs):
+def grouped_library_ms(torch, kind: str, a, b, gs, out_dtype=None):
     """``torch._grouped_mm`` on the same operands (a yardstick only; the
-    port never calls it), or None where this torch has none or refuses."""
+    port never calls it), or None where this torch has none or refuses
+    (tgmm's fp32 output may be refused: its output is bf16)."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
         return None
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    kw = {} if out_dtype in (None, torch.bfloat16) else dict(out_dtype=out_dtype)
     calls = dict(
         gmm=lambda: fn(a, b, offs=offs),
         gmm_t=lambda: fn(a, b.transpose(-2, -1), offs=offs),
-        tgmm=lambda: fn(a.t(), b, offs=offs),
+        tgmm=lambda: fn(a.t(), b, offs=offs, **kw),
     )
     try:
         return cuda_ms(calls[kind], iters=20)
     except (RuntimeError, TypeError, ValueError) as e:
-        print(f"torch._grouped_mm refused the {kind} case: {str(e)[:200]}", flush=True)
+        print(f"torch._grouped_mm refused the {kind} case ({out_dtype}): {str(e)[:200]}", flush=True)
         return None
 
 
 def phase_grouped_kernels(torch, dev) -> dict:
+    """gmm, gmm_t and tgmm (both output types) against their plain versions
+    at Qwen3-30B-A3B's MoE shapes (four routings) and gmm / gmm_t at
+    gpt-oss-20b's recompute shapes (K3's backward), timed at the gate-routed
+    cases; tgmm's bf16 output must also equal its fp32 output cast to bf16
+    bit for bit."""
     from automodel_tpu_torch.ops import grouped_matmul as gm
 
     hf = QWEN3_MOE_A3B
     D, I, E = hf["hidden_size"], hf["moe_intermediate_size"], hf["num_experts"]
     g = torch.Generator(device=dev).manual_seed(100)
+    bf16, fp32 = torch.bfloat16, torch.float32
 
     def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
 
     w_gu = randn(E, D, 2 * I, scale=D**-0.5)
     w_dn = randn(E, I, D, scale=I**-0.5)
     results = []
     for ci, (case, routing) in enumerate((("gate", "gate"), ("balanced", "balanced"), ("skewed", "skewed"),
-                                          ("K=N=1000", "gate"))):
-        xs, gs = moe_rows(torch, dev, routing, seed=ci)
-        M = xs.shape[0]
-        if case == "K=N=1000":
-            w_odd = randn(E, 1000, 1000, scale=1000**-0.5)
-            lhs = randn(M, 1000)
-            launches = dict(gmm=(lhs, w_odd, 1000), gmm_t=(randn(M, 1000), w_odd, 1000),
-                            tgmm=(lhs, randn(M, 1000), None))
+                                          ("K=N=1000", "gate"), ("gpt-oss", "gpt-oss"))):
+        # name -> (kind, a, b, n_out or None, output dtype)
+        if case == "gpt-oss":  # K3's backward: gu = gmm(x, gate_up), dmid = gmm(dy, down, transpose_rhs)
+            xs, gs = gpt_oss_rows(torch, dev, "gate", seed=ci)
+            M, Do, Io, Eo = xs.shape[0], GPT_OSS_20B["hidden_size"], GPT_OSS_20B["intermediate_size"], gs.shape[0]
+            launches = dict(gmm=("gmm", xs, randn(Eo, Do, 2 * Io, scale=Do**-0.5), 2 * Io, bf16),
+                            gmm_t=("gmm_t", randn(M, Do), randn(Eo, Io, Do, scale=Io**-0.5), Io, bf16))
         else:
-            dgu = randn(M, 2 * I)
-            launches = dict(gmm=(xs, w_gu, 2 * I), gmm_t=(dgu, w_gu, D), tgmm=(xs, dgu, None))
-            if case == "gate":  # the down projection's three launches as well
-                h, dy = randn(M, I), randn(M, D)
-                launches.update(gmm_down=(h, w_dn, D), gmm_t_down=(dy, w_dn, I), tgmm_down=(h, dy, None))
-        for name, (a, b, n_out) in launches.items():
-            kind = name.split("_down")[0]
+            xs, gs = moe_rows(torch, dev, routing, seed=ci)
+            M = xs.shape[0]
+            if case == "K=N=1000":
+                w_odd = randn(E, 1000, 1000, scale=1000**-0.5)
+                lhs, dy = randn(M, 1000), randn(M, 1000)
+                launches = dict(gmm=("gmm", lhs, w_odd, 1000, bf16), gmm_t=("gmm_t", randn(M, 1000), w_odd, 1000, bf16),
+                                tgmm=("tgmm", lhs, dy, None, fp32), tgmm_bf16=("tgmm", lhs, dy, None, bf16))
+            else:
+                dgu = randn(M, 2 * I)
+                launches = dict(gmm=("gmm", xs, w_gu, 2 * I, bf16), gmm_t=("gmm_t", dgu, w_gu, D, bf16),
+                                tgmm=("tgmm", xs, dgu, None, fp32), tgmm_bf16=("tgmm", xs, dgu, None, bf16))
+                if case == "gate":  # the down projection's launches as well
+                    h, dy = randn(M, I), randn(M, D)
+                    launches.update(gmm_down=("gmm", h, w_dn, D, bf16), gmm_t_down=("gmm_t", dy, w_dn, I, bf16),
+                                    tgmm_down=("tgmm", h, dy, None, fp32), tgmm_bf16_down=("tgmm", h, dy, None, bf16))
+        timed = case in ("gate", "gpt-oss")
+        # the MoE layer builds the plan once and passes it to its four gmm
+        # launches (ops/grouped_matmul.ragged_dot), so gmm is timed with it given
+        plan = gm.gmm_plan(gs, M)
+        for name, (kind, a, b, n_out, dt) in launches.items():
             if kind == "tgmm":
-                run, plain = (lambda a=a, b=b: gm.tgmm(a, b, gs)), (lambda a=a, b=b: gm._tgmm_plain(a, b, gs))
+                run = lambda a=a, b=b, dt=dt: gm.tgmm(a, b, gs, dt)
+                plain = lambda a=a, b=b, dt=dt: gm._tgmm_plain(a, b, gs, dt)
             else:
                 t = kind == "gmm_t"
-                run = lambda a=a, b=b, t=t: gm.gmm(a, b, gs, transpose_rhs=t)
+                run = lambda a=a, b=b, t=t: gm.gmm(a, b, gs, transpose_rhs=t, plan=plan)
                 plain = lambda a=a, b=b, t=t: gm._gmm_plain(a, b, gs, transpose_rhs=t)
             out = run()
             torch.cuda.synchronize()
             ref = plain()
             if not bool(torch.isfinite(out.float()).all()):
                 raise RuntimeError(f"grouped kernel {name} produced non-finite values in case {case}")
-            tol = TGMM_ROW_TOL if kind == "tgmm" else GMM_ROW_TOL
-            row = dict(case=case, launch=name, kind=kind, M=M, K=a.shape[1],
-                       N=b.shape[1] if kind == "tgmm" else n_out, groups_with_rows=int((gs > 0).sum()),
-                       largest_group=int(gs.max()), max_abs_err=float((out.float() - ref.float()).abs().max()),
+            # tgmm in fp32: the order of an fp32 sum; in bf16 (and gmm): one bf16 ulp of an fp32 sum
+            tol = TGMM_ROW_TOL if kind == "tgmm" and dt == fp32 else GMM_ROW_TOL
+            row = dict(case=case, launch=name, kind=kind, out_dtype=str(dt).replace("torch.", ""), M=M,
+                       K=a.shape[1], N=b.shape[1] if kind == "tgmm" else n_out, G=gs.shape[0],
+                       groups_with_rows=int((gs > 0).sum()), largest_group=int(gs.max()),
+                       max_abs_err=float((out.float() - ref.float()).abs().max()),
                        max_row_rel_err=row_rel_err(out, ref), limit=tol)
             row["ok"] = row["max_row_rel_err"] <= tol
+            if kind == "tgmm" and dt == bf16:  # the same fp32 sum, rounded once
+                row["equals_fp32_output_cast"] = bool(torch.equal(out, gm.tgmm(a, b, gs).to(bf16)))
+                row["ok"] = row["ok"] and row["equals_fp32_output_cast"]
             del out, ref
-            if case == "gate":
+            if timed:
                 row["ms"] = cuda_ms(run, iters=20)
                 row["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
-                row["bound_ms"], row["bound_by"] = grouped_bound(kind, a, b, gs, n_out)
-                row["library_ms"] = grouped_library_ms(torch, kind, a, b, gs)
+                row["bound_ms"], row["bound_by"] = grouped_bound(kind, a, b, gs, n_out, 2 if dt == bf16 else 4)
+                row["library_ms"] = grouped_library_ms(torch, kind, a, b, gs, dt)
+                if kind != "tgmm":
+                    # the kernel's two orders of a group's items (gmm picks
+                    # one from the shape), and the plan
+                    t = kind == "gmm_t"
+                    row["plan_ms"] = cuda_ms(lambda: gm.gmm_plan(gs, M), iters=20)
+                    row["order"] = "n tiles" if gm._lib().grouped_matmul_gmm_n_major(a.shape[1], n_out) else "units"
+                    row["ms_by_order"] = {o: cuda_ms(lambda nm=nm: gm._gmm_launch(a, b, gs, plan, n_out, t, nm),
+                                                     iters=20) for nm, o in ((False, "units"), (True, "n tiles"))}
             results.append(row)
             print(f"kernel grouped_matmul vs plain: {json.dumps(row)}", flush=True)
             torch.cuda.empty_cache()
-        del xs, launches
+        del xs, launches, plan
         torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -1372,8 +1414,8 @@ def moe_train_config() -> dict:
 
 # kernel families of the MoE profiles, by the kernels' names
 QWEN_FAMILIES = dict(
-    gmm_ms=lambda k: "gmm_kernel<false>" in k,
-    gmm_t_ms=lambda k: "gmm_kernel<true>" in k,
+    gmm_ms=lambda k: "gmm_kernel<false>" in k and "tgmm_kernel" not in k,
+    gmm_t_ms=lambda k: "gmm_kernel<true>" in k and "tgmm_kernel" not in k,
     tgmm_ms=lambda k: "tgmm_kernel" in k,
     flash_fwd_ms=lambda k: "flash_fwd_kernel" in k,
     flash_dq_ms=lambda k: "flash_dq_kernel" in k,
@@ -2054,11 +2096,12 @@ def sinks_flash_entry(name: str, sinks: dict) -> dict:
 
 
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
-                 gpt_oss, flash_cap, gemma, flash_sass) -> dict:
+                 gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the flash
     kernels with what this build's SASS names (``flash_sass``) at each
-    shape's instantiation."""
+    shape's instantiation, the grouped-matmul kernels with ptxas's report
+    and the SASS reading of each instantiation."""
     timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
     main_case = timed["bf16"]
     line = {
@@ -2117,10 +2160,15 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
         if name == "dq":
             line["kernels"][-1]["backward"] = flash_backward_pair(main_flash)
     # grouped matmul: times at the gate_up-shaped launch of the gate-routed
-    # case, the down-shaped launch beside them
-    timed = {r["launch"]: r for r in grouped["cases"] if "ms" in r}
+    # case, the down-shaped launch and gpt-oss-20b's recompute shape beside
+    # them; tgmm's main path writes bf16 (ragged_dot's backward), its fp32
+    # output (JAX's _tgmm) beside it
+    timed = {(r["case"], r["launch"]): r for r in grouped["cases"] if "ms" in r}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "K", "N", "plan_ms")
+    instantiations = dict(gmm="gmm_kernel<0>", gmm_t="gmm_kernel<1>", tgmm="tgmm_kernel<")
     for kind, line_no in (("gmm", 155), ("gmm_t", 155), ("tgmm", 230)):
-        t, down = timed[kind], timed[f"{kind}_down"]
+        main_launch = "tgmm_bf16" if kind == "tgmm" else kind
+        t, down = timed[("gate", main_launch)], timed[("gate", f"{main_launch}_down")]
         rows = [r for r in grouped["cases"] if r["kind"] == kind]
         line["kernels"].append({
             "name": f"grouped_matmul_{kind}",
@@ -2135,9 +2183,21 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "shape": f"M={t['M']} K={t['K']} N={t['N']} G=128, gate-routed (gate_up projection)",
-            "down": {k: down[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "K", "N")},
+            "plan_ms": t.get("plan_ms"),
+            "shape": f"M={t['M']} K={t['K']} N={t['N']} G=128, gate-routed (gate_up projection), "
+                     f"{t['out_dtype']} out",
+            "down": {k: down[k] for k in keys if k in down},
+            "ptxas": [u for u in grouped_ptxas if u["kernel"].startswith(instantiations[kind])],
+            "sass": {k: v for k, v in grouped_sass.items() if k.startswith(instantiations[kind])},
         })
+        if kind == "tgmm":
+            line["kernels"][-1]["fp32_out"] = {k: timed[("gate", "tgmm")][k] for k in keys if k != "plan_ms"}
+            line["kernels"][-1]["fp32_out_down"] = {k: timed[("gate", "tgmm_down")][k] for k in keys if k != "plan_ms"}
+        else:
+            line["kernels"][-1]["gpt_oss"] = {k: timed[("gpt-oss", kind)][k] for k in keys}
+            for entry, r in ((line["kernels"][-1], t), (line["kernels"][-1]["down"], down),
+                             (line["kernels"][-1]["gpt_oss"], timed[("gpt-oss", kind)])):
+                entry.update({k: r[k] for k in ("order", "ms_by_order")})
     # fused expert MLP: times at the gpt-oss gate-routed case; the forward's
     # two launches count as one call, their times apart beside the total
     fmain = next(c for c in fused["cases"] if "timed" in c)
@@ -2204,6 +2264,20 @@ def main() -> int:
         spilled = [u for u in flash_ptxas if u.get("spill_stores") or u.get("spill_loads")]
         if len(flash_ptxas) != 18 or spilled:
             raise RuntimeError(f"flash kernels: want 18 instantiations and no spills, ptxas reports {flash_ptxas}")
+        grouped_ptxas = _cuda_build.ptxas_usage("grouped_matmul")
+        grouped_sass = _cuda_build.sass_registers("grouped_matmul")
+        print(f"ptxas grouped_matmul: {json.dumps(grouped_ptxas)}", flush=True)
+        for u in grouped_ptxas:
+            sass = grouped_sass.get(u["kernel"], {})
+            print(f"ptxas {u['kernel']}: {u.get('registers')} registers at entry, "
+                  f"{sass.get('registers', 'unknown')} named in its code (SASS setmaxnreg dec "
+                  f"{sass.get('setmaxnreg_dec', 'unknown')}, inc {sass.get('setmaxnreg_inc', 'unknown')}), "
+                  f"{u.get('spill_stores', 0)} bytes spill stores, {u.get('spill_loads', 0)} bytes spill loads",
+                  flush=True)
+        # gmm_kernel<transpose> x 2 and tgmm_kernel<bf16 out> x 2
+        spilled = [u for u in grouped_ptxas if u.get("spill_stores") or u.get("spill_loads")]
+        if len(grouped_ptxas) != 4 or spilled:
+            raise RuntimeError(f"grouped kernels: want 4 instantiations and no spills, ptxas reports {grouped_ptxas}")
 
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)
@@ -2246,7 +2320,7 @@ def main() -> int:
         phase_gemma_flash_vs_sdpa(torch)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
-                            fused, gpt_oss, flash_cap, gemma, flash_sass)
+                            fused, gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

@@ -9,6 +9,8 @@ The unmarked tests run on the CPU: they show that the limits the kernels
 are held to would catch a masking fault of a single row or key.
 """
 
+import threading
+
 import pytest
 import torch
 
@@ -508,6 +510,25 @@ def test_sass_registers_are_read_per_kernel():
     }
 
 
+def test_an_edited_header_changes_the_library_path(tmp_path, monkeypatch):
+    """The library's name hashes the source and every csrc header it
+    includes (through another header too), so an edited header is built
+    anew and never loads a stale library."""
+    monkeypatch.setattr(_cuda_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\nint f() { return g(); }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\nint g() { return h(); }\n')
+    (tmp_path / "b.cuh").write_text("int h() { return 1; }\n")
+    assert [p.name for p in _cuda_build._sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _cuda_build._lib_path("k")
+    assert first == _cuda_build._lib_path("k") and first.parent == tmp_path / "_build"
+    (tmp_path / "b.cuh").write_text("int h() { return 2; }\n")
+    second = _cuda_build._lib_path("k")
+    assert second != first and second.name.startswith("libk-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\nint g() { return -h(); }\n')
+    assert _cuda_build._lib_path("k") not in (first, second)
+
+
 # -- grouped matmul (csrc/grouped_matmul.cu) ------------------------------------
 
 from automodel_tpu_torch.ops import grouped_matmul as tgm  # noqa: E402
@@ -594,6 +615,13 @@ def test_grouped_row_check_catches_a_one_row_boundary_shift(case):
         (130, 128, 128, [1, 129]),  # a tile across a group boundary
         (96, 32, 40, [96, 0, 0]),  # one group takes every row
         (300, 64, 64, [0, 50, 0, 78, 0]),  # empty groups at both ends, rows past the groups
+        (512, 128, 192, [100, 1, 300, 111]),  # a 1-row group inside a tile
+        (1024, 256, 256, [50, 400, 574]),  # a group over four 128-row tiles
+        (40, 64, 72, [10, 0, 25]),  # M < 64, rows past the groups
+        (300, 40, 40, [100, 120, 80]),  # K and N cut inside the 64-wide boxes
+        (32768, 768, 2048, ragged_sizes(32768, 128, seed=6)),  # Qwen3-30B-A3B: 128 experts, the down shape
+        (32768, 768, 2048, ragged_sizes(32768, 128, seed=7, empty=(0, 127, 17, 64, 90), big=5)),  # skewed
+        (2048, 2880, 5760, [0, 700, 1, 1200]),  # gpt-oss-20b's widths: 33 MB slabs, gmm n tile by n tile
     ],
 )
 def test_grouped_kernels_match_plain(M, K, N, sizes):
@@ -605,6 +633,80 @@ def test_grouped_kernels_match_plain(M, K, N, sizes):
     err = grouped_errors(lhs, rhs, dout, gs, plain=False)
     assert (tgm.gmm.launches, tgm.gmm.launches_t, tgm.tgmm.launches) == tuple(c + 1 for c in before)
     assert err["gmm"] <= GMM_ROW_TOL and err["gmm_t"] <= GMM_ROW_TOL and err["tgmm"] <= TGMM_ROW_TOL, err
+
+
+def _gmm_tiles_case(dev, transpose_rhs):
+    lhs, rhs, dout, gs = grouped_case(dev, 4096, 512, 640, ragged_sizes(4096, 16, seed=8, empty=(3,), big=9))
+    a = dout if transpose_rhs else lhs
+    return a, rhs, gs, tgm.gmm_plan(gs, a.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_major", [False, True])
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_gmm_n_tiles_and_orders_match_plain(transpose_rhs, n_major):
+    """The gmm kernel's two orders of a group's items (unit by unit, n tile
+    by n tile; gmm picks one from the shape), each against the plain
+    version, over N = 640: two n tiles of 256 and a half tile."""
+    _need_cuda("grouped_matmul")
+    a, rhs, gs, plan = _gmm_tiles_case(torch.device("cuda"), transpose_rhs)
+    N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    got = tgm._gmm_launch(a, rhs, gs, plan, N, transpose_rhs, n_major)
+    torch.cuda.synchronize()
+    assert row_rel_err(got, tgm._gmm_plain(a, rhs, gs, transpose_rhs)) <= GMM_ROW_TOL
+    assert bool((got[int(gs.sum()):] == 0).all())
+
+
+@pytest.mark.cuda
+def test_grouped_kernels_repeat_bit_for_bit():
+    """Two launches of gmm, gmm_t and tgmm (both output types) give the
+    same bits: no atomics, every element one CTA's sum in a fixed order."""
+    _need_cuda("grouped_matmul")
+    lhs, rhs, dout, gs = grouped_case(torch.device("cuda"), 8192, 512, 768,
+                                      ragged_sizes(8192, 32, seed=9, empty=(0, 31), big=4))
+    runs = [lambda: tgm.gmm(lhs, rhs, gs), lambda: tgm.gmm(dout, rhs, gs, transpose_rhs=True),
+            lambda: tgm.tgmm(lhs, dout, gs), lambda: tgm.tgmm(lhs, dout, gs, torch.bfloat16)]
+    for run in runs:
+        first = run()
+        assert torch.equal(first, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,sizes", [(2048, 256, 384, ragged_sizes(2048, 8, seed=4)),
+                                         (1000, 1000, 1000, [0, 333, 1, 500, 100]),
+                                         (4096, 768, 512, ragged_sizes(4096, 16, seed=2, empty=(0, 15), big=7))])
+def test_tgmm_bf16_output_is_its_fp32_output_rounded(M, K, N, sizes):
+    """tgmm written in bf16 (the backward's drhs) equals tgmm written in
+    fp32 and cast to bf16, bit for bit: the same sum, rounded once."""
+    _need_cuda("grouped_matmul")
+    lhs, _, dout, gs = grouped_case(torch.device("cuda"), M, K, N, sizes)
+    got = tgm.tgmm(lhs, dout, gs, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, tgm.tgmm(lhs, dout, gs).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_grouped_kernels_nan_tail_on_the_card():
+    """NaN in the lhs and dout rows past sum(group_sizes): every in-group
+    gmm and gmm_t row and every tgmm slab (both output types) is
+    bit-identical to a clean run's, and finite; the tail's gmm rows are
+    zeros. tgmm's last chunk of a group reads those rows and must zero
+    them before its products."""
+    _need_cuda("grouped_matmul")
+    sizes = [300, 0, 129, 1, 200]  # 630 rows of 1024: the last group ends inside a chunk and a tile
+    lhs, rhs, dout, gs = grouped_case(torch.device("cuda"), 1024, 256, 192, sizes)
+    n = sum(sizes)
+    dirty_l, dirty_d = lhs.clone(), dout.clone()
+    dirty_l[n:] = float("nan")
+    dirty_d[n:] = float("nan")
+
+    def run(l, d):
+        return (tgm.gmm(l, rhs, gs), tgm.gmm(d, rhs, gs, transpose_rhs=True), tgm.tgmm(l, d, gs),
+                tgm.tgmm(l, d, gs, torch.bfloat16))
+
+    clean, dirty = run(lhs, dout), run(dirty_l, dirty_d)
+    for i, (a, b) in enumerate(zip(dirty, clean)):
+        assert bool(torch.isfinite(a.float()).all()) and torch.equal(a, b), i
+    assert bool((dirty[0][n:] == 0).all()) and bool((dirty[1][n:] == 0).all())
 
 
 @pytest.mark.cuda
@@ -622,6 +724,42 @@ def test_ragged_dot_autograd_on_the_card():
 
 
 @pytest.mark.cuda
+def test_tma_kernels_launch_from_a_fresh_host_thread():
+    """gmm, gmm_t, tgmm and the flash forward from a host thread that has
+    made no CUDA call yet, as an autograd worker may be (its outputs come
+    from torch's cache): the tensor maps' driver calls need the device's
+    context, which the launchers bind first. The results equal the main
+    thread's bit for bit."""
+    _need_cuda("grouped_matmul")
+    _need_cuda("flash_attention")
+    lhs, rhs, dout, gs = grouped_case(torch.device("cuda"), 2048, 256, 384, ragged_sizes(2048, 8, seed=4))
+    q, k, v, _, pos, _ = flash_case(torch.device("cuda"), S=512, H=128)
+    plan = tgm.gmm_plan(gs, lhs.shape[0])
+    kw = dict(causal=True, window=None, scale=128**-0.5)
+    calls = [lambda: tgm.gmm(lhs, rhs, gs, plan=plan), lambda: tgm.gmm(dout, rhs, gs, transpose_rhs=True, plan=plan),
+             lambda: trf.flash_block_fwd(q, k, v, pos, pos, None, None, **kw)[0],
+             lambda: tgm.tgmm(lhs, dout, gs, torch.bfloat16)]
+    [c() for c in calls]  # outputs freed: the thread's allocations reuse their blocks
+    torch.cuda.synchronize()
+    want = [c() for c in calls]
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def worker():
+        try:
+            got.extend(c() for c in calls)
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert not errors, errors
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_grouped_kernels_refuse_what_they_do_not_take():
     _need_cuda("grouped_matmul")
     lhs, rhs, dout, gs = grouped_case(torch.device("cuda"), 64, 32, 40, [30, 34])
@@ -636,6 +774,8 @@ def test_grouped_kernels_refuse_what_they_do_not_take():
         tgm.tgmm(lhs.t().contiguous().t(), dout, gs)
     with pytest.raises(ValueError, match="group_sizes"):
         tgm.tgmm(lhs, dout, gs.long())
+    with pytest.raises(ValueError, match="writes"):
+        tgm.tgmm(lhs, dout, gs, torch.float16)
 
 
 # -- fused expert MLP (csrc/fused_expert_mlp.cu) --------------------------------

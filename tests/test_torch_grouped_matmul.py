@@ -67,6 +67,57 @@ def test_ragged_dot_grads_match_the_jax_vjp(transpose_rhs):
     np.testing.assert_allclose(tr.grad.numpy(), np.asarray(jr), atol=1e-4)
 
 
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_ragged_dot_bf16_grads_match_the_jax_vjp(transpose_rhs):
+    """In bf16, as the MoE layer runs it: the port's backward takes drhs's
+    cast to rhs.dtype inside tgmm (an fp32 sum rounded once), JAX's VJP
+    casts tgmm's fp32 result after it (:330-333). The same inputs go to
+    both; fp32 sums in another order may round one bf16 ulp apart, 2^-7 of
+    an element at most."""
+    rng = np.random.default_rng(4)
+    lhs, rhs, gs, _ = _case(rng, 192, 64, 80, 6, [40, 0, 70, 1, 81, 0])
+    if transpose_rhs:
+        rhs = np.ascontiguousarray(rhs.transpose(0, 2, 1))  # [G, N, K]
+    w = rng.normal(size=(192, 80)).astype(np.float32)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+
+    def jloss(l, r):
+        return (jgm._grouped_matmul(l, r, jnp.asarray(gs), True, transpose_rhs) * w).sum()
+
+    jl, jr = jax.grad(jloss, (0, 1))(bf(lhs), bf(rhs))
+    tl = torch.tensor(lhs).to(torch.bfloat16).requires_grad_(True)
+    tr = torch.tensor(rhs).to(torch.bfloat16).requires_grad_(True)
+    (tgm.ragged_dot(tl, tr, torch.from_numpy(gs), transpose_rhs=transpose_rhs) * torch.from_numpy(w)).sum().backward()
+    assert tl.grad.dtype == torch.bfloat16 and tr.grad.dtype == torch.bfloat16
+    for got, want in ((tl.grad, jl), (tr.grad, jr)):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=2.0**-7, atol=1e-30)
+
+
+def test_tgmm_bf16_output_is_the_fp32_sum_rounded_once():
+    """tgmm's bf16 output (the backward's drhs) is its fp32 output cast to
+    bf16, bit for bit, on the CPU's plain version as on the card's kernel."""
+    lhs, _, gs, dout = _case(np.random.default_rng(5), 200, 48, 40, 5, [60, 0, 1, 100, 39])
+    tl, td = torch.from_numpy(lhs).to(torch.bfloat16), torch.from_numpy(dout).to(torch.bfloat16)
+    tg = torch.from_numpy(gs)
+    want = tgm._tgmm_plain(tl, td, tg)
+    for got in (tgm._tgmm_plain(tl, td, tg, torch.bfloat16), tgm.tgmm(tl, td, tg, torch.bfloat16)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want.to(torch.bfloat16))
+    assert tgm.tgmm(tl, td, tg).dtype == torch.float32 and torch.equal(tgm.tgmm(tl, td, tg), want)
+
+
+@pytest.mark.parametrize("sizes", [[5, 0, 9, 9, 0, 30, 1], [0, 0, 0], [7] * 6 + [0] * 2 + [300], [3]])
+def test_tgmm_group_order_covers_every_item_once_largest_group_first(sizes):
+    """The order in which the tgmm kernel takes the groups' items: every
+    group exactly once, empty groups included, the largest first, ties in
+    index order."""
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    order = tgm.tgmm_group_order(gs)
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(len(sizes)))
+    ordered = [sizes[g] for g in order.tolist()]
+    assert ordered == sorted(sizes, reverse=True)
+    assert all(a < b for a, b, x, y in zip(order.tolist(), order.tolist()[1:], ordered, ordered[1:]) if x == y)
+
+
 def test_ragged_dot_grad_is_zero_for_empty_groups():
     lhs, rhs, gs, _ = _case(np.random.default_rng(2), 64, 32, 32, 4, [30, 0, 34, 0])
     tr = torch.tensor(rhs, requires_grad=True)

@@ -1,6 +1,7 @@
 """The torch port stands alone: importing every module of
 ``automodel_tpu_torch`` pulls in neither JAX nor anything of the JAX
-package, and no source file (chip_smoke.py included) imports them."""
+package, and no source file (chip_smoke.py and chip_grouped_ab.py
+included) imports them."""
 
 import os
 import re
@@ -33,7 +34,7 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_grouped_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "automodel_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = {}
