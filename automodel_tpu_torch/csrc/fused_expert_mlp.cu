@@ -1,11 +1,12 @@
 // Fused expert MLP of the MoE experts (experts: ragged_fused): the forward
-// out = act(lhs @ Wg + gb, lhs @ Wu + ub) @ Wd + db per row's group, and the
-// three kernels of its backward.
+// out = act(lhs @ Wg + gb, lhs @ Wu + ub) @ Wd + db per row's group, and
+// the kernels of its backward.
 //
 // Replaces the Pallas TPU kernels of automodel_tpu/ops/fused_expert_mlp.py:
 // _kernel (:59, through _fwd :130), _bwd_gu_kernel (:423, through _bwd_gu
 // :465), _bwd_dwd_kernel (:530, through _bwd_dwd :560) and _bwd_dx_kernel
-// (:615, through _bwd_dx :649).
+// (:615, through _bwd_dx :649); the last two together with the grouped-matmul
+// kernels of grouped_matmul.cu, which carry their products.
 //
 // Operands (bf16 unless said): lhs [M, D] with rows sorted by group, group g
 // owning rows [start_g, end_g) of the cumsum of group_sizes; gate_up
@@ -31,26 +32,38 @@
 //   row sums of the unrounded dg, du (:455-462). One CTA per (group, D tile,
 //   I tile) loops over its group's rows, as tgmm does: no atomics, the
 //   result repeats bit for bit; an empty group writes zeros.
-// - bwd_dwd (K3c): dWd [G, I, D] fp32 = mid_g^T dy_g with mid recomputed
-//   from g, u in fp32 and rounded to bf16 (:547); ddb = fp32 row sums of dy.
-// - bwd_dx (K3d): dlhs = dg Wg^T + du Wu^T per row's group, as a gmm with a
-//   transposed rhs over K = 2I whose A operand (dg | du, bf16) is computed in
-//   shared memory from the g, u and dmid tiles, once per D tile as the TPU
-//   grid (:669) does; gate_up is read transposed in place.
+// - bwd_act (the activation of K3c and K3d): one pass over the routed rows
+//   reads g | u and dmid and writes mid = act(g, u) [M, I] (as :537-547
+//   rounds it) and dg | du [M, 2I] (as :629-642 rounds them), each computed
+//   in fp32 and rounded once to bf16; rows past sum(group_sizes) are written
+//   as zeros. K3c is then tgmm(mid, dy) with a bf16 out (the fp32 sum rounded
+//   once: _vjp_bwd's dWd.astype(down.dtype), :777, taken in the kernel) and
+//   bwd_ddb, the fp32 row sums of dy per group (:552-557); K3d is
+//   gmm(dg | du, gate_up, transpose_rhs) over K = 2I, gate_up read in place
+//   as the [G, N = D, K = 2I] rhs. The TPU kernels recompute the activation
+//   per output tile because VMEM holds a [512, I] row block for the whole
+//   grid walk; an SM's 227 KB does not (dg | du of 128 rows at I = 2880 is
+//   1.47 MB), and recomputing per 128-column tile ran the activation 23
+//   times an element at gpt-oss-20b's widths. Written once, the operands
+//   cost ~566 MB of traffic (~0.17 ms at 3.35 TB/s), and the products run
+//   on the wgmma / TMA kernels of grouped_matmul.cu.
 //
-// A CTA reads only its group's rows, so rows past sum(group_sizes), which
-// may hold NaN in lhs and dy, never reach a weight or bias gradient.
+// A kernel reads only its group's rows (bwd_act only rows before the groups'
+// end), so rows past sum(group_sizes), which may hold NaN in lhs and dy,
+// never reach a weight or bias gradient.
 //
 // What bounds them on an H100 at gpt-oss-20b's widths (4096 tokens top-4:
 // M = 16384 rows over 32 experts, D = I = 2880): ~512 rows per expert give
 // each weight slab ~512 flops per byte, above the ~295 where the tensor
-// cores become the limit, so the forward and bwd_dx are bound by operations;
-// bwd_gu and bwd_dwd write fp32 weight grads ([32, 2880, 5760] is 2.1 GB)
-// and are bound by bytes. The design is the simple first one, as
-// grouped_matmul.cu's: mma.sync m16n8k16 with fp32 accumulators, cp.async
-// staging in three stages, 128-row tiles of the device-built gmm plan
-// (ops/grouped_matmul.py gmm_plan), no wgmma, TMA or persistent scheduling;
-// K and N edges zero-filled by cp.async.
+// cores become the limit, so the forward, K3c's tgmm (with its bf16 out)
+// and K3d's gmm are bound by operations; bwd_gu writes its fp32 weight grad
+// ([32, 2880, 5760] is 2.1 GB) and is bound by bytes, as bwd_act and bwd_ddb
+// (elementwise and a row sum) are. bwd_act moves 16 bytes a thread a load
+// and a store in a grid-stride loop, with no shared memory. The forward and
+// bwd_gu are the simple first design: mma.sync m16n8k16 with fp32
+// accumulators, cp.async staging in three stages, 128-row tiles of the
+// device-built gmm plan (ops/grouped_matmul.py gmm_plan), no wgmma, TMA or
+// persistent scheduling; K and N edges zero-filled by cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,16 +78,14 @@ constexpr int kThreads = 256;  // 8 warps: 2 along m (or k) x 4 along n
 constexpr int kStages = 3;
 constexpr int kErrUnsupported = 100001;
 
-// gmm-shaped tiles (fwd_gu_act, fwd_down, bwd_dx)
+// gmm-shaped tiles (fwd_gu_act, fwd_down)
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int HN = 64;       // gate (and up) columns of a fwd_gu_act / bwd_gu tile
 constexpr int PA = BK + 8;   // padded row of a [BM][BK] tile
 constexpr int PB = BN + 8;   // padded row of a [BK][BN] tile
-constexpr int PBT = BK + 8;  // padded row of a [BN][BK] tile
-// tgmm-shaped tiles (bwd_gu, bwd_dwd): out tile [TK][TN], rows in chunks of TR
-constexpr int TK = 128, TN = 128, TR = 32;
+// a tgmm-shaped tile (bwd_gu): out tile [TK][2 HN], rows in chunks of TR
+constexpr int TK = 128, TR = 32;
 constexpr int PL = TK + 8;      // padded row of a [TR][TK] chunk
-constexpr int PD = TN + 8;      // padded row of a [TR][TN] chunk
 constexpr int PH = HN + 8;      // padded row of a [TR][HN] chunk
 constexpr int PG = 2 * HN + 8;  // padded row of the [TR][dg | du] chunk
 
@@ -126,11 +137,6 @@ __device__ __forceinline__ const bf16* a_addr(const bf16* t, int r0, int c0, int
 template <int P>
 __device__ __forceinline__ const bf16* at_addr(const bf16* t, int m0, int k0, int lane) {
   return t + (k0 + (lane >> 4) * 8 + (lane & 7)) * P + m0 + ((lane >> 3) & 1) * 8;
-}
-// B fragments of two n tiles from a tile stored [n][k] (n from n0, k from k0)
-template <int P>
-__device__ __forceinline__ const bf16* b_addr(const bf16* t, int n0, int k0, int lane) {
-  return t + (n0 + (lane >> 4) * 8 + (lane & 7)) * P + k0 + ((lane >> 3) & 1) * 8;
 }
 // B fragments of two n tiles from a tile stored [k][n], for ldsm_x4_t
 template <int P>
@@ -553,222 +559,115 @@ __global__ void __launch_bounds__(kThreads) bwd_gu_kernel(const BwdGuArgs a) {
   }
 }
 
-// -- K3c: dWd [G, I, D] = mid_g^T dy_g, ddb = row sums of dy ------------------------
+// -- the backward's elementwise pass (for K3c and K3d): mid, dg | du --------------
 
-struct BwdDwdArgs {
-  const bf16* gu;  // [M, 2I]
-  const bf16* dy;  // [M, D]
-  const int* ends;
-  float* dwd;  // [G, I, D]
-  float* ddb;  // [G, D] or null
-  int M, D, I, G;
+struct BwdActArgs {
+  const bf16* gu;    // [M, 2I]: the recomputed g | u, biases added
+  const bf16* dmid;  // [M, I]; read only when dgdu is written
+  const int* ends;   // [G] inclusive cumsum of group_sizes
+  bf16* mid;         // [M, I] or null
+  bf16* dgdu;        // [M, 2I] or null: dg in columns [0, I), du in [I, 2I)
+  int M, I, G;
   Act act;
 };
 
-// grid (ceil(D / 128), ceil(I / 128), G)
-__global__ void __launch_bounds__(kThreads) bwd_dwd_kernel(const BwdDwdArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int STAGE = 2 * TR * PL + TR * PD;
-  bf16* st_s = reinterpret_cast<bf16*>(smem);  // [kStages][g, u [TR][PL], dy [TR][PD]]
-  bf16* mid_s = st_s + kStages * STAGE;        // [TR][PL]
-  float* red = reinterpret_cast<float*>(mid_s + TR * PL);  // [2][TN] ddb partial sums
-
-  const int g = blockIdx.z;
-  const int k0 = blockIdx.y * TK;  // columns of I
-  const int n0 = blockIdx.x * TN;  // columns of D
-  const int end = min(a.ends[g], a.M);
-  const int start = min(g > 0 ? a.ends[g - 1] : 0, end);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: 64 of I x 32 of D
-  const long long ld = 2LL * a.I;
-  const int tc = threadIdx.x % TN, tr = (threadIdx.x / TN) * (TR / 2);  // ddb: one column, 16 rows
-
-  float acc[4][4][4];
-  zero(acc);
-  float sum_db = 0.f;
-
-  const int n_chunks = (end - start + TR - 1) / TR;
-  auto issue = [&](int c) {
-    if (c < n_chunks) {
-      bf16* s = st_s + (c % kStages) * STAGE;
-      const int r0 = start + c * TR;
-      load_tile<TR, TK, PL>(s, a.gu, ld, r0, start, end, k0, a.I);
-      load_tile<TR, TK, PL>(s + TR * PL, a.gu + a.I, ld, r0, start, end, k0, a.I);
-      load_tile<TR, TN, PD>(s + 2 * TR * PL, a.dy, a.D, r0, start, end, n0, a.D);
-    }
-    cp_async_commit();
-  };
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    issue(c + kStages - 1);
-    const bf16* gs = st_s + (c % kStages) * STAGE;
-    const bf16* us = gs + TR * PL;
-    const bf16* ds = us + TR * PL;
-    for (int e = threadIdx.x; e < TR * TK; e += kThreads) {
-      const int r = e / TK, col = e % TK;
-      mid_s[r * PL + col] =
-          __float2bfloat16(act_fwd(__bfloat162float(gs[r * PL + col]), __bfloat162float(us[r * PL + col]), a.act));
-    }
-    if (a.ddb != nullptr && blockIdx.y == 0) {
-#pragma unroll
-      for (int i = 0; i < TR / 2; ++i) sum_db += __bfloat162float(ds[(tr + i) * PD + tc]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TR / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) ldsm_x4_t(af[mi], at_addr<PL>(mid_s, wm * 64 + mi * 16, kk * 16, lane));
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, bt_addr<PD>(ds, kk * 16, wn * 32 + j * 16, lane));
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma(acc[mi][2 * j], af[mi], bf[0], bf[1]);
-          mma(acc[mi][2 * j + 1], af[mi], bf[2], bf[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  float* out_g = a.dwd + static_cast<long long>(g) * a.I * a.D;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kr = k0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
-      if (kr >= a.I) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
-        if (col < a.D)
-          *reinterpret_cast<float2*>(out_g + static_cast<long long>(kr) * a.D + col) =
-              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
-  }
-  if (a.ddb != nullptr && blockIdx.y == 0) {
-    __syncthreads();
-    red[(tr / (TR / 2)) * TN + tc] = sum_db;
-    __syncthreads();
-    if (threadIdx.x < TN && n0 + threadIdx.x < a.D)
-      a.ddb[static_cast<long long>(g) * a.D + n0 + threadIdx.x] = red[threadIdx.x] + red[TN + threadIdx.x];
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
   }
 }
 
-// -- K3d: dlhs = dg Wg^T + du Wu^T ------------------------------------------------
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return v;
+}
 
-struct BwdDxArgs {
-  const bf16* gu;       // [M, 2I]
-  const bf16* dmid;     // [M, I]
-  const bf16* gate_up;  // [G, D, 2I]
-  const int* plan;      // [4, W]
-  bf16* dlhs;           // [M, D]
-  int M, D, I, G, W;
-  Act act;
-};
-
-// grid (ceil(D / 128), W); K runs over I in chunks of 32, each chunk taking
-// a dg and a du tile against the gate and up halves of gate_up's rows
-__global__ void __launch_bounds__(kThreads) bwd_dx_kernel(const BwdDxArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int STAGE = 3 * BM * PA + 2 * BN * PBT;
-  bf16* st_s = reinterpret_cast<bf16*>(smem);  // [kStages][g, u, dmid [BM][PA], Wg, Wu [BN][PBT]]
-  bf16* dg_s = st_s + kStages * STAGE;         // [BM][PA]
-  bf16* du_s = dg_s + BM * PA;                 // [BM][PA]
-
-  const Unit u = plan_unit(a.plan, a.W, a.M, blockIdx.y);
-  if (u.row_lo >= u.row_hi) return;
-  const int n0 = blockIdx.x * BN;
-  if (u.g >= a.G) {
-    store_zeros(a.dlhs, a.D, u, n0, BN);
-    return;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: 64 rows x 32 columns
+// A grid-stride loop over (row, 8 columns of I): three 16-byte loads (g, u,
+// dmid) and three 16-byte stores (mid, dg, du) an item, neighbouring
+// threads on neighbouring columns. Rows at or past sum(group_sizes) load
+// nothing and store zeros.
+__global__ void __launch_bounds__(kThreads) bwd_act_kernel(const BwdActArgs a) {
+  const int rows = min(a.ends[a.G - 1], a.M);
+  const int chunks = a.I / 8;
+  const long long n = static_cast<long long>(a.M) * chunks;
   const long long ld = 2LL * a.I;
-  const bf16* w = a.gate_up + static_cast<long long>(u.g) * a.D * ld;
-  const int n_k = (a.I + BK - 1) / BK;
-  auto issue = [&](int kt) {
-    if (kt < n_k) {
-      bf16* s = st_s + (kt % kStages) * STAGE;
-      const int c0 = kt * BK;
-      load_tile<BM, BK, PA>(s, a.gu, ld, u.m0, u.row_lo, u.row_hi, c0, a.I);
-      load_tile<BM, BK, PA>(s + BM * PA, a.gu + a.I, ld, u.m0, u.row_lo, u.row_hi, c0, a.I);
-      load_tile<BM, BK, PA>(s + 2 * BM * PA, a.dmid, a.I, u.m0, u.row_lo, u.row_hi, c0, a.I);
-      // gate_up's rows n0.. ([N][K] = [D][2I]), the gate and up columns c0..
-      load_tile<BN, BK, PBT>(s + 3 * BM * PA, w, ld, n0, 0, a.D, c0, a.I);
-      load_tile<BN, BK, PBT>(s + 3 * BM * PA + BN * PBT, w + a.I, ld, n0, 0, a.D, c0, a.I);
-    }
-    cp_async_commit();
-  };
-
-  float acc[4][4][4];
-  zero(acc);
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < n;
+       e += static_cast<long long>(gridDim.x) * kThreads) {
+    const int r = static_cast<int>(e / chunks);
+    const int c = static_cast<int>(e - static_cast<long long>(r) * chunks) * 8;
+    float m[8] = {}, dg[8] = {}, du[8] = {};
+    if (r < rows) {
+      float g[8], u[8];
+      unpack8(*reinterpret_cast<const uint4*>(a.gu + r * ld + c), g);
+      unpack8(*reinterpret_cast<const uint4*>(a.gu + r * ld + a.I + c), u);
+      if (a.mid) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt has landed, and every warp is done with tile kt - 1 and dg_s, du_s
-    issue(kt + kStages - 1);
-    const bf16* s = st_s + (kt % kStages) * STAGE;
-    // rows outside the unit and columns past I were zero-filled: dg = du = 0
-    for (int e = threadIdx.x; e < BM * BK; e += kThreads) {
-      const int r = e / BK, col = e % BK;
-      const int o = r * PA + col;
-      float dg, du;
-      act_bwd(__bfloat162float(s[o]), __bfloat162float(s[BM * PA + o]), __bfloat162float(s[2 * BM * PA + o]),
-              a.act, dg, du);
-      dg_s[o] = __float2bfloat16(dg);
-      du_s[o] = __float2bfloat16(du);
-    }
-    __syncthreads();
-    const bf16* wg_s = s + 3 * BM * PA;
-    const bf16* wu_s = wg_s + BN * PBT;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const bf16* as = half ? du_s : dg_s;
-      const bf16* bs = half ? wu_s : wg_s;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t af[4][4];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) ldsm_x4(af[mi], a_addr<PA>(as, wm * 64 + mi * 16, kk * 16, lane));
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          uint32_t bf[4];
-          ldsm_x4(bf, b_addr<PBT>(bs, wn * 32 + j * 16, kk * 16, lane));
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            mma(acc[mi][2 * j], af[mi], bf[0], bf[1]);
-            mma(acc[mi][2 * j + 1], af[mi], bf[2], bf[3]);
-          }
-        }
+        for (int i = 0; i < 8; ++i) m[i] = act_fwd(g[i], u[i], a.act);
       }
+      if (a.dgdu) {
+        float dm[8];
+        unpack8(*reinterpret_cast<const uint4*>(a.dmid + static_cast<long long>(r) * a.I + c), dm);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) act_bwd(g[i], u[i], dm[i], a.act, dg[i], du[i]);
+      }
+    }
+    if (a.mid) *reinterpret_cast<uint4*>(a.mid + static_cast<long long>(r) * a.I + c) = pack8(m);
+    if (a.dgdu) {
+      *reinterpret_cast<uint4*>(a.dgdu + r * ld + c) = pack8(dg);
+      *reinterpret_cast<uint4*>(a.dgdu + r * ld + a.I + c) = pack8(du);
     }
   }
-  cp_async_wait<0>();
+}
 
+// -- K3c's bias grad: ddb [G, D] fp32 = the row sums of dy per group -------------
+
+constexpr int kDdbColThreads = 8;                     // threads along a row, 8 columns each
+constexpr int kDdbLanes = kThreads / kDdbColThreads;  // row lanes of a CTA
+constexpr int kDdbCols = kDdbColThreads * 8;          // columns of a CTA
+
+// grid (ceil(D / 64), G): row lane l sums the group's rows start + l,
+// start + l + 32, ... in order (a warp reads four rows' 128 contiguous
+// bytes at a time), then thread t adds the 32 lanes' sums of column t in
+// lane order. A fixed order, no atomics: a repeat gives the same bits. An
+// empty group writes zeros. The tiles are narrow and the row lanes many
+// because the CTAs of the largest group (~1700 rows at gpt-oss-20b's
+// routing, 3.4x the mean) set the launch's time.
+__global__ void __launch_bounds__(kThreads) bwd_ddb_kernel(const bf16* dy, const int* ends, float* ddb, int M,
+                                                            int D) {
+  __shared__ float part[kDdbLanes][kDdbCols];
+  const int g = blockIdx.y;
+  const int end = min(ends[g], M);
+  const int start = min(g > 0 ? ends[g - 1] : 0, end);
+  const int ct = threadIdx.x % kDdbColThreads, rl = threadIdx.x / kDdbColThreads;
+  const int c = blockIdx.x * kDdbCols + ct * 8;
+  float s[8] = {};
+  if (c < D) {
+    // unrolled so that four rows' loads are in flight at once; the sum
+    // still takes the lane's rows one by one, in order
+#pragma unroll 4
+    for (int r = start + rl; r < end; r += kDdbLanes) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(dy + static_cast<long long>(r) * D + c), f);
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = u.m0 + wm * 64 + mi * 16 + (lane >> 2) + 8 * h;
-      if (r < u.row_lo || r >= u.row_hi) continue;
-      bf16* orow = a.dlhs + static_cast<long long>(r) * a.D;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
-        if (col < a.D)
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-              __floats2bfloat162_rn(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
+      for (int i = 0; i < 8; ++i) s[i] += f[i];
     }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part[rl][ct * 8 + i] = s[i];
+  __syncthreads();
+  const int col = blockIdx.x * kDdbCols + threadIdx.x;
+  if (threadIdx.x < kDdbCols && col < D) {
+    float v = 0.f;
+#pragma unroll
+    for (int l = 0; l < kDdbLanes; ++l) v += part[l][threadIdx.x];
+    ddb[static_cast<long long>(g) * D + col] = v;
   }
 }
 
@@ -781,6 +680,13 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const A& a, cudaStream_t strea
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  return sms;
 }
 
 bool shape_ok(int M, int D, int I, int G, int act_kind) {
@@ -834,25 +740,29 @@ int fused_expert_mlp_bwd_gu(const void* lhs, const void* gu, const void* dmid, c
   return launch(bwd_gu_kernel, grid, smem, a, static_cast<cudaStream_t>(stream));
 }
 
-int fused_expert_mlp_bwd_dwd(const void* gu, const void* dy, const int* ends, float* dwd, float* ddb, int M, int D,
-                             int I, int G, int act_kind, float limit, void* stream) {
-  if (!shape_ok(M, D, I, G, act_kind)) return kErrUnsupported;
-  BwdDwdArgs a = {static_cast<const bf16*>(gu), static_cast<const bf16*>(dy), ends, dwd, ddb, M, D, I, G,
-                  make_act(act_kind, limit)};
-  const size_t smem = static_cast<size_t>(kStages) * (2 * TR * PL + TR * PD) * sizeof(bf16) +
-                      TR * PL * sizeof(bf16) + 2 * TN * sizeof(float);
-  const dim3 grid((D + TN - 1) / TN, (I + TK - 1) / TK, G);
-  return launch(bwd_dwd_kernel, grid, smem, a, static_cast<cudaStream_t>(stream));
+// The backward's elementwise pass: mid [M, I] = act(g, u) and dgdu [M, 2I]
+// = (dg | du) of act at (g, u) for dmid, each computed in fp32 and rounded
+// once to bf16; either output may be null (not both), dmid is read only
+// for dgdu. Rows at or past sum(group_sizes) are written as zeros.
+int fused_expert_mlp_bwd_act(const void* gu, const void* dmid, const int* ends, void* mid, void* dgdu, int M, int I,
+                             int G, int act_kind, float limit, void* stream) {
+  if (!shape_ok(M, 8, I, G, act_kind) || (!mid && !dgdu) || (dgdu && !dmid)) return kErrUnsupported;
+  BwdActArgs a = {static_cast<const bf16*>(gu), static_cast<const bf16*>(dmid), ends, static_cast<bf16*>(mid),
+                  static_cast<bf16*>(dgdu), M, I, G, make_act(act_kind, limit)};
+  // one wave of full SMs (2048 threads each), each thread looping over items
+  long long blocks = (static_cast<long long>(M) * (I / 8) + kThreads - 1) / kThreads;
+  const long long wave = static_cast<long long>(sm_count()) * (2048 / kThreads);
+  if (blocks > wave) blocks = wave;
+  return launch(bwd_act_kernel, dim3(static_cast<unsigned>(blocks)), 0, a, static_cast<cudaStream_t>(stream));
 }
 
-int fused_expert_mlp_bwd_dx(const void* gu, const void* dmid, const void* gate_up, const int* plan, void* dlhs,
-                            int M, int D, int I, int G, int W, int act_kind, float limit, void* stream) {
-  if (!shape_ok(M, D, I, G, act_kind) || W < 1 || W > 65535) return kErrUnsupported;
-  BwdDxArgs a = {static_cast<const bf16*>(gu), static_cast<const bf16*>(dmid), static_cast<const bf16*>(gate_up),
-                 plan, static_cast<bf16*>(dlhs), M, D, I, G, W, make_act(act_kind, limit)};
-  const size_t smem = static_cast<size_t>(kStages) * (3 * BM * PA + 2 * BN * PBT) * sizeof(bf16) +
-                      2 * BM * PA * sizeof(bf16);
-  return launch(bwd_dx_kernel, dim3((D + BN - 1) / BN, W), smem, a, static_cast<cudaStream_t>(stream));
+// ddb [G, D] fp32: the row sums of dy [M, D] over each group's rows
+int fused_expert_mlp_bwd_ddb(const void* dy, const int* ends, float* ddb, int M, int D, int G, void* stream) {
+  if (!shape_ok(M, D, 8, G, 0)) return kErrUnsupported;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bwd_ddb_kernel<<<dim3((D + kDdbCols - 1) / kDdbCols, G), kThreads, 0, s>>>(static_cast<const bf16*>(dy), ends,
+                                                                             ddb, M, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* fused_expert_mlp_error_string(int code) {

@@ -3,13 +3,21 @@
 a hand-written backward.
 
 Port of ``automodel_tpu/ops/fused_expert_mlp.py``. ``fwd``, ``bwd_gu``,
-``bwd_dwd`` and ``bwd_dx`` wrap the hand-written Hopper kernels of
-``csrc/fused_expert_mlp.cu`` (which replace the Pallas ``_kernel``,
-``_bwd_gu_kernel``, ``_bwd_dwd_kernel`` and ``_bwd_dx_kernel``): given CUDA
-tensors they launch the kernel or raise, given CPU tensors they run
-``_fwd_plain`` / ``_bwd_gu_plain`` / ``_bwd_dwd_plain`` / ``_bwd_dx_plain``,
-the same functions in fp32 torch with a loop over groups. There is no path
-from a CUDA tensor to a plain version or to a library grouped GEMM.
+``bwd_act``, ``bwd_dwd`` and ``bwd_dx`` wrap the hand-written Hopper
+kernels of ``csrc/fused_expert_mlp.cu`` and, for the products of ``bwd_dwd``
+and ``bwd_dx``, ``csrc/grouped_matmul.cu`` (together they replace the
+Pallas ``_kernel``, ``_bwd_gu_kernel``, ``_bwd_dwd_kernel`` and
+``_bwd_dx_kernel``): given CUDA tensors they launch the kernels or raise,
+given CPU tensors they run ``_fwd_plain`` / ``_bwd_gu_plain`` /
+``_bwd_act_plain`` / ``_bwd_dwd_plain`` / ``_bwd_dx_plain``, the same
+functions in fp32 torch with a loop over groups. There is no path from a
+CUDA tensor to a plain version or to a library grouped GEMM.
+
+The TPU kernels recompute the activation per output tile; here one pass,
+``bwd_act``, writes mid = act(g, u) and dg | du once per element (each
+rounded once to bf16, as the TPU kernels round them before their
+products), and dWd = tgmm(mid, dy), dlhs = gmm(dg | du, gate_up,
+transpose_rhs) run on the grouped-matmul kernels.
 
 The port keeps the stored layouts: gate and up are the two halves of one
 ``gate_up`` [G, D, 2I] (gate in ``[..., :I]``), read in place, and their
@@ -28,10 +36,11 @@ optional ``limit``: ``min(silu(g), limit) * clip(u, -limit, limit)``),
 ``fused_expert_mlp`` is differentiable. Its backward follows ``_vjp_bwd``
 (:702-782): it recomputes ``gu = gmm(lhs, gate_up)`` through K2 (one launch
 over the fused weight), adds the biases in the compute dtype, computes
-``dmid = gmm(dy, down, transpose_rhs=True)`` through K2, runs ``bwd_dwd``,
-``bwd_gu`` and ``bwd_dx``, and casts each grad to its primal's dtype. The
-forward keeps g, u and the activation in fp32; the backward sees g and u
-rounded to the compute dtype, as the JAX path does.
+``dmid = gmm(dy, down, transpose_rhs=True)`` through K2, runs ``bwd_act``
+once, then ``bwd_dwd`` (dWd in ``down``'s dtype, written by the kernel),
+``bwd_dx`` and ``bwd_gu``, and casts each other grad to its primal's
+dtype. The forward keeps g, u and the activation in fp32; the backward
+sees g and u rounded to the compute dtype, as the JAX path does.
 """
 
 from __future__ import annotations
@@ -41,7 +50,18 @@ from typing import Optional
 
 import torch
 
-from automodel_tpu_torch.ops.grouped_matmul import ALIGN, CUDA_DTYPES, GMM_TILE_M, _bounds, gmm, gmm_plan
+from automodel_tpu_torch.ops import grouped_matmul as gm
+from automodel_tpu_torch.ops.grouped_matmul import (
+    ALIGN,
+    CUDA_DTYPES,
+    GMM_TILE_M,
+    TGMM_OUT_DTYPES,
+    _bounds,
+    _gmm_plain,
+    _tgmm_plain,
+    gmm,
+    gmm_plan,
+)
 
 ACT_KINDS = ("swiglu", "swiglu_oai")
 OAI_CLAMP = 7.0
@@ -143,34 +163,50 @@ def _bwd_gu_plain(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, wan
     return dw, dbias
 
 
-def _bwd_dwd_plain(gu, dy, group_sizes, act_kind="swiglu", limit=None, want_bias=False):
-    """JAX ``_bwd_dwd`` (:560) in fp32 torch → (dWd [G, I, D] fp32 = mid_g^T
-    dy_g with mid recomputed and rounded to dy.dtype (:547), ddb [G, D] fp32
-    row sums of dy or None)."""
+def _bwd_act_plain(gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_mid=True, want_dgdu=True):
+    """The backward's elementwise pass in fp32 torch → (mid [M, I] =
+    act(g, u), as JAX's ``_bwd_dwd_kernel`` rounds it (:537-547), or None;
+    dgdu [M, 2I] = dg | du of act at (g, u) for dmid, as ``_bwd_dx_kernel``
+    rounds them (:629-642), or None), each rounded once to gu.dtype; rows at
+    or past sum(group_sizes) zero, whatever gu and dmid hold there."""
     M, I = gu.shape[0], gu.shape[1] // 2
-    D = dy.shape[1]
-    G = group_sizes.shape[0]
-    dwd = torch.zeros((G, I, D), dtype=torch.float32, device=gu.device)
-    ddb = torch.zeros((G, D), dtype=torch.float32, device=gu.device) if want_bias else None
-    for g, s, e in _groups(group_sizes, M):
-        mid = _act_core(gu[s:e, :I].float(), gu[s:e, I:].float(), act_kind, limit).to(dy.dtype).float()
-        dwd[g] = mid.t() @ dy[s:e].float()
-        if want_bias:
+    n = min(int(group_sizes.sum()), M)
+    g, u = gu[:n, :I].float(), gu[:n, I:].float()
+    mid = dgdu = None
+    if want_mid:
+        mid = gu.new_zeros((M, I))
+        mid[:n] = _act_core(g, u, act_kind, limit).to(gu.dtype)
+    if want_dgdu:
+        dgdu = gu.new_zeros((M, 2 * I))
+        dg, du = _act_grads(g, u, dmid[:n], act_kind, limit)
+        dgdu[:n, :I], dgdu[:n, I:] = dg.to(gu.dtype), du.to(gu.dtype)
+    return mid, dgdu
+
+
+def _bwd_dwd_plain(gu, dy, group_sizes, act_kind="swiglu", limit=None, want_bias=False, out_dtype=torch.float32,
+                   mid=None):
+    """JAX ``_bwd_dwd`` (:560) in fp32 torch → (dWd [G, I, D] = mid_g^T dy_g
+    summed in fp32 and cast once to ``out_dtype``, mid from
+    ``_bwd_act_plain`` unless given; ddb [G, D] fp32 row sums of dy or
+    None)."""
+    if mid is None:
+        mid, _ = _bwd_act_plain(gu, None, group_sizes, act_kind, limit, want_dgdu=False)
+    dwd = _tgmm_plain(mid, dy, group_sizes, out_dtype)
+    ddb = None
+    if want_bias:
+        ddb = torch.zeros((group_sizes.shape[0], dy.shape[1]), dtype=torch.float32, device=dy.device)
+        for g, s, e in _groups(group_sizes, dy.shape[0]):
             ddb[g] = dy[s:e].float().sum(dim=0)
     return dwd, ddb
 
 
-def _bwd_dx_plain(gu, dmid, gate_up, group_sizes, act_kind="swiglu", limit=None):
+def _bwd_dx_plain(gu, dmid, gate_up, group_sizes, act_kind="swiglu", limit=None, dgdu=None):
     """JAX ``_bwd_dx`` (:649) in fp32 torch → dlhs [M, D] in gu.dtype =
-    dg Wg^T + du Wu^T with dg, du rounded to gu.dtype first, rows past the
-    groups 0."""
-    M, I = gu.shape[0], gu.shape[1] // 2
-    D = gate_up.shape[1]
-    out = torch.zeros((M, D), dtype=torch.float32, device=gu.device)
-    for g, s, e in _groups(group_sizes, M):
-        d = torch.cat(_act_grads(gu[s:e, :I], gu[s:e, I:], dmid[s:e], act_kind, limit), dim=1)
-        out[s:e] = d.to(gu.dtype).float() @ gate_up[g].float().t()
-    return out.to(gu.dtype)
+    dg Wg^T + du Wu^T, dg | du from ``_bwd_act_plain`` unless given, rows
+    past the groups 0."""
+    if dgdu is None:
+        _, dgdu = _bwd_act_plain(gu, dmid, group_sizes, act_kind, limit, want_mid=False)
+    return _gmm_plain(dgdu, gate_up, group_sizes, transpose_rhs=True)
 
 
 # -- the CUDA kernels ---------------------------------------------------------------
@@ -186,9 +222,9 @@ def _lib() -> ctypes.CDLL:
         lib.fused_expert_mlp_fwd_gu_act.argtypes = [p] * 5 + [i] * 6 + [f, p]
         lib.fused_expert_mlp_fwd_down.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.fused_expert_mlp_bwd_gu.argtypes = [p] * 6 + [i] * 5 + [f, p]
-        lib.fused_expert_mlp_bwd_dwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
-        lib.fused_expert_mlp_bwd_dx.argtypes = [p] * 5 + [i] * 6 + [f, p]
-        for fn in ("fwd_gu_act", "fwd_down", "bwd_gu", "bwd_dwd", "bwd_dx"):
+        lib.fused_expert_mlp_bwd_act.argtypes = [p] * 5 + [i] * 4 + [f, p]
+        lib.fused_expert_mlp_bwd_ddb.argtypes = [p] * 3 + [i] * 3 + [p]
+        for fn in ("fwd_gu_act", "fwd_down", "bwd_gu", "bwd_act", "bwd_ddb"):
             getattr(lib, f"fused_expert_mlp_{fn}").restype = i
         lib.fused_expert_mlp_error_string.argtypes = [i]
         lib.fused_expert_mlp_error_string.restype = ctypes.c_char_p
@@ -352,59 +388,100 @@ def bwd_gu(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_bias=
     return dw, dbias
 
 
-def bwd_dwd(gu, dy, group_sizes, act_kind="swiglu", limit=None, want_bias=False):
-    """→ (dWd [G, I, D] fp32, ddb [G, D] fp32 or None) from the recomputed
-    gu [M, 2I] and dy [M, D]. CUDA tensors launch the kernel (counted in
-    ``bwd_dwd.launches``); CPU tensors run the plain version."""
+def bwd_act(gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_mid=True, want_dgdu=True):
+    """The backward's elementwise pass, once per element → (mid [M, I] or
+    None, dgdu [M, 2I] = dg | du or None) in gu.dtype, rows past the groups
+    0. gu [M, 2I] is the recomputed g | u (biases added); dmid [M, I] is
+    read only for dgdu (may be None without it). CUDA tensors launch the
+    kernel (counted in ``bwd_act.launches``); CPU tensors run the plain
+    version."""
+    _check_act(act_kind, limit)
+    if not (want_mid or want_dgdu):
+        raise ValueError("fused_expert_mlp bwd_act: want mid, dgdu or both")
+    M, I = gu.shape[0], gu.shape[1] // 2
+    G = group_sizes.shape[0]
+    if _on_cpu("fused_expert_mlp bwd_act", gu):
+        return _bwd_act_plain(gu, dmid, group_sizes, act_kind, limit, want_mid, want_dgdu)
+    dmid = dmid if want_dgdu else None
+    if want_dgdu and dmid is None:
+        raise ValueError("fused_expert_mlp bwd_act: dg | du needs dmid")
+    _check_cuda("fused_expert_mlp bwd_act", group_sizes, dict(gu=(M, 2 * I), dmid=(M, I)), gu=gu, dmid=dmid)
+    _check_dims("fused_expert_mlp bwd_act", ALIGN, I)
+    ends = _ends(group_sizes)
+    mid = torch.empty((M, I), dtype=gu.dtype, device=gu.device) if want_mid else None
+    dgdu = torch.empty((M, 2 * I), dtype=gu.dtype, device=gu.device) if want_dgdu else None
+    lib = _lib()
+    with torch.cuda.device(gu.device):
+        rc = lib.fused_expert_mlp_bwd_act(
+            gu.data_ptr(), _ptr(dmid), ends.data_ptr(), _ptr(mid), _ptr(dgdu), M, I, G,
+            *_act_args(act_kind, limit), _stream(gu),
+        )
+    _raise_on(lib, rc, "bwd_act")
+    bwd_act.launches += 1
+    return mid, dgdu
+
+
+def bwd_dwd(gu, dy, group_sizes, act_kind="swiglu", limit=None, want_bias=False, out_dtype=torch.float32, mid=None):
+    """→ (dWd [G, I, D] = mid_g^T dy_g summed in fp32 and written in
+    ``out_dtype`` (fp32, JAX's ``_bwd_dwd``, or bf16, the backward's cast
+    taken in the kernel), ddb [G, D] fp32 or None) from the recomputed gu
+    [M, 2I] and dy [M, D]; ``mid`` is ``bwd_act``'s, run here when not
+    given. CUDA tensors launch ``bwd_act`` (without ``mid``), the ddb
+    kernel (with ``want_bias``) and the tgmm kernel, counted once in
+    ``bwd_dwd.launches``; CPU tensors run the plain version."""
     _check_act(act_kind, limit)
     M, I = gu.shape[0], gu.shape[1] // 2
     D = dy.shape[1]
     G = group_sizes.shape[0]
     if _on_cpu("fused_expert_mlp bwd_dwd", gu):
-        return _bwd_dwd_plain(gu, dy, group_sizes, act_kind, limit, want_bias)
-    _check_cuda("fused_expert_mlp bwd_dwd", group_sizes, dict(gu=(M, 2 * I), dy=(M, D)), gu=gu, dy=dy)
+        return _bwd_dwd_plain(gu, dy, group_sizes, act_kind, limit, want_bias, out_dtype, mid)
+    _check_cuda("fused_expert_mlp bwd_dwd", group_sizes, dict(gu=(M, 2 * I), dy=(M, D), mid=(M, I)),
+                gu=gu, dy=dy, mid=mid)
     _check_dims("fused_expert_mlp bwd_dwd", D, I)
-    dwd = torch.empty((G, I, D), dtype=torch.float32, device=gu.device)
-    ddb = torch.empty((G, D), dtype=torch.float32, device=gu.device) if want_bias else None
-    ends = _ends(group_sizes)
-    lib = _lib()
-    with torch.cuda.device(gu.device):
-        rc = lib.fused_expert_mlp_bwd_dwd(
-            gu.data_ptr(), dy.data_ptr(), ends.data_ptr(), dwd.data_ptr(), _ptr(ddb),
-            M, D, I, G, *_act_args(act_kind, limit), _stream(gu),
-        )
-    _raise_on(lib, rc, "bwd_dwd")
+    if out_dtype not in TGMM_OUT_DTYPES:
+        raise ValueError(f"fused_expert_mlp bwd_dwd: the CUDA kernel writes {TGMM_OUT_DTYPES}, not {out_dtype}")
+    if mid is None:
+        mid, _ = bwd_act(gu, None, group_sizes, act_kind, limit, want_dgdu=False)
+    ddb = None
+    if want_bias:
+        ddb = torch.empty((G, D), dtype=torch.float32, device=gu.device)
+        ends = _ends(group_sizes)
+        lib = _lib()
+        with torch.cuda.device(gu.device):
+            rc = lib.fused_expert_mlp_bwd_ddb(dy.data_ptr(), ends.data_ptr(), ddb.data_ptr(), M, D, G, _stream(dy))
+        _raise_on(lib, rc, "bwd_ddb")
+    dwd = gm._tgmm_launch(mid, dy, group_sizes, out_dtype)
     bwd_dwd.launches += 1
     return dwd, ddb
 
 
-def bwd_dx(gu, dmid, gate_up, group_sizes, act_kind="swiglu", limit=None, plan=None) -> torch.Tensor:
+def bwd_dx(gu, dmid, gate_up, group_sizes, act_kind="swiglu", limit=None, plan=None, dgdu=None) -> torch.Tensor:
     """→ dlhs [M, D] in gu.dtype = dg Wg^T + du Wu^T per row's group, rows
-    past the groups 0. CUDA tensors launch the kernel (counted in
-    ``bwd_dx.launches``); CPU tensors run the plain version."""
+    past the groups 0; ``dgdu`` is ``bwd_act``'s, run here when not given.
+    CUDA tensors launch ``bwd_act`` (without ``dgdu``) and the gmm kernel
+    over K = 2I with gate_up as the transposed rhs, counted once in
+    ``bwd_dx.launches``; CPU tensors run the plain version."""
     _check_act(act_kind, limit)
     M, I = gu.shape[0], gu.shape[1] // 2
     G, D, _ = gate_up.shape
     if _on_cpu("fused_expert_mlp bwd_dx", gu):
-        return _bwd_dx_plain(gu, dmid, gate_up, group_sizes, act_kind, limit)
-    _check_cuda("fused_expert_mlp bwd_dx", group_sizes, dict(gu=(M, 2 * I), dmid=(M, I), gate_up=(G, D, 2 * I)),
-                gu=gu, dmid=dmid, gate_up=gate_up)
+        return _bwd_dx_plain(gu, dmid, gate_up, group_sizes, act_kind, limit, dgdu)
+    _check_cuda("fused_expert_mlp bwd_dx", group_sizes,
+                dict(gu=(M, 2 * I), dmid=(M, I), gate_up=(G, D, 2 * I), dgdu=(M, 2 * I)),
+                gu=gu, dmid=dmid, gate_up=gate_up, dgdu=dgdu)
     _check_dims("fused_expert_mlp bwd_dx", D, I)
-    plan, W = _plan_for(plan, group_sizes, M, "fused_expert_mlp bwd_dx")
-    dlhs = torch.empty((M, D), dtype=gu.dtype, device=gu.device)
-    lib = _lib()
-    with torch.cuda.device(gu.device):
-        rc = lib.fused_expert_mlp_bwd_dx(
-            gu.data_ptr(), dmid.data_ptr(), gate_up.data_ptr(), plan.data_ptr(), dlhs.data_ptr(),
-            M, D, I, G, W, *_act_args(act_kind, limit), _stream(gu),
-        )
-    _raise_on(lib, rc, "bwd_dx")
+    plan, _ = _plan_for(plan, group_sizes, M, "fused_expert_mlp bwd_dx")
+    if dgdu is None:
+        _, dgdu = bwd_act(gu, dmid, group_sizes, act_kind, limit, want_mid=False)
+    n_major = bool(gm._lib().grouped_matmul_gmm_n_major(2 * I, D))  # the order gmm would pick
+    dlhs = gm._gmm_launch(dgdu, gate_up, group_sizes, plan, D, True, n_major)
     bwd_dx.launches += 1
     return dlhs
 
 
 fwd.launches = 0
 bwd_gu.launches = 0
+bwd_act.launches = 0
 bwd_dwd.launches = 0
 bwd_dx.launches = 0
 
@@ -438,11 +515,17 @@ class _FusedExpertMLP(torch.autograd.Function):
         if gub is not None:
             gu = add_row_bias(gu, gub, group_sizes)
         dmid = gmm(dy, down, group_sizes, transpose_rhs=True, plan=plan)
-        dwd, ddb = bwd_dwd(gu, dy, group_sizes, act_kind, limit, want_bias=db is not None)
+        # the activation once per element: mid for dWd, dg | du for dlhs,
+        # each freed after its product (dlhs before bwd_gu's fp32 dW exists)
+        mid, dgdu = bwd_act(gu, dmid, group_sizes, act_kind, limit)
+        dwd, ddb = bwd_dwd(gu, dy, group_sizes, act_kind, limit, want_bias=db is not None, out_dtype=down.dtype,
+                           mid=mid)
+        del mid
+        dlhs = bwd_dx(gu, dmid, gate_up, group_sizes, act_kind, limit, plan=plan, dgdu=dgdu)
+        del dgdu
         dw, dgub = bwd_gu(lhs, gu, dmid, group_sizes, act_kind, limit, want_bias=gub is not None)
-        dlhs = bwd_dx(gu, dmid, gate_up, group_sizes, act_kind, limit, plan=plan)
         return (
-            dlhs.to(lhs.dtype), dw.to(gate_up.dtype), dwd.to(down.dtype), None,
+            dlhs.to(lhs.dtype), dw.to(gate_up.dtype), dwd, None,
             None if gub is None else dgub.to(gub.dtype), None if db is None else ddb.to(db.dtype),
             None, None, None,
         )

@@ -238,12 +238,21 @@ def tgmm(
     M, K = lhs.shape
     if dout.dim() != 2 or dout.shape[0] != M or group_sizes.dim() != 1:
         raise ValueError(f"tgmm: lhs {tuple(lhs.shape)} and dout {tuple(dout.shape)} do not match")
-    G, N = group_sizes.shape[0], dout.shape[1]
     if _device_kind("tgmm", lhs) == "cpu":
         return _tgmm_plain(lhs, dout, group_sizes, out_dtype)
     _check_cuda("tgmm", group_sizes, lhs=lhs, dout=dout)
     if out_dtype not in TGMM_OUT_DTYPES:
         raise ValueError(f"tgmm: the CUDA kernel writes {TGMM_OUT_DTYPES}, not {out_dtype}")
+    out = _tgmm_launch(lhs, dout, group_sizes, out_dtype)
+    tgmm.launches += 1
+    return out
+
+
+def _tgmm_launch(lhs, dout, group_sizes, out_dtype) -> torch.Tensor:
+    """One launch of the tgmm kernel on checked operands (``tgmm`` counts
+    its own; the fused expert MLP's dWd counts its own)."""
+    M, K = lhs.shape
+    G, N = group_sizes.shape[0], dout.shape[1]
     ends = torch.cumsum(group_sizes, 0, dtype=torch.int32)
     order = tgmm_group_order(group_sizes)
     out = torch.empty((G, K, N), dtype=out_dtype, device=lhs.device)
@@ -253,7 +262,6 @@ def tgmm(
         rc = lib.grouped_matmul_tgmm(lhs.data_ptr(), dout.data_ptr(), ends.data_ptr(), order.data_ptr(),
                                      out.data_ptr(), M, K, N, G, int(out_dtype == torch.bfloat16), stream)
     _raise_on(lib, rc, "tgmm")
-    tgmm.launches += 1
     return out
 
 

@@ -85,11 +85,17 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    yardstick without sinks (SDPA causal for the full layer, compiled
    ``flex_attention`` with the window's block mask for the windowed one);
 12. the fused expert-MLP kernels (the forward's two launches, bwd_gu,
-   bwd_dwd, bwd_dx) against their plain versions at gpt-oss-20b's MoE
-   shapes (4096 tokens routed top-4 over 32 experts by a real gate with a
-   learned bias: M = 16384 rows, hidden 2880, expert width 2880,
-   swiglu_oai, expert biases), timed against the plain versions, a
-   ``torch._grouped_mm`` composition and the bound; then Qwen3-30B-A3B's
+   the backward's elementwise pass bwd_act, bwd_dwd and bwd_dx, the last
+   two each called alone, which runs the pass inside) against their plain
+   versions at gpt-oss-20b's MoE shapes (4096 tokens routed top-4 over 32
+   experts by a real gate with a learned bias: M = 16384 rows, hidden
+   2880, expert width 2880, swiglu_oai, expert biases), timed against the
+   plain versions, a ``torch._grouped_mm`` composition and the bound;
+   bwd_dwd (its bf16 dWd, which must equal its fp32 dWd cast bit for bit)
+   and bwd_dx are timed given the pass's output, as the backward calls
+   them, beside ``torch._grouped_mm`` alone on that operand, each called
+   alone, dWd in fp32, and bwd_dx's product in both orders of a group's
+   items; then Qwen3-30B-A3B's
    shapes (swiglu, no biases), skewed groups, inputs scaled so that ~10%
    of g and u pass the +-7 clamps, swiglu with a limit of 2, and a NaN tail
    past the groups (every weight and bias grad finite and equal to the
@@ -100,7 +106,9 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    through the fused expert-MLP, grouped-matmul and flash kernels. Every
    loss and grad norm must be finite, every weight matrix, bias and sink and
    every expert slab that received rows must move, and each kernel must have
-   launched its count (tgmm none); then a profile of one step;
+   launched its count (each K3 wrapper, bwd_act included, once per layer
+   and microbatch; K2's tgmm wrapper none: K3c's tgmm launch and K3d's gmm
+   count in bwd_dwd and bwd_dx); then a profile of one step;
 14. one step at 1 layer of those widths and 2048 tokens with ``experts:
    ragged_fused`` against ``experts: ragged``: loss and grad norm must
    agree;
@@ -1421,13 +1429,16 @@ QWEN_FAMILIES = dict(
     flash_dq_ms=lambda k: "flash_dq_kernel" in k,
     flash_dkv_ms=lambda k: "flash_dkv_kernel" in k,
 )
+# on the GPT-OSS path tgmm_ms is K3c's product (dWd) alone and gmm_t_ms
+# holds K3d's product (dlhs, K = 2I) beside K2's dmid: the kernels share
+# their names
 GPT_OSS_FAMILIES = dict(
     QWEN_FAMILIES,
     fem_fwd_gu_act_ms=lambda k: "fwd_gu_act_kernel" in k,
     fem_fwd_down_ms=lambda k: "fwd_down_kernel" in k,
     fem_bwd_gu_ms=lambda k: "bwd_gu_kernel" in k,
-    fem_bwd_dwd_ms=lambda k: "bwd_dwd_kernel" in k,
-    fem_bwd_dx_ms=lambda k: "bwd_dx_kernel" in k,
+    fem_bwd_act_ms=lambda k: "bwd_act_kernel" in k,
+    fem_bwd_ddb_ms=lambda k: "bwd_ddb_kernel" in k,
 )
 GEMM_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet", "sm90_")
 
@@ -1628,7 +1639,8 @@ def fused_kernel_counters() -> dict:
     from automodel_tpu_torch.ops import ring_flash as rf
 
     return dict(fem_fwd=(fem.fwd, "launches"), fem_bwd_gu=(fem.bwd_gu, "launches"),
-                fem_bwd_dwd=(fem.bwd_dwd, "launches"), fem_bwd_dx=(fem.bwd_dx, "launches"),
+                fem_bwd_act=(fem.bwd_act, "launches"), fem_bwd_dwd=(fem.bwd_dwd, "launches"),
+                fem_bwd_dx=(fem.bwd_dx, "launches"),
                 gmm=(gm.gmm, "launches"), gmm_t=(gm.gmm, "launches_t"), tgmm=(gm.tgmm, "launches"),
                 flash_fwd=(rf.flash_block_fwd, "launches"), flash_dq=(rf.flash_block_dq, "launches"),
                 flash_dkv=(rf.flash_block_dkv, "launches"))
@@ -1638,9 +1650,11 @@ def phase_gpt_oss_training(torch) -> dict:
     cfg = gpt_oss_train_config()
     n = (cfg["model"]["hf_config"]["num_hidden_layers"] * cfg["step_scheduler"]["grad_acc_steps"]
          * cfg["step_scheduler"]["max_steps"])
-    # one call of each K3 kernel, one K2 gmm (the gu recompute) and gmm_t
-    # (dmid) per layer and microbatch; no tgmm on this path
-    want = dict(fem_fwd=n, fem_bwd_gu=n, fem_bwd_dwd=n, fem_bwd_dx=n, gmm=n, gmm_t=n, tgmm=0,
+    # one call of each K3 wrapper (the backward's elementwise pass once,
+    # bwd_dwd and bwd_dx given its outputs), one K2 gmm (the gu recompute)
+    # and gmm_t (dmid) per layer and microbatch; no call of K2's tgmm
+    # wrapper (K3c's tgmm launch counts in fem_bwd_dwd, K3d's gmm in fem_bwd_dx)
+    want = dict(fem_fwd=n, fem_bwd_gu=n, fem_bwd_act=n, fem_bwd_dwd=n, fem_bwd_dx=n, gmm=n, gmm_t=n, tgmm=0,
                 flash_fwd=n, flash_dq=n, flash_dkv=n)
     return run_moe_training(torch, cfg, "gpt-oss training", fused_kernel_counters(), want, GPT_OSS_FAMILIES)
 
@@ -1741,14 +1755,14 @@ def phase_ragged_vs_dense(torch) -> dict:
 
 def phase_fused_vs_ragged(torch) -> dict:
     """One step at 1 layer of gpt-oss-20b's widths and 2048 tokens with the
-    experts on the fused expert-MLP kernels (``ragged_fused``: the four K3
+    experts on the fused expert-MLP kernels (``ragged_fused``: the five K3
     calls, K2's gmm and gmm_t once each) and on the grouped-matmul kernels
     with the activation in bf16 eager torch (``ragged``). The aux loss is 0
     here (the config sets no coefficient), so it is not compared."""
     cfg = gpt_oss_train_config()
     cfg["model"]["hf_config"]["num_hidden_layers"] = 1
     cfg["dataset"]["seq_length"] = 2048
-    want = dict(ragged_fused=dict(fem_fwd=1, fem_bwd_gu=1, fem_bwd_dwd=1, fem_bwd_dx=1, gmm=1, gmm_t=1),
+    want = dict(ragged_fused=dict(fem_fwd=1, fem_bwd_gu=1, fem_bwd_act=1, fem_bwd_dwd=1, fem_bwd_dx=1, gmm=1, gmm_t=1),
                 ragged=dict(gmm=2, gmm_t=2, tgmm=2))
     tols = dict(loss=FUSED_STEP_LOSS_REL_TOL, grad_norm=FUSED_STEP_GRAD_NORM_REL_TOL)
     return one_step_experts_ab(torch, cfg, "experts ragged_fused vs ragged", ("ragged_fused", "ragged"), want, tols)
@@ -1864,13 +1878,21 @@ def gpt_oss_rows(torch, dev, routing: str, seed: int, scale: float = 1.0):
     return x.index_select(0, order // K), gout.expert_counts
 
 
-def fem_bound(kind: str, M: int, D: int, I: int, gs, biased: bool) -> tuple[float, str]:
+def fem_bound(kind: str, M: int, D: int, I: int, gs, biased: bool, out_bytes: int = 4,
+              given: bool = False) -> tuple[float, str]:
     """Least time of one call: its tensor-core products (2 flops per routed
     row and (k, n) pair) over the bf16 peak, against its bytes over HBM
     bandwidth: each operand read once (the routed rows of lhs, gu, dmid and
     dy, the weight slabs of experts that received rows, the biases), each
-    output written once (out and dlhs [M, D] bf16, the weight grads fp32).
-    The activation's elementwise work is not counted."""
+    output written once (out and dlhs [M, D] bf16, bwd_gu's weight grad
+    fp32, bwd_dwd's in ``out_bytes`` an element, the bias grads fp32).
+    bwd_dwd and bwd_dx read gu [M, 2I] when called alone (they run the
+    elementwise pass) and the pass's output (mid [M, I], dg | du [M, 2I])
+    under ``given``, as the backward calls them. bwd_act reads g | u and
+    dmid of the routed rows and writes mid and dg | du over all M rows; its
+    fp32 elementwise work (~40 flops an element, ~0.03 ms at 67 TFLOP/s at
+    gpt-oss-20b's widths) is under its bytes and not counted, nor is the
+    activation elsewhere."""
     rows, fed, G = int(gs.sum()), int((gs > 0).sum()), gs.shape[0]
     bf = 2
     if kind == "fwd":
@@ -1879,26 +1901,34 @@ def fem_bound(kind: str, M: int, D: int, I: int, gs, biased: bool) -> tuple[floa
     elif kind == "bwd_gu":
         flops = 4 * rows * D * I
         nbytes = rows * (D + 3 * I) * bf + G * D * 2 * I * 4 + (G * 2 * I * 4 if biased else 0)
+    elif kind == "bwd_act":
+        flops = 0
+        nbytes = rows * 3 * I * bf + M * 3 * I * bf
     elif kind == "bwd_dwd":
         flops = 2 * rows * I * D
-        nbytes = rows * (2 * I + D) * bf + G * I * D * 4 + (G * D * 4 if biased else 0)
+        nbytes = rows * ((I if given else 2 * I) + D) * bf + G * I * D * out_bytes + (G * D * 4 if biased else 0)
     else:  # bwd_dx
         flops = 4 * rows * I * D
-        nbytes = rows * 3 * I * bf + fed * 2 * D * I * bf + M * D * bf
+        nbytes = rows * (2 * I if given else 3 * I) * bf + fed * 2 * D * I * bf + M * D * bf
     t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def fem_library_ms(torch, kind: str, xs, gu, dmid, dy, w_gu, w_dn, gs, gub, db, act, limit):
-    """A composition yardstick, since no one PyTorch call computes these:
-    ``torch._grouped_mm`` for the products, the activation (and its
-    backward, the bias adds) in eager torch. The port never calls it. None
-    where this torch has no ``_grouped_mm`` or it refuses."""
+def fem_library_ms(torch, kind: str, xs, gu, dmid, dy, w_gu, w_dn, gs, gub, db, act, limit, mid=None,
+                   dgdu=None) -> dict:
+    """Yardsticks the port never calls: ``composition_ms``, the function
+    as ``torch._grouped_mm`` products with the activation (and its
+    backward, the bias adds) in eager torch; ``library_ms``, for bwd_dwd
+    and bwd_dx the one ``torch._grouped_mm`` call of their product on the
+    materialized operand (``mid``, ``dgdu``: the kernels' work as the
+    backward calls them), else the composition (no one call computes the
+    forward or bwd_gu). None where this torch has no ``_grouped_mm`` or it
+    refuses; bwd_act has no library call."""
     from automodel_tpu_torch.ops import fused_expert_mlp as fem
 
     fn = getattr(torch, "_grouped_mm", None)
-    if fn is None:
-        return None
+    if fn is None or kind == "bwd_act":
+        return dict(library_ms=None, composition_ms=None)
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
     I = w_dn.shape[1]
 
@@ -1914,17 +1944,23 @@ def fem_library_ms(torch, kind: str, xs, gu, dmid, dy, w_gu, w_dn, gs, gub, db, 
         y = fn(act_fwd(h), w_dn, offs=offs)
         return y if db is None else fem.add_row_bias(y, db, gs)
 
-    calls = dict(
+    compositions = dict(
         fwd=fwd,
         bwd_gu=lambda: fn(xs.t(), act_bwd(), offs=offs),
         bwd_dwd=lambda: fn(act_fwd(gu).t(), dy, offs=offs),
         bwd_dx=lambda: fn(act_bwd(), w_gu.transpose(-2, -1), offs=offs),
     )
-    try:
-        return cuda_ms(calls[kind], iters=10)
-    except (RuntimeError, TypeError, ValueError) as e:
-        print(f"torch._grouped_mm refused the {kind} composition: {str(e)[:200]}", flush=True)
-        return None
+    alone = dict(bwd_dwd=lambda: fn(mid.t(), dy, offs=offs), bwd_dx=lambda: fn(dgdu, w_gu.transpose(-2, -1), offs=offs))
+    out = {}
+    for key, call in (("composition_ms", compositions[kind]), ("library_ms", alone.get(kind))):
+        try:
+            out[key] = None if call is None else cuda_ms(call, iters=10)
+        except (RuntimeError, TypeError, ValueError) as e:
+            print(f"torch._grouped_mm refused the {kind} {key}: {str(e)[:200]}", flush=True)
+            out[key] = None
+    if kind in ("fwd", "bwd_gu"):
+        out["library_ms"] = out["composition_ms"]
+    return out
 
 
 def phase_fused_kernels(torch, dev) -> dict:
@@ -1981,17 +2017,19 @@ def phase_fused_kernels(torch, dev) -> dict:
                 f = (fem.fwd, fem.bwd_gu, fem.bwd_dwd, fem.bwd_dx)
                 out = f[0](lhs, w["gate_up"], w["down"], gs, gub, db, act, limit, plan=plan)
             dw, dbias = f[1](lhs, gu, dmid, gs, act, limit, biased)
+            # bwd_dwd (fp32 out) and bwd_dx alone, each running the elementwise pass
             dwd, ddb = f[2](gu, dout, gs, act, limit, biased)
             dlhs = f[3](gu, dmid, w["gate_up"], gs, act, limit) if plain else f[3](
                 gu, dmid, w["gate_up"], gs, act, limit, plan=plan)
-            return (out, dw, dbias, dwd, ddb, dlhs), gu, dmid
+            mid, dgdu = (fem._bwd_act_plain if plain else fem.bwd_act)(gu, dmid, gs, act, limit)
+            return (out, dw, dbias, dwd, ddb, dlhs, mid, dgdu), gu, dmid
 
         got, gu, dmid = run(xs, dy)
         torch.cuda.synchronize()
         want, _, _ = run(xs, dy, plain=True)
-        names = ("out", "dw", "dbias", "dwd", "ddb", "dlhs")
+        names = ("out", "dw", "dbias", "dwd", "ddb", "dlhs", "mid", "dgdu")
         limits = dict(out=FEM_ROW_TOL, dlhs=FEM_ROW_TOL, dw=FEM_DW_ROW_TOL, dwd=FEM_DW_ROW_TOL,
-                      dbias=FEM_BIAS_ROW_TOL, ddb=FEM_BIAS_ROW_TOL)
+                      dbias=FEM_BIAS_ROW_TOL, ddb=FEM_BIAS_ROW_TOL, mid=FEM_ROW_TOL, dgdu=FEM_ROW_TOL)
         if not all(bool(torch.isfinite(t.float()).all()) for t in got if t is not None):
             raise RuntimeError(f"fused expert-MLP kernels produced non-finite values in case {c['name']}")
         g_, u_ = gu[:n, :I].float(), gu[:n, I:].float()
@@ -2003,7 +2041,7 @@ def phase_fused_kernels(torch, dev) -> dict:
             row_err={k: row_rel_err(a, b) for k, a, b in zip(names, got, want) if b is not None},
             max_abs_err={k: float((a.float() - b.float()).abs().max()) for k, a, b in zip(names, got, want)
                          if b is not None},
-            tail_rows_zero=bool((got[0][n:] == 0).all()) and bool((got[5][n:] == 0).all()),
+            tail_rows_zero=all(bool((got[i][n:] == 0).all()) for i in (0, 5, 6, 7)),
         )
         row["ok"] = row["tail_rows_zero"] and all(v <= limits[k] for k, v in row["row_err"].items())
         if c["tail"]:
@@ -2020,31 +2058,57 @@ def phase_fused_kernels(torch, dev) -> dict:
             del dirty, dirty_x, dirty_dy
         del want
         if c["main"]:
-            mid = fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, W, act, limit)
+            fwd_mid = fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, W, act, limit)
+            # the backward's operands, as the autograd function makes them once
+            mid, dgdu = got[6], got[7]
+            bf16 = torch.bfloat16
             timed = dict(
                 fwd=(lambda: fem.fwd(xs, w["gate_up"], w["down"], gs, gub, db, act, limit, plan=plan),
                      lambda: fem._fwd_plain(xs, w["gate_up"], w["down"], gs, gub, db, act, limit)),
                 bwd_gu=(lambda: fem.bwd_gu(xs, gu, dmid, gs, act, limit, biased),
                         lambda: fem._bwd_gu_plain(xs, gu, dmid, gs, act, limit, biased)),
-                bwd_dwd=(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased),
-                         lambda: fem._bwd_dwd_plain(gu, dy, gs, act, limit, biased)),
-                bwd_dx=(lambda: fem.bwd_dx(gu, dmid, w["gate_up"], gs, act, limit, plan=plan),
-                        lambda: fem._bwd_dx_plain(gu, dmid, w["gate_up"], gs, act, limit)),
+                bwd_act=(lambda: fem.bwd_act(gu, dmid, gs, act, limit),
+                         lambda: fem._bwd_act_plain(gu, dmid, gs, act, limit)),
+                bwd_dwd=(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased, bf16, mid=mid),
+                         lambda: fem._bwd_dwd_plain(gu, dy, gs, act, limit, biased, bf16, mid=mid)),
+                bwd_dx=(lambda: fem.bwd_dx(gu, dmid, w["gate_up"], gs, act, limit, plan=plan, dgdu=dgdu),
+                        lambda: fem._bwd_dx_plain(gu, dmid, w["gate_up"], gs, act, limit, dgdu=dgdu)),
             )
             row["timed"] = {}
             for kind, (kern, plain) in timed.items():
-                bound_ms, bound_by = fem_bound(kind, M, D, I, gs, biased)
+                # bwd_dwd and bwd_dx as the backward calls them: the pass's output given, dWd in bf16
+                bound_ms, bound_by = fem_bound(kind, M, D, I, gs, biased, out_bytes=2, given=True)
                 row["timed"][kind] = dict(
                     ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=2, warmup=1), bound_ms=bound_ms,
                     bound_by=bound_by,
-                    library_ms=fem_library_ms(torch, kind, xs, gu, dmid, dy, w["gate_up"], w["down"], gs, gub, db,
-                                              act, limit),
+                    **fem_library_ms(torch, kind, xs, gu, dmid, dy, w["gate_up"], w["down"], gs, gub, db, act, limit,
+                                     mid=mid, dgdu=dgdu),
                 )
                 torch.cuda.empty_cache()
-            row["timed"]["fwd"]["gu_act_ms"] = cuda_ms(
+            t = row["timed"]
+            t["fwd"]["gu_act_ms"] = cuda_ms(
                 lambda: fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, W, act, limit), iters=10)
-            row["timed"]["fwd"]["down_ms"] = cuda_ms(lambda: fem._launch_fwd_down(mid, w["down"], db, plan, W), iters=10)
-            del mid
+            t["fwd"]["down_ms"] = cuda_ms(lambda: fem._launch_fwd_down(fwd_mid, w["down"], db, plan, W), iters=10)
+            # each called alone (the pass inside), and dWd in fp32, as the earlier fused kernel wrote it (PERF.md). beside its bound
+            t["bwd_dwd"]["alone_ms"] = cuda_ms(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased, bf16), iters=10)
+            t["bwd_dwd"]["fp32_alone_ms"] = cuda_ms(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased), iters=10)
+            t["bwd_dwd"]["fp32_alone_bound_ms"] = fem_bound("bwd_dwd", M, D, I, gs, biased)[0]
+            ends = fem._ends(gs)
+            t["bwd_dwd"]["ddb_ms"] = cuda_ms(
+                lambda: fem._lib().fused_expert_mlp_bwd_ddb(dy.data_ptr(), ends.data_ptr(), got[4].data_ptr(), M, D, G,
+                                                            fem._stream(dy)), iters=10)
+            t["bwd_dx"]["alone_ms"] = cuda_ms(lambda: fem.bwd_dx(gu, dmid, w["gate_up"], gs, act, limit, plan=plan),
+                                              iters=10)
+            t["bwd_dx"]["order"] = "n tiles" if gm._lib().grouped_matmul_gmm_n_major(2 * I, D) else "units"
+            t["bwd_dx"]["ms_by_order"] = {
+                o: cuda_ms(lambda nm=nm: gm._gmm_launch(dgdu, w["gate_up"], gs, plan, D, True, nm), iters=10)
+                for nm, o in ((False, "units"), (True, "n tiles"))}
+            t["k3c_k3d_and_pass_ms"] = t["bwd_act"]["ms"] + t["bwd_dwd"]["ms"] + t["bwd_dx"]["ms"]
+            # dWd written in bf16 is its fp32 sum rounded once
+            dwd16 = fem.bwd_dwd(gu, dy, gs, act, limit, biased, bf16, mid=mid)[0]
+            row["dwd_bf16_equals_fp32_cast"] = bool(torch.equal(dwd16, got[3].to(bf16)))
+            row["ok"] = row["ok"] and row["dwd_bf16_equals_fp32_cast"]
+            del fwd_mid, mid, dgdu, dwd16
         results.append(row)
         print(f"kernel fused_expert_mlp vs plain: {json.dumps(row)}", flush=True)
         del xs, dy, got, gu, dmid, plan
@@ -2093,6 +2157,61 @@ def sinks_flash_entry(name: str, sinks: dict) -> dict:
         if name == "dq":
             out[f"window {c['window']}"]["backward"] = flash_backward_pair(c)
     return out
+
+
+def fused_entries(fused: dict, gpt_oss: dict) -> list:
+    """The ``kernels`` line's fused expert-MLP entries: phase 12's times at
+    the gpt-oss gate-routed case, phase 13's launches. The forward's two
+    launches count as one call, their times apart beside the total. K3c
+    and K3d are the elementwise pass (bwd_act, an entry of its own) and
+    K2's products: their ms are the products as the backward calls them
+    (the pass's output given, dWd in bf16) and library_ms is
+    torch._grouped_mm on the same operands; beside them each called alone,
+    and dWd in fp32, as the earlier fused kernel wrote it (PERF.md)."""
+    fmain = next(c for c in fused["cases"] if "timed" in c)
+    entries = []
+    outputs = dict(fwd=("out",), bwd_gu=("dw", "dbias"), bwd_act=("mid", "dgdu"), bwd_dwd=("dwd", "ddb"),
+                   bwd_dx=("dlhs",))
+    k2_source = "automodel_tpu_torch/csrc/grouped_matmul.cu"
+    sources = dict(bwd_dwd=k2_source, bwd_dx=k2_source)
+    kernels_of = dict(fwd="fwd_gu_act_kernel, fwd_down_kernel", bwd_gu="bwd_gu_kernel", bwd_act="bwd_act_kernel",
+                      bwd_dwd="tgmm_kernel<true> (grouped_matmul.cu), bwd_ddb_kernel (fused_expert_mlp.cu)",
+                      bwd_dx="gmm_kernel<true> (grouped_matmul.cu) over K = 2I")
+    # bwd_act replaces the activation of _bwd_dwd_kernel (:530) and _bwd_dx_kernel (:615)
+    for kind, line_no in (("fwd", 59), ("bwd_gu", 423), ("bwd_act", 615), ("bwd_dwd", 530), ("bwd_dx", 615)):
+        t = fmain["timed"][kind]
+        entry = {
+            "name": f"fused_expert_mlp_{kind}",
+            "route": "cuda",
+            "source": sources.get(kind, "automodel_tpu_torch/csrc/fused_expert_mlp.cu"),
+            "replaces": f"automodel_tpu/ops/fused_expert_mlp.py:{line_no}",
+            "kernels": kernels_of[kind],
+            "launches": gpt_oss["launches"][f"fem_{kind}"],
+            "max_abs_err": max(c["max_abs_err"][k] for c in fused["cases"] for k in outputs[kind]
+                               if k in c["max_abs_err"]),
+            "max_row_rel_err": max(c["row_err"][k] for c in fused["cases"] for k in outputs[kind]
+                                   if k in c["row_err"]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": "composition: torch._grouped_mm products, activation and biases in eager torch",
+            "shape": f"M={fmain['M']} D={fmain['D']} I={fmain['I']} G={fmain['G']}, gpt-oss gate-routed, "
+                     f"swiglu_oai with expert biases",
+        }
+        if kind == "fwd":
+            entry.update(gu_act_ms=t["gu_act_ms"], down_ms=t["down_ms"])
+        elif kind == "bwd_act":
+            entry.update(library="none: no one PyTorch call computes the activation and its gradient",
+                         also_replaces="automodel_tpu/ops/fused_expert_mlp.py:530")
+        elif kind in ("bwd_dwd", "bwd_dx"):
+            entry.update(library="torch._grouped_mm alone on the materialized operand (mid, or dg | du)",
+                         composition_ms=t["composition_ms"], alone_ms=t["alone_ms"],
+                         **{k: t[k] for k in ("fp32_alone_ms", "fp32_alone_bound_ms", "ddb_ms", "order", "ms_by_order")
+                            if k in t})
+        entries.append(entry)
+    return entries
 
 
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
@@ -2198,34 +2317,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             for entry, r in ((line["kernels"][-1], t), (line["kernels"][-1]["down"], down),
                              (line["kernels"][-1]["gpt_oss"], timed[("gpt-oss", kind)])):
                 entry.update({k: r[k] for k in ("order", "ms_by_order")})
-    # fused expert MLP: times at the gpt-oss gate-routed case; the forward's
-    # two launches count as one call, their times apart beside the total
-    fmain = next(c for c in fused["cases"] if "timed" in c)
-    outputs = dict(fwd=("out",), bwd_gu=("dw", "dbias"), bwd_dwd=("dwd", "ddb"), bwd_dx=("dlhs",))
-    for kind, line_no in (("fwd", 59), ("bwd_gu", 423), ("bwd_dwd", 530), ("bwd_dx", 615)):
-        t = fmain["timed"][kind]
-        entry = {
-            "name": f"fused_expert_mlp_{kind}",
-            "route": "cuda",
-            "source": "automodel_tpu_torch/csrc/fused_expert_mlp.cu",
-            "replaces": f"automodel_tpu/ops/fused_expert_mlp.py:{line_no}",
-            "launches": gpt_oss["launches"][f"fem_{kind}"],
-            "max_abs_err": max(c["max_abs_err"][k] for c in fused["cases"] for k in outputs[kind]
-                               if k in c["max_abs_err"]),
-            "max_row_rel_err": max(c["row_err"][k] for c in fused["cases"] for k in outputs[kind]
-                                   if k in c["row_err"]),
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "library": "composition: torch._grouped_mm products, activation and biases in eager torch",
-            "shape": f"M={fmain['M']} D={fmain['D']} I={fmain['I']} G={fmain['G']}, gpt-oss gate-routed, "
-                     f"swiglu_oai with expert biases",
-        }
-        if kind == "fwd":
-            entry.update(gu_act_ms=t["gu_act_ms"], down_ms=t["down_ms"])
-        line["kernels"].append(entry)
+    line["kernels"] += fused_entries(fused, gpt_oss)
     return line
 
 
@@ -2278,6 +2370,7 @@ def main() -> int:
         spilled = [u for u in grouped_ptxas if u.get("spill_stores") or u.get("spill_loads")]
         if len(grouped_ptxas) != 4 or spilled:
             raise RuntimeError(f"grouped kernels: want 4 instantiations and no spills, ptxas reports {grouped_ptxas}")
+        print(f"ptxas fused_expert_mlp: {json.dumps(_cuda_build.ptxas_usage('fused_expert_mlp'))}", flush=True)
 
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)

@@ -795,6 +795,8 @@ from automodel_tpu_torch.ops import fused_expert_mlp as tfem  # noqa: E402
 # grads per expert row within 2^-12: fp32 sums of fp32 values in another
 # order. A group that gains or loses one row moves the worst row of each
 # past 4x its limit (test_fused_row_check_catches_a_one_row_boundary_shift).
+# The backward's elementwise pass (mid, dg | du, each an fp32 value rounded
+# once to bf16) per row within FEM_ROW_TOL, as out: the one-ulp flips above.
 FEM_ROW_TOL = 2.0**-7
 FEM_DW_ROW_TOL = 2.0**-10
 FEM_BIAS_ROW_TOL = 2.0**-12
@@ -816,9 +818,11 @@ def fem_case(dev, M, D, I, sizes, biased=True, scale=1.0, seed=0, dtype=torch.bf
 
 
 def fem_all(c, act, limit, gs=None, plain=False):
-    """(out, dW, dbias, dWd, ddb, dlhs) through the wrappers (or the plain
-    versions), the backward's gu and dmid recomputed as the autograd
-    function does (through gmm, bias added in the compute dtype)."""
+    """(out, dW, dbias, dWd, ddb, dlhs, mid, dgdu) through the wrappers (or
+    the plain versions), each called alone (bwd_dwd and bwd_dx run the
+    elementwise pass themselves), the backward's gu and dmid recomputed as
+    the autograd function does (through gmm, bias added in the compute
+    dtype)."""
     from automodel_tpu_torch.ops import grouped_matmul as gm
 
     gs = c["gs"] if gs is None else gs
@@ -827,23 +831,24 @@ def fem_all(c, act, limit, gs=None, plain=False):
     if want_b:
         gu = tfem.add_row_bias(gu, c["gate_up_bias"], gs)
     dmid = gm._gmm_plain(c["dy"], c["down"], gs, True)
-    f = (tfem._fwd_plain, tfem._bwd_gu_plain, tfem._bwd_dwd_plain, tfem._bwd_dx_plain) if plain else (
-        tfem.fwd, tfem.bwd_gu, tfem.bwd_dwd, tfem.bwd_dx)
+    f = (tfem._fwd_plain, tfem._bwd_gu_plain, tfem._bwd_dwd_plain, tfem._bwd_dx_plain, tfem._bwd_act_plain) if (
+        plain) else (tfem.fwd, tfem.bwd_gu, tfem.bwd_dwd, tfem.bwd_dx, tfem.bwd_act)
     out = f[0](c["lhs"], c["gate_up"], c["down"], gs, c["gate_up_bias"], c["down_bias"], act, limit)
     dw, dbias = f[1](c["lhs"], gu, dmid, gs, act, limit, want_b)
     dwd, ddb = f[2](gu, c["dy"], gs, act, limit, want_b)
     dlhs = f[3](gu, dmid, c["gate_up"], gs, act, limit)
-    return out, dw, dbias, dwd, ddb, dlhs
+    mid, dgdu = f[4](gu, dmid, gs, act, limit)
+    return out, dw, dbias, dwd, ddb, dlhs, mid, dgdu
 
 
 def fem_errors(got, want) -> dict:
-    names = ("out", "dw", "dbias", "dwd", "ddb", "dlhs")
+    names = ("out", "dw", "dbias", "dwd", "ddb", "dlhs", "mid", "dgdu")
     return {n: row_rel_err(a, b) for n, a, b in zip(names, got, want) if b is not None}
 
 
 def fem_ok(err: dict) -> bool:
     tol = dict(out=FEM_ROW_TOL, dlhs=FEM_ROW_TOL, dw=FEM_DW_ROW_TOL, dwd=FEM_DW_ROW_TOL,
-               dbias=FEM_BIAS_ROW_TOL, ddb=FEM_BIAS_ROW_TOL)
+               dbias=FEM_BIAS_ROW_TOL, ddb=FEM_BIAS_ROW_TOL, mid=FEM_ROW_TOL, dgdu=FEM_ROW_TOL)
     return all(v <= tol[k] for k, v in err.items())
 
 
@@ -866,35 +871,114 @@ def test_fused_row_check_catches_a_one_row_boundary_shift(case):
     assert err["dbias"] > 4 * FEM_BIAS_ROW_TOL and err["ddb"] > 4 * FEM_BIAS_ROW_TOL, err
 
 
+FEM_CASES = [
+    (2048, 256, 384, ragged_sizes(2048, 8), "swiglu_oai", None, True, 1.0),
+    (2048, 384, 256, ragged_sizes(2048, 8, seed=2, empty=(0, 7), big=3), "swiglu", None, False, 1.0),
+    (1000, 1000, 1000, ragged_sizes(1000, 5, seed=3), "swiglu_oai", None, True, 1.0),  # off the tiles
+    (130, 128, 128, [1, 129], "swiglu_oai", None, True, 1.0),  # a tile across a group boundary
+    (300, 64, 64, [0, 50, 0, 78, 0], "swiglu", None, True, 1.0),  # empty ends, rows past the groups
+    (2048, 256, 256, ragged_sizes(2048, 8, seed=4), "swiglu_oai", None, True, 4.26),  # ~10% clamped
+    (2048, 256, 256, ragged_sizes(2048, 8, seed=5), "swiglu", 2.0, True, 1.5),  # swiglu's limit
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "M,D,I,sizes,act,limit,biased,scale",
-    [
-        (2048, 256, 384, ragged_sizes(2048, 8), "swiglu_oai", None, True, 1.0),
-        (2048, 384, 256, ragged_sizes(2048, 8, seed=2, empty=(0, 7), big=3), "swiglu", None, False, 1.0),
-        (1000, 1000, 1000, ragged_sizes(1000, 5, seed=3), "swiglu_oai", None, True, 1.0),  # off the tiles
-        (130, 128, 128, [1, 129], "swiglu_oai", None, True, 1.0),  # a tile across a group boundary
-        (300, 64, 64, [0, 50, 0, 78, 0], "swiglu", None, True, 1.0),  # empty ends, rows past the groups
-        (2048, 256, 256, ragged_sizes(2048, 8, seed=4), "swiglu_oai", None, True, 4.26),  # ~10% clamped
-        (2048, 256, 256, ragged_sizes(2048, 8, seed=5), "swiglu", 2.0, True, 1.5),  # swiglu's limit
-    ],
-)
+@pytest.mark.parametrize("M,D,I,sizes,act,limit,biased,scale", FEM_CASES)
 def test_fused_expert_mlp_kernels_match_plain(M, D, I, sizes, act, limit, biased, scale):
-    """fwd (both launches), bwd_gu, bwd_dwd and bwd_dx against their plain
-    versions on the card, each counted once; rows past the groups zero."""
+    """fwd (both launches), bwd_gu, bwd_dwd, bwd_dx and bwd_act against
+    their plain versions on the card, each wrapper counted once a call
+    (bwd_act three times: once alone, once inside bwd_dwd and bwd_dx each);
+    rows past the groups zero."""
     _need_cuda("fused_expert_mlp")
     c = fem_case(torch.device("cuda"), M, D, I, sizes, biased=biased, scale=scale)
-    kernels = (tfem.fwd, tfem.bwd_gu, tfem.bwd_dwd, tfem.bwd_dx)
+    kernels = (tfem.fwd, tfem.bwd_gu, tfem.bwd_dwd, tfem.bwd_dx, tfem.bwd_act)
     before = [f.launches for f in kernels]
     got = fem_all(c, act, limit)
     torch.cuda.synchronize()
-    assert [f.launches for f in kernels] == [n + 1 for n in before]
+    assert [f.launches - n for f, n in zip(kernels, before)] == [1, 1, 1, 1, 3]
     want = fem_all(c, act, limit, plain=True)
     assert all(bool(torch.isfinite(t.float()).all()) for t in got if t is not None)
     n = sum(sizes)
-    assert bool((got[0][n:] == 0).all()) and bool((got[5][n:] == 0).all())
+    assert all(bool((got[i][n:] == 0).all()) for i in (0, 5, 6, 7))
     err = fem_errors(got, want)
     assert fem_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,I,sizes,act,limit,biased,scale", FEM_CASES)
+def test_bwd_act_kernel_matches_plain(M, D, I, sizes, act, limit, biased, scale):
+    """The backward's elementwise pass alone on g | u and dmid drawn at the
+    K3 cases' widths and scales (g and u ~ N(0, scale^2), so the 4.26 case
+    puts ~10% past +-7), with entries set exactly on the clamps' bounds:
+    mid and dg | du per row within FEM_ROW_TOL of the plain version, each
+    output alone (mid without dmid, dg | du alone) equal to the pair's, and
+    a second launch bit for bit the first."""
+    _need_cuda("fused_expert_mlp")
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(M + I)
+    gu = torch.randn((M, 2 * I), generator=g) * scale
+    dmid = torch.randn((M, I), generator=g)
+    bound = 7.0 if act == "swiglu_oai" else limit
+    if bound is not None:
+        pick = torch.rand((M, 2 * I), generator=g)
+        gu[pick < 0.05] = bound
+        gu[:, I:][pick[:, I:] > 0.95] = -bound
+    gu, dmid = gu.to(torch.bfloat16).to(dev), dmid.to(torch.bfloat16).to(dev)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = tfem.bwd_act.launches
+    mid, dgdu = tfem.bwd_act(gu, dmid, gs, act, limit)
+    mid_alone, none = tfem.bwd_act(gu, None, gs, act, limit, want_dgdu=False)
+    none2, dgdu_alone = tfem.bwd_act(gu, dmid, gs, act, limit, want_mid=False)
+    again = tfem.bwd_act(gu, dmid, gs, act, limit)
+    torch.cuda.synchronize()
+    assert tfem.bwd_act.launches == before + 4 and none is None and none2 is None
+    r_mid, r_dgdu = tfem._bwd_act_plain(gu, dmid, gs, act, limit)
+    n = sum(sizes)
+    assert bool((mid[n:] == 0).all()) and bool((dgdu[n:] == 0).all())
+    assert row_rel_err(mid, r_mid) <= FEM_ROW_TOL and row_rel_err(dgdu, r_dgdu) <= FEM_ROW_TOL
+    assert torch.equal(mid_alone, mid) and torch.equal(dgdu_alone, dgdu)
+    assert torch.equal(again[0], mid) and torch.equal(again[1], dgdu)
+
+
+@pytest.mark.cuda
+def test_bwd_act_nan_tail_on_the_card():
+    """NaN in g | u and dmid past sum(group_sizes): mid and dg | du are
+    bit-identical to the clean run's, zeros there."""
+    _need_cuda("fused_expert_mlp")
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    gu = torch.randn((1024, 512), generator=g).to(torch.bfloat16).to(dev)
+    dmid = torch.randn((1024, 256), generator=g).to(torch.bfloat16).to(dev)
+    gs = torch.tensor([300, 0, 400, 200], dtype=torch.int32, device=dev)
+    clean = tfem.bwd_act(gu, dmid, gs, "swiglu_oai")
+    gu_nan, dmid_nan = gu.clone(), dmid.clone()
+    gu_nan[900:], dmid_nan[900:] = float("nan"), float("nan")
+    for a, b in zip(tfem.bwd_act(gu_nan, dmid_nan, gs, "swiglu_oai"), clean):
+        assert torch.equal(a, b) and bool((a[900:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("biased", [True, False])
+def test_fused_expert_mlp_backward_repeats_bit_for_bit(biased):
+    """No atomics anywhere: every output of two runs (the backward's grads,
+    ddb included, and the elementwise pass's) is the same bits; dWd written
+    in bf16 equals the fp32 dWd rounded once, with mid given or computed
+    inside."""
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), 2048, 256, 384, ragged_sizes(2048, 8, seed=7), biased=biased)
+    first = fem_all(c, "swiglu_oai", None)
+    second = fem_all(c, "swiglu_oai", None)
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+
+    gu = gm.gmm(c["lhs"], c["gate_up"], c["gs"])
+    mid, _ = tfem.bwd_act(gu, None, c["gs"], "swiglu_oai", want_dgdu=False)
+    fp32, _ = tfem.bwd_dwd(gu, c["dy"], c["gs"], "swiglu_oai", None, biased)
+    for kw in (dict(), dict(mid=mid)):
+        bf16, ddb = tfem.bwd_dwd(gu, c["dy"], c["gs"], "swiglu_oai", None, biased, out_dtype=torch.bfloat16, **kw)
+        assert bf16.dtype == torch.bfloat16 and torch.equal(bf16, fp32.to(torch.bfloat16))
+        assert (ddb is None) == (not biased)
 
 
 @pytest.mark.cuda
@@ -914,9 +998,12 @@ def test_fused_expert_mlp_nan_tail_on_the_card():
 
 @pytest.mark.cuda
 def test_fused_expert_mlp_autograd_on_the_card():
-    """fused_expert_mlp's backward on the card is gmm, gmm_t and the three
-    backward kernels, bit-identical to calling them by hand (no atomics:
-    they repeat exactly), tgmm not launched."""
+    """fused_expert_mlp's backward on the card is gmm, gmm_t, the
+    elementwise pass once and the three backward wrappers given its
+    outputs, bit-identical to calling each wrapper alone (no atomics: they
+    repeat exactly; dWd's bf16 out is its fp32 sum rounded once); the
+    tgmm and gmm counts are K2's own calls, which dWd and dlhs do not
+    add to."""
     from automodel_tpu_torch.ops import grouped_matmul as gm
 
     _need_cuda("fused_expert_mlp")
@@ -924,12 +1011,12 @@ def test_fused_expert_mlp_autograd_on_the_card():
     names = ("lhs", "gate_up", "down", "gate_up_bias", "down_bias")
     leaves = {k: c[k].clone().requires_grad_(True) for k in names}
     counts = lambda: (gm.gmm.launches, gm.gmm.launches_t, gm.tgmm.launches, tfem.fwd.launches, tfem.bwd_gu.launches,
-                      tfem.bwd_dwd.launches, tfem.bwd_dx.launches)
+                      tfem.bwd_dwd.launches, tfem.bwd_dx.launches, tfem.bwd_act.launches)
     before = counts()
     out = tfem.fused_expert_mlp(leaves["lhs"], leaves["gate_up"], leaves["down"], c["gs"], leaves["gate_up_bias"],
                                 leaves["down_bias"], "swiglu_oai")
     out.backward(c["dy"])
-    assert [b - a for a, b in zip(before, counts())] == [1, 1, 0, 1, 1, 1, 1]
+    assert [b - a for a, b in zip(before, counts())] == [1, 1, 0, 1, 1, 1, 1, 1]
     gu = tfem.add_row_bias(gm.gmm(c["lhs"], c["gate_up"], c["gs"]), c["gate_up_bias"], c["gs"])
     dmid = gm.gmm(c["dy"], c["down"], c["gs"], transpose_rhs=True)
     dw, dbias = tfem.bwd_gu(c["lhs"], gu, dmid, c["gs"], "swiglu_oai", None, True)

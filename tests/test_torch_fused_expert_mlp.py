@@ -1,7 +1,11 @@
 """The torch port's fused expert MLP (automodel_tpu_torch/ops/fused_expert_mlp)
 against the JAX package's Pallas kernels run in interpret mode on the CPU:
 the plain forward and the three plain backward functions against ``_fwd``,
-``_bwd_gu``, ``_bwd_dwd`` and ``_bwd_dx``; the autograd function's seven
+``_bwd_gu``, ``_bwd_dwd`` and ``_bwd_dx``; the backward's elementwise pass
+(``_bwd_act_plain``) against ``_act_core`` and ``jax.vjp`` of it, and the
+composition the autograd function runs (the pass once, then ``bwd_dwd``
+and ``bwd_dx`` given its outputs) against ``_bwd_dwd`` and ``_bwd_dx``;
+the autograd function's seven
 grads (dlhs, dWg | dWu as one [G, D, 2I], dWd, dgb | dub, ddb) against
 ``jax.vjp`` of ``fused_expert_mlp`` over the cases of
 tests/test_fused_backward.py, a NaN tail past the groups, empty experts and
@@ -227,3 +231,122 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="limit"):
         tfem.fused_expert_mlp(lhs, torch.zeros(2, 16, 16), torch.zeros(2, 8, 16),
                               torch.tensor([4, 4], dtype=torch.int32), limit=-1.0)
+
+
+def _act_inputs(act, limit, M=96, I=40, seed=11):
+    """numpy fp32 g, u, dmid [M, I]: swiglu_oai and swiglu's limit with a
+    share of entries exactly on the clamps' bounds, the rest spread past
+    them."""
+    rng = np.random.default_rng(seed)
+    bound = 7.0 if act == "swiglu_oai" else (limit or 3.0)
+    g, u, dmid = (rng.normal(size=(M, I)).astype(np.float32) * bound for _ in range(3))
+    if act == "swiglu_oai" or limit is not None:
+        pick = rng.random((M, I))
+        u[pick < 0.1] = bound
+        u[(pick >= 0.1) & (pick < 0.2)] = -bound
+        if act == "swiglu_oai":
+            g[pick > 0.9] = 7.0
+    return g, u, dmid
+
+
+ACTS = [("swiglu", None), ("swiglu", 2.0), ("swiglu_oai", None)]
+
+
+@pytest.mark.parametrize("act,limit", ACTS)
+def test_bwd_act_plain_matches_jax_act_core_and_its_vjp(act, limit):
+    """The backward's elementwise pass against JAX's ``_act_core`` and
+    ``jax.vjp`` of it on the same g, u, dmid (clamp ties included): in fp32
+    within 1e-5; in bf16, mid, dg and du each rounded once from those fp32
+    values, within one bf16 step of JAX's values rounded once (a few fp32
+    ulps between the two frameworks' sigmoids can move a rounding by one
+    step), and equal on at least 99% of the elements."""
+    g, u, dmid = _act_inputs(act, limit)
+    M, I = g.shape
+    gs = torch.tensor([30, 0, 66], dtype=torch.int32)
+    jmid = np.asarray(jfem._act_core(jnp.asarray(g), jnp.asarray(u), act, limit))
+    _, vjp = jax.vjp(lambda a, b: jfem._act_core(a, b, act, limit), jnp.asarray(g), jnp.asarray(u))
+    jdg, jdu = (np.asarray(t) for t in vjp(jnp.asarray(dmid)))
+    gu = torch.from_numpy(np.concatenate([g, u], -1))
+    mid, dgdu = tfem._bwd_act_plain(gu, torch.from_numpy(dmid), gs, act, limit)
+    assert mid.dtype == dgdu.dtype == torch.float32
+    np.testing.assert_allclose(mid.numpy(), jmid, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(dgdu[:, :I].numpy(), jdg, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(dgdu[:, I:].numpy(), jdu, atol=1e-5, rtol=1e-5)
+
+    bf = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    gu16, dmid16 = bf(np.concatenate([g, u], -1)), bf(dmid)
+    g32, u32, d32 = (jnp.asarray(t.float().numpy()) for t in (gu16[:, :I], gu16[:, I:], dmid16))
+    want = [jfem._act_core(g32, u32, act, limit)]
+    _, vjp = jax.vjp(lambda a, b: jfem._act_core(a, b, act, limit), g32, u32)
+    want += list(vjp(d32))
+    mid16, dgdu16 = tfem._bwd_act_plain(gu16, dmid16, gs, act, limit)
+    assert mid16.dtype == dgdu16.dtype == torch.bfloat16
+    for name, got, w in (("mid", mid16, want[0]), ("dg", dgdu16[:, :I], want[1]), ("du", dgdu16[:, I:], want[2])):
+        w16 = torch.from_numpy(np.array(w, np.float32)).to(torch.bfloat16).float()
+        step = w16.abs() * 2.0**-7 + 1e-30
+        assert bool(((got.float() - w16).abs() <= step).all()), name
+        assert float((got.float() == w16).float().mean()) >= 0.99, name
+
+
+def test_bwd_act_plain_zeroes_rows_past_the_groups_whatever_they_hold():
+    """Rows at or past sum(group_sizes) hold NaN in g | u and dmid: mid and
+    dg | du come out 0 there, and the rows before are the clean run's."""
+    g, u, dmid = _act_inputs("swiglu_oai", None, M=64)
+    gs = torch.tensor([20, 0, 30], dtype=torch.int32)
+    gu = torch.from_numpy(np.concatenate([g, u], -1))
+    clean = tfem._bwd_act_plain(gu, torch.from_numpy(dmid), gs, "swiglu_oai", None)
+    gu_nan, dmid_nan = gu.clone(), torch.from_numpy(dmid.copy())
+    gu_nan[50:], dmid_nan[50:] = float("nan"), float("nan")
+    dirty = tfem._bwd_act_plain(gu_nan, dmid_nan, gs, "swiglu_oai", None)
+    for a, b in zip(dirty, clean):
+        assert bool((a[50:] == 0).all()) and torch.equal(a, b)
+    mid, dgdu = tfem.bwd_act(gu_nan, dmid_nan, gs, "swiglu_oai", want_mid=False)
+    assert mid is None and torch.equal(dgdu, clean[1])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_composition_matches_the_pallas_kernels(case):
+    """The new backward composition on the CPU, as the autograd function
+    runs it (``bwd_act`` once, then ``bwd_dwd`` with mid and ``bwd_dx``
+    with dg | du given), against JAX's ``_bwd_dwd`` and ``_bwd_dx`` in
+    interpret mode on the same (g, u, dmid, dy) and weights (fp32, 2e-4 as
+    ``test_plain_versions_match_the_pallas_kernels``)."""
+    act, limit, biased, sizes = CASES[case]
+    c = _case(0, 128, 96, 80, sizes, biased)
+    I = 80
+    rng = np.random.default_rng(1)
+    g, u, dmid = (rng.normal(size=(128, I)).astype(np.float32) * 2 for _ in range(3))
+    gs_j, gs_t = jnp.asarray(c["gs"]), torch.from_numpy(c["gs"])
+    gate_up = torch.from_numpy(np.concatenate([c["gate"], c["up"]], -1))
+    gu = torch.from_numpy(np.concatenate([g, u], -1))
+    before = tfem.bwd_act.launches
+    mid, dgdu = tfem.bwd_act(gu, _t(dmid), gs_t, act, limit)
+    assert tfem.bwd_act.launches == before  # CPU tensors: the plain version, no launch
+
+    dwd, ddb = jfem._bwd_dwd(_j(g), _j(u), _j(c["dy"]), gs_j, act, limit, True, biased)
+    t_dwd, t_ddb = tfem.bwd_dwd(gu, _t(c["dy"]), gs_t, act, limit, want_bias=biased, mid=mid)
+    np.testing.assert_allclose(t_dwd.numpy(), np.asarray(dwd), atol=2e-4, err_msg="dWd")
+    if biased:
+        np.testing.assert_allclose(t_ddb.numpy(), np.asarray(ddb), atol=2e-4, err_msg="ddb")
+    else:
+        assert t_ddb is None
+    dlhs = jfem._bwd_dx(_j(g), _j(u), _j(dmid), _j(c["gate"]), _j(c["up"]), gs_j, True, act, limit)
+    t_dlhs = tfem.bwd_dx(gu, _t(dmid), gate_up, gs_t, act, limit, dgdu=dgdu)
+    np.testing.assert_allclose(t_dlhs.numpy(), np.asarray(dlhs), atol=2e-4, err_msg="dlhs")
+
+
+def test_bwd_dwd_bf16_out_is_the_fp32_sum_rounded_once():
+    """In bf16, as on the card: ``bwd_dwd(out_dtype=bf16)`` equals its fp32
+    result rounded once, bit for bit, with mid computed inside and given;
+    ddb stays fp32."""
+    g, u, dy = (np.random.default_rng(s).normal(size=(96, 48)).astype(np.float32) for s in (1, 2, 3))
+    gu = torch.from_numpy(np.concatenate([g, u], -1)).to(torch.bfloat16)
+    dy = torch.from_numpy(dy).to(torch.bfloat16)
+    gs = torch.tensor([40, 0, 50], dtype=torch.int32)
+    fp32, ddb32 = tfem.bwd_dwd(gu, dy, gs, "swiglu_oai", None, True)
+    mid, _ = tfem.bwd_act(gu, None, gs, "swiglu_oai", want_dgdu=False)
+    for kw in (dict(), dict(mid=mid)):
+        bf16, ddb = tfem.bwd_dwd(gu, dy, gs, "swiglu_oai", None, True, out_dtype=torch.bfloat16, **kw)
+        assert fp32.dtype == torch.float32 and bf16.dtype == torch.bfloat16 and ddb.dtype == torch.float32
+        assert torch.equal(bf16, fp32.to(torch.bfloat16)) and torch.equal(ddb, ddb32)
+        assert bool((bf16[1] == 0).all()) and float(bf16.float().abs().max()) > 0
