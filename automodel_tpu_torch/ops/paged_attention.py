@@ -10,8 +10,9 @@ from a CUDA tensor to the plain version.
 
 Semantics shared by both versions (and by the JAX kernel):
 
-- q ``[B, Sq, N, H]`` is scaled in q's dtype before the kernel; query row
-  ``qi`` sits at absolute position ``lengths[b] + qi`` and attends pool
+- q ``[B, Sq, N, H]`` is scaled in q's dtype (the kernel does it as it
+  loads q, bit for bit as ``_scaled_q`` does); query row ``qi`` sits at
+  absolute position ``lengths[b] + qi`` and attends pool
   positions ``pos <= lengths[b] + qi`` (and, under a window,
   ``lengths[b] + qi - pos < window``). The rows being attended were
   written into the pool before the call.
@@ -27,6 +28,7 @@ Semantics shared by both versions (and by the JAX kernel):
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -35,11 +37,12 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 INT8_MAX = 127.0
 
 # the CUDA kernel's limits (csrc/paged_attention.cu): head dims and block
-# sizes it is instantiated for, and query rows per CTA (4 warps x up to 8)
+# sizes it is instantiated for, query rows (Sq * rep) per kv head, and the
+# chunk sizes of its split-KV grid in blocks, largest first
 CUDA_HEAD_DIMS = (64, 128, 256)
 CUDA_BLOCK_SIZES = (16,)
-CUDA_ROWS_PER_WARP = (1, 2, 4, 8)
-CUDA_WARPS = 4
+CUDA_MAX_ROWS = 32
+CUDA_CHUNK_BLOCKS = (32, 16, 8, 4)
 
 
 # -- int8 KV-row quantization ------------------------------------------------
@@ -131,17 +134,49 @@ def paged_attend_plain(
 # -- the CUDA kernel ---------------------------------------------------------
 
 
+def chunk_blocks(batch: int, num_kv_heads: int, nbseq: int, sm_count: int) -> int:
+    """The kernel's split rule: blocks a chunk (one CTA's share of a
+    sequence's KV for one kv head). The grid is ``(Nkv, B, ceil(nbseq /
+    cb))``, sized from shapes alone (lengths stay on the card): the largest
+    chunk of ``CUDA_CHUNK_BLOCKS`` whose grid still gives every SM a CTA
+    when every table is full, else the smallest. Each CTA costs a start, a
+    partial and a share of the merge, so fewer, longer chunks win as long
+    as the longest sequence is spread over the SMs (PERF.md section 6)."""
+    for cb in CUDA_CHUNK_BLOCKS[:-1]:
+        if batch * num_kv_heads * -(-nbseq // cb) >= sm_count:
+            return cb
+    return CUDA_CHUNK_BLOCKS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# per (device, stream): the kernel's merge counters, zeroed once; every
+# launch leaves them zero
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+    return buf
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.paged_attention_fwd
-    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, i, p]
     fn.restype = i
     lib.paged_attention_error_string.argtypes = [i]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_cuda_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
+def _check_cuda_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, sliding_window):
     dev = q.device
     if q.dtype != torch.bfloat16:
         raise TypeError(f"paged_attend on CUDA takes bf16 q, got {q.dtype}")
@@ -155,6 +190,8 @@ def _check_cuda_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
             raise ValueError(f"paged_attend: {name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"paged_attend: {name} must be contiguous")
+        if name in ("q", "k_pool", "v_pool") and t.data_ptr() % 16:
+            raise ValueError(f"paged_attend: {name} must start on a 16-byte boundary")
     for name in ("k_pool", "v_pool"):
         if tensors[name].dtype != want_pool:
             raise TypeError(f"paged_attend: {name} must be {want_pool}, got {tensors[name].dtype}")
@@ -179,34 +216,55 @@ def _check_cuda_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
     if BS not in CUDA_BLOCK_SIZES:
         raise ValueError(f"paged_attend: block_size {BS} (the CUDA kernel takes {CUDA_BLOCK_SIZES})")
     rows = Sq * (N // Nkv)
-    if rows > CUDA_WARPS * CUDA_ROWS_PER_WARP[-1]:
+    if rows > CUDA_MAX_ROWS:
         raise ValueError(
             f"paged_attend: Sq*rep={rows} query rows per kv head exceeds the "
-            f"kernel's {CUDA_WARPS * CUDA_ROWS_PER_WARP[-1]}"
+            f"kernel's {CUDA_MAX_ROWS}"
         )
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError(f"paged_attend: sliding_window {sliding_window} (the CUDA kernel takes >= 1 or None)")
 
 
-def _launch_cuda(qs, k_pool, v_pool, tables, lengths, k_scale, v_scale, sliding_window, logits_soft_cap):
+def _lib() -> ctypes.CDLL:
     from automodel_tpu_torch.ops import _cuda_build
 
     lib = _cuda_build.load("paged_attention")
     if not hasattr(lib, "_paged_bound"):
         _bind(lib)
         lib._paged_bound = True
-    B, Sq, N, H = qs.shape
+    return lib
+
+
+def _launch_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, sliding_window, logits_soft_cap,
+                 cb: int):
+    """One launch of the kernel at ``cb`` blocks a chunk (``paged_attend``
+    passes ``chunk_blocks``'s; chip_paged_ab.py's ``--sweep`` times every
+    size of ``CUDA_CHUNK_BLOCKS``)."""
+    lib = _lib()
+    B, Sq, N, H = q.shape
     _, BS, Nkv, _ = k_pool.shape
-    out = torch.empty_like(qs)
-    with torch.cuda.device(qs.device):
-        stream = torch.cuda.current_stream(qs.device).cuda_stream
+    nbseq = tables.shape[1]
+    splits = -(-nbseq // cb)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = counters = None
+        if splits > 1:  # partials [B, Nkv, splits, rows, H] then their [max, sum]
+            part = torch.empty(B * Nkv * splits * Sq * (N // Nkv) * (H + 2), dtype=torch.float32, device=q.device)
+            counters = _counters(q.device, stream, B * Nkv)
         rc = lib.paged_attention_fwd(
-            qs.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Sq, N, Nkv, H, BS, tables.shape[1],
+            part.data_ptr() if part is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            B, Sq, N, Nkv, H, BS, nbseq,
             -1 if sliding_window is None else int(sliding_window),
             int(k_scale is not None),
             0.0 if logits_soft_cap is None else float(logits_soft_cap),
+            scale if scale is not None else 1.0 / (H**0.5),
+            cb,
             stream,
         )
     if rc != 0:
@@ -235,8 +293,8 @@ def paged_attend(
     ``k_scale``/``v_scale`` ``[NB, BS, Nkv]`` fp32); tables ``[B, NBseq]``
     int32; lengths ``[B]`` int32, the absolute position of query row 0.
     → ``[B, Sq, N, H]`` in q.dtype. CUDA tensors launch the kernel (and
-    count it in ``paged_attend.launches``); CPU tensors run the plain
-    version."""
+    count it in ``paged_attend.launches``, one a call); CPU tensors run the
+    plain version."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_attend: pass both k_scale and v_scale, or neither")
     if q.device.type == "cpu":
@@ -246,10 +304,10 @@ def paged_attend(
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attend: no kernel for device {q.device}")
-    _check_cuda_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
+    _check_cuda_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, sliding_window)
+    cb = chunk_blocks(q.shape[0], k_pool.shape[2], tables.shape[1], _sm_count(q.device.index))
     return _launch_cuda(
-        _scaled_q(q, scale), k_pool, v_pool, tables, lengths, k_scale, v_scale,
-        sliding_window, logits_soft_cap,
+        q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, sliding_window, logits_soft_cap, cb,
     )
 
 

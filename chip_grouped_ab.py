@@ -28,11 +28,13 @@ phase 12, from its seeds):
     python3 chip_grouped_ab.py --one DIR     # one checkout's times as one JSON line
 
 Each DIR is the root of a checkout that holds ``automodel_tpu_torch/``. The
-script needs one card and imports nothing of JAX.
+script needs one card and imports nothing of JAX. ``checkout`` and
+``ab_main`` are the A/B harness, which chip_paged_ab.py shares.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import os
@@ -40,21 +42,29 @@ import subprocess
 import sys
 
 
-def one(root: str) -> dict:
+def checkout(root: str, module: str, script: str):
+    """torch, chip_smoke.py (beside this script) as a module of helpers, and
+    ``automodel_tpu_torch.ops.<module>`` imported from the checkout at
+    ``root``; exits unless there is a CUDA card. → (torch, chip_smoke, module)."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("chip_grouped_ab: needs a CUDA card")
+        raise SystemExit(f"{script}: needs a CUDA card")
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location("chip_smoke_helpers", os.path.join(here, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from automodel_tpu_torch.ops import grouped_matmul as gm
+    mod = importlib.import_module(f"automodel_tpu_torch.ops.{module}")
+    if not mod.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {mod.__file__}, not the checkout at {root}")
+    return torch, cs, mod
 
-    if not gm.__file__.startswith(root + os.sep):
-        raise RuntimeError(f"imported {gm.__file__}, not the checkout at {root}")
+
+def one(root: str) -> dict:
+    torch, cs, gm = checkout(root, "grouped_matmul", "chip_grouped_ab")
+    root = os.path.abspath(root)
     dev = torch.device("cuda")
     hf = cs.QWEN3_MOE_A3B
     D, I, E = hf["hidden_size"], hf["moe_intermediate_size"], hf["num_experts"]
@@ -137,17 +147,21 @@ def k3_backward_ms(torch, cs, dev) -> dict:
     return ms
 
 
-def main(argv: list[str]) -> int:
+def ab_main(argv: list[str], script: str, one, doc: str) -> int:
+    """``--one DIR``: ``one(DIR)`` as one JSON line. ``A_DIR B_DIR``: ``script
+    --one`` for A, B, B and A, each in a process of its own, their lines,
+    the card's name and power limit, then the mean of each time and A / B
+    over the times both report."""
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(one(argv[1])), flush=True)
         return 0
     if len(argv) != 2:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     a, b = argv
     runs = {a: [], b: []}
     for root in (a, b, b, a):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], capture_output=True,
+        out = subprocess.run([sys.executable, os.path.abspath(script), "--one", root], capture_output=True,
                              text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
@@ -166,4 +180,4 @@ def main(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(ab_main(sys.argv[1:], __file__, one, __doc__))

@@ -14,8 +14,10 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    yardstick, beside the least time the card could take:
    - paged attention (serving): B=16, N=32, Nkv=8, H=128, BS=16, ragged
      lengths 1..4096; Sq 1 and 5, bf16 and int8 pools, a window case, a
-     soft-cap case, and cases whose attention is sharp (q four times
-     larger); the yardstick is ``scaled_dot_product_attention`` over the
+     soft-cap case, cases whose attention is sharp (q four times larger),
+     lengths on the chunk edges of the kernel's split-KV grid (bf16 at Sq
+     1, int8 at Sq 5 with the cap) and one 4096-token sequence (B=1, bf16
+     and int8); the yardstick is ``scaled_dot_product_attention`` over the
      gathered view;
    - flash attention forward, dq and dk/dv (training): B=1, S=4096, N=32,
      Nkv=8, H=128, causal; then a 1024 window, 4 packed documents,
@@ -125,9 +127,10 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
 phase 3b right after phase 3, phases 15 and 16 last. After the build the
-script prints ptxas's registers and spills for each flash and grouped-matmul
-kernel, with the registers its SASS names and the counts its ``setmaxnreg``
-instructions set, and fails if any of the 18 flash or 4 grouped-matmul
+script prints ptxas's registers and spills for each flash, grouped-matmul
+and paged-attention kernel, with the registers its SASS names and the
+counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
+fails if any of the 18 flash, 4 grouped-matmul or 18 paged-attention
 instantiations spills; the flash register split read from the SASS is
 printed just before the ``kernels`` line, and each flash and grouped-matmul
 entry carries the readings of its instantiations.
@@ -386,25 +389,58 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_queued(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
+    """The device time of one call with the host kept ahead of the card: a
+    sleep kernel holds the stream while the host enqueues every call, so
+    the events time the calls back to back on the card even where one call
+    costs the host more than the card does (a decode-sized paged
+    attention). Raises if the host took longer to enqueue them than the
+    card slept. → (ms a call on the card, host us to enqueue a call)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pre, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    pre.record()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(40_000_000)  # ~20 ms at the H100's clocks
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    slept = pre.elapsed_time(start)
+    if host_ms >= slept:
+        raise RuntimeError(f"cuda_ms_queued: the host took {host_ms:.3f} ms to enqueue, the card slept {slept:.3f}")
+    return start.elapsed_time(end) / iters, 1e3 * host_ms / iters
+
+
 # -- phase 3: paged attention against its plain version ----------------------
 
 
 def paged_case(torch, dev, sq: int, quantized: bool, seed: int = 0, uniform: int | None = None,
-               sharp: float = 1.0):
+               sharp: float = 1.0, batch: int = 16, lengths: list | None = None):
     """The serving path's decode shapes: B=16 sequences of ragged lengths
-    1..4096 (or all of length ``uniform``) over one layer's pool. q is
-    standard normal times ``sharp``: at 1 the attention over random keys is
-    near uniform, at 4 a few rows carry most of each row's weight."""
+    1..4096 (or all of length ``uniform``, or ``lengths``) over one layer's
+    pool. q is standard normal times ``sharp``: at 1 the attention over
+    random keys is near uniform, at 4 a few rows carry most of each row's
+    weight."""
     from automodel_tpu_torch.ops.paged_attention import quantize_kv_rows
 
-    B, N, Nkv, H, BS = 16, 32, 8, 128, 16
+    B, N, Nkv, H, BS = batch, 32, 8, 128, 16
     nbseq = -(-(4096 + sq) // BS)
     nb = B * nbseq + 1
     g = torch.Generator(device=dev).manual_seed(seed)
+    given = lengths
     lengths = torch.randint(1, 4097, (B,), generator=g, device=dev)
-    lengths[0], lengths[1] = 1, 4096
+    if B > 1:
+        lengths[0], lengths[1] = 1, 4096
     if uniform is not None:
         lengths.fill_(uniform)
+    if given is not None:
+        lengths = torch.tensor(given, device=dev)
     tables = (torch.randperm(nb - 1, generator=g, device=dev) + 1).reshape(B, nbseq)
     q = (torch.randn((B, sq, N, H), generator=g, device=dev) * sharp).to(torch.bfloat16)
     kp = torch.randn((nb, BS, Nkv, H), generator=g, device=dev)
@@ -468,12 +504,24 @@ def sdpa_library_ms(torch, q, pool, window) -> float:
     return cuda_ms(lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask), iters=20)
 
 
+def paged_chunk_edges(torch, sq: int, batch: int = 16, nkv: int = 8) -> list:
+    """16 lengths whose last query position is the last token of a chunk of
+    the kernel's split-KV grid or the first of the next, and 0 and 1."""
+    from automodel_tpu_torch.ops.paged_attention import chunk_blocks
+
+    nbseq = -(-(4096 + sq) // 16)
+    C = 16 * chunk_blocks(batch, nkv, nbseq, torch.cuda.get_device_properties(0).multi_processor_count)
+    ends = [k * C for k in range(1, 8) if k * C <= 4096]
+    return ([0, 1] + [e - sq + d for e in ends for d in (0, 1)] + [4096 - sq] * batch)[:batch]
+
+
 def phase_kernels(torch, dev) -> dict:
     from automodel_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
 
     # the two main cases are timed against the plain version and the library
-    # call; the uniform ones time the kernel against the longest sequence,
-    # since each CTA walks one sequence's blocks alone
+    # call; the uniform ones and one long sequence time the kernel as the
+    # context grows; the chunk-edge cases put lengths on the split-KV grid's
+    # chunk boundaries
     cases = [
         dict(sq=1, quantized=False, main=True),
         dict(sq=1, quantized=True, main=True),
@@ -487,12 +535,16 @@ def phase_kernels(torch, dev) -> dict:
         dict(sq=1, quantized=False, uniform=256),
         dict(sq=1, quantized=False, uniform=1024),
         dict(sq=1, quantized=False, uniform=4096),
+        dict(sq=1, quantized=False, lengths=paged_chunk_edges(torch, 1)),
+        dict(sq=5, quantized=True, cap=30.0, lengths=paged_chunk_edges(torch, 5)),
+        dict(sq=1, quantized=False, batch=1, uniform=4096),
+        dict(sq=1, quantized=True, batch=1, uniform=4096),
     ]
     results = []
     for i, c in enumerate(cases):
-        c = dict(dict(window=None, cap=None, main=False, uniform=None, sharp=1.0), **c)
+        c = dict(dict(window=None, cap=None, main=False, uniform=None, sharp=1.0, batch=16, lengths=None), **c)
         q, pool = paged_case(torch, dev, c["sq"], c["quantized"], seed=i, uniform=c["uniform"],
-                             sharp=c["sharp"])
+                             sharp=c["sharp"], batch=c["batch"], lengths=c["lengths"])
         kw = dict(sliding_window=c["window"], logits_soft_cap=c["cap"])
         out = paged_attend(q, *pool, **kw)
         torch.cuda.synchronize()
@@ -502,15 +554,20 @@ def phase_kernels(torch, dev) -> dict:
         ok = row_err <= KERNEL_ROW_REL_TOL
         if not bool(torch.isfinite(out.float()).all()):
             raise RuntimeError(f"paged kernel produced non-finite values in case {c}")
+        lengths = (f"all {c['uniform']}" if c["uniform"] else
+                   "chunk edges" if c["lengths"] else "ragged 1-4096")
         row = dict(
             sq=c["sq"], pool="int8" if c["quantized"] else "bf16", window=c["window"],
-            cap=c["cap"], sharp=c["sharp"],
-            lengths=f"all {c['uniform']}" if c["uniform"] else "ragged 1-4096",
+            cap=c["cap"], sharp=c["sharp"], batch=c["batch"], lengths=lengths,
             max_abs_err=max_err, max_row_rel_err=row_err, ok=ok,
         )
         if c["main"] or c["uniform"]:
-            row["ms"] = cuda_ms(lambda: paged_attend(q, *pool, **kw), iters=50)
+            # one call costs the host about as long as the card here: timed
+            # with the host ahead, and the host's time per call beside it
+            row["ms"], row["host_us_per_call"] = cuda_ms_queued(lambda: paged_attend(q, *pool, **kw), iters=50)
+            row["ms_back_to_back"] = cuda_ms(lambda: paged_attend(q, *pool, **kw), iters=50)
             row["bound_ms"], row["bound_by"], row["bytes"] = paged_bound(q, pool, c["window"])
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
         if c["main"]:
             row["plain_ms"] = cuda_ms(lambda: paged_attend_plain(q, *pool, **kw), iters=5, warmup=1)
             row["library_ms"] = sdpa_library_ms(torch, q, pool, c["window"])
@@ -2217,12 +2274,17 @@ def fused_entries(fused: dict, gpt_oss: dict) -> list:
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
                  gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
-    launches on its path's run and its times at the main case; the flash
+    launches on its path's run and its times at the main case; the paged
+    kernel with its times as the context grows (card time with the host
+    queued ahead, ``timing``, and back to back beside it) and ptxas's
+    report of each instantiation; the flash
     kernels with what this build's SASS names (``flash_sass``) at each
     shape's instantiation, the grouped-matmul kernels with ptxas's report
     and the SASS reading of each instantiation."""
     timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
     main_case = timed["bf16"]
+    growth = {f"{c['pool']} B={c['batch']} {c['lengths']}": {k: c[k] for k in ("ms", "ms_back_to_back", "bound_ms")}
+              for c in kernels["cases"] if "ms" in c and "plain_ms" not in c}
     line = {
         "kernels": [
             {
@@ -2239,11 +2301,19 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
                 "bound_by": main_case["bound_by"],
                 "library_ms": main_case["library_ms"],
                 "kernel_ms": main_case["ms"],
+                "timing": "queued",
+                "ms_back_to_back": main_case["ms_back_to_back"],
                 "bytes": main_case["bytes"],
-                "int8": {k: timed["int8"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")},
+                "host_us_per_call": main_case["host_us_per_call"],
+                "int8": {k: timed["int8"][k]
+                         for k in ("ms", "ms_back_to_back", "plain_ms", "library_ms", "bound_ms", "bytes")},
+                "by_context": growth,
                 "launches_int8_run": serving_int8["paged_attend_launches"],
                 "decode_forwards": serving_bf16["decode_forwards"],
                 "paged_attention_ms_per_decode_step": profile_bf16.get("paged_attention_ms_per_step"),
+                "kernels": "paged_attention_kernel<int8 pool, head dim, query n-tiles a warp, warps a worker>; "
+                           "the main path's <0, 128, 1, 1> (bf16) and <1, 128, 1, 1> (int8)",
+                "ptxas": kernels["ptxas"],
             }
         ]
     }
@@ -2372,8 +2442,18 @@ def main() -> int:
             raise RuntimeError(f"grouped kernels: want 4 instantiations and no spills, ptxas reports {grouped_ptxas}")
         print(f"ptxas fused_expert_mlp: {json.dumps(_cuda_build.ptxas_usage('fused_expert_mlp'))}", flush=True)
 
+        # paged_attention_kernel<int8 pool, head dim, query n-tiles a warp, warps a worker>: 18
+        paged_ptxas = _cuda_build.ptxas_usage("paged_attention")
+        for u in paged_ptxas:
+            print(f"ptxas {u['kernel']}: {u.get('registers')} registers, {u.get('spill_stores', 0)} bytes spill "
+                  f"stores, {u.get('spill_loads', 0)} bytes spill loads", flush=True)
+        spilled = [u for u in paged_ptxas if u.get("spill_stores") or u.get("spill_loads")]
+        if len(paged_ptxas) != 18 or spilled:
+            raise RuntimeError(f"paged kernels: want 18 instantiations and no spills, ptxas reports {paged_ptxas}")
+
         torch.backends.cuda.matmul.allow_tf32 = False
         kernels = phase_kernels(torch, dev)
+        kernels["ptxas"] = paged_ptxas
         flash = phase_flash_kernels(torch, dev)
         flash_cap = phase_flash_cap(torch, dev)
         grouped = phase_grouped_kernels(torch, dev)

@@ -99,6 +99,149 @@ def test_cuda_kernel_matches_plain(sq, window, cap, h, sharp, pool):
     assert row_rel_err(out, ref) <= ROW_REL_TOL
 
 
+# -- paged attention: split-KV and the in-kernel merge --------------------------
+
+
+def _paged_chunk_tokens(b, nkv, nbseq) -> int:
+    """Tokens a chunk of the kernel's split-KV grid at this shape."""
+    return 16 * tpa.chunk_blocks(b, nkv, nbseq, tpa._sm_count(torch.cuda.current_device()))
+
+
+def _paged_matches_plain(q, args, **kw) -> torch.Tensor:
+    """The kernel's output, each row held to the plain version's."""
+    before = tpa.paged_attend.launches
+    out = tpa.paged_attend(q, *args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.paged_attend.launches == before + 1
+    ref = tpa.paged_attend_plain(q, *args, **kw)
+    assert bool(torch.isfinite(out.float()).all())
+    assert row_rel_err(out, ref) <= ROW_REL_TOL
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("sq", [1, 5])
+def test_paged_kernel_chunk_edges_match_plain(sq, pool):
+    """Sequences whose last query position is the last token of the first
+    or second chunk, or one token past it (a chunk holding one live token),
+    and lengths 0 and 1."""
+    _need_cuda("paged_attention")
+    b, nkv, context = 6, 8, 4096
+    C = _paged_chunk_tokens(b, nkv, -(-(context + sq) // 16))
+    lengths = [0, 1, C - sq, C - sq + 1, 2 * C - sq, 2 * C - sq + 1]
+    q, args = make_case(torch.device("cuda"), sq, 128, pool, b=b, nkv=nkv, context=context, lengths=lengths)
+    _paged_matches_plain(q, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("sq", [1, 5])
+def test_paged_kernel_one_long_sequence_matches_plain(sq, pool):
+    """B = 1 at a 4096 context, where the split matters most: one
+    (sequence, kv head) spread over every chunk, merged in one CTA."""
+    _need_cuda("paged_attention")
+    q, args = make_case(torch.device("cuda"), sq, 128, pool, b=1, context=4096, lengths=[4096 - sq])
+    _paged_matches_plain(q, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("window", ["chunk", 1000, 37])
+def test_paged_kernel_windows_across_chunks_match_plain(window, pool):
+    """A window whose first position starts a chunk (the chunks before it
+    dead), one that cuts a chunk mid-block, and one inside two blocks."""
+    _need_cuda("paged_attention")
+    b, nkv, context, lengths = 2, 8, 4096, [4000, 2500]
+    if window == "chunk":  # row 0 of the first sequence sees from a chunk's first token
+        C = _paged_chunk_tokens(b, nkv, -(-(context + 1) // 16))
+        window = lengths[0] + 1 - (lengths[0] // C - 2) * C
+    q, args = make_case(torch.device("cuda"), 1, 128, pool, b=b, nkv=nkv, context=context, lengths=lengths)
+    _paged_matches_plain(q, args, sliding_window=window)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_int8_verify_chunk_with_soft_cap_matches_plain():
+    """int8 at Sq = 5 (20 query rows a kv head: two warps a worker) with the
+    soft cap, over several chunks."""
+    _need_cuda("paged_attention")
+    q, args = make_case(torch.device("cuda"), 5, 128, "int8", sharp=4.0, context=2048,
+                        lengths=[0, 300, 1500, 2040])
+    _paged_matches_plain(q, args, logits_soft_cap=30.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 3, 8])
+@pytest.mark.parametrize("h", [64, 256])
+def test_paged_kernel_head_dims_over_several_chunks_match_plain(h, sq):
+    """H = 64 and 256 at 4, 12 and 32 query rows a kv head (one warp of 8
+    rows, one of 16, two warps of 16 a worker), over several chunks."""
+    _need_cuda("paged_attention")
+    for pool in ("bf16", "int8"):
+        q, args = make_case(torch.device("cuda"), sq, h, pool, b=2, context=2048, lengths=[2000, 700])
+        _paged_matches_plain(q, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("fill", [-1, 2**30])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_paged_kernel_never_reads_dead_blocks(pool, fill, window):
+    """Table entries outside each sequence's live blocks (past its last
+    query position, before its window) hold -1 or an id far past the pool:
+    a kernel that followed one would fault or read garbage."""
+    _need_cuda("paged_attention")
+    sq, bs, lengths = 1, 16, [5, 300, 1500, 2000]
+    q, args = make_case(torch.device("cuda"), sq, 128, pool, context=2048, lengths=lengths)
+    tables = args[2]
+    j = torch.arange(tables.shape[1], device=tables.device)
+    for b, length in enumerate(lengths):
+        live = j <= (length + sq - 1) // bs
+        if window is not None:
+            live &= (j + 1) * bs - 1 > length - window
+        tables[b, ~live] = fill
+    _paged_matches_plain(q, args, sliding_window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_paged_kernel_repeats_bit_for_bit(pool):
+    """The merge takes the partials in split order whichever CTA does it,
+    so two runs over many chunks give the same bits."""
+    _need_cuda("paged_attention")
+    q, args = make_case(torch.device("cuda"), 5, 128, pool, context=4096, lengths=[4091, 3000, 2, 1700])
+    first = tpa.paged_attend(q, *args, logits_soft_cap=30.0)
+    second = tpa.paged_attend(q, *args, logits_soft_cap=30.0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [None, 0.3])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_paged_kernel_folded_scale_equals_prescaled_q(pool, scale):
+    """The kernel scales q as it loads it, bf16(float(q) * float(bf16(scale))):
+    bit for bit the output it gives for q scaled beforehand in eager bf16
+    (``_scaled_q``, the plain version's) with the scale 1."""
+    _need_cuda("paged_attention")
+    q, args = make_case(torch.device("cuda"), 5, 128, pool, context=2048, lengths=[0, 300, 1500, 2040])
+    folded = tpa.paged_attend(q, *args, scale=scale)
+    prescaled = tpa.paged_attend(tpa._scaled_q(q, scale), *args, scale=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(folded, prescaled)
+
+
+@pytest.mark.cuda
+def test_paged_refuses_what_the_kernel_does_not_take():
+    _need_cuda("paged_attention")
+    q, args = make_case(torch.device("cuda"), 9, 128, "bf16")
+    with pytest.raises(ValueError, match="query rows"):
+        tpa.paged_attend(q, *args)
+    q, args = make_case(torch.device("cuda"), 1, 128, "bf16")
+    with pytest.raises(ValueError, match="sliding_window"):
+        tpa.paged_attend(q, *args, sliding_window=0)
+
+
 # -- flash attention (csrc/flash_attention.cu) ----------------------------------
 
 # The flash kernels against their plain versions, per output row (one query

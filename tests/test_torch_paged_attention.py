@@ -117,3 +117,51 @@ def test_paged_attend_refuses_half_a_scale_pair():
         tpa.paged_attend(
             torch.from_numpy(q), kq, kq, torch.from_numpy(tables), torch.from_numpy(lengths), ks
         )
+
+
+# -- the CUDA kernel's split rule (ops/paged_attention.py chunk_blocks) --
+
+
+@pytest.mark.parametrize(
+    "batch,nkv,nbseq,sms,want",
+    [
+        (16, 8, 257, 132, 32),  # the serving shape: 1152 CTAs of 512 tokens
+        (16, 8, 256, 132, 32),  # the decode step's tables (4096 / 16 blocks)
+        (1, 8, 257, 132, 16),  # one long sequence: 136 CTAs of 256 tokens
+        (1, 4, 257, 132, 8),  # 132 CTAs of 128 tokens
+        (1, 1, 8, 132, 4),  # tiny: the smallest chunk
+    ],
+)
+def test_chunk_blocks_spreads_a_long_sequence_over_the_sms(batch, nkv, nbseq, sms, want):
+    cb = tpa.chunk_blocks(batch, nkv, nbseq, sms)
+    assert cb == want
+    if cb != tpa.CUDA_CHUNK_BLOCKS[-1]:  # a larger chunk only while the grid gives every SM a CTA
+        assert batch * nkv * -(-nbseq // cb) >= sms
+    if cb != tpa.CUDA_CHUNK_BLOCKS[0]:  # and the next larger one would not
+        assert batch * nkv * -(-nbseq // (2 * cb)) < sms
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("fill", [-1, 10**6])
+def test_plain_version_never_follows_a_dead_table_entry(fill, pool):
+    """The plain version, the kernel's reference on the card, gives the same
+    output whatever the dead entries hold: ids past the pool included."""
+    q, kp, vp, tables, lengths = _case(seed=5, sq=2)
+    if pool == "int8":
+        kq, ks = tpa.quantize_kv_rows(torch.from_numpy(kp))
+        vq, vs = tpa.quantize_kv_rows(torch.from_numpy(vp))
+        args = (kq, vq, ks, vs)
+    else:
+        args = (torch.from_numpy(kp), torch.from_numpy(vp), None, None)
+    t = torch.from_numpy(tables)
+    dead = t.clone()
+    j = torch.arange(NBSEQ)
+    for b, length in enumerate(LENGTHS):
+        live = (j <= (length + 1) // BS) & ((j + 1) * BS - 1 > length - 6)
+        dead[b, ~live] = fill
+    kw = dict(sliding_window=6)
+    ref = tpa.paged_attend_plain(torch.from_numpy(q), args[0], args[1], t, torch.from_numpy(lengths),
+                                 args[2], args[3], **kw)
+    out = tpa.paged_attend_plain(torch.from_numpy(q), args[0], args[1], dead, torch.from_numpy(lengths),
+                                 args[2], args[3], **kw)
+    assert torch.equal(out, ref)
