@@ -1,9 +1,15 @@
 // Grouped matmul for the MoE experts: gmm (and gmm with a transposed rhs)
-// and the transposed grouped matmul tgmm of its backward.
+// and the transposed grouped matmul tgmm of its backward; and the two
+// products of the fused expert MLP's forward, which are gmm with another
+// epilogue.
 //
 // Replaces the Pallas TPU kernels of automodel_tpu/ops/grouped_matmul.py:
 // _gmm_kernel (:155, through _gmm :175, both layouts of rhs) and
-// _tgmm_kernel (:230, through _tgmm :247).
+// _tgmm_kernel (:230, through _tgmm :247); with gmm_act_kernel and
+// gmm_bias_kernel, the fused expert MLP's forward kernel
+// automodel_tpu/ops/fused_expert_mlp.py _kernel (:59, through _fwd :130),
+// K3a; and tgmm_kernel<true> carries the weight grad of its _bwd_gu_kernel
+// (:423, through _bwd_gu :465), K3b (fused_expert_mlp.cu has the rest).
 //
 // Function (the same as the JAX kernels, with one definition added):
 // - gmm: lhs [M, K] bf16 with rows sorted by group, group g owning rows
@@ -12,6 +18,14 @@
 //   out[m, :] = lhs[m, :] @ rhs[g(m)] in bf16, fp32 accumulation. Rows at or
 //   past sum(group_sizes) are written as zeros (the TPU kernel leaves them
 //   uninitialised).
+// - gmm_bias (K3a's down product): gmm plus a per-group row bias [G, N]
+//   added to the fp32 sum before its one rounding: out = mid @ Wd + db.
+// - gmm_act (K3a's gate_up product): mid [M, I] = act(lhs @ Wg + gb,
+//   lhs @ Wu + ub) per row's group, gate_up [G, K, 2I] read in place (gate
+//   in [..., :I]), gate_up_bias [G, 2I]; g and u stay in fp32, the bias is
+//   added and the activation (expert_act.cuh) applied in fp32, and mid is
+//   rounded once to bf16: the value the TPU kernel rounds mid to before its
+//   down product (:107-108).
 // - tgmm: lhs [M, K], dout [M, N] bf16 -> out[g] = lhs_g^T @ dout_g, [G, K, N]
 //   in fp32 or bf16 (the same fp32 sum, rounded once); an empty group writes
 //   zeros. The bf16 output is JAX's _grouped_matmul_bwd drhs.astype(rhs.dtype)
@@ -21,9 +35,18 @@
 // over 128 experts): bytes. Each group's rhs slab ([2048, 1536] bf16, 6 MB)
 // serves only ~256 rows, ~130 flops per byte, under the ~295 where the
 // tensor cores would be the limit; tgmm writes a [G, K, N] result, 87% of its
-// bytes in fp32. At gpt-oss-20b's (M = 16384 over 32 experts, K = 2880) gmm
-// is bound by operations. The least time is the larger of the operands and
+// bytes in fp32. At gpt-oss-20b's (M = 16384 over 32 experts, K = 2880) gmm,
+// the fused expert MLP's two forward products and K3b's tgmm with a bf16 out
+// are bound by operations. The least time is the larger of the operands and
 // the output moved once over 3.35 TB/s and the products over 989 TFLOP/s.
+//
+// K3a keeps its two launches: the TPU kernel holds a [512, D] fp32 down
+// accumulator in VMEM across its I chunks, which for one 128-row tile at
+// D = 2880 is 1.47 MB, the shared memory of 8 SMs; mid's bf16 round trip
+// through device memory (2 x 94 MB at gpt-oss-20b's widths, ~0.06 ms) costs
+// ~3% of the call, and JAX rounds mid to bf16 before its down product
+// anyway. Both launches run gmm's pipeline below unchanged but for the
+// epilogue (and, for gmm_act, the rhs boxes).
 //
 // Design (Hopper: wgmma, TMA, mbarriers, warp specialisation, persistent):
 // - Each CTA is 384 threads: warpgroup 0 is the producer (setmaxnreg 24;
@@ -69,6 +92,18 @@
 //   unit loads nothing and writes zeros. The n tile is 256 columns (4
 //   stages of 48 KB): a narrower N ends its boxes past N, which read as
 //   zeros, and its stores stop at N.
+// - gmm_act: the rhs tile's four 64-column boxes are two of the gate half
+//   (columns n0, n0 + 64) and the same two of the up half, from two 3-D maps
+//   over gate_up, a gate view (I, K, G) with rows 2I apart and an up view
+//   based I columns on: a box that ends past I reads zeros, never the other
+//   half's columns (I = 1000 ends its last boxes there). An item's 256
+//   accumulator columns are then 128 gate and the same 128 up columns: in
+//   the m64n256 accumulator a thread holds gate column c in n8-chunk c / 8
+//   and up column c in chunk 16 + c / 8, so each thread adds the biases,
+//   applies the activation and rounds once with no exchange, and the output
+//   tile is 128 columns of mid. The activation costs ~40 fp32 operations
+//   an element against the 2 x 2 x 2880 of its products.
+// - gmm_bias: the bias row of the unit's group is added in the epilogue.
 // - tgmm: the items are (group, k tile, n tile), 128 x 128 tiles of the
 //   [K, N] slab, the groups taken largest first (an order the wrapper sorts
 //   on the device; the host never reads the sizes), so under skew the long
@@ -91,6 +126,7 @@
 //   tgmm's bf16 output is its fp32 output rounded to nearest even.
 
 #include "hopper.cuh"
+#include "expert_act.cuh"
 
 namespace {
 
@@ -121,12 +157,19 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int s
 
 // -- gmm ---------------------------------------------------------------------
 
+// the epilogues: gmm's plain store; gmm_bias's per-group row bias [G, N],
+// added to the fp32 sum before the rounding; gmm_act's gate_up activation,
+// the accumulator's 256 columns being 128 gate and the same 128 up columns
+constexpr int kEpiStore = 0, kEpiRowBias = 1, kEpiGateUpAct = 2;
+
 struct GmmArgs {
   const int* plan;  // [4, W]: group, m tile, first row, end row (G = the zero tail)
   const int* ends;  // [G] inclusive cumsum of group_sizes
   bf16* out;        // [M, N]
   int M, K, N, G, W;
-  int n_major;  // a group's items n tile by n tile (gmm_item); needs ends
+  int n_major;       // a group's items n tile by n tile (gmm_item); needs ends
+  const bf16* bias;  // kEpiRowBias: [G, N]; kEpiGateUpAct: [G, 2N], gate | up; or null
+  Act act;           // kEpiGateUpAct's activation
 };
 
 constexpr int BK = 64;   // k values a stage: 128-byte rows, the 128-byte swizzle
@@ -149,20 +192,21 @@ struct GmmSmem {
   static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;  // + the alignment slack
 };
 
-// The unit and n tile of an item, false once the walk is past the plan's
-// end. A group's units u in [first, first + count) own the items
+// The unit and n tile (its first column n0, tiles `tile` columns wide) of
+// an item, false once the walk is past the plan's end. A group's units u
+// in [first, first + count) own the items
 // [first * n_tiles, (first + count) * n_tiles): unit by unit, each over the
 // n tiles, or under n_major n tile by n tile, each over the units. Unit by
 // unit, a unit's items share its lhs rows; n tile by n tile, the group's
 // units read its columns [n0, n0 + BN) at the same time. Which is faster
 // was measured, not derived (grouped_matmul_gmm_n_major). The tail's units
 // go one by one.
-__device__ __forceinline__ bool gmm_item(const GmmArgs& a, int item, int n_tiles, int& unit, int& n0) {
+__device__ __forceinline__ bool gmm_item(const GmmArgs& a, int item, int n_tiles, int tile, int& unit, int& n0) {
   const int u = item / n_tiles;
   if (a.plan[2 * a.W + u] >= min(a.plan[3 * a.W + u], a.M)) return false;
   if (!a.n_major) {
     unit = u;
-    n0 = (item - u * n_tiles) * BN;
+    n0 = (item - u * n_tiles) * tile;
     return true;
   }
   const int g = a.plan[u];
@@ -174,7 +218,7 @@ __device__ __forceinline__ bool gmm_item(const GmmArgs& a, int item, int n_tiles
   }
   const int j = item - first * n_tiles;
   unit = first + j % count;
-  n0 = (j / count) * BN;
+  n0 = (j / count) * tile;
   return true;
 }
 
@@ -186,12 +230,16 @@ __device__ __forceinline__ void gmm_unit(const GmmArgs& a, int unit, int& g, int
   m0 = a.plan[a.W + unit] * 128;
 }
 
-template <bool TRANS>
-__global__ void __launch_bounds__(kThreads, 1)
-    gmm_kernel(const GmmArgs a, const __grid_constant__ CUtensorMap t_lhs, const __grid_constant__ CUtensorMap t_rhs) {
+// The gmm pipeline with epilogue EPI; t_up is read only by kEpiGateUpAct,
+// whose t_rhs is then the gate view.
+template <bool TRANS, int EPI>
+__device__ __forceinline__ void gmm_body(const GmmArgs& a, const CUtensorMap* t_lhs, const CUtensorMap* t_rhs,
+                                         const CUtensorMap* t_up) {
   using L = GmmSmem;
   static_assert(L::kBytes <= kSmemLimit, "gmm shared memory");
+  static_assert(!TRANS || EPI == kEpiStore, "the epilogues take an N-major rhs");
   constexpr int kStages = L::kStages;
+  constexpr int TN = EPI == kEpiGateUpAct ? BN / 2 : BN;  // output columns of an item
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_base(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
@@ -199,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) init_ring(full, empty, kStages);
   __syncthreads();
 
-  const int n_tiles = (a.N + BN - 1) / BN;
+  const int n_tiles = (a.N + TN - 1) / TN;
   const int n_k = (a.K + BK - 1) / BK;
   const int items = a.W * n_tiles;
 
@@ -210,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     int it = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       int unit, n0, g, m0, lo, hi;
-      if (!gmm_item(a, item, n_tiles, unit, n0)) break;
+      if (!gmm_item(a, item, n_tiles, TN, unit, n0)) break;
       gmm_unit(a, unit, g, m0, lo, hi);
       if (g >= a.G) continue;  // the zero tail: nothing to load
       for (int kt = 0; kt < n_k; ++kt, ++it) {
@@ -219,12 +267,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         unsigned char* as = sm + st * L::kStage;
         bf16* bs = reinterpret_cast<bf16*>(as + L::kA);
         mbar_arrive_expect_tx(&full[st], L::kStage);
-        tma_load_2d(as, &t_lhs, &full[st], kt * BK, m0);
+        tma_load_2d(as, t_lhs, &full[st], kt * BK, m0);
         if (TRANS) {
-          tma_load_3d(bs, &t_rhs, &full[st], kt * BK, n0, g);
+          tma_load_3d(bs, t_rhs, &full[st], kt * BK, n0, g);
+        } else if (EPI == kEpiGateUpAct) {
+          // gate columns [n0, n0 + 128) in boxes 0-1, the same up columns in 2-3
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            tma_load_3d(bs + c * BK * 64, t_rhs, &full[st], n0 + c * 64, kt * BK, g);
+            tma_load_3d(bs + (2 + c) * BK * 64, t_up, &full[st], n0 + c * 64, kt * BK, g);
+          }
         } else {
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c) tma_load_3d(bs + c * BK * 64, &t_rhs, &full[st], n0 + c * 64, kt * BK, g);
+          for (int c = 0; c < BN / 64; ++c) tma_load_3d(bs + c * BK * 64, t_rhs, &full[st], n0 + c * 64, kt * BK, g);
         }
       }
     }
@@ -237,7 +292,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     int it = 0;
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
       int unit, n0, g, m0, lo, hi;
-      if (!gmm_item(a, item, n_tiles, unit, n0)) break;
+      if (!gmm_item(a, item, n_tiles, TN, unit, n0)) break;
       gmm_unit(a, unit, g, m0, lo, hi);
       const int w0 = m0 + wg * 64;          // this consumer's first row
       const int r0 = w0 + warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
@@ -250,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (r < lo || r >= hi) continue;
           bf16* orow = a.out + static_cast<long long>(r) * a.N;
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j)
+          for (int j = 0; j < TN / 8; ++j)
             if (c0 + 8 * j < a.N) *reinterpret_cast<__nv_bfloat162*>(orow + c0 + 8 * j) = z;
         }
         continue;
@@ -289,27 +344,78 @@ __global__ void __launch_bounds__(kThreads, 1)
       // 4-byte writes in the accumulator's layout, then each row out in
       // 16-byte stores, a warp writing 512 contiguous bytes at a time
       const int r8 = lane >> 2;
+      const bf16* brow = nullptr;  // the group's bias row (gate | up under kEpiGateUpAct)
+      if (EPI != kEpiStore && a.bias != nullptr)
+        brow = a.bias + static_cast<long long>(g) * (EPI == kEpiGateUpAct ? 2 : 1) * a.N;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
+        for (int j = 0; j < TN / 8; ++j) {
+          float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+          if constexpr (EPI != kEpiStore) {
+            float2 b = make_float2(0.f, 0.f), bu = make_float2(0.f, 0.f);
+            if (brow != nullptr && c0 + 8 * j < a.N) {  // N % 8 == 0: the pair lies inside
+              b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(brow + c0 + 8 * j));
+              if (EPI == kEpiGateUpAct)
+                bu = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(brow + a.N + c0 + 8 * j));
+            }
+            if (EPI == kEpiRowBias) {
+              x0 += b.x;
+              x1 += b.y;
+            } else {  // up column c0 + 8j sits in n8-chunk TN / 8 + j
+              x0 = act_fwd(x0 + b.x, acc[4 * (TN / 8 + j) + 2 * h] + bu.x, a.act);
+              x1 = act_fwd(x1 + b.y, acc[4 * (TN / 8 + j) + 2 * h + 1] + bu.y, a.act);
+            }
+          }
           *reinterpret_cast<__nv_bfloat162*>(stage_out + r8 * L::kOutRow + 8 * j + 2 * (lane & 3)) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+              __floats2bfloat162_rn(x0, x1);
+        }
         __syncwarp();
+        if constexpr (TN == BN) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int r = w0 + warp * 16 + 8 * h + i;
-          if (r < lo || r >= hi) continue;
-          bf16* orow = a.out + static_cast<long long>(r) * a.N + n0;
+          for (int i = 0; i < 8; ++i) {
+            const int r = w0 + warp * 16 + 8 * h + i;
+            if (r < lo || r >= hi) continue;
+            bf16* orow = a.out + static_cast<long long>(r) * a.N + n0;
 #pragma unroll
-          for (int c = 8 * lane; c < BN; c += 256)
-            if (n0 + c < a.N)
-              *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<const uint4*>(stage_out + i * L::kOutRow + c);
+            for (int c = 8 * lane; c < BN; c += 256)
+              if (n0 + c < a.N)
+                *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<const uint4*>(stage_out + i * L::kOutRow + c);
+          }
+        } else {  // 128-column rows: two rows at a time, 16 lanes each
+#pragma unroll
+          for (int i0 = 0; i0 < 8; i0 += 2) {
+            const int i = i0 + (lane >> 4), c = 8 * (lane & 15);
+            const int r = w0 + warp * 16 + 8 * h + i;
+            if (r < lo || r >= hi || n0 + c >= a.N) continue;
+            *reinterpret_cast<uint4*>(a.out + static_cast<long long>(r) * a.N + n0 + c) =
+                *reinterpret_cast<const uint4*>(stage_out + i * L::kOutRow + c);
+          }
         }
         __syncwarp();
       }
     }
   }
+}
+
+template <bool TRANS>
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_kernel(const GmmArgs a, const __grid_constant__ CUtensorMap t_lhs, const __grid_constant__ CUtensorMap t_rhs) {
+  gmm_body<TRANS, kEpiStore>(a, &t_lhs, &t_rhs, &t_rhs);
+}
+
+// K3a's down product: out = mid @ Wd + db
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_bias_kernel(const GmmArgs a, const __grid_constant__ CUtensorMap t_lhs,
+                    const __grid_constant__ CUtensorMap t_rhs) {
+  gmm_body<false, kEpiRowBias>(a, &t_lhs, &t_rhs, &t_rhs);
+}
+
+// K3a's gate_up product: mid = act(lhs @ Wg + gb, lhs @ Wu + ub)
+__global__ void __launch_bounds__(kThreads, 1)
+    gmm_act_kernel(const GmmArgs a, const __grid_constant__ CUtensorMap t_lhs,
+                   const __grid_constant__ CUtensorMap t_gate, const __grid_constant__ CUtensorMap t_up) {
+  gmm_body<false, kEpiGateUpAct>(a, &t_lhs, &t_gate, &t_up);
 }
 
 // -- tgmm --------------------------------------------------------------------
@@ -470,9 +576,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // a tensor map over a row-major tensor of `rank` dims (innermost first),
 // boxes `box` of 128-byte rows, 128-byte swizzle, reads past the bounds as
-// zeros
+// zeros; `row_strides` (bytes, rank - 1 of them) give a view's strides,
+// null a contiguous tensor's
 int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base, int rank,
-               const long long* dims, const int* box) {
+               const long long* dims, const int* box, const long long* row_strides = nullptr) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return kErrTensorMap;
   cuuint64_t d[3], strides[2];
@@ -481,7 +588,7 @@ int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const
   for (int i = 0; i < rank; ++i) {
     d[i] = static_cast<cuuint64_t>(dims[i]);
     b[i] = static_cast<cuuint32_t>(box[i]);
-    if (i > 0) strides[i - 1] = stride;
+    if (i > 0) strides[i - 1] = row_strides ? static_cast<cuuint64_t>(row_strides[i - 1]) : stride;
     stride *= d[i];
   }
   CUresult r = fn(map, type, rank, const_cast<void*>(base), d, strides, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -525,6 +632,33 @@ int gmm_launch(const GmmArgs& a, const void* lhs, const void* rhs, cudaStream_t 
   return launch(gmm_kernel<TRANS>, persistent_grid(items), GmmSmem::kBytes, stream, a, t_lhs, t_rhs);
 }
 
+// K3a's launches: gmm_bias over a contiguous rhs [G, K, N]; gmm_act over
+// gate_up [G, K, 2N] through its gate and up views (N = I columns each,
+// rows 2N apart; the up view's base is 16-byte aligned since N % 8 == 0)
+template <int EPI>
+int gmm_epilogue_launch(const GmmArgs& a, const void* lhs, const void* rhs, cudaStream_t stream) {
+  if (int rc = bind_primary_context()) return rc;
+  CUtensorMap t_lhs, t_rhs, t_up;
+  const long long lhs_dims[2] = {a.K, a.M};
+  const int lhs_box[2] = {BK, 128};
+  const long long rhs_dims[3] = {a.N, a.K, a.G};
+  const int rhs_box[3] = {64, BK, 1};
+  int rc;
+  if ((rc = tensor_map(&t_lhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, lhs, 2, lhs_dims, lhs_box))) return rc;
+  if (EPI == kEpiRowBias) {
+    if ((rc = tensor_map(&t_rhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rhs, 3, rhs_dims, rhs_box))) return rc;
+    const int items = a.W * ((a.N + BN - 1) / BN);
+    return launch(gmm_bias_kernel, persistent_grid(items), GmmSmem::kBytes, stream, a, t_lhs, t_rhs);
+  }
+  const long long strides[2] = {2LL * a.N * 2, 2LL * a.N * a.K * 2};
+  if ((rc = tensor_map(&t_rhs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rhs, 3, rhs_dims, rhs_box, strides)) ||
+      (rc = tensor_map(&t_up, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, static_cast<const bf16*>(rhs) + a.N, 3, rhs_dims,
+                       rhs_box, strides)))
+    return rc;
+  const int items = a.W * ((a.N + BN / 2 - 1) / (BN / 2));
+  return launch(gmm_act_kernel, persistent_grid(items), GmmSmem::kBytes, stream, a, t_lhs, t_rhs, t_up);
+}
+
 template <bool BF16_OUT>
 int tgmm_launch(const TgmmArgs& a, const void* lhs, const void* dout, void* out, cudaStream_t stream) {
   if (int rc = bind_primary_context()) return rc;
@@ -549,8 +683,9 @@ extern "C" {
 
 // Each launches on `stream`, allocates nothing and returns cudaGetLastError()
 // after the launch (0 = launched), or an error code for a shape it does not
-// take (K or N not a multiple of 8) or a tensor map the driver refused. Every
-// tensor must start on a 16-byte boundary (TMA).
+// take (K or N not a multiple of 8, an unknown act_kind) or a tensor map
+// cuTensorMapEncodeTiled refused. Every tensor must start on a 16-byte
+// boundary (TMA).
 
 // The order of a group's items the wrapper gives gmm: n tile by n tile (1)
 // where the output is at least as wide as the contraction, else unit by unit
@@ -568,6 +703,35 @@ int grouped_matmul_gmm(const void* lhs, const void* rhs, const int* plan, const 
   GmmArgs a = {plan, ends, static_cast<bf16*>(out), M, K, N, G, W, n_major != 0};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return transpose_rhs ? gmm_launch<true>(a, lhs, rhs, s) : gmm_launch<false>(a, lhs, rhs, s);
+}
+
+// K3a's first launch: mid [M, I] bf16 = act(lhs @ Wg + gb, lhs @ Wu + ub)
+// per row's group, g and u in fp32 and mid rounded once, rows past
+// sum(group_sizes) zeros; lhs [M, D], gate_up [G, D, 2I] (gate in
+// [..., :I]) read in place, gate_up_bias [G, 2I] or null. act_kind: 0
+// swiglu, 1 swiglu_oai; limit > 0 clamps swiglu (ignored for swiglu_oai).
+// plan, ends and n_major as for grouped_matmul_gmm (the order of a group's
+// 128-column n tiles over its units).
+int grouped_matmul_gmm_act(const void* lhs, const void* gate_up, const void* gate_up_bias, const int* plan,
+                           const int* ends, void* mid, int M, int D, int I, int G, int W, int n_major, int act_kind,
+                           float limit, void* stream) {
+  if (!shape_ok(M, D, I, G) || W < 1 || (n_major && !ends) || (act_kind != 0 && act_kind != 1))
+    return kErrUnsupported;
+  GmmArgs a = {plan, ends, static_cast<bf16*>(mid), M, D, I, G, W, n_major != 0,
+               static_cast<const bf16*>(gate_up_bias), make_act(act_kind, limit)};
+  return gmm_epilogue_launch<kEpiGateUpAct>(a, lhs, gate_up, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K3a's second launch: out [M, N] bf16 = lhs @ rhs[g] + bias[g] per row's
+// group, the bias [G, N] (or null) added to the fp32 sum before the
+// rounding, rows past sum(group_sizes) zeros; arguments as for
+// grouped_matmul_gmm with an N-major rhs [G, K, N]
+int grouped_matmul_gmm_bias(const void* lhs, const void* rhs, const void* bias, const int* plan, const int* ends,
+                            void* out, int M, int K, int N, int G, int W, int n_major, void* stream) {
+  if (!shape_ok(M, K, N, G) || W < 1 || (n_major && !ends)) return kErrUnsupported;
+  GmmArgs a = {plan, ends, static_cast<bf16*>(out), M, K, N, G, W, n_major != 0, static_cast<const bf16*>(bias),
+               Act{0, 0.f}};
+  return gmm_epilogue_launch<kEpiRowBias>(a, lhs, rhs, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // ends: int32 [G], the inclusive cumsum of group_sizes; order: int32 [G],

@@ -118,16 +118,22 @@ _USED = re.compile(r"Used (\d+) registers")
 def _kernel_name(mangled: str) -> str:
     """``..16flash_fwd_kernelILi256ELb1EE..`` → ``flash_fwd_kernel<256, 1>``:
     the length-prefixed name ending in ``_kernel`` that opens a template
-    argument list, with its integer and bool arguments; the mangled name
-    as it is when there is none."""
+    argument list, with its integer and bool arguments, or that ends the
+    nested name (``..14gmm_act_kernelE..`` → ``gmm_act_kernel``); the
+    mangled name as it is when there is none."""
     for m in re.finditer(r"\d+", mangled):
         for i in range(m.start(), m.end()):  # the length's digits may follow other digits
             n, end = int(mangled[i:m.end()]), m.end()
             name = mangled[end:end + n]
-            if len(name) == n and name.endswith("_kernel") and mangled[end + n:end + n + 1] == "I":
-                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end + n:])
+            if len(name) != n or not name.endswith("_kernel"):
+                continue
+            after = mangled[end + n:]
+            if after.startswith("I"):
+                args = re.match(r"I((?:L[ib]\d+E)+)E", after)
                 if args:
                     return f"{name}<{', '.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+            elif after.startswith("E"):
+                return name
     return mangled
 
 

@@ -4,20 +4,26 @@ a hand-written backward.
 
 Port of ``automodel_tpu/ops/fused_expert_mlp.py``. ``fwd``, ``bwd_gu``,
 ``bwd_act``, ``bwd_dwd`` and ``bwd_dx`` wrap the hand-written Hopper
-kernels of ``csrc/fused_expert_mlp.cu`` and, for the products of ``bwd_dwd``
-and ``bwd_dx``, ``csrc/grouped_matmul.cu`` (together they replace the
-Pallas ``_kernel``, ``_bwd_gu_kernel``, ``_bwd_dwd_kernel`` and
-``_bwd_dx_kernel``): given CUDA tensors they launch the kernels or raise,
-given CPU tensors they run ``_fwd_plain`` / ``_bwd_gu_plain`` /
-``_bwd_act_plain`` / ``_bwd_dwd_plain`` / ``_bwd_dx_plain``, the same
-functions in fp32 torch with a loop over groups. There is no path from a
-CUDA tensor to a plain version or to a library grouped GEMM.
+kernels of ``csrc/fused_expert_mlp.cu`` and ``csrc/grouped_matmul.cu``
+(together they replace the Pallas ``_kernel``, ``_bwd_gu_kernel``,
+``_bwd_dwd_kernel`` and ``_bwd_dx_kernel``): given CUDA tensors they
+launch the kernels or raise, given CPU tensors they run ``_fwd_plain`` /
+``_bwd_gu_plain`` / ``_bwd_act_plain`` / ``_bwd_dwd_plain`` /
+``_bwd_dx_plain``, the same functions in fp32 torch with a loop over
+groups. There is no path from a CUDA tensor to a plain version or to a
+library grouped GEMM.
 
-The TPU kernels recompute the activation per output tile; here one pass,
-``bwd_act``, writes mid = act(g, u) and dg | du once per element (each
-rounded once to bf16, as the TPU kernels round them before their
-products), and dWd = tgmm(mid, dy), dlhs = gmm(dg | du, gate_up,
-transpose_rhs) run on the grouped-matmul kernels.
+The forward is two launches of the grouped matmul's gmm kernel with other
+epilogues: the gate_up product writes mid = act(g + gb, u + ub) in bf16
+(g, u and the activation in fp32, mid rounded once, as the TPU kernel
+rounds it before its down product), then the down product adds db to its
+fp32 sum. The TPU kernels recompute the activation's gradient per output
+tile; here one pass, ``bwd_act``, writes mid = act(g, u) and dg | du once
+per element (each rounded once to bf16, as the TPU kernels round them
+before their products), and dW = tgmm(lhs, dg | du), dWd = tgmm(mid, dy)
+and dlhs = gmm(dg | du, gate_up, transpose_rhs) run on the grouped-matmul
+kernels; the bias grads of gate_up are fp32 sums of the unrounded dg, du
+(a kernel of their own), as JAX's are.
 
 The port keeps the stored layouts: gate and up are the two halves of one
 ``gate_up`` [G, D, 2I] (gate in ``[..., :I]``), read in place, and their
@@ -37,10 +43,11 @@ optional ``limit``: ``min(silu(g), limit) * clip(u, -limit, limit)``),
 (:702-782): it recomputes ``gu = gmm(lhs, gate_up)`` through K2 (one launch
 over the fused weight), adds the biases in the compute dtype, computes
 ``dmid = gmm(dy, down, transpose_rhs=True)`` through K2, runs ``bwd_act``
-once, then ``bwd_dwd`` (dWd in ``down``'s dtype, written by the kernel),
-``bwd_dx`` and ``bwd_gu``, and casts each other grad to its primal's
-dtype. The forward keeps g, u and the activation in fp32; the backward
-sees g and u rounded to the compute dtype, as the JAX path does.
+once, then ``bwd_dwd`` and ``bwd_gu`` (each weight grad in its primal's
+dtype, written by the kernel) and ``bwd_dx`` given its outputs, and casts
+each other grad to its primal's dtype. The forward keeps g, u and the
+activation in fp32; the backward sees g and u rounded to the compute
+dtype, as the JAX path does.
 """
 
 from __future__ import annotations
@@ -145,21 +152,22 @@ def _fwd_plain(lhs, gate_up, down, group_sizes, gate_up_bias=None, down_bias=Non
     return out.to(lhs.dtype)
 
 
-def _bwd_gu_plain(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_bias=False):
-    """JAX ``_bwd_gu`` (:465) in fp32 torch → (dW [G, D, 2I] fp32 = lhs_g^T
-    [dg | du] with dg, du rounded to lhs.dtype first (:438-445), dbias
-    [G, 2I] fp32 row sums of the unrounded dg, du or None). gu [M, 2I] is
-    the recomputed g | u."""
-    M, D = lhs.shape
-    I = dmid.shape[1]
-    G = group_sizes.shape[0]
-    dw = torch.zeros((G, D, 2 * I), dtype=torch.float32, device=lhs.device)
-    dbias = torch.zeros((G, 2 * I), dtype=torch.float32, device=lhs.device) if want_bias else None
-    for g, s, e in _groups(group_sizes, M):
-        d = torch.cat(_act_grads(gu[s:e, :I], gu[s:e, I:], dmid[s:e], act_kind, limit), dim=1)
-        dw[g] = lhs[s:e].float().t() @ d.to(lhs.dtype).float()
-        if want_bias:
-            dbias[g] = d.sum(dim=0)
+def _bwd_gu_plain(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_bias=False,
+                  out_dtype=torch.float32, dgdu=None):
+    """JAX ``_bwd_gu`` (:465) in fp32 torch → (dW [G, D, 2I] = lhs_g^T
+    [dg | du] summed in fp32 and cast once to ``out_dtype``, dg, du rounded
+    to gu.dtype first (:438-445; dgdu from ``_bwd_act_plain`` unless
+    given); dbias [G, 2I] fp32 row sums of the unrounded dg, du or None).
+    gu [M, 2I] is the recomputed g | u, in lhs's dtype."""
+    M, I = lhs.shape[0], dmid.shape[1]
+    if dgdu is None:
+        _, dgdu = _bwd_act_plain(gu, dmid, group_sizes, act_kind, limit, want_mid=False)
+    dw = _tgmm_plain(lhs, dgdu, group_sizes, out_dtype)
+    dbias = None
+    if want_bias:
+        dbias = torch.zeros((group_sizes.shape[0], 2 * I), dtype=torch.float32, device=lhs.device)
+        for g, s, e in _groups(group_sizes, M):
+            dbias[g] = torch.cat(_act_grads(gu[s:e, :I], gu[s:e, I:], dmid[s:e], act_kind, limit), dim=1).sum(dim=0)
     return dw, dbias
 
 
@@ -218,13 +226,11 @@ def _lib() -> ctypes.CDLL:
     lib = _cuda_build.load("fused_expert_mlp")
     if not hasattr(lib, "_fem_bound"):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # ..., M, D, I, G[, W][, act_kind, limit], stream
-        lib.fused_expert_mlp_fwd_gu_act.argtypes = [p] * 5 + [i] * 6 + [f, p]
-        lib.fused_expert_mlp_fwd_down.argtypes = [p] * 5 + [i] * 5 + [p]
-        lib.fused_expert_mlp_bwd_gu.argtypes = [p] * 6 + [i] * 5 + [f, p]
+        # ..., M, [D, ]I, G[, act_kind, limit], stream
         lib.fused_expert_mlp_bwd_act.argtypes = [p] * 5 + [i] * 4 + [f, p]
         lib.fused_expert_mlp_bwd_ddb.argtypes = [p] * 3 + [i] * 3 + [p]
-        for fn in ("fwd_gu_act", "fwd_down", "bwd_gu", "bwd_act", "bwd_ddb"):
+        lib.fused_expert_mlp_bwd_dgub.argtypes = [p] * 4 + [i] * 4 + [f, p]
+        for fn in ("bwd_act", "bwd_ddb", "bwd_dgub"):
             getattr(lib, f"fused_expert_mlp_{fn}").restype = i
         lib.fused_expert_mlp_error_string.argtypes = [i]
         lib.fused_expert_mlp_error_string.restype = ctypes.c_char_p
@@ -265,7 +271,7 @@ def _check_cuda(name: str, group_sizes: torch.Tensor, shapes: dict, **tensors: O
         if not t.is_contiguous():
             raise ValueError(f"{name}: {t_name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {t_name} must start on a 16-byte boundary (cp.async)")
+            raise ValueError(f"{name}: {t_name} must start on a 16-byte boundary (TMA, 16-byte loads)")
     if group_sizes.dtype != torch.int32 or group_sizes.dim() != 1 or group_sizes.device != first.device:
         raise ValueError(f"{name}: group_sizes must be int32 [G] on {first.device}")
 
@@ -275,14 +281,18 @@ def _check_dims(name: str, D: int, I: int) -> None:
         raise ValueError(f"{name}: D={D} and I={I} must be multiples of {ALIGN}")
 
 
-def _plan_for(plan: Optional[torch.Tensor], group_sizes: torch.Tensor, M: int, name: str) -> tuple:
+def _plan_for(plan: Optional[torch.Tensor], group_sizes: torch.Tensor, M: int, name: str) -> torch.Tensor:
     G = group_sizes.shape[0]
     W = -(-M // GMM_TILE_M) + G + 1
     if plan is None:
         plan = gmm_plan(group_sizes, M)
     if plan.dtype != torch.int32 or tuple(plan.shape) != (4, W) or plan.device != group_sizes.device:
         raise ValueError(f"{name}: plan must be int32 [4, {W}] on {group_sizes.device} (gmm_plan(group_sizes, {M}))")
-    return plan, W
+    return plan
+
+
+def _ends(group_sizes: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(group_sizes, 0, dtype=torch.int32)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -299,33 +309,48 @@ def _raise_on(lib, rc: int, which: str) -> None:
         raise RuntimeError(f"fused_expert_mlp_{which} kernel launch failed ({rc}): {msg}")
 
 
-def _launch_fwd_gu_act(lhs, gate_up, gate_up_bias, plan, W, act_kind, limit) -> torch.Tensor:
-    """The forward's first launch → mid [M, I] bf16."""
+def _gmm_order(K: int, N: int, ends: torch.Tensor, n_major: Optional[bool] = None):
+    """(n_major, the ends pointer it reads or None): the order of a group's
+    items the gmm kernel takes for a K x N product, as ``gmm`` picks it
+    unless ``n_major`` is given."""
+    if n_major is None:
+        n_major = bool(gm._lib().grouped_matmul_gmm_n_major(K, N))
+    return int(n_major), ends.data_ptr() if n_major else None
+
+
+def _launch_fwd_gu_act(lhs, gate_up, gate_up_bias, plan, ends, act_kind, limit, n_major=None) -> torch.Tensor:
+    """The forward's first launch (the gmm kernel with the gate_up
+    activation in its epilogue) → mid [M, I] bf16; a group's items in the
+    order gmm takes over the whole gate_up unless ``n_major`` is given
+    (chip_smoke.py times both)."""
     M, D = lhs.shape
     G, _, I2 = gate_up.shape
     mid = torch.empty((M, I2 // 2), dtype=lhs.dtype, device=lhs.device)
-    lib = _lib()
+    n_major, ends_ptr = _gmm_order(D, I2, ends, n_major)
+    lib = gm._lib()
     with torch.cuda.device(lhs.device):
-        rc = lib.fused_expert_mlp_fwd_gu_act(
-            lhs.data_ptr(), gate_up.data_ptr(), _ptr(gate_up_bias), plan.data_ptr(), mid.data_ptr(),
-            M, D, I2 // 2, G, W, *_act_args(act_kind, limit), _stream(lhs),
+        rc = lib.grouped_matmul_gmm_act(
+            lhs.data_ptr(), gate_up.data_ptr(), _ptr(gate_up_bias), plan.data_ptr(), ends_ptr, mid.data_ptr(),
+            M, D, I2 // 2, G, plan.shape[1], n_major, *_act_args(act_kind, limit), _stream(lhs),
         )
-    _raise_on(lib, rc, "fwd_gu_act")
+    gm._raise_on(lib, rc, "gmm_act")
     return mid
 
 
-def _launch_fwd_down(mid, down, down_bias, plan, W) -> torch.Tensor:
-    """The forward's second launch → out [M, D] bf16."""
+def _launch_fwd_down(mid, down, down_bias, plan, ends, n_major=None) -> torch.Tensor:
+    """The forward's second launch (the gmm kernel with the row bias in its
+    epilogue) → out [M, D] bf16; ``n_major`` as for ``_launch_fwd_gu_act``."""
     M, I = mid.shape
     G, _, D = down.shape
     out = torch.empty((M, D), dtype=mid.dtype, device=mid.device)
-    lib = _lib()
+    n_major, ends_ptr = _gmm_order(I, D, ends, n_major)
+    lib = gm._lib()
     with torch.cuda.device(mid.device):
-        rc = lib.fused_expert_mlp_fwd_down(
-            mid.data_ptr(), down.data_ptr(), _ptr(down_bias), plan.data_ptr(), out.data_ptr(),
-            M, D, I, G, W, _stream(mid),
+        rc = lib.grouped_matmul_gmm_bias(
+            mid.data_ptr(), down.data_ptr(), _ptr(down_bias), plan.data_ptr(), ends_ptr, out.data_ptr(),
+            M, I, D, G, plan.shape[1], n_major, _stream(mid),
         )
-    _raise_on(lib, rc, "fwd_down")
+    gm._raise_on(lib, rc, "gmm_bias")
     return out
 
 
@@ -336,9 +361,10 @@ def fwd(lhs, gate_up, down, group_sizes, gate_up_bias=None, down_bias=None, act_
         plan=None) -> torch.Tensor:
     """lhs [M, D] (rows sorted by group), gate_up [G, D, 2I], down [G, I, D],
     optional gate_up_bias [G, 2I] and down_bias [G, D] → out [M, D] in
-    lhs.dtype. CUDA tensors launch the two kernels of the forward (counted
-    once, in ``fwd.launches``); ``plan`` is ``gmm_plan(group_sizes, M)``,
-    built here when not given. CPU tensors run the plain version."""
+    lhs.dtype. CUDA tensors launch the two kernels of the forward, the gmm
+    kernel with the activation in its epilogue, then with the row bias
+    (counted once, in ``fwd.launches``); ``plan`` is ``gmm_plan(group_sizes,
+    M)``, built here when not given. CPU tensors run the plain version."""
     _check_act(act_kind, limit)
     M, D = lhs.shape
     G, _, I2 = gate_up.shape
@@ -349,41 +375,47 @@ def fwd(lhs, gate_up, down, group_sizes, gate_up_bias=None, down_bias=None, act_
     _check_cuda("fused_expert_mlp fwd", group_sizes, shapes, lhs=lhs, gate_up=gate_up, down=down,
                 gate_up_bias=gate_up_bias, down_bias=down_bias)
     _check_dims("fused_expert_mlp fwd", D, I)
-    plan, W = _plan_for(plan, group_sizes, M, "fused_expert_mlp fwd")
-    mid = _launch_fwd_gu_act(lhs, gate_up, gate_up_bias, plan, W, act_kind, limit)
-    out = _launch_fwd_down(mid, down, down_bias, plan, W)
+    plan = _plan_for(plan, group_sizes, M, "fused_expert_mlp fwd")
+    ends = _ends(group_sizes)
+    mid = _launch_fwd_gu_act(lhs, gate_up, gate_up_bias, plan, ends, act_kind, limit)
+    out = _launch_fwd_down(mid, down, down_bias, plan, ends)
     fwd.launches += 1
     return out
 
 
-def _ends(group_sizes: torch.Tensor) -> torch.Tensor:
-    return torch.cumsum(group_sizes, 0, dtype=torch.int32)
-
-
-def bwd_gu(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_bias=False):
-    """→ (dW [G, D, 2I] fp32, the gate and up halves of one gradient; dbias
-    [G, 2I] fp32 or None). gu [M, 2I] is the recomputed g | u (biases
-    added), dmid [M, I]. CUDA tensors launch the kernel (counted in
-    ``bwd_gu.launches``); CPU tensors run the plain version."""
+def bwd_gu(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_bias=False, dgdu=None,
+           out_dtype=torch.float32):
+    """→ (dW [G, D, 2I] = lhs_g^T [dg | du] summed in fp32 and written in
+    ``out_dtype`` (fp32, JAX's ``_bwd_gu``, or bf16, the backward's cast
+    taken in the kernel), the gate and up halves of one gradient; dbias
+    [G, 2I] fp32, the row sums of the unrounded dg, du, or None). gu
+    [M, 2I] is the recomputed g | u (biases added), dmid [M, I]; ``dgdu``
+    is ``bwd_act``'s, run here when not given. CUDA tensors launch
+    ``bwd_act`` (without ``dgdu``), the tgmm kernel and, with
+    ``want_bias``, the bias-grad kernel, counted once in
+    ``bwd_gu.launches``; CPU tensors run the plain version."""
     _check_act(act_kind, limit)
     M, D = lhs.shape
     I = dmid.shape[1]
     G = group_sizes.shape[0]
     if _on_cpu("fused_expert_mlp bwd_gu", lhs):
-        return _bwd_gu_plain(lhs, gu, dmid, group_sizes, act_kind, limit, want_bias)
-    _check_cuda("fused_expert_mlp bwd_gu", group_sizes, dict(lhs=(M, D), gu=(M, 2 * I), dmid=(M, I)),
-                lhs=lhs, gu=gu, dmid=dmid)
+        return _bwd_gu_plain(lhs, gu, dmid, group_sizes, act_kind, limit, want_bias, out_dtype, dgdu)
+    _check_cuda("fused_expert_mlp bwd_gu", group_sizes, dict(lhs=(M, D), gu=(M, 2 * I), dmid=(M, I), dgdu=(M, 2 * I)),
+                lhs=lhs, gu=gu, dmid=dmid, dgdu=dgdu)
     _check_dims("fused_expert_mlp bwd_gu", D, I)
-    dw = torch.empty((G, D, 2 * I), dtype=torch.float32, device=lhs.device)
-    dbias = torch.empty((G, 2 * I), dtype=torch.float32, device=lhs.device) if want_bias else None
-    ends = _ends(group_sizes)
-    lib = _lib()
-    with torch.cuda.device(lhs.device):
-        rc = lib.fused_expert_mlp_bwd_gu(
-            lhs.data_ptr(), gu.data_ptr(), dmid.data_ptr(), ends.data_ptr(), dw.data_ptr(), _ptr(dbias),
-            M, D, I, G, *_act_args(act_kind, limit), _stream(lhs),
-        )
-    _raise_on(lib, rc, "bwd_gu")
+    if out_dtype not in TGMM_OUT_DTYPES:
+        raise ValueError(f"fused_expert_mlp bwd_gu: the CUDA kernel writes {TGMM_OUT_DTYPES}, not {out_dtype}")
+    if dgdu is None:
+        _, dgdu = bwd_act(gu, dmid, group_sizes, act_kind, limit, want_mid=False)
+    dbias = None
+    if want_bias:
+        dbias = torch.empty((G, 2 * I), dtype=torch.float32, device=lhs.device)
+        lib = _lib()
+        with torch.cuda.device(lhs.device):
+            rc = lib.fused_expert_mlp_bwd_dgub(gu.data_ptr(), dmid.data_ptr(), _ends(group_sizes).data_ptr(),
+                                               dbias.data_ptr(), M, I, G, *_act_args(act_kind, limit), _stream(lhs))
+        _raise_on(lib, rc, "bwd_dgub")
+    dw = gm._tgmm_launch(lhs, dgdu, group_sizes, out_dtype)
     bwd_gu.launches += 1
     return dw, dbias
 
@@ -470,7 +502,7 @@ def bwd_dx(gu, dmid, gate_up, group_sizes, act_kind="swiglu", limit=None, plan=N
                 dict(gu=(M, 2 * I), dmid=(M, I), gate_up=(G, D, 2 * I), dgdu=(M, 2 * I)),
                 gu=gu, dmid=dmid, gate_up=gate_up, dgdu=dgdu)
     _check_dims("fused_expert_mlp bwd_dx", D, I)
-    plan, _ = _plan_for(plan, group_sizes, M, "fused_expert_mlp bwd_dx")
+    plan = _plan_for(plan, group_sizes, M, "fused_expert_mlp bwd_dx")
     if dgdu is None:
         _, dgdu = bwd_act(gu, dmid, group_sizes, act_kind, limit, want_mid=False)
     n_major = bool(gm._lib().grouped_matmul_gmm_n_major(2 * I, D))  # the order gmm would pick
@@ -515,17 +547,19 @@ class _FusedExpertMLP(torch.autograd.Function):
         if gub is not None:
             gu = add_row_bias(gu, gub, group_sizes)
         dmid = gmm(dy, down, group_sizes, transpose_rhs=True, plan=plan)
-        # the activation once per element: mid for dWd, dg | du for dlhs,
-        # each freed after its product (dlhs before bwd_gu's fp32 dW exists)
+        # the activation once per element: mid for dWd, dg | du for dlhs
+        # and dW, each freed after its last product; both weight grads are
+        # written in their primal's dtype by the kernels
         mid, dgdu = bwd_act(gu, dmid, group_sizes, act_kind, limit)
         dwd, ddb = bwd_dwd(gu, dy, group_sizes, act_kind, limit, want_bias=db is not None, out_dtype=down.dtype,
                            mid=mid)
         del mid
         dlhs = bwd_dx(gu, dmid, gate_up, group_sizes, act_kind, limit, plan=plan, dgdu=dgdu)
+        dw, dgub = bwd_gu(lhs, gu, dmid, group_sizes, act_kind, limit, want_bias=gub is not None, dgdu=dgdu,
+                          out_dtype=gate_up.dtype)
         del dgdu
-        dw, dgub = bwd_gu(lhs, gu, dmid, group_sizes, act_kind, limit, want_bias=gub is not None)
         return (
-            dlhs.to(lhs.dtype), dw.to(gate_up.dtype), dwd, None,
+            dlhs.to(lhs.dtype), dw, dwd, None,
             None if gub is None else dgub.to(gub.dtype), None if db is None else ddb.to(db.dtype),
             None, None, None,
         )

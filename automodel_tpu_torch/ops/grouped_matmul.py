@@ -22,7 +22,10 @@ device with torch ops (cumsum, searchsorted), with no host sync, as the JAX
 groups (the MoE layer: two forward and two backward gmms) builds it once
 and passes it on. The tgmm kernel walks (group, k tile, n tile) items with
 the groups largest first, in the order ``tgmm_group_order`` sorts on the
-device.
+device. The same gmm kernel with two other epilogues carries the fused
+expert MLP's forward (``grouped_matmul_gmm_act``, the gate_up product with
+the activation, and ``grouped_matmul_gmm_bias``, the down product with a
+row bias), which ``ops/fused_expert_mlp.py`` launches through ``_lib()``.
 """
 
 from __future__ import annotations
@@ -122,6 +125,12 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.grouped_matmul_gmm.argtypes = [p] * 5 + [i] * 7 + [p]  # ..., M, K, N, G, W, transpose, n_major, stream
         lib.grouped_matmul_tgmm.argtypes = [p] * 5 + [i] * 5 + [p]  # ..., M, K, N, G, out_bf16, stream
+        # the fused expert MLP's forward (ops/fused_expert_mlp.py launches them):
+        # ..., M, D, I, G, W, n_major, act_kind, limit, stream and ..., M, K, N, G, W, n_major, stream
+        lib.grouped_matmul_gmm_act.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, p]
+        lib.grouped_matmul_gmm_bias.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.grouped_matmul_gmm_act.restype = i
+        lib.grouped_matmul_gmm_bias.restype = i
         lib.grouped_matmul_gmm.restype = i
         lib.grouped_matmul_gmm_n_major.argtypes = [i, i]  # K, N -> 1: a group's items n tile by n tile
         lib.grouped_matmul_gmm_n_major.restype = i

@@ -15,6 +15,13 @@ At gpt-oss-20b's (M = 16384 gate-routed rows over 32 experts, D = I =
 2880, swiglu_oai with expert biases, the gate case of chip_smoke.py's
 phase 12, from its seeds):
 
+- ``k3a_fwd``: the forward (both launches), the plan given;
+- ``k3b_bf16_grad``: bwd_gu with the bf16 weight grad and the bias grads
+  the backward takes, called as the backward calls it (with the
+  elementwise pass's dg | du where the checkout takes it; a checkout whose
+  bwd_gu writes fp32 only: that, then the cast in eager torch), and
+  ``k3b_bf16_grad_alone``, called alone from gu and dmid (the pass inside
+  where the checkout has it);
 - ``k3c_bf16_grad``: bwd_dwd with the bf16 weight grad and the bias grad
   the backward takes, called alone from gu (a checkout whose bwd_dwd
   writes fp32 only: that, then the cast in eager torch);
@@ -119,7 +126,18 @@ def k3_backward_ms(torch, cs, dev) -> dict:
     plan = gm.gmm_plan(gs, M)
     gu = fem.add_row_bias(gm.gmm(xs, w_gu, gs, plan=plan), gub, gs)
     dmid = gm.gmm(dy, w_dn, gs, transpose_rhs=True, plan=plan)
-    ms = {}
+    ms = {"k3a_fwd": cs.cuda_ms(lambda: fem.fwd(xs, w_gu, w_dn, gs, gub, db, act, plan=plan), iters=10)}
+    try:
+        _, dgdu = fem.bwd_act(gu, dmid, gs, act, None, want_mid=False)
+        fem.bwd_gu(xs, gu, dmid, gs, act, None, True, dgdu=dgdu, out_dtype=bf16)
+        k3b = lambda: fem.bwd_gu(xs, gu, dmid, gs, act, None, True, dgdu=dgdu, out_dtype=bf16)  # noqa: E731
+        k3b_alone = lambda: fem.bwd_gu(xs, gu, dmid, gs, act, None, True, out_dtype=bf16)  # noqa: E731
+    except TypeError:  # a bwd_gu with an fp32 output only, from gu and dmid: the backward cast it
+        dgdu = None
+        k3b = k3b_alone = lambda: fem.bwd_gu(xs, gu, dmid, gs, act, None, True)[0].to(bf16)  # noqa: E731
+    ms["k3b_bf16_grad"] = cs.cuda_ms(k3b, iters=10)
+    ms["k3b_bf16_grad_alone"] = cs.cuda_ms(k3b_alone, iters=10)
+    del dgdu
     try:
         fem.bwd_dwd(gu, dy, gs, act, None, True, bf16)
         k3c = lambda: fem.bwd_dwd(gu, dy, gs, act, None, True, bf16)  # noqa: E731

@@ -86,18 +86,22 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    around the plain versions; each kernel timed beside its bound and a
    yardstick without sinks (SDPA causal for the full layer, compiled
    ``flex_attention`` with the window's block mask for the windowed one);
-12. the fused expert-MLP kernels (the forward's two launches, bwd_gu,
-   the backward's elementwise pass bwd_act, bwd_dwd and bwd_dx, the last
-   two each called alone, which runs the pass inside) against their plain
-   versions at gpt-oss-20b's MoE shapes (4096 tokens routed top-4 over 32
-   experts by a real gate with a learned bias: M = 16384 rows, hidden
-   2880, expert width 2880, swiglu_oai, expert biases), timed against the
-   plain versions, a ``torch._grouped_mm`` composition and the bound;
-   bwd_dwd (its bf16 dWd, which must equal its fp32 dWd cast bit for bit)
-   and bwd_dx are timed given the pass's output, as the backward calls
-   them, beside ``torch._grouped_mm`` alone on that operand, each called
-   alone, dWd in fp32, and bwd_dx's product in both orders of a group's
-   items; then Qwen3-30B-A3B's
+12. the fused expert-MLP kernels (the forward's two launches, the gmm
+   kernel with the activation in its epilogue and then with the row bias;
+   bwd_gu, the backward's elementwise pass bwd_act, bwd_dwd and bwd_dx,
+   bwd_gu with JAX's fp32 weight grad and the last three each called
+   alone, which runs the pass inside) against their plain versions at
+   gpt-oss-20b's MoE shapes (4096 tokens routed top-4 over 32 experts by a
+   real gate with a learned bias: M = 16384 rows, hidden 2880, expert
+   width 2880, swiglu_oai, expert biases), timed against the plain
+   versions, a ``torch._grouped_mm`` composition and the bound; the
+   forward's two launches also apart, beside ``torch._grouped_mm`` alone
+   on each; bwd_gu and bwd_dwd (their bf16 weight grads, which must equal
+   their fp32 ones cast bit for bit) and bwd_dx are timed given the pass's
+   output, as the backward calls them, beside ``torch._grouped_mm`` alone
+   on that operand, each called alone, the weight grads in fp32, bwd_gu's
+   product and bias sums apart, and bwd_dx's product in both orders of a
+   group's items; then Qwen3-30B-A3B's
    shapes (swiglu, no biases), skewed groups, inputs scaled so that ~10%
    of g and u pass the +-7 clamps, swiglu with a limit of 2, and a NaN tail
    past the groups (every weight and bias grad finite and equal to the
@@ -109,8 +113,9 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    loss and grad norm must be finite, every weight matrix, bias and sink and
    every expert slab that received rows must move, and each kernel must have
    launched its count (each K3 wrapper, bwd_act included, once per layer
-   and microbatch; K2's tgmm wrapper none: K3c's tgmm launch and K3d's gmm
-   count in bwd_dwd and bwd_dx); then a profile of one step;
+   and microbatch; K2's tgmm wrapper none: K3b's and K3c's tgmm launches
+   and K3d's gmm count in bwd_gu, bwd_dwd and bwd_dx); then a profile of
+   one step;
 14. one step at 1 layer of those widths and 2048 tokens with ``experts:
    ragged_fused`` against ``experts: ragged``: loss and grad norm must
    agree;
@@ -1486,14 +1491,16 @@ QWEN_FAMILIES = dict(
     flash_dq_ms=lambda k: "flash_dq_kernel" in k,
     flash_dkv_ms=lambda k: "flash_dkv_kernel" in k,
 )
-# on the GPT-OSS path tgmm_ms is K3c's product (dWd) alone and gmm_t_ms
-# holds K3d's product (dlhs, K = 2I) beside K2's dmid: the kernels share
-# their names
+# on the GPT-OSS path K2's tgmm wrapper never runs: tgmm_ms sums K3b's
+# product (dW gate | up, on lhs and dg | du) and K3c's (dWd, on mid and
+# dy), both tgmm_kernel<true>; gmm_t_ms holds K3d's product (dlhs, K = 2I)
+# beside K2's dmid: the kernels share their names. K3a's two launches and
+# K3b's bias sums have names of their own.
 GPT_OSS_FAMILIES = dict(
     QWEN_FAMILIES,
-    fem_fwd_gu_act_ms=lambda k: "fwd_gu_act_kernel" in k,
-    fem_fwd_down_ms=lambda k: "fwd_down_kernel" in k,
-    fem_bwd_gu_ms=lambda k: "bwd_gu_kernel" in k,
+    fem_fwd_gu_act_ms=lambda k: "gmm_act_kernel" in k,
+    fem_fwd_down_ms=lambda k: "gmm_bias_kernel" in k,
+    fem_bwd_dgub_ms=lambda k: "bwd_dgub_kernel" in k,
     fem_bwd_act_ms=lambda k: "bwd_act_kernel" in k,
     fem_bwd_ddb_ms=lambda k: "bwd_ddb_kernel" in k,
 )
@@ -1708,9 +1715,10 @@ def phase_gpt_oss_training(torch) -> dict:
     n = (cfg["model"]["hf_config"]["num_hidden_layers"] * cfg["step_scheduler"]["grad_acc_steps"]
          * cfg["step_scheduler"]["max_steps"])
     # one call of each K3 wrapper (the backward's elementwise pass once,
-    # bwd_dwd and bwd_dx given its outputs), one K2 gmm (the gu recompute)
-    # and gmm_t (dmid) per layer and microbatch; no call of K2's tgmm
-    # wrapper (K3c's tgmm launch counts in fem_bwd_dwd, K3d's gmm in fem_bwd_dx)
+    # bwd_dwd, bwd_dx and bwd_gu given its outputs), one K2 gmm (the gu
+    # recompute) and gmm_t (dmid) per layer and microbatch; no call of K2's
+    # tgmm wrapper (K3b's and K3c's tgmm launches count in fem_bwd_gu and
+    # fem_bwd_dwd, K3d's gmm in fem_bwd_dx, K3a's two in fem_fwd)
     want = dict(fem_fwd=n, fem_bwd_gu=n, fem_bwd_act=n, fem_bwd_dwd=n, fem_bwd_dx=n, gmm=n, gmm_t=n, tgmm=0,
                 flash_fwd=n, flash_dq=n, flash_dkv=n)
     return run_moe_training(torch, cfg, "gpt-oss training", fused_kernel_counters(), want, GPT_OSS_FAMILIES)
@@ -1941,11 +1949,12 @@ def fem_bound(kind: str, M: int, D: int, I: int, gs, biased: bool, out_bytes: in
     row and (k, n) pair) over the bf16 peak, against its bytes over HBM
     bandwidth: each operand read once (the routed rows of lhs, gu, dmid and
     dy, the weight slabs of experts that received rows, the biases), each
-    output written once (out and dlhs [M, D] bf16, bwd_gu's weight grad
-    fp32, bwd_dwd's in ``out_bytes`` an element, the bias grads fp32).
-    bwd_dwd and bwd_dx read gu [M, 2I] when called alone (they run the
-    elementwise pass) and the pass's output (mid [M, I], dg | du [M, 2I])
-    under ``given``, as the backward calls them. bwd_act reads g | u and
+    output written once (out and dlhs [M, D] bf16, bwd_gu's and bwd_dwd's
+    weight grads in ``out_bytes`` an element, the bias grads fp32).
+    bwd_gu, bwd_dwd and bwd_dx read gu [M, 2I] (and dmid) when called alone
+    (they run the elementwise pass) and the pass's output (mid [M, I],
+    dg | du [M, 2I]) under ``given``, as the backward calls them; bwd_gu's
+    bias grads read g | u and dmid either way. bwd_act reads g | u and
     dmid of the routed rows and writes mid and dg | du over all M rows; its
     fp32 elementwise work (~40 flops an element, ~0.03 ms at 67 TFLOP/s at
     gpt-oss-20b's widths) is under its bytes and not counted, nor is the
@@ -1957,7 +1966,8 @@ def fem_bound(kind: str, M: int, D: int, I: int, gs, biased: bool, out_bytes: in
         nbytes = rows * D * bf + fed * 3 * D * I * bf + (fed * (2 * I + D) * bf if biased else 0) + M * D * bf
     elif kind == "bwd_gu":
         flops = 4 * rows * D * I
-        nbytes = rows * (D + 3 * I) * bf + G * D * 2 * I * 4 + (G * 2 * I * 4 if biased else 0)
+        reads = D + (2 * I + (3 * I if biased else 0) if given else 3 * I)
+        nbytes = rows * reads * bf + G * D * 2 * I * out_bytes + (G * 2 * I * 4 if biased else 0)
     elif kind == "bwd_act":
         flops = 0
         nbytes = rows * 3 * I * bf + M * 3 * I * bf
@@ -1972,15 +1982,17 @@ def fem_bound(kind: str, M: int, D: int, I: int, gs, biased: bool, out_bytes: in
 
 
 def fem_library_ms(torch, kind: str, xs, gu, dmid, dy, w_gu, w_dn, gs, gub, db, act, limit, mid=None,
-                   dgdu=None) -> dict:
+                   dgdu=None, fwd_mid=None) -> dict:
     """Yardsticks the port never calls: ``composition_ms``, the function
     as ``torch._grouped_mm`` products with the activation (and its
-    backward, the bias adds) in eager torch; ``library_ms``, for bwd_dwd
-    and bwd_dx the one ``torch._grouped_mm`` call of their product on the
-    materialized operand (``mid``, ``dgdu``: the kernels' work as the
-    backward calls them), else the composition (no one call computes the
-    forward or bwd_gu). None where this torch has no ``_grouped_mm`` or it
-    refuses; bwd_act has no library call."""
+    backward, the bias adds) in eager torch; ``library_ms``, for bwd_gu,
+    bwd_dwd and bwd_dx the one ``torch._grouped_mm`` call of their product
+    on the materialized operand (``dgdu``, ``mid``: the kernels' work as
+    the backward calls them), for the forward the composition (no one call
+    computes it), with ``gu_library_ms`` and ``down_library_ms`` beside it:
+    ``torch._grouped_mm`` alone on each of its two launches' operands (the
+    forward's mid, ``fwd_mid``, for the second). None where this torch has
+    no ``_grouped_mm`` or it refuses; bwd_act has no library call."""
     from automodel_tpu_torch.ops import fused_expert_mlp as fem
 
     fn = getattr(torch, "_grouped_mm", None)
@@ -2007,15 +2019,20 @@ def fem_library_ms(torch, kind: str, xs, gu, dmid, dy, w_gu, w_dn, gs, gub, db, 
         bwd_dwd=lambda: fn(act_fwd(gu).t(), dy, offs=offs),
         bwd_dx=lambda: fn(act_bwd(), w_gu.transpose(-2, -1), offs=offs),
     )
-    alone = dict(bwd_dwd=lambda: fn(mid.t(), dy, offs=offs), bwd_dx=lambda: fn(dgdu, w_gu.transpose(-2, -1), offs=offs))
+    alone = dict(bwd_gu=lambda: fn(xs.t(), dgdu, offs=offs), bwd_dwd=lambda: fn(mid.t(), dy, offs=offs),
+                 bwd_dx=lambda: fn(dgdu, w_gu.transpose(-2, -1), offs=offs))
+    calls = [("composition_ms", compositions[kind]), ("library_ms", alone.get(kind))]
+    if kind == "fwd":
+        calls += [("gu_library_ms", lambda: fn(xs, w_gu, offs=offs)),
+                  ("down_library_ms", lambda: fn(fwd_mid, w_dn, offs=offs))]
     out = {}
-    for key, call in (("composition_ms", compositions[kind]), ("library_ms", alone.get(kind))):
+    for key, call in calls:
         try:
             out[key] = None if call is None else cuda_ms(call, iters=10)
         except (RuntimeError, TypeError, ValueError) as e:
             print(f"torch._grouped_mm refused the {kind} {key}: {str(e)[:200]}", flush=True)
             out[key] = None
-    if kind in ("fwd", "bwd_gu"):
+    if kind == "fwd":
         out["library_ms"] = out["composition_ms"]
     return out
 
@@ -2061,7 +2078,6 @@ def phase_fused_kernels(torch, dev) -> dict:
             gs = torch.diff(torch.cumsum(gs.long(), 0).clamp_max(n), prepend=gs.new_zeros(1).long()).to(torch.int32)
         n = int(gs.sum())
         plan = gm.gmm_plan(gs, M)
-        W = plan.shape[1]
 
         def run(lhs, dout, plain=False):
             gu = gm.gmm(lhs, w["gate_up"], gs, plan=plan)
@@ -2073,6 +2089,7 @@ def phase_fused_kernels(torch, dev) -> dict:
             else:
                 f = (fem.fwd, fem.bwd_gu, fem.bwd_dwd, fem.bwd_dx)
                 out = f[0](lhs, w["gate_up"], w["down"], gs, gub, db, act, limit, plan=plan)
+            # bwd_gu with JAX's fp32 out, called alone (the elementwise pass inside)
             dw, dbias = f[1](lhs, gu, dmid, gs, act, limit, biased)
             # bwd_dwd (fp32 out) and bwd_dx alone, each running the elementwise pass
             dwd, ddb = f[2](gu, dout, gs, act, limit, biased)
@@ -2115,15 +2132,16 @@ def phase_fused_kernels(torch, dev) -> dict:
             del dirty, dirty_x, dirty_dy
         del want
         if c["main"]:
-            fwd_mid = fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, W, act, limit)
+            ends = fem._ends(gs)
+            fwd_mid = fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, ends, act, limit)
             # the backward's operands, as the autograd function makes them once
             mid, dgdu = got[6], got[7]
             bf16 = torch.bfloat16
             timed = dict(
                 fwd=(lambda: fem.fwd(xs, w["gate_up"], w["down"], gs, gub, db, act, limit, plan=plan),
                      lambda: fem._fwd_plain(xs, w["gate_up"], w["down"], gs, gub, db, act, limit)),
-                bwd_gu=(lambda: fem.bwd_gu(xs, gu, dmid, gs, act, limit, biased),
-                        lambda: fem._bwd_gu_plain(xs, gu, dmid, gs, act, limit, biased)),
+                bwd_gu=(lambda: fem.bwd_gu(xs, gu, dmid, gs, act, limit, biased, dgdu=dgdu, out_dtype=bf16),
+                        lambda: fem._bwd_gu_plain(xs, gu, dmid, gs, act, limit, biased, bf16, dgdu=dgdu)),
                 bwd_act=(lambda: fem.bwd_act(gu, dmid, gs, act, limit),
                          lambda: fem._bwd_act_plain(gu, dmid, gs, act, limit)),
                 bwd_dwd=(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased, bf16, mid=mid),
@@ -2133,24 +2151,51 @@ def phase_fused_kernels(torch, dev) -> dict:
             )
             row["timed"] = {}
             for kind, (kern, plain) in timed.items():
-                # bwd_dwd and bwd_dx as the backward calls them: the pass's output given, dWd in bf16
+                # K3b-K3d as the backward calls them: the pass's output given, the weight grads in bf16
                 bound_ms, bound_by = fem_bound(kind, M, D, I, gs, biased, out_bytes=2, given=True)
                 row["timed"][kind] = dict(
                     ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=2, warmup=1), bound_ms=bound_ms,
                     bound_by=bound_by,
                     **fem_library_ms(torch, kind, xs, gu, dmid, dy, w["gate_up"], w["down"], gs, gub, db, act, limit,
-                                     mid=mid, dgdu=dgdu),
+                                     mid=mid, dgdu=dgdu, fwd_mid=fwd_mid),
                 )
                 torch.cuda.empty_cache()
             t = row["timed"]
             t["fwd"]["gu_act_ms"] = cuda_ms(
-                lambda: fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, W, act, limit), iters=10)
-            t["fwd"]["down_ms"] = cuda_ms(lambda: fem._launch_fwd_down(fwd_mid, w["down"], db, plan, W), iters=10)
-            # each called alone (the pass inside), and dWd in fp32, as the earlier fused kernel wrote it (PERF.md). beside its bound
+                lambda: fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, ends, act, limit), iters=10)
+            t["fwd"]["down_ms"] = cuda_ms(lambda: fem._launch_fwd_down(fwd_mid, w["down"], db, plan, ends), iters=10)
+            # each launch in both orders of a group's items, and K2's gmm (plain
+            # store) on the same operands in the order it takes: what the
+            # epilogues cost
+            t["fwd"]["order"] = {k: "n tiles" if gm._lib().grouped_matmul_gmm_n_major(K, N) else "units"
+                                 for k, K, N in (("gu_act", D, 2 * I), ("down", I, D))}
+            t["fwd"]["ms_by_order"] = {
+                o: dict(gu_act=cuda_ms(lambda nm=nm: fem._launch_fwd_gu_act(xs, w["gate_up"], gub, plan, ends, act,
+                                                                            limit, n_major=nm), iters=10),
+                        down=cuda_ms(lambda nm=nm: fem._launch_fwd_down(fwd_mid, w["down"], db, plan, ends,
+                                                                        n_major=nm), iters=10))
+                for nm, o in ((False, "units"), (True, "n tiles"))}
+            t["fwd"]["k2_gmm_same_operands_ms"] = dict(
+                gate_up=cuda_ms(lambda: gm.gmm(xs, w["gate_up"], gs, plan=plan), iters=10),
+                down=cuda_ms(lambda: gm.gmm(fwd_mid, w["down"], gs, plan=plan), iters=10))
+            # bwd_gu and bwd_dwd each called alone (the pass inside), and with
+            # JAX's fp32 weight grad (as the earlier fused kernels wrote it,
+            # PERF.md) beside its bound; bwd_gu's product and bias sums apart
+            t["bwd_gu"]["alone_ms"] = cuda_ms(lambda: fem.bwd_gu(xs, gu, dmid, gs, act, limit, biased, out_dtype=bf16),
+                                              iters=10)
+            t["bwd_gu"]["fp32_alone_ms"] = cuda_ms(lambda: fem.bwd_gu(xs, gu, dmid, gs, act, limit, biased), iters=10)
+            t["bwd_gu"]["fp32_alone_bound_ms"] = fem_bound("bwd_gu", M, D, I, gs, biased)[0]
+            t["bwd_gu"]["tgmm_ms"] = cuda_ms(lambda: gm._tgmm_launch(xs, dgdu, gs, bf16), iters=10)
+            if biased:
+                sums = torch.empty_like(got[2])
+                t["bwd_gu"]["dgub_ms"] = cuda_ms(
+                    lambda: fem._lib().fused_expert_mlp_bwd_dgub(gu.data_ptr(), dmid.data_ptr(), ends.data_ptr(),
+                                                                 sums.data_ptr(), M, I, G, *fem._act_args(act, limit),
+                                                                 fem._stream(gu)), iters=10)
+                del sums
             t["bwd_dwd"]["alone_ms"] = cuda_ms(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased, bf16), iters=10)
             t["bwd_dwd"]["fp32_alone_ms"] = cuda_ms(lambda: fem.bwd_dwd(gu, dy, gs, act, limit, biased), iters=10)
             t["bwd_dwd"]["fp32_alone_bound_ms"] = fem_bound("bwd_dwd", M, D, I, gs, biased)[0]
-            ends = fem._ends(gs)
             t["bwd_dwd"]["ddb_ms"] = cuda_ms(
                 lambda: fem._lib().fused_expert_mlp_bwd_ddb(dy.data_ptr(), ends.data_ptr(), got[4].data_ptr(), M, D, G,
                                                             fem._stream(dy)), iters=10)
@@ -2161,11 +2206,15 @@ def phase_fused_kernels(torch, dev) -> dict:
                 o: cuda_ms(lambda nm=nm: gm._gmm_launch(dgdu, w["gate_up"], gs, plan, D, True, nm), iters=10)
                 for nm, o in ((False, "units"), (True, "n tiles"))}
             t["k3c_k3d_and_pass_ms"] = t["bwd_act"]["ms"] + t["bwd_dwd"]["ms"] + t["bwd_dx"]["ms"]
-            # dWd written in bf16 is its fp32 sum rounded once
+            t["k3_backward_kernels_ms"] = t["k3c_k3d_and_pass_ms"] + t["bwd_gu"]["ms"]
+            # each weight grad written in bf16 is its fp32 sum rounded once
             dwd16 = fem.bwd_dwd(gu, dy, gs, act, limit, biased, bf16, mid=mid)[0]
+            dw16, dbias16 = fem.bwd_gu(xs, gu, dmid, gs, act, limit, biased, dgdu=dgdu, out_dtype=bf16)
             row["dwd_bf16_equals_fp32_cast"] = bool(torch.equal(dwd16, got[3].to(bf16)))
-            row["ok"] = row["ok"] and row["dwd_bf16_equals_fp32_cast"]
-            del fwd_mid, mid, dgdu, dwd16
+            row["dw_bf16_equals_fp32_cast"] = bool(torch.equal(dw16, got[1].to(bf16))) and (
+                dbias16 is None or bool(torch.equal(dbias16, got[2])))
+            row["ok"] = row["ok"] and row["dwd_bf16_equals_fp32_cast"] and row["dw_bf16_equals_fp32_cast"]
+            del fwd_mid, mid, dgdu, dwd16, dw16, dbias16
         results.append(row)
         print(f"kernel fused_expert_mlp vs plain: {json.dumps(row)}", flush=True)
         del xs, dy, got, gu, dmid, plan
@@ -2216,25 +2265,34 @@ def sinks_flash_entry(name: str, sinks: dict) -> dict:
     return out
 
 
-def fused_entries(fused: dict, gpt_oss: dict) -> list:
+def fused_entries(fused: dict, gpt_oss: dict, ptxas: list, sass: dict) -> list:
     """The ``kernels`` line's fused expert-MLP entries: phase 12's times at
-    the gpt-oss gate-routed case, phase 13's launches. The forward's two
-    launches count as one call, their times apart beside the total. K3c
-    and K3d are the elementwise pass (bwd_act, an entry of its own) and
-    K2's products: their ms are the products as the backward calls them
-    (the pass's output given, dWd in bf16) and library_ms is
+    the gpt-oss gate-routed case, phase 13's launches, ptxas's report and
+    the SASS reading of each kernel a call launches. The forward's two
+    launches count as one call, their times apart beside the total and
+    beside ``torch._grouped_mm`` alone on each. K3b, K3c and K3d are the
+    elementwise pass (bwd_act, an entry of its own), K2's products and, for
+    K3b and K3c, a bias-sum kernel: their ms are as the backward calls them
+    (the pass's output given, the weight grads in bf16) and library_ms is
     torch._grouped_mm on the same operands; beside them each called alone,
-    and dWd in fp32, as the earlier fused kernel wrote it (PERF.md)."""
+    and with JAX's fp32 weight grad, as the earlier fused kernels wrote it
+    (PERF.md)."""
     fmain = next(c for c in fused["cases"] if "timed" in c)
     entries = []
     outputs = dict(fwd=("out",), bwd_gu=("dw", "dbias"), bwd_act=("mid", "dgdu"), bwd_dwd=("dwd", "ddb"),
                    bwd_dx=("dlhs",))
     k2_source = "automodel_tpu_torch/csrc/grouped_matmul.cu"
-    sources = dict(bwd_dwd=k2_source, bwd_dx=k2_source)
-    kernels_of = dict(fwd="fwd_gu_act_kernel, fwd_down_kernel", bwd_gu="bwd_gu_kernel", bwd_act="bwd_act_kernel",
+    sources = dict(fwd=k2_source, bwd_gu=k2_source, bwd_dwd=k2_source, bwd_dx=k2_source)
+    kernels_of = dict(fwd="gmm_act_kernel then gmm_bias_kernel (grouped_matmul.cu)",
+                      bwd_gu="tgmm_kernel<true> (grouped_matmul.cu) on lhs and dg | du, bwd_dgub_kernel "
+                             "(fused_expert_mlp.cu)",
+                      bwd_act="bwd_act_kernel",
                       bwd_dwd="tgmm_kernel<true> (grouped_matmul.cu), bwd_ddb_kernel (fused_expert_mlp.cu)",
                       bwd_dx="gmm_kernel<true> (grouped_matmul.cu) over K = 2I")
-    # bwd_act replaces the activation of _bwd_dwd_kernel (:530) and _bwd_dx_kernel (:615)
+    launched = dict(fwd=("gmm_act_kernel", "gmm_bias_kernel"), bwd_gu=("tgmm_kernel<1>", "bwd_dgub_kernel"),
+                    bwd_act=("bwd_act_kernel",), bwd_dwd=("tgmm_kernel<1>", "bwd_ddb_kernel"),
+                    bwd_dx=("gmm_kernel<1>",))
+    # bwd_act replaces the activation of _bwd_gu_kernel (:423), _bwd_dwd_kernel (:530) and _bwd_dx_kernel (:615)
     for kind, line_no in (("fwd", 59), ("bwd_gu", 423), ("bwd_act", 615), ("bwd_dwd", 530), ("bwd_dx", 615)):
         t = fmain["timed"][kind]
         entry = {
@@ -2256,23 +2314,29 @@ def fused_entries(fused: dict, gpt_oss: dict) -> list:
             "library": "composition: torch._grouped_mm products, activation and biases in eager torch",
             "shape": f"M={fmain['M']} D={fmain['D']} I={fmain['I']} G={fmain['G']}, gpt-oss gate-routed, "
                      f"swiglu_oai with expert biases",
+            "ptxas": [u for u in ptxas if u["kernel"] in launched[kind]],
+            "sass": {k: v for k, v in sass.items() if k in launched[kind]},
         }
         if kind == "fwd":
-            entry.update(gu_act_ms=t["gu_act_ms"], down_ms=t["down_ms"])
+            entry.update(library="composition: torch._grouped_mm products, activation and biases in eager torch; "
+                                 "gu_library_ms / down_library_ms: torch._grouped_mm alone on each launch's operands",
+                         **{k: t[k] for k in ("gu_act_ms", "down_ms", "composition_ms", "gu_library_ms",
+                                              "down_library_ms", "order", "ms_by_order", "k2_gmm_same_operands_ms")})
         elif kind == "bwd_act":
             entry.update(library="none: no one PyTorch call computes the activation and its gradient",
-                         also_replaces="automodel_tpu/ops/fused_expert_mlp.py:530")
-        elif kind in ("bwd_dwd", "bwd_dx"):
-            entry.update(library="torch._grouped_mm alone on the materialized operand (mid, or dg | du)",
+                         also_replaces=["automodel_tpu/ops/fused_expert_mlp.py:423",
+                                        "automodel_tpu/ops/fused_expert_mlp.py:530"])
+        else:
+            entry.update(library="torch._grouped_mm alone on the materialized operand (dg | du, or mid)",
                          composition_ms=t["composition_ms"], alone_ms=t["alone_ms"],
-                         **{k: t[k] for k in ("fp32_alone_ms", "fp32_alone_bound_ms", "ddb_ms", "order", "ms_by_order")
-                            if k in t})
+                         **{k: t[k] for k in ("fp32_alone_ms", "fp32_alone_bound_ms", "tgmm_ms", "dgub_ms", "ddb_ms",
+                                              "order", "ms_by_order") if k in t})
         entries.append(entry)
     return entries
 
 
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
-                 gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass) -> dict:
+                 gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -2387,7 +2451,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             for entry, r in ((line["kernels"][-1], t), (line["kernels"][-1]["down"], down),
                              (line["kernels"][-1]["gpt_oss"], timed[("gpt-oss", kind)])):
                 entry.update({k: r[k] for k in ("order", "ms_by_order")})
-    line["kernels"] += fused_entries(fused, gpt_oss)
+    line["kernels"] += fused_entries(fused, gpt_oss, grouped_ptxas + fused_ptxas, grouped_sass)
     return line
 
 
@@ -2436,11 +2500,16 @@ def main() -> int:
                   f"{sass.get('setmaxnreg_dec', 'unknown')}, inc {sass.get('setmaxnreg_inc', 'unknown')}), "
                   f"{u.get('spill_stores', 0)} bytes spill stores, {u.get('spill_loads', 0)} bytes spill loads",
                   flush=True)
-        # gmm_kernel<transpose> x 2 and tgmm_kernel<bf16 out> x 2
+        # gmm_kernel<transpose> x 2, K3a's gmm_act_kernel and gmm_bias_kernel, tgmm_kernel<bf16 out> x 2
         spilled = [u for u in grouped_ptxas if u.get("spill_stores") or u.get("spill_loads")]
-        if len(grouped_ptxas) != 4 or spilled:
-            raise RuntimeError(f"grouped kernels: want 4 instantiations and no spills, ptxas reports {grouped_ptxas}")
-        print(f"ptxas fused_expert_mlp: {json.dumps(_cuda_build.ptxas_usage('fused_expert_mlp'))}", flush=True)
+        if len(grouped_ptxas) != 6 or spilled:
+            raise RuntimeError(f"grouped kernels: want 6 instantiations and no spills, ptxas reports {grouped_ptxas}")
+        # bwd_act_kernel, bwd_ddb_kernel, bwd_dgub_kernel
+        fused_ptxas = _cuda_build.ptxas_usage("fused_expert_mlp")
+        print(f"ptxas fused_expert_mlp: {json.dumps(fused_ptxas)}", flush=True)
+        spilled = [u for u in fused_ptxas if u.get("spill_stores") or u.get("spill_loads")]
+        if len(fused_ptxas) != 3 or spilled:
+            raise RuntimeError(f"fused kernels: want 3 kernels and no spills, ptxas reports {fused_ptxas}")
 
         # paged_attention_kernel<int8 pool, head dim, query n-tiles a warp, warps a worker>: 18
         paged_ptxas = _cuda_build.ptxas_usage("paged_attention")
@@ -2493,7 +2562,7 @@ def main() -> int:
         phase_gemma_flash_vs_sdpa(torch)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
-                            fused, gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass)
+                            fused, gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

@@ -631,6 +631,28 @@ def test_ptxas_report_is_parsed_per_kernel():
     ]
 
 
+def test_ptxas_names_a_kernel_without_template_arguments():
+    """A kernel that is no template (the fused expert MLP's forward products
+    and its elementwise kernels) is named by its own name, not its mangled
+    one; a name that does not end in ``_kernel`` stays as it is."""
+    log = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114gmm_act_kernelENS_7GmmArgsE14CUtensorMap_stS2_S2_' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes smem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115bwd_dgub_kernelENS_11BwdDgubArgsE' for 'sm_90a'\n"
+        "ptxas info    : Used 64 registers, used 1 barriers, 16384 bytes smem\n"
+        "ptxas info    : Compiling entry function 'fused_expert_mlp_bwd_act' for 'sm_90a'\n"
+        "ptxas info    : Used 12 registers\n"
+    )
+    assert _cuda_build.parse_ptxas(log) == [
+        dict(kernel="gmm_act_kernel", spill_stores=0, spill_loads=0, registers=168),
+        dict(kernel="bwd_dgub_kernel", registers=64),
+        dict(kernel="fused_expert_mlp_bwd_act", registers=12),
+    ]
+
+
 def test_sass_registers_are_read_per_kernel():
     """``parse_sass_registers`` reads the highest register a kernel's code
     names (the consumers' count after setmaxnreg, which ptxas's report at
@@ -1030,15 +1052,16 @@ FEM_CASES = [
 def test_fused_expert_mlp_kernels_match_plain(M, D, I, sizes, act, limit, biased, scale):
     """fwd (both launches), bwd_gu, bwd_dwd, bwd_dx and bwd_act against
     their plain versions on the card, each wrapper counted once a call
-    (bwd_act three times: once alone, once inside bwd_dwd and bwd_dx each);
-    rows past the groups zero."""
+    (bwd_act four times: once alone, once inside bwd_gu, bwd_dwd and bwd_dx
+    each); rows past the groups zero. I = 1000 ends the gate_up product's
+    last gate boxes past I, I = 64 reads no second gate box at all."""
     _need_cuda("fused_expert_mlp")
     c = fem_case(torch.device("cuda"), M, D, I, sizes, biased=biased, scale=scale)
     kernels = (tfem.fwd, tfem.bwd_gu, tfem.bwd_dwd, tfem.bwd_dx, tfem.bwd_act)
     before = [f.launches for f in kernels]
     got = fem_all(c, act, limit)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(kernels, before)] == [1, 1, 1, 1, 3]
+    assert [f.launches - n for f, n in zip(kernels, before)] == [1, 1, 1, 1, 4]
     want = fem_all(c, act, limit, plain=True)
     assert all(bool(torch.isfinite(t.float()).all()) for t in got if t is not None)
     n = sum(sizes)
@@ -1122,6 +1145,81 @@ def test_fused_expert_mlp_backward_repeats_bit_for_bit(biased):
         bf16, ddb = tfem.bwd_dwd(gu, c["dy"], c["gs"], "swiglu_oai", None, biased, out_dtype=torch.bfloat16, **kw)
         assert bf16.dtype == torch.bfloat16 and torch.equal(bf16, fp32.to(torch.bfloat16))
         assert (ddb is None) == (not biased)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,I,sizes", [(1000, 1000, 1000, [0, 333, 1, 500, 100]), (300, 64, 64, [0, 50, 0, 78, 0]),
+                                         (2048, 2880, 2880, [0, 700, 1, 1200])])
+def test_fused_expert_mlp_forward_repeats_bit_for_bit(M, D, I, sizes):
+    """Two launches of the forward (the gate_up product with the activation
+    in its epilogue, then the down product with the row bias) give the same
+    bits, with and without biases; the mid of the first launch equals the
+    plain activation of the plain product within FEM_ROW_TOL a row."""
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), M, D, I, sizes)
+    args = [c[k] for k in ("lhs", "gate_up", "down", "gs")]
+    for gub, db in ((c["gate_up_bias"], c["down_bias"]), (None, None)):
+        first = tfem.fwd(*args, gub, db, "swiglu_oai")
+        assert torch.equal(first, tfem.fwd(*args, gub, db, "swiglu_oai"))
+    plan = tgm.gmm_plan(c["gs"], M)
+    mid = tfem._launch_fwd_gu_act(c["lhs"], c["gate_up"], c["gate_up_bias"], plan, tfem._ends(c["gs"]), "swiglu_oai",
+                                  None)
+    gu = tfem.add_row_bias(tgm._gmm_plain(c["lhs"], c["gate_up"], c["gs"]).float(), c["gate_up_bias"].float(),
+                           c["gs"])
+    want = tfem._act_core(gu[:, :I], gu[:, I:], "swiglu_oai", None)
+    n = sum(sizes)
+    assert bool((mid[n:] == 0).all()) and row_rel_err(mid[:n], want[:n]) <= FEM_ROW_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,I,sizes", [(2048, 256, 384, ragged_sizes(2048, 8, seed=7)),
+                                         (1000, 1000, 1000, [0, 333, 1, 500, 100])])
+def test_bwd_gu_bf16_out_is_its_fp32_out_rounded(M, D, I, sizes):
+    """bwd_gu written in bf16 (the backward's weight grad, dg | du given as
+    the backward gives it, and computed inside) equals its fp32 output cast
+    to bf16, bit for bit: one sum, rounded once; the bias grads are the
+    same fp32 bits either way and repeat exactly."""
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), M, D, I, sizes)
+    gs = c["gs"]
+    gu = tfem.add_row_bias(tgm.gmm(c["lhs"], c["gate_up"], gs), c["gate_up_bias"], gs)
+    dmid = tgm.gmm(c["dy"], c["down"], gs, transpose_rhs=True)
+    fp32, db32 = tfem.bwd_gu(c["lhs"], gu, dmid, gs, "swiglu_oai", None, True)
+    _, dgdu = tfem.bwd_act(gu, dmid, gs, "swiglu_oai", want_mid=False)
+    for kw in (dict(), dict(dgdu=dgdu)):
+        bf16, db = tfem.bwd_gu(c["lhs"], gu, dmid, gs, "swiglu_oai", None, True, out_dtype=torch.bfloat16, **kw)
+        assert bf16.dtype == torch.bfloat16 and torch.equal(bf16, fp32.to(torch.bfloat16)) and torch.equal(db, db32)
+
+
+@pytest.mark.cuda
+def test_fused_expert_mlp_entry_points_refuse_what_they_do_not_take():
+    """K3a's and K3b's C entry points return the unsupported-shape code for
+    D or I not a multiple of 8 and an unknown act_kind, before any launch;
+    the wrappers refuse a dtype the kernels do not take."""
+    _need_cuda("fused_expert_mlp")
+    c = fem_case(torch.device("cuda"), 64, 32, 40, [30, 34])
+    plan, ends = tgm.gmm_plan(c["gs"], 64), tfem._ends(c["gs"])
+    out = torch.empty(64, 40, dtype=torch.bfloat16, device="cuda")
+    lib, flib, s = tgm._lib(), tfem._lib(), tfem._stream(c["lhs"])
+    W = plan.shape[1]
+    p = lambda t: t.data_ptr()  # noqa: E731
+    act = lambda D, I, kind: lib.grouped_matmul_gmm_act(  # noqa: E731
+        p(c["lhs"]), p(c["gate_up"]), None, p(plan), p(ends), p(out), 64, D, I, 2, W, 1, kind, 0.0, s)
+    bias = lambda K, N: lib.grouped_matmul_gmm_bias(  # noqa: E731
+        p(c["lhs"]), p(c["down"]), None, p(plan), p(ends), p(out), 64, K, N, 2, W, 1, s)
+    dgub = lambda I, kind: flib.fused_expert_mlp_bwd_dgub(  # noqa: E731
+        p(out), p(out), p(ends), p(out), 64, I, 2, kind, 0.0, s)
+    for rc in (act(30, 40, 1), act(32, 36, 1), act(32, 40, 2), bias(36, 32), bias(40, 30), dgub(36, 1), dgub(40, 2)):
+        assert rc == 100001
+    torch.cuda.synchronize()
+    gu = torch.zeros(64, 80, dtype=torch.bfloat16, device="cuda")
+    dmid = torch.zeros(64, 40, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfem.bwd_gu(c["lhs"], gu, dmid, c["gs"], dgdu=gu.float())
+    with pytest.raises(ValueError, match="writes"):
+        tfem.bwd_gu(c["lhs"], gu, dmid, c["gs"], out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfem.fwd(c["lhs"], c["gate_up"], c["down"], c["gs"], c["gate_up_bias"].float())
 
 
 @pytest.mark.cuda

@@ -350,3 +350,120 @@ def test_bwd_dwd_bf16_out_is_the_fp32_sum_rounded_once():
         assert fp32.dtype == torch.float32 and bf16.dtype == torch.bfloat16 and ddb.dtype == torch.float32
         assert torch.equal(bf16, fp32.to(torch.bfloat16)) and torch.equal(ddb, ddb32)
         assert bool((bf16[1] == 0).all()) and float(bf16.float().abs().max()) > 0
+
+
+def _bwd_gu_inputs(dtype, M=160, D=64, I=48, sizes=(60, 0, 70), seed=21):
+    """lhs [M, D], gu [M, 2I], dmid [M, I] from a seed (g and u spread past
+    swiglu_oai's clamps) and the int32 group sizes; rows past the groups
+    hold NaN in every operand, which no version may read."""
+    rng = np.random.default_rng(seed)
+    lhs = rng.normal(size=(M, D)).astype(np.float32)
+    gu = rng.normal(size=(M, 2 * I)).astype(np.float32) * 3.0
+    dmid = rng.normal(size=(M, I)).astype(np.float32)
+    n = sum(sizes)
+    for t in (lhs, gu, dmid):
+        t[n:] = np.nan
+    return (*(torch.from_numpy(t).to(dtype) for t in (lhs, gu, dmid)), torch.tensor(sizes, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("act,limit", ACTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_gu_with_dgdu_given_equals_it_from_gu_and_dmid(act, limit, dtype):
+    """``bwd_gu`` given the elementwise pass's dg | du (as the backward
+    calls it) is bit for bit ``bwd_gu`` computing it from gu and dmid, the
+    weight grad and the bias grads alike, through the wrapper and the plain
+    version; a NaN tail past the groups reaches neither."""
+    lhs, gu, dmid, gs = _bwd_gu_inputs(dtype)
+    _, dgdu = tfem._bwd_act_plain(gu, dmid, gs, act, limit, want_mid=False)
+    want = tfem._bwd_gu_plain(lhs, gu, dmid, gs, act, limit, want_bias=True)
+    for got in (tfem._bwd_gu_plain(lhs, gu, dmid, gs, act, limit, want_bias=True, dgdu=dgdu),
+                tfem.bwd_gu(lhs, gu, dmid, gs, act, limit, True, dgdu=dgdu)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert want[0].dtype == want[1].dtype == torch.float32
+    assert bool(torch.isfinite(want[0]).all()) and bool(torch.isfinite(want[1]).all())
+    assert bool((want[0][1] == 0).all()) and bool((want[1][1] == 0).all())  # the empty group
+
+
+def test_bwd_gu_bf16_out_is_the_fp32_sum_rounded_once():
+    """In bf16, as on the card: ``bwd_gu(out_dtype=bf16)`` (the weight grad
+    the backward takes) equals its fp32 result rounded once, bit for bit,
+    with dg | du computed inside and given; the bias grads stay fp32 and
+    equal."""
+    lhs, gu, dmid, gs = _bwd_gu_inputs(torch.bfloat16)
+    fp32, db32 = tfem.bwd_gu(lhs, gu, dmid, gs, "swiglu_oai", None, True)
+    _, dgdu = tfem.bwd_act(gu, dmid, gs, "swiglu_oai", want_mid=False)
+    for kw in (dict(), dict(dgdu=dgdu)):
+        bf16, db = tfem.bwd_gu(lhs, gu, dmid, gs, "swiglu_oai", None, True, out_dtype=torch.bfloat16, **kw)
+        assert fp32.dtype == torch.float32 and bf16.dtype == torch.bfloat16 and db.dtype == torch.float32
+        assert torch.equal(bf16, fp32.to(torch.bfloat16)) and torch.equal(db, db32)
+        assert bool((bf16[1] == 0).all()) and float(bf16.float().abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", ["oai_empty_first_biased", "swiglu_limit_biased"])
+def test_bwd_gu_bf16_out_matches_jax_bwd_gu_cast_to_bf16(case):
+    """The backward's weight grad: the port's bf16 ``bwd_gu`` output against
+    JAX's interpreted ``_bwd_gu`` cast with ``.astype(bf16)`` on the same
+    fp32 (lhs, g, u, dmid): the two fp32 sums differ only in order (within
+    the 2e-4 that ``test_plain_versions_match_the_pallas_kernels`` holds
+    them to, which is all of an element that cancels to near 0), so each
+    element is within one bf16 step of JAX's plus 2e-4 and at least 99%
+    are equal; the bias grads, fp32 in both, within 2e-4."""
+    act, limit, biased, sizes = CASES[case]
+    c = _case(0, 128, 96, 80, sizes, biased)
+    rng = np.random.default_rng(1)
+    g, u, dmid = (rng.normal(size=(128, 80)).astype(np.float32) * 2 for _ in range(3))
+    dwg, dwu, dgb, dub = jfem._bwd_gu(_j(c["lhs"]), _j(g), _j(u), _j(dmid), jnp.asarray(c["gs"]), act, limit, True,
+                                      biased)
+    want = torch.from_numpy(np.concatenate([np.asarray(dwg.astype(jnp.bfloat16).astype(jnp.float32)),
+                                            np.asarray(dwu.astype(jnp.bfloat16).astype(jnp.float32))], -1))
+    gu = torch.from_numpy(np.concatenate([g, u], -1))
+    dw, dbias = tfem.bwd_gu(_t(c["lhs"]), gu, _t(dmid), torch.from_numpy(c["gs"]), act, limit, biased,
+                            out_dtype=torch.bfloat16)
+    assert dw.dtype == torch.bfloat16
+    assert bool(((dw.float() - want).abs() <= want.abs() * 2.0**-7 + 2e-4).all())
+    assert float((dw.float() == want).float().mean()) >= 0.99
+    np.testing.assert_allclose(dbias.numpy(), np.concatenate([np.asarray(dgb), np.asarray(dub)], -1), atol=2e-4)
+
+
+# the limits chip_smoke.py's phase 12 and tests/test_torch_cuda_kernels.py
+# hold the fused expert-MLP kernels to: out per row, bias grads per expert row
+FEM_ROW_TOL = 2.0**-7
+FEM_BIAS_ROW_TOL = 2.0**-12
+
+
+def _row_rel_err(out, ref) -> float:
+    d = (out.float() - ref.float()).norm(dim=-1)
+    return float((d / ref.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("fault", ["gate_j_with_up_j_plus_8", "bias_sums_of_rounded_grads"])
+def test_row_checks_see_the_epilogue_and_bias_sum_faults(fault):
+    """On the CPU, in bf16 as on the card, at gpt-oss-20b's init scales and
+    routing shape (8 experts, ~256 rows each, swiglu_oai with biases): the
+    two mistakes the new kernels could make move the worst row past 4x the
+    card's limits. The gate_up epilogue pairing gate column j with up
+    column j + 8 (the next n8 chunk of the accumulator) moves ``out``; the
+    bias grads summed from the bf16-rounded dg | du that ``bwd_act`` writes,
+    instead of the unrounded fp32 values, move ``dbias``."""
+    M, D, I, G = 2048, 128, 128, 8
+    g = torch.Generator().manual_seed(3)
+    r = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    bf = torch.bfloat16
+    lhs, gate_up, down = r(M, D).to(bf), (r(G, D, 2 * I) / D**0.5).to(bf), (r(G, I, D) / I**0.5).to(bf)
+    gub, db = (r(G, 2 * I) * 0.5).to(bf), (r(G, D) * 0.5).to(bf)
+    cuts = torch.sort(torch.randint(1, M, (G - 1,), generator=g)).values
+    gs = torch.diff(torch.cat([torch.tensor([0]), cuts, torch.tensor([M])])).to(torch.int32)
+    if fault == "gate_j_with_up_j_plus_8":
+        right = tfem._fwd_plain(lhs, gate_up, down, gs, gub, db, "swiglu_oai")
+        shifted = gate_up.clone()
+        shifted[..., I:] = torch.roll(gate_up[..., I:], -8, dims=-1)  # up column j + 8 beside gate column j
+        wrong = tfem._fwd_plain(lhs, shifted, down, gs, gub, db, "swiglu_oai")
+        assert _row_rel_err(wrong, right) > 4 * FEM_ROW_TOL
+    else:
+        dy = r(M, D).to(bf)
+        gu = tfem.add_row_bias(tfem._gmm_plain(lhs, gate_up, gs), gub, gs)
+        dmid = tfem._gmm_plain(dy, down, gs, transpose_rhs=True)
+        _, right = tfem._bwd_gu_plain(lhs, gu, dmid, gs, "swiglu_oai", None, want_bias=True)
+        _, dgdu = tfem._bwd_act_plain(gu, dmid, gs, "swiglu_oai", want_mid=False)
+        wrong = torch.stack([dgdu[s:e].float().sum(dim=0) for s, e in tfem._bounds(gs, M)])
+        assert _row_rel_err(wrong, right) > 4 * FEM_BIAS_ROW_TOL
