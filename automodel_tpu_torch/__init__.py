@@ -9,7 +9,9 @@ Ported so far, for the llama family: the serving path (``serve``), with the
 paged-attention decode kernel (``csrc/paged_attention.cu``), and the SFT
 training path (``finetune llm``, ``pretrain llm``), with the flash-attention
 forward and backward kernels (``csrc/flash_attention.cu``); both kernels
-are CUDA C++ for Hopper. Entry points run on CUDA unless the caller asks
+are CUDA C++ for Hopper. Checkpoints and HF weights go in and out through
+``checkpoint/`` (``from_pretrained``, DCP training states with resume,
+consolidated HF saves, ``verify-ckpt``). Entry points run on CUDA unless the caller asks
 for the CPU (``device: cpu``); there is no silent CPU fallback.
 """
 

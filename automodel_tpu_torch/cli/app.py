@@ -2,12 +2,16 @@
 
     python -m automodel_tpu_torch.cli.app serve -c cfg.yaml [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml [--dotted.key=value ...]
+    python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]
 
 ``serve`` runs the stdin-JSONL serving front (serving/server.py);
 ``finetune llm`` and ``pretrain llm`` run the training recipe
 (recipes/train_ft.py), as ``automodel_tpu/cli/app.py:184-185`` routes them.
-Both run on the config's ``device`` (``cuda`` unless ``--device=cpu``). The
-JAX package's other commands are not ported yet; each exits 2 saying so.
+Both run on the config's ``device`` (``cuda`` unless ``--device=cpu``).
+``verify-ckpt`` audits a checkpoint tree's manifests without loading a
+tensor (checkpoint/verify.py; exit 0 resumable, 1 corrupt, 2 usage), as
+``automodel_tpu/cli/app.py:81-86`` routes it. The JAX package's other
+commands are not ported yet; each exits 2 saying so.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from automodel_tpu_torch.config.arg_parser import parse_args_and_load_config
 TRAIN_COMMANDS = ("finetune", "pretrain")
 NOT_PORTED = (
     "kd", "dpo", "grpo", "benchmark", "mine", "generate",
-    "route", "fleet-status", "profile", "report", "goodput", "trace", "verify-ckpt",
+    "route", "fleet-status", "profile", "report", "goodput", "trace",
 )
 
 
@@ -29,7 +33,8 @@ def _usage() -> str:
         "[--device=cpu] [--dotted.key=value ...]  (stdin JSONL in, one JSON "
         "line per finished request out)\n"
         "       python -m automodel_tpu_torch.cli.app {finetune|pretrain} llm -c config.yaml "
-        "[--device=cpu] [--dotted.key=value ...]"
+        "[--device=cpu] [--dotted.key=value ...]\n"
+        "       python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]"
     )
 
 
@@ -48,6 +53,10 @@ def main(argv: list[str] | None = None) -> int:
         print(_usage())
         return 0 if argv else 2
     command = argv[0]
+    if command == "verify-ckpt":
+        from automodel_tpu_torch.checkpoint.verify import main as verify_main
+
+        return verify_main(argv[1:])
     if command == "serve":
         from automodel_tpu_torch.serving.server import main as serve_main
 

@@ -1,7 +1,8 @@
 """The ``generation:`` config section and the model builder the ``serve``
 CLI uses.
 
-Port of ``GenerationConfig`` (:44) and ``build_auto_from_cfg`` (:342) of
+Port of ``GenerationConfig`` (:44), ``build_auto_from_model_section``
+(:315) and ``build_auto_from_cfg`` (:342) of
 ``automodel_tpu/generation/engine.py``. The single-wave
 ``GenerationEngine`` is not ported yet.
 """
@@ -65,24 +66,24 @@ def model_max_positions(mcfg: Any) -> Optional[int]:
 
 
 def build_auto_from_model_section(mcfg: Any, device: Any, seed: int = 0, trainable: bool = False) -> Any:
-    """AutoModel from a ``model:``-shaped section (``hf_config`` +
-    ``backend``) on ``device``; ``trainable`` for the finetune recipe."""
+    """AutoModel from a ``model:``-shaped section on ``device``:
+    ``pretrained_model_name_or_path`` (a local HF checkpoint directory) or
+    ``hf_config`` (random weights from ``seed``), with ``backend``;
+    ``trainable`` for the finetune recipe."""
     from automodel_tpu_torch import auto_model
 
     get = mcfg.get if hasattr(mcfg, "get") else dict(mcfg).get
+    backend = get("backend", {}) or {}
+    backend = backend.to_dict() if hasattr(backend, "to_dict") else dict(backend)
     if get("pretrained_model_name_or_path"):
-        raise ValueError(
-            "model.pretrained_model_name_or_path: loading checkpoints is not "
-            "ported to the torch backend yet; give model.hf_config (random "
-            "weights from the seed)"
+        return auto_model.from_pretrained(
+            get("pretrained_model_name_or_path"), backend, device=device, trainable=trainable
         )
     hf = get("hf_config")
     if hf is None:
-        raise ValueError("model section needs hf_config")
-    backend = get("backend", {}) or {}
+        raise ValueError("model section needs pretrained_model_name_or_path or hf_config")
     return auto_model.from_config(
-        hf.to_dict() if hasattr(hf, "to_dict") else dict(hf),
-        backend.to_dict() if hasattr(backend, "to_dict") else dict(backend),
+        hf.to_dict() if hasattr(hf, "to_dict") else dict(hf), backend,
         device=device, seed=seed, trainable=trainable,
     )
 

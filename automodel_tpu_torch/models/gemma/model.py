@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+from automodel_tpu_torch.models.gemma.state_dict_adapter import GemmaStateDictAdapter
 from automodel_tpu_torch.models.llama.model import ACT_FNS, _linear, _proj
 from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.norms import rms_norm_gemma
@@ -150,6 +151,7 @@ class GemmaForCausalLM(nn.Module):
     carried checkpoint. Parameters require grad when built ``trainable``."""
 
     supports_kv_cache = False
+    state_dict_adapter = GemmaStateDictAdapter  # the HF key map
 
     def __init__(
         self,

@@ -1,7 +1,12 @@
-"""Weight carry from the JAX package's Gemma param tree
-(``automodel_tpu/models/gemma/model.py`` init_params) to the port's state
-dict. Every per-layer leaf is stacked over the layers (``layers/...``,
-leading layer axis):
+"""Gemma's weight maps: HF keys both ways (``GemmaStateDictAdapter``, port
+of ``automodel_tpu/models/gemma/state_dict_adapter.py``; the port's names
+are HF's, the sandwich norms and Gemma 3's q/k norms among them, and the
+tied lm_head is not saved) and the carry from the JAX package's param tree
+(``params_from_jax``).
+
+The JAX carry (``automodel_tpu/models/gemma/model.py`` init_params): every
+per-layer leaf is stacked over the layers (``layers/...``, leading layer
+axis):
 
 - ``embed/embedding`` and ``final_norm/scale`` → ``model.embed_tokens`` and
   ``model.norm``; ``lm_head/kernel`` (transposed) only when untied;
@@ -18,7 +23,12 @@ from __future__ import annotations
 
 import torch
 
-from automodel_tpu_torch.models.llama.state_dict_adapter import _Taker, carry_ends, carry_stack
+from automodel_tpu_torch.models.llama.state_dict_adapter import (
+    LlamaStateDictAdapter,
+    _Taker,
+    carry_ends,
+    carry_stack,
+)
 
 # the sandwich norms llama's carry does not have
 _SANDWICH = {"pre_ffn_norm": "pre_feedforward_layernorm", "post_ffn_norm": "post_feedforward_layernorm"}
@@ -37,3 +47,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             sd[f"model.layers.{i}.{hf}.weight"] = scale[i].contiguous()
     take.check_all_taken("gemma params_from_jax")
     return sd
+
+
+class GemmaStateDictAdapter(LlamaStateDictAdapter):
+    """The identity map over Gemma's state dict (Gemma 2 and Gemma 3 text)."""

@@ -35,6 +35,7 @@ from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
 from automodel_tpu_torch.models.llama.model import LlamaAttention, RMSNorm
+from automodel_tpu_torch.models.gpt_oss.state_dict_adapter import GptOssStateDictAdapter
 from automodel_tpu_torch.models.qwen3_moe.model import MoEForCausalLM
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.layer import MoEBlock
@@ -99,6 +100,12 @@ class GptOssForCausalLM(MoEForCausalLM):
     embeddings ``N(0,1) * 0.02``) and zeroes every bias and sink."""
 
     layer_cls = GptOssDecoderLayer
+    state_dict_adapter = GptOssStateDictAdapter  # the HF key map
+    # the layout contract of gate_up, versioned as the JAX model's
+    # (automodel_tpu/models/gpt_oss/model.py:231): contiguous g | u halves,
+    # not HF's interleave. The checkpointer stamps it on save and refuses a
+    # native restore whose stamp lacks or differs from it.
+    native_layout_markers = {"gpt_oss_gate_up": "contiguous_v1"}
 
     def __init__(
         self,

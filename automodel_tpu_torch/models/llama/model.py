@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+from automodel_tpu_torch.models.llama.state_dict_adapter import LlamaStateDictAdapter
 from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.rope import apply_rope, rope_table
@@ -174,6 +175,7 @@ class LlamaForCausalLM(nn.Module):
     built ``trainable`` (the finetune recipe); serving builds it frozen."""
 
     supports_kv_cache = True
+    state_dict_adapter = LlamaStateDictAdapter  # the HF key map
 
     def __init__(
         self,

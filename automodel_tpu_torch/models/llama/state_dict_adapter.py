@@ -1,5 +1,12 @@
-"""Weight carry from the JAX package's Llama param tree to the port's
-state dict.
+"""The Llama family's weight maps: HF safetensors keys both ways
+(``LlamaStateDictAdapter``, port of ``automodel_tpu/models/llama/
+state_dict_adapter.py``), and the carry from the JAX package's param tree
+(``params_from_jax``).
+
+The port's parameter names are HF's, so the HF map is the identity over
+the model's state dict; an lm_head tied to the embedding is no parameter
+and is not saved, as in the JAX package. The families with other layouts
+subclass the adapter and override ``_plan`` for their keys.
 
 The JAX tree (``automodel_tpu/models/llama/model.py`` init_params) stacks
 per-layer leaves on a leading layer axis and stores projection kernels
@@ -13,7 +20,8 @@ tests compare grads key by key.
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -118,3 +126,64 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     carry_stack(sd, take, "layers")
     take.check_all_taken("params_from_jax")
     return sd
+
+
+Getter = Callable[[str], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How one tensor of the port's state dict maps onto HF keys: ``load``
+    builds it from a key getter (a tensor, or a ``LazyStacked`` of rows);
+    ``save`` yields its (HF key, tensor) pairs."""
+
+    key: str
+    hf_keys: tuple[str, ...]
+    load: Callable[[Getter], Any]
+    save: Callable[[torch.Tensor], Iterator[tuple[str, torch.Tensor]]]
+
+
+def identity_plan(key: str, hf_key: str | None = None) -> LeafPlan:
+    hf_key = hf_key or key
+
+    def save(t: torch.Tensor):
+        yield hf_key, t
+
+    return LeafPlan(key, (hf_key,), lambda get: get(hf_key), save)
+
+
+class LlamaStateDictAdapter:
+    """HF ⇄ port key plan over a built model's state dict (parameters and
+    persistent buffers); the model is read for its keys and shapes only."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+    def _plan(self, key: str, shape: tuple[int, ...]) -> LeafPlan:
+        return identity_plan(key)
+
+    def leaf_plans(self) -> list[LeafPlan]:
+        return [self._plan(k, s) for k, s in self.shapes.items()]
+
+    # -- load ---------------------------------------------------------------
+    def iter_from_hf(self, get_tensor: Getter) -> Iterator[tuple[str, Any]]:
+        """(port key, tensor or ``LazyStacked``) one leaf at a time, so the
+        loader copies each into the model as it is built."""
+        for plan in self.leaf_plans():
+            yield plan.key, plan.load(get_tensor)
+
+    def from_hf(self, get_tensor: Getter) -> dict[str, torch.Tensor]:
+        """The whole state dict at once (the non-streaming convenience)."""
+        from automodel_tpu_torch.checkpoint.hf_io import assemble
+
+        return assemble(self.iter_from_hf(get_tensor))
+
+    # -- save ---------------------------------------------------------------
+    def to_hf(self, state_dict: dict[str, torch.Tensor]) -> Iterator[tuple[str, torch.Tensor]]:
+        """(HF key, tensor) pairs from the port's state dict, in plan order,
+        on the tensors' device (the writer moves each to the host)."""
+        for plan in self.leaf_plans():
+            yield from plan.save(state_dict[plan.key])
+
+    def hf_keys(self) -> list[str]:
+        return [k for plan in self.leaf_plans() for k in plan.hf_keys]

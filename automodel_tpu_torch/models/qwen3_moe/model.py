@@ -39,6 +39,7 @@ from automodel_tpu_torch.models.llama.model import (
     _proj,
     attention_block,
 )
+from automodel_tpu_torch.models.qwen3_moe.state_dict_adapter import MoEStateDictAdapter
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.experts import expert_backend
 from automodel_tpu_torch.moe.gate import update_gate_bias
@@ -119,6 +120,7 @@ class MoEForCausalLM(nn.Module):
 
     supports_kv_cache = False
     layer_cls: type = MoEDecoderLayer
+    state_dict_adapter = MoEStateDictAdapter  # the HF key map
 
     def __init__(
         self,

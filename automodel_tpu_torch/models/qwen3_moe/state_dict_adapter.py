@@ -1,5 +1,16 @@
-"""Weight carry from the JAX package's MoE param tree to the port's state
-dict.
+"""The MoE family's weight maps: HF keys both ways (``MoEStateDictAdapter``,
+port of ``automodel_tpu/models/qwen3_moe/state_dict_adapter.py``) and the
+carry from the JAX package's param tree (``params_from_jax``).
+
+HF stores each expert as its own Linears,
+``mlp.experts.{j}.{gate,up,down}_proj.weight`` ([I, D], [I, D], [D, I]);
+the port stacks them into slabs, ``mlp.experts.gate_up`` [E, D, 2I] (gate
+columns, then up) and ``mlp.experts.down`` [E, I, D], which load expert by
+expert (``LazyStacked``) and save back per expert. The aux-free router's
+selection bias (the ``mlp.gate.bias`` buffer) is HF's
+``mlp.gate.e_score_correction_bias``. Every other key is HF's own.
+
+The JAX carry:
 
 The JAX tree (``automodel_tpu/models/qwen3_moe/model.py`` init_params)
 keeps an optional ``dense_layers`` stack (the dense prefix) and a
@@ -23,9 +34,18 @@ gradient in the port).
 
 from __future__ import annotations
 
+import re
+
 import torch
 
-from automodel_tpu_torch.models.llama.state_dict_adapter import _Taker, carry_ends, carry_stack
+from automodel_tpu_torch.models.llama.state_dict_adapter import (
+    LeafPlan,
+    LlamaStateDictAdapter,
+    _Taker,
+    carry_ends,
+    carry_stack,
+    identity_plan,
+)
 
 _SHARED = ("gate_proj", "up_proj", "down_proj")
 
@@ -63,3 +83,42 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     carry_moe(sd, take, "moe_layers", nm, offset=nd)
     take.check_all_taken("qwen3_moe params_from_jax")
     return sd
+
+
+_SLAB = re.compile(r"^(?P<p>.*\.mlp\.experts\.)(?P<name>gate_up|down)$")
+_ROUTER_BIAS = re.compile(r"^(?P<p>.*\.mlp\.gate\.)bias$")
+
+
+def _expert_slab_plan(key: str, prefix: str, name: str, num_experts: int) -> LeafPlan:
+    """A [E, ...] slab over per-expert HF Linears, loaded expert by expert."""
+    from automodel_tpu_torch.checkpoint.hf_io import LazyStacked
+
+    proj = ("gate_proj", "up_proj") if name == "gate_up" else ("down_proj",)
+    hf = {j: tuple(f"{prefix}{j}.{p}.weight" for p in proj) for j in range(num_experts)}
+
+    def load(get):
+        # row j: the [in, out] kernels of expert j side by side (gate | up)
+        return LazyStacked([
+            (lambda j=j: torch.cat([get(k).t() for k in hf[j]], dim=-1)) for j in range(num_experts)
+        ])
+
+    def save(t):
+        for j in range(num_experts):
+            for k, part in zip(hf[j], t[j].chunk(len(hf[j]), dim=-1)):
+                yield k, part.t().contiguous()
+
+    return LeafPlan(key, tuple(k for j in range(num_experts) for k in hf[j]), load, save)
+
+
+class MoEStateDictAdapter(LlamaStateDictAdapter):
+    """Per-expert HF Linears ⇄ the port's expert slabs; the router's
+    selection bias under its HF name."""
+
+    def _plan(self, key: str, shape: tuple[int, ...]) -> LeafPlan:
+        m = _SLAB.match(key)
+        if m:
+            return _expert_slab_plan(key, m["p"], m["name"], shape[0])
+        m = _ROUTER_BIAS.match(key)
+        if m:
+            return identity_plan(key, f"{m['p']}e_score_correction_bias")
+        return identity_plan(key)

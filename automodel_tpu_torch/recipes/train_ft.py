@@ -1,15 +1,29 @@
 """LLM finetune / pretrain recipe, port of the core of
 ``TrainFinetuneRecipeForNextTokenPrediction`` in
-``automodel_tpu/recipes/train_ft.py`` (setup :74, loop :1109).
+``automodel_tpu/recipes/train_ft.py`` (setup :74, loop :1109, checkpoint
+save and restore :785-864, ``run_validation`` :1389).
 
     python -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml [--device=cpu]
 
 Sections read: ``seed``, ``device`` (``cuda`` unless ``cpu``), ``model``
-(``hf_config`` + ``backend``, random weights from the seed), ``dataset``
-(``MockSFTDataset``), ``dataloader``, ``step_scheduler``, ``optimizer``,
-``loss_fn``, ``logging.metrics_path`` (default
-``<output_dir>/train_metrics.jsonl``), ``fault_tolerance.on_nonfinite``
-(``raise`` | ``skip``). One log record per ``log_every_steps`` carries
+(``hf_config`` + ``backend``, random weights from the seed, or
+``pretrained_model_name_or_path``, a local HF directory), ``dataset``
+(``MockSFTDataset``), ``dataloader``, ``validation_dataset`` and
+``validation_dataloader`` (default: ``dataloader``), ``step_scheduler``
+(``ckpt_every_steps`` and ``val_every_steps`` among its keys),
+``optimizer``, ``loss_fn``, ``checkpoint``, ``logging.metrics_path``
+(default ``<output_dir>/train_metrics.jsonl``),
+``fault_tolerance.on_nonfinite`` (``raise`` | ``skip``).
+
+With ``checkpoint.enabled`` the run resumes at setup from the newest
+committed step dir of ``checkpoint_dir`` (or bootstraps from
+``restore_from`` when there is none) and logs ``{"event": "resume",
+"resumed_from_step": N}``; it saves every ``ckpt_every_steps`` and at the
+end of the loop (unless the last step was just saved), and a save after a
+validation that beat ``BEST.json`` marks its dir best. Validation runs
+every ``val_every_steps`` and logs ``val_loss`` and ``val_tokens``.
+
+One log record per ``log_every_steps`` carries
 ``loss``, ``grad_norm``, ``lr``, ``num_label_tokens``, ``step``,
 ``step_time_s`` and ``tps``; an MoE model's steps add ``moe_aux_loss``,
 ``expert_load_imbalance`` and ``expert_load_imbalance_per_layer`` (a JSON
@@ -17,10 +31,10 @@ array), and its ``post_step_fn`` (aux-free router-bias balancing) runs
 after each applied update.
 
 Sections the port does not run are refused with a ``ValueError`` naming
-them, never ignored: ``checkpoint`` when enabled, ``peft``, ``qat``,
-``telemetry``, ``profiling``, ``distributed_guard``, ``metrics_server``,
-``data`` (prefetch), ``generation``, ``validation_dataset``, any other
-``fault_tolerance`` key, and any ``distributed`` degree other than 1.
+them, never ignored: ``peft``, ``qat``, ``telemetry``, ``profiling``,
+``distributed_guard``, ``metrics_server``, ``data`` (prefetch),
+``generation``, ``fault_injection``, any other ``fault_tolerance`` key,
+and any ``distributed`` degree other than 1.
 """
 
 from __future__ import annotations
@@ -28,11 +42,12 @@ from __future__ import annotations
 import logging
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from automodel_tpu_torch.checkpoint.checkpointer import Checkpointer, CheckpointingConfig
 from automodel_tpu_torch.data.collators import stack_microbatches
 from automodel_tpu_torch.data.loader import DataLoader
 from automodel_tpu_torch.data.sft import MockSFTDataset
@@ -41,16 +56,18 @@ from automodel_tpu_torch.generation.engine import build_auto_from_model_section
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.optim.builders import build_optimizer
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
+from automodel_tpu_torch.resilience.manifest import step_dir_key
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.training.train_state import TrainState
-from automodel_tpu_torch.training.train_step import build_train_step, make_causal_lm_loss
+from automodel_tpu_torch.training.train_step import build_eval_step, build_train_step, make_causal_lm_loss
 
 logger = logging.getLogger(__name__)
 
 # top-level sections the recipe reads; every other one is refused
 READ_SECTIONS = (
-    "seed", "device", "output_dir", "model", "dataset", "dataloader", "step_scheduler",
-    "optimizer", "loss_fn", "logging", "checkpoint", "fault_tolerance", "distributed",
+    "seed", "device", "output_dir", "model", "dataset", "dataloader", "validation_dataset",
+    "validation_dataloader", "step_scheduler", "optimizer", "loss_fn", "logging", "checkpoint",
+    "fault_tolerance", "distributed",
 )
 DEGREES = ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep")
 DATASETS = {"MockSFTDataset": MockSFTDataset}
@@ -71,9 +88,7 @@ def check_sections(cfg: Any) -> None:
             section = _plain(cfg[name])
             keys = f" ({', '.join(map(str, section))})" if isinstance(section, dict) and section else ""
             _refuse(f"{name}{keys}", f"the {name} section")
-    ckpt = _plain(cfg.get("checkpoint", None)) or {}
-    if ckpt.get("enabled", False):
-        _refuse("checkpoint.enabled", "checkpointing")
+    checkpointing_config(cfg)
     ft = dict(_plain(cfg.get("fault_tolerance", None)) or {})
     if ft.pop("on_nonfinite", "raise") not in ("raise", "skip"):
         _refuse("fault_tolerance.on_nonfinite", "a policy other than raise|skip")
@@ -89,14 +104,27 @@ def check_sections(cfg: Any) -> None:
         _refuse(f"logging ({', '.join(log_cfg)})", "a metrics sink other than the JSONL file")
 
 
-def build_dataset(section: Any) -> Any:
-    """The ``dataset:`` section: ``_target_`` naming ``MockSFTDataset`` (of
-    either package) plus its arguments."""
+def checkpointing_config(cfg: Any) -> Optional[CheckpointingConfig]:
+    """The ``checkpoint:`` section → its config when enabled (None when
+    absent or disabled); an unknown key or format raises naming it."""
+    ckpt = dict(_plain(cfg.get("checkpoint", None)) or {})
+    known = set(CheckpointingConfig.__dataclass_fields__)
+    unknown = sorted(set(ckpt) - known)
+    if unknown:
+        raise ValueError(f"checkpoint keys {unknown} are unknown (it takes {sorted(known)})")
+    config = CheckpointingConfig(**ckpt)
+    return config if ckpt.get("enabled", False) else None
+
+
+def build_dataset(section: Any, name: str = "dataset") -> Any:
+    """A dataset section (``dataset:``, ``validation_dataset:``):
+    ``_target_`` naming ``MockSFTDataset`` (of either package) plus its
+    arguments."""
     kw = dict(_plain(section) or {})
     target = str(kw.pop("_target_", ""))
     cls = DATASETS.get(target.rsplit(".", 1)[-1])
     if cls is None:
-        _refuse(f"dataset._target_={target!r}", f"a dataset other than {sorted(DATASETS)}")
+        _refuse(f"{name}._target_={target!r}", f"a dataset other than {sorted(DATASETS)}")
     return cls(**kw)
 
 
@@ -129,11 +157,20 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             post_step_fn=getattr(self.model, "post_step_fn", None),
         )
 
+        self.eval_step = build_eval_step(self.loss_fn)
+
         if cfg.get("dataset", None) is None:
             raise ValueError("A `dataset:` section is required")
         dl = dict(_plain(cfg.get("dataloader", None)) or {})
         dl.pop("_target_", None)
         self.dataloader = DataLoader(build_dataset(cfg.dataset), seed=seed, **dl)
+        self.val_dataloader = None
+        if cfg.get("validation_dataset", None) is not None:
+            vdl = dict(_plain(cfg.get("validation_dataloader", None)) or dl)
+            vdl.pop("_target_", None)
+            self.val_dataloader = DataLoader(
+                build_dataset(cfg.validation_dataset, "validation_dataset"), seed=seed, **vdl
+            )
         scfg = dict(_plain(cfg.get("step_scheduler", None)) or {})
         self.step_scheduler = StepScheduler(dataloader=self.dataloader, **scfg)
 
@@ -141,6 +178,13 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         path = cfg.get("logging.metrics_path", None) or str(out_dir / "train_metrics.jsonl")
         self.metric_logger = MetricLogger(path)
         logger.info("training on %s, metrics to %s", self.device, path)
+
+        ccfg = checkpointing_config(cfg)
+        self.checkpointer = Checkpointer(ccfg) if ccfg is not None else None
+        # the newest validation loss; a save that beats BEST.json marks its dir
+        self._last_val_metric: Optional[float] = None
+        if self.checkpointer is not None and self.checkpointer.has_checkpoint():
+            self._restore()
 
     def _place(self, stacked: dict) -> dict:
         """[A]-stacked numpy batch → tensors on the training device."""
@@ -150,7 +194,78 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             if isinstance(v, np.ndarray)
         }
 
+    # -- checkpoint ---------------------------------------------------------
+    def checkpoint_state(self) -> dict:
+        """The training state a checkpoint holds, as a tree over the live
+        tensors: the model's state dict (parameters and persistent
+        buffers, such as the aux-free router bias), the optimizer's fp32
+        moments keyed by parameter name and its count, and the step."""
+        opt = self.state.optimizer
+        names = [n for n, _ in self.model.named_parameters()]
+        return {
+            "model": self.model.state_dict(),
+            "optim": {"mu": dict(zip(names, opt.mu)), "nu": dict(zip(names, opt.nu)), "count": opt.count},
+            "step": self.state.step,
+        }
+
+    def save_checkpoint(self) -> Path:
+        out = self.checkpointer.save(
+            self.checkpoint_state(),
+            epoch=self.step_scheduler.epoch,
+            step=self.step_scheduler.step,
+            extra_state={
+                "dataloader": self.dataloader.state_dict(),
+                "step_scheduler": self.step_scheduler.state_dict(),
+            },
+            hf_export=(self.auto.adapter, self.model.state_dict()),
+            config_snapshot=_plain(self.cfg),
+            hf_meta={"hf_config": self.auto.hf_config, "source_dir": self.auto.source_dir},
+            layout_markers=getattr(self.model, "native_layout_markers", None),
+        )
+        # only saved checkpoints can be best; BEST.json is re-read, so a
+        # resumed run never clobbers a better earlier best
+        if self._last_val_metric is not None:
+            best = self.checkpointer.best_info()
+            if best is None or self._last_val_metric < float(best["value"]):
+                self.checkpointer.mark_best(out, "val_loss", self._last_val_metric)
+        logger.info("saved checkpoint at step %d", self.step_scheduler.step)
+        return out
+
+    def _restore(self) -> None:
+        state, extra = self.checkpointer.load(
+            self.checkpoint_state(),
+            expected_layout_markers=getattr(self.model, "native_layout_markers", None),
+        )
+        # the tensors were loaded in place; the plain values come back in the tree
+        self.state.optimizer.count = int(state["optim"]["count"])
+        self.state.step = int(state["step"])
+        if "dataloader" in extra:
+            self.dataloader.load_state_dict(extra["dataloader"])
+        if "step_scheduler" in extra:
+            self.step_scheduler.load_state_dict(extra["step_scheduler"])
+        logger.info("restored checkpoint at step %d", self.state.step)
+        # step numbers may go backwards after this marker (a walk-back)
+        self.metric_logger.log({"event": "resume", "resumed_from_step": self.state.step})
+
+    # -- loop ---------------------------------------------------------------
     def run_train_validation_loop(self) -> dict:
+        try:
+            last = self._loop()
+            if self.checkpointer is not None:
+                # drain and commit an in-flight save, then skip the end-of-loop
+                # save when it already covers this step: save() begins by
+                # uncommitting its dir
+                self.checkpointer.wait()
+                latest = self.checkpointer.latest_committed_dir()
+                if latest is None or step_dir_key(latest)[1] != self.step_scheduler.step:
+                    self.save_checkpoint()
+        finally:
+            # always drain and commit an async save, even when the loop died
+            if self.checkpointer is not None:
+                self.checkpointer.close()
+        return last
+
+    def _loop(self) -> dict:
         last: dict = {}
         tokens_window = steps_window = 0
         first = True
@@ -165,25 +280,46 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 )
             tokens_window += int(stacked["input_ids"].size)
             steps_window += 1
-            if not (first or self.step_scheduler.is_log_step):
-                continue
-            rec = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
-            dt = time.perf_counter() - t_window
-            if first:
-                # kernel builds and allocator warm-up land here, as the first
-                # JAX step's compile does in compile_time_s
-                rec["first_step_s"] = dt
-            else:
-                rec.update(steps_spanned=steps_window, step_time_s=dt / steps_window, tps=tokens_window / dt)
-            if first and not self.step_scheduler.is_log_step:
-                logger.info("first step %.3fs", dt)
-            else:
-                self.metric_logger.log(rec, step=step)
-                last = rec
-            first = False
-            tokens_window = steps_window = 0
-            t_window = time.perf_counter()
+            if first or self.step_scheduler.is_log_step:
+                rec = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
+                dt = time.perf_counter() - t_window
+                if first:
+                    # kernel builds and allocator warm-up land here, as the first
+                    # JAX step's compile does in compile_time_s
+                    rec["first_step_s"] = dt
+                else:
+                    rec.update(steps_spanned=steps_window, step_time_s=dt / steps_window, tps=tokens_window / dt)
+                if first and not self.step_scheduler.is_log_step:
+                    logger.info("first step %.3fs", dt)
+                else:
+                    self.metric_logger.log(rec, step=step)
+                    last = rec
+                first = False
+                tokens_window = steps_window = 0
+                t_window = time.perf_counter()
+            boundary = False
+            if self.step_scheduler.is_val_step and self.val_dataloader is not None:
+                self.metric_logger.log(self.run_validation(), step=step)
+                boundary = True
+            if self.checkpointer is not None and self.step_scheduler.is_ckpt_step:
+                self.save_checkpoint()
+                boundary = True
+            if boundary:
+                # validation and save time must not read as step time
+                tokens_window = steps_window = 0
+                t_window = time.perf_counter()
         return last
+
+    def run_validation(self) -> dict:
+        tot_loss, tot_n = 0.0, 0
+        for vb in self.val_dataloader:
+            out = self.eval_step(self.state, self._place(stack_microbatches([vb])))
+            tot_loss += float(out["loss_sum"])
+            tot_n += int(out["num_label_tokens"])
+        val_loss = tot_loss / max(tot_n, 1)
+        if val_loss == val_loss:  # a NaN eval must never look best
+            self._last_val_metric = val_loss
+        return {"val_loss": val_loss, "val_tokens": tot_n}
 
 
 def main(cfg: Any) -> dict:

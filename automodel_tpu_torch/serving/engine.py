@@ -17,8 +17,8 @@ one scheduler iteration:
    cache) and the slot refills on the next iteration.
 
 Every submitted request produces exactly one terminal record carrying
-``completion_reason``, ``tokens`` and, once it has a first token,
-``ttft_s``. Sections of the JAX engine this port does not have
+``completion_reason``, ``retriable``, ``tenant``, ``tier``, ``tokens``
+and, once it has a first token, ``ttft_s``. Sections of the JAX engine this port does not have
 (speculative decoding, spill tier, QoS, warm start, HTTP front, drain,
 watchdog, KV transfer) are refused when a config enables them. A failing
 program raises out of ``step``; there is no rebuild-and-continue yet.
@@ -48,6 +48,28 @@ from automodel_tpu_torch.serving.block_pool import BlockPool, blocks_needed
 #   stop    — hit a configured eos id
 #   length  — spent its max_new_tokens budget
 #   timeout — deadline_s / max_queue_wait_s expired
+# A record's `retriable` says whether the client may resubmit it as is; the
+# reasons JAX's engine marks so (shed, quota, draining, cancelled and the
+# engine failures) come from sections the port refuses, so none of the
+# three above is retriable.
+_RETRIABLE_REASONS = frozenset(
+    {"shed", "quota", "draining", "cancelled", "engine_stall", "engine_error"}
+)
+
+# QoS tiers, highest priority first; a record names its request's tenant
+# and tier. QoS itself (fair queuing, quotas, shedding) is not ported: every
+# request is admitted FIFO whatever it names.
+TIERS = ("interactive", "batch", "best_effort")
+DEFAULT_TENANT = "anonymous"
+DEFAULT_TIER = "interactive"
+
+
+def tier_index(tier: str) -> int:
+    """Priority rank of a tier (0 = highest). An unknown tier raises, as in
+    the JAX engine: a typo must never silently demote a tenant."""
+    if tier not in TIERS:
+        raise ValueError(f"unknown QoS tier {tier!r} (want one of {'|'.join(TIERS)})")
+    return TIERS.index(tier)
 
 # sections of the JAX engine's config that this port does not run
 UNPORTED_SERVING_SECTIONS = (
@@ -165,6 +187,8 @@ class _Queued:
     t_submit: float
     deadline_at: Optional[float] = None  # perf_counter absolute
     queue_deadline_at: Optional[float] = None
+    tenant: str = DEFAULT_TENANT
+    tier: str = DEFAULT_TIER
 
 
 @dataclasses.dataclass
@@ -181,6 +205,8 @@ class _Slot:
     decoding: bool = False
     generated: Optional[list[int]] = None
     t_first: Optional[float] = None
+    tenant: str = DEFAULT_TENANT
+    tier: str = DEFAULT_TIER
 
 
 class ServingEngine:
@@ -291,10 +317,15 @@ class ServingEngine:
         t_submit: Optional[float] = None,
         deadline_s: Optional[float] = None,
         max_queue_wait_s: Optional[float] = None,
+        tenant: Optional[str] = None,
+        tier: Optional[str] = None,
     ) -> str:
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
             raise ValueError("empty prompt (every request needs >= 1 token)")
+        tenant = str(tenant) if tenant is not None else DEFAULT_TENANT
+        tier = str(tier) if tier is not None else DEFAULT_TIER
+        tier_index(tier)  # an unknown tier is refused at submission
         vocab = int(self.model.config.vocab_size)
         if min(prompt) < 0 or max(prompt) >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
@@ -326,6 +357,7 @@ class ServingEngine:
                 rid=rid, prompt=prompt, max_new=max_new, t_submit=now,
                 deadline_at=now + ddl if ddl and ddl > 0 else None,
                 queue_deadline_at=now + qw if qw and qw > 0 else None,
+                tenant=tenant, tier=tier,
             )
         )
         return rid
@@ -344,6 +376,9 @@ class ServingEngine:
             "n_generated": 0,
             "prompt_tokens": len(q.prompt),
             "completion_reason": reason,
+            "retriable": reason in _RETRIABLE_REASONS,
+            "tenant": q.tenant,
+            "tier": q.tier,
             "queue_s": time.perf_counter() - q.t_submit,
             "queue_depth": self.queue_depth,
             "ts": time.time(),
@@ -370,6 +405,9 @@ class ServingEngine:
             "prompt_tokens": len(slot.prompt),
             "prefix_hit_tokens": slot.hit_tokens,
             "completion_reason": reason,
+            "retriable": reason in _RETRIABLE_REASONS,
+            "tenant": slot.tenant,
+            "tier": slot.tier,
             "queue_s": slot.t_admit - slot.t_submit,
             "queue_depth": self.queue_depth,
             "block_occupancy": round(self.pool.occupancy(), 4),
@@ -433,6 +471,7 @@ class ServingEngine:
                 request_id=q.rid, prompt=q.prompt, max_new=q.max_new,
                 blocks=blocks, hit_tokens=hit_tokens, prefill_pos=hit_tokens,
                 t_submit=q.t_submit, t_admit=time.perf_counter(), deadline_at=q.deadline_at,
+                tenant=q.tenant, tier=q.tier,
             )
 
     def _prefill_tick(self) -> list[dict]:

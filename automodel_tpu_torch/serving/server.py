@@ -136,6 +136,8 @@ def _serve_stdin(engine) -> int:
                 max_new_tokens=req.get("max_new_tokens"),
                 deadline_s=req.get("deadline_s"),
                 max_queue_wait_s=req.get("max_queue_wait_s"),
+                tenant=req.get("tenant"),
+                tier=req.get("tier"),
             )
         except (ValueError, TypeError) as e:
             counts["bad"] += 1

@@ -1,8 +1,7 @@
 """Step scheduling, port of ``automodel_tpu/training/step_scheduler.py``:
-epochs, grad-accumulation groups, ``max_steps`` and the log cadence.
-Signal handling, ``ckpt_every_steps`` and ``val_every_steps`` wait with
-checkpointing and validation (a section that sets them is refused as an
-unexpected argument)."""
+epochs, grad-accumulation groups, ``max_steps``, the log, checkpoint and
+validation cadences, and the (step, epoch) state a checkpoint carries.
+The SIGTERM hook waits with the resilience port."""
 
 from __future__ import annotations
 
@@ -13,12 +12,16 @@ class StepScheduler:
     def __init__(
         self,
         grad_acc_steps: int = 1,
+        ckpt_every_steps: int = 0,
+        val_every_steps: int = 0,
         log_every_steps: int = 1,
         num_epochs: int = 1,
         max_steps: Optional[int] = None,
         dataloader: Any = None,
     ):
         self.grad_acc_steps = int(grad_acc_steps)
+        self.ckpt_every_steps = int(ckpt_every_steps)
+        self.val_every_steps = int(val_every_steps)
         self.log_every_steps = int(log_every_steps)
         self.num_epochs = int(num_epochs)
         self.max_steps = max_steps
@@ -45,5 +48,20 @@ class StepScheduler:
             self.epoch += 1
 
     @property
+    def is_ckpt_step(self) -> bool:
+        return self.ckpt_every_steps > 0 and self.step % self.ckpt_every_steps == 0
+
+    @property
+    def is_val_step(self) -> bool:
+        return self.val_every_steps > 0 and self.step % self.val_every_steps == 0
+
+    @property
     def is_log_step(self) -> bool:
         return self.log_every_steps > 0 and self.step % self.log_every_steps == 0
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "epoch": self.epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = state["step"]
+        self.epoch = state["epoch"]

@@ -1,5 +1,6 @@
-"""The training step, port of ``build_train_step`` (:30) and
-``make_causal_lm_loss`` (:295) of ``automodel_tpu/training/train_step.py``.
+"""The training step, port of ``build_train_step`` (:30),
+``build_eval_step`` (:267) and ``make_causal_lm_loss`` (:295) of
+``automodel_tpu/training/train_step.py``.
 
 One step takes a batch whose leaves carry a leading microbatch axis [A,
 ...]: gradients of every microbatch's summed token loss, accumulated in
@@ -108,6 +109,29 @@ def build_train_step(
             metrics["skipped"] = skip
         state.step += 1
         return metrics
+
+    return step_fn
+
+
+def build_eval_step(loss_fn: Callable[[dict], tuple]) -> Callable[[TrainState, dict], dict]:
+    """(state, batch) → ``{"loss_sum", "num_label_tokens"}`` summed over the
+    batch's microbatches (leading axis [A, ...]): the forward only, under
+    ``torch.no_grad``, the loss sum accumulated in fp32 as JAX's scan
+    does. The state's parameters are the model's own, so the step reads
+    them through ``loss_fn``."""
+
+    @torch.no_grad()
+    def step_fn(state: TrainState, batch: dict) -> dict:
+        loss_sum = n_tokens = None
+        for i in range(batch["input_ids"].shape[0]):
+            mb = {k: v[i] for k, v in batch.items() if isinstance(v, torch.Tensor)}
+            mb_loss, mb_n, *_ = loss_fn(mb)
+            mb_loss = mb_loss.float()
+            if loss_sum is None:
+                loss_sum, n_tokens = mb_loss, mb_n
+            else:
+                loss_sum, n_tokens = loss_sum + mb_loss, n_tokens + mb_n
+        return {"loss_sum": loss_sum, "num_label_tokens": n_tokens}
 
     return step_fn
 

@@ -128,10 +128,32 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    launched 8 x 2 x 4 times; then a profile of one step;
 16. one step at 2 layers of those widths (a sliding and a full layer) and
    8192 tokens with ``attn: flash`` against ``attn: sdpa``: loss and grad
-   norm must agree within phase 7's limits.
+   norm must agree within phase 7's limits;
+17. the checkpoint round trip at Llama-3-8B widths cut to 2 layers (disk
+   sets the size: ~15 GB a DCP state, ~3 GB a consolidated save), through
+   the ``finetune`` recipe class: the free disk printed first; 4 steps of
+   2 x 4096 tokens twice without checkpoints (the card's own run-to-run
+   spread); the same config with checkpoints every 2 steps (consolidated
+   HF save, keep_last_k 1) and 2 validation batches every 2 steps, stopped
+   at step 2 and resumed by a fresh recipe object to step 4, whose steps 3
+   and 4 must match the unbroken run (bit for bit when the two unbroken
+   runs agree bit for bit, else within 4x their step-1 spread), with a
+   resume record, ``val_loss`` records and ``BEST.json`` naming a
+   committed dir, flash launches layers x microbatches x steps (plus a
+   forward per layer and validation batch); ``verify-ckpt`` through the
+   CLI's function passing on the tree; the offline consolidation of the
+   step-4 dir on the card, byte-identical to its ``hf/`` save; ``from_pretrained`` of
+   that ``hf/`` dir, and the ``serve`` CLI's ``build_engine`` on it, whose
+   full forward must give the trained model's logits bit for bit and
+   whose 4 greedy requests of 128-512 prompt tokens must end by length or
+   stop with the paged kernel launched decode forwards x layers times;
+   last, a hard-linked copy of the step dir with its DCP data file cut by
+   one byte, which ``verify-ckpt`` must fail. The save, load and
+   consolidation times and bytes are printed beside the card's name and
+   power limit, and the directory is deleted.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 and 16 last. After the build the
+phase 3b right after phase 3, phases 15, 16 and 17 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -149,6 +171,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1753,6 +1776,250 @@ def phase_gemma_flash_vs_sdpa(torch) -> dict:
     return phase_flash_vs_sdpa(torch, cfg, "gemma2 flash vs sdpa")
 
 
+# -- phase 17: checkpoint round trip --------------------------------------------
+
+# Llama-3-8B widths cut to 2 layers: disk sets the size. 1.487 B parameters:
+# 2.97 GB of bf16 weights, ~11.9 GB of fp32 moments, ~15 GB a DCP state and
+# ~3 GB a consolidated save; two step dirs, a consolidation and the
+# page-cached reads peak near 40 GB of disk.
+CKPT_LAYERS = 2
+CKPT_DISK_NEED_GB = 40.0
+
+
+def ckpt_train_config(root, tag: str, max_steps: int, checkpoint: bool) -> dict:
+    """The training phase's config (train_config) at CKPT_LAYERS layers with
+    its metrics under ``root``; with ``checkpoint`` on: a save every 2
+    steps with the consolidated HF export, keep_last_k 1, and a validation
+    set of 2 batches every 2 steps."""
+    cfg = train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = CKPT_LAYERS
+    cfg["step_scheduler"]["max_steps"] = max_steps
+    cfg["logging"]["metrics_path"] = str(root / f"{tag}.jsonl")
+    if checkpoint:
+        cfg["checkpoint"] = dict(enabled=True, checkpoint_dir=str(root / "ckpt"), save_consolidated=True,
+                                 keep_last_k=1)
+        cfg["step_scheduler"].update(ckpt_every_steps=2, val_every_steps=2)
+        cfg["validation_dataset"] = dict(cfg["dataset"], num_samples=2, seed=1)
+    return cfg
+
+
+def run_recipe(torch, cfg: dict):
+    """The ``finetune`` CLI's recipe class over ``cfg`` → (recipe, JSONL
+    rows, flash launches of the run, seconds)."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+
+    kernels = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
+    # the main path's run: every count set to 0 just before, read just after
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels)))
+    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    return recipe, rows, launches, wall
+
+
+def train_rows(rows: list) -> dict:
+    return {r["step"]: r for r in rows if "loss" in r}
+
+
+def gbps(nbytes: int, seconds: float) -> float:
+    return nbytes / seconds / 1e9 if seconds > 0 else float("nan")
+
+
+def phase_checkpoint(torch) -> dict:
+    """Checkpoints and HF weights in and out at Llama-3-8B widths cut to
+    CKPT_LAYERS layers: two unbroken 4-step runs (the card's own spread), a
+    run broken at step 2 and resumed by a fresh recipe object, the audit,
+    and serving from the consolidated save."""
+    import shutil
+
+    from automodel_tpu_torch.auto_model import from_pretrained
+    from automodel_tpu_torch.checkpoint.consolidate import consolidate
+    from automodel_tpu_torch.cli.app import main as cli_main
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+    from automodel_tpu_torch.serving.server import build_engine
+
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    root = here / "runs" / "chip_smoke" / f"ckpt_{time.time_ns()}"
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    card = card_line()
+    try:
+        disk = shutil.disk_usage(root)
+        print(f"checkpoint: disk under {root.parent}: {disk.free / 1e9:.1f} GB free of {disk.total / 1e9:.1f} GB",
+              flush=True)
+        if disk.free / 1e9 < CKPT_DISK_NEED_GB:
+            raise RuntimeError(f"checkpoint phase needs ~{CKPT_DISK_NEED_GB} GB of disk, {disk.free / 1e9:.1f} free")
+        acc, layers = TRAIN_ACC, CKPT_LAYERS
+        out: dict = dict(layers=layers, card=card, disk_free_gb=disk.free / 1e9, disk_total_gb=disk.total / 1e9)
+
+        # 1. the unbroken run, twice: the card's own run-to-run spread
+        finals, runs = [], []
+        for tag in ("unbroken_a", "unbroken_b"):
+            recipe, rows, launches, wall = run_recipe(torch, ckpt_train_config(root, tag, TRAIN_STEPS, False))
+            want = layers * acc * TRAIN_STEPS
+            if any(n != want for n in launches.values()):
+                raise RuntimeError(f"{tag}: flash launches {launches}, want {want} each")
+            runs.append(train_rows(rows))
+            finals.append([p.detach().to("cpu", copy=True) for p in recipe.state.params])
+            out["params"] = sum(p.numel() for p in recipe.state.params)
+            del recipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        a, b = runs
+        steps = list(range(1, TRAIN_STEPS + 1))
+        if sorted(a) != steps or sorted(b) != steps:
+            raise RuntimeError(f"unbroken runs logged steps {sorted(a)} and {sorted(b)}")
+        keys = ("loss", "grad_norm")
+        bitwise = all(a[s][k] == b[s][k] for s in steps for k in keys) and all(
+            torch.equal(x, y) for x, y in zip(*finals))
+        spread = max(abs(a[1][k] - b[1][k]) / abs(a[1][k]) for k in keys)
+        out.update(unbroken_losses=[a[s]["loss"] for s in steps], unbroken_grad_norms=[a[s]["grad_norm"] for s in steps],
+                   unbroken_bitwise=bitwise, unbroken_step1_rel_spread=spread)
+        print(f"checkpoint: two unbroken runs {'agree bit for bit' if bitwise else 'differ'} "
+              f"(step-1 relative spread {spread}) | {card}", flush=True)
+
+        # 2. the broken run: stop at step 2, resume from a fresh recipe object
+        ck_root = root / "ckpt"
+        recipe, rows1, l1, wall1 = run_recipe(torch, ckpt_train_config(root, "broken", 2, True))
+        save2 = dict(recipe.checkpointer.last_save)
+        del recipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        recipe, rows2, l2, wall2 = run_recipe(torch, ckpt_train_config(root, "broken", TRAIN_STEPS, True))
+        val_fwd = 2 * layers  # 2 validation batches through the flash forward
+        for tag, launches in (("steps 1-2", l1), ("steps 3-4", l2)):
+            want = dict(fwd=layers * acc * 2 + val_fwd, dq=layers * acc * 2, dkv=layers * acc * 2)
+            if launches != want:
+                raise RuntimeError(f"broken run {tag}: flash launches {launches}, want {want}")
+        rows = [json.loads(line) for line in open(root / "broken.jsonl")]
+        resumes = [r for r in rows if r.get("event") == "resume"]
+        if [r["resumed_from_step"] for r in resumes] != [2]:
+            raise RuntimeError(f"resume records {resumes}, want one from step 2")
+        vals = [r for r in rows if "val_loss" in r]
+        if [r["step"] for r in vals] != [2, 4] or not all(math.isfinite(r["val_loss"]) for r in vals):
+            raise RuntimeError(f"validation records {vals}, want finite val_loss at steps 2 and 4")
+        c = train_rows(rows)
+        errs = {k: max(abs(c[s][k] - a[s][k]) / abs(a[s][k]) for s in (3, 4)) for k in keys}
+        same_params = all(torch.equal(p.detach().cpu(), x) for p, x in zip(recipe.state.params, finals[0]))
+        resumed_bitwise = all(c[s][k] == a[s][k] for s in (3, 4) for k in keys) and same_params
+        if bitwise and not resumed_bitwise:
+            raise RuntimeError(f"resumed steps 3-4 differ from the unbroken run, which repeats bit for bit: "
+                               f"rel errors {errs}, final params equal {same_params}")
+        if not bitwise and max(errs.values()) > 4 * spread:
+            raise RuntimeError(f"resumed steps 3-4 off the unbroken run by {errs}, beyond 4x the step-1 spread {spread}")
+        best = json.loads((ck_root / "BEST.json").read_text())
+        if not (ck_root / best["dir"] / "MANIFEST.json").exists():
+            raise RuntimeError(f"BEST.json names {best['dir']}, which is not committed")
+        step4 = ck_root / "epoch_0_step_4"
+        save4, load = dict(recipe.checkpointer.last_save), dict(recipe.checkpointer.last_load)
+        out.update(resumed_losses=[c[s]["loss"] for s in (3, 4)], resumed_grad_norms=[c[s]["grad_norm"] for s in (3, 4)],
+                   resumed_bitwise=resumed_bitwise, resumed_rel_err=errs, val_losses=[r["val_loss"] for r in vals],
+                   best=best["dir"], broken_wall_s=[wall1, wall2], save_step2=save2, save_step4=save4, resume_load=load)
+
+        # 3. the audit, through the CLI's own function
+        t0 = time.perf_counter()
+        rc = cli_main(["verify-ckpt", str(ck_root)])
+        out["verify_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"verify-ckpt exited {rc} on the committed tree")
+        t0 = time.perf_counter()
+        consolidated = consolidate(step4, root / "consolidated")
+        out["consolidate_s"] = time.perf_counter() - t0
+        same = [f.name for f in (step4 / "hf").glob("*.safetensors")
+                if (consolidated / f.name).read_bytes() == f.read_bytes()]
+        if not same or len(same) != len(list((step4 / "hf").glob("*.safetensors"))):
+            raise RuntimeError("the offline consolidation's safetensors differ from the run's hf/ save")
+        out["consolidate_file_bytes"] = sum(f.stat().st_size for f in consolidated.glob("*.safetensors"))
+
+        # 4. serve from the consolidated save
+        trained = recipe.model
+        dev = recipe.device
+        g = torch.Generator().manual_seed(17)
+        ids = torch.randint(1, LLAMA3_8B["vocab_size"], (1, 512), generator=g).to(dev)
+        with torch.no_grad():
+            ref = trained(ids)
+        backend = ckpt_train_config(root, "x", 1, False)["model"]["backend"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = from_pretrained(step4 / "hf", backend, device=dev)
+        torch.cuda.synchronize()
+        out["from_pretrained_s"] = time.perf_counter() - t0
+        out["from_pretrained_bytes"] = sum(p.numel() * p.element_size() for p in loaded.model.state_dict().values())
+        del loaded
+        scfg = serve_config("bf16")
+        scfg["model"] = dict(pretrained_model_name_or_path=str(step4 / "hf"), backend=backend)
+        scfg["serving"].update(num_blocks=1024)
+        engine = build_engine(ConfigNode(scfg))
+        with torch.no_grad():
+            served = engine.auto.model(ids)
+        if not torch.equal(served, ref):
+            diff = float((served.float() - ref.float()).abs().max())
+            raise RuntimeError(f"logits served from hf/ differ from the trained model's (max |diff| {diff})")
+        out["logits_bitwise"] = True
+        del trained, recipe, ref, served
+        gc.collect()
+        torch.cuda.empty_cache()
+        prompts = [torch.randint(1, LLAMA3_8B["vocab_size"], (n,), generator=g).tolist() for n in (128, 256, 384, 512)]
+        paged_attend.launches = 0
+        for i, p in enumerate(prompts):
+            engine.submit(p, request_id=f"c{i}", max_new_tokens=MAX_NEW)
+        recs = engine.run()
+        torch.cuda.synchronize()
+        launches = paged_attend.launches
+        reasons = {r["completion_reason"] for r in recs}
+        if len(recs) != 4 or not reasons <= {"length", "stop"}:
+            raise RuntimeError(f"served from hf/: {len(recs)} records ending {reasons}")
+        if launches == 0 or launches != engine.decode_forwards * layers:
+            raise RuntimeError(f"paged kernel launched {launches} times for {engine.decode_forwards} "
+                               f"decode forwards x {layers} layers")
+        out.update(served_requests=len(recs), served_prompt_tokens=[len(p) for p in prompts],
+                   paged_attend_launches=launches, decode_forwards=engine.decode_forwards)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. a hard-linked copy of the step dir with its DCP data file cut by
+        # one byte (last: the link shares the original's bytes) must fail
+        bad = root / "truncated" / step4.name
+        for f in step4.rglob("*"):
+            if f.is_file():
+                (bad / f.relative_to(step4)).parent.mkdir(parents=True, exist_ok=True)
+                os.link(f, bad / f.relative_to(step4))
+        data = max((bad / "state").iterdir(), key=lambda f: f.stat().st_size)
+        os.truncate(data, data.stat().st_size - 1)
+        rc = cli_main(["verify-ckpt", str(bad)])
+        if rc == 0:
+            raise RuntimeError("verify-ckpt passed a step dir whose state file lost a byte")
+        out["truncated_verify_rc"] = rc
+
+        s4, ld = save4, load
+        print(f"checkpoint times | {card}: save at step 4: DCP state {s4.get('state_bytes')} B in "
+              f"{s4.get('state_s')} s ({gbps(s4.get('state_bytes', 0), s4.get('state_s', 0))} GB/s), hf/ "
+              f"{s4.get('hf_bytes')} B in {s4.get('hf_s')} s ({gbps(s4.get('hf_bytes', 0), s4.get('hf_s', 0))} GB/s), "
+              f"manifest {s4.get('manifest_s')} s; resume load: verify {ld.get('verify_s')} s, DCP state "
+              f"{ld.get('state_bytes')} B in {ld.get('state_s')} s ({gbps(ld.get('state_bytes', 0), ld.get('state_s', 0))} "
+              f"GB/s); from_pretrained {out['from_pretrained_bytes']} B in {out['from_pretrained_s']} s "
+              f"({gbps(out['from_pretrained_bytes'], out['from_pretrained_s'])} GB/s); offline consolidation "
+              f"{out['consolidate_file_bytes']} B of files in {out['consolidate_s']} s "
+              f"({gbps(out['consolidate_file_bytes'], out['consolidate_s'])} GB/s); verify-ckpt of the tree "
+              f"{out['verify_s']} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"checkpoint round trip: {json.dumps(out)}", flush=True)
+    print(f"checkpoint phase: {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # -- phases 10 and 14: one step, two experts backends ---------------------------
 
 
@@ -2560,6 +2827,7 @@ def main() -> int:
         phase_fused_vs_ragged(torch)
         gemma = phase_gemma_training(torch)
         phase_gemma_flash_vs_sdpa(torch)
+        phase_checkpoint(torch)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas)

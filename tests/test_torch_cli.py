@@ -118,7 +118,7 @@ def test_finetune_without_cuda_raises():
 @pytest.mark.parametrize(
     "override,name",
     [
-        ("--checkpoint.enabled=true", "checkpoint"),
+        ("--checkpoint.model_save_format=torch_save", "model_save_format"),
         ("--peft.dim=8", "peft"),
         ("--qat.enabled=true", "qat"),
         ("--telemetry.memory_every_steps=50", "telemetry"),

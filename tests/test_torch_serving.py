@@ -108,6 +108,35 @@ def test_stop_token_and_timeout_records(models):
     assert rec["completion_reason"] == "timeout" and rec["tokens"] == []
 
 
+@pytest.mark.parametrize("qos", [False, True])
+def test_terminal_record_keys_match_jax_engine(models, qos):
+    """Every terminal record of both engines carries the same keys, among
+    them ``retriable``, ``tenant`` and ``tier``, for a request that ends by
+    length and one whose queue deadline expires (JAX with its QoS section
+    on or off; the port refuses QoS and records the defaults). An unknown
+    tier is refused at submission by both."""
+    jauto, tauto = models
+    jserve = dict(SERVE, qos={"enabled": True}) if qos else SERVE
+    jeng = JServingEngine(jauto, JServeConfig.from_dict(jserve), JGenerationConfig(max_new_tokens=2, greedy=True))
+    teng = ServingEngine(tauto, ServeConfig(**SERVE), GenerationConfig(max_new_tokens=2, greedy=True))
+    recs = {}
+    for name, eng in (("jax", jeng), ("torch", teng)):
+        eng.submit([1, 2, 3], request_id="done")
+        eng.submit([4, 5], request_id="late", deadline_s=1e-9)
+        recs[name] = {r["request_id"]: r for r in eng.run()}
+        with pytest.raises(ValueError, match="unknown QoS tier"):
+            eng.submit([1, 2], tier="premium")
+    for rid, reason in (("done", "length"), ("late", "timeout")):
+        j, t = recs["jax"][rid], recs["torch"][rid]
+        assert t["completion_reason"] == j["completion_reason"] == reason
+        assert set(t) == set(j), set(t) ^ set(j)
+        assert (t["retriable"], t["tenant"], t["tier"]) == (j["retriable"], j["tenant"], j["tier"])
+        assert (t["retriable"], t["tenant"], t["tier"]) == (False, "anonymous", "interactive")
+    teng.submit([1, 2, 3], request_id="named", tenant="team-a", tier="batch")
+    (rec,) = teng.run()
+    assert (rec["tenant"], rec["tier"]) == ("team-a", "batch")
+
+
 def test_sampled_decode_is_reproducible_from_the_seed(models):
     _, tauto = models
 
