@@ -2,12 +2,17 @@
 
     python -m automodel_tpu_torch.cli.app serve -c cfg.yaml [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml [--dotted.key=value ...]
+    python -m automodel_tpu_torch.cli.app benchmark llm -c cfg.yaml [--dotted.key=value ...]
+    python -m automodel_tpu_torch.cli.app generate -c cfg.yaml [--prompt '1 2 3'] [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]
 
 ``serve`` runs the stdin-JSONL serving front (serving/server.py);
 ``finetune llm`` and ``pretrain llm`` run the training recipe
-(recipes/train_ft.py), as ``automodel_tpu/cli/app.py:184-185`` routes them.
-Both run on the config's ``device`` (``cuda`` unless ``--device=cpu``).
+(recipes/train_ft.py) and ``benchmark llm`` the benchmark recipe
+(recipes/benchmark.py), as ``automodel_tpu/cli/app.py:184-186`` routes
+them; ``generate`` runs the KV-cache generation engine on token-id prompts
+(generation/engine.py), as ``automodel_tpu/cli/app.py:90-97`` routes it.
+All run on the config's ``device`` (``cuda`` unless ``--device=cpu``).
 ``verify-ckpt`` audits a checkpoint tree's manifests without loading a
 tensor (checkpoint/verify.py; exit 0 resumable, 1 corrupt, 2 usage), as
 ``automodel_tpu/cli/app.py:81-86`` routes it. The JAX package's other
@@ -20,9 +25,9 @@ import sys
 
 from automodel_tpu_torch.config.arg_parser import parse_args_and_load_config
 
-TRAIN_COMMANDS = ("finetune", "pretrain")
+TRAIN_COMMANDS = ("finetune", "pretrain", "benchmark")
 NOT_PORTED = (
-    "kd", "dpo", "grpo", "benchmark", "mine", "generate",
+    "kd", "dpo", "grpo", "mine",
     "route", "fleet-status", "profile", "report", "goodput", "trace",
 )
 
@@ -32,7 +37,9 @@ def _usage() -> str:
         "usage: python -m automodel_tpu_torch.cli.app serve -c config.yaml "
         "[--device=cpu] [--dotted.key=value ...]  (stdin JSONL in, one JSON "
         "line per finished request out)\n"
-        "       python -m automodel_tpu_torch.cli.app {finetune|pretrain} llm -c config.yaml "
+        "       python -m automodel_tpu_torch.cli.app {finetune|pretrain|benchmark} llm -c config.yaml "
+        "[--device=cpu] [--dotted.key=value ...]\n"
+        "       python -m automodel_tpu_torch.cli.app generate -c config.yaml [--prompt '1 2 3'] "
         "[--device=cpu] [--dotted.key=value ...]\n"
         "       python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]"
     )
@@ -61,13 +68,20 @@ def main(argv: list[str] | None = None) -> int:
         from automodel_tpu_torch.serving.server import main as serve_main
 
         return serve_main(parse_args_and_load_config(argv[1:]))
+    if command == "generate":
+        from automodel_tpu_torch.generation.engine import main as generate_main
+
+        return generate_main(parse_args_and_load_config(argv[1:]))
     if command in TRAIN_COMMANDS:
         domain = argv[1] if len(argv) > 1 else ""
         if domain != "llm":
             return _not_ported(f"{command} {domain}".strip())
-        from automodel_tpu_torch.recipes.train_ft import main as train_main
+        if command == "benchmark":
+            from automodel_tpu_torch.recipes.benchmark import main as recipe_main
+        else:
+            from automodel_tpu_torch.recipes.train_ft import main as recipe_main
 
-        train_main(parse_args_and_load_config(argv[2:]))
+        recipe_main(parse_args_and_load_config(argv[2:]))
         return 0
     if command in NOT_PORTED:
         return _not_ported(command)

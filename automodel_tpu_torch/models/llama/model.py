@@ -17,8 +17,12 @@ packed ``segment_ids`` if given; RoPE follows ``position_ids``.
 
 The KV-cache hook is the JAX one: with ``cache`` given, each attention
 layer calls ``cache.write(layer, k, v)`` with its post-RoPE keys and
-values and then ``cache.attend(layer, q, layer_kv, ...)``; the cache object
-owns where K/V live and which attention runs (serving/paged.py).
+values and then, when ``cache.attends_cache``, ``cache.attend(layer, q,
+layer_kv, ...)``; the cache object owns where K/V live and which attention
+runs (serving/paged.py, generation/kv_cache.py). A cache that does not
+attend (the ``generate`` path's prefill) leaves the layer attending over
+the incoming block through the configured backend, with ``segment_ids``
+keeping the pads apart.
 """
 
 from __future__ import annotations
@@ -139,8 +143,9 @@ def attention_block(
 ) -> torch.Tensor:
     """h + self-attention of decoder layer ``i`` (its ``input_layernorm``
     and ``self_attn``), shared by the llama and MoE families: through the
-    configured backend (``flash``: the flash kernels) without a cache, and
-    through ``cache.write`` / ``cache.attend`` with one. A ``self_attn``
+    configured backend (``flash``: the flash kernels) without a cache or
+    with one that does not attend (prefill), and through ``cache.attend``
+    with one that does; ``cache.write`` takes the keys and values first. A ``self_attn``
     with ``sinks`` (gpt-oss) attends with them."""
     attn = layer.self_attn
     B, S, _ = h.shape
@@ -153,8 +158,8 @@ def attention_block(
         k = attn.k_norm(k)
     q, k = apply_rope(q, k, cos, sin)
     window = layer_sliding_window(cfg, i)
-    if cache is not None:
-        layer_kv = cache.write(i, k, v)
+    layer_kv = None if cache is None else cache.write(i, k, v)
+    if layer_kv is not None and cache.attends_cache:
         out = cache.attend(
             i, q, layer_kv, sliding_window=window,
             scale=cfg.attn_scale, logits_soft_cap=cfg.attn_soft_cap,

@@ -13,7 +13,7 @@ Sections read: ``seed``, ``device`` (``cuda`` unless ``cpu``), ``model``
 (``ckpt_every_steps`` and ``val_every_steps`` among its keys),
 ``optimizer``, ``loss_fn``, ``checkpoint``, ``logging.metrics_path``
 (default ``<output_dir>/train_metrics.jsonl``),
-``fault_tolerance.on_nonfinite`` (``raise`` | ``skip``).
+``fault_tolerance.on_nonfinite`` (``raise`` | ``skip``), ``generation``.
 
 With ``checkpoint.enabled`` the run resumes at setup from the newest
 committed step dir of ``checkpoint_dir`` (or bootstraps from
@@ -22,6 +22,14 @@ committed step dir of ``checkpoint_dir`` (or bootstraps from
 end of the loop (unless the last step was just saved), and a save after a
 validation that beat ``BEST.json`` marks its dir best. Validation runs
 every ``val_every_steps`` and logs ``val_loss`` and ``val_tokens``.
+
+The ``generation:`` section (JAX :540-620) samples completions of its
+``prompt_ids`` with the live weights at each validation step, through the
+KV-cache ``GenerationEngine``, and logs ``{"event": "generation",
+"gen_samples": [...], "ttft_s", "decode_tps", "gen_tokens",
+"gen_cache_bytes"}``; a failed sampling is logged and the run goes on. A
+model without a KV-cache decode path, or ``enabled: false``, records the
+reason instead (the benchmark's decode leg reports it).
 
 One log record per ``log_every_steps`` carries
 ``loss``, ``grad_norm``, ``lr``, ``num_label_tokens``, ``step``,
@@ -33,8 +41,8 @@ after each applied update.
 Sections the port does not run are refused with a ``ValueError`` naming
 them, never ignored: ``peft``, ``qat``, ``telemetry``, ``profiling``,
 ``distributed_guard``, ``metrics_server``, ``data`` (prefetch),
-``generation``, ``fault_injection``, any other ``fault_tolerance`` key,
-and any ``distributed`` degree other than 1.
+``fault_injection``, any other ``fault_tolerance`` key, and any
+``distributed`` degree other than 1.
 """
 
 from __future__ import annotations
@@ -52,7 +60,13 @@ from automodel_tpu_torch.data.collators import stack_microbatches
 from automodel_tpu_torch.data.loader import DataLoader
 from automodel_tpu_torch.data.sft import MockSFTDataset
 from automodel_tpu_torch.device import resolve_device
-from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+from automodel_tpu_torch.generation.engine import (
+    GenerationConfig,
+    GenerationEngine,
+    GenerationUnsupported,
+    build_auto_from_model_section,
+    resolve_tokenizer,
+)
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.optim.builders import build_optimizer
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
@@ -67,7 +81,7 @@ logger = logging.getLogger(__name__)
 READ_SECTIONS = (
     "seed", "device", "output_dir", "model", "dataset", "dataloader", "validation_dataset",
     "validation_dataloader", "step_scheduler", "optimizer", "loss_fn", "logging", "checkpoint",
-    "fault_tolerance", "distributed",
+    "fault_tolerance", "distributed", "generation",
 )
 DEGREES = ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep")
 DATASETS = {"MockSFTDataset": MockSFTDataset}
@@ -81,10 +95,10 @@ def _refuse(name: str, why: str) -> None:
     raise ValueError(f"{name}: {why} is not ported to the torch backend yet")
 
 
-def check_sections(cfg: Any) -> None:
+def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS) -> None:
     """Raise ``ValueError`` naming the first section the port does not run."""
     for name in cfg:
-        if name not in READ_SECTIONS and cfg[name] is not None:
+        if name not in read_sections and cfg[name] is not None:
             section = _plain(cfg[name])
             keys = f" ({', '.join(map(str, section))})" if isinstance(section, dict) and section else ""
             _refuse(f"{name}{keys}", f"the {name} section")
@@ -129,12 +143,14 @@ def build_dataset(section: Any, name: str = "dataset") -> Any:
 
 
 class TrainFinetuneRecipeForNextTokenPrediction:
+    read_sections = READ_SECTIONS
+
     def __init__(self, cfg: Any):
         self.cfg = cfg
 
     def setup(self) -> None:
         cfg = self.cfg
-        check_sections(cfg)
+        check_sections(cfg, self.read_sections)
         self.device = resolve_device(cfg.get("device", None))
         seed = int(cfg.get("seed", 42))
         self.auto = build_auto_from_model_section(cfg.model, self.device, seed=seed, trainable=True)
@@ -179,6 +195,15 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.metric_logger = MetricLogger(path)
         logger.info("training on %s, metrics to %s", self.device, path)
 
+        # in-training eval sampling (generation: section); any skip reason is
+        # recorded for the benchmark's decode leg
+        self._gen_engine = None
+        self._gen_prompt_ids = None
+        self._gen_section: dict = {}
+        self._gen_skip_reason: Optional[str] = None
+        if cfg.get("generation", None) is not None:
+            self._setup_eval_generation(dict(_plain(cfg.generation) or {}))
+
         ccfg = checkpointing_config(cfg)
         self.checkpointer = Checkpointer(ccfg) if ccfg is not None else None
         # the newest validation loss; a save that beats BEST.json marks its dir
@@ -193,6 +218,56 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             for k, v in stacked.items()
             if isinstance(v, np.ndarray)
         }
+
+    # -- eval generation ----------------------------------------------------
+    def _setup_eval_generation(self, gcfg: dict) -> None:
+        gcfg.pop("_target_", None)
+        self._gen_section = dict(gcfg)
+        if gcfg.pop("enabled", True) is False:
+            self._gen_skip_reason = "generation.enabled: false"
+            return
+        prompts = gcfg.pop("prompts", None)
+        prompt_ids = gcfg.pop("prompt_ids", None)
+        resolve_tokenizer(
+            gcfg.pop("tokenizer", None),
+            self.cfg.model.get("pretrained_model_name_or_path", None) if prompts is not None else None,
+        )
+        try:
+            self._gen_engine = GenerationEngine(self.auto, GenerationConfig.from_dict(gcfg))
+        except GenerationUnsupported as e:
+            self._gen_skip_reason = str(e)
+            logger.warning("generation: %s", e)
+            return
+        if prompts is not None:
+            logger.warning(
+                "generation.prompts given without a tokenizer (none is ported): use "
+                "generation.prompt_ids"
+            )
+        self._gen_prompt_ids = [[int(t) for t in p] for p in prompt_ids] if prompt_ids else None
+
+    def _log_eval_generation(self) -> None:
+        """Sample completions with the live weights and log them. A failure
+        is logged and swallowed: eval sampling never ends a training run."""
+        try:
+            out = self._gen_engine.generate_ids(self._gen_prompt_ids)
+        except Exception as e:
+            logger.warning("eval generation failed: %s", e)
+            return
+        shown = [" ".join(map(str, p)) for p in self._gen_prompt_ids]
+        texts = [" ".join(map(str, t)) for t in out["tokens"]]
+        for p, t in zip(shown, texts):
+            logger.info("sample @%d | %s -> %s", self.step_scheduler.step, p, t)
+        self.metric_logger.log(
+            {
+                "event": "generation",
+                "gen_samples": [{"prompt": p, "completion": t} for p, t in zip(shown, texts)],
+                "ttft_s": out["ttft_s"],
+                "decode_tps": out["decode_tps"],
+                "gen_tokens": out["gen_tokens"],
+                "gen_cache_bytes": out["cache_bytes"],
+            },
+            step=self.step_scheduler.step,
+        )
 
     # -- checkpoint ---------------------------------------------------------
     def checkpoint_state(self) -> dict:
@@ -298,14 +373,18 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 tokens_window = steps_window = 0
                 t_window = time.perf_counter()
             boundary = False
-            if self.step_scheduler.is_val_step and self.val_dataloader is not None:
-                self.metric_logger.log(self.run_validation(), step=step)
+            gen_active = self._gen_engine is not None and self._gen_prompt_ids is not None
+            if self.step_scheduler.is_val_step and (self.val_dataloader is not None or gen_active):
+                if self.val_dataloader is not None:
+                    self.metric_logger.log(self.run_validation(), step=step)
+                if gen_active:
+                    self._log_eval_generation()
                 boundary = True
             if self.checkpointer is not None and self.step_scheduler.is_ckpt_step:
                 self.save_checkpoint()
                 boundary = True
             if boundary:
-                # validation and save time must not read as step time
+                # validation, sampling and save time must not read as step time
                 tokens_window = steps_window = 0
                 t_window = time.perf_counter()
         return last

@@ -22,6 +22,11 @@ and, once it has a first token, ``ttft_s``. Sections of the JAX engine this port
 (speculative decoding, spill tier, QoS, warm start, HTTP front, drain,
 watchdog, KV transfer) are refused when a config enables them. A failing
 program raises out of ``step``; there is no rebuild-and-continue yet.
+
+``run_workload`` (JAX :2569-2632) drives timed arrivals through the engine
+for the benchmark's serving leg; it has no speculative counters, since the
+port refuses speculative decoding. ``release_pools`` frees the device pool
+of an engine that is done.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from automodel_tpu_torch.generation.engine import (
 from automodel_tpu_torch.generation.sampling import sample, step_generator
 from automodel_tpu_torch.serving import paged
 from automodel_tpu_torch.serving.block_pool import BlockPool, blocks_needed
+from automodel_tpu_torch.telemetry.report import percentile
 
 # terminal `completion_reason` values this engine produces:
 #   stop    — hit a configured eos id
@@ -137,6 +143,13 @@ class ServeConfig:
     prefix_cache: bool = True
     kv_cache_dtype: str = "bf16"  # bf16 (model compute dtype) | int8
     decode_kernel: str = "auto"  # auto (= fused) | fused (paged kernel) | gather
+    # the sustained-throughput workload of the benchmark's serving leg
+    # (recipes/benchmark.py, run_workload)
+    bench_requests: int = 16
+    bench_rate: float = 8.0  # Poisson arrival rate, requests/second
+    bench_prompt_len_min: int = 8
+    bench_prompt_len_max: int = 48
+    bench_max_new_tokens: int = 16
     limits: LimitsConfig = dataclasses.field(default_factory=LimitsConfig)
 
     def __post_init__(self):
@@ -280,6 +293,12 @@ class ServingEngine:
         # once (on the fused backend, one paged-kernel launch per layer)
         self.decode_forwards = 0
         self.prefill_chunks = 0
+
+    def release_pools(self) -> None:
+        """Drop the engine's device pool, for a caller that is done with
+        this engine but keeps the process (the benchmark's serving leg,
+        before the next leg builds its own). The engine is unusable after."""
+        self._pool = None
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -565,3 +584,48 @@ class ServingEngine:
             f"serving engine failed to drain within {max_iterations} iterations "
             f"(queue={self.queue_depth}, busy={self.busy_slots})"
         )
+
+    # -- timed workload (the benchmark's serving leg) -------------------------
+    def run_workload(
+        self, arrivals: Sequence[tuple[float, Sequence[int], Optional[int]]]
+    ) -> tuple[list[dict], dict]:
+        """Drive a timed workload: ``arrivals`` is [(offset_s, prompt_ids,
+        max_new_tokens|None)]. Requests are submitted when their offset
+        elapses (wall clock); the engine steps continuously in between. →
+        (terminal records, stats: sustained tokens/s, ttft p50/p99, peak
+        occupancy and queue depth, the prefix-cache counters)."""
+        arrivals = sorted(arrivals, key=lambda a: a[0])
+        t0 = time.perf_counter()
+        pending = deque(arrivals)
+        out: list[dict] = []
+        occ_peak, q_peak = 0.0, 0
+        while pending or not self.idle():
+            now = time.perf_counter() - t0
+            while pending and pending[0][0] <= now:
+                _, prompt, max_new = pending.popleft()
+                self.submit(prompt, max_new_tokens=max_new)
+            if self.idle():
+                if pending:
+                    time.sleep(min(0.001, max(pending[0][0] - now, 0.0)))
+                continue
+            out.extend(self.step())
+            occ_peak = max(occ_peak, self.pool.occupancy())
+            q_peak = max(q_peak, self.queue_depth)
+        dt = time.perf_counter() - t0
+        completions = [r for r in out if r.get("completion_reason") in ("stop", "length")]
+        gen = sum(r["n_generated"] for r in completions)
+        ttfts = [r["ttft_s"] for r in completions if isinstance(r.get("ttft_s"), float)]
+        stats = {
+            "requests": len(completions),
+            "gen_tokens": gen,
+            "wall_s": dt,
+            "sustained_tokens_per_s": gen / dt if dt > 0 else 0.0,
+            "ttft_p50_s": percentile(ttfts, 0.50),
+            "ttft_p99_s": percentile(ttfts, 0.99),
+            "block_occupancy_peak": round(occ_peak, 4),
+            "queue_depth_peak": q_peak,
+            "prefix_cache": dict(self.pool.counters),
+        }
+        if len(completions) != len(out):
+            stats["failed_requests"] = len(out) - len(completions)
+        return out, stats

@@ -113,6 +113,8 @@ class _LayerCache:
     view gathered from the pool in that dtype, and the new rows are also
     written into the pool at ``rows_at`` (block, offset) targets."""
 
+    attends_cache = True  # chunk prefill and decode attend the cache
+
     def __init__(self, pool: PagedKV, ctx, view_tables=None, view_dtype=None, rows_at=None):
         self.pool = pool
         self.ctx = ctx

@@ -68,18 +68,24 @@ def _metrics_sink(cfg: Any):
     return on_record, f.close
 
 
-def build_engine(cfg: Any, on_record=None):
-    """ServingEngine from a config tree (``device``, ``model``,
-    ``generation``, ``serving`` sections)."""
-    from automodel_tpu_torch.generation.engine import GenerationConfig, build_auto_from_cfg
-    from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
-
+def refuse_unported_top_sections(cfg: Any) -> None:
+    """Raise ``ValueError`` naming the first enabled top-level section the
+    port does not run (``tracing``, ``slo``, ``fleet``)."""
     for name in UNPORTED_TOP_SECTIONS:
         section = cfg.get(name, None)
         if section_enabled(name, section.to_dict() if hasattr(section, "to_dict") else section):
             raise ValueError(
                 f"{name} is enabled, but the {name} section is not ported to the torch backend yet"
             )
+
+
+def build_engine(cfg: Any, on_record=None):
+    """ServingEngine from a config tree (``device``, ``model``,
+    ``generation``, ``serving`` sections)."""
+    from automodel_tpu_torch.generation.engine import GenerationConfig, build_auto_from_cfg
+    from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
+
+    refuse_unported_top_sections(cfg)
     serve_section = cfg.get("serving", None)
     serve_cfg = ServeConfig.from_dict(
         serve_section.to_dict() if hasattr(serve_section, "to_dict") else serve_section

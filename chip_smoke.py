@@ -150,10 +150,28 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    last, a hard-linked copy of the step dir with its DCP data file cut by
    one byte, which ``verify-ckpt`` must fail. The save, load and
    consolidation times and bytes are printed beside the card's name and
-   power limit, and the directory is deleted.
+   power limit, and the directory is deleted;
+18. the ``benchmark llm`` recipe (``recipes.benchmark.main`` on the
+   ``configs/benchmark_*.yaml`` dicts), 3 warmup and 10 measured steps in
+   four legs, each a fresh recipe: (a) Llama-3-8B widths cut to 8 layers,
+   2 x 4096 tokens, with the decode leg (4 greedy prompts of 64 tokens, 64
+   new tokens each) and the serving leg (16 Poisson requests at 8 a second,
+   128-1024 prompt tokens, 64 new, through the paged kernel); (b)
+   Qwen3-30B-A3B at 4 layers (K2); (c) gpt-oss-20b at 3 layers (K3); (d)
+   gemma-2-9b at 8 layers, 2 x 8192 tokens (K1 with the cap). Each leg's
+   step count, tokens a step, finite loss, an MFU in (0, 1) on the card's
+   peak (found by its name), positive dispatch and device means and a
+   positive peak of device memory must hold, each kernel's launches over
+   the 13 steps must equal its training phase's count a step x 13, and
+   leg (a)'s decode and serving legs must run (256 tokens; 16 requests;
+   the paged kernel decode forwards x 8 layers times) with the spill and
+   fleet legs naming their missing sections. Each leg's result is printed
+   beside its training phase's own step time and FLOP share, and the CUDA
+   runtime calls that make the host wait in one more step (torch.profiler,
+   CPU side), unchecked.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15, 16 and 17 last. After the build the
+phase 3b right after phase 3, phases 15, 16, 17 and 18 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -376,6 +394,30 @@ PRETRAIN_GEMMA2_9B = dict(
     loss_fn=dict(name="fused_linear_ce"),
     logging=dict(metrics_path="runs/torch_gemma2_9b/train_metrics.jsonl"),
 )
+
+# phase 18, the ``benchmark llm`` recipe: each leg is one card config with a
+# ``benchmark:`` section (automodel_tpu_torch/configs/benchmark_*.yaml as
+# dicts; tests/test_torch_benchmark.py checks each pair agrees). Leg (a)
+# adds the decode and serving legs: 4 greedy prompts of 64 tokens, 64 new
+# tokens each and no eos; 16 Poisson requests at 8 a second of 128-1024
+# prompt tokens and 64 new ones, on a pool that holds all 16 at once.
+BENCH_STEPS = dict(warmup_steps=3, measure_steps=10)
+BENCH_LLAMA3_8B = dict(
+    SFT_LLAMA3_8B,
+    step_scheduler=dict(SFT_LLAMA3_8B["step_scheduler"], grad_acc_steps=2),
+    benchmark=BENCH_STEPS,
+    generation=dict(max_new_tokens=64, greedy=True, bench_batch=4, bench_prompt_len=64),
+    serving=dict(slots=16, block_size=16, num_blocks=2048, prefill_chunk=512, max_seq_len=2048,
+                 prefix_cache=True, kv_cache_dtype="bf16", decode_kernel="auto", bench_requests=16,
+                 bench_rate=8.0, bench_prompt_len_min=128, bench_prompt_len_max=1024, bench_max_new_tokens=64),
+    logging=dict(metrics_path="runs/torch_bench_llama3_8b/bench_metrics.jsonl"),
+)
+BENCH_QWEN3_MOE_A3B = dict(PRETRAIN_QWEN3_MOE_A3B, benchmark=BENCH_STEPS,
+                           logging=dict(metrics_path="runs/torch_bench_qwen3_moe_a3b/bench_metrics.jsonl"))
+BENCH_GPT_OSS_20B = dict(PRETRAIN_GPT_OSS_20B, benchmark=BENCH_STEPS,
+                         logging=dict(metrics_path="runs/torch_bench_gpt_oss_20b/bench_metrics.jsonl"))
+BENCH_GEMMA2_9B = dict(PRETRAIN_GEMMA2_9B, benchmark=BENCH_STEPS,
+                       logging=dict(metrics_path="runs/torch_bench_gemma2_9b/bench_metrics.jsonl"))
 
 
 def row_rel_err(out, ref) -> float:
@@ -2020,6 +2062,175 @@ def phase_checkpoint(torch) -> dict:
     return out
 
 
+# -- phase 18: the benchmark llm recipe ------------------------------------------
+
+
+def bench_config(base: dict, tag: str) -> dict:
+    """A phase-18 leg's config on the card with a JSONL path of its own."""
+    cfg = json.loads(json.dumps(base))
+    cfg["device"] = "cuda"
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"bench_{tag}_{time.time_ns()}.jsonl")
+    return cfg
+
+
+def step_host_syncs(torch, recipe) -> dict:
+    """One more training step (the scheduler's next batch) under
+    torch.profiler, CPU side only: the CUDA runtime calls in it that make
+    the host wait for the card or free its memory, by name and count. A
+    ``dispatch`` time near the step's means the host waited inside
+    ``train_step``: on one of these, or on a full launch queue (which no
+    event shows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from automodel_tpu_torch.data.collators import stack_microbatches
+
+    batch = recipe._place(stack_microbatches(next(iter(recipe.step_scheduler))))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        recipe.train_step(recipe.state, batch)
+    torch.cuda.synchronize()
+    waits = ("Synchronize", "cudaFree", "cudaMemcpy", "cudaStreamWaitEvent")
+    counts: dict[str, int] = {}
+    for e in prof.events():
+        if e.name.startswith("cuda") and any(w in e.name for w in waits):
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+def run_bench_leg(torch, label: str, cfg: dict, kernels: dict, per_step: dict, training: dict) -> dict:
+    """One leg through ``recipes.benchmark.main``: every kernel count set to
+    0 just before the recipe, read when its measured steps end (before the
+    decode leg), and each equal to its per-step count x (warmup + measured)
+    steps; the paged kernel's launches counted over the serving leg alone.
+    The result's checks fail the phase; the matching training phase's own
+    step time and FLOP share are printed beside it, unchecked."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+    from automodel_tpu_torch.recipes import benchmark as bm
+    from automodel_tpu_torch.serving.engine import ServingEngine
+
+    bench = cfg["benchmark"]
+    steps = bench["warmup_steps"] + bench["measure_steps"]
+    sched = cfg["step_scheduler"]
+    layers = cfg["model"]["hf_config"]["num_hidden_layers"]
+    want = {k: v * steps for k, v in per_step.items()}
+    after_steps, engines = {}, []
+    cls = bm.BenchmarkingRecipeForNextTokenPrediction
+    real = (cls._generation_leg, cls._serving_leg, ServingEngine.run_workload)
+
+    def generation_leg(self):  # the measured steps are done: read their counts
+        after_steps.update({k: getattr(f, attr) for k, (f, attr) in kernels.items()})
+        after_steps["host_syncs"] = step_host_syncs(torch, self)
+        return real[0](self)
+
+    def serving_leg(self):
+        paged_attend.launches = 0
+        try:
+            return real[1](self)
+        finally:
+            after_steps["paged_attention"] = paged_attend.launches
+
+    def run_workload(self, arrivals):
+        engines.append(self)
+        return real[2](self, arrivals)
+
+    cls._generation_leg, cls._serving_leg, ServingEngine.run_workload = generation_leg, serving_leg, run_workload
+    try:
+        # the main path's run: every count set to 0 just before, read just after the steps
+        for f, attr in kernels.values():
+            setattr(f, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = bm.main(ConfigNode(cfg))
+        wall = time.perf_counter() - t0
+    finally:
+        cls._generation_leg, cls._serving_leg, ServingEngine.run_workload = real
+    launches = {k: after_steps[k] for k in kernels}
+    if launches != want:
+        raise RuntimeError(f"{label}: kernel launches over the {steps} steps {launches}, want {want}")
+    tokens = cfg["dataset"]["seq_length"] * sched["grad_acc_steps"] * cfg["dataloader"]["global_batch_size"]
+    problems = []
+    if res["timers"]["step"]["count"] != bench["measure_steps"]:
+        problems.append(f"timers.step.count {res['timers']['step']['count']}")
+    if res["tokens_per_step"] != tokens:
+        problems.append(f"tokens_per_step {res['tokens_per_step']}, want {tokens}")
+    if not math.isfinite(res["loss"]):
+        problems.append(f"loss {res['loss']}")
+    if not isinstance(res["mfu"], float) or not 0 < res["mfu"] < 1:
+        problems.append(f"mfu {res['mfu']} (want a number in (0, 1) on the card's peak)")
+    if not all(v > 0 for v in res["step_decomposition"].values()):
+        problems.append(f"step_decomposition {res['step_decomposition']}")
+    if not any(d.get("peak_bytes_in_use", 0) > 0 for d in res["memory"]["devices"].values()):
+        problems.append(f"memory.devices {res['memory']['devices']}")
+    if "generation" in cfg:
+        n_gen = cfg["generation"]["bench_batch"] * cfg["generation"]["max_new_tokens"]
+        if res["gen_failure"] is not None or res["gen_tokens"] != n_gen or not res["gen_decode_tps"] > 0:
+            problems.append(f"decode leg {res['gen_failure']}, {res.get('gen_tokens')} tokens (want {n_gen}), "
+                            f"{res['gen_decode_tps']} tokens/s")
+    if "serving" in cfg:
+        n_req = cfg["serving"]["bench_requests"]
+        if res["serve_failure"] is not None or res["serve_requests"] != n_req or not res["serve_tokens_per_s"] > 0:
+            problems.append(f"serving leg {res['serve_failure']}, {res['serve_requests']} requests (want {n_req}), "
+                            f"{res['serve_tokens_per_s']} tokens/s")
+        forwards = sum(e.decode_forwards for e in engines)
+        if after_steps["paged_attention"] != forwards * layers or forwards == 0:
+            problems.append(f"paged kernel launched {after_steps['paged_attention']} times for {forwards} decode "
+                            f"forwards x {layers} layers")
+        if "kv_spill" not in res["serve_spill_failure"] or "fleet" not in res["serve_fleet_failure"]:
+            problems.append(f"spill / fleet reasons {res['serve_spill_failure']!r} / {res['serve_fleet_failure']!r}")
+    if problems:
+        raise RuntimeError(f"{label}: " + "; ".join(problems))
+    shown = dict(res, memory=dict(res["memory"], census={k: v for k, v in res["memory"]["census"].items()
+                                                         if k != "top"}))
+    out = dict(result=shown, launches=launches, wall_s=wall, host_syncs_one_more_step=after_steps["host_syncs"],
+               paged_attention_launches=after_steps.get("paged_attention"),
+               decode_forwards=sum(e.decode_forwards for e in engines) if engines else None,
+               training_phase={k: training.get(k) for k in ("step_ms", "model_flops_share_of_989", "tokens_per_s")})
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_benchmark(torch, training: dict, moe: dict, gpt_oss: dict, gemma: dict) -> dict:
+    """The four legs, each a fresh recipe: (a) Llama-3-8B at 8 layers with
+    its decode and serving legs, (b) Qwen3-30B-A3B at 4 layers (K2), (c)
+    gpt-oss-20b at 3 layers (K3), (d) gemma-2-9b at 8 layers (K1 with the
+    cap); each kernel's count as its training phase counts it a step."""
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+    from automodel_tpu_torch.ops import ring_flash as rf
+
+    def flash(layers, acc):
+        return dict(flash_fwd=(rf.flash_block_fwd, "launches"), flash_dq=(rf.flash_block_dq, "launches"),
+                    flash_dkv=(rf.flash_block_dkv, "launches")), dict.fromkeys(
+                        ("flash_fwd", "flash_dq", "flash_dkv"), layers * acc)
+
+    legs = {}
+    cfg = bench_config(BENCH_LLAMA3_8B, "llama3_8b")
+    kernels, per = flash(cfg["model"]["hf_config"]["num_hidden_layers"], cfg["step_scheduler"]["grad_acc_steps"])
+    legs["llama"] = run_bench_leg(torch, "benchmark (a) llama-3-8b", cfg, kernels, per, training)
+
+    cfg = bench_config(BENCH_QWEN3_MOE_A3B, "qwen3_moe_a3b")
+    n = cfg["model"]["hf_config"]["num_hidden_layers"] * cfg["step_scheduler"]["grad_acc_steps"]
+    kernels, per = flash(cfg["model"]["hf_config"]["num_hidden_layers"], cfg["step_scheduler"]["grad_acc_steps"])
+    kernels.update(gmm=(gm.gmm, "launches"), gmm_t=(gm.gmm, "launches_t"), tgmm=(gm.tgmm, "launches"))
+    per.update(gmm=2 * n, gmm_t=2 * n, tgmm=2 * n)  # two of each per MoE layer, as phase 9
+    legs["qwen3_moe"] = run_bench_leg(torch, "benchmark (b) qwen3-30b-a3b", cfg, kernels, per, moe)
+
+    cfg = bench_config(BENCH_GPT_OSS_20B, "gpt_oss_20b")
+    n = cfg["model"]["hf_config"]["num_hidden_layers"] * cfg["step_scheduler"]["grad_acc_steps"]
+    per = dict(fem_fwd=n, fem_bwd_gu=n, fem_bwd_act=n, fem_bwd_dwd=n, fem_bwd_dx=n, gmm=n, gmm_t=n, tgmm=0,
+               flash_fwd=n, flash_dq=n, flash_dkv=n)  # as phase 13
+    legs["gpt_oss"] = run_bench_leg(torch, "benchmark (c) gpt-oss-20b", cfg, fused_kernel_counters(), per, gpt_oss)
+
+    cfg = bench_config(BENCH_GEMMA2_9B, "gemma2_9b")
+    kernels, per = flash(cfg["model"]["hf_config"]["num_hidden_layers"], cfg["step_scheduler"]["grad_acc_steps"])
+    legs["gemma2"] = run_bench_leg(torch, "benchmark (d) gemma-2-9b", cfg, kernels, per, gemma)
+    return legs
+
+
 # -- phases 10 and 14: one step, two experts backends ---------------------------
 
 
@@ -2828,6 +3039,9 @@ def main() -> int:
         gemma = phase_gemma_training(torch)
         phase_gemma_flash_vs_sdpa(torch)
         phase_checkpoint(torch)
+        t0 = time.perf_counter()
+        phase_benchmark(torch, training, moe, gpt_oss, gemma)
+        print(f"phase 18 (benchmark llm, four legs): {time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas)

@@ -82,7 +82,7 @@ def test_cuda_device_without_cuda_raises(monkeypatch, capsys):
         _serve(monkeypatch, capsys, ['{"prompt_ids": [1]}'], "--device=cuda")
 
 
-@pytest.mark.parametrize("command", ["kd", "generate", "route"])
+@pytest.mark.parametrize("command", ["kd", "dpo", "route"])
 def test_other_commands_exit_2(command, capsys):
     assert app.main([command, "llm", "-c", CFG]) == 2
     assert "not ported" in capsys.readouterr().err
@@ -128,7 +128,7 @@ def test_finetune_without_cuda_raises():
         ("--fault_tolerance.emergency_checkpoint=false", "fault_tolerance"),
         ("--fault_tolerance.on_nonfinite=rollback", "on_nonfinite"),
         ("--data.prefetch.depth=2", "prefetch"),
-        ("--generation.max_new_tokens=8", "generation"),
+        ("--generation.tokenizer=meta-llama/Meta-Llama-3-8B", "generation.tokenizer"),
         ("--validation_dataset.seq_length=8", "validation_dataset"),
         ("--distributed.dp_shard=-1", "distributed"),
         ("--distributed.tp=2", "distributed"),
