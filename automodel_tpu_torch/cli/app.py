@@ -3,14 +3,16 @@
     python -m automodel_tpu_torch.cli.app serve -c cfg.yaml [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app benchmark llm -c cfg.yaml [--dotted.key=value ...]
+    python -m automodel_tpu_torch.cli.app kd llm -c cfg.yaml [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app generate -c cfg.yaml [--prompt '1 2 3'] [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]
 
 ``serve`` runs the stdin-JSONL serving front (serving/server.py);
 ``finetune llm`` and ``pretrain llm`` run the training recipe
-(recipes/train_ft.py) and ``benchmark llm`` the benchmark recipe
-(recipes/benchmark.py), as ``automodel_tpu/cli/app.py:184-186`` routes
-them; ``generate`` runs the KV-cache generation engine on token-id prompts
+(recipes/train_ft.py), ``benchmark llm`` the benchmark recipe
+(recipes/benchmark.py) and ``kd llm`` the knowledge-distillation recipe
+(recipes/kd.py), as ``automodel_tpu/cli/app.py:184-187`` routes them;
+``generate`` runs the KV-cache generation engine on token-id prompts
 (generation/engine.py), as ``automodel_tpu/cli/app.py:90-97`` routes it.
 All run on the config's ``device`` (``cuda`` unless ``--device=cpu``).
 ``verify-ckpt`` audits a checkpoint tree's manifests without loading a
@@ -25,9 +27,9 @@ import sys
 
 from automodel_tpu_torch.config.arg_parser import parse_args_and_load_config
 
-TRAIN_COMMANDS = ("finetune", "pretrain", "benchmark")
+TRAIN_COMMANDS = ("finetune", "pretrain", "benchmark", "kd")
 NOT_PORTED = (
-    "kd", "dpo", "grpo", "mine",
+    "dpo", "grpo", "mine",
     "route", "fleet-status", "profile", "report", "goodput", "trace",
 )
 
@@ -37,7 +39,7 @@ def _usage() -> str:
         "usage: python -m automodel_tpu_torch.cli.app serve -c config.yaml "
         "[--device=cpu] [--dotted.key=value ...]  (stdin JSONL in, one JSON "
         "line per finished request out)\n"
-        "       python -m automodel_tpu_torch.cli.app {finetune|pretrain|benchmark} llm -c config.yaml "
+        "       python -m automodel_tpu_torch.cli.app {finetune|pretrain|benchmark|kd} llm -c config.yaml "
         "[--device=cpu] [--dotted.key=value ...]\n"
         "       python -m automodel_tpu_torch.cli.app generate -c config.yaml [--prompt '1 2 3'] "
         "[--device=cpu] [--dotted.key=value ...]\n"
@@ -78,6 +80,8 @@ def main(argv: list[str] | None = None) -> int:
             return _not_ported(f"{command} {domain}".strip())
         if command == "benchmark":
             from automodel_tpu_torch.recipes.benchmark import main as recipe_main
+        elif command == "kd":
+            from automodel_tpu_torch.recipes.kd import main as recipe_main
         else:
             from automodel_tpu_torch.recipes.train_ft import main as recipe_main
 

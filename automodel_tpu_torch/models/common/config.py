@@ -8,12 +8,20 @@ ops/ring_flash.py) for the no-cache forward that training runs.
 an MoE model runs ``ragged``, the grouped-matmul kernels, ``ragged_fused``,
 the fused expert-MLP kernels, or ``dense``, and raises naming any other)
 and ``fake_balanced_gate`` swaps the router for deterministic balanced
-routing. ``TransformerConfig.from_hf`` reads the rope scaling (yarn
-included), an explicit ``head_dim``, ``attention_bias`` and the sliding
-window. Any other attention value, or any key
-the JAX backend has but the port does not (``remat``, ``scan_layers``,
-``fp8``, ``fp8_experts``, ``attn_block_*``, ...), is refused rather than
-ignored.
+routing. ``remat`` is the activation-recompute policy of each decoder
+layer (``none | full | selective | full_save_dispatch``,
+models/common/stacking.py). ``scan_layers`` is accepted and changes
+nothing: the port always loops over the layers' ``nn.ModuleList``, JAX's
+unrolled path, whose numbers are the scanned path's. ``attn_block_q`` and
+``attn_block_kv`` take only JAX's default, 512 (in JAX it leaves splash's
+tiles to its tuning table), and change nothing: the flash kernels' tiles
+are fixed by their template (csrc/flash_attention.cu), so any other value,
+which would ask for a tiling, is refused. ``TransformerConfig.from_hf`` reads the rope
+scaling (yarn included), an explicit ``head_dim``, ``attention_bias``, the
+sliding window and ``partial_rotary_factor`` (Phi-3: only the first
+``rope_dim`` channels of a head rotate). Any other attention value, or any
+key the JAX backend has but the port does not (``fp8``, ``fp8_experts``,
+``cp_zigzag``, ``pp_microbatches``, ...), is refused rather than ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Any, Optional
 
 import torch
 
+from automodel_tpu_torch.models.common.stacking import REMAT_POLICIES
 from automodel_tpu_torch.ops.rope import RopeConfig
 
 ATTN_BACKENDS = ("sdpa", "flash")
@@ -50,6 +59,10 @@ class BackendConfig:
     compute_dtype: str = "bfloat16"
     experts: str = "gspmd"
     fake_balanced_gate: bool = False
+    remat: str = "none"
+    scan_layers: bool = True
+    attn_block_q: int = 512
+    attn_block_kv: int = 512
 
     def __post_init__(self):
         if self.experts not in EXPERTS_NAMES:
@@ -59,6 +72,15 @@ class BackendConfig:
                 f"backend.attn={self.attn!r} is not ported to the torch backend "
                 f"(it takes {list(ATTN_BACKENDS)})"
             )
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"Unknown remat policy {self.remat!r} (want one of {list(REMAT_POLICIES)})")
+        for key in ("attn_block_q", "attn_block_kv"):
+            value = getattr(self, key)
+            if isinstance(value, bool) or value != 512:
+                raise ValueError(
+                    f"backend.{key}={value!r}: the torch backend takes only JAX's default 512, since the flash "
+                    "kernels' tiles are fixed by their template (csrc/flash_attention.cu)"
+                )
         for key in ("param_dtype", "compute_dtype"):
             if getattr(self, key) not in _DTYPES:
                 raise ValueError(f"backend.{key}={getattr(self, key)!r} (want {sorted(_DTYPES)})")
@@ -110,6 +132,9 @@ class TransformerConfig:
     # HF qwen2 convention: the first `max_window_layers` layers attend fully
     max_window_layers: int = 0
     attn_scale: Optional[float] = None  # override 1/sqrt(head_dim)
+    # Phi-3 / GLM-4 partial rotary: only the first head_dim * factor
+    # channels rotate
+    partial_rotary_factor: float = 1.0
 
     @classmethod
     def from_hf(cls, hf_cfg: Any) -> "TransformerConfig":
@@ -117,8 +142,6 @@ class TransformerConfig:
         get = lambda k, d=None: (
             hf_cfg.get(k, d) if isinstance(hf_cfg, dict) else getattr(hf_cfg, k, d)
         )
-        if (get("partial_rotary_factor", 1.0) or 1.0) != 1.0:
-            raise ValueError("partial_rotary_factor != 1 is not ported to the torch backend")
         heads = get("num_attention_heads")
         hidden = get("hidden_size")
         model_type = get("model_type", "llama")
@@ -144,7 +167,15 @@ class TransformerConfig:
                 else None
             ),
             max_window_layers=get("max_window_layers", 0) or 0,
+            partial_rotary_factor=get("partial_rotary_factor", 1.0) or 1.0,
         )
+
+    @property
+    def rope_dim(self) -> Optional[int]:
+        """Rotary channel count when partial (None: the whole head_dim)."""
+        if self.partial_rotary_factor and self.partial_rotary_factor < 1.0:
+            return int(self.head_dim * self.partial_rotary_factor)
+        return None
 
     @property
     def q_dim(self) -> int:

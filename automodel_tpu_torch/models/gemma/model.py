@@ -22,11 +22,11 @@ from llama (modeling_gemma2.py, modeling_gemma3.py):
   theta on them (two rope tables, :224-231);
 - Gemma 3's per-head q/k norms (:160-162).
 
-The layers are a Python loop with a static window per layer, as in
-``models/llama/model.py`` (``layer_sliding_window``): JAX's unrolled path
-(``ops/attention.py:421`` ``windowed_attention``) takes the same branch
-per layer. Parameter names follow HF (``pre_feedforward_layernorm``,
-``post_feedforward_layernorm``, ...). KV-cache decode (serving Gemma)
+The layers are a Python loop with a static window per layer, each
+attending through ``ops/attention.windowed_attention`` as JAX's unrolled
+path does (``ops/attention.py:421``), and each under the backend's
+``remat`` policy (models/common/stacking.py). Parameter names follow HF
+(``pre_feedforward_layernorm``, ``post_feedforward_layernorm``, ...). KV-cache decode (serving Gemma)
 waits for a later slice: ``cache=`` raises.
 """
 
@@ -41,9 +41,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+from automodel_tpu_torch.models.common.stacking import remat_wrap
 from automodel_tpu_torch.models.gemma.state_dict_adapter import GemmaStateDictAdapter
 from automodel_tpu_torch.models.llama.model import ACT_FNS, _linear, _proj
-from automodel_tpu_torch.ops.attention import attention
+from automodel_tpu_torch.ops.attention import windowed_attention
 from automodel_tpu_torch.ops.norms import rms_norm_gemma
 from automodel_tpu_torch.ops.rope import apply_rope, rope_table
 
@@ -202,12 +203,12 @@ class GemmaForCausalLM(nn.Module):
         if cfg.qk_norm:
             q = attn.q_norm(q)
             k = attn.k_norm(k)
-        window = cfg.layer_window(i)
-        cos, sin = ropes["local" if window is not None else "global"]
+        sliding = cfg.layer_window(i) is not None
+        cos, sin = ropes["local" if sliding else "global"]
         q, k = apply_rope(q, k, cos, sin)
-        out = attention(
-            q, k, v, backend=self.backend.attn, causal=True, scale=cfg.query_pre_attn_scalar**-0.5,
-            segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap, sliding_window=window,
+        out = windowed_attention(
+            q, k, v, backend=self.backend.attn, is_sliding=sliding, window=cfg.sliding_window, causal=True,
+            scale=cfg.query_pre_attn_scalar**-0.5, segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
         )
         h = h + layer.post_attention_layernorm(_proj(out.reshape(B, S, cfg.q_dim), attn.o_proj))
         y = layer.pre_feedforward_layernorm(h)
@@ -239,8 +240,9 @@ class GemmaForCausalLM(nn.Module):
             "global": rope_table(position_ids, cfg.head_dim, cfg.rope),
             "local": rope_table(position_ids, cfg.head_dim, local),
         }
+        layer_fn = remat_wrap(self._layer, self.backend.remat)
         for i, layer in enumerate(self.model.layers):
-            h = self._layer(i, layer, h, ropes, segment_ids)
+            h = layer_fn(i, layer, h, ropes, segment_ids)
         return self.model.norm(h)
 
     def lm_head_weight(self) -> torch.Tensor:

@@ -13,7 +13,11 @@ dtype, logits come out in the compute dtype.
 Without a cache (the training forward) each layer attends through
 ``ops.attention.attention`` with the configured backend (``sdpa``, or
 ``flash``: the flash-attention kernels), causal over the token index, with
-packed ``segment_ids`` if given; RoPE follows ``position_ids``.
+packed ``segment_ids`` if given; RoPE follows ``position_ids`` and
+rotates the first ``rope_dim`` channels of a head under a
+``partial_rotary_factor`` (Phi-3). Each decoder layer runs under the
+backend's ``remat`` policy (models/common/stacking.py) when there is no
+cache.
 
 The KV-cache hook is the JAX one: with ``cache`` given, each attention
 layer calls ``cache.write(layer, k, v)`` with its post-RoPE keys and
@@ -35,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+from automodel_tpu_torch.models.common.stacking import remat_wrap
 from automodel_tpu_torch.models.llama.state_dict_adapter import LlamaStateDictAdapter
 from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.norms import rms_norm
@@ -237,14 +242,20 @@ class LlamaForCausalLM(nn.Module):
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
             position_ids = position_ids[None, :].expand(input_ids.shape)
         h = self.model.embed_tokens.weight[input_ids].to(cd)
-        cos, sin = rope_table(position_ids, cfg.head_dim, cfg.rope)
-        act = ACT_FNS[cfg.act]
+        cos, sin = rope_table(position_ids, cfg.rope_dim or cfg.head_dim, cfg.rope)
+        # inference with a cache never recomputes (it has no backward)
+        layer_fn = self._layer if cache is not None else remat_wrap(self._layer, self.backend.remat)
         for i, layer in enumerate(self.model.layers):
-            h = attention_block(cfg, self.backend, layer, i, h, cos, sin, cache, segment_ids)
-            x = layer.post_attention_layernorm(h)
-            mlp = layer.mlp
-            h = h + _proj(act(_proj(x, mlp.gate_proj)) * _proj(x, mlp.up_proj), mlp.down_proj)
+            h = layer_fn(i, layer, h, cos, sin, cache, segment_ids)
         return self.model.norm(h)
+
+    def _layer(self, i: int, layer: LlamaDecoderLayer, h, cos, sin, cache, segment_ids) -> torch.Tensor:
+        """Decoder layer ``i``: h + attention, then h + the gated MLP."""
+        h = attention_block(self.config, self.backend, layer, i, h, cos, sin, cache, segment_ids)
+        x = layer.post_attention_layernorm(h)
+        mlp = layer.mlp
+        act = ACT_FNS[self.config.act]
+        return h + _proj(act(_proj(x, mlp.gate_proj)) * _proj(x, mlp.up_proj), mlp.down_proj)
 
     def lm_head_weight(self) -> torch.Tensor:
         """The output projection [V, D] (the embedding when tied)."""

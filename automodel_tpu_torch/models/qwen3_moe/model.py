@@ -10,7 +10,10 @@ on the device) and the summed aux loss. Attention is the llama block
 kernels; the routed experts run through ``backend.experts``: ``ragged``
 (the grouped-matmul kernels), ``ragged_fused`` (the fused expert-MLP
 kernels) or ``dense`` (plain torch). Any other experts backend raises by
-name.
+name. Each decoder layer runs under the backend's ``remat`` policy
+(models/common/stacking.py; ``full_save_dispatch`` keeps the experts'
+sort permutations), and RoPE rotates the first ``rope_dim`` channels of a
+head, as JAX's does (:220-221).
 
 Parameter names follow HF (``model.layers.{i}.self_attn.*``,
 ``model.layers.{i}.mlp.gate.weight`` [E, D]) with the stacked expert
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+from automodel_tpu_torch.models.common.stacking import remat_wrap
 from automodel_tpu_torch.models.llama.model import (
     ACT_FNS,
     LlamaAttention,
@@ -187,23 +191,28 @@ class MoEForCausalLM(nn.Module):
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
             position_ids = position_ids[None, :].expand(input_ids.shape)
         h = self.model.embed_tokens.weight[input_ids].to(self.compute_dtype)
-        cos, sin = rope_table(position_ids, cfg.head_dim, cfg.rope)
-        act = ACT_FNS[cfg.act]
+        cos, sin = rope_table(position_ids, cfg.rope_dim or cfg.head_dim, cfg.rope)
+        layer_fn = remat_wrap(self._layer, self.backend.remat)
         counts, aux_losses = [], []
         for i, layer in enumerate(self.model.layers):
-            h = attention_block(cfg, self.backend, layer, i, h, cos, sin, None, segment_ids)
-            x = layer.post_attention_layernorm(h)
-            mlp = layer.mlp
-            if isinstance(mlp, MoEBlock):
-                out, aux = moe_block(
-                    x, mlp, act, self.backend.experts, self.backend.fake_balanced_gate, act_name=cfg.act
-                )
+            h, aux = layer_fn(i, layer, h, cos, sin, segment_ids)
+            if aux is not None:
                 counts.append(aux.expert_counts)
                 aux_losses.append(aux.aux_loss)
-                h = h + out
-            else:
-                h = h + _proj(act(_proj(x, mlp.gate_proj)) * _proj(x, mlp.up_proj), mlp.down_proj)
         return self.model.norm(h), MoEModelAux(torch.stack(counts), torch.stack(aux_losses).sum())
+
+    def _layer(self, i: int, layer: nn.Module, h, cos, sin, segment_ids):
+        """Decoder layer ``i`` → (h, the MoE block's aux, or None after a
+        dense MLP)."""
+        cfg = self.config
+        h = attention_block(cfg, self.backend, layer, i, h, cos, sin, None, segment_ids)
+        x = layer.post_attention_layernorm(h)
+        mlp = layer.mlp
+        act = ACT_FNS[cfg.act]
+        if isinstance(mlp, MoEBlock):
+            out, aux = moe_block(x, mlp, act, self.backend.experts, self.backend.fake_balanced_gate, act_name=cfg.act)
+            return h + out, aux
+        return h + _proj(act(_proj(x, mlp.gate_proj)) * _proj(x, mlp.up_proj), mlp.down_proj), None
 
     def lm_head_weight(self) -> torch.Tensor:
         """The output projection [V, D] (the embedding when tied)."""

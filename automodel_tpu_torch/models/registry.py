@@ -1,7 +1,12 @@
 """HF architecture → the port's model family.
 
 Port of ``automodel_tpu/models/registry.py`` for the families the port
-has: ``LlamaForCausalLM``, ``Qwen3MoeForCausalLM`` (the MoE family of
+has: ``LlamaForCausalLM`` and the dense architectures JAX sends to the
+same builder (:46-53): ``Qwen2ForCausalLM`` (attention biases),
+``Qwen3ForCausalLM`` (per-head q/k norms), ``MistralForCausalLM`` (the
+sliding window) and ``Phi3ForCausalLM`` (partial rotary; its fused
+``qkv_proj`` / ``gate_up_proj`` checkpoints load through
+checkpoint/conversion_mapping.py); ``Qwen3MoeForCausalLM`` (the MoE family of
 ``models/qwen3_moe``, registered at :130 of the JAX registry),
 ``GptOssForCausalLM`` (``models/gpt_oss``, :106) and
 ``Gemma2ForCausalLM`` / ``Gemma3ForCausalLM`` (``models/gemma``, :70). A
@@ -28,7 +33,9 @@ def register_architecture(*names: str):
     return deco
 
 
-@register_architecture("LlamaForCausalLM")
+@register_architecture(
+    "LlamaForCausalLM", "Qwen2ForCausalLM", "Qwen3ForCausalLM", "MistralForCausalLM", "Phi3ForCausalLM"
+)
 def _llama_builder(hf_config: Any, backend: BackendConfig, device=None, trainable: bool = False):
     from automodel_tpu_torch.models.llama import LlamaForCausalLM
 

@@ -6,12 +6,20 @@
   before the value product), with gpt-oss sinks as an extra softmax
   column. It is the reference the flash kernels' plain version is held to;
   chunked prefill and the gather decode backend run through ``sdpa_decode``.
+  ``bidir_groups`` ORs a bidirectional mask over token groups (Gemma 3's
+  image blocks) onto the causal and window mask.
 - ``flash``: the flash-attention kernels of ``ops/ring_flash.py``
   (``csrc/flash_attention.cu`` on a CUDA tensor, their plain version on a
   CPU tensor), with the logits soft cap applied inside them (Gemma 2) and
   sinks folded around them (gpt-oss), at head_dim 64, 128 and 256. It
   never goes to ``sdpa``: what the kernels do not take (another head_dim,
   another dtype on the card) raises.
+
+``windowed_attention`` is the entry of the layer stacks that mix full and
+windowed layers (Gemma 2/3): the layer's flag picks its window. A call
+with ``bidir_groups`` runs under ``sdpa`` and raises under ``flash``: the
+mask depends on the data and the flash kernels mask by position only
+(JAX runs such a call on sdpa rather than splash, :421-460).
 
 The JAX ``ring`` backend waits for the context-parallel port.
 """
@@ -45,6 +53,7 @@ def sdpa(
     sliding_window: Optional[int] = None,
     kv_mask: Optional[torch.Tensor] = None,
     sinks: Optional[torch.Tensor] = None,
+    bidir_groups: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q [B, Sq, N, H], k/v [B, Sk, Nkv, H] → [B, Sq, N, H] in q.dtype.
     Causal and window masks align the last query with the last key, as in
@@ -52,7 +61,9 @@ def sdpa(
     [B, Sk] (one mask for every query) or [B, Sq, Sk] ANDs onto the rest.
     ``sinks`` [N]: per-head learned logits of a virtual key that absorbs
     probability mass (gpt-oss): a column of the softmax, dropped after it
-    (:110-117)."""
+    (:110-117). ``bidir_groups`` [B, S] int group ids, -1 for ordinary
+    tokens: tokens of one nonnegative group see each other both ways, ORed
+    onto the causal and window mask before the segment mask (:97-100)."""
     sq, n, h = q.shape[1], q.shape[2], q.shape[3]
     sk, n_kv = k.shape[1], k.shape[2]
     k = repeat_kv(k, n // n_kv)
@@ -69,6 +80,10 @@ def sdpa(
         pos_k = torch.arange(sk, device=q.device)[None, :]
         mask = mask & (pos_q - pos_k < sliding_window)
     mask = mask[None, None]
+    if bidir_groups is not None:
+        gq = bidir_groups[:, None, :, None]
+        gk = bidir_groups[:, None, None, :]
+        mask = mask | ((gq >= 0) & (gq == gk))
     if segment_ids is not None:
         mask = mask & (segment_ids[:, None, :, None] == segment_ids[:, None, None, :])
     if kv_mask is not None:
@@ -124,12 +139,51 @@ def flash(
 ATTENTION_BACKENDS = {"sdpa": sdpa, "flash": flash}
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backend: str = "sdpa", **kwargs) -> torch.Tensor:
-    """Dispatch on ``backend`` (``sdpa`` | ``flash``); anything else raises."""
+def windowed_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    backend: str,
+    is_sliding: bool,
+    window: Optional[int],
+    causal: bool = True,
+    scale: Optional[float] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+    logits_soft_cap: Optional[float] = None,
+    sinks: Optional[torch.Tensor] = None,
+    bidir_groups: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention of one layer of a stack that mixes full and windowed
+    layers (JAX :421): ``window`` when ``is_sliding``, else none, through
+    ``backend``. ``bidir_groups`` (a mask that depends on the data) is
+    taken by ``sdpa`` only: the flash kernels mask by position alone, so
+    under ``flash`` it raises rather than leave the kernels."""
+    kw = dict(
+        causal=causal, scale=scale, segment_ids=segment_ids, logits_soft_cap=logits_soft_cap,
+        sliding_window=window if is_sliding else None, sinks=sinks,
+    )
+    fn = _backend_fn(backend)
+    if bidir_groups is not None:
+        if fn is not sdpa:
+            raise ValueError(
+                f"bidir_groups (a bidirectional mask over token groups, which depends on the data) is not "
+                f"taken by the {backend!r} backend: its kernels mask by position only; use attn: sdpa"
+            )
+        kw["bidir_groups"] = bidir_groups
+    return fn(q, k, v, **kw)
+
+
+def _backend_fn(backend: str):
     fn = ATTENTION_BACKENDS.get(backend)
     if fn is None:
         raise ValueError(
             f"Unknown attention backend {backend!r}; the torch backend has {sorted(ATTENTION_BACKENDS)} "
             "(ring waits for the context-parallel port)"
         )
-    return fn(q, k, v, **kwargs)
+    return fn
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backend: str = "sdpa", **kwargs) -> torch.Tensor:
+    """Dispatch on ``backend`` (``sdpa`` | ``flash``); anything else raises."""
+    return _backend_fn(backend)(q, k, v, **kwargs)

@@ -1,6 +1,7 @@
 """Causal-LM losses, port of ``automodel_tpu/ops/losses.py``
 (``masked_cross_entropy``, ``chunked_cross_entropy``,
-``fused_linear_cross_entropy``, ``build_loss``).
+``fused_linear_cross_entropy``, ``kd_loss``,
+``nemotron_parse_cross_entropy``, ``build_loss``).
 
 Every loss returns ``(loss_sum fp32, n_valid)``: the caller normalizes by
 the global token count over all microbatches. Labels are already shifted
@@ -100,16 +101,66 @@ def fused_linear_cross_entropy(
     return _chunked(body, hidden.reshape(-1, hidden.shape[-1]), labels.reshape(-1), num_chunks)
 
 
+def kd_loss(
+    student_logits: torch.Tensor,
+    teacher_logits: torch.Tensor,
+    labels: torch.Tensor,
+    temperature: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward-KL knowledge distillation (JAX :205): the fp32 log-softmax
+    of both logits over ``temperature``, KL(teacher || student) per token
+    times temperature^2, summed over the tokens whose label is not
+    ``IGNORE_INDEX``. → (sum, n_valid)."""
+    v = student_logits.shape[-1]
+    s = student_logits.reshape(-1, v).float() / temperature
+    t = teacher_logits.reshape(-1, v).float() / temperature
+    valid = labels.reshape(-1) != IGNORE_INDEX
+    t_logp = torch.log_softmax(t, dim=-1)
+    s_logp = torch.log_softmax(s, dim=-1)
+    kl = (t_logp.exp() * (t_logp - s_logp)).sum(dim=-1) * (temperature**2)
+    return torch.where(valid, kl, torch.zeros_like(kl)).sum(), valid.sum()
+
+
+def nemotron_parse_cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    coordinate_weight: float = 10.0,
+    class_token_start_idx: int = 50000,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Coordinate-weighted CE (JAX :226): a token whose label id is at
+    least ``class_token_start_idx`` (a box coordinate or class token) has
+    its loss times ``coordinate_weight``; the count stays the unweighted
+    valid-token count. → (weighted sum, n_valid)."""
+    v = logits.shape[-1]
+    flat = logits.reshape(-1, v).float()
+    lb = labels.reshape(-1)
+    valid = lb != IGNORE_INDEX
+    safe = torch.where(valid, lb, torch.zeros_like(lb))
+    lse = torch.logsumexp(flat, dim=-1)
+    picked = flat.gather(-1, safe[:, None].long())[:, 0]
+    per_tok = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    w = torch.where(lb >= class_token_start_idx, coordinate_weight, 1.0).float()
+    return (per_tok * w).sum(), valid.sum()
+
+
 LOSS_REGISTRY = {
     "masked_ce": masked_cross_entropy,
     "chunked_ce": chunked_cross_entropy,
     "fused_linear_ce": fused_linear_cross_entropy,
+    "kd": kd_loss,
+    "nemotron_parse": nemotron_parse_cross_entropy,
 }
 
 
 def build_loss(name: str = "masked_ce", **kwargs):
-    """The named loss with ``kwargs`` bound. The JAX package's other losses
-    (``kd``, ``nemotron_parse``, ``vocab_parallel_ce``) are refused."""
+    """The named loss with ``kwargs`` bound. ``vocab_parallel_ce`` (JAX
+    :139, a sum over the tensor-parallel mesh axis) is refused by name
+    until the port has parallelism."""
+    if name == "vocab_parallel_ce":
+        raise ValueError(
+            "loss 'vocab_parallel_ce' (vocab_parallel_cross_entropy) is not ported to the torch backend: "
+            "it sums over the tensor-parallel mesh axis, and the port runs one device"
+        )
     fn = LOSS_REGISTRY.get(name)
     if fn is None:
         raise ValueError(

@@ -3,8 +3,11 @@
 Rotate-half layout (HF transformers convention). Scalings: none, ``linear``,
 ``llama3`` and ``yarn`` (GPT-OSS), whose cos and sin carry the attention
 factor. As in the JAX package, yarn always floors and ceils the ramp's ends
-and ignores HF's ``truncate`` key; ``mrope_table`` and ``yarn_mscale`` are
-not ported.
+and ignores HF's ``truncate`` key. ``yarn_mscale`` is the softmax-scale
+correction of YaRN models that fold it there (DeepSeek MLA),
+``mrope_table`` the interleaved multi-axis tables (Qwen3-VL), and
+``apply_rope`` rotates only the table's channels when the table is
+narrower than the head (partial rotary, Phi-3 / GLM-4).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ class RopeConfig:
     # yarn
     beta_fast: float = 32.0
     beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
     attention_factor: float | None = None  # HF yarn cos/sin multiplier
 
     SUPPORTED_SCALINGS = (None, "llama3", "linear", "yarn")
@@ -54,6 +59,8 @@ class RopeConfig:
             ),
             beta_fast=rs.get("beta_fast", 32.0),
             beta_slow=rs.get("beta_slow", 1.0),
+            mscale=rs.get("mscale", 1.0),
+            mscale_all_dim=rs.get("mscale_all_dim", 0.0),
             attention_factor=rs.get("attention_factor"),
         )
 
@@ -106,6 +113,19 @@ def attention_factor(cfg: RopeConfig) -> float:
     return 0.1 * math.log(cfg.factor) + 1.0 if cfg.factor > 1.0 else 1.0
 
 
+def yarn_mscale(cfg: RopeConfig) -> float:
+    """The attention magnitude correction of YaRN models that fold it into
+    the softmax scale (DeepSeek MLA; JAX :119): 1 unless yarn with factor >
+    1."""
+    if cfg.scaling != "yarn" or cfg.factor <= 1.0:
+        return 1.0
+
+    def get(scale: float) -> float:
+        return 0.1 * scale * math.log(cfg.factor) + 1.0 if scale > 0 else 1.0
+
+    return get(cfg.mscale) / get(cfg.mscale_all_dim)
+
+
 def rope_table(
     position_ids: torch.Tensor, head_dim: int, cfg: RopeConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -113,6 +133,25 @@ def rope_table(
     inv = inv_freq(head_dim, cfg, device=position_ids.device)
     freqs = position_ids[..., None].float() * inv  # [..., S, hd/2]
     emb = torch.cat([freqs, freqs], dim=-1)
+    f = attention_factor(cfg)
+    return torch.cos(emb) * f, torch.sin(emb) * f
+
+
+def mrope_table(
+    position_ids: torch.Tensor, head_dim: int, cfg: RopeConfig, mrope_section: tuple[int, int, int]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved multi-axis RoPE (Qwen3-VL; JAX :141): position_ids [3, B,
+    S] are the t/h/w grid positions; frequency slot i takes the h axis when
+    i = 1 (mod 3) and i < 3 * section_h, the w axis when i = 2 (mod 3) and i
+    < 3 * section_w, else the t axis. → cos/sin [B, S, head_dim] (fp32)."""
+    inv = inv_freq(head_dim, cfg, device=position_ids.device)
+    freqs = position_ids[..., None].float() * inv  # [3, B, S, hd/2]
+    i = torch.arange(head_dim // 2, device=position_ids.device)
+    take_h = (i % 3 == 1) & (i < 3 * mrope_section[1])
+    take_w = (i % 3 == 2) & (i < 3 * mrope_section[2])
+    half = torch.where(take_h, freqs[1], freqs[0])
+    half = torch.where(take_w, freqs[2], half)
+    emb = torch.cat([half, half], dim=-1)
     f = attention_factor(cfg)
     return torch.cos(emb) * f, torch.sin(emb) * f
 
@@ -126,7 +165,16 @@ def apply_rope(
     q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply rotate-half RoPE in q's dtype. q/k: [B, S, N, H]; cos/sin:
-    [B, S, H]."""
+    [B, S, R]. With R < H (partial rotary) only the first R channels
+    rotate and the rest pass through, as HF's apply_rotary_pos_emb slices
+    (JAX :163-200)."""
+    rotary_dim = cos.shape[-1]
     c = cos[..., None, :].to(q.dtype)
     s = sin[..., None, :].to(q.dtype)
-    return q * c + _rotate_half(q) * s, k * c + _rotate_half(k) * s
+    if rotary_dim == q.shape[-1]:
+        return q * c + _rotate_half(q) * s, k * c + _rotate_half(k) * s
+    (qr, q_pass), (kr, k_pass) = (x.split([rotary_dim, x.shape[-1] - rotary_dim], dim=-1) for x in (q, k))
+    return (
+        torch.cat([qr * c + _rotate_half(qr) * s, q_pass], dim=-1),
+        torch.cat([kr * c + _rotate_half(kr) * s, k_pass], dim=-1),
+    )

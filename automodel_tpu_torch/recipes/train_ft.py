@@ -162,17 +162,13 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.lr_schedule = build_lr_schedule(lr=ocfg.get("lr", 1e-4), **dict(ocfg.get("lr_schedule") or {}))
         self.state = TrainState(params=params, optimizer=build_optimizer(params, **ocfg))
 
-        lcfg = dict(_plain(cfg.get("loss_fn", None)) or {})
-        lcfg.pop("_target_", None)
-        loss_name = lcfg.pop("name", "masked_ce")
-        self.loss_fn = make_causal_lm_loss(self.model, loss=loss_name, **lcfg)
-        on_nonfinite = (_plain(cfg.get("fault_tolerance", None)) or {}).get("on_nonfinite", "raise")
-        self.on_nonfinite = on_nonfinite
+        self.on_nonfinite = (_plain(cfg.get("fault_tolerance", None)) or {}).get("on_nonfinite", "raise")
+        # the counterpart of JAX's _make_train_step: both steps from one loss
+        self.loss_fn = self._make_loss_fn()
         self.train_step = build_train_step(
-            self.loss_fn, self.lr_schedule, on_nonfinite=on_nonfinite,
+            self.loss_fn, self.lr_schedule, on_nonfinite=self.on_nonfinite,
             post_step_fn=getattr(self.model, "post_step_fn", None),
         )
-
         self.eval_step = build_eval_step(self.loss_fn)
 
         if cfg.get("dataset", None) is None:
@@ -210,6 +206,15 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self._last_val_metric: Optional[float] = None
         if self.checkpointer is not None and self.checkpointer.has_checkpoint():
             self._restore()
+
+    def _make_loss_fn(self):
+        """The loss the train and eval steps take, over ``self.model``: the
+        ``loss_fn:`` section's. A recipe with another objective (the KD
+        recipe, recipes/kd.py) overrides this one method."""
+        lcfg = dict(_plain(self.cfg.get("loss_fn", None)) or {})
+        lcfg.pop("_target_", None)
+        loss_name = lcfg.pop("name", "masked_ce")
+        return make_causal_lm_loss(self.model, loss=loss_name, **lcfg)
 
     def _place(self, stacked: dict) -> dict:
         """[A]-stacked numpy batch → tensors on the training device."""

@@ -168,10 +168,26 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    fleet legs naming their missing sections. Each leg's result is printed
    beside its training phase's own step time and FLOP share, and the CUDA
    runtime calls that make the host wait in one more step (torch.profiler,
-   CPU side), unchecked.
+   CPU side), unchecked;
+19. the ``kd llm`` recipe (``recipes/kd.py``'s recipe class, as its
+   ``main`` runs it, on ``configs/kd_llama3_8b_to_llama3_2_1b.yaml`` as a
+   dict): first the flash kernels at the student's attention
+   (Llama-3.2-1B: B=1, S=4096, N=32, Nkv=8, H=64, causal, no sinks)
+   against their plain versions with phase 3's limits, timed beside the
+   bound and SDPA; then 4 steps of 2 x 4096 tokens with the Llama-3-8B
+   teacher (32 layers, frozen) and the Llama-3.2-1B student (16 layers),
+   both at full depth, with the student at ``remat: none``, ``full`` and
+   ``selective``: every loss and grad norm finite, the
+   teacher's forward kernel launched 32 x 2 x 4 times (read around its
+   forward), the student's 16 x 2 x 4 (twice that under ``full`` and
+   ``selective``, whose recompute runs it again), dq and dkv 16 x 2 x 4
+   each; the step time, tokens/s, peak memory and a profile of one more
+   step printed; last, one microbatch's KD loss
+   and the student's grad norm with both models cut to 2 layers, ``attn:
+   flash`` against ``attn: sdpa`` within phase 7's limits.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15, 16, 17 and 18 last. After the build the
+phase 3b right after phase 3, phases 15 to 19 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -418,6 +434,37 @@ BENCH_GPT_OSS_20B = dict(PRETRAIN_GPT_OSS_20B, benchmark=BENCH_STEPS,
                          logging=dict(metrics_path="runs/torch_bench_gpt_oss_20b/bench_metrics.jsonl"))
 BENCH_GEMMA2_9B = dict(PRETRAIN_GEMMA2_9B, benchmark=BENCH_STEPS,
                        logging=dict(metrics_path="runs/torch_bench_gemma2_9b/bench_metrics.jsonl"))
+
+
+# phase 19, the ``kd llm`` recipe: automodel_tpu_torch/configs/
+# kd_llama3_8b_to_llama3_2_1b.yaml as a dict (tests/test_torch_kd.py checks
+# the two agree): the Llama-3-8B teacher and the Llama-3.2-1B student, both
+# at their published widths and depths.
+LLAMA3_2_1B = dict(  # meta-llama/Llama-3.2-1B config.json widths
+    architectures=["LlamaForCausalLM"], model_type="llama",
+    vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=64, rope_theta=500000.0,
+    rope_scaling=dict(rope_type="llama3", factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                      original_max_position_embeddings=8192),
+    rms_norm_eps=1e-5, max_position_embeddings=131072, tie_word_embeddings=True,
+)
+KD_LLAMA3_8B_TO_1B = dict(
+    seed=42,
+    teacher_model=dict(hf_config=LLAMA3_8B,
+                       backend=dict(attn="flash", param_dtype="bfloat16", compute_dtype="bfloat16")),
+    model=dict(hf_config=LLAMA3_2_1B,
+               backend=dict(attn="flash", param_dtype="bfloat16", compute_dtype="bfloat16", remat="full")),
+    kd=dict(ratio=0.5, temperature=2.0),
+    dataset=dict(_target_="automodel_tpu_torch.data.sft.MockSFTDataset", vocab_size=128256,
+                 seq_length=4096, num_samples=1024),
+    dataloader=dict(global_batch_size=1),
+    step_scheduler=dict(grad_acc_steps=2, num_epochs=1, log_every_steps=10),
+    optimizer=dict(name="adamw", lr=1e-4),
+    loss_fn=dict(name="masked_ce"),
+    logging=dict(metrics_path="runs/torch_kd_llama3_8b_to_1b/train_metrics.jsonl"),
+)
+KD_STEPS = 4
 
 
 def row_rel_err(out, ref) -> float:
@@ -2231,6 +2278,198 @@ def phase_benchmark(torch, training: dict, moe: dict, gpt_oss: dict, gemma: dict
     return legs
 
 
+# -- phase 19: knowledge distillation, Llama-3-8B into Llama-3.2-1B -------------
+
+
+def phase_kd_flash(torch, dev) -> dict:
+    """K1 at the student's attention (Llama-3.2-1B: B=1, S=4096, N=32,
+    Nkv=8, H=64, causal, no sinks) against its plain version, timed beside
+    its bound and SDPA."""
+    hf = LLAMA3_2_1B
+    case = dict(name="llama-3.2-1b causal (H=64)", main=True, H=hf["head_dim"], N=hf["num_attention_heads"],
+                Nkv=hf["num_key_value_heads"])
+    return run_flash_cases(torch, dev, [case], "flash_attention at Llama-3.2-1B's shape", seed0=90)
+
+
+def kd_config(remat: str) -> dict:
+    """KD_LLAMA3_8B_TO_1B on the card, 4 steps of 2 x 4096 tokens, the
+    student under ``remat``."""
+    cfg = json.loads(json.dumps(KD_LLAMA3_8B_TO_1B))
+    cfg["device"] = "cuda"
+    cfg["model"]["backend"]["remat"] = remat
+    cfg["step_scheduler"].update(max_steps=KD_STEPS, log_every_steps=1)
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"kd_metrics_{remat}_{time.time_ns()}.jsonl")
+    return cfg
+
+
+def run_kd(torch, remat: str) -> dict:
+    """``kd llm``'s recipe class (what ``recipes/kd.main`` runs: setup, then
+    the loop) at full depth with the student under ``remat``: the flash
+    launches of the run (counts set to 0 just before, read just after),
+    the teacher's share read around its forward; the step time (median of
+    steps 2-4, each ending in a synchronise), tokens/s, the peak device
+    memory and the finite losses."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.recipes.kd import KDRecipeForNextTokenPrediction
+
+    cfg = kd_config(remat)
+    acc, steps = cfg["step_scheduler"]["grad_acc_steps"], cfg["step_scheduler"]["max_steps"]
+    t0 = time.perf_counter()
+    recipe = KDRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    teacher = recipe.teacher.model
+    kernels = dict(fwd=rf.flash_block_fwd, dq=rf.flash_block_dq, dkv=rf.flash_block_dkv)
+    teacher_fwd = [0, 0]  # launches read before the teacher's forward, launches in it
+
+    def before(module, args):
+        teacher_fwd[0] = rf.flash_block_fwd.launches
+
+    def after(module, args, out):
+        teacher_fwd[1] += rf.flash_block_fwd.launches - teacher_fwd[0]
+
+    hooks = [teacher.register_forward_pre_hook(before), teacher.register_forward_hook(after)]
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items()}
+    t_layers = cfg["teacher_model"]["hf_config"]["num_hidden_layers"]
+    s_layers = cfg["model"]["hf_config"]["num_hidden_layers"]
+    recompute = 2 if remat in ("full", "selective") else 1
+    want = dict(teacher_fwd=t_layers * acc * steps, student_fwd=recompute * s_layers * acc * steps,
+                dq=s_layers * acc * steps, dkv=s_layers * acc * steps)
+    got = dict(teacher_fwd=teacher_fwd[1], student_fwd=launches["fwd"] - teacher_fwd[1], dq=launches["dq"],
+               dkv=launches["dkv"])
+    if got != want:
+        raise RuntimeError(f"kd (remat {remat}): flash launches {got}, want {want} (teacher {t_layers} layers, "
+                           f"student {s_layers} layers x {recompute} under remat {remat}, x {acc} microbatches x "
+                           f"{steps} steps)")
+    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise RuntimeError(f"kd (remat {remat}): metric rows for steps {[r['step'] for r in rows]}")
+    for r in rows:
+        if r.get("loss") is None or r.get("grad_norm") is None or r["nonfinite"] or not math.isfinite(r["loss"]):
+            raise RuntimeError(f"kd (remat {remat}): non-finite step: {r}")
+    seq = cfg["dataset"]["seq_length"]
+    tokens = seq * acc * cfg["dataloader"]["global_batch_size"]
+    step_s = statistics.median(r["step_time_s"] for r in rows[1:])
+    s_params = sum(p.numel() for p in recipe.model.parameters())
+    t_params = sum(p.numel() for p in teacher.parameters())
+    shc, thc = cfg["model"]["hf_config"], cfg["teacher_model"]["hf_config"]
+    s_embed = 0 if shc["tie_word_embeddings"] else shc["vocab_size"] * shc["hidden_size"]
+    t_embed = thc["vocab_size"] * thc["hidden_size"]  # the lookup; the untied lm_head is a product
+    pairs = live_pairs(seq, None)
+    # the student's training (6 x params, the tied lm_head counted) and the
+    # teacher's forward (2 x params) over the tokens, and attention: the
+    # student's 12 H flops and the teacher's 4 H a live pair and q head
+    flops = (6 * (s_params - s_embed) + 2 * (t_params - t_embed)) * tokens + acc * pairs * (
+        12 * shc["head_dim"] * shc["num_attention_heads"] * shc["num_hidden_layers"]
+        + 4 * thc["head_dim"] * thc["num_attention_heads"] * thc["num_hidden_layers"])
+    out = dict(
+        remat=remat, student_params=s_params, teacher_params=t_params, tokens_per_step=tokens, steps=steps,
+        microbatches=acc, setup_s=setup_s, wall_s=wall, losses=[r["loss"] for r in rows],
+        grad_norms=[r["grad_norm"] for r in rows], first_step_s=rows[0].get("first_step_s"),
+        step_ms=1e3 * step_s, step_ms_each=[1e3 * r["step_time_s"] for r in rows[1:]],
+        tokens_per_s=tokens / step_s, model_flop_per_step=flops,
+        model_flops_share_of_989=flops / step_s / BF16_FLOPS,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=got,
+    )
+    out["profile"] = profile_train_step(torch, recipe, acc)
+    print(f"kd llm, remat {remat}: {json.dumps(out)}", flush=True)
+    del recipe, teacher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kd_flash_vs_sdpa(torch) -> dict:
+    """One microbatch's KD loss (the blend of the config's ratio and
+    temperature) and the student's fp32 grad norm with both models cut to
+    2 layers, the same weights and batch, ``attn: flash`` against ``attn:
+    sdpa`` in both; phase 7's limits."""
+    import dataclasses
+
+    from automodel_tpu_torch.data.collators import default_collater
+    from automodel_tpu_torch.data.sft import MockSFTDataset
+    from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+    from automodel_tpu_torch.optim.builders import global_norm_fp32
+    from automodel_tpu_torch.recipes.kd import make_kd_loss
+
+    cfg = kd_config("selective")
+    for section in ("model", "teacher_model"):
+        cfg[section]["hf_config"]["num_hidden_layers"] = 2
+    dev = torch.device(cfg["device"])
+    student = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True).model
+    teacher = build_auto_from_model_section(cfg["teacher_model"], dev, seed=cfg["seed"] + 100).model
+    params = list(student.parameters())
+    ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[7]]).items() if hasattr(v, "shape")}
+    out = {}
+    for attn in ("flash", "sdpa"):
+        for m in (student, teacher):
+            m.backend = dataclasses.replace(m.backend, attn=attn)
+        loss_sum, n = make_kd_loss(student, teacher, cfg["kd"]["ratio"], cfg["kd"]["temperature"])(mb)
+        grads = torch.autograd.grad(loss_sum.float(), params)
+        denom = n.clamp_min(1).float()
+        norm = global_norm_fp32(g.float() / denom for g in grads)
+        out[attn] = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm))
+        del grads, loss_sum
+        torch.cuda.empty_cache()
+    f, s = out["flash"], out["sdpa"]
+    out["loss_rel"] = abs(f["loss"] - s["loss"]) / abs(s["loss"])
+    out["grad_norm_rel"] = abs(f["grad_norm"] - s["grad_norm"]) / abs(s["grad_norm"])
+    print(f"one step, kd flash vs sdpa (2 + 2 layers): {json.dumps(out)}", flush=True)
+    if not all(math.isfinite(x) for x in (f["loss"], s["loss"], f["grad_norm"], s["grad_norm"])):
+        raise RuntimeError(f"kd flash vs sdpa: non-finite loss or grad norm: {out}")
+    if out["loss_rel"] > STEP_LOSS_REL_TOL or out["grad_norm_rel"] > STEP_GRAD_NORM_REL_TOL:
+        raise RuntimeError(f"kd flash vs sdpa: the steps disagree: {out} (limits: loss {STEP_LOSS_REL_TOL}, "
+                           f"grad norm {STEP_GRAD_NORM_REL_TOL}, relative)")
+    del student, teacher, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kd(torch, dev) -> dict:
+    """Phase 19: K1 at the student's shape, then ``kd llm`` at full depth
+    with the student at ``remat: none``, ``full`` and ``selective``, each
+    with a profile of one more step, then KD with flash against sdpa."""
+    out = dict(flash=phase_kd_flash(torch, dev))
+    out["none"] = run_kd(torch, "none")
+    out["full"] = run_kd(torch, "full")
+    out["selective"] = run_kd(torch, "selective")
+    out["flash_vs_sdpa"] = phase_kd_flash_vs_sdpa(torch)
+    return out
+
+
+def kd_flash_entry(name: str, kd: dict) -> dict:
+    """One flash kernel on the KD path: its launches in the selective run
+    (the teacher's forward at H=128, the student's at H=64), its time at
+    the student's shape beside its bound and SDPA, and its row error."""
+    c = kd["flash"]["cases"][0]
+    errs = dict(fwd=("out_row_err",), dq=("dq_row_err",), dkv=("dk_row_err", "dv_row_err"))[name]
+    launches = kd["selective"]["flash_launches"]
+    out = dict(
+        c["timed"][name], shape="B=1 S=4096 N=32 Nkv=8 H=64 causal, no sinks (Llama-3.2-1B)",
+        live_pairs=c["live_pairs"], max_row_rel_err=max(c[k] for k in errs), max_abs_err=c["max_abs_err"][name],
+        launches_selective=(dict(teacher=launches["teacher_fwd"], student=launches["student_fwd"]) if name == "fwd"
+                            else launches[name]),
+    )
+    if name == "dq":
+        out["backward"] = flash_backward_pair(c)
+    return out
+
 # -- phases 10 and 14: one step, two experts backends ---------------------------
 
 
@@ -2814,7 +3053,7 @@ def fused_entries(fused: dict, gpt_oss: dict, ptxas: list, sass: dict) -> list:
 
 
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
-                 gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas) -> dict:
+                 gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -2887,6 +3126,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "with_sinks_max_row_rel_err": max(c[k] for c in sinks["cases"] for k in row_errs[name]),
             "gpt_oss_sinks": sinks_flash_entry(name, sinks),
             "gemma2": gemma_flash_entry(name, flash_cap, gemma, row_errs[name]),
+            "kd_llama3_2_1b": kd_flash_entry(name, kd),
         })
         if name == "dq":
             line["kernels"][-1]["backward"] = flash_backward_pair(main_flash)
@@ -3042,9 +3282,13 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_benchmark(torch, training, moe, gpt_oss, gemma)
         print(f"phase 18 (benchmark llm, four legs): {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        kd = phase_kd(torch, dev)
+        print(f"phase 19 (kd llm, Llama-3-8B into Llama-3.2-1B): {time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
-                            fused, gpt_oss, flash_cap, gemma, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas)
+                            fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
+                            fused_ptxas)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

@@ -82,7 +82,7 @@ def test_cuda_device_without_cuda_raises(monkeypatch, capsys):
         _serve(monkeypatch, capsys, ['{"prompt_ids": [1]}'], "--device=cuda")
 
 
-@pytest.mark.parametrize("command", ["kd", "dpo", "route"])
+@pytest.mark.parametrize("command", ["grpo", "dpo", "route"])
 def test_other_commands_exit_2(command, capsys):
     assert app.main([command, "llm", "-c", CFG]) == 2
     assert "not ported" in capsys.readouterr().err
@@ -133,7 +133,8 @@ def test_finetune_without_cuda_raises():
         ("--distributed.dp_shard=-1", "distributed"),
         ("--distributed.tp=2", "distributed"),
         ("--logging.wandb.project=x", "wandb"),
-        ("--model.backend.remat=selective", "remat"),
+        ("--model.backend.remat=everything", "remat"),
+        ("--model.backend.fp8=true", "fp8"),
         ("--dataset._target_=automodel_tpu.data.sft.SQuAD", "SQuAD"),
         ("--model.pretrained_model_name_or_path=meta-llama/Meta-Llama-3-8B", "pretrained_model_name_or_path"),
     ],

@@ -466,6 +466,56 @@ def test_flash_attention_autograd_on_the_card():
         assert leaf.grad.dtype == torch.bfloat16 and torch.equal(leaf.grad, g.to(torch.bfloat16)), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1024, 1000])
+def test_flash_kernels_at_llama3_2_1b_heads_match_plain(S):
+    """The KD student's attention (Llama-3.2-1B: N=32, Nkv=8, H=64, causal,
+    no sinks), a case of ``flash_fwd_kernel<64, false>`` that the GPT-OSS
+    path (sinks folded around it) does not run alone: each kernel against
+    its plain version, launched once."""
+    _need_cuda("flash_attention")
+    case = flash_case(torch.device("cuda"), S=S, H=64, B=1, N=32, Nkv=8)
+    kernels = (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)
+    counts = [f.launches for f in kernels]
+    got = flash_all(*case, causal=True, window=None, plain=False)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [c + 1 for c in counts]
+    want = flash_all(*case, causal=True, window=None, plain=True)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    err = flash_errors(got, want)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "selective"])
+def test_flash_recomputed_under_remat_gives_the_same_grads(policy):
+    """Attention through the kernels inside a checkpointed layer: the
+    backward runs the forward kernel again (on autograd's device thread,
+    which must bind the context before encoding its tensor maps) and the
+    grads equal those without recompute bit for bit; fwd launches twice,
+    dq and dkv once."""
+    from automodel_tpu_torch.models.common.stacking import remat_wrap
+
+    _need_cuda("flash_attention")
+    q, k, v, do, _, _ = flash_case(torch.device("cuda"), S=512, H=64, B=1, N=32, Nkv=8)
+    w = torch.randn((64, 64), device="cuda").to(torch.bfloat16)
+
+    def layer(q, k, v):
+        return trf.flash_attention(q @ w, k, v, causal=True) @ w
+
+    grads = {}
+    kernels = (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)
+    for name, fn in (("none", layer), (policy, remat_wrap(layer, policy))):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = [f.launches for f in kernels]
+        fn(*leaves).backward(do)
+        torch.cuda.synchronize()
+        calls = [f.launches - b for f, b in zip(kernels, before)]
+        assert calls == ([1, 1, 1] if name == "none" else [2, 1, 1]), (name, calls)
+        grads[name] = [t.grad for t in leaves]
+    for a, b in zip(grads["none"], grads[policy]):
+        assert torch.equal(a, b)
+
 def tiled_case(dev, Sq, Sk, H, N=8, Nkv=2, B=2, cuts=None, sharp=1.0, seed=5):
     """bf16 q [B, Sq, N, H] whose rows sit at the end of the key range
     (q_pos = Sk - Sq + i, the chunked-prefill layout; Sq = Sk is plain

@@ -66,8 +66,14 @@ def test_backend_refuses_what_is_not_ported():
     assert BackendConfig(attn="flash").attn == "flash"
     with pytest.raises(ValueError, match="attn='ring'"):
         BackendConfig(attn="ring")
-    for key, value in (("remat", "full"), ("scan_layers", True), ("fp8", True), ("attn_block_q", 256)):
+    for key, value in (("remat", "everything"), ("fp8", True), ("fp8_experts", True), ("attn_block_q", 0)):
         with pytest.raises(ValueError, match=key):
             BackendConfig.from_dict({"attn": "flash", key: value})
-    with pytest.raises(ValueError, match="Qwen2ForCausalLM"):
-        auto_model.from_config(dict(HF_TINY, architectures=["Qwen2ForCausalLM"]), FP32_BACKEND, device="cpu")
+    accepted = BackendConfig.from_dict({"attn": "flash", "remat": "selective", "scan_layers": False,
+                                        "attn_block_q": 512, "attn_block_kv": 512})
+    assert (accepted.remat, accepted.scan_layers, accepted.attn_block_q) == ("selective", False, 512)
+    for key, value in (("attn_block_q", 256), ("attn_block_kv", 1024)):
+        with pytest.raises(ValueError, match=key):
+            BackendConfig.from_dict({"attn": "flash", key: value})
+    with pytest.raises(ValueError, match="MixtralForCausalLM"):
+        auto_model.from_config(dict(HF_TINY, architectures=["MixtralForCausalLM"]), FP32_BACKEND, device="cpu")

@@ -55,8 +55,10 @@ def test_losses_and_grads_match_jax(name):
 
 
 def test_unported_loss_is_refused():
-    with pytest.raises(ValueError, match="kd"):
-        tl.build_loss("kd")
+    with pytest.raises(ValueError, match="vocab_parallel_ce"):
+        tl.build_loss("vocab_parallel_ce")
+    with pytest.raises(ValueError, match="'bogus' is not ported"):
+        tl.build_loss("bogus")
 
 
 @pytest.mark.parametrize(
