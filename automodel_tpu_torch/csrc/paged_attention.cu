@@ -10,7 +10,8 @@
 // length + qi - pos < window under a sliding window); logits pass the soft
 // cap before masking; softmax is fp32 and a row that attends nothing writes
 // zeros. Out: [B, Sq, N, H] bf16. Only live blocks are read: from the
-// window's first block to (length + Sq - 1) / BS.
+// window's first block to (length + Sq - 1) / BS. Any Sq * rep query rows a
+// kv head are taken (row r is query position r / rep, head g * rep + r % rep).
 //
 // What bounds it on an H100: device-memory bytes. The live KV is read once
 // and each bf16 KV byte meets 4 flops at Sq*rep = 4 query rows (8 for
@@ -22,7 +23,17 @@
 // rest to each CTA's start, the dead chunks, the partials and the merge,
 // and int8 to the instructions a byte; PERF.md section 6.)
 //
-// Split-KV (flash-decoding). The grid is (Nkv, B, splits), sized from
+// Row tiles. A CTA takes at most kTileRows = 32 of a kv head's query rows:
+// the grid's x axis is (row tile, kv head), kv head fastest, so a verify
+// chunk of Sq * rep > 32 rows (Qwen3-30B-A3B's 8 heads a kv head at Sq = 5:
+// 40 rows) runs ceil(rows / 32) tiles of the same instantiations, each
+// reading the same live blocks, and the last tile pads its rows as a short
+// chunk always has. Each tile reads the KV again: at 40 rows the kernel
+// reads it twice where the bound reads it once (PERF.md section 6). The
+// partials index rows over the whole Sq * rep, so only the merge counter is
+// per tile.
+//
+// Split-KV (flash-decoding). The grid is (tiles * Nkv, B, splits), sized from
 // what the host knows without reading lengths: splits = ceil(NBseq / CB)
 // chunks of CB blocks at fixed offsets (chunk s holds blocks [s*CB,
 // s*CB + CB)). A CTA whose chunk misses its sequence's live blocks exits at
@@ -42,7 +53,7 @@
 // blocks fall in one chunk writes its output directly. Otherwise each live
 // CTA writes its rows' fp32 partials (row max in log2 units, row sum,
 // unnormalised accumulator) to scratch the wrapper allocates, then bumps
-// the (sequence, kv head)'s counter; the CTA that brings it to the number
+// the (sequence, kv head, row tile)'s counter; the CTA that brings it to the number
 // of live chunks reads every partial in split order, writes the output
 // and puts the counter back to 0, so the wrapper's cached counter buffer
 // is zeroed only once. Which CTA merges changes from run to run; the sum
@@ -98,7 +109,7 @@ namespace {
 constexpr int kBS = 16;  // tokens a block: the serving configs' block size
 constexpr int kThreads = 128;
 constexpr int kMaxChunk = 32;  // blocks a chunk, at most
-constexpr int kMaxRows = 32;   // Sq * rep, at most
+constexpr int kTileRows = 32;  // query rows a CTA takes, at most (a row tile)
 constexpr int kErrUnsupported = 100001;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -236,11 +247,14 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
   constexpr int WT = WR * 32;  // threads of a worker
   constexpr int MT = H / 16;   // 16-dim tiles of the head
 
-  const int g = blockIdx.x, b = blockIdx.y, s = blockIdx.z;
-  const int n_splits = gridDim.z;
+  const int g = blockIdx.x % Nkv, tile = blockIdx.x / Nkv, b = blockIdx.y, s = blockIdx.z;
+  const int n_splits = gridDim.z, n_tiles = gridDim.x / Nkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int worker = warp / WR, wr = warp % WR;
-  const int rep = N / Nkv, rows = Sq * rep;
+  const int rep = N / Nkv, rows = Sq * rep;  // every query row of the kv head
+  // this CTA's rows: r0 .. r0 + tr - 1 of them (local row r is row r0 + r)
+  const int r0 = tile * kTileRows;
+  const int tr = rows - r0 < kTileRows ? rows - r0 : kTileRows;
   const int r4 = lane >> 2, q4 = lane & 3;  // fragment row group and column pair
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -262,8 +276,8 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
 
   if (j_lo > j_hi) {  // no live block at all: chunk 0 writes the zeros
     if (s == 0) {
-      for (int idx = tid; idx < rows * (H / 4); idx += kThreads) {
-        const int r = idx / (H / 4), c4 = idx % (H / 4);
+      for (int idx = tid; idx < tr * (H / 4); idx += kThreads) {
+        const int r = r0 + idx / (H / 4), c4 = idx % (H / 4);
         const size_t at = (out_row0 + static_cast<size_t>(r / rep) * N + g * rep + r % rep) * H + c4 * 4;
         store_out(out, at, make_float4(0.f, 0.f, 0.f, 0.f), 0.f);
       }
@@ -318,8 +332,8 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) issue(i);
 
-  // the query tile: RP rows (row r = qi * rep + head offset), rows past
-  // `rows` zero
+  // the query tile: RP rows (local row r is row r0 + r = qi * rep + head
+  // offset), rows past the tile's `tr` zero
   {
     const float sc = __bfloat162float(__float2bfloat16(scale));
     for (int idx = tid; idx < RP * (H / 16); idx += kThreads) {
@@ -327,9 +341,10 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
       uint32_t w[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) w[i] = 0u;
-      if (r < rows) {
+      if (r < tr) {
+        const int ra = r0 + r;
         const uint4* src = reinterpret_cast<const uint4*>(
-            q + (out_row0 + static_cast<size_t>(r / rep) * N + g * rep + r % rep) * H + grp * 16);
+            q + (out_row0 + static_cast<size_t>(ra / rep) * N + g * rep + ra % rep) * H + grp * 16);
         const uint4 a = src[0], c = src[1];
         const uint32_t in[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
 #pragma unroll
@@ -369,7 +384,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
   for (int nt = 0; nt < NTW; ++nt) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      q_abs[nt][i] = length + (rbase + 8 * nt + 2 * q4 + i) / rep;
+      q_abs[nt][i] = length + (r0 + rbase + 8 * nt + 2 * q4 + i) / rep;
       m[nt][i] = -INFINITY;
       l[nt][i] = 0.f;
     }
@@ -570,8 +585,8 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
   const size_t part_rows = static_cast<size_t>(gridDim.y) * Nkv * n_splits * rows;  // rows of every partial
   float* po = part + (bg * n_splits) * rows * H;      // [split][row][H], unnormalised
   float* pml = part + part_rows * H + (bg * n_splits) * rows * 2;  // [split][row][max, sum]
-  for (int idx = tid; idx < rows * (H / 4); idx += kThreads) {
-    const int r = idx / (H / 4), c4 = idx % (H / 4);
+  for (int idx = tid; idx < tr * (H / 4); idx += kThreads) {
+    const int r = idx / (H / 4), c4 = idx % (H / 4), ra = r0 + r;
     float mx = -INFINITY;
 #pragma unroll
     for (int w = 0; w < WB; ++w) mx = fmaxf(mx, mb[w * RP + r]);
@@ -589,26 +604,28 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
       o.w += v.w * wgt;
     }
     if (single) {
-      store_out(out, (out_row0 + static_cast<size_t>(r / rep) * N + g * rep + r % rep) * H + c4 * 4, o, lsum);
+      store_out(out, (out_row0 + static_cast<size_t>(ra / rep) * N + g * rep + ra % rep) * H + c4 * 4, o, lsum);
     } else {
-      *reinterpret_cast<float4*>(po + (static_cast<size_t>(s) * rows + r) * H + c4 * 4) = o;
+      *reinterpret_cast<float4*>(po + (static_cast<size_t>(s) * rows + ra) * H + c4 * 4) = o;
       if (c4 == 0) {
-        pml[(static_cast<size_t>(s) * rows + r) * 2] = mx;
-        pml[(static_cast<size_t>(s) * rows + r) * 2 + 1] = lsum;
+        pml[(static_cast<size_t>(s) * rows + ra) * 2] = mx;
+        pml[(static_cast<size_t>(s) * rows + ra) * 2 + 1] = lsum;
       }
     }
   }
   if (single) return;
 
-  // the last live chunk of (b, g) to finish merges every partial, in split order
+  // the last live chunk of (b, g, tile) to finish merges the tile's partials,
+  // in split order
+  int* counter = counters + bg * n_tiles + tile;
   __threadfence();
   __syncthreads();
-  if (tid == 0) flag_s[0] = atomicAdd(counters + bg, 1) == s_hi - s_lo;
+  if (tid == 0) flag_s[0] = atomicAdd(counter, 1) == s_hi - s_lo;
   __syncthreads();
   if (!flag_s[0]) return;
   __threadfence();
-  for (int idx = tid; idx < rows * (H / 4); idx += kThreads) {
-    const int r = idx / (H / 4), c4 = idx % (H / 4);
+  for (int idx = tid; idx < tr * (H / 4); idx += kThreads) {
+    const int r = r0 + idx / (H / 4), c4 = idx % (H / 4);
     float mx = -INFINITY;
 #pragma unroll 8
     for (int sp = s_lo; sp <= s_hi; ++sp) mx = fmaxf(mx, __ldcg(pml + (static_cast<size_t>(sp) * rows + r) * 2));
@@ -628,7 +645,7 @@ __global__ void __launch_bounds__(kThreads, 2) paged_attention_kernel(
     }
     store_out(out, (out_row0 + static_cast<size_t>(r / rep) * N + g * rep + r % rep) * H + c4 * 4, o, lsum);
   }
-  if (tid == 0) counters[bg] = 0;  // ready for the next call on this stream
+  if (tid == 0) *counter = 0;  // ready for the next call on this stream
 }
 
 struct Args {
@@ -661,7 +678,8 @@ int launch(const Args& a, cudaStream_t stream) {
   cudaError_t e = set_smem<QUANT, H, NTW, WR>();
   if (e != cudaSuccess) return static_cast<int>(e);
   // split slowest: the live chunks start first, the dead ones retire last
-  dim3 grid(a.Nkv, a.B, (a.NBseq + a.cb - 1) / a.cb);
+  const int tiles = (a.Sq * (a.N / a.Nkv) + kTileRows - 1) / kTileRows;
+  dim3 grid(tiles * a.Nkv, a.B, (a.NBseq + a.cb - 1) / a.cb);
   kernel<<<grid, kThreads, S::kBytes, stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(a.q), reinterpret_cast<const KV*>(a.k_pool),
       reinterpret_cast<const KV*>(a.v_pool), a.k_scale, a.v_scale, a.tables, a.lengths,
@@ -670,9 +688,9 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// padded query rows: 8 a warp (one worker a warp), 16 a warp, or 16 a
-// warp with two warps a worker (rows 17-32): 3 head dims x 3 x 2 pool
-// dtypes = 18 instantiations
+// padded query rows of a tile: 8 a warp (one worker a warp), 16 a warp, or
+// 16 a warp with two warps a worker (rows 17-32, and every tile of a wider
+// chunk): 3 head dims x 3 x 2 pool dtypes = 18 instantiations
 template <int QUANT, int H>
 int dispatch_rows(int rows, const Args& a, cudaStream_t stream) {
   if (rows <= 8) return launch<QUANT, H, 1, 1>(a, stream);
@@ -697,8 +715,9 @@ extern "C" {
 // Launches on `stream`, allocates nothing, returns cudaGetLastError() after
 // the launch (0 = launched) or an error code for a shape it does not take.
 // `part` holds B * Nkv * ceil(NBseq / chunk_blocks) * Sq * (N / Nkv) * (H + 2)
-// floats (unused, and may be null, when that ceil is 1); `counters` B * Nkv
-// ints, zero before the first call, left zero by every call.
+// floats (unused, and may be null, when that ceil is 1); `counters`
+// B * Nkv * ceil(Sq * (N / Nkv) / 32) ints, zero before the first call, left
+// zero by every call.
 int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool, const float* k_scale,
                         const float* v_scale, const int* tables, const int* lengths, void* out, float* part,
                         int* counters, int B, int Sq, int N, int Nkv, int H, int BS, int NBseq, int window,
@@ -707,15 +726,16 @@ int paged_attention_fwd(const void* q, const void* k_pool, const void* v_pool, c
   if (chunk_blocks < 1 || chunk_blocks > kMaxChunk) return kErrUnsupported;
   if (B > 65535 || (NBseq + chunk_blocks - 1) / chunk_blocks > 65535) return kErrUnsupported;  // grid y, z
   const int rows = Sq * (N / Nkv);
-  if (rows > kMaxRows) return kErrUnsupported;
+  if (static_cast<long long>((rows + kTileRows - 1) / kTileRows) * Nkv > 2147483647LL) return kErrUnsupported;  // grid x
   if ((NBseq + chunk_blocks - 1) / chunk_blocks > 1 && (part == nullptr || counters == nullptr)) {
     return kErrUnsupported;
   }
   const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part, counters,
                B, Sq, N, Nkv, NBseq, chunk_blocks, window, soft_cap, scale};
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (quantized) return dispatch_head<1>(H, rows, a, stream);
-  return dispatch_head<0>(H, rows, a, stream);
+  const int tile_rows = rows < kTileRows ? rows : kTileRows;
+  if (quantized) return dispatch_head<1>(H, tile_rows, a, stream);
+  return dispatch_head<0>(H, tile_rows, a, stream);
 }
 
 const char* paged_attention_error_string(int code) {

@@ -45,12 +45,6 @@ class GenerationUnsupported(ValueError):
     running)."""
 
 
-# cache-capable in the JAX package, not yet in the port: the reason given
-_DECODE_NOT_PORTED = {
-    "MoEForCausalLM": "KV-cache decode for Qwen3-MoE (qwen3_moe) is not ported to the torch backend yet",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
     """The `generation:` YAML section."""
@@ -129,9 +123,8 @@ class GenerationEngine:
         model = auto.model
         if not getattr(model, "supports_kv_cache", False):
             raise GenerationUnsupported(
-                _DECODE_NOT_PORTED.get(type(model).__name__)
-                or f"{type(model).__name__} has no KV-cache decode path; cache-capable "
-                "families in the torch backend: llama-generic (llama/qwen2/qwen3/mistral/phi3)"
+                f"{type(model).__name__} has no KV-cache decode path; cache-capable "
+                "families in the torch backend: llama-generic (llama/qwen2/qwen3/mistral/phi3), qwen3_moe"
             )
         self.auto = auto
         self.model = model

@@ -21,8 +21,9 @@ them) and the MoE block of ``moe/layer.py``, whose experts default to
 static: the layers are a Python loop, where JAX's scan branched with
 ``lax.cond``. Parameter names follow HF where a module carries them
 (``self_attn.sinks``, ``mlp.router``, ``mlp.experts.*``; the learned router
-bias is ``mlp.router.linear_bias``, the JAX name). KV-cache decode waits
-for a serving slice: ``cache=`` raises.
+bias is ``mlp.router.linear_bias``, the JAX name). The JAX package has no
+KV-cache decode for the family, so neither has the port: ``cache=``
+raises.
 """
 
 from __future__ import annotations
@@ -99,6 +100,7 @@ class GptOssForCausalLM(MoEForCausalLM):
     fan_in D, down with fan_in I, projections with their input width,
     embeddings ``N(0,1) * 0.02``) and zeroes every bias and sink."""
 
+    supports_kv_cache = False
     layer_cls = GptOssDecoderLayer
     state_dict_adapter = GptOssStateDictAdapter  # the HF key map
     # the layout contract of gate_up, versioned as the JAX model's

@@ -19,8 +19,12 @@ Parameter names follow HF (``model.layers.{i}.self_attn.*``,
 ``model.layers.{i}.mlp.gate.weight`` [E, D]) with the stacked expert
 weights ``model.layers.{i}.mlp.experts.gate_up`` [E, D, 2I] and
 ``...experts.down`` [E, I, D]; ``state_dict_adapter`` carries the JAX
-tree over. KV-cache decode for MoE waits for a serving slice: ``cache=``
-raises.
+tree over. KV-cache decode (:184-245) threads the cache hook through the
+llama attention block with one layer index over the dense prefix and the
+MoE layers, as JAX's cache's layer axis does; the experts then run through
+``backend.experts`` at decode's few rows a group. A subclass whose family
+has no decode path (``models/gpt_oss``) sets ``supports_kv_cache = False``
+and ``cache=`` raises.
 """
 
 from __future__ import annotations
@@ -122,7 +126,7 @@ class MoEForCausalLM(nn.Module):
     A family with other decoder layers (``models/gpt_oss``) subclasses it
     with its own ``layer_cls``."""
 
-    supports_kv_cache = False
+    supports_kv_cache = True
     layer_cls: type = MoEDecoderLayer
     state_dict_adapter = MoEStateDictAdapter  # the HF key map
 
@@ -181,31 +185,32 @@ class MoEForCausalLM(nn.Module):
         segment_ids: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, MoEModelAux]:
         """Embed + decoder stack → (final-norm hidden states [B, S, D] in
-        the compute dtype, MoEModelAux)."""
-        if cache is not None:
-            raise ValueError(
-                f"{type(self).__name__}: KV-cache decode (cache=) is not ported to the torch backend yet"
-            )
+        the compute dtype, MoEModelAux). ``cache``: the generation hook
+        (the llama family's), whose layer index runs over the dense prefix
+        and the MoE layers in order."""
+        if cache is not None and not self.supports_kv_cache:
+            raise ValueError(f"{type(self).__name__}: KV-cache decode (cache=) is not ported to the torch backend")
         cfg = self.config
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
             position_ids = position_ids[None, :].expand(input_ids.shape)
         h = self.model.embed_tokens.weight[input_ids].to(self.compute_dtype)
         cos, sin = rope_table(position_ids, cfg.rope_dim or cfg.head_dim, cfg.rope)
-        layer_fn = remat_wrap(self._layer, self.backend.remat)
+        # inference with a cache never recomputes (it has no backward)
+        layer_fn = self._layer if cache is not None else remat_wrap(self._layer, self.backend.remat)
         counts, aux_losses = [], []
         for i, layer in enumerate(self.model.layers):
-            h, aux = layer_fn(i, layer, h, cos, sin, segment_ids)
+            h, aux = layer_fn(i, layer, h, cos, sin, cache, segment_ids)
             if aux is not None:
                 counts.append(aux.expert_counts)
                 aux_losses.append(aux.aux_loss)
         return self.model.norm(h), MoEModelAux(torch.stack(counts), torch.stack(aux_losses).sum())
 
-    def _layer(self, i: int, layer: nn.Module, h, cos, sin, segment_ids):
+    def _layer(self, i: int, layer: nn.Module, h, cos, sin, cache, segment_ids):
         """Decoder layer ``i`` → (h, the MoE block's aux, or None after a
         dense MLP)."""
         cfg = self.config
-        h = attention_block(cfg, self.backend, layer, i, h, cos, sin, None, segment_ids)
+        h = attention_block(cfg, self.backend, layer, i, h, cos, sin, cache, segment_ids)
         x = layer.post_attention_layernorm(h)
         mlp = layer.mlp
         act = ACT_FNS[cfg.act]

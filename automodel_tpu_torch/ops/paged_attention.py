@@ -36,12 +36,14 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 INT8_MAX = 127.0
 
-# the CUDA kernel's limits (csrc/paged_attention.cu): head dims and block
-# sizes it is instantiated for, query rows (Sq * rep) per kv head, and the
-# chunk sizes of its split-KV grid in blocks, largest first
+# the CUDA kernel's shapes (csrc/paged_attention.cu): head dims and block
+# sizes it is instantiated for, the query rows (of Sq * rep a kv head) one
+# CTA takes, and the chunk sizes of its split-KV grid in blocks, largest
+# first. Any Sq * rep is taken: wider chunks run ceil(Sq * rep / 32) row
+# tiles.
 CUDA_HEAD_DIMS = (64, 128, 256)
 CUDA_BLOCK_SIZES = (16,)
-CUDA_MAX_ROWS = 32
+CUDA_TILE_ROWS = 32
 CUDA_CHUNK_BLOCKS = (32, 16, 8, 4)
 
 
@@ -215,12 +217,6 @@ def _check_cuda_args(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, slidi
         raise ValueError(f"paged_attend: head_dim {H} (the CUDA kernel takes {CUDA_HEAD_DIMS})")
     if BS not in CUDA_BLOCK_SIZES:
         raise ValueError(f"paged_attend: block_size {BS} (the CUDA kernel takes {CUDA_BLOCK_SIZES})")
-    rows = Sq * (N // Nkv)
-    if rows > CUDA_MAX_ROWS:
-        raise ValueError(
-            f"paged_attend: Sq*rep={rows} query rows per kv head exceeds the "
-            f"kernel's {CUDA_MAX_ROWS}"
-        )
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"paged_attend: sliding_window {sliding_window} (the CUDA kernel takes >= 1 or None)")
 
@@ -245,13 +241,14 @@ def _launch_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, sl
     _, BS, Nkv, _ = k_pool.shape
     nbseq = tables.shape[1]
     splits = -(-nbseq // cb)
+    tiles = -(-Sq * (N // Nkv) // CUDA_TILE_ROWS)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part = counters = None
         if splits > 1:  # partials [B, Nkv, splits, rows, H] then their [max, sum]
             part = torch.empty(B * Nkv * splits * Sq * (N // Nkv) * (H + 2), dtype=torch.float32, device=q.device)
-            counters = _counters(q.device, stream, B * Nkv)
+            counters = _counters(q.device, stream, B * Nkv * tiles)
         rc = lib.paged_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if k_scale is not None else None,

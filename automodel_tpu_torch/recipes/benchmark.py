@@ -29,18 +29,24 @@ Legs after the measured steps, each a null-with-reason when it cannot run:
 - serving (``serving:`` section): a warm-up request, then Poisson arrivals
   (``bench_*`` keys) through ``ServingEngine.run_workload`` on the live
   trained module: ``serve_tokens_per_s``, ``serve_ttft_p50_s`` / ``p99``;
+  with ``serving.speculative`` on (JAX :306-425), ``serve_accept_rate``,
+  ``serve_draft_tps`` and ``serve_spec_ab``: the same arrivals through a
+  second engine with the draft disabled, built after the first engine's
+  pools are released (``spec_on_tokens_per_s`` / ``spec_off_tokens_per_s``
+  / ``speedup``);
 - spill and fleet: not ported; their sections are refused, so the legs
   report JAX's reasons for a missing section.
 
 The result has no ``recompiles_during_measure`` (XLA compiles, the port
 does not) and no ``cost`` or ``pipeline`` (their sections are refused).
-Refused by name at setup: ``serving.speculative.enabled``,
-``serving.kv_spill.enabled``, a ``fleet:`` section and
-``benchmark.profile.enabled``, besides what the training recipe refuses.
+Refused by name at setup: ``serving.kv_spill.enabled``, a ``fleet:``
+section and ``benchmark.profile.enabled``, besides what the training
+recipe refuses.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import time
@@ -80,7 +86,7 @@ def check_benchmark_sections(cfg: Any) -> None:
     if profile.get("enabled", False):
         raise ValueError("benchmark.profile.enabled: the step profiler is not ported to the torch backend yet")
     if cfg.get("serving", None) is not None:
-        # names serving.speculative / serving.kv_spill / ... when enabled
+        # names serving.kv_spill / serving.qos / ... when enabled
         ServeConfig.from_dict(dict(_plain(cfg.serving) or {}))
 
 
@@ -238,24 +244,47 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
         if section is None:
             reason = "no serving: section in config"
             return {**nulls, "serve_failure": reason, "serve_spec_failure": reason}
-        engine = None
+        engine = off_engine = None
+        ab = None
         try:
             scfg = ServeConfig.from_dict(dict(_plain(section) or {}))
-            engine = ServingEngine(self.auto, scfg, self._gen_config())
+            gen_cfg = self._gen_config()
             vocab = int(self.model.config.vocab_size)
             arrivals = self._poisson_arrivals(scfg)
             rng = np.random.default_rng(1)
-            engine.submit(rng.integers(1, vocab, size=len(arrivals[0][1])).tolist(), max_new_tokens=2)
-            engine.run()
-            _, stats = engine.run_workload(arrivals)
+
+            def workload(cfg: ServeConfig):
+                eng = ServingEngine(self.auto, cfg, gen_cfg)
+                # warm-up: allocator and kernel builds outside the window
+                eng.submit(rng.integers(1, vocab, size=len(arrivals[0][1])).tolist(), max_new_tokens=2)
+                eng.run()
+                return eng, eng.run_workload(arrivals)[1]
+
+            engine, stats = workload(scfg)
             decode_backend = engine.decode_backend
+            if scfg.speculative.enabled:
+                # spec on/off A/B on the same arrivals: the speculative
+                # engine's pools are released first, so two chip-sized pools
+                # are never resident at once
+                engine.release_pools()
+                off_cfg = dataclasses.replace(
+                    scfg, speculative=dataclasses.replace(scfg.speculative, enabled=False, draft=None)
+                )
+                off_engine, off_stats = workload(off_cfg)
+                on_tps, off_tps = stats["sustained_tokens_per_s"], off_stats["sustained_tokens_per_s"]
+                ab = {
+                    "spec_on_tokens_per_s": round(on_tps, 2),
+                    "spec_off_tokens_per_s": round(off_tps, 2),
+                    "speedup": round(on_tps / off_tps, 3) if off_tps > 0 else None,
+                }
         except Exception as e:
             reason = f"{type(e).__name__}: {e}"
             return {**nulls, "serve_failure": reason, "serve_spec_failure": reason}
         finally:
-            if engine is not None:
-                engine.release_pools()
-        return {
+            for eng in (engine, off_engine):
+                if eng is not None:
+                    eng.release_pools()
+        out = {
             "serve_tokens_per_s": round(stats["sustained_tokens_per_s"], 2),
             "serve_ttft_p50_s": round(stats["ttft_p50_s"], 6),
             "serve_ttft_p99_s": round(stats["ttft_p99_s"], 6),
@@ -266,10 +295,22 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
             "serve_decode_backend": decode_backend,
             "serve_kv_cache_dtype": scfg.kv_cache_dtype,
             "serve_failure": None,
-            "serve_accept_rate": None,
-            "serve_draft_tps": None,
-            "serve_spec_failure": "speculative decoding disabled",
         }
+        if scfg.speculative.enabled:
+            out["serve_accept_rate"] = stats.get("accept_rate")
+            out["serve_draft_tps"] = (
+                round(stats["draft_tps"], 2) if isinstance(stats.get("draft_tps"), float) else None
+            )
+            out["serve_spec_ab"] = ab
+            out["serve_spec_failure"] = (
+                None if stats.get("accept_rate") is not None
+                else "no speculative round ran inside the workload"
+            )
+        else:
+            out["serve_accept_rate"] = None
+            out["serve_draft_tps"] = None
+            out["serve_spec_failure"] = "speculative decoding disabled"
+        return out
 
     def _spill_leg(self) -> dict:
         """The spill A/B is not ported; ``serving.kv_spill.enabled`` is

@@ -14,19 +14,31 @@ one scheduler iteration:
 4. **decode tick**: one paged decode step over all slots; each active slot
    advances one token. A slot that hits a stop id or spends its budget
    completes, frees its blocks (prompt blocks stay matchable in the prefix
-   cache) and the slot refills on the next iteration.
+   cache) and the slot refills on the next iteration. With
+   ``serving.speculative`` (``SpeculativeConfig``) the tick is one
+   speculative round instead (``_spec_decode_tick``, JAX :2277-2352): the
+   draft model proposes ``k`` tokens a slot over its own pool (the same
+   block geometry and tables), ONE verify forward of the target commits the
+   accepted prefix plus a correction or bonus token, 1 to k+1 tokens a
+   slot; a stop id or the length budget inside the committed block ends the
+   request there. Rejected rows need no rollback: the committed length only
+   moves forward by what was kept, and the next round overwrites the rest.
+   The draft prefills every prompt chunk beside the target.
 
 Every submitted request produces exactly one terminal record carrying
 ``completion_reason``, ``retriable``, ``tenant``, ``tier``, ``tokens``
-and, once it has a first token, ``ttft_s``. Sections of the JAX engine this port does not have
-(speculative decoding, spill tier, QoS, warm start, HTTP front, drain,
-watchdog, KV transfer) are refused when a config enables them. A failing
-program raises out of ``step``; there is no rebuild-and-continue yet.
+and, once it has a first token, ``ttft_s``; a speculative engine adds
+``spec_proposed``, ``spec_accepted`` and ``spec_accept_rate``. Sections of
+the JAX engine this port does not have (spill tier, QoS, warm start, HTTP
+front, drain, watchdog, KV transfer) are refused when a config enables
+them. A failing program raises out of ``step``; there is no
+rebuild-and-continue yet.
 
 ``run_workload`` (JAX :2569-2632) drives timed arrivals through the engine
-for the benchmark's serving leg; it has no speculative counters, since the
-port refuses speculative decoding. ``release_pools`` frees the device pool
-of an engine that is done.
+for the benchmark's serving leg, with the speculative counters
+(``spec_proposed``, ``spec_accepted``, ``accept_rate``, ``draft_tps``) on
+a speculative engine. ``release_pools`` frees the device pools (target and
+draft) of an engine that is done.
 """
 
 from __future__ import annotations
@@ -79,8 +91,7 @@ def tier_index(tier: str) -> int:
 
 # sections of the JAX engine's config that this port does not run
 UNPORTED_SERVING_SECTIONS = (
-    "speculative", "kv_spill", "qos", "warm_start", "http", "drain", "watchdog",
-    "kv_transfer",
+    "kv_spill", "qos", "warm_start", "http", "drain", "watchdog", "kv_transfer",
 )
 
 
@@ -131,6 +142,37 @@ class LimitsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpeculativeConfig:
+    """The ``serving.speculative:`` section (JAX :324-353): draft-and-verify
+    speculative decoding. A draft model proposes ``k`` tokens a slot each
+    engine iteration; one verify forward of the target accepts a prefix
+    plus one correction or bonus token. Greedy output is bit-identical to
+    non-speculative decoding; sampled output keeps the target
+    distribution. ``draft`` is a ``model:``-shaped section (``hf_config`` +
+    ``backend``, or ``pretrained_model_name_or_path``), built on the
+    engine's device; it must have a KV-cache decode path and the target's
+    vocabulary."""
+
+    enabled: bool = False
+    k: int = 4  # draft tokens proposed a slot an engine step
+    draft: Optional[Any] = None  # model: section of the draft
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"serving.speculative.k={self.k} (want >= 1)")
+        if self.enabled and not self.draft:
+            raise ValueError(
+                "serving.speculative.enabled needs a draft model section "
+                "(serving.speculative.draft: {hf_config: ...} or "
+                "{pretrained_model_name_or_path: ...})"
+            )
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "SpeculativeConfig":
+        return _strict(cls, d, "serving.speculative")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The `serving:` YAML section (sampling and stop tokens come from the
     `generation:` section)."""
@@ -151,6 +193,7 @@ class ServeConfig:
     bench_prompt_len_max: int = 48
     bench_max_new_tokens: int = 16
     limits: LimitsConfig = dataclasses.field(default_factory=LimitsConfig)
+    speculative: SpeculativeConfig = dataclasses.field(default_factory=SpeculativeConfig)
 
     def __post_init__(self):
         if self.slots < 1 or self.block_size < 1 or self.prefill_chunk < 1:
@@ -171,6 +214,15 @@ class ServeConfig:
     def from_dict(cls, d: Optional[dict]) -> "ServeConfig":
         d = dict(d or {})
         d.pop("_target_", None)
+        spec = d.get("speculative")
+        spec = spec.to_dict() if hasattr(spec, "to_dict") else spec
+        if section_enabled("speculative", spec) and section_enabled("kv_spill", d.get("kv_spill")):
+            # JAX's refusal (:695-703), although the spill tier itself is not ported
+            raise ValueError(
+                "serving.kv_spill cannot be enabled together with "
+                "serving.speculative: the draft pool has no spill tier, so "
+                "a reloaded prefix would leave it without the prompt KV"
+            )
         for name in UNPORTED_SERVING_SECTIONS:
             if section_enabled(name, d.pop(name, None)):
                 raise ValueError(
@@ -182,14 +234,25 @@ class ServeConfig:
             raise ValueError(f"serving.role={role!r}: only 'mixed' is ported to the torch backend")
         if d.get("limits") is not None and not isinstance(d["limits"], LimitsConfig):
             d["limits"] = LimitsConfig.from_dict(dict(d["limits"]))
+        if spec is not None and not isinstance(spec, SpeculativeConfig):
+            d["speculative"] = SpeculativeConfig.from_dict(dict(spec))
         return _strict(cls, d, "serving")
 
     @property
+    def spec_overhang(self) -> int:
+        """Positions a speculative round may WRITE past a sequence's final
+        committed length (rejected drafts' rows, never attended): the
+        admission block budget and the table width both cover them, so
+        those writes land in blocks the sequence owns."""
+        return self.speculative.k if self.speculative.enabled else 0
+
+    @property
     def table_blocks(self) -> int:
-        """Static per-sequence block-table width, with ``prefill_chunk`` of
-        headroom past ``max_seq_len`` so a padded chunk's writes never run
-        past the table."""
-        return -(-(self.max_seq_len + self.prefill_chunk) // self.block_size)
+        """Static per-sequence block-table width, with headroom past
+        ``max_seq_len`` (``prefill_chunk``, or the verify chunk when
+        larger) so a padded chunk's writes never run past the table."""
+        headroom = max(self.prefill_chunk, self.spec_overhang + 1)
+        return -(-(self.max_seq_len + headroom) // self.block_size)
 
 
 @dataclasses.dataclass
@@ -220,6 +283,8 @@ class _Slot:
     t_first: Optional[float] = None
     tenant: str = DEFAULT_TENANT
     tier: str = DEFAULT_TIER
+    spec_proposed: int = 0  # draft tokens proposed for this request
+    spec_accepted: int = 0  # draft tokens the verify rule accepted
 
 
 class ServingEngine:
@@ -264,6 +329,11 @@ class ServingEngine:
         self.decode_backend = (
             "gather" if self.config.decode_kernel == "gather" else "fused"
         )
+        spec = self.config.speculative
+        self._spec_enabled = bool(spec.enabled)
+        self.draft_auto = None
+        if self._spec_enabled:
+            self.draft_auto = self._build_draft(spec, mcfg)
         self._pool = paged.init_pool(
             int(mcfg.num_layers), self.config.num_blocks, self.config.block_size,
             int(mcfg.num_kv_heads), int(mcfg.head_dim), dtype=self._compute_dtype,
@@ -272,11 +342,26 @@ class ServingEngine:
         self._chunk = paged.build_chunk_prefill_fn(
             self.model, self.config.prefill_chunk, self._compute_dtype
         )
-        self._decode = paged.build_paged_decode_fn(
-            self.model, self.gen_config.sampling, pad_id=self.gen_config.pad_token_id,
-            backend=self.decode_backend, block_size=self.config.block_size,
-            compute_dtype=self._compute_dtype,
+        pk = dict(
+            pad_id=self.gen_config.pad_token_id, backend=self.decode_backend,
+            block_size=self.config.block_size, compute_dtype=self._compute_dtype,
         )
+        self._decode = paged.build_paged_decode_fn(self.model, self.gen_config.sampling, **pk)
+        self._draft_pool = None
+        if self._spec_enabled:
+            d_model = self.draft_auto.model
+            dcfg, d_dtype = d_model.config, d_model.compute_dtype
+            # the draft's own pool over the same block geometry
+            self._draft_pool = paged.init_pool(
+                int(dcfg.num_layers), self.config.num_blocks, self.config.block_size,
+                int(dcfg.num_kv_heads), int(dcfg.head_dim), dtype=d_dtype,
+                quantized=self._quantized, device=self.device,
+            )
+            self._draft_chunk = paged.build_chunk_prefill_fn(d_model, self.config.prefill_chunk, d_dtype)
+            self._propose = paged.build_draft_propose_fn(
+                d_model, self.gen_config.sampling, spec.k, **dict(pk, compute_dtype=d_dtype)
+            )
+            self._verify = paged.build_verify_fn(self.model, self.gen_config.sampling, spec.k, **pk)
         self._seed = int(self.gen_config.seed)
         self._eos = set(self.gen_config.eos_ids)
 
@@ -290,15 +375,51 @@ class ServingEngine:
         self._ids = itertools.count()
         self._step_counter = 0
         # program calls: each decode forward runs every layer's attention
-        # once (on the fused backend, one paged-kernel launch per layer)
+        # once (on the fused backend, one paged-kernel launch per layer); a
+        # speculative round (``spec_rounds``) runs k + 1 draft forwards and
+        # one verify forward of the target, each the same
         self.decode_forwards = 0
         self.prefill_chunks = 0
+        # speculative accounting (the accept-rate gauge and the bench keys)
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.spec_rounds = 0
+
+    def _build_draft(self, spec: SpeculativeConfig, mcfg: Any) -> Any:
+        """The draft AutoModel on the engine's device (seeded by the
+        generation seed, as JAX's), with JAX's checks (:715-740): a KV-cache
+        decode path, the target's vocabulary, and a context that holds
+        ``max_seq_len + k``."""
+        from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+
+        draft = build_auto_from_model_section(spec.draft, self.device, seed=self.gen_config.seed)
+        if not getattr(draft.model, "supports_kv_cache", False):
+            raise GenerationUnsupported(
+                f"serving.speculative.draft model {type(draft.model).__name__} has no KV-cache decode path"
+            )
+        dv, tv = int(draft.model.config.vocab_size), int(mcfg.vocab_size)
+        if dv != tv:
+            raise ValueError(
+                f"speculative draft vocab_size {dv} != target vocab_size {tv} — "
+                "draft and target must share a vocabulary"
+            )
+        dmax = model_max_positions(draft.model.config)
+        if dmax and self.config.max_seq_len + spec.k > dmax:
+            # a too-short draft context would extrapolate RoPE past dmax and
+            # collapse the accept rate without an error
+            raise ValueError(
+                f"serving.max_seq_len={self.config.max_seq_len} + speculative.k={spec.k} "
+                f"exceeds the draft model's context limit {dmax}"
+            )
+        return draft
 
     def release_pools(self) -> None:
-        """Drop the engine's device pool, for a caller that is done with
-        this engine but keeps the process (the benchmark's serving leg,
-        before the next leg builds its own). The engine is unusable after."""
+        """Drop the engine's device pools (target and draft), for a caller
+        that is done with this engine but keeps the process (the
+        benchmark's serving leg, before the next engine builds its own).
+        The engine is unusable after."""
         self._pool = None
+        self._draft_pool = None
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -317,6 +438,23 @@ class ServingEngine:
     @property
     def pool_bytes(self) -> int:
         return self._pool.nbytes
+
+    @property
+    def draft_kv_pool(self) -> Optional[paged.PagedKV]:
+        """The draft's device block pool (None without speculative decoding)."""
+        return self._draft_pool
+
+    @property
+    def draft_pool_bytes(self) -> int:
+        return self._draft_pool.nbytes if self._spec_enabled else 0
+
+    @property
+    def spec_accept_rate(self) -> Optional[float]:
+        """Engine-lifetime draft acceptance rate (None when speculative
+        decoding is off or no round has run yet)."""
+        if not self._spec_enabled or not self.spec_proposed_total:
+            return None
+        return self.spec_accepted_total / self.spec_proposed_total
 
     def idle(self) -> bool:
         return not self._queue and self.busy_slots == 0
@@ -338,6 +476,7 @@ class ServingEngine:
         max_queue_wait_s: Optional[float] = None,
         tenant: Optional[str] = None,
         tier: Optional[str] = None,
+        return_logprobs: bool = False,
     ) -> str:
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
@@ -345,6 +484,15 @@ class ServingEngine:
         tenant = str(tenant) if tenant is not None else DEFAULT_TENANT
         tier = str(tier) if tier is not None else DEFAULT_TIER
         tier_index(tier)  # an unknown tier is refused at submission
+        if return_logprobs and self._spec_enabled:
+            # committed tokens mix draft proposals and verify corrections (JAX :1200-1206)
+            raise GenerationUnsupported(
+                "return_logprobs is not supported on a speculative engine: "
+                "committed tokens mix draft proposals and verify "
+                "corrections, so no single behavior-policy logprob exists"
+            )
+        if return_logprobs:
+            raise GenerationUnsupported("return_logprobs is not ported to the torch backend")
         vocab = int(self.model.config.vocab_size)
         if min(prompt) < 0 or max(prompt) >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
@@ -360,7 +508,7 @@ class ServingEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new}) = {total} "
                 f"exceeds the serving limit {cap}"
             )
-        need = blocks_needed(total, self.config.block_size)
+        need = blocks_needed(total, self.config.block_size, self.config.spec_overhang)
         if need > self.pool.usable_blocks:
             raise ValueError(
                 f"request needs {need} blocks but the pool only has "
@@ -432,6 +580,10 @@ class ServingEngine:
             "block_occupancy": round(self.pool.occupancy(), 4),
             "ts": time.time(),
         }
+        if self._spec_enabled and slot.spec_proposed:
+            rec["spec_proposed"] = slot.spec_proposed
+            rec["spec_accepted"] = slot.spec_accepted
+            rec["spec_accept_rate"] = round(slot.spec_accepted / slot.spec_proposed, 4)
         if slot.t_first is not None:
             decode_s = now - slot.t_first
             rec["ttft_s"] = slot.t_first - slot.t_submit
@@ -469,7 +621,7 @@ class ServingEngine:
                 continue
             q = self._queue[0]
             hits, hit_tokens = self.pool.match_prefix(q.prompt)
-            need = blocks_needed(len(q.prompt) + q.max_new, bs)
+            need = blocks_needed(len(q.prompt) + q.max_new, bs, self.config.spec_overhang)
             fresh = self.pool.allocate(need - len(hits))
             if fresh is None:
                 # the pool can't cover the head of the queue: undo the hit
@@ -505,10 +657,14 @@ class ServingEngine:
             real = min(chunk_len, p - start)
             ids = np.full((chunk_len,), pad, np.int32)
             ids[:real] = slot.prompt[start : start + real]
-            last = self._chunk(
-                self._pool, self._device(self._tables[b]), self._device(ids).long(), start, real
-            )
+            table, ids_t = self._device(self._tables[b]), self._device(ids).long()
+            last = self._chunk(self._pool, table, ids_t, start, real)
             self.prefill_chunks += 1
+            if self._spec_enabled:
+                # the draft prefills the same chunk into its own pool (same
+                # table, same offsets), so its proposals see the whole
+                # prompt; the first token always comes from the target
+                self._draft_chunk(self._draft_pool, table, ids_t, start, real)
             slot.prefill_pos = start + real
             self._lengths[b] = slot.prefill_pos
             if slot.prefill_pos < p:
@@ -541,6 +697,8 @@ class ServingEngine:
     def _decode_tick(self) -> list[dict]:
         if not self._active.any():
             return []
+        if self._spec_enabled:
+            return self._spec_decode_tick()
         tokens = self._decode(self._pool, *self.decode_batch(), self._seed, self._step_counter)
         self.decode_forwards += 1
         tokens = tokens.cpu().numpy()
@@ -556,6 +714,48 @@ class ServingEngine:
                 done.append(self._terminate(b, "stop"))
             elif len(slot.generated) >= slot.max_new:
                 done.append(self._terminate(b, "length"))
+        return done
+
+    def _spec_decode_tick(self) -> list[dict]:
+        """One speculative round for the whole decode wave: the draft
+        proposes ``k`` tokens a slot, one verify forward of the target
+        commits the accepted prefix and a correction or bonus token. The
+        committed length moves forward by what was kept (a stop id or the
+        length budget may cut the block short, ending the request); the
+        rejected tail needs no cache surgery."""
+        k = self.config.speculative.k
+        tables, lengths, cur, active = self.decode_batch()
+        drafts, draft_logits = self._propose(
+            self._draft_pool, tables, lengths, cur, active, self._seed, self._step_counter
+        )
+        tokens, n_commit = self._verify(
+            self._pool, tables, lengths, cur, drafts, draft_logits, active, self._seed, self._step_counter
+        )
+        tokens, n_commit = tokens.cpu().numpy(), n_commit.cpu().numpy()
+        self.spec_rounds += 1  # one propose + verify round a wave, not a slot
+        done: list[dict] = []
+        for b, slot in enumerate(self._slots):
+            if slot is None or not self._active[b]:
+                continue
+            n = int(n_commit[b])
+            slot.spec_proposed += k
+            slot.spec_accepted += n - 1
+            self.spec_proposed_total += k
+            self.spec_accepted_total += n - 1
+            reason, used = None, 0
+            for tok in (int(t) for t in tokens[b, :n]):
+                slot.generated.append(tok)
+                used += 1
+                if tok in self._eos:
+                    reason = "stop"
+                    break
+                if len(slot.generated) >= slot.max_new:
+                    reason = "length"
+                    break
+            self._lengths[b] += used
+            self._cur[b] = slot.generated[-1]
+            if reason is not None:
+                done.append(self._terminate(b, reason))
         return done
 
     def step(self) -> list[dict]:
@@ -593,9 +793,12 @@ class ServingEngine:
         max_new_tokens|None)]. Requests are submitted when their offset
         elapses (wall clock); the engine steps continuously in between. →
         (terminal records, stats: sustained tokens/s, ttft p50/p99, peak
-        occupancy and queue depth, the prefix-cache counters)."""
+        occupancy and queue depth, the prefix-cache counters, and on a
+        speculative engine the proposed and accepted drafts, the accept
+        rate and the drafts proposed a second)."""
         arrivals = sorted(arrivals, key=lambda a: a[0])
         t0 = time.perf_counter()
+        spec_proposed0, spec_accepted0 = self.spec_proposed_total, self.spec_accepted_total
         pending = deque(arrivals)
         out: list[dict] = []
         occ_peak, q_peak = 0.0, 0
@@ -626,6 +829,13 @@ class ServingEngine:
             "queue_depth_peak": q_peak,
             "prefix_cache": dict(self.pool.counters),
         }
+        if self._spec_enabled:
+            proposed = self.spec_proposed_total - spec_proposed0
+            accepted = self.spec_accepted_total - spec_accepted0
+            stats["spec_proposed"] = proposed
+            stats["spec_accepted"] = accepted
+            stats["accept_rate"] = round(accepted / proposed, 4) if proposed else None
+            stats["draft_tps"] = proposed / dt if dt > 0 else 0.0
         if len(completions) != len(out):
             stats["failed_requests"] = len(out) - len(completions)
         return out, stats

@@ -1,8 +1,10 @@
-"""Paged-KV programs: chunked prefill and the paged decode step (fused
-kernel or gather backend).
+"""Paged-KV programs: chunked prefill, the paged decode step (fused
+kernel or gather backend), and speculative decoding's draft proposal and
+verify.
 
 Port of ``automodel_tpu/serving/paged.py`` (``PagedKV``, ``init_pool``,
-``build_chunk_prefill_fn``, ``build_paged_decode_fn``). The pool is a
+``build_chunk_prefill_fn``, ``build_paged_decode_fn``,
+``build_draft_propose_fn``, ``build_verify_fn``). The pool is a
 :class:`PagedKV`: per-layer k/v block tensors ``[L, NB, BS, Nkv, H]`` in the
 model's compute dtype, or int8 values with per-(token row, kv head) fp32
 scales ``[L, NB, BS, Nkv]`` beside them. The programs update the pool in
@@ -18,6 +20,20 @@ place (the JAX programs donate it).
   token row into the pool and runs the paged-attention kernel over the
   pool in place. ``gather``: each layer gathers the slots' tables into a
   view, attends with ``sdpa_decode``, and scatters the token row back.
+- **draft propose**: ``k`` sequential one-token draft steps through
+  ``decode_logits`` over the draft's own pool at the shared block tables,
+  then ONE more step that feeds the last proposal ``d_k`` with its logits
+  dropped (``model.hidden`` only). The JAX program feeds ``cur, d_1 ..
+  d_(k-1)`` alone, so ``d_k``'s K/V never reaches its draft pool, and after
+  a round that accepts all k the next proposals attend a row that was never
+  written (the committed tokens stay right, since verify decides them; the
+  accept rate drops). The extra step writes that row; rows past the
+  committed length are rewritten before the next round reads them.
+- **verify**: one forward of the target over ``[cur, d_1..d_k]`` at the
+  slots' offsets (on ``fused``, the paged kernel with Sq = k+1), then
+  ``speculative_verify``; inactive slots commit nothing. The pool keeps the
+  K/V of every fed token: rejected rows sit past the committed length the
+  host keeps, never attended, and the next round overwrites them.
 """
 
 from __future__ import annotations
@@ -28,7 +44,8 @@ from typing import Any, Callable
 import torch
 
 from automodel_tpu_torch.generation import kv_cache
-from automodel_tpu_torch.generation.sampling import SamplingConfig, sample, step_generator
+from automodel_tpu_torch.generation.loop import _primary
+from automodel_tpu_torch.generation.sampling import SamplingConfig, sample, speculative_verify, step_generator
 from automodel_tpu_torch.ops.paged_attention import dequantize_kv
 
 
@@ -137,30 +154,23 @@ class _LayerCache:
         return self.ctx.attend(q, layer_kv, **kw)
 
 
-def _gather_forward(
-    model, pool: PagedKV, tables, lengths, tokens, active, compute_dtype, block_size: int
-) -> torch.Tensor:
-    """tokens [B, S] at per-slot offsets through the GATHERED view, writing
-    the S rows back into the pool. → logits [B, S, V] fp32."""
+def _decode_plan(pool: PagedKV, tables, lengths, tokens, active, backend: str, block_size: int, compute_dtype):
+    """The cache hook and positions of one forward of tokens [B, S] at
+    per-slot offsets. ``fused``: the paged context, whose per-layer writes
+    scatter into the pool and whose attention runs the paged kernel over
+    it, no view. ``gather``: the chunk context over the GATHERED view, the
+    S rows also written back into the pool."""
     B, S = tokens.shape
-    C = tables.shape[1] * block_size
-    ctx = kv_cache.chunk_ctx(C, S, lengths, torch.where(active, S, 0))
-    cache = _LayerCache(
-        pool, ctx, view_tables=tables, view_dtype=compute_dtype,
-        rows_at=kv_cache.paged_write_targets(tables, lengths, S, active, block_size),
-    )
+    if backend == "fused":
+        cache = _LayerCache(pool, kv_cache.paged_ctx(tables, lengths, S, active, block_size))
+    else:
+        ctx = kv_cache.chunk_ctx(tables.shape[1] * block_size, S, lengths, torch.where(active, S, 0))
+        cache = _LayerCache(
+            pool, ctx, view_tables=tables, view_dtype=compute_dtype,
+            rows_at=kv_cache.paged_write_targets(tables, lengths, S, active, block_size),
+        )
     positions = lengths.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
-    return model(tokens, positions, cache=cache).float()
-
-
-def _fused_forward(model, pool: PagedKV, tables, lengths, tokens, active, block_size: int):
-    """tokens [B, S] through the paged context: per-layer writes scatter
-    into the pool and attention runs the paged kernel over it, no view.
-    → logits [B, S, V] fp32."""
-    B, S = tokens.shape
-    ctx = kv_cache.paged_ctx(tables, lengths, S, active, block_size)
-    positions = lengths.long()[:, None] + torch.arange(S, device=tokens.device)[None, :]
-    return model(tokens, positions, cache=_LayerCache(pool, ctx)).float()
+    return cache, positions
 
 
 def decode_logits(
@@ -169,9 +179,18 @@ def decode_logits(
 ) -> torch.Tensor:
     """tokens [B, S] at per-slot offsets ``lengths`` through one backend,
     their K/V written into the pool. → logits [B, S, V] fp32."""
-    if backend == "fused":
-        return _fused_forward(model, pool, tables, lengths, tokens, active, block_size)
-    return _gather_forward(model, pool, tables, lengths, tokens, active, compute_dtype, block_size)
+    cache, positions = _decode_plan(pool, tables, lengths, tokens, active, backend, block_size, compute_dtype)
+    return _primary(model(tokens, positions, cache=cache)).float()
+
+
+def decode_write(
+    model, pool: PagedKV, tables, lengths, tokens, active, *,
+    backend: str, block_size: int, compute_dtype: torch.dtype,
+) -> None:
+    """``decode_logits`` without the output head: tokens [B, S] only write
+    their K/V into the pool."""
+    cache, positions = _decode_plan(pool, tables, lengths, tokens, active, backend, block_size, compute_dtype)
+    model.hidden(tokens, positions, cache=cache)
 
 
 def build_chunk_prefill_fn(model, chunk_len: int, compute_dtype=None) -> Callable:
@@ -197,7 +216,7 @@ def build_chunk_prefill_fn(model, chunk_len: int, compute_dtype=None) -> Callabl
             rows_at=kv_cache.paged_write_targets(tables, starts, chunk_len, every, BS),
         )
         positions = (start + torch.arange(chunk_len, device=dev))[None, :]
-        h = model.hidden(chunk_ids[None, :], positions, cache=cache)
+        h = _primary(model.hidden(chunk_ids[None, :], positions, cache=cache))
         return model.logits(h[0, real_len - 1]).float()
 
     return chunk
@@ -231,3 +250,79 @@ def build_paged_decode_fn(
         return torch.where(active, nxt, torch.full_like(nxt, pad_id))
 
     return step
+
+
+def spec_generator(seed: int, step_idx: int, stream: int, device) -> torch.Generator:
+    """The generator of one speculative draw: stream 1 is verify's, stream
+    2 + i the draft's i-th step; each apart from ``sample``'s
+    (``step_generator(seed, step_idx)``), as JAX folds ``(step, 0)`` and
+    ``(step, 1 + i)`` into its key."""
+    return step_generator(seed, step_idx * 0x100000001B3 + stream, device)
+
+
+def build_draft_propose_fn(
+    model,
+    sampling: SamplingConfig,
+    spec_k: int,
+    pad_id: int = 0,
+    *,
+    backend: str = "gather",
+    block_size: int = 16,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Callable:
+    """→ ``propose(pool, tables [B, NBseq], lengths [B], cur [B], active [B]
+    bool, seed, step_idx)`` → ``(draft_tokens [B, k] int32, draft_logits [B,
+    k, V] fp32, or None under greedy)``, the draft's pool updated in place:
+    ``spec_k`` sequential one-token steps, each writing the draft's K/V at
+    the shared tables, then one step that writes ``d_k``'s K/V (module
+    docstring): k + 1 draft forwards a call."""
+    kw = dict(backend=backend, block_size=block_size, compute_dtype=compute_dtype)
+
+    @torch.inference_mode()
+    def propose(pool, tables, lengths, cur, active, seed: int, step_idx: int):
+        toks, logs = [], []
+        length, c = lengths, cur
+        for i in range(spec_k):
+            lg = decode_logits(model, pool, tables, length, c[:, None], active, **kw)[:, -1]
+            gen = None if sampling.greedy else spec_generator(seed, step_idx, 2 + i, lg.device)
+            nxt = sample(lg, gen, sampling)
+            nxt = torch.where(active, nxt, torch.full_like(nxt, pad_id))
+            toks.append(nxt)
+            if not sampling.greedy:
+                logs.append(lg)
+            length = length + 1
+            c = nxt.long()
+        decode_write(model, pool, tables, length, c[:, None], active, **kw)
+        return torch.stack(toks, dim=1), torch.stack(logs, dim=1) if logs else None
+
+    return propose
+
+
+def build_verify_fn(
+    model,
+    sampling: SamplingConfig,
+    spec_k: int,
+    pad_id: int = 0,
+    *,
+    backend: str = "gather",
+    block_size: int = 16,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Callable:
+    """→ ``verify(pool, tables, lengths, cur [B], drafts [B, k], draft_logits
+    [B, k, V] | None, active, seed, step_idx)`` → ``(tokens [B, k+1] int32,
+    n_commit [B] int32)``: ONE batched forward over ``[cur, d_1..d_k]`` at
+    per-slot offsets (per-query causal masks over the paged cache), then
+    ``speculative_verify``; an inactive slot commits 0 tokens."""
+    kw = dict(backend=backend, block_size=block_size, compute_dtype=compute_dtype)
+
+    @torch.inference_mode()
+    def verify(pool, tables, lengths, cur, drafts, draft_logits, active, seed: int, step_idx: int):
+        fed = torch.cat([cur[:, None], drafts.long()], dim=1)  # [B, k+1]
+        logits = decode_logits(model, pool, tables, lengths, fed, active, **kw)
+        gen = None if sampling.greedy else spec_generator(seed, step_idx, 1, logits.device)
+        toks, n = speculative_verify(logits, draft_logits, drafts, gen, sampling)
+        n = torch.where(active, n, torch.zeros_like(n))
+        toks = torch.where(active[:, None], toks, torch.full_like(toks, pad_id))
+        return toks, n
+
+    return verify

@@ -4,9 +4,12 @@ out.
 Port of ``main`` (:971) and the stdin-JSONL front (:1283) of
 ``automodel_tpu/serving/server.py``. Each input line is a JSON object
 ``{"prompt_ids": [...]}`` (or ``"prompt": "1 2 3"``, token ids as text)
-with optional ``id``, ``max_new_tokens``, ``deadline_s`` and
-``max_queue_wait_s``. A bad line gets an error line and the batch goes on.
-Exit code: 0, 1 if any line was bad, 2 if no request came in.
+with optional ``id``, ``max_new_tokens``, ``deadline_s``,
+``max_queue_wait_s``, ``tenant``, ``tier`` and ``return_logprobs``. A bad
+line gets an error line and the batch goes on. Each terminal record is
+printed with its ``completion`` (and, on a speculative engine, its
+``spec_proposed`` / ``spec_accepted`` / ``spec_accept_rate``). Exit code:
+0, 1 if any line was bad, 2 if no request came in.
 
 Top-level sections the port does not run (``tracing``, ``slo``, ``fleet``)
 are refused when enabled; the ``serving:`` section refuses its own
@@ -144,6 +147,7 @@ def _serve_stdin(engine) -> int:
                 max_queue_wait_s=req.get("max_queue_wait_s"),
                 tenant=req.get("tenant"),
                 tier=req.get("tier"),
+                return_logprobs=bool(req.get("return_logprobs", False)),
             )
         except (ValueError, TypeError) as e:
             counts["bad"] += 1

@@ -17,8 +17,11 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
      soft-cap case, cases whose attention is sharp (q four times larger),
      lengths on the chunk edges of the kernel's split-KV grid (bf16 at Sq
      1, int8 at Sq 5 with the cap) and one 4096-token sequence (B=1, bf16
-     and int8); the yardstick is ``scaled_dot_product_attention`` over the
-     gathered view;
+     and int8); and verify chunks past 32 query rows a kv head, the
+     kernel's row tiles, at Qwen3-30B-A3B's 32 heads over 4 kv heads,
+     ragged lengths 1..2048: Sq 5 (40 rows, bf16 and int8), Sq 8 (64) and
+     Sq 20 (160), each timed; the yardstick is
+     ``scaled_dot_product_attention`` over the gathered view;
    - flash attention forward, dq and dk/dv (training): B=1, S=4096, N=32,
      Nkv=8, H=128, causal; then a 1024 window, 4 packed documents,
      non-causal, H=64, S=4000, sharp attention and Nkv=4 (Qwen3's 8 q heads
@@ -163,9 +166,12 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    peak (found by its name), positive dispatch and device means and a
    positive peak of device memory must hold, each kernel's launches over
    the 13 steps must equal its training phase's count a step x 13, and
-   leg (a)'s decode and serving legs must run (256 tokens; 16 requests;
-   the paged kernel decode forwards x 8 layers times) with the spill and
-   fleet legs naming their missing sections. Each leg's result is printed
+   leg (a)'s decode and serving legs must run (256 tokens; 16 requests,
+   served with speculative decoding, a Llama-3.2-1B-width draft at k = 4,
+   and again with the draft off: ``serve_draft_tps`` and both sides of
+   ``serve_spec_ab`` non-null; the paged kernel launched (decode + verify
+   forwards) x 8 layers + draft forwards x 16 draft layers times) with the
+   spill and fleet legs naming their missing sections. Each leg's result is printed
    beside its training phase's own step time and FLOP share, and the CUDA
    runtime calls that make the host wait in one more step (torch.profiler,
    CPU side), unchecked;
@@ -184,10 +190,32 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    each; the step time, tokens/s, peak memory and a profile of one more
    step printed; last, one microbatch's KD loss
    and the student's grad norm with both models cut to 2 layers, ``attn:
-   flash`` against ``attn: sdpa`` within phase 7's limits.
+   flash`` against ``attn: sdpa`` within phase 7's limits;
+20. speculative serving at full width and depth
+   (``automodel_tpu_torch/configs/serve_qwen3_moe_a3b_spec.yaml`` as a
+   dict, through the ``serve`` CLI's ``build_engine``): the Qwen3-30B-A3B
+   target at its published 48 layers (``experts: ragged``) and the
+   Qwen3-0.6B draft (28 layers), k = 4, greedy, a bf16 pool on the fused
+   backend, 16 slots. 16 token-id requests of 128-1024 prompt tokens, 8
+   sharing a 512-token prefix, 64 new tokens each: (a) every request ends
+   by length or stop and the block pool audits clean and drains; (b) the
+   paged kernel's launches equal verify forwards x 48 + draft forwards x
+   28 and gmm's 2 x 48 x the target's forwards (prefill chunks and
+   verifies), each formula printed beside its count; a profile of verify
+   rounds with every slot busy; (c) the same requests with the draft off,
+   whose greedy streams the spec-on ones must equal or first leave at a
+   near tie of the spec-off step's top two logits (within phase 5's
+   limit; each printed), and one verify forward's logits through fused
+   against gather within phase 5's limits; ``generate`` of 4 prompts x 32
+   tokens on the same model (the contiguous cache); (d) at Llama-3-8B
+   widths cut to 4 layers, a draft given the target's config and weights
+   must accept at least 0.8 of its proposals, its streams held to the
+   spec-off ones as in (c). Tokens/s, TTFT p50, accept rate and draft
+   tokens a second (spec on and off) and the peak device memory are
+   printed.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 19 last. After the build the
+phase 3b right after phase 3, phases 15 to 20 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -202,6 +230,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -223,6 +252,15 @@ LLAMA3_8B = dict(  # meta-llama/Meta-Llama-3-8B config.json widths
     max_position_embeddings=8192, tie_word_embeddings=False,
 )
 BF16 = dict(attn="sdpa", param_dtype="bfloat16", compute_dtype="bfloat16")
+LLAMA3_2_1B = dict(  # meta-llama/Llama-3.2-1B config.json widths
+    architectures=["LlamaForCausalLM"], model_type="llama",
+    vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+    head_dim=64, rope_theta=500000.0,
+    rope_scaling=dict(rope_type="llama3", factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                      original_max_position_embeddings=8192),
+    rms_norm_eps=1e-5, max_position_embeddings=131072, tie_word_embeddings=True,
+)
 MAX_NEW = 64  # generated tokens per serving request
 # kernel vs plain, per output row (one query head at one position):
 # |out - ref| / |ref| over the row's H channels. Both versions round an fp32
@@ -416,7 +454,9 @@ PRETRAIN_GEMMA2_9B = dict(
 # dicts; tests/test_torch_benchmark.py checks each pair agrees). Leg (a)
 # adds the decode and serving legs: 4 greedy prompts of 64 tokens, 64 new
 # tokens each and no eos; 16 Poisson requests at 8 a second of 128-1024
-# prompt tokens and 64 new ones, on a pool that holds all 16 at once.
+# prompt tokens and 64 new ones, on a pool that holds all 16 at once,
+# served with speculative decoding (a Llama-3.2-1B-width draft, k = 4) and
+# again with the draft off (the leg's spec on/off A/B).
 BENCH_STEPS = dict(warmup_steps=3, measure_steps=10)
 BENCH_LLAMA3_8B = dict(
     SFT_LLAMA3_8B,
@@ -425,7 +465,8 @@ BENCH_LLAMA3_8B = dict(
     generation=dict(max_new_tokens=64, greedy=True, bench_batch=4, bench_prompt_len=64),
     serving=dict(slots=16, block_size=16, num_blocks=2048, prefill_chunk=512, max_seq_len=2048,
                  prefix_cache=True, kv_cache_dtype="bf16", decode_kernel="auto", bench_requests=16,
-                 bench_rate=8.0, bench_prompt_len_min=128, bench_prompt_len_max=1024, bench_max_new_tokens=64),
+                 bench_rate=8.0, bench_prompt_len_min=128, bench_prompt_len_max=1024, bench_max_new_tokens=64,
+                 speculative=dict(enabled=True, k=4, draft=dict(hf_config=LLAMA3_2_1B, backend=BF16))),
     logging=dict(metrics_path="runs/torch_bench_llama3_8b/bench_metrics.jsonl"),
 )
 BENCH_QWEN3_MOE_A3B = dict(PRETRAIN_QWEN3_MOE_A3B, benchmark=BENCH_STEPS,
@@ -440,15 +481,6 @@ BENCH_GEMMA2_9B = dict(PRETRAIN_GEMMA2_9B, benchmark=BENCH_STEPS,
 # kd_llama3_8b_to_llama3_2_1b.yaml as a dict (tests/test_torch_kd.py checks
 # the two agree): the Llama-3-8B teacher and the Llama-3.2-1B student, both
 # at their published widths and depths.
-LLAMA3_2_1B = dict(  # meta-llama/Llama-3.2-1B config.json widths
-    architectures=["LlamaForCausalLM"], model_type="llama",
-    vocab_size=128256, hidden_size=2048, intermediate_size=8192,
-    num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
-    head_dim=64, rope_theta=500000.0,
-    rope_scaling=dict(rope_type="llama3", factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
-                      original_max_position_embeddings=8192),
-    rms_norm_eps=1e-5, max_position_embeddings=131072, tie_word_embeddings=True,
-)
 KD_LLAMA3_8B_TO_1B = dict(
     seed=42,
     teacher_model=dict(hf_config=LLAMA3_8B,
@@ -465,6 +497,42 @@ KD_LLAMA3_8B_TO_1B = dict(
     logging=dict(metrics_path="runs/torch_kd_llama3_8b_to_1b/train_metrics.jsonl"),
 )
 KD_STEPS = 4
+
+# phase 20, speculative serving: automodel_tpu_torch/configs/
+# serve_qwen3_moe_a3b_spec.yaml as a dict (tests/test_torch_cli.py checks
+# the two agree): the Qwen3-30B-A3B target at its published 48 layers
+# (experts ragged, the paged kernel in decode and verify) and the
+# Qwen3-0.6B draft, k = 4, greedy, on one card.
+QWEN3_0_6B = dict(  # Qwen/Qwen3-0.6B config.json widths
+    architectures=["Qwen3ForCausalLM"], model_type="qwen3", vocab_size=151936, hidden_size=1024,
+    intermediate_size=3072, num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8, head_dim=128,
+    rope_theta=1000000.0, rms_norm_eps=1e-6, max_position_embeddings=40960, tie_word_embeddings=True,
+)
+SERVE_QWEN3_MOE_A3B_SPEC = dict(
+    seed=0, device="cuda",
+    model=dict(hf_config=QWEN3_MOE_A3B,
+               backend=dict(attn="sdpa", experts="ragged", param_dtype="bfloat16", compute_dtype="bfloat16")),
+    generation=dict(max_new_tokens=64, greedy=True, eos_token_id=151645, pad_token_id=151643, seed=0),
+    serving=dict(slots=16, block_size=16, num_blocks=2048, prefill_chunk=512, max_seq_len=2048, prefix_cache=True,
+                 kv_cache_dtype="bf16", decode_kernel="fused",
+                 speculative=dict(enabled=True, k=4, draft=dict(hf_config=QWEN3_0_6B, backend=BF16))),
+)
+# the self-draft check: Llama-3-8B widths cut to 4 layers, the draft given
+# the target's own config and, after the build, its weights. Only bf16
+# rounding between the draft's one-token forwards and the verify's
+# (k+1)-token forward can make a proposal miss, so at least this share of
+# proposals must be accepted (JAX's engine, whose draft pool never gets
+# d_k's row, reads 0.375 in its own self-draft test on the CPU at fp32).
+SELF_DRAFT_LLAMA3_8B = dict(
+    seed=0, device="cuda",
+    model=dict(hf_config=dict(LLAMA3_8B, num_hidden_layers=4), backend=BF16),
+    generation=dict(max_new_tokens=64, greedy=True, seed=0),
+    serving=dict(slots=16, block_size=16, num_blocks=2048, prefill_chunk=512, max_seq_len=2048, prefix_cache=True,
+                 kv_cache_dtype="bf16", decode_kernel="fused",
+                 speculative=dict(enabled=True, k=4,
+                                  draft=dict(hf_config=dict(LLAMA3_8B, num_hidden_layers=4), backend=BF16))),
+)
+SELF_DRAFT_MIN_ACCEPT = 0.8
 
 
 def row_rel_err(out, ref) -> float:
@@ -538,22 +606,23 @@ def cuda_ms_queued(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
 
 
 def paged_case(torch, dev, sq: int, quantized: bool, seed: int = 0, uniform: int | None = None,
-               sharp: float = 1.0, batch: int = 16, lengths: list | None = None):
+               sharp: float = 1.0, batch: int = 16, lengths: list | None = None, nkv: int = 8,
+               max_len: int = 4096):
     """The serving path's decode shapes: B=16 sequences of ragged lengths
-    1..4096 (or all of length ``uniform``, or ``lengths``) over one layer's
-    pool. q is standard normal times ``sharp``: at 1 the attention over
-    random keys is near uniform, at 4 a few rows carry most of each row's
-    weight."""
+    1..max_len (or all of length ``uniform``, or ``lengths``) over one
+    layer's pool, 32 query heads over ``nkv`` kv heads. q is standard
+    normal times ``sharp``: at 1 the attention over random keys is near
+    uniform, at 4 a few rows carry most of each row's weight."""
     from automodel_tpu_torch.ops.paged_attention import quantize_kv_rows
 
-    B, N, Nkv, H, BS = batch, 32, 8, 128, 16
-    nbseq = -(-(4096 + sq) // BS)
+    B, N, Nkv, H, BS = batch, 32, nkv, 128, 16
+    nbseq = -(-(max_len + sq) // BS)
     nb = B * nbseq + 1
     g = torch.Generator(device=dev).manual_seed(seed)
     given = lengths
-    lengths = torch.randint(1, 4097, (B,), generator=g, device=dev)
+    lengths = torch.randint(1, max_len + 1, (B,), generator=g, device=dev)
     if B > 1:
-        lengths[0], lengths[1] = 1, 4096
+        lengths[0], lengths[1] = 1, max_len
     if uniform is not None:
         lengths.fill_(uniform)
     if given is not None:
@@ -656,12 +725,21 @@ def phase_kernels(torch, dev) -> dict:
         dict(sq=5, quantized=True, cap=30.0, lengths=paged_chunk_edges(torch, 5)),
         dict(sq=1, quantized=False, batch=1, uniform=4096),
         dict(sq=1, quantized=True, batch=1, uniform=4096),
+        # verify chunks past 32 query rows a kv head (the kernel's row
+        # tiles): Qwen3-30B-A3B's 32 heads over 4 at Sq 5 (k = 4: 40 rows,
+        # bf16 and int8), Sq 8 (64) and Sq 20 (160), ragged 1-2048
+        dict(sq=5, quantized=False, nkv=4, max_len=2048, wide=True),
+        dict(sq=5, quantized=True, nkv=4, max_len=2048, wide=True),
+        dict(sq=8, quantized=False, nkv=4, max_len=2048, wide=True),
+        dict(sq=20, quantized=False, nkv=4, max_len=2048, wide=True),
     ]
     results = []
     for i, c in enumerate(cases):
-        c = dict(dict(window=None, cap=None, main=False, uniform=None, sharp=1.0, batch=16, lengths=None), **c)
+        c = dict(dict(window=None, cap=None, main=False, uniform=None, sharp=1.0, batch=16, lengths=None, nkv=8,
+                      max_len=4096, wide=False), **c)
         q, pool = paged_case(torch, dev, c["sq"], c["quantized"], seed=i, uniform=c["uniform"],
-                             sharp=c["sharp"], batch=c["batch"], lengths=c["lengths"])
+                             sharp=c["sharp"], batch=c["batch"], lengths=c["lengths"], nkv=c["nkv"],
+                             max_len=c["max_len"])
         kw = dict(sliding_window=c["window"], logits_soft_cap=c["cap"])
         out = paged_attend(q, *pool, **kw)
         torch.cuda.synchronize()
@@ -672,20 +750,23 @@ def phase_kernels(torch, dev) -> dict:
         if not bool(torch.isfinite(out.float()).all()):
             raise RuntimeError(f"paged kernel produced non-finite values in case {c}")
         lengths = (f"all {c['uniform']}" if c["uniform"] else
-                   "chunk edges" if c["lengths"] else "ragged 1-4096")
+                   "chunk edges" if c["lengths"] else f"ragged 1-{c['max_len']}")
         row = dict(
             sq=c["sq"], pool="int8" if c["quantized"] else "bf16", window=c["window"],
             cap=c["cap"], sharp=c["sharp"], batch=c["batch"], lengths=lengths,
             max_abs_err=max_err, max_row_rel_err=row_err, ok=ok,
         )
-        if c["main"] or c["uniform"]:
+        if c["wide"]:
+            rows = c["sq"] * 32 // c["nkv"]
+            row.update(wide=True, nkv=c["nkv"], rows_per_kv_head=rows, row_tiles=-(-rows // 32))
+        if c["main"] or c["uniform"] or c["wide"]:
             # one call costs the host about as long as the card here: timed
             # with the host ahead, and the host's time per call beside it
             row["ms"], row["host_us_per_call"] = cuda_ms_queued(lambda: paged_attend(q, *pool, **kw), iters=50)
             row["ms_back_to_back"] = cuda_ms(lambda: paged_attend(q, *pool, **kw), iters=50)
             row["bound_ms"], row["bound_by"], row["bytes"] = paged_bound(q, pool, c["window"])
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        if c["main"]:
+        if c["main"] or c["wide"]:
             row["plain_ms"] = cuda_ms(lambda: paged_attend_plain(q, *pool, **kw), iters=5, warmup=1)
             row["library_ms"] = sdpa_library_ms(torch, q, pool, c["window"])
         results.append(row)
@@ -725,14 +806,14 @@ def serve_requests(engine, prompts: list[list[int]], shared: int, max_new: int):
     return recs, time.perf_counter() - t0
 
 
-def make_prompts(n: int, shared: int, seed: int, vocab: int) -> list[list[int]]:
+def make_prompts(n: int, shared: int, seed: int, vocab: int, max_len: int = 2048) -> list[list[int]]:
     import random
 
     rng = random.Random(seed)
     prefix = [rng.randrange(1, vocab) for _ in range(512)]
     prompts = []
     for i in range(n):
-        length = rng.randint(128, 2048)
+        length = rng.randint(128, max_len)
         if i < shared:
             length = max(length, 513)
             prompts.append(prefix + [rng.randrange(1, vocab) for _ in range(length - 512)])
@@ -797,7 +878,7 @@ def phase_serving(torch, engine, n: int, shared: int) -> dict:
     return out
 
 
-def phase_profile(torch, engine, steps: int = 8) -> dict:
+def phase_profile(torch, engine, steps: int = 8, label: str = "decode step profile") -> dict:
     """Where a decode step's time goes at full width: every slot decoding
     (prompts of 1024 tokens), ``steps`` scheduler steps timed by the host
     clock, then the same number under ``torch.profiler`` for the device
@@ -845,18 +926,34 @@ def phase_profile(torch, engine, steps: int = 8) -> dict:
             profiled_step_ms=wall_ms / steps, device_busy_ms_per_step=busy / steps,
             idle_share=1.0 - busy / wall_ms, device_ops_per_step=n_kernels / steps,
             paged_attention_ms_per_step=share(lambda k: "paged_attention" in k),
+            grouped_matmul_ms_per_step=share(lambda k: "gmm_kernel" in k),
             matmul_ms_per_step=share(lambda k: any(s in k for s in gemm)),
             top=[dict(name=k[:80], ms_per_step=v / steps)
                  for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]],
         )
-    print(f"decode step profile: {json.dumps(out)}", flush=True)
+    print(f"{label}: {json.dumps(out)}", flush=True)
     return out
 
 
 # -- phase 5: one decode step, fused against gather ---------------------------
 
 
-def phase_fused_vs_gather(torch, auto) -> dict:
+def phase_fused_vs_gather(torch, auto, draft_k: int = 0, label: str = "decode step") -> dict:
+    """One decode forward (``draft_k`` 0) or one verify forward over [cur,
+    d_1..d_draft_k] (random drafts) at four slots' offsets through the
+    fused backend (the kernel) and through gather (plain attention over
+    the gathered view), each on its own copy of the same pool: the logits
+    must agree within the limits.
+
+    An MoE model's top-k routing is discontinuous: a token whose k-th and
+    (k+1)-th experts score within bf16 rounding of each other changes
+    experts between the two forwards, and after 48 layers such flips move
+    the logits past any rounding limit (the first chip run of Qwen3-30B-A3B's
+    verify read rel 0.089, min cosine 0.9961). So for a model with MoE
+    layers the fused forward is run a second time with every gate's output
+    taken from the gather forward (the routing pinned): that pair is held
+    to the limits, and the unpinned pair is printed beside it with the
+    number of (token, layer) routings that differ between the two."""
     from automodel_tpu_torch.generation.engine import GenerationConfig
     from automodel_tpu_torch.serving import paged
     from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
@@ -873,28 +970,69 @@ def phase_fused_vs_gather(torch, auto) -> dict:
     while not bool(batch[3].all()):  # step until every prompt is prefilled
         engine.step()
         batch = engine.decode_batch()
-    kw = dict(block_size=16, compute_dtype=torch.bfloat16)
+    kw = dict(block_size=16, compute_dtype=auto.model.compute_dtype)
     pool = engine.kv_pool
 
     def clone(p):
         side = lambda s: tuple(t.clone() for t in s) if isinstance(s, tuple) else s.clone()
         return paged.PagedKV(k=side(p.k), v=side(p.v))
 
-    with torch.inference_mode():
-        fused = paged.decode_logits(auto.model, clone(pool), *batch[:2], batch[2][:, None], batch[3], backend="fused", **kw)
-        gather = paged.decode_logits(auto.model, clone(pool), *batch[:2], batch[2][:, None], batch[3], backend="gather", **kw)
+    fed = batch[2][:, None]
+    if draft_k:
+        drafts = torch.randint(1, auto.config.vocab_size, (fed.shape[0], draft_k), generator=g).to(fed.device)
+        fed = torch.cat([fed, drafts], dim=1)
+
+    def forward(backend):
+        with torch.inference_mode():
+            out = paged.decode_logits(auto.model, clone(pool), *batch[:2], fed, batch[3], backend=backend, **kw)
+        return out.reshape(-1, out.shape[-1])
+
+    def compare(fused, gather):
+        if not (bool(torch.isfinite(fused).all()) and bool(torch.isfinite(gather).all())):
+            raise RuntimeError("non-finite logits")
+        diff = float((fused - gather).abs().max())
+        scale = float(gather.abs().max())
+        cos = torch.nn.functional.cosine_similarity(fused.flatten(1), gather.flatten(1), dim=-1)
+        return dict(
+            max_abs_diff=diff, max_abs_logit=scale, rel=diff / max(scale, 1e-30),
+            min_cosine=float(cos.min()),
+            argmax_agree=int((fused.argmax(-1) == gather.argmax(-1)).sum()), slots=fused.shape[0],
+        )
+
+    from automodel_tpu_torch.moe import layer as moe_layer
+
+    real_gate, gates = moe_layer.gate, []
+
+    def recording_gate(*a, **k):
+        gates.append(real_gate(*a, **k))
+        return gates[-1]
+
+    moe_layer.gate = recording_gate
+    try:
+        gather = forward("gather")
+    finally:
+        moe_layer.gate = real_gate
+    fused = forward("fused")
     torch.cuda.synchronize()
-    if not (bool(torch.isfinite(fused).all()) and bool(torch.isfinite(gather).all())):
-        raise RuntimeError("non-finite logits")
-    diff = float((fused - gather).abs().max())
-    scale = float(gather.abs().max())
-    cos = torch.nn.functional.cosine_similarity(fused.flatten(1), gather.flatten(1), dim=-1)
-    out = dict(
-        max_abs_diff=diff, max_abs_logit=scale, rel=diff / max(scale, 1e-30),
-        min_cosine=float(cos.min()),
-        argmax_agree=int((fused.argmax(-1) == gather.argmax(-1)).sum()), slots=fused.shape[0],
-    )
-    print(f"decode step fused vs gather: {json.dumps(out)}", flush=True)
+    out = compare(fused, gather)
+    if gates:  # an MoE model: the fused forward again with the gather forward's routing
+        replay, flips = iter(gates), []
+
+        def pinned_gate(*a, **k):
+            own, theirs = real_gate(*a, **k), next(replay)
+            differ = own.topk_idx.sort(-1).values != theirs.topk_idx.sort(-1).values
+            flips.append(int(differ.any(-1).sum()))
+            return theirs
+
+        moe_layer.gate = pinned_gate
+        try:
+            pinned = forward("fused")
+        finally:
+            moe_layer.gate = real_gate
+        torch.cuda.synchronize()
+        out = dict(compare(pinned, gather), unpinned=out, routing_flips=sum(flips),
+                   routings=len(gates) * fused.shape[0])
+    print(f"{label} fused vs gather: {json.dumps(out)}", flush=True)
     if out["rel"] > LOGITS_REL_TOL or out["min_cosine"] < LOGITS_MIN_COSINE:
         raise RuntimeError(
             f"fused and gather logits disagree: {out} (limits: rel {LOGITS_REL_TOL}, "
@@ -2112,6 +2250,29 @@ def phase_checkpoint(torch) -> dict:
 # -- phase 18: the benchmark llm recipe ------------------------------------------
 
 
+def draft_forwards(engine) -> int:
+    """The draft forwards a speculative engine ran: k + 1 a round."""
+    spec = engine.config.speculative
+    return (spec.k + 1) * engine.spec_rounds if spec.enabled else 0
+
+
+def spec_paged_launches(engines) -> tuple[int, str]:
+    """The paged kernel's launches the engines' forwards imply: each
+    target decode or verify forward once a target layer, each draft
+    forward (draft_k + 1 a round) once a draft layer. → (count, the
+    formula with its numbers)."""
+    total, terms = 0, []
+    for e in engines:
+        layers = e.model.config.num_layers
+        total += (e.decode_forwards + e.spec_rounds) * layers
+        terms.append(f"({e.decode_forwards} decode + {e.spec_rounds} verify forwards) x {layers} layers")
+        if e.config.speculative.enabled:
+            d_layers, drafts = e.draft_auto.model.config.num_layers, draft_forwards(e)
+            total += drafts * d_layers
+            terms.append(f"{drafts} draft forwards x {d_layers} draft layers")
+    return total, " + ".join(terms) + f" = {total}"
+
+
 def bench_config(base: dict, tag: str) -> dict:
     """A phase-18 leg's config on the card with a JSONL path of its own."""
     cfg = json.loads(json.dumps(base))
@@ -2220,10 +2381,17 @@ def run_bench_leg(torch, label: str, cfg: dict, kernels: dict, per_step: dict, t
         if res["serve_failure"] is not None or res["serve_requests"] != n_req or not res["serve_tokens_per_s"] > 0:
             problems.append(f"serving leg {res['serve_failure']}, {res['serve_requests']} requests (want {n_req}), "
                             f"{res['serve_tokens_per_s']} tokens/s")
-        forwards = sum(e.decode_forwards for e in engines)
-        if after_steps["paged_attention"] != forwards * layers or forwards == 0:
-            problems.append(f"paged kernel launched {after_steps['paged_attention']} times for {forwards} decode "
-                            f"forwards x {layers} layers")
+        # each decode or verify forward of the target runs the kernel once a
+        # layer, each draft forward once a draft layer
+        want_paged, formula = spec_paged_launches(engines)
+        if after_steps["paged_attention"] != want_paged or want_paged == 0:
+            problems.append(f"paged kernel launched {after_steps['paged_attention']} times, want {formula}")
+        if cfg["serving"].get("speculative", {}).get("enabled"):
+            ab = res.get("serve_spec_ab") or {}
+            if (res["serve_spec_failure"] is not None or not res["serve_draft_tps"]
+                    or not ab.get("spec_on_tokens_per_s") or not ab.get("spec_off_tokens_per_s")):
+                problems.append(f"speculative serving: serve_spec_failure {res['serve_spec_failure']!r}, "
+                                f"serve_draft_tps {res['serve_draft_tps']}, serve_spec_ab {ab}")
         if "kv_spill" not in res["serve_spill_failure"] or "fleet" not in res["serve_fleet_failure"]:
             problems.append(f"spill / fleet reasons {res['serve_spill_failure']!r} / {res['serve_fleet_failure']!r}")
     if problems:
@@ -2233,6 +2401,7 @@ def run_bench_leg(torch, label: str, cfg: dict, kernels: dict, per_step: dict, t
     out = dict(result=shown, launches=launches, wall_s=wall, host_syncs_one_more_step=after_steps["host_syncs"],
                paged_attention_launches=after_steps.get("paged_attention"),
                decode_forwards=sum(e.decode_forwards for e in engines) if engines else None,
+               paged_launch_formula=spec_paged_launches(engines)[1] if engines else None,
                training_phase={k: training.get(k) for k in ("step_ms", "model_flops_share_of_989", "tokens_per_s")})
     print(f"{label}: {json.dumps(out)}", flush=True)
     del res
@@ -3052,8 +3221,217 @@ def fused_entries(fused: dict, gpt_oss: dict, ptxas: list, sass: dict) -> list:
     return entries
 
 
+# -- phase 20: speculative serving at Qwen3-30B-A3B's full width and depth ----
+
+
+def moe_layers(engine) -> int:
+    moe = getattr(engine.model, "moe_layers", None)
+    return len(moe()) if moe else 0
+
+
+def serve_and_count(torch, engine, prompts: list, shared: int, label: str) -> dict:
+    """The main path's run: every kernel count set to 0 just before the
+    requests, read just after. Checks (a) every request ends by length or
+    stop, the pool audits clean and drains to fully available; (b) the
+    paged kernel launched once a layer for each target decode or verify
+    forward and once a draft layer for each draft forward, and gmm twice a
+    MoE layer for every target forward (prefill chunks, decode and verify;
+    nothing of the backward). → readings (tokens/s, TTFT p50, accept
+    rate, drafts a second, the counts and their formulas)."""
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+
+    max_new = engine.gen_config.max_new_tokens
+    paged_attend.launches = gm.gmm.launches = gm.gmm.launches_t = gm.tgmm.launches = 0
+    recs, wall = serve_requests(engine, prompts, shared, max_new)
+    k4, k2 = paged_attend.launches, gm.gmm.launches
+    k2_other = gm.gmm.launches_t + gm.tgmm.launches
+    if len(recs) != len(prompts):
+        raise RuntimeError(f"{label}: {len(recs)} records for {len(prompts)} requests")
+    reasons = {r["completion_reason"] for r in recs}
+    if not reasons <= {"length", "stop"}:
+        raise RuntimeError(f"{label}: requests ended with {reasons}")
+    engine.check_invariants()
+    if engine.pool.available() != engine.pool.usable_blocks:
+        raise RuntimeError(f"{label}: the pool holds {engine.pool.available()} of {engine.pool.usable_blocks} "
+                           "blocks after every request ended")
+    want_k4, k4_formula = spec_paged_launches([engine])
+    n_moe = moe_layers(engine)
+    forwards = engine.prefill_chunks + engine.decode_forwards + engine.spec_rounds
+    want_k2 = 2 * n_moe * forwards
+    k2_formula = (f"2 x {n_moe} MoE layers x ({engine.prefill_chunks} prefill chunks + {engine.decode_forwards} "
+                  f"decode + {engine.spec_rounds} verify forwards) = {want_k2}")
+    print(f"{label}: paged_attention launches {k4} = {k4_formula}; gmm launches {k2} = {k2_formula}", flush=True)
+    if k4 != want_k4 or k4 == 0:
+        raise RuntimeError(f"{label}: paged kernel launched {k4} times, want {k4_formula}")
+    if k2 != want_k2 or (n_moe and k2 == 0) or k2_other:
+        raise RuntimeError(f"{label}: gmm launched {k2} times (gmm_t and tgmm {k2_other}), want {k2_formula}")
+    gen = sum(r["n_generated"] for r in recs)
+    ttfts = sorted(r["ttft_s"] for r in recs)
+    out = dict(
+        requests=len(recs), generated_tokens=gen, prompt_tokens=sum(len(p) for p in prompts), wall_s=wall,
+        tokens_per_s=gen / wall, ttft_p50_s=statistics.median(ttfts), ttft_max_s=ttfts[-1],
+        reasons=sorted(reasons), prefill_chunks=engine.prefill_chunks, decode_forwards=engine.decode_forwards,
+        verify_forwards=engine.spec_rounds, draft_forwards=draft_forwards(engine),
+        paged_attend_launches=k4, paged_attend_formula=k4_formula, gmm_launches=k2, gmm_formula=k2_formula,
+        accept_rate=engine.spec_accept_rate, spec_proposed=engine.spec_proposed_total,
+        spec_accepted=engine.spec_accepted_total, spec_rounds=engine.spec_rounds,
+        draft_tps=engine.spec_proposed_total / wall if engine.config.speculative.enabled else None,
+        pool_gib=engine.pool_bytes / 2**30, draft_pool_gib=engine.draft_pool_bytes / 2**30,
+    )
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    out["records"] = recs
+    return out
+
+
+def last_logits(torch, model, ids: list[int]):
+    """The full forward's logits at the last of ``ids`` (fp32)."""
+    with torch.inference_mode():
+        h = model.hidden(torch.tensor([ids], device=next(model.parameters()).device))
+        h = h[0] if isinstance(h, tuple) else h
+        return model.logits(h[0, -1]).float()
+
+
+def compare_streams(torch, model, prompts: list, on: dict, off: dict, label: str) -> dict:
+    """Spec-on greedy streams against spec-off ones: equal token for
+    token, or first apart where the spec-off step's top two logits lie
+    within LOGITS_REL_TOL of the step's largest |logit| of each other (a
+    near tie that bf16 rounding between a one-token and a (k+1)-token
+    forward may flip; phase 5's limit for fused against gather). Each
+    near tie is printed; any other difference fails."""
+    on = {r["request_id"]: r["tokens"] for r in on["records"]}
+    off = {r["request_id"]: r["tokens"] for r in off["records"]}
+    ties, bad, same = [], [], 0
+    for i, prompt in enumerate(prompts):
+        a, b = on[f"r{i}"], off[f"r{i}"]
+        if a == b:
+            same += 1
+            continue
+        j = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]), min(len(a), len(b)))
+        logits = last_logits(torch, model, prompt + b[:j])
+        top = torch.topk(logits, 2).values
+        gap, scale = float(top[0] - top[1]), float(logits.abs().max())
+        entry = dict(request=f"r{i}", position=j, on=a[j] if j < len(a) else None,
+                     off=b[j] if j < len(b) else None, top2_gap=gap, max_abs_logit=scale, rel_gap=gap / scale)
+        (ties if gap <= LOGITS_REL_TOL * scale else bad).append(entry)
+        print(f"{label}: {'near tie' if entry in ties else 'MISMATCH'} {json.dumps(entry)}", flush=True)
+    if bad:
+        raise RuntimeError(f"{label}: spec-on and spec-off streams differ away from a near tie: {bad}")
+    return dict(identical=same, near_ties=ties)
+
+
+def spec_off_engine(engine):
+    """The same model, pool geometry and generation config with the draft
+    off."""
+    from automodel_tpu_torch.serving.engine import ServingEngine, SpeculativeConfig
+
+    return ServingEngine(engine.auto, dataclasses.replace(engine.config, speculative=SpeculativeConfig()),
+                         engine.gen_config)
+
+
+def phase_spec_self_draft(torch) -> dict:
+    """(d): Llama-3-8B widths cut to 4 layers, the draft given the
+    target's config and weights: the accept rate must read at least
+    SELF_DRAFT_MIN_ACCEPT, and the committed streams follow rule (c)."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.serving.server import build_engine
+
+    engine = build_engine(ConfigNode(json.loads(json.dumps(SELF_DRAFT_LLAMA3_8B))))
+    engine.draft_auto.model.load_state_dict(engine.auto.model.state_dict())
+    prompts = make_prompts(8, 4, seed=5, vocab=engine.auto.config.vocab_size, max_len=1024)
+    on = serve_and_count(torch, engine, prompts, 4, "self-draft llama-3-8b x4 spec on")
+    engine.release_pools()
+    off_engine = spec_off_engine(engine)
+    del engine
+    torch.cuda.empty_cache()
+    off = serve_and_count(torch, off_engine, prompts, 4, "self-draft llama-3-8b x4 spec off")
+    streams = compare_streams(torch, off_engine.auto.model, prompts, on, off, "self-draft streams")
+    out = dict(accept_rate=on["accept_rate"], spec_proposed=on["spec_proposed"], spec_accepted=on["spec_accepted"],
+               streams=streams)
+    print(f"self-draft: {json.dumps(out)}", flush=True)
+    if not on["accept_rate"] >= SELF_DRAFT_MIN_ACCEPT:
+        raise RuntimeError(f"self-draft accept rate {on['accept_rate']} < {SELF_DRAFT_MIN_ACCEPT}")
+    del off_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_serving(torch) -> dict:
+    """Phase 20: speculative serving through the ``serve`` CLI's ``build_engine`` on
+    serve_qwen3_moe_a3b_spec.yaml (as a dict): (a)-(b) 16 requests of
+    128-1024 prompt tokens, 8 sharing a 512-token prefix, 64 new tokens,
+    with the launch counts; a profile of verify rounds with every slot
+    busy; (c) the same requests with the draft off (the streams held to
+    each other) and one verify forward's logits through fused against
+    gather; ``generate`` on the same model (the contiguous cache); (d) the
+    self-draft check. (e) runs in phase 18, leg (a)."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.generation.engine import GenerationConfig, GenerationEngine
+    from automodel_tpu_torch.serving.server import build_engine
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the target alone is 61 GB
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = build_engine(ConfigNode(json.loads(json.dumps(SERVE_QWEN3_MOE_A3B_SPEC))))
+    auto = engine.auto
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in auto.model.parameters())
+    n_draft = sum(p.numel() for p in engine.draft_auto.model.parameters())
+    build_s = time.perf_counter() - t0
+    print(f"model: Qwen3-30B-A3B ({auto.config.num_layers} layers, {n_params} params bf16) and Qwen3-0.6B draft "
+          f"({engine.draft_auto.config.num_layers} layers, {n_draft} params), random init and pools {build_s:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card", flush=True)
+    prompts = make_prompts(16, 8, seed=3, vocab=auto.config.vocab_size, max_len=1024)
+    on = serve_and_count(torch, engine, prompts, 8, "spec serving qwen3-30b-a3b spec on")
+    profile = phase_profile(torch, engine, steps=4, label="verify round profile (qwen3-30b-a3b, 16 slots)")
+    peak_serving = torch.cuda.max_memory_allocated()
+    engine.release_pools()
+    off_engine = spec_off_engine(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = serve_and_count(torch, off_engine, prompts, 8, "spec serving qwen3-30b-a3b spec off")
+    streams = compare_streams(torch, auto.model, prompts, on, off, "qwen3-30b-a3b streams")
+    off_engine.release_pools()
+    del off_engine
+    torch.cuda.empty_cache()
+    verify = phase_fused_vs_gather(torch, auto, draft_k=SERVE_QWEN3_MOE_A3B_SPEC["serving"]["speculative"]["k"],
+                                   label="qwen3-30b-a3b verify forward")
+
+    # generate on the same model: the contiguous-cache path
+    gen_engine = GenerationEngine(auto, GenerationConfig(max_new_tokens=32, greedy=True, pad_to_multiple=16))
+    g = torch.Generator().manual_seed(6)
+    gen_prompts = [torch.randint(1, auto.config.vocab_size, (n,), generator=g).tolist() for n in (128, 256, 384, 512)]
+    gen_engine.generate_ids(gen_prompts)  # warm-up
+    res = gen_engine.generate_ids(gen_prompts)
+    if res["gen_tokens"] != 4 * 32 or not res["decode_tps"] > 0:
+        raise RuntimeError(f"generate on qwen3-30b-a3b: {res['gen_tokens']} tokens, {res['decode_tps']} tokens/s")
+    generate = {k: res[k] for k in ("ttft_s", "decode_tps", "gen_tokens", "decode_steps", "cache_bytes")}
+    print(f"generate qwen3-30b-a3b 4 x 32: {json.dumps(generate)}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    del auto, gen_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    self_draft = phase_spec_self_draft(torch)
+    keep = ("tokens_per_s", "ttft_p50_s", "accept_rate", "draft_tps", "wall_s", "verify_forwards", "draft_forwards",
+            "decode_forwards", "prefill_chunks", "paged_attend_launches", "paged_attend_formula", "gmm_launches",
+            "gmm_formula", "pool_gib", "draft_pool_gib")
+    out = dict(
+        spec_on={k: on[k] for k in keep}, spec_off={k: off[k] for k in keep}, streams=streams,
+        verify_fused_vs_gather=verify, profile=profile, generate=generate, self_draft=self_draft,
+        peak_gib_serving=peak_serving / 2**30, peak_gib=peak / 2**30, build_s=build_s,
+        paged_attend_launches=on["paged_attend_launches"], gmm_launches=on["gmm_launches"],
+    )
+    print(f"phase 20 speculative serving: {json.dumps({k: v for k, v in out.items() if k != 'profile'})}",
+          flush=True)
+    return out
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
-                 gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas) -> dict:
+                 gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -3062,7 +3440,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
     kernels with what this build's SASS names (``flash_sass``) at each
     shape's instantiation, the grouped-matmul kernels with ptxas's report
     and the SASS reading of each instantiation."""
-    timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c}
+    timed = {c["pool"]: c for c in kernels["cases"] if "plain_ms" in c and not c.get("wide")}
     main_case = timed["bf16"]
     growth = {f"{c['pool']} B={c['batch']} {c['lengths']}": {k: c[k] for k in ("ms", "ms_back_to_back", "bound_ms")}
               for c in kernels["cases"] if "ms" in c and "plain_ms" not in c}
@@ -3089,6 +3467,17 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
                 "int8": {k: timed["int8"][k]
                          for k in ("ms", "ms_back_to_back", "plain_ms", "library_ms", "bound_ms", "bytes")},
                 "by_context": growth,
+                # verify chunks past 32 query rows a kv head, each tile an
+                # instantiation <pool, 128, 2, 2> (its ptxas reading beside it)
+                "wide_rows": [
+                    dict({k: c[k] for k in ("sq", "pool", "nkv", "rows_per_kv_head", "row_tiles", "lengths", "ms",
+                                            "ms_back_to_back", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                            "bytes", "share_of_bound", "max_row_rel_err")},
+                         ptxas=next((u for u in kernels["ptxas"] if u["kernel"] ==
+                                     f"paged_attention_kernel<{int(c['pool'] == 'int8')}, 128, 2, 2>"), None))
+                    for c in kernels["cases"] if c.get("wide")
+                ],
+                "launches_spec_serving": spec["paged_attend_launches"],
                 "launches_int8_run": serving_int8["paged_attend_launches"],
                 "decode_forwards": serving_bf16["decode_forwards"],
                 "paged_attention_ms_per_decode_step": profile_bf16.get("paged_attention_ms_per_step"),
@@ -3147,6 +3536,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "source": "automodel_tpu_torch/csrc/grouped_matmul.cu",
             "replaces": f"automodel_tpu/ops/grouped_matmul.py:{line_no}",
             "launches": moe["launches"][kind],
+            "launches_spec_serving": spec["gmm_launches"] if kind == "gmm" else 0,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_row_rel_err": max(r["max_row_rel_err"] for r in rows),
             "ms": t["ms"],
@@ -3285,10 +3675,14 @@ def main() -> int:
         t0 = time.perf_counter()
         kd = phase_kd(torch, dev)
         print(f"phase 19 (kd llm, Llama-3-8B into Llama-3.2-1B): {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        spec = phase_spec_serving(torch)
+        print(f"phase 20 (speculative serving, Qwen3-30B-A3B with a Qwen3-0.6B draft): "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
-                            fused_ptxas)
+                            fused_ptxas, spec)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

@@ -268,6 +268,30 @@ def test_benchmark_llm_decode_and_serving_legs_match_jax(tmp_path):
         assert legs[k] == jlegs[k], k
 
 
+def test_benchmark_llm_serving_leg_spec_ab(tmp_path):
+    """tests/test_spec_decode.py:507 on the port: the serving leg with
+    ``serving.speculative`` on, an int8 pool and the fused backend (the
+    paged kernel's plain version on the CPU) reports the accept rate, the
+    drafts proposed a second and the spec on/off A/B, each side measured;
+    the keys are the tiny result's plus ``serve_spec_ab``, as JAX's leg
+    adds it."""
+    draft = dict(hf_config=dict(HF_TINY, hidden_size=16, intermediate_size=32, num_hidden_layers=1,
+                                num_attention_heads=2, num_key_value_heads=1, head_dim=8),
+                 backend=dict(attn="sdpa", param_dtype="float32", compute_dtype="float32"))
+    serving = dict(TINY_BENCH["serving"], kv_cache_dtype="int8", decode_kernel="fused", bench_requests=3,
+                   speculative=dict(enabled=True, k=2, draft=draft))
+    rc, res = _port_cli(tmp_path, dict(TINY_BENCH, serving=serving))
+    assert rc == 0
+    assert res["serve_failure"] is None and res["serve_spec_failure"] is None
+    assert res["serve_tokens_per_s"] > 0 and res["serve_requests"] == 3
+    assert isinstance(res["serve_accept_rate"], float) and 0 <= res["serve_accept_rate"] <= 1
+    assert res["serve_draft_tps"] > 0
+    assert (res["serve_decode_backend"], res["serve_kv_cache_dtype"]) == ("fused", "int8")
+    ab = res["serve_spec_ab"]
+    assert ab["spec_on_tokens_per_s"] > 0 and ab["spec_off_tokens_per_s"] > 0 and ab["speedup"] > 0
+    assert set(res) == set(TINY_BENCH_KEYS) | {"serve_spec_ab"}
+
+
 def test_benchmark_llm_on_cpu_moe(tmp_path):
     """moe_tiny_cpu.yaml through the CLI: no generation or serving section,
     so each leg is a null with its reason, and the keys are JAX's less the

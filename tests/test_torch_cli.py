@@ -16,6 +16,7 @@ import torch_port_parity  # noqa: F401  (caps torch at one thread)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "serve_tiny_cpu.yaml")
 SFT_CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "sft_tiny_cpu.yaml")
+SPEC_CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "serve_tiny_cpu_spec.yaml")
 
 
 def _serve(monkeypatch, capsys, lines, *overrides):
@@ -54,6 +55,38 @@ def test_serve_is_deterministic_and_greedy(monkeypatch, capsys):
     _, first, _ = _serve(monkeypatch, capsys, [line], "--device=cpu")
     _, again, _ = _serve(monkeypatch, capsys, [line], "--device=cpu", "--serving.decode_kernel=gather")
     assert first[0]["completion"] == again[0]["completion"]
+
+
+def test_serve_spec_tiny_cpu_yaml_end_to_end(monkeypatch, capsys, tmp_path):
+    """serve_tiny_cpu_spec.yaml through the serve CLI
+    (tests/test_spec_decode.py:587): a speculative engine over an int8
+    pool; every stdout record and every metrics JSONL row carries the spec
+    keys, the completions equal the same config's with the draft off
+    (greedy), and ``return_logprobs`` is refused on the speculative engine
+    as an error line."""
+    lines = [json.dumps({"id": "a", "prompt": "1 2 3"}),
+             json.dumps({"id": "b", "prompt_ids": [7, 8], "max_new_tokens": 4})]
+
+    def serve(metrics, *overrides, extra=()):
+        monkeypatch.setattr("sys.stdin", io.StringIO("".join(x + "\n" for x in [*lines, *extra])))
+        rc = app.main(["serve", "-c", SPEC_CFG, f"--logging.metrics_path={metrics}", *overrides])
+        out = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.strip()]
+        return rc, {o["request_id"]: o for o in out if "completion" in o}, [o for o in out if "error" in o]
+
+    bad = json.dumps({"id": "c", "prompt_ids": [1, 2], "return_logprobs": True})
+    rc, on, errs = serve(tmp_path / "on.jsonl", extra=[bad])
+    assert rc == 1 and set(on) == {"a", "b"}
+    assert [e["id"] for e in errs] == ["c"] and "return_logprobs" in errs[0]["error"]
+    assert len(on["b"]["completion"].split()) == 4 and len(on["a"]["completion"].split()) == 16
+    for rec in on.values():
+        assert rec["spec_proposed"] > 0 and 0 <= rec["spec_accept_rate"] <= 1
+        assert rec["spec_accepted"] <= rec["spec_proposed"]
+    logged = [json.loads(x) for x in (tmp_path / "on.jsonl").read_text().splitlines()]
+    assert len(logged) == 2 and all("spec_accept_rate" in r for r in logged)
+    rc, off, _ = serve(tmp_path / "off.jsonl", "--serving.speculative.enabled=false")
+    assert rc == 0
+    assert {k: r["completion"] for k, r in off.items()} == {k: r["completion"] for k, r in on.items()}
+    assert all("spec_proposed" not in r for r in off.values())
 
 
 def test_serve_without_requests_exits_2(monkeypatch, capsys):
@@ -189,6 +222,27 @@ def test_chip_smoke_trains_the_committed_moe_config():
     spec.loader.exec_module(chip_smoke)
     cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "pretrain_qwen3_moe_a3b.yaml"))
     assert chip_smoke.PRETRAIN_QWEN3_MOE_A3B == cfg.to_dict()
+
+
+def test_chip_smoke_serves_the_committed_spec_config():
+    """chip_smoke.py phase 20 carries serve_qwen3_moe_a3b_spec.yaml as a
+    dict: Qwen3-30B-A3B at its published 48 layers with the Qwen3-0.6B
+    draft (28 layers), sharing the vocabulary; the two must not drift."""
+    import importlib.util
+
+    from automodel_tpu_torch.config.loader import load_yaml_config
+    from automodel_tpu_torch.serving.engine import ServeConfig
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "serve_qwen3_moe_a3b_spec.yaml"))
+    assert chip_smoke.SERVE_QWEN3_MOE_A3B_SPEC == cfg.to_dict()
+    serving = ServeConfig.from_dict(cfg.serving.to_dict())
+    draft = serving.speculative.draft["hf_config"]
+    assert serving.speculative.enabled and serving.speculative.k == 4
+    assert cfg.model.hf_config.num_hidden_layers == 48 and draft["num_hidden_layers"] == 28
+    assert draft["vocab_size"] == cfg.model.hf_config.vocab_size == 151936
 
 
 GEMMA_CFG = os.path.join(REPO, "automodel_tpu_torch", "configs", "gemma2_tiny_cpu.yaml")

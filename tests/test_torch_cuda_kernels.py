@@ -232,10 +232,47 @@ def test_paged_kernel_folded_scale_equals_prescaled_q(pool, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, None), (None, 30.0)])
+@pytest.mark.parametrize(
+    "sq,n,nkv",
+    [
+        (11, 12, 4),  # 33 rows a kv head: a full row tile and one row
+        (5, 32, 4),  # 40: Qwen3-30B-A3B's verify at k = 4
+        (8, 32, 4),  # 64: two full tiles
+        (13, 40, 8),  # 65: two full tiles and one row
+        (20, 32, 4),  # 160: five tiles
+    ],
+)
+def test_paged_kernel_wide_rows_match_plain(sq, n, nkv, window, cap, pool):
+    """More than 32 query rows a kv head (a verify chunk at a GQA ratio
+    of 3 to 8): the kernel's row tiles, each over the same live blocks and
+    split-KV chunks, merged per tile."""
+    _need_cuda("paged_attention")
+    q, args = make_case(torch.device("cuda"), sq, 128, pool, sharp=4.0 if cap else 1.0, n=n, nkv=nkv,
+                        context=2048, lengths=[0, 300, 1500, 2048 - sq])
+    _paged_matches_plain(q, args, sliding_window=window, logits_soft_cap=cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_paged_kernel_wide_rows_repeat_bit_for_bit(pool):
+    """Each row tile's merge counter is its own: two runs at 40 rows a kv
+    head over many chunks give the same bits."""
+    _need_cuda("paged_attention")
+    q, args = make_case(torch.device("cuda"), 5, 128, pool, n=32, nkv=4, context=4096,
+                        lengths=[4091, 3000, 2, 1700])
+    first = tpa.paged_attend(q, *args)
+    second = tpa.paged_attend(q, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
 def test_paged_refuses_what_the_kernel_does_not_take():
     _need_cuda("paged_attention")
-    q, args = make_case(torch.device("cuda"), 9, 128, "bf16")
-    with pytest.raises(ValueError, match="query rows"):
+    q, args = make_case(torch.device("cuda"), 1, 96, "bf16")
+    with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_attend(q, *args)
     q, args = make_case(torch.device("cuda"), 1, 128, "bf16")
     with pytest.raises(ValueError, match="sliding_window"):

@@ -184,7 +184,7 @@ def test_stop_token_early_exit_matches_jax(llama):
 
 @pytest.mark.parametrize("config_file,why", [
     ("gemma2_tiny_cpu.yaml", "GemmaForCausalLM has no KV-cache decode path"),
-    ("moe_tiny_cpu.yaml", "KV-cache decode for Qwen3-MoE .* is not ported"),
+    ("gpt_oss_tiny_cpu.yaml", "GptOssForCausalLM has no KV-cache decode path"),
 ])
 def test_models_without_a_cache_path_raise_generation_unsupported(config_file, why):
     from automodel_tpu_torch.auto_model import from_config

@@ -108,6 +108,10 @@ def test_params_from_jax_covers_every_parameter_and_refusals():
     for experts in ("gspmd", "a2a", "a2a_fused"):
         with pytest.raises(ValueError, match=experts):
             MoEForCausalLM(MoETransformerConfig.from_hf(HF_MOE_TINY), BackendConfig(experts=experts), device=CPU)
+    # Qwen3-MoE decodes with a cache; a family without the path (GPT-OSS
+    # sets the flag off) refuses cache=
+    assert MoEForCausalLM.supports_kv_cache
+    tmodel.supports_kv_cache = False
     with pytest.raises(ValueError, match="cache"):
         tmodel.hidden(torch.zeros(1, 4, dtype=torch.long), cache=object())
     for model_type in ("glm4_moe", "qwen2_moe"):
