@@ -7,7 +7,9 @@
     python -m automodel_tpu_torch.cli.app generate -c cfg.yaml [--prompt '1 2 3'] [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]
 
-``serve`` runs the stdin-JSONL serving front (serving/server.py);
+``serve`` runs the serving front (serving/server.py): a local HTTP server
+when ``serving.http.port`` is set, the stdin-JSONL front otherwise; both
+drain on SIGTERM and start the stall watchdog;
 ``finetune llm`` and ``pretrain llm`` run the training recipe
 (recipes/train_ft.py), ``benchmark llm`` the benchmark recipe
 (recipes/benchmark.py) and ``kd llm`` the knowledge-distillation recipe
@@ -38,7 +40,7 @@ def _usage() -> str:
     return (
         "usage: python -m automodel_tpu_torch.cli.app serve -c config.yaml "
         "[--device=cpu] [--dotted.key=value ...]  (stdin JSONL in, one JSON "
-        "line per finished request out)\n"
+        "line per finished request out; with --serving.http.port=N an HTTP front)\n"
         "       python -m automodel_tpu_torch.cli.app {finetune|pretrain|benchmark|kd} llm -c config.yaml "
         "[--device=cpu] [--dotted.key=value ...]\n"
         "       python -m automodel_tpu_torch.cli.app generate -c config.yaml [--prompt '1 2 3'] "

@@ -34,14 +34,19 @@ Legs after the measured steps, each a null-with-reason when it cannot run:
   second engine with the draft disabled, built after the first engine's
   pools are released (``spec_on_tokens_per_s`` / ``spec_off_tokens_per_s``
   / ``speedup``);
-- spill and fleet: not ported; their sections are refused, so the legs
-  report JAX's reasons for a missing section.
+- spill (``serving.kv_spill.enabled``, JAX :453-606): the same
+  shared-prefix arrivals through a one-slot engine whose pool holds about
+  one group, spill on and spill off: ``serve_spill_tokens_per_s``,
+  ``serve_spill_ttft_p50_s``, ``serve_effective_hit_rate``,
+  ``serve_spill_reloads`` and ``serve_spill_ab``;
+- fleet: not ported; its section is refused, so the leg reports JAX's
+  reason for a missing section.
 
 The result has no ``recompiles_during_measure`` (XLA compiles, the port
 does not) and no ``cost`` or ``pipeline`` (their sections are refused).
-Refused by name at setup: ``serving.kv_spill.enabled``, a ``fleet:``
-section and ``benchmark.profile.enabled``, besides what the training
-recipe refuses.
+Refused by name at setup: a ``fleet:`` section and
+``benchmark.profile.enabled``, besides what the training recipe and
+``ServeConfig`` refuse.
 """
 
 from __future__ import annotations
@@ -86,7 +91,7 @@ def check_benchmark_sections(cfg: Any) -> None:
     if profile.get("enabled", False):
         raise ValueError("benchmark.profile.enabled: the step profiler is not ported to the torch backend yet")
     if cfg.get("serving", None) is not None:
-        # names serving.kv_spill / serving.qos / ... when enabled
+        # names serving.warm_start / serving.kv_transfer / ... when enabled
         ServeConfig.from_dict(dict(_plain(cfg.serving) or {}))
 
 
@@ -230,7 +235,10 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
         serve_block_occupancy_peak, serve_requests, serve_failure, ...}:
         ``serving.bench_requests`` Poisson arrivals at ``bench_rate``
         req/s, driven in real time through the continuous-batching engine
-        on the live trained module, after one warm-up request."""
+        on the live trained module, after one warm-up request. An engine
+        that recovered from a fault (a rebuild after an error or a stall)
+        fails the leg: ``run_workload`` raises and ``serve_failure`` says
+        why."""
         nulls = {
             "serve_tokens_per_s": None,
             "serve_ttft_p50_s": None,
@@ -312,19 +320,131 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
             out["serve_spec_failure"] = "speculative decoding disabled"
         return out
 
+    def _spill_arrivals(self, scfg: ServeConfig, prefix_blocks: int, groups: int, repeats: int) -> list:
+        """The spill A/B's prefill-heavy workload (JAX :428-451): ``groups``
+        shared prefixes of ``prefix_blocks`` full blocks, each arriving
+        ``repeats`` times with a fresh one-block suffix, round-robin with
+        Poisson gaps, so every return to a group comes after the other
+        groups churned the pool. From seed 2; both legs replay this list."""
+        bs = scfg.block_size
+        vocab = int(self.model.config.vocab_size)
+        rng = np.random.default_rng(2)
+        prefixes = [rng.integers(1, vocab, size=prefix_blocks * bs).tolist() for _ in range(groups)]
+        n = groups * repeats
+        gaps = rng.exponential(1.0 / max(scfg.bench_rate, 1e-6), size=n)
+        offsets = np.cumsum(gaps) - gaps[0]
+        out = []
+        for i in range(n):
+            suffix = rng.integers(1, vocab, size=bs).tolist()
+            out.append((float(offsets[i]), prefixes[i % groups] + suffix, 4))
+        return out
+
     def _spill_leg(self) -> dict:
-        """The spill A/B is not ported; ``serving.kv_spill.enabled`` is
-        refused at setup, so the leg reports JAX's reason for a config
-        without it."""
+        """→ {serve_spill_tokens_per_s, serve_spill_ttft_p50_s,
+        serve_effective_hit_rate, serve_spill_reloads, serve_spill_ab,
+        serve_spill_failure} (JAX :453-606). Two engines, spill on and
+        spill off, share one undersized pool (one slot, ``prefix_blocks +
+        6`` blocks: about one group's working set) and the same arrivals,
+        so the only difference is whether an evicted prefix reloads from
+        host memory or prefills again. Each engine is warmed (and the spill
+        engine's spill → reload cycle run once) before its counters are
+        zeroed; the pools of one engine are released before the next is
+        built. A rebuild, a failed spill extract, or an eviction that was
+        neither spilled nor refused by the byte budget fails the leg, with
+        ``serve_spill_failure`` saying why."""
         nulls = {
             "serve_spill_tokens_per_s": None,
             "serve_spill_ttft_p50_s": None,
             "serve_effective_hit_rate": None,
             "serve_spill_reloads": None,
         }
-        if self.cfg.get("serving", None) is None:
+        section = self.cfg.get("serving", None)
+        if section is None:
             return {**nulls, "serve_spill_failure": "no serving: section in config"}
-        return {**nulls, "serve_spill_failure": "serving.kv_spill disabled"}
+        engine = None
+        try:
+            scfg = ServeConfig.from_dict(dict(_plain(section) or {}))
+            if not scfg.kv_spill.enabled:
+                return {**nulls, "serve_spill_failure": "serving.kv_spill disabled"}
+            gen_cfg = self._gen_config()
+            prefix_blocks, groups, repeats = 12, 3, 3
+            per_req = prefix_blocks + 2  # suffix block + decode spill-over
+            num_blocks = per_req + 4
+            base = dataclasses.replace(
+                scfg, slots=1, num_blocks=num_blocks,
+                max_seq_len=max(scfg.max_seq_len, num_blocks * scfg.block_size),
+                speculative=dataclasses.replace(scfg.speculative, enabled=False, draft=None),
+            )
+            arrivals = self._spill_arrivals(base, prefix_blocks, groups, repeats)
+            legs = {}
+            for name, enabled in (("on", True), ("off", False)):
+                cfg_leg = dataclasses.replace(base, kv_spill=dataclasses.replace(scfg.kv_spill, enabled=enabled))
+                engine = ServingEngine(self.auto, cfg_leg, gen_cfg)
+                engine.submit(arrivals[0][1][: base.block_size], max_new_tokens=2)
+                engine.run()
+                if enabled:
+                    # the spill → reload cycle once outside the window: park
+                    # a prefix, churn it out of the pool, serve it again
+                    warm = arrivals[0][1]
+                    churn_len = min((num_blocks - 1) * base.block_size, base.max_seq_len) - 2
+                    churn = (list(arrivals[1][1]) * 2)[:churn_len]
+                    for p in (warm, churn, warm):
+                        engine.submit(p, max_new_tokens=2)
+                        engine.run()
+                engine.pool.clear_prefix_cache()
+                # the warm-up must not pollute the reported ledgers; zeroed
+                # together (pool and tier) so the cross-tier invariants hold
+                tier = engine.pool.spill
+                for d in [engine.pool.counters] + ([tier.counters] if tier is not None else []):
+                    for key in d:
+                        d[key] = 0
+                _, stats = engine.run_workload(arrivals)
+                engine.check_invariants()
+                if tier is not None:
+                    # every eviction in the window was spilled, or refused
+                    # by the tier's byte budget
+                    c = engine.pool.counters
+                    if c["spilled_blocks"] + tier.counters["spill_rejected"] != c["evictions"]:
+                        raise RuntimeError(
+                            f"spill ledger: {c['spilled_blocks']} spilled + {tier.counters['spill_rejected']} "
+                            f"rejected != {c['evictions']} evictions"
+                        )
+                legs[name] = stats
+                engine.release_pools()
+                engine = None
+        except Exception as e:
+            return {**nulls, "serve_spill_failure": f"{type(e).__name__}: {e}"}
+        finally:
+            if engine is not None:
+                engine.release_pools()
+
+        def _rate(stats):
+            c = stats["prefix_cache"]
+            hit, miss = c["prefix_hit_tokens"], c["prefix_miss_tokens"]
+            return (round(hit / (hit + miss), 4) if hit + miss else None), c
+
+        on_rate, on_c = _rate(legs["on"])
+        off_rate, _ = _rate(legs["off"])
+        on_tps = legs["on"]["sustained_tokens_per_s"]
+        off_tps = legs["off"]["sustained_tokens_per_s"]
+        return {
+            "serve_spill_tokens_per_s": round(on_tps, 2),
+            "serve_spill_ttft_p50_s": round(legs["on"]["ttft_p50_s"], 6),
+            "serve_effective_hit_rate": on_rate,
+            "serve_spill_reloads": on_c["spill_reloads"],
+            "serve_spill_ab": {
+                "spill_on_tokens_per_s": round(on_tps, 2),
+                "spill_off_tokens_per_s": round(off_tps, 2),
+                "spill_on_ttft_p50_s": round(legs["on"]["ttft_p50_s"], 6),
+                "spill_off_ttft_p50_s": round(legs["off"]["ttft_p50_s"], 6),
+                "effective_hit_rate_on": on_rate,
+                "effective_hit_rate_off": off_rate,
+                "spilled_blocks": on_c["spilled_blocks"],
+                "reloaded_blocks": on_c["spill_reloaded_blocks"],
+                "speedup": round(on_tps / off_tps, 3) if off_tps > 0 else None,
+            },
+            "serve_spill_failure": None,
+        }
 
     def _fleet_leg(self) -> dict:
         """The routed fleet leg is not ported; a ``fleet:`` section is

@@ -28,23 +28,58 @@ one scheduler iteration:
 Every submitted request produces exactly one terminal record carrying
 ``completion_reason``, ``retriable``, ``tenant``, ``tier``, ``tokens``
 and, once it has a first token, ``ttft_s``; a speculative engine adds
-``spec_proposed``, ``spec_accepted`` and ``spec_accept_rate``. Sections of
-the JAX engine this port does not have (spill tier, QoS, warm start, HTTP
-front, drain, watchdog, KV transfer) are refused when a config enables
-them. A failing program raises out of ``step``; there is no
-rebuild-and-continue yet.
+``spec_proposed``, ``spec_accepted`` and ``spec_accept_rate``.
+
+The operational half of JAX's engine:
+
+- **QoS** (``serving.qos``, JAX :357-461, :1169-1349, :1874-1989): with QoS
+  on, admission picks by effective tier (aging promotes long-queued work
+  to the top tier), then weighted-fair service over weight across
+  tenants, then earliest deadline, then FIFO; per-tenant token buckets
+  refuse over-quota submissions (``QuotaExceeded``, retriable ``quota``);
+  a full queue (``max_queue``) sheds strictly lowest-tier-first. With QoS
+  off admission is the plain FIFO.
+- **drain** (``serving.drain``, JAX :182, :1049-1077, :2472-2491):
+  ``begin_drain`` refuses new submissions (``EngineDraining``), flushes
+  the queue with retriable ``draining`` records, lets in-flight requests
+  finish within ``grace_s`` and then cancels them, and stamps
+  ``drain_duration_s``.
+- **watchdog and rebuild** (``serving.watchdog``, JAX :211, :1006-1048,
+  :2354-2541): the serving fronts start an ``EngineWatchdog``
+  (resilience/watchdog.py) that ``step`` pets; a stall it detects, or an
+  exception out of a tick, fails only the in-flight wave (``engine_stall``
+  / ``engine_error``, retriable), frees the pool tensors and allocates
+  fresh ones, clears the prefix cache and keeps the queue.
+  ``MAX_CONSECUTIVE_REBUILDS`` back-to-back rebuilds re-raise. A failed
+  admission frees its blocks and fails only that request.
+- **host spill tier** (``serving.kv_spill``, JAX :251-282, :1381-1400,
+  :1481-1582): prefix blocks evicted from the pool's LRU are copied to a
+  bounded host tier (serving/block_pool.py ``HostSpillTier``) inside
+  ``allocate()``; an admission whose prefix match ends short of the
+  prompt's chain reloads the spilled blocks that follow into its fresh
+  blocks (``paged.inject_blocks``) instead of prefilling them. Peer fetch
+  (``kv_peer``) needs the fleet's KV-transfer path and is refused.
+- **metrics**: ``engine.metrics`` (telemetry/prometheus.py
+  ``ServingMetrics``) is observed per terminal record; ``/metrics``
+  renders it.
+
+Sections of the JAX engine this port does not have (warm start, the KV
+transfer listener, a prefill or decode role) are refused when a config
+enables them.
 
 ``run_workload`` (JAX :2569-2632) drives timed arrivals through the engine
 for the benchmark's serving leg, with the speculative counters
 (``spec_proposed``, ``spec_accepted``, ``accept_rate``, ``draft_tps``) on
-a speculative engine. ``release_pools`` frees the device pools (target and
-draft) of an engine that is done.
+a speculative engine; its ``prefix_cache`` block carries the spill
+counters. ``release_pools`` frees the device pools (target and draft) of
+an engine that is done.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 import time
 from collections import deque
 from typing import Any, Callable, Optional, Sequence
@@ -59,48 +94,71 @@ from automodel_tpu_torch.generation.engine import (
 )
 from automodel_tpu_torch.generation.sampling import sample, step_generator
 from automodel_tpu_torch.serving import paged
-from automodel_tpu_torch.serving.block_pool import BlockPool, blocks_needed
+from automodel_tpu_torch.serving.block_pool import BlockPool, HostSpillTier, blocks_needed, prompt_chain
+from automodel_tpu_torch.telemetry.prometheus import _LABEL_VALUE_OK, ServingMetrics
 from automodel_tpu_torch.telemetry.report import percentile
 
-# terminal `completion_reason` values this engine produces:
-#   stop    — hit a configured eos id
-#   length  — spent its max_new_tokens budget
-#   timeout — deadline_s / max_queue_wait_s expired
-# A record's `retriable` says whether the client may resubmit it as is; the
-# reasons JAX's engine marks so (shed, quota, draining, cancelled and the
-# engine failures) come from sections the port refuses, so none of the
-# three above is retriable.
+logger = logging.getLogger(__name__)
+
+# terminal `completion_reason` values every request record carries one of:
+#   stop         — hit a configured eos id
+#   length       — spent its max_new_tokens budget
+#   timeout      — deadline_s / max_queue_wait_s expired (not retriable)
+#   shed         — rejected at submit, admission queue full (retriable)
+#   quota        — rejected at submit, the tenant's token bucket is empty
+#                  (retriable after Retry-After)
+#   draining     — rejected because the server is draining (retriable)
+#   cancelled    — in flight when the drain grace expired (retriable)
+#   engine_stall — failed by a watchdog-detected wedged step (retriable)
+#   engine_error — failed by a scheduler/program exception (retriable)
+# (JAX's `prefilled`, a prefill-only fleet request, has no producer here)
+_COMPLETED_REASONS = frozenset({"stop", "length"})
 _RETRIABLE_REASONS = frozenset(
     {"shed", "quota", "draining", "cancelled", "engine_stall", "engine_error"}
 )
 
-# QoS tiers, highest priority first; a record names its request's tenant
-# and tier. QoS itself (fair queuing, quotas, shedding) is not ported: every
-# request is admitted FIFO whatever it names.
+# QoS tiers, highest priority first: admission, shedding and the
+# Retry-After scaling key off the tier's index in this tuple
 TIERS = ("interactive", "batch", "best_effort")
-DEFAULT_TENANT = "anonymous"
-DEFAULT_TIER = "interactive"
+_TIER_INDEX = {t: i for i, t in enumerate(TIERS)}
 
 
 def tier_index(tier: str) -> int:
     """Priority rank of a tier (0 = highest). An unknown tier raises, as in
     the JAX engine: a typo must never silently demote a tenant."""
-    if tier not in TIERS:
-        raise ValueError(f"unknown QoS tier {tier!r} (want one of {'|'.join(TIERS)})")
-    return TIERS.index(tier)
+    try:
+        return _TIER_INDEX[tier]
+    except KeyError:
+        raise ValueError(f"unknown QoS tier {tier!r} (want one of {'|'.join(TIERS)})") from None
 
-# sections of the JAX engine's config that this port does not run
-UNPORTED_SERVING_SECTIONS = (
-    "kv_spill", "qos", "warm_start", "http", "drain", "watchdog", "kv_transfer",
-)
+
+class QueueFull(RuntimeError):
+    """Admission queue at ``max_queue``: overload is shed back to the caller
+    as a retriable signal (HTTP 503 + Retry-After, a stdin error line)."""
+
+
+class EngineDraining(RuntimeError):
+    """Submissions refused while the server drains (retriable: the client
+    should go to another replica)."""
+
+
+class QuotaExceeded(RuntimeError):
+    """The tenant's token bucket (requests/s or decode tokens/s) is empty:
+    retriable after it refills. Carries ``tenant`` and ``tier`` so the
+    front can label the rejection."""
+
+    def __init__(self, message: str, tenant: str, tier: str):
+        super().__init__(message)
+        self.tenant = tenant
+        self.tier = tier
 
 
 def section_enabled(name: str, value: Any) -> bool:
     """Whether a config section asks for its feature. An empty or absent
-    section is off; ``enabled: false`` is off; ``http`` is on when it names
-    a port, ``warm_start`` when it names a peer, ``fleet`` when it names
-    replicas, ``slo`` when it has objectives; any other non-empty section
-    is on."""
+    section is off; ``enabled: false`` (or null) is off; ``http`` is on
+    when it names a port, ``warm_start`` when it names a peer, ``fleet``
+    when it names replicas, ``slo`` when it has objectives; any other
+    non-empty section is on."""
     if not value:
         return False
     if not isinstance(value, dict):
@@ -142,6 +200,76 @@ class LimitsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DrainConfig:
+    """The ``serving.drain:`` section (JAX :182-207). SIGTERM flips the
+    server to draining: new and queued requests are rejected retriable,
+    in-flight requests finish within ``grace_s``, then the front exits.
+    ``requeue_exit``: ``auto`` exits 75 (the launchers' requeue code)
+    under slurm/k8s and 0 otherwise; ``always``/``never`` force it."""
+
+    grace_s: float = 30.0
+    install_signal_handler: bool = True
+    requeue_exit: str = "auto"  # auto | always | never
+
+    def __post_init__(self):
+        if self.requeue_exit not in ("auto", "always", "never"):
+            raise ValueError(f"serving.drain.requeue_exit={self.requeue_exit!r} (want auto|always|never)")
+        if self.grace_s < 0:
+            raise ValueError(f"serving.drain.grace_s={self.grace_s}")
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "DrainConfig":
+        return _strict(cls, d, "serving.drain")
+
+
+@dataclasses.dataclass(frozen=True)
+class StallConfig:
+    """The ``serving.watchdog:`` section (JAX :211-228): scheduler-level
+    stall detection through resilience/watchdog.py's ``EngineWatchdog``.
+    The serving fronts start it (``start_watchdog``); engine construction
+    does not."""
+
+    enabled: bool = True
+    multiplier: float = 20.0
+    min_deadline_s: float = 30.0
+    max_deadline_s: float = 600.0
+    ema_alpha: float = 0.2
+    compile_grace_s: float = 1800.0  # until the first decode step has run
+    poll_interval_s: float = 0.25
+    stacks_path: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "StallConfig":
+        return _strict(cls, d, "serving.watchdog")
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSpillConfig:
+    """The ``serving.kv_spill:`` section (JAX :251-282): prefix blocks
+    evicted from the device pool's LRU spill to a host tier of at most
+    ``max_host_mb``, keyed by their chain hashes; an admission whose
+    prefix extends past the resident blocks reloads them with
+    ``paged.inject_blocks`` instead of prefilling (greedy output
+    bit-identical). ``peer_fetch`` and ``fetch_timeout_s`` are accepted and
+    stay inert: nothing supplies a peer hint without the fleet's router."""
+
+    enabled: bool = False
+    max_host_mb: float = 256.0  # host tier budget (LRU beyond this)
+    peer_fetch: bool = True
+    fetch_timeout_s: float = 5.0
+
+    def __post_init__(self):
+        if self.max_host_mb <= 0:
+            raise ValueError(f"serving.kv_spill.max_host_mb={self.max_host_mb} (want > 0)")
+        if self.fetch_timeout_s <= 0:
+            raise ValueError(f"serving.kv_spill.fetch_timeout_s={self.fetch_timeout_s} (want > 0)")
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "KVSpillConfig":
+        return _strict(cls, d, "serving.kv_spill")
+
+
+@dataclasses.dataclass(frozen=True)
 class SpeculativeConfig:
     """The ``serving.speculative:`` section (JAX :324-353): draft-and-verify
     speculative decoding. A draft model proposes ``k`` tokens a slot each
@@ -173,6 +301,114 @@ class SpeculativeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TenantConfig:
+    """One ``serving.qos.tenants:`` entry (JAX :357-382): the tenant's
+    default tier, its weighted-fair-queuing share and its token-bucket
+    quotas (None = unlimited)."""
+
+    tier: Optional[str] = None  # default tier; null = qos.default_tier
+    weight: float = 1.0  # WFQ share within the tenant's tier
+    requests_per_s: Optional[float] = None  # admission token bucket
+    decode_tokens_per_s: Optional[float] = None  # decode-budget bucket
+    burst_s: float = 2.0  # bucket depth, in seconds of the rate
+
+    def __post_init__(self):
+        if self.tier is not None:
+            tier_index(self.tier)  # raises on a typo
+        if self.weight <= 0:
+            raise ValueError(f"qos tenant weight={self.weight} (want > 0)")
+        for name in ("requests_per_s", "decode_tokens_per_s"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"qos tenant {name}={v} (want > 0 or null)")
+        if self.burst_s <= 0:
+            raise ValueError(f"qos tenant burst_s={self.burst_s} (want > 0)")
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "TenantConfig":
+        return _strict(cls, d, "serving.qos.tenants entry")
+
+
+@dataclasses.dataclass(frozen=True)
+class QoSConfig:
+    """The ``serving.qos:`` section (JAX :386-436). Enabled, the admission
+    queue is tiered (``TIERS`` order) with weighted fair queuing across
+    tenants and EDF inside a tier; per-tenant token buckets reject
+    over-quota submissions; a full queue sheds lowest-tier-first; work
+    queued past ``aging_s`` orders as the top tier. Disabled (the default),
+    admission is the plain FIFO."""
+
+    enabled: bool = False
+    default_tier: str = "interactive"  # tier when request + tenant name none
+    default_tenant: str = "anonymous"  # tenant when the request names none
+    aging_s: float = 30.0  # queued longer than this → ordered as top tier
+    tenants: Any = dataclasses.field(default_factory=dict)  # name → TenantConfig
+
+    def __post_init__(self):
+        tier_index(self.default_tier)
+        if self.aging_s <= 0:
+            raise ValueError(f"serving.qos.aging_s={self.aging_s} (want > 0)")
+        for name in list(self.tenants) + [self.default_tenant]:
+            # tenant names become /metrics label values: refuse anything the
+            # exposition would rewrite
+            if not _LABEL_VALUE_OK.match(str(name)):
+                raise ValueError(
+                    f"qos tenant name {name!r} is not a valid metrics label value (want [a-zA-Z0-9_.+-]+)"
+                )
+
+    def tenant(self, name: str) -> TenantConfig:
+        return self.tenants.get(name) or TenantConfig()
+
+    def tier_for(self, name: str) -> str:
+        t = self.tenants.get(name)
+        return t.tier if t is not None and t.tier else self.default_tier
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "QoSConfig":
+        d = dict(d or {})
+        tenants = d.get("tenants")
+        if tenants is not None:
+            d["tenants"] = {
+                str(name): (sub if isinstance(sub, TenantConfig) else TenantConfig.from_dict(dict(sub or {})))
+                for name, sub in dict(tenants).items()
+            }
+        return _strict(cls, d, "serving.qos")
+
+
+class _TokenBucket:
+    """Per-tenant rate limiter: ``rate`` units/s refill a bucket of ``rate *
+    burst_s``; ``take`` spends or refuses. rate None = unlimited. Times are
+    the caller's perf_counter values."""
+
+    def __init__(self, rate: Optional[float], burst_s: float):
+        self.rate = rate
+        self.capacity = (rate or 0.0) * burst_s
+        self.tokens = self.capacity
+        self.t_last: Optional[float] = None
+
+    def take(self, n: float, now: float) -> bool:
+        if self.rate is None:
+            return True
+        if self.t_last is not None and now > self.t_last:
+            self.tokens = min(self.capacity, self.tokens + (now - self.t_last) * self.rate)
+        self.t_last = now
+        if self.tokens >= n:
+            self.tokens -= n
+            return True
+        return False
+
+
+_SUBSECTIONS = (
+    ("limits", LimitsConfig),
+    ("drain", DrainConfig),
+    ("watchdog", StallConfig),
+    ("speculative", SpeculativeConfig),
+    ("kv_spill", KVSpillConfig),
+    ("qos", QoSConfig),
+)
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The `serving:` YAML section (sampling and stop tokens come from the
     `generation:` section)."""
@@ -182,9 +418,12 @@ class ServeConfig:
     num_blocks: int = 512  # pool size (block 0 is scratch)
     prefill_chunk: int = 64  # prompt tokens per engine iteration per slot
     max_seq_len: int = 1024  # per-request prompt + generated cap
+    max_queue: int = 4096  # admission queue bound (QueueFull / shed past it)
     prefix_cache: bool = True
     kv_cache_dtype: str = "bf16"  # bf16 (model compute dtype) | int8
     decode_kernel: str = "auto"  # auto (= fused) | fused (paged kernel) | gather
+    role: str = "mixed"  # only mixed: the prefill/decode fleet roles are not ported
+    hot_prefix_advertise: int = 512  # cached chain heads /stats advertises
     # the sustained-throughput workload of the benchmark's serving leg
     # (recipes/benchmark.py, run_workload)
     bench_requests: int = 16
@@ -193,7 +432,11 @@ class ServeConfig:
     bench_prompt_len_max: int = 48
     bench_max_new_tokens: int = 16
     limits: LimitsConfig = dataclasses.field(default_factory=LimitsConfig)
+    drain: DrainConfig = dataclasses.field(default_factory=DrainConfig)
+    watchdog: StallConfig = dataclasses.field(default_factory=StallConfig)
     speculative: SpeculativeConfig = dataclasses.field(default_factory=SpeculativeConfig)
+    kv_spill: KVSpillConfig = dataclasses.field(default_factory=KVSpillConfig)
+    qos: QoSConfig = dataclasses.field(default_factory=QoSConfig)
 
     def __post_init__(self):
         if self.slots < 1 or self.block_size < 1 or self.prefill_chunk < 1:
@@ -209,33 +452,39 @@ class ServeConfig:
             raise ValueError(
                 f"serving.decode_kernel={self.decode_kernel!r} (want auto|fused|gather)"
             )
-
-    @classmethod
-    def from_dict(cls, d: Optional[dict]) -> "ServeConfig":
-        d = dict(d or {})
-        d.pop("_target_", None)
-        spec = d.get("speculative")
-        spec = spec.to_dict() if hasattr(spec, "to_dict") else spec
-        if section_enabled("speculative", spec) and section_enabled("kv_spill", d.get("kv_spill")):
-            # JAX's refusal (:695-703), although the spill tier itself is not ported
+        if self.role != "mixed":
+            raise ValueError(f"serving.role={self.role!r}: only 'mixed' is ported to the torch backend")
+        if self.hot_prefix_advertise < 0:
+            raise ValueError(f"serving.hot_prefix_advertise={self.hot_prefix_advertise}")
+        if self.kv_spill.enabled and self.speculative.enabled:
+            # JAX's refusal (:693-702): a reloaded prefix fills only the
+            # target pool, so the draft's pool would miss the prompt KV
             raise ValueError(
                 "serving.kv_spill cannot be enabled together with "
                 "serving.speculative: the draft pool has no spill tier, so "
                 "a reloaded prefix would leave it without the prompt KV"
             )
-        for name in UNPORTED_SERVING_SECTIONS:
-            if section_enabled(name, d.pop(name, None)):
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "ServeConfig":
+        d = dict(d or {})
+        d.pop("_target_", None)
+        d.pop("http", None)  # the front's section (serving/server.py)
+        # the fleet's KV-transfer listener and warm start (a peer's weights
+        # over that path) are not ported: JAX's auto mode of kv_transfer
+        # (on with kv_spill) starts nothing here, so /stats reports
+        # kv_transfer_port: null
+        for name in ("kv_transfer", "warm_start"):
+            v = d.pop(name, None)
+            if section_enabled(name, v.to_dict() if hasattr(v, "to_dict") else v):
                 raise ValueError(
                     f"serving.{name} is enabled, but the {name} section is not "
                     "ported to the torch backend yet"
                 )
-        role = d.pop("role", "mixed")
-        if role != "mixed":
-            raise ValueError(f"serving.role={role!r}: only 'mixed' is ported to the torch backend")
-        if d.get("limits") is not None and not isinstance(d["limits"], LimitsConfig):
-            d["limits"] = LimitsConfig.from_dict(dict(d["limits"]))
-        if spec is not None and not isinstance(spec, SpeculativeConfig):
-            d["speculative"] = SpeculativeConfig.from_dict(dict(spec))
+        for key, sub in _SUBSECTIONS:
+            v = d.get(key)
+            if v is not None and not isinstance(v, sub):
+                d[key] = sub.from_dict(dict(v.to_dict() if hasattr(v, "to_dict") else v))
         return _strict(cls, d, "serving")
 
     @property
@@ -263,8 +512,9 @@ class _Queued:
     t_submit: float
     deadline_at: Optional[float] = None  # perf_counter absolute
     queue_deadline_at: Optional[float] = None
-    tenant: str = DEFAULT_TENANT
-    tier: str = DEFAULT_TIER
+    tenant: str = "anonymous"
+    tier: str = "interactive"
+    tier_idx: int = 0
 
 
 @dataclasses.dataclass
@@ -273,7 +523,7 @@ class _Slot:
     prompt: list[int]
     max_new: int
     blocks: list[int]  # every block this sequence holds a ref on
-    hit_tokens: int  # prefix-cache reused tokens
+    hit_tokens: int  # prefix-cache reused tokens (resident or reloaded)
     prefill_pos: int  # next absolute prompt position to compute
     t_submit: float
     t_admit: float
@@ -281,8 +531,8 @@ class _Slot:
     decoding: bool = False
     generated: Optional[list[int]] = None
     t_first: Optional[float] = None
-    tenant: str = DEFAULT_TENANT
-    tier: str = DEFAULT_TIER
+    tenant: str = "anonymous"
+    tier: str = "interactive"
     spec_proposed: int = 0  # draft tokens proposed for this request
     spec_accepted: int = 0  # draft tokens the verify rule accepted
 
@@ -293,7 +543,11 @@ class ServingEngine:
     ``submit`` enqueues token-id prompts; ``step`` runs one scheduler
     iteration and returns the records of requests that ended in it;
     ``run`` drains everything. ``on_record`` (optional) receives one dict
-    per terminal request."""
+    per terminal request and per engine event (a rebuild)."""
+
+    # back-to-back rebuild budget: a fault that survives this many fresh
+    # pools in a row is systemic, and step re-raises instead of looping
+    MAX_CONSECUTIVE_REBUILDS = 8
 
     def __init__(
         self,
@@ -323,6 +577,10 @@ class ServingEngine:
             self.config.num_blocks, self.config.block_size,
             prefix_cache=self.config.prefix_cache,
         )
+        sp = self.config.kv_spill
+        if sp.enabled:
+            self.pool.spill = HostSpillTier(max(int(sp.max_host_mb * 1024 * 1024), 1))
+            self.pool.on_evict = self._spill_evicted
         self._quantized = self.config.kv_cache_dtype == "int8"
         self._compute_dtype = self.model.compute_dtype
         # auto resolves to the paged kernel; gather runs only when named
@@ -334,11 +592,7 @@ class ServingEngine:
         self.draft_auto = None
         if self._spec_enabled:
             self.draft_auto = self._build_draft(spec, mcfg)
-        self._pool = paged.init_pool(
-            int(mcfg.num_layers), self.config.num_blocks, self.config.block_size,
-            int(mcfg.num_kv_heads), int(mcfg.head_dim), dtype=self._compute_dtype,
-            quantized=self._quantized, device=self.device,
-        )
+        self._init_pool_arrays()
         self._chunk = paged.build_chunk_prefill_fn(
             self.model, self.config.prefill_chunk, self._compute_dtype
         )
@@ -347,16 +601,9 @@ class ServingEngine:
             block_size=self.config.block_size, compute_dtype=self._compute_dtype,
         )
         self._decode = paged.build_paged_decode_fn(self.model, self.gen_config.sampling, **pk)
-        self._draft_pool = None
         if self._spec_enabled:
             d_model = self.draft_auto.model
-            dcfg, d_dtype = d_model.config, d_model.compute_dtype
-            # the draft's own pool over the same block geometry
-            self._draft_pool = paged.init_pool(
-                int(dcfg.num_layers), self.config.num_blocks, self.config.block_size,
-                int(dcfg.num_kv_heads), int(dcfg.head_dim), dtype=d_dtype,
-                quantized=self._quantized, device=self.device,
-            )
+            d_dtype = d_model.compute_dtype
             self._draft_chunk = paged.build_chunk_prefill_fn(d_model, self.config.prefill_chunk, d_dtype)
             self._propose = paged.build_draft_propose_fn(
                 d_model, self.gen_config.sampling, spec.k, **dict(pk, compute_dtype=d_dtype)
@@ -384,6 +631,50 @@ class ServingEngine:
         self.spec_proposed_total = 0
         self.spec_accepted_total = 0
         self.spec_rounds = 0
+        # terminal accounting (/stats and /metrics)
+        self.completed_total = 0  # stop/length completions
+        self.failed_total = 0  # every other terminal record
+        self.shed_total = 0
+        self.quota_total = 0  # tenant token-bucket rejections
+        self.timeout_total = 0
+        # QoS: per-tenant token buckets (built on first submission),
+        # per-(tier, tenant) weighted-fair service (token budget / weight,
+        # never reset: the order is all WFQ needs) and the per-tier /
+        # per-tenant rollups of /stats
+        self._req_buckets: dict[str, _TokenBucket] = {}
+        self._decode_buckets: dict[str, _TokenBucket] = {}
+        self._wfq_served: dict[tuple[str, str], float] = {}
+        self.tier_counters: dict[str, dict[str, int]] = {
+            t: {"completed": 0, "shed": 0, "timeout": 0, "quota": 0} for t in TIERS
+        }
+        self.tenant_counters: dict[str, dict[str, int]] = {}
+        self.stall_total = 0  # watchdog-detected wedged steps
+        self.error_total = 0  # recovered scheduler exceptions
+        self.spill_errors = 0  # eviction hooks whose device→host copy raised
+        self.last_fault: Optional[str] = None  # the detail of the last of these
+        # drain state (begin_drain / drain_complete)
+        self.draining = False
+        self.drain_duration_s: Optional[float] = None
+        self._drain_started: Optional[float] = None
+        self._drain_deadline: Optional[float] = None
+        # stall watchdog (start_watchdog): evidence handed over from the
+        # watchdog thread, consumed at the next step boundary
+        self._watchdog = None
+        self._stall_evidence: Optional[dict] = None
+        self._consecutive_rebuilds = 0
+        self.first_decode_done = False  # readiness: one decode step has run
+        self.last_step_t: Optional[float] = None  # monotonic, health age
+        # the fleet's /stats fields, at a mixed replica's values: no
+        # KV-transfer listener, no handoffs, a cold boot, the first weights
+        self.kv_transfer_port: Optional[int] = None
+        self.kv_injected_total = 0
+        self.boot_t: Optional[float] = None  # perf_counter at process start
+        self.boot_source = "cold_hf"
+        self.time_to_ready_s: Optional[float] = None
+        self.weights_version = 0
+        # /metrics: histograms observed per terminal record; gauges and
+        # pool counters synced at scrape time
+        self.metrics = ServingMetrics()
 
     def _build_draft(self, spec: SpeculativeConfig, mcfg: Any) -> Any:
         """The draft AutoModel on the engine's device (seeded by the
@@ -412,6 +703,29 @@ class ServingEngine:
                 f"exceeds the draft model's context limit {dmax}"
             )
         return draft
+
+    def _init_pool_arrays(self) -> None:
+        """(Re)create the device pools: at construction, and on a rebuild
+        after a stalled or failed program whose pool can no longer be
+        trusted. The old tensors are dropped before the new ones are
+        allocated, so a card never holds two pools at once; the draft's
+        pool rebuilds beside the target's."""
+        mcfg = self.model.config
+        self._pool = self._draft_pool = None
+        self._pool = paged.init_pool(
+            int(mcfg.num_layers), self.config.num_blocks, self.config.block_size,
+            int(mcfg.num_kv_heads), int(mcfg.head_dim), dtype=self._compute_dtype,
+            quantized=self._quantized, device=self.device,
+        )
+        if self._spec_enabled:
+            d_model = self.draft_auto.model
+            dcfg = d_model.config
+            # the draft's own pool over the same block geometry
+            self._draft_pool = paged.init_pool(
+                int(dcfg.num_layers), self.config.num_blocks, self.config.block_size,
+                int(dcfg.num_kv_heads), int(dcfg.head_dim), dtype=d_model.compute_dtype,
+                quantized=self._quantized, device=self.device,
+            )
 
     def release_pools(self) -> None:
         """Drop the engine's device pools (target and draft), for a caller
@@ -456,14 +770,113 @@ class ServingEngine:
             return None
         return self.spec_accepted_total / self.spec_proposed_total
 
+    @property
+    def watchdog(self):
+        return self._watchdog
+
+    @property
+    def last_step_age_s(self) -> Optional[float]:
+        return time.monotonic() - self.last_step_t if self.last_step_t is not None else None
+
     def idle(self) -> bool:
         return not self._queue and self.busy_slots == 0
 
+    def hot_prefixes(self) -> list[int]:
+        """Cached chain heads /stats advertises (JAX :1375)."""
+        return self.pool.cached_chain_hashes(self.config.hot_prefix_advertise)
+
+    def note_ready(self) -> None:
+        """Stamp ``time_to_ready_s`` at the first readiness (idempotent;
+        after the warm-up and from /readyz), with one ``replica_ready``
+        record."""
+        if self.time_to_ready_s is not None or not self.first_decode_done or self.boot_t is None:
+            return
+        self.time_to_ready_s = time.perf_counter() - self.boot_t
+        logger.info("replica ready in %.3fs (boot source: %s)", self.time_to_ready_s, self.boot_source)
+        self._emit_event({
+            "event": "replica_ready", "ts": time.time(), "boot_source": self.boot_source,
+            "time_to_ready_s": round(self.time_to_ready_s, 6),
+        })
+
     def check_invariants(self) -> None:
+        """Allocator and scheduler audit: the pool's (and spill tier's) own
+        invariants, queue entries unique by request id and carrying a valid
+        tier, WFQ service never negative. Raises on a violation."""
         self.pool.check_invariants()
+        rids = [q.rid for q in self._queue]
+        if len(rids) != len(set(rids)):
+            raise AssertionError(f"duplicate queued request ids: {rids}")
+        for q in self._queue:
+            tier_index(q.tier)
+        for served in self._wfq_served.values():
+            if served < 0:
+                raise AssertionError(f"negative WFQ service accumulator: {self._wfq_served}")
 
     def _device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # -- stall watchdog -------------------------------------------------------
+    def start_watchdog(self, flight_recorder: Any = None, metric_logger: Any = None,
+                       stacks_path: Optional[str] = None):
+        """Arm the scheduler-level stall watchdog (the serving fronts call
+        this). → the EngineWatchdog, or None when serving.watchdog.enabled
+        is false."""
+        c = self.config.watchdog
+        if not c.enabled or self._watchdog is not None:
+            return self._watchdog
+        from automodel_tpu_torch.resilience.watchdog import EngineWatchdog, WatchdogConfig
+
+        wcfg = WatchdogConfig(
+            enabled=True, multiplier=c.multiplier, min_deadline_s=c.min_deadline_s,
+            max_deadline_s=c.max_deadline_s, ema_alpha=c.ema_alpha, compile_grace_s=c.compile_grace_s,
+            poll_interval_s=c.poll_interval_s, stacks_path=c.stacks_path or stacks_path,
+        )
+        self._watchdog = EngineWatchdog(
+            wcfg, self._note_stall, flight_recorder=flight_recorder, metric_logger=metric_logger,
+        )
+        self._watchdog.start()
+        return self._watchdog
+
+    def stop_watchdog(self) -> None:
+        wd, self._watchdog = self._watchdog, None
+        if wd is not None:
+            wd.stop()
+
+    def touch_watchdog(self) -> None:
+        """Idle heartbeat: a serving loop with no work calls this, so an
+        empty server never reads as a wedged one."""
+        if self._watchdog is not None:
+            self._watchdog.touch()
+
+    def _note_stall(self, rec: dict) -> None:
+        # called from the WATCHDOG thread while the scheduler thread is
+        # blocked inside the wedged call; consumed at the next step boundary
+        self._stall_evidence = dict(rec)
+
+    # -- drain ----------------------------------------------------------------
+    def begin_drain(self) -> None:
+        """Flip to draining: new submissions raise ``EngineDraining``, the
+        queue is flushed with retriable records at the next step, and
+        in-flight requests get ``drain.grace_s`` to finish before they are
+        cancelled. Idempotent."""
+        if self.draining:
+            return
+        self.draining = True
+        self._drain_started = time.perf_counter()
+        self._drain_deadline = self._drain_started + max(self.config.drain.grace_s, 0.0)
+        logger.warning(
+            "serving drain started: %d queued rejected retriable, %d in flight, grace %.1fs",
+            self.queue_depth, self.busy_slots, self.config.drain.grace_s,
+        )
+
+    def drain_complete(self) -> bool:
+        """True once every in-flight request ended after ``begin_drain``;
+        stamps ``drain_duration_s`` on the first such call."""
+        done = self.draining and self.idle()
+        if done and self.drain_duration_s is None:
+            self.drain_duration_s = time.perf_counter() - self._drain_started
+            logger.warning("serving drain complete in %.3fs", self.drain_duration_s)
+        return done
 
     # -- submission ----------------------------------------------------------
     def submit(
@@ -477,13 +890,22 @@ class ServingEngine:
         tenant: Optional[str] = None,
         tier: Optional[str] = None,
         return_logprobs: bool = False,
+        kv_peer: Optional[dict] = None,
     ) -> str:
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
             raise ValueError("empty prompt (every request needs >= 1 token)")
-        tenant = str(tenant) if tenant is not None else DEFAULT_TENANT
-        tier = str(tier) if tier is not None else DEFAULT_TIER
-        tier_index(tier)  # an unknown tier is refused at submission
+        qos = self.config.qos
+        tenant = str(tenant) if tenant is not None else qos.default_tenant
+        tier = str(tier) if tier is not None else qos.tier_for(tenant)
+        tier_idx = tier_index(tier)  # an unknown tier is refused at submission
+        if qos.enabled and not _LABEL_VALUE_OK.match(tenant):
+            raise ValueError(f"tenant {tenant!r} is not a valid metrics label value (want [a-zA-Z0-9_.+-]+)")
+        if kv_peer:
+            raise ValueError(
+                "kv_peer: peer prefix fetch needs the fleet's KV-transfer path, which is not ported "
+                "to the torch backend yet"
+            )
         if return_logprobs and self._spec_enabled:
             # committed tokens mix draft proposals and verify corrections (JAX :1200-1206)
             raise GenerationUnsupported(
@@ -519,23 +941,217 @@ class ServingEngine:
         lim = self.config.limits
         ddl = lim.deadline_s if deadline_s is None else float(deadline_s)
         qw = lim.max_queue_wait_s if max_queue_wait_s is None else float(max_queue_wait_s)
-        self._queue.append(
-            _Queued(
-                rid=rid, prompt=prompt, max_new=max_new, t_submit=now,
-                deadline_at=now + ddl if ddl and ddl > 0 else None,
-                queue_deadline_at=now + qw if qw and qw > 0 else None,
-                tenant=tenant, tier=tier,
-            )
+        q = _Queued(
+            rid=rid, prompt=prompt, max_new=max_new, t_submit=now,
+            deadline_at=now + ddl if ddl and ddl > 0 else None,
+            queue_deadline_at=now + qw if qw and qw > 0 else None,
+            tenant=tenant, tier=tier, tier_idx=tier_idx,
         )
+        if self.draining:
+            # no record here: the rejection goes back to the client
+            # directly, and a client honouring Retry-After would otherwise
+            # add one record a retry. The draining check comes before any
+            # priority handling: no tier jumps a drain.
+            raise EngineDraining("server is draining — retry against another replica")
+        if qos.enabled:
+            # quotas, charged up front: one admission token and the
+            # request's whole decode budget (a worst-case reservation)
+            tc = qos.tenant(tenant)
+            rb = self._req_buckets.get(tenant)
+            if rb is None:
+                rb = self._req_buckets[tenant] = _TokenBucket(tc.requests_per_s, tc.burst_s)
+            db = self._decode_buckets.get(tenant)
+            if db is None:
+                db = self._decode_buckets[tenant] = _TokenBucket(tc.decode_tokens_per_s, tc.burst_s)
+            if not rb.take(1.0, now):
+                raise QuotaExceeded(
+                    f"tenant {tenant!r} over requests_per_s={tc.requests_per_s} quota", tenant=tenant, tier=tier,
+                )
+            if not db.take(float(max_new), now):
+                raise QuotaExceeded(
+                    f"tenant {tenant!r} over decode_tokens_per_s={tc.decode_tokens_per_s} quota",
+                    tenant=tenant, tier=tier,
+                )
+        if len(self._queue) >= self.config.max_queue:
+            if not qos.enabled:
+                raise QueueFull(f"admission queue at serving.max_queue={self.config.max_queue}")
+            # shed strictly lowest-tier-first: evict the worst queued entry
+            # when it ranks strictly below the newcomer, else refuse the
+            # newcomer. The evicted entry was accepted, so it is owed its
+            # terminal `shed` record here.
+            victim = self._shed_victim(tier_idx, now)
+            if victim is None:
+                raise QueueFull(
+                    f"admission queue at serving.max_queue={self.config.max_queue} (tier {tier!r} sheds first)"
+                )
+            self._queue.remove(victim)
+            self.shed_total += 1
+            self._rejection_record(victim, "shed")
+        self._queue.append(q)
         return rid
 
-    # -- terminal records ----------------------------------------------------
-    def _emit(self, rec: dict) -> None:
-        if self.on_record is not None:
-            self.on_record(dict(rec))
+    def _effective_tier(self, q: _Queued, now: float) -> int:
+        """Tier rank for ordering and shedding: work queued past
+        ``qos.aging_s`` orders as the top tier (a busy high tier delays low
+        tiers but never starves them)."""
+        if now - q.t_submit >= self.config.qos.aging_s:
+            return 0
+        return q.tier_idx
 
-    def _rejection_record(self, q: _Queued, reason: str) -> dict:
-        """Terminal record for a request that never reached a slot."""
+    def _shed_victim(self, newcomer_tier_idx: int, now: float) -> Optional[_Queued]:
+        """The queued entry a full queue evicts for a strictly higher-tier
+        newcomer: lowest effective tier, latest submission among ties. None
+        when nothing queued ranks strictly below the newcomer."""
+        victim = None
+        victim_key = None
+        for q in self._queue:
+            key = (self._effective_tier(q, now), q.t_submit)
+            if victim_key is None or key > victim_key:
+                victim, victim_key = q, key
+        if victim is None or victim_key[0] <= newcomer_tier_idx:
+            return None
+        return victim
+
+    def record_shed(self, request_id: Optional[str] = None, prompt_ids: Optional[Sequence[int]] = None,
+                    tenant: Optional[str] = None, tier: Optional[str] = None) -> dict:
+        """Account a shed the caller returned to the client (after a
+        ``QueueFull`` it gave up on): one labelled record, however many
+        times the front retried ``submit``."""
+        self.shed_total += 1
+        return self._rejection_record(self._rejected(request_id, prompt_ids, tenant, tier), "shed")
+
+    def record_quota(self, request_id: Optional[str] = None, prompt_ids: Optional[Sequence[int]] = None,
+                     tenant: Optional[str] = None, tier: Optional[str] = None) -> dict:
+        """``record_shed``'s twin for ``QuotaExceeded``: ``submit`` raises
+        without a record; the front that answers the client calls this
+        once."""
+        self.quota_total += 1
+        return self._rejection_record(self._rejected(request_id, prompt_ids, tenant, tier), "quota")
+
+    def _rejected(self, request_id, prompt_ids, tenant, tier) -> _Queued:
+        qos = self.config.qos
+        tenant = tenant if tenant is not None else qos.default_tenant
+        tier = tier if tier is not None else qos.tier_for(tenant)
+        return _Queued(
+            rid=request_id if request_id is not None else f"req-{next(self._ids)}",
+            prompt=[int(t) for t in (prompt_ids or [])], max_new=0, t_submit=time.perf_counter(),
+            tenant=tenant, tier=tier, tier_idx=tier_index(tier),
+        )
+
+    # -- host spill tier ------------------------------------------------------
+    def _spill_evicted(self, evicted: list) -> None:
+        """BlockPool eviction hook: copy the evicted prefix blocks' rows
+        device→host into the spill tier, keyed by chain hash. Runs inside
+        ``allocate()``, strictly before the caller can overwrite the blocks
+        it was handed: one ``index_select`` and one copy to host memory a
+        pool tensor for the whole eviction."""
+        tier = self.pool.spill
+        if tier is None:
+            return
+        try:
+            k, v = paged.extract_blocks(self._pool, [bid for _, bid in evicted])
+        except Exception as e:
+            # the pool logs this and keeps the allocation (a lost spill
+            # costs cached bytes, not correctness); counted so that
+            # check_healthy cannot read the run as a clean one
+            self.spill_errors += 1
+            self.last_fault = f"spill extract: {type(e).__name__}: {e}"
+            raise
+        for (h, _), payload in zip(evicted, paged.split_kv_blocks({"k": k, "v": v})):
+            if tier.put(h, payload, paged.kv_nbytes(payload)):
+                self.pool.counters["spilled_blocks"] += 1
+
+    def _resolve_hierarchy(self, q: _Queued, hits: list, hit_tokens: int, fresh: list) -> int:
+        """Admission-time resolution of a prefix match that ends short of
+        the prompt's chain (JAX :1481-1582, the local tier): the spilled
+        blocks that follow the resident hits reload into the leading
+        ``fresh`` blocks with one ``inject_blocks``, so greedy output is
+        bit-identical to recompute. → the updated hit_tokens (prefill
+        resumes past everything reloaded)."""
+        tier = self.pool.spill
+        if tier is None or not fresh:
+            return hit_tokens
+        chain = prompt_chain(q.prompt, self.config.block_size)
+        pieces: list[dict] = []
+        for h in chain[len(hits):]:
+            if len(pieces) >= len(fresh):
+                break
+            p = tier.get(h)
+            if p is None:
+                break
+            pieces.append(p)
+        if not pieces:
+            return hit_tokens
+        n = len(pieces)
+        paged.inject_blocks(self._pool, fresh[:n], paged.concat_kv_blocks(pieces))
+        self.pool.counters["spill_reloads"] += 1
+        self.pool.counters["spill_reloaded_blocks"] += n
+        return hit_tokens + n * self.config.block_size
+
+    # -- terminal records ----------------------------------------------------
+    def _emit_event(self, rec: dict) -> None:
+        """on_record for an event that is not a request's terminal record."""
+        if self.on_record is not None:
+            try:
+                self.on_record(dict(rec))
+            except Exception:  # telemetry must never break serving
+                pass
+
+    def _emit(self, rec: dict) -> None:
+        try:
+            if rec.get("completion_reason") in _COMPLETED_REASONS:
+                self.metrics.observe_request(rec)
+            else:
+                self.metrics.observe_failure(rec.get("completion_reason", ""))
+            self.metrics.observe_qos(rec)
+            self._note_qos(rec)
+        except Exception:  # telemetry must never break serving
+            pass
+        self._emit_event(rec)
+
+    def _note_qos(self, rec: dict) -> None:
+        """Fold one terminal record into the per-tier / per-tenant /stats
+        rollups."""
+        tier, tenant, reason = rec.get("tier"), rec.get("tenant"), rec.get("completion_reason")
+        if tier is None or tenant is None or reason is None:
+            return
+        tc = self.tier_counters.get(tier)
+        if tc is not None:
+            if reason in _COMPLETED_REASONS:
+                tc["completed"] += 1
+            elif reason in tc:
+                tc[reason] += 1
+        nc = self.tenant_counters.setdefault(
+            tenant, {"requests": 0, "completed": 0, "shed": 0, "quota": 0, "timeout": 0}
+        )
+        nc["requests"] += 1
+        if reason in _COMPLETED_REASONS:
+            nc["completed"] += 1
+        elif reason in nc:
+            nc[reason] += 1
+
+    def qos_snapshot(self) -> dict:
+        """The /stats ``qos`` block: the queue by tier and tenant and the
+        cumulative terminal rollups."""
+        queued_by_tier: dict[str, int] = {t: 0 for t in TIERS}
+        queued_by_tenant: dict[str, int] = {}
+        for q in self._queue:
+            queued_by_tier[q.tier] = queued_by_tier.get(q.tier, 0) + 1
+            queued_by_tenant[q.tenant] = queued_by_tenant.get(q.tenant, 0) + 1
+        return {
+            "enabled": self.config.qos.enabled,
+            "queued_by_tier": queued_by_tier,
+            "queued_by_tenant": queued_by_tenant,
+            "tiers": {t: dict(c) for t, c in self.tier_counters.items()},
+            "tenants": {n: dict(c) for n, c in self.tenant_counters.items()},
+        }
+
+    def _rejection_record(self, q: _Queued, reason: str, detail: Optional[str] = None) -> dict:
+        """Terminal record for a request that never reached a slot (shed,
+        quota, draining, queue timeout, a failed admission)."""
+        self.failed_total += 1
+        if reason == "timeout":
+            self.timeout_total += 1
         rec = {
             "event": "serve_request",
             "request_id": q.rid,
@@ -550,11 +1166,14 @@ class ServingEngine:
             "queue_depth": self.queue_depth,
             "ts": time.time(),
         }
+        if detail:
+            rec["detail"] = detail
         self._emit(rec)
         return rec
 
-    def _terminate(self, b: int, reason: str) -> dict:
-        """Free slot ``b`` and produce its one terminal record."""
+    def _terminate(self, b: int, reason: str, detail: Optional[str] = None) -> dict:
+        """Free slot ``b`` and produce its one terminal record; a failure
+        reason frees the blocks all the same."""
         slot = self._slots[b]
         now = time.perf_counter()
         gen = slot.generated or []
@@ -564,6 +1183,12 @@ class ServingEngine:
         self._lengths[b] = 0
         self._active[b] = False
         self._cur[b] = self.gen_config.pad_token_id
+        if reason in _COMPLETED_REASONS:
+            self.completed_total += 1
+        else:
+            self.failed_total += 1
+            if reason == "timeout":
+                self.timeout_total += 1
         rec = {
             "event": "serve_request",
             "request_id": slot.request_id,
@@ -580,10 +1205,6 @@ class ServingEngine:
             "block_occupancy": round(self.pool.occupancy(), 4),
             "ts": time.time(),
         }
-        if self._spec_enabled and slot.spec_proposed:
-            rec["spec_proposed"] = slot.spec_proposed
-            rec["spec_accepted"] = slot.spec_accepted
-            rec["spec_accept_rate"] = round(slot.spec_accepted / slot.spec_proposed, 4)
         if slot.t_first is not None:
             decode_s = now - slot.t_first
             rec["ttft_s"] = slot.t_first - slot.t_submit
@@ -591,6 +1212,12 @@ class ServingEngine:
             rec["decode_tps"] = (
                 (len(gen) - 1) / decode_s if decode_s > 0 and len(gen) > 1 else 0.0
             )
+        if self._spec_enabled and slot.spec_proposed:
+            rec["spec_proposed"] = slot.spec_proposed
+            rec["spec_accepted"] = slot.spec_accepted
+            rec["spec_accept_rate"] = round(slot.spec_accepted / slot.spec_proposed, 4)
+        if detail:
+            rec["detail"] = detail
         self._emit(rec)
         return rec
 
@@ -614,36 +1241,74 @@ class ServingEngine:
                 done.append(self._terminate(b, "timeout"))
         return done
 
-    def _admit(self) -> None:
+    def _select_queued(self, now: float) -> int:
+        """Index of the next queued request to admit: the head (FIFO) with
+        QoS off; with QoS on, effective tier → least weighted service
+        across tenants → earliest deadline → FIFO (JAX :1967-1989)."""
+        if not self.config.qos.enabled or len(self._queue) <= 1:
+            return 0
+        best_i, best_key = 0, None
+        for i, q in enumerate(self._queue):
+            key = (
+                self._effective_tier(q, now),
+                self._wfq_served.get((q.tier, q.tenant), 0.0) / self.config.qos.tenant(q.tenant).weight,
+                q.deadline_at if q.deadline_at is not None else float("inf"),
+                q.t_submit,
+                i,
+            )
+            if best_key is None or key < best_key:
+                best_key, best_i = key, i
+        return best_i
+
+    def _admit(self, done: list[dict]) -> None:
         bs = self.config.block_size
         for b in range(self.config.slots):
             if self._slots[b] is not None or not self._queue:
                 continue
-            q = self._queue[0]
+            idx = self._select_queued(time.perf_counter())
+            q = self._queue[idx]
             hits, hit_tokens = self.pool.match_prefix(q.prompt)
             need = blocks_needed(len(q.prompt) + q.max_new, bs, self.config.spec_overhang)
             fresh = self.pool.allocate(need - len(hits))
             if fresh is None:
-                # the pool can't cover the head of the queue: undo the hit
-                # refs and stop admitting this step (no overtaking)
+                # the pool can't cover the selected request: undo the hit
+                # refs and stop admitting this step (no overtaking the head
+                # of the scheduling order)
                 if hits:
                     self.pool.free(hits)
                 break
-            self._queue.popleft()
-            matchable = max(len(q.prompt) - 1, 0) // bs * bs
-            self.pool.note_prefix_tokens(hit_tokens, max(matchable - hit_tokens, 0))
+            del self._queue[idx]
+            # WFQ: charge the admitted request's whole token budget to its lane
+            lane = (q.tier, q.tenant)
+            self._wfq_served[lane] = self._wfq_served.get(lane, 0.0) + float(len(q.prompt) + q.max_new)
             blocks = hits + fresh
-            row = np.zeros((self.config.table_blocks,), np.int32)
-            row[: len(blocks)] = blocks
-            self._tables[b] = row
-            self._lengths[b] = hit_tokens
-            self._active[b] = False
-            self._slots[b] = _Slot(
-                request_id=q.rid, prompt=q.prompt, max_new=q.max_new,
-                blocks=blocks, hit_tokens=hit_tokens, prefill_pos=hit_tokens,
-                t_submit=q.t_submit, t_admit=time.perf_counter(), deadline_at=q.deadline_at,
-                tenant=q.tenant, tier=q.tier,
-            )
+            try:
+                hit_tokens = self._resolve_hierarchy(q, hits, hit_tokens, fresh)
+                # token-weighted prefix accounting after the hierarchy:
+                # hit = matchable prompt tokens served from any tier
+                matchable = max(len(q.prompt) - 1, 0) // bs * bs
+                self.pool.note_prefix_tokens(hit_tokens, max(matchable - hit_tokens, 0))
+                self._bind_slot(b, q, blocks, hit_tokens)
+            except Exception as e:
+                # an exception between allocation and binding returns every
+                # block and fails only this request
+                self.pool.free(blocks)
+                self.error_total += 1
+                logger.exception("admission failed for %s", q.rid)
+                done.append(self._rejection_record(q, "engine_error", detail=f"admission: {type(e).__name__}: {e}"))
+
+    def _bind_slot(self, b: int, q: _Queued, blocks: list[int], hit_tokens: int) -> None:
+        row = np.zeros((self.config.table_blocks,), np.int32)
+        row[: len(blocks)] = blocks
+        self._tables[b] = row
+        self._lengths[b] = hit_tokens
+        self._active[b] = False
+        self._slots[b] = _Slot(
+            request_id=q.rid, prompt=q.prompt, max_new=q.max_new,
+            blocks=blocks, hit_tokens=hit_tokens, prefill_pos=hit_tokens,
+            t_submit=q.t_submit, t_admit=time.perf_counter(), deadline_at=q.deadline_at,
+            tenant=q.tenant, tier=q.tier,
+        )
 
     def _prefill_tick(self) -> list[dict]:
         done: list[dict] = []
@@ -702,6 +1367,7 @@ class ServingEngine:
         tokens = self._decode(self._pool, *self.decode_batch(), self._seed, self._step_counter)
         self.decode_forwards += 1
         tokens = tokens.cpu().numpy()
+        self.first_decode_done = True
         done: list[dict] = []
         for b, slot in enumerate(self._slots):
             if slot is None or not self._active[b]:
@@ -732,6 +1398,7 @@ class ServingEngine:
             self._pool, tables, lengths, cur, drafts, draft_logits, active, self._seed, self._step_counter
         )
         tokens, n_commit = tokens.cpu().numpy(), n_commit.cpu().numpy()
+        self.first_decode_done = True
         self.spec_rounds += 1  # one propose + verify round a wave, not a slot
         done: list[dict] = []
         for b, slot in enumerate(self._slots):
@@ -758,15 +1425,117 @@ class ServingEngine:
                 done.append(self._terminate(b, reason))
         return done
 
+    def _rebuild(self, reason: str, detail: Optional[str] = None) -> list[dict]:
+        """Recover from a stalled or failed program (JAX :2354-2402): fail
+        the in-flight wave, clear the prefix cache (its contents are no
+        longer trusted), audit the allocator, free the pool tensors and
+        allocate fresh ones, and keep the queue (queued requests hold no
+        device state). → the failed wave's records."""
+        done: list[dict] = []
+        affected = 0
+        for b, slot in enumerate(self._slots):
+            if slot is not None:
+                done.append(self._terminate(b, reason, detail=detail))
+                affected += 1
+        self.pool.clear_prefix_cache()
+        self.pool.check_invariants()
+        self._init_pool_arrays()
+        self._tables[:] = 0
+        self._lengths[:] = 0
+        self._active[:] = False
+        self._cur[:] = self.gen_config.pad_token_id
+        if reason == "engine_stall":
+            self.stall_total += 1
+        else:
+            self.error_total += 1
+        self.last_fault = f"{reason}: {detail or ''}"
+        try:
+            self.metrics.observe_engine_event(reason)
+        except Exception:
+            pass
+        logger.error(
+            "serving engine %s at step %d: failed %d in-flight request(s), pool rebuilt, queue (%d) kept — %s",
+            reason, self._step_counter, affected, self.queue_depth, detail or "",
+        )
+        rec = {
+            "event": "serve_engine_event", "reason": reason, "step": self._step_counter,
+            "requests_failed": affected, "ts": time.time(),
+        }
+        if detail:
+            rec["detail"] = detail
+        self._emit_event(rec)
+        return done
+
     def step(self) -> list[dict]:
         """One scheduler iteration → the records of requests that ended in
-        it."""
-        done = self._expire_tick()
-        self._admit()
-        done += self._prefill_tick()
-        done += self._decode_tick()
+        it (JAX :2452-2541). An exception out of a tick, or a stall the
+        watchdog reported while the step was blocked, rebuilds the pool and
+        fails only the in-flight wave; more than
+        ``MAX_CONSECUTIVE_REBUILDS`` in a row re-raise."""
+        if self._watchdog is not None:
+            self._watchdog.pet(self._step_counter)
+            if not self.first_decode_done:
+                # the first prefill chunk and the first decode step build
+                # and load kernels at different steps: hold the grace until
+                # a decode step has run once
+                self._watchdog.set_phase("compile")
+        done: list[dict] = []
+        try:
+            done += self._expire_tick()
+            if self.draining:
+                while self._queue:
+                    done.append(self._rejection_record(self._queue.popleft(), "draining"))
+                if self._drain_deadline is not None and time.perf_counter() >= self._drain_deadline:
+                    for b, slot in enumerate(self._slots):
+                        if slot is not None:
+                            done.append(self._terminate(
+                                b, "cancelled", detail=f"drain grace {self.config.drain.grace_s}s expired"
+                            ))
+            else:
+                self._admit(done)
+            done += self._prefill_tick()
+            done += self._decode_tick()
+            rebuilt = False
+        except Exception as e:
+            rebuilt = True
+            self._consecutive_rebuilds += 1
+            if self._consecutive_rebuilds > self.MAX_CONSECUTIVE_REBUILDS:
+                raise  # systemic: the serving front reports scheduler death
+            done += self._rebuild("engine_error", detail=f"{type(e).__name__}: {e}")
+        ev, self._stall_evidence = self._stall_evidence, None
+        if ev is not None:
+            # the wedged call returned after the watchdog fired: its wave is
+            # suspect. Stalls draw on the same consecutive budget as errors.
+            rebuilt = True
+            self._consecutive_rebuilds += 1
+            if self._consecutive_rebuilds > self.MAX_CONSECUTIVE_REBUILDS:
+                raise RuntimeError(
+                    f"serving engine stalled {self._consecutive_rebuilds} consecutive scheduler "
+                    "iterations — systemic fault, refusing to rebuild-loop"
+                )
+            done += self._rebuild(
+                "engine_stall",
+                detail=f"no step-boundary heartbeat for {ev.get('heartbeat_age_s')}s "
+                f"(deadline {ev.get('deadline_s')}s)",
+            )
+        if not rebuilt:
+            self._consecutive_rebuilds = 0
         self._step_counter += 1
+        self.last_step_t = time.monotonic()
+        if self.draining:
+            self.drain_complete()  # stamps drain_duration_s when reached
         return done
+
+    def check_healthy(self) -> None:
+        """Raise if the engine has recovered from a fault since it was
+        built. A rebuild fails only the in-flight wave and keeps serving,
+        and a failed spill only loses cached bytes, so a measurement taken
+        across either reads the survivors, not the engine."""
+        if self.error_total or self.stall_total or self.spill_errors:
+            raise RuntimeError(
+                f"serving engine recovered from faults (error_total {self.error_total}, stall_total "
+                f"{self.stall_total}, spill_errors {self.spill_errors}); last: {self.last_fault}"
+            )
 
     def run(self, max_iterations: Optional[int] = None) -> list[dict]:
         """Drain the queue and every running slot. ``max_iterations`` guards
@@ -795,7 +1564,9 @@ class ServingEngine:
         (terminal records, stats: sustained tokens/s, ttft p50/p99, peak
         occupancy and queue depth, the prefix-cache counters, and on a
         speculative engine the proposed and accepted drafts, the accept
-        rate and the drafts proposed a second)."""
+        rate and the drafts proposed a second). Raises after the window
+        when the engine has recovered from any fault since it was built
+        (``check_healthy``)."""
         arrivals = sorted(arrivals, key=lambda a: a[0])
         t0 = time.perf_counter()
         spec_proposed0, spec_accepted0 = self.spec_proposed_total, self.spec_accepted_total
@@ -838,4 +1609,5 @@ class ServingEngine:
             stats["draft_tps"] = proposed / dt if dt > 0 else 0.0
         if len(completions) != len(out):
             stats["failed_requests"] = len(out) - len(completions)
+        self.check_healthy()
         return out, stats

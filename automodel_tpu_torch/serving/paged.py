@@ -34,6 +34,20 @@ place (the JAX programs donate it).
   ``speculative_verify``; inactive slots commit nothing. The pool keeps the
   K/V of every fed token: rejected rows sit past the committed length the
   host keeps, never attended, and the next round overwrites them.
+
+Moving blocks between the device pool and host memory (the spill tier,
+JAX :191-336): ``extract_blocks`` is one ``index_select`` over the block
+axis on the device and one copy to host memory a pool tensor;
+``inject_blocks`` is one ``index_copy_`` a pool tensor, landing the bytes
+as given (int8 values and their fp32 scales as they are, no
+requantisation). A payload is ``{"k": rows, "v": rows}``, each side
+``[L, nb, BS, Nkv, H]`` host tensors or an ``(int8 values, fp32 scales)``
+pair; ``split_kv_blocks`` / ``concat_kv_blocks`` cut and join payloads
+along the block axis. JAX pads an inject to a power-of-two block count
+(``bucket_blocks`` / ``pad_kv_blocks``, the padding aimed at the scratch
+block) to bound its compiles; the port has no compiles to bound and
+injects the exact count, which leaves the same bytes in every block but
+scratch.
 """
 
 from __future__ import annotations
@@ -191,6 +205,91 @@ def decode_write(
     their K/V into the pool."""
     cache, positions = _decode_plan(pool, tables, lengths, tokens, active, backend, block_size, compute_dtype)
     model.hidden(tokens, positions, cache=cache)
+
+
+# -- moving blocks between the device pool and host memory --------------------
+
+
+def _block_index(blocks, device) -> torch.Tensor:
+    return torch.as_tensor([int(b) for b in blocks], dtype=torch.long).to(device)
+
+
+def extract_blocks(pool: PagedKV, blocks) -> tuple:
+    """The rows of ``blocks`` copied out of the pool to host memory → ``(k,
+    v)``, each ``[L, nb, BS, Nkv, H]`` (or an ``(int8 values, fp32
+    scales)`` pair). Positions past a prompt inside its last block are junk
+    that no attend reads."""
+    k = pool.k[0] if pool.quantized else pool.k
+    idx = _block_index(blocks, k.device)
+
+    def side(s):
+        if isinstance(s, tuple):
+            return tuple(t.index_select(1, idx).cpu() for t in s)
+        return s.index_select(1, idx).cpu()
+
+    return side(pool.k), side(pool.v)
+
+
+def inject_blocks(pool: PagedKV, blocks, kv: dict) -> PagedKV:
+    """Scatter payload rows ``kv = {"k": rows, "v": rows}`` into the pool
+    blocks named by ``blocks``, in place (→ the pool). An int8 payload
+    lands its values and scales as they are, so extract → inject is
+    bit-identical."""
+    k = pool.k[0] if pool.quantized else pool.k
+    idx = _block_index(blocks, k.device)
+
+    def side(s, rows):
+        if isinstance(s, tuple):
+            if not isinstance(rows, tuple):
+                raise ValueError("an int8 pool takes (values, scales) payload pairs")
+            for t, r in zip(s, rows):
+                t.index_copy_(1, idx, r.to(device=t.device, dtype=t.dtype))
+        else:
+            if isinstance(rows, tuple):
+                raise ValueError(f"a {s.dtype} pool takes raw payload rows, not (values, scales) pairs")
+            s.index_copy_(1, idx, rows.to(device=s.device, dtype=s.dtype))
+
+    side(pool.k, kv["k"])
+    side(pool.v, kv["v"])
+    return pool
+
+
+def split_kv_blocks(kv: dict) -> list[dict]:
+    """One payload a block: ``[L, nb, ...]`` rows → nb ``[L, 1, ...]``
+    payloads (copies, so a parked block never pins the whole extract)."""
+
+    def slice_side(s, i):
+        if isinstance(s, tuple):
+            return tuple(t[:, i : i + 1].clone() for t in s)
+        return s[:, i : i + 1].clone()
+
+    first = kv["k"][0] if isinstance(kv["k"], tuple) else kv["k"]
+    return [{"k": slice_side(kv["k"], i), "v": slice_side(kv["v"], i)} for i in range(int(first.shape[1]))]
+
+
+def concat_kv_blocks(payloads: list[dict]) -> dict:
+    """Inverse of :func:`split_kv_blocks`: consecutive single-block payloads
+    → one ``[L, nb, ...]`` payload."""
+    if not payloads:
+        raise ValueError("concat_kv_blocks: empty payload list")
+
+    def cat_side(name):
+        first = payloads[0][name]
+        if isinstance(first, tuple):
+            return tuple(torch.cat([p[name][j] for p in payloads], dim=1) for j in range(len(first)))
+        return torch.cat([p[name] for p in payloads], dim=1)
+
+    return {"k": cat_side("k"), "v": cat_side("v")}
+
+
+def kv_nbytes(kv: dict) -> int:
+    """Host bytes a payload occupies (scales included): the spill tier's
+    budget currency."""
+    total = 0
+    for side in (kv["k"], kv["v"]):
+        for t in side if isinstance(side, tuple) else (side,):
+            total += t.numel() * t.element_size()
+    return total
 
 
 def build_chunk_prefill_fn(model, chunk_len: int, compute_dtype=None) -> Callable:

@@ -212,10 +212,36 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    must accept at least 0.8 of its proposals, its streams held to the
    spec-off ones as in (c). Tokens/s, TTFT p50, accept rate and draft
    tokens a second (spec on and off) and the peak device memory are
-   printed.
+   printed;
+21. the serving front and the host spill tier at Llama-3-8B's published
+   widths and all 32 layers (``configs/serve_llama3_8b_front.yaml`` as a
+   dict, random bf16 weights): (a) one slot on a 512-block bf16 pool with
+   a 4 GiB host tier, 8 groups of a 2048-token prefix, each arriving 3
+   times round-robin with a fresh 64-token suffix (32 new tokens, greedy),
+   spill on then off: the reload counts equal those of the schedule
+   replayed on the host, the allocator and tier audit clean after every
+   request, the spill-on streams equal the spill-off ones up to a near tie
+   of at most 3 bf16 ulps between the top two logits, extract → inject →
+   extract of 128 blocks is bit-identical, and the paged kernel launched
+   decode forwards x 32 times; TTFT p50, tokens/s, the tier's bytes and
+   the moves' ms and GB/s printed; (b) the same on an int8 pool at 4
+   groups (the scales bit-identical too); (c) the HTTP front
+   (``start_http_front``: warm-up, ``serve_http``, the SIGTERM handler)
+   with QoS, 32 POSTs from 8 client threads: each answered once (200, or
+   429 / 503 with Retry-After), one terminal record each, ``/stats`` equal
+   to the records and ``/metrics`` to ``/stats``, ``/healthz`` 200
+   throughout; (d) the installed SIGTERM handler called with every slot
+   busy and a queue: ``/readyz`` and a new POST 503, the queue ends
+   ``draining`` (retriable), the wave finishes, ``drain_duration_s`` set;
+   (e) a watchdog of 2-4 s deadlines and one decode program wrapped with
+   a 6 s sleep: exactly that wave ends ``engine_stall``, one stall, the
+   pool's bytes unchanged, the flight recorder and stacks written, and
+   the requests after it decode the tokens they decoded before. Every
+   serving phase (4, 18's leg (a), 20, 21) checks that its engines
+   rebuilt for no error and no unplanned stall.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 20 last. After the build the
+phase 3b right after phase 3, phases 15 to 21 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -2381,6 +2407,10 @@ def run_bench_leg(torch, label: str, cfg: dict, kernels: dict, per_step: dict, t
         if res["serve_failure"] is not None or res["serve_requests"] != n_req or not res["serve_tokens_per_s"] > 0:
             problems.append(f"serving leg {res['serve_failure']}, {res['serve_requests']} requests (want {n_req}), "
                             f"{res['serve_tokens_per_s']} tokens/s")
+        if not engines:
+            problems.append("the serving leg ran no workload")
+        for i, engine in enumerate(engines):  # the recipe reports a rebuild too; held here as well
+            check_engine_healthy(engine, f"{label} serving engine {i}")
         # each decode or verify forward of the target runs the kernel once a
         # layer, each draft forward once a draft layer
         want_paged, formula = spec_paged_launches(engines)
@@ -3252,6 +3282,7 @@ def serve_and_count(torch, engine, prompts: list, shared: int, label: str) -> di
     if not reasons <= {"length", "stop"}:
         raise RuntimeError(f"{label}: requests ended with {reasons}")
     engine.check_invariants()
+    check_engine_healthy(engine, label)
     if engine.pool.available() != engine.pool.usable_blocks:
         raise RuntimeError(f"{label}: the pool holds {engine.pool.available()} of {engine.pool.usable_blocks} "
                            "blocks after every request ended")
@@ -3430,8 +3461,670 @@ def phase_spec_serving(torch) -> dict:
     return out
 
 
+# -- phase 21: the serving front and the host spill tier ------------------------
+
+
+def check_engine_healthy(engine, label: str, stalls: int = 0) -> None:
+    """No rebuild may hide a kernel failure: an engine that served a phase
+    must have rebuilt its pool for no error, and for a stall only where the
+    phase planned one, and every spill extract must have succeeded."""
+    if engine.error_total != 0 or engine.stall_total != stalls or engine.spill_errors != 0:
+        raise RuntimeError(f"{label}: engine recovered from a fault (error_total {engine.error_total}, stall_total "
+                           f"{engine.stall_total}, spill_errors {engine.spill_errors}, want 0, {stalls} and 0; "
+                           f"last: {engine.last_fault})")
+
+
+# automodel_tpu_torch/configs/serve_llama3_8b_front.yaml as a dict (the card
+# has no YAML reader; tests/test_torch_serving_front.py checks the two agree)
+SERVE_LLAMA3_8B_FRONT = dict(
+    seed=0, device="cuda",
+    model=dict(hf_config=dict(LLAMA3_8B), backend=dict(BF16)),
+    generation=dict(max_new_tokens=32, greedy=True, eos_token_id=128001, pad_token_id=128001, seed=0),
+    serving=dict(
+        slots=16, block_size=16, num_blocks=4096, kv_cache_dtype="bf16", decode_kernel="auto",
+        prefill_chunk=512, max_seq_len=4096, max_queue=8, prefix_cache=True,
+        http=dict(host="127.0.0.1", port=8000),
+        qos=dict(enabled=True, tenants=dict(a=dict(tier="interactive"),
+                                            b=dict(tier="batch", requests_per_s=2.0, burst_s=1.0))),
+        drain=dict(grace_s=30.0, requeue_exit="auto"),
+        watchdog=dict(enabled=True),
+        kv_spill=dict(enabled=True, max_host_mb=4096),
+        speculative=dict(enabled=False),
+        limits=dict(deadline_s=600.0, max_queue_wait_s=120.0),
+    ),
+)
+# (a)/(b): a 512-block pool (1 GiB bf16) holds about three groups of a
+# 2048-token shared prefix (128 blocks) + a 64-token suffix + 32 new tokens
+FRONT_POOL_BLOCKS = 512
+FRONT_PREFIX, FRONT_SUFFIX, FRONT_NEW, FRONT_ROUNDS = 2048, 64, 32, 3
+FRONT_GROUPS = {"bf16": 8, "int8": 4}
+# a spill-on stream may leave a spill-off one only where the spill-off
+# step's top two logits lie within this many bf16 ulps of the top one
+FRONT_TIE_ULPS = 3
+# (e): a stall past the watchdog's largest deadline
+FRONT_WATCHDOG = dict(min_deadline_s=2.0, max_deadline_s=4.0, multiplier=2.0, compile_grace_s=120.0,
+                      poll_interval_s=0.05)
+FRONT_STALL_S = 6.0
+
+
+def front_config(**serving) -> dict:
+    cfg = json.loads(json.dumps(SERVE_LLAMA3_8B_FRONT))
+    cfg["serving"].update(serving)
+    return cfg
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0**-133
+
+
+def spill_prompts(groups: int, vocab: int, seed: int) -> list:
+    """[(request id, prompt)] in arrival order: ``groups`` distinct
+    2048-token prefixes, each arriving FRONT_ROUNDS times round-robin with
+    a distinct 64-token suffix, so every return to a group comes after the
+    other groups churned the pool."""
+    import random
+
+    rng = random.Random(seed)
+    prefixes = [[rng.randrange(1, vocab) for _ in range(FRONT_PREFIX)] for _ in range(groups)]
+    out = []
+    for r in range(FRONT_ROUNDS):
+        for g in range(groups):
+            out.append((f"g{g}r{r}", prefixes[g] + [rng.randrange(1, vocab) for _ in range(FRONT_SUFFIX)]))
+    return out
+
+
+def expected_spill_counts(prompts: list, block_size: int, num_blocks: int, payload_bytes: int,
+                          max_host_bytes: int) -> dict:
+    """The engine's one-slot schedule replayed on the host: the allocator
+    and the spill tier with placeholder payloads of the real size, the same
+    match → allocate (evictions spill) → reload lookup → register → free
+    order as ``ServingEngine._admit`` and ``_terminate``. → the counters the
+    spill-on engine must read."""
+    from automodel_tpu_torch.serving.block_pool import BlockPool, HostSpillTier, blocks_needed, prompt_chain
+
+    pool = BlockPool(num_blocks, block_size)
+    pool.spill = tier = HostSpillTier(max_host_bytes)
+
+    def on_evict(evicted):
+        for h, _ in evicted:
+            if tier.put(h, ("payload", h), payload_bytes):
+                pool.counters["spilled_blocks"] += 1
+
+    pool.on_evict = on_evict
+    for _, p in prompts:
+        hits, _ = pool.match_prefix(p)
+        fresh = pool.allocate(blocks_needed(len(p) + FRONT_NEW, block_size) - len(hits))
+        n = 0
+        for h in prompt_chain(p, block_size)[len(hits):]:
+            if n >= len(fresh) or tier.get(h) is None:
+                break
+            n += 1
+        if n:
+            pool.counters["spill_reloads"] += 1
+            pool.counters["spill_reloaded_blocks"] += n
+        pool.register_prefix(p, hits + fresh)
+        pool.free(hits + fresh)
+        pool.check_invariants()
+    keys = ("spill_reloads", "spill_reloaded_blocks", "spilled_blocks", "evictions")
+    return {k: pool.counters[k] for k in keys}
+
+
+def bits(t):
+    """A host tensor's bits, for bit-exact comparison (bf16 -0.0 != 0.0)."""
+    import torch
+
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_payload(torch, a, b) -> bool:
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+
+    return all(torch.equal(bits(x), bits(y)) for side in ("k", "v") for x, y in zip(flat(a[side]), flat(b[side])))
+
+
+def front_round_trip(torch, engine, label: str) -> dict:
+    """extract → inject → extract of 128 blocks of the engine's pool,
+    bit-identical (an int8 pool's scales included), with each move's time
+    and rate."""
+    from automodel_tpu_torch.serving import paged
+
+    src = list(range(1, 129))
+    dst = list(range(129, 257))
+    pool = engine.kv_pool
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k, v = paged.extract_blocks(pool, src)
+    extract_s = time.perf_counter() - t0
+    payload = {"k": k, "v": v}
+    nbytes = paged.kv_nbytes(payload)
+    t0 = time.perf_counter()
+    paged.inject_blocks(pool, dst, payload)
+    torch.cuda.synchronize()
+    inject_s = time.perf_counter() - t0
+    k2, v2 = paged.extract_blocks(pool, dst)
+    if not same_payload(torch, payload, {"k": k2, "v": v2}):
+        raise RuntimeError(f"{label}: extract → inject → extract of 128 blocks is not bit-identical")
+    out = dict(blocks=128, bytes=nbytes, extract_ms=extract_s * 1e3, inject_ms=inject_s * 1e3,
+               extract_gb_s=gbps(nbytes, extract_s), inject_gb_s=gbps(nbytes, inject_s), bit_identical=True)
+    print(f"{label} round trip: {json.dumps(out)}", flush=True)
+    return out
+
+
+def drive_front_leg(torch, engine, prompts: list, label: str) -> dict:
+    """One request at a time (the one slot), each run to its end, the
+    allocator and tier audited after each; the paged kernel's count set to
+    0 just before and read just after. → readings and the records."""
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+
+    layers = engine.auto.config.num_layers
+    df0 = engine.decode_forwards
+    # host seconds inside the spill hook (extract at eviction) and the
+    # reload (tier lookups, concatenation, inject) of the spill-on engine
+    spent = dict(extract_s=0.0, extracts=0, reload_s=0.0, reloads=0)
+
+    def timed(fn, key):
+        def run(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                spent[key + "_s"] += time.perf_counter() - t
+                spent[key + "s"] += 1
+        return run
+
+    if engine.pool.spill is not None:
+        engine.pool.on_evict = timed(engine._spill_evicted, "extract")
+        engine._resolve_hierarchy = timed(engine._resolve_hierarchy, "reload")
+    paged_attend.launches = 0
+    recs = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rid, p in prompts:
+        engine.submit(p, request_id=rid, max_new_tokens=FRONT_NEW)
+        for r in engine.run():
+            recs[r["request_id"]] = r
+        engine.check_invariants()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4, forwards = paged_attend.launches, engine.decode_forwards - df0
+    if k4 != forwards * layers or k4 == 0:
+        raise RuntimeError(f"{label}: paged kernel launched {k4} times for {forwards} decode forwards x {layers}")
+    if sorted(recs) != sorted(rid for rid, _ in prompts):
+        raise RuntimeError(f"{label}: records {sorted(recs)} for requests {[rid for rid, _ in prompts]}")
+    reasons = {r["completion_reason"] for r in recs.values()}
+    if not reasons <= {"length", "stop"}:
+        raise RuntimeError(f"{label}: requests ended with {reasons}")
+    check_engine_healthy(engine, label)
+    ttfts = [r["ttft_s"] for r in recs.values()]
+    # TTFT of the requests after the first round: reload (spill on) or
+    # prefill (spill off) of the evicted prefix
+    later = sorted(r["ttft_s"] for rid, r in recs.items() if not rid.endswith("r0"))
+    gen = sum(r["n_generated"] for r in recs.values())
+    out = dict(requests=len(recs), generated_tokens=gen, wall_s=wall, tokens_per_s=gen / wall,
+               ttft_p50_s=statistics.median(ttfts), ttft_p50_returning_s=statistics.median(later),
+               decode_forwards=forwards, paged_attend_launches=k4, prefill_chunks=engine.prefill_chunks,
+               spill_host=spent if engine.pool.spill is not None else None,
+               counters={k: engine.pool.counters[k] for k in
+                         ("spill_reloads", "spill_reloaded_blocks", "spilled_blocks", "evictions",
+                          "prefix_hit_tokens", "prefix_miss_tokens")})
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    out["records"] = recs
+    return out
+
+
+def compare_front_streams(torch, model, prompts: list, on: dict, off: dict, label: str) -> dict:
+    """Spill-on greedy streams against spill-off ones: equal, or first apart
+    where the spill-off step's top two logits (a full forward) lie within
+    FRONT_TIE_ULPS bf16 ulps of the top one; each such tie printed."""
+    ties, bad, same = [], [], 0
+    for rid, prompt in prompts:
+        a, b = on["records"][rid]["tokens"], off["records"][rid]["tokens"]
+        if a == b:
+            same += 1
+            continue
+        j = next((t for t in range(min(len(a), len(b))) if a[t] != b[t]), min(len(a), len(b)))
+        logits = last_logits(torch, model, prompt + b[:j])
+        top = torch.topk(logits, 2).values
+        gap, ulp = float(top[0] - top[1]), bf16_ulp(float(top[0]))
+        entry = dict(request=rid, position=j, on=a[j] if j < len(a) else None, off=b[j] if j < len(b) else None,
+                     top2_gap=gap, top1_ulp=ulp, gap_ulps=gap / ulp)
+        (ties if gap <= FRONT_TIE_ULPS * ulp else bad).append(entry)
+        print(f"{label}: {'near tie' if entry in ties else 'MISMATCH'} {json.dumps(entry)}", flush=True)
+    if bad:
+        raise RuntimeError(f"{label}: spill-on and spill-off streams differ away from a near tie: {bad}")
+    return dict(identical=same, near_ties=ties)
+
+
+def front_spill_ab(torch, auto, dtype: str) -> dict:
+    """(a) / (b): the spill A/B on one pool dtype."""
+    from automodel_tpu_torch.generation.engine import GenerationConfig
+    from automodel_tpu_torch.serving import paged
+    from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
+
+    groups = FRONT_GROUPS[dtype]
+    label = f"front (a) spill bf16 x{groups}" if dtype == "bf16" else f"front (b) spill int8 x{groups}"
+    prompts = spill_prompts(groups, auto.config.vocab_size, seed=21 if dtype == "bf16" else 22)
+    cfg = front_config(slots=1, num_blocks=FRONT_POOL_BLOCKS, kv_cache_dtype=dtype, max_seq_len=4096,
+                       qos=dict(enabled=False), max_queue=64)
+    gen = GenerationConfig.from_dict(cfg["generation"])
+    legs, trip, tier_state = {}, None, None
+    for spill in (True, False):
+        scfg = dict(cfg["serving"], kv_spill=dict(cfg["serving"]["kv_spill"], enabled=spill))
+        engine = ServingEngine(auto, ServeConfig.from_dict(scfg), gen)
+        if spill:
+            # one payload block's host bytes, for the schedule's replay
+            payload_bytes = paged.kv_nbytes(dict(zip(("k", "v"), paged.extract_blocks(engine.kv_pool, [1]))))
+            want = expected_spill_counts(prompts, engine.config.block_size, FRONT_POOL_BLOCKS, payload_bytes,
+                                         engine.pool.spill.max_bytes)
+        leg = drive_front_leg(torch, engine, prompts, f"{label} spill {'on' if spill else 'off'}")
+        if spill:
+            got = {k: leg["counters"][k] for k in want}
+            print(f"{label}: spill counters {json.dumps(got)}, derived from the schedule {json.dumps(want)}",
+                  flush=True)
+            if got != want or got["spill_reloads"] == 0:
+                raise RuntimeError(f"{label}: spill counters {got} != the schedule's {want}")
+            tier = engine.pool.spill
+            tier.check_invariants()
+            tier_state = dict(spill_bytes=tier.bytes, spill_entries=len(tier), **tier.counters)
+            print(f"{label}: spill tier {json.dumps(tier_state)}", flush=True)
+            trip = front_round_trip(torch, engine, label)
+        legs["on" if spill else "off"] = leg
+        engine.release_pools()
+        del engine
+        torch.cuda.empty_cache()
+    streams = compare_front_streams(torch, auto.model, prompts, legs["on"], legs["off"], f"{label} streams")
+    keep = ("tokens_per_s", "ttft_p50_s", "ttft_p50_returning_s", "wall_s", "decode_forwards",
+            "paged_attend_launches", "prefill_chunks", "counters", "spill_host")
+    out = dict(spill_on={k: legs["on"][k] for k in keep}, spill_off={k: legs["off"][k] for k in keep},
+               expected=want, tier=tier_state, round_trip=trip, streams=streams,
+               paged_attend_launches=legs["on"]["paged_attend_launches"] + legs["off"]["paged_attend_launches"])
+    print(f"{label}: {json.dumps(out)} | {card_line()}", flush=True)
+    return out
+
+
+def http_call(port: int, path: str, body: dict | None = None, headers: dict | None = None, timeout: float = 120):
+    """→ (status, JSON body, headers) of one loopback request."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read()
+            return resp.status, (json.loads(raw) if path != "/metrics" else raw.decode()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text exposition → {sample name with labels: value}; every
+    line must be a comment or ``name[{labels}] value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        if not name or (" " in name and "{" not in name):
+            raise RuntimeError(f"/metrics line does not parse: {line!r}")
+        out[name] = float(value)
+    return out
+
+
+def front_http(torch, auto) -> dict:
+    """(c) and (d): the HTTP front with QoS, then its drain."""
+    import signal
+    import threading
+
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.generation.engine import GenerationConfig
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+    from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
+    from automodel_tpu_torch.serving.server import _drain_exit_code, start_http_front, stats_snapshot
+
+    cfg = ConfigNode(front_config(http=dict(host="127.0.0.1", port=0)))
+    records = []
+    engine = ServingEngine(auto, ServeConfig.from_dict(cfg.serving.to_dict()),
+                           GenerationConfig.from_dict(cfg.generation.to_dict()), on_record=records.append)
+    engine.boot_t = time.perf_counter()
+    engine.start_watchdog()
+    prior = signal.getsignal(signal.SIGTERM)
+    df0 = engine.decode_forwards
+    paged_attend.launches = 0
+    server, loop, handler, state = start_http_front(engine, cfg.serving.http.to_dict())
+    serve_thread = threading.Thread(target=server.serve_forever, name="front-http", daemon=True)
+    serve_thread.start()
+    port = server.server_address[1]
+    try:
+        code, ready, _ = http_call(port, "/readyz")
+        if code != 200 or not ready["ready"]:
+            raise RuntimeError(f"front (c): /readyz after the warm-up answered {code} {ready}")
+        # /healthz polled through the traffic
+        health, stop_health = [], threading.Event()
+
+        def poll_health():
+            while not stop_health.is_set():
+                health.append(http_call(port, "/healthz", timeout=30)[0])
+                time.sleep(0.1)
+
+        import random
+
+        rng = random.Random(23)
+        vocab = auto.config.vocab_size
+        jobs = []
+        for i in range(32):
+            tenant = "a" if i % 2 == 0 else "b"
+            body = dict(prompt_ids=[rng.randrange(1, vocab) for _ in range(rng.randint(128, 512))],
+                        max_new_tokens=32)
+            headers = {}
+            if i % 4 < 2:
+                body["tenant"] = tenant
+            else:
+                headers["X-Tenant-Id"] = tenant
+            jobs.append((body, headers))
+        answers = [None] * len(jobs)
+
+        def client(c):
+            for j in range(c, len(jobs), 8):
+                answers[j] = http_call(port, "/generate", *jobs[j])
+
+        health_thread = threading.Thread(target=poll_health, daemon=True)
+        health_thread.start()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(8)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        stop_health.set()
+        health_thread.join(timeout=30)
+        if any(t.is_alive() for t in clients) or any(a is None for a in answers):
+            raise RuntimeError("front (c): a client got no answer within 300 s")
+        codes = [a[0] for a in answers]
+        for code, body, headers in answers:
+            if code not in (200, 429, 503) or (code != 200 and "Retry-After" not in headers):
+                raise RuntimeError(f"front (c): answer {code} {body} {headers}")
+        if set(health) != {200}:
+            raise RuntimeError(f"front (c): /healthz answered {sorted(set(health))} during the traffic")
+        reqs = [r for r in records if r.get("event") == "serve_request" and r["request_id"] != "__warmup__"]
+        by_reason = {}
+        for r in reqs:
+            by_reason[r["completion_reason"]] = by_reason.get(r["completion_reason"], 0) + 1
+        if len(reqs) != len(jobs) or len({r["request_id"] for r in reqs}) != len(reqs):
+            raise RuntimeError(f"front (c): {len(reqs)} terminal records for {len(jobs)} requests")
+        ended = dict(by_reason)
+        ended["completed"] = ended.pop("length", 0) + ended.pop("stop", 0)
+        answered = {"completed": codes.count(200), "quota": codes.count(429), "shed": codes.count(503)}
+        if {k: v for k, v in ended.items() if v} != {k: v for k, v in answered.items() if v}:
+            raise RuntimeError(f"front (c): records by reason {by_reason} != answers {answered}")
+        ok_ids = {a[1]["request_id"] for a in answers if a[0] == 200}
+        if ok_ids != {r["request_id"] for r in reqs if r["completion_reason"] in ("length", "stop")}:
+            raise RuntimeError("front (c): the 200 answers are not the completed records")
+        code, stats, _ = http_call(port, "/stats")
+        warm = 1  # the warm-up request completed too
+        want = dict(completed_total=ended["completed"] + warm, quota_total=ended.get("quota", 0),
+                    shed_total=ended.get("shed", 0), failed_total=len(reqs) - ended["completed"],
+                    stall_total=0, error_total=0)
+        if any(stats[k] != v for k, v in want.items()):
+            raise RuntimeError(f"front (c): /stats { {k: stats[k] for k in want} } != the records' {want}")
+        tenants = stats["qos"]["tenants"]
+        if tenants["b"]["quota"] != ended.get("quota", 0) or not tenants["a"]["completed"]:
+            raise RuntimeError(f"front (c): /stats qos tenants {tenants}")
+        code, text, _ = http_call(port, "/metrics")
+        m = parse_metrics(text)
+        pairs = dict(completed_total="automodel_serve_requests_completed_total",
+                     failed_total="automodel_serve_requests_failed_total",
+                     quota_total="automodel_serve_requests_quota_total",
+                     shed_total="automodel_serve_requests_shed_total",
+                     stall_total="automodel_serve_engine_stalls_total",
+                     error_total="automodel_serve_engine_errors_total",
+                     queue_depth="automodel_serve_queue_depth")
+        pairs.update({f"allocator.{k}": f"automodel_serve_block_{k}_total" for k in stats["allocator"]})
+        for key, name in pairs.items():
+            have = stats["allocator"][key.split(".")[1]] if key.startswith("allocator.") else stats[key]
+            if m.get(name) != float(have):
+                raise RuntimeError(f"front (c): /metrics {name} = {m.get(name)} but /stats {key} = {have}")
+        k4, forwards = paged_attend.launches, engine.decode_forwards - df0
+        layers = auto.config.num_layers
+        if k4 != forwards * layers or k4 == 0:
+            raise RuntimeError(f"front (c): paged kernel launched {k4} times for {forwards} decode forwards x {layers}")
+        ttfts = sorted(r["ttft_s"] for r in reqs if "ttft_s" in r)
+        gen = sum(r["n_generated"] for r in reqs)
+        http = dict(requests=len(jobs), answers={str(c): codes.count(c) for c in sorted(set(codes))},
+                    records_by_reason=by_reason, wall_s=wall, tokens_per_s=gen / wall,
+                    ttft_p50_s=statistics.median(ttfts), healthz_polls=len(health),
+                    decode_forwards=forwards, paged_attend_launches=k4,
+                    metrics_samples=len(m), time_to_ready_s=stats["time_to_ready_s"])
+        print(f"front (c) http + qos: {json.dumps(http)} | {card_line()}", flush=True)
+
+        # (d): the drain, while 16 requests are in flight and 6 queued
+        n_before = len(records)
+        drain_jobs = [dict(prompt_ids=[rng.randrange(1, vocab) for _ in range(256)], max_new_tokens=192,
+                           tenant="a") for _ in range(22)]
+        drain_answers = [None] * len(drain_jobs)
+
+        def drain_client(j):
+            drain_answers[j] = http_call(port, "/generate", drain_jobs[j])
+
+        dclients = [threading.Thread(target=drain_client, args=(j,), daemon=True) for j in range(len(drain_jobs))]
+        term = signal.getsignal(signal.SIGTERM)
+        if handler is None or term != handler._handle:
+            raise RuntimeError(f"front (d): the SIGTERM handler is {term}, not the drain's")
+
+        def frozen_when(cond, what):
+            """Poll the engine under the loop's lock; → with the lock HELD
+            once ``cond(busy, queued, ended)`` holds."""
+            deadline = time.monotonic() + 120
+            while True:
+                loop.lock.acquire()
+                state_ = (engine.busy_slots, engine.queue_depth,
+                          sum(r.get("event") == "serve_request" for r in records[n_before:]))
+                if cond(*state_):
+                    return state_
+                loop.lock.release()
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"front (d): {what} not reached: busy, queued, ended {state_}")
+                time.sleep(0.005)
+
+        slots, cap = engine.config.slots, engine.config.max_queue
+        # every slot busy first, in bursts the queue holds (a burst past
+        # max_queue between two steps is shed), then a queue
+        started = 0
+        while started < slots:
+            n = min(cap, slots - started)
+            for t in dclients[started:started + n]:
+                t.start()
+            started += n
+            frozen_when(lambda busy, queued, ended: busy + ended == started, f"{started} admitted")
+            loop.lock.release()
+        for t in dclients[slots:]:
+            t.start()
+        busy, queued, ended = frozen_when(
+            lambda busy, queued, ended: busy + queued + ended == len(drain_jobs) and busy == slots and queued,
+            "every request admitted or queued")
+        try:
+            t_term = time.perf_counter()
+            term(signal.SIGTERM, None)  # as SIGTERM would
+            while not engine.draining and time.perf_counter() - t_term < 30:
+                time.sleep(0.001)
+        finally:
+            loop.lock.release()
+        code, ready, _ = http_call(port, "/readyz")
+        late = http_call(port, "/generate", dict(prompt_ids=[1, 2, 3], max_new_tokens=4, tenant="a"))
+        if code != 503 or ready["ready"] or not ready["draining"]:
+            raise RuntimeError(f"front (d): /readyz while draining answered {code} {ready}")
+        if late[0] != 503 or "Retry-After" not in late[2] or late[1].get("reason") != "draining":
+            raise RuntimeError(f"front (d): a POST while draining answered {late}")
+        for t in dclients:
+            t.join(timeout=120)
+        serve_thread.join(timeout=120)
+        if serve_thread.is_alive() or any(a is None for a in drain_answers):
+            raise RuntimeError("front (d): the drain did not end the front within 120 s")
+        drain_s = time.perf_counter() - t_term
+        drained = [r for r in records[n_before:] if r.get("event") == "serve_request"]
+        reasons = sorted("completed" if r["completion_reason"] in ("length", "stop") else r["completion_reason"]
+                         for r in drained)
+        if reasons != ["completed"] * (busy + ended) + ["draining"] * queued or not all(
+                r["retriable"] for r in drained if r["completion_reason"] == "draining"):
+            raise RuntimeError(f"front (d): drained records {reasons} (busy {busy}, queued {queued}, ended {ended})")
+        dcodes = sorted(a[0] for a in drain_answers)
+        if dcodes != [200] * (busy + ended) + [503] * queued or not all("Retry-After" in a[2] for a in drain_answers if a[0] == 503):
+            raise RuntimeError(f"front (d): answers {dcodes}")
+        if engine.drain_duration_s is None or state["rc"] != _drain_exit_code(engine.config.drain):
+            raise RuntimeError(f"front (d): drain_duration_s {engine.drain_duration_s}, exit code {state['rc']}")
+        check_engine_healthy(engine, "front (c)-(d)")
+        events = [r for r in records if r.get("event") == "serve_engine_event"]
+        if events:
+            raise RuntimeError(f"front (c)-(d): unplanned engine events {events}")
+        with loop.lock:
+            final = stats_snapshot(engine)
+        drain = dict(in_flight=busy, queued=queued, drain_duration_s=engine.drain_duration_s, drain_wall_s=drain_s,
+                     exit_code=state["rc"], late_post=late[0], retry_after=late[2].get("Retry-After"),
+                     completed_total=final["completed_total"], failed_total=final["failed_total"])
+        print(f"front (d) drain: {json.dumps(drain)}", flush=True)
+        k4_total = paged_attend.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.close()
+        engine.stop_watchdog()
+        if handler is not None:
+            handler.restore()
+        if signal.getsignal(signal.SIGTERM) != prior:
+            signal.signal(signal.SIGTERM, prior)
+    engine.release_pools()
+    return dict(http=http, drain=drain, paged_attend_launches=k4_total,
+                decode_forwards=engine.decode_forwards - df0)
+
+
+def front_watchdog(torch, auto) -> dict:
+    """(e): one planned stall around a real decode launch."""
+    import tempfile
+
+    from automodel_tpu_torch.generation.engine import GenerationConfig
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+    from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
+    from automodel_tpu_torch.telemetry.flight_recorder import FlightRecorder, build_fingerprint
+
+    cfg = front_config(num_blocks=FRONT_POOL_BLOCKS, watchdog=FRONT_WATCHDOG, qos=dict(enabled=False),
+                       kv_spill=dict(enabled=False))
+    events = []
+    engine = ServingEngine(auto, ServeConfig.from_dict(cfg["serving"]), GenerationConfig.from_dict(cfg["generation"]),
+                           on_record=events.append)
+    tmp = tempfile.mkdtemp(prefix="front_watchdog_")
+    recorder = FlightRecorder(path=os.path.join(tmp, "flight_recorder.json"), fingerprint=build_fingerprint(cfg))
+    import random
+
+    rng = random.Random(24)
+    prompts = [[rng.randrange(1, auto.config.vocab_size) for _ in range(256)] for _ in range(4)]
+    pool_bytes = engine.pool_bytes
+    df0 = engine.decode_forwards
+    paged_attend.launches = 0
+    wd = engine.start_watchdog(flight_recorder=recorder, stacks_path=os.path.join(tmp, "watchdog_stacks.txt"))
+    try:
+        def run(tag):
+            engine.touch_watchdog()
+            for i, p in enumerate(prompts):
+                engine.submit(p, request_id=f"{tag}{i}", max_new_tokens=16)
+            return {r["request_id"]: r for r in engine.run()}
+
+        ref = run("ref")
+        # the stall: a wave that has run one real decode step, then a decode
+        # program wrapped once with a sleep past the largest deadline
+        engine.touch_watchdog()
+        for i, p in enumerate(prompts):
+            engine.submit(p, request_id=f"stall{i}", max_new_tokens=16)
+        df = engine.decode_forwards
+        done = []
+        while engine.decode_forwards == df:
+            done += engine.step()
+        real = engine._decode
+
+        def stalled(*a, **k):
+            engine._decode = real
+            time.sleep(FRONT_STALL_S)
+            return real(*a, **k)
+
+        engine._decode = stalled
+        t0 = time.perf_counter()
+        done += engine.step()
+        stall_step_s = time.perf_counter() - t0
+        after = run("after")
+    finally:
+        engine.stop_watchdog()
+    stalled_recs = sorted((r["request_id"], r["completion_reason"], r["retriable"]) for r in done)
+    if stalled_recs != [(f"stall{i}", "engine_stall", True) for i in range(4)]:
+        raise RuntimeError(f"front (e): the stalled wave ended {stalled_recs}")
+    check_engine_healthy(engine, "front (e)", stalls=1)
+    got_events = [(e.get("event"), e.get("reason")) for e in events if e.get("event") == "serve_engine_event"]
+    if got_events != [("serve_engine_event", "engine_stall")] or wd.fired_total != 1:
+        raise RuntimeError(f"front (e): engine events {got_events}, watchdog fired {wd.fired_total} times")
+    engine.check_invariants()
+    if engine.pool_bytes != pool_bytes or engine.pool.available() != engine.pool.usable_blocks:
+        raise RuntimeError(f"front (e): pool {engine.pool_bytes} bytes (was {pool_bytes}), "
+                           f"{engine.pool.available()} of {engine.pool.usable_blocks} blocks free")
+    files = {n: os.path.getsize(os.path.join(tmp, n)) for n in ("flight_recorder.json", "watchdog_stacks.txt")}
+    with open(os.path.join(tmp, "flight_recorder.json")) as f:
+        dump = json.load(f)
+    if dump.get("reason") != "engine_stall" or "Thread" not in open(os.path.join(tmp, "watchdog_stacks.txt")).read():
+        raise RuntimeError(f"front (e): flight recorder reason {dump.get('reason')}, stacks {files}")
+    for i in range(4):
+        if after[f"after{i}"]["tokens"] != ref[f"ref{i}"]["tokens"]:
+            raise RuntimeError(f"front (e): request {i} after the rebuild decoded other tokens than before the stall")
+    k4, forwards = paged_attend.launches, engine.decode_forwards - df0
+    if k4 != forwards * auto.config.num_layers:
+        raise RuntimeError(f"front (e): paged kernel launched {k4} times for {forwards} decode forwards")
+    out = dict(stalled=len(stalled_recs), stall_total=engine.stall_total, fired=wd.fired["heartbeat_age_s"],
+               deadline_s=wd.fired["deadline_s"], stall_step_s=stall_step_s, pool_bytes=pool_bytes, files=files,
+               decode_forwards=forwards, paged_attend_launches=k4)
+    print(f"front (e) watchdog: {json.dumps(out)}", flush=True)
+    engine.release_pools()
+    return out
+
+
+def phase_front(torch) -> dict:
+    """Phase 21: the serving front and the host spill tier at Llama-3-8B's
+    published widths and all 32 layers (random bf16 weights from seed 0):
+    (a) the spill A/B on a bf16 pool, (b) on an int8 pool, (c) the HTTP
+    front with QoS, (d) its SIGTERM drain, (e) a planned stall."""
+    from automodel_tpu_torch.generation.engine import build_auto_from_cfg
+    from automodel_tpu_torch.config import ConfigNode
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    auto = build_auto_from_cfg(ConfigNode(front_config()))
+    torch.cuda.synchronize()
+    print(f"model: Llama-3-8B ({auto.config.num_layers} layers), random init {time.perf_counter() - t0:.1f}s", flush=True)
+    out = {}
+    t = time.perf_counter()
+    out["spill_bf16"] = front_spill_ab(torch, auto, "bf16")
+    out["spill_int8"] = front_spill_ab(torch, auto, "int8")
+    out["spill_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["http"] = front_http(torch, auto)
+    out["http_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["watchdog"] = front_watchdog(torch, auto)
+    out["watchdog_s"] = time.perf_counter() - t
+    out["paged_attend_launches"] = sum(out[k]["paged_attend_launches"] for k in
+                                       ("spill_bf16", "spill_int8", "http", "watchdog"))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del auto
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 21 serving front: {json.dumps({k: out[k] for k in ('spill_s', 'http_s', 'watchdog_s', 'paged_attend_launches', 'peak_gib')})}",
+          flush=True)
+    return out
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
-                 gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec) -> dict:
+                 gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec,
+                 front) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -3479,6 +4172,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
                 ],
                 "launches_spec_serving": spec["paged_attend_launches"],
                 "launches_int8_run": serving_int8["paged_attend_launches"],
+                "launches_serving_front": front["paged_attend_launches"],
                 "decode_forwards": serving_bf16["decode_forwards"],
                 "paged_attention_ms_per_decode_step": profile_bf16.get("paged_attention_ms_per_step"),
                 "kernels": "paged_attention_kernel<int8 pool, head dim, query n-tiles a warp, warps a worker>; "
@@ -3645,6 +4339,7 @@ def main() -> int:
         n_params = sum(p.numel() for p in auto.model.parameters())
         print(f"model: Llama-3-8B widths, {n_params} params bf16, random init and pool {time.perf_counter() - t0:.1f}s", flush=True)
         serving_bf16 = phase_serving(torch, engine, n=16, shared=8)
+        check_engine_healthy(engine, "serving bf16")
         profile_bf16 = phase_profile(torch, engine)
         del engine
         torch.cuda.empty_cache()
@@ -3654,6 +4349,7 @@ def main() -> int:
             auto, ServeConfig.from_dict(cfg["serving"]), GenerationConfig.from_dict(cfg["generation"])
         )
         serving_int8 = phase_serving(torch, engine, n=8, shared=4)
+        check_engine_healthy(engine, "serving int8")
         del engine
         torch.cuda.empty_cache()
         phase_fused_vs_gather(torch, auto)
@@ -3679,10 +4375,14 @@ def main() -> int:
         spec = phase_spec_serving(torch)
         print(f"phase 20 (speculative serving, Qwen3-30B-A3B with a Qwen3-0.6B draft): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        front = phase_front(torch)
+        print(f"phase 21 (serving front and spill tier, Llama-3-8B at 32 layers): "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
-                            fused_ptxas, spec)
+                            fused_ptxas, spec, front)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

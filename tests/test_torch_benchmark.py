@@ -328,7 +328,7 @@ TINY_BENCH_KEYS = (
 
 @pytest.mark.parametrize("override,name", [
     ("--serving.speculative.enabled=true", "serving.speculative"),
-    ("--serving.kv_spill.enabled=true", "serving.kv_spill"),
+    ("--serving.warm_start.peer_host=127.0.0.1", "serving.warm_start"),
     ("--fleet.replicas=[http://127.0.0.1:8101]", "fleet"),
     ("--benchmark.profile.enabled=true", "benchmark.profile.enabled"),
 ])

@@ -98,9 +98,11 @@ def test_serve_without_requests_exits_2(monkeypatch, capsys):
     "override,section",
     [
         ("--serving.speculative.enabled=true", "speculative"),
-        ("--serving.qos.enabled=true", "qos"),
-        ("--serving.kv_spill.enabled=true", "kv_spill"),
+        ("--serving.kv_transfer.enabled=true", "kv_transfer"),
+        ("--serving.warm_start.peer_host=127.0.0.1", "warm_start"),
+        ("--serving.role=decode", "role"),
         ("--tracing.enabled=true", "tracing"),
+        ("--slo.enabled=true", "slo"),
     ],
 )
 def test_unported_sections_raise_naming_the_section(monkeypatch, capsys, override, section):

@@ -112,13 +112,12 @@ def test_stop_token_and_timeout_records(models):
 def test_terminal_record_keys_match_jax_engine(models, qos):
     """Every terminal record of both engines carries the same keys, among
     them ``retriable``, ``tenant`` and ``tier``, for a request that ends by
-    length and one whose queue deadline expires (JAX with its QoS section
-    on or off; the port refuses QoS and records the defaults). An unknown
-    tier is refused at submission by both."""
+    length and one whose queue deadline expires (both with their QoS
+    section on or off). An unknown tier is refused at submission by both."""
     jauto, tauto = models
-    jserve = dict(SERVE, qos={"enabled": True}) if qos else SERVE
-    jeng = JServingEngine(jauto, JServeConfig.from_dict(jserve), JGenerationConfig(max_new_tokens=2, greedy=True))
-    teng = ServingEngine(tauto, ServeConfig(**SERVE), GenerationConfig(max_new_tokens=2, greedy=True))
+    serve = dict(SERVE, qos={"enabled": True}) if qos else SERVE
+    jeng = JServingEngine(jauto, JServeConfig.from_dict(serve), JGenerationConfig(max_new_tokens=2, greedy=True))
+    teng = ServingEngine(tauto, ServeConfig.from_dict(serve), GenerationConfig(max_new_tokens=2, greedy=True))
     recs = {}
     for name, eng in (("jax", jeng), ("torch", teng)):
         eng.submit([1, 2, 3], request_id="done")
@@ -155,8 +154,9 @@ def test_sampled_decode_is_reproducible_from_the_seed(models):
     "section,value",
     [
         ("speculative", {"enabled": True, "k": 4}),
-        ("qos", {"enabled": True}),
-        ("kv_spill", {"enabled": True, "max_host_mb": 64}),
+        ("warm_start", {"peer_host": "127.0.0.1", "peer_port": 9000}),
+        ("kv_transfer", {"enabled": True}),
+        ("role", "decode"),
     ],
 )
 def test_unported_serving_sections_are_refused(section, value):
