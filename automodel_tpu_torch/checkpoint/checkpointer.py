@@ -449,6 +449,7 @@ class Checkpointer:
         state: dict,
         path: str | os.PathLike | None = None,
         expected_layout_markers: dict[str, str] | None = None,
+        before_step: int | None = None,
     ) -> tuple[dict, dict]:
         """Restore into ``state`` (the built training state: its tensors are
         loaded in place, on their devices) → (state, extra_state).
@@ -459,13 +460,16 @@ class Checkpointer:
         half-loading. An explicitly named dir (``path``, or ``restore_from``
         when the run's own tree is empty) is fully verified and fails on
         damage; auto-resume walks back through committed run-local dirs,
-        newest first, at most ``max_restore_fallbacks`` extra candidates."""
+        newest first, at most ``max_restore_fallbacks`` extra candidates.
+        ``before_step`` (auto-resume only) keeps the candidates saved
+        strictly before that step: the non-finite rollback's, since a save
+        at the diverged step holds the poisoned params (JAX :469-472)."""
         t_load = time.perf_counter()
         if path is not None:
             d = self._verify_for_load(Path(path))
         else:
             try:
-                d = self._pick_verified_latest()
+                d = self._pick_verified_latest(before_step=before_step)
             except FileNotFoundError:
                 # no run-local committed checkpoint at all → bootstrap
                 if not self.config.restore_from:
@@ -504,10 +508,15 @@ class Checkpointer:
             + "\n  ".join(problems)
         )
 
-    def _pick_verified_latest(self) -> Path:
+    def _pick_verified_latest(self, before_step: int | None = None) -> Path:
         cands = self._candidate_dirs(include_legacy_tail=True)
+        if before_step is not None:
+            cands = [p for p in cands if _dir_key(p)[1] < before_step]
         if not cands:
-            raise FileNotFoundError(f"No checkpoint found under {self.root}")
+            raise FileNotFoundError(
+                f"No checkpoint found under {self.root}"
+                + (f" before step {before_step}" if before_step is not None else "")
+            )
         budget = 1 + max(self.config.max_restore_fallbacks, 0)
         rejected: list[str] = []
         for i, d in enumerate(cands[:budget]):

@@ -6,6 +6,8 @@
     python -m automodel_tpu_torch.cli.app kd llm -c cfg.yaml [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app generate -c cfg.yaml [--prompt '1 2 3'] [--dotted.key=value ...]
     python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]
+    python -m automodel_tpu_torch.cli.app trace <metrics.jsonl> [...] [--chrome out.json] [--md out.md] [--trace-id P]
+    python -m automodel_tpu_torch.cli.app report <metrics.jsonl> [--strict]
 
 ``serve`` runs the serving front (serving/server.py): a local HTTP server
 when ``serving.http.port`` is set, the stdin-JSONL front otherwise; both
@@ -19,7 +21,12 @@ drain on SIGTERM and start the stall watchdog;
 All run on the config's ``device`` (``cuda`` unless ``--device=cpu``).
 ``verify-ckpt`` audits a checkpoint tree's manifests without loading a
 tensor (checkpoint/verify.py; exit 0 resumable, 1 corrupt, 2 usage), as
-``automodel_tpu/cli/app.py:81-86`` routes it. The JAX package's other
+``automodel_tpu/cli/app.py:81-86`` routes it. ``trace`` assembles the span
+records of serve's metrics JSONLs into per-request waterfalls (markdown
+and a Chrome trace; telemetry/tracing.py) and ``report`` lints and
+summarizes a metrics JSONL (telemetry/report.py; ``--strict`` exits 1 on
+any schema problem), as ``automodel_tpu/cli/app.py:61-80`` routes them;
+neither reads a config or touches a device. The JAX package's other
 commands are not ported yet; each exits 2 saying so.
 """
 
@@ -32,7 +39,7 @@ from automodel_tpu_torch.config.arg_parser import parse_args_and_load_config
 TRAIN_COMMANDS = ("finetune", "pretrain", "benchmark", "kd")
 NOT_PORTED = (
     "dpo", "grpo", "mine",
-    "route", "fleet-status", "profile", "report", "goodput", "trace",
+    "route", "fleet-status", "profile", "goodput",
 )
 
 
@@ -45,7 +52,10 @@ def _usage() -> str:
         "[--device=cpu] [--dotted.key=value ...]\n"
         "       python -m automodel_tpu_torch.cli.app generate -c config.yaml [--prompt '1 2 3'] "
         "[--device=cpu] [--dotted.key=value ...]\n"
-        "       python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]"
+        "       python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]\n"
+        "       python -m automodel_tpu_torch.cli.app trace <metrics.jsonl> [...] "
+        "[--chrome out.json] [--md out.md] [--trace-id PREFIX]\n"
+        "       python -m automodel_tpu_torch.cli.app report <metrics.jsonl> [--strict]"
     )
 
 
@@ -68,6 +78,14 @@ def main(argv: list[str] | None = None) -> int:
         from automodel_tpu_torch.checkpoint.verify import main as verify_main
 
         return verify_main(argv[1:])
+    if command == "trace":
+        from automodel_tpu_torch.telemetry.tracing import main as trace_main
+
+        return trace_main(argv[1:])
+    if command == "report":
+        from automodel_tpu_torch.telemetry.report import main as report_main
+
+        return report_main(argv[1:])
     if command == "serve":
         from automodel_tpu_torch.serving.server import main as serve_main
 

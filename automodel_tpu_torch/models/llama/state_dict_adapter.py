@@ -21,7 +21,8 @@ tests compare grads key by key.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator
+import re
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -126,6 +127,40 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     carry_stack(sd, take, "layers")
     take.check_all_taken("params_from_jax")
     return sd
+
+
+# HF name (without the layer prefix) → JAX path of its stacked leaf: the
+# projections, llama's norms and Gemma's sandwich norms
+_LEAF_OF = {
+    **{f"{hf}.{kind}": "/".join((*native, kind if kind == "bias" else "kernel"))
+       for native, hf in _PROJ.items() for kind in ("weight", "bias")},
+    **{f"{hf}.weight": "/".join((*native, "scale")) for native, hf in _NORMS.items()},
+    "pre_feedforward_layernorm.weight": "pre_ffn_norm/scale",
+    "post_feedforward_layernorm.weight": "post_ffn_norm/scale",
+}
+_END_LEAF_OF = {
+    "model.embed_tokens.weight": ("embed/embedding", False),
+    "model.norm.weight": ("final_norm/scale", False),
+    "lm_head.weight": ("lm_head/kernel", True),
+}
+_LAYER_NAME = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+
+
+def jax_leaf_of(name: str) -> Optional[tuple[str, Optional[int], bool]]:
+    """``params_from_jax`` read backwards for one tensor of a dense family
+    (Llama and its aliases, Gemma): → (the JAX leaf's path ``a/b/c``, the
+    tensor's index on the leaf's leading layer axis or None, whether the
+    tensor is the leaf's slice transposed: a projection kernel is ``[in,
+    out]`` in JAX and ``[out, in]`` here). None for a tensor the map does
+    not know (the MoE families' expert slabs and routers)."""
+    if name in _END_LEAF_OF:
+        path, transposed = _END_LEAF_OF[name]
+        return path, None, transposed
+    m = _LAYER_NAME.match(name)
+    if m is None or m.group(2) not in _LEAF_OF:
+        return None
+    rest = m.group(2)
+    return "layers/" + _LEAF_OF[rest], int(m.group(1)), rest.endswith("proj.weight")
 
 
 Getter = Callable[[str], torch.Tensor]

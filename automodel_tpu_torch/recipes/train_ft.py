@@ -13,7 +13,18 @@ Sections read: ``seed``, ``device`` (``cuda`` unless ``cpu``), ``model``
 (``ckpt_every_steps`` and ``val_every_steps`` among its keys),
 ``optimizer``, ``loss_fn``, ``checkpoint``, ``logging.metrics_path``
 (default ``<output_dir>/train_metrics.jsonl``),
-``fault_tolerance.on_nonfinite`` (``raise`` | ``skip``), ``generation``.
+``fault_tolerance`` (``on_nonfinite``: ``raise`` | ``skip`` | ``rollback``,
+and ``max_rollbacks``), ``generation``.
+
+``on_nonfinite: rollback`` (JAX :1002-1070) restores the newest verified
+checkpoint saved strictly before a non-finite step, fast-forwards the
+loader past the window the failed step came from (replaying the
+scheduler's consumption, epoch tails included), logs ``{"event":
+"rollback", "fail_step": N}`` and trains on; step records then carry
+``rollbacks_total``. With no checkpoint, or after ``max_rollbacks``
+rollbacks (default 2), it raises ``NonFiniteError``. The host RNG state
+(``training/rng.StatefulRNG``) rides a checkpoint's extras under
+``"rng"``.
 
 With ``checkpoint.enabled`` the run resumes at setup from the newest
 committed step dir of ``checkpoint_dir`` (or bootstraps from
@@ -58,7 +69,7 @@ import torch
 from automodel_tpu_torch.checkpoint.checkpointer import Checkpointer, CheckpointingConfig
 from automodel_tpu_torch.data.collators import stack_microbatches
 from automodel_tpu_torch.data.loader import DataLoader
-from automodel_tpu_torch.data.sft import MockSFTDataset
+from automodel_tpu_torch.config.loader import ConfigNode
 from automodel_tpu_torch.device import resolve_device
 from automodel_tpu_torch.generation.engine import (
     GenerationConfig,
@@ -69,8 +80,9 @@ from automodel_tpu_torch.generation.engine import (
 )
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.optim.builders import build_optimizer
-from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 from automodel_tpu_torch.resilience.manifest import step_dir_key
+from automodel_tpu_torch.resilience.preemption import NonFiniteError
+from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.training.train_state import TrainState
 from automodel_tpu_torch.training.train_step import build_eval_step, build_train_step, make_causal_lm_loss
@@ -84,7 +96,13 @@ READ_SECTIONS = (
     "fault_tolerance", "distributed", "generation",
 )
 DEGREES = ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep")
-DATASETS = {"MockSFTDataset": MockSFTDataset}
+NONFINITE_POLICIES = ("raise", "skip", "rollback")
+
+
+class _RollbackRequested(Exception):
+    def __init__(self, fail_step: int):
+        super().__init__(fail_step)
+        self.fail_step = fail_step
 
 
 def _plain(section: Any) -> Any:
@@ -104,10 +122,12 @@ def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS) -> None:
             _refuse(f"{name}{keys}", f"the {name} section")
     checkpointing_config(cfg)
     ft = dict(_plain(cfg.get("fault_tolerance", None)) or {})
-    if ft.pop("on_nonfinite", "raise") not in ("raise", "skip"):
-        _refuse("fault_tolerance.on_nonfinite", "a policy other than raise|skip")
+    policy = ft.pop("on_nonfinite", "raise")
+    if policy not in NONFINITE_POLICIES:
+        raise ValueError(f"fault_tolerance.on_nonfinite must be one of {NONFINITE_POLICIES}, got {policy!r}")
+    ft.pop("max_rollbacks", None)
     if ft:
-        _refuse(f"fault_tolerance ({', '.join(ft)})", "resilience beyond on_nonfinite")
+        _refuse(f"fault_tolerance ({', '.join(ft)})", "resilience beyond on_nonfinite and max_rollbacks")
     dist = dict(_plain(cfg.get("distributed", None)) or {})
     other = {k: v for k, v in dist.items() if k not in DEGREES or v not in (None, 1)}
     if other:
@@ -131,15 +151,14 @@ def checkpointing_config(cfg: Any) -> Optional[CheckpointingConfig]:
 
 
 def build_dataset(section: Any, name: str = "dataset") -> Any:
-    """A dataset section (``dataset:``, ``validation_dataset:``):
-    ``_target_`` naming ``MockSFTDataset`` (of either package) plus its
-    arguments."""
-    kw = dict(_plain(section) or {})
-    target = str(kw.pop("_target_", ""))
-    cls = DATASETS.get(target.rsplit(".", 1)[-1])
-    if cls is None:
-        _refuse(f"{name}._target_={target!r}", f"a dataset other than {sorted(DATASETS)}")
-    return cls(**kw)
+    """A dataset section (``dataset:``, ``validation_dataset:``) built by
+    ``ConfigNode.instantiate``: its ``_target_`` (a JAX package path
+    resolves to the port's twin, e.g. ``MockSFTDataset`` from either
+    package) plus its arguments."""
+    node = section if isinstance(section, ConfigNode) else ConfigNode(_plain(section) or {})
+    if "_target_" not in node:
+        raise ValueError(f"{name}: a _target_ naming the dataset is required")
+    return node.instantiate()
 
 
 class TrainFinetuneRecipeForNextTokenPrediction:
@@ -155,14 +174,20 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         seed = int(cfg.get("seed", 42))
         self.auto = build_auto_from_model_section(cfg.model, self.device, seed=seed, trainable=True)
         self.model = self.auto.model
-        params = list(self.model.parameters())
+        self.rng = StatefulRNG(seed=seed)
+        named = list(self.model.named_parameters())
+        params = [p for _, p in named]
 
         ocfg = dict(_plain(cfg.get("optimizer", None)) or {"name": "adamw"})
         ocfg.pop("_target_", None)
-        self.lr_schedule = build_lr_schedule(lr=ocfg.get("lr", 1e-4), **dict(ocfg.get("lr_schedule") or {}))
-        self.state = TrainState(params=params, optimizer=build_optimizer(params, **ocfg))
+        optimizer = build_optimizer(params, names=[n for n, _ in named], **ocfg)
+        self.lr_schedule = optimizer.schedule
+        self.state = TrainState(params=params, optimizer=optimizer)
 
-        self.on_nonfinite = (_plain(cfg.get("fault_tolerance", None)) or {}).get("on_nonfinite", "raise")
+        ft = _plain(cfg.get("fault_tolerance", None)) or {}
+        self.on_nonfinite = ft.get("on_nonfinite", "raise")
+        self.max_rollbacks = int(ft.get("max_rollbacks", 2))
+        self.rollbacks = 0
         # the counterpart of JAX's _make_train_step: both steps from one loss
         self.loss_fn = self._make_loss_fn()
         self.train_step = build_train_step(
@@ -278,13 +303,13 @@ class TrainFinetuneRecipeForNextTokenPrediction:
     def checkpoint_state(self) -> dict:
         """The training state a checkpoint holds, as a tree over the live
         tensors: the model's state dict (parameters and persistent
-        buffers, such as the aux-free router bias), the optimizer's fp32
-        moments keyed by parameter name and its count, and the step."""
-        opt = self.state.optimizer
+        buffers, such as the aux-free router bias), the optimizer's state
+        (Adam's moments keyed by parameter name, adafactor's and muon's by
+        JAX leaf path) and its count, and the step."""
         names = [n for n, _ in self.model.named_parameters()]
         return {
             "model": self.model.state_dict(),
-            "optim": {"mu": dict(zip(names, opt.mu)), "nu": dict(zip(names, opt.nu)), "count": opt.count},
+            "optim": self.state.optimizer.state_tree(names),
             "step": self.state.step,
         }
 
@@ -296,6 +321,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             extra_state={
                 "dataloader": self.dataloader.state_dict(),
                 "step_scheduler": self.step_scheduler.state_dict(),
+                "rng": self.rng.state_dict(),
             },
             hf_export=(self.auto.adapter, self.model.state_dict()),
             config_snapshot=_plain(self.cfg),
@@ -311,10 +337,11 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         logger.info("saved checkpoint at step %d", self.step_scheduler.step)
         return out
 
-    def _restore(self) -> None:
+    def _restore(self, before_step: Optional[int] = None) -> None:
         state, extra = self.checkpointer.load(
             self.checkpoint_state(),
             expected_layout_markers=getattr(self.model, "native_layout_markers", None),
+            before_step=before_step,
         )
         # the tensors were loaded in place; the plain values come back in the tree
         self.state.optimizer.count = int(state["optim"]["count"])
@@ -323,6 +350,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             self.dataloader.load_state_dict(extra["dataloader"])
         if "step_scheduler" in extra:
             self.step_scheduler.load_state_dict(extra["step_scheduler"])
+        if "rng" in extra:
+            self.rng.load_state_dict(extra["rng"])
         logger.info("restored checkpoint at step %d", self.state.step)
         # step numbers may go backwards after this marker (a walk-back)
         self.metric_logger.log({"event": "resume", "resumed_from_step": self.state.step})
@@ -330,7 +359,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
     # -- loop ---------------------------------------------------------------
     def run_train_validation_loop(self) -> dict:
         try:
-            last = self._loop()
+            last = self._loop_with_rollback()
             if self.checkpointer is not None:
                 # drain and commit an in-flight save, then skip the end-of-loop
                 # save when it already covers this step: save() begins by
@@ -345,6 +374,67 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 self.checkpointer.close()
         return last
 
+    def _loop_with_rollback(self) -> dict:
+        while True:
+            try:
+                return self._loop()
+            except _RollbackRequested as rb:
+                self._rollback(rb.fail_step)
+
+    def _rollback(self, fail_step: int) -> None:
+        """``on_nonfinite: rollback`` (JAX :1010-1070): restore the newest
+        verified checkpoint saved strictly before ``fail_step`` and move
+        the loader past the window that led to it, so the retrained steps
+        see fresh data."""
+        if not (self.checkpointer and self.checkpointer.has_checkpoint()):
+            raise NonFiniteError(
+                f"non-finite step {fail_step}: rollback requested but no "
+                "checkpoint is available (enable checkpointing or use "
+                "on_nonfinite: skip)"
+            )
+        self.metric_logger.log({"event": "rollback", "fail_step": fail_step, "ts": time.time()})
+        self.checkpointer.wait()  # an in-flight async save commits first
+        self._restore(before_step=fail_step)
+        ckpt_step = self.step_scheduler.step
+        dl, ga = self.dataloader, self.step_scheduler.grad_acc_steps
+        nb = len(dl)
+        # replay the scheduler's consumption, not steps x grad_acc: an epoch
+        # whose length grad_acc does not divide drops its tail batches, so
+        # a window across an epoch edge consumes more batches than it makes
+        # steps, and undercounting would land inside the bad group again
+        epoch, pos = dl.epoch, dl.batch_in_epoch
+        steps_left = max(fail_step - ckpt_step, 0)
+        while steps_left and nb >= ga:
+            in_epoch = (nb - pos) // ga
+            if steps_left <= in_epoch:
+                pos += steps_left * ga
+                steps_left = 0
+            else:
+                steps_left -= in_epoch
+                epoch += 1
+                pos = 0
+        dl.seek(epoch, pos)
+        # the skipped window may hold epoch edges the scheduler never sees
+        self.step_scheduler.epoch = epoch
+        logger.warning(
+            "rollback #%d: restored step %d, fast-forwarded the loader to epoch %d batch %d, past the "
+            "non-finite window ending at step %d", self.rollbacks, ckpt_step, epoch, pos, fail_step,
+        )
+
+    def _check_nonfinite(self, metrics: dict, step: int) -> None:
+        """The host side of ``on_nonfinite``: raise, or ask for a rollback
+        while the budget lasts (``skip`` is the train step's own)."""
+        if self.on_nonfinite not in ("raise", "rollback") or not bool(metrics["nonfinite"]):
+            return
+        if self.on_nonfinite == "rollback":
+            if self.rollbacks < self.max_rollbacks:
+                self.rollbacks += 1
+                raise _RollbackRequested(step)
+            logger.error("on_nonfinite=rollback: rollback budget (%d) exhausted — raising", self.max_rollbacks)
+        raise NonFiniteError(
+            f"non-finite loss or gradient at step {step} (fault_tolerance.on_nonfinite: {self.on_nonfinite})"
+        )
+
     def _loop(self) -> dict:
         last: dict = {}
         tokens_window = steps_window = 0
@@ -354,14 +444,13 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             stacked = stack_microbatches(group)
             metrics = self.train_step(self.state, self._place(stacked))
             step = self.step_scheduler.step
-            if self.on_nonfinite == "raise" and bool(metrics["nonfinite"]):
-                raise FloatingPointError(
-                    f"non-finite loss or gradient at step {step} (fault_tolerance.on_nonfinite: raise)"
-                )
+            self._check_nonfinite(metrics, step)
             tokens_window += int(stacked["input_ids"].size)
             steps_window += 1
             if first or self.step_scheduler.is_log_step:
                 rec = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
+                if self.rollbacks:
+                    rec["rollbacks_total"] = self.rollbacks
                 dt = time.perf_counter() - t_window
                 if first:
                     # kernel builds and allocator warm-up land here, as the first

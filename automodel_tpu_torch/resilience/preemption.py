@@ -28,6 +28,12 @@ REQUEUE_EXIT_CODE = 75
 
 DEFAULT_PREEMPTION_SIGNALS = ("SIGTERM",)
 
+class NonFiniteError(FloatingPointError):
+    """A non-finite loss or gradient the training policy does not absorb
+    (``on_nonfinite: raise``, or ``rollback`` with no checkpoint or no
+    budget left); JAX ``resilience/preemption.py:96``."""
+
+
 def resolve_signals(names: Sequence[str | int]) -> list[signal.Signals]:
     out = []
     for n in names:

@@ -97,6 +97,7 @@ from automodel_tpu_torch.serving import paged
 from automodel_tpu_torch.serving.block_pool import BlockPool, HostSpillTier, blocks_needed, prompt_chain
 from automodel_tpu_torch.telemetry.prometheus import _LABEL_VALUE_OK, ServingMetrics
 from automodel_tpu_torch.telemetry.report import percentile
+from automodel_tpu_torch.telemetry.tracing import SpanContext, Tracer, WallAnchor
 
 logger = logging.getLogger(__name__)
 
@@ -515,6 +516,7 @@ class _Queued:
     tenant: str = "anonymous"
     tier: str = "interactive"
     tier_idx: int = 0
+    trace: Optional[SpanContext] = None  # the request's root span
 
 
 @dataclasses.dataclass
@@ -535,6 +537,7 @@ class _Slot:
     tier: str = "interactive"
     spec_proposed: int = 0  # draft tokens proposed for this request
     spec_accepted: int = 0  # draft tokens the verify rule accepted
+    trace: Optional[SpanContext] = None
 
 
 class ServingEngine:
@@ -555,6 +558,7 @@ class ServingEngine:
         config: Optional[ServeConfig] = None,
         gen_config: Optional[GenerationConfig] = None,
         on_record: Optional[Callable[[dict], None]] = None,
+        tracer: Optional[Tracer] = None,
     ):
         if not getattr(auto.model, "supports_kv_cache", False):
             raise GenerationUnsupported(
@@ -675,6 +679,17 @@ class ServingEngine:
         # /metrics: histograms observed per terminal record; gauges and
         # pool counters synced at scrape time
         self.metrics = ServingMetrics()
+        # request tracing (telemetry/tracing.py): spans ride on_record like
+        # every other record, and each emitted span also feeds the /metrics
+        # per-stage histogram. Every record's ts comes from one wall anchor
+        # plus the monotonic clock, so a ts never contradicts the
+        # monotonic durations beside it.
+        self._clock = WallAnchor()
+        self.tracer = tracer
+        if tracer is not None:
+            tracer.clock = self._clock  # one anchor for the process
+            if tracer.observe is None:
+                tracer.observe = self.metrics.observe_stage
 
     def _build_draft(self, spec: SpeculativeConfig, mcfg: Any) -> Any:
         """The draft AutoModel on the engine's device (seeded by the
@@ -794,7 +809,7 @@ class ServingEngine:
         self.time_to_ready_s = time.perf_counter() - self.boot_t
         logger.info("replica ready in %.3fs (boot source: %s)", self.time_to_ready_s, self.boot_source)
         self._emit_event({
-            "event": "replica_ready", "ts": time.time(), "boot_source": self.boot_source,
+            "event": "replica_ready", "ts": self._wall_ts(), "boot_source": self.boot_source,
             "time_to_ready_s": round(self.time_to_ready_s, 6),
         })
 
@@ -891,7 +906,11 @@ class ServingEngine:
         tier: Optional[str] = None,
         return_logprobs: bool = False,
         kv_peer: Optional[dict] = None,
+        trace: Optional[SpanContext] = None,
     ) -> str:
+        """Queue one request → its id. ``trace`` is a propagated
+        ``traceparent`` context: the engine's root span for the request is
+        its child, or a new trace when there is none."""
         prompt = [int(t) for t in prompt_ids]
         if not prompt:
             raise ValueError("empty prompt (every request needs >= 1 token)")
@@ -941,11 +960,13 @@ class ServingEngine:
         lim = self.config.limits
         ddl = lim.deadline_s if deadline_s is None else float(deadline_s)
         qw = lim.max_queue_wait_s if max_queue_wait_s is None else float(max_queue_wait_s)
+        # an unsampled context flows through and emits nothing
+        root = self.tracer.start(parent=trace) if self.tracer is not None else None
         q = _Queued(
             rid=rid, prompt=prompt, max_new=max_new, t_submit=now,
             deadline_at=now + ddl if ddl and ddl > 0 else None,
             queue_deadline_at=now + qw if qw and qw > 0 else None,
-            tenant=tenant, tier=tier, tier_idx=tier_idx,
+            tenant=tenant, tier=tier, tier_idx=tier_idx, trace=root,
         )
         if self.draining:
             # no record here: the rejection goes back to the client
@@ -1083,12 +1104,31 @@ class ServingEngine:
         if not pieces:
             return hit_tokens
         n = len(pieces)
+        t0 = time.perf_counter()
         paged.inject_blocks(self._pool, fresh[:n], paged.concat_kv_blocks(pieces))
         self.pool.counters["spill_reloads"] += 1
         self.pool.counters["spill_reloaded_blocks"] += n
+        # the inject's host-to-device copy is from pageable memory, so the
+        # span ends after the copy has been read from the host
+        self._child_span(q.trace, "kv_reload", t0, request_id=q.rid, blocks=n, reloaded=n, fetched=0)
         return hit_tokens + n * self.config.block_size
 
     # -- terminal records ----------------------------------------------------
+    def _wall_ts(self) -> float:
+        """A record's timestamp: the process wall anchor plus the monotonic
+        clock, never a raw ``time.time()`` (JAX :1720-1725)."""
+        return round(self._clock.wall(), 6)
+
+    def _child_span(self, root: Optional[SpanContext], stage: str, t0: float,
+                    t1: Optional[float] = None, **attrs: Any) -> None:
+        if self.tracer is not None and self.tracer.active(root):
+            self.tracer.child(root, stage, t0, t1, **attrs)
+
+    def _root_span(self, root: Optional[SpanContext], t0: float, t1: Optional[float] = None,
+                   **attrs: Any) -> None:
+        if self.tracer is not None and self.tracer.active(root):
+            self.tracer.record(root, "serve", t0, t1, **attrs)
+
     def _emit_event(self, rec: dict) -> None:
         """on_record for an event that is not a request's terminal record."""
         if self.on_record is not None:
@@ -1149,6 +1189,7 @@ class ServingEngine:
     def _rejection_record(self, q: _Queued, reason: str, detail: Optional[str] = None) -> dict:
         """Terminal record for a request that never reached a slot (shed,
         quota, draining, queue timeout, a failed admission)."""
+        now = time.perf_counter()
         self.failed_total += 1
         if reason == "timeout":
             self.timeout_total += 1
@@ -1162,12 +1203,16 @@ class ServingEngine:
             "retriable": reason in _RETRIABLE_REASONS,
             "tenant": q.tenant,
             "tier": q.tier,
-            "queue_s": time.perf_counter() - q.t_submit,
+            "queue_s": now - q.t_submit,
             "queue_depth": self.queue_depth,
-            "ts": time.time(),
+            "ts": self._wall_ts(),
         }
         if detail:
             rec["detail"] = detail
+        # the whole life of such a request was the queue; the root says why
+        # it ended
+        self._child_span(q.trace, "queue", q.t_submit, now, request_id=q.rid)
+        self._root_span(q.trace, q.t_submit, now, request_id=q.rid, completion_reason=reason)
         self._emit(rec)
         return rec
 
@@ -1203,7 +1248,7 @@ class ServingEngine:
             "queue_s": slot.t_admit - slot.t_submit,
             "queue_depth": self.queue_depth,
             "block_occupancy": round(self.pool.occupancy(), 4),
-            "ts": time.time(),
+            "ts": self._wall_ts(),
         }
         if slot.t_first is not None:
             decode_s = now - slot.t_first
@@ -1218,6 +1263,18 @@ class ServingEngine:
             rec["spec_accept_rate"] = round(slot.spec_accepted / slot.spec_proposed, 4)
         if detail:
             rec["detail"] = detail
+        # decode is one span a request, first token to the terminal record
+        # (the last token was read back before this); the root covers submit
+        # to terminal and names how the request ended, failures included
+        if slot.decoding and slot.t_first is not None:
+            self._child_span(
+                slot.trace, "decode", slot.t_first, now,
+                request_id=slot.request_id, tokens=max(len(gen) - 1, 0),
+            )
+        self._root_span(
+            slot.trace, slot.t_submit, now, request_id=slot.request_id, completion_reason=reason,
+            n_generated=len(gen), prompt_tokens=len(slot.prompt),
+        )
         self._emit(rec)
         return rec
 
@@ -1267,6 +1324,7 @@ class ServingEngine:
                 continue
             idx = self._select_queued(time.perf_counter())
             q = self._queue[idx]
+            t_adm0 = time.perf_counter()  # the admission stage's start
             hits, hit_tokens = self.pool.match_prefix(q.prompt)
             need = blocks_needed(len(q.prompt) + q.max_new, bs, self.config.spec_overhang)
             fresh = self.pool.allocate(need - len(hits))
@@ -1289,6 +1347,11 @@ class ServingEngine:
                 matchable = max(len(q.prompt) - 1, 0) // bs * bs
                 self.pool.note_prefix_tokens(hit_tokens, max(matchable - hit_tokens, 0))
                 self._bind_slot(b, q, blocks, hit_tokens)
+                # queue wait and admission (prefix match, the whole budget's
+                # allocation, a reload, the bind) as siblings under the root
+                self._child_span(q.trace, "queue", q.t_submit, t_adm0, request_id=q.rid)
+                self._child_span(q.trace, "admission", t_adm0, request_id=q.rid, blocks=len(blocks),
+                                 hit_tokens=hit_tokens)
             except Exception as e:
                 # an exception between allocation and binding returns every
                 # block and fails only this request
@@ -1307,7 +1370,7 @@ class ServingEngine:
             request_id=q.rid, prompt=q.prompt, max_new=q.max_new,
             blocks=blocks, hit_tokens=hit_tokens, prefill_pos=hit_tokens,
             t_submit=q.t_submit, t_admit=time.perf_counter(), deadline_at=q.deadline_at,
-            tenant=q.tenant, tier=q.tier,
+            tenant=q.tenant, tier=q.tier, trace=q.trace,
         )
 
     def _prefill_tick(self) -> list[dict]:
@@ -1323,6 +1386,7 @@ class ServingEngine:
             ids = np.full((chunk_len,), pad, np.int32)
             ids[:real] = slot.prompt[start : start + real]
             table, ids_t = self._device(self._tables[b]), self._device(ids).long()
+            t_chunk0 = time.perf_counter()
             last = self._chunk(self._pool, table, ids_t, start, real)
             self.prefill_chunks += 1
             if self._spec_enabled:
@@ -1332,12 +1396,26 @@ class ServingEngine:
                 self._draft_chunk(self._draft_pool, table, ids_t, start, real)
             slot.prefill_pos = start + real
             self._lengths[b] = slot.prefill_pos
+            traced = self.tracer is not None and self.tracer.active(slot.trace)
             if slot.prefill_pos < p:
+                if traced:
+                    # one span a chunk, ended when the chunk's work is done:
+                    # launches return before the card has run them, and an
+                    # earlier chunk reads nothing back, so wait for the card
+                    if last.device.type == "cuda":
+                        torch.cuda.synchronize(last.device)
+                    self._child_span(slot.trace, "prefill", t_chunk0, request_id=slot.request_id,
+                                     pos=start, tokens=real)
                 continue
             # prompt fully in: sample the first token (charged to ttft),
-            # publish the prompt blocks to the prefix cache, flip to decode
+            # publish the prompt blocks to the prefix cache, flip to decode.
+            # The int() below reads the first token back to the host: the
+            # last chunk's span and t_first both end after that read.
             gen = step_generator(self._seed, self._step_counter, last.device)
             first = int(sample(last[None, :], gen, self.gen_config.sampling)[0])
+            if traced:
+                self._child_span(slot.trace, "prefill", t_chunk0, request_id=slot.request_id,
+                                 pos=start, tokens=real)
             self.pool.register_prefix(slot.prompt, slot.blocks)
             slot.t_first = time.perf_counter()
             slot.generated = [first]
@@ -1391,13 +1469,17 @@ class ServingEngine:
         rejected tail needs no cache surgery."""
         k = self.config.speculative.k
         tables, lengths, cur, active = self.decode_batch()
+        t_propose0 = time.perf_counter()
         drafts, draft_logits = self._propose(
             self._draft_pool, tables, lengths, cur, active, self._seed, self._step_counter
         )
+        t_verify0 = time.perf_counter()
         tokens, n_commit = self._verify(
             self._pool, tables, lengths, cur, drafts, draft_logits, active, self._seed, self._step_counter
         )
+        # the round's tokens are read back here; spec_verify ends after it
         tokens, n_commit = tokens.cpu().numpy(), n_commit.cpu().numpy()
+        t_wave_end = time.perf_counter()
         self.first_decode_done = True
         self.spec_rounds += 1  # one propose + verify round a wave, not a slot
         done: list[dict] = []
@@ -1405,6 +1487,11 @@ class ServingEngine:
             if slot is None or not self._active[b]:
                 continue
             n = int(n_commit[b])
+            # the round's spans on every traced slot it served: the wave's
+            # time is where this request's time went (the calls are batched)
+            self._child_span(slot.trace, "spec_propose", t_propose0, t_verify0, request_id=slot.request_id, k=k)
+            self._child_span(slot.trace, "spec_verify", t_verify0, t_wave_end, request_id=slot.request_id,
+                             accepted=n - 1)
             slot.spec_proposed += k
             slot.spec_accepted += n - 1
             self.spec_proposed_total += k
@@ -1459,7 +1546,7 @@ class ServingEngine:
         )
         rec = {
             "event": "serve_engine_event", "reason": reason, "step": self._step_counter,
-            "requests_failed": affected, "ts": time.time(),
+            "requests_failed": affected, "ts": self._wall_ts(),
         }
         if detail:
             rec["detail"] = detail

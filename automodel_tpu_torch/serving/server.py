@@ -30,8 +30,15 @@ stall watchdog (``serving.watchdog``), whose stacks and flight-recorder
 dump land beside ``logging.metrics_path`` when one is set. The fleet's
 paths (``/prefill``, ``/kv_fetch``, ``/retire``, ``/swap_weights`` and a
 ``/generate`` carrying a ``handoff_id``) answer 400 naming what is not
-ported. Top-level sections the port does not run (``tracing``, ``slo``,
-``fleet``) are refused when enabled.
+ported. Top-level sections the port does not run (``slo``, ``fleet``)
+are refused when enabled.
+
+A ``tracing: {enabled, sample_rate}`` section turns on request tracing
+(``telemetry/tracing.py``): the spans ride the same metrics JSONL as the
+``serve_request`` records (no ``logging.metrics_path``, no spans) and
+feed ``automodel_serve_stage_seconds`` on ``/metrics``. A W3C
+``traceparent`` (the HTTP header, or a ``traceparent`` field of the body
+or of a stdin line) makes the request's root span its child.
 
 Unlike JAX's, the port's ``_warmup`` raises when its request fails: a
 warm-up that only logged would let a broken kernel reach the front.
@@ -53,7 +60,7 @@ from automodel_tpu_torch.serving.engine import section_enabled
 
 logger = logging.getLogger(__name__)
 
-UNPORTED_TOP_SECTIONS = ("tracing", "slo", "fleet")
+UNPORTED_TOP_SECTIONS = ("slo", "fleet")
 # the fleet's HTTP paths: answered 400 by name
 UNPORTED_PATHS = ("/prefill", "/kv_fetch", "/retire", "/swap_weights")
 
@@ -180,7 +187,7 @@ class _EngineLoop:
     def alive(self) -> bool:
         return self._thread.is_alive() and self.error is None
 
-    def submit_blocking(self, prompt_ids: list[int], req: dict, timeout_s: float) -> dict:
+    def submit_blocking(self, prompt_ids: list[int], req: dict, timeout_s: float, trace: Any = None) -> dict:
         from automodel_tpu_torch.serving.engine import QueueFull, QuotaExceeded
 
         ev = threading.Event()
@@ -197,6 +204,7 @@ class _EngineLoop:
                     tier=req.get("tier"),
                     return_logprobs=bool(req.get("return_logprobs")),
                     kv_peer=req.get("kv_peer"),
+                    trace=trace,
                 )
             except QueueFull:
                 # shed at once, with one tier-labelled record a give-up
@@ -337,6 +345,14 @@ def serve_http(engine: Any, port: int, host: str = "127.0.0.1"):
                 raise ValueError("request body is not a JSON object")
             return req
 
+        def _trace_ctx(self, req: dict):
+            """The propagated trace context: the ``traceparent`` header, or a
+            body field for bare clients. None roots a new trace."""
+            tracer = getattr(engine, "tracer", None)
+            if tracer is None:
+                return None
+            return tracer.parse(self.headers.get("traceparent") or req.get("traceparent"))
+
         def do_POST(self):
             if self.path in UNPORTED_PATHS:
                 return self._json(400, {
@@ -356,7 +372,9 @@ def serve_http(engine: Any, port: int, host: str = "127.0.0.1"):
                     })
                 self._stash_qos_headers(req)
                 ids = _encode_prompt(req)
-                rec = loop.submit_blocking(ids, req, timeout_s=float(req.get("timeout_s", 300.0)))
+                rec = loop.submit_blocking(
+                    ids, req, timeout_s=float(req.get("timeout_s", 300.0)), trace=self._trace_ctx(req)
+                )
             except (ValueError, TypeError) as e:
                 return self._json(400, {"error": str(e)})
             except QueueFull as e:
@@ -435,7 +453,7 @@ def _warmup(engine: Any) -> None:
 
 def refuse_unported_top_sections(cfg: Any) -> None:
     """Raise ``ValueError`` naming the first enabled top-level section the
-    port does not run (``tracing``, ``slo``, ``fleet``)."""
+    port does not run (``slo``, ``fleet``)."""
     for name in UNPORTED_TOP_SECTIONS:
         section = cfg.get(name, None)
         if section_enabled(name, section.to_dict() if hasattr(section, "to_dict") else section):
@@ -449,17 +467,35 @@ def _section(cfg: Any, name: str) -> dict:
     return dict(section.to_dict() if hasattr(section, "to_dict") else (section or {}))
 
 
+def build_tracer(cfg: Any, emit=None):
+    """The ``tracing:`` section → a Tracer whose spans go to ``emit`` (the
+    metrics JSONL writer), or None when the section or ``emit`` turns
+    tracing off (JAX ``serving/server.py:1026-1036``). The engine points
+    its ``observe`` at ``/metrics``. Unlike JAX's serve, which traces
+    whenever a metrics path is set (an absent section reads as
+    ``enabled: true``), the port traces only when the section is given."""
+    from automodel_tpu_torch.telemetry.tracing import Tracer, TracingConfig
+
+    section = _section(cfg, "tracing")
+    if not section:
+        return None
+    return Tracer.from_config(
+        TracingConfig.from_dict(section), process=f"serve-mixed-{os.getpid()}", emit=emit,
+    )
+
+
 def build_engine(cfg: Any, on_record=None):
     """ServingEngine from a config tree (``device``, ``model``,
-    ``generation``, ``serving`` sections)."""
+    ``generation``, ``serving`` and ``tracing`` sections)."""
     from automodel_tpu_torch.generation.engine import GenerationConfig, build_auto_from_cfg
     from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
 
     refuse_unported_top_sections(cfg)
     serve_cfg = ServeConfig.from_dict(_section(cfg, "serving"))
     gen_cfg = GenerationConfig.from_dict(_section(cfg, "generation"))
+    tracer = build_tracer(cfg, emit=on_record)
     auto = build_auto_from_cfg(cfg)
-    return ServingEngine(auto, serve_cfg, gen_cfg, on_record=on_record)
+    return ServingEngine(auto, serve_cfg, gen_cfg, on_record=on_record, tracer=tracer)
 
 
 def main(cfg: Any) -> int:
@@ -597,6 +633,7 @@ def _serve_stdin(engine: Any) -> int:
                 raise ValueError("request line is not a JSON object")
             rid = req.get("id")
             ids = _encode_prompt(req)
+            ctx = engine.tracer.parse(req.get("traceparent")) if engine.tracer is not None else None
             while True:
                 try:
                     engine.submit(
@@ -609,6 +646,7 @@ def _serve_stdin(engine: Any) -> int:
                         tier=req.get("tier"),
                         return_logprobs=bool(req.get("return_logprobs", False)),
                         kv_peer=req.get("kv_peer"),
+                        trace=ctx,
                     )
                     break
                 except QueueFull:

@@ -484,8 +484,8 @@ class ServingMetrics:
             "automodel_serve_spec_accept_rate",
             "Engine-lifetime draft acceptance rate (0 until a round runs)",
         )
-        # per-stage latency from request trace spans; tracing is not ported,
-        # so the family is registered (the exposition's key set) and empty
+        # per-stage latency from request trace spans (the engine's Tracer
+        # ``observe`` hook, observe_stage)
         self.stage_seconds = r.labeled_histogram(
             "automodel_serve_stage_seconds",
             "Per-stage latency from request trace spans, by stage name",
@@ -557,6 +557,15 @@ class ServingMetrics:
                 self.queue_wait.observe(rec["queue_s"])
             self.completed.inc()
             self.gen_tokens.inc(rec.get("n_generated", 0) or 0)
+
+    def observe_stage(self, stage: str, duration_s: float) -> None:
+        """Per-span stage observation (the engine's Tracer ``observe``
+        hook). A negative duration is a clock bug the JSONL lint flags; it
+        must not also poison the histogram sum. The labelled histogram
+        takes its own lock."""
+        if duration_s < 0:
+            return
+        self.stage_seconds.observe(stage, duration_s)
 
     def observe_failure(self, reason: str) -> None:
         """Per-termination observation for a request that did NOT complete

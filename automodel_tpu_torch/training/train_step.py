@@ -9,7 +9,11 @@ normalized by the global label-token count of all microbatches (:170-176);
 the fp32 global grad norm; a ``nonfinite`` flag; and the optimizer update.
 With ``on_nonfinite: skip`` a non-finite step applies nothing, so params
 and Adam moments stay bit-identical (:211-224); the step counter still
-advances. A loss function may return a third value, per-microbatch
+advances. ``raise`` and ``rollback`` are the recipe's, read off the
+``nonfinite`` flag. ``grad_mask`` (one bool a parameter, False = frozen;
+``training/freeze.py``) computes no gradient for a frozen tensor and
+hands the optimizer a zero one, so ``grad_norm`` covers the trainable
+tensors only (:127-130). A loss function may return a third value, per-microbatch
 ``extras``: the MoE models' ``moe_aux_loss`` and ``expert_counts`` are
 summed over microbatches and reported as ``moe_aux_loss`` (divided by the
 microbatch count, :225-226), ``expert_load_imbalance`` and its per-layer
@@ -24,14 +28,14 @@ update reads it on the host (one synchronisation per step).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from automodel_tpu_torch.optim.builders import global_norm_fp32
 from automodel_tpu_torch.training.train_state import TrainState
 
-ON_NONFINITE = ("raise", "skip")
+ON_NONFINITE = ("raise", "skip", "rollback")
 
 
 def build_train_step(
@@ -39,6 +43,7 @@ def build_train_step(
     lr_schedule: Optional[Callable[[int], float]] = None,
     on_nonfinite: str = "raise",
     post_step_fn: Optional[Callable[[dict], None]] = None,
+    grad_mask: Optional[Sequence[bool]] = None,
 ) -> Callable[[TrainState, dict], dict]:
     """(state, batch) → metrics, updating ``state`` in place.
 
@@ -52,6 +57,13 @@ def build_train_step(
 
     def step_fn(state: TrainState, batch: dict) -> dict:
         params = state.params
+        mask = [True] * len(params) if grad_mask is None else list(grad_mask)
+        trainable = [p for p, m in zip(params, mask) if m]
+
+        def full(mb_grads) -> list:
+            """Trainable grads back in parameter order, a zero for a frozen one."""
+            it = iter(mb_grads)
+            return [next(it) if m else torch.zeros_like(p) for p, m in zip(params, mask)]
         n_mb = batch["input_ids"].shape[0]
         loss_sum = n_tokens = grads = None
         extras_sum: dict = {}
@@ -61,7 +73,7 @@ def build_train_step(
             for k, v in (rest[0] if rest else {}).items():
                 extras_sum[k] = v if k not in extras_sum else extras_sum[k] + v
             mb_loss = mb_loss.float()
-            mb_grads = torch.autograd.grad(mb_loss, params)
+            mb_grads = full(torch.autograd.grad(mb_loss, trainable))
             mb_loss = mb_loss.detach()
             if n_mb == 1:
                 # no accumulation: the grads stay in the param dtype
@@ -78,7 +90,10 @@ def build_train_step(
         # divide in fp32 even for bf16 grads (a bf16-rounded token count is
         # off by up to 0.4%)
         if n_mb == 1:
-            grads = [(g.float() / denom).to(g.dtype) for g in grads]
+            # in place, one tensor at a time: a second list of the model's
+            # grads would not fit beside the first at full depth
+            for g in grads:
+                g.copy_((g.float() / denom).to(g.dtype))
         else:
             for g in grads:
                 g.div_(denom)

@@ -237,11 +237,45 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    a 6 s sleep: exactly that wave ends ``engine_stall``, one stall, the
    pool's bytes unchanged, the flight recorder and stacks written, and
    the requests after it decode the tokens they decoded before. Every
-   serving phase (4, 18's leg (a), 20, 21) checks that its engines
-   rebuilt for no error and no unplanned stall.
+   serving phase (4, 18's leg (a), 20, 21, 22) checks that its engines
+   rebuilt for no error and no unplanned stall;
+22. traced serving at Llama-3-8B's published widths and 32 layers
+   (phase 21's config with ``tracing: {enabled: true, sample_rate: 1.0}``,
+   through ``serving.server.build_tracer`` and the HTTP front): 16 POSTs
+   of 256-1024 prompt tokens and 64 new from 8 client threads, 8 of them
+   carrying a ``traceparent`` header minted by a client-side tracer that
+   writes its own JSONL. Each request has exactly one ``serve`` span, a
+   headered one with the header's trace id and the client span as its
+   parent; every child span lies inside its root within 1 ms; the port's
+   ``trace`` command over both JSONLs assembles 16 traces with no orphan
+   and no partial trace and writes a Chrome trace and a markdown
+   waterfall; ``automodel_serve_stage_seconds``'s counts on ``/metrics``
+   equal the span counts by stage; ``report --strict`` passes the serve
+   JSONL; the paged kernel launched decode forwards x 32 times. The same
+   requests run with tracing off too, in turns (off, on, on, off), and
+   the legs' tokens/s and TTFT p50 are printed (a reading, not a claim);
+23. training: (a) ``configs/sft_llama3_8b_full.yaml`` as a dict, Llama-3-8B
+   at all 32 layers with bf16 Adam moments (``moments_dtype: param``) and
+   ``remat: full``, 4 steps of 4096 tokens through the ``finetune`` recipe
+   class: every loss finite, the peak of device memory under 79 GiB, the
+   flash forward launched 32 x 4 x 2 times (the recompute runs it again),
+   dq and dkv 32 x 4, ``report --strict`` passing its JSONL; step time
+   from step 2, tokens/s, MFU on 989 TFLOP/s and the peak printed; (b)
+   lion, sgd, adafactor and muon, each 3 steps at Llama-3-8B widths cut to
+   2 layers (a constant lr each, ``OPT_LR``), every loss finite, and step 1's
+   update of the held tensors (both layers' k_proj, their input norms,
+   the final norm; the lm_head too but under muon, whose Newton-Schulz
+   over it would take the CPU minutes) equal to the same optimizer run on
+   the CPU from the same weights, grads and grad norm: at most 0.1% of
+   their elements apart, none by more than 2 bf16 steps; (c)
+   ``on_nonfinite: rollback`` at Llama-3.2-1B widths cut to 2 layers,
+   checkpoints every 2 steps, 4 steps, a non-finite flag planted on step
+   3's metrics: the run restores step 2, ends at step 4 with
+   ``rollbacks_total`` 1 and the loader at batch 6 of its epoch, where
+   JAX's arithmetic puts it (``tests/test_resilience.py:876-903``).
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 21 last. After the build the
+phase 3b right after phase 3, phases 15 to 23 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -3493,6 +3527,45 @@ SERVE_LLAMA3_8B_FRONT = dict(
         limits=dict(deadline_s=600.0, max_queue_wait_s=120.0),
     ),
 )
+# phase 22: phase 21's front with tracing on
+TRACED_REQUESTS = 16
+TRACED_MAX_NEW = 64
+TRACE_SLACK_S = 1e-3  # a child span within 1 ms of its root's interval
+# phase 23 (a): configs/sft_llama3_8b_full.yaml as a dict
+# (tests/test_torch_optim_more.py checks the two agree)
+SFT_LLAMA3_8B_FULL = dict(
+    seed=42,
+    model=dict(
+        hf_config=dict(LLAMA3_8B),
+        backend=dict(attn="flash", param_dtype="bfloat16", compute_dtype="bfloat16", remat="full"),
+    ),
+    dataset=dict(_target_="automodel_tpu_torch.data.sft.MockSFTDataset", vocab_size=128256,
+                 seq_length=4096, num_samples=1024),
+    dataloader=dict(global_batch_size=1),
+    step_scheduler=dict(grad_acc_steps=1, num_epochs=1, log_every_steps=10),
+    optimizer=dict(name="adamw", lr=1e-5, weight_decay=0.01, betas=[0.9, 0.95], grad_clip_norm=1.0,
+                   moments_dtype="param", lr_schedule=dict(style="cosine", warmup_steps=100, decay_steps=2000)),
+    loss_fn=dict(name="fused_linear_ce"),
+    logging=dict(metrics_path="runs/torch_sft_llama3_8b_full/train_metrics.jsonl"),
+)
+FULL_STEPS = 4
+TRAIN_DEVICE = "cuda"  # phase 23's recipes (a CPU rehearsal sets "cpu")
+FULL_PEAK_GIB = 79.0
+# (b): step 1's update on the card against the CPU's, the held tensors
+OPTIMIZERS_ON_CARD = ("lion", "sgd", "adafactor", "muon")
+# a constant lr for each, large enough that step 1 moves bf16 weights
+# (a bf16 step is 2^-8 of a weight): lion moves each by lr, sgd by lr x g
+# under a clipped grad norm of 1, adafactor by lr x the leaf's RMS, and
+# muon's Adam branch by about lr
+OPT_LR = dict(lion=1e-3, sgd=10.0, adafactor=1e-2, muon=1e-3)
+OPT_LAYERS = 2
+OPT_STEPS = 3
+OPT_MAX_DIFFERING = 1e-3  # share of the held elements apart
+OPT_MAX_BF16_STEPS = 2
+# (c): rollback
+ROLLBACK_STEPS = 4
+ROLLBACK_FAIL_STEP = 3
+
 # (a)/(b): a 512-block pool (1 GiB bf16) holds about three groups of a
 # 2048-token shared prefix (128 blocks) + a 64-token suffix + 32 new tokens
 FRONT_POOL_BLOCKS = 512
@@ -4122,9 +4195,409 @@ def phase_front(torch) -> dict:
     return out
 
 
+# -- phase 22: traced serving --------------------------------------------------
+
+
+def traced_leg(torch, auto, traced: bool, jobs: list, label: str) -> dict:
+    """One leg of phase 22: an engine on ``auto`` behind the HTTP front, with
+    tracing on (spans to a JSONL beside the serve records, a client tracer
+    minting the headers) or off; ``jobs`` are (body, with a traceparent)."""
+    import threading
+
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.generation.engine import GenerationConfig
+    from automodel_tpu_torch.loggers.metric_logger import MetricLogger
+    from automodel_tpu_torch.ops.paged_attention import paged_attend
+    from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
+    from automodel_tpu_torch.serving.server import build_tracer, serve_http
+    from automodel_tpu_torch.telemetry.tracing import Tracer, to_traceparent
+
+    cfg = front_config(http=dict(host="127.0.0.1", port=0, warmup=False))
+    if traced:
+        cfg["tracing"] = dict(enabled=True, sample_rate=1.0)
+    cfg = ConfigNode(cfg)
+    here = __import__("pathlib").Path(__file__).resolve().parent / "runs" / "chip_smoke"
+    serve_path = here / f"traced_serve_{time.time_ns()}.jsonl"
+    client_path = here / f"traced_client_{time.time_ns()}.jsonl"
+    logger = MetricLogger(str(serve_path))
+    records = []
+
+    def on_record(rec: dict) -> None:
+        records.append(rec)
+        rec = dict(rec)
+        rec.pop("tokens", None)  # as the serve CLI's on_record
+        logger.log(rec)
+
+    engine = ServingEngine(auto, ServeConfig.from_dict(cfg.serving.to_dict()),
+                           GenerationConfig.from_dict(cfg.generation.to_dict()), on_record=on_record,
+                           tracer=build_tracer(cfg, emit=on_record))
+    if (engine.tracer is not None) != traced:
+        raise RuntimeError(f"{label}: tracer {engine.tracer} with tracing {traced}")
+    client_log = MetricLogger(str(client_path))
+    client = Tracer("client", emit=client_log.log)
+    df0 = engine.decode_forwards
+    paged_attend.launches = 0
+    server, loop = serve_http(engine, 0)
+    serve_thread = threading.Thread(target=server.serve_forever, name="traced-http", daemon=True)
+    serve_thread.start()
+    port = server.server_address[1]
+    answers, sent = [None] * len(jobs), [None] * len(jobs)
+    try:
+        def one(j):
+            body, headed = jobs[j]
+            if headed and traced:
+                with client.span(None, "client_request", request_id=f"t{j}") as ctx:
+                    sent[j] = ctx
+                    answers[j] = http_call(port, "/generate", dict(body, id=f"t{j}"),
+                                           headers={"traceparent": to_traceparent(ctx)})
+            else:
+                answers[j] = http_call(port, "/generate", dict(body, id=f"t{j}"))
+
+        def worker(c):
+            for j in range(c, len(jobs), 8):
+                one(j)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(c,), daemon=True) for c in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(a is None or a[0] != 200 for a in answers):
+            raise RuntimeError(f"{label}: answers {[a and a[0] for a in answers]}")
+        code, text, _ = http_call(port, "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+        loop.close()
+    check_engine_healthy(engine, label)
+    forwards = engine.decode_forwards - df0
+    layers = auto.config.num_layers
+    if paged_attend.launches != forwards * layers or not forwards:
+        raise RuntimeError(f"{label}: paged kernel launched {paged_attend.launches} times for {forwards} decode "
+                           f"forwards x {layers}")
+    reqs = [r for r in records if r.get("event") == "serve_request"]
+    ttfts = sorted(r["ttft_s"] for r in reqs)
+    out = dict(requests=len(reqs), wall_s=wall, tokens_per_s=sum(r["n_generated"] for r in reqs) / wall,
+               ttft_p50_s=statistics.median(ttfts), decode_forwards=forwards,
+               paged_attend_launches=paged_attend.launches)
+    if traced:
+        out.update(check_traces(records, answers, sent, serve_path, client_path, parse_metrics(text), label))
+    engine.release_pools()
+    print(f"{label}: {json.dumps(out)} | {card_line()}", flush=True)
+    return out
+
+
+def check_traces(records, answers, sent, serve_path, client_path, metrics: dict, label: str) -> dict:
+    """Phase 22's checks on the traced leg's spans (see the module text)."""
+    from automodel_tpu_torch.telemetry import report, tracing
+
+    spans = [r for r in records if r.get("event") == "span"]
+    roots = {}
+    for s in spans:
+        if s["stage"] == "serve":
+            if s["request_id"] in roots:
+                raise RuntimeError(f"{label}: two serve spans for {s['request_id']}")
+            roots[s["request_id"]] = s
+    rids = {a[1]["request_id"] for a in answers}
+    if set(roots) != rids:
+        raise RuntimeError(f"{label}: serve spans for {sorted(roots)}, requests {sorted(rids)}")
+    by_rid = {a[1]["request_id"]: j for j, a in enumerate(answers)}
+    headed = 0
+    for rid, root in roots.items():
+        ctx = sent[by_rid[rid]]
+        if ctx is not None:
+            headed += 1
+            if (root["trace_id"], root.get("parent_id")) != (ctx.trace_id, ctx.span_id):
+                raise RuntimeError(f"{label}: {rid}'s root {root} is not a child of its header {ctx}")
+        elif root.get("parent_id") is not None:
+            raise RuntimeError(f"{label}: {rid}'s root has a parent without a header: {root}")
+    by_id = {s["span_id"]: s for s in spans}
+    worst = 0.0
+    for s in spans:
+        if s["stage"] == "serve":
+            continue
+        r = by_id[s["parent_id"]]
+        out_by = max(r["ts"] - s["ts"], (s["ts"] + s["duration_s"]) - (r["ts"] + r["duration_s"]))
+        worst = max(worst, out_by)
+        if r["stage"] != "serve" or out_by > TRACE_SLACK_S:
+            raise RuntimeError(f"{label}: span {s} lies {out_by:.6f}s outside its root {r}")
+    chrome, md = str(serve_path) + ".chrome.json", str(serve_path) + ".md"
+    rc = tracing.main([str(serve_path), str(client_path), "--chrome", chrome, "--md", md])
+    found, problems = tracing.read_span_records([str(serve_path), str(client_path)])
+    traces = tracing.assemble_traces(found)
+    orphans = sum(len(t["orphans"]) for t in traces)
+    partial = sum(1 for t in traces if t["partial"])
+    if rc != 0 or problems or len(traces) != len(answers) or orphans or partial:
+        raise RuntimeError(f"{label}: trace rc {rc}, {len(traces)} traces, {orphans} orphans, {partial} partial, "
+                           f"problems {problems[:3]}")
+    events = json.load(open(chrome))["traceEvents"]
+    if not events or "## trace" not in open(md).read():
+        raise RuntimeError(f"{label}: the Chrome trace or the waterfall is empty")
+    stages = {}
+    for s in spans:
+        stages[s["stage"]] = stages.get(s["stage"], 0) + 1
+    scraped = {k.split('stage="')[1].split('"')[0]: int(v) for k, v in metrics.items()
+               if k.startswith("automodel_serve_stage_seconds_count{")}
+    if scraped != stages:
+        raise RuntimeError(f"{label}: /metrics stage counts {scraped} != span counts {stages}")
+    rc_report = report.main([str(serve_path), "--strict"])
+    if rc_report != 0:
+        raise RuntimeError(f"{label}: report --strict exited {rc_report} on {serve_path}")
+    return dict(spans=len(spans), spans_by_stage=stages, traces=len(traces), with_header=headed, orphans=orphans,
+                partial=partial, worst_outside_root_s=worst, chrome_events=len(events), report_strict_rc=rc_report)
+
+
+def phase_traced_front(torch) -> dict:
+    """Phase 22 (see the module text): the traced leg, then the untraced one
+    on the same model and requests."""
+    import random
+
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.generation.engine import build_auto_from_cfg
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    auto = build_auto_from_cfg(ConfigNode(front_config()))
+    torch.cuda.synchronize()
+    print(f"phase 22 model: Llama-3-8B ({auto.config.num_layers} layers), random init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    rng = random.Random(22)
+    vocab = auto.config.vocab_size
+    jobs = [(dict(prompt_ids=[rng.randrange(1, vocab) for _ in range(rng.randint(256, 1024))],
+                  max_new_tokens=TRACED_MAX_NEW, tenant="a"), j % 2 == 0) for j in range(TRACED_REQUESTS)]
+    # in turns, untraced, traced, traced, untraced: the first leg on a fresh
+    # model pays first-call costs that are not tracing's
+    legs = [traced_leg(torch, auto, traced, jobs, f"phase 22 leg {i + 1} {'traced' if traced else 'untraced'}")
+            for i, traced in enumerate((False, True, True, False))]
+    on, off = [legs[1], legs[2]], [legs[0], legs[3]]
+    out = dict(legs=legs, paged_attend_launches=sum(x["paged_attend_launches"] for x in on))
+    mean = lambda xs, k: sum(x[k] for x in xs) / len(xs)
+    out["tokens_per_s_traced_over_untraced"] = mean(on, "tokens_per_s") / mean(off, "tokens_per_s")
+    out["ttft_p50_traced_over_untraced"] = mean(on, "ttft_p50_s") / mean(off, "ttft_p50_s")
+    del auto
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 22 traced vs untraced (a reading, not a claim): "
+          f"{json.dumps({k: out[k] for k in ('tokens_per_s_traced_over_untraced', 'ttft_p50_traced_over_untraced')})}"
+          f" | {card_line()}", flush=True)
+    return out
+
+
+# -- phase 23: training at full depth, the optimizers, rollback ---------------
+
+
+def metrics_path(tag: str) -> str:
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    return str(here / "runs" / "chip_smoke" / f"{tag}_{time.time_ns()}.jsonl")
+
+
+def phase_sft_full(torch) -> dict:
+    """Phase 23 (a): Llama-3-8B SFT at 32 layers through the recipe class."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+    from automodel_tpu_torch.telemetry import report
+
+    cfg = json.loads(json.dumps(SFT_LLAMA3_8B_FULL))
+    cfg["device"] = TRAIN_DEVICE
+    cfg["step_scheduler"].update(max_steps=FULL_STEPS, log_every_steps=1)
+    cfg["logging"]["metrics_path"] = metrics_path("sft_full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in recipe.state.params)
+    kernels = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
+    # the main path's run: every count set to 0 just before, read just after
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels)))
+    layers = cfg["model"]["hf_config"]["num_hidden_layers"]
+    want = dict(fwd=layers * FULL_STEPS * 2, dq=layers * FULL_STEPS, dkv=layers * FULL_STEPS)
+    if launches != want:
+        raise RuntimeError(f"23 (a): flash launches {launches}, want {want} (remat: full runs the forward twice)")
+    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    steps = [r for r in rows if "loss" in r]
+    if [r["step"] for r in steps] != list(range(1, FULL_STEPS + 1)) or any(
+            r["loss"] is None or r["nonfinite"] or not math.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError(f"23 (a): step rows {steps}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak >= FULL_PEAK_GIB:
+        raise RuntimeError(f"23 (a): peak {peak:.2f} GiB, want under {FULL_PEAK_GIB}")
+    rc = report.main([cfg["logging"]["metrics_path"], "--strict"])
+    if rc != 0:
+        raise RuntimeError(f"23 (a): report --strict exited {rc}")
+    seq = cfg["dataset"]["seq_length"]
+    step_s = statistics.median(r["step_time_s"] for r in steps[1:])
+    embed = recipe.model.model.embed_tokens.weight.numel()
+    flops = 6 * (n_params - embed) * seq + attention_flops(cfg, seq)
+    out = dict(params=n_params, layers=layers, setup_s=setup_s, wall_s=wall, losses=[r["loss"] for r in steps],
+               grad_norms=[r["grad_norm"] for r in steps], first_step_s=steps[0].get("first_step_s"),
+               step_ms=1e3 * step_s, tokens_per_s=seq / step_s, model_flop_per_step=flops,
+               mfu_on_989=flops / step_s / BF16_FLOPS, peak_mem_gib=peak, flash_launches=launches,
+               moments_dtype=str(recipe.state.optimizer.mu[0].dtype), report_strict_rc=rc)
+    print(f"phase 23 (a) sft full depth: {json.dumps(out)} | {card_line()}", flush=True)
+    del recipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_names(names: list, optimizer: str) -> list:
+    """The tensors phase 23 (b) holds to the CPU: whole JAX leaves."""
+    keep = ("self_attn.k_proj.weight", "input_layernorm.weight", "model.norm.weight")
+    if optimizer != "muon":
+        keep += ("lm_head.weight",)
+    return [n for n in names if n.endswith(keep)]
+
+
+def bf16_steps_apart(a, b) -> tuple[int, int]:
+    """(elements apart, the largest distance in bf16 steps) of two bf16
+    tensors of one shape, read as bit patterns."""
+    x = a.view(__import__("torch").int16).to(__import__("torch").int32)
+    y = b.view(__import__("torch").int16).to(__import__("torch").int32)
+    d = (x - y).abs()
+    return int((d > 0).sum()), int(d.max()) if d.numel() else 0
+
+
+def run_optimizer_on_card(torch, name: str) -> dict:
+    """Phase 23 (b) for one optimizer."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.optim.builders import build_optimizer
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+
+    cfg = json.loads(json.dumps(SFT_LLAMA3_8B))
+    cfg["device"] = TRAIN_DEVICE
+    cfg["model"]["hf_config"]["num_hidden_layers"] = OPT_LAYERS
+    cfg["step_scheduler"].update(grad_acc_steps=1, max_steps=OPT_STEPS, log_every_steps=1)
+    cfg["optimizer"].update(name=name, lr=OPT_LR[name], lr_schedule=dict(style="constant"))
+    cfg["logging"]["metrics_path"] = metrics_path(f"opt_{name}")
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    names = [n for n, _ in recipe.model.named_parameters()]
+    held = held_names(names, name)
+    idx = [names.index(n) for n in held]
+    opt = recipe.state.optimizer
+    seen = {}
+    update = opt.update
+
+    def capture(grads, grad_norm=None):
+        if not seen:
+            seen["before"] = [recipe.state.params[i].detach().cpu().clone() for i in idx]
+            seen["grads"] = [grads[i].detach().cpu().clone() for i in idx]
+            seen["norm"] = grad_norm.detach().cpu().clone()
+            update(grads, grad_norm)
+            seen["after"] = [recipe.state.params[i].detach().cpu().clone() for i in idx]
+            return None
+        return update(grads, grad_norm)
+
+    opt.update = capture
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    if len(losses) != OPT_STEPS or not all(x is not None and math.isfinite(x) for x in losses):
+        raise RuntimeError(f"23 (b) {name}: losses {losses}")
+    ocfg = {k: v for k, v in cfg["optimizer"].items() if k != "_target_"}
+    params = [t.clone() for t in seen["before"]]
+    ref = build_optimizer(params, names=held, **ocfg)
+    ref.update(seen["grads"], seen["norm"])
+    apart, worst, total = 0, 0, 0
+    for n, got, want in zip(held, seen["after"], params):
+        a, w = bf16_steps_apart(got, want)
+        apart, worst, total = apart + a, max(worst, w), total + got.numel()
+    moved = sum(int((b != a).sum()) for b, a in zip(seen["before"], seen["after"]))
+    out = dict(optimizer=name, losses=losses, wall_s=wall, held_tensors=len(held), held_elements=total,
+               moved_elements=moved, apart=apart, share_apart=apart / total, worst_bf16_steps=worst)
+    if apart > OPT_MAX_DIFFERING * total or worst > OPT_MAX_BF16_STEPS or not moved:
+        raise RuntimeError(f"23 (b) {name}: step 1 on the card against the CPU: {out}")
+    del recipe, opt, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_rollback_on_card(torch) -> dict:
+    """Phase 23 (c): the rollback policy through the recipe class."""
+    import shutil
+
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+
+    root = __import__("pathlib").Path(__file__).resolve().parent / "runs" / "chip_smoke" / f"rollback_{time.time_ns()}"
+    cfg = json.loads(json.dumps(SFT_LLAMA3_8B))
+    cfg["device"] = TRAIN_DEVICE
+    cfg["model"]["hf_config"] = dict(LLAMA3_2_1B, num_hidden_layers=2)
+    cfg["dataset"].update(num_samples=64)
+    cfg["step_scheduler"].update(grad_acc_steps=1, max_steps=ROLLBACK_STEPS, ckpt_every_steps=2, log_every_steps=1)
+    cfg["checkpoint"] = dict(enabled=True, checkpoint_dir=str(root))
+    cfg["fault_tolerance"] = dict(on_nonfinite="rollback")
+    cfg["logging"]["metrics_path"] = metrics_path("rollback")
+    try:
+        recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+        recipe.setup()
+        orig, fired = recipe.train_step, []
+
+        def flaky(state, batch):
+            m = orig(state, batch)
+            if m["step"] == ROLLBACK_FAIL_STEP and not fired:
+                fired.append(1)
+                m = dict(m, nonfinite=torch.tensor(True, device=m["loss"].device))
+            return m
+
+        recipe.train_step = flaky
+        t0 = time.perf_counter()
+        last = recipe.run_train_validation_loop()
+        wall = time.perf_counter() - t0
+        rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+        events = [(r["event"], r.get("fail_step", r.get("resumed_from_step"))) for r in rows if "event" in r]
+        cursor = recipe.dataloader.state_dict()
+        out = dict(last_step=last["step"], rollbacks_total=last.get("rollbacks_total"), events=events,
+                   loader=dict(epoch=cursor["epoch"], batch_in_epoch=cursor["batch_in_epoch"]), wall_s=wall,
+                   losses=[r["loss"] for r in rows if "loss" in r])
+        # restore to step 2 (2 batches consumed), skip the failed step's
+        # batch, train steps 3 and 4, and the scheduler's look-ahead batch
+        want_cursor = dict(epoch=0, batch_in_epoch=6)
+        if (fired != [1] or last["step"] != ROLLBACK_STEPS or last.get("rollbacks_total") != 1
+                or events != [("rollback", ROLLBACK_FAIL_STEP), ("resume", 2)] or out["loader"] != want_cursor
+                or not all(math.isfinite(x) for x in out["losses"])):
+            raise RuntimeError(f"23 (c) rollback: {out}, want the loader at {want_cursor}")
+        del recipe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training_rest(torch) -> dict:
+    """Phase 23 (see the module text)."""
+    out = dict(full=phase_sft_full(torch))
+    t0 = time.perf_counter()
+    out["optimizers"] = [run_optimizer_on_card(torch, name) for name in OPTIMIZERS_ON_CARD]
+    print(f"phase 23 (b) optimizers on the card ({time.perf_counter() - t0:.1f}s): {json.dumps(out['optimizers'])} "
+          f"| {card_line()}", flush=True)
+    out["rollback"] = run_rollback_on_card(torch)
+    print(f"phase 23 (c) rollback: {json.dumps(out['rollback'])}", flush=True)
+    return out
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
                  gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec,
-                 front) -> dict:
+                 front, traced, rest) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -4173,6 +4646,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
                 "launches_spec_serving": spec["paged_attend_launches"],
                 "launches_int8_run": serving_int8["paged_attend_launches"],
                 "launches_serving_front": front["paged_attend_launches"],
+                "launches_traced_serving": traced["paged_attend_launches"],
                 "decode_forwards": serving_bf16["decode_forwards"],
                 "paged_attention_ms_per_decode_step": profile_bf16.get("paged_attention_ms_per_step"),
                 "kernels": "paged_attention_kernel<int8 pool, head dim, query n-tiles a warp, warps a worker>; "
@@ -4210,6 +4684,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "gpt_oss_sinks": sinks_flash_entry(name, sinks),
             "gemma2": gemma_flash_entry(name, flash_cap, gemma, row_errs[name]),
             "kd_llama3_2_1b": kd_flash_entry(name, kd),
+            "launches_sft_full_depth": rest["full"]["flash_launches"][name],
         })
         if name == "dq":
             line["kernels"][-1]["backward"] = flash_backward_pair(main_flash)
@@ -4379,10 +4854,17 @@ def main() -> int:
         front = phase_front(torch)
         print(f"phase 21 (serving front and spill tier, Llama-3-8B at 32 layers): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        traced = phase_traced_front(torch)
+        print(f"phase 22 (traced serving, Llama-3-8B at 32 layers): {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        rest = phase_training_rest(torch)
+        print(f"phase 23 (Llama-3-8B SFT at 32 layers, the optimizers, rollback): {time.perf_counter() - t0:.1f}s",
+              flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
-                            fused_ptxas, spec, front)
+                            fused_ptxas, spec, front, traced, rest)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

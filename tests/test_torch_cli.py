@@ -101,7 +101,7 @@ def test_serve_without_requests_exits_2(monkeypatch, capsys):
         ("--serving.kv_transfer.enabled=true", "kv_transfer"),
         ("--serving.warm_start.peer_host=127.0.0.1", "warm_start"),
         ("--serving.role=decode", "role"),
-        ("--tracing.enabled=true", "tracing"),
+        ("--fleet.enabled=true", "fleet"),
         ("--slo.enabled=true", "slo"),
     ],
 )
@@ -121,6 +121,19 @@ def test_cuda_device_without_cuda_raises(monkeypatch, capsys):
 def test_other_commands_exit_2(command, capsys):
     assert app.main([command, "llm", "-c", CFG]) == 2
     assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("command", ["trace", "report"])
+def test_trace_and_report_are_ported(command, capsys, tmp_path):
+    """``trace`` and ``report`` left ``NOT_PORTED``: each runs its module's
+    ``main`` (usage exit 2 without a file, 1 on a file with nothing to
+    assemble or a schema problem under ``--strict``), never "not ported"."""
+    assert command not in app.NOT_PORTED
+    assert app.main([command]) == 2
+    bad = tmp_path / "m.jsonl"
+    bad.write_text('{"step": 1, "loss": NaN, "ts": 1.0}\n')
+    assert app.main([command, str(bad), *(["--strict"] if command == "report" else [])]) == 1
+    assert "not ported" not in capsys.readouterr().err
 
 
 def test_finetune_vlm_is_not_ported(capsys):
@@ -161,7 +174,7 @@ def test_finetune_without_cuda_raises():
         ("--distributed_guard.sync_timeout_s=600", "distributed_guard"),
         ("--metrics_server.port=9100", "metrics_server"),
         ("--fault_tolerance.emergency_checkpoint=false", "fault_tolerance"),
-        ("--fault_tolerance.on_nonfinite=rollback", "on_nonfinite"),
+        ("--fault_tolerance.on_nonfinite=retry", "on_nonfinite"),
         ("--data.prefetch.depth=2", "prefetch"),
         ("--generation.tokenizer=meta-llama/Meta-Llama-3-8B", "generation.tokenizer"),
         ("--validation_dataset.seq_length=8", "validation_dataset"),

@@ -36,7 +36,7 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_sources_import_neither_jax_nor_the_jax_package():
-    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_grouped_ab.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "chip_grouped_ab.py", "chip_serving_ab.py")]
     for root, _, names in os.walk(os.path.join(REPO, "automodel_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     offenders = {}
