@@ -1,6 +1,6 @@
-"""Batch collation, port of ``default_collater`` (:30) and
-``stack_microbatches`` (:159) of ``automodel_tpu/data/collators.py``, at the
-numpy level. The collator emits already-shifted labels (labels[t] is the
+"""Batch collation, port of ``default_collater`` (:30), ``packed_collater``
+(:65) and ``stack_microbatches`` (:159) of
+``automodel_tpu/data/collators.py``, at the numpy level. The collator emits already-shifted labels (labels[t] is the
 target of position t, ``IGNORE_INDEX`` on padding, prompt and the final
 position), so model and loss never shift."""
 
@@ -49,6 +49,32 @@ def default_collater(
         "input_ids": input_ids,
         "labels": labels,
         "position_ids": position_ids,
+        "num_label_tokens": int((labels != IGNORE_INDEX).sum()),
+    }
+
+
+def packed_collater(
+    examples: Iterable[dict[str, Any]],
+    pad_token_id: int = 0,
+) -> dict[str, Any]:
+    """Collate pre-packed examples (data/packed.py): each example already
+    carries input_ids/labels/position_ids/segment_ids of equal length.
+    Labels shift within a segment; the last position of a segment (whose
+    next token starts another document) gets ``IGNORE_INDEX``."""
+    examples = list(examples)
+    input_ids = np.stack([np.asarray(e["input_ids"], np.int32) for e in examples])
+    raw_labels = np.stack([np.asarray(e["labels"], np.int32) for e in examples])
+    segment_ids = np.stack([np.asarray(e["segment_ids"], np.int32) for e in examples])
+    position_ids = np.stack([np.asarray(e["position_ids"], np.int32) for e in examples])
+    labels = np.full_like(raw_labels, IGNORE_INDEX)
+    labels[:, :-1] = raw_labels[:, 1:]
+    same_seg = segment_ids[:, :-1] == segment_ids[:, 1:]
+    labels[:, :-1] = np.where(same_seg, labels[:, :-1], IGNORE_INDEX)
+    return {
+        "input_ids": input_ids,
+        "labels": labels,
+        "position_ids": position_ids,
+        "segment_ids": segment_ids,
         "num_label_tokens": int((labels != IGNORE_INDEX).sum()),
     }
 

@@ -6,8 +6,9 @@ and ``main`` of ``automodel_tpu/recipes/benchmark.py``.
 It reuses the training recipe's setup and step (recipes/train_ft.py) and
 adds a ``benchmark:`` section: ``warmup_steps`` (default 3),
 ``measure_steps`` (default 10) and ``output_json``. One batch is taken
-from the step scheduler and placed on the device; the warmup steps run
-and end in a synchronise; then each measured step is timed as ``step``,
+from the step scheduler and placed on the device (popped from the
+prefetch pipeline under ``data.prefetch``, whose producers are then
+joined); the warmup steps run and end in a synchronise; then each measured step is timed as ``step``,
 ``dispatch`` (until ``train_step`` returns) and ``device`` (the
 synchronise after it), with one JSONL row a step (``bench_step``,
 ``step_time_s``, ``ts``). The result holds the JAX recipe's keys:
@@ -59,7 +60,6 @@ from typing import Any
 
 import numpy as np
 
-from automodel_tpu_torch.data.collators import stack_microbatches
 from automodel_tpu_torch.generation.engine import GenerationConfig
 from automodel_tpu_torch.recipes.train_ft import READ_SECTIONS, TrainFinetuneRecipeForNextTokenPrediction, _plain
 from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
@@ -108,9 +108,12 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
         measure = int(bcfg.get("measure_steps", 10))
         timers = Timers()
 
-        group = next(iter(self.step_scheduler))
-        stacked = stack_microbatches(group)
-        batch = self._place(stacked)
+        try:
+            # a queue pop under data.prefetch (the pipeline stacked and placed
+            # the group), else collate, stack and copy (JAX :64-70)
+            stacked, batch, _ = self._next_batch(iter(self.step_scheduler))
+        finally:
+            self._close_prefetch()
         tokens_per_step = int(np.prod(stacked["input_ids"].shape))
 
         state = self.state

@@ -8,8 +8,11 @@ save and restore :785-864, ``run_validation`` :1389).
 Sections read: ``seed``, ``device`` (``cuda`` unless ``cpu``), ``model``
 (``hf_config`` + ``backend``, random weights from the seed, or
 ``pretrained_model_name_or_path``, a local HF directory), ``dataset``
-(``MockSFTDataset``), ``dataloader``, ``validation_dataset`` and
-``validation_dataloader`` (default: ``dataloader``), ``step_scheduler``
+(a ``_target_``: ``MockSFTDataset``, ``MegatronPretraining``,
+``NanogptDataset``, ``BlendedNanogptDataset``, ...), ``dataloader``
+(``global_batch_size``, ``shuffle``, ``drop_last``, ``infinite``),
+``validation_dataset`` and ``validation_dataloader`` (default:
+``dataloader``), ``data`` (``prefetch``, below), ``step_scheduler``
 (``ckpt_every_steps`` and ``val_every_steps`` among its keys),
 ``optimizer``, ``loss_fn``, ``checkpoint``, ``logging.metrics_path``
 (default ``<output_dir>/train_metrics.jsonl``),
@@ -42,18 +45,33 @@ KV-cache ``GenerationEngine``, and logs ``{"event": "generation",
 model without a KV-cache decode path, or ``enabled: false``, records the
 reason instead (the benchmark's decode leg reports it).
 
+``data: {prefetch: {depth, collate_workers}}`` (JAX :260-290) wraps the
+train and validation loaders in ``data/prefetch.PrefetchingLoader`` before
+the scheduler is built: collate threads and a producer thread stack each
+grad-acc group and copy it to the device ahead of the step
+(``DevicePlacer``), and the loop pops it. The checkpointed cursor is the
+consumption cursor, the rollback's ``seek`` flushes the run-ahead, and the
+producers are joined at loop exit, normal or not (``_close_prefetch``).
+Prefetch on and off give the same batches and losses bit for bit.
+
 One log record per ``log_every_steps`` carries
 ``loss``, ``grad_norm``, ``lr``, ``num_label_tokens``, ``step``,
-``step_time_s`` and ``tps``; an MoE model's steps add ``moe_aux_loss``,
-``expert_load_imbalance`` and ``expert_load_imbalance_per_layer`` (a JSON
-array), and its ``post_step_fn`` (aux-free router-bias balancing) runs
-after each applied update.
+``step_time_s``, ``tps`` and ``host_input_wait_s`` (the host's seconds a
+step spent getting the next batch: collate, stack and copy when sync, a
+queue pop when prefetched; not on the first step's record), with
+``prefetch_depth`` (batches ready in the queue) when prefetching; an MoE
+model's steps add ``moe_aux_loss``, ``expert_load_imbalance`` and
+``expert_load_imbalance_per_layer`` (a JSON array), and its
+``post_step_fn`` (aux-free router-bias balancing) runs after each applied
+update.
 
 Sections the port does not run are refused with a ``ValueError`` naming
 them, never ignored: ``peft``, ``qat``, ``telemetry``, ``profiling``,
-``distributed_guard``, ``metrics_server``, ``data`` (prefetch),
-``fault_injection``, any other ``fault_tolerance`` key, and any
-``distributed`` degree other than 1.
+``distributed_guard``, ``metrics_server``, ``fault_injection``, any other
+``fault_tolerance`` key, a ``data`` key other than ``prefetch`` (an unknown
+``data.prefetch`` key raises JAX's ``TypeError``), and any ``distributed``
+degree other than 1. SIGTERM's emergency save and its prefetch drain (JAX
+:881-911) are not ported.
 """
 
 from __future__ import annotations
@@ -69,6 +87,7 @@ import torch
 from automodel_tpu_torch.checkpoint.checkpointer import Checkpointer, CheckpointingConfig
 from automodel_tpu_torch.data.collators import stack_microbatches
 from automodel_tpu_torch.data.loader import DataLoader
+from automodel_tpu_torch.data.prefetch import DevicePlacer, PrefetchConfig, PrefetchingLoader, PreparedBatch
 from automodel_tpu_torch.config.loader import ConfigNode
 from automodel_tpu_torch.device import resolve_device
 from automodel_tpu_torch.generation.engine import (
@@ -93,7 +112,7 @@ logger = logging.getLogger(__name__)
 READ_SECTIONS = (
     "seed", "device", "output_dir", "model", "dataset", "dataloader", "validation_dataset",
     "validation_dataloader", "step_scheduler", "optimizer", "loss_fn", "logging", "checkpoint",
-    "fault_tolerance", "distributed", "generation",
+    "fault_tolerance", "distributed", "generation", "data",
 )
 DEGREES = ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep")
 NONFINITE_POLICIES = ("raise", "skip", "rollback")
@@ -132,6 +151,11 @@ def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS) -> None:
     other = {k: v for k, v in dist.items() if k not in DEGREES or v not in (None, 1)}
     if other:
         _refuse(f"distributed {other}", "running on more than one device")
+    data = dict(_plain(cfg.get("data", None)) or {})
+    other = sorted(k for k in data if k != "prefetch")
+    if other:
+        _refuse(f"data ({', '.join(other)})", "a data key other than prefetch")
+    PrefetchConfig.from_data_section(data)
     log_cfg = dict(_plain(cfg.get("logging", None)) or {})
     log_cfg.pop("metrics_path", None)
     if log_cfg:
@@ -209,6 +233,23 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 build_dataset(cfg.validation_dataset, "validation_dataset"), seed=seed, **vdl
             )
         scfg = dict(_plain(cfg.get("step_scheduler", None)) or {})
+        # the input pipeline, wrapped before the scheduler is built (JAX :260-290)
+        self._placer = DevicePlacer(self.device)
+        self.prefetch_config = PrefetchConfig.from_data_section(_plain(cfg.get("data", None)))
+        if self.prefetch_config.enabled:
+            self.dataloader = PrefetchingLoader(
+                self.dataloader, self.prefetch_config, prepare=self._prepare_group, place=self._placer,
+                group_size=int(scfg.get("grad_acc_steps", 1)),
+            )
+            if self.val_dataloader is not None:
+                self.val_dataloader = PrefetchingLoader(
+                    self.val_dataloader, self.prefetch_config, prepare=self._prepare_group, place=self._placer,
+                    group_size=1,
+                )
+            logger.info(
+                "prefetch: depth=%d collate_workers=%d",
+                self.prefetch_config.depth, self.prefetch_config.collate_workers,
+            )
         self.step_scheduler = StepScheduler(dataloader=self.dataloader, **scfg)
 
         out_dir = Path(cfg.get("output_dir", None) or "runs/torch_finetune")
@@ -241,13 +282,45 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         loss_name = lcfg.pop("name", "masked_ce")
         return make_causal_lm_loss(self.model, loss=loss_name, **lcfg)
 
+    def _prepare_group(self, group: list) -> tuple[dict, int]:
+        """One grad-acc group of collated microbatches → (the [A]-stacked
+        host batch, its token count over every ``*input_ids`` leaf). The
+        sync loop, validation and the prefetch producer all go through
+        here, so both paths build the same batches (JAX :723-767; the
+        port runs no zigzag context parallelism, so JAX's validation
+        variant is this one)."""
+        stacked = stack_microbatches(group)
+        n_tokens = int(sum(v.size for k, v in stacked.items() if k.endswith("input_ids") and isinstance(v, np.ndarray)))
+        return stacked, n_tokens
+
     def _place(self, stacked: dict) -> dict:
-        """[A]-stacked numpy batch → tensors on the training device."""
+        """[A]-stacked numpy batch → tensors on the training device, on the
+        sync path (JAX's ``_place_group``; the prefetch producer places
+        through ``self._placer``)."""
         return {
             k: torch.from_numpy(v).to(self.device, non_blocking=True)
             for k, v in stacked.items()
             if isinstance(v, np.ndarray)
         }
+
+    def _next_batch(self, it) -> Optional[tuple]:
+        """The next step's (host batch, device batch, tokens), or None at
+        the end: a queue pop when prefetched, else collate, stack and copy."""
+        try:
+            group = next(it)
+        except StopIteration:
+            return None
+        if isinstance(group, PreparedBatch):
+            return group.host, self._placer.adopt(group.device), group.n_tokens
+        stacked, n_tokens = self._prepare_group(group)
+        return stacked, self._place(stacked), n_tokens
+
+    def _close_prefetch(self) -> None:
+        """Join the prefetch producers and drop their run-ahead (idempotent;
+        the consumption cursor survives for the end-of-loop save)."""
+        for dl in (self.dataloader, self.val_dataloader):
+            if isinstance(dl, PrefetchingLoader):
+                dl.close()
 
     # -- eval generation ----------------------------------------------------
     def _setup_eval_generation(self, gcfg: dict) -> None:
@@ -359,7 +432,10 @@ class TrainFinetuneRecipeForNextTokenPrediction:
     # -- loop ---------------------------------------------------------------
     def run_train_validation_loop(self) -> dict:
         try:
-            last = self._loop_with_rollback()
+            try:
+                last = self._loop_with_rollback()
+            finally:
+                self._close_prefetch()
             if self.checkpointer is not None:
                 # drain and commit an in-flight save, then skip the end-of-loop
                 # save when it already covers this step: save() begins by
@@ -413,6 +489,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 steps_left -= in_epoch
                 epoch += 1
                 pos = 0
+        # on the prefetch pipeline, seek flushes the run-ahead and restarts
+        # fetching at this cursor, so no stale batch reaches a step
         dl.seek(epoch, pos)
         # the skipped window may hold epoch edges the scheduler never sees
         self.step_scheduler.epoch = epoch
@@ -438,14 +516,21 @@ class TrainFinetuneRecipeForNextTokenPrediction:
     def _loop(self) -> dict:
         last: dict = {}
         tokens_window = steps_window = 0
+        input_wait_window = 0.0
         first = True
         t_window = time.perf_counter()
-        for group in self.step_scheduler:
-            stacked = stack_microbatches(group)
-            metrics = self.train_step(self.state, self._place(stacked))
+        it = iter(self.step_scheduler)
+        while True:
+            t_input = time.perf_counter()
+            got = self._next_batch(it)
+            if got is None:
+                break
+            stacked, batch, n_tokens = got
+            input_wait_window += time.perf_counter() - t_input
+            metrics = self.train_step(self.state, batch)
             step = self.step_scheduler.step
             self._check_nonfinite(metrics, step)
-            tokens_window += int(stacked["input_ids"].size)
+            tokens_window += n_tokens
             steps_window += 1
             if first or self.step_scheduler.is_log_step:
                 rec = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
@@ -457,7 +542,10 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                     # JAX step's compile does in compile_time_s
                     rec["first_step_s"] = dt
                 else:
-                    rec.update(steps_spanned=steps_window, step_time_s=dt / steps_window, tps=tokens_window / dt)
+                    rec.update(steps_spanned=steps_window, step_time_s=dt / steps_window, tps=tokens_window / dt,
+                               host_input_wait_s=input_wait_window / steps_window)
+                    if isinstance(self.dataloader, PrefetchingLoader):
+                        rec["prefetch_depth"] = self.dataloader.queue_depth
                 if first and not self.step_scheduler.is_log_step:
                     logger.info("first step %.3fs", dt)
                 else:
@@ -465,6 +553,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                     last = rec
                 first = False
                 tokens_window = steps_window = 0
+                input_wait_window = 0.0
                 t_window = time.perf_counter()
             boundary = False
             gen_active = self._gen_engine is not None and self._gen_prompt_ids is not None
@@ -480,16 +569,24 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             if boundary:
                 # validation, sampling and save time must not read as step time
                 tokens_window = steps_window = 0
+                input_wait_window = 0.0
                 t_window = time.perf_counter()
         return last
 
     def run_validation(self) -> dict:
         tot_loss, tot_n = 0.0, 0
         for vb in self.val_dataloader:
-            out = self.eval_step(self.state, self._place(stack_microbatches([vb])))
+            if isinstance(vb, PreparedBatch):
+                batch = self._placer.adopt(vb.device)
+            else:
+                batch = self._place(self._prepare_group([vb])[0])
+            out = self.eval_step(self.state, batch)
             tot_loss += float(out["loss_sum"])
             tot_n += int(out["num_label_tokens"])
         val_loss = tot_loss / max(tot_n, 1)
+        if isinstance(self.val_dataloader, PrefetchingLoader):
+            # no run-ahead of the next pass held on the device until then
+            self.val_dataloader.suspend()
         if val_loss == val_loss:  # a NaN eval must never look best
             self._last_val_metric = val_loss
         return {"val_loss": val_loss, "val_tokens": tot_n}

@@ -29,21 +29,27 @@ class StepScheduler:
         self.step = 0  # optimizer steps taken
         self.epoch = 0
 
-    def __iter__(self) -> Iterator[list]:
+    def __iter__(self) -> Iterator[Any]:
         """One item per optimizer step: a list of ``grad_acc_steps``
-        microbatches. A trailing partial group of an epoch is dropped."""
+        microbatches (a trailing partial group of an epoch is dropped), or,
+        when the dataloader is the prefetch pipeline (``yields_groups``,
+        data/prefetch.py), the ``PreparedBatch`` it yields as it is: the
+        pipeline groups and drops the tail in its producer thread. The
+        epoch budget and ``max_steps`` stay here on both paths."""
+        grouped = bool(getattr(self.dataloader, "yields_groups", False))
         while self.epoch < self.num_epochs:
             group: list = []
             for batch in self.dataloader:
-                group.append(batch)
-                if len(group) < self.grad_acc_steps:
-                    continue
+                if not grouped:
+                    group.append(batch)
+                    if len(group) < self.grad_acc_steps:
+                        continue
                 if self.max_steps is not None and self.step >= self.max_steps:
                     return
                 # the step number of the optimizer step being taken, as
                 # TrainState.step reads after it
                 self.step += 1
-                yield group
+                yield batch if grouped else group
                 group = []
             self.epoch += 1
 

@@ -272,10 +272,42 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    checkpoints every 2 steps, 4 steps, a non-finite flag planted on step
    3's metrics: the run restores step 2, ends at step 4 with
    ``rollbacks_total`` 1 and the loader at batch 6 of its epoch, where
-   JAX's arithmetic puts it (``tests/test_resilience.py:876-903``).
+   JAX's arithmetic puts it (``tests/test_resilience.py:876-903``);
+24. the data path: (a) a Megatron corpus of 2^27 uint32 tokens (512 MiB;
+   documents of log-normal lengths, median 1536, 16-16,384 tokens, ids
+   uniform over Llama-3's 128,256) and three nanoGPT sources of two
+   2^23-token shards each, written by the port's writer
+   (``data/synthetic.py``) from seeds, sizes and seconds printed; the
+   index built by the native helpers (``g++``), which must have built and
+   run; (b) ``configs/pretrain_llama3_8b_megatron.yaml`` as a dict,
+   Llama-3-8B at 32 layers on that corpus through the ``pretrain``
+   recipe class, 6 steps of 4096 tokens three times: sync, with
+   ``data.prefetch`` (depth 2, 2 collate workers), sync again. Every batch
+   read back from the card after its step equals the host's collate and
+   the sync run's bit for bit; the prefetched losses follow phase 17's
+   rule against the two sync runs; the flash forward launched 32 x 6 x 2
+   times a run (remat), dq and dkv 32 x 6; the peak under 79 GiB; step
+   time, tokens/s, MFU on 989 TFLOP/s, the peak, ``host_input_wait_s`` and
+   ``prefetch_depth`` printed for each run; (c) the corpus's documents
+   packed by ``pack_sequences`` into a 4096-token row of at least 3
+   documents and collated by ``packed_collater``: one step's loss and
+   grad norm at Llama-3-8B widths cut to 8 layers with ``attn: flash``
+   (the kernels with segment ids, 8 launches each) against ``attn: sdpa``
+   (the segment mask, no launch) within phase 7's limits; the flash
+   kernels on that row against their plain versions (phase 3's limits),
+   timed beside the bound of the row's live pairs and SDPA with the row's
+   mask; (d) the blended nanoGPT sources (weights 1, 2, 1) at Llama-3-8B
+   widths cut to 2 layers with prefetch on: two unbroken 4-step runs, a
+   run saved at step 2 whose next window lies in a source's second shard,
+   and a fresh recipe resumed from it whose steps 3-4 (batches and losses)
+   must equal the unbroken run's under phase 17's rule; its step 4 is
+   flagged non-finite once under ``on_nonfinite: rollback``: the run
+   restores step 2, retrains steps 3-4 on the batches past the failed
+   window and ends with the loader at batch 7, where JAX's arithmetic puts
+   it. The corpora and checkpoints are deleted.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 23 last. After the build the
+phase 3b right after phase 3, phases 15 to 24 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -1116,9 +1148,10 @@ def grad_row_err(out, ref) -> float:
     return float((d / torch.maximum(r, floor).clamp_min(1e-30)).max())
 
 
-def flash_case(torch, dev, S=4096, H=128, B=1, N=32, Nkv=8, sharp=1.0, docs=0, seed=0):
+def flash_case(torch, dev, S=4096, H=128, B=1, N=32, Nkv=8, sharp=1.0, docs=0, seed=0, seg_ids=None):
     """bf16 q/k/v/dO from a seeded generator on the card, positions 0..S-1,
-    and with ``docs`` packed documents of ragged lengths segment ids."""
+    and with ``docs`` packed documents of ragged lengths segment ids (or
+    the given ``seg_ids`` [B, S], a packed row's)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q = (torch.randn((B, S, N, H), generator=g, device=dev) * sharp).to(torch.bfloat16)
     k, v = (torch.randn((B, S, Nkv, H), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
@@ -1128,6 +1161,8 @@ def flash_case(torch, dev, S=4096, H=128, B=1, N=32, Nkv=8, sharp=1.0, docs=0, s
     if docs:
         cuts = torch.stack([torch.randperm(S - 1, generator=g, device=dev)[: docs - 1] + 1 for _ in range(B)])
         seg = (pos[None, :, None] >= cuts.sort(dim=1).values[:, None, :]).sum(-1).to(torch.int32)
+    if seg_ids is not None:
+        seg = seg_ids.to(device=dev, dtype=torch.int32)
     return q, k, v, do, pos, seg
 
 
@@ -1187,6 +1222,18 @@ def flash_library_ms(torch, q, k, v, do, causal: bool, scale=None) -> tuple[floa
 
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     kw = dict(is_causal=causal, enable_gqa=True, scale=scale)
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    return _library_times(lambda *a: F.scaled_dot_product_attention(*a, **kw), leaves, dot)
+
+
+def sdpa_mask_library_ms(torch, q, k, v, do, mask) -> tuple[float, float, float]:
+    """``scaled_dot_product_attention`` with ``mask`` [B, S, S] (True =
+    attend) as its boolean ``attn_mask``: forward, forward+backward and the
+    backward alone (a yardstick only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    kw = dict(attn_mask=mask[:, None], enable_gqa=True)
     leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
     return _library_times(lambda *a: F.scaled_dot_product_attention(*a, **kw), leaves, dot)
 
@@ -1267,7 +1314,7 @@ def time_flash(torch, rf, label: str, args: tuple, kw: dict, bound: dict, before
 
 
 FLASH_CASE_DEFAULTS = dict(main=False, window=None, causal=True, S=4096, H=128, N=32, Nkv=8, docs=0, sharp=1.0,
-                           cap=None, scale=None, fault=False)
+                           cap=None, scale=None, fault=False, seg_ids=None)
 
 
 def flash_check(torch, dev, c: dict, seed: int) -> dict:
@@ -1281,7 +1328,7 @@ def flash_check(torch, dev, c: dict, seed: int) -> dict:
 
     c = dict(FLASH_CASE_DEFAULTS, **c)
     q, k, v, do, pos, seg = flash_case(torch, dev, S=c["S"], H=c["H"], N=c["N"], Nkv=c["Nkv"], sharp=c["sharp"],
-                                       docs=c["docs"], seed=seed)
+                                       docs=c["docs"], seed=seed, seg_ids=c["seg_ids"])
     scale = c["scale"] or c["H"] ** -0.5
     kw = dict(causal=c["causal"], window=c["window"], scale=scale, soft_cap=c["cap"])
     out, lse = rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw)
@@ -1298,6 +1345,10 @@ def flash_check(torch, dev, c: dict, seed: int) -> dict:
     if not all(bool(torch.isfinite(t.float()).all()) for t in (*got, lse)):
         raise RuntimeError(f"flash kernels produced non-finite values in case {c['name']}")
     mask = rf._mask(pos, pos, seg, seg, c["causal"], c["window"])
+    if c["seg_ids"] is not None:
+        # a packed row's segment 0 is padding: its rows are computed and
+        # never read, so the bound counts the documents' pairs alone
+        mask = mask & (seg > 0)[:, :, None]
     pairs = int(mask.sum()) * (q.shape[0] if seg is None else 1)
     row = dict(
         case=c["name"], S=c["S"], H=c["H"], N=c["N"], Nkv=c["Nkv"], cap=c["cap"], live_pairs=pairs,
@@ -1328,7 +1379,10 @@ def flash_check(torch, dev, c: dict, seed: int) -> dict:
     if c["main"]:
         row["timed"] = time_flash(torch, rf, c["name"], bargs, kw, flash_bound(q, k, pairs),
                                   K1_MMA_SYNC_MS.get(c["name"]))
-        if c["cap"] is None:
+        if seg is not None:
+            # packed documents: SDPA with the same mask as a boolean attn_mask
+            lib = sdpa_mask_library_ms(torch, q, k, v, do, rf._mask(pos, pos, seg, seg, c["causal"], c["window"]))
+        elif c["cap"] is None:
             lib = flash_library_ms(torch, q, k, v, do, c["causal"])
         else:
             # no SDPA call computes the cap: flex_attention with a tanh
@@ -1558,16 +1612,18 @@ def run_dense_training(torch, cfg: dict, label: str) -> dict:
 # -- phase 7: one step's loss and grad norm, flash against sdpa ---------------
 
 
-def phase_flash_vs_sdpa(torch, cfg=None, label: str = "flash vs sdpa") -> dict:
+def phase_flash_vs_sdpa(torch, cfg=None, label: str = "flash vs sdpa", mb: dict | None = None) -> dict:
     """The training step's loss and fp32 grad norm (one microbatch of the
-    config's tokens, no update; by default the Llama training config) from
-    the same weights and batch, with the attention backend switched between
-    the kernels and the plain ``sdpa``."""
+    config's tokens, or ``mb``, a collated host batch; no update; by default
+    the Llama training config) from the same weights and batch, with the
+    attention backend switched between the kernels and the plain ``sdpa``.
+    The kernels' launches in each pass are counted (``launches``)."""
     import dataclasses
 
     from automodel_tpu_torch.data.collators import default_collater
     from automodel_tpu_torch.data.sft import MockSFTDataset
     from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+    from automodel_tpu_torch.ops import ring_flash as rf
     from automodel_tpu_torch.optim.builders import global_norm_fp32
     from automodel_tpu_torch.training.train_step import make_causal_lm_loss
 
@@ -1576,16 +1632,22 @@ def phase_flash_vs_sdpa(torch, cfg=None, label: str = "flash vs sdpa") -> dict:
     auto = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True)
     model = auto.model
     params = list(model.parameters())
-    ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
-    mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[7]]).items() if hasattr(v, "shape")}
+    if mb is None:
+        ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
+        mb = default_collater([ds[7]])
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in mb.items() if hasattr(v, "shape")}
     out = {}
+    kernels = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
     for attn in ("flash", "sdpa"):
         model.backend = dataclasses.replace(model.backend, attn=attn)
+        for f in kernels:
+            f.launches = 0
         loss_sum, n = make_causal_lm_loss(model, loss="fused_linear_ce")(mb)
         grads = torch.autograd.grad(loss_sum.float(), params)
         denom = n.clamp_min(1).float()
         norm = global_norm_fp32(g.float() / denom for g in grads)
-        out[attn] = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm))
+        out[attn] = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm),
+                         launches=dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels))))
         del grads, loss_sum
         torch.cuda.empty_cache()
     f, s = out["flash"], out["sdpa"]
@@ -3566,6 +3628,37 @@ OPT_MAX_BF16_STEPS = 2
 ROLLBACK_STEPS = 4
 ROLLBACK_FAIL_STEP = 3
 
+# phase 24: configs/pretrain_llama3_8b_megatron.yaml as a dict
+# (tests/test_torch_data_megatron.py checks the two agree): Llama-3-8B at
+# its published widths and 32 layers on a Megatron corpus, prefetch on
+PRETRAIN_LLAMA3_8B_MEGATRON = dict(
+    seed=42,
+    model=dict(
+        hf_config=dict(LLAMA3_8B),
+        backend=dict(attn="flash", param_dtype="bfloat16", compute_dtype="bfloat16", remat="full"),
+    ),
+    dataset=dict(_target_="automodel_tpu.data.megatron.gpt_dataset.MegatronPretraining",
+                 paths="runs/megatron_llama3/corpus", seq_length=4096),
+    dataloader=dict(global_batch_size=1),
+    data=dict(prefetch=dict(depth=2, collate_workers=2)),
+    step_scheduler=dict(grad_acc_steps=1, num_epochs=1, log_every_steps=10),
+    optimizer=dict(name="adamw", lr=1e-5, weight_decay=0.01, betas=[0.9, 0.95], grad_clip_norm=1.0,
+                   moments_dtype="param", lr_schedule=dict(style="cosine", warmup_steps=100, decay_steps=2000)),
+    loss_fn=dict(name="fused_linear_ce"),
+    logging=dict(metrics_path="runs/torch_pretrain_llama3_8b_megatron/train_metrics.jsonl"),
+)
+DATA_CORPUS_TOKENS = 2**27  # 512 MiB of uint32 tokens
+DATA_DOC_MEDIAN = 1536  # log-normal document lengths, clipped to 16-16,384
+DATA_NANOGPT_SOURCES = 3
+DATA_NANOGPT_SHARDS = 2
+DATA_NANOGPT_SHARD_TOKENS = 2**23
+DATA_NANOGPT_WEIGHTS = (1.0, 2.0, 1.0)
+DATA_STEPS = 6
+DATA_PEAK_GIB = 79.0
+DATA_PACKED_LAYERS = 8
+DATA_RESUME_LAYERS = 2
+DATA_SAVE_STEP = 2
+
 # (a)/(b): a 512-block pool (1 GiB bf16) holds about three groups of a
 # 2048-token shared prefix (128 blocks) + a 64-token suffix + 32 new tokens
 FRONT_POOL_BLOCKS = 512
@@ -4595,9 +4688,397 @@ def phase_training_rest(torch) -> dict:
     return out
 
 
+# -- phase 24: the data path ---------------------------------------------------
+
+
+def data_root():
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    return here / "runs" / "chip_smoke" / f"data_{time.time_ns()}"
+
+
+def write_corpora(root) -> dict:
+    """Phase 24 (a): the Megatron corpus and the three nanoGPT sources,
+    written by the port's writer from seeds as uint32, and the Megatron
+    index built by the native helpers."""
+    from automodel_tpu_torch.data import synthetic
+    from automodel_tpu_torch.data.megatron import helpers
+    from automodel_tpu_torch.data.megatron.gpt_dataset import MegatronPretraining
+
+    vocab = LLAMA3_8B["vocab_size"]
+    prefix = root / "megatron" / "corpus"
+    megatron = synthetic.write_megatron_corpus(prefix, DATA_CORPUS_TOKENS, vocab, seed=0, median=DATA_DOC_MEDIAN)
+    sources = [root / "nanogpt" / f"source_{s}" for s in range(DATA_NANOGPT_SOURCES)]
+    nanogpt = [synthetic.write_nanogpt_shards(p, DATA_NANOGPT_SHARDS, DATA_NANOGPT_SHARD_TOKENS, vocab, seed=100 + i)
+               for i, p in enumerate(sources)]
+    helpers.native_calls.clear()
+    t0 = time.perf_counter()
+    native = helpers.native_available()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = MegatronPretraining(str(prefix), seq_length=PRETRAIN_LLAMA3_8B_MEGATRON["dataset"]["seq_length"])
+    index_s = time.perf_counter() - t0
+    calls = dict(helpers.native_calls)
+    out = dict(megatron=megatron, nanogpt=nanogpt, samples=len(ds), helpers_build_s=build_s, index_s=index_s,
+               native=native, native_calls=calls, library=str(helpers.library_path().name))
+    print(f"phase 24 (a) corpora: {json.dumps(out)}", flush=True)
+    if not native or calls.get("build_sample_idx", 0) < 1:
+        raise RuntimeError(f"24 (a): the native index helpers did not build or did not run: {out}")
+    if (vocab > 2**16 and megatron["dtype"] != "uint32") or megatron["tokens"] != DATA_CORPUS_TOKENS:
+        raise RuntimeError(f"24 (a): the Megatron corpus is {megatron}")
+    return dict(out, prefix=prefix, sources=sources)
+
+
+def reading_back(torch, recipe) -> list:
+    """Wrap ``recipe.train_step`` so that each step's batch, as it reached
+    the card, is read back to the host after the step."""
+    seen, step = [], recipe.train_step
+
+    def wrapped(state, batch):
+        metrics = step(state, batch)
+        seen.append({k: v.detach().to("cpu", copy=True) for k, v in batch.items()})
+        return metrics
+
+    recipe.train_step = wrapped
+    return seen
+
+
+def same_batches(torch, a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+                                    for x, y in zip(a, b))
+
+
+def host_batches(torch, recipe, start: int, n: int) -> list:
+    """Batches ``start..start+n-1`` of epoch 0 collated and stacked on the
+    host, as the sync path builds them."""
+    inner = getattr(recipe.dataloader, "loader", recipe.dataloader)
+    return [{k: torch.from_numpy(v) for k, v in recipe._prepare_group([inner.batch_for(0, i)])[0].items()
+             if hasattr(v, "shape")} for i in range(start, start + n)]
+
+
+def same_trajectory(a: dict, b: dict, c: dict, steps, label: str) -> dict:
+    """Phase 17's rule: run ``c`` must equal run ``a`` bit for bit where
+    ``a`` and ``b`` (two runs of one config) agree bit for bit, else lie
+    within 4x their step-1 spread. Rows by step → the reading."""
+    keys = ("loss", "grad_norm")
+    first = min(steps)
+    bitwise = all(a[s][k] == b[s][k] for s in steps for k in keys)
+    spread = max(abs(a[first][k] - b[first][k]) / abs(a[first][k]) for k in keys)
+    errs = {k: max(abs(c[s][k] - a[s][k]) / abs(a[s][k]) for s in steps) for k in keys}
+    out = dict(reference_bitwise=bitwise, step1_rel_spread=spread, rel_errs=errs,
+               equal=all(c[s][k] == a[s][k] for s in steps for k in keys))
+    if (bitwise and not out["equal"]) or (not bitwise and max(errs.values()) > 4 * spread):
+        raise RuntimeError(f"{label}: steps {list(steps)} off the reference run: {out}")
+    return out
+
+
+def megatron_config(prefix, prefetch: bool, tag: str) -> dict:
+    cfg = json.loads(json.dumps(PRETRAIN_LLAMA3_8B_MEGATRON))
+    cfg["device"] = TRAIN_DEVICE
+    cfg["dataset"]["paths"] = str(prefix)
+    cfg["step_scheduler"].update(max_steps=DATA_STEPS, log_every_steps=1)
+    cfg["logging"]["metrics_path"] = metrics_path(tag)
+    if not prefetch:
+        del cfg["data"]
+    return cfg
+
+
+def run_pretrain_megatron(torch, prefix, prefetch: bool, tag: str) -> dict:
+    """Phase 24 (b), one run: ``pretrain llm``'s recipe (as the CLI's entry
+    runs it) at 32 layers on the Megatron corpus, each batch read back."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+
+    cfg = megatron_config(prefix, prefetch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    seen = reading_back(torch, recipe)
+    kernels = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
+    # the main path's run: every count set to 0 just before, read just after
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    recipe.run_train_validation_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layers = cfg["model"]["hf_config"]["num_hidden_layers"]
+    acc = cfg["step_scheduler"]["grad_acc_steps"]
+    want = dict(fwd=2 * layers * acc * DATA_STEPS, dq=layers * acc * DATA_STEPS, dkv=layers * acc * DATA_STEPS)
+    if launches != want:
+        raise RuntimeError(f"24 (b) {tag}: flash launches {launches}, want {want} (remat: full runs the forward twice)")
+    rows = train_rows([json.loads(line) for line in open(cfg["logging"]["metrics_path"])])
+    steps = list(range(1, DATA_STEPS + 1))
+    if sorted(rows) != steps or any(not math.isfinite(rows[s]["loss"]) or rows[s]["nonfinite"] for s in steps):
+        raise RuntimeError(f"24 (b) {tag}: step rows {rows}")
+    if peak >= DATA_PEAK_GIB:
+        raise RuntimeError(f"24 (b) {tag}: peak {peak:.2f} GiB, want under {DATA_PEAK_GIB}")
+    host = host_batches(torch, recipe, 0, DATA_STEPS)
+    if not same_batches(torch, seen, host):
+        raise RuntimeError(f"24 (b) {tag}: a batch read back from the card differs from the host's collate")
+    seq = cfg["dataset"]["seq_length"]
+    n_params = sum(p.numel() for p in recipe.state.params)
+    embed = recipe.model.model.embed_tokens.weight.numel()
+    flops = 6 * (n_params - embed) * seq + attention_flops(cfg, seq)
+    step_s = statistics.median(rows[s]["step_time_s"] for s in steps[1:])
+    out = dict(prefetch=prefetch, wall_s=wall, step_ms=1e3 * step_s, tokens_per_s=seq / step_s,
+               mfu_on_989=flops / step_s / BF16_FLOPS, peak_mem_gib=peak, flash_launches=launches,
+               host_input_wait_s=[rows[s]["host_input_wait_s"] for s in steps[1:]],
+               prefetch_depth=[rows[s].get("prefetch_depth") for s in steps[1:]],
+               losses=[rows[s]["loss"] for s in steps], first_step_s=rows[1].get("first_step_s"))
+    print(f"phase 24 (b) pretrain llm, {tag}: {json.dumps(out)} | {card_line()}", flush=True)
+    del recipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, rows=rows, batches=seen)
+
+
+def phase_data_pretrain(torch, prefix) -> dict:
+    """Phase 24 (b): Llama-3-8B at 32 layers on the Megatron corpus, sync,
+    prefetched, sync: the batches and the losses held to the sync runs."""
+    sync_a = run_pretrain_megatron(torch, prefix, False, "megatron_sync_a")
+    pf = run_pretrain_megatron(torch, prefix, True, "megatron_prefetch")
+    sync_b = run_pretrain_megatron(torch, prefix, False, "megatron_sync_b")
+    if not (same_batches(torch, pf["batches"], sync_a["batches"])
+            and same_batches(torch, sync_b["batches"], sync_a["batches"])):
+        raise RuntimeError("24 (b): the prefetched run's batches differ from the sync run's")
+    rule = same_trajectory(sync_a["rows"], sync_b["rows"], pf["rows"], range(1, DATA_STEPS + 1), "24 (b) prefetch")
+    print(f"phase 24 (b) prefetch against sync: batches equal bit for bit, losses {json.dumps(rule)}", flush=True)
+    keep = ("step_ms", "tokens_per_s", "mfu_on_989", "peak_mem_gib", "host_input_wait_s", "prefetch_depth",
+            "flash_launches", "losses")
+    return dict(sync={k: sync_a[k] for k in keep}, sync_b={k: sync_b[k] for k in keep},
+                prefetch={k: pf[k] for k in keep}, rule=rule)
+
+
+def packed_row(prefix, seq: int):
+    """The first ``seq``-token row ``pack_sequences`` fills with at least
+    3 documents of the Megatron corpus, collated by ``packed_collater``."""
+    import numpy as np
+
+    from automodel_tpu_torch.data.collators import packed_collater
+    from automodel_tpu_torch.data.megatron.indexed_dataset import IndexedDataset
+    from automodel_tpu_torch.data.packed import pack_sequences
+
+    ds = IndexedDataset(prefix)
+    docs = ({"input_ids": np.asarray(ds[i], np.int32)} for i in range(len(ds)))
+    row = next(r for r in pack_sequences(docs, seq) if max(r["segment_ids"]) >= 3)
+    return packed_collater([row])
+
+
+def phase_data_packing(torch, dev, prefix) -> dict:
+    """Phase 24 (c): a packed row through K1's segment path, one step's
+    loss and grad norm at 8 layers flash against sdpa's segment mask, and
+    the kernels timed on the row beside the bound of its live pairs."""
+    import numpy as np
+
+    cfg = train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = DATA_PACKED_LAYERS
+    seq = cfg["dataset"]["seq_length"]
+    batch = packed_row(prefix, seq)
+    seg = batch["segment_ids"][0]
+    lengths = np.bincount(seg)[1:]
+    doc_pairs = int(sum(int(n) * (int(n) + 1) // 2 for n in lengths))
+    pad = int((seg == 0).sum())
+    step = phase_flash_vs_sdpa(torch, cfg, "24 (c) packed row, flash (segment ids) vs sdpa (segment mask)", mb=batch)
+    want = dict(fwd=DATA_PACKED_LAYERS, dq=DATA_PACKED_LAYERS, dkv=DATA_PACKED_LAYERS)
+    if step["flash"]["launches"] != want or any(step["sdpa"]["launches"].values()):
+        raise RuntimeError(f"24 (c): launches flash {step['flash']['launches']} (want {want}), "
+                           f"sdpa {step['sdpa']['launches']} (want none)")
+    seg_t = torch.from_numpy(batch["segment_ids"])
+    row = run_flash_cases(torch, dev, [dict(name="packed row", main=True, seg_ids=seg_t)], "flash packed row",
+                          seed0=240)["cases"][0]
+    if row["live_pairs"] != doc_pairs:
+        raise RuntimeError(f"24 (c): the kernels' live pairs {row['live_pairs']} are not the documents' {doc_pairs}")
+    out = dict(documents=len(lengths), doc_lengths=lengths.tolist(), pad_tokens=pad, live_pairs=doc_pairs,
+               label_tokens=batch["num_label_tokens"], step=step, kernels=row)
+    print(f"phase 24 (c) packing: {json.dumps({k: v for k, v in out.items() if k != 'kernels'})} | {card_line()}",
+          flush=True)
+    return out
+
+
+def nanogpt_config(sources, ds_seed: int, tag: str, max_steps: int, ckpt_dir=None, rollback: bool = False) -> dict:
+    """Phase 24 (d)'s config: Llama-3-8B widths cut to DATA_RESUME_LAYERS
+    layers on the blended nanoGPT sources, prefetch on, bf16 moments."""
+    from automodel_tpu_torch.data.synthetic import token_dtype
+
+    cfg = json.loads(json.dumps(SFT_LLAMA3_8B))
+    cfg["device"] = TRAIN_DEVICE
+    cfg["model"]["hf_config"]["num_hidden_layers"] = DATA_RESUME_LAYERS
+    cfg["dataset"] = dict(_target_="automodel_tpu.data.nanogpt.BlendedNanogptDataset",
+                          sources=[dict(paths=str(p), weight=w) for p, w in zip(sources, DATA_NANOGPT_WEIGHTS)],
+                          seq_length=cfg["dataset"]["seq_length"], seed=ds_seed,
+                          dtype=token_dtype(cfg["model"]["hf_config"]["vocab_size"]).name)
+    cfg["data"] = dict(PRETRAIN_LLAMA3_8B_MEGATRON["data"])
+    cfg["step_scheduler"].update(grad_acc_steps=1, max_steps=max_steps, log_every_steps=1)
+    cfg["optimizer"].update(lr=1e-4, lr_schedule=dict(style="constant"), moments_dtype="param")
+    cfg["logging"]["metrics_path"] = metrics_path(tag)
+    if ckpt_dir is not None:
+        cfg["checkpoint"] = dict(enabled=True, checkpoint_dir=str(ckpt_dir))
+        cfg["step_scheduler"]["ckpt_every_steps"] = DATA_SAVE_STEP
+    if rollback:
+        cfg["fault_tolerance"] = dict(on_nonfinite="rollback")
+    return cfg
+
+
+def second_shard_seed(sources, seq: int, loader_seed: int) -> tuple[int, dict]:
+    """The first blend seed whose window at step DATA_SAVE_STEP + 1 lies in
+    a source's second .bin shard → (seed, where that window lies)."""
+    import numpy as np
+
+    from automodel_tpu_torch.data.loader import DataLoader
+    from automodel_tpu_torch.data.nanogpt import BlendedNanogptDataset
+    from automodel_tpu_torch.data.synthetic import token_dtype
+
+    for seed in range(64):
+        ds = BlendedNanogptDataset([dict(paths=str(p), weight=w) for p, w in zip(sources, DATA_NANOGPT_WEIGHTS)],
+                                   seq_length=seq, seed=seed, dtype=token_dtype(LLAMA3_8B["vocab_size"]))
+        idx = int(DataLoader(ds, global_batch_size=1, seed=loader_seed)._epoch_order(0)[DATA_SAVE_STEP])
+        src, pos = int(ds._assignment[idx]), int(ds._position[idx])
+        d = ds.datasets[src]
+        pass_no, local = divmod(pos, len(d))
+        window = int(ds._window_order(src, pass_no)[local])
+        shard = int(np.searchsorted(d._cum, window, side="right") - 1)
+        if shard == 1:
+            return seed, dict(sample=idx, source=src, shard=shard, window=window, source_counts=ds.source_counts())
+    raise RuntimeError("24 (d): no blend seed under 64 puts the resumed step's window in a second shard")
+
+
+def phase_data_resume(torch, sources) -> dict:
+    """Phase 24 (d): the blended nanoGPT sources with prefetch on, resumed
+    mid-stream across a shard boundary, then a planned non-finite step
+    rolled back."""
+    import shutil
+
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+
+    seq = SFT_LLAMA3_8B["dataset"]["seq_length"]
+    ds_seed, where = second_shard_seed(sources, seq, SFT_LLAMA3_8B["seed"])
+    root = data_root()
+    last = DATA_SAVE_STEP + 2
+
+    def run(cfg, flaky_step=None):
+        recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+        recipe.setup()
+        fired = []
+        if flaky_step is not None:
+            step = recipe.train_step
+
+            def flaky(state, batch):
+                m = step(state, batch)
+                if m["step"] == flaky_step and not fired:
+                    # the flagged step logs no row: keep its own reading
+                    fired.append(dict(step=m["step"], loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+                    m = dict(m, nonfinite=torch.tensor(True, device=m["loss"].device))
+                return m
+
+            recipe.train_step = flaky
+        seen = reading_back(torch, recipe)
+        recipe.run_train_validation_loop()
+        torch.cuda.synchronize()
+        rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+        return recipe, rows, seen, fired
+
+    try:
+        t0 = time.perf_counter()
+        ref = []
+        for tag in ("unbroken_a", "unbroken_b"):
+            recipe, rows, seen, _ = run(nanogpt_config(sources, ds_seed, f"nanogpt_{tag}", last))
+            ref.append((train_rows(rows), seen))
+            host = host_batches(torch, recipe, 0, last)
+            del recipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        (a, a_batches), (b, b_batches) = ref
+        if not (same_batches(torch, a_batches, host) and same_batches(torch, b_batches, host)):
+            raise RuntimeError("24 (d): the unbroken runs' batches read back differ from the host's collate")
+        ck = root / "ckpt"
+        recipe, rows1, _, _ = run(nanogpt_config(sources, ds_seed, "nanogpt_broken", DATA_SAVE_STEP, ck))
+        del recipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a fresh recipe resumes at the save, trains on, and its last step is
+        # flagged non-finite once: the rollback restores the save again
+        cfg = nanogpt_config(sources, ds_seed, "nanogpt_resumed", last, ck, rollback=True)
+        recipe, rows2, seen, fired = run(cfg, flaky_step=last)
+        events = [(r["event"], r.get("fail_step", r.get("resumed_from_step"))) for r in rows2 if "event" in r]
+        if [f["step"] for f in fired] != [last] or events != [
+                ("resume", DATA_SAVE_STEP), ("rollback", last), ("resume", DATA_SAVE_STEP)]:
+            raise RuntimeError(f"24 (d): events {events}, planted at {fired}")
+        # the first pass of the resumed steps against the unbroken run
+        first = {last: fired[0]}
+        for r in rows2:
+            if "loss" in r and r["step"] not in first:
+                first[r["step"]] = r
+        resumed = range(DATA_SAVE_STEP + 1, last + 1)
+        rule = same_trajectory(a, b, first, resumed, "24 (d) resumed")
+        if not same_batches(torch, seen[: last - DATA_SAVE_STEP], a_batches[DATA_SAVE_STEP:]):
+            raise RuntimeError("24 (d): the resumed steps' batches differ from the unbroken run's")
+        # JAX's rollback arithmetic: restore at the save, the cursor past the
+        # failed window, the steps retrained, and the scheduler's look-ahead
+        # batch (tests/test_resilience.py:876-903, one batch a step here)
+        want_cursor = DATA_SAVE_STEP + (last - DATA_SAVE_STEP) + (last - DATA_SAVE_STEP) + 1
+        cursor = recipe.dataloader.state_dict()
+        retrained = seen[last - DATA_SAVE_STEP:]
+        want_retrained = host_batches(torch, recipe, last, last - DATA_SAVE_STEP)
+        rows_by_step = train_rows(rows2)
+        out = dict(blend_seed=ds_seed, resumed_window=where, events=events, rule=rule,
+                   losses_unbroken=[a[s]["loss"] for s in range(1, last + 1)],
+                   losses_resumed=[first[s]["loss"] for s in resumed], loader=cursor, want_batch_in_epoch=want_cursor,
+                   rollbacks_total=rows_by_step[last].get("rollbacks_total"), wall_s=time.perf_counter() - t0)
+        if (cursor["epoch"], cursor["batch_in_epoch"]) != (0, want_cursor) or out["rollbacks_total"] != 1:
+            raise RuntimeError(f"24 (d): after the rollback {out}")
+        if not same_batches(torch, retrained, want_retrained):
+            raise RuntimeError("24 (d): the steps retrained after the rollback did not take the batches past the "
+                               "failed window")
+        print(f"phase 24 (d) resume and rollback on nanoGPT: {json.dumps(out)} | {card_line()}", flush=True)
+        del recipe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data(torch, dev) -> dict:
+    """Phase 24 (see the module text)."""
+    import shutil
+
+    root = data_root()
+    try:
+        t0 = time.perf_counter()
+        corpora = write_corpora(root)
+        out = dict(corpora={k: v for k, v in corpora.items() if k not in ("prefix", "sources")})
+        out["pretrain"] = phase_data_pretrain(torch, corpora["prefix"])
+        out["packing"] = phase_data_packing(torch, dev, corpora["prefix"])
+        out["resume"] = phase_data_resume(torch, corpora["sources"])
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def packed_flash_entry(name: str, data: dict) -> dict:
+    """K1 on phase 24 (c)'s packed row: its launches in the 8-layer step,
+    its time beside the bound of the row's live pairs and SDPA with the
+    segment mask."""
+    row = data["packing"]["kernels"]
+    t = row["timed"][name]
+    return dict(launches=data["packing"]["step"]["flash"]["launches"][name], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+                library="scaled_dot_product_attention with the row's mask as attn_mask (its forward beside fwd, "
+                        "its backward alone in library_bwd_ms)",
+                library_bwd_ms=row["library_bwd_ms"], documents=data["packing"]["documents"],
+                live_pairs=row["live_pairs"], shape="B=1 S=4096 N=32 Nkv=8 H=128 causal, a packed row's segments")
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
                  gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec,
-                 front, traced, rest) -> dict:
+                 front, traced, rest, data) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -4685,6 +5166,8 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "gemma2": gemma_flash_entry(name, flash_cap, gemma, row_errs[name]),
             "kd_llama3_2_1b": kd_flash_entry(name, kd),
             "launches_sft_full_depth": rest["full"]["flash_launches"][name],
+            "launches_pretrain_megatron": data["pretrain"]["prefetch"]["flash_launches"][name],
+            "packed_segments": packed_flash_entry(name, data),
         })
         if name == "dq":
             line["kernels"][-1]["backward"] = flash_backward_pair(main_flash)
@@ -4861,10 +5344,14 @@ def main() -> int:
         rest = phase_training_rest(torch)
         print(f"phase 23 (Llama-3-8B SFT at 32 layers, the optimizers, rollback): {time.perf_counter() - t0:.1f}s",
               flush=True)
+        t0 = time.perf_counter()
+        data = phase_data(torch, dev)
+        print(f"phase 24 (the data path: corpora, pretrain llm at 32 layers, packing, resume): "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
-                            fused_ptxas, spec, front, traced, rest)
+                            fused_ptxas, spec, front, traced, rest, data)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

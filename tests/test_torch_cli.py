@@ -175,7 +175,8 @@ def test_finetune_without_cuda_raises():
         ("--metrics_server.port=9100", "metrics_server"),
         ("--fault_tolerance.emergency_checkpoint=false", "fault_tolerance"),
         ("--fault_tolerance.on_nonfinite=retry", "on_nonfinite"),
-        ("--data.prefetch.depth=2", "prefetch"),
+        ("--data.prefetch.depth=0", "prefetch"),
+        ("--data.queries=q.jsonl", "data"),
         ("--generation.tokenizer=meta-llama/Meta-Llama-3-8B", "generation.tokenizer"),
         ("--validation_dataset.seq_length=8", "validation_dataset"),
         ("--distributed.dp_shard=-1", "distributed"),

@@ -68,8 +68,8 @@ def test_both_prefixes_build_the_port_dataset_without_importing_jax(prefix):
         ("orbax.checkpoint.PyTreeCheckpointer", "names orbax"),
         ("os.system", "outside the import allowlist"),
         ("automodel_tpu.peft.lora.apply_lora", "first missing module: automodel_tpu_torch.peft"),
-        ("automodel_tpu.data.megatron.gpt_dataset.MegatronPretraining",
-         "first missing module: automodel_tpu_torch.data.megatron"),
+        ("automodel_tpu.data.retrieval.MockRetrievalDataset",
+         "first missing module: automodel_tpu_torch.data.retrieval"),
         ("automodel_tpu.data.sft.HellaSwag", "first missing name: automodel_tpu_torch.data.sft.HellaSwag"),
     ],
 )

@@ -1432,3 +1432,62 @@ def test_sinks_grad_check_catches_an_unfolded_delta():
     right = trf.sinks_grad(lse, delta(out), sinks)
     wrong = trf.sinks_grad(lse, delta(raw), sinks)
     assert sinks_grad_err(wrong, right, sinks, out, lse, do) > 4 * SINKS_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_prefetch_places_batches_on_a_side_stream_from_a_fresh_thread():
+    """data/prefetch.DevicePlacer as the prefetch producer runs it: a host
+    thread that has made no CUDA call copies each batch from pinned
+    buffers on its own stream and waits for the copies; the consumer
+    (``adopt``) orders its stream after them. Every batch read back equals
+    its host arrays bit for bit, and a batch freed while the consumer's
+    queued work still reads it is not reused by the producer's next copy
+    (``record_stream``): the queued sum reads the first batch, not the next."""
+    import queue
+
+    import numpy as np
+
+    from automodel_tpu_torch.data.prefetch import DevicePlacer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch.cuda.is_available() is False")
+    dev = torch.device("cuda")
+    placer = DevicePlacer("cuda")
+    assert placer.device.index is not None
+    rng = np.random.default_rng(0)
+    hosts = [{k: rng.integers(0, 128256, (2, 1, 4096), dtype=np.int64).astype(np.int32)
+              for k in ("input_ids", "labels", "position_ids")} for _ in range(6)]
+    jobs, out, errors = queue.Queue(), queue.Queue(), []
+
+    def producer():
+        try:
+            while (h := jobs.get()) is not None:
+                out.put(placer(h))
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+            out.put(None)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    x = torch.randn(8192, 8192, device=dev)
+    queued = None  # (the sum queued behind the busy stream, its host batch)
+    for i, h in enumerate(hosts):
+        # the producer copies this batch while the consumer's stream may
+        # still be summing the previous one, whose tensors are already freed
+        jobs.put(h)
+        batch = out.get(timeout=60)
+        assert batch is not None and batch.ready is not None, errors
+        if queued is not None:
+            assert int(queued[0]) == int(queued[1]["input_ids"].astype(np.int64).sum()), i - 1
+        batch = placer.adopt(batch)
+        for _ in range(8):  # keep the consumer's stream busy past the next copy
+            x = torch.tanh(x @ x)
+        queued = (batch["input_ids"].to(torch.int64).sum(), h)
+        if i % 2:  # read back (this waits for the stream, so only every other batch)
+            for k, v in h.items():
+                assert torch.equal(batch[k].cpu(), torch.from_numpy(v)), (i, k)
+        del batch
+    assert int(queued[0]) == int(queued[1]["input_ids"].astype(np.int64).sum())
+    jobs.put(None)
+    t.join(timeout=60)
+    assert not errors
