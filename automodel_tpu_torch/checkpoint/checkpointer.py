@@ -45,6 +45,7 @@ from automodel_tpu_torch.resilience.manifest import (
     verify_manifest,
     write_manifest,
 )
+from automodel_tpu_torch.resilience.fault_injection import active_injector
 from automodel_tpu_torch.resilience.retry import retry_io
 
 logger = logging.getLogger(__name__)
@@ -227,6 +228,33 @@ class Checkpointer:
         # the HF export and the manifest commit
         self.last_save: dict = {}
         self.last_load: dict = {}
+        # the recipe points this at the telemetry ring: integrity events
+        # (fallbacks, failed async saves) land in the flight recorder
+        self.event_hook: Optional[Callable[[dict], None]] = None
+        # the recipe points this at the goodput ledger: (kind, seconds, step)
+        # per operation — "ckpt_save" (sync write / async staging),
+        # "ckpt_drain" (async drain + commit), "ckpt_restore" (load)
+        self.timing_hook: Optional[Callable[..., None]] = None
+        # drain seconds inside the current save() (its wait() for the
+        # previous async save), subtracted so no second is billed twice
+        self._inner_drain_s = 0.0
+        # the distributed guard's timed barrier: no process writes the
+        # manifest until every process's save drained
+        self.commit_barrier: Optional[Callable[[str], None]] = None
+
+    def _event(self, rec: dict) -> None:
+        if self.event_hook is not None:
+            try:
+                self.event_hook(rec)
+            except Exception:  # telemetry must never break checkpointing
+                pass
+
+    def _timing(self, kind: str, seconds: float, step: Optional[int] = None) -> None:
+        if self.timing_hook is not None:
+            try:
+                self.timing_hook(kind, seconds, step=step)
+            except Exception:  # telemetry must never break checkpointing
+                pass
 
     def wait(self) -> None:
         """Block until an in-flight async save finishes, then commit it by
@@ -236,24 +264,36 @@ class Checkpointer:
         it) without propagating: the dir stays uncommitted, the failure is
         logged, and the next cadence save tries again."""
         pending, self._pending_commit = self._pending_commit, None
-        if self._async is not None:
-            job, self._async = self._async, None
-            try:
-                job.wait_until_finished()
-            except Exception as e:
-                if pending is None:
-                    raise
-                logger.error(
-                    "async checkpoint save to %s FAILED (%r); dir left uncommitted — "
-                    "resume will skip it, next cadence save retries", pending[0], e,
-                )
-                if self._pending_best is not None and self._pending_best[0] == pending[0]:
-                    self._pending_best = None
-                return
-        if pending is not None:
-            self._commit(*pending)
+        t0 = time.perf_counter()
+        try:
+            if self._async is not None:
+                job, self._async = self._async, None
+                try:
+                    job.wait_until_finished()
+                except Exception as e:
+                    if pending is None:
+                        raise
+                    logger.error(
+                        "async checkpoint save to %s FAILED (%r); dir left uncommitted — "
+                        "resume will skip it, next cadence save retries", pending[0], e,
+                    )
+                    self._event({"event": "async_save_failed", "dir": str(pending[0]), "error": repr(e),
+                                 "ts": time.time()})
+                    if self._pending_best is not None and self._pending_best[0] == pending[0]:
+                        self._pending_best = None
+                    return
+            if pending is not None:
+                self._commit(*pending)
+        finally:
+            if pending is not None:
+                # only a drain that had a commit to finish is a segment
+                dt = time.perf_counter() - t0
+                self._inner_drain_s += dt
+                self._timing("ckpt_drain", dt, step=pending[2])
 
     def _commit(self, out: Path, epoch: int, step: int, layout_markers: Optional[dict]) -> None:
+        if self.commit_barrier is not None:
+            self.commit_barrier("checkpoint_commit")
         t0 = time.perf_counter()
         # write_manifest is tmp + rename, so a retry after a transient EIO
         # mid-read-back is idempotent
@@ -266,6 +306,9 @@ class Checkpointer:
             _, metric, value = self._pending_best
             self._pending_best = None
             self._write_best(out, metric, value)
+        inj = active_injector()
+        if inj is not None:
+            inj.after_checkpoint_save(out)
 
     def close(self) -> None:
         self.wait()
@@ -345,6 +388,8 @@ class Checkpointer:
         ``wait()`` when async)."""
         from automodel_tpu_torch.checkpoint.hf_io import save_hf_checkpoint
 
+        t_save = time.perf_counter()
+        self._inner_drain_s = 0.0
         out = self.step_dir(epoch, step)
         out.mkdir(parents=True, exist_ok=True)
         if layout_markers:
@@ -393,6 +438,8 @@ class Checkpointer:
             self.last_save["state_s"] = time.perf_counter() - t0
             self._commit(out, epoch, step, layout_markers)
         self._prune(protect={out.resolve()})
+        # the inner wait() already reported the previous save's drain
+        self._timing("ckpt_save", max(time.perf_counter() - t_save - self._inner_drain_s, 0.0), step=step)
         return out
 
     def _prune(self, protect: set[Path] | None = None) -> None:
@@ -487,6 +534,8 @@ class Checkpointer:
             "dir": str(d), "verify_s": t_verified - t_load,
             "state_s": time.perf_counter() - t0, "state_bytes": state_bytes(state),
         }
+        key = _dir_key(d)
+        self._timing("ckpt_restore", time.perf_counter() - t_load, step=key[1] if key else None)
         return state, extra
 
     def _verify_for_load(self, d: Path) -> Path:
@@ -529,6 +578,8 @@ class Checkpointer:
                     "falling back to the previous committed checkpoint (%s)",
                     d, quarantined, e,
                 )
+                self._event({"event": "checkpoint_fallback", "rejected": str(d),
+                             "quarantined_as": str(quarantined), "problems": str(e)})
                 rejected.append(f"{d}: {e}")
                 continue
             if i > 0:

@@ -8,6 +8,8 @@
     python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]
     python -m automodel_tpu_torch.cli.app trace <metrics.jsonl> [...] [--chrome out.json] [--md out.md] [--trace-id P]
     python -m automodel_tpu_torch.cli.app report <metrics.jsonl> [--strict]
+    python -m automodel_tpu_torch.cli.app profile -c cfg.yaml [--profiling.mode=train|generate] [--dotted.key=value ...]
+    python -m automodel_tpu_torch.cli.app goodput <run-dir | goodput.jsonl> [--json]
 
 ``serve`` runs the serving front (serving/server.py): a local HTTP server
 when ``serving.http.port`` is set, the stdin-JSONL front otherwise; both
@@ -26,8 +28,18 @@ records of serve's metrics JSONLs into per-request waterfalls (markdown
 and a Chrome trace; telemetry/tracing.py) and ``report`` lints and
 summarizes a metrics JSONL (telemetry/report.py; ``--strict`` exits 1 on
 any schema problem), as ``automodel_tpu/cli/app.py:61-80`` routes them;
-neither reads a config or touches a device. The JAX package's other
-commands are not ported yet; each exits 2 saying so.
+neither reads a config or touches a device. ``profile`` opens a
+``torch.profiler`` window around a few steps of the training recipe (or
+two ``generate_ids`` calls) and writes ``report.json`` and ``PROFILE.md``
+under ``<output_dir>/profile/`` (telemetry/profiling/runner.py);
+``goodput`` rolls a run's ``goodput.jsonl`` into a per-attempt and
+whole-run wall-clock decomposition (telemetry/goodput.py), as
+``automodel_tpu/cli/app.py:53-57, 126-131`` route them. A training run that
+is preempted (SIGTERM) after its emergency checkpoint committed exits 75
+(1 with nothing committed), a cross-process desync exits 1, and a crash
+while a peer's preemption marker is fresh exits 75, as JAX's
+``main`` maps them (:206-240). The JAX package's other commands are not
+ported yet; each exits 2 saying so.
 """
 
 from __future__ import annotations
@@ -37,10 +49,7 @@ import sys
 from automodel_tpu_torch.config.arg_parser import parse_args_and_load_config
 
 TRAIN_COMMANDS = ("finetune", "pretrain", "benchmark", "kd")
-NOT_PORTED = (
-    "dpo", "grpo", "mine",
-    "route", "fleet-status", "profile", "goodput",
-)
+NOT_PORTED = ("dpo", "grpo", "mine", "route", "fleet-status")
 
 
 def _usage() -> str:
@@ -55,7 +64,10 @@ def _usage() -> str:
         "       python -m automodel_tpu_torch.cli.app verify-ckpt <dir> [--no-checksums] [--json]\n"
         "       python -m automodel_tpu_torch.cli.app trace <metrics.jsonl> [...] "
         "[--chrome out.json] [--md out.md] [--trace-id PREFIX]\n"
-        "       python -m automodel_tpu_torch.cli.app report <metrics.jsonl> [--strict]"
+        "       python -m automodel_tpu_torch.cli.app report <metrics.jsonl> [--strict]\n"
+        "       python -m automodel_tpu_torch.cli.app profile -c config.yaml [--profiling.mode=train|generate] "
+        "[--device=cpu] [--dotted.key=value ...]\n"
+        "       python -m automodel_tpu_torch.cli.app goodput <run-dir | goodput.jsonl> [--json]"
     )
 
 
@@ -66,6 +78,19 @@ def _not_ported(what: str) -> int:
         file=sys.stderr,
     )
     return 2
+
+
+def _crash_is_preemption_collateral(cfg) -> bool:
+    """A crash while a peer's preemption marker in the shared checkpoint
+    root is fresh is collateral of that preemption (JAX :30-48)."""
+    from automodel_tpu_torch.checkpoint.checkpointer import CheckpointingConfig
+    from automodel_tpu_torch.resilience import peer_preemption_fresh
+
+    ccfg = cfg.get("checkpoint", None)
+    ccfg = dict(ccfg.to_dict() if hasattr(ccfg, "to_dict") else (ccfg or {}))
+    if not ccfg.get("enabled", False):
+        return False
+    return peer_preemption_fresh(ccfg.get("checkpoint_dir", CheckpointingConfig.checkpoint_dir))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -86,6 +111,14 @@ def main(argv: list[str] | None = None) -> int:
         from automodel_tpu_torch.telemetry.report import main as report_main
 
         return report_main(argv[1:])
+    if command == "goodput":
+        from automodel_tpu_torch.telemetry.goodput import main as goodput_main
+
+        return goodput_main(argv[1:])
+    if command == "profile":
+        from automodel_tpu_torch.telemetry.profiling.runner import main as profile_main
+
+        return profile_main(parse_args_and_load_config(argv[1:]))
     if command == "serve":
         from automodel_tpu_torch.serving.server import main as serve_main
 
@@ -105,7 +138,25 @@ def main(argv: list[str] | None = None) -> int:
         else:
             from automodel_tpu_torch.recipes.train_ft import main as recipe_main
 
-        recipe_main(parse_args_and_load_config(argv[2:]))
+        cfg = parse_args_and_load_config(argv[2:])
+        from automodel_tpu_torch.resilience import REQUEUE_EXIT_CODE, DesyncError, TrainingPreempted
+
+        try:
+            recipe_main(cfg)
+        except DesyncError as e:
+            # a desynced process is a real fault, never requeued
+            print(f"DESYNC: {e}", file=sys.stderr)
+            return 1
+        except TrainingPreempted as e:
+            print(f"preempted: {e}", file=sys.stderr)
+            # nothing committed: a requeue would loop at zero progress
+            return 1 if e.checkpoint_dir is None else REQUEUE_EXIT_CODE
+        except Exception as e:
+            if _crash_is_preemption_collateral(cfg):
+                print(f"crash while a peer's preemption marker is fresh — requeueing as preemption collateral: "
+                      f"{e!r}", file=sys.stderr)
+                return REQUEUE_EXIT_CODE
+            raise
         return 0
     if command in NOT_PORTED:
         return _not_ported(command)

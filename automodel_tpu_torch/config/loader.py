@@ -262,6 +262,14 @@ class ConfigNode(Mapping):
 
 
 def load_yaml_config(path: str | os.PathLike) -> ConfigNode:
+    """A YAML config file → ConfigNode. A ``.json`` file (JSON is YAML) is
+    read with ``json``, so a config written by a program loads where
+    PyYAML is not installed."""
+    if str(path).endswith(".json"):
+        import json
+
+        with open(path) as f:
+            return ConfigNode(json.load(f) or {})
     import yaml
 
     with open(path) as f:

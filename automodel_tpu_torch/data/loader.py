@@ -81,10 +81,18 @@ class DataLoader:
 
     def batch_for(self, epoch: int, i: int) -> dict:
         """Collate batch ``i`` of epoch ``epoch`` (pure in the cursor;
-        thread-safe given a read-only dataset)."""
+        thread-safe given a read-only dataset). The sync iterator and the
+        prefetch collate workers both come here, so the injected collate
+        delay (``fault_injection.slow_collate_ms``) hits both paths."""
+        from automodel_tpu_torch.resilience.fault_injection import active_injector
+
         order = self._epoch_order(epoch)
         idx = order[i * self.global_batch_size : (i + 1) * self.global_batch_size]
-        return self.collate_fn([self.dataset[int(j)] for j in idx], **self.collate_kwargs)
+        batch = self.collate_fn([self.dataset[int(j)] for j in idx], **self.collate_kwargs)
+        inj = active_injector()
+        if inj is not None:
+            inj.maybe_slow_collate()
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         """The rest of the current epoch, then the cursor moves to the next

@@ -19,10 +19,13 @@ import hashlib
 import logging
 import os
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from automodel_tpu_torch.telemetry import compile_events
 
 logger = logging.getLogger(__name__)
 
@@ -49,8 +52,10 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     _tried = True
     try:
+        t0 = time.perf_counter()
         so = library_path()
-        if not so.exists():
+        built = not so.exists()
+        if built:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             subprocess.run(
@@ -60,6 +65,7 @@ def _load() -> Optional[ctypes.CDLL]:
             )
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
+        compile_events.record(time.perf_counter() - t0, built)
         lib.build_sample_idx.restype = ctypes.c_int64
         lib.build_sample_idx.argtypes = [
             ctypes.POINTER(ctypes.c_int32),

@@ -4,8 +4,12 @@
 Strict JSON: a non-finite float is written as ``null`` with a sidecar
 ``<key>_nonfinite: true`` (element-wise for lists), and the write uses
 ``allow_nan=False``, so a diverged run still leaves a parseable file. Each
-record gets a ``ts``. The JAX logger's wandb/MLflow sinks and its retried,
-multi-writer-safe append are not ported: one process appends."""
+record gets a ``ts``, and the ``envelope`` keys (the goodput ledger's
+``attempt_id`` / ``restart_count``) are stamped on every record so a
+requeued run's appended records stay joinable per attempt; a caller's
+explicit key wins. Appends hold an ``flock`` (``_append_line``), so the
+goodput ledger and a second process may share a file. The JAX logger's
+wandb/MLflow sinks and its retried append are not ported."""
 
 from __future__ import annotations
 
@@ -13,7 +17,12 @@ import json
 import math
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
+
+try:
+    import fcntl
+except ImportError:  # non-POSIX: appends go unlocked
+    fcntl = None
 
 
 def _to_scalar(v: Any) -> Any:
@@ -35,13 +44,26 @@ def _definite(v: Any) -> tuple[Any, bool]:
     return v, False
 
 
+def _append_line(path: Path | str, line: str) -> None:
+    """Append one line under an exclusive ``flock`` (whole records never
+    interleave between writers on one host)."""
+    with open(path, "a") as f:
+        if fcntl is not None:
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX)
+            except OSError:
+                pass
+        f.write(line)
+
+
 class MetricLogger:
     """Append-only JSONL metrics file; one record per ``log`` call."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, envelope: Optional[dict[str, Any]] = None):
         self.path = Path(path)
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self.path.touch()  # the file exists even before the first record
+        self.envelope = dict(envelope or {})
 
     def log(self, metrics: dict[str, Any], step: int | None = None) -> None:
         rec: dict[str, Any] = {}
@@ -52,6 +74,7 @@ class MetricLogger:
                 rec[f"{k}_nonfinite"] = True
         if step is not None:
             rec.setdefault("step", step)
+        for k, v in self.envelope.items():
+            rec.setdefault(k, v)
         rec.setdefault("ts", time.time())
-        with open(self.path, "a") as f:
-            f.write(json.dumps(rec, allow_nan=False) + "\n")
+        _append_line(self.path, json.dumps(rec, allow_nan=False) + "\n")

@@ -100,6 +100,8 @@ class GptOssForCausalLM(MoEForCausalLM):
     fan_in D, down with fan_in I, projections with their input width,
     embeddings ``N(0,1) * 0.02``) and zeroes every bias and sink."""
 
+    jax_layer_stacks = None  # one JAX stack, ``layers``
+
     supports_kv_cache = False
     layer_cls = GptOssDecoderLayer
     state_dict_adapter = GptOssStateDictAdapter  # the HF key map

@@ -126,6 +126,10 @@ class MoEForCausalLM(nn.Module):
     A family with other decoder layers (``models/gpt_oss``) subclasses it
     with its own ``layer_cls``."""
 
+    # the JAX param tree's layer stacks (the dense prefix, then the MoE
+    # layers): the first path component a tensor's grad norm groups under
+    jax_layer_stacks: Optional[tuple[str, str]] = ("dense_layers", "moe_layers")
+
     supports_kv_cache = True
     layer_cls: type = MoEDecoderLayer
     state_dict_adapter = MoEStateDictAdapter  # the HF key map

@@ -19,7 +19,10 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from automodel_tpu_torch.telemetry import compile_events
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -105,8 +108,11 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
+        t0 = time.perf_counter()
+        built = not _lib_path(name).exists()
         path = build([name])[name]
         lib = _loaded[name] = ctypes.CDLL(str(path))
+        compile_events.record(time.perf_counter() - t0, built)
     return lib
 
 

@@ -57,6 +57,8 @@ from typing import Optional
 
 import torch
 
+from automodel_tpu_torch.telemetry.profiling import cost as _cost
+
 from automodel_tpu_torch.ops import grouped_matmul as gm
 from automodel_tpu_torch.ops.grouped_matmul import (
     ALIGN,
@@ -357,6 +359,30 @@ def _launch_fwd_down(mid, down, down_bias, plan, ends, n_major=None) -> torch.Te
 # -- the wrappers -------------------------------------------------------------------
 
 
+
+def _n(group_sizes: torch.Tensor, M: int) -> int:
+    return min(int(group_sizes.sum()), M)
+
+
+def _fwd_flops(lhs, gate_up, down, group_sizes, *args, **kwargs) -> float:
+    """The plain forward's work: [n, D] x [D, 2I], then [n, I] x [I, D]."""
+    D, I2 = gate_up.shape[1], gate_up.shape[2]
+    return 2.0 * _n(group_sizes, lhs.shape[0]) * D * I2 * 1.5
+
+
+def _bwd_gu_flops(lhs, gu, dmid, group_sizes, *args, **kwargs) -> float:
+    return 2.0 * _n(group_sizes, lhs.shape[0]) * lhs.shape[1] * gu.shape[1]
+
+
+def _bwd_dwd_flops(gu, dy, group_sizes, *args, **kwargs) -> float:
+    return 2.0 * _n(group_sizes, gu.shape[0]) * (gu.shape[1] // 2) * dy.shape[1]
+
+
+def _bwd_dx_flops(gu, dmid, gate_up, group_sizes, *args, **kwargs) -> float:
+    return 2.0 * _n(group_sizes, gu.shape[0]) * gu.shape[1] * gate_up.shape[1]
+
+
+@_cost.counted(_fwd_flops)
 def fwd(lhs, gate_up, down, group_sizes, gate_up_bias=None, down_bias=None, act_kind="swiglu", limit=None,
         plan=None) -> torch.Tensor:
     """lhs [M, D] (rows sorted by group), gate_up [G, D, 2I], down [G, I, D],
@@ -383,6 +409,7 @@ def fwd(lhs, gate_up, down, group_sizes, gate_up_bias=None, down_bias=None, act_
     return out
 
 
+@_cost.counted(_bwd_gu_flops)
 def bwd_gu(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_bias=False, dgdu=None,
            out_dtype=torch.float32):
     """→ (dW [G, D, 2I] = lhs_g^T [dg | du] summed in fp32 and written in
@@ -420,6 +447,7 @@ def bwd_gu(lhs, gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_bias=
     return dw, dbias
 
 
+@_cost.counted(lambda *a, **k: 0.0)  # elementwise: no products
 def bwd_act(gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_mid=True, want_dgdu=True):
     """The backward's elementwise pass, once per element → (mid [M, I] or
     None, dgdu [M, 2I] = dg | du or None) in gu.dtype, rows past the groups
@@ -453,6 +481,7 @@ def bwd_act(gu, dmid, group_sizes, act_kind="swiglu", limit=None, want_mid=True,
     return mid, dgdu
 
 
+@_cost.counted(_bwd_dwd_flops)
 def bwd_dwd(gu, dy, group_sizes, act_kind="swiglu", limit=None, want_bias=False, out_dtype=torch.float32, mid=None):
     """→ (dWd [G, I, D] = mid_g^T dy_g summed in fp32 and written in
     ``out_dtype`` (fp32, JAX's ``_bwd_dwd``, or bf16, the backward's cast
@@ -487,6 +516,7 @@ def bwd_dwd(gu, dy, group_sizes, act_kind="swiglu", limit=None, want_bias=False,
     return dwd, ddb
 
 
+@_cost.counted(_bwd_dx_flops)
 def bwd_dx(gu, dmid, gate_up, group_sizes, act_kind="swiglu", limit=None, plan=None, dgdu=None) -> torch.Tensor:
     """→ dlhs [M, D] in gu.dtype = dg Wg^T + du Wu^T per row's group, rows
     past the groups 0; ``dgdu`` is ``bwd_act``'s, run here when not given.

@@ -35,6 +35,8 @@ from typing import Optional
 
 import torch
 
+from automodel_tpu_torch.telemetry.profiling import cost as _cost
+
 # the CUDA kernels' limits (csrc/grouped_matmul.cu)
 CUDA_DTYPES = (torch.bfloat16,)
 GMM_TILE_M = 128
@@ -174,6 +176,23 @@ def _raise_on(lib, rc: int, which: str) -> None:
 # -- the wrappers -------------------------------------------------------------------
 
 
+
+def _rows(group_sizes: torch.Tensor, m: int) -> int:
+    """Rows the groups cover (a host read of the sizes)."""
+    return min(int(group_sizes.sum()), m)
+
+
+def _gmm_flops(lhs, rhs, group_sizes, transpose_rhs=False, plan=None) -> float:
+    """The plain version's work: one [rows_g, K] x [K, N] product a group."""
+    N = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    return 2.0 * _rows(group_sizes, lhs.shape[0]) * lhs.shape[1] * N
+
+
+def _tgmm_flops(lhs, dout, group_sizes, out_dtype=None) -> float:
+    return 2.0 * _rows(group_sizes, lhs.shape[0]) * lhs.shape[1] * dout.shape[1]
+
+
+@_cost.counted(_gmm_flops)
 def gmm(
     lhs: torch.Tensor,
     rhs: torch.Tensor,
@@ -236,6 +255,7 @@ def _gmm_launch(lhs, rhs, group_sizes, plan, N: int, transpose_rhs: bool, n_majo
     return out
 
 
+@_cost.counted(_tgmm_flops)
 def tgmm(
     lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor, out_dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:

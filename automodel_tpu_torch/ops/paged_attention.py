@@ -33,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from automodel_tpu_torch.telemetry.profiling import cost as _cost
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 INT8_MAX = 127.0
 
@@ -271,6 +273,15 @@ def _launch_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale, scale, sl
     return out
 
 
+
+def _paged_flops(q, k_pool, v_pool, tables, *args, **kwargs) -> float:
+    """The plain version's work: QKᵀ and PV over every gathered block of a
+    row's table, 2 x 2·B·Sq·N·(NBseq·BS)·H."""
+    B, Sq, N, H = q.shape
+    return 4.0 * B * Sq * N * tables.shape[1] * k_pool.shape[1] * H
+
+
+@_cost.counted(_paged_flops)
 def paged_attend(
     q: torch.Tensor,
     k_pool: torch.Tensor,

@@ -41,6 +41,8 @@ from typing import Optional
 
 import torch
 
+from automodel_tpu_torch.telemetry.profiling import cost as _cost
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # the CUDA kernels' limits (csrc/flash_attention.cu)
@@ -235,6 +237,16 @@ def _device_kind(name: str, q: torch.Tensor) -> str:
 # -- the wrappers -----------------------------------------------------------------
 
 
+
+def _attn_flops(q, k, *args, **kwargs) -> float:
+    """The plain attention's work a K1 kernel stands for (telemetry/
+    profiling/cost.py): one full-rectangle pair of products, 2 x 2·B·N·Sq·Sk·H
+    (the forward's QKᵀ and PV; dq's dP and dQ; dkv's dV and dK)."""
+    B, Sq, N, H = q.shape
+    return 4.0 * B * N * Sq * k.shape[1] * H
+
+
+@_cost.counted(_attn_flops)
 def flash_block_fwd(q, k, v, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale, soft_cap=None):
     """q [B, Sq, N, H] x k/v [B, Sk, Nkv, H] → (out [B, Sq, N, H] in q.dtype,
     lse [B, N, Sq] fp32). Positions int32 [Sq] / [Sk]; segment ids int32
@@ -260,6 +272,7 @@ def flash_block_fwd(q, k, v, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, sc
     return out, lse
 
 
+@_cost.counted(_attn_flops)
 def flash_block_dq(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale, soft_cap=None):
     """→ dq [B, Sq, N, H] fp32 from the saved lse and delta = rowsum(dO *
     out), both [B, N, Sq] fp32. CUDA tensors launch the dq kernel (counted
@@ -282,6 +295,7 @@ def flash_block_dq(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, cau
     return dq
 
 
+@_cost.counted(_attn_flops)
 def flash_block_dkv(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, causal, window, scale,
                     soft_cap=None):
     """→ (dk, dv) [B, Sk, Nkv, H] fp32, already summed over each GQA group.

@@ -48,11 +48,16 @@ import torch
 from automodel_tpu_torch.optim.scheduler import build_lr_schedule
 
 
-def global_norm_fp32(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """Global L2 norm with fp32 accumulation whatever the leaf dtype (bf16
+def tensor_norms_fp32(tensors: Iterable[torch.Tensor]) -> list[torch.Tensor]:
+    """Each tensor's L2 norm with fp32 accumulation whatever its dtype (bf16
     partial sums saturate after a few hundred equal-magnitude terms)."""
-    norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    return [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]
+
+
+def global_norm_fp32(tensors: Iterable[torch.Tensor], norms: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """Global L2 norm with fp32 accumulation: the norm of the per-tensor
+    norms (``norms`` when the caller already has them)."""
+    return torch.linalg.vector_norm(torch.stack(list(norms) if norms is not None else tensor_norms_fp32(tensors)))
 
 
 @dataclasses.dataclass

@@ -43,11 +43,18 @@ Legs after the measured steps, each a null-with-reason when it cannot run:
 - fleet: not ported; its section is refused, so the leg reports JAX's
   reason for a missing section.
 
-The result has no ``recompiles_during_measure`` (XLA compiles, the port
-does not) and no ``cost`` or ``pipeline`` (their sections are refused).
-Refused by name at setup: a ``fleet:`` section and
-``benchmark.profile.enabled``, besides what the training recipe and
-``ServeConfig`` refuse.
+With ``profiling`` on (the default), the first warmup step runs under the
+cost counter (telemetry/profiling/cost.py) and the result carries ``cost``
+(the counted FLOPs and bytes with the roofline class) and
+``mfu_measured_pct`` beside ``mfu`` (JAX :184-210); a run without a warmup
+step reports ``cost_error`` instead. ``benchmark.profile`` (a
+``ProfilerConfig``: ``enabled``, ``start_step``, ``end_step``,
+``trace_dir``, default ``<output_dir>/trace``) opens a ``torch.profiler``
+window over those measured steps. The watchdog runs during the benchmark
+and each measured step pets it. The result has no
+``recompiles_during_measure`` (XLA's; the port builds its kernels in the
+warmup) and no ``pipeline``. Refused by name at setup: a ``fleet:``
+section, besides what the training recipe and ``ServeConfig`` refuse.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from automodel_tpu_torch.recipes.train_ft import READ_SECTIONS, TrainFinetuneRec
 from automodel_tpu_torch.serving.engine import ServeConfig, ServingEngine
 from automodel_tpu_torch.telemetry.memory import memory_snapshot
 from automodel_tpu_torch.training.timers import Timers, barrier
+from automodel_tpu_torch.utils.profiler import ProfilerConfig, StepProfiler
 from automodel_tpu_torch.utils.flops_utils import (
     calculate_mfu,
     device_peak_tflops,
@@ -87,9 +95,7 @@ def check_benchmark_sections(cfg: Any) -> None:
     unknown = sorted(set(bcfg) - set(BENCHMARK_KEYS))
     if unknown:
         raise ValueError(f"benchmark keys {unknown} are unknown (it takes {list(BENCHMARK_KEYS)})")
-    profile = dict(_plain(bcfg.get("profile")) or {})
-    if profile.get("enabled", False):
-        raise ValueError("benchmark.profile.enabled: the step profiler is not ported to the torch backend yet")
+    ProfilerConfig(**dict(_plain(bcfg.get("profile")) or {}))
     if cfg.get("serving", None) is not None:
         # names serving.warm_start / serving.kv_transfer / ... when enabled
         ServeConfig.from_dict(dict(_plain(cfg.serving) or {}))
@@ -103,9 +109,28 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
         super().setup()
 
     def run_benchmark(self) -> dict:
+        # a leg hangs the ways training does: the watchdog turns a stuck
+        # leg into stacks and a flight-recorder dump; each measured step pets it
+        self.guard.start()
+        try:
+            with self.telemetry.crash_guard():
+                return self._run_benchmark_body()
+        finally:
+            self.guard.close()
+            self._close_prefetch()
+            if self._prom_server is not None:
+                self._prom_server.shutdown()
+            self.resilience.close()
+            self.step_scheduler.restore_signal_handlers()
+            self.ledger.close(reason="exit")
+
+    def _run_benchmark_body(self) -> dict:
         bcfg = dict(_plain(self.cfg.get("benchmark", None)) or {})
         warmup = int(bcfg.get("warmup_steps", 3))
         measure = int(bcfg.get("measure_steps", 10))
+        pcfg = dict(_plain(bcfg.get("profile")) or {})
+        pcfg.setdefault("trace_dir", str(self.output_dir / "trace"))
+        prof = StepProfiler(ProfilerConfig(**pcfg))
         timers = Timers()
 
         try:
@@ -118,8 +143,16 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
 
         state = self.state
         metrics = None
-        for _ in range(warmup):
-            metrics = self.train_step(state, batch)
+        cost = None
+        count = self.profiling.enabled and self.profiling.cost_attribution
+        for i in range(warmup):
+            if i == 0 and count:
+                # the first warmup step is the counted one: no extra step
+                from automodel_tpu_torch.telemetry.profiling import count_cost
+
+                metrics, cost = count_cost(self.train_step, state, batch, program="train_step")
+            else:
+                metrics = self.train_step(state, batch)
         if metrics is not None:
             barrier(metrics["loss"])
 
@@ -129,6 +162,7 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
         tel_overhead_s = 0.0
         for i in range(measure):
             _t = time.perf_counter()
+            prof.on_step(i)
             timers("step").start()
             timers("dispatch").start()
             tel_overhead_s += time.perf_counter() - _t
@@ -142,7 +176,9 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
             timers("device").stop()
             dt = timers("step").stop()
             self.metric_logger.log({"bench_step": i, "step_time_s": dt, "ts": time.time()})
+            self.guard.on_step(i)  # the heartbeat only
             tel_overhead_s += time.perf_counter() - _t
+        prof.close()
 
         n_chips = 1
         mean_s = timers("step").mean()
@@ -173,10 +209,25 @@ class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPr
             # what filled the card at the end of the window
             "memory": memory_snapshot(CENSUS_TOP_K, self.device),
         }
-        result.update(self._generation_leg())
-        result.update(self._serving_leg())
-        result.update(self._spill_leg())
+        with self.guard.phase("eval"):
+            result.update(self._generation_leg())
+        with self.guard.phase("eval"):
+            result.update(self._serving_leg())
+        with self.guard.phase("eval"):
+            result.update(self._spill_leg())
         result.update(self._fleet_leg())
+        # the counted step's FLOPs beside the analytic law the `mfu` key
+        # comes from; drift between the two is what the law does not count
+        if count:
+            if cost is None:
+                result["cost_error"] = "no warmup step to count (benchmark.warmup_steps: 0)"
+            else:
+                from automodel_tpu_torch.telemetry import profiling as profmod
+
+                basis = self.profiling.roofline_basis()
+                result["cost"] = {**cost.to_dict(), **profmod.roofline(cost, basis)}
+                m = profmod.mfu_measured_pct(cost.flops, mean_s, n_chips, basis)
+                result["mfu_measured_pct"] = round(m, 3) if m is not None else None
         out_path = bcfg.get("output_json")
         if out_path:
             with open(out_path, "w") as f:

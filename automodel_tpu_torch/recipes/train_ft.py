@@ -65,19 +65,55 @@ model's steps add ``moe_aux_loss``, ``expert_load_imbalance`` and
 ``post_step_fn`` (aux-free router-bias balancing) runs after each applied
 update.
 
+Observability and resilience (JAX :217-520, 881-990), each on by default
+with JAX's defaults, each inert with ``enabled: false``, each refusing an
+unknown key with JAX's ``TypeError``; with all of them off a run's losses
+and grad norms are bit for bit the same as with them on:
+
+- ``telemetry`` (telemetry/__init__.py): the anomaly flags in the step
+  (``nonfinite``, ``grad_nonfinite_count``, ``grad_norm/<group>``), the
+  ``time/{data_wait,dispatch,device_sync}_s`` window means, build events
+  (``recompiles``), the memory census on its cadence (``mem_bytes_in_use``,
+  ``mem_peak_bytes``), a manual ``profile`` window, the crash flight
+  recorder (``flight_recorder.json`` beside the metrics JSONL) and the
+  goodput ledger (``goodput.jsonl`` beside it; every record carries the
+  ``attempt_id`` / ``restart_count`` envelope, and the run ends with a
+  ``goodput_tail`` record when boundary time follows the last log record);
+- ``profiling`` (telemetry/profiling/): step 1 runs under the cost counter
+  (a ``cost_attribution`` event; ``mfu_measured_pct`` beside the analytic
+  ``mfu_pct`` on each record) and the triggered capture (a slow step or a
+  non-finite flag opens a trace and a memory record under
+  ``<output_dir>/captures``, stamped as a ``trace_capture`` event);
+- ``metrics_server`` (present = on): ``automodel_train_*`` on a standalone
+  ``GET /metrics`` port;
+- ``distributed_guard`` (resilience/guard.py): the hang watchdog petted
+  each step (``heartbeat_age_s``; on expiry stacks, a ``hang`` event, a
+  flight-recorder dump and ``os._exit(75)`` when a checkpoint is committed,
+  else 1), consensus at log and checkpoint boundaries (a desynced
+  checkpoint never commits), timed barriers at commit and shutdown;
+- ``fault_tolerance`` whole (``preemption_signals``,
+  ``emergency_checkpoint``, ``on_nonfinite``, ``max_consecutive_nonfinite``,
+  ``max_rollbacks``): a preemption signal drains the loop at the next step
+  boundary, joins the prefetch producers and drops their run-ahead
+  (``_close_prefetch``), commits the emergency checkpoint at the
+  consumption cursor and raises ``TrainingPreempted``, which the CLI turns
+  into exit 75;
+- ``fault_injection`` (resilience/fault_injection.py): the training knobs.
+
 Sections the port does not run are refused with a ``ValueError`` naming
-them, never ignored: ``peft``, ``qat``, ``telemetry``, ``profiling``,
-``distributed_guard``, ``metrics_server``, ``fault_injection``, any other
-``fault_tolerance`` key, a ``data`` key other than ``prefetch`` (an unknown
-``data.prefetch`` key raises JAX's ``TypeError``), and any ``distributed``
-degree other than 1. SIGTERM's emergency save and its prefetch drain (JAX
-:881-911) are not ported.
+them, never ignored: ``peft``, ``qat``, a ``data`` key other than
+``prefetch`` (an unknown ``data.prefetch`` key raises JAX's ``TypeError``),
+and any ``distributed`` degree other than 1.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import sys
 import time
+import weakref
+import zlib
 from pathlib import Path
 from typing import Any, Optional
 
@@ -99,12 +135,19 @@ from automodel_tpu_torch.generation.engine import (
 )
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.optim.builders import build_optimizer
+from automodel_tpu_torch.resilience import NonFiniteError, Resilience, TrainingPreempted
+from automodel_tpu_torch.resilience.fault_injection import FaultInjectionConfig
+from automodel_tpu_torch.resilience.guard import DistributedGuard, DistributedGuardConfig
 from automodel_tpu_torch.resilience.manifest import step_dir_key
-from automodel_tpu_torch.resilience.preemption import NonFiniteError
+from automodel_tpu_torch.telemetry import Telemetry, TelemetryConfig, build_fingerprint, jax_groups
+from automodel_tpu_torch.telemetry.goodput import GoodputLedger
+from automodel_tpu_torch.telemetry.profiling import ProfilingConfig
+from automodel_tpu_torch.telemetry.prometheus import MetricsServerConfig
 from automodel_tpu_torch.training.rng import StatefulRNG
 from automodel_tpu_torch.training.step_scheduler import StepScheduler
 from automodel_tpu_torch.training.train_state import TrainState
 from automodel_tpu_torch.training.train_step import build_eval_step, build_train_step, make_causal_lm_loss
+from automodel_tpu_torch.utils.flops_utils import flops_per_token_for_config
 
 logger = logging.getLogger(__name__)
 
@@ -113,15 +156,26 @@ READ_SECTIONS = (
     "seed", "device", "output_dir", "model", "dataset", "dataloader", "validation_dataset",
     "validation_dataloader", "step_scheduler", "optimizer", "loss_fn", "logging", "checkpoint",
     "fault_tolerance", "distributed", "generation", "data",
+    "telemetry", "profiling", "distributed_guard", "metrics_server", "fault_injection",
 )
 DEGREES = ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep")
-NONFINITE_POLICIES = ("raise", "skip", "rollback")
 
 
 class _RollbackRequested(Exception):
     def __init__(self, fail_step: int):
         super().__init__(fail_step)
         self.fail_step = fail_step
+
+
+def _weak_method(method) -> Any:
+    """A callable that calls ``method`` while its object lives, else nothing."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kwargs):
+        m = ref()
+        return m(*args, **kwargs) if m is not None else None
+
+    return call
 
 
 def _plain(section: Any) -> Any:
@@ -140,13 +194,7 @@ def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS) -> None:
             keys = f" ({', '.join(map(str, section))})" if isinstance(section, dict) and section else ""
             _refuse(f"{name}{keys}", f"the {name} section")
     checkpointing_config(cfg)
-    ft = dict(_plain(cfg.get("fault_tolerance", None)) or {})
-    policy = ft.pop("on_nonfinite", "raise")
-    if policy not in NONFINITE_POLICIES:
-        raise ValueError(f"fault_tolerance.on_nonfinite must be one of {NONFINITE_POLICIES}, got {policy!r}")
-    ft.pop("max_rollbacks", None)
-    if ft:
-        _refuse(f"fault_tolerance ({', '.join(ft)})", "resilience beyond on_nonfinite and max_rollbacks")
+    check_observability_sections(cfg)
     dist = dict(_plain(cfg.get("distributed", None)) or {})
     other = {k: v for k, v in dist.items() if k not in DEGREES or v not in (None, 1)}
     if other:
@@ -160,6 +208,36 @@ def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS) -> None:
     log_cfg.pop("metrics_path", None)
     if log_cfg:
         _refuse(f"logging ({', '.join(log_cfg)})", "a metrics sink other than the JSONL file")
+
+
+def _section(cfg: Any, name: str) -> dict:
+    d = dict(_plain(cfg.get(name, None)) or {})
+    d.pop("_target_", None)
+    return d
+
+
+def check_observability_sections(cfg: Any) -> None:
+    """Build the configs of ``fault_tolerance``, ``fault_injection``,
+    ``telemetry``, ``profiling``, ``distributed_guard`` and
+    ``metrics_server`` once, so an unknown key or a bad value raises
+    (JAX's ``TypeError`` / ``ValueError``) before the model is built."""
+    from automodel_tpu_torch.resilience import FaultToleranceConfig
+    from automodel_tpu_torch.resilience.consensus import ConsensusConfig
+    from automodel_tpu_torch.resilience.watchdog import WatchdogConfig
+    from automodel_tpu_torch.utils.profiler import ProfilerConfig
+
+    FaultToleranceConfig(**_section(cfg, "fault_tolerance"))
+    if cfg.get("fault_injection", None) is not None:
+        FaultInjectionConfig.from_dict(_section(cfg, "fault_injection"))
+    tel = TelemetryConfig(**_section(cfg, "telemetry"))
+    if tel.profile:
+        ProfilerConfig(**dict(tel.profile))
+    ProfilingConfig.from_dict(_section(cfg, "profiling")).triggered_config("captures")
+    guard = DistributedGuardConfig(**_section(cfg, "distributed_guard"))
+    WatchdogConfig(**dict(guard.watchdog or {}))
+    ConsensusConfig(**dict(guard.consensus or {}))
+    if cfg.get("metrics_server", None) is not None:
+        MetricsServerConfig.from_dict(_section(cfg, "metrics_server"))
 
 
 def checkpointing_config(cfg: Any) -> Optional[CheckpointingConfig]:
@@ -193,6 +271,9 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
     def setup(self) -> None:
         cfg = self.cfg
+        # the goodput ledger's epoch: the attempt's wall clock starts here,
+        # so model build and data setup land in its `startup` segment
+        self._setup_t0 = time.time()
         check_sections(cfg, self.read_sections)
         self.device = resolve_device(cfg.get("device", None))
         seed = int(cfg.get("seed", 42))
@@ -208,15 +289,30 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         self.lr_schedule = optimizer.schedule
         self.state = TrainState(params=params, optimizer=optimizer)
 
-        ft = _plain(cfg.get("fault_tolerance", None)) or {}
-        self.on_nonfinite = ft.get("on_nonfinite", "raise")
-        self.max_rollbacks = int(ft.get("max_rollbacks", 2))
-        self.rollbacks = 0
+        # telemetry.{enabled,anomaly_flags} govern the step's anomaly
+        # metrics (read here: the step is built before the facade)
+        tcfg = _section(cfg, "telemetry")
+        self._anomaly_flags = bool(tcfg.get("enabled", True)) and bool(tcfg.get("anomaly_flags", True))
+        # preemption handling, the non-finite policy and fault injection;
+        # built before the step, which takes the skip policy and NaN arm
+        self.resilience = Resilience.from_config(
+            _section(cfg, "fault_tolerance"),
+            _section(cfg, "fault_injection") if cfg.get("fault_injection", None) is not None else None,
+        )
+        if self.resilience.config.enabled and self.resilience.on_nonfinite == "raise" and not self._anomaly_flags:
+            logger.warning(
+                "telemetry.anomaly_flags is disabled: fault_tolerance.on_nonfinite=raise cannot detect "
+                "non-finite steps — divergence will train through silently"
+            )
+        self.rollbacks = 0  # the policy's count, mirrored from self.resilience
+        self._groups = jax_groups(self.model, [n for n, _ in named])
         # the counterpart of JAX's _make_train_step: both steps from one loss
         self.loss_fn = self._make_loss_fn()
         self.train_step = build_train_step(
-            self.loss_fn, self.lr_schedule, on_nonfinite=self.on_nonfinite,
+            self.loss_fn, self.lr_schedule, on_nonfinite=self.resilience.on_nonfinite,
             post_step_fn=getattr(self.model, "post_step_fn", None),
+            anomaly_flags=self._anomaly_flags, groups=self._groups,
+            nan_grads_at_step=self.resilience.nan_grads_at_step,
         )
         self.eval_step = build_eval_step(self.loss_fn)
 
@@ -250,12 +346,87 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 "prefetch: depth=%d collate_workers=%d",
                 self.prefetch_config.depth, self.prefetch_config.collate_workers,
             )
+        # SIGTERM means preemption when resilience is on (the handler asks
+        # the scheduler to stop at the next step boundary; the loop then
+        # saves the emergency checkpoint and exits 75); otherwise the
+        # scheduler's own graceful-shutdown handler
         self.step_scheduler = StepScheduler(dataloader=self.dataloader, **scfg)
+        if self.resilience.preemption is not None:
+            self.resilience.preemption.on_preempt = self.step_scheduler.request_shutdown
+            self.resilience.install()
+        else:
+            self.step_scheduler.install_signal_handler()
 
-        out_dir = Path(cfg.get("output_dir", None) or "runs/torch_finetune")
-        path = cfg.get("logging.metrics_path", None) or str(out_dir / "train_metrics.jsonl")
-        self.metric_logger = MetricLogger(path)
-        logger.info("training on %s, metrics to %s", self.device, path)
+        # everything a run writes lands under one output_dir, keyed on the
+        # config so a requeued run lands in the same dir (JAX :316-338)
+        out_dir = cfg.get("output_dir", None)
+        if out_dir is None:
+            fp = zlib.crc32(json.dumps(_plain(cfg), sort_keys=True, default=str).encode())
+            out_dir = str(Path("runs") / f"run_{fp:08x}")
+        self.output_dir = Path(out_dir)
+        metrics_path = Path(cfg.get("logging.metrics_path", None) or str(self.output_dir / "train_metrics.jsonl"))
+
+        # the goodput ledger beside the metrics JSONL, chained across
+        # restart attempts; its envelope stamps every record
+        self.ledger = GoodputLedger(
+            metrics_path.parent / "goodput.jsonl",
+            t_start=self._setup_t0,
+            enabled=bool(tcfg.get("enabled", True)) and bool(tcfg.get("goodput", True)),
+        )
+        self.metric_logger = MetricLogger(
+            str(metrics_path), envelope=self.ledger.envelope if self.ledger.enabled else None
+        )
+        logger.info("training on %s, metrics to %s", self.device, metrics_path)
+
+        fingerprint = build_fingerprint(_plain(cfg))
+        if self.ledger.enabled:
+            fingerprint["attempt"] = dict(self.ledger.envelope)
+        self.telemetry = Telemetry.from_config(
+            tcfg,
+            fingerprint=fingerprint,
+            default_recorder_path=str(self.metric_logger.path.parent / "flight_recorder.json"),
+            default_trace_dir=str(self.output_dir / "trace"),
+            device=self.device,
+        )
+        # cost-attributed MFU (step 1 counted) and the triggered capture
+        self.profiling = ProfilingConfig.from_dict(_section(cfg, "profiling"))
+        self._step_cost: Optional[dict] = None
+        self._flops_per_token: Optional[float] = None
+        # the hooks that point back at the recipe hold it weakly: a cycle
+        # would keep the model's tensors alive after the last reference
+        # drops, until the cyclic collector happens to run
+        guard_event = _weak_method(self._guard_event)
+        self.telemetry.attach_profiling(
+            self.profiling, capture_dir=str(self.output_dir / "captures"), event_hook=guard_event
+        )
+        # metrics_server: a standalone scrape port; the section's presence opts in
+        self._prom = None
+        self._prom_server = None
+        if cfg.get("metrics_server", None) is not None:
+            from automodel_tpu_torch.telemetry.prometheus import TrainMetricsExporter, start_metrics_server
+
+            mscfg = MetricsServerConfig.from_dict(_section(cfg, "metrics_server"))
+            if mscfg.enabled:
+                try:
+                    exporter = TrainMetricsExporter()
+                    self._prom_server = start_metrics_server(exporter.registry, mscfg.port, mscfg.host)
+                    self._prom = exporter
+                    logger.info("metrics server listening on %s:%d", mscfg.host, self._prom_server.server_address[1])
+                except OSError as e:
+                    # a busy scrape port must never kill training
+                    logger.warning(
+                        "metrics server failed to bind %s:%d (%s) — continuing WITHOUT a scrape port",
+                        mscfg.host, mscfg.port, e,
+                    )
+        # the hang watchdog, consensus and timed barriers; the stacks file
+        # and desync evidence land beside the metrics JSONL
+        self.guard = DistributedGuard.from_config(
+            _section(cfg, "distributed_guard"),
+            fingerprint=self.telemetry.flight_recorder.fingerprint if self.telemetry.flight_recorder else None,
+            flight_recorder=self.telemetry.flight_recorder,
+            metric_logger=self.metric_logger,
+            default_stacks_path=str(self.metric_logger.path.parent / "watchdog_stacks.txt"),
+        )
 
         # in-training eval sampling (generation: section); any skip reason is
         # recorded for the benchmark's decode leg
@@ -266,12 +437,79 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         if cfg.get("generation", None) is not None:
             self._setup_eval_generation(dict(_plain(cfg.generation) or {}))
 
+        # checkpointing after telemetry, so a walk-back at the startup
+        # resume reaches the flight recorder
         ccfg = checkpointing_config(cfg)
         self.checkpointer = Checkpointer(ccfg) if ccfg is not None else None
         # the newest validation loss; a save that beats BEST.json marks its dir
         self._last_val_metric: Optional[float] = None
+        if self.checkpointer is not None:
+            self.checkpointer.event_hook = self.telemetry.record_step
+            self.checkpointer.timing_hook = self.ledger.on_ckpt_timing
+            self.resilience.arm_peer_marker(self.checkpointer.root)
+            self.checkpointer.commit_barrier = self.guard.barrier
+        ckpt = self.checkpointer
+        self.guard.bind_runtime(
+            requeue_eligible=(lambda: ckpt.latest_committed_dir() is not None) if ckpt is not None else (lambda: False),
+            peer_marker_root=str(ckpt.root) if ckpt else None,
+            event_hook=guard_event,
+            params_example=self.state.params,
+        )
         if self.checkpointer is not None and self.checkpointer.has_checkpoint():
             self._restore()
+            # the previous attempt's step time past the resumed step is
+            # preemption-lost work
+            self.ledger.on_resume(int(self.state.step))
+        elif self.ledger.restart_count > 0:
+            # a restart with nothing to resume from: all of it was lost
+            self.ledger.on_resume(0)
+
+    def _guard_event(self, rec: dict) -> None:
+        """Anomaly evidence (desync, hang, trace_capture) goes to the
+        flight recorder, the metrics JSONL and the /metrics event counters."""
+        self.telemetry.record_step(rec)
+        try:
+            self.metric_logger.log(dict(rec), step=rec.get("step"))
+        except Exception:  # evidence is best-effort; the abort is not
+            pass
+        # a skipped capture did not happen: it does not advance the counter
+        if self._prom is not None and rec.get("event") and not rec.get("skipped"):
+            self._prom.event(str(rec["event"]))
+
+    def _compute_step_cost(self, cost) -> None:
+        """Step 1's counted cost (telemetry/profiling/cost.py) → the static
+        summary behind ``mfu_measured_pct``, logged whole as a
+        ``cost_attribution`` event (JAX :625-656)."""
+        from automodel_tpu_torch.telemetry import profiling as prof
+
+        basis = self.profiling.roofline_basis()
+        self._step_cost = {**cost.to_dict(), **prof.roofline(cost, basis)}
+        # null fields (an unknown roofline basis on the CPU) are dropped: the
+        # JSONL lint reads a bare null numeric as corruption
+        rec = {"event": "cost_attribution", "program": "train_step",
+               **{k: v for k, v in self._step_cost.items() if v is not None}}
+        self.telemetry.record_step({**rec, "ts": time.time()})
+        try:
+            self.metric_logger.log(rec)
+        except Exception:
+            pass
+
+    def _fold_mfu(self, metrics: dict) -> dict:
+        """Both MFU provenances on a log record (JAX :656-684): ``mfu_pct``
+        from the analytic law × tokens/s, ``mfu_measured_pct`` from step 1's
+        counted FLOPs over the amortized step time."""
+        from automodel_tpu_torch.telemetry import profiling as prof
+
+        basis = self.profiling.roofline_basis()
+        peak, _ = basis.resolve()
+        tpsd = metrics.get("tps_per_device")
+        if self._flops_per_token is not None and isinstance(tpsd, (int, float)) and peak == peak:
+            metrics["mfu_pct"] = round(100.0 * tpsd * self._flops_per_token / (peak * 1e12), 3)
+        if self._step_cost is not None and isinstance(metrics.get("step_time_s"), (int, float)):
+            m = prof.mfu_measured_pct(self._step_cost["flops"], metrics["step_time_s"], 1, basis)
+            if m is not None:
+                metrics["mfu_measured_pct"] = round(m, 3)
+        return metrics
 
     def _make_loss_fn(self):
         """The loss the train and eval steps take, over ``self.model``: the
@@ -431,29 +669,77 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
     # -- loop ---------------------------------------------------------------
     def run_train_validation_loop(self) -> dict:
+        """The loop (JAX :822-990). A preemption signal drains it at the next
+        step boundary; the prefetch producers are joined and their run-ahead
+        dropped; the end-of-loop save becomes the emergency checkpoint,
+        committed before ``TrainingPreempted`` unwinds to the CLI (exit 75).
+        The ledger's attempt closes last."""
+        tel, res = self.telemetry, self.resilience
+        self.guard.start()
         try:
             try:
-                last = self._loop_with_rollback()
+                with tel.crash_guard():
+                    last = self._loop_with_rollback()
             finally:
-                self._close_prefetch()
-            if self.checkpointer is not None:
-                # drain and commit an in-flight save, then skip the end-of-loop
-                # save when it already covers this step: save() begins by
-                # uncommitting its dir
-                self.checkpointer.wait()
-                latest = self.checkpointer.latest_committed_dir()
-                if latest is None or step_dir_key(latest)[1] != self.step_scheduler.step:
-                    self.save_checkpoint()
+                tel.close()
+                # join the producers before the emergency save; their
+                # run-ahead is dropped (the consumption cursor excludes it).
+                # The join waits on the input pipeline: input_wait time
+                with self.ledger.segment("input_wait", step=self.step_scheduler.step):
+                    self._close_prefetch()
+            if self.checkpointer is not None and (not res.preempted or res.config.emergency_checkpoint):
+                with self.guard.phase("checkpoint"):
+                    # drain and commit an in-flight save, then skip the
+                    # end-of-loop save when it already covers this step:
+                    # save() begins by uncommitting its dir
+                    self.checkpointer.wait()
+                    latest = self.checkpointer.latest_committed_dir()
+                    if latest is None or step_dir_key(latest)[1] != self.step_scheduler.step:
+                        self.guard.pre_commit(self.step_scheduler.step, self.state.params)
+                        self.save_checkpoint()
+            with self.guard.phase("shutdown"):
+                self.guard.barrier("shutdown")
         finally:
-            # always drain and commit an async save, even when the loop died
-            if self.checkpointer is not None:
-                self.checkpointer.close()
+            # always drain and commit an async save, even when the loop died;
+            # signal handlers are restored only after the emergency save
+            try:
+                if self.checkpointer is not None:
+                    with self.guard.phase("checkpoint"):
+                        self.checkpointer.close()
+            finally:
+                # boundary time after the last log record rides one closing
+                # goodput_tail record, so the records sum to wall clock
+                tail = self.ledger.pop_pending()
+                excluded = getattr(self, "_tail_excluded_s", 0.0)
+                if excluded > 0:
+                    tail["window_excluded_s"] = round(excluded, 6)
+                    self._tail_excluded_s = 0.0
+                if tail:
+                    try:
+                        self.metric_logger.log({"event": "goodput_tail", **tail}, step=self.step_scheduler.step)
+                    except Exception:  # accounting is best-effort at exit
+                        pass
+                    if self._prom is not None:
+                        self._prom.update(tail)
+                self.guard.close()
+                res.close()
+                self.step_scheduler.restore_signal_handlers()
+                if self._prom_server is not None:
+                    self._prom_server.shutdown()
+                self.ledger.close(
+                    reason="preempted" if res.preempted else ("crash" if sys.exc_info()[0] is not None else "exit")
+                )
+        if res.preempted:
+            # run-local committed dir only: a run that committed nothing
+            # must not look requeue-eligible
+            out = self.checkpointer.latest_committed_dir() if self.checkpointer else None
+            raise TrainingPreempted(self.step_scheduler.step, str(out) if out else None)
         return last
 
     def _loop_with_rollback(self) -> dict:
         while True:
             try:
-                return self._loop()
+                return self._loop(restarted=self.resilience.rollbacks > 0)
             except _RollbackRequested as rb:
                 self._rollback(rb.fail_step)
 
@@ -469,9 +755,17 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                 "on_nonfinite: skip)"
             )
         self.metric_logger.log({"event": "rollback", "fail_step": fail_step, "ts": time.time()})
+        # getattr: unit tests drive _rollback on a bare recipe object
+        tel = getattr(self, "telemetry", None)
+        if tel is not None:
+            tel.record_step({"event": "rollback", "fail_step": fail_step, "ts": time.time()})
         self.checkpointer.wait()  # an in-flight async save commits first
         self._restore(before_step=fail_step)
         ckpt_step = self.step_scheduler.step
+        # the step time of (ckpt_step, fail_step] is re-done: rollback_discard
+        led = getattr(self, "ledger", None)
+        if led is not None:
+            led.on_rollback(fail_step, ckpt_step)
         dl, ga = self.dataloader, self.step_scheduler.grad_acc_steps
         nb = len(dl)
         # replay the scheduler's consumption, not steps x grad_acc: an epoch
@@ -500,77 +794,196 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         )
 
     def _check_nonfinite(self, metrics: dict, step: int) -> None:
-        """The host side of ``on_nonfinite``: raise, or ask for a rollback
-        while the budget lasts (``skip`` is the train step's own)."""
-        if self.on_nonfinite not in ("raise", "rollback") or not bool(metrics["nonfinite"]):
+        """Fold the step's ``nonfinite`` flag into the policy (JAX
+        :549-586): raise, ask for a rollback while the budget lasts, or count
+        a skip (the train step itself discarded the update). A non-finite
+        step arms a triggered capture of the next window."""
+        res = self.resilience
+        if not res.config.enabled or "nonfinite" not in metrics:
             return
-        if self.on_nonfinite == "rollback":
-            if self.rollbacks < self.max_rollbacks:
-                self.rollbacks += 1
-                raise _RollbackRequested(step)
-            logger.error("on_nonfinite=rollback: rollback budget (%d) exhausted — raising", self.max_rollbacks)
-        raise NonFiniteError(
-            f"non-finite loss or gradient at step {step} (fault_tolerance.on_nonfinite: {self.on_nonfinite})"
-        )
+        if not bool(metrics["nonfinite"]):
+            res.observe_step_flag(step, False)
+            return
+        action = res.observe_step_flag(step, True)
+        self.rollbacks = res.rollbacks
+        self.telemetry.record_step({"event": "nonfinite_step", "step": step, "policy": res.on_nonfinite,
+                                    "action": action or "continue", "ts": time.time()})
+        self.telemetry.trigger_capture(step, "nonfinite")
+        if self._prom is not None:
+            self._prom.event("nonfinite_step")
+        if action == "raise":
+            raise NonFiniteError(
+                f"non-finite loss or gradient at step {step} (fault_tolerance.on_nonfinite: {res.on_nonfinite}) — "
+                "see the flight recorder for the per-group grad norms of the offending step"
+            )
+        if action == "rollback":
+            raise _RollbackRequested(step)
 
-    def _loop(self) -> dict:
+    def _train_step_counted(self, batch: dict) -> dict:
+        """Step 1 under the cost counter (JAX :1190-1205): the counted step
+        is the real one; a failure of the count is logged, never load-bearing."""
+        from automodel_tpu_torch.telemetry.profiling import count_cost
+
+        metrics, cost = count_cost(self.train_step, self.state, batch, program="train_step")
+        try:
+            self._compute_step_cost(cost)
+        except Exception as e:
+            logger.warning("cost attribution failed: %s", e)
+        return metrics
+
+    def _loop(self, restarted: bool = False) -> dict:
+        """The step loop (JAX :1109-1345). Each log record reports the window
+        since the last one, amortized: ``step_time_s`` = window seconds /
+        ``steps_spanned``, ``tps`` = window tokens / window seconds; step 1
+        is reported as ``compile_time_s`` (the kernels' builds and the cost
+        count land there) and stays out of every throughput window, as do
+        validation and checkpoint pauses (their wall time rides the next
+        record as ``window_excluded_s``)."""
+        tel, res = self.telemetry, self.resilience
         last: dict = {}
         tokens_window = steps_window = 0
         input_wait_window = 0.0
-        first = True
+        excluded_window = 0.0
+        self._tail_excluded_s = 0.0
+        # after a rollback the kernels are built: step 1 of the restart is no compile
+        first = not restarted
+        self.ledger.loop_started()
         t_window = time.perf_counter()
+
+        def flush_window(at_step: int) -> None:
+            if steps_window:
+                self.ledger.window(time.perf_counter() - t_window, input_wait_window, steps_window, at_step)
+
         it = iter(self.step_scheduler)
         while True:
             t_input = time.perf_counter()
+            tel.timers("data_wait").start()
             got = self._next_batch(it)
             if got is None:
+                input_wait_window += time.perf_counter() - t_input
                 break
+            tel.timers("data_wait").stop()
             stacked, batch, n_tokens = got
             input_wait_window += time.perf_counter() - t_input
-            metrics = self.train_step(self.state, batch)
             step = self.step_scheduler.step
+            tel.on_step(step)
+            tel.timers("dispatch").start()
+            if first and self.profiling.enabled and self.profiling.cost_attribution and self._step_cost is None:
+                metrics = self._train_step_counted(batch)
+            else:
+                metrics = self.train_step(self.state, batch)
+            tel.timers("dispatch").stop()
+            # step boundary: pet the watchdog, fold the batch hash
+            self.guard.on_step(step, stacked)
+            if res.injector is not None:
+                res.injector.maybe_die(step)
+                res.injector.maybe_straggle(step)
+                res.injector.maybe_hang(step)
             self._check_nonfinite(metrics, step)
             tokens_window += n_tokens
             steps_window += 1
-            if first or self.step_scheduler.is_log_step:
+            host_rec = {"step": step, "tokens": n_tokens, "ts": time.time()}
+            is_log = self.step_scheduler.is_log_step
+            if first or is_log:
+                tel.timers("device_sync").start()
                 rec = {k: v.tolist() if isinstance(v, torch.Tensor) else v for k, v in metrics.items()}
-                if self.rollbacks:
-                    rec["rollbacks_total"] = self.rollbacks
+                tel.timers("device_sync").stop()
                 dt = time.perf_counter() - t_window
                 if first:
-                    # kernel builds and allocator warm-up land here, as the first
-                    # JAX step's compile does in compile_time_s
-                    rec["first_step_s"] = dt
+                    if self._flops_per_token is None and "input_ids" in stacked:
+                        try:
+                            self._flops_per_token = flops_per_token_for_config(
+                                self.model.config, int(stacked["input_ids"].shape[-1])
+                            )
+                        except Exception:
+                            pass
+                    rec["compile_time_s"] = dt
+                    host_rec.update(compile_time_s=dt, loss=rec["loss"])
+                    self.ledger.compile_window(dt, input_wait_window, step=step)
+                    # step 1's timer entries and build events are the compile's
+                    tel.timers.drain_means()
+                    if tel.compile_bridge is not None:
+                        tel.compile_bridge.drain()
                 else:
                     rec.update(steps_spanned=steps_window, step_time_s=dt / steps_window, tps=tokens_window / dt,
-                               host_input_wait_s=input_wait_window / steps_window)
+                               tps_per_device=tokens_window / dt, host_input_wait_s=input_wait_window / steps_window)
                     if isinstance(self.dataloader, PrefetchingLoader):
                         rec["prefetch_depth"] = self.dataloader.queue_depth
-                if first and not self.step_scheduler.is_log_step:
-                    logger.info("first step %.3fs", dt)
-                else:
+                    if res.skipped_steps:
+                        rec["skipped_steps_total"] = res.skipped_steps
+                    if res.rollbacks:
+                        rec["rollbacks_total"] = res.rollbacks
+                    rec = self._fold_mfu(rec)
+                    self.ledger.window(dt, input_wait_window, steps_window, step)
+                    if excluded_window > 0:
+                        rec["window_excluded_s"] = round(excluded_window, 6)
+                        excluded_window = 0.0
+                if is_log:
+                    rec.update(self.ledger.pop_pending())
+                    rec = tel.enrich(step, rec)
+                    rec = self.guard.on_log(step, rec, params=self.state.params)
                     self.metric_logger.log(rec, step=step)
+                    if self._prom is not None:
+                        self._prom.update(rec)
+                        self._prom.update_goodput(self.ledger.snapshot())
                     last = rec
+                else:
+                    logger.info("first step %.3fs", dt)
+                host_rec.update({k: rec[k] for k in ("loss", "grad_norm", "step_time_s", "tps", "nonfinite") if k in rec})
+                tel.record_step(host_rec)
                 first = False
                 tokens_window = steps_window = 0
                 input_wait_window = 0.0
                 t_window = time.perf_counter()
-            boundary = False
+            else:
+                tel.record_step(host_rec)
             gen_active = self._gen_engine is not None and self._gen_prompt_ids is not None
             if self.step_scheduler.is_val_step and (self.val_dataloader is not None or gen_active):
-                if self.val_dataloader is not None:
-                    self.metric_logger.log(self.run_validation(), step=step)
-                if gen_active:
-                    self._log_eval_generation()
-                boundary = True
-            if self.checkpointer is not None and self.step_scheduler.is_ckpt_step:
-                self.save_checkpoint()
-                boundary = True
-            if boundary:
-                # validation, sampling and save time must not read as step time
+                flush_window(step)
+                t_boundary = time.perf_counter()
+                with self.guard.phase("eval"):
+                    if self.val_dataloader is not None:
+                        with self.ledger.segment("eval", step=step):
+                            val = self.run_validation()
+                        if tel.compile_bridge is not None:
+                            d = tel.compile_bridge.drain()
+                            if d["compiles"]:
+                                val["eval_compiles"] = d["compiles"]
+                                val["eval_compile_secs"] = round(d["compile_secs"], 4)
+                        self.metric_logger.log(val, step=step)
+                    if gen_active:
+                        with self.ledger.segment("generation", step=step):
+                            self._log_eval_generation()
+                if tel.compile_bridge is not None:
+                    tel.compile_bridge.drain()
+                tel.skip_next_interval()
+                excluded_window += time.perf_counter() - t_boundary
                 tokens_window = steps_window = 0
                 input_wait_window = 0.0
                 t_window = time.perf_counter()
+            if self.checkpointer is not None and self.step_scheduler.is_ckpt_step:
+                flush_window(step)
+                t_boundary = time.perf_counter()
+                # every process agrees on (step, config, data, params) before
+                # the manifest commits
+                self.guard.pre_commit(step, self.state.params)
+                with self.guard.phase("checkpoint"):
+                    self.save_checkpoint()
+                tel.skip_next_interval()
+                excluded_window += time.perf_counter() - t_boundary
+                tokens_window = steps_window = 0
+                input_wait_window = 0.0
+                t_window = time.perf_counter()
+        # the tail window (steps since the last log record) closes like any other
+        if steps_window:
+            flush_window(self.step_scheduler.step)
+        elif input_wait_window > 0:
+            self.ledger.add("input_wait", input_wait_window, step=self.step_scheduler.step)
+        self._tail_excluded_s = excluded_window
+        if res.skipped_steps:
+            last["skipped_steps_total"] = res.skipped_steps
+        if res.rollbacks:
+            last["rollbacks_total"] = res.rollbacks
         return last
 
     def run_validation(self) -> dict:

@@ -5,7 +5,8 @@ checkpoint modules use at every storage touchpoint (safetensors reads and
 writes, the DCP state save and load, the manifest commit). Only typed
 retryable exceptions are absorbed (the ``OSError`` family by default): a
 ``ValueError`` from a corrupt header is corruption or a bug and propagates
-at once. The JAX version's fault-injection hook is not ported.
+at once. The fault injector's ``fail_io_attempts`` fails the first attempts
+of a matching op here (resilience/fault_injection.py).
 """
 
 from __future__ import annotations
@@ -67,10 +68,15 @@ def retry_io(
 
         @functools.wraps(fn)
         def wrapped(*args: Any, **kwargs: Any) -> Any:
+            from automodel_tpu_torch.resilience.fault_injection import active_injector
+
             delays = list(backoff_delays(max_attempts, base_delay_s, max_delay_s, jitter))
             last: Optional[BaseException] = None
             for attempt in range(max_attempts):
                 try:
+                    inj = active_injector()
+                    if inj is not None:
+                        inj.check_io(name)
                     return fn(*args, **kwargs)
                 except retryable as e:
                     last = e

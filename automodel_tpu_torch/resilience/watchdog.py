@@ -1,37 +1,53 @@
-"""Heartbeat watchdog, port of ``WatchdogConfig``, ``Watchdog`` and
-``EngineWatchdog`` of ``automodel_tpu/resilience/watchdog.py``.
+"""Hang watchdog, port of ``automodel_tpu/resilience/watchdog.py``:
+detect the failure that never announces itself.
 
-A daemon thread watches a heartbeat the owner *pets* at every step
-boundary (two attribute stores on the host). The deadline adapts: an EMA
-of the observed step time times a multiplier, clamped by the config, with
-a grace budget while the first kernels build. On expiry the watchdog
-writes the evidence a post-mortem needs — all-thread stacks through
-``faulthandler`` and a flight-recorder dump stamped with the event — and
-hands it to its observer (``on_hang``; the serving engine's stall flag,
-which fails the stalled wave and keeps serving). Only this record-only
-behaviour is ported: JAX's training-side expiry (the peer-preemption
-marker and a requeue exit) waits for a training caller.
+- A daemon thread watches a heartbeat the training loop *pets* at every
+  step boundary. The pet is two attribute stores on the host — nothing
+  touches the device.
+- The deadline ADAPTS: an EMA of observed step time × a multiplier,
+  floored/ceilinged by config, with separate grace budgets for the phases
+  that are legitimately slow (the first step's kernel builds, checkpoint
+  saves, validation/generation, shutdown).
+- On expiry the watchdog collects the evidence a post-mortem needs —
+  all-thread stacks via ``faulthandler``, a forced flight-recorder dump
+  stamped with a ``hang`` event — then hard-exits with the requeue exit
+  code (75) so slurm/k8s recycle the job. A run that never committed a
+  checkpoint exits 1 instead (requeueing it would hang again from
+  scratch).
+- ``EngineWatchdog`` (serving) keeps the record-only behaviour: it hands
+  the evidence to its ``on_hang`` observer and keeps watching.
 
-The poll thread only reads the heartbeat: it never touches the device, so
-a CUDA call that blocks the scheduler thread cannot block the watchdog
-(the blocking CUDA calls release the GIL, as does ``time.sleep``).
+The watchdog thread needs the GIL to run; the blocking CUDA calls
+(synchronize, a copy to the host) release it, as does ``time.sleep``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import logging
+import os
 import sys
 import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Optional
 
+from automodel_tpu_torch.resilience.preemption import (
+    REQUEUE_EXIT_CODE,
+    write_peer_preemption_marker,
+)
+
 logger = logging.getLogger(__name__)
 
 # phase name → config field holding its grace budget
-_PHASE_GRACE_FIELDS = {"compile": "compile_grace_s"}
+_PHASE_GRACE_FIELDS = {
+    "compile": "compile_grace_s",
+    "checkpoint": "checkpoint_grace_s",
+    "eval": "eval_grace_s",
+    "shutdown": "shutdown_grace_s",
+}
 
 
 @dataclasses.dataclass
@@ -42,36 +58,54 @@ class WatchdogConfig:
     min_deadline_s: float = 120.0
     max_deadline_s: float = 3600.0
     ema_alpha: float = 0.2
-    # the deadline while the first kernels build
+    # phase grace budgets: the deadline while the loop is legitimately slow
     compile_grace_s: float = 1800.0
+    checkpoint_grace_s: float = 900.0
+    eval_grace_s: float = 900.0
+    shutdown_grace_s: float = 600.0
     poll_interval_s: float = 5.0
     # where the all-thread stack dump lands; None → next to the flight
-    # recorder (the front passes a default beside the metrics JSONL)
+    # recorder (the recipe passes a default beside the metrics JSONL)
     stacks_path: Optional[str] = None
+    # False = diagnose (stacks + flight recorder + hang event) but do not
+    # exit — for embedding in processes that own their own lifecycle
+    exit_on_hang: bool = True
 
 
 class Watchdog:
     """Heartbeat watchdog. ``start()`` arms the compile grace and spawns the
-    poll thread; the loop calls ``pet(step)`` at every step boundary. On
-    expiry the evidence goes to ``on_hang``, which owns what happens next.
+    poll thread; the loop calls ``pet(step)`` at every step boundary and
+    wraps slow sections in ``phase("checkpoint"|"eval"|"shutdown")``.
 
     All cross-thread state is plain attribute stores (atomic under the
     GIL); the poll thread tolerates reading a slightly stale pet."""
 
-    # stamped on the evidence record and the flight-recorder dump reason
+    # stamped on the evidence record and the flight-recorder dump reason;
+    # EngineWatchdog (serving) overrides it so a serving stall and a
+    # training hang stay distinguishable in the JSONL / report summary
     EVENT = "hang"
 
     def __init__(
         self,
         config: WatchdogConfig,
-        on_hang: Callable[[dict], None],
         flight_recorder: Any = None,
         metric_logger: Any = None,
+        requeue_eligible: Optional[Callable[[], bool]] = None,
+        peer_marker_root: Optional[str] = None,
+        on_hang: Optional[Callable[[dict], None]] = None,
     ):
         self.config = config
-        self.on_hang = on_hang
         self.flight_recorder = flight_recorder
         self.metric_logger = metric_logger
+        # requeue only pays off when there is a committed checkpoint to
+        # resume from — the recipe wires this to the checkpointer
+        self.requeue_eligible = requeue_eligible
+        # shared checkpoint root: stamped with the peer-preemption
+        # marker before exiting, so peers dying of the broken collectives
+        # this host just abandoned requeue as collateral instead of
+        # burning the launcher's backoff budget
+        self.peer_marker_root = peer_marker_root
+        self.on_hang = on_hang  # test seam: observe instead of exiting
         self.fired: Optional[dict] = None
         self._last_pet = 0.0
         self._last_step = 0
@@ -103,6 +137,26 @@ class Watchdog:
         # adaptive deadline takes over
         if self._phase == "compile" and self._pets >= 2:
             self._phase = None
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Mark a legitimately-slow section (checkpoint/eval/shutdown): the
+        deadline becomes at least that phase's grace budget, and the time
+        spent inside never pollutes the step-time EMA."""
+        if name not in _PHASE_GRACE_FIELDS:
+            raise ValueError(f"unknown watchdog phase {name!r}")
+        outer, self._phase = self._phase, name
+        self._last_pet = time.monotonic()  # the phase starts fresh
+        try:
+            yield
+        finally:
+            # reset the heartbeat BEFORE dropping the phase grace: the
+            # other order has a window where the poll thread sees
+            # age = the whole phase duration against the tight adaptive
+            # deadline and kills a healthy run
+            self._last_pet = time.monotonic()
+            self._phase = outer
+            self._skip_next_ema = True  # phase wall time is not a step time
 
     # -- introspection -------------------------------------------------------
     @property
@@ -163,9 +217,9 @@ class Watchdog:
                 return
 
     def _fire(self, age: float, deadline: float) -> None:
-        """Deadline expired: dump the evidence and hand it to ``on_hang``.
-        Every step is best-effort — a broken disk must not keep the
-        observer from hearing of the stall."""
+        """Deadline expired: dump the evidence, then get the job recycled.
+        Every step is individually best-effort — a broken disk must not
+        stop the exit that frees the reservation."""
         rec = {
             "event": self.EVENT,
             "step": self._last_step,
@@ -199,15 +253,42 @@ class Watchdog:
                 self.metric_logger.log(dict(rec))
             except Exception:
                 pass
-        try:
-            self.on_hang(rec)
-        except Exception:
-            pass
+        if self.on_hang is not None:
+            try:
+                self.on_hang(rec)
+            except Exception:
+                pass
+            return  # the observer owns what happens next
+        if not self.config.exit_on_hang:
+            return
+        if self.peer_marker_root:
+            # peers are (or will be) stuck in the collectives this host is
+            # about to abandon; the marker lets their crashes requeue
+            write_peer_preemption_marker(self.peer_marker_root)
+        eligible = True
+        if self.requeue_eligible is not None:
+            try:
+                eligible = bool(self.requeue_eligible())
+            except Exception:
+                eligible = False
+        code = REQUEUE_EXIT_CODE if eligible else 1
+        print(
+            f"[watchdog] exiting {code} "
+            + ("(requeue — committed checkpoint available)" if eligible else
+               "(REAL failure — nothing committed to resume from, a requeue "
+               "would hang again at zero progress)"),
+            file=sys.stderr, flush=True,
+        )
+        # os._exit, not sys.exit: the main thread is hung — no finally
+        # block or atexit hook is coming to help, and raising in THIS
+        # thread would kill only the watchdog
+        os._exit(code)
 
     def set_phase(self, name: Optional[str]) -> None:
-        """Pin (or clear) the current phase — the serving engine holds the
-        ``compile`` grace until its decode program has actually run once,
-        which the second-pet rule cannot know about."""
+        """Pin (or clear) the current phase outside the context-manager
+        form — the serving engine holds the ``compile`` grace until its
+        decode step has actually run once, which
+        the training loop's second-pet rule cannot know about."""
         if name is not None and name not in _PHASE_GRACE_FIELDS:
             raise ValueError(f"unknown watchdog phase {name!r}")
         self._phase = name
@@ -245,14 +326,16 @@ class Watchdog:
 
 
 class EngineWatchdog(Watchdog):
-    """Serving-side stall watchdog: the same adaptive-deadline EMA, compile
-    grace, and evidence machinery as :class:`Watchdog`, with the lifecycle
-    a RECOVERING consumer needs:
+    """Serving-side stall watchdog: the same adaptive-deadline EMA, phase
+    grace, and evidence machinery as the training :class:`Watchdog`, with
+    the lifecycle a RECOVERING consumer needs:
 
-    - firing is an observation: ``on_hang`` (the serving scheduler's stall
-      flag) receives the evidence and the watchdog KEEPS WATCHING. The
-      engine fails the stalled wave's requests, rebuilds its pool/slot
-      state, and serving continues.
+    - firing is an observation, not a death sentence: ``on_hang`` (required
+      here — the serving scheduler's stall flag) receives the evidence and
+      the watchdog KEEPS WATCHING. The engine fails the stalled wave's
+      requests, rebuilds its pool/slot state, and serving continues; the
+      training watchdog's requeue-exit path is wrong for a server that can
+      shed one wave and keep its queue.
     - it re-arms only after the NEXT pet: one wedged step fires exactly
       once, however long the silence lasts, and the eventual recovery
       interval is excluded from the EMA (a 30s stall must not teach the
@@ -269,6 +352,11 @@ class EngineWatchdog(Watchdog):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
+        if self.on_hang is None and self.config.exit_on_hang:
+            raise ValueError(
+                "EngineWatchdog needs an on_hang observer (the serving "
+                "scheduler's stall flag) — it never exits the process"
+            )
         self.fired_total = 0
 
     def _loop(self) -> None:

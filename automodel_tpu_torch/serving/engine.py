@@ -847,7 +847,7 @@ class ServingEngine:
             poll_interval_s=c.poll_interval_s, stacks_path=c.stacks_path or stacks_path,
         )
         self._watchdog = EngineWatchdog(
-            wcfg, self._note_stall, flight_recorder=flight_recorder, metric_logger=metric_logger,
+            wcfg, flight_recorder=flight_recorder, metric_logger=metric_logger, on_hang=self._note_stall,
         )
         self._watchdog.start()
         return self._watchdog

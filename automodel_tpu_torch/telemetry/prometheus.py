@@ -9,12 +9,16 @@ and error counters, the QoS tier/tenant families and the ttft / decode
 tokens-per-second histograms. Exposition follows the text format 0.0.4
 (``# HELP``/``# TYPE`` headers, ``_bucket{le=...}``/``_sum``/``_count``
 for histograms). One lock per registry: the scheduler thread observes
-while HTTP handler threads scrape. The training exporter and its
-standalone metrics port are not ported.
+while HTTP handler threads scrape. The training side: ``MetricsServerConfig``
+(the ``metrics_server:`` section), ``TrainMetricsExporter`` (the
+``automodel_train_*`` families, folded from each log record, the goodput
+snapshot and the guard's events) and ``start_metrics_server`` (a
+standalone ``GET /metrics`` port).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 import threading
@@ -638,3 +642,214 @@ class ServingMetrics:
             self.spec_accept_rate.set(
                 accepted / proposed if proposed else 0.0
             )
+
+
+@dataclasses.dataclass
+class MetricsServerConfig:
+    """The ``metrics_server:`` YAML section — a standalone training-side
+    scrape port (the serving server mounts /metrics on its existing HTTP
+    front and needs no section). The section's PRESENCE opts in; port 0
+    lets the OS pick (tests)."""
+
+    enabled: bool = True
+    port: int = 9100
+    host: str = "127.0.0.1"
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "MetricsServerConfig":
+        d = dict(d or {})
+        d.pop("_target_", None)
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise TypeError(f"unknown metrics_server keys: {sorted(unknown)}")
+        return cls(**d)
+
+
+# -- training-side metric set --------------------------------------------------
+
+# log-record key → (metric name, help). Gauges: last-logged value.
+_TRAIN_GAUGES = {
+    "step": ("automodel_train_step", "Last logged optimizer step"),
+    "loss": ("automodel_train_loss", "Last logged training loss"),
+    "step_time_s": (
+        "automodel_train_step_time_seconds",
+        "Amortized step time over the last log window",
+    ),
+    "tps": (
+        "automodel_train_tokens_per_second",
+        "Tokens/second over the last log window",
+    ),
+    "tps_per_device": (
+        "automodel_train_tokens_per_second_per_device",
+        "Tokens/second/device over the last log window",
+    ),
+    "grad_norm": ("automodel_train_grad_norm", "Last logged global gradient norm"),
+    "mfu_pct": (
+        "automodel_train_mfu_pct",
+        "Analytic MFU percent (flops_utils law) over the last log window",
+    ),
+    "mfu_measured_pct": (
+        "automodel_train_mfu_measured_pct",
+        "Measured MFU percent (cost-attributed step program) over the last log window",
+    ),
+    "heartbeat_age_s": (
+        "automodel_train_heartbeat_age_seconds",
+        "Watchdog heartbeat age at the last log barrier",
+    ),
+    "host_input_wait_s": (
+        "automodel_train_host_input_wait_seconds",
+        "Amortized host time per step acquiring the next batch over the "
+        "last log window (collate+stack+H2D when sync; a queue pop when "
+        "prefetched)",
+    ),
+    "prefetch_depth": (
+        "automodel_train_prefetch_queue_depth",
+        "Device-ready batches the input pipeline holds ahead of the train "
+        "loop, sampled at the last log barrier",
+    ),
+}
+_TRAIN_CUMULATIVE = {
+    "skipped_steps_total": (
+        "automodel_train_skipped_steps",
+        "Steps discarded by the non-finite policy",
+    ),
+    "rollbacks_total": (
+        "automodel_train_rollbacks",
+        "Checkpoint rollbacks taken by the non-finite policy",
+    ),
+    "recompiles": (
+        "automodel_train_recompiles",
+        "Host-side kernel builds after the initial step",
+    ),
+}
+# checkpoint-timing record keys → histogram (name, help) — the goodput
+# ledger stamps these on the log record after each operation
+_TRAIN_CKPT_HISTOGRAMS = {
+    "ckpt_save_s": (
+        "automodel_train_ckpt_save_seconds",
+        "Checkpoint save wall time (sync write or async staging), per save",
+    ),
+    "ckpt_restore_s": (
+        "automodel_train_ckpt_restore_seconds",
+        "Checkpoint restore wall time, per load",
+    ),
+    "ckpt_drain_s": (
+        "automodel_train_ckpt_drain_seconds",
+        "Async checkpoint drain + commit wall time, per drained save",
+    ),
+}
+_TRAIN_EVENT_COUNTERS = {
+    "hang": ("automodel_train_hang_events", "Watchdog hang detections"),
+    "desync": ("automodel_train_desync_events", "Cross-host desync detections"),
+    "nonfinite_step": (
+        "automodel_train_nonfinite_steps",
+        "Steps whose loss/grads were non-finite",
+    ),
+    "trace_capture": (
+        "automodel_train_trace_captures",
+        "Triggered profiler captures",
+    ),
+}
+
+
+class TrainMetricsExporter:
+    """Folds train-loop log records and telemetry events into the registry.
+    ``update(record)`` at each log barrier; ``event(name)`` from the guard/
+    telemetry event hooks."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        r = registry or MetricsRegistry()
+        self.registry = r
+        self._gauges = {k: r.gauge(*spec) for k, spec in _TRAIN_GAUGES.items()}
+        self._cumulative = {
+            k: r.counter(*spec) for k, spec in _TRAIN_CUMULATIVE.items()
+        }
+        self._events = {
+            k: r.counter(*spec) for k, spec in _TRAIN_EVENT_COUNTERS.items()
+        }
+        self._ckpt_hists = {
+            k: r.histogram(*spec) for k, spec in _TRAIN_CKPT_HISTOGRAMS.items()
+        }
+        # goodput run ledger (telemetry/goodput.py): live goodput fraction +
+        # net per-segment wall-clock totals for THIS attempt
+        self._goodput_fraction = r.gauge(
+            "automodel_train_goodput_fraction",
+            "Productive step seconds / attempt wall clock so far "
+            "(goodput ledger, net of rollback-discarded work)",
+        )
+        self._goodput_seconds = r.labeled_gauge(
+            "automodel_train_goodput_seconds",
+            "Attempt wall clock accounted to each goodput segment so far",
+            "segment",
+        )
+
+    def update(self, record: dict) -> None:
+        with self.registry.lock:
+            for k, g in self._gauges.items():
+                v = record.get(k)
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    g.set(v)
+            for k, c in self._cumulative.items():
+                v = record.get(k)
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    if k == "recompiles":  # per-window count, not cumulative
+                        c.inc(v)
+                    else:
+                        c.set_total(v)
+            for k, h in self._ckpt_hists.items():
+                v = record.get(k)
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    h.observe(v)
+
+    def update_goodput(self, snapshot: dict) -> None:
+        """Fold a ``GoodputLedger.snapshot()`` (called at each log barrier;
+        the labeled gauge takes its own per-metric lock)."""
+        frac = snapshot.get("goodput_fraction")
+        segments = snapshot.get("segments") or {}
+        with self.registry.lock:
+            if isinstance(frac, (int, float)):
+                self._goodput_fraction.set(frac)
+        for kind, seconds in segments.items():
+            if isinstance(seconds, (int, float)):
+                self._goodput_seconds.set(kind, max(float(seconds), 0.0))
+
+    def event(self, name: str) -> None:
+        c = self._events.get(name)
+        if c is not None:
+            with self.registry.lock:
+                c.inc()
+
+
+# -- standalone metrics port (training side) -----------------------------------
+
+
+def start_metrics_server(
+    registry: MetricsRegistry, port: int, host: str = "127.0.0.1"
+):
+    """Serve ``GET /metrics`` from a daemon thread → the started
+    ThreadingHTTPServer (``.server_address[1]`` has the bound port; pass
+    port 0 to let the OS pick — the tests do). ``shutdown()`` stops it."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass  # scrapes are not stderr news
+
+        def do_GET(self):
+            if self.path.split("?")[0] not in ("/metrics", "/"):
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = registry.render().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", CONTENT_TYPE)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    # a short poll: shutdown() waits one poll, and a run's ledger closes after it
+    t = threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05}, daemon=True)
+    t.start()
+    return server

@@ -1,10 +1,12 @@
 """Step scheduling, port of ``automodel_tpu/training/step_scheduler.py``:
 epochs, grad-accumulation groups, ``max_steps``, the log, checkpoint and
-validation cadences, and the (step, epoch) state a checkpoint carries.
-The SIGTERM hook waits with the resilience port."""
+validation cadences, the (step, epoch) state a checkpoint carries, and
+the stop at the next step boundary on a shutdown request (SIGTERM, through
+``install_signal_handler`` or the recipe's preemption handler)."""
 
 from __future__ import annotations
 
+import signal
 from typing import Any, Iterator, Optional
 
 
@@ -28,6 +30,35 @@ class StepScheduler:
         self.dataloader = dataloader
         self.step = 0  # optimizer steps taken
         self.epoch = 0
+        self._shutdown = False
+        self._handler = None
+
+    # -- graceful shutdown --------------------------------------------------
+    def install_signal_handler(self, signals: tuple = (signal.SIGTERM,)) -> None:
+        """Install the stop-at-step-boundary handler, chaining any handler
+        already installed; the caller restores it (``restore_signal_handlers``)
+        after the end-of-run save."""
+        from automodel_tpu_torch.resilience.preemption import PreemptionHandler
+
+        if self._handler is None:
+            self._handler = PreemptionHandler(
+                signals=signals, on_preempt=self.request_shutdown,
+                log_message="stopping at the next step boundary (graceful shutdown)",
+            )
+        self._handler.install()
+
+    def restore_signal_handlers(self) -> None:
+        if self._handler is not None:
+            self._handler.restore()
+
+    def request_shutdown(self) -> None:
+        """Stop at the next step boundary (the preemption handler calls
+        this so SIGTERM drains the loop)."""
+        self._shutdown = True
+
+    @property
+    def shutdown_requested(self) -> bool:
+        return self._shutdown
 
     def __iter__(self) -> Iterator[Any]:
         """One item per optimizer step: a list of ``grad_acc_steps``
@@ -51,7 +82,12 @@ class StepScheduler:
                 self.step += 1
                 yield batch if grouped else group
                 group = []
+                if self._shutdown:
+                    return
             self.epoch += 1
+            # a signal landing in the epoch tail stops here, not an epoch later
+            if self._shutdown:
+                return
 
     @property
     def is_ckpt_step(self) -> bool:

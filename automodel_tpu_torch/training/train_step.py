@@ -21,9 +21,19 @@ list (:243-249); ``post_step_fn(extras)`` runs after an applied update
 (:192), the aux-free router-bias slot. Pipeline info, ``bound_params``,
 QAT and LoRA hooks are not ported.
 
-``nonfinite`` is read from the loss and the fp32 grad norm: any NaN or Inf
-gradient element makes the norm non-finite. Deciding whether to apply the
-update reads it on the host (one synchronisation per step).
+``anomaly_flags`` (default on, ``telemetry.anomaly_flags``) adds
+``telemetry/anomaly.py``'s metrics: ``nonfinite`` (a non-finite loss or
+any non-finite gradient *element*, as JAX's :199-209 counts them, not the
+norm's finiteness: the fp32 sum of squares overflows while every element
+is finite), ``grad_nonfinite_count`` and ``grad_norm/<group>`` per JAX
+param group (``groups``, one name a parameter). All of it comes from the
+per-tensor norms the global norm takes; elements are counted only in a
+tensor whose norm is not finite. With the flags off, ``nonfinite`` is
+still computed when the policy or the fault injection needs it (JAX
+:203-209), and absent otherwise. ``nan_grads_at_step`` (fault injection)
+adds NaN to every gradient of that step before the norms (:182-187).
+Deciding whether to apply the update reads the flag on the host (one
+synchronisation per step).
 """
 
 from __future__ import annotations
@@ -32,7 +42,8 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-from automodel_tpu_torch.optim.builders import global_norm_fp32
+from automodel_tpu_torch.optim.builders import global_norm_fp32, tensor_norms_fp32
+from automodel_tpu_torch.telemetry.anomaly import anomaly_metrics, nonfinite_count
 from automodel_tpu_torch.training.train_state import TrainState
 
 ON_NONFINITE = ("raise", "skip", "rollback")
@@ -44,6 +55,9 @@ def build_train_step(
     on_nonfinite: str = "raise",
     post_step_fn: Optional[Callable[[dict], None]] = None,
     grad_mask: Optional[Sequence[bool]] = None,
+    anomaly_flags: bool = True,
+    groups: Optional[Sequence[str]] = None,
+    nan_grads_at_step: Optional[int] = None,
 ) -> Callable[[TrainState, dict], dict]:
     """(state, batch) → metrics, updating ``state`` in place.
 
@@ -51,7 +65,9 @@ def build_train_step(
     loss_sum the un-normalized token-loss sum. Metrics are tensors on the batch's device
     (``loss``, ``grad_norm``, ``num_label_tokens``, ``nonfinite``) plus the
     host ints/floats ``step``, ``lr`` and, under ``skip``, ``skipped``. With
-    ``raise`` the caller checks ``nonfinite`` (recipes/train_ft.py)."""
+    ``raise`` the caller checks ``nonfinite`` (recipes/train_ft.py).
+    ``groups`` names each parameter's group for ``grad_norm/<group>``
+    (``telemetry.anomaly.jax_groups``; one ``params`` group when None)."""
     if on_nonfinite not in ON_NONFINITE:
         raise ValueError(f"on_nonfinite={on_nonfinite!r} is not ported (want one of {ON_NONFINITE})")
 
@@ -97,15 +113,26 @@ def build_train_step(
         else:
             for g in grads:
                 g.div_(denom)
-        grad_norm = global_norm_fp32(grads)
-        nonfinite = ~(torch.isfinite(loss_sum) & torch.isfinite(grad_norm))
+        if nan_grads_at_step is not None and state.step + 1 == nan_grads_at_step:
+            for g in grads:
+                g.add_(float("nan"))
+        norms = tensor_norms_fp32(grads)
+        grad_norm = global_norm_fp32(grads, norms)
         metrics: dict[str, Any] = {
             "loss": loss_sum / denom,
             "grad_norm": grad_norm,
             "num_label_tokens": n_tokens,
-            "nonfinite": nonfinite,
             "step": state.step + 1,
         }
+
+        def flags() -> dict:
+            # reads the norms' finiteness on the host: taken after the update
+            # is queued unless the skip policy must see it first
+            if anomaly_flags:
+                return anomaly_metrics(loss_sum, grads, norms, groups or ["params"] * len(grads))
+            if on_nonfinite != "raise" or nan_grads_at_step is not None:
+                return {"nonfinite": ~torch.isfinite(loss_sum) | (nonfinite_count(grads, norms) > 0)}
+            return {}
         if "moe_aux_loss" in extras_sum:
             metrics["moe_aux_loss"] = extras_sum["moe_aux_loss"] / n_mb
         if "expert_counts" in extras_sum:
@@ -115,13 +142,18 @@ def build_train_step(
             metrics["expert_load_imbalance_per_layer"] = per_layer
         if lr_schedule is not None:
             metrics["lr"] = float(lr_schedule(state.step))
-        skip = on_nonfinite == "skip" and bool(nonfinite)
+        skip = False
+        if on_nonfinite == "skip":
+            metrics.update(flags())
+            skip = bool(metrics["nonfinite"])
         if not skip:
             state.optimizer.update(grads, grad_norm)
             if post_step_fn is not None:
                 post_step_fn(extras_sum)
         if on_nonfinite == "skip":
             metrics["skipped"] = skip
+        else:
+            metrics.update(flags())
         state.step += 1
         return metrics
 

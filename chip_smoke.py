@@ -191,16 +191,17 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    step printed; last, one microbatch's KD loss
    and the student's grad norm with both models cut to 2 layers, ``attn:
    flash`` against ``attn: sdpa`` within phase 7's limits;
-20. speculative serving at full width and depth
+20. speculative serving at full width
    (``automodel_tpu_torch/configs/serve_qwen3_moe_a3b_spec.yaml`` as a
    dict, through the ``serve`` CLI's ``build_engine``): the Qwen3-30B-A3B
-   target at its published 48 layers (``experts: ragged``) and the
+   target at its published widths, its 48 layers cut to 24 (phase 25 took
+   the time; ``experts: ragged``) and the
    Qwen3-0.6B draft (28 layers), k = 4, greedy, a bf16 pool on the fused
    backend, 16 slots. 16 token-id requests of 128-1024 prompt tokens, 8
    sharing a 512-token prefix, 64 new tokens each: (a) every request ends
    by length or stop and the block pool audits clean and drains; (b) the
-   paged kernel's launches equal verify forwards x 48 + draft forwards x
-   28 and gmm's 2 x 48 x the target's forwards (prefill chunks and
+   paged kernel's launches equal verify forwards x 24 + draft forwards x
+   28 and gmm's 2 x 24 x the target's forwards (prefill chunks and
    verifies), each formula printed beside its count; a profile of verify
    rounds with every slot busy; (c) the same requests with the draft off,
    whose greedy streams the spec-on ones must equal or first leave at a
@@ -216,7 +217,7 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
 21. the serving front and the host spill tier at Llama-3-8B's published
    widths and all 32 layers (``configs/serve_llama3_8b_front.yaml`` as a
    dict, random bf16 weights): (a) one slot on a 512-block bf16 pool with
-   a 4 GiB host tier, 8 groups of a 2048-token prefix, each arriving 3
+   a 4 GiB host tier, 4 groups of a 2048-token prefix, each arriving 2
    times round-robin with a fresh 64-token suffix (32 new tokens, greedy),
    spill on then off: the reload counts equal those of the schedule
    replayed on the host, the allocator and tier audit clean after every
@@ -305,9 +306,41 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    restores step 2, retrains steps 3-4 on the batches past the failed
    window and ends with the loader at batch 7, where JAX's arithmetic puts
    it. The corpora and checkpoints are deleted.
+25. the training run's telemetry, profiling, goodput, metrics port and
+   guard, on a 2^22-token Megatron corpus: (a) phase 24's config at 32
+   layers, 7 steps, with every section on (the memory census every 3
+   steps, a manual ``torch.profiler`` window over step 4, the cost count
+   of step 1, ``metrics_server`` on a free port, the guard's defaults) and
+   again with each ``enabled: false``: the losses and grad norms must be
+   equal bit for bit; the on run's records carry every
+   ``grad_norm/<group>``, ``grad_nonfinite_count: 0``, the ``time/*_s``
+   means, ``mem_bytes_in_use`` on its cadence, ``heartbeat_age_s``,
+   ``mfu_pct`` and ``mfu_measured_pct``, and the off run's none of them;
+   one ``cost_attribution`` event (its FLOPs a token printed beside the
+   analytic law); a ``/metrics`` scrape after each log record's fold
+   shows all 23 ``automodel_train_*`` families and the last step;
+   ``goodput`` on the run dir exits 0 with the segments within 5% of the
+   wall clock; the step-time ratio on / off printed for plain, census and
+   window steps; (b) the ``profile`` command on the same config, 2 warmup
+   steps and 1 traced: the trace must hold CUDA kernel events (it fails
+   with none), K1's three kernels among its top ops with 2 x 32
+   forward and 32 dq and dkv launches, the busy share and the largest
+   host gaps printed; (c) at 2 layers, step 1's counted FLOPs under
+   ``attn: flash`` equal ``attn: sdpa``'s exactly; (d) at 2 layers,
+   ``straggle_ms`` at step 6 fires a triggered capture whose trace holds
+   K1's kernels beside a CUDA memory snapshot, and ``nan_grads_at_step``
+   under ``on_nonfinite: skip`` logs ``nonfinite: true, skipped: true`` with
+   a non-finite ``grad_norm/layers`` and a capture with reason
+   ``nonfinite``; (e) two ``pretrain llm`` CLI processes at 2 layers side
+   by side, beside (c) and (d): a hang after the step-2 checkpoint exits 75 within the
+   watchdog's deadline plus a poll, with the stacks, a ``hang`` event and
+   a flight-recorder dump; SIGTERM mid-run exits 75 with a committed
+   emergency checkpoint, the restart resumes at the next step and the
+   ledger holds two chained attempts, each within 5% of its wall clock.
+   The run dirs are deleted.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 24 last. After the build the
+phase 3b right after phase 3, phases 15 to 25 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -593,7 +626,8 @@ KD_STEPS = 4
 # phase 20, speculative serving: automodel_tpu_torch/configs/
 # serve_qwen3_moe_a3b_spec.yaml as a dict (tests/test_torch_cli.py checks
 # the two agree): the Qwen3-30B-A3B target at its published 48 layers
-# (experts ragged, the paged kernel in decode and verify) and the
+# (cut to SPEC_TARGET_LAYERS in the phase; experts ragged, the paged
+# kernel in decode and verify) and the
 # Qwen3-0.6B draft, k = 4, greedy, on one card.
 QWEN3_0_6B = dict(  # Qwen/Qwen3-0.6B config.json widths
     architectures=["Qwen3ForCausalLM"], model_type="qwen3", vocab_size=151936, hidden_size=1024,
@@ -625,6 +659,11 @@ SELF_DRAFT_LLAMA3_8B = dict(
                                   draft=dict(hf_config=dict(LLAMA3_8B, num_hidden_layers=4), backend=BF16))),
 )
 SELF_DRAFT_MIN_ACCEPT = 0.8
+# phase 20's target depth: Qwen3-30B-A3B's widths, its 48 layers cut to 24
+# (at 16 a spec-off stream left a spec-on one away from a near tie: MoE
+# routing flips move logits by more than rounding)
+# so the whole script keeps inside its time limit with phase 25
+SPEC_TARGET_LAYERS = 24
 
 
 def row_rel_err(out, ref) -> float:
@@ -1567,7 +1606,7 @@ def run_dense_training(torch, cfg: dict, label: str) -> dict:
     if any(n != want for n in launches.values()):
         raise RuntimeError(f"{label}: flash launches {launches}, want {want} (= {layers} layers x {acc} "
                            f"microbatches x {steps} steps) each")
-    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    rows = step_records(cfg["logging"]["metrics_path"])
     if [r["step"] for r in rows] != list(range(1, steps + 1)):
         raise RuntimeError(f"metric rows for steps {[r['step'] for r in rows]}")
     for r in rows:
@@ -1591,7 +1630,7 @@ def run_dense_training(torch, cfg: dict, label: str) -> dict:
     out = dict(
         params=n_params, layers=layers, tokens_per_step=tokens, steps=steps, microbatches=acc,
         losses=[r["loss"] for r in rows], grad_norms=[r["grad_norm"] for r in rows],
-        first_step_s=rows[0].get("first_step_s"), step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+        compile_time_s=rows[0].get("compile_time_s"), step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
         model_flop_per_step=flops, model_flops_share_of_989=flops / step_s / BF16_FLOPS,
         wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         flash_launches=launches, matrices_moved=len(moved),
@@ -1981,7 +2020,7 @@ def run_moe_training(torch, cfg: dict, label: str, kernels: dict, want: dict, fa
     if launches != want:
         raise RuntimeError(f"{label}: kernel launches {launches}, want {want} ({layers} layers x {acc} microbatches "
                            f"x {steps} steps)")
-    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    rows = step_records(cfg["logging"]["metrics_path"])
     if [r["step"] for r in rows] != list(range(1, steps + 1)):
         raise RuntimeError(f"metric rows for steps {[r['step'] for r in rows]}")
     for r in rows:
@@ -2023,7 +2062,7 @@ def run_moe_training(torch, cfg: dict, label: str, kernels: dict, want: dict, fa
         moe_aux_losses=[r["moe_aux_loss"] for r in rows],
         expert_load_imbalance=[r["expert_load_imbalance"] for r in rows],
         expert_load_imbalance_per_layer=rows[-1]["expert_load_imbalance_per_layer"],
-        first_step_s=rows[0].get("first_step_s"), step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+        compile_time_s=rows[0].get("compile_time_s"), step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
         wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
         expert_slabs_fed=slabs_fed, expert_slabs_moved=slabs_moved, fewest_rows_of_a_fed_slab=min(fed_rows),
     )
@@ -2176,6 +2215,15 @@ def run_recipe(torch, cfg: dict):
 
 def train_rows(rows: list) -> dict:
     return {r["step"]: r for r in rows if "loss" in r}
+
+
+# the records the default-on telemetry adds beside the step rows
+TELEMETRY_EVENTS = ("cost_attribution", "trace_capture", "goodput_tail", "nonfinite_step")
+
+
+def step_records(path) -> list:
+    """A metrics JSONL's step rows, without the event records."""
+    return [r for r in map(json.loads, open(path)) if "event" not in r]
 
 
 def gbps(nbytes: int, seconds: float) -> float:
@@ -2650,7 +2698,7 @@ def run_kd(torch, remat: str) -> dict:
         raise RuntimeError(f"kd (remat {remat}): flash launches {got}, want {want} (teacher {t_layers} layers, "
                            f"student {s_layers} layers x {recompute} under remat {remat}, x {acc} microbatches x "
                            f"{steps} steps)")
-    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    rows = step_records(cfg["logging"]["metrics_path"])
     if [r["step"] for r in rows] != list(range(1, steps + 1)):
         raise RuntimeError(f"kd (remat {remat}): metric rows for steps {[r['step'] for r in rows]}")
     for r in rows:
@@ -2674,7 +2722,7 @@ def run_kd(torch, remat: str) -> dict:
     out = dict(
         remat=remat, student_params=s_params, teacher_params=t_params, tokens_per_step=tokens, steps=steps,
         microbatches=acc, setup_s=setup_s, wall_s=wall, losses=[r["loss"] for r in rows],
-        grad_norms=[r["grad_norm"] for r in rows], first_step_s=rows[0].get("first_step_s"),
+        grad_norms=[r["grad_norm"] for r in rows], compile_time_s=rows[0].get("compile_time_s"),
         step_ms=1e3 * step_s, step_ms_each=[1e3 * r["step_time_s"] for r in rows[1:]],
         tokens_per_s=tokens / step_s, model_flop_per_step=flops,
         model_flops_share_of_989=flops / step_s / BF16_FLOPS,
@@ -3501,7 +3549,9 @@ def phase_spec_serving(torch) -> dict:
     torch.cuda.empty_cache()  # the earlier phases' cached blocks: the target alone is 61 GB
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = build_engine(ConfigNode(json.loads(json.dumps(SERVE_QWEN3_MOE_A3B_SPEC))))
+    cfg = json.loads(json.dumps(SERVE_QWEN3_MOE_A3B_SPEC))
+    cfg["model"]["hf_config"]["num_hidden_layers"] = SPEC_TARGET_LAYERS
+    engine = build_engine(ConfigNode(cfg))
     auto = engine.auto
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in auto.model.parameters())
@@ -3662,8 +3712,9 @@ DATA_SAVE_STEP = 2
 # (a)/(b): a 512-block pool (1 GiB bf16) holds about three groups of a
 # 2048-token shared prefix (128 blocks) + a 64-token suffix + 32 new tokens
 FRONT_POOL_BLOCKS = 512
-FRONT_PREFIX, FRONT_SUFFIX, FRONT_NEW, FRONT_ROUNDS = 2048, 64, 32, 3
-FRONT_GROUPS = {"bf16": 8, "int8": 4}
+# 2 rounds and 4 bf16 groups (from 3 and 8) for phase 25's time
+FRONT_PREFIX, FRONT_SUFFIX, FRONT_NEW, FRONT_ROUNDS = 2048, 64, 32, 2
+FRONT_GROUPS = {"bf16": 4, "int8": 4}
 # a spill-on stream may leave a spill-off one only where the spill-off
 # step's top two logits lie within this many bf16 ulps of the top one
 FRONT_TIE_ULPS = 3
@@ -4536,7 +4587,7 @@ def phase_sft_full(torch) -> dict:
     embed = recipe.model.model.embed_tokens.weight.numel()
     flops = 6 * (n_params - embed) * seq + attention_flops(cfg, seq)
     out = dict(params=n_params, layers=layers, setup_s=setup_s, wall_s=wall, losses=[r["loss"] for r in steps],
-               grad_norms=[r["grad_norm"] for r in steps], first_step_s=steps[0].get("first_step_s"),
+               grad_norms=[r["grad_norm"] for r in steps], compile_time_s=steps[0].get("compile_time_s"),
                step_ms=1e3 * step_s, tokens_per_s=seq / step_s, model_flop_per_step=flops,
                mfu_on_989=flops / step_s / BF16_FLOPS, peak_mem_gib=peak, flash_launches=launches,
                moments_dtype=str(recipe.state.optimizer.mu[0].dtype), report_strict_rc=rc)
@@ -4656,7 +4707,8 @@ def run_rollback_on_card(torch) -> dict:
         last = recipe.run_train_validation_loop()
         wall = time.perf_counter() - t0
         rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
-        events = [(r["event"], r.get("fail_step", r.get("resumed_from_step"))) for r in rows if "event" in r]
+        events = [(r["event"], r.get("fail_step", r.get("resumed_from_step"))) for r in rows
+                  if r.get("event") not in (None, *TELEMETRY_EVENTS)]
         cursor = recipe.dataloader.state_dict()
         out = dict(last_step=last["step"], rollbacks_total=last.get("rollbacks_total"), events=events,
                    loader=dict(epoch=cursor["epoch"], batch_in_epoch=cursor["batch_in_epoch"]), wall_s=wall,
@@ -4829,7 +4881,7 @@ def run_pretrain_megatron(torch, prefix, prefetch: bool, tag: str) -> dict:
                mfu_on_989=flops / step_s / BF16_FLOPS, peak_mem_gib=peak, flash_launches=launches,
                host_input_wait_s=[rows[s]["host_input_wait_s"] for s in steps[1:]],
                prefetch_depth=[rows[s].get("prefetch_depth") for s in steps[1:]],
-               losses=[rows[s]["loss"] for s in steps], first_step_s=rows[1].get("first_step_s"))
+               losses=[rows[s]["loss"] for s in steps], compile_time_s=rows[1].get("compile_time_s"))
     print(f"phase 24 (b) pretrain llm, {tag}: {json.dumps(out)} | {card_line()}", flush=True)
     del recipe
     gc.collect()
@@ -5005,7 +5057,8 @@ def phase_data_resume(torch, sources) -> dict:
         # flagged non-finite once: the rollback restores the save again
         cfg = nanogpt_config(sources, ds_seed, "nanogpt_resumed", last, ck, rollback=True)
         recipe, rows2, seen, fired = run(cfg, flaky_step=last)
-        events = [(r["event"], r.get("fail_step", r.get("resumed_from_step"))) for r in rows2 if "event" in r]
+        events = [(r["event"], r.get("fail_step", r.get("resumed_from_step"))) for r in rows2
+                  if r.get("event") not in (None, *TELEMETRY_EVENTS)]
         if [f["step"] for f in fired] != [last] or events != [
                 ("resume", DATA_SAVE_STEP), ("rollback", last), ("resume", DATA_SAVE_STEP)]:
             raise RuntimeError(f"24 (d): events {events}, planted at {fired}")
@@ -5056,6 +5109,438 @@ def phase_data(torch, dev) -> dict:
         out["pretrain"] = phase_data_pretrain(torch, corpora["prefix"])
         out["packing"] = phase_data_packing(torch, dev, corpora["prefix"])
         out["resume"] = phase_data_resume(torch, corpora["sources"])
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# -- phase 25: the training run's telemetry, profiling, goodput and guard -------
+
+OBS_STEPS = 7  # (a): a manual profile window over step 4, the memory census every 3 steps
+OBS_CENSUS_EVERY = 3
+OBS_WINDOW_STEP = 4
+OBS_CORPUS_TOKENS = 2**22  # 16 MiB of uint32 tokens: the runs read 6 x 4096 of them
+OBS_LAYERS = 2  # (c)-(e)
+OBS_PROFILE = dict(trace_warmup_steps=2, trace_steps=1)  # (b)
+OBS_STRAGGLE = dict(straggle_host=0, straggle_ms=2000.0, straggle_at_step=6)  # (d), a 9-step run
+# (d) runs beside (e)'s two processes: a slow step is 5x the EMA, not 3x,
+# so the host they share cannot fire a capture before the straggle
+OBS_TRIGGER = dict(slow_step_factor=5.0)
+OBS_NAN_STEP = 3  # (d), a 6-step run under skip
+OBS_HANG_STEP = 3  # (e), after the step-2 checkpoint
+OBS_WATCHDOG = dict(min_deadline_s=5.0, poll_interval_s=0.25, multiplier=4.0)
+# (e)'s checkpoints: size-only manifests (phase 17 holds the CRC read-back);
+# the 2-layer state at 8B widths is ~9 GB a save, and time is short
+OBS_CKPT = dict(enabled=True, manifest_checksums=False)
+OBS_OFF = dict(telemetry={"enabled": False}, profiling={"enabled": False}, distributed_guard={"enabled": False},
+               metrics_server={"enabled": False})
+OBS_EVENT_SLACK_S = 1.0  # host jitter beside the watchdog's poll
+
+
+def obs_config(prefix, root, tag: str, steps: int, layers: int | None = None, **sections) -> dict:
+    """Phase 24's Megatron config (prefetch on) in a run dir of its own."""
+    cfg = megatron_config(prefix, True, tag)
+    cfg["output_dir"] = str(root / tag)
+    cfg["logging"]["metrics_path"] = str(root / tag / "train_metrics.jsonl")
+    cfg["step_scheduler"].update(max_steps=steps, log_every_steps=1)
+    if layers is not None:
+        cfg["model"]["hf_config"]["num_hidden_layers"] = layers
+    cfg.update(json.loads(json.dumps(sections)))
+    return cfg
+
+
+def obs_run(torch, cfg: dict, scrape: bool = False) -> dict:
+    """One run of the training recipe (the CLI's entry) → its records, the
+    flash launches of the run, wall seconds and, with ``scrape``, the
+    ``/metrics`` body read after each log record's fold."""
+    import urllib.request
+
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
+    from automodel_tpu_torch.resilience import fault_injection
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    recipe = TrainFinetuneRecipeForNextTokenPrediction(ConfigNode(cfg))
+    recipe.setup()
+    scrapes, scrape_s = [], [0.0]
+    if scrape:
+        port = recipe._prom_server.server_address[1]
+        fold = recipe._prom.update_goodput
+
+        def update_goodput(snapshot):  # the last fold of a log record
+            fold(snapshot)
+            t = time.perf_counter()
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+                scrapes.append(r.read().decode())
+            scrape_s[0] += time.perf_counter() - t
+
+        recipe._prom.update_goodput = update_goodput
+    kernels = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
+    for f in kernels:  # the main path's run: every count set to 0 just before, read just after
+        f.launches = 0
+    t0 = time.perf_counter()
+    try:
+        recipe.run_train_validation_loop()
+    finally:
+        fault_injection.activate(None)  # the injector is process-global
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels)))
+    rows = [json.loads(line) for line in open(cfg["logging"]["metrics_path"])]
+    out = dict(rows=rows, launches=launches, wall_s=wall, scrapes=scrapes, scrape_s=scrape_s[0],
+               model_config=recipe.model.config,
+               n_params=sum(p.numel() for p in recipe.state.params))
+    del recipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_counts(top_ops: list) -> dict:
+    """Launches of K1's three kernels among a trace report's top ops."""
+    return {k: sum(o["count"] for o in top_ops if f"flash_{k}_kernel" in o["name"]) for k in ("fwd", "dq", "dkv")}
+
+
+def phase_obs_on_off(torch, prefix, root) -> dict:
+    """Phase 25 (a): every section on (a memory cadence, a manual profile
+    window, the cost count, a metrics port, the guard's defaults) and every
+    section off, at 32 layers: the same losses and grad norms bit for bit;
+    the records' keys, one cost_attribution event, a /metrics scrape at the
+    last step, and the goodput ledger summing to the wall clock."""
+    from automodel_tpu_torch.telemetry.goodput import _read_records, rollup
+    from automodel_tpu_torch.telemetry.goodput import main as goodput_main
+    from automodel_tpu_torch.telemetry.prometheus import TrainMetricsExporter
+    from automodel_tpu_torch.utils.flops_utils import flops_per_token_for_config
+
+    on_cfg = obs_config(prefix, root, "on", OBS_STEPS, telemetry=dict(
+        memory_every_steps=OBS_CENSUS_EVERY, profile=dict(enabled=True, start_step=OBS_WINDOW_STEP,
+                                                          end_step=OBS_WINDOW_STEP + 1,
+                                                          trace_dir=str(root / "on" / "trace"))),
+        metrics_server=dict(port=0))
+    on = obs_run(torch, on_cfg, scrape=True)
+    off = obs_run(torch, obs_config(prefix, root, "off", OBS_STEPS, **OBS_OFF))
+    steps = list(range(1, OBS_STEPS + 1))
+    a, b = train_rows(on["rows"]), train_rows(off["rows"])
+    if sorted(a) != steps or sorted(b) != steps:
+        raise RuntimeError(f"25 (a): steps logged {sorted(a)} / {sorted(b)}")
+    same = all(a[s][k] == b[s][k] for s in steps for k in ("loss", "grad_norm"))
+    if not same:
+        raise RuntimeError(f"25 (a): on / off losses {[(a[s]['loss'], b[s]['loss']) for s in steps]}, grad norms "
+                           f"{[(a[s]['grad_norm'], b[s]['grad_norm']) for s in steps]} differ")
+    layers = on_cfg["model"]["hf_config"]["num_hidden_layers"]
+    want_launch = dict(fwd=2 * layers * OBS_STEPS, dq=layers * OBS_STEPS, dkv=layers * OBS_STEPS)
+    if on["launches"] != want_launch or off["launches"] != want_launch:
+        raise RuntimeError(f"25 (a): flash launches {on['launches']} / {off['launches']}, want {want_launch}")
+    groups = ("grad_norm/embed", "grad_norm/layers", "grad_norm/final_norm", "grad_norm/lm_head")
+    problems = []
+    for s in steps:
+        r = a[s]
+        need = ["grad_nonfinite_count", "heartbeat_age_s", "attempt_id", *groups]
+        if s > 1:
+            need += ["time/data_wait_s", "time/dispatch_s", "time/device_sync_s", "mfu_pct", "mfu_measured_pct"]
+        if s % OBS_CENSUS_EVERY == 0:
+            need += ["mem_bytes_in_use", "mem_peak_bytes"]
+        missing = [k for k in need if r.get(k) is None]
+        if missing or r["grad_nonfinite_count"] != 0 or r["nonfinite"]:
+            problems.append(f"step {s} lacks {missing} or is flagged: {r}")
+        if any(k.startswith(("grad_norm/", "time/")) or k in ("nonfinite", "heartbeat_age_s", "attempt_id")
+               for k in b[s]):
+            problems.append(f"step {s} of the off run carries telemetry keys: {sorted(b[s])}")
+    costs = [r for r in on["rows"] if r.get("event") == "cost_attribution"]
+    if len(costs) != 1 or not costs[0]["flops"] > 0 or any(r.get("event") for r in off["rows"]):
+        problems.append(f"cost_attribution events {costs} (off run events "
+                        f"{[r['event'] for r in off['rows'] if r.get('event')]})")
+    families = [l.split()[2] for l in TrainMetricsExporter().registry.render().splitlines() if l.startswith("# TYPE")]
+    last = parse_metrics(on["scrapes"][-1]) if on["scrapes"] else {}
+    if (len(on["scrapes"]) != OBS_STEPS or last.get("automodel_train_step") != OBS_STEPS
+            or [f for f in families if f"# TYPE {f} " not in on["scrapes"][-1]]):
+        problems.append(f"/metrics: {len(on['scrapes'])} scrapes, step {last.get('automodel_train_step')}")
+    if problems:
+        raise RuntimeError("25 (a): " + "; ".join(problems))
+    seq = on_cfg["dataset"]["seq_length"]
+    law = flops_per_token_for_config(on["model_config"], seq)
+    cost = costs[0]
+    import io
+    from contextlib import redirect_stdout
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = goodput_main([str(root / "on")])
+    roll = rollup(_read_records(root / "on" / "goodput.jsonl"))
+    (att,) = roll["attempts"]
+    # the harness's own scrapes run between a record and the next window: no segment holds them
+    if rc != 0 or att["unattributed_s"] - on["scrape_s"] > 0.05 * att["wall_s"]:
+        raise RuntimeError(f"25 (a): goodput rc {rc}, attempt {att}\n{buf.getvalue()}")
+    def ratio(kind: list) -> float:
+        return statistics.median(a[s]["step_time_s"] for s in kind) / statistics.median(
+            b[s]["step_time_s"] for s in kind)
+
+    census = [s for s in steps[1:] if s % OBS_CENSUS_EVERY == 0]
+    # the window's step, and the next, whose first hook stops and writes the trace
+    window = [OBS_WINDOW_STEP, OBS_WINDOW_STEP + 1]
+    plain = [s for s in steps[1:] if s not in census and s not in window]
+    out = dict(
+        bitwise_equal=True, losses=[a[s]["loss"] for s in steps], grad_norms=[a[s]["grad_norm"] for s in steps],
+        step_ms_on=[1e3 * a[s]["step_time_s"] for s in steps[1:]], step_ms_off=[1e3 * b[s]["step_time_s"] for s in steps[1:]],
+        step_time_ratio_on_off=ratio(plain), ratio_steps=plain, step_time_ratio_census_steps=ratio(census),
+        step_time_ratio_window_steps=ratio(window),
+        mfu_pct=[a[s]["mfu_pct"] for s in steps[1:]], mfu_measured_pct=[a[s]["mfu_measured_pct"] for s in steps[1:]],
+        measured_flops_per_token=cost["flops"] / seq, law_flops_per_token=law,
+        measured_over_law=cost["flops"] / seq / law, roofline_class=cost.get("roofline_class"),
+        arithmetic_intensity=cost.get("arithmetic_intensity"), cost_eqns=cost.get("eqns"),
+        compile_time_s=(a[1]["compile_time_s"], b[1]["compile_time_s"]),
+        mem_bytes_in_use={s: a[s]["mem_bytes_in_use"] for s in census},
+        heartbeat_age_s=[a[s]["heartbeat_age_s"] for s in steps], launches=on["launches"],
+        goodput=dict(wall_s=att["wall_s"], unattributed_s=att["unattributed_s"], scrape_s=on["scrape_s"],
+                     segments=att["segments"],
+                     goodput_fraction=att.get("goodput_fraction")),
+        scrape_step=last.get("automodel_train_step"), scrape_families=len(families),
+        wall_s=(on["wall_s"], off["wall_s"]),
+    )
+    print(f"phase 25 (a) sections on / off at 32 layers: {json.dumps(out)} | {card_line()}", flush=True)
+    return out
+
+
+def phase_obs_profile(torch, prefix, root) -> dict:
+    """Phase 25 (b): the ``profile`` command at 32 layers: the trace must
+    hold device kernel events (it fails with none), K1's three kernels
+    among the top ops with layers x steps launches (the forward twice under
+    remat: full), the busy share and the largest host gaps printed."""
+    from automodel_tpu_torch.config import ConfigNode
+    from automodel_tpu_torch.telemetry.profiling.runner import main as profile_main
+
+    cfg = obs_config(prefix, root, "profile", 100, profiling=dict(OBS_PROFILE, top_k=400))
+    t0 = time.perf_counter()
+    rc = profile_main(ConfigNode(cfg))
+    wall = time.perf_counter() - t0
+    report = json.loads((root / "profile" / "profile" / "report.json").read_text())
+    if rc != 0 or report["kernel_events"] == 0:
+        raise RuntimeError(f"25 (b): profile rc {rc}, {report['kernel_events']} kernel events in the trace "
+                           f"(device {report['device']}): the profiler recorded no CUDA activity")
+    layers, steps = cfg["model"]["hf_config"]["num_hidden_layers"], OBS_PROFILE["trace_steps"]
+    counts = flash_counts(report["top_ops"])
+    # the kernel libraries link the static cudart: does the trace hold the
+    # host launch event of each K1 kernel (its correlation id), as it does
+    # for torch's own kernels?
+    from automodel_tpu_torch.telemetry.profiling.trace import load_trace_events
+
+    events = load_trace_events(root / "profile" / "profile" / "trace")
+    host = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            host[(e.get("args") or {}).get("correlation")] = e.get("name")
+    k1 = [e for e in events if e.get("cat") == "kernel" and "flash_" in str(e.get("name"))]
+    torch_k = [e for e in events if e.get("cat") == "kernel" and "flash_" not in str(e.get("name"))]
+    linked = [host.get((e.get("args") or {}).get("correlation")) for e in k1]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    edges = [(str(e.get("name"))[:60], round(e["ts"] - kernels[0]["ts"], 1)) for e in kernels[:10] + kernels[-3:]]
+    print(f"phase 25 (b) the trace's first and last kernels (name, us from the first): {edges}", flush=True)
+    launches = dict(k1_kernels=len(k1), k1_with_host_launch=sum(x is not None for x in linked),
+                    k1_launch_names=sorted({x for x in linked if x}),
+                    torch_kernels=len(torch_k),
+                    torch_with_host_launch=sum(host.get((e.get("args") or {}).get("correlation")) is not None
+                                               for e in torch_k))
+    want = dict(fwd=2 * layers * steps, dq=layers * steps, dkv=layers * steps)
+    if counts != want:
+        raise RuntimeError(f"25 (b): K1 launches in the trace {counts}, want {want}; launch events {launches}; "
+                           f"top ops {[(o['name'], o['count']) for o in report['top_ops'][:30]]}")
+    out = dict(rc=rc, wall_s=wall, kernel_events=report["kernel_events"], op_events=report["op_events"],
+               window_s=report["window_s"], device_busy_s=report["device_busy_s"],
+               device_busy_fraction=report["device_busy_fraction"], host_gap_s=report["host_gap_s"],
+               host_gaps=report["host_gaps"], flash_counts=counts,
+               flash_self_s={k: sum(o["self_s"] for o in report["top_ops"] if f"flash_{k}_kernel" in o["name"])
+                             for k in ("fwd", "dq", "dkv")},
+               top_ops=[(o["name"], o["count"], o["self_s"], o["share_pct"]) for o in report["top_ops"][:8]],
+               launch_events=launches, run_metrics=report.get("run_metrics"))
+    print(f"phase 25 (b) profile at 32 layers: {json.dumps(out)} | {card_line()}", flush=True)
+    return out
+
+
+def phase_obs_flops(torch, prefix, root) -> dict:
+    """Phase 25 (c): at Llama-3-8B width cut to 2 layers, the counted step's
+    flops under ``attn: flash`` equal ``attn: sdpa``'s exactly."""
+    flops = {}
+    for attn in ("flash", "sdpa"):
+        cfg = obs_config(prefix, root, f"flops_{attn}", 1, OBS_LAYERS)
+        cfg["model"]["backend"]["attn"] = attn
+        run = obs_run(torch, cfg)
+        (cost,) = [r for r in run["rows"] if r.get("event") == "cost_attribution"]
+        flops[attn] = cost
+    keys = ("flops", "dot_flops", "dot_ops")
+    out = {attn: {k: flops[attn][k] for k in keys} for attn in flops}
+    print(f"phase 25 (c) counted flops, flash against sdpa at 2 layers: {json.dumps(out)}", flush=True)
+    if flops["flash"]["flops"] != flops["sdpa"]["flops"] or flops["flash"]["dot_flops"] != flops["sdpa"]["dot_flops"]:
+        raise RuntimeError(f"25 (c): flash counts {out['flash']}, sdpa {out['sdpa']}")
+    return out
+
+
+def phase_obs_triggered(torch, prefix, root) -> dict:
+    """Phase 25 (d): a straggled step fires a triggered capture whose trace
+    holds K1's kernels beside a CUDA memory snapshot; NaN grads under
+    ``skip`` log the skipped step with its non-finite group norm and a
+    capture with reason ``nonfinite``."""
+    from automodel_tpu_torch.telemetry.profiling.trace import analyze_trace, load_trace_events
+
+    run = obs_run(torch, obs_config(prefix, root, "straggle", 9, OBS_LAYERS, fault_injection=OBS_STRAGGLE,
+                                    profiling=dict(triggered=OBS_TRIGGER)))
+    caps = [r for r in run["rows"] if r.get("event") == "trace_capture" and r.get("capture_path")]
+    if [c["reason"] for c in caps] != ["slow_step"]:
+        raise RuntimeError(f"25 (d): captures {caps}")
+    cap = caps[0]
+    report = analyze_trace(load_trace_events(cap["trace_file"]), top_k=400)
+    snap = cap.get("memory_profile")
+    counts = flash_counts(report["top_ops"])
+    if not (snap and os.path.getsize(snap) > 0) or not all(counts.values()):
+        raise RuntimeError(f"25 (d): capture {cap}, K1 in its trace {counts}")
+    straggle = dict(capture=cap, trace_kernel_events=report["kernel_events"], flash_counts=counts,
+                    snapshot_bytes=os.path.getsize(snap))
+    nan = obs_run(torch, obs_config(prefix, root, "nan", 6, OBS_LAYERS, fault_tolerance=dict(on_nonfinite="skip"),
+                                    fault_injection=dict(nan_grads_at_step=OBS_NAN_STEP)))
+    rows = train_rows(nan["rows"])
+    bad = rows[OBS_NAN_STEP]
+    ncaps = [r for r in nan["rows"] if r.get("event") == "trace_capture" and r.get("capture_path")]
+    if (bad["nonfinite"] is not True or bad["skipped"] is not True or bad["grad_norm/layers"] is not None
+            or not bad.get("grad_norm/layers_nonfinite") or [c["reason"] for c in ncaps] != ["nonfinite"]
+            or rows[6].get("skipped_steps_total") != 1):
+        raise RuntimeError(f"25 (d): the NaN step's record {bad}, captures {ncaps}")
+    out = dict(straggle=straggle, nan_step={k: bad.get(k) for k in ("nonfinite", "skipped", "grad_nonfinite_count",
+                                                                     "grad_norm/layers", "grad_norm/layers_nonfinite")},
+               nan_capture=ncaps[0])
+    print(f"phase 25 (d) triggered captures: {json.dumps(out)}", flush=True)
+    return out
+
+
+def obs_subprocess(cfg: dict, path, extra: tuple = ()) -> subprocess.Popen:
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    path.write_text(json.dumps(cfg))
+    env = {k: v for k, v in os.environ.items() if k != "AUTOMODEL_FAULT_INJECTION"}
+    env["PYTHONPATH"] = str(here)
+    return subprocess.Popen([sys.executable, "-m", "automodel_tpu_torch.cli.app", "pretrain", "llm", "-c", str(path),
+                             *extra], cwd=str(here), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_obs_subprocesses(prefix, root) -> dict:
+    """Phase 25 (e), started: two ``pretrain llm`` CLI processes at 2
+    layers, a hang after the step-2 checkpoint and a run to be SIGTERMed
+    (they run beside (c) and (d))."""
+    hang_cfg = obs_config(prefix, root, "hang", 100, OBS_LAYERS,
+                          checkpoint=dict(OBS_CKPT, checkpoint_dir=str(root / "hang" / "ckpt")),
+                          fault_injection=dict(hang_at_step=OBS_HANG_STEP, hang_seconds=600),
+                          distributed_guard=dict(watchdog=OBS_WATCHDOG))
+    hang_cfg["step_scheduler"]["ckpt_every_steps"] = 2
+    term_cfg = obs_config(prefix, root, "term", 100, OBS_LAYERS,
+                          checkpoint=dict(OBS_CKPT, checkpoint_dir=str(root / "term" / "ckpt")),
+                          fault_injection=dict(slow_collate_ms=300))
+    (root / "hang").mkdir(parents=True, exist_ok=True)
+    (root / "term").mkdir(parents=True, exist_ok=True)
+    return dict(t0=time.perf_counter(), term_cfg=term_cfg, hang=obs_subprocess(hang_cfg, root / "hang.json"),
+                term=obs_subprocess(term_cfg, root / "term.json"))
+
+
+def phase_obs_subprocesses(torch, prefix, root, started: dict | None = None) -> dict:
+    """Phase 25 (e), finished: the hang exits 75 with the stacks, a hang
+    event and a flight-recorder dump, within the deadline plus one poll;
+    SIGTERM mid-run exits 75 with a committed emergency checkpoint, the
+    restart resumes at the next step, and ``goodput`` shows one joined
+    ledger."""
+    from automodel_tpu_torch.telemetry.goodput import _read_records, rollup
+    from automodel_tpu_torch.telemetry.goodput import main as goodput_main
+
+    started = started or start_obs_subprocesses(prefix, root)
+    t0, term_cfg, hang, term = started["t0"], started["term_cfg"], started["hang"], started["term"]
+    term_rows = root / "term" / "train_metrics.jsonl"
+    try:
+        while True:
+            n = sum(1 for r in (map(json.loads, open(term_rows)) if term_rows.exists() else ()) if "loss" in r)
+            if n >= 3 or term.poll() is not None or time.perf_counter() - t0 > 600:
+                break
+            time.sleep(0.2)
+        t_sig = time.perf_counter()
+        term.send_signal(__import__("signal").SIGTERM)
+        term_out = term.communicate(timeout=600)
+        drain_s = time.perf_counter() - t_sig
+        hang_out = hang.communicate(timeout=600)
+    finally:
+        for p in (hang, term):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    problems = []
+    if hang.returncode != 75 or "[watchdog] HANG" not in hang_out[1]:
+        problems.append(f"hang: rc {hang.returncode}, stderr {hang_out[1][-3000:]}")
+    hdir = root / "hang"
+    dump = json.loads((hdir / "flight_recorder.json").read_text()) if (hdir / "flight_recorder.json").exists() else {}
+    hrec = next((r for r in dump.get("records", []) if r.get("event") == "hang"), None)
+    hrows = [json.loads(l) for l in open(hdir / "train_metrics.jsonl")]
+    stacks = (hdir / "watchdog_stacks.txt").read_text() if (hdir / "watchdog_stacks.txt").exists() else ""
+    limit = OBS_WATCHDOG["poll_interval_s"] + OBS_EVENT_SLACK_S
+    if (hrec is None or hrec["step"] != OBS_HANG_STEP or f"hang at step {OBS_HANG_STEP}" not in stacks
+            or not any(r.get("event") == "hang" for r in hrows)
+            or not hrec["heartbeat_age_s"] <= hrec["deadline_s"] + limit):
+        problems.append(f"hang evidence: record {hrec}, {len(stacks)} bytes of stacks")
+    if term.returncode != 75:
+        problems.append(f"SIGTERM: rc {term.returncode}, stderr {term_out[1][-3000:]}")
+    committed = sorted(int(p.parent.name.rsplit("_", 1)[1]) for p in (root / "term" / "ckpt").glob("*/MANIFEST.json"))
+    if problems or len(committed) != 1:
+        raise RuntimeError(f"25 (e): {problems}, committed {committed}")
+    saved = committed[0]
+    trows = [json.loads(l) for l in open(term_rows)]
+    tail = next((r for r in trows if r.get("event") == "goodput_tail"), {})
+    restart = obs_subprocess(dict(term_cfg, step_scheduler=dict(term_cfg["step_scheduler"], max_steps=saved + 2)),
+                             root / "term2.json")
+    r_out = restart.communicate(timeout=600)
+    rows = [json.loads(l) for l in open(term_rows)]
+    resumed = [r["resumed_from_step"] for r in rows if r.get("event") == "resume"]
+    after = [r["step"] for r in rows if "loss" in r and r.get("restart_count") == 1]
+    roll = rollup(_read_records(root / "term" / "goodput.jsonl"))
+    import io
+    from contextlib import redirect_stdout
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        grc = goodput_main([str(root / "term")])
+    atts = roll["attempts"]
+    if (restart.returncode != 0 or resumed != [saved] or after != [saved + 1, saved + 2] or grc != 0
+            or len(atts) != 2 or atts[0]["end_reason"] != "preempted"
+            or any(a["unattributed_s"] > 0.05 * a["wall_s"] for a in atts)):
+        raise RuntimeError(f"25 (e): restart rc {restart.returncode} ({r_out[1][-2000:]}), resumed {resumed}, "
+                           f"steps {after}, goodput rc {grc}, attempts {atts}")
+    out = dict(hang=dict(rc=hang.returncode, step=hrec["step"], heartbeat_age_s=hrec["heartbeat_age_s"],
+                         deadline_s=hrec["deadline_s"], poll_interval_s=OBS_WATCHDOG["poll_interval_s"]),
+               sigterm=dict(rc=term.returncode, saved_step=saved, signal_to_exit_s=drain_s,
+                            ckpt_save_s=tail.get("ckpt_save_s"), window_excluded_s=tail.get("window_excluded_s"),
+                            restart_rc=restart.returncode, resumed_from=resumed, steps_after=after),
+               goodput=[dict(end=a["end_reason"], wall_s=a["wall_s"], unattributed_s=a["unattributed_s"],
+                             segments=a["segments"]) for a in atts],
+               wall_s=time.perf_counter() - t0)
+    print(f"phase 25 (e) hang and SIGTERM at 2 layers: {json.dumps(out)}", flush=True)
+    print("phase 25 (e) goodput report:\n" + buf.getvalue(), flush=True)
+    return out
+
+
+def phase_observability(torch, dev) -> dict:
+    """Phase 25 (see the module text)."""
+    import shutil
+
+    from automodel_tpu_torch.data import synthetic
+
+    root = data_root().with_name(f"obs_{time.time_ns()}")
+    try:
+        t0 = time.perf_counter()
+        prefix = root / "megatron" / "corpus"
+        synthetic.write_megatron_corpus(prefix, OBS_CORPUS_TOKENS, LLAMA3_8B["vocab_size"], seed=0,
+                                        median=DATA_DOC_MEDIAN)
+        out = dict(on_off=phase_obs_on_off(torch, prefix, root))
+        out["profile"] = phase_obs_profile(torch, prefix, root)
+        started = start_obs_subprocesses(prefix, root)  # (e) runs beside (c) and (d)
+        try:
+            out["flops"] = phase_obs_flops(torch, prefix, root)
+            out["triggered"] = phase_obs_triggered(torch, prefix, root)
+        finally:
+            out["subprocesses"] = phase_obs_subprocesses(torch, prefix, root, started)
         out["wall_s"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5347,6 +5832,10 @@ def main() -> int:
         t0 = time.perf_counter()
         data = phase_data(torch, dev)
         print(f"phase 24 (the data path: corpora, pretrain llm at 32 layers, packing, resume): "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        obs = phase_observability(torch, dev)
+        print(f"phase 25 (telemetry, profiling, goodput, metrics port and guard at 32 layers): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,

@@ -169,8 +169,6 @@ TINY_BASE = {k: v for k, v in TINY_BENCH.items() if k not in ("generation", "ser
 NOT_IN_PORT = {
     "recompiles_during_measure": "XLA compiles inside the window; the port does not compile",
     "recompile_secs": "as above",
-    "cost": "program cost attribution: the profiling section is refused",
-    "mfu_measured_pct": "as above",
 }
 # keys a leg adds only when it runs (JAX's result for a config without
 # generation: and serving: sections lacks them)
@@ -205,9 +203,8 @@ def _check_result(res: dict, measure: int) -> None:
 def test_benchmark_llm_on_cpu_matches_jax_keys_and_loss(tmp_path, capsys):
     """The tiny Llama through the CLI, and JAX's recipe on the same config.
     JAX's runs on the suite's 8 virtual CPU devices (``distributed:
-    {dp_shard: -1}``, a section the port refuses past one device) without
-    its cost attribution (``profiling: {enabled: false}``, a section the
-    port refuses; it would only lower the step once more). The port's
+    {dp_shard: -1}``, a section the port refuses past one device); both
+    count their step's cost (``cost``, ``mfu_measured_pct``). The port's
     recipe takes JAX's weights after setup, so after 1 warmup and 2
     measured steps on the same first batch the losses agree within fp32
     1e-5."""
@@ -225,7 +222,7 @@ def test_benchmark_llm_on_cpu_matches_jax_keys_and_loss(tmp_path, capsys):
     rows = [json.loads(s) for s in (tmp_path / "m.jsonl").read_text().splitlines()]
     assert [r["bench_step"] for r in rows] == [0, 1] and all(r["step_time_s"] > 0 for r in rows)
 
-    jrecipe = JBench(JConfigNode(dict(TINY_BASE, distributed=dict(dp_shard=-1), profiling=dict(enabled=False),
+    jrecipe = JBench(JConfigNode(dict(TINY_BASE, distributed=dict(dp_shard=-1),
                                       logging=dict(metrics_path=str(tmp_path / "j.jsonl")))))
     jrecipe.setup()
     params = jax.device_get(jrecipe.state.params)
@@ -315,7 +312,7 @@ def test_benchmark_llm_on_cpu_moe(tmp_path):
 TINY_BENCH_KEYS = (
     "tokens_per_second", "tokens_per_second_per_chip", "tflops_per_second_per_chip", "mfu", "step_time_mean_s",
     "step_time_min_s", "step_time_max_s", "n_chips", "tokens_per_step", "loss", "timers", "step_decomposition",
-    "telemetry_overhead_s_per_step", "telemetry_overhead_fraction", "memory",
+    "telemetry_overhead_s_per_step", "telemetry_overhead_fraction", "memory", "cost", "mfu_measured_pct",
     "gen_ttft_s", "gen_decode_tps", "gen_tokens", "gen_cache_bytes", "gen_failure",
     "serve_tokens_per_s", "serve_ttft_p50_s", "serve_ttft_p99_s", "serve_block_occupancy_peak", "serve_requests",
     "serve_prefix_cache", "serve_queue_depth_peak", "serve_decode_backend", "serve_kv_cache_dtype",
@@ -330,7 +327,6 @@ TINY_BENCH_KEYS = (
     ("--serving.speculative.enabled=true", "serving.speculative"),
     ("--serving.warm_start.peer_host=127.0.0.1", "serving.warm_start"),
     ("--fleet.replicas=[http://127.0.0.1:8101]", "fleet"),
-    ("--benchmark.profile.enabled=true", "benchmark.profile.enabled"),
 ])
 def test_benchmark_refuses_unported_legs_by_name(tmp_path, override, name):
     with pytest.raises(ValueError, match=name.replace(".", r"\.")):

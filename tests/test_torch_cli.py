@@ -146,7 +146,8 @@ def test_finetune_tiny_on_cpu_writes_falling_loss(command, tmp_path):
     metrics = tmp_path / "train_metrics.jsonl"
     rc = app.main([command, "llm", "-c", SFT_CFG, "--device=cpu", f"--logging.metrics_path={metrics}"])
     assert rc == 0
-    rows = [json.loads(s) for s in metrics.read_text().splitlines()]
+    # the step records; the cost_attribution and goodput_tail events ride beside them, as in JAX
+    rows = [r for r in map(json.loads, metrics.read_text().splitlines()) if "event" not in r]
     assert [r["step"] for r in rows] == list(range(1, 9))
     for r in rows:
         assert {"loss", "grad_norm", "lr", "num_label_tokens", "ts"} <= set(r)
@@ -169,11 +170,6 @@ def test_finetune_without_cuda_raises():
         ("--checkpoint.model_save_format=torch_save", "model_save_format"),
         ("--peft.dim=8", "peft"),
         ("--qat.enabled=true", "qat"),
-        ("--telemetry.memory_every_steps=50", "telemetry"),
-        ("--profiling.cost_attribution=true", "profiling"),
-        ("--distributed_guard.sync_timeout_s=600", "distributed_guard"),
-        ("--metrics_server.port=9100", "metrics_server"),
-        ("--fault_tolerance.emergency_checkpoint=false", "fault_tolerance"),
         ("--fault_tolerance.on_nonfinite=retry", "on_nonfinite"),
         ("--data.prefetch.depth=0", "prefetch"),
         ("--data.queries=q.jsonl", "data"),
@@ -271,7 +267,7 @@ def test_pretrain_gemma2_tiny_on_cpu_writes_falling_loss(tmp_path):
     metrics = tmp_path / "train_metrics.jsonl"
     rc = app.main(["pretrain", "llm", "-c", GEMMA_CFG, "--device=cpu", f"--logging.metrics_path={metrics}"])
     assert rc == 0
-    rows = [json.loads(s) for s in metrics.read_text().splitlines()]
+    rows = [r for r in map(json.loads, metrics.read_text().splitlines()) if "event" not in r]
     assert [r["step"] for r in rows] == list(range(1, 9))
     assert all(r["nonfinite"] is False and r["num_label_tokens"] == 2 * 4 * 48 for r in rows)
     assert rows[-1]["loss"] < rows[0]["loss"] - 0.5

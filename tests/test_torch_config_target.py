@@ -122,7 +122,7 @@ def test_recipe_dataset_from_either_prefix_trains_the_same(tmp_path):
         rc = app.main(["finetune", "llm", "-c", SFT_CFG, "--device=cpu", "--step_scheduler.max_steps=2",
                        f"--dataset._target_={prefix}.data.sft.MockSFTDataset", f"--logging.metrics_path={path}"])
         assert rc == 0
-        losses[prefix] = [json.loads(x)["loss"] for x in path.read_text().splitlines()]
+        losses[prefix] = [r["loss"] for r in map(json.loads, path.read_text().splitlines()) if "loss" in r]
     assert losses["automodel_tpu"] == losses["automodel_tpu_torch"] and len(losses["automodel_tpu"]) == 2
     with pytest.raises(ValueError, match="does not have yet"):
         app.main(["finetune", "llm", "-c", SFT_CFG, "--device=cpu",

@@ -163,7 +163,7 @@ def test_tiny_nanogpt_cli_trains_on_a_blend(tmp_path):
     rc = app.main(["pretrain", "llm", "-c", TINY_CFG, "--device=cpu", f"--dataset.sources=[{sources}]",
                    f"--logging.metrics_path={path}"])
     assert rc == 0
-    rows = [json.loads(s) for s in path.read_text().splitlines()]
+    rows = [r for r in map(json.loads, path.read_text().splitlines()) if "event" not in r]
     assert [r["step"] for r in rows] == list(range(1, 9))
     assert all(np.isfinite(r["loss"]) and r["num_label_tokens"] == 2 * 4 * 63 for r in rows)
     assert all(r["prefetch_depth"] >= 0 for r in rows[1:])

@@ -268,7 +268,7 @@ def test_tiny_full_config_trains_on_cpu_with_bf16_moments(tmp_path):
     cfg = os.path.join(repo, "automodel_tpu_torch", "configs", "sft_tiny_cpu_full.yaml")
     path = tmp_path / "m.jsonl"
     assert app.main(["finetune", "llm", "-c", cfg, "--device=cpu", f"--logging.metrics_path={path}"]) == 0
-    rows = [json.loads(x) for x in path.read_text().splitlines()]
+    rows = [r for r in map(json.loads, path.read_text().splitlines()) if "event" not in r]
     assert [r["step"] for r in rows] == list(range(1, 9))
     assert all(np.isfinite(r["loss"]) and not r["nonfinite"] for r in rows)
     assert app.main(["report", str(path), "--strict"]) == 0
