@@ -34,6 +34,8 @@ class AutoModel:
     # the checkpoint directory a from_pretrained model came from; the
     # consolidated save copies its tokenizer files
     source_dir: Optional[str] = None
+    # the device mesh a parallel entry point sharded the model over
+    mesh_ctx: Any = None
 
     @property
     def config(self):

@@ -7,9 +7,16 @@ parameters and persistent buffers, the optimizer's fp32 moments and count,
 and the step), ``extra_state.json`` (the dataloader and step-scheduler
 cursors, the param-tree signature, the layout markers), ``config.json``
 (the recipe config), optionally ``hf/`` (a consolidated HF save) and, last,
-``MANIFEST.json``. DCP runs in one process without a process group
-(``no_dist``); the state is written to ``state.dcp-checkpoint-tmp`` and
-renamed to ``state`` when complete, as orbax renames its tmp dir.
+``MANIFEST.json``. Without a process group (or with one of one rank) DCP
+runs in one process (``no_dist``); under a mesh of more ranks every rank
+writes its shards of the DTensor state (the model's FSDP2 / tensor-parallel
+parameters, the optimizer's moments wrapped alike) and rank 0 writes the
+metadata, the json files, the consolidated ``hf/`` export (each tensor
+gathered whole, ``full_tensor``) and the manifest, with barriers between.
+A state saved under one mesh restores under another, one process
+included: DCP reshards on load. The state is written to
+``state.dcp-checkpoint-tmp`` and renamed to ``state`` when complete, as
+orbax renames its tmp dir.
 
 Resilience contract (``resilience/manifest.py``): every save commits by
 writing ``MANIFEST.json`` last (for an async save, when the write drains at
@@ -114,30 +121,67 @@ def state_bytes(tree: Any) -> int:
     return sum(v.numel() * v.element_size() for _, v in _flatten(tree) if isinstance(v, torch.Tensor))
 
 
+def _world() -> tuple[int, int]:
+    from automodel_tpu_torch.resilience.timed_sync import world
+
+    return world()
+
+
+def _barrier() -> None:
+    if _world()[1] > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 @retry_io(op="dcp_save", max_attempts=3)
 def _dcp_save(path: Path, state: dict) -> None:
     """Write ``state`` as a DCP dir at ``path``, through a tmp dir renamed
-    into place when complete (a killed save leaves no ``state/``)."""
+    into place when complete (a killed save leaves no ``state/``); every
+    rank of a group writes its shards, rank 0 clears and renames."""
     import torch.distributed.checkpoint as dcp
 
+    rank, n = _world()
     tmp = path.with_name(STATE_TMP)
-    shutil.rmtree(tmp, ignore_errors=True)
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _barrier()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=_ONE_PROCESS)
-        dcp.save(state, checkpoint_id=str(tmp), no_dist=True)
-    os.replace(tmp, path)
+        dcp.save(state, checkpoint_id=str(tmp), no_dist=n == 1)
+    _barrier()
+    if rank == 0:
+        os.replace(tmp, path)
+    _barrier()
 
 
 @retry_io(op="dcp_load", max_attempts=3)
 def _dcp_load(path: Path, state: dict) -> dict:
-    """Load a DCP dir into ``state``'s tensors in place (on their devices);
-    its plain values (ints) are replaced in the dict."""
+    """Load a DCP dir into ``state``'s tensors in place (on their devices,
+    each rank its own shards); its plain values (ints) are replaced in the
+    dict."""
     import torch.distributed.checkpoint as dcp
 
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=_ONE_PROCESS)
-        dcp.load(state, checkpoint_id=str(path), no_dist=True)
+        dcp.load(state, checkpoint_id=str(path), no_dist=_world()[1] == 1)
     return state
+
+
+class FullTensors:
+    """A read-only view of a state dict whose DTensor values come back
+    whole (``full_tensor``, a collective every rank calls in the same
+    order): the consolidated export's input under a mesh."""
+
+    def __init__(self, state_dict: dict):
+        self._sd = state_dict
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        t = self._sd[key]
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
 
 
 class _AsyncSave:
@@ -294,21 +338,23 @@ class Checkpointer:
     def _commit(self, out: Path, epoch: int, step: int, layout_markers: Optional[dict]) -> None:
         if self.commit_barrier is not None:
             self.commit_barrier("checkpoint_commit")
-        t0 = time.perf_counter()
-        # write_manifest is tmp + rename, so a retry after a transient EIO
-        # mid-read-back is idempotent
-        retry_io(op="manifest_commit", max_attempts=3)(write_manifest)(
-            out, epoch=epoch, step=step, layout_markers=layout_markers,
-            checksums=self.config.manifest_checksums,
-        )
-        self.last_save["manifest_s"] = time.perf_counter() - t0
-        if self._pending_best is not None and self._pending_best[0] == out:
-            _, metric, value = self._pending_best
-            self._pending_best = None
-            self._write_best(out, metric, value)
-        inj = active_injector()
-        if inj is not None:
-            inj.after_checkpoint_save(out)
+        if _world()[0] == 0:  # rank 0 writes the manifest; the others wait for it
+            t0 = time.perf_counter()
+            # write_manifest is tmp + rename, so a retry after a transient EIO
+            # mid-read-back is idempotent
+            retry_io(op="manifest_commit", max_attempts=3)(write_manifest)(
+                out, epoch=epoch, step=step, layout_markers=layout_markers,
+                checksums=self.config.manifest_checksums,
+            )
+            self.last_save["manifest_s"] = time.perf_counter() - t0
+            if self._pending_best is not None and self._pending_best[0] == out:
+                _, metric, value = self._pending_best
+                self._pending_best = None
+                self._write_best(out, metric, value)
+            inj = active_injector()
+            if inj is not None:
+                inj.after_checkpoint_save(out)
+        _barrier()
 
     def close(self) -> None:
         self.wait()
@@ -390,8 +436,10 @@ class Checkpointer:
 
         t_save = time.perf_counter()
         self._inner_drain_s = 0.0
+        rank, n_ranks = _world()
         out = self.step_dir(epoch, step)
-        out.mkdir(parents=True, exist_ok=True)
+        if rank == 0:
+            out.mkdir(parents=True, exist_ok=True)
         if layout_markers:
             extra_state = {**(extra_state or {}), "_layout_markers": dict(layout_markers)}
         if self.config.check_param_signature:
@@ -401,19 +449,21 @@ class Checkpointer:
         self.wait()  # at most one async save in flight
         self.last_save = {}
         # uncommit first: a stale manifest must not vouch for the dir while
-        # its contents are rewritten underneath it
-        manifest = out / "MANIFEST.json"
-        if manifest.exists():
-            manifest.unlink()
-        if (out / "state").exists():
-            shutil.rmtree(out / "state")
-        # a kill mid-save strands the tmp dir; reclaim it
-        for stale in out.glob(f"*{TMP_MARK}*"):
-            shutil.rmtree(stale, ignore_errors=True)
-        if extra_state:
-            (out / "extra_state.json").write_text(json.dumps(extra_state, default=_json_default))
-        if config_snapshot:
-            (out / "config.json").write_text(json.dumps(config_snapshot, indent=2, default=str))
+        # its contents are rewritten underneath it (rank 0 of a group)
+        if rank == 0:
+            manifest = out / "MANIFEST.json"
+            if manifest.exists():
+                manifest.unlink()
+            if (out / "state").exists():
+                shutil.rmtree(out / "state")
+            # a kill mid-save strands the tmp dir; reclaim it
+            for stale in out.glob(f"*{TMP_MARK}*"):
+                shutil.rmtree(stale, ignore_errors=True)
+            if extra_state:
+                (out / "extra_state.json").write_text(json.dumps(extra_state, default=_json_default))
+            if config_snapshot:
+                (out / "config.json").write_text(json.dumps(config_snapshot, indent=2, default=str))
+        _barrier()
         if hf_export is not None and (
             self.config.save_consolidated or self.config.model_save_format == "safetensors"
         ):
@@ -422,9 +472,15 @@ class Checkpointer:
             adapter, sd = hf_export
             t0 = time.perf_counter()
             # to_hf yields one tensor at a time; the writer brings each to
-            # the host and flushes shard files as they fill
-            self.last_save["hf_bytes"] = save_hf_checkpoint(out / "hf", adapter.to_hf(sd))
-            write_hf_addons(out / "hf", **(hf_meta or {}))
+            # the host and flushes shard files as they fill. Under a group
+            # every rank gathers each tensor whole and rank 0 writes it
+            tensors = adapter.to_hf(FullTensors(sd) if n_ranks > 1 else sd)
+            if rank == 0:
+                self.last_save["hf_bytes"] = save_hf_checkpoint(out / "hf", tensors)
+                write_hf_addons(out / "hf", **(hf_meta or {}))
+            else:
+                for _ in tensors:
+                    pass
             self.last_save["hf_s"] = time.perf_counter() - t0
         self.last_save["state_bytes"] = state_bytes(state)
         t0 = time.perf_counter()
@@ -461,7 +517,7 @@ class Checkpointer:
         uncommitted dir is left alone (it may be the save currently in
         flight)."""
         k = self.config.keep_last_k
-        if k <= 0 or not self.root.exists():
+        if k <= 0 or not self.root.exists() or _world()[0] != 0:
             return
         protect = set(protect or ())
         if self.config.restore_from:
@@ -640,6 +696,8 @@ class Checkpointer:
         With an async save in flight for ``step_dir`` the marker is
         DEFERRED until that save commits (and discarded if the drain
         fails): BEST.json must never name a dir auto-resume would skip."""
+        if _world()[0] != 0:
+            return  # rank 0 writes the marker
         if self._pending_commit is not None and self._pending_commit[0] == step_dir:
             self._pending_best = (step_dir, metric, float(value))
             return

@@ -40,6 +40,12 @@ is preempted (SIGTERM) after its emergency checkpoint committed exits 75
 while a peer's preemption marker is fresh exits 75, as JAX's
 ``main`` maps them (:206-240). The JAX package's other commands are not
 ported yet; each exits 2 saying so.
+
+A config with a ``distributed:`` section runs the recipe commands and
+``generate`` on a process group, joined before the command as JAX's
+``main`` joins its runtime (:92-181) and torn down after it:
+
+    torchrun --nproc_per_node N -m automodel_tpu_torch.cli.app finetune llm -c cfg.yaml
 """
 
 from __future__ import annotations
@@ -93,6 +99,31 @@ def _crash_is_preemption_collateral(cfg) -> bool:
     return peer_preemption_fresh(ccfg.get("checkpoint_dir", CheckpointingConfig.checkpoint_dir))
 
 
+def _init_distributed(cfg) -> bool:
+    """Join the process group when the config has a ``distributed:``
+    section (parallel/mesh.initialize_distributed: torchrun's environment,
+    NCCL on the config's CUDA device, gloo under ``device: cpu``)."""
+    if cfg.get("distributed", None) is None:
+        return False
+    from automodel_tpu_torch.device import resolve_device
+    from automodel_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed(resolve_device(cfg.get("device", None)))
+    return True
+
+
+def _run_distributed(cfg, fn) -> int:
+    """``fn()`` inside the process group the config asks for, if any."""
+    joined = _init_distributed(cfg)
+    try:
+        return fn()
+    finally:
+        if joined:
+            from automodel_tpu_torch.parallel.mesh import destroy_distributed
+
+            destroy_distributed()
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
@@ -126,7 +157,8 @@ def main(argv: list[str] | None = None) -> int:
     if command == "generate":
         from automodel_tpu_torch.generation.engine import main as generate_main
 
-        return generate_main(parse_args_and_load_config(argv[1:]))
+        cfg = parse_args_and_load_config(argv[1:])
+        return _run_distributed(cfg, lambda: generate_main(cfg))
     if command in TRAIN_COMMANDS:
         domain = argv[1] if len(argv) > 1 else ""
         if domain != "llm":
@@ -142,7 +174,7 @@ def main(argv: list[str] | None = None) -> int:
         from automodel_tpu_torch.resilience import REQUEUE_EXIT_CODE, DesyncError, TrainingPreempted
 
         try:
-            recipe_main(cfg)
+            _run_distributed(cfg, lambda: recipe_main(cfg))
         except DesyncError as e:
             # a desynced process is a real fault, never requeued
             print(f"DESYNC: {e}", file=sys.stderr)

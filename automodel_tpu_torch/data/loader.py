@@ -6,9 +6,11 @@ Batch construction is functional: ``batch_for(epoch, i)`` builds batch i
 of an epoch from the (seed, epoch) shuffle order alone, with no mutable
 cursor involved, so the sync iterator and the prefetch pipeline's collate
 workers (data/prefetch.py, which call it at once from a thread pool) give
-the same stream from any resume point (``seek``, ``state_dict``). The
-recipe moves batches to the device (``place_batch`` of the JAX package
-becomes a torch copy there, recipes/train_ft.py)."""
+the same stream from any resume point (``seek``, ``state_dict``). Under a
+mesh every process loads the same global batch; ``local_batch`` (the
+host half of JAX's ``place_batch``) cuts this rank's rows of the
+``batch`` grouping and, under context parallelism, its sequence slice;
+the recipe copies that to the device (recipes/train_ft.py)."""
 
 from __future__ import annotations
 
@@ -121,3 +123,39 @@ class DataLoader:
         self.batch_in_epoch = state["batch_in_epoch"]
         self.seed = state.get("seed", self.seed)
 
+
+
+# which leaves carry a sequence dim beside the batch dim (JAX :28-42)
+SEQ_KEYS = frozenset(
+    ("input_ids", "labels", "position_ids", "segment_ids", "behavior_logprobs", "ref_logprobs")
+    + tuple(f"{side}_{key}" for side in ("chosen", "rejected") for key in ("input_ids", "labels", "position_ids"))
+)
+
+
+def local_batch(ctx: Any, batch: dict, microbatched: bool = True) -> dict:
+    """This rank's part of a (possibly [A]-stacked) numpy global batch:
+    rows ``[i B/n, (i+1) B/n)`` of the batch dim, i this rank's index in
+    the ``batch`` grouping (``dp_replicate, dp_shard, ep``, of size n),
+    and, for the sequence leaves under ``cp > 1``, the rank's contiguous
+    slice of the (already zigzag-permuted, when zigzag) sequence. Non-array
+    values pass through."""
+    b_ax = 1 if microbatched else 0
+    n_b, i_b = ctx.dp_size, ctx.coordinate("batch") if ctx.dp_size > 1 else 0
+    n_s, i_s = ctx.cp_size, ctx.coordinate("cp") if ctx.cp_size > 1 else 0
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, np.ndarray):
+            out[k] = v
+            continue
+        if v.shape[b_ax] % n_b:
+            raise ValueError(f"batch leaf {k} has {v.shape[b_ax]} rows, not a multiple of the {n_b} batch ranks")
+        rows = v.shape[b_ax] // n_b
+        v = np.take(v, np.arange(i_b * rows, (i_b + 1) * rows), axis=b_ax)
+        if n_s > 1 and k in SEQ_KEYS:
+            S = v.shape[b_ax + 1]
+            if S % n_s:
+                raise ValueError(f"batch leaf {k} has {S} tokens a row, not a multiple of cp={n_s}")
+            s_loc = S // n_s
+            v = np.take(v, np.arange(i_s * s_loc, (i_s + 1) * s_loc), axis=b_ax + 1)
+        out[k] = np.ascontiguousarray(v)
+    return out

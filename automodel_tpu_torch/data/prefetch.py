@@ -381,8 +381,10 @@ class DevicePlacer:
     step runs). Off the card the arrays become tensors that share their
     memory, as the sync path's copy to the CPU does."""
 
-    def __init__(self, device: Any):
+    def __init__(self, device: Any, select: Any = None):
         self.device = torch.device(device)
+        # under a mesh: the host batch → this rank's part (data/loader.local_batch)
+        self.select = select
         if self.device.type == "cuda" and self.device.index is None:
             # the producer thread binds this index; ``cuda`` alone names the
             # current device of the thread that builds the placer
@@ -390,6 +392,8 @@ class DevicePlacer:
         self._local = threading.local()
 
     def __call__(self, host: dict) -> PlacedBatch:
+        if self.select is not None:
+            host = self.select(host)
         arrays = {k: v for k, v in host.items() if isinstance(v, np.ndarray)}
         if self.device.type != "cuda":
             return PlacedBatch({k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()})

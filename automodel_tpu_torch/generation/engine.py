@@ -160,10 +160,11 @@ class GenerationEngine:
                 f"padded {prompt_len}) wraps the ring cache (window {capacity}): short slots "
                 "would lose in-window history. Use equal-length prompts or prompts that fit the window"
             )
-        return kv_cache.init_cache(
+        cache = kv_cache.init_cache(
             self._num_layers, batch, capacity, self._num_kv_heads, self._head_dim,
             dtype=self._cache_dtype, window=self._window, device=self.device,
         )
+        return kv_cache.place_cache(cache, getattr(self.auto, "mesh_ctx", None))
 
     def generate_ids(self, prompts: Sequence[Sequence[int]]) -> dict:
         """Per-slot token-id prompts → per-slot completions (``tokens``)
@@ -260,22 +261,48 @@ def build_auto_from_model_section(mcfg: Any, device: Any, seed: int = 0, trainab
     )
 
 
-def build_auto_from_cfg(cfg: Any) -> Any:
+def build_auto_from_cfg(cfg: Any, parallel: bool = False) -> Any:
     """Model from the YAML's ``model:`` section on the top-level ``device``
-    (``cuda`` unless the config says ``cpu``). A ``distributed:`` section
-    asking for more than one device is refused: the port runs one device."""
-    dist = cfg.get("distributed", None) or {}
-    many = {
-        k: v for k, v in dict(dist).items()
-        if k in ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep") and v not in (None, 1, -1)
-    }
-    if many:
-        raise ValueError(
-            f"distributed: {many} is not ported to the torch backend (one device only)"
-        )
-    return build_auto_from_model_section(
-        cfg.model, cfg.get("device", None), seed=cfg.get("seed", 0)
-    )
+    (``cuda`` unless the config says ``cpu``). With ``parallel`` (the
+    ``generate`` command) a ``distributed:`` section shards the model by
+    its tensor-parallel plan over the mesh's ``tp`` group (each rank keeps
+    its kv heads and their cache; ``cp > 1`` is refused); the mesh rides on
+    the AutoModel as ``mesh_ctx``. Without it (``serve``, the profiler) a
+    section asking for more than one device is refused: serving under
+    tensor parallelism (the paged pool sharded with the kv heads) is not
+    ported."""
+    section = cfg.get("distributed", None)
+    dist = dict(_plain(section) or {})
+    if not parallel:
+        many = {
+            k: v for k, v in dist.items()
+            if k in ("dp_replicate", "dp_shard", "tp", "cp", "pp", "ep") and v not in (None, 1, -1)
+        }
+        if many:
+            raise ValueError(
+                f"distributed: {many}: serving on more than one device (the paged pool sharded with the kv "
+                "heads) is not ported to the torch backend yet"
+            )
+        return build_auto_from_model_section(cfg.model, cfg.get("device", None), seed=cfg.get("seed", 0))
+    from automodel_tpu_torch.device import resolve_device
+    from automodel_tpu_torch.parallel.mesh import MeshConfig, build_mesh, initialize_distributed
+    from automodel_tpu_torch.parallel.plans import parallelize
+
+    device = resolve_device(cfg.get("device", None))
+    if section is None:
+        return build_auto_from_model_section(cfg.model, device, seed=cfg.get("seed", 0))
+    mcfg = MeshConfig.from_section(dist)
+    mcfg.check_ported()
+    if mcfg.cp > 1:
+        raise ValueError(f"distributed.cp={mcfg.cp}: generation with the sequence split over ranks is not ported")
+    initialize_distributed(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    ctx = build_mesh(mcfg, device_type=device.type)
+    auto = build_auto_from_model_section(cfg.model, device, seed=cfg.get("seed", 0))
+    parallelize(auto.model, ctx, fsdp=False)
+    auto.mesh_ctx = ctx
+    return auto
 
 
 # -- CLI ----------------------------------------------------------------------
@@ -320,8 +347,11 @@ def main(cfg: Any) -> int:
         if any(i is None for i in ids):
             print("no tokenizer in the torch backend: prompts must be token ids (e.g. --prompt '1 2 3')")
             return 2
-    engine = GenerationEngine(build_auto_from_cfg(cfg), GenerationConfig.from_dict(gen_section))
+    auto = build_auto_from_cfg(cfg, parallel=True)
+    engine = GenerationEngine(auto, GenerationConfig.from_dict(gen_section))
     out = engine.generate_ids(ids)
+    if getattr(auto, "mesh_ctx", None) is not None and auto.mesh_ctx.rank != 0:
+        return 0  # every rank decodes the same tokens; rank 0 prints them
     for p, t in zip(ids, out["tokens"]):
         print(f"prompt: {' '.join(map(str, p))}")
         print(f"completion: {' '.join(map(str, t))}")

@@ -35,9 +35,10 @@ attend the cache, attends over the incoming block itself).
 Unlike the JAX functions, writes update the tensors in place: the cache
 or pool is the one copy of the KV, and a functional update would double
 it. A planned cache (``prefill_ctx``, ``decode_ctx``) is a new ``KVCache``
-with new tags and lengths over the same key/value tensors. Placing a
-cache on a mesh (``place_cache``, ``usable_axes``) waits for the
-parallelism port.
+with new tags and lengths over the same key/value tensors. On a mesh
+(``place_cache``) each tensor-parallel rank keeps its own kv heads' cache,
+the layout where no cache collective ever runs; the batch stays whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -94,6 +95,19 @@ def init_cache(
         lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
         window=window,
     )
+
+
+def place_cache(cache: KVCache, mesh_ctx) -> KVCache:
+    """A cache built for every kv head → this rank's heads under ``tp``
+    (JAX :119-140 shards the kv-head dim over ``tensor``; a head count
+    ``tp`` does not divide is refused earlier, parallel/plans.check_tp).
+    Without a mesh, or at tp = 1, the cache itself."""
+    if mesh_ctx is None or mesh_ctx.tp_size == 1:
+        return cache
+    tp, r = mesh_ctx.tp_size, mesh_ctx.coordinate("tp")
+    n = cache.k.shape[3] // tp
+    return cache.replace(k=cache.k[:, :, :, r * n:(r + 1) * n].contiguous(),
+                         v=cache.v[:, :, :, r * n:(r + 1) * n].contiguous())
 
 
 @dataclasses.dataclass

@@ -3,7 +3,8 @@
 
 Strict JSON: a non-finite float is written as ``null`` with a sidecar
 ``<key>_nonfinite: true`` (element-wise for lists), and the write uses
-``allow_nan=False``, so a diverged run still leaves a parseable file. Each
+``allow_nan=False``, so a diverged run still leaves a parseable file.
+Under a process group only rank 0 writes. Each
 record gets a ``ts``, and the ``envelope`` keys (the goodput ledger's
 ``attempt_id`` / ``restart_count``) are stamped on every record so a
 requeued run's appended records stay joinable per attempt; a caller's
@@ -61,11 +62,18 @@ class MetricLogger:
 
     def __init__(self, path: str, envelope: Optional[dict[str, Any]] = None):
         self.path = Path(path)
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self.path.touch()  # the file exists even before the first record
+        # under a process group one writer, rank 0: the others' records are its
+        from automodel_tpu_torch.resilience.timed_sync import world
+
+        self.writer = world()[0] == 0
+        if self.writer:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self.path.touch()  # the file exists even before the first record
         self.envelope = dict(envelope or {})
 
     def log(self, metrics: dict[str, Any], step: int | None = None) -> None:
+        if not self.writer:
+            return
         rec: dict[str, Any] = {}
         for k, v in metrics.items():
             cv, bad = _definite(_to_scalar(v))

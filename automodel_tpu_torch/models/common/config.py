@@ -2,8 +2,10 @@
 
 Port of ``automodel_tpu/models/common/config.py``. ``BackendConfig`` keeps
 the attention backend and the param and compute dtypes; ``attn`` is
-``sdpa`` (plain torch) or ``flash`` (the flash-attention kernels,
-ops/ring_flash.py) for the no-cache forward that training runs.
+``sdpa`` (plain torch), ``flash`` (the flash-attention kernels,
+ops/ring_flash.py) or ``ring`` (context parallelism over the mesh's ``cp``
+group, the flash kernels at each step, parallel/cp.py; ``cp_zigzag`` picks
+the balanced layout) for the no-cache forward that training runs.
 ``experts`` names the MoE experts backend (default ``gspmd``, as in JAX;
 an MoE model runs ``ragged``, the grouped-matmul kernels, ``ragged_fused``,
 the fused expert-MLP kernels, or ``dense``, and raises naming any other)
@@ -21,7 +23,7 @@ scaling (yarn included), an explicit ``head_dim``, ``attention_bias``, the
 sliding window and ``partial_rotary_factor`` (Phi-3: only the first
 ``rope_dim`` channels of a head rotate). Any other attention value, or any
 key the JAX backend has but the port does not (``fp8``, ``fp8_experts``,
-``cp_zigzag``, ``pp_microbatches``, ...), is refused rather than ignored.
+``pp_microbatches``, ...), is refused rather than ignored.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from automodel_tpu_torch.models.common.stacking import REMAT_POLICIES
 from automodel_tpu_torch.ops.rope import RopeConfig
 
-ATTN_BACKENDS = ("sdpa", "flash")
+ATTN_BACKENDS = ("sdpa", "flash", "ring")
 # every experts backend the JAX package names; moe/experts.py runs the first
 # three and refuses the rest by name
 EXPERTS_NAMES = ("dense", "ragged", "ragged_fused", "gspmd", "a2a", "a2a_fused")
@@ -63,6 +65,7 @@ class BackendConfig:
     scan_layers: bool = True
     attn_block_q: int = 512
     attn_block_kv: int = 512
+    cp_zigzag: bool = False
 
     def __post_init__(self):
         if self.experts not in EXPERTS_NAMES:

@@ -24,6 +24,11 @@ The flash kernels launch through ``ctypes`` inside a
 under ``selective`` and ``full`` their forward simply runs again in the
 recompute, on the same inputs, and gives the same output and lse.
 
+The layer stacks run each FSDP2-wrapped decoder layer through its module
+call (``DecoderLayer.forward`` runs the family's layer body), so FSDP2's
+hooks gather a layer's parameters before it and free them after. Under ``full`` or ``selective`` the recompute
+runs inside the backward, where FSDP2 has gathered them again.
+
 Recompute applies only when grad is enabled: a forward under
 ``torch.no_grad`` (a frozen KD teacher, evaluation, generation) calls
 ``fn`` directly, as JAX leaves the KV-cache inference path unwrapped
@@ -36,6 +41,7 @@ import functools
 from typing import Callable
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 REMAT_POLICIES = ("none", "full", "selective", "full_save_dispatch")
@@ -74,3 +80,27 @@ def remat_wrap(fn: Callable, policy: str) -> Callable:
         return checkpoint(fn, *args, use_reentrant=False, **kw, **kwargs)
 
     return wrapped
+
+
+class DecoderLayer(nn.Module):
+    """A decoder layer whose module call runs ``body(layer, *args)``: the
+    family's layer function, with the module's hooks (FSDP2's gather and
+    free) around it."""
+
+    def forward(self, body: Callable, *args):
+        return body(self, *args)
+
+
+def call_layer(body: Callable) -> Callable:
+    """``(i, layer, *args) -> body(i, layer, *args)``, through the layer's
+    module call when FSDP2 wraps it (its hooks gather and free the
+    parameters), directly otherwise (no module-call overhead on the
+    single-device hot path)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    def run(i: int, layer: nn.Module, *args):
+        if isinstance(layer, FSDPModule):
+            return layer(functools.partial(body, i), *args)
+        return body(i, layer, *args)
+
+    return run

@@ -41,9 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
-from automodel_tpu_torch.models.common.stacking import remat_wrap
+from automodel_tpu_torch.models.common.stacking import DecoderLayer, call_layer, remat_wrap
 from automodel_tpu_torch.models.gemma.state_dict_adapter import GemmaStateDictAdapter
-from automodel_tpu_torch.models.llama.model import ACT_FNS, _linear, _proj
+from automodel_tpu_torch.models.llama.model import ACT_FNS, _linear, _proj, embed, lm_head_logits
 from automodel_tpu_torch.ops.attention import windowed_attention
 from automodel_tpu_torch.ops.norms import rms_norm_gemma
 from automodel_tpu_torch.ops.rope import apply_rope, rope_table
@@ -124,7 +124,7 @@ class GemmaMLP(nn.Module):
         self.down_proj = _linear(I, D, cfg.mlp_bias, dtype, device)
 
 
-class GemmaDecoderLayer(nn.Module):
+class GemmaDecoderLayer(DecoderLayer):
     def __init__(self, cfg: GemmaConfig, dtype: torch.dtype, device):
         super().__init__()
         self.self_attn = GemmaAttention(cfg, dtype, device)
@@ -146,6 +146,20 @@ class GemmaModel(nn.Module):
         self.norm = GemmaRMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
 
 
+
+# automodel_tpu/models/gemma/model.py:262-272, copied (parallel/plans.py)
+SHARDING_RULES = [
+    (r"layers/.*norm/scale$", (None, None)),
+    (r"final_norm/scale$", (None,)),
+    # projection rules shared with llama
+    (r"embed/embedding$", ("tensor", "fsdp")),
+    (r"layers/attn/[qkv]_proj/kernel$", (None, "fsdp", "tensor")),
+    (r"layers/attn/o_proj/kernel$", (None, "tensor", "fsdp")),
+    (r"layers/mlp/(gate|up)_proj/kernel$", (None, "fsdp", "tensor")),
+    (r"layers/mlp/down_proj/kernel$", (None, "tensor", "fsdp")),
+    (r"lm_head/kernel$", ("fsdp", "tensor")),
+]
+
 class GemmaForCausalLM(nn.Module):
     """Built uninitialized on ``device`` in the param dtype;
     ``init_weights`` fills it from a generator, ``load_state_dict`` from a
@@ -153,6 +167,7 @@ class GemmaForCausalLM(nn.Module):
 
     supports_kv_cache = False
     state_dict_adapter = GemmaStateDictAdapter  # the HF key map
+    sharding_rules = SHARDING_RULES
 
     def __init__(
         self,
@@ -197,9 +212,9 @@ class GemmaForCausalLM(nn.Module):
         attn = layer.self_attn
         B, S, _ = h.shape
         x = layer.input_layernorm(h)
-        q = _proj(x, attn.q_proj).reshape(B, S, cfg.num_heads, cfg.head_dim)
-        k = _proj(x, attn.k_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = _proj(x, attn.v_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        q = _proj(x, attn.q_proj).reshape(B, S, -1, cfg.head_dim)
+        k = _proj(x, attn.k_proj).reshape(B, S, -1, cfg.head_dim)
+        v = _proj(x, attn.v_proj).reshape(B, S, -1, cfg.head_dim)
         if cfg.qk_norm:
             q = attn.q_norm(q)
             k = attn.k_norm(k)
@@ -210,7 +225,7 @@ class GemmaForCausalLM(nn.Module):
             q, k, v, backend=self.backend.attn, is_sliding=sliding, window=cfg.sliding_window, causal=True,
             scale=cfg.query_pre_attn_scalar**-0.5, segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
         )
-        h = h + layer.post_attention_layernorm(_proj(out.reshape(B, S, cfg.q_dim), attn.o_proj))
+        h = h + layer.post_attention_layernorm(_proj(out.reshape(B, S, -1), attn.o_proj))
         y = layer.pre_feedforward_layernorm(h)
         mlp = layer.mlp
         act = ACT_FNS[cfg.act]
@@ -233,14 +248,14 @@ class GemmaForCausalLM(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
             position_ids = position_ids[None, :].expand(input_ids.shape)
-        h = self.model.embed_tokens.weight[input_ids].to(cd)
+        h = embed(self.model.embed_tokens, input_ids).to(cd)
         h = h * torch.tensor(cfg.embed_scale, dtype=cd, device=h.device)
         local = dataclasses.replace(cfg.rope, theta=cfg.rope_local_theta, scaling=None)
         ropes = {
             "global": rope_table(position_ids, cfg.head_dim, cfg.rope),
             "local": rope_table(position_ids, cfg.head_dim, local),
         }
-        layer_fn = remat_wrap(self._layer, self.backend.remat)
+        layer_fn = remat_wrap(call_layer(self._layer), self.backend.remat)
         for i, layer in enumerate(self.model.layers):
             h = layer_fn(i, layer, h, ropes, segment_ids)
         return self.model.norm(h)
@@ -251,7 +266,7 @@ class GemmaForCausalLM(nn.Module):
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """Hidden states → logits in h's dtype, soft-capped (Gemma 2: 30)."""
-        logits = F.linear(h, self.lm_head_weight().to(h.dtype))
+        logits = lm_head_logits(h, self.lm_head_weight())
         cap = self.config.logits_soft_cap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)

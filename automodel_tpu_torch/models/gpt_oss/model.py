@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
+from automodel_tpu_torch.models.common.stacking import DecoderLayer
 from automodel_tpu_torch.models.llama.model import LlamaAttention, RMSNorm
 from automodel_tpu_torch.models.gpt_oss.state_dict_adapter import GptOssStateDictAdapter
 from automodel_tpu_torch.models.qwen3_moe.model import MoEForCausalLM
@@ -84,7 +85,7 @@ class GptOssAttention(LlamaAttention):
         self.sinks = nn.Parameter(torch.empty(cfg.num_heads, dtype=dtype, device=device))
 
 
-class GptOssDecoderLayer(nn.Module):
+class GptOssDecoderLayer(DecoderLayer):
     def __init__(self, cfg: GptOssConfig, dense: bool, dtype: torch.dtype, device):
         super().__init__()
         if dense:
@@ -94,6 +95,26 @@ class GptOssDecoderLayer(nn.Module):
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
 
+
+
+# automodel_tpu/models/gpt_oss/model.py:195-212, copied (parallel/plans.py)
+SHARDING_RULES = [
+    (r"attn/sinks$", (None, None)),
+    (r"attn/o_proj/bias$", (None, None)),
+    (r"embed/embedding$", ("tensor", "fsdp")),
+    (r"layers/attn/[qkv]_proj/kernel$", (None, "fsdp", "tensor")),
+    (r"layers/attn/[qkv]_proj/bias$", (None, "tensor")),
+    (r"layers/attn/o_proj/kernel$", (None, "tensor", "fsdp")),
+    (r"moe/router/weight$", (None, None, None)),
+    (r"moe/router/(bias|linear_bias)$", (None, None)),
+    (r"moe/experts/gate_up$", (None, "expert", "expert_fsdp", "tensor")),
+    (r"moe/experts/down$", (None, "expert", "tensor", "expert_fsdp")),
+    (r"moe/experts/gate_up_bias$", (None, "expert", "tensor")),
+    (r"moe/experts/down_bias$", (None, "expert", None)),
+    (r"layers/.*norm/scale$", (None, None)),
+    (r"final_norm/scale$", (None,)),
+    (r"lm_head/kernel$", ("fsdp", "tensor")),
+]
 
 class GptOssForCausalLM(MoEForCausalLM):
     """``init_weights`` draws the JAX scales (the router and gate_up with
@@ -105,6 +126,7 @@ class GptOssForCausalLM(MoEForCausalLM):
     supports_kv_cache = False
     layer_cls = GptOssDecoderLayer
     state_dict_adapter = GptOssStateDictAdapter  # the HF key map
+    sharding_rules = SHARDING_RULES
     # the layout contract of gate_up, versioned as the JAX model's
     # (automodel_tpu/models/gpt_oss/model.py:231): contiguous g | u halves,
     # not HF's interleave. The checkpointer stamps it on save and refuses a

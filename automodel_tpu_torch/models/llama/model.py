@@ -37,9 +37,10 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
-from automodel_tpu_torch.models.common.stacking import remat_wrap
+from automodel_tpu_torch.models.common.stacking import DecoderLayer, call_layer, remat_wrap
 from automodel_tpu_torch.models.llama.state_dict_adapter import LlamaStateDictAdapter
 from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.norms import rms_norm
@@ -53,19 +54,48 @@ ACT_FNS = {
 }
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` in the input's dtype: the weight (and bias) cast to it
+    at each use and the bias added after the product, as the JAX model
+    computes. A tensor-parallel plan's hooks (parallel/plans.py) place the
+    input and the output around this call."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
 def _linear(
     in_features: int, out_features: int, bias: bool, dtype: torch.dtype, device
 ) -> nn.Linear:
     return nn.utils.skip_init(
-        nn.Linear, in_features, out_features, bias=bias, device=device, dtype=dtype
+        Linear, in_features, out_features, bias=bias, device=device, dtype=dtype
     )
 
 
 def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    y = F.linear(x, lin.weight.to(x.dtype))
-    if lin.bias is not None:
-        y = y + lin.bias.to(x.dtype)
-    return y
+    # a tensor-parallel plan's hooks ride the module call; without one the
+    # same product skips the call's overhead (the host-bound decode path)
+    return lin(x) if isinstance(lin.weight, DTensor) else lin.forward(x)
+
+
+def embed(emb: nn.Embedding, input_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``input_ids``. A vocab-sharded embedding (a
+    DTensor weight under tensor parallelism) goes through its module call,
+    whose plan masks the ids other ranks hold and sums the lookups."""
+    if isinstance(emb.weight, DTensor):
+        return emb(input_ids)
+    return emb.weight[input_ids]
+
+
+def lm_head_logits(h: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """h @ weight^T in h's dtype; a vocab-sharded weight is gathered whole
+    first (``full_tensor``, whose backward keeps each rank's rows)."""
+    if isinstance(weight, DTensor):
+        weight = weight.full_tensor()
+    return F.linear(h, weight.to(h.dtype))
 
 
 class RMSNorm(nn.Module):
@@ -100,7 +130,7 @@ class LlamaMLP(nn.Module):
         self.down_proj = _linear(I, D, cfg.mlp_bias, dtype, device)
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(DecoderLayer):
     def __init__(self, cfg: TransformerConfig, dtype: torch.dtype, device):
         super().__init__()
         self.self_attn = LlamaAttention(cfg, dtype, device)
@@ -155,9 +185,10 @@ def attention_block(
     attn = layer.self_attn
     B, S, _ = h.shape
     x = layer.input_layernorm(h)
-    q = _proj(x, attn.q_proj).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = _proj(x, attn.k_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = _proj(x, attn.v_proj).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    # head counts read off the projections: a rank's own under tensor parallelism
+    q = _proj(x, attn.q_proj).reshape(B, S, -1, cfg.head_dim)
+    k = _proj(x, attn.k_proj).reshape(B, S, -1, cfg.head_dim)
+    v = _proj(x, attn.v_proj).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = attn.q_norm(q)
         k = attn.k_norm(k)
@@ -175,7 +206,26 @@ def attention_block(
             segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
             sliding_window=window, sinks=getattr(attn, "sinks", None),
         )
-    return h + _proj(out.reshape(B, S, cfg.q_dim), attn.o_proj)
+    return h + _proj(out.reshape(B, S, -1), attn.o_proj)
+
+
+# Logical dim specs per JAX param path (automodel_tpu/models/llama/model.py
+# :383-396, copied): parallel/plans.py matches them against each tensor's
+# JAX path and applies tensor parallelism where they name ``tensor``.
+SHARDING_RULES: list[tuple[str, tuple]] = [
+    (r"embed/embedding$", ("tensor", "fsdp")),
+    (r"layers/attn/[qkv]_proj/kernel$", (None, "fsdp", "tensor")),
+    (r"layers/attn/[qkv]_proj/bias$", (None, "tensor")),
+    (r"layers/attn/o_proj/kernel$", (None, "tensor", "fsdp")),
+    (r"layers/attn/[qk]_norm/scale$", (None, None)),
+    (r"layers/mlp/(gate|up)_proj/kernel$", (None, "fsdp", "tensor")),
+    (r"layers/mlp/(gate|up)_proj/bias$", (None, "tensor")),
+    (r"layers/mlp/down_proj/kernel$", (None, "tensor", "fsdp")),
+    (r"layers/mlp/down_proj/bias$", (None, None)),
+    (r"layers/.*norm/scale$", (None, "fsdp")),
+    (r"final_norm/scale$", ("fsdp",)),
+    (r"lm_head/kernel$", ("fsdp", "tensor")),
+]
 
 
 class LlamaForCausalLM(nn.Module):
@@ -186,6 +236,7 @@ class LlamaForCausalLM(nn.Module):
 
     supports_kv_cache = True
     state_dict_adapter = LlamaStateDictAdapter  # the HF key map
+    sharding_rules = SHARDING_RULES
 
     def __init__(
         self,
@@ -241,10 +292,11 @@ class LlamaForCausalLM(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
             position_ids = position_ids[None, :].expand(input_ids.shape)
-        h = self.model.embed_tokens.weight[input_ids].to(cd)
+        h = embed(self.model.embed_tokens, input_ids).to(cd)
         cos, sin = rope_table(position_ids, cfg.rope_dim or cfg.head_dim, cfg.rope)
         # inference with a cache never recomputes (it has no backward)
-        layer_fn = self._layer if cache is not None else remat_wrap(self._layer, self.backend.remat)
+        layer_fn = call_layer(self._layer)
+        layer_fn = layer_fn if cache is not None else remat_wrap(layer_fn, self.backend.remat)
         for i, layer in enumerate(self.model.layers):
             h = layer_fn(i, layer, h, cos, sin, cache, segment_ids)
         return self.model.norm(h)
@@ -263,7 +315,7 @@ class LlamaForCausalLM(nn.Module):
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """Hidden states → logits in h's dtype (soft-capped if configured)."""
-        logits = F.linear(h, self.lm_head_weight().to(h.dtype))
+        logits = lm_head_logits(h, self.lm_head_weight())
         cap = self.config.logits_soft_cap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)

@@ -37,15 +37,18 @@ import torch
 from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
-from automodel_tpu_torch.models.common.stacking import remat_wrap
+from automodel_tpu_torch.models.common.stacking import DecoderLayer, call_layer, remat_wrap
 from automodel_tpu_torch.models.llama.model import (
     ACT_FNS,
     LlamaAttention,
     LlamaMLP,
     RMSNorm,
+    SHARDING_RULES as DENSE_RULES,
     _linear,
     _proj,
     attention_block,
+    embed,
+    lm_head_logits,
 )
 from automodel_tpu_torch.models.qwen3_moe.state_dict_adapter import MoEStateDictAdapter
 from automodel_tpu_torch.moe.config import MoEConfig
@@ -99,7 +102,7 @@ class MoEModelAux(NamedTuple):
     aux_loss: torch.Tensor  # scalar fp32
 
 
-class MoEDecoderLayer(nn.Module):
+class MoEDecoderLayer(DecoderLayer):
     def __init__(self, cfg: MoETransformerConfig, dense: bool, dtype: torch.dtype, device):
         super().__init__()
         self.self_attn = LlamaAttention(cfg, dtype, device)
@@ -119,6 +122,24 @@ class MoEModel(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype, device)
 
 
+
+# automodel_tpu/models/qwen3_moe/model.py:410-421, copied: the dense rules
+# match here too (re.search); the expert slabs carry ``tensor`` on their
+# intermediate dim, which the port's tensor parallelism does not take yet
+# (parallel/plans.check_tp refuses tp on an MoE family).
+SHARDING_RULES: list[tuple[str, tuple]] = [
+    (r"moe/router/weight$", (None, None, None)),
+    (r"moe/router/(bias|linear_bias)$", (None, None)),
+    (r"moe/experts/gate_up$", (None, "expert", "expert_fsdp", "tensor")),
+    (r"moe/experts/down$", (None, "expert", "tensor", "expert_fsdp")),
+    (r"moe/experts/gate_up_bias$", (None, "expert", "tensor")),
+    (r"moe/experts/down_bias$", (None, "expert", None)),
+    (r"moe/shared/(gate|up)_proj/kernel$", (None, "fsdp", "tensor")),
+    (r"moe/shared/down_proj/kernel$", (None, "tensor", "fsdp")),
+    (r"moe/shared_gate/kernel$", (None, None, None)),
+    *DENSE_RULES,
+]
+
 class MoEForCausalLM(nn.Module):
     """Built uninitialized on ``device`` in the param dtype;
     ``init_weights`` fills it from a generator, ``load_state_dict`` from a
@@ -133,6 +154,7 @@ class MoEForCausalLM(nn.Module):
     supports_kv_cache = True
     layer_cls: type = MoEDecoderLayer
     state_dict_adapter = MoEStateDictAdapter  # the HF key map
+    sharding_rules = SHARDING_RULES
 
     def __init__(
         self,
@@ -198,10 +220,11 @@ class MoEForCausalLM(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
             position_ids = position_ids[None, :].expand(input_ids.shape)
-        h = self.model.embed_tokens.weight[input_ids].to(self.compute_dtype)
+        h = embed(self.model.embed_tokens, input_ids).to(self.compute_dtype)
         cos, sin = rope_table(position_ids, cfg.rope_dim or cfg.head_dim, cfg.rope)
         # inference with a cache never recomputes (it has no backward)
-        layer_fn = self._layer if cache is not None else remat_wrap(self._layer, self.backend.remat)
+        layer_fn = call_layer(self._layer)
+        layer_fn = layer_fn if cache is not None else remat_wrap(layer_fn, self.backend.remat)
         counts, aux_losses = [], []
         for i, layer in enumerate(self.model.layers):
             h, aux = layer_fn(i, layer, h, cos, sin, cache, segment_ids)
@@ -228,7 +251,7 @@ class MoEForCausalLM(nn.Module):
         return self.model.embed_tokens.weight if self.config.tie_embeddings else self.lm_head.weight
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        logits = torch.nn.functional.linear(h, self.lm_head_weight().to(h.dtype))
+        logits = lm_head_logits(h, self.lm_head_weight())
         cap = self.config.logits_soft_cap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)

@@ -21,7 +21,10 @@ with ``bidir_groups`` runs under ``sdpa`` and raises under ``flash``: the
 mask depends on the data and the flash kernels mask by position only
 (JAX runs such a call on sdpa rather than splash, :421-460).
 
-The JAX ``ring`` backend waits for the context-parallel port.
+- ``ring``: ring attention over the mesh's ``cp`` group
+  (``parallel/cp.py``), the flash kernels at each step; registered by
+  ``parallel.cp.install_ring_backend`` when a model with ``attn: ring`` is
+  built under a mesh. Called before that it raises naming the mesh.
 """
 
 from __future__ import annotations
@@ -136,7 +139,15 @@ def flash(
     )
 
 
-ATTENTION_BACKENDS = {"sdpa": sdpa, "flash": flash}
+def _ring_not_installed(*args, **kwargs):
+    raise ValueError(
+        "attention backend 'ring' needs a mesh: call "
+        "automodel_tpu_torch.parallel.cp.install_ring_backend(mesh_ctx) first "
+        "(the training recipe does this when backend.attn == 'ring' under a distributed: section)"
+    )
+
+
+ATTENTION_BACKENDS = {"sdpa": sdpa, "flash": flash, "ring": _ring_not_installed}
 
 
 def windowed_attention(
@@ -178,12 +189,11 @@ def _backend_fn(backend: str):
     fn = ATTENTION_BACKENDS.get(backend)
     if fn is None:
         raise ValueError(
-            f"Unknown attention backend {backend!r}; the torch backend has {sorted(ATTENTION_BACKENDS)} "
-            "(ring waits for the context-parallel port)"
+            f"Unknown attention backend {backend!r}; the torch backend has {sorted(ATTENTION_BACKENDS)}"
         )
     return fn
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backend: str = "sdpa", **kwargs) -> torch.Tensor:
-    """Dispatch on ``backend`` (``sdpa`` | ``flash``); anything else raises."""
+    """Dispatch on ``backend`` (``sdpa`` | ``flash`` | ``ring``); anything else raises."""
     return _backend_fn(backend)(q, k, v, **kwargs)

@@ -1,7 +1,7 @@
 """Causal-LM losses, port of ``automodel_tpu/ops/losses.py``
 (``masked_cross_entropy``, ``chunked_cross_entropy``,
-``fused_linear_cross_entropy``, ``kd_loss``,
-``nemotron_parse_cross_entropy``, ``build_loss``).
+``fused_linear_cross_entropy``, ``vocab_parallel_cross_entropy``,
+``kd_loss``, ``nemotron_parse_cross_entropy``, ``build_loss``).
 
 Every loss returns ``(loss_sum fp32, n_valid)``: the caller normalizes by
 the global token count over all microbatches. Labels are already shifted
@@ -143,24 +143,112 @@ def nemotron_parse_cross_entropy(
     return (per_tok * w).sum(), valid.sum()
 
 
+class _CopyToTensorParallel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the ``tp``
+    group (the input is replicated there, and each rank's share of its
+    gradient comes from its own vocabulary slice)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """CE over logits sharded on the vocabulary: the row max (detached: the
+    lse does not depend on it), the exp-sums and the picked logit reduced
+    over the ``tp`` group; the gradient of the local logits needs no
+    collective (softmax - one-hot on this rank's slice)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset, group, soft_cap):
+        import torch.distributed as dist
+
+        x = logits.float()
+        t = None
+        if soft_cap is not None:
+            t = torch.tanh(x / soft_cap)
+            x = soft_cap * t
+        m = x.max(dim=-1).values
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(x - m[:, None])
+        z = e.sum(dim=-1)
+        dist.all_reduce(z, group=group)
+        lse = torch.log(z) + m
+        vl = x.shape[-1]
+        local = (labels >= offset) & (labels < offset + vl)
+        idx = torch.clamp(labels - offset, 0, vl - 1)
+        picked = torch.where(local, x.gather(-1, idx[:, None].long())[:, 0], torch.zeros_like(lse))
+        dist.all_reduce(picked, group=group)
+        valid = labels != IGNORE_INDEX
+        loss = torch.where(valid, lse - picked, torch.zeros_like(lse))
+        ctx.save_for_backward(e / z[:, None], idx, local & valid, valid, t)
+        ctx.soft_cap, ctx.dtype = soft_cap, logits.dtype
+        n = valid.sum()
+        ctx.mark_non_differentiable(n)
+        return loss.sum(), n
+
+    @staticmethod
+    def backward(ctx, g, _gn):
+        p, idx, picked_here, valid, t = ctx.saved_tensors
+        ds = p * valid[:, None].float()
+        ds.scatter_add_(-1, idx[:, None].long(), -picked_here[:, None].float())
+        ds = ds * g
+        if t is not None:
+            ds = ds * (1.0 - t * t)
+        return ds.to(ctx.dtype), None, None, None, None
+
+
+def vocab_parallel_cross_entropy(
+    hidden: torch.Tensor,
+    lm_head_kernel: torch.Tensor,
+    labels: torch.Tensor,
+    mesh_ctx=None,
+    logits_soft_cap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tensor-parallel CE (JAX :139): the lm_head product and the softmax
+    with the vocabulary sharded over the ``tp`` group, so no rank holds the
+    full [T, V] logits. hidden [..., D] (replicated over tp),
+    lm_head_kernel [D, V] (a DTensor sharded on V under tp, e.g. the
+    transposed view of the [V, D] weight), labels [...] → (loss_sum fp32,
+    n_valid), equal on every tp rank. At tp == 1 it is
+    ``fused_linear_cross_entropy``, as in JAX."""
+    tp = 1 if mesh_ctx is None else mesh_ctx.tp_size
+    if tp == 1:
+        return fused_linear_cross_entropy(hidden, lm_head_kernel, labels, logits_soft_cap=logits_soft_cap)
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (isinstance(lm_head_kernel, DTensor) and lm_head_kernel.placements[-1] == Shard(1)):
+        raise ValueError("vocab_parallel_cross_entropy: lm_head_kernel must be a DTensor sharded on the vocabulary")
+    group = mesh_ctx.group("tp")
+    kern = lm_head_kernel.to_local()
+    offset = mesh_ctx.coordinate("tp") * kern.shape[-1]
+    d = hidden.shape[-1]
+    h = _CopyToTensorParallel.apply(hidden.reshape(-1, d), group)
+    logits = h @ kern.to(h.dtype)
+    return _VocabParallelCE.apply(logits, labels.reshape(-1), offset, group, logits_soft_cap)
+
+
 LOSS_REGISTRY = {
     "masked_ce": masked_cross_entropy,
     "chunked_ce": chunked_cross_entropy,
     "fused_linear_ce": fused_linear_cross_entropy,
     "kd": kd_loss,
     "nemotron_parse": nemotron_parse_cross_entropy,
+    "vocab_parallel_ce": vocab_parallel_cross_entropy,
 }
 
 
 def build_loss(name: str = "masked_ce", **kwargs):
-    """The named loss with ``kwargs`` bound. ``vocab_parallel_ce`` (JAX
-    :139, a sum over the tensor-parallel mesh axis) is refused by name
-    until the port has parallelism."""
-    if name == "vocab_parallel_ce":
-        raise ValueError(
-            "loss 'vocab_parallel_ce' (vocab_parallel_cross_entropy) is not ported to the torch backend: "
-            "it sums over the tensor-parallel mesh axis, and the port runs one device"
-        )
+    """The named loss with ``kwargs`` bound; an unknown name raises."""
     fn = LOSS_REGISTRY.get(name)
     if fn is None:
         raise ValueError(

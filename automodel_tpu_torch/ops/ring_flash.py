@@ -26,9 +26,10 @@ scores (not from s / c); dq = scale * dS.K and dk = scale * dS^T.Q as
 without a cap.
 
 The CUDA kernels find their live tiles from the positions, so there the
-positions must be non-decreasing (the single-device and contiguous
-layouts); the zigzag ring layout and ``merge_partials`` wait for the
-context-parallel ring.
+positions must be non-decreasing: the single-device layout and each
+rank's block of the context-parallel ring (``parallel/cp.py``), contiguous
+or zigzag (two runs with a gap). ``merge_partials`` merges one ring step's
+(out, lse) into the running pair, in plain fp32 torch.
 
 The kernels round P (and dS) to bf16 before the P.V (dS.K, dS^T.Q) products
 where the JAX kernels keep them fp32; the plain versions keep them fp32.
@@ -334,6 +335,23 @@ def flash_block_bwd(q, k, v, do, lse, delta, q_pos, kv_pos, seg_q, seg_kv, *, ca
     dq = flash_block_dq(*args, **kw)
     dk, dv = flash_block_dkv(*args, **kw)
     return dq, dk, dv
+
+
+def merge_partials(out_a: torch.Tensor, lse_a: torch.Tensor, out_t: torch.Tensor, lse_t: torch.Tensor):
+    """Online-softmax merge of two independently normalized partial
+    attentions (JAX :407). out [B, S, N, H] fp32, lse [B, N, S] fp32. Rows
+    dead on both sides (lse ``NEG_INF``) stay at 0 / ``NEG_INF``."""
+    m = torch.maximum(lse_a, lse_t)
+    alive = m > NEG_INF / 2
+    zero = torch.zeros_like(m)
+    wa = torch.where(alive, torch.exp(lse_a - m), zero)
+    wt = torch.where(alive, torch.exp(lse_t - m), zero)
+    denom = torch.clamp(wa + wt, min=1e-30)
+    wa_n = (wa / denom).transpose(1, 2)[..., None]
+    wt_n = (wt / denom).transpose(1, 2)[..., None]
+    out = out_a * wa_n + out_t * wt_n
+    lse = torch.where(alive, m + torch.log(denom), torch.full_like(m, NEG_INF))
+    return out, lse
 
 
 def fold_sinks(out: torch.Tensor, lse: torch.Tensor, sinks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -103,6 +103,7 @@ def check_benchmark_sections(cfg: Any) -> None:
 
 class BenchmarkingRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPrediction):
     read_sections = READ_SECTIONS + ("benchmark", "serving")
+    runs_parallel = False  # a distributed: section past one device is refused
 
     def setup(self) -> None:
         check_benchmark_sections(self.cfg)

@@ -72,6 +72,7 @@ def make_kd_loss(student: Any, teacher: Any, ratio: float, temperature: float) -
 
 class KDRecipeForNextTokenPrediction(TrainFinetuneRecipeForNextTokenPrediction):
     read_sections = READ_SECTIONS + ("teacher_model", "kd")
+    runs_parallel = False  # a distributed: section past one device is refused
 
     def setup(self) -> None:
         cfg = self.cfg

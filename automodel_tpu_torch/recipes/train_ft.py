@@ -100,10 +100,26 @@ and grad norms are bit for bit the same as with them on:
   into exit 75;
 - ``fault_injection`` (resilience/fault_injection.py): the training knobs.
 
+A ``distributed:`` section (JAX :82-108) runs the step on a mesh: the
+process group from torchrun's environment (one process without it; NCCL
+on the card, gloo under ``device: cpu``), the device mesh of its degrees
+(``parallel/mesh.py``, ``dp_shard: -1`` inferred), the model's sharding
+rules applied (``parallel/plans.py``: DTensor tensor parallelism where a
+rule names ``tensor``, FSDP2 over the ``fsdp`` grouping, HSDP with
+``dp_replicate``), ``attn: ring`` bound to the ``cp`` group
+(``parallel/cp.py``, zigzag under ``cp_zigzag``), each rank's rows and
+sequence slice of the global batch (``data/loader.local_batch``), the
+token count and loss all-reduced over ``loss_dp`` and the optimizer on
+the local shards. Without the section the run is one device with no
+process group, as before.
+
 Sections the port does not run are refused with a ``ValueError`` naming
 them, never ignored: ``peft``, ``qat``, a ``data`` key other than
 ``prefetch`` (an unknown ``data.prefetch`` key raises JAX's ``TypeError``),
-and any ``distributed`` degree other than 1.
+``distributed.pp > 1`` and ``ep > 1`` (the pipeline schedules and the
+expert-parallel experts), ``tp > 1`` on an MoE family, ``adafactor`` and
+``muon`` on a mesh of more than one device (they read whole matrices),
+``checkpoint.is_async`` there, and ``attn: ring`` without the section.
 """
 
 from __future__ import annotations
@@ -135,9 +151,11 @@ from automodel_tpu_torch.generation.engine import (
 )
 from automodel_tpu_torch.loggers.metric_logger import MetricLogger
 from automodel_tpu_torch.optim.builders import build_optimizer
+from automodel_tpu_torch.parallel.mesh import MeshConfig
 from automodel_tpu_torch.resilience import NonFiniteError, Resilience, TrainingPreempted
 from automodel_tpu_torch.resilience.fault_injection import FaultInjectionConfig
 from automodel_tpu_torch.resilience.guard import DistributedGuard, DistributedGuardConfig
+from automodel_tpu_torch.parallel.plans import local
 from automodel_tpu_torch.resilience.manifest import step_dir_key
 from automodel_tpu_torch.telemetry import Telemetry, TelemetryConfig, build_fingerprint, jax_groups
 from automodel_tpu_torch.telemetry.goodput import GoodputLedger
@@ -186,8 +204,9 @@ def _refuse(name: str, why: str) -> None:
     raise ValueError(f"{name}: {why} is not ported to the torch backend yet")
 
 
-def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS) -> None:
-    """Raise ``ValueError`` naming the first section the port does not run."""
+def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS, parallel: bool = True) -> None:
+    """Raise ``ValueError`` naming the first section the port does not run
+    (``parallel``: whether the recipe runs a ``distributed:`` mesh)."""
     for name in cfg:
         if name not in read_sections and cfg[name] is not None:
             section = _plain(cfg[name])
@@ -196,9 +215,12 @@ def check_sections(cfg: Any, read_sections: tuple = READ_SECTIONS) -> None:
     checkpointing_config(cfg)
     check_observability_sections(cfg)
     dist = dict(_plain(cfg.get("distributed", None)) or {})
-    other = {k: v for k, v in dist.items() if k not in DEGREES or v not in (None, 1)}
-    if other:
-        _refuse(f"distributed {other}", "running on more than one device")
+    if parallel:
+        MeshConfig.from_section(dist).check_ported()
+    else:
+        other = {k: v for k, v in dist.items() if k not in DEGREES or v not in (None, 1)}
+        if other:
+            _refuse(f"distributed {other}", "this recipe on more than one device")
     data = dict(_plain(cfg.get("data", None)) or {})
     other = sorted(k for k in data if k != "prefetch")
     if other:
@@ -265,6 +287,7 @@ def build_dataset(section: Any, name: str = "dataset") -> Any:
 
 class TrainFinetuneRecipeForNextTokenPrediction:
     read_sections = READ_SECTIONS
+    runs_parallel = True  # reads a distributed: section (the KD and benchmark recipes do not yet)
 
     def __init__(self, cfg: Any):
         self.cfg = cfg
@@ -274,18 +297,27 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         # the goodput ledger's epoch: the attempt's wall clock starts here,
         # so model build and data setup land in its `startup` segment
         self._setup_t0 = time.time()
-        check_sections(cfg, self.read_sections)
+        check_sections(cfg, self.read_sections, parallel=self.runs_parallel)
         self.device = resolve_device(cfg.get("device", None))
+        self.mesh_ctx = self._setup_mesh()
         seed = int(cfg.get("seed", 42))
         self.auto = build_auto_from_model_section(cfg.model, self.device, seed=seed, trainable=True)
         self.model = self.auto.model
+        self._setup_parallel()
         self.rng = StatefulRNG(seed=seed)
         named = list(self.model.named_parameters())
         params = [p for _, p in named]
 
         ocfg = dict(_plain(cfg.get("optimizer", None)) or {"name": "adamw"})
         ocfg.pop("_target_", None)
-        optimizer = build_optimizer(params, names=[n for n, _ in named], **ocfg)
+        if self.mesh_ctx is not None and self.mesh_ctx.world_size > 1 and ocfg.get("name") in ("adafactor", "muon"):
+            raise ValueError(
+                f"optimizer {ocfg['name']!r} on a mesh of {self.mesh_ctx.world_size} devices: it reads whole "
+                "matrices (factored moments, Newton-Schulz), and its sharded form is not ported to the torch "
+                "backend yet"
+            )
+        # the optimizer updates each parameter's local shard (elementwise rules)
+        optimizer = build_optimizer([local(p) for p in params], names=[n for n, _ in named], **ocfg)
         self.lr_schedule = optimizer.schedule
         self.state = TrainState(params=params, optimizer=optimizer)
 
@@ -312,9 +344,9 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             self.loss_fn, self.lr_schedule, on_nonfinite=self.resilience.on_nonfinite,
             post_step_fn=getattr(self.model, "post_step_fn", None),
             anomaly_flags=self._anomaly_flags, groups=self._groups,
-            nan_grads_at_step=self.resilience.nan_grads_at_step,
+            nan_grads_at_step=self.resilience.nan_grads_at_step, mesh_ctx=self.mesh_ctx,
         )
-        self.eval_step = build_eval_step(self.loss_fn)
+        self.eval_step = build_eval_step(self.loss_fn, mesh_ctx=self.mesh_ctx)
 
         if cfg.get("dataset", None) is None:
             raise ValueError("A `dataset:` section is required")
@@ -330,7 +362,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
             )
         scfg = dict(_plain(cfg.get("step_scheduler", None)) or {})
         # the input pipeline, wrapped before the scheduler is built (JAX :260-290)
-        self._placer = DevicePlacer(self.device)
+        self._placer = DevicePlacer(self.device, select=self._local_batch if self.mesh_ctx is not None else None)
         self.prefetch_config = PrefetchConfig.from_data_section(_plain(cfg.get("data", None)))
         if self.prefetch_config.enabled:
             self.dataloader = PrefetchingLoader(
@@ -378,7 +410,9 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         )
         logger.info("training on %s, metrics to %s", self.device, metrics_path)
 
-        fingerprint = build_fingerprint(_plain(cfg))
+        fingerprint = build_fingerprint(_plain(cfg), self.mesh_ctx)
+        # what every rank must agree on (the ledger, and its attempt, is rank 0's)
+        consensus_fingerprint = dict(fingerprint)
         if self.ledger.enabled:
             fingerprint["attempt"] = dict(self.ledger.envelope)
         self.telemetry = Telemetry.from_config(
@@ -422,7 +456,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         # and desync evidence land beside the metrics JSONL
         self.guard = DistributedGuard.from_config(
             _section(cfg, "distributed_guard"),
-            fingerprint=self.telemetry.flight_recorder.fingerprint if self.telemetry.flight_recorder else None,
+            fingerprint=consensus_fingerprint if self.telemetry.flight_recorder else None,
             flight_recorder=self.telemetry.flight_recorder,
             metric_logger=self.metric_logger,
             default_stacks_path=str(self.metric_logger.path.parent / "watchdog_stacks.txt"),
@@ -463,6 +497,51 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         elif self.ledger.restart_count > 0:
             # a restart with nothing to resume from: all of it was lost
             self.ledger.on_resume(0)
+
+    def _setup_mesh(self) -> Any:
+        """The ``distributed:`` section → the process group and the device
+        mesh (None without the section: one device, no group). Under NCCL
+        the training device becomes this rank's card."""
+        section = self.cfg.get("distributed", None)
+        if section is None:
+            return None
+        from automodel_tpu_torch.parallel.mesh import build_mesh, initialize_distributed
+
+        mcfg = MeshConfig.from_section(_plain(section))
+        mcfg.check_ported()
+        initialize_distributed(self.device)
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        ctx = build_mesh(mcfg, device_type=self.device.type)
+        logger.info("mesh: %s", ctx.shape)
+        return ctx
+
+    def _setup_parallel(self) -> None:
+        """The model's plans on the mesh (tensor parallelism, FSDP2) and the
+        ``ring`` backend on its ``cp`` group; zigzag permutes the data."""
+        backend = self.model.backend
+        ctx = self.mesh_ctx
+        self._zigzag_cp = ctx.cp_size if ctx is not None and backend.cp_zigzag and ctx.cp_size > 1 else 0
+        if backend.attn == "ring":
+            if ctx is None:
+                raise ValueError("attn='ring' (context parallel) requires a mesh: add a distributed: section")
+            from automodel_tpu_torch.parallel.cp import install_ring_backend
+
+            install_ring_backend(ctx, zigzag=backend.cp_zigzag)
+        elif ctx is not None and ctx.cp_size > 1:
+            raise ValueError(f"distributed.cp={ctx.cp_size} needs backend.attn: ring, not {backend.attn!r}")
+        if ctx is not None:
+            if self.cfg.get("checkpoint.is_async", False) and ctx.world_size > 1:
+                raise ValueError("checkpoint.is_async on a mesh of more than one device is not ported to the torch "
+                                 "backend yet")
+            from automodel_tpu_torch.parallel.plans import parallelize
+
+            parallelize(self.model, ctx)
+
+    def _local_batch(self, stacked: dict) -> dict:
+        from automodel_tpu_torch.data.loader import local_batch
+
+        return local_batch(self.mesh_ctx, stacked)
 
     def _guard_event(self, rec: dict) -> None:
         """Anomaly evidence (desync, hang, trace_capture) goes to the
@@ -518,23 +597,40 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         lcfg = dict(_plain(self.cfg.get("loss_fn", None)) or {})
         lcfg.pop("_target_", None)
         loss_name = lcfg.pop("name", "masked_ce")
-        return make_causal_lm_loss(self.model, loss=loss_name, **lcfg)
+        return make_causal_lm_loss(self.model, loss=loss_name, mesh_ctx=self.mesh_ctx, **lcfg)
 
     def _prepare_group(self, group: list) -> tuple[dict, int]:
         """One grad-acc group of collated microbatches → (the [A]-stacked
-        host batch, its token count over every ``*input_ids`` leaf). The
-        sync loop, validation and the prefetch producer all go through
-        here, so both paths build the same batches (JAX :723-767; the
-        port runs no zigzag context parallelism, so JAX's validation
-        variant is this one)."""
+        global host batch, its token count over every ``*input_ids``
+        leaf). The sync loop, validation and the prefetch producer all go
+        through here, so both paths build the same batches (JAX
+        :723-767). Under ``cp > 1`` a batch without ``position_ids`` gets
+        the global positions, so RoPE sees them on every rank; under zigzag
+        the sequence leaves are permuted into the zigzag layout (labels were
+        shifted before, so the loss is the same)."""
         stacked = stack_microbatches(group)
+        ctx = getattr(self, "mesh_ctx", None)
+        if ctx is not None and ctx.cp_size > 1 and "position_ids" not in stacked:
+            ids = stacked["input_ids"]
+            stacked["position_ids"] = np.broadcast_to(np.arange(ids.shape[-1], dtype=np.int32), ids.shape).copy()
+        if getattr(self, "_zigzag_cp", 0):
+            from automodel_tpu_torch.parallel.cp import apply_zigzag
+
+            stacked = {
+                k: apply_zigzag(v, self._zigzag_cp, axis=2)
+                if k in ("input_ids", "labels", "position_ids", "segment_ids") else v
+                for k, v in stacked.items()
+            }
         n_tokens = int(sum(v.size for k, v in stacked.items() if k.endswith("input_ids") and isinstance(v, np.ndarray)))
         return stacked, n_tokens
 
     def _place(self, stacked: dict) -> dict:
-        """[A]-stacked numpy batch → tensors on the training device, on the
-        sync path (JAX's ``_place_group``; the prefetch producer places
-        through ``self._placer``)."""
+        """[A]-stacked numpy batch → tensors on the training device (this
+        rank's part under a mesh), on the sync path (JAX's
+        ``_place_group``; the prefetch producer places through
+        ``self._placer``)."""
+        if getattr(self, "mesh_ctx", None) is not None:
+            stacked = self._local_batch(stacked)
         return {
             k: torch.from_numpy(v).to(self.device, non_blocking=True)
             for k, v in stacked.items()
@@ -617,10 +713,17 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         buffers, such as the aux-free router bias), the optimizer's state
         (Adam's moments keyed by parameter name, adafactor's and muon's by
         JAX leaf path) and its count, and the step."""
-        names = [n for n, _ in self.model.named_parameters()]
+        named = list(self.model.named_parameters())
+        optim = self.state.optimizer.state_tree([n for n, _ in named])
+        if self.mesh_ctx is not None:
+            # the optimizer keeps local shards: wrap them as their params are
+            # sharded, so DCP writes (and reshards on load) the whole tensors
+            from automodel_tpu_torch.parallel.plans import shard_like
+
+            optim = shard_like(optim, dict(named))
         return {
             "model": self.model.state_dict(),
-            "optim": self.state.optimizer.state_tree(names),
+            "optim": optim,
             "step": self.state.step,
         }
 
@@ -906,7 +1009,8 @@ class TrainFinetuneRecipeForNextTokenPrediction:
                         tel.compile_bridge.drain()
                 else:
                     rec.update(steps_spanned=steps_window, step_time_s=dt / steps_window, tps=tokens_window / dt,
-                               tps_per_device=tokens_window / dt, host_input_wait_s=input_wait_window / steps_window)
+                               tps_per_device=tokens_window / dt / (self.mesh_ctx.world_size if self.mesh_ctx else 1),
+                               host_input_wait_s=input_wait_window / steps_window)
                     if isinstance(self.dataloader, PrefetchingLoader):
                         rec["prefetch_depth"] = self.dataloader.queue_depth
                     if res.skipped_steps:

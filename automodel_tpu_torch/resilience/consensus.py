@@ -281,14 +281,26 @@ class ConsensusGuard:
 
 def param_checksum(params: Any) -> float:
     """fp32 sum of squares over the floating-point tensors of ``params``
-    (a list of tensors, or a module's parameters), as one host float."""
+    (a list of tensors, or a module's parameters), as one host float. A
+    sharded tensor (DTensor) counts whole: its shards' sums are summed over
+    the ranks holding them, so every rank of a mesh reports the same."""
     import torch
+
+    from automodel_tpu_torch.parallel.plans import global_sums, is_sharded, local
 
     leaves = params.parameters() if hasattr(params, "parameters") else params
     total = None
+    sharded, sums = [], []
     with torch.no_grad():
         for x in leaves:
             if isinstance(x, torch.Tensor) and x.is_floating_point():
-                s = x.float().square().sum()
+                s = local(x).float().square().sum()
+                if is_sharded(x):
+                    sharded.append(x)
+                    sums.append(s)
+                    continue
                 total = s if total is None else total + s
+        if sharded:
+            s = global_sums(sharded, sums).sum()
+            total = s if total is None else total + s
     return float(total) if total is not None else 0.0

@@ -53,15 +53,24 @@ def jax_groups(model: Any, names: Sequence[str]) -> list[str]:
     return out
 
 
-def nonfinite_count(tensors: Sequence[torch.Tensor], norms: Sequence[torch.Tensor]) -> torch.Tensor:
+def nonfinite_count(tensors: Sequence[torch.Tensor], norms: Sequence[torch.Tensor], like=None) -> torch.Tensor:
     """Count of non-finite elements over ``tensors`` (int64 scalar), given
     their fp32 norms: one host read of the norms' finiteness, then an
-    element count only in the tensors whose norm is not finite."""
+    element count only in the tensors whose norm is not finite. With
+    ``like`` (the parameters, when ``tensors`` are their local shards) a
+    tensor's count is summed over the ranks it is sharded across."""
     finite = torch.isfinite(torch.stack(list(norms))).tolist()
     count = torch.zeros((), dtype=torch.int64, device=norms[0].device)
-    for t, ok in zip(tensors, finite):
-        if not ok:
-            count = count + (~torch.isfinite(t)).sum()
+    bad = [i for i, ok in enumerate(finite) if not ok]
+    if not bad:
+        return count
+    counts = [(~torch.isfinite(tensors[i])).sum() for i in bad]
+    if like is not None:
+        from automodel_tpu_torch.parallel.plans import global_sums
+
+        return count + global_sums([like[i] for i in bad], counts).sum()
+    for c in counts:
+        count = count + c
     return count
 
 
@@ -74,11 +83,13 @@ def group_grad_norms(norms: Sequence[torch.Tensor], groups: Sequence[str]) -> di
 
 
 def anomaly_metrics(
-    loss_sum: torch.Tensor, grads: Sequence[torch.Tensor], norms: Sequence[torch.Tensor], groups: Sequence[str]
+    loss_sum: torch.Tensor, grads: Sequence[torch.Tensor], norms: Sequence[torch.Tensor], groups: Sequence[str],
+    like=None,
 ) -> dict[str, torch.Tensor]:
     """The metrics fragment the train step merges in: ``nonfinite`` (loss
-    or any grad element), ``grad_nonfinite_count`` and the group norms."""
-    bad = nonfinite_count(grads, norms)
+    or any grad element), ``grad_nonfinite_count`` and the group norms
+    (``like``: see ``nonfinite_count``)."""
+    bad = nonfinite_count(grads, norms, like=like)
     out = {"nonfinite": ~torch.isfinite(loss_sum) | (bad > 0), "grad_nonfinite_count": bad}
     out.update(group_grad_norms(norms, groups))
     return out

@@ -56,9 +56,8 @@ def _redact(obj: Any) -> Any:
 
 
 def build_fingerprint(config: Optional[dict] = None, mesh_ctx: Any = None) -> dict[str, Any]:
-    """Config/device/env fingerprint stamped into every dump. The port runs
-    one device and no mesh, so ``mesh`` is None unless a caller passes a
-    context with a ``mesh.shape``."""
+    """Config/device/env fingerprint stamped into every dump; ``mesh`` is
+    the degrees of a ``parallel.MeshContext`` (None without one)."""
     import torch
 
     try:
@@ -77,7 +76,7 @@ def build_fingerprint(config: Optional[dict] = None, mesh_ctx: Any = None) -> di
         "cuda_version": torch.version.cuda,
         "python": sys.version.split()[0],
         "device": device,
-        "mesh": dict(mesh_ctx.mesh.shape) if mesh_ctx is not None else None,
+        "mesh": dict(mesh_ctx.shape) if mesh_ctx is not None else None,
         "env": {
             k: (os.environ[k] if keep_value else "<set>")
             for k, keep_value in _ENV_KEYS.items()

@@ -339,8 +339,28 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    ledger holds two chained attempts, each within 5% of its wall clock.
    The run dirs are deleted.
 
+26. parallelism: (a) phase 23's full-depth SFT config under FSDP2
+   (``configs/sft_llama3_8b_fsdp.yaml``: ``distributed: {dp_shard: -1}``),
+   4 steps through the ``finetune`` CLI's ``main`` in a child of
+   ``python -m torch.distributed.run --nproc_per_node 1`` (a one-rank
+   NCCL group; the 32 layers and the root wrapped by ``fully_shard``):
+   each loss and grad norm held to phase 23's run of the config unwrapped
+   (whether bit for bit is printed), K1's launches counted, step time and
+   peak memory printed beside phase 23's; (b) the context-parallel ring's
+   per-rank schedule at cp = 4 virtual ranks driven in this process through
+   the port's own step and merge functions: Llama-3-8B's attention (N 32,
+   Nkv 8, H 128, bf16, causal) at S = 32768 (8192 tokens a rank), zigzag
+   and contiguous, Gemma 2's (H 256, cap 50, window 4096) and gpt-oss's (H
+   64, N 64, sinks) at S = 16384 zigzag: the stitched out, lse, dq, dk and
+   dv held to K1 over the whole sequence (phase 3's limits), each rank's
+   K1 time and live pairs printed, and the ring through K1 held to the ring
+   through the plain versions at S = 2048; (c) in the same child, ``attn:
+   ring`` at cp = 1 against ``attn: flash`` at 2 layers of those widths: the
+   same losses and grad norms bit for bit. The card is one device, so no
+   collective crosses ranks here: NCCL across ranks is not measured.
+
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 25 last. After the build the
+phase 3b right after phase 3, phases 15 to 26 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -5561,9 +5581,345 @@ def packed_flash_entry(name: str, data: dict) -> dict:
                 live_pairs=row["live_pairs"], shape="B=1 S=4096 N=32 Nkv=8 H=128 causal, a packed row's segments")
 
 
+# -- phase 26: parallelism --------------------------------------------------------
+
+# (a): configs/sft_llama3_8b_fsdp.yaml as a dict, phase 23's full-depth SFT
+# under FSDP2 (tests/test_torch_mesh.py checks the two agree)
+SFT_LLAMA3_8B_FSDP = dict(SFT_LLAMA3_8B_FULL, distributed=dict(dp_shard=-1),
+                          logging=dict(metrics_path="runs/torch_sft_llama3_8b_fsdp/train_metrics.jsonl"))
+FSDP_CHILD_TIMEOUT_S = 600
+# (c): the ring at cp = 1 against attn: flash on a 2-layer bf16 Llama whose
+# head_dim (128) K1 takes, through the CLI in the same one-rank group
+RING_CP1_LAYERS = 2
+RING_CP1_STEPS = 3
+# (b): the ring's per-rank schedule at cp = 4 virtual ranks
+RING_CP = 4
+RING_CASES = {
+    "llama3-8b": dict(S=32768, N=32, Nkv=8, H=128, window=None, cap=None, scale=None, sinks=False),
+    "gemma2-9b window 4096, cap 50": dict(S=16384, N=16, Nkv=8, H=256, window=4096, cap=50.0, scale=1.0 / 16,
+                                           sinks=False),
+    "gpt-oss-20b sinks": dict(S=16384, N=64, Nkv=8, H=64, window=None, cap=None, scale=None, sinks=True),
+}
+# the plain versions' sizes: 512-token blocks, and 400 (halves of 200: K1's
+# 128- and 64-row tiles straddle the zigzag gap)
+RING_PLAIN_S = (2048, 1600)
+RING_TIMING_ITERS = 5
+
+
+def fsdp_child(out_path: str, *configs: str) -> int:
+    """The torchrun child of phase 26 (a) and (c): ``finetune llm`` through
+    the CLI's ``main`` for each config in turn, in the one-rank NCCL group
+    torchrun set up; writes each run's exit code, K1 launches and peak
+    device memory."""
+    import torch
+
+    from automodel_tpu_torch.cli import app
+    from automodel_tpu_torch.ops import ring_flash as rf
+
+    kernels = dict(fwd=rf.flash_block_fwd, dq=rf.flash_block_dq, dkv=rf.flash_block_dkv)
+    runs = []
+    for cfg in configs:
+        for f in kernels.values():
+            f.launches = 0
+        # the last run's FSDP state holds cycles: free it before the next
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        rc = app.main(["finetune", "llm", "-c", cfg])
+        torch.cuda.synchronize()
+        runs.append(dict(config=cfg, rc=rc, wall_s=time.perf_counter() - t0, allocated_at_start_gib=at_start,
+                         launches={k: f.launches for k, f in kernels.items()},
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        print(f"fsdp child: {json.dumps(runs[-1])}", flush=True)
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(out_path, "w") as f:
+            json.dump(runs, f)
+    return 0 if all(r["rc"] == 0 for r in runs) else 1
+
+
+def phase_parallel_fsdp(torch, rest: dict) -> dict:
+    """Phase 26 (a) and (c): one torchrun child (one rank, NCCL) runs the
+    full-depth SFT under FSDP2, then the 2-layer ring at cp = 1 and its
+    flash twin; (a)'s losses and grad norms are held to phase 23's run of
+    the same config unwrapped."""
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    root = here / "runs" / "chip_smoke" / f"parallel_{time.time_ns()}"
+    root.mkdir(parents=True, exist_ok=True)
+    full = json.loads(json.dumps(SFT_LLAMA3_8B_FSDP))
+    full["device"] = TRAIN_DEVICE
+    full["step_scheduler"].update(max_steps=FULL_STEPS, log_every_steps=1)
+    full["logging"]["metrics_path"] = str(root / "fsdp.jsonl")
+    tiny = {}
+    for attn in ("ring", "flash"):
+        cfg = dict(json.loads(json.dumps(SFT_LLAMA3_8B_FULL)), device=TRAIN_DEVICE, distributed=dict(cp=1),
+                   logging=dict(metrics_path=str(root / f"cp1_{attn}.jsonl")))
+        cfg["model"]["hf_config"].update(num_hidden_layers=RING_CP1_LAYERS)
+        cfg["model"]["backend"].update(attn=attn, remat="none")
+        cfg["step_scheduler"].update(max_steps=RING_CP1_STEPS, log_every_steps=1)
+        tiny[attn] = cfg
+    paths = []
+    for tag, cfg in (("fsdp", full), ("cp1_ring", tiny["ring"]), ("cp1_flash", tiny["flash"])):
+        paths.append(root / f"{tag}.json")
+        paths[-1].write_text(json.dumps(cfg))
+    out_path = root / "child.json"
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(here))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", str(here / "chip_smoke.py"),
+         "--fsdp-child", str(out_path), *map(str, paths)],
+        cwd=str(here), env=env, capture_output=True, text=True, timeout=FSDP_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"26: the torchrun child exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    runs = json.loads(out_path.read_text())
+    print("\n".join(line for line in proc.stdout.splitlines() if line.startswith("fsdp child:")), flush=True)
+    steps = {tag: [r for r in map(json.loads, open(root / f"{tag}.jsonl")) if "loss" in r]
+             for tag in ("fsdp", "cp1_ring", "cp1_flash")}
+    f = steps["fsdp"]
+    if [r["step"] for r in f] != list(range(1, FULL_STEPS + 1)) or any(r["nonfinite"] for r in f):
+        raise RuntimeError(f"26 (a): step rows {f}")
+    layers = full["model"]["hf_config"]["num_hidden_layers"]
+    want = dict(fwd=layers * FULL_STEPS * 2, dq=layers * FULL_STEPS, dkv=layers * FULL_STEPS)
+    if runs[0]["launches"] != want:
+        raise RuntimeError(f"26 (a): flash launches {runs[0]['launches']}, want {want}")
+    ref = rest["full"]
+    loss_err = max(abs(a["loss"] - b) / abs(b) for a, b in zip(f, ref["losses"]))
+    norm_err = max(abs(a["grad_norm"] - b) / abs(b) for a, b in zip(f, ref["grad_norms"]))
+    if loss_err > STEP_LOSS_REL_TOL or norm_err > STEP_GRAD_NORM_REL_TOL:
+        raise RuntimeError(f"26 (a): FSDP2 losses {[r['loss'] for r in f]} / grad norms "
+                           f"{[r['grad_norm'] for r in f]} against phase 23's {ref['losses']} / {ref['grad_norms']}")
+    bit = [r["loss"] for r in f] == ref["losses"] and [r["grad_norm"] for r in f] == ref["grad_norms"]
+    step_s = statistics.median(r["step_time_s"] for r in f[1:])
+    a = dict(layers=layers, losses=[r["loss"] for r in f], grad_norms=[r["grad_norm"] for r in f],
+             loss_max_rel_err=loss_err, grad_norm_max_rel_err=norm_err, bit_for_bit_with_phase_23=bit,
+             step_ms=1e3 * step_s, step_ms_unwrapped=ref["step_ms"], peak_gib=runs[0]["peak_gib"],
+             peak_gib_unwrapped=ref["peak_mem_gib"], flash_launches=runs[0]["launches"], wall_s=runs[0]["wall_s"],
+             child_s=child_s)
+    print(f"phase 26 (a) FSDP2 at {layers} layers, one-rank NCCL group under torchrun: {json.dumps(a)} | "
+          f"{card_line()}", flush=True)
+    ring_rows, flash_rows = steps["cp1_ring"], steps["cp1_flash"]
+    same = [(r["loss"], r["grad_norm"]) for r in ring_rows] == [(r["loss"], r["grad_norm"]) for r in flash_rows]
+    if not same or len(ring_rows) != RING_CP1_STEPS:
+        raise RuntimeError(f"26 (c): attn ring at cp = 1 {ring_rows} against attn flash {flash_rows}")
+    want = dict(fwd=RING_CP1_LAYERS * RING_CP1_STEPS, dq=RING_CP1_LAYERS * RING_CP1_STEPS,
+                dkv=RING_CP1_LAYERS * RING_CP1_STEPS)
+    if runs[1]["launches"] != want or runs[2]["launches"] != want:
+        raise RuntimeError(f"26 (c): flash launches ring {runs[1]['launches']}, flash {runs[2]['launches']}, want {want}")
+    c = dict(losses=[r["loss"] for r in ring_rows], grad_norms=[r["grad_norm"] for r in ring_rows],
+             bit_for_bit_with_flash=same, ring_launches=runs[1]["launches"])
+    print(f"phase 26 (c) attn ring at cp = 1 through the CLI: {json.dumps(c)}", flush=True)
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(fsdp=a, ring_cp1=c)
+
+
+def _ring_layout(torch, x, zigzag: bool, axis: int = 1, undo: bool = False):
+    from automodel_tpu_torch.parallel import cp as tcp
+
+    if not zigzag:
+        return x
+    return (tcp.undo_zigzag if undo else tcp.apply_zigzag)(x, RING_CP, axis=axis)
+
+
+def run_ring(torch, tcp, ranks: dict, sinks, kw: dict, zigzag: bool) -> tuple:
+    """Every rank's forward and backward steps of the ring, in ring order
+    → (outs, lses, dqs, dks, dvs, d_sinks)."""
+    outs, lses = tcp.ring_forward_ranks(ranks["q"], ranks["k"], ranks["v"], None, sinks, zigzag=zigzag, **kw)
+    grads = tcp.ring_backward_ranks(ranks["q"], ranks["k"], ranks["v"], outs, lses, ranks["do"], None, sinks,
+                                    zigzag=zigzag, **kw)
+    return (outs, lses) + tuple(grads)
+
+
+def ring_case(torch, dev, name: str, c: dict, zigzag: bool, seed: int, time_it: bool = True) -> dict:
+    """One ring at cp = 4 virtual ranks of S / 4 tokens: the stitched out,
+    lse, dq, dk and dv (and d_sinks) held to K1 over the whole sequence,
+    every rank's K1 time and live pairs beside its bound."""
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.parallel import cp as tcp
+
+    S, N, Nkv, H = c["S"], c["N"], c["Nkv"], c["H"]
+    q, k, v, do, pos, _ = flash_case(torch, dev, S=S, H=H, N=N, Nkv=Nkv, seed=seed)
+    sinks = None
+    if c["sinks"]:
+        sinks = (torch.randn(N, generator=torch.Generator(device=dev).manual_seed(seed), device=dev) * 2)
+    scale = c["scale"] if c["scale"] is not None else H ** -0.5
+    kw = dict(causal=True, window=c["window"], scale=scale, soft_cap=c["cap"])
+    # the whole sequence through K1 in its natural order
+    ref_out, ref_lse = rf.flash_block_fwd(q, k, v, pos, pos, None, None, **kw)
+    if sinks is not None:
+        ref_out, ref_lse = rf.fold_sinks(ref_out, ref_lse, sinks)
+    delta = tcp.ring_delta(do, ref_out)
+    ref_dq, ref_dk, ref_dv = rf.flash_block_bwd(q, k, v, do, ref_lse, delta, pos, pos, None, None, **kw)
+    ref_ds = None if sinks is None else rf.sinks_grad(ref_lse, delta, sinks)
+    s_loc = S // RING_CP
+    ranks = {n: list(_ring_layout(torch, t, zigzag).split(s_loc, dim=1)) for n, t in
+             dict(q=q, k=k, v=v, do=do).items()}
+    ranks = {n: [t.contiguous() for t in ts] for n, ts in ranks.items()}
+    kernels = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
+    for f in kernels:
+        f.launches = 0
+    outs, lses, dqs, dks, dvs, d_sinks = run_ring(torch, tcp, ranks, sinks, kw, zigzag)
+    torch.cuda.synchronize()
+    launches = dict(zip(("fwd", "dq", "dkv"), (f.launches for f in kernels)))
+    if launches != dict(fwd=RING_CP**2, dq=RING_CP**2, dkv=RING_CP**2):
+        raise RuntimeError(f"26 (b) {name}: K1 launches {launches}, want {RING_CP ** 2} each")
+    stitched = lambda ts, axis=1: _ring_layout(torch, torch.cat(ts, dim=axis), zigzag, axis=axis, undo=True)
+    out, lse = stitched(outs), stitched(lses, axis=2)
+    errs = dict(out_row_err=row_rel_err(out, ref_out),
+                lse_max_abs_err=float((lse - ref_lse).abs().max()),
+                dq_row_err=grad_row_err(stitched(dqs), ref_dq), dk_row_err=grad_row_err(stitched(dks), ref_dk),
+                dv_row_err=grad_row_err(stitched(dvs), ref_dv),
+                max_abs_err=float((out.float() - ref_out.float()).abs().max()))
+    if sinks is not None:
+        # each head's d_sinks error against the sum of its terms' magnitudes (phase 11's measure)
+        p_sink = torch.exp(sinks[None, :, None] - ref_lse)
+        mag = (p_sink * (do.float().norm(dim=-1) * ref_out.float().norm(dim=-1)).transpose(1, 2)).sum(dim=(0, 2))
+        errs["d_sinks_err"] = float(((d_sinks - ref_ds).abs() / mag.clamp_min(1e-30)).max())
+    bad = (errs["out_row_err"] > FLASH_OUT_TOL or errs["lse_max_abs_err"] > FLASH_LSE_TOL
+           or max(errs[k] for k in ("dq_row_err", "dk_row_err", "dv_row_err")) > FLASH_GRAD_TOL
+           or errs.get("d_sinks_err", 0.0) > SINKS_GRAD_TOL or not torch.isfinite(out.float()).all())
+    if bad:
+        raise RuntimeError(f"26 (b) {name} zigzag={zigzag}: the stitched ring against K1 whole: {errs}")
+    row = dict(case=name, zigzag=zigzag, S=S, cp=RING_CP, launches=launches, **errs)
+    if not time_it:
+        return row
+    pos_r = [tcp.rank_positions(r, s_loc, RING_CP, zigzag, dev) for r in range(RING_CP)]
+    per_rank = []
+    for r in range(RING_CP):
+        ms = dict(fwd=0.0, dq=0.0, dkv=0.0)
+        bound = dict(fwd=0.0, dq=0.0, dkv=0.0)
+        pairs = 0
+        for step in range(RING_CP):
+            j = (r - step) % RING_CP
+            p = tcp.live_pairs(pos_r[r], pos_r[j], True, c["window"])
+            pairs += p
+            args = (ranks["q"][r], ranks["k"][j], ranks["v"][j], ranks["do"][r], lses[r],
+                    tcp.ring_delta(ranks["do"][r], outs[r]), pos_r[r], pos_r[j], None, None)
+            ms["fwd"] += cuda_ms(lambda: rf.flash_block_fwd(*args[:3], *args[6:], **kw), iters=RING_TIMING_ITERS)
+            ms["dq"] += cuda_ms(lambda: rf.flash_block_dq(*args, **kw), iters=RING_TIMING_ITERS)
+            ms["dkv"] += cuda_ms(lambda: rf.flash_block_dkv(*args, **kw), iters=RING_TIMING_ITERS)
+            b = flash_bound(ranks["q"][r], ranks["k"][j], p)
+            for n in bound:
+                bound[n] += b[n][0]
+        per_rank.append(dict(rank=r, live_pairs=pairs, ms=ms, bound_ms=bound))
+    row["per_rank"] = per_rank
+    if name == "llama3-8b" and zigzag:
+        # the library yardstick at one step: SDPA with the block pair's mask
+        # (rank 0 against its own block: the causal diagonal of both halves)
+        step_args = (ranks["q"][0], ranks["k"][0], ranks["v"][0], ranks["do"][0], lses[0],
+                     tcp.ring_delta(ranks["do"][0], outs[0]), pos_r[0], pos_r[0], None, None)
+        mask = (pos_r[0][:, None] >= pos_r[0][None, :])[None]
+        lib = sdpa_mask_library_ms(torch, *step_args[:4], mask)
+        row["step0"] = dict(
+            live_pairs=tcp.live_pairs(pos_r[0], pos_r[0], True, None),
+            fwd_ms=cuda_ms(lambda: rf.flash_block_fwd(*step_args[:3], *step_args[6:], **kw), iters=10),
+            dq_ms=cuda_ms(lambda: rf.flash_block_dq(*step_args, **kw), iters=10),
+            dkv_ms=cuda_ms(lambda: rf.flash_block_dkv(*step_args, **kw), iters=10),
+            library_fwd_ms=lib[0], library_fwd_bwd_ms=lib[1], library_bwd_ms=lib[2],
+            library="scaled_dot_product_attention with the step's boolean mask as attn_mask")
+        del mask
+    pairs = [x["live_pairs"] for x in per_rank]
+    row["live_pairs_max_over_min"] = max(pairs) / max(min(pairs), 1)
+    fwd = [x["ms"]["fwd"] + x["ms"]["dq"] + x["ms"]["dkv"] for x in per_rank]
+    row["k1_ms_max_over_min"] = max(fwd) / min(fwd)
+    torch.cuda.empty_cache()
+    return row
+
+
+def ring_plain_check(torch, dev, S: int) -> dict:
+    """(b): the ring through K1 against the ring through the plain versions
+    (the same steps and merges, each K1 call swapped for its plain fp32
+    version) at Llama-3-8B's heads and ``S`` over 4 zigzag ranks: the
+    forwards on the same inputs, then both backwards from the K1 ring's
+    out and lse, so each kernel meets its plain version on the same
+    inputs."""
+    from automodel_tpu_torch.ops import ring_flash as rf
+    from automodel_tpu_torch.parallel import cp as tcp
+
+    c = RING_CASES["llama3-8b"]
+    q, k, v, do, pos, _ = flash_case(torch, dev, S=S, H=c["H"], N=c["N"], Nkv=c["Nkv"], seed=261)
+    kw = dict(causal=True, window=None, scale=c["H"] ** -0.5, soft_cap=None)
+    s_loc = S // RING_CP
+    ranks = {n: [t.contiguous() for t in _ring_layout(torch, x, True).split(s_loc, dim=1)]
+             for n, x in dict(q=q, k=k, v=v, do=do).items()}
+    qs, ks, vs, dos = ranks["q"], ranks["k"], ranks["v"], ranks["do"]
+    outs, lses = tcp.ring_forward_ranks(qs, ks, vs, zigzag=True, **kw)
+    grads = tcp.ring_backward_ranks(qs, ks, vs, outs, lses, dos, zigzag=True, **kw)
+    saved = (rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv)
+    try:
+        rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv = rf._flash_fwd_plain, rf._flash_dq_plain, rf._flash_dkv_plain
+        p_outs, p_lses = tcp.ring_forward_ranks(qs, ks, vs, zigzag=True, **kw)
+        p_grads = tcp.ring_backward_ranks(qs, ks, vs, outs, lses, dos, zigzag=True, **kw)
+    finally:
+        rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv = saved
+    times = dict(fwd_ms=cuda_ms(lambda: tcp.ring_forward_ranks(qs, ks, vs, zigzag=True, **kw), iters=3),
+                 bwd_ms=cuda_ms(lambda: tcp.ring_backward_ranks(qs, ks, vs, outs, lses, dos, zigzag=True, **kw),
+                                iters=3))
+    try:
+        rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv = rf._flash_fwd_plain, rf._flash_dq_plain, rf._flash_dkv_plain
+        times.update(
+            plain_fwd_ms=cuda_ms(lambda: tcp.ring_forward_ranks(qs, ks, vs, zigzag=True, **kw), iters=2, warmup=1),
+            plain_bwd_ms=cuda_ms(lambda: tcp.ring_backward_ranks(qs, ks, vs, outs, lses, dos, zigzag=True, **kw),
+                                 iters=2, warmup=1))
+    finally:
+        rf.flash_block_fwd, rf.flash_block_dq, rf.flash_block_dkv = saved
+    cat = lambda ts, axis=1: torch.cat(ts, dim=axis)
+    errs = dict(out_row_err=row_rel_err(cat(outs), cat(p_outs)),
+                lse_max_abs_err=float((cat(lses, 2) - cat(p_lses, 2)).abs().max()),
+                dq_row_err=grad_row_err(cat(grads[0]), cat(p_grads[0])),
+                dk_row_err=grad_row_err(cat(grads[1]), cat(p_grads[1])),
+                dv_row_err=grad_row_err(cat(grads[2]), cat(p_grads[2])),
+                max_abs_err=float((cat(outs).float() - cat(p_outs).float()).abs().max()))
+    if (errs["out_row_err"] > FLASH_OUT_TOL or errs["lse_max_abs_err"] > FLASH_LSE_TOL
+            or max(errs[k] for k in ("dq_row_err", "dk_row_err", "dv_row_err")) > FLASH_GRAD_TOL):
+        raise RuntimeError(f"26 (b): the ring through K1 against its plain versions at S={S}: {errs}")
+    return dict(S=S, cp=RING_CP, **errs, **times)
+
+
+def phase_ring(torch, dev) -> dict:
+    """Phase 26 (b): the ring's per-rank schedule at cp = 4 (see the module
+    text)."""
+    rows = []
+    for i, (name, c) in enumerate(RING_CASES.items()):
+        for zigzag in ((True, False) if name == "llama3-8b" else (True,)):
+            rows.append(ring_case(torch, dev, name, c, zigzag, seed=260 + i))
+            r = rows[-1]
+            print(f"phase 26 (b) ring {name} S={r['S']} cp={RING_CP} zigzag={zigzag}: errors "
+                  + json.dumps({k: r[k] for k in r if k.endswith("err")})
+                  + "; per rank K1 ms (fwd + dq + dkv) and live pairs: "
+                  + ", ".join(f"rank {x['rank']} {x['ms']['fwd'] + x['ms']['dq'] + x['ms']['dkv']:.3f} ms "
+                              f"{x['live_pairs']} pairs" for x in r["per_rank"])
+                  + f"; max/min pairs {r['live_pairs_max_over_min']:.3f}, K1 ms {r['k1_ms_max_over_min']:.3f} | "
+                  f"{card_line()}", flush=True)
+    plain = [ring_plain_check(torch, dev, S) for S in RING_PLAIN_S]
+    print(f"phase 26 (b) the ring through K1 against the plain versions: {json.dumps(plain)}", flush=True)
+    return dict(cases=rows, plain=plain)
+
+
+def ring_flash_entry(name: str, ring: dict) -> dict:
+    """K1's row in the ring: launches and per-rank times at Llama-3-8B's
+    attention, S = 32768 over 4 zigzag ranks."""
+    main = next(r for r in ring["cases"] if r["case"] == "llama3-8b" and r["zigzag"])
+    contiguous = next(r for r in ring["cases"] if r["case"] == "llama3-8b" and not r["zigzag"])
+    return dict(launches=main["launches"][name], shape="B=1 S=32768 N=32 Nkv=8 H=128 causal, cp=4 zigzag, "
+                "8192-token blocks", ms_per_rank=[x["ms"][name] for x in main["per_rank"]],
+                bound_ms_per_rank=[x["bound_ms"][name] for x in main["per_rank"]],
+                live_pairs_per_rank=[x["live_pairs"] for x in main["per_rank"]],
+                contiguous_ms_per_rank=[x["ms"][name] for x in contiguous["per_rank"]],
+                contiguous_live_pairs_per_rank=[x["live_pairs"] for x in contiguous["per_rank"]],
+                step0=main["step0"], plain=ring["plain"])
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
                  gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec,
-                 front, traced, rest, data) -> dict:
+                 front, traced, rest, data, ring, parallel) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -5653,6 +6009,10 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "launches_sft_full_depth": rest["full"]["flash_launches"][name],
             "launches_pretrain_megatron": data["pretrain"]["prefetch"]["flash_launches"][name],
             "packed_segments": packed_flash_entry(name, data),
+            "ring_cp4": ring_flash_entry(name, ring),
+            "launches_ring_cp4": ring_flash_entry(name, ring)["launches"],
+            "launches_fsdp_full_depth": parallel["fsdp"]["flash_launches"][name],
+            "launches_ring_cp1_cli": parallel["ring_cp1"]["ring_launches"][name],
         })
         if name == "dq":
             line["kernels"][-1]["backward"] = flash_backward_pair(main_flash)
@@ -5701,6 +6061,8 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
 
 
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--fsdp-child":
+        return fsdp_child(*sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -5837,10 +6199,15 @@ def main() -> int:
         obs = phase_observability(torch, dev)
         print(f"phase 25 (telemetry, profiling, goodput, metrics port and guard at 32 layers): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        ring = phase_ring(torch, dev)
+        parallel = phase_parallel_fsdp(torch, rest)
+        print(f"phase 26 (parallelism: FSDP2 at 32 layers under torchrun, the cp = 4 ring, the ring at cp = 1): "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
-                            fused_ptxas, spec, front, traced, rest, data)
+                            fused_ptxas, spec, front, traced, rest, data, ring, parallel)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

@@ -175,8 +175,8 @@ def test_finetune_without_cuda_raises():
         ("--data.queries=q.jsonl", "data"),
         ("--generation.tokenizer=meta-llama/Meta-Llama-3-8B", "generation.tokenizer"),
         ("--validation_dataset.seq_length=8", "validation_dataset"),
-        ("--distributed.dp_shard=-1", "distributed"),
-        ("--distributed.tp=2", "distributed"),
+        ("--distributed.pp=2", "distributed.pp"),
+        ("--distributed.ep=2", "distributed.ep"),
         ("--logging.wandb.project=x", "wandb"),
         ("--model.backend.remat=everything", "remat"),
         ("--model.backend.fp8=true", "fp8"),
@@ -191,15 +191,19 @@ def test_finetune_refuses_unported_sections_by_name(override, name, tmp_path):
 
 
 def test_jax_8b_recipe_is_refused_and_the_port_8b_config_is_accepted():
-    """The committed JAX recipe asks for sections the port does not run;
-    the port's own 8B config passes the section check at the published
-    Llama-3-8B widths with the depth cut to 8."""
+    """The committed JAX recipe asks for what the port does not run: its
+    sections pass the check since its ``distributed: {dp_shard: -1}`` is
+    read (FSDP2), and its SQuAD dataset is refused by name; the port's own
+    8B config passes the section check at the published Llama-3-8B widths
+    with the depth cut to 8."""
     from automodel_tpu_torch.config.loader import load_yaml_config
     from automodel_tpu_torch.models.common.config import BackendConfig, TransformerConfig
-    from automodel_tpu_torch.recipes.train_ft import check_sections
+    from automodel_tpu_torch.recipes.train_ft import build_dataset, check_sections
 
-    with pytest.raises(ValueError, match="not ported"):
-        check_sections(load_yaml_config(os.path.join(REPO, "examples", "llm_finetune", "llama3_8b_sft.yaml")))
+    jax_cfg = load_yaml_config(os.path.join(REPO, "examples", "llm_finetune", "llama3_8b_sft.yaml"))
+    check_sections(jax_cfg)
+    with pytest.raises(ValueError, match="SQuAD"):
+        build_dataset(jax_cfg.dataset)
     cfg = load_yaml_config(os.path.join(REPO, "automodel_tpu_torch", "configs", "sft_llama3_8b.yaml"))
     check_sections(cfg)
     tc = TransformerConfig.from_hf(cfg.model.hf_config.to_dict())

@@ -64,8 +64,9 @@ def test_cuda_device_without_cuda_raises():
 
 def test_backend_refuses_what_is_not_ported():
     assert BackendConfig(attn="flash").attn == "flash"
-    with pytest.raises(ValueError, match="attn='ring'"):
-        BackendConfig(attn="ring")
+    assert BackendConfig(attn="ring", cp_zigzag=True).cp_zigzag  # context parallelism (parallel/cp.py)
+    with pytest.raises(ValueError, match="attn='splash'"):
+        BackendConfig(attn="splash")
     for key, value in (("remat", "everything"), ("fp8", True), ("fp8_experts", True), ("attn_block_q", 0)):
         with pytest.raises(ValueError, match=key):
             BackendConfig.from_dict({"attn": "flash", key: value})

@@ -165,9 +165,10 @@ def test_scan_layers_and_attn_blocks_change_nothing(key, value):
 
 
 def test_backend_keys_refused_or_checked():
-    for key, value in (("fp8", True), ("fp8_experts", True), ("cp_zigzag", True), ("pp_microbatches", 8)):
+    for key, value in (("fp8", True), ("fp8_experts", True), ("pp_microbatches", 8)):
         with pytest.raises(ValueError, match=key):
             BackendConfig.from_dict({key: value})
+    assert BackendConfig.from_dict({"attn": "ring", "cp_zigzag": True}).cp_zigzag  # ported with the ring
     with pytest.raises(ValueError, match="remat policy 'partial'"):
         BackendConfig(remat="partial")
     for key in ("attn_block_q", "attn_block_kv"):

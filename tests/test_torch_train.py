@@ -55,8 +55,8 @@ def test_losses_and_grads_match_jax(name):
 
 
 def test_unported_loss_is_refused():
-    with pytest.raises(ValueError, match="vocab_parallel_ce"):
-        tl.build_loss("vocab_parallel_ce")
+    # vocab_parallel_ce is ported (a tensor-parallel mesh; fused_linear_ce at tp = 1)
+    assert tl.build_loss("vocab_parallel_ce") is tl.vocab_parallel_cross_entropy
     with pytest.raises(ValueError, match="'bogus' is not ported"):
         tl.build_loss("bogus")
 
