@@ -10,7 +10,7 @@
 // ops/ring_flash.py.
 //
 // Function (the same as the JAX kernels): q [B, Sq, N, H] attends k/v
-// [B, Sk, Nkv, H], all bf16, H 64, 128 or 256, head n reading kv head
+// [B, Sk, Nkv, H], all bf16, H 64, 128, 192 or 256, head n reading kv head
 // n / (N / Nkv). Entry (i, j) is visible when seg_q[b, i] == seg_kv[b, j]
 // (if segment ids are given), q_pos[i] >= kv_pos[j] (if causal) and
 // q_pos[i] - kv_pos[j] < window (if a window is given). Positions are
@@ -55,7 +55,8 @@
 //   heads, S, B) once per call (cuTensorMapEncodeTiled, reached through
 //   cudaGetDriverEntryPoint, so the library links no -lcuda); a box is 64
 //   columns (128 bytes) by the tile's rows of one head of one batch
-//   element, so H = 128 loads as two boxes and H = 256 as four, a box never
+//   element, so H = 128 loads as two boxes, H = 192 as three and H = 256 as
+//   four, a box never
 //   crosses into the next batch element, and rows past S arrive as zeros
 //   (no padding copy). An mbarrier's transaction count is the whole box,
 //   zero-filled rows included.
@@ -76,26 +77,28 @@
 //   branch per element costs more than the tile's products).
 // - fwd: one CTA per (batch, q head, 128 q rows), each consumer owning 64
 //   rows; Q is loaded once; K and V tiles of 128 rows (H <= 128) or 64
-//   (H = 256) from the first tile the window can see to the last tile at or
+//   (H = 192, 256) from the first tile the window can see to the last tile at or
 //   before the causal diagonal (binary search over the positions), so dead
 //   tiles are never read; two stages of K and V. Online softmax in fp32,
 //   in log2 units (one FFMA and one ex2 a score); P is rounded to bf16 for
 //   P.V (the TPU kernel keeps it fp32). Shared memory at H = 256: Q 64 KB +
 //   K and V 128 KB.
 // - dq: one CTA per (batch, q head, 128 q rows), Q and dO loaded once, K
-//   and V tiles of 64 rows in four stages (32 rows in three at H = 256,
-//   where Q and dO take 128 KB); dS is rounded to bf16 for dS.K, which is
+//   and V tiles of 64 rows in four stages (32 rows in three at H = 192 and
+//   256, where Q and dO take 96 and 128 KB); dS is rounded to bf16 for dS.K, which is
 //   left running into the next tile's S and dP; dQ accumulates in fp32
 //   registers.
-// - dkv: one CTA per (batch, kv head, 128 kv rows; 64 at H = 256), K and V
+// - dkv: one CTA per (batch, kv head, 128 kv rows; 64 at H > 128), K and V
 //   loaded once, looping over the rep q heads of the group and their live
-//   q tiles of 64 rows in four stages (two at H = 256). At H <= 128 each
-//   consumer owns 64 kv rows and the whole head dim. At H = 256, dK and dV
-//   of 64 rows would be 256 fp32 registers a thread, so the two consumers
-//   share the 64 kv rows and each owns 128 columns of dK and dV,
-//   recomputing S^T and dP^T over the whole head dim (1.5x the tensor work
-//   there, no exchange between them). dS^T is computed while dV += P^T.dO
-//   runs.
+//   q tiles of 64 rows in four stages (two at H > 128). At H <= 128 each
+//   consumer owns 64 kv rows and the whole head dim. Above it dK and dV of
+//   64 rows would be H fp32 registers a thread (192 or 256), so the two
+//   consumers share the 64 kv rows: consumer 0 owns the first 128 columns
+//   of dK and dV, consumer 1 the other H - 128 (128 at H = 256, 64 at H =
+//   192: a split on the 64-column chunks the MN-major descriptors address,
+//   where halves of 96 would start inside a chunk), each recomputing S^T
+//   and dP^T over the whole head dim (1.5x the tensor work at H = 256, no
+//   exchange between them). dS^T is computed while dV += P^T.dO runs.
 // - No atomics: dQ sums over its kv tiles inside one CTA, and dK / dV sum
 //   over the rep q heads and their q tiles inside one CTA, in a fixed
 //   order, so two launches give the same bits.
@@ -121,7 +124,9 @@ constexpr int kErrTensorMap = 100002;
 constexpr float kNegInf = static_cast<float>(-0.7 * 3.4028234663852886e38);
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// tiles per head dim (ring_flash.kernel_tiles mirrors these, KERNEL_REGS the register split)
+// tiles per head dim; the bounds chip_smoke.py reports count live pairs,
+// not these tiles, and the register split is kProducerRegs / kConsumerRegs
+// above (ptxas's report of each instantiation: _cuda_build.ptxas_usage)
 template <int H>
 struct Tiles {
   static constexpr int kFwdBq = 128, kFwdBk = H <= 128 ? 128 : 64, kFwdStages = 2;
@@ -161,6 +166,11 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint
 #pragma unroll
   for (int c = 0; c < H / 64; ++c) tma_load(dst + c * ROWS * 64, map, bar, c * 64, head, row0, b);
 }
+
+template <int V>
+struct IntC {  // a column count carried into a generic lambda as a type
+  static constexpr int value = V;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -644,7 +654,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kStages = L::kStages;
   constexpr int BK = L::BK, BQ = L::BQ;
   constexpr bool SPLIT = Tiles<H>::kDkvSplit;
-  constexpr int HW = SPLIT ? H / 2 : H;  // columns of dK and dV a consumer owns
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_base(smem_raw);
   bf16* k_s = reinterpret_cast<bf16*>(sm + L::kK);
@@ -716,127 +725,139 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     consumer_regs();
     const int wg = threadIdx.x / 128 - 1, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
-    const int row0 = SPLIT ? 0 : wg * 64;     // this consumer's kv rows in the tile
-    const int chunk0 = SPLIT ? wg * (HW / 64) : 0;  // and its first 64-column chunk of dK, dV
-    const int* segk = a.seg_kv ? a.seg_kv + static_cast<long long>(b) * a.Sk : nullptr;
-    int krow[2], kp[2], ksg[2];
+    // one consumer's work: kv rows row0 + [0, 64) of the tile, HW columns of
+    // dK and dV from 64-column chunk chunk0
+    auto consume = [&](auto hw, const int row0, const int chunk0) {
+      constexpr int HW = decltype(hw)::value;
+      const int* segk = a.seg_kv ? a.seg_kv + static_cast<long long>(b) * a.Sk : nullptr;
+      int krow[2], kp[2], ksg[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      krow[h] = k0 + row0 + warp * 16 + (lane >> 2) + 8 * h;
-      const int r = min(krow[h], a.Sk - 1);
-      kp[h] = a.kv_pos[r];
-      ksg[h] = segk ? segk[r] : 0;
-    }
-    const bool rows_in = k0 + row0 + 64 <= a.Sk, segs = segk != nullptr;
-    const bool krow_in[2] = {krow[0] < a.Sk, krow[1] < a.Sk};
-    const int kmin = a.kv_pos[min(k0 + row0, a.Sk - 1)], kmax = a.kv_pos[min(k0 + row0 + 63, a.Sk - 1)];
-    float dk[HW / 2], dv[HW / 2];
-    zero(dk);
-    zero(dv);
-    if (total > 0) mbar_wait(kv_full, 0);
+      for (int h = 0; h < 2; ++h) {
+        krow[h] = k0 + row0 + warp * 16 + (lane >> 2) + 8 * h;
+        const int r = min(krow[h], a.Sk - 1);
+        kp[h] = a.kv_pos[r];
+        ksg[h] = segk ? segk[r] : 0;
+      }
+      const bool rows_in = k0 + row0 + 64 <= a.Sk, segs = segk != nullptr;
+      const bool krow_in[2] = {krow[0] < a.Sk, krow[1] < a.Sk};
+      const int kmin = a.kv_pos[min(k0 + row0, a.Sk - 1)], kmax = a.kv_pos[min(k0 + row0 + 63, a.Sk - 1)];
+      float dk[HW / 2], dv[HW / 2];
+      zero(dk);
+      zero(dv);
+      if (total > 0) mbar_wait(kv_full, 0);
 
-    for (int i = 0; i < total; ++i) {
-      const int st = i % kStages;
-      mbar_wait(&full[st], (i / kStages) & 1);
-      const bf16* qs = q_s + st * BQ * H;
-      const bf16* dos = do_s + st * BQ * H;
-      const int* qpos = qpos_s + st * BQ;
-      const int* qseg = qseg_s + st * BQ;
-      const float* lse = lse_s + st * BQ;
-      const float* dlt = dlt_s + st * BQ;
-      const int q0 = (lo + i % n_live) * BQ;
+      for (int i = 0; i < total; ++i) {
+        const int st = i % kStages;
+        mbar_wait(&full[st], (i / kStages) & 1);
+        const bf16* qs = q_s + st * BQ * H;
+        const bf16* dos = do_s + st * BQ * H;
+        const int* qpos = qpos_s + st * BQ;
+        const int* qseg = qseg_s + st * BQ;
+        const float* lse = lse_s + st * BQ;
+        const float* dlt = dlt_s + st * BQ;
+        const int q0 = (lo + i % n_live) * BQ;
 
-      // S^T = K.Q^T and dP^T = V.dO^T for this consumer's 64 kv rows, over
-      // the whole head dim; dS^T is computed while dV += P^T.dO runs
-      float s[BQ / 2], dp[BQ / 2];
-      zero(s);
-      zero(dp);
-      wgmma_fence();
+        // S^T = K.Q^T and dP^T = V.dO^T for this consumer's 64 kv rows, over
+        // the whole head dim; dS^T is computed while dV += P^T.dO runs
+        float s[BQ / 2], dp[BQ / 2];
+        zero(s);
+        zero(dp);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < H / 16; ++kk)
-        wgmma_ss<BQ>(s, desc_k(k_s, BK, row0, kk), desc_k(qs, BQ, 0, kk), kk > 0);
-      wgmma_commit();
+        for (int kk = 0; kk < H / 16; ++kk)
+          wgmma_ss<BQ>(s, desc_k(k_s, BK, row0, kk), desc_k(qs, BQ, 0, kk), kk > 0);
+        wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < H / 16; ++kk)
-        wgmma_ss<BQ>(dp, desc_k(v_s, BK, row0, kk), desc_k(dos, BQ, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(dp);
+        for (int kk = 0; kk < H / 16; ++kk)
+          wgmma_ss<BQ>(dp, desc_k(v_s, BK, row0, kk), desc_k(dos, BQ, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
 
-      const bool full_tile = rows_in && q0 + BQ <= a.Sq && all_visible(a, qpos[0], qpos[BQ - 1], kmin, kmax);
-      uint32_t pf[BQ / 16][4], df[BQ / 16][4];
-      auto prob = [&](int x, int c, bool ok) {  // P^T of one score; s[x] becomes what dS^T multiplies
-        float p;
-        if constexpr (CAP) {
-          const float t = tanhf(s[x] * a.scale / a.cap);
-          p = ok ? __expf(a.cap * t - lse[c]) : 0.f;
-          s[x] = p * (1.f - t * t);  // through the cap
+        const bool full_tile = rows_in && q0 + BQ <= a.Sq && all_visible(a, qpos[0], qpos[BQ - 1], kmin, kmax);
+        uint32_t pf[BQ / 16][4], df[BQ / 16][4];
+        auto prob = [&](int x, int c, bool ok) {  // P^T of one score; s[x] becomes what dS^T multiplies
+          float p;
+          if constexpr (CAP) {
+            const float t = tanhf(s[x] * a.scale / a.cap);
+            p = ok ? __expf(a.cap * t - lse[c]) : 0.f;
+            s[x] = p * (1.f - t * t);  // through the cap
+          } else {
+            p = ok ? __expf(s[x] * a.scale - lse[c]) : 0.f;
+            s[x] = p;
+          }
+          return p;
+        };
+        if (full_tile) {  // uniform across the warpgroup
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = 8 * j + 2 * (lane & 3), x = 4 * j + 2 * h;
+              pf[j >> 1][(j & 1) * 2 + h] = pack_bf16(prob(x, c, true), prob(x + 1, c + 1, true));
+            }
+          }
         } else {
-          p = ok ? __expf(s[x] * a.scale - lse[c]) : 0.f;
-          s[x] = p;
-        }
-        return p;
-      };
-      if (full_tile) {  // uniform across the warpgroup
 #pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
+          for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int c = 8 * j + 2 * (lane & 3), x = 4 * j + 2 * h;
-            pf[j >> 1][(j & 1) * 2 + h] = pack_bf16(prob(x, c, true), prob(x + 1, c + 1, true));
+            for (int h = 0; h < 2; ++h) {
+              const int c = 8 * j + 2 * (lane & 3), x = 4 * j + 2 * h;
+              bool ok[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                ok[e] = visible_at(a, (q0 + c + e < a.Sq) & krow_in[h], qpos[c + e], qseg[c + e], kp[h], ksg[h], segs);
+              pf[j >> 1][(j & 1) * 2 + h] = pack_bf16(prob(x, c, ok[0]), prob(x + 1, c + 1, ok[1]));
+            }
           }
         }
-      } else {
+
+        // dV += P^T.dO over this consumer's HW columns
+        fence_regs(dv);
+        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
+        for (int kc = 0; kc < BQ / 16; ++kc) wgmma_rs<HW>(dv, pf[kc], desc_mn(dos, BQ, chunk0, kc));
+        wgmma_commit();
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int c = 8 * j + 2 * (lane & 3), x = 4 * j + 2 * h;
-            bool ok[2];
+        for (int x = 0; x < BQ / 2; ++x) s[x] *= dp[x] - dlt[8 * (x >> 2) + 2 * (lane & 3) + (x & 1)];  // dS^T
+        acc_to_a<BQ>(df, s);
+
+        // dK += dS^T.Q
+        fence_regs(dk);
+        wgmma_fence();
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-              ok[e] = visible_at(a, (q0 + c + e < a.Sq) & krow_in[h], qpos[c + e], qseg[c + e], kp[h], ksg[h], segs);
-            pf[j >> 1][(j & 1) * 2 + h] = pack_bf16(prob(x, c, ok[0]), prob(x + 1, c + 1, ok[1]));
-          }
+        for (int kc = 0; kc < BQ / 16; ++kc) wgmma_rs<HW>(dk, df[kc], desc_mn(qs, BQ, chunk0, kc));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pf);
+        fence_regs(df);
+        mbar_arrive(&empty[st]);
+      }
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (krow[h] >= a.Sk) continue;
+        const long long off =
+            ((static_cast<long long>(b) * a.Sk + krow[h]) * a.Nkv + g) * H + chunk0 * 64 + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < HW / 8; ++j) {
+          *reinterpret_cast<float2*>(a.dk + off + 8 * j) =
+              make_float2(a.scale * dk[4 * j + 2 * h], a.scale * dk[4 * j + 2 * h + 1]);
+          *reinterpret_cast<float2*>(a.dv + off + 8 * j) = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
         }
       }
-
-      // dV += P^T.dO over this consumer's HW columns
-      fence_regs(dv);
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < BQ / 16; ++kc) wgmma_rs<HW>(dv, pf[kc], desc_mn(dos, BQ, chunk0, kc));
-      wgmma_commit();
-#pragma unroll
-      for (int x = 0; x < BQ / 2; ++x) s[x] *= dp[x] - dlt[8 * (x >> 2) + 2 * (lane & 3) + (x & 1)];  // dS^T
-      acc_to_a<BQ>(df, s);
-
-      // dK += dS^T.Q
-      fence_regs(dk);
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < BQ / 16; ++kc) wgmma_rs<HW>(dk, df[kc], desc_mn(qs, BQ, chunk0, kc));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
-      fence_regs(pf);
-      fence_regs(df);
-      mbar_arrive(&empty[st]);
-    }
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (krow[h] >= a.Sk) continue;
-      const long long off =
-          ((static_cast<long long>(b) * a.Sk + krow[h]) * a.Nkv + g) * H + chunk0 * 64 + 2 * (lane & 3);
-#pragma unroll
-      for (int j = 0; j < HW / 8; ++j) {
-        *reinterpret_cast<float2*>(a.dk + off + 8 * j) =
-            make_float2(a.scale * dk[4 * j + 2 * h], a.scale * dk[4 * j + 2 * h + 1]);
-        *reinterpret_cast<float2*>(a.dv + off + 8 * j) = make_float2(dv[4 * j + 2 * h], dv[4 * j + 2 * h + 1]);
-      }
+    };
+    if constexpr (!SPLIT) {
+      consume(IntC<H>{}, wg * 64, 0);
+    } else if constexpr (H - 128 == 128) {
+      consume(IntC<128>{}, 0, wg * 2);
+    } else if (wg == 0) {
+      consume(IntC<128>{}, 0, 0);
+    } else {
+      consume(IntC<H - 128>{}, 0, 2);
     }
   }
 }
@@ -902,6 +923,8 @@ int dispatch_cap(Which w, const Args& a, cudaStream_t stream) {
 
 static_assert(FwdSmem<256>::kBytes <= 232448 && DqSmem<256>::kBytes <= 232448 && DkvSmem<256>::kBytes <= 232448,
               "shared memory per block");
+static_assert(FwdSmem<192>::kBytes <= 232448 && DqSmem<192>::kBytes <= 232448 && DkvSmem<192>::kBytes <= 232448,
+              "shared memory per block");
 static_assert(FwdSmem<128>::kBytes <= 232448 && DqSmem<128>::kBytes <= 232448 && DkvSmem<128>::kBytes <= 232448,
               "shared memory per block");
 
@@ -917,6 +940,7 @@ int run(Which w, const Args& a, int H, void* stream_ptr) {
   switch (H) {
     case 64: return dispatch<64>(w, a, stream);
     case 128: return dispatch<128>(w, a, stream);
+    case 192: return dispatch<192>(w, a, stream);
     case 256: return dispatch<256>(w, a, stream);
   }
   return kErrUnsupported;

@@ -1,16 +1,18 @@
 """MoE causal LM, the Qwen3-MoE-shaped family, as an ``nn.Module``.
 
 Port of ``automodel_tpu/models/qwen3_moe/model.py``: ``MoETransformerConfig``
-with ``from_hf`` (:48), optional dense prefix layers
-(``first_k_dense_replace``, :243-272), and ``MoEForCausalLM``, whose
-forward returns ``(logits, MoEModelAux)`` and whose ``hidden`` returns
-``(h, aux)``: the aux holds per-MoE-layer expert counts [L_moe, E] (int32,
-on the device) and the summed aux loss. Attention is the llama block
-(``models/llama/model.attention_block``), so ``attn: flash`` runs the flash
-kernels; the routed experts run through ``backend.experts``: ``ragged``
-(the grouped-matmul kernels), ``ragged_fused`` (the fused expert-MLP
-kernels) or ``dense`` (plain torch). Any other experts backend raises by
-name. Each decoder layer runs under the backend's ``remat`` policy
+with ``from_hf`` (:48; Qwen3-MoE, GLM-4-MoE, Mixtral and Qwen2-MoE),
+optional dense prefix layers (``first_k_dense_replace``, :243-272), and
+``MoEForCausalLM``, whose forward returns ``(logits, MoEModelAux)`` and
+whose ``hidden`` returns ``(h, aux)``: the aux holds per-MoE-layer expert
+counts [L_moe, E] (int32, on the device) and the summed aux loss.
+Attention is the llama block (``models/llama/model.attention_block``; a
+subclass overrides ``attention``, as ``models/deepseek_v3`` does with MLA),
+so ``attn: flash`` runs the flash kernels; the routed experts run through
+``backend.experts``: ``ragged`` (the grouped-matmul kernels),
+``ragged_fused`` (the fused expert-MLP kernels), ``dense`` or ``gspmd``
+(plain torch), or ``a2a`` / ``a2a_fused`` (those kernels behind the
+expert-parallel token exchange; moe/experts.py). Each decoder layer runs under the backend's ``remat`` policy
 (models/common/stacking.py; ``full_save_dispatch`` keeps the experts'
 sort permutations), and RoPE rotates the first ``rope_dim`` channels of a
 head, as JAX's does (:220-221).
@@ -64,23 +66,35 @@ class MoETransformerConfig(TransformerConfig):
 
     @classmethod
     def from_hf(cls, hf_cfg: Any) -> "MoETransformerConfig":
+        """JAX's ``from_hf`` (:48-98), for Qwen3-MoE and the families JAX's
+        registry sends to the same builder: GLM-4-MoE (sigmoid scores with
+        the aux-free correction bias, its q/k norms behind
+        ``use_qk_norm``; partial rotary and attention biases come from the
+        dense config), Mixtral (``num_local_experts``, ``intermediate_size``
+        as the expert width) and Qwen2-MoE (one shared expert behind a
+        sigmoid gate)."""
         base = TransformerConfig.from_hf(hf_cfg)
         get = lambda k, d=None: hf_cfg.get(k, d) if isinstance(hf_cfg, dict) else getattr(hf_cfg, k, d)
         model_type = get("model_type", "")
-        # the one MoE family the port registers; the JAX from_hf also reads
-        # glm4-moe and qwen2-moe configs, which wait for their own slice
-        if model_type != "qwen3_moe":
-            raise ValueError(f"model_type={model_type!r}: the torch backend's MoE family is qwen3_moe")
-        aux_free = get("topk_method", None) == "noaux_tc"
+        # GLM4-MoE routes like DeepSeek-V3 (sigmoid scores, an always-present
+        # e_score_correction_bias, grouped top-k) without scoring_func /
+        # topk_method keys in its HF config
+        is_glm4 = model_type == "glm4_moe"
+        # qwen2-moe always has one sigmoid-gated shared expert
+        is_qwen2_moe = model_type == "qwen2_moe"
+        aux_free = get("topk_method", None) == "noaux_tc" or is_glm4
         moe = MoEConfig(
             num_experts=get("num_experts", None) or get("n_routed_experts", None) or get("num_local_experts"),
             num_experts_per_tok=get("num_experts_per_tok", 8),
             moe_intermediate_size=get("moe_intermediate_size", None) or get("intermediate_size"),
-            num_shared_experts=get("n_shared_experts", 0) or 0,
+            num_shared_experts=1 if is_qwen2_moe else get("n_shared_experts", 0) or 0,
             shared_expert_intermediate_size=get("shared_expert_intermediate_size", 0)
             or get("moe_intermediate_size", 0)
             or 0,
-            score_func=get("scoring_func", None) or "softmax",
+            shared_expert_gate=is_qwen2_moe,
+            score_func=get("scoring_func", None) or ("sigmoid" if is_glm4 else "softmax"),
+            # every softmax-scoring family read here softmaxes the full router
+            # logits before top-k; gpt-oss sets its own config
             softmax_before_topk=True,
             route_scale=get("routed_scaling_factor", 1.0) or 1.0,
             norm_topk_prob=bool(get("norm_topk_prob", True)),
@@ -93,8 +107,24 @@ class MoETransformerConfig(TransformerConfig):
         )
         fields = {f.name: getattr(base, f.name) for f in dataclasses.fields(base)}
         fields["moe"] = moe
-        fields["qk_norm"] = True
+        # qwen3_moe norms q and k per head like qwen3; glm4_moe gates them
+        if model_type in ("qwen3_moe", "qwen3moe", "qwen3_vl_moe_text"):
+            fields["qk_norm"] = True
+        elif is_glm4:
+            fields["qk_norm"] = bool(get("use_qk_norm", False))
         return cls(**fields)
+
+
+# the families whose HF checkpoints spell the MoE keys their own way: the
+# save side's rewrites (the load side goes through
+# checkpoint/conversion_mapping.py), keyed by model_type
+HF_KEY_STYLES = ("mixtral", "qwen2_moe")
+
+
+def hf_key_style(hf_cfg: Any) -> Optional[str]:
+    get = lambda k, d=None: hf_cfg.get(k, d) if isinstance(hf_cfg, dict) else getattr(hf_cfg, k, d)
+    model_type = get("model_type", "")
+    return model_type if model_type in HF_KEY_STYLES else None
 
 
 class MoEModelAux(NamedTuple):
@@ -155,6 +185,19 @@ class MoEForCausalLM(nn.Module):
     layer_cls: type = MoEDecoderLayer
     state_dict_adapter = MoEStateDictAdapter  # the HF key map
     sharding_rules = SHARDING_RULES
+    # the save side's HF key dialect (``hf_key_style``), set by the registry
+    hf_key_style: Optional[str] = None
+
+    @staticmethod
+    def attention(cfg, backend, layer, i, h, cos, sin, cache, segment_ids) -> torch.Tensor:
+        """The decoder layer's attention (``attn_block`` of JAX's
+        ``forward_hidden``): the llama block here, MLA in ``models/deepseek_v3``."""
+        return attention_block(cfg, backend, layer, i, h, cos, sin, cache, segment_ids)
+
+    @property
+    def rope_dim(self) -> int:
+        """The channels RoPE rotates (``rope_dim`` of JAX's ``forward_hidden``)."""
+        return self.config.rope_dim or self.config.head_dim
 
     def __init__(
         self,
@@ -221,7 +264,7 @@ class MoEForCausalLM(nn.Module):
             position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
             position_ids = position_ids[None, :].expand(input_ids.shape)
         h = embed(self.model.embed_tokens, input_ids).to(self.compute_dtype)
-        cos, sin = rope_table(position_ids, cfg.rope_dim or cfg.head_dim, cfg.rope)
+        cos, sin = rope_table(position_ids, self.rope_dim, cfg.rope)
         # inference with a cache never recomputes (it has no backward)
         layer_fn = call_layer(self._layer)
         layer_fn = layer_fn if cache is not None else remat_wrap(layer_fn, self.backend.remat)
@@ -237,7 +280,7 @@ class MoEForCausalLM(nn.Module):
         """Decoder layer ``i`` → (h, the MoE block's aux, or None after a
         dense MLP)."""
         cfg = self.config
-        h = attention_block(cfg, self.backend, layer, i, h, cos, sin, cache, segment_ids)
+        h = self.attention(cfg, self.backend, layer, i, h, cos, sin, cache, segment_ids)
         x = layer.post_attention_layernorm(h)
         mlp = layer.mlp
         act = ACT_FNS[cfg.act]

@@ -110,9 +110,45 @@ def _expert_slab_plan(key: str, prefix: str, name: str, num_experts: int) -> Lea
     return LeafPlan(key, tuple(k for j in range(num_experts) for k in hf[j]), load, save)
 
 
+# the save side's key rewrites per HF key dialect (JAX :29-43, copied): a
+# Mixtral or Qwen2-MoE model exports the keys its own architecture reads
+# (the load side renames them back through checkpoint/conversion_mapping.py)
+_VARIANT_KEY_STYLES: dict[str, list[tuple[str, str]]] = {
+    "mixtral": [
+        (r"\.mlp\.gate\.weight$", ".block_sparse_moe.gate.weight"),
+        # minimax-m2 (mixtral dialect + deepseek-style aux-free router bias)
+        (r"\.mlp\.gate\.e_score_correction_bias$", ".block_sparse_moe.gate.e_score_correction_bias"),
+        (r"\.mlp\.experts\.(\d+)\.gate_proj\.weight$", r".block_sparse_moe.experts.\1.w1.weight"),
+        (r"\.mlp\.experts\.(\d+)\.up_proj\.weight$", r".block_sparse_moe.experts.\1.w3.weight"),
+        (r"\.mlp\.experts\.(\d+)\.down_proj\.weight$", r".block_sparse_moe.experts.\1.w2.weight"),
+    ],
+    "qwen2_moe": [
+        (r"\.mlp\.shared_experts\.", ".mlp.shared_expert."),
+    ],
+}
+
+
+def style_key(key: str, style: str | None) -> str:
+    """A canonical HF key in the dialect ``style`` (None: itself)."""
+    for pat, sub in _VARIANT_KEY_STYLES.get(style or "", []):
+        new = re.sub(pat, sub, key)
+        if new != key:
+            return new
+    return key
+
+
 class MoEStateDictAdapter(LlamaStateDictAdapter):
     """Per-expert HF Linears ⇄ the port's expert slabs; the router's
-    selection bias under its HF name."""
+    selection bias under its HF name. A model built with an
+    ``hf_key_style`` (Mixtral, Qwen2-MoE) saves in its dialect."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__(model)
+        self.hf_key_style = getattr(model, "hf_key_style", None)
+
+    def to_hf(self, state_dict: dict[str, torch.Tensor]):
+        for key, t in super().to_hf(state_dict):
+            yield style_key(key, self.hf_key_style), t
 
     def _plan(self, key: str, shape: tuple[int, ...]) -> LeafPlan:
         m = _SLAB.match(key)

@@ -7,7 +7,11 @@ same builder (:46-53): ``Qwen2ForCausalLM`` (attention biases),
 sliding window) and ``Phi3ForCausalLM`` (partial rotary; its fused
 ``qkv_proj`` / ``gate_up_proj`` checkpoints load through
 checkpoint/conversion_mapping.py); ``Qwen3MoeForCausalLM`` (the MoE family of
-``models/qwen3_moe``, registered at :130 of the JAX registry),
+``models/qwen3_moe``, registered at :130 of the JAX registry) and the
+architectures JAX sends to the same builder (:130-151):
+``Glm4MoeForCausalLM``, ``MixtralForCausalLM`` and ``Qwen2MoeForCausalLM``
+(the last two save in their own HF key dialect), ``DeepseekV3ForCausalLM``
+(``models/deepseek_v3``, :92-103),
 ``GptOssForCausalLM`` (``models/gpt_oss``, :106) and
 ``Gemma2ForCausalLM`` / ``Gemma3ForCausalLM`` (``models/gemma``, :70). A
 config naming another architecture (``Gemma3ForConditionalGeneration``,
@@ -42,11 +46,21 @@ def _llama_builder(hf_config: Any, backend: BackendConfig, device=None, trainabl
     return LlamaForCausalLM(TransformerConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
 
 
-@register_architecture("Qwen3MoeForCausalLM")
+@register_architecture("Qwen3MoeForCausalLM", "Glm4MoeForCausalLM", "MixtralForCausalLM", "Qwen2MoeForCausalLM")
 def _moe_builder(hf_config: Any, backend: BackendConfig, device=None, trainable: bool = False):
     from automodel_tpu_torch.models.qwen3_moe import MoEForCausalLM, MoETransformerConfig
+    from automodel_tpu_torch.models.qwen3_moe.model import hf_key_style
 
-    return MoEForCausalLM(MoETransformerConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
+    model = MoEForCausalLM(MoETransformerConfig.from_hf(hf_config), backend, device=device, trainable=trainable)
+    model.hf_key_style = hf_key_style(hf_config)
+    return model
+
+
+@register_architecture("DeepseekV3ForCausalLM")
+def _deepseek_v3_builder(hf_config: Any, backend: BackendConfig, device=None, trainable: bool = False):
+    from automodel_tpu_torch.models.deepseek_v3 import DeepseekV3Config, DeepseekV3ForCausalLM
+
+    return DeepseekV3ForCausalLM(DeepseekV3Config.from_hf(hf_config), backend, device=device, trainable=trainable)
 
 
 @register_architecture("GptOssForCausalLM")

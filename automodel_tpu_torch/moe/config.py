@@ -1,8 +1,8 @@
 """MoE configuration, a copy of ``MoEConfig`` (:15) of
 ``automodel_tpu/moe/config.py`` with its checks and ``from_hf`` (:72); the
-port imports nothing of the JAX package, so it keeps its own. The JAX
-dispatchers' capacity factors are left out with the gspmd and a2a
-backends. The gpt-oss expert variant (expert and router biases, the
+port imports nothing of the JAX package, so it keeps its own, the
+``gspmd`` dispatcher's ``capacity_factor`` and the ``a2a`` dispatcher's
+``a2a_capacity_factor`` with JAX's defaults included. The gpt-oss expert variant (expert and router biases, the
 clamped ``swiglu_oai`` activation) is taken, as ``models/gpt_oss`` sets it.
 The other variants keep their fields, so the two configs match field for
 field, but no family the port registers uses them, and ``__post_init__``
@@ -43,6 +43,11 @@ class MoEConfig:
     num_dense_layers: int = 0
     # shared-expert gating (qwen2-moe style sigmoid gate on shared output)
     shared_expert_gate: bool = False
+    # dispatch capacity factor for the gspmd (einsum) dispatcher
+    capacity_factor: float = 1.25
+    # a2a dispatcher per-peer buffer bound, x the balanced load T*K/ep;
+    # None = the strict worst case (dropless by construction)
+    a2a_capacity_factor: Optional[float] = None
     # gpt-oss-style experts: bias terms on both projections, the clamped
     # (up+1)*glu activation, a learned router bias that feeds both selection
     # and weights. Interleaved gate/up, relu2 and the activation limit are

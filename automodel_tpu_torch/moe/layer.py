@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.experts import expert_backend
@@ -109,7 +110,13 @@ def moe_block(
     act_name: str = "silu",
 ) -> tuple[torch.Tensor, MoEAux]:
     """x [B, S, D] → (out [B, S, D], MoEAux). ``act_name`` names ``act``
-    for ``ragged_fused``, whose kernels apply the activation themselves."""
+    for ``ragged_fused``, whose kernels apply the activation themselves.
+    The backend takes x as [B, S, D], as JAX's layer passes it (:92-111):
+    ``gspmd`` fills capacity per batch row. A block placed over an
+    expert-parallel group (``block.ep_group``, set by
+    ``parallel/plans.parallelize``) holds its expert slabs as DTensors
+    sharded on the expert dim; ``a2a`` / ``a2a_fused`` take the local
+    slabs and exchange the tokens over that group."""
     cfg = block.cfg
     B, S, D = x.shape
     xt = x.reshape(-1, D)
@@ -119,9 +126,10 @@ def moe_block(
         router = getattr(block, block.router_name)
         gout = gate(xt, router.weight, cfg, bias=router.bias, seq_len=S, linear_bias=router.linear_bias)
     act2 = make_act2(cfg, act)
+    weights = {k: v.to_local() if isinstance(v, DTensor) else v for k, v in block.experts.named_parameters()}
     out = expert_backend(experts_backend)(
-        xt, gout, dict(block.experts.named_parameters()), cfg, act2, act_name=act_name
-    )
+        x, gout, weights, cfg, act2, act_name=act_name, ep=getattr(block, "ep_group", None)
+    ).reshape(-1, D)
     if cfg.num_shared_experts > 0:
         sp = block.shared_experts
         lin = lambda h, m: F.linear(h, m.weight.to(h.dtype))

@@ -6,7 +6,8 @@ Port of ``automodel_tpu/ops/ring_flash.py``. ``flash_block_fwd``,
 Hopper kernels of ``csrc/flash_attention.cu`` (which replace the Pallas
 ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``, and with them what
 the library splash kernel computes for ``attn: flash``, the logits soft
-cap included), at head_dim 64, 128 and 256: given CUDA tensors they
+cap included), at head_dim 64, 128, 192 (DeepSeek-V3's MLA: 128 nope +
+64 rope, v zero-padded to it by the caller) and 256: given CUDA tensors they
 launch the kernel or raise, given CPU tensors they run ``_flash_fwd_plain``
 / ``_flash_dq_plain`` / ``_flash_dkv_plain``, the same functions in plain
 fp32 torch. There is no path from a CUDA tensor to a plain version.
@@ -47,7 +48,7 @@ from automodel_tpu_torch.telemetry.profiling import cost as _cost
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # the CUDA kernels' limits (csrc/flash_attention.cu)
-CUDA_HEAD_DIMS = (64, 128, 256)
+CUDA_HEAD_DIMS = (64, 128, 192, 256)
 CUDA_DTYPES = (torch.bfloat16,)
 
 

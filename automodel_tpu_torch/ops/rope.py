@@ -161,16 +161,28 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def _deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """[x0, y0, x1, y1, ...] → [x0, x1, ..., y0, y1, ...] on the last dim."""
+    *lead, d = x.shape
+    return x.reshape(*lead, d // 2, 2).transpose(-1, -2).reshape(*lead, d)
+
+
 def apply_rope(
-    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, interleave: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Apply rotate-half RoPE in q's dtype. q/k: [B, S, N, H]; cos/sin:
     [B, S, R]. With R < H (partial rotary) only the first R channels
     rotate and the rest pass through, as HF's apply_rotary_pos_emb slices
-    (JAX :163-200)."""
+    (JAX :163-200). ``interleave``: the checkpoint stores the rotary
+    channels pair-interleaved (DeepSeek MLA's ``rope_interleave``), so
+    they are de-interleaved before the rotation, as JAX's are."""
     rotary_dim = cos.shape[-1]
     c = cos[..., None, :].to(q.dtype)
     s = sin[..., None, :].to(q.dtype)
+    if interleave:
+        if rotary_dim != q.shape[-1]:
+            raise ValueError("interleaved RoPE rotates the whole of q and k (the MLA block's rope parts)")
+        q, k = _deinterleave(q), _deinterleave(k)
     if rotary_dim == q.shape[-1]:
         return q * c + _rotate_half(q) * s, k * c + _rotate_half(k) * s
     (qr, q_pass), (kr, k_pass) = (x.split([rotary_dim, x.shape[-1] - rotary_dim], dim=-1) for x in (q, k))

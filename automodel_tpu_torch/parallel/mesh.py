@@ -25,9 +25,11 @@ group is made over a free localhost port. CUDA runs take NCCL with the
 device ``LOCAL_RANK``, ``device: cpu`` runs take gloo; a failed NCCL init
 raises, with no fall back to gloo or to one process.
 
-Refused by name: ``pp > 1`` (the pipeline schedules) and ``ep > 1`` (the
-``a2a`` experts); ``hybrid_mesh_shapes`` computes the nodes x local-devices
-split JAX lays over DCN, here the split HSDP takes across hosts.
+Refused by name: ``pp > 1`` (the pipeline schedules). ``ep > 1`` splits
+the MoE families' experts over the ``ep`` ranks, which exchange their
+tokens (``parallel/plans.parallelize``). ``hybrid_mesh_shapes`` computes
+the nodes x local-devices split JAX lays over DCN, here the split HSDP
+takes across hosts.
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ class MeshConfig:
     size (JAX :83-137). ``dcn`` gives per-axis degrees laid across hosts
     (``hybrid_mesh_shapes``). ``pp_schedule`` and ``pp_zb_queue`` are
     validated as JAX validates them; ``pp > 1`` itself is refused when a
-    mesh is built."""
+    mesh is built. ``ep`` divides ``dp_shard``: the expert ranks are data
+    ranks too, as in JAX."""
 
     dp_replicate: int = 1
     dp_shard: int = -1  # total data-shard degree INCLUDING ep (dp_shard_total)
@@ -108,7 +111,7 @@ class MeshConfig:
             raise ValueError(f"Mesh degrees {cfg} product {total} != world size {world_size}")
         if cfg.ep < 1 or cfg.dp_shard % cfg.ep != 0:
             raise ValueError(
-                f"ep={cfg.ep} must divide dp_shard_total={cfg.dp_shard} "
+                f"distributed.ep={cfg.ep}: ep={cfg.ep} must divide dp_shard_total={cfg.dp_shard} "
                 f"(reference invariant ep_shard = dp*cp/ep, mesh_utils.py:179-187)"
             )
         if cfg.pp_schedule not in ("gpipe", "zero_bubble"):
@@ -123,11 +126,6 @@ class MeshConfig:
             raise ValueError(
                 f"distributed.pp={self.pp}: pipeline parallelism (parallel/pp.py, zero_bubble.py) is not "
                 "ported to the torch backend yet"
-            )
-        if self.ep > 1:
-            raise ValueError(
-                f"distributed.ep={self.ep}: expert parallelism (the a2a experts) is not ported to the torch "
-                "backend yet"
             )
 
     @classmethod

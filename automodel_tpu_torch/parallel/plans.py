@@ -18,7 +18,19 @@ things on a built model (``parallelize``):
    loss reads the local logits (``ops/losses.vocab_parallel_cross_entropy``).
    The attention reads its local head counts off the projections, so
    ``tp`` must divide both head counts.
-2. FSDP2: ``fully_shard`` on each decoder layer, then on the root, over the
+2. Expert parallelism (``ep > 1``), where a rule names ``expert``: each
+   MoE layer's expert slabs become DTensors sharded on the expert dim
+   (``Shard(0)``) over the ``ep`` mesh dim, so a rank holds and updates
+   ``E / ep`` experts, and the layer gets its ``ep_group``, over which the
+   ``a2a`` / ``a2a_fused`` experts exchange tokens and ``gspmd`` its
+   experts' slots (the backends that take it). The slabs stay whole over ``expert_fsdp`` (``dp_shard,
+   cp``) and ``dp_replicate``, where JAX shards them on ``expert_fsdp``:
+   FSDP2 leaves them out, and their gradients are summed over those ranks
+   (the ranks that hold the same experts) as each microbatch's backward
+   accumulates them. Tensor parallelism of the slabs (JAX's ``tp_axis``
+   split of the intermediate dim inside the a2a body) is not ported:
+   ``tp`` on an MoE family is refused.
+3. FSDP2: ``fully_shard`` on each decoder layer, then on the root, over the
    ``fsdp`` grouping, or the 2-D (``dp_replicate``, ``fsdp``) mesh for
    HSDP. FSDP2 shards each tensor's first dim; which dim JAX's rules name
    ``fsdp`` changes where a shard lies, not what a step computes.
@@ -115,8 +127,8 @@ def check_tp(model: nn.Module, tp: int) -> None:
     if getattr(cfg, "moe", None) is not None:
         raise ValueError(
             f"distributed.tp={tp} on an MoE family ({type(model).__name__}): tensor parallelism of the "
-            "expert slabs (the interleaved gate | up split for the grouped kernels) comes with expert "
-            "parallelism and is not ported to the torch backend yet"
+            "expert slabs (the a2a body's tp_axis split of the intermediate dim, its partial down "
+            "products summed after the combine) is not ported to the torch backend yet"
         )
     if cfg.num_heads % tp or cfg.num_kv_heads % tp:
         raise ValueError(
@@ -127,12 +139,52 @@ def check_tp(model: nn.Module, tp: int) -> None:
         raise ValueError(f"tp={tp} must divide vocab_size={cfg.vocab_size} (the vocab-parallel embedding and loss)")
 
 
+def expert_parallel(model: nn.Module, ctx: MeshContext) -> set:
+    """Split each MoE layer's expert slabs over ``ep`` (``Shard(0)`` on the
+    ``ep`` mesh dim) and hand the layer its ``ep_group`` → the slab
+    parameters (FSDP2 leaves them out). Their gradients are summed over
+    the ranks holding the same experts, when there are more than one."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from automodel_tpu_torch.moe.experts import EP_BACKENDS, EPGroup
+    from automodel_tpu_torch.moe.layer import MoEBlock
+
+    ep = ctx.ep_size
+    blocks = [m for m in model.modules() if isinstance(m, MoEBlock)]
+    experts = getattr(model.backend, "experts", None)
+    if blocks and experts not in EP_BACKENDS:
+        raise ValueError(
+            f"distributed.ep={ep} needs the token-exchange experts {list(EP_BACKENDS)}, not experts={experts!r}"
+        )
+    ep_mesh = ctx.submesh(MeshAxisName.EP)
+    group = EPGroup(ep, ctx.coordinate(MeshAxisName.EP), ctx.group(MeshAxisName.EP))
+    replicas = [MeshAxisName.DP_REPLICATE, MeshAxisName.DP_SHARD, MeshAxisName.CP]
+    replicas = tuple(a for a in replicas if ctx.size(a) > 1)
+    sum_group = _group_over(ctx.mesh, replicas) if replicas else None
+    slabs: set = set()
+    for block in blocks:
+        # every slab (gate_up, down and the gpt-oss biases): the rules name
+        # ``expert`` on each one's leading dim (models/qwen3_moe SHARDING_RULES)
+        for name, p in list(block.experts.named_parameters(recurse=False)):
+            if p.shape[0] % ep:
+                raise ValueError(f"num_experts={p.shape[0]} must be divisible by ep={ep}")
+            placed = nn.Parameter(distribute_tensor(p.detach(), ep_mesh, [Shard(0)]), requires_grad=p.requires_grad)
+            setattr(block.experts, name, placed)
+            if sum_group is not None:
+                placed.register_post_accumulate_grad_hook(
+                    lambda q: dist.all_reduce(q.grad.to_local(), group=sum_group))
+            slabs.add(placed)
+        block.ep_group = group
+    return slabs
+
+
 def parallelize(model: nn.Module, ctx: MeshContext, rules: Optional[Rules] = None, fsdp: bool = True) -> nn.Module:
     """Apply the plans to a built model in place: DTensor TP where the
-    rules name ``tensor`` (``tp > 1``), then FSDP2 on each decoder layer
-    and the root (``fsdp``). The model's ``hidden`` is registered as an
-    FSDP forward method, so the loss's own path unshards the root's
-    parameters too."""
+    rules name ``tensor`` (``tp > 1``), the expert slabs over ``ep`` (``ep
+    > 1``), then FSDP2 on each decoder layer and the root (``fsdp``). The
+    model's ``hidden`` is registered as an FSDP forward method, so the
+    loss's own path unshards the root's parameters too."""
     rules = rules if rules is not None else model.sharding_rules
     tp = ctx.tp_size
     if tp > 1:
@@ -140,14 +192,15 @@ def parallelize(model: nn.Module, ctx: MeshContext, rules: Optional[Rules] = Non
 
         check_tp(model, tp)
         parallelize_module(model, ctx.submesh(MeshAxisName.TP), tp_plan(model, rules))
+    slabs = expert_parallel(model, ctx) if ctx.ep_size > 1 else set()
     if fsdp:
         from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard, register_fsdp_forward_method
 
         mesh = ctx.fsdp_mesh()
         mp = MixedPrecisionPolicy(reduce_dtype=torch.float32)
         for layer in decoder_layers(model):
-            fully_shard(layer, mesh=mesh, mp_policy=mp)
-        fully_shard(model, mesh=mesh, mp_policy=mp)
+            fully_shard(layer, mesh=mesh, mp_policy=mp, ignored_params=slabs or None)
+        fully_shard(model, mesh=mesh, mp_policy=mp, ignored_params=slabs or None)
         for unit in (*decoder_layers(model), model):
             # each FSDP unit holds its own reduce settings
             unit.set_gradient_divide_factor(1.0)

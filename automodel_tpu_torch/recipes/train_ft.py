@@ -116,8 +116,8 @@ process group, as before.
 Sections the port does not run are refused with a ``ValueError`` naming
 them, never ignored: ``peft``, ``qat``, a ``data`` key other than
 ``prefetch`` (an unknown ``data.prefetch`` key raises JAX's ``TypeError``),
-``distributed.pp > 1`` and ``ep > 1`` (the pipeline schedules and the
-expert-parallel experts), ``tp > 1`` on an MoE family, ``adafactor`` and
+``distributed.pp > 1`` (the pipeline schedules), ``ep > 1`` with experts
+other than ``a2a`` / ``a2a_fused`` on an MoE family, ``tp > 1`` on an MoE family, ``adafactor`` and
 ``muon`` on a mesh of more than one device (they read whole matrices),
 ``checkpoint.is_async`` there, and ``attn: ring`` without the section.
 """
@@ -126,6 +126,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import sys
 import time
 import weakref
@@ -509,6 +510,9 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
         mcfg = MeshConfig.from_section(_plain(section))
         mcfg.check_ported()
+        # the degrees against torchrun's world (one process without it)
+        # before the group is made: ep = 2 alone on one device raises here
+        mcfg.validate(int(os.environ.get("WORLD_SIZE", "1")))
         initialize_distributed(self.device)
         if self.device.type == "cuda":
             self.device = torch.device("cuda", torch.cuda.current_device())

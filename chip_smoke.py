@@ -215,7 +215,8 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    tokens a second (spec on and off) and the peak device memory are
    printed;
 21. the serving front and the host spill tier at Llama-3-8B's published
-   widths and all 32 layers (``configs/serve_llama3_8b_front.yaml`` as a
+   widths and 16 of its 32 layers (32 before PR 20: cut to keep the script
+   inside its time limit; ``configs/serve_llama3_8b_front.yaml`` as a
    dict, random bf16 weights): (a) one slot on a 512-block bf16 pool with
    a 4 GiB host tier, 4 groups of a 2048-token prefix, each arriving 2
    times round-robin with a fresh 64-token suffix (32 new tokens, greedy),
@@ -240,7 +241,7 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    the requests after it decode the tokens they decoded before. Every
    serving phase (4, 18's leg (a), 20, 21, 22) checks that its engines
    rebuilt for no error and no unplanned stall;
-22. traced serving at Llama-3-8B's published widths and 32 layers
+22. traced serving at Llama-3-8B's published widths and 16 layers
    (phase 21's config with ``tracing: {enabled: true, sample_rate: 1.0}``,
    through ``serving.server.build_tracer`` and the HTTP front): 16 POSTs
    of 256-1024 prompt tokens and 64 new from 8 client threads, 8 of them
@@ -281,13 +282,14 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    (``data/synthetic.py``) from seeds, sizes and seconds printed; the
    index built by the native helpers (``g++``), which must have built and
    run; (b) ``configs/pretrain_llama3_8b_megatron.yaml`` as a dict,
-   Llama-3-8B at 32 layers on that corpus through the ``pretrain``
+   Llama-3-8B at 16 of its 32 layers (32 before PR 20: cut to keep the
+   script inside its time limit) on that corpus through the ``pretrain``
    recipe class, 6 steps of 4096 tokens three times: sync, with
    ``data.prefetch`` (depth 2, 2 collate workers), sync again. Every batch
    read back from the card after its step equals the host's collate and
    the sync run's bit for bit; the prefetched losses follow phase 17's
-   rule against the two sync runs; the flash forward launched 32 x 6 x 2
-   times a run (remat), dq and dkv 32 x 6; the peak under 79 GiB; step
+   rule against the two sync runs; the flash forward launched 16 x 6 x 2
+   times a run (remat), dq and dkv 16 x 6; the peak under 79 GiB; step
    time, tokens/s, MFU on 989 TFLOP/s, the peak, ``host_input_wait_s`` and
    ``prefetch_depth`` printed for each run; (c) the corpus's documents
    packed by ``pack_sequences`` into a 4096-token row of at least 3
@@ -307,7 +309,7 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    window and ends with the loader at batch 7, where JAX's arithmetic puts
    it. The corpora and checkpoints are deleted.
 25. the training run's telemetry, profiling, goodput, metrics port and
-   guard, on a 2^22-token Megatron corpus: (a) phase 24's config at 32
+   guard, on a 2^22-token Megatron corpus: (a) phase 24's config at 16
    layers, 7 steps, with every section on (the memory census every 3
    steps, a manual ``torch.profiler`` window over step 4, the cost count
    of step 1, ``metrics_server`` on a free port, the guard's defaults) and
@@ -358,13 +360,32 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    ring`` at cp = 1 against ``attn: flash`` at 2 layers of those widths: the
    same losses and grad norms bit for bit. The card is one device, so no
    collective crosses ranks here: NCCL across ranks is not measured.
+27. DeepSeek-V3's family: (a) ``configs/pretrain_moonlight_16b_a3b.yaml``
+   as a dict, Moonlight-16B-A3B's published widths (MLA with q_lora_rank
+   null, 128 nope + 64 rope channels, v 128; 64 experts top-6 of width
+   1408 with 2 shared, sigmoid aux-free routing; vocab 163840) cut to 7
+   layers (the dense first and 6 MoE), 4 steps of 2 microbatches of 4096
+   tokens through the ``pretrain`` recipe class with ``attn: flash`` (K1
+   at head_dim 192, v padded) and ``experts: ragged_fused`` (K3): every
+   kernel's launches counted, the loss falling, each layer's correction
+   bias moving, step ms, tokens/s, MFU on 989 and the peak printed; (b) K1
+   at DeepSeek-V3's attention shape (B 1, S 4096, 128 heads, head_dim 192
+   with v padded from 128, causal, its yarn softmax scale), with and
+   without 4 packed documents, held to the plain versions (phase 3's
+   limits) and timed beside the bound and SDPA; (c) at 2 of those layers
+   and one 4096-token row, ``gspmd`` at a capacity factor where no pick
+   drops against ``ragged_fused`` (loss, grad norm), ``gspmd`` at 1.25
+   with the share of picks dropped, and the ``a2a_fused`` per-rank body at
+   ep = 4 virtual ranks in this process (K3 on each rank's 16 experts)
+   against ``ragged_fused`` over the row. The all-to-all across cards is
+   not measured: one card.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 26 last. After the build the
+phase 3b right after phase 3, phases 15 to 27 last. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
-fails if any of the 18 flash, 4 grouped-matmul or 18 paged-attention
+fails if any of the 24 flash, 4 grouped-matmul or 18 paged-attention
 instantiations spills; the flash register split read from the SASS is
 printed just before the ``kernels`` line, and each flash and grouped-matmul
 entry carries the readings of its instantiations.
@@ -1285,14 +1306,14 @@ def flash_library_ms(torch, q, k, v, do, causal: bool, scale=None) -> tuple[floa
     return _library_times(lambda *a: F.scaled_dot_product_attention(*a, **kw), leaves, dot)
 
 
-def sdpa_mask_library_ms(torch, q, k, v, do, mask) -> tuple[float, float, float]:
+def sdpa_mask_library_ms(torch, q, k, v, do, mask, scale=None) -> tuple[float, float, float]:
     """``scaled_dot_product_attention`` with ``mask`` [B, S, S] (True =
     attend) as its boolean ``attn_mask``: forward, forward+backward and the
     backward alone (a yardstick only; the port never calls it)."""
     import torch.nn.functional as F
 
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    kw = dict(attn_mask=mask[:, None], enable_gqa=True)
+    kw = dict(attn_mask=mask[:, None], enable_gqa=True, scale=scale)
     leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
     return _library_times(lambda *a: F.scaled_dot_product_attention(*a, **kw), leaves, dot)
 
@@ -1373,7 +1394,7 @@ def time_flash(torch, rf, label: str, args: tuple, kw: dict, bound: dict, before
 
 
 FLASH_CASE_DEFAULTS = dict(main=False, window=None, causal=True, S=4096, H=128, N=32, Nkv=8, docs=0, sharp=1.0,
-                           cap=None, scale=None, fault=False, seg_ids=None)
+                           cap=None, scale=None, fault=False, seg_ids=None, v_dim=None)
 
 
 def flash_check(torch, dev, c: dict, seed: int) -> dict:
@@ -1388,6 +1409,9 @@ def flash_check(torch, dev, c: dict, seed: int) -> dict:
     c = dict(FLASH_CASE_DEFAULTS, **c)
     q, k, v, do, pos, seg = flash_case(torch, dev, S=c["S"], H=c["H"], N=c["N"], Nkv=c["Nkv"], sharp=c["sharp"],
                                        docs=c["docs"], seed=seed, seg_ids=c["seg_ids"])
+    if c["v_dim"] is not None:
+        # MLA: v_head_dim zero-padded to the q/k head_dim, as the block pads it
+        v[..., c["v_dim"]:] = 0
     scale = c["scale"] or c["H"] ** -0.5
     kw = dict(causal=c["causal"], window=c["window"], scale=scale, soft_cap=c["cap"])
     out, lse = rf.flash_block_fwd(q, k, v, pos, pos, seg, seg, **kw)
@@ -1440,9 +1464,10 @@ def flash_check(torch, dev, c: dict, seed: int) -> dict:
                                   K1_MMA_SYNC_MS.get(c["name"]))
         if seg is not None:
             # packed documents: SDPA with the same mask as a boolean attn_mask
-            lib = sdpa_mask_library_ms(torch, q, k, v, do, rf._mask(pos, pos, seg, seg, c["causal"], c["window"]))
+            lib = sdpa_mask_library_ms(torch, q, k, v, do, rf._mask(pos, pos, seg, seg, c["causal"], c["window"]),
+                                       scale)
         elif c["cap"] is None:
-            lib = flash_library_ms(torch, q, k, v, do, c["causal"])
+            lib = flash_library_ms(torch, q, k, v, do, c["causal"], scale)
         else:
             # no SDPA call computes the cap: flex_attention with a tanh
             # score_mod does; SDPA without the cap (causal) stands beside it
@@ -1948,7 +1973,7 @@ def profile_moe_step(torch, recipe, acc: int, families: dict) -> dict:
     from automodel_tpu_torch.data.collators import stack_microbatches
 
     dl = recipe.dataloader
-    batch = recipe._place(stack_microbatches([dl.batch_for(0, 100 + i) for i in range(acc)]))
+    batch = recipe._place(stack_microbatches([dl.batch_for(0, (100 + i) % len(dl)) for i in range(acc)]))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1973,12 +1998,16 @@ def profile_moe_step(torch, recipe, acc: int, families: dict) -> dict:
     return out
 
 
-def run_moe_training(torch, cfg: dict, label: str, kernels: dict, want: dict, families: dict) -> dict:
+def run_moe_training(torch, cfg: dict, label: str, kernels: dict, want: dict, families: dict,
+                     inspect=None, time_optimizer: bool = True) -> dict:
     """4 steps of an MoE config through the ``pretrain`` recipe class: every
     loss, grad norm and aux loss finite; every kernel launched its ``want``
     count (set to 0 just before the run, read just after); every weight
     matrix, bias and sink moved, and every expert slab that received rows
-    reaching the loss; then a profile of one step and the optimizer's time."""
+    reaching the loss; then a profile of one step and the optimizer's time
+    (``time_optimizer``: its fp32 zero grads take 4 bytes a parameter).
+    ``inspect(recipe)``, called before the run, returns a function called
+    after it whose dict joins the result."""
     from automodel_tpu_torch.config import ConfigNode
     from automodel_tpu_torch.moe import layer as moe_layer
     from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
@@ -2022,6 +2051,7 @@ def run_moe_training(torch, cfg: dict, label: str, kernels: dict, want: dict, fa
         return placed
 
     moe_layer.gate, recipe._place = recording_gate, recording_place
+    after = inspect(recipe) if inspect is not None else None
     try:
         # the main path's run: every count set to 0 just before, read just after
         for f, attr in kernels.values():
@@ -2087,10 +2117,14 @@ def run_moe_training(torch, cfg: dict, label: str, kernels: dict, want: dict, fa
         expert_slabs_fed=slabs_fed, expert_slabs_moved=slabs_moved, fewest_rows_of_a_fed_slab=min(fed_rows),
     )
     del before
+    if after is not None:
+        out.update(after())
+        after = None
     out["profile"] = profile_moe_step(torch, recipe, acc, families)
-    zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-    out["optimizer_update_ms"] = cuda_ms(lambda: recipe.state.optimizer.update(zeros), iters=3, warmup=1)
-    del zeros
+    if time_optimizer:
+        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        out["optimizer_update_ms"] = cuda_ms(lambda: recipe.state.optimizer.update(zeros), iters=3, warmup=1)
+        del zeros
     print(f"{label}: {json.dumps(out)}", flush=True)
     del recipe, params
     gc.collect()
@@ -2836,6 +2870,27 @@ def kd_flash_entry(name: str, kd: dict) -> dict:
 # -- phases 10 and 14: one step, two experts backends ---------------------------
 
 
+def moe_step(torch, model, mb: dict, counters: dict) -> dict:
+    """One microbatch's loss, fp32 grad norm and aux loss (no update), with
+    each kernel's launches in it."""
+    from automodel_tpu_torch.optim.builders import global_norm_fp32
+    from automodel_tpu_torch.training.train_step import make_causal_lm_loss
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+    loss_sum, n, extras = make_causal_lm_loss(model, loss="fused_linear_ce")(mb)
+    grads = torch.autograd.grad(loss_sum.float(), params)
+    denom = n.clamp_min(1).float()
+    norm = global_norm_fp32(g.float() / denom for g in grads)
+    torch.cuda.synchronize()
+    launches = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items() if getattr(f, a) != before[k]}
+    out = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm),
+               moe_aux_loss=float(extras["moe_aux_loss"]), launches=launches)
+    del grads, loss_sum, extras
+    torch.cuda.empty_cache()
+    return out
+
+
 def one_step_experts_ab(torch, cfg: dict, label: str, backends: tuple, want: dict, tols: dict) -> dict:
     """One step's loss, fp32 grad norm and aux loss (one microbatch of the
     config's tokens, no update) from the same weights and batch, with the
@@ -2848,29 +2903,16 @@ def one_step_experts_ab(torch, cfg: dict, label: str, backends: tuple, want: dic
     from automodel_tpu_torch.data.collators import default_collater
     from automodel_tpu_torch.data.sft import MockSFTDataset
     from automodel_tpu_torch.generation.engine import build_auto_from_model_section
-    from automodel_tpu_torch.optim.builders import global_norm_fp32
-    from automodel_tpu_torch.training.train_step import make_causal_lm_loss
 
     dev = torch.device(cfg["device"])
     model = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True).model
-    params = list(model.parameters())
     ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
     mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[3]]).items() if hasattr(v, "shape")}
     counters = {k: v for k, v in fused_kernel_counters().items() if not k.startswith("flash")}
     out = {}
     for experts in backends:
         model.backend = dataclasses.replace(model.backend, experts=experts)
-        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
-        loss_sum, n, extras = make_causal_lm_loss(model, loss="fused_linear_ce")(mb)
-        grads = torch.autograd.grad(loss_sum.float(), params)
-        denom = n.clamp_min(1).float()
-        norm = global_norm_fp32(g.float() / denom for g in grads)
-        torch.cuda.synchronize()
-        launches = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
-        out[experts] = dict(loss=float(loss_sum.detach() / denom), grad_norm=float(norm),
-                            moe_aux_loss=float(extras["moe_aux_loss"]), launches={k: v for k, v in launches.items() if v})
-        del grads, loss_sum, extras
-        torch.cuda.empty_cache()
+        out[experts] = moe_step(torch, model, mb, counters)
     a, b = (out[e] for e in backends)
     for key in tols:
         out[f"{key}_rel"] = abs(a[key] - b[key]) / abs(b[key])
@@ -2881,7 +2923,7 @@ def one_step_experts_ab(torch, cfg: dict, label: str, backends: tuple, want: dic
         raise RuntimeError(f"non-finite loss, grad norm or aux loss: {out}")
     if any(out[f"{key}_rel"] > tol for key, tol in tols.items()):
         raise RuntimeError(f"{label}: the steps disagree: {out} (limits, relative: {tols})")
-    del model, params
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -3724,13 +3766,18 @@ DATA_NANOGPT_SHARDS = 2
 DATA_NANOGPT_SHARD_TOKENS = 2**23
 DATA_NANOGPT_WEIGHTS = (1.0, 2.0, 1.0)
 DATA_STEPS = 6
+# phase 24 (b) and phase 25 (a)-(b) at 16 of Llama-3-8B's 32 layers (32
+# before PR 20): phase 27 made the whole script 1185.5 s of its 1200 s on
+# one card, so the depth of these runs was cut
+DATA_PRETRAIN_LAYERS = 16
 DATA_PEAK_GIB = 79.0
 DATA_PACKED_LAYERS = 8
 DATA_RESUME_LAYERS = 2
 DATA_SAVE_STEP = 2
 
-# (a)/(b): a 512-block pool (1 GiB bf16) holds about three groups of a
-# 2048-token shared prefix (128 blocks) + a 64-token suffix + 32 new tokens
+# (a)/(b): a 512-block pool (0.5 GiB bf16 at 16 layers) holds about three
+# groups of a 2048-token shared prefix (128 blocks) + a 64-token suffix + 32
+# new tokens
 FRONT_POOL_BLOCKS = 512
 # 2 rounds and 4 bf16 groups (from 3 and 8) for phase 25's time
 FRONT_PREFIX, FRONT_SUFFIX, FRONT_NEW, FRONT_ROUNDS = 2048, 64, 32, 2
@@ -3742,10 +3789,15 @@ FRONT_TIE_ULPS = 3
 FRONT_WATCHDOG = dict(min_deadline_s=2.0, max_deadline_s=4.0, multiplier=2.0, compile_grace_s=120.0,
                       poll_interval_s=0.05)
 FRONT_STALL_S = 6.0
+# phases 21 and 22 at 16 of Llama-3-8B's 32 layers (32 before PR 20): the
+# whole script read 923.7-1185.5 s of its 1200 s on one card in PR 20, the
+# host-bound phases 30% apart between calls
+FRONT_LAYERS = 16
 
 
 def front_config(**serving) -> dict:
     cfg = json.loads(json.dumps(SERVE_LLAMA3_8B_FRONT))
+    cfg["model"]["hf_config"]["num_hidden_layers"] = FRONT_LAYERS
     cfg["serving"].update(serving)
     return cfg
 
@@ -4324,7 +4376,8 @@ def front_watchdog(torch, auto) -> dict:
 
 def phase_front(torch) -> dict:
     """Phase 21: the serving front and the host spill tier at Llama-3-8B's
-    published widths and all 32 layers (random bf16 weights from seed 0):
+    published widths and FRONT_LAYERS of its layers (random bf16 weights
+    from seed 0):
     (a) the spill A/B on a bf16 pool, (b) on an int8 pool, (c) the HTTP
     front with QoS, (d) its SIGTERM drain, (e) a planned stall."""
     from automodel_tpu_torch.generation.engine import build_auto_from_cfg
@@ -4846,6 +4899,7 @@ def same_trajectory(a: dict, b: dict, c: dict, steps, label: str) -> dict:
 def megatron_config(prefix, prefetch: bool, tag: str) -> dict:
     cfg = json.loads(json.dumps(PRETRAIN_LLAMA3_8B_MEGATRON))
     cfg["device"] = TRAIN_DEVICE
+    cfg["model"]["hf_config"]["num_hidden_layers"] = DATA_PRETRAIN_LAYERS
     cfg["dataset"]["paths"] = str(prefix)
     cfg["step_scheduler"].update(max_steps=DATA_STEPS, log_every_steps=1)
     cfg["logging"]["metrics_path"] = metrics_path(tag)
@@ -4856,7 +4910,7 @@ def megatron_config(prefix, prefetch: bool, tag: str) -> dict:
 
 def run_pretrain_megatron(torch, prefix, prefetch: bool, tag: str) -> dict:
     """Phase 24 (b), one run: ``pretrain llm``'s recipe (as the CLI's entry
-    runs it) at 32 layers on the Megatron corpus, each batch read back."""
+    runs it) at DATA_PRETRAIN_LAYERS on the Megatron corpus, each batch read back."""
     from automodel_tpu_torch.config import ConfigNode
     from automodel_tpu_torch.ops import ring_flash as rf
     from automodel_tpu_torch.recipes.train_ft import TrainFinetuneRecipeForNextTokenPrediction
@@ -4910,7 +4964,7 @@ def run_pretrain_megatron(torch, prefix, prefetch: bool, tag: str) -> dict:
 
 
 def phase_data_pretrain(torch, prefix) -> dict:
-    """Phase 24 (b): Llama-3-8B at 32 layers on the Megatron corpus, sync,
+    """Phase 24 (b): Llama-3-8B at 16 layers on the Megatron corpus, sync,
     prefetched, sync: the batches and the losses held to the sync runs."""
     sync_a = run_pretrain_megatron(torch, prefix, False, "megatron_sync_a")
     pf = run_pretrain_megatron(torch, prefix, True, "megatron_prefetch")
@@ -5227,7 +5281,7 @@ def flash_counts(top_ops: list) -> dict:
 def phase_obs_on_off(torch, prefix, root) -> dict:
     """Phase 25 (a): every section on (a memory cadence, a manual profile
     window, the cost count, a metrics port, the guard's defaults) and every
-    section off, at 32 layers: the same losses and grad norms bit for bit;
+    section off, at 16 layers: the same losses and grad norms bit for bit;
     the records' keys, one cost_attribution event, a /metrics scrape at the
     last step, and the goodput ledger summing to the wall clock."""
     from automodel_tpu_torch.telemetry.goodput import _read_records, rollup
@@ -5320,12 +5374,12 @@ def phase_obs_on_off(torch, prefix, root) -> dict:
         scrape_step=last.get("automodel_train_step"), scrape_families=len(families),
         wall_s=(on["wall_s"], off["wall_s"]),
     )
-    print(f"phase 25 (a) sections on / off at 32 layers: {json.dumps(out)} | {card_line()}", flush=True)
+    print(f"phase 25 (a) sections on / off at {layers} layers: {json.dumps(out)} | {card_line()}", flush=True)
     return out
 
 
 def phase_obs_profile(torch, prefix, root) -> dict:
-    """Phase 25 (b): the ``profile`` command at 32 layers: the trace must
+    """Phase 25 (b): the ``profile`` command at 16 layers: the trace must
     hold device kernel events (it fails with none), K1's three kernels
     among the top ops with layers x steps launches (the forward twice under
     remat: full), the busy share and the largest host gaps printed."""
@@ -5375,7 +5429,7 @@ def phase_obs_profile(torch, prefix, root) -> dict:
                              for k in ("fwd", "dq", "dkv")},
                top_ops=[(o["name"], o["count"], o["self_s"], o["share_pct"]) for o in report["top_ops"][:8]],
                launch_events=launches, run_metrics=report.get("run_metrics"))
-    print(f"phase 25 (b) profile at 32 layers: {json.dumps(out)} | {card_line()}", flush=True)
+    print(f"phase 25 (b) profile at {layers} layers: {json.dumps(out)} | {card_line()}", flush=True)
     return out
 
 
@@ -5917,9 +5971,267 @@ def ring_flash_entry(name: str, ring: dict) -> dict:
                 step0=main["step0"], plain=ring["plain"])
 
 
+# -- phase 27: DeepSeek-V3's family, Moonlight-16B-A3B, MLA through K1 at H = 192 -------
+
+MOONLIGHT_16B_A3B = dict(  # moonshotai/Moonlight-16B-A3B config.json
+    architectures=["DeepseekV3ForCausalLM"], model_type="deepseek_v3",
+    vocab_size=163840, hidden_size=2048, intermediate_size=11264, moe_intermediate_size=1408,
+    num_hidden_layers=27, num_attention_heads=16, num_key_value_heads=16, q_lora_rank=None, kv_lora_rank=512,
+    qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=64, num_experts_per_tok=6,
+    n_shared_experts=2, first_k_dense_replace=1, moe_layer_freq=1, n_group=1, topk_group=1,
+    topk_method="noaux_tc", scoring_func="sigmoid", norm_topk_prob=True, routed_scaling_factor=2.446,
+    aux_loss_alpha=0.001, seq_aux=True, hidden_act="silu", rope_theta=50000.0, rope_scaling=None,
+    rms_norm_eps=1e-5, max_position_embeddings=8192, attention_bias=False, tie_word_embeddings=False,
+)
+# automodel_tpu_torch/configs/pretrain_moonlight_16b_a3b.yaml as a dict
+# (tests/test_torch_deepseek_v3.py checks the two agree): depth cut to 7
+# layers (the dense first and 6 MoE layers)
+PRETRAIN_MOONLIGHT_16B_A3B = dict(
+    seed=42,
+    model=dict(
+        hf_config=dict(MOONLIGHT_16B_A3B, num_hidden_layers=7),
+        backend=dict(attn="flash", experts="ragged_fused", param_dtype="bfloat16", compute_dtype="bfloat16"),
+    ),
+    dataset=dict(_target_="automodel_tpu_torch.data.sft.MockSFTDataset", vocab_size=163840,
+                 seq_length=4096, num_samples=1024),
+    dataloader=dict(global_batch_size=1),
+    step_scheduler=dict(grad_acc_steps=2, num_epochs=1, max_steps=4, log_every_steps=1),
+    optimizer=dict(name="adamw", lr=3e-4, weight_decay=0.1, betas=[0.9, 0.95], grad_clip_norm=1.0,
+                   lr_schedule=dict(style="constant")),
+    loss_fn=dict(name="fused_linear_ce"),
+    logging=dict(metrics_path="runs/torch_moonlight_16b_a3b/train_metrics.jsonl"),
+)
+# DeepSeek-V3's attention (deepseek-ai/DeepSeek-V3 config.json): 128 heads
+# of 128 nope + 64 rope channels, v 128 (padded to 192 for K1), the yarn
+# softmax scale 192^-0.5 x (0.1 x 1.0 x ln 40 + 1)^2
+DSV3_MLA_SCALE = 192**-0.5 * (0.1 * math.log(40.0) + 1.0) ** 2
+MLA_FLASH_CASES = [
+    dict(name="deepseek-v3 mla causal", main=True, H=192, N=128, Nkv=128, scale=DSV3_MLA_SCALE, v_dim=128),
+    dict(name="deepseek-v3 mla, 4 packed documents", main=True, H=192, N=128, Nkv=128, scale=DSV3_MLA_SCALE,
+         v_dim=128, docs=4),
+]
+EP_VIRTUAL_RANKS = 4
+# gspmd against ragged_fused at a capacity where nothing drops (relative):
+# the same routing; gspmd's per-expert MLP runs in bf16 cuBLAS products
+# with the activation in bf16 torch, where K3 keeps it in fp32 registers,
+# as ragged against ragged_fused in phase 14
+GSPMD_LOSS_REL_TOL = FUSED_STEP_LOSS_REL_TOL
+GSPMD_GRAD_NORM_REL_TOL = FUSED_STEP_GRAD_NORM_REL_TOL
+
+
+def moonlight_train_config() -> dict:
+    cfg = json.loads(json.dumps(PRETRAIN_MOONLIGHT_16B_A3B))
+    cfg["device"] = TRAIN_DEVICE
+    here = __import__("pathlib").Path(__file__).resolve().parent
+    cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"moonlight_metrics_{time.time_ns()}.jsonl")
+    return cfg
+
+
+def moonlight_flops_per_token(model, seq: int) -> float:
+    """Training flops a token: 6 x the parameters a token's products touch
+    (every matrix but the embedding; of the routed experts K of E), plus
+    the attention products, 6 x (qk_head_dim + v_head_dim) a live pair and
+    head over the causal sequence's pairs (the kernels pad v: not counted)."""
+    cfg = model.config
+    E, K = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
+    active = 0.0
+    for n, p in model.named_parameters():
+        if n == "model.embed_tokens.weight" or p.dim() < 2:
+            continue
+        active += p.numel() * (K / E if ".mlp.experts." in n else 1.0)
+    attn = 6 * (cfg.qk_head_dim + cfg.v_head_dim) * cfg.num_heads * cfg.num_layers * live_pairs(seq, None) / seq
+    return 6 * active + attn
+
+
+def phase_moonlight_training(torch) -> dict:
+    """(a) 4 steps of 2 x 4096 tokens (the same two rows each step) at
+    Moonlight-16B-A3B's widths, 7 layers, through the ``pretrain`` recipe
+    class: MLA through K1 at head dim 192, the experts through K3 (and
+    K2's gmm in its backward); the loss falls, the correction bias moves."""
+    cfg = moonlight_train_config()
+    # the same 2 rows every step: the mock tokens are uniform, so across
+    # rows there is nothing to learn (earlier phases' losses stay flat at
+    # ~ln V + 0.4); repeated rows are memorized, so the loss falls when the
+    # backward and the update are right
+    cfg["dataset"]["num_samples"] = cfg["step_scheduler"]["grad_acc_steps"]
+    cfg["step_scheduler"]["num_epochs"] = cfg["step_scheduler"]["max_steps"]
+    hf = cfg["model"]["hf_config"]
+    moe_layers = hf["num_hidden_layers"] - hf["first_k_dense_replace"]
+    n_mb = cfg["step_scheduler"]["grad_acc_steps"] * cfg["step_scheduler"]["max_steps"]
+    n, m = moe_layers * n_mb, hf["num_hidden_layers"] * n_mb
+    want = dict(fem_fwd=n, fem_bwd_gu=n, fem_bwd_act=n, fem_bwd_dwd=n, fem_bwd_dx=n, gmm=n, gmm_t=n, tgmm=0,
+                flash_fwd=m, flash_dq=m, flash_dkv=m)
+
+    def inspect(recipe):
+        blocks = recipe.model.moe_layers()
+        bias0 = [getattr(b, b.router_name).bias.detach().clone() for b in blocks]
+        flops = moonlight_flops_per_token(recipe.model, cfg["dataset"]["seq_length"])
+
+        def after():
+            moved = [float((getattr(b, b.router_name).bias - b0).abs().max()) for b, b0 in zip(blocks, bias0)]
+            return dict(correction_bias_max_move=moved, flops_per_token=flops)
+
+        return after
+
+    out = run_moe_training(torch, cfg, "moonlight training", fused_kernel_counters(), want, GPT_OSS_FAMILIES,
+                           inspect=inspect, time_optimizer=False)
+    out["mfu_989"] = out["tokens_per_s"] * out["flops_per_token"] / BF16_FLOPS
+    out["head_dim"] = MOONLIGHT_16B_A3B["qk_nope_head_dim"] + MOONLIGHT_16B_A3B["qk_rope_head_dim"]
+    print(f"moonlight training: step {out['step_ms']:.1f} ms, {out['tokens_per_s']:.0f} tokens/s, MFU on 989 "
+          f"{out['mfu_989']:.4f}, peak {out['peak_mem_gib']:.2f} GiB, K1 at H=192 launches fwd "
+          f"{out['launches']['flash_fwd']} dq {out['launches']['flash_dq']} dkv {out['launches']['flash_dkv']}, "
+          f"K3 fwd {out['launches']['fem_fwd']}, losses {out['losses']}, correction bias moved by "
+          f"{out['correction_bias_max_move']}", flush=True)
+    if not out["losses"][-1] < out["losses"][0]:
+        raise RuntimeError(f"moonlight training: the loss did not fall over 4 steps: {out['losses']}")
+    if not all(x > 0 for x in out["correction_bias_max_move"]):
+        raise RuntimeError(f"moonlight training: a layer's correction bias did not move: {out}")
+    return out
+
+
+def phase_moonlight_experts(torch) -> dict:
+    """(c) At Moonlight's widths, 2 layers (the dense first, one MoE), one
+    4096-token row: ``gspmd`` at a capacity factor where no pick drops
+    (from the row's largest expert load) against ``ragged_fused`` (loss,
+    grad norm, aux); ``gspmd`` at 1.25 with the share of picks dropped; and
+    the ``a2a_fused`` per-rank body at ep = 4 virtual ranks in this process
+    (K3 on each rank's 16 local experts, the chunk rows padded) against
+    ``ragged_fused`` over the whole row, on the MoE layer's real input:
+    output and x-grad rows within 2^-7, expert weight-grad slab rows within
+    2^-10. The all-to-all across cards is not measured: one card."""
+    from automodel_tpu_torch.data.collators import default_collater
+    from automodel_tpu_torch.data.sft import MockSFTDataset
+    from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+    from automodel_tpu_torch.moe import experts as mexp
+    from automodel_tpu_torch.moe import gate as mgate
+    from automodel_tpu_torch.moe import layer as moe_layer
+
+    cfg = moonlight_train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = 2
+    dev = torch.device(cfg["device"])
+    model = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True).model
+    ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[3]]).items() if hasattr(v, "shape")}
+    counters = {k: v for k, v in fused_kernel_counters().items() if not k.startswith("flash")}
+    block = model.moe_layers()[0]
+    moe_cfg = block.cfg
+    E, K, S = moe_cfg.num_experts, moe_cfg.num_experts_per_tok, cfg["dataset"]["seq_length"]
+    seen: dict = {}
+    real_gate = moe_layer.gate
+
+    def recording_gate(x, weight, *a, **kw):
+        out = real_gate(x, weight, *a, **kw)
+        seen.update(x=x.detach().clone(), idx=out.topk_idx)
+        return out
+
+    def set_backend(experts: str, capacity_factor: float | None = None):
+        model.backend = dataclasses.replace(model.backend, experts=experts)
+        if capacity_factor is not None:
+            block.cfg = dataclasses.replace(moe_cfg, capacity_factor=capacity_factor)
+
+    out: dict = {}
+    moe_layer.gate = recording_gate
+    try:
+        set_backend("ragged_fused")
+        out["ragged_fused"] = moe_step(torch, model, mb, counters)
+    finally:
+        moe_layer.gate = real_gate
+    load = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, seen["idx"].reshape(-1), torch.ones_like(seen["idx"].reshape(-1)))
+    max_load = int(load.max())
+    no_drop = (max_load + 0.5) * E / (S * K)
+    set_backend("gspmd", no_drop)
+    out["gspmd_no_drop"] = dict(moe_step(torch, model, mb, counters), capacity_factor=no_drop, max_load=max_load,
+                                capacity=max(K, math.ceil(S * K / E * no_drop)))
+    cap = max(K, math.ceil(S * K / E * 1.25))
+    set_backend("gspmd", 1.25)
+    out["gspmd_1.25"] = dict(moe_step(torch, model, mb, counters), capacity_factor=1.25, capacity=cap,
+                             dropped_share=float((load - cap).clamp_min(0).sum()) / (S * K))
+    block.cfg = moe_cfg
+    a, b = out["gspmd_no_drop"], out["ragged_fused"]
+    out["gspmd_loss_rel"] = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    out["gspmd_grad_norm_rel"] = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+    out["gspmd_aux_abs"] = abs(a["moe_aux_loss"] - b["moe_aux_loss"])  # 0 without an aux coefficient
+
+    # the a2a_fused per-rank body at ep = 4 against ragged_fused, one layer
+    x = seen["x"]
+    router = getattr(block, block.router_name)
+    act2 = moe_layer.make_act2(moe_cfg, torch.nn.functional.silu)
+    fused_act = mexp._fused_act_of(moe_cfg, "silu")
+    g = torch.Generator(device=dev).manual_seed(27)
+    dout = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+
+    def run(split: bool):
+        xl = x.clone().requires_grad_(True)
+        w = {k: v.detach().clone().requires_grad_(True) for k, v in block.experts.named_parameters()}
+        gate = lambda t: mgate.gate(t, router.weight, moe_cfg, bias=router.bias, seq_len=S)
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        if split:
+            xs = list(xl.chunk(EP_VIRTUAL_RANKS))
+            y = torch.cat(mexp.a2a_forward_ranks(xs, [gate(t) for t in xs], w, moe_cfg, act2, fused_act))
+        else:
+            y = mexp.ragged_fused_experts(xl, gate(xl), w, moe_cfg, act2)
+        y.backward(dout)
+        torch.cuda.synchronize()
+        launches = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items() if getattr(f, a) != before[k]}
+        return y.detach(), xl.grad, {k: v.grad for k, v in w.items()}, launches
+
+    y4, dx4, dw4, launches4 = run(True)
+    y1, dx1, dw1, launches1 = run(False)
+    C = mexp.a2a_chunk_rows(x.shape[0] // EP_VIRTUAL_RANKS, moe_cfg, EP_VIRTUAL_RANKS)
+    out["a2a_fused_ep4"] = dict(
+        chunk_rows=C, rows_a_rank=EP_VIRTUAL_RANKS * C, picks=S * K, launches=launches4,
+        ragged_fused_launches=launches1, out_row_err=row_rel_err(y4, y1), dx_row_err=grad_row_err(dx4, dx1),
+        dw_row_err={k: row_rel_err(dw4[k].flatten(1), dw1[k].flatten(1)) for k in dw1},
+    )
+    print(f"moonlight experts backends (2 layers, one 4096-token row): {json.dumps(out)}", flush=True)
+    e = out["a2a_fused_ep4"]
+    if launches4.get("fem_fwd") != EP_VIRTUAL_RANKS or launches1.get("fem_fwd") != 1:
+        raise RuntimeError(f"a2a_fused at ep = {EP_VIRTUAL_RANKS}: K3 launches {launches4}, want one a rank")
+    if out["ragged_fused"]["launches"].get("fem_fwd") != 1 or out["gspmd_no_drop"]["launches"]:
+        raise RuntimeError(f"experts backends launched {out}: want K3 once under ragged_fused, no kernel under gspmd")
+    if e["out_row_err"] > FEM_ROW_TOL or e["dx_row_err"] > FEM_ROW_TOL or max(e["dw_row_err"].values()) > FEM_DW_ROW_TOL:
+        raise RuntimeError(f"a2a_fused at ep = {EP_VIRTUAL_RANKS} disagrees with ragged_fused: {e}")
+    if out["gspmd_loss_rel"] > GSPMD_LOSS_REL_TOL or out["gspmd_grad_norm_rel"] > GSPMD_GRAD_NORM_REL_TOL:
+        raise RuntimeError(f"gspmd without drops disagrees with ragged_fused: {out}")
+    del model, block, x, dout, y4, y1, dx4, dx1, dw4, dw1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moonlight(torch, dev) -> dict:
+    """Phase 27: (a) Moonlight-16B-A3B training, (b) K1 at DeepSeek-V3's
+    attention shape, (c) the experts backends."""
+    out = dict(training=phase_moonlight_training(torch))
+    out["mla_flash"] = run_flash_cases(torch, dev, MLA_FLASH_CASES, "flash (deepseek-v3 mla, H=192)", seed0=270)
+    out["experts"] = phase_moonlight_experts(torch)
+    return out
+
+
+def mla_flash_entry(name: str, moon: dict, sass: dict) -> dict:
+    """A flash kernel's reading at H = 192: phase 27 (a)'s launches, (b)'s
+    times at DeepSeek-V3's attention shape (causal; packed documents
+    beside it) and SDPA at the same shape."""
+    row_errs = dict(fwd=("out_row_err",), dq=("dq_row_err",), dkv=("dk_row_err", "dv_row_err"))
+    cases = moon["mla_flash"]["cases"]
+    main, packed = cases
+    t = main["timed"][name]
+    return dict(
+        launches=moon["training"]["launches"][f"flash_{name}"],
+        shape="B=1 S=4096 N=128 Nkv=128 H=192 (v 128 zero-padded) causal, scale 192^-0.5 x yarn mscale^2",
+        live_pairs=main["live_pairs"], max_row_rel_err=max(c[k] for c in cases for k in row_errs[name]),
+        max_abs_err=max(c["max_abs_err"][name] for c in cases),
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        library_bwd_ms=main["library_bwd_ms"], packed_documents={k: packed["timed"][name][k] for k in
+                                                                  ("ms", "plain_ms", "bound_ms", "bound_by")},
+        sass=sass.get(f"flash_{name}_kernel<192, 0>"),
+    )
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
                  gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec,
-                 front, traced, rest, data, ring, parallel) -> dict:
+                 front, traced, rest, data, ring, parallel, moon) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -6001,7 +6313,7 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "live_pairs": main_flash["live_pairs"],
             "shape": "B=1 S=4096 N=32 Nkv=8 H=128 causal",
             "sass": {f"<{H}, {cap}>": flash_sass.get(f"flash_{name}_kernel<{H}, {cap}>")
-                     for H, cap in ((128, 0), (256, 1), (64, 0))},
+                     for H, cap in ((128, 0), (256, 1), (64, 0), (192, 0))},
             "with_sinks_max_row_rel_err": max(c[k] for c in sinks["cases"] for k in row_errs[name]),
             "gpt_oss_sinks": sinks_flash_entry(name, sinks),
             "gemma2": gemma_flash_entry(name, flash_cap, gemma, row_errs[name]),
@@ -6013,6 +6325,8 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             "launches_ring_cp4": ring_flash_entry(name, ring)["launches"],
             "launches_fsdp_full_depth": parallel["fsdp"]["flash_launches"][name],
             "launches_ring_cp1_cli": parallel["ring_cp1"]["ring_launches"][name],
+            "deepseek_v3_mla_h192": mla_flash_entry(name, moon, flash_sass),
+            "launches_moonlight_h192": moon["training"]["launches"][f"flash_{name}"],
         })
         if name == "dq":
             line["kernels"][-1]["backward"] = flash_backward_pair(main_flash)
@@ -6057,6 +6371,12 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
                              (line["kernels"][-1]["gpt_oss"], timed[("gpt-oss", kind)])):
                 entry.update({k: r[k] for k in ("order", "ms_by_order")})
     line["kernels"] += fused_entries(fused, gpt_oss, grouped_ptxas + fused_ptxas, grouped_sass)
+    for entry in line["kernels"]:
+        kind = entry["name"].removeprefix("fused_expert_mlp_")
+        if entry["name"].startswith("fused_expert_mlp_"):
+            entry["launches_moonlight"] = moon["training"]["launches"][f"fem_{kind}"]
+            if kind == "fwd":
+                entry["launches_a2a_fused_ep4"] = moon["experts"]["a2a_fused_ep4"]["launches"].get("fem_fwd")
     return line
 
 
@@ -6095,8 +6415,8 @@ def main() -> int:
                   f"{u.get('spill_stores', 0)} bytes spill stores, {u.get('spill_loads', 0)} bytes spill loads",
                   flush=True)
         spilled = [u for u in flash_ptxas if u.get("spill_stores") or u.get("spill_loads")]
-        if len(flash_ptxas) != 18 or spilled:
-            raise RuntimeError(f"flash kernels: want 18 instantiations and no spills, ptxas reports {flash_ptxas}")
+        if len(flash_ptxas) != 24 or spilled:
+            raise RuntimeError(f"flash kernels: want 24 instantiations and no spills, ptxas reports {flash_ptxas}")
         grouped_ptxas = _cuda_build.ptxas_usage("grouped_matmul")
         grouped_sass = _cuda_build.sass_registers("grouped_matmul")
         print(f"ptxas grouped_matmul: {json.dumps(grouped_ptxas)}", flush=True)
@@ -6128,13 +6448,25 @@ def main() -> int:
             raise RuntimeError(f"paged kernels: want 18 instantiations and no spills, ptxas reports {paged_ptxas}")
 
         torch.backends.cuda.matmul.allow_tf32 = False
+        lap = [time.perf_counter()]
+
+        def took(label: str) -> None:
+            # each phase's seconds, so a later cut knows where the time goes
+            now = time.perf_counter()
+            print(f"{label}: {now - lap[0]:.1f}s", flush=True)
+            lap[0] = now
+
         kernels = phase_kernels(torch, dev)
         kernels["ptxas"] = paged_ptxas
+        took("phase 3 (paged attention kernel)")
         flash = phase_flash_kernels(torch, dev)
         flash_cap = phase_flash_cap(torch, dev)
+        took("phases 3, 3b (flash kernels)")
         grouped = phase_grouped_kernels(torch, dev)
+        took("phase 8 (grouped matmul kernels)")
         sinks = phase_flash_sinks(torch, dev)
         fused = phase_fused_kernels(torch, dev)
+        took("phases 11, 12 (flash with sinks, fused expert MLP kernels)")
 
         # the serve CLI's own builder, from a config dict
         t0 = time.perf_counter()
@@ -6160,16 +6492,22 @@ def main() -> int:
         phase_fused_vs_gather(torch, auto)
         del auto
         torch.cuda.empty_cache()
+        took("phases 4, 5 (serving, decode profile, fused vs gather)")
 
         training = phase_training(torch)
         phase_flash_vs_sdpa(torch)
+        took("phases 6, 7 (Llama training, flash vs sdpa)")
         moe = phase_moe_training(torch)
         phase_ragged_vs_dense(torch)
+        took("phases 9, 10 (MoE training, ragged vs dense)")
         gpt_oss = phase_gpt_oss_training(torch)
         phase_fused_vs_ragged(torch)
+        took("phases 13, 14 (GPT-OSS training, fused vs ragged)")
         gemma = phase_gemma_training(torch)
         phase_gemma_flash_vs_sdpa(torch)
+        took("phases 15, 16 (Gemma 2 training, flash vs sdpa)")
         phase_checkpoint(torch)
+        took("phase 17 (checkpoint round trip)")
         t0 = time.perf_counter()
         phase_benchmark(torch, training, moe, gpt_oss, gemma)
         print(f"phase 18 (benchmark llm, four legs): {time.perf_counter() - t0:.1f}s", flush=True)
@@ -6182,32 +6520,37 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         front = phase_front(torch)
-        print(f"phase 21 (serving front and spill tier, Llama-3-8B at 32 layers): "
+        print(f"phase 21 (serving front and spill tier, Llama-3-8B at {FRONT_LAYERS} layers): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         traced = phase_traced_front(torch)
-        print(f"phase 22 (traced serving, Llama-3-8B at 32 layers): {time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"phase 22 (traced serving, Llama-3-8B at {FRONT_LAYERS} layers): {time.perf_counter() - t0:.1f}s",
+              flush=True)
         t0 = time.perf_counter()
         rest = phase_training_rest(torch)
         print(f"phase 23 (Llama-3-8B SFT at 32 layers, the optimizers, rollback): {time.perf_counter() - t0:.1f}s",
               flush=True)
         t0 = time.perf_counter()
         data = phase_data(torch, dev)
-        print(f"phase 24 (the data path: corpora, pretrain llm at 32 layers, packing, resume): "
+        print(f"phase 24 (the data path: corpora, pretrain llm at 16 layers, packing, resume): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         obs = phase_observability(torch, dev)
-        print(f"phase 25 (telemetry, profiling, goodput, metrics port and guard at 32 layers): "
+        print(f"phase 25 (telemetry, profiling, goodput, metrics port and guard at 16 layers): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         ring = phase_ring(torch, dev)
         parallel = phase_parallel_fsdp(torch, rest)
         print(f"phase 26 (parallelism: FSDP2 at 32 layers under torchrun, the cp = 4 ring, the ring at cp = 1): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        moon = phase_moonlight(torch, dev)
+        print(f"phase 27 (Moonlight-16B-A3B at 7 layers, K1 at H=192, the experts backends): "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
 
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
-                            fused_ptxas, spec, front, traced, rest, data, ring, parallel)
+                            fused_ptxas, spec, front, traced, rest, data, ring, parallel, moon)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

@@ -9,6 +9,7 @@ The unmarked tests run on the CPU: they show that the limits the kernels
 are held to would catch a masking fault of a single row or key.
 """
 
+import math
 import threading
 
 import pytest
@@ -316,10 +317,11 @@ def flash_case(dev, S=1000, H=128, B=2, N=8, Nkv=2, sharp=1.0, segments=False, s
     return q, k, v, do, pos, seg
 
 
-def flash_all(q, k, v, do, pos, seg, *, causal, window, plain: bool, soft_cap=None):
+def flash_all(q, k, v, do, pos, seg, *, causal, window, plain: bool, soft_cap=None, scale=None):
     """(out, lse, dq, dk, dv) from the wrappers or the plain versions; the
-    backward of both reads the plain forward's out and lse."""
-    kw = dict(causal=causal, window=window, scale=q.shape[-1] ** -0.5, soft_cap=soft_cap)
+    backward of both reads the plain forward's out and lse. ``scale``
+    defaults to head_dim^-0.5."""
+    kw = dict(causal=causal, window=window, scale=scale or q.shape[-1] ** -0.5, soft_cap=soft_cap)
     fwd = trf._flash_fwd_plain if plain else trf.flash_block_fwd
     dq_fn = trf._flash_dq_plain if plain else trf.flash_block_dq
     dkv_fn = trf._flash_dkv_plain if plain else trf.flash_block_dkv
@@ -444,6 +446,46 @@ def test_flash_kernels_soft_cap_and_head_dim_256_match_plain(S, H, causal, windo
     assert [f.launches for f in kernels] == [c + 1 for c in counts]
     want = flash_all(*case, causal=causal, window=window, plain=True, soft_cap=cap)
     assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    err = flash_errors(got, want)
+    assert flash_ok(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "S,causal,window,segments,sharp,cap,pad_v",
+    [
+        (1024, True, None, False, 1.0, None, False),
+        (1000, True, 200, False, 1.0, None, False),
+        (1000, True, None, True, 1.0, None, False),
+        (1000, False, 128, True, 1.0, None, False),
+        (1024, True, None, False, 1.0, 50.0, False),
+        (1000, True, 200, True, 1.0, 50.0, False),
+        (777, True, None, False, 4.0, None, True),
+        (1000, True, None, True, 1.0, None, True),
+    ],
+)
+def test_flash_kernels_head_dim_192_match_plain(S, causal, window, segments, sharp, cap, pad_v):
+    """Head_dim 192, DeepSeek-V3's MLA (128 nope + 64 rope; three TMA boxes
+    a row, dK and dV split 128 | 64 between the consumers), with causal,
+    window, segment and cap masks; ``pad_v`` zeroes v's last 64 columns,
+    as the MLA block pads v_head_dim 128 to 192, at DeepSeek-V3's yarn
+    scale. Each kernel against its plain version, launched once."""
+    _need_cuda("flash_attention")
+    q, k, v, do, pos, seg = flash_case(torch.device("cuda"), S=S, H=192, sharp=sharp, segments=segments)
+    scale = None
+    if pad_v:
+        v = torch.cat([v[..., :128], torch.zeros_like(v[..., 128:])], dim=-1)
+        scale = 192**-0.5 * (0.1 * 1.0 * math.log(40.0) + 1.0) ** 2
+    case = (q, k, v, do, pos, seg)
+    kernels = (trf.flash_block_fwd, trf.flash_block_dq, trf.flash_block_dkv)
+    counts = [f.launches for f in kernels]
+    got = flash_all(*case, causal=causal, window=window, plain=False, soft_cap=cap, scale=scale)
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [c + 1 for c in counts]
+    want = flash_all(*case, causal=causal, window=window, plain=True, soft_cap=cap, scale=scale)
+    assert all(bool(torch.isfinite(t.float()).all()) for t in got)
+    if pad_v:  # the padded columns of out stay zero; dv there is P^T.dO, not zero
+        assert not bool(got[0][..., 128:].any())
     err = flash_errors(got, want)
     assert flash_ok(err), err
 
@@ -597,7 +639,7 @@ def tiled_errors(case, causal=True, window=None, soft_cap=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 4000])
 def test_flash_kernels_at_tile_edges_match_plain(S, H):
     """Self-attention lengths around the kernels' tiles (64-row warpgroup
@@ -623,7 +665,7 @@ def test_flash_kernels_chunked_prefill_match_plain(Sq, Sk, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 def test_flash_kernels_gqa_reps_match_plain(rep, H):
     """1, 2, 4 and 8 query heads per kv head: dkv sums dk and dv over the
@@ -635,7 +677,7 @@ def test_flash_kernels_gqa_reps_match_plain(rep, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap", [None, 50.0])
-@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
 @pytest.mark.parametrize("window", [64, 128, 129])
 def test_flash_kernels_window_edge_on_a_tile_boundary(window, H, cap):
     """A causal window of 64 or 128 keys (the streamed tiles' rows: its
@@ -648,7 +690,7 @@ def test_flash_kernels_window_edge_on_a_tile_boundary(window, H, cap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap", [None, 50.0])
-@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("H", [64, 128, 192, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernels_document_boundary_inside_a_tile(causal, H, cap):
     """Packed documents whose boundaries fall inside tiles (positions 40,
@@ -661,7 +703,7 @@ def test_flash_kernels_document_boundary_inside_a_tile(causal, H, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,cap", [(128, None), (256, 50.0), (64, None)])
+@pytest.mark.parametrize("H,cap", [(128, None), (256, 50.0), (64, None), (192, None), (192, 50.0)])
 def test_flash_backward_repeats_bit_for_bit(H, cap):
     """No atomics: two launches of dq and of dkv on the same inputs give the
     same bits (dk and dv summed over 8 q heads a kv head, and at H=256 over

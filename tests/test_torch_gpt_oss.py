@@ -82,12 +82,15 @@ def _pair(experts="ragged_fused", attn="sdpa", seed=0, trainable=False):
 
 
 @pytest.mark.parametrize("attn", ["sdpa", "flash"])
-@pytest.mark.parametrize("experts", ["dense", "ragged", "ragged_fused"])
+@pytest.mark.parametrize("experts", ["dense", "ragged", "ragged_fused", "gspmd", "a2a", "a2a_fused"])
 def test_logits_and_aux_match_jax(experts, attn, monkeypatch):
     """fp32 logits to 1e-5, expert counts exactly, aux loss to 1e-6
     relative. JAX's ragged and ragged_fused backends run their Pallas
     kernels interpreted; its flash falls back to sdpa on the CPU, where the
-    port's runs the flash kernels' plain version with the sinks folded."""
+    port's runs the flash kernels' plain version with the sinks folded.
+    gspmd (the expert biases in its per-expert MLP) against JAX's gspmd;
+    a2a and a2a_fused with no expert-parallel group run ragged and
+    ragged_fused in both packages."""
     monkeypatch.setenv("AUTOMODEL_GMM_INTERPRET", "1")
     jmodel, params, tmodel = _pair(experts, attn)
     ids = np.random.default_rng(0).integers(0, 128, size=(2, 16)).astype(np.int32)
@@ -122,9 +125,10 @@ def test_config_and_weight_carry_cover_every_parameter():
     assert tuple(sd["model.layers.1.mlp.experts.gate_up_bias"].shape) == (4, 64)
     assert tuple(sd["model.layers.1.mlp.experts.down_bias"].shape) == (4, 64)
     assert all(v.abs().sum() > 0 for k, v in sd.items() if k.endswith(("bias", "sinks")))
+    # JAX's other experts backends build (their logits are held to JAX's
+    # in test_logits_and_aux_match_jax)
     for experts in ("gspmd", "a2a", "a2a_fused"):
-        with pytest.raises(ValueError, match=experts):
-            GptOssForCausalLM(cfg, BackendConfig(experts=experts), device=CPU)
+        assert GptOssForCausalLM(cfg, BackendConfig(experts=experts), device=CPU).backend.experts == experts
     with pytest.raises(ValueError, match="cache"):
         tmodel.hidden(torch.zeros(1, 4, dtype=torch.long), cache=object())
 

@@ -69,9 +69,12 @@ def test_infer_and_validation_errors_word_for_word():
 
 
 def test_refusals_by_name_and_section_keys():
-    for degrees, name in ((dict(pp=2), "distributed.pp=2"), (dict(ep=2), "distributed.ep=2")):
-        with pytest.raises(ValueError, match=name):
-            MeshConfig(**degrees).check_ported()
+    with pytest.raises(ValueError, match="distributed.pp=2"):
+        MeshConfig(pp=2).check_ported()
+    # expert parallelism runs (its resolve is held to JAX's above, ep = 2)
+    MeshConfig(ep=2).check_ported()
+    ctx = MeshContext.from_degrees(8, ep=2)
+    assert (ctx.ep_size, ctx.group_size("expert_fsdp"), ctx.group_size("batch")) == (2, 4, 8)
     assert MeshConfig.from_section({"cp": 2, "platform": "cpu", "tp": None}) == MeshConfig(cp=2)
     with pytest.raises(ValueError, match=r"distributed keys \['cpp'\]"):
         MeshConfig.from_section({"cpp": 2})
@@ -139,7 +142,8 @@ def test_device_mesh_of_one_process_groupings():
             assert ctx.submesh(name).size() == 1 and ctx.coordinate(name) == 0
             assert dist.get_world_size(ctx.group(name)) == 1
         assert ctx.fsdp_mesh().mesh_dim_names == ("fsdp",)
-        with pytest.raises(ValueError, match="distributed.ep"):
+        # ep = 2 runs (it needs its two ranks: the world of one refuses it)
+        with pytest.raises(ValueError, match="world size 1"):
             tmesh.build_mesh(MeshConfig(ep=2, dp_shard=2))
     finally:
         tmesh.destroy_distributed()

@@ -4,8 +4,12 @@ router bias included), fake balanced routing, the aux-free bias update,
 ``make_act2``'s ``swiglu_oai``, the ragged, ragged_fused and dense experts
 backends with and without the gpt-oss expert biases (forward and grads,
 JAX's ragged and ragged_fused backends through their Pallas kernels in
-interpret mode) and the whole MoE block with shared experts. The same
-numpy-made fp32 inputs go to both; tolerances are stated per test."""
+interpret mode), ``gspmd`` against JAX's with picks dropped, ``gspmd``
+and ``a2a`` / ``a2a_fused`` over ep = 2 and 4 virtual ranks in one process
+against one process and JAX (its ragged, or its per-device a2a body where
+a bounded chunk drops picks), and the whole MoE block with shared
+experts. The same numpy-made fp32 inputs go to both; tolerances are
+stated per test."""
 
 import dataclasses
 import importlib
@@ -229,19 +233,225 @@ def test_experts_forward_and_grads_match_jax_ragged_kernels(backend, monkeypatch
 
 
 def test_unported_expert_backends_raise_by_name():
+    """Every experts backend of the JAX package runs in the port (gspmd,
+    a2a and a2a_fused are held to JAX below); fp8 experts and an unknown
+    backend still raise by name."""
     from automodel_tpu_torch.models.common.config import BackendConfig
 
     for name in ("gspmd", "a2a", "a2a_fused"):
-        with pytest.raises(ValueError, match=name):
-            texp.expert_backend(name)
+        assert callable(texp.expert_backend(name))
+        assert BackendConfig(experts=name).experts == name
     with pytest.raises(ValueError, match="fp8_experts"):
         BackendConfig.from_dict({"experts": "ragged", "fp8_experts": True})
     with pytest.raises(ValueError, match="experts='bogus'"):
         BackendConfig(experts="bogus")
-    # the backend config's names are the experts module's, run or refused
+    with pytest.raises(ValueError, match="experts='bogus'"):
+        texp.expert_backend("bogus")
+    # the backend config's names are the experts module's
     from automodel_tpu_torch.models.common.config import EXPERTS_NAMES
 
-    assert set(EXPERTS_NAMES) == set(texp.EXPERT_BACKENDS) | set(texp.NOT_PORTED)
+    assert set(EXPERTS_NAMES) == set(texp.EXPERT_BACKENDS) == set(jexp.EXPERT_BACKENDS)
+
+
+def _silu2(g, u):
+    return torch.nn.functional.silu(g) * u
+
+
+def _jsilu2(g, u):
+    return jax.nn.silu(g) * u
+
+
+@pytest.mark.parametrize("capacity_factor", [0.5, 1.25, 4.0])
+def test_gspmd_experts_match_jax(capacity_factor):
+    """gspmd against JAX's gspmd_experts on x [B, S, D] = [3, 16, 32], 8
+    experts, top-2: at a capacity factor of 0.5 picks drop (the check says
+    how many), at 1.25 (the default) some may, at 4.0 none. The output and
+    the grads of x, the router and both expert slabs to 1e-5 (fp32, the
+    same one-hot einsums; sums of K terms in another order)."""
+    kw = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=24, norm_topk_prob=True,
+              capacity_factor=capacity_factor)
+    jc, tc = _cfgs(**kw)
+    B, S = 3, 16
+    a = _expert_inputs(T=B * S)
+    x3 = a["x"].reshape(B, S, -1)
+
+    def jfn(x, router, gu, dn):
+        gout = jgate.gate(x.reshape(B * S, -1), router, jc)
+        out = jexp.gspmd_experts(x, gout, {"gate_up": gu, "down": dn}, jc, _jsilu2)
+        return (out * a["dout"].reshape(B, S, -1)).sum(), (out, gout.topk_idx)
+
+    (_, (jout, jidx)), jgrads = jax.value_and_grad(jfn, argnums=(0, 1, 2, 3), has_aux=True)(
+        jnp.asarray(x3), *(jnp.asarray(a[k]) for k in ("router", "gate_up", "down"))
+    )
+    x, router, gu, dn = (torch.tensor(v, requires_grad=True) for v in (x3, a["router"].T.copy(), a["gate_up"], a["down"]))
+    gout = tgate.gate(x.reshape(B * S, -1), router, tc)
+    out = texp.expert_backend("gspmd")(x, gout, {"gate_up": gu, "down": dn}, tc, _silu2)
+    (out * _t(a["dout"]).reshape(B, S, -1)).sum().backward()
+    # picks past capacity: per row and expert, the load over the capacity
+    idx = np.asarray(jidx).reshape(B, S * 2)
+    cap = max(2, int(np.ceil(S * 2 / 8 * capacity_factor)))
+    dropped = sum(max(0, int((idx[b] == e).sum()) - cap) for b in range(B) for e in range(8))
+    assert dropped > 0 if capacity_factor == 0.5 else dropped == 0 if capacity_factor == 4.0 else True, dropped
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=1e-5)
+    for got, want in zip((x.grad, router.grad.t(), gu.grad, dn.grad), jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("ep", [2, 4])
+def test_gspmd_ranks_match_one_process(ep):
+    """gspmd over ep = 2 and 4 virtual ranks in one process (each rank's
+    batch rows dispatched, its experts' slots gathered from every rank, run
+    on its E / ep slabs and sent back) against gspmd on the whole batch in
+    one process, at a capacity factor where picks drop (capacity is per
+    row, so the split changes nothing): output and grads to 1e-6."""
+    _, tc = _cfgs(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=24, norm_topk_prob=True,
+                  capacity_factor=0.5)
+    B, S = 4, 12
+    a = _expert_inputs(T=B * S)
+
+    def run(split: bool):
+        t = {k: torch.tensor(a[k] if k != "router" else a[k].T.copy(), requires_grad=True)
+             for k in ("x", "router", "gate_up", "down")}
+        w = {"gate_up": t["gate_up"], "down": t["down"]}
+        x = t["x"].reshape(B, S, -1)
+        if split:
+            xs = list(x.chunk(ep))
+            gouts = [tgate.gate(xr.reshape(-1, xr.shape[-1]), t["router"], tc) for xr in xs]
+            out = torch.cat(texp.gspmd_forward_ranks(xs, gouts, w, tc, _silu2))
+        else:
+            out = texp.expert_backend("gspmd")(x, tgate.gate(t["x"], t["router"], tc), w, tc, _silu2)
+        (out * _t(a["dout"]).reshape(B, S, -1)).sum().backward()
+        return [out.detach()] + [t[k].grad for k in ("x", "router", "gate_up", "down")]
+
+    for got, want in zip(run(True), run(False)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+def _rank_gates(tc, x, router, ep):
+    """Each virtual rank's tokens [T / ep, D] and its gate output."""
+    xs = list(x.chunk(ep))
+    return xs, [tgate.gate(xr, router, tc) for xr in xs]
+
+
+@pytest.mark.parametrize("a2a_capacity_factor", [None, 1.0])
+@pytest.mark.parametrize("ep", [2, 4])
+@pytest.mark.parametrize("backend", ["a2a", "a2a_fused"])
+def test_a2a_ranks_match_one_process_and_jax_ragged(backend, ep, a2a_capacity_factor, monkeypatch):
+    """The token exchange over ep = 2 and 4 virtual ranks in one process
+    (each rank's 48 / ep tokens packed, exchanged, run through its local
+    experts with the plain grouped matmuls (a2a) or the plain fused expert
+    MLP (a2a_fused), exchanged back and combined), against the same
+    backend in one process (no group: the ragged path over all 48
+    tokens) and against JAX's ragged backend through its Pallas kernels
+    (interpreted): the output and the grads of x, the router and both
+    expert slabs, to 1e-5 against one process and 2e-4 against JAX (the
+    tolerance of the ragged test above). At the strict chunk size nothing
+    drops; at an a2a_capacity_factor of 1.0 (chunks of the balanced load)
+    the outputs of the picks past a chunk are zero in both packages, and
+    JAX's a2a body is then the reference, driven by its own per-rank
+    arithmetic on the same chunks."""
+    monkeypatch.setenv("AUTOMODEL_GMM_INTERPRET", "1")
+    kw = dict(num_experts=8, num_experts_per_tok=2, moe_intermediate_size=24, norm_topk_prob=True,
+              a2a_capacity_factor=a2a_capacity_factor)
+    jc, tc = _cfgs(**kw)
+    a = _expert_inputs()
+    fused = texp._fused_act_of(tc, "silu") if backend == "a2a_fused" else None
+
+    def run(split: bool):
+        t = {k: torch.tensor(a[k] if k != "router" else a[k].T.copy(), requires_grad=True)
+             for k in ("x", "router", "gate_up", "down")}
+        w = {"gate_up": t["gate_up"], "down": t["down"]}
+        if split:
+            xs, gouts = _rank_gates(tc, t["x"], t["router"], ep)
+            out = torch.cat(texp.a2a_forward_ranks(xs, gouts, w, tc, _silu2, fused))
+        else:
+            gout = tgate.gate(t["x"], t["router"], tc)
+            out = texp.expert_backend(backend)(t["x"][None], gout, w, tc, _silu2)[0]
+        (out * _t(a["dout"])).sum().backward()
+        return out.detach(), [t[k].grad for k in ("x", "router", "gate_up", "down")]
+
+    out, grads = run(split=True)
+    if a2a_capacity_factor is None:
+        one, one_grads = run(split=False)
+        np.testing.assert_allclose(out.numpy(), one.numpy(), atol=1e-5)
+        for got, want in zip(grads, one_grads):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+        def jfn(x, router, gu, dn):
+            gout = jgate.gate(x, router, jc)
+            o = jexp.ragged_experts(x, gout, {"gate_up": gu, "down": dn}, jc, _jsilu2)
+            return (o * a["dout"]).sum(), o
+    else:
+        # JAX's per-device body over the same chunks, one rank after another
+        # through a stand-in all_to_all that stacks the ranks' buffers (its
+        # ragged_dot through XLA's: the kernels were held above)
+        monkeypatch.delenv("AUTOMODEL_GMM_INTERPRET")
+
+        def jfn(x, router, gu, dn):
+            outs = jax_a2a_ranks(jc, x, router, gu, dn, ep)
+            o = jnp.concatenate(outs)
+            return (o * a["dout"]).sum(), o
+
+    (_, jout), jgrads = jax.value_and_grad(jfn, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a[k]) for k in ("x", "router", "gate_up", "down"))
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=2e-4)
+    for got, want, name in zip(grads, jgrads, ("x", "router", "gate_up", "down")):
+        got = got.t() if name == "router" else got
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, err_msg=name)
+
+
+def jax_a2a_ranks(jc, x, router, gu, dn, ep):
+    """JAX's ``_a2a_body`` for each of ``ep`` virtual ranks in turn, its
+    ``all_to_all`` replaced by the exchange of the ranks' buffers it would
+    make: each body runs twice, first to collect every rank's send buffers,
+    then with the received chunks (``jax.lax.all_to_all`` patched)."""
+    E, K = jc.num_experts, jc.num_experts_per_tok
+    E_loc = E // ep
+    xs = jnp.split(x, ep)
+    T = xs[0].shape[0]
+    cap = min(T * min(K, E_loc), int(np.ceil(jc.a2a_capacity_factor * T * K / ep)))
+    C = -(-cap // 8) * 8
+    gouts = [jgate.gate(xr, router, jc) for xr in xs]
+    wd = jexp._a2a_weights({"gate_up": gu, "down": dn}, jc)
+    act2 = _jsilu2
+    real = jax.lax.all_to_all
+    sent: dict = {}
+
+    def exchange(bufs):
+        return [jnp.concatenate([bufs[p][r * C:(r + 1) * C] for p in range(ep)]) for r in range(ep)]
+
+    outs = []
+    try:
+        # pass 1: every rank's first two all_to_all operands (rows, ids);
+        # pass 2: each rank's third (its expert rows, to be sent back)
+        for phase in ("send", "back", "final"):
+            for r in range(ep):
+                calls = [0]
+
+                def fake(arr, *args, r=r, **kw):
+                    i = calls[0]
+                    calls[0] += 1
+                    sent.setdefault((phase, i), {})[r] = arr
+                    if phase == "send":
+                        return arr  # placeholder, not used
+                    if i < 2:
+                        return exchange([sent[("send", i)][p] for p in range(ep)])[r]
+                    if phase == "back":
+                        return arr
+                    return exchange([sent[("back", 2)][p] for p in range(ep)])[r]
+
+                jax.lax.all_to_all = fake
+                wl = {k: v[r * E_loc:(r + 1) * E_loc] for k, v in wd.items()}
+                o = jexp._a2a_body(
+                    xs[r][None], gouts[r].topk_idx.reshape(1, T, K), gouts[r].topk_weights.reshape(1, T, K), wl,
+                    ep=ep, ep_axis="ep", E=E, E_loc=E_loc, C=C, D=x.shape[-1], K=K, act2=act2,
+                )
+                if phase == "final":
+                    outs.append(o[0])
+    finally:
+        jax.lax.all_to_all = real
+    return outs
 
 
 @pytest.mark.parametrize("backend", ["ragged", "dense"])
@@ -282,8 +492,8 @@ def test_moe_config_from_hf_matches_jax():
               router_aux_loss_coef=0.001, n_group=1, first_k_dense_replace=0)
     want = dataclasses.asdict(jcfg.MoEConfig.from_hf(lambda k, d=None: hf.get(k, d)))
     got = dataclasses.asdict(tcfg.MoEConfig.from_hf(lambda k, d=None: hf.get(k, d)))
-    # the port leaves out the gspmd / a2a dispatchers' capacity factors
-    assert got == {k: v for k, v in want.items() if k not in ("capacity_factor", "a2a_capacity_factor")}
+    # the gspmd / a2a dispatchers' capacity factors included
+    assert got == want and got["capacity_factor"] == 1.25 and got["a2a_capacity_factor"] is None
     with pytest.raises(ValueError, match="n_group"):
         tcfg.MoEConfig(num_experts=6, num_experts_per_tok=2, moe_intermediate_size=4, n_group=4)
 

@@ -57,11 +57,13 @@ def _pair(experts="ragged", hf=None, seed=0, trainable=False, fake_gate=False):
     return jmodel, params, tmodel
 
 
-@pytest.mark.parametrize("experts", ["ragged", "dense", "ragged_fused"])
+@pytest.mark.parametrize("experts", ["ragged", "dense", "ragged_fused", "gspmd", "a2a", "a2a_fused"])
 def test_logits_and_aux_match_jax(experts, monkeypatch):
     """fp32 logits to 1e-5, expert counts exactly, aux loss to 1e-6
     relative; JAX's ragged and ragged_fused backends through their Pallas
-    kernels (interpreted)."""
+    kernels (interpreted). gspmd (capacity 1.25: a dropped pick drops in
+    both) against JAX's gspmd; a2a and a2a_fused with no expert-parallel
+    group run ragged and ragged_fused in both packages."""
     monkeypatch.setenv("AUTOMODEL_GMM_INTERPRET", "1")
     jmodel, params, tmodel = _pair(experts)
     ids = np.random.default_rng(0).integers(0, 128, size=(2, 16)).astype(np.int32)
@@ -105,18 +107,23 @@ def test_params_from_jax_covers_every_parameter_and_refusals():
     assert tuple(sd["model.layers.1.mlp.experts.gate_up"].shape) == (8, 64, 64)
     assert tuple(sd["model.layers.1.mlp.experts.down"].shape) == (8, 32, 64)
     assert tuple(sd["model.layers.0.mlp.gate.weight"].shape) == (8, 64)
+    # JAX's other experts backends build (their logits are held to JAX's
+    # in test_logits_and_aux_match_jax); an unknown one raises by name
     for experts in ("gspmd", "a2a", "a2a_fused"):
-        with pytest.raises(ValueError, match=experts):
-            MoEForCausalLM(MoETransformerConfig.from_hf(HF_MOE_TINY), BackendConfig(experts=experts), device=CPU)
+        built = MoEForCausalLM(MoETransformerConfig.from_hf(HF_MOE_TINY), BackendConfig(experts=experts), device=CPU)
+        assert built.backend.experts == experts
     # Qwen3-MoE decodes with a cache; a family without the path (GPT-OSS
     # sets the flag off) refuses cache=
     assert MoEForCausalLM.supports_kv_cache
     tmodel.supports_kv_cache = False
     with pytest.raises(ValueError, match="cache"):
         tmodel.hidden(torch.zeros(1, 4, dtype=torch.long), cache=object())
+    # the other model types of JAX's MoE builder read as JAX reads them
+    # (tests/test_torch_moe_families.py holds each family whole)
     for model_type in ("glm4_moe", "qwen2_moe"):
-        with pytest.raises(ValueError, match=model_type):
-            MoETransformerConfig.from_hf(dict(HF_MOE_TINY, model_type=model_type))
+        hf = dict(HF_MOE_TINY, model_type=model_type)
+        got, want = MoETransformerConfig.from_hf(hf), JaxMoEConfig.from_hf(hf)
+        assert dataclasses.asdict(got.moe) == dataclasses.asdict(want.moe) and got.qk_norm == want.qk_norm
 
 
 def test_aux_free_bias_update_matches_jax():
