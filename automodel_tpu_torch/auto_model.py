@@ -103,7 +103,8 @@ def from_pretrained(
     otherwise). ``hf_config_overrides`` merges keys over the directory's
     ``config.json``. Variant layouts (fused qkv / gate_up, mixtral's
     ``block_sparse_moe``, qwen2-moe's ``shared_expert``) load through the
-    conversion mapping; FP8 and MXFP4 tensors raise by name."""
+    conversion mapping; FP8-blockwise and MXFP4 tensors are dequantized to
+    bf16 on ``device`` as they are read (``checkpoint/quant_io.py``)."""
     from automodel_tpu_torch.checkpoint.conversion_mapping import detect_remaps
     from automodel_tpu_torch.checkpoint.hf_io import HFCheckpointReader, load_params_from_hf
 
@@ -114,7 +115,7 @@ def from_pretrained(
     backend = _as_backend(backend)
     dev = resolve_device(device)
     model = resolve_architecture(hf_config)(hf_config, backend, device=dev, trainable=trainable)
-    reader = HFCheckpointReader(ckpt_dir)
+    reader = HFCheckpointReader(ckpt_dir, device=dev)
     reader = detect_remaps(reader, hf_config) or reader
     load_params_from_hf(
         model.state_dict_adapter(model), reader, model.state_dict(), dtype=backend.param_torch_dtype

@@ -24,8 +24,11 @@ the next ``wait()`` / ``close()``), listing every file with size and CRC32.
 Only committed dirs count for auto-resume and pruning; ``load()`` verifies
 and walks back past corrupt dirs (at most ``max_restore_fallbacks``)
 instead of crashing a restarted run on a damaged newest checkpoint. The DCP
-calls ride the retrying-I/O decorator. The JAX package's multi-host commit
-barrier and fault injection are not ported.
+calls ride the retrying-I/O decorator. Before the manifest, every process
+waits at the distributed guard's commit barrier (``commit_barrier``, a
+timed barrier: no process commits until every process's save drained),
+and after it the fault injector's ``after_checkpoint_save`` runs (the
+JAX package's checkpoint faults, ``resilience/fault_injection.py``).
 """
 
 from __future__ import annotations

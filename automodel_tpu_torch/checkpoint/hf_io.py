@@ -15,8 +15,10 @@ files plus ``model.safetensors.index.json`` when the weights pass
 ``max_shard_bytes``, flushing each shard as it fills.
 
 FP8-blockwise (``<key>_scale_inv``) and MXFP4 (``<key>_blocks`` /
-``_scales``) checkpoints are refused by name: their dequantization is not
-ported.
+``_scales``) tensors dequantize while they are read, as JAX's reader does
+(``checkpoint/quant_io.py``): ``keys`` and ``info`` give the logical bf16
+view, and the reader's ``device`` is where the dequantization runs (the
+load device under ``from_pretrained``), a chunk of rows at a time.
 """
 
 from __future__ import annotations
@@ -55,10 +57,6 @@ _ST_TO_TORCH = {
 _TORCH_TO_ST = {v: k for k, v in _ST_TO_TORCH.items()}
 
 
-class QuantizedCheckpointUnsupported(ValueError):
-    """An FP8-blockwise or MXFP4 tensor, whose dequantization is not ported."""
-
-
 @retry_io(op="safetensors_read_header", max_attempts=3)
 def _read_header(path: Path) -> tuple[dict, int]:
     """(header dict, data section offset). Retried on ``OSError``; a
@@ -72,10 +70,12 @@ def _read_header(path: Path) -> tuple[dict, int]:
 class HFCheckpointReader:
     """Lazy mmap reader over an HF checkpoint dir (one file, or shards and
     their index). ``get_tensor`` copies one tensor's bytes out of the map
-    into a CPU tensor it owns."""
+    into a CPU tensor it owns; a quantized tensor is dequantized to bf16 on
+    ``device`` (the CPU by default)."""
 
-    def __init__(self, path: str | os.PathLike):
+    def __init__(self, path: str | os.PathLike, device: str | torch.device | None = None):
         self.path = Path(path)
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
         index_file = self.path / SAFETENSORS_INDEX
         self.weight_map: dict[str, str] = {}
         if index_file.exists():
@@ -103,23 +103,10 @@ class HFCheckpointReader:
             and f"{key}_scales" in self.weight_map
         )
 
-    def _refuse_quantized(self, key: str) -> None:
-        if self._is_fp8_blockwise(key):
-            raise QuantizedCheckpointUnsupported(
-                f"{key}: an FP8-blockwise tensor (with {key}_scale_inv); FP8 checkpoints "
-                "are not ported to the torch backend yet"
-            )
-        if self._is_mxfp4(key):
-            raise QuantizedCheckpointUnsupported(
-                f"{key}: an MXFP4 tensor ({key}_blocks / {key}_scales); MXFP4 checkpoints "
-                "are not ported to the torch backend yet"
-            )
-
     def keys(self) -> list[str]:
         """Logical tensor keys, as the JAX reader lists them: a
         ``_scale_inv`` companion folds into its fp8 tensor, an MXFP4
-        ``_blocks`` / ``_scales`` pair into the tensor it encodes (whose
-        ``get_tensor`` then refuses by name)."""
+        ``_blocks`` / ``_scales`` pair into the tensor it encodes."""
         out = []
         for k in self.weight_map:
             if k.endswith("_scale_inv") and self._is_fp8_blockwise(k[: -len("_scale_inv")]):
@@ -149,12 +136,27 @@ class HFCheckpointReader:
         return meta["dtype"], tuple(meta["shape"])
 
     def info(self, key: str) -> tuple[str, tuple[int, ...]]:
-        """(safetensors dtype string, shape) without reading data."""
-        self._refuse_quantized(key)
+        """(safetensors dtype string, shape) without reading data: the
+        logical post-dequantization view of a quantized tensor (the same
+        predicates as ``get_tensor``)."""
+        if self._is_fp8_blockwise(key):
+            return "BF16", self._raw_info(key)[1]
+        if self._is_mxfp4(key):
+            *prefix, r, g, b = self._raw_info(f"{key}_blocks")[1]
+            return "BF16", (*prefix, g * b * 2, r)
         return self._raw_info(key)
 
     def get_tensor(self, key: str) -> torch.Tensor:
-        self._refuse_quantized(key)
+        from automodel_tpu_torch.checkpoint import quant_io
+
+        on = lambda k: self._raw_tensor(k).to(self.device)
+        if self._is_fp8_blockwise(key):
+            return quant_io.dequantize_fp8_blockwise(on(key), on(f"{key}_scale_inv"))
+        if self._is_mxfp4(key):
+            return quant_io.dequantize_mxfp4(on(f"{key}_blocks"), on(f"{key}_scales"))
+        return self._raw_tensor(key)
+
+    def _raw_tensor(self, key: str) -> torch.Tensor:
         header, data_off, mm = self._file(self.weight_map[key])
         meta = header[key]
         dtype = _ST_TO_TORCH[meta["dtype"]]

@@ -38,7 +38,7 @@ from torch import nn
 
 from automodel_tpu_torch.models.common.config import BackendConfig
 from automodel_tpu_torch.models.common.stacking import DecoderLayer
-from automodel_tpu_torch.models.llama.model import LlamaMLP, RMSNorm, _linear, _proj
+from automodel_tpu_torch.models.llama.model import LlamaMLP, RMSNorm, _linear, _proj, tp_group_of
 from automodel_tpu_torch.models.qwen3_moe.model import (
     SHARDING_RULES as MOE_RULES,
     MoEForCausalLM,
@@ -47,6 +47,7 @@ from automodel_tpu_torch.models.qwen3_moe.model import (
 from automodel_tpu_torch.moe.layer import MoEBlock
 from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.rope import apply_rope
+from automodel_tpu_torch.parallel.autograd import grad_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,15 +149,21 @@ def mla_block(
         raise ValueError("DeepseekV3ForCausalLM: KV-cache decode (cache=) is not a path of this family")
     attn = layer.self_attn
     B, S, _ = h.shape
-    N = cfg.num_heads
     nope, rope, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     x = layer.input_layernorm(h)
     if cfg.q_lora_rank:
         q = _proj(attn.q_a_layernorm(_proj(x, attn.q_a_proj)), attn.q_b_proj)
     else:
         q = _proj(x, attn.q_proj)
+    # the head count read off the projection: a rank's own under tensor parallelism
+    N = q.shape[-1] // (nope + rope)
     q_pass, q_rot = q.reshape(B, S, N, nope + rope).split([nope, rope], dim=-1)
     k_latent, k_rot = _proj(x, attn.kv_a_proj_with_mqa).split([cfg.kv_lora_rank, rope], dim=-1)
+    group = tp_group_of(attn.kv_b_proj)
+    if group is not None:
+        # the shared rope head, read whole by each rank's heads: its
+        # gradient is the sum of the ranks' partials
+        k_rot = grad_sum(k_rot, group)
     kv = _proj(attn.kv_a_layernorm(k_latent), attn.kv_b_proj).reshape(B, S, N, nope + vdim)
     k_pass, v = kv.split([nope, vdim], dim=-1)
     # one rope head shared by every head

@@ -45,6 +45,8 @@ from automodel_tpu_torch.models.llama.state_dict_adapter import LlamaStateDictAd
 from automodel_tpu_torch.ops.attention import attention
 from automodel_tpu_torch.ops.norms import rms_norm
 from automodel_tpu_torch.ops.rope import apply_rope, rope_table
+from automodel_tpu_torch.parallel.autograd import grad_sum
+from automodel_tpu_torch.parallel.plans import local
 
 ACT_FNS = {
     "silu": F.silu,
@@ -79,6 +81,21 @@ def _proj(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     # a tensor-parallel plan's hooks ride the module call; without one the
     # same product skips the call's overhead (the host-bound decode path)
     return lin(x) if isinstance(lin.weight, DTensor) else lin.forward(x)
+
+
+def tp_group_of(lin: nn.Linear):
+    """The tp process group a projection's plan shards it over, or None."""
+    return lin.weight.device_mesh.get_group() if isinstance(lin.weight, DTensor) else None
+
+
+def _head_norm(norm: "RMSNorm", x: torch.Tensor, proj: nn.Linear) -> torch.Tensor:
+    """A per-head norm over the heads ``proj`` gives: under tensor
+    parallelism a rank's own heads, so the scale every rank reads whole
+    gets its gradient summed over the tp group (``parallel/autograd``)."""
+    group = tp_group_of(proj)
+    if group is None:
+        return norm(x)
+    return rms_norm(x, grad_sum(norm.weight, group), norm.eps)
 
 
 def embed(emb: nn.Embedding, input_ids: torch.Tensor) -> torch.Tensor:
@@ -190,8 +207,8 @@ def attention_block(
     k = _proj(x, attn.k_proj).reshape(B, S, -1, cfg.head_dim)
     v = _proj(x, attn.v_proj).reshape(B, S, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = attn.q_norm(q)
-        k = attn.k_norm(k)
+        q = _head_norm(attn.q_norm, q, attn.q_proj)
+        k = _head_norm(attn.k_norm, k, attn.k_proj)
     q, k = apply_rope(q, k, cos, sin)
     window = layer_sliding_window(cfg, i)
     layer_kv = None if cache is None else cache.write(i, k, v)
@@ -204,7 +221,7 @@ def attention_block(
         out = attention(
             q, k, v, backend=backend.attn, causal=True, scale=cfg.attn_scale,
             segment_ids=segment_ids, logits_soft_cap=cfg.attn_soft_cap,
-            sliding_window=window, sinks=getattr(attn, "sinks", None),
+            sliding_window=window, sinks=local(attn.sinks) if hasattr(attn, "sinks") else None,
         )
     return h + _proj(out.reshape(B, S, -1), attn.o_proj)
 

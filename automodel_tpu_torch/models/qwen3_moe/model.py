@@ -155,8 +155,8 @@ class MoEModel(nn.Module):
 
 # automodel_tpu/models/qwen3_moe/model.py:410-421, copied: the dense rules
 # match here too (re.search); the expert slabs carry ``tensor`` on their
-# intermediate dim, which the port's tensor parallelism does not take yet
-# (parallel/plans.check_tp refuses tp on an MoE family).
+# intermediate dim and ``expert_fsdp`` on the model width
+# (parallel/plans.place_experts places them).
 SHARDING_RULES: list[tuple[str, tuple]] = [
     (r"moe/router/weight$", (None, None, None)),
     (r"moe/router/(bias|linear_bias)$", (None, None)),
@@ -242,6 +242,13 @@ class MoEForCausalLM(nn.Module):
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.backend.compute_torch_dtype
+
+    def jax_leaf_of(self, name: str):
+        """A parameter's JAX leaf (path, index on its layer stack,
+        transposed), as ``params_from_jax`` places it; None if unknown."""
+        from automodel_tpu_torch.models.qwen3_moe.state_dict_adapter import moe_jax_leaf_of
+
+        return moe_jax_leaf_of(name, self.config.moe.num_dense_layers, self.jax_layer_stacks)
 
     def moe_layers(self) -> list[MoEBlock]:
         return [layer.mlp for layer in self.model.layers if isinstance(layer.mlp, MoEBlock)]

@@ -35,6 +35,7 @@ gradient in the port).
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 import torch
 
@@ -70,6 +71,52 @@ def carry_moe(sd: dict, take: _Taker, stack: str, n: int, offset: int = 0, route
     for key, stacked in per_layer.items():
         for i in range(n):
             sd[f"model.layers.{offset + i}.{key}"] = stacked[i].contiguous()
+
+
+# the MoE block's tensors (without the layer prefix) → (their JAX leaf
+# under the stack, transposed): ``carry_moe`` read backwards
+_MOE_LEAF_OF = {
+    "mlp.gate.weight": ("moe/router/weight", True),
+    "mlp.router.weight": ("moe/router/weight", True),
+    "mlp.gate.linear_bias": ("moe/router/linear_bias", False),
+    "mlp.router.linear_bias": ("moe/router/linear_bias", False),
+    **{f"mlp.experts.{n}": (f"moe/experts/{n}", False) for n in ("gate_up", "down", "gate_up_bias", "down_bias")},
+    **{f"mlp.shared_experts.{n}.weight": (f"moe/shared/{n}/kernel", True) for n in _SHARED},
+    "mlp.shared_expert_gate.weight": ("moe/shared_gate/kernel", True),
+    "self_attn.sinks": ("attn/sinks", False),
+    # DeepSeek-V3's MLA (models/deepseek_v3/state_dict_adapter.carry_mla)
+    "self_attn.q_a_proj.weight": ("attn/q_a_proj/kernel", True),
+    "self_attn.q_b_proj.weight": ("attn/q_b_proj/kernel", True),
+    "self_attn.kv_a_proj_with_mqa.weight": ("attn/kv_a_proj/kernel", True),
+    "self_attn.kv_b_proj.weight": ("attn/kv_b_proj/kernel", True),
+    "self_attn.q_a_layernorm.weight": ("attn/q_a_norm/scale", False),
+    "self_attn.kv_a_layernorm.weight": ("attn/kv_a_norm/scale", False),
+}
+
+
+def moe_jax_leaf_of(name: str, n_dense: int = 0, stacks: Optional[tuple[str, str]] = ("dense_layers", "moe_layers")):
+    """``params_from_jax`` of the MoE families read backwards for one
+    tensor: → (the JAX leaf's path, the tensor's index on the leaf's
+    leading layer axis or None, whether it is the leaf's slice transposed),
+    or None for a name the map does not know. ``stacks``: the dense prefix's
+    and the MoE layers' stacks (layer ``i < n_dense`` in the first), or
+    None for one ``layers`` stack (GPT-OSS)."""
+    from automodel_tpu_torch.models.llama.state_dict_adapter import _END_LEAF_OF, _LAYER_NAME, _LEAF_OF
+
+    if name in _END_LEAF_OF:
+        path, transposed = _END_LEAF_OF[name]
+        return path, None, transposed
+    m = _LAYER_NAME.match(name)
+    if m is None:
+        return None
+    i, rest = int(m.group(1)), m.group(2)
+    stack, j = ("layers", i) if not stacks else (stacks[0], i) if i < n_dense else (stacks[1], i - n_dense)
+    if rest in _LEAF_OF:
+        return f"{stack}/{_LEAF_OF[rest]}", j, rest.endswith("proj.weight")
+    if rest in _MOE_LEAF_OF:
+        leaf, transposed = _MOE_LEAF_OF[rest]
+        return f"{stack}/{leaf}", j, transposed
+    return None
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

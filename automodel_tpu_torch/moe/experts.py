@@ -33,6 +33,26 @@
   drives every rank of a virtual group in one process in the real order,
   the exchange then being a concatenation (``exchange_ranks``).
 
+Tensor parallelism of the experts (JAX's ``tensor`` rule on the slabs'
+intermediate dim, and ``tp_axis`` inside the a2a body, :468-593): every
+tp rank runs the same tokens through its I-shard of each expert, ``[g_r |
+u_r]`` of gate_up (gate and up split on I first, then sharded, as
+``_a2a_weights`` does: a plain ``Shard(-1)`` of the concatenated [E, D,
+2I] would hand one rank all of gate), rows r of down and the matching
+biases; the down bias is added on tp rank 0 only (outside the fused
+kernels), and the down partials are summed over the tp group after the
+combine, in fp32. ``tp_slabs`` builds a rank's operands from the slabs'
+canonical shards (an exchange of I-blocks over the tp group,
+``_TPGateUp``), ``tp_local_slabs`` from whole slabs (the virtual ranks of
+``a2a_forward_ranks``); ``moe/layer.moe_block`` sums the partials. A
+``_StridedShard(-1, split_factor=2)`` placement would hand each rank
+``[g_r | u_r]`` with no exchange, but ``torch.distributed.checkpoint``
+cannot save it: it takes a rank's shard for one box of the whole tensor,
+and g_r and u_r lie apart (its planner refuses the "overlapping chunks").
+So the slabs keep the canonical ``Shard(-1)``, and checkpoints stay
+whole and reshardable. Given
+``partial=True`` a backend returns its fp32 combine before the cast.
+
 All take fused gate_up weights [E, D, 2I] (the kernels' rhs layout) and
 down [E, I, D], with the gpt-oss expert biases ``gate_up_bias`` [E, 2I] and
 ``down_bias`` [E, D] when the weights carry them. The registry's entries
@@ -58,6 +78,7 @@ from automodel_tpu_torch.moe.config import MoEConfig
 from automodel_tpu_torch.moe.gate import GateOutput, _one_hot
 from automodel_tpu_torch.ops.fused_expert_mlp import add_row_bias, fused_expert_mlp
 from automodel_tpu_torch.ops.grouped_matmul import gmm_plan, ragged_dot
+from automodel_tpu_torch.parallel.autograd import grad_sum
 
 Act2 = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -80,15 +101,17 @@ def _ffn(h: torch.Tensor, w: dict, act2: Act2) -> torch.Tensor:
 
 
 def dense_experts(
-    x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2, act_name: str = "silu"
+    x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2, act_name: str = "silu",
+    partial: bool = False,
 ) -> torch.Tensor:
     """x [T, D] → [T, D]: all E experts over all tokens, weighted by the
-    [T, E] combine matrix."""
+    [T, E] combine matrix (in x's dtype, widened to fp32 as a tp partial)."""
     T = x.shape[0]
     cw = torch.zeros((T, cfg.num_experts), dtype=x.dtype, device=x.device)
     cw = cw.scatter_add(1, gate_out.topk_idx, gate_out.topk_weights.to(x.dtype))
     ys = _ffn(x.unsqueeze(0), weights, act2)  # [E, T, D]
-    return torch.einsum("etd,te->td", ys, cw)
+    out = torch.einsum("etd,te->td", ys, cw)
+    return out.float() if partial else out
 
 
 class _DispatchTake(torch.autograd.Function):
@@ -146,8 +169,14 @@ def _sorted_dispatch(x: torch.Tensor, gate_out: GateOutput, K: int):
     return xs, order, inv, group_sizes, plan
 
 
+def _combined(out: torch.Tensor, x: torch.Tensor, partial: bool) -> torch.Tensor:
+    """The fp32 combine in x's dtype, or kept fp32 when it is a tp partial."""
+    return out if partial else out.to(x.dtype)
+
+
 def ragged_experts(
-    x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2, act_name: str = "silu"
+    x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2, act_name: str = "silu",
+    partial: bool = False,
 ) -> torch.Tensor:
     """Dropless sort + grouped matmul, x [T, D] → [T, D] in x's dtype.
     Group sizes are the gate's device-side expert counts; the gmm work
@@ -162,7 +191,7 @@ def ragged_experts(
     ys = ragged_dot(act2(*_split_gate_up(gu)), weights["down"].to(xs.dtype), group_sizes, plan=plan)
     if "down_bias" in weights:
         ys = add_row_bias(ys, weights["down_bias"], group_sizes)
-    return _SortedCombine.apply(ys, gate_out.topk_weights, order, inv, K).to(x.dtype)
+    return _combined(_SortedCombine.apply(ys, gate_out.topk_weights, order, inv, K), x, partial)
 
 
 def _fused_act_of(cfg: MoEConfig, act_name: str) -> tuple[str, Optional[float]]:
@@ -177,22 +206,33 @@ def _fused_act_of(cfg: MoEConfig, act_name: str) -> tuple[str, Optional[float]]:
     return cfg.activation, cfg.activation_limit
 
 
+def _fused(xs, weights: dict, gsz, fused_act: tuple, plan, partial: bool) -> torch.Tensor:
+    """The fused expert MLP over sorted rows; as a tp partial the down bias
+    (tp rank 0's, zeros elsewhere) is added after the kernels, as JAX's a2a
+    body keeps it out of its kernel under tp (:534-545)."""
+    bias = lambda name: weights[name].to(xs.dtype) if name in weights else None
+    y = fused_expert_mlp(
+        xs, weights["gate_up"].to(xs.dtype), weights["down"].to(xs.dtype), gsz,
+        bias("gate_up_bias"), None if partial else bias("down_bias"), fused_act[0], fused_act[1], plan=plan,
+    )
+    if partial and "down_bias" in weights:
+        y = add_row_bias(y, weights["down_bias"], gsz)
+    return y
+
+
 def ragged_fused_experts(
-    x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2, act_name: str = "silu"
+    x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2, act_name: str = "silu",
+    partial: bool = False,
 ) -> torch.Tensor:
     """``ragged_experts`` with the whole expert MLP in the fused kernels
     (``act2`` unused: the kernels apply the activation from the config).
     The gmm plan serves the forward's two launches and the backward's
     gmm, gmm_t and bwd_dx."""
-    act_kind, limit = _fused_act_of(cfg, act_name)
+    fused_act = _fused_act_of(cfg, act_name)
     K = cfg.num_experts_per_tok
     xs, order, inv, group_sizes, plan = _sorted_dispatch(x, gate_out, K)
-    bias = lambda name: weights[name].to(xs.dtype) if name in weights else None
-    ys = fused_expert_mlp(
-        xs, weights["gate_up"].to(xs.dtype), weights["down"].to(xs.dtype), group_sizes,
-        bias("gate_up_bias"), bias("down_bias"), act_kind, limit, plan=plan,
-    )
-    return _SortedCombine.apply(ys, gate_out.topk_weights, order, inv, K).to(x.dtype)
+    ys = _fused(xs, weights, group_sizes, fused_act, plan, partial)
+    return _combined(_SortedCombine.apply(ys, gate_out.topk_weights, order, inv, K), x, partial)
 
 
 def _gspmd_dispatch(x: torch.Tensor, gate_out: GateOutput, cfg: MoEConfig) -> tuple[torch.Tensor, torch.Tensor]:
@@ -222,8 +262,8 @@ def _gspmd_ffn(expert_in: torch.Tensor, weights: dict, act2: Act2) -> torch.Tens
     return _ffn(expert_in.reshape(E, B * C, D), weights, act2).reshape(E, B, C, D)
 
 
-def _gspmd_combine(comb: torch.Tensor, expert_out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bsec,ebcd->bsd", comb, expert_out.float()).to(x.dtype)
+def _gspmd_combine(comb: torch.Tensor, expert_out: torch.Tensor, x: torch.Tensor, partial: bool = False) -> torch.Tensor:
+    return _combined(torch.einsum("bsec,ebcd->bsd", comb, expert_out.float()), x, partial)
 
 
 def _to_experts(bufs: torch.Tensor, ep: int) -> torch.Tensor:
@@ -240,7 +280,7 @@ def _from_experts(out: torch.Tensor, ep: int) -> torch.Tensor:
 
 def gspmd_experts(
     x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2,
-    ep: Optional["EPGroup"] = None,
+    ep: Optional["EPGroup"] = None, partial: bool = False,
 ) -> torch.Tensor:
     """Capacity-based dispatch and combine (:94-133), x [B, S, D] → [B, S,
     D]. Over an expert-parallel group ``weights`` are this rank's local
@@ -249,13 +289,13 @@ def gspmd_experts(
     way: the collective GSPMD inserts for JAX's expert-sharded einsums."""
     comb, expert_in = _gspmd_dispatch(x, gate_out, cfg)
     if ep is None or ep.size == 1:
-        return _gspmd_combine(comb, _gspmd_ffn(expert_in, weights, act2), x)
+        return _gspmd_combine(comb, _gspmd_ffn(expert_in, weights, act2), x, partial)
     E, B, C, D = expert_in.shape
     shape = (ep.size, E // ep.size, B, C, D)
     recv = _AllToAll.apply(expert_in.reshape(ep.size, -1), ep.group).reshape(shape)
     out = _from_experts(_gspmd_ffn(_to_experts(recv, ep.size), weights, act2), ep.size)
     back = _AllToAll.apply(out.reshape(ep.size, -1), ep.group).reshape(E, B, C, D)
-    return _gspmd_combine(comb, back, x)
+    return _gspmd_combine(comb, back, x, partial)
 
 
 def gspmd_forward_ranks(
@@ -327,8 +367,8 @@ class _SlotUnpack(torch.autograd.Function):
 
 
 class EPGroup(NamedTuple):
-    """A rank's expert-parallel group: its size, the rank's index in it and
-    the process group the exchange runs over."""
+    """A rank's group on one mesh dim (``ep``, or ``tp`` for the experts'
+    I-split): its size, the rank's index in it and its process group."""
 
     size: int
     rank: int
@@ -392,7 +432,7 @@ def a2a_pack(xt: torch.Tensor, idx: torch.Tensor, E: int, ep: int, C: int) -> A2
 
 def a2a_local(
     recv_x: torch.Tensor, recv_ids: torch.Tensor, weights: dict, cfg: MoEConfig, act2: Act2,
-    fused_act: Optional[tuple] = None,
+    fused_act: Optional[tuple] = None, partial: bool = False,
 ) -> torch.Tensor:
     """A rank's ``E / ep`` local experts over the rows it received (:511-578):
     recv_x [ep * C, D] with their local expert ids → [ep * C, D] in the
@@ -407,12 +447,8 @@ def a2a_local(
     gsz = torch.zeros(E_loc + 1, dtype=torch.int32, device=recv_x.device)
     gsz = gsz.scatter_add_(0, recv_ids, torch.ones_like(recv_ids, dtype=torch.int32))[:E_loc]
     plan = gmm_plan(gsz, xs2.shape[0]) if xs2.device.type == "cuda" else None
-    bias = lambda name: weights[name].to(xs2.dtype) if name in weights else None
     if fused_act is not None:
-        y = fused_expert_mlp(
-            xs2, weights["gate_up"].to(xs2.dtype), weights["down"].to(xs2.dtype), gsz,
-            bias("gate_up_bias"), bias("down_bias"), fused_act[0], fused_act[1], plan=plan,
-        )
+        y = _fused(xs2, weights, gsz, fused_act, plan, partial)
     else:
         gu = ragged_dot(xs2, weights["gate_up"].to(xs2.dtype), gsz, plan=plan)
         if "gate_up_bias" in weights:
@@ -464,28 +500,126 @@ def _local_slabs(weights: dict, rank: int, E_loc: int) -> dict:
 
 def a2a_forward_ranks(
     xs: list[torch.Tensor], gate_outs: list[GateOutput], weights: dict, cfg: MoEConfig, act2: Act2,
-    fused_act: Optional[tuple] = None,
+    fused_act: Optional[tuple] = None, tp: int = 1,
 ) -> list[torch.Tensor]:
-    """Every rank of a virtual expert-parallel group in one process, in the
-    real exchange's order: ``xs[r]`` [T, D] and ``gate_outs[r]`` are rank
-    r's tokens and routing, ``weights`` the whole slabs [E, ...] (rank r
-    holds experts ``[r * E / ep, (r + 1) * E / ep)``) → each rank's [T, D]
-    in x's dtype. Differentiable end to end."""
+    """Every rank of a virtual ``ep x tp`` group in one process, in the
+    real exchange's order: ``xs[r]`` [T, D] and ``gate_outs[r]`` are ep
+    rank r's tokens and routing (each of its tp ranks holds the same),
+    ``weights`` the whole slabs [E, ...] (ep rank r holds experts ``[r * E
+    / ep, (r + 1) * E / ep)``, tp rank t their I-shard t) → each ep rank's
+    [T, D] in x's dtype: the exchange runs once a tp rank, and the fp32
+    partials of the tp ranks are summed. Differentiable end to end."""
     ep, E = len(xs), cfg.num_experts
     C = a2a_chunk_rows(xs[0].shape[0], cfg, ep)
     sends = [a2a_pack(x, g.topk_idx, E, ep, C) for x, g in zip(xs, gate_outs)]
     recv_x = exchange_ranks([s.x for s in sends], C)
     recv_ids = exchange_ranks([s.ids for s in sends], C)
     E_loc = E // ep
-    ys = [a2a_local(recv_x[r], recv_ids[r], _local_slabs(weights, r, E_loc), cfg, act2, fused_act)
-          for r in range(ep)]
-    back = exchange_ranks(ys, C)
-    return [a2a_unpack(back[r], sends[r], gate_outs[r].topk_weights).to(xs[r].dtype) for r in range(ep)]
+    outs = [0.0] * ep
+    for t in range(tp):
+        w_t = weights if tp == 1 else tp_local_slabs(weights, t, tp)
+        ys = [a2a_local(recv_x[r], recv_ids[r], _local_slabs(w_t, r, E_loc), cfg, act2, fused_act, partial=tp > 1)
+              for r in range(ep)]
+        back = exchange_ranks(ys, C)
+        outs = [o + a2a_unpack(back[r], sends[r], gate_outs[r].topk_weights) for r, o in enumerate(outs)]
+    return [o.to(x.dtype) for o, x in zip(outs, xs)]
+
+
+def _i_block(w: torch.Tensor, dim: int, t: int, tp: int) -> torch.Tensor:
+    b = w.shape[dim] // tp
+    return w.narrow(dim, t * b, b)
+
+
+def tp_local_slabs(weights: dict, t: int, tp: int) -> dict:
+    """tp rank t's operands from whole slabs: ``[g_t | u_t]`` of gate_up
+    and gate_up_bias (gate and up each split on I), rows t of down, and
+    the down bias on rank 0 only (zeros elsewhere, so its gradient flows
+    from rank 0 alone)."""
+    out = {}
+    for k, w in weights.items():
+        if k in ("gate_up", "gate_up_bias"):
+            g, u = _split_gate_up(w)
+            out[k] = torch.cat([_i_block(g, -1, t, tp), _i_block(u, -1, t, tp)], dim=-1)
+        elif k == "down":
+            out[k] = _i_block(w, 1, t, tp)
+        elif k == "down_bias":
+            out[k] = w if t == 0 else w * 0
+        else:
+            out[k] = w
+    return out
+
+
+def _gate_up_routes(tp: int, r: int) -> tuple[list[int], list[int], bool]:
+    """The I-block exchange of ``_TPGateUp`` for tp rank r: the canonical
+    ``Shard(-1)`` of [gate | up] splits the last dim into 2 tp blocks of I
+    / tp, rank q holding blocks 2q and 2q + 1; rank t needs blocks t (of
+    gate) and tp + t (of up). → (the blocks r sends to each rank, the
+    blocks it receives from each, whether its two sent blocks go out in
+    reverse order)."""
+    dest = lambda j: j if j < tp else j - tp
+    d0, d1 = dest(2 * r), dest(2 * r + 1)
+    send = [int(t == d0) + int(t == d1) for t in range(tp)]
+    src_g, src_u = r // 2, (tp + r) // 2
+    recv = [int(q == src_g) + int(q == src_u) for q in range(tp)]
+    return send, recv, d1 < d0
+
+
+class _TPGateUp(torch.autograd.Function):
+    """A rank's canonical ``Shard(-1)`` shard of a [..., 2I] gate_up (or
+    its bias) → its ``[g_r | u_r]`` [..., 2I / tp], by an all-to-all of I
+    / tp-wide blocks over the tp group; the backward sends the gradient's
+    blocks back the same routes."""
+
+    @staticmethod
+    def forward(ctx, w, group, tp, r):
+        import torch.distributed as dist
+
+        send, recv, swap = _gate_up_routes(tp, r)
+        ctx.group, ctx.send, ctx.recv, ctx.swap = group, send, recv, swap
+        b = w.shape[-1] // 2
+        blocks = [w[..., :b], w[..., b:]]
+        if swap:
+            blocks.reverse()
+        buf = torch.stack(blocks).reshape(2, -1).contiguous()
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, output_split_sizes=recv, input_split_sizes=send, group=group)
+        ctx.shape = w.shape
+        # received in source order: gate block from r // 2 first, then up
+        return torch.cat([out[0].reshape(*w.shape[:-1], b), out[1].reshape(*w.shape[:-1], b)], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        b = ctx.shape[-1] // 2
+        buf = torch.stack([g[..., :b], g[..., b:]]).reshape(2, -1).contiguous()
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, output_split_sizes=ctx.send, input_split_sizes=ctx.recv, group=ctx.group)
+        blocks = [out[0].reshape(*ctx.shape[:-1], b), out[1].reshape(*ctx.shape[:-1], b)]
+        if ctx.swap:
+            blocks.reverse()
+        return torch.cat(blocks, dim=-1), None, None, None
+
+
+def tp_slabs(weights: dict, tp: EPGroup) -> dict:
+    """This tp rank's operands from the slabs' canonical local shards
+    (gate_up and gate_up_bias ``Shard(-1)``, down ``Shard(1)`` over tp,
+    the down bias whole): ``[g_r | u_r]`` by ``_TPGateUp``, and the down
+    bias on rank 0 only, its gradient summed over the group (the ranks
+    that read it as zeros give zeros)."""
+    out = dict(weights)
+    for k in ("gate_up", "gate_up_bias"):
+        if k in out:
+            out[k] = _TPGateUp.apply(out[k], tp.group, tp.size, tp.rank)
+    if "down_bias" in out:
+        db = grad_sum(out["down_bias"], tp.group)
+        out["down_bias"] = db if tp.rank == 0 else db * 0
+    return out
 
 
 def a2a_experts(
     x: torch.Tensor, gate_out: GateOutput, weights: dict, cfg: MoEConfig, act2: Act2,
-    ep: Optional[EPGroup] = None, fused_act: Optional[tuple] = None,
+    ep: Optional[EPGroup] = None, fused_act: Optional[tuple] = None, partial: bool = False,
 ) -> torch.Tensor:
     """x [B, S, D] (this rank's tokens) → [B, S, D]. Without a group of
     more than one rank: ``ragged`` (``ragged_fused`` with ``fused_act``).
@@ -494,8 +628,9 @@ def a2a_experts(
     B, S, D = x.shape
     xt = x.reshape(-1, D)
     if ep is None or ep.size == 1:
-        run = ragged_experts if fused_act is None else ragged_fused_experts
-        return run(xt, gate_out, weights, cfg, act2).reshape(B, S, D)
+        if fused_act is None:
+            return ragged_experts(xt, gate_out, weights, cfg, act2, partial=partial).reshape(B, S, D)
+        return ragged_fused_experts(xt, gate_out, weights, cfg, act2, partial=partial).reshape(B, S, D)
     C = a2a_chunk_rows(xt.shape[0], cfg, ep.size)
     send = a2a_pack(xt, gate_out.topk_idx, cfg.num_experts, ep.size, C)
     import torch.distributed as dist
@@ -503,31 +638,32 @@ def a2a_experts(
     recv_ids = torch.empty_like(send.ids)
     dist.all_to_all_single(recv_ids, send.ids, group=ep.group)
     recv_x = _AllToAll.apply(send.x, ep.group)
-    y = a2a_local(recv_x, recv_ids, weights, cfg, act2, fused_act)
+    y = a2a_local(recv_x, recv_ids, weights, cfg, act2, fused_act, partial)
     out = a2a_unpack(_AllToAll.apply(y, ep.group), send, gate_out.topk_weights)
-    return out.to(x.dtype).reshape(B, S, D)
+    return _combined(out, x, partial).reshape(B, S, D)
 
 
 # -- the registry: x [B, S, D] (or any leading dims where the backend allows) --
 
 
 def _flat(fn: Callable) -> Callable:
-    def run(x, gate_out, weights, cfg, act2, act_name="silu", ep=None):
-        return fn(x.reshape(-1, x.shape[-1]), gate_out, weights, cfg, act2, act_name=act_name).reshape(x.shape)
+    def run(x, gate_out, weights, cfg, act2, act_name="silu", ep=None, partial=False):
+        out = fn(x.reshape(-1, x.shape[-1]), gate_out, weights, cfg, act2, act_name=act_name, partial=partial)
+        return out.reshape(x.shape)
 
     return run
 
 
-def _run_gspmd(x, gate_out, weights, cfg, act2, act_name="silu", ep=None):
-    return gspmd_experts(x, gate_out, weights, cfg, act2, ep)
+def _run_gspmd(x, gate_out, weights, cfg, act2, act_name="silu", ep=None, partial=False):
+    return gspmd_experts(x, gate_out, weights, cfg, act2, ep, partial=partial)
 
 
-def _run_a2a(x, gate_out, weights, cfg, act2, act_name="silu", ep=None):
-    return a2a_experts(x, gate_out, weights, cfg, act2, ep)
+def _run_a2a(x, gate_out, weights, cfg, act2, act_name="silu", ep=None, partial=False):
+    return a2a_experts(x, gate_out, weights, cfg, act2, ep, partial=partial)
 
 
-def _run_a2a_fused(x, gate_out, weights, cfg, act2, act_name="silu", ep=None):
-    return a2a_experts(x, gate_out, weights, cfg, act2, ep, fused_act=_fused_act_of(cfg, act_name))
+def _run_a2a_fused(x, gate_out, weights, cfg, act2, act_name="silu", ep=None, partial=False):
+    return a2a_experts(x, gate_out, weights, cfg, act2, ep, fused_act=_fused_act_of(cfg, act_name), partial=partial)
 
 
 EXPERT_BACKENDS = {
@@ -543,8 +679,8 @@ EP_BACKENDS = ("gspmd", "a2a", "a2a_fused")  # the backends that exchange over `
 
 def expert_backend(name: str) -> Callable:
     """The experts function for ``backend.experts``, called as ``fn(x,
-    gate_out, weights, cfg, act2, act_name=..., ep=...)``; raises
-    ValueError naming an unknown backend."""
+    gate_out, weights, cfg, act2, act_name=..., ep=..., partial=...)``;
+    raises ValueError naming an unknown backend."""
     fn = EXPERT_BACKENDS.get(name)
     if fn is None:
         raise ValueError(f"experts={name!r} is unknown (the torch backend has {sorted(EXPERT_BACKENDS)})")

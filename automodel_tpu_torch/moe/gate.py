@@ -1,6 +1,19 @@
 """MoE router (gate), port of ``automodel_tpu/moe/gate.py``: ``gate``
 (:36), ``fake_balanced_gate`` (:119) and ``update_gate_bias`` (:135).
 
+Under data and context parallelism JAX's aux loss is a mean over the
+global batch (GSPMD sees every rank's rows and every token of a row).
+``AuxScope`` carries what a rank needs to add its share of it, so that the
+shares sum to JAX's value over the data group. The routed fractions ``f``
+are counts, without a gradient: they are summed over the ranks that hold
+the same mean's tokens before the product (a row's ``cp`` ranks for the
+sequence-level form, the whole group for the token-level one). The mean
+probabilities ``p`` enter the product linearly, so each rank multiplies
+``f`` by its own tokens' probability sum over the global token count: the
+shares add up to ``f . p`` and their gradients to its gradient, with no
+collective in the backward. The sequence-level form divides its rows' sum
+by the global row count.
+
 Everything stays on the tensors' device: ``expert_counts`` is an int32
 device tensor built without ``bincount`` or ``one_hot`` (both read the
 indices' maximum back to the host on CUDA), so routing a layer needs no
@@ -15,6 +28,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from automodel_tpu_torch.moe.config import MoEConfig
+
+
+class AuxScope(NamedTuple):
+    """The data-parallel scope of the aux loss: the global row count of
+    the microbatch, the process group of the data ranks (``loss_dp``), and
+    the ``cp`` ranks that share each row's tokens (their group and count;
+    None and 1 without context parallelism)."""
+
+    rows_total: torch.Tensor
+    group: object
+    cp_group: object = None
+    cp: int = 1
 
 
 class GateOutput(NamedTuple):
@@ -48,13 +73,16 @@ def gate(
     bias: Optional[torch.Tensor] = None,
     seq_len: Optional[int] = None,
     linear_bias: Optional[torch.Tensor] = None,
+    scope: Optional[AuxScope] = None,
 ) -> GateOutput:
     """Route tokens. x: [T, D]; weight: the router [E, D] (the HF
     ``mlp.gate.weight`` layout; the JAX tree holds its transpose); bias:
     [E] aux-free selection correction. Combine weights come from the
     original scores: the bias only moves the selection. ``linear_bias``
     [E] is a learned router bias (gpt-oss) added to the logits, so it feeds
-    both the selection and the weights (:53-54)."""
+    both the selection and the weights (:53-54). Under a data-parallel
+    ``scope`` the aux loss is this rank's share of JAX's global one (the
+    shares sum to it over the group)."""
     T = x.shape[0]
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     logits = x.float() @ weight.float().t()  # [T, E]
@@ -103,12 +131,33 @@ def gate(
         if seq_len is not None and T % seq_len == 0:
             S = seq_len
             B = T // S
-            f = one_hot.reshape(B, S, K, E).sum(dim=(1, 2)) * (E / (K * S))  # [B, E]
-            p = probs.reshape(B, S, E).mean(dim=1)
-            aux = (f * p).sum(dim=-1).mean() * cfg.aux_loss_coeff
-        else:
+            hits = one_hot.reshape(B, S, K, E).sum(dim=(1, 2))  # [B, E]
+            if scope is None:
+                f = hits * (E / (K * S))
+                p = probs.reshape(B, S, E).mean(dim=1)
+                aux = (f * p).sum(dim=-1).mean() * cfg.aux_loss_coeff
+            else:
+                # a row's tokens lie on its cp ranks: f needs their counts
+                if scope.cp > 1:
+                    import torch.distributed as dist
+
+                    dist.all_reduce(hits, group=scope.cp_group)
+                S_all = S * scope.cp
+                f = hits * (E / (K * S_all))
+                p_mine = probs.reshape(B, S, E).sum(dim=1) / S_all
+                aux = (f * p_mine).sum() / scope.rows_total * cfg.aux_loss_coeff
+        elif scope is None:
             f = counts * (E / (K * T))
             aux = (f * probs.mean(dim=0)).sum() * cfg.aux_loss_coeff
+        else:
+            # f is a mean over the group's tokens: its counts are summed first
+            import torch.distributed as dist
+
+            tc = torch.cat([counts, counts.new_full((1,), float(T))])
+            dist.all_reduce(tc, group=scope.group)
+            t_all = tc[-1]
+            f = tc[:-1] * (E / K) / t_all
+            aux = (f * probs.sum(dim=0) / t_all).sum() * cfg.aux_loss_coeff
 
     return GateOutput(topk_idx, topk_weights.to(x.dtype), counts.to(torch.int32), aux)
 

@@ -24,12 +24,14 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.fsdp import FSDPModule
 
 from automodel_tpu_torch.moe.config import MoEConfig
-from automodel_tpu_torch.moe.experts import expert_backend
+from automodel_tpu_torch.moe.experts import expert_backend, tp_slabs
 from automodel_tpu_torch.moe.gate import fake_balanced_gate, gate
 from automodel_tpu_torch.ops.fused_expert_mlp import _act_core
+from automodel_tpu_torch.parallel.autograd import grad_sum, sum_partials
+from automodel_tpu_torch.parallel.plans import local
 
 
 class MoEAux(NamedTuple):
@@ -60,6 +62,11 @@ class Experts(nn.Module):
         if cfg.expert_mlp_bias:
             self.gate_up_bias = _param((E, 2 * I), dtype, device)
             self.down_bias = _param((E, D), dtype, device)
+
+    def forward(self, body: Callable, *args):
+        """``body(weights, *args)`` over the slabs (their local shards when
+        placed): a module call, so an FSDP2 unit gathers them around it."""
+        return body({k: local(v) for k, v in self.named_parameters()}, *args)
 
 
 class Router(nn.Module):
@@ -116,7 +123,13 @@ def moe_block(
     expert-parallel group (``block.ep_group``, set by
     ``parallel/plans.parallelize``) holds its expert slabs as DTensors
     sharded on the expert dim; ``a2a`` / ``a2a_fused`` take the local
-    slabs and exchange the tokens over that group."""
+    slabs and exchange the tokens over that group. A block placed over a
+    tp group (``block.tp_group``) holds the slabs' I-shards and its shared
+    experts' (column shards of gate and up, row shards of down): every tp
+    rank runs the same tokens through its shards, the routed and shared
+    partials are summed over the group in fp32 (``sum_partials``), and
+    the inputs every rank reads whole (x, the combine weights, the shared
+    gate) get their gradients summed over it (``grad_sum``)."""
     cfg = block.cfg
     B, S, D = x.shape
     xt = x.reshape(-1, D)
@@ -124,17 +137,37 @@ def moe_block(
         gout = fake_balanced_gate(xt, cfg)
     else:
         router = getattr(block, block.router_name)
-        gout = gate(xt, router.weight, cfg, bias=router.bias, seq_len=S, linear_bias=router.linear_bias)
+        gout = gate(xt, router.weight, cfg, bias=router.bias, seq_len=S, linear_bias=router.linear_bias,
+                    scope=getattr(block, "aux_scope", None))
     act2 = make_act2(cfg, act)
-    weights = {k: v.to_local() if isinstance(v, DTensor) else v for k, v in block.experts.named_parameters()}
-    out = expert_backend(experts_backend)(
-        x, gout, weights, cfg, act2, act_name=act_name, ep=getattr(block, "ep_group", None)
-    ).reshape(-1, D)
+    tp = getattr(block, "tp_group", None)
+    tp = tp if tp is not None and tp.size > 1 else None
+    x_in = x
+    if tp is not None:
+        x_in = grad_sum(x, tp.group)
+        gout = gout._replace(topk_weights=grad_sum(gout.topk_weights, tp.group))
+    run = expert_backend(experts_backend)
+
+    def routed(weights: dict, x_in, gout):
+        if tp is not None:
+            weights = tp_slabs(weights, tp)
+        return run(x_in, gout, weights, cfg, act2, act_name=act_name, ep=getattr(block, "ep_group", None),
+                   partial=tp is not None)
+
+    # through the module call when FSDP2 wraps the experts (its hooks gather
+    # and free the slabs), directly otherwise (the host-bound decode path)
+    experts = block.experts
+    call = experts if isinstance(experts, FSDPModule) else experts.forward
+    out = call(routed, x_in, gout).reshape(-1, D)
     if cfg.num_shared_experts > 0:
         sp = block.shared_experts
-        lin = lambda h, m: F.linear(h, m.weight.to(h.dtype))
-        shared = lin(act2(lin(xt, sp.gate_proj), lin(xt, sp.up_proj)), sp.down_proj)
+        lin = lambda h, m: F.linear(h, local(m.weight).to(h.dtype))
+        xs = x_in.reshape(-1, D)
+        shared = lin(act2(lin(xs, sp.gate_proj), lin(xs, sp.up_proj)), sp.down_proj)
         if cfg.shared_expert_gate:
-            shared = shared * torch.sigmoid(lin(xt, block.shared_expert_gate))
+            s_gate = torch.sigmoid(lin(xt, block.shared_expert_gate))
+            shared = shared * (s_gate if tp is None else grad_sum(s_gate, tp.group))
         out = out + shared
+    if tp is not None:
+        out = sum_partials(out.float(), tp.group).to(x.dtype)
     return out.reshape(B, S, D), MoEAux(gout.expert_counts, gout.aux_loss)

@@ -548,16 +548,37 @@ bwd_dwd.launches = 0
 bwd_dx.launches = 0
 
 
+class _RowBias(torch.autograd.Function):
+    """bias[rg] in ``dtype`` for rows whose group ``rg < G``, zero past the
+    groups; the bias gradient is the per-group sum of the rows' gradients
+    accumulated in fp32 and rounded once to the bias dtype (autograd's own
+    backward of the gather would accumulate in ``dtype``: thousands of bf16
+    rows summed in bf16)."""
+
+    @staticmethod
+    def forward(ctx, bias, rg, dtype):
+        G = bias.shape[0]
+        ctx.save_for_backward(rg)
+        ctx.G, ctx.bias_dtype = G, bias.dtype
+        b = bias.to(dtype).index_select(0, rg.clamp_max(G - 1))
+        return torch.where((rg < G)[:, None], b, torch.zeros((), dtype=dtype, device=b.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (rg,) = ctx.saved_tensors
+        sums = g.new_zeros((ctx.G + 1, g.shape[-1]), dtype=torch.float32)
+        sums.index_add_(0, rg.clamp_max(ctx.G), g.float())  # rows past the groups land in the extra row
+        return sums[: ctx.G].to(ctx.bias_dtype), None, None
+
+
 def add_row_bias(x: torch.Tensor, bias: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     """x [M, N] + bias[group of the row] in x's dtype; rows past the groups
     get nothing (JAX's :746-759: the gather index clamped, the bias zeroed
     under the mask). The row groups come from a device searchsorted, with
-    no host sync."""
-    G = bias.shape[0]
+    no host sync; the bias gradient sums the rows in fp32 (``_RowBias``)."""
     ends = torch.cumsum(group_sizes.to(torch.int64), 0)
     rg = torch.searchsorted(ends, torch.arange(x.shape[0], device=x.device), right=True)
-    b = bias.to(x.dtype).index_select(0, rg.clamp_max(G - 1))
-    return x + torch.where((rg < G)[:, None], b, torch.zeros((), dtype=x.dtype, device=x.device))
+    return x + _RowBias.apply(bias, rg, x.dtype)
 
 
 class _FusedExpertMLP(torch.autograd.Function):

@@ -20,10 +20,23 @@ clips and scales each *leaf* of the JAX param tree, and labels a leaf
 ``muon`` when it is 2-D. JAX stacks every decoder layer's tensors on a
 leading layer axis and stores projection kernels ``[in, out]``, so a layer
 kernel is a 3-D leaf (Adam's branch under muon) and a stacked norm scale a
-2-D one. These two optimizers therefore group the port's tensors into the
-JAX leaves they came from (``JaxLeaf``, ``params_from_jax`` read
-backwards) and compute in the JAX layout; the elementwise ones need no
-grouping.
+2-D one; an MoE family's expert slabs are ``[L, E, D, 2I]`` leaves, its
+router ``[L, D, E]``, DeepSeek-V3's dense prefix a stack of its own. These
+two optimizers therefore group the port's tensors into the JAX leaves they
+came from (``JaxLeaf``, ``params_from_jax`` read backwards: the dense
+families' map, or the model's ``jax_leaf_of``) and compute in the JAX
+layout; the elementwise ones need no grouping.
+
+A leaf is never stacked: its update runs tensor by tensor (each a
+shard under a mesh, a DTensor whose placement ``like`` gives), and what
+optax reduces over the whole leaf is summed from the parts. Adafactor's row and column means, its row-factor mean and the two
+RMS clips sum their partial sums over the mesh dims that shard the
+reduced dims; Muon's Adam branch is elementwise, and its Newton-Schulz
+all-reduces the Gram matrix over the mesh dims that shard the contracted
+dim (a leaf sharded on its other dim is gathered first, a small one:
+the iteration commutes with a permutation of the rows). Their checkpoint
+tree holds each statistic as a DTensor placed as its leaf's parameters
+(``JaxLeaf.placed``), so DCP writes it whole and reshards it on load.
 
 Grads in bf16 (one microbatch with bf16 params) round where optax 0.2.6
 rounds them: the clip scale is cast to the grad's dtype (:84), and
@@ -169,6 +182,43 @@ def _scale_lr(u: torch.Tensor, lr: float) -> torch.Tensor:
     return _c(-lr, u) * u
 
 
+def _shard_dims(t: torch.Tensor) -> dict[int, tuple]:
+    """A DTensor's sharded dims → (its mesh, the names of the mesh dims of
+    more than one rank that shard it); {} for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return {}
+    mesh, out = t.device_mesh, {}
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard() and mesh.size(i) > 1:
+            out.setdefault(pl.dim % t.dim(), []).append(mesh.mesh_dim_names[i])
+    return {d: (mesh, tuple(v)) for d, v in out.items()}
+
+
+def _all_reduce(x: torch.Tensor, where: Optional[tuple]) -> torch.Tensor:
+    """x summed over the mesh dims ``where`` names ((mesh, dim names), or
+    None for nothing to sum)."""
+    if where is None:
+        return x
+    import torch.distributed as dist
+
+    from automodel_tpu_torch.parallel.plans import _group_over
+
+    x = x.contiguous()
+    dist.all_reduce(x, group=_group_over(*where))
+    return x
+
+
+def _union(wheres: Sequence[Optional[tuple]]) -> Optional[tuple]:
+    """The mesh dims of several sharded dims together (one mesh)."""
+    wheres = [w for w in wheres if w is not None]
+    if not wheres:
+        return None
+    names = tuple(dict.fromkeys(n for _, ns in wheres for n in ns))
+    return wheres[0][0], names
+
+
 @dataclasses.dataclass(frozen=True)
 class JaxLeaf:
     """One leaf of the JAX param tree over the port's tensors: ``index`` are
@@ -191,20 +241,64 @@ class JaxLeaf:
         parts = list(x.unbind(0)) if self.stacked else [x]
         return [t.t() if self.transposed else t for t in parts]
 
+    def member(self, t: torch.Tensor) -> torch.Tensor:
+        """One port tensor in the JAX layout of its slice of the leaf."""
+        return t.t() if self.transposed else t
 
-def jax_leaves(names: Sequence[str]) -> list[JaxLeaf]:
+    def shape(self, like: Sequence[torch.Tensor]) -> tuple[int, ...]:
+        """The leaf's whole (unsharded) JAX shape."""
+        m = tuple(like[self.index[0]].shape)
+        m = m[::-1] if self.transposed else m
+        return ((len(self.index),) if self.stacked else ()) + m
+
+    def sharding(self, like: Sequence[torch.Tensor]) -> dict[int, tuple]:
+        """The member's JAX-layout dims its placement shards → (mesh, dims)."""
+        d = _shard_dims(like[self.index[0]])
+        return {(1 - k if self.transposed else k): v for k, v in d.items()}
+
+    def placed(self, stat: torch.Tensor, like: Sequence[torch.Tensor], drop: Optional[int] = None) -> torch.Tensor:
+        """A statistic of the leaf (its local part in the leaf's JAX layout,
+        the leaf's dim ``drop`` reduced away) as a DTensor laid out as the
+        leaf's parameters, so a checkpoint holds it whole and reshards it:
+        a dim the parameters shard stays sharded, the reduced one is
+        replicated (its partial sums were all-reduced). Over plain
+        parameters, ``stat`` itself."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor.placement_types import _StridedShard
+
+        p = like[self.index[0]]
+        if not isinstance(p, DTensor):
+            return stat
+        placements = []
+        for pl in p.placements:
+            if pl.is_shard():
+                d = pl.dim % p.dim()
+                d = (1 - d if self.transposed else d) + int(self.stacked)
+                if d == drop:
+                    pl = Replicate()
+                else:
+                    d -= int(drop is not None and d > drop)
+                    pl = _StridedShard(d, split_factor=pl.split_factor) if isinstance(pl, _StridedShard) else Shard(d)
+            placements.append(pl)
+        shape = [n for i, n in enumerate(self.shape(like)) if i != drop]
+        stride = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+        return DTensor.from_local(stat, p.device_mesh, placements, shape=torch.Size(shape), stride=tuple(stride))
+
+
+def jax_leaves(names: Sequence[str], leaf_of: Optional[Callable] = None) -> list[JaxLeaf]:
     """Group the port's parameter names into the JAX leaves they came from
-    (the dense families' map, ``models/llama/state_dict_adapter.jax_leaf_of``).
-    Raises naming a tensor the map does not know."""
+    (``leaf_of``: the model's map, by default the dense families',
+    ``models/llama/state_dict_adapter.jax_leaf_of``). Raises naming a
+    tensor the map does not know."""
     from automodel_tpu_torch.models.llama.state_dict_adapter import jax_leaf_of
 
+    leaf_of = leaf_of or jax_leaf_of
     groups: dict[str, list] = {}
     for i, name in enumerate(names):
-        where = jax_leaf_of(name)
+        where = leaf_of(name)
         if where is None:
             raise ValueError(
-                f"{name}: its JAX leaf layout is not mapped (only the dense families' are), so "
-                "adafactor and muon cannot run on this model in the torch backend yet"
+                f"{name}: its JAX leaf layout is not mapped, so adafactor and muon cannot place its update"
             )
         path, layer, transposed = where
         groups.setdefault(path, []).append((layer, i, transposed))
@@ -369,72 +463,134 @@ class Adafactor(_Chain):
     leaf's update clipped to an RMS of 1, the schedule, scaled by the
     leaf's parameter RMS (at least 1e-3), decoupled weight decay after the
     schedule when set, no momentum. Each leaf is computed in its JAX layout
-    (``JaxLeaf``)."""
+    (``JaxLeaf``), tensor by tensor (the module docstring). ``like``: the parameters as placed (DTensors
+    under a mesh) when ``params`` are their local shards."""
 
-    def __init__(self, params, schedule, leaves: Sequence[JaxLeaf], **kw):
+    def __init__(self, params, schedule, leaves: Sequence[JaxLeaf], like=None, **kw):
         super().__init__(params, schedule, **kw)
+        self.like = list(like) if like is not None else self.params
         self.leaves = [lf for lf in leaves if all(self.trainable[i] for i in lf.index)]
         self.v_row: dict[str, torch.Tensor] = {}
         self.v_col: dict[str, torch.Tensor] = {}
         self.v: dict[str, torch.Tensor] = {}
+        self.dims: dict[str, Optional[tuple[int, int]]] = {}
         for lf in self.leaves:
-            x = lf.gather(self.params)
-            dims = _factored_dims(tuple(x.shape))
+            shape = lf.shape(self.like)
+            dims = self.dims[lf.path] = _factored_dims(shape)
+            if lf.stacked and dims is not None and 0 in dims:
+                raise ValueError(f"{lf.path}: adafactor factors its layer axis ({shape[0]} layers), which the "
+                                 "update tensor by tensor cannot reduce")
+            local = (len(lf.index),) * lf.stacked + tuple(lf.member(self.params[lf.index[0]]).shape)
+            p = self.params[lf.index[0]]
+            zeros = lambda shp: torch.zeros(shp, dtype=p.dtype, device=p.device)
             if dims is None:
-                self.v[lf.path] = torch.zeros_like(x)
+                self.v[lf.path] = zeros(local)
             else:
                 d1, d0 = dims
-                self.v_row[lf.path] = torch.zeros_like(x.select(d0, 0))
-                self.v_col[lf.path] = torch.zeros_like(x.select(d1, 0))
+                self.v_row[lf.path] = zeros(local[:d0] + local[d0 + 1:])
+                self.v_col[lf.path] = zeros(local[:d1] + local[d1 + 1:])
 
     def state_tree(self, names):
-        return {"count": self.count, "v_row": dict(self.v_row), "v_col": dict(self.v_col), "v": dict(self.v)}
+        """The statistics keyed by JAX leaf path, placed as their leaves
+        (``JaxLeaf.placed``) and the count."""
+        tree = {"count": self.count, "v_row": {}, "v_col": {}, "v": {}}
+        for lf in self.leaves:
+            dims = self.dims[lf.path]
+            if dims is None:
+                tree["v"][lf.path] = lf.placed(self.v[lf.path], self.like)
+            else:
+                tree["v_row"][lf.path] = lf.placed(self.v_row[lf.path], self.like, drop=dims[1])
+                tree["v_col"][lf.path] = lf.placed(self.v_col[lf.path], self.like, drop=dims[0])
+        return tree
 
     def _updates(self, grads, lr):
         decay = float(np.float32(1.0) - np.float32(self.count + 1) ** np.float32(-0.8))
         for lf in self.leaves:
-            g, p = lf.gather(grads), lf.gather(self.params)
+            yield from self._leaf(lf, grads, lr, decay)
+
+    def _finish(self, u: torch.Tensor, p: torch.Tensor, lr: float, rms_u, rms_p) -> torch.Tensor:
+        u = u / torch.clamp(rms_u, min=1.0)  # clip_by_block_rms(1.0)
+        u = _c(lr, u) * u
+        u = u * torch.where(rms_p <= 1e-3, _c(1e-3, rms_p), rms_p)  # scale_by_param_block_rms
+        if self.weight_decay:
+            u = u + _c(self.weight_decay, p) * p
+        return -u
+
+    def _leaf(self, lf, grads, lr, decay):
+        shape, shard = lf.shape(self.like), lf.sharding(self.like)
+        off = int(lf.stacked)  # a member's dim m is the leaf's dim m + off
+        dims = self.dims[lf.path]
+        at = lambda st, j: st[j] if lf.stacked else st
+        sumsq = None
+        factors = []
+        for j, i in enumerate(lf.index):
+            g, p = lf.member(grads[i]), lf.member(self.params[i])
             dt = p.dtype
-            sq = g * g + _c(1e-30, g)
-            dims = _factored_dims(tuple(g.shape))
-            # the decay is an fp32 array in optax: it promotes, then the
-            # statistics are cast back to the param dtype
+            sq = (g * g + _c(1e-30, g)).float()
             if dims is not None:
-                d1, d0 = dims
-                vr = (decay * self.v_row[lf.path].float() + (1 - decay) * sq.float().mean(dim=d0)).to(dt)
-                vc = (decay * self.v_col[lf.path].float() + (1 - decay) * sq.float().mean(dim=d1)).to(dt)
-                self.v_row[lf.path], self.v_col[lf.path] = vr, vc
-                reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = torch.rsqrt(vr / vr.mean(dim=reduced_d1, keepdim=True))
-                u = g * row_factor.unsqueeze(d0) * torch.rsqrt(vc).unsqueeze(d1)
+                m1, m0 = dims[0] - off, dims[1] - off
+                mean = lambda x, m: _all_reduce(x.sum(dim=m), shard.get(m)) / shape[m + off]
+                vr, vc = at(self.v_row[lf.path], j), at(self.v_col[lf.path], j)
+                vr.copy_((decay * vr.float() + (1 - decay) * mean(sq, m0)).to(dt))
+                vc.copy_((decay * vc.float() + (1 - decay) * mean(sq, m1)).to(dt))
+                r1 = m1 - 1 if m1 > m0 else m1  # m1's place in vr
+                vr_mean = _all_reduce(vr.float().sum(dim=r1, keepdim=True), shard.get(m1)) / shape[m1 + off]
+                factors.append((torch.rsqrt(vr / vr_mean.to(dt)).unsqueeze(m0), torch.rsqrt(vc).unsqueeze(m1)))
+                u = g * factors[-1][0] * factors[-1][1]
             else:
-                v = (decay * self.v[lf.path].float() + (1 - decay) * sq.float()).to(dt)
-                self.v[lf.path] = v
+                v = at(self.v[lf.path], j)
+                v.copy_((decay * v.float() + (1 - decay) * sq).to(dt))
                 u = g * torch.rsqrt(v)
-            u = u / torch.clamp(_rms(u), min=1.0)  # clip_by_block_rms(1.0)
-            u = _c(lr, u) * u
-            rms = _rms(p)
-            u = u * torch.where(rms <= 1e-3, _c(1e-3, rms), rms)  # scale_by_param_block_rms
-            if self.weight_decay:
-                u = u + _c(self.weight_decay, p) * p
-            u = -u
-            yield from zip(lf.index, lf.split(u))
+            part = torch.stack([(u * u).float().sum(), (p * p).float().sum()])
+            sumsq = part if sumsq is None else sumsq + part
+        n = math.prod(shape)
+        sumsq = _all_reduce(sumsq, _union(list(shard.values()))) / n
+        for j, i in enumerate(lf.index):
+            g, p = lf.member(grads[i]), lf.member(self.params[i])
+            dt = p.dtype
+            u = g * factors[j][0] * factors[j][1] if dims is not None else g * torch.rsqrt(at(self.v[lf.path], j))
+            rms_u, rms_p = torch.sqrt(sumsq[0].to(u.dtype)), torch.sqrt(sumsq[1].to(dt))
+            u = self._finish(u, p, lr, rms_u, rms_p)
+            yield i, u.t() if lf.transposed else u
 
 
 def orthogonalize_newton_schulz(x: torch.Tensor, coeffs=MUON_NS_COEFFS, steps: int = MUON_NS_STEPS,
-                                eps: float = MUON_EPS) -> torch.Tensor:
+                                eps: float = MUON_EPS, sharded: Optional[tuple] = None,
+                                shape: Optional[tuple[int, int]] = None) -> torch.Tensor:
     """optax ``orthogonalize_via_newton_schulz`` on a 2-D leaf in the JAX
     layout ``[in, out]`` (reduction axis 0): the wider side goes last, the
-    Frobenius norm is divided out, then ``steps`` quintic iterations."""
-    transposed = x.shape[0] > x.shape[1]
+    Frobenius norm is divided out, then ``steps`` quintic iterations.
+    ``sharded``: (dim, (mesh, mesh dims)) when ``x`` is a shard of a leaf
+    of the whole ``shape``: the norm and the Gram matrix are summed over
+    those mesh dims when the wider side is the sharded one; else the
+    shards are gathered (in rank order: the iteration commutes with a
+    permutation of the rows) and this rank's rows cut back out."""
+    shape = tuple(x.shape) if shape is None else shape
+    transposed = shape[0] > shape[1]
     if transposed:
         x = x.t()
-    x = x / (torch.linalg.norm(x) + _c(eps, x))
+    dim = None if sharded is None else (1 - sharded[0] if transposed else sharded[0])
+    where = None if sharded is None else sharded[1]
+    rows = None
+    if dim == 0:
+        import torch.distributed as dist
+
+        from automodel_tpu_torch.parallel.plans import _group_over
+
+        group = _group_over(*where)
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        rows = (dist.get_rank(group) * x.shape[0], x.shape[0])
+        x, where = torch.cat(parts), None
+    norm = torch.sqrt(_all_reduce(torch.sum(x * x), where)) if where is not None else torch.linalg.norm(x)
+    x = x / (norm + _c(eps, x))
     a0, a1, a2 = (_c(c, x) for c in coeffs)
     for _ in range(steps):
-        a = x @ x.t()
+        a = _all_reduce(x @ x.t(), where)
         b = a1 * a + a2 * (a @ a)
         x = a0 * x + b @ x
+    if rows is not None:
+        x = x.narrow(0, *rows)
     return x.t() if transposed else x
 
 
@@ -445,45 +601,81 @@ class Muon(_Chain):
     orthogonalized, scaled by ``sqrt(max(1, out / in))``, decoupled weight
     decay, the schedule); every other leaf takes Nesterov AdamW with
     ``adam_b1`` / ``adam_b2`` and no weight decay. So a stacked layer kernel
-    ``[L, in, out]`` takes Adam, while the embedding, an untied lm_head and
-    the stacked norm scales ``[L, H]`` take Muon."""
+    ``[L, in, out]`` (and an expert slab ``[L, E, ...]``) takes Adam, while
+    the embedding, an untied lm_head and the stacked norm scales ``[L, H]``
+    take Muon. Adam's branch is elementwise, so it runs tensor by tensor
+    on the (local) tensors; a Muon leaf is stacked (its members are
+    vectors, or it is one matrix). ``like``: the parameters as placed."""
 
-    def __init__(self, params, schedule, leaves: Sequence[JaxLeaf], b1=0.9, b2=0.999, **kw):
+    def __init__(self, params, schedule, leaves: Sequence[JaxLeaf], b1=0.9, b2=0.999, like=None, **kw):
         super().__init__(params, schedule, **kw)
         self.b1, self.b2 = b1, b2
+        self.like = list(like) if like is not None else self.params
         self.leaves = [lf for lf in leaves if all(self.trainable[i] for i in lf.index)]
-        self.muon_leaves = {lf.path for lf in self.leaves if lf.gather(self.params).dim() == 2}
-        self.mu = {lf.path: torch.zeros_like(lf.gather(self.params)) for lf in self.leaves}
-        self.nu = {lf.path: torch.zeros_like(lf.gather(self.params))
-                   for lf in self.leaves if lf.path not in self.muon_leaves}
+        self.muon_leaves = {lf.path for lf in self.leaves if len(lf.shape(self.like)) == 2}
+
+        def zeros(lf):
+            p = self.params[lf.index[0]]
+            local = (len(lf.index),) * lf.stacked + tuple(lf.member(p).shape)
+            return torch.zeros(local, dtype=p.dtype, device=p.device)
+
+        self.mu = {lf.path: zeros(lf) for lf in self.leaves}
+        self.nu = {lf.path: zeros(lf) for lf in self.leaves if lf.path not in self.muon_leaves}
 
     def state_tree(self, names):
-        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+        """The moments keyed by JAX leaf path, placed as their leaves
+        (``JaxLeaf.placed``) and the count."""
+        leaves = {lf.path: lf for lf in self.leaves}
+        return {"count": self.count, **{key: {k: leaves[k].placed(t, self.like) for k, t in st.items()}
+                                        for key, st in (("mu", self.mu), ("nu", self.nu))}}
 
     def _updates(self, grads, lr):
         c = self.count + 1
         for lf in self.leaves:
-            g, mu = lf.gather(grads), self.mu[lf.path]
             if lf.path in self.muon_leaves:
-                beta = MUON_BETA
-                mu = _c(1 - beta, g) * g + _c(beta, mu) * mu
-                m_hat = _c(beta, mu) * _bias_correction(mu, beta, c + 1) + _c(1 - beta, g) * _bias_correction(g, beta, c)
-                u = orthogonalize_newton_schulz(m_hat)
-                u = math.sqrt(max(1.0, u.shape[1] / u.shape[0])) * u
-                if self.weight_decay:
-                    p = lf.gather(self.params)
-                    u = u + _c(self.weight_decay, p) * p
+                yield from self._muon_leaf(lf, grads, lr, c)
             else:
-                nu = self.nu[lf.path]
-                mu = _c(1 - self.b1, g) * g + _c(self.b1, mu) * mu
-                nu = _c(1 - self.b2, g) * (g * g) + _c(self.b2, nu) * nu
-                self.nu[lf.path] = nu
-                m_hat = _c(self.b1, mu) * _bias_correction(mu, self.b1, c + 1) + _c(1 - self.b1, g) * _bias_correction(
-                    g, self.b1, c
-                )
-                u = m_hat / (torch.sqrt(_bias_correction(nu, self.b2, c)) + _c(MUON_EPS, nu))
-            self.mu[lf.path] = mu
-            yield from zip(lf.index, lf.split(_scale_lr(u, lr)))
+                yield from self._adam_leaf(lf, grads, lr, c)
+
+    def _muon_leaf(self, lf, grads, lr, c):
+        g, mu = lf.gather(grads), self.mu[lf.path]
+        beta = MUON_BETA
+        mu = _c(1 - beta, g) * g + _c(beta, mu) * mu
+        self.mu[lf.path] = mu
+        m_hat = _c(beta, mu) * _bias_correction(mu, beta, c + 1) + _c(1 - beta, g) * _bias_correction(g, beta, c)
+        shape = lf.shape(self.like)
+        shard = lf.sharding(self.like)
+        if len(shard) > 1:
+            raise ValueError(f"{lf.path}: muon's Newton-Schulz takes a leaf sharded on one dim, not on {sorted(shard)}")
+        sharded = next(((d + lf.stacked, w) for d, w in shard.items()), None)
+        u = orthogonalize_newton_schulz(m_hat, sharded=sharded, shape=shape)
+        u = math.sqrt(max(1.0, shape[1] / shape[0])) * u
+        if self.weight_decay:
+            p = lf.gather(self.params)
+            u = u + _c(self.weight_decay, p) * p
+        yield from zip(lf.index, lf.split(_scale_lr(u, lr)))
+
+    def _adam_leaf(self, lf, grads, lr, c):
+        # elementwise: each tensor in its own layout, its moments' slice of the
+        # leaf's; the moments take their update's dtype, as optax's do
+        for st in (self.mu, self.nu):
+            dt = torch.promote_types(grads[lf.index[0]].dtype, st[lf.path].dtype)
+            if dt != st[lf.path].dtype:
+                st[lf.path] = st[lf.path].to(dt)
+        for j, i in enumerate(lf.index):
+            g = grads[i]
+            mu_s, nu_s = (self.mu[lf.path][j], self.nu[lf.path][j]) if lf.stacked else (self.mu[lf.path], self.nu[lf.path])
+            if lf.transposed:
+                mu_s, nu_s = mu_s.t(), nu_s.t()
+            mu = _c(1 - self.b1, g) * g + _c(self.b1, mu_s) * mu_s
+            nu = _c(1 - self.b2, g) * (g * g) + _c(self.b2, nu_s) * nu_s
+            m_hat = _c(self.b1, mu) * _bias_correction(mu, self.b1, c + 1) + _c(1 - self.b1, g) * _bias_correction(
+                g, self.b1, c
+            )
+            u = m_hat / (torch.sqrt(_bias_correction(nu, self.b2, c)) + _c(MUON_EPS, nu))
+            mu_s.copy_(mu)
+            nu_s.copy_(nu)
+            yield i, _scale_lr(u, lr)
 
 
 def build_optimizer(
@@ -498,14 +690,18 @@ def build_optimizer(
     moments_dtype: str | None = None,
     names: Optional[Sequence[str]] = None,
     trainable: Optional[Sequence[bool]] = None,
+    leaf_of: Optional[Callable] = None,
+    like: Optional[Sequence[torch.Tensor]] = None,
     **sched_kwargs: Any,
 ):
     """The ``optimizer:`` section over ``params``. Schedule keys may sit in
     ``lr_schedule`` or at the top level (JAX :107); a string ``lr: 1e-2``
     (YAML 1.1 reads dotless scientific notation as a string) is coerced.
     ``names`` (the parameters' names) are needed by ``adafactor`` and
-    ``muon``, which compute on the JAX param tree's leaves; ``trainable``
-    freezes tensors (``training/freeze.py``)."""
+    ``muon``, which compute on the JAX param tree's leaves (``leaf_of``:
+    the model's map of a name to its leaf; ``like``: the parameters as
+    placed, when ``params`` are their local shards); ``trainable`` freezes
+    tensors (``training/freeze.py``)."""
     lr, weight_decay, eps = float(lr), float(weight_decay), float(eps)
     b1, b2 = (float(b) for b in betas)
     grad_clip_norm = float(grad_clip_norm) if grad_clip_norm else None
@@ -517,10 +713,10 @@ def build_optimizer(
     if name in ("adafactor", "muon"):
         if names is None:
             raise ValueError(f"optimizer {name!r} needs the parameters' names to find their JAX leaves")
-        leaves = jax_leaves(names)
+        leaves = jax_leaves(names, leaf_of)
         if name == "adafactor":
-            return Adafactor(params, schedule, leaves, weight_decay=weight_decay, **kw)
-        return Muon(params, schedule, leaves, b1=b1, b2=b2, weight_decay=weight_decay, **kw)
+            return Adafactor(params, schedule, leaves, like=like, weight_decay=weight_decay, **kw)
+        return Muon(params, schedule, leaves, b1=b1, b2=b2, like=like, weight_decay=weight_decay, **kw)
     if name not in OPTIMIZERS:
         raise ValueError(f"Unknown optimizer {name!r}; available: {sorted(OPTIMIZERS)}")
     decay = weight_decay if name in ("adamw", "lion") else 0.0

@@ -27,7 +27,8 @@ raises, with no fall back to gloo or to one process.
 
 Refused by name: ``pp > 1`` (the pipeline schedules). ``ep > 1`` splits
 the MoE families' experts over the ``ep`` ranks, which exchange their
-tokens (``parallel/plans.parallelize``). ``hybrid_mesh_shapes`` computes
+tokens, ``tp > 1`` their intermediate dim, and FSDP2 shards them over
+``expert_fsdp`` (``parallel/plans.parallelize``). ``hybrid_mesh_shapes`` computes
 the nodes x local-devices split JAX lays over DCN, here the split HSDP
 takes across hosts.
 """
@@ -255,6 +256,16 @@ class MeshContext:
         if self.size(MeshAxisName.DP_REPLICATE) > 1:
             return self._need_mesh()[(MeshAxisName.DP_REPLICATE, "fsdp")]
         return self.submesh("fsdp")
+
+    def expert_fsdp_mesh(self) -> Any:
+        """The mesh FSDP2 shards the MoE layers' expert slabs over:
+        ``expert_fsdp`` (``dp_shard, cp``: the ranks that hold the same
+        experts, as the reference's separate MoE mesh groups them,
+        ``mesh_utils.py:302-334``), or (``dp_replicate``, ``expert_fsdp``)
+        for HSDP. The slabs' own mesh is (``ep``, ``tp``)."""
+        if self.size(MeshAxisName.DP_REPLICATE) > 1:
+            return self._need_mesh()[(MeshAxisName.DP_REPLICATE, "expert_fsdp")]
+        return self.submesh("expert_fsdp")
 
     def __repr__(self) -> str:
         return f"MeshContext(shape={self.shape})"

@@ -18,18 +18,25 @@ things on a built model (``parallelize``):
    loss reads the local logits (``ops/losses.vocab_parallel_cross_entropy``).
    The attention reads its local head counts off the projections, so
    ``tp`` must divide both head counts.
-2. Expert parallelism (``ep > 1``), where a rule names ``expert``: each
-   MoE layer's expert slabs become DTensors sharded on the expert dim
-   (``Shard(0)``) over the ``ep`` mesh dim, so a rank holds and updates
-   ``E / ep`` experts, and the layer gets its ``ep_group``, over which the
-   ``a2a`` / ``a2a_fused`` experts exchange tokens and ``gspmd`` its
-   experts' slots (the backends that take it). The slabs stay whole over ``expert_fsdp`` (``dp_shard,
-   cp``) and ``dp_replicate``, where JAX shards them on ``expert_fsdp``:
-   FSDP2 leaves them out, and their gradients are summed over those ranks
-   (the ranks that hold the same experts) as each microbatch's backward
-   accumulates them. Tensor parallelism of the slabs (JAX's ``tp_axis``
-   split of the intermediate dim inside the a2a body) is not ported:
-   ``tp`` on an MoE family is refused.
+2. The MoE layers' expert slabs, where the rules name ``expert``,
+   ``tensor`` and ``expert_fsdp`` (``place_experts``): under ``ep > 1``
+   or ``tp > 1`` each slab becomes a DTensor on the (``ep``, ``tp``) mesh,
+   ``Shard(0)`` on the expert dim over ``ep`` (a rank holds and updates ``E
+   / ep`` experts) and its intermediate dim sharded over ``tp``
+   (``gate_up`` [E, D, 2I] and ``gate_up_bias`` on their last dim, ``down``
+   [E, I, D] on dim 1; the down bias whole): the canonical layout, which
+   checkpoints and exports read as they are, ``moe/experts.tp_slabs``
+   turning a rank's shards into its ``[g_r | u_r]`` operands. The layer
+   gets its ``ep_group`` (the token exchange of ``a2a`` / ``a2a_fused``,
+   ``gspmd``'s slots) and its ``tp_group`` (the partial sums). Each
+   layer's ``experts`` module is then its own FSDP2 unit over
+   ``expert_fsdp`` (``dp_shard, cp``; with ``dp_replicate`` HSDP), sharding
+   the model width (JAX's ``expert_fsdp`` dim) or a bias's first dim no
+   other mesh dim splits: the replicas of a rank's experts share the
+   shards and sum their gradients by FSDP2's reduce-scatter, as JAX's
+   GSPMD does. The shared experts and the attention of the MoE families
+   take their TP plans from the same rules (MLA's low-rank ``q_a`` /
+   ``kv_a`` stay replicated; GPT-OSS's sinks are sharded by head).
 3. FSDP2: ``fully_shard`` on each decoder layer, then on the root, over the
    ``fsdp`` grouping, or the 2-D (``dp_replicate``, ``fsdp``) mesh for
    HSDP. FSDP2 shards each tensor's first dim; which dim JAX's rules name
@@ -58,14 +65,14 @@ from automodel_tpu_torch.parallel.mesh import MeshAxisName, MeshContext
 
 Rules = Sequence[tuple[str, tuple]]
 
-def path_str(name: str) -> str:
+def path_str(name: str, model: Optional[nn.Module] = None) -> str:
     """A port tensor's HF name → the JAX path ``a/b/c`` its rules match
-    (``models/llama/state_dict_adapter.jax_leaf_of``); a name the map does
-    not know (the MoE families' expert slabs and routers) keeps its dotted
-    parts joined by ``/``."""
+    (the model's ``jax_leaf_of``, the MoE families'; else the dense
+    families' ``models/llama/state_dict_adapter.jax_leaf_of``); a name the
+    map does not know keeps its dotted parts joined by ``/``."""
     from automodel_tpu_torch.models.llama.state_dict_adapter import jax_leaf_of
 
-    where = jax_leaf_of(name)
+    where = getattr(model, "jax_leaf_of", jax_leaf_of)(name)
     return where[0] if where is not None else name.replace(".", "/")
 
 
@@ -96,7 +103,7 @@ def tp_plan(model: nn.Module, rules: Rules) -> dict[str, Any]:
     for mod_name, mod in model.named_modules():
         if not isinstance(mod, (nn.Linear, nn.Embedding)):
             continue
-        spec = match_rule(path_str(f"{mod_name}.weight"), rules)
+        spec = match_rule(path_str(f"{mod_name}.weight", model), rules)
         dim = None if spec is None else _tensor_dim(spec)
         if dim is None:
             continue
@@ -124,12 +131,12 @@ def check_tp(model: nn.Module, tp: int) -> None:
     if tp <= 1:
         return
     cfg = model.config
-    if getattr(cfg, "moe", None) is not None:
-        raise ValueError(
-            f"distributed.tp={tp} on an MoE family ({type(model).__name__}): tensor parallelism of the "
-            "expert slabs (the a2a body's tp_axis split of the intermediate dim, its partial down "
-            "products summed after the combine) is not ported to the torch backend yet"
-        )
+    moe = getattr(cfg, "moe", None)
+    if moe is not None:
+        shared = (moe.shared_expert_intermediate_size or moe.moe_intermediate_size) * moe.num_shared_experts
+        for what, n in (("moe_intermediate_size", moe.moe_intermediate_size), ("the shared experts' width", shared)):
+            if n % tp:
+                raise ValueError(f"tp={tp} must divide {what}={n}: each rank runs an I-shard of every expert")
     if cfg.num_heads % tp or cfg.num_kv_heads % tp:
         raise ValueError(
             f"tp={tp} must divide num_attention_heads={cfg.num_heads} and num_key_value_heads="
@@ -139,52 +146,98 @@ def check_tp(model: nn.Module, tp: int) -> None:
         raise ValueError(f"tp={tp} must divide vocab_size={cfg.vocab_size} (the vocab-parallel embedding and loss)")
 
 
-def expert_parallel(model: nn.Module, ctx: MeshContext) -> set:
-    """Split each MoE layer's expert slabs over ``ep`` (``Shard(0)`` on the
-    ``ep`` mesh dim) and hand the layer its ``ep_group`` → the slab
-    parameters (FSDP2 leaves them out). Their gradients are summed over
-    the ranks holding the same experts, when there are more than one."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import Shard, distribute_tensor
+# each slab's placements on the (ep, tp) mesh: the expert dim over ep, the
+# intermediate dim over tp (models/qwen3_moe SHARDING_RULES), and the dim
+# FSDP2 shards over expert_fsdp (the rules' ``expert_fsdp``: the width)
+_SLAB_TP_DIM = {"gate_up": 2, "down": 1, "gate_up_bias": 1, "down_bias": None}
+_SLAB_EFSDP_DIM = {"gate_up": 1, "down": 2}
+
+
+def _efsdp_dim(name: str, p: torch.Tensor) -> int:
+    """The dim FSDP2 shards a slab on over ``expert_fsdp``: the rules' one,
+    or for a bias the first dim neither ``ep`` nor ``tp`` splits (else its
+    last, strided over the mesh dim that splits it too)."""
+    if name in _SLAB_EFSDP_DIM:
+        return _SLAB_EFSDP_DIM[name]
+    ep, tp = (p.device_mesh.size(0), p.device_mesh.size(1)) if is_sharded(p) else (1, 1)
+    split = {0} if ep > 1 else set()
+    if _SLAB_TP_DIM[name] is not None and tp > 1:
+        split.add(_SLAB_TP_DIM[name])
+    return next((d for d in range(p.dim()) if d not in split), p.dim() - 1)
+
+
+def place_experts(model: nn.Module, ctx: MeshContext) -> None:
+    """Place each MoE layer's expert slabs over (``ep``, ``tp``) and hand
+    the layer its groups (module docstring, 2.). Refuses ``ep > 1`` with a
+    backend that does not exchange tokens."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from automodel_tpu_torch.moe.experts import EP_BACKENDS, EPGroup
     from automodel_tpu_torch.moe.layer import MoEBlock
 
-    ep = ctx.ep_size
+    ep, tp = ctx.ep_size, ctx.tp_size
     blocks = [m for m in model.modules() if isinstance(m, MoEBlock)]
+    if not blocks or (ep == 1 and tp == 1):
+        return
     experts = getattr(model.backend, "experts", None)
-    if blocks and experts not in EP_BACKENDS:
+    if ep > 1 and experts not in EP_BACKENDS:
         raise ValueError(
             f"distributed.ep={ep} needs the token-exchange experts {list(EP_BACKENDS)}, not experts={experts!r}"
         )
-    ep_mesh = ctx.submesh(MeshAxisName.EP)
-    group = EPGroup(ep, ctx.coordinate(MeshAxisName.EP), ctx.group(MeshAxisName.EP))
-    replicas = [MeshAxisName.DP_REPLICATE, MeshAxisName.DP_SHARD, MeshAxisName.CP]
-    replicas = tuple(a for a in replicas if ctx.size(a) > 1)
-    sum_group = _group_over(ctx.mesh, replicas) if replicas else None
-    slabs: set = set()
+    mesh = ctx.mesh[(MeshAxisName.EP, MeshAxisName.TP)]
+    groups = {a: EPGroup(ctx.size(a), ctx.coordinate(a), ctx.group(a)) for a in (MeshAxisName.EP, MeshAxisName.TP)}
     for block in blocks:
-        # every slab (gate_up, down and the gpt-oss biases): the rules name
-        # ``expert`` on each one's leading dim (models/qwen3_moe SHARDING_RULES)
         for name, p in list(block.experts.named_parameters(recurse=False)):
             if p.shape[0] % ep:
                 raise ValueError(f"num_experts={p.shape[0]} must be divisible by ep={ep}")
-            placed = nn.Parameter(distribute_tensor(p.detach(), ep_mesh, [Shard(0)]), requires_grad=p.requires_grad)
+            tp_dim = _SLAB_TP_DIM[name]
+            placements = [Shard(0), Replicate() if tp_dim is None else Shard(tp_dim)]
+            placed = nn.Parameter(distribute_tensor(p.detach(), mesh, placements), requires_grad=p.requires_grad)
             setattr(block.experts, name, placed)
-            if sum_group is not None:
-                placed.register_post_accumulate_grad_hook(
-                    lambda q: dist.all_reduce(q.grad.to_local(), group=sum_group))
-            slabs.add(placed)
-        block.ep_group = group
-    return slabs
+        if ep > 1:
+            block.ep_group = groups[MeshAxisName.EP]
+        if tp > 1:
+            block.tp_group = groups[MeshAxisName.TP]
+
+
+def _shard_experts(model: nn.Module, ctx: MeshContext, mp: Any) -> None:
+    """Each MoE layer's ``experts`` an FSDP2 unit over ``expert_fsdp``."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    from automodel_tpu_torch.moe.layer import MoEBlock
+
+    mesh = ctx.expert_fsdp_mesh()
+    for block in (m for m in model.modules() if isinstance(m, MoEBlock)):
+        dims = {id(p): _efsdp_dim(n, p) for n, p in block.experts.named_parameters(recurse=False)}
+        fully_shard(block.experts, mesh=mesh, mp_policy=mp, shard_placement_fn=lambda p: Shard(dims[id(p)]))
+
+
+def _sharded_units(model: nn.Module) -> list:
+    from torch.distributed.fsdp import FSDPModule
+
+    return [m for m in model.modules() if isinstance(m, FSDPModule)]
+
+
+def _distribute_sinks(model: nn.Module, ctx: MeshContext) -> None:
+    """GPT-OSS's per-head sinks ``Shard(0)`` over ``tp``, beside the heads
+    its q projection's plan shards."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    tp_mesh = ctx.submesh(MeshAxisName.TP)
+    for mod in model.modules():
+        p = getattr(mod, "sinks", None)
+        if isinstance(p, nn.Parameter) and not is_sharded(p):
+            mod.sinks = nn.Parameter(distribute_tensor(p.detach(), tp_mesh, [Shard(0)]), requires_grad=p.requires_grad)
 
 
 def parallelize(model: nn.Module, ctx: MeshContext, rules: Optional[Rules] = None, fsdp: bool = True) -> nn.Module:
     """Apply the plans to a built model in place: DTensor TP where the
-    rules name ``tensor`` (``tp > 1``), the expert slabs over ``ep`` (``ep
-    > 1``), then FSDP2 on each decoder layer and the root (``fsdp``). The
-    model's ``hidden`` is registered as an FSDP forward method, so the
-    loss's own path unshards the root's parameters too."""
+    rules name ``tensor`` (``tp > 1``), the expert slabs over (``ep``,
+    ``tp``), then FSDP2 on each layer's experts over ``expert_fsdp``, on
+    each decoder layer and on the root (``fsdp``). The model's ``hidden``
+    is registered as an FSDP forward method, so the loss's own path
+    unshards the root's parameters too."""
     rules = rules if rules is not None else model.sharding_rules
     tp = ctx.tp_size
     if tp > 1:
@@ -192,16 +245,18 @@ def parallelize(model: nn.Module, ctx: MeshContext, rules: Optional[Rules] = Non
 
         check_tp(model, tp)
         parallelize_module(model, ctx.submesh(MeshAxisName.TP), tp_plan(model, rules))
-    slabs = expert_parallel(model, ctx) if ctx.ep_size > 1 else set()
+        _distribute_sinks(model, ctx)
+    place_experts(model, ctx)
     if fsdp:
         from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard, register_fsdp_forward_method
 
         mesh = ctx.fsdp_mesh()
         mp = MixedPrecisionPolicy(reduce_dtype=torch.float32)
+        _shard_experts(model, ctx, mp)
         for layer in decoder_layers(model):
-            fully_shard(layer, mesh=mesh, mp_policy=mp, ignored_params=slabs or None)
-        fully_shard(model, mesh=mesh, mp_policy=mp, ignored_params=slabs or None)
-        for unit in (*decoder_layers(model), model):
+            fully_shard(layer, mesh=mesh, mp_policy=mp)
+        fully_shard(model, mesh=mesh, mp_policy=mp)
+        for unit in _sharded_units(model):
             # each FSDP unit holds its own reduce settings
             unit.set_gradient_divide_factor(1.0)
             if hasattr(unit, "set_force_sum_reduction_for_comms"):

@@ -117,9 +117,12 @@ Sections the port does not run are refused with a ``ValueError`` naming
 them, never ignored: ``peft``, ``qat``, a ``data`` key other than
 ``prefetch`` (an unknown ``data.prefetch`` key raises JAX's ``TypeError``),
 ``distributed.pp > 1`` (the pipeline schedules), ``ep > 1`` with experts
-other than ``a2a`` / ``a2a_fused`` on an MoE family, ``tp > 1`` on an MoE family, ``adafactor`` and
-``muon`` on a mesh of more than one device (they read whole matrices),
-``checkpoint.is_async`` there, and ``attn: ring`` without the section.
+other than ``gspmd`` / ``a2a`` / ``a2a_fused`` on an MoE family,
+``checkpoint.is_async`` on a mesh of more than one device, and ``attn:
+ring`` without the section. ``tp`` and ``expert_fsdp`` place an MoE
+family's expert slabs (``parallel/plans.py``), and ``adafactor`` and
+``muon`` run on the placed leaves, their statistics checkpointed placed
+as their leaves (``optim/builders.py``).
 """
 
 from __future__ import annotations
@@ -311,14 +314,10 @@ class TrainFinetuneRecipeForNextTokenPrediction:
 
         ocfg = dict(_plain(cfg.get("optimizer", None)) or {"name": "adamw"})
         ocfg.pop("_target_", None)
-        if self.mesh_ctx is not None and self.mesh_ctx.world_size > 1 and ocfg.get("name") in ("adafactor", "muon"):
-            raise ValueError(
-                f"optimizer {ocfg['name']!r} on a mesh of {self.mesh_ctx.world_size} devices: it reads whole "
-                "matrices (factored moments, Newton-Schulz), and its sharded form is not ported to the torch "
-                "backend yet"
-            )
-        # the optimizer updates each parameter's local shard (elementwise rules)
-        optimizer = build_optimizer([local(p) for p in params], names=[n for n, _ in named], **ocfg)
+        # the optimizer updates each parameter's local shard; adafactor and
+        # muon read each one's placement and JAX leaf
+        optimizer = build_optimizer([local(p) for p in params], names=[n for n, _ in named],
+                                    leaf_of=getattr(self.model, "jax_leaf_of", None), like=params, **ocfg)
         self.lr_schedule = optimizer.schedule
         self.state = TrainState(params=params, optimizer=optimizer)
 
@@ -716,7 +715,7 @@ class TrainFinetuneRecipeForNextTokenPrediction:
         tensors: the model's state dict (parameters and persistent
         buffers, such as the aux-free router bias), the optimizer's state
         (Adam's moments keyed by parameter name, adafactor's and muon's by
-        JAX leaf path) and its count, and the step."""
+        JAX leaf path, placed as their leaves) and its count, and the step."""
         named = list(self.model.named_parameters())
         optim = self.state.optimizer.state_tree([n for n, _ in named])
         if self.mesh_ctx is not None:

@@ -47,8 +47,9 @@ are summed over the mesh dims each tensor is sharded on, so ``grad_norm``
 and its groups are the whole model's on every rank. The optimizer updates
 the local shards (``state.optimizer`` was built over them). An MoE
 model's expert counts are summed over ``loss_dp`` before the aux-free
-bias update, and its ``moe_aux_loss`` is the mean of the ranks' (each
-rank's aux loss is taken over its own tokens).
+bias update. Its aux loss is JAX's global one: the loss function hands
+each rank's share of it (``make_causal_lm_loss``), so ``moe_aux_loss`` is
+the sum of the shares over ``loss_dp``.
 """
 
 from __future__ import annotations
@@ -134,7 +135,7 @@ def build_train_step(
                 if k in extras_sum:
                     v = extras_sum[k].detach().clone()
                     dist.all_reduce(v, group=loss_group)
-                    extras_sum[k] = v if k == "expert_counts" else v / mesh_ctx.group_size("loss_dp")
+                    extras_sum[k] = v
         denom = torch.clamp(n_tokens, min=1).float()
         # divide in fp32 even for bf16 grads (a bf16-rounded token count is
         # off by up to 0.4%)
@@ -251,15 +252,44 @@ def make_causal_lm_loss(model: Any, loss: str = "masked_ce", mesh_ctx: Any = Non
     (whose forward and ``hidden`` return ``(output, aux)``) adds ``aux_loss
     x n`` to the loss sum, so the global token normalization averages it by
     token, and returns ``extras`` with ``moe_aux_loss`` and
-    ``expert_counts`` (:338-349)."""
+    ``expert_counts`` (:338-349).
+
+    JAX's ``aux_loss`` and ``n`` are the global batch's (GSPMD), so under a
+    ``loss_dp`` group of more than one rank each rank adds its share: the
+    microbatch's global label-token count ``n`` and row count are summed
+    over the group before the forward (one scalar all-reduce; a ``cp`` rank
+    counts its rows as ``1 / cp`` of each), every MoE block's gate takes
+    the global rows and the ``cp`` group that holds each row's tokens
+    (``moe.gate.AuxScope``), and the rank adds ``n x`` its share of the
+    global mean, so the shares add up to JAX's ``aux_loss x n`` over the
+    group; ``moe_aux_loss`` is the share (the step sums it)."""
     from automodel_tpu_torch.ops import losses as L
 
     hidden_path = loss in ("fused_linear_ce", "vocab_parallel_ce")
     build = None if hidden_path else L.build_loss(loss, **loss_kwargs)
     vocab_parallel = loss == "vocab_parallel_ce" and mesh_ctx is not None and mesh_ctx.tp_size > 1
+    aux_group = None
+    if mesh_ctx is not None and mesh_ctx.group_size("loss_dp") > 1 and hasattr(model, "moe_layers"):
+        aux_group = mesh_ctx.group("loss_dp")
+
+    def global_counts(mb: dict):
+        """(n, rows) of the microbatch over ``loss_dp``, set as every MoE
+        block's aux scope → the global label-token count."""
+        import torch.distributed as dist
+
+        from automodel_tpu_torch.moe.gate import AuxScope
+
+        labels, cp = mb["labels"], mesh_ctx.cp_size
+        counts = torch.stack([(labels != -100).sum().float(), torch.tensor(labels.shape[0] / cp, device=labels.device)])
+        dist.all_reduce(counts, group=aux_group)
+        scope = AuxScope(counts[1], aux_group, mesh_ctx.group("cp") if cp > 1 else None, cp)
+        for block in model.moe_layers():
+            block.aux_scope = scope
+        return counts[0]
 
     def loss_fn(mb: dict):
         kw = {k: mb[k] for k in ("position_ids", "segment_ids") if mb.get(k) is not None}
+        n_global = global_counts(mb) if aux_group is not None else None
         if hidden_path:
             out = model.hidden(mb["input_ids"], **kw)
             hidden, maux = out if isinstance(out, tuple) else (out, None)
@@ -281,7 +311,7 @@ def make_causal_lm_loss(model: Any, loss: str = "masked_ce", mesh_ctx: Any = Non
             loss_sum, n = build(logits, mb["labels"])
         if maux is None:
             return loss_sum, n
-        loss_sum = loss_sum + maux.aux_loss * n.float()
+        loss_sum = loss_sum + maux.aux_loss * (n if n_global is None else n_global).float()
         extras = {"moe_aux_loss": maux.aux_loss.detach(), "expert_counts": maux.expert_counts}
         return loss_sum, n, extras
 

@@ -155,8 +155,9 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    consolidation times and bytes are printed beside the card's name and
    power limit, and the directory is deleted;
 18. the ``benchmark llm`` recipe (``recipes.benchmark.main`` on the
-   ``configs/benchmark_*.yaml`` dicts), 3 warmup and 10 measured steps in
-   four legs, each a fresh recipe: (a) Llama-3-8B widths cut to 8 layers,
+   ``configs/benchmark_*.yaml`` dicts), 2 warmup and 5 measured steps
+   (``BENCH_STEPS_ON_CARD``, where the configs say 3 and 10) in four
+   legs, each a fresh recipe: (a) Llama-3-8B widths cut to 8 layers,
    2 x 4096 tokens, with the decode leg (4 greedy prompts of 64 tokens, 64
    new tokens each) and the serving leg (16 Poisson requests at 8 a second,
    128-1024 prompt tokens, 64 new, through the paged kernel); (b)
@@ -215,7 +216,7 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    tokens a second (spec on and off) and the peak device memory are
    printed;
 21. the serving front and the host spill tier at Llama-3-8B's published
-   widths and 16 of its 32 layers (32 before PR 20: cut to keep the script
+   widths and FRONT_LAYERS (8) of its 32 layers (cut to keep the script
    inside its time limit; ``configs/serve_llama3_8b_front.yaml`` as a
    dict, random bf16 weights): (a) one slot on a 512-block bf16 pool with
    a 4 GiB host tier, 4 groups of a 2048-token prefix, each arriving 2
@@ -241,7 +242,7 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    the requests after it decode the tokens they decoded before. Every
    serving phase (4, 18's leg (a), 20, 21, 22) checks that its engines
    rebuilt for no error and no unplanned stall;
-22. traced serving at Llama-3-8B's published widths and 16 layers
+22. traced serving at Llama-3-8B's published widths and FRONT_LAYERS (8)
    (phase 21's config with ``tracing: {enabled: true, sample_rate: 1.0}``,
    through ``serving.server.build_tracer`` and the HTTP front): 16 POSTs
    of 256-1024 prompt tokens and 64 new from 8 client threads, 8 of them
@@ -282,8 +283,8 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    (``data/synthetic.py``) from seeds, sizes and seconds printed; the
    index built by the native helpers (``g++``), which must have built and
    run; (b) ``configs/pretrain_llama3_8b_megatron.yaml`` as a dict,
-   Llama-3-8B at 16 of its 32 layers (32 before PR 20: cut to keep the
-   script inside its time limit) on that corpus through the ``pretrain``
+   Llama-3-8B at DATA_PRETRAIN_LAYERS (8) of its 32 layers (cut to keep
+   the script inside its time limit) on that corpus through the ``pretrain``
    recipe class, 6 steps of 4096 tokens three times: sync, with
    ``data.prefetch`` (depth 2, 2 collate workers), sync again. Every batch
    read back from the card after its step equals the host's collate and
@@ -309,8 +310,8 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    window and ends with the loader at batch 7, where JAX's arithmetic puts
    it. The corpora and checkpoints are deleted.
 25. the training run's telemetry, profiling, goodput, metrics port and
-   guard, on a 2^22-token Megatron corpus: (a) phase 24's config at 16
-   layers, 7 steps, with every section on (the memory census every 3
+   guard, on a 2^22-token Megatron corpus: (a) phase 24's config at
+   DATA_PRETRAIN_LAYERS (8), 7 steps, with every section on (the memory census every 3
    steps, a manual ``torch.profiler`` window over step 4, the cost count
    of step 1, ``metrics_server`` on a free port, the guard's defaults) and
    again with each ``enabled: false``: the losses and grad norms must be
@@ -358,13 +359,15 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    K1 time and live pairs printed, and the ring through K1 held to the ring
    through the plain versions at S = 2048; (c) in the same child, ``attn:
    ring`` at cp = 1 against ``attn: flash`` at 2 layers of those widths: the
-   same losses and grad norms bit for bit. The card is one device, so no
+   same losses and grad norms bit for bit; then phase 28 (b)'s two runs,
+   which phase 28 checks (one torchrun start fewer). The card is one device, so no
    collective crosses ranks here: NCCL across ranks is not measured.
 27. DeepSeek-V3's family: (a) ``configs/pretrain_moonlight_16b_a3b.yaml``
    as a dict, Moonlight-16B-A3B's published widths (MLA with q_lora_rank
    null, 128 nope + 64 rope channels, v 128; 64 experts top-6 of width
-   1408 with 2 shared, sigmoid aux-free routing; vocab 163840) cut to 7
-   layers (the dense first and 6 MoE), 4 steps of 2 microbatches of 4096
+   1408 with 2 shared, sigmoid aux-free routing; vocab 163840) cut to
+   MOONLIGHT_TRAIN_LAYERS (4: the dense first and 3 MoE, where the config
+   has 7), 4 steps of 2 microbatches of 4096
    tokens through the ``pretrain`` recipe class with ``attn: flash`` (K1
    at head_dim 192, v padded) and ``experts: ragged_fused`` (K3): every
    kernel's launches counted, the loss falling, each layer's correction
@@ -379,9 +382,33 @@ Phases, each fatal on failure (exit 1, and no final ``ok`` line):
    ep = 4 virtual ranks in this process (K3 on each rank's 16 experts)
    against ``ragged_fused`` over the row. The all-to-all across cards is
    not measured: one card.
+28. the rest of MoE: (a) one MoE layer of Moonlight-16B-A3B (D 2048, 64
+   experts top-6, I 1408) and one of gpt-oss-20b (D 2880, 32 experts
+   top-4, I 2880, ``swiglu_oai`` with its biases) at full width, on their
+   layer's real input (a 4096-token row), through ``a2a_fused`` (K3 at the
+   I-shard, 704 and 1440) and ``a2a`` (K2) at ep = 2 x tp = 2 virtual
+   ranks in this process (each tp rank the I-shard of its ep rank's
+   experts, the down bias on tp rank 0 outside K3, the fp32 partials
+   summed) against ``ragged_fused`` / ``ragged`` over the row on one rank:
+   out and dx rows within 2^-6, the slabs' grad rows within 2^-10; K3's
+   forward and K2's gmm timed on rank (0, 0)'s rows at each I-shard beside
+   their plain versions, bounds and ``torch._grouped_mm``; (b) Moonlight
+   at 3 layers, 3 steps, unwrapped and under FSDP2 at world 1 (each MoE
+   layer's experts an FSDP2 unit over ``expert_fsdp``) in phase 26's
+   one-rank NCCL torchrun child: losses and grad norms bit for bit, K3
+   counted;
+   (c) muon, then adafactor, on Moonlight at 3 layers through the recipe:
+   the partition (Newton-Schulz or Adam, factored or not) printed with the
+   step time and the peak, the loss falling; (d) gpt-oss-20b at 3 layers
+   written from seeded weights into an MXFP4 checkpoint (``pack_mxfp4`` on
+   the card) and a bf16 one of the dequantized slabs, both loaded with
+   ``from_pretrained``: the logits bit for bit, the MXFP4 load's seconds
+   and GB/s, one training step through K3. The collectives across cards
+   are not measured: one card.
 
 Phases 11 and 12 run right after phase 8, phases 13 and 14 after phase 10,
-phase 3b right after phase 3, phases 15 to 27 last. After the build the
+phase 3b right after phase 3, phases 15 to 28 last; the whole run's
+seconds come last before the ``kernels`` line. After the build the
 script prints ptxas's registers and spills for each flash, grouped-matmul
 and paged-attention kernel, with the registers its SASS names and the
 counts its ``setmaxnreg`` instructions set (flash and grouped matmul), and
@@ -2497,10 +2524,18 @@ def spec_paged_launches(engines) -> tuple[int, str]:
     return total, " + ".join(terms) + f" = {total}"
 
 
+# phase 18's legs on the card: 2 warmup and 5 measured steps (the configs
+# say 3 and 10), for the script's time; the legs' step counts are checked
+# against these
+BENCH_STEPS_ON_CARD = dict(warmup_steps=2, measure_steps=5)
+
+
 def bench_config(base: dict, tag: str) -> dict:
-    """A phase-18 leg's config on the card with a JSONL path of its own."""
+    """A phase-18 leg's config on the card with a JSONL path of its own,
+    at BENCH_STEPS_ON_CARD."""
     cfg = json.loads(json.dumps(base))
     cfg["device"] = "cuda"
+    cfg["benchmark"] = dict(cfg["benchmark"], **BENCH_STEPS_ON_CARD)
     here = __import__("pathlib").Path(__file__).resolve().parent
     cfg["logging"]["metrics_path"] = str(here / "runs" / "chip_smoke" / f"bench_{tag}_{time.time_ns()}.jsonl")
     return cfg
@@ -3766,16 +3801,16 @@ DATA_NANOGPT_SHARDS = 2
 DATA_NANOGPT_SHARD_TOKENS = 2**23
 DATA_NANOGPT_WEIGHTS = (1.0, 2.0, 1.0)
 DATA_STEPS = 6
-# phase 24 (b) and phase 25 (a)-(b) at 16 of Llama-3-8B's 32 layers (32
-# before PR 20): phase 27 made the whole script 1185.5 s of its 1200 s on
-# one card, so the depth of these runs was cut
-DATA_PRETRAIN_LAYERS = 16
+# phase 24 (b) and phase 25 (a)-(b) at 8 of Llama-3-8B's 32 layers: the
+# whole script read up to 1185.5 s of its 1200 s on one card at 16, with
+# phases 27 and 28 to fit, so the depth of these runs was cut
+DATA_PRETRAIN_LAYERS = 8
 DATA_PEAK_GIB = 79.0
 DATA_PACKED_LAYERS = 8
 DATA_RESUME_LAYERS = 2
 DATA_SAVE_STEP = 2
 
-# (a)/(b): a 512-block pool (0.5 GiB bf16 at 16 layers) holds about three
+# (a)/(b): a 512-block pool (0.25 GiB bf16 at 8 layers) holds about three
 # groups of a 2048-token shared prefix (128 blocks) + a 64-token suffix + 32
 # new tokens
 FRONT_POOL_BLOCKS = 512
@@ -3789,10 +3824,10 @@ FRONT_TIE_ULPS = 3
 FRONT_WATCHDOG = dict(min_deadline_s=2.0, max_deadline_s=4.0, multiplier=2.0, compile_grace_s=120.0,
                       poll_interval_s=0.05)
 FRONT_STALL_S = 6.0
-# phases 21 and 22 at 16 of Llama-3-8B's 32 layers (32 before PR 20): the
-# whole script read 923.7-1185.5 s of its 1200 s on one card in PR 20, the
-# host-bound phases 30% apart between calls
-FRONT_LAYERS = 16
+# phases 21 and 22 at 8 of Llama-3-8B's 32 layers: the whole script read
+# 923.7-1185.5 s of its 1200 s on one card at 16, the host-bound phases
+# 30% apart between calls, with phase 28 to fit
+FRONT_LAYERS = 8
 
 
 def front_config(**serving) -> dict:
@@ -4964,7 +4999,7 @@ def run_pretrain_megatron(torch, prefix, prefetch: bool, tag: str) -> dict:
 
 
 def phase_data_pretrain(torch, prefix) -> dict:
-    """Phase 24 (b): Llama-3-8B at 16 layers on the Megatron corpus, sync,
+    """Phase 24 (b): Llama-3-8B at DATA_PRETRAIN_LAYERS on the Megatron corpus, sync,
     prefetched, sync: the batches and the losses held to the sync runs."""
     sync_a = run_pretrain_megatron(torch, prefix, False, "megatron_sync_a")
     pf = run_pretrain_megatron(torch, prefix, True, "megatron_prefetch")
@@ -5281,7 +5316,7 @@ def flash_counts(top_ops: list) -> dict:
 def phase_obs_on_off(torch, prefix, root) -> dict:
     """Phase 25 (a): every section on (a memory cadence, a manual profile
     window, the cost count, a metrics port, the guard's defaults) and every
-    section off, at 16 layers: the same losses and grad norms bit for bit;
+    section off, at DATA_PRETRAIN_LAYERS: the same losses and grad norms bit for bit;
     the records' keys, one cost_attribution event, a /metrics scrape at the
     last step, and the goodput ledger summing to the wall clock."""
     from automodel_tpu_torch.telemetry.goodput import _read_records, rollup
@@ -5379,7 +5414,7 @@ def phase_obs_on_off(torch, prefix, root) -> dict:
 
 
 def phase_obs_profile(torch, prefix, root) -> dict:
-    """Phase 25 (b): the ``profile`` command at 16 layers: the trace must
+    """Phase 25 (b): the ``profile`` command at DATA_PRETRAIN_LAYERS: the trace must
     hold device kernel events (it fails with none), K1's three kernels
     among the top ops with layers x steps launches (the forward twice under
     remat: full), the busy share and the largest host gaps printed."""
@@ -5661,20 +5696,23 @@ RING_TIMING_ITERS = 5
 
 
 def fsdp_child(out_path: str, *configs: str) -> int:
-    """The torchrun child of phase 26 (a) and (c): ``finetune llm`` through
-    the CLI's ``main`` for each config in turn, in the one-rank NCCL group
-    torchrun set up; writes each run's exit code, K1 launches and peak
-    device memory."""
+    """The torchrun child of phases 26 (a), (c) and 28 (b): ``finetune
+    llm`` through the CLI's ``main`` for each config in turn, in the
+    one-rank NCCL group torchrun set up; writes each run's exit code, K1
+    launches, K2 and K3 launches (``moe_launches``) and peak device
+    memory."""
     import torch
 
     from automodel_tpu_torch.cli import app
     from automodel_tpu_torch.ops import ring_flash as rf
 
     kernels = dict(fwd=rf.flash_block_fwd, dq=rf.flash_block_dq, dkv=rf.flash_block_dkv)
+    moe = {k: v for k, v in fused_kernel_counters().items() if not k.startswith("flash")}
     runs = []
     for cfg in configs:
         for f in kernels.values():
             f.launches = 0
+        moe_before = {k: getattr(f, a) for k, (f, a) in moe.items()}
         # the last run's FSDP state holds cycles: free it before the next
         gc.collect()
         torch.cuda.empty_cache()
@@ -5685,6 +5723,7 @@ def fsdp_child(out_path: str, *configs: str) -> int:
         torch.cuda.synchronize()
         runs.append(dict(config=cfg, rc=rc, wall_s=time.perf_counter() - t0, allocated_at_start_gib=at_start,
                          launches={k: f.launches for k, f in kernels.items()},
+                         moe_launches={k: getattr(f, a) - moe_before[k] for k, (f, a) in moe.items()},
                          peak_gib=torch.cuda.max_memory_allocated() / 2**30))
         print(f"fsdp child: {json.dumps(runs[-1])}", flush=True)
     if int(os.environ.get("RANK", "0")) == 0:
@@ -5696,8 +5735,8 @@ def fsdp_child(out_path: str, *configs: str) -> int:
 def phase_parallel_fsdp(torch, rest: dict) -> dict:
     """Phase 26 (a) and (c): one torchrun child (one rank, NCCL) runs the
     full-depth SFT under FSDP2, then the 2-layer ring at cp = 1 and its
-    flash twin; (a)'s losses and grad norms are held to phase 23's run of
-    the same config unwrapped."""
+    flash twin, then phase 28 (b)'s two Moonlight runs; (a)'s losses and
+    grad norms are held to phase 23's run of the same config unwrapped."""
     from pathlib import Path
 
     here = Path(__file__).resolve().parent
@@ -5719,6 +5758,9 @@ def phase_parallel_fsdp(torch, rest: dict) -> dict:
     for tag, cfg in (("fsdp", full), ("cp1_ring", tiny["ring"]), ("cp1_flash", tiny["flash"])):
         paths.append(root / f"{tag}.json")
         paths[-1].write_text(json.dumps(cfg))
+    # phase 28 (b)'s two Moonlight runs ride the same child (one torchrun
+    # start fewer); phase 28 checks them
+    paths += p28_fsdp_configs(root / "moe_fsdp")
     out_path = root / "child.json"
     gc.collect()
     torch.cuda.empty_cache()
@@ -5768,10 +5810,11 @@ def phase_parallel_fsdp(torch, rest: dict) -> dict:
     c = dict(losses=[r["loss"] for r in ring_rows], grad_norms=[r["grad_norm"] for r in ring_rows],
              bit_for_bit_with_flash=same, ring_launches=runs[1]["launches"])
     print(f"phase 26 (c) attn ring at cp = 1 through the CLI: {json.dumps(c)}", flush=True)
+    moe = p28_fsdp_results(root / "moe_fsdp", runs[3:])
     import shutil
 
     shutil.rmtree(root, ignore_errors=True)
-    return dict(fsdp=a, ring_cp1=c)
+    return dict(fsdp=a, ring_cp1=c, expert_fsdp_runs=moe)
 
 
 def _ring_layout(torch, x, zigzag: bool, axis: int = 1, undo: bool = False):
@@ -6043,12 +6086,19 @@ def moonlight_flops_per_token(model, seq: int) -> float:
     return 6 * active + attn
 
 
+# phase 27 (a)'s depth: the config's 7 layers cut to 4 (the dense first and
+# 3 MoE layers) for the script's time
+MOONLIGHT_TRAIN_LAYERS = 4
+
+
 def phase_moonlight_training(torch) -> dict:
     """(a) 4 steps of 2 x 4096 tokens (the same two rows each step) at
-    Moonlight-16B-A3B's widths, 7 layers, through the ``pretrain`` recipe
-    class: MLA through K1 at head dim 192, the experts through K3 (and
-    K2's gmm in its backward); the loss falls, the correction bias moves."""
+    Moonlight-16B-A3B's widths, MOONLIGHT_TRAIN_LAYERS layers, through the
+    ``pretrain`` recipe class: MLA through K1 at head dim 192, the experts
+    through K3 (and K2's gmm in its backward); the loss falls, the
+    correction bias moves."""
     cfg = moonlight_train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = MOONLIGHT_TRAIN_LAYERS
     # the same 2 rows every step: the mock tokens are uniform, so across
     # rows there is nothing to learn (earlier phases' losses stay flat at
     # ~ln V + 0.4); repeated rows are memorized, so the loss falls when the
@@ -6229,9 +6279,402 @@ def mla_flash_entry(name: str, moon: dict, sass: dict) -> dict:
     )
 
 
+# -- phase 28: the rest of MoE (tp on the experts, expert_fsdp, muon and adafactor, MXFP4) --
+
+# (a): ep x tp virtual ranks in one process; a few thousand tokens (one
+# 4096-token row, 2048 an ep rank), each tp rank running the I-shard of its
+# ep rank's experts: Moonlight's I 1408 -> 704, gpt-oss-20b's 2880 -> 1440
+P28_EP, P28_TP = 2, 2
+P28_TIMING_ITERS = 10
+# out and dx rows at ep x tp against one rank: each tp rank's partial (K3's
+# bf16 output, its bf16 dx) is rounded to bf16 before the sum, where one
+# rank rounds the whole product once, and the partials may cancel: twice
+# the one-kernel bound, 2^-6 (the first card reading, gpt-oss-20b's dx,
+# was 0.0074, below 2^-7 but close to it). The weight grads are the same
+# per-column sums (the I-split partitions the columns): FEM_DW_ROW_TOL.
+P28_TP_ROW_TOL = 2.0**-6
+# (b), (c): Moonlight-16B-A3B cut to its dense first layer and two MoE layers
+P28_LAYERS = 3
+P28_STEPS = 3
+P28_OPT_LR = dict(muon=1e-3, adafactor=1e-2)
+
+
+def p28_layer(torch, family: str):
+    """One MoE layer at full width, its real input and routing: a 2-layer
+    Moonlight (the dense first, one MoE) or a 1-layer gpt-oss-20b built on
+    the card from the seed; the MoE block's input recorded at its gate
+    over one 4096-token row → (block, x [4096, D], seq_len)."""
+    from automodel_tpu_torch.data.collators import default_collater
+    from automodel_tpu_torch.data.sft import MockSFTDataset
+    from automodel_tpu_torch.generation.engine import build_auto_from_model_section
+    from automodel_tpu_torch.moe import layer as moe_layer
+
+    cfg = moonlight_train_config() if family == "moonlight" else gpt_oss_train_config()
+    cfg["device"] = TRAIN_DEVICE
+    cfg["model"]["hf_config"]["num_hidden_layers"] = 2 if family == "moonlight" else 1
+    dev = torch.device(cfg["device"])
+    model = build_auto_from_model_section(cfg["model"], dev, seed=cfg["seed"], trainable=True).model
+    ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[5]]).items() if hasattr(v, "shape")}
+    seen: dict = {}
+    real_gate = moe_layer.gate
+
+    def recording_gate(x, weight, *a, **kw):
+        seen["x"] = x.detach().clone()
+        return real_gate(x, weight, *a, **kw)
+
+    moe_layer.gate = recording_gate
+    try:
+        with torch.no_grad():
+            model(mb["input_ids"])
+    finally:
+        moe_layer.gate = real_gate
+    block = model.moe_layers()[0]
+    del model
+    return block, seen["x"], cfg["dataset"]["seq_length"]
+
+
+def p28_rank_rows(torch, x, gouts, weights, cfg):
+    """Rank (ep 0, tp 0)'s local problem: the rows it receives from every ep
+    rank sorted by its local expert, their group sizes, and its I-shard of
+    its experts' slabs (the operands of its K2 / K3 launches)."""
+    from automodel_tpu_torch.moe import experts as mexp
+
+    ep, E = P28_EP, cfg.num_experts
+    xs = list(x.chunk(ep))
+    C = mexp.a2a_chunk_rows(xs[0].shape[0], cfg, ep)
+    sends = [mexp.a2a_pack(t, g.topk_idx, E, ep, C) for t, g in zip(xs, gouts)]
+    recv_x = mexp.exchange_ranks([s.x for s in sends], C)[0]
+    recv_ids = mexp.exchange_ranks([s.ids for s in sends], C)[0]
+    E_loc = E // ep
+    order = torch.argsort(recv_ids, stable=True)
+    gsz = torch.zeros(E_loc + 1, dtype=torch.int32, device=x.device)
+    gsz = gsz.scatter_add_(0, recv_ids, torch.ones_like(recv_ids, dtype=torch.int32))[:E_loc]
+    w = mexp._local_slabs(mexp.tp_local_slabs(weights, 0, P28_TP), 0, E_loc)
+    return recv_x.index_select(0, order).detach(), gsz, {k: v.detach().contiguous() for k, v in w.items()}, C
+
+
+def p28_time_kernels(torch, label: str, xs2, gsz, w, cfg, act_kind, limit) -> dict:
+    """K3's forward (both launches) and K2's gmm (the gate_up product) on
+    rank (0, 0)'s rows at the I-shard, against their plain versions, their
+    bounds and ``torch._grouped_mm``."""
+    from automodel_tpu_torch.ops import fused_expert_mlp as fem
+    from automodel_tpu_torch.ops import grouped_matmul as gm
+
+    M, D = xs2.shape
+    I = w["down"].shape[1]
+    gub = w.get("gate_up_bias")
+    plan = gm.gmm_plan(gsz, M)
+    biased = gub is not None
+    fwd = lambda: fem.fwd(xs2, w["gate_up"], w["down"], gsz, gub, None, act_kind, limit, plan=plan)
+    fwd_plain = lambda: fem._fwd_plain(xs2, w["gate_up"], w["down"], gsz, gub, None, act_kind, limit)
+    gmm = lambda: gm.gmm(xs2, w["gate_up"], gsz, plan=plan)
+    gmm_plain = lambda: gm._gmm_plain(xs2, w["gate_up"], gsz)
+    out = dict(rows=M, routed_rows=int(gsz.sum()), D=D, I=I, experts=int(gsz.shape[0]))
+    y, y_plain = fwd(), fwd_plain()
+    g, g_plain = gmm(), gmm_plain()
+    torch.cuda.synchronize()
+    fem_bound_ms, fem_by = fem_bound("fwd", M, D, I, gsz, biased, out_bytes=2)
+    gmm_bound_ms, gmm_by = grouped_bound("gmm", xs2, w["gate_up"], gsz, 2 * I)
+    gu = gm._gmm_plain(xs2, w["gate_up"], gsz)
+    if biased:
+        gu = fem.add_row_bias(gu, gub, gsz)
+    mid = fem._act_core(gu[:, :I].float(), gu[:, I:].float(), act_kind, limit).to(torch.bfloat16)
+    lib = fem_library_ms(torch, "fwd", xs2, None, None, None, w["gate_up"], w["down"], gsz, gub, None, act_kind, limit,
+                         fwd_mid=mid)
+    out["fused_expert_mlp_fwd"] = dict(
+        ms=cuda_ms(fwd, iters=P28_TIMING_ITERS), plain_ms=cuda_ms(fwd_plain, iters=2, warmup=1),
+        bound_ms=fem_bound_ms, bound_by=fem_by, library_ms=lib.get("library_ms"),
+        gu_library_ms=lib.get("gu_library_ms"), down_library_ms=lib.get("down_library_ms"),
+        max_abs_err=float((y.float() - y_plain.float()).abs().max()), max_row_rel_err=row_rel_err(y, y_plain))
+    out["grouped_matmul_gmm"] = dict(
+        ms=cuda_ms(gmm, iters=P28_TIMING_ITERS), plain_ms=cuda_ms(gmm_plain, iters=2, warmup=1),
+        bound_ms=gmm_bound_ms, bound_by=gmm_by, library_ms=grouped_library_ms(torch, "gmm", xs2, w["gate_up"], gsz),
+        max_abs_err=float((g.float() - g_plain.float()).abs().max()), max_row_rel_err=row_rel_err(g, g_plain))
+    f, k = out["fused_expert_mlp_fwd"], out["grouped_matmul_gmm"]
+    if f["max_row_rel_err"] > FEM_ROW_TOL or k["max_row_rel_err"] > GMM_ROW_TOL:
+        raise RuntimeError(f"28 (a) {label}: K3 / K2 at I = {I} disagree with their plain versions: {out}")
+    print(f"phase 28 (a) {label}: K3 fwd at I = {I} {f['ms']:.4f} ms (plain {f['plain_ms']:.3f}, bound "
+          f"{f['bound_ms']:.4f} by {f['bound_by']}, torch._grouped_mm composition {f['library_ms']}), K2 gmm "
+          f"{k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, bound {k['bound_ms']:.4f} by {k['bound_by']}, library "
+          f"{k['library_ms']}) on rank (0, 0)'s {M} rows ({out['routed_rows']} routed) | {card_line()}", flush=True)
+    return out
+
+
+def p28_tp_layer(torch, family: str) -> dict:
+    """28 (a) at one layer: ``a2a_fused`` and ``a2a`` at ep = 2 x tp = 2
+    virtual ranks against ``ragged_fused`` / ``ragged`` over all the rows
+    on one rank: out and dx rows within P28_TP_ROW_TOL, the slabs' grad
+    rows within 2^-10; then K2's and K3's times at the I-shard."""
+    from automodel_tpu_torch.moe import experts as mexp
+    from automodel_tpu_torch.moe import gate as mgate
+    from automodel_tpu_torch.moe import layer as moe_layer
+
+    block, x, S = p28_layer(torch, family)
+    dev = x.device
+    cfg = block.cfg
+    router = getattr(block, block.router_name)
+    act2 = moe_layer.make_act2(cfg, torch.nn.functional.silu)
+    fused_act = mexp._fused_act_of(cfg, "silu")
+    counters = {k: v for k, v in fused_kernel_counters().items() if not k.startswith("flash")}
+    g = torch.Generator(device=dev).manual_seed(28)
+    dout = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    gate = lambda t: mgate.gate(t, router.weight, cfg, bias=router.bias, seq_len=t.shape[0],
+                                linear_bias=router.linear_bias)
+
+    def run(backend: str, split: bool):
+        xl = x.clone().requires_grad_(True)
+        w = {k: v.detach().clone().requires_grad_(True) for k, v in block.experts.named_parameters()}
+        fused = fused_act if backend.endswith("fused") else None
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        if split:
+            xs = list(xl.chunk(P28_EP))
+            y = torch.cat(mexp.a2a_forward_ranks(xs, [gate(t) for t in xs], w, cfg, act2, fused, tp=P28_TP))
+        else:
+            one = mexp.ragged_fused_experts if fused else mexp.ragged_experts
+            y = one(xl, gate(xl), w, cfg, act2)
+        y.backward(dout)
+        torch.cuda.synchronize()
+        launches = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items() if getattr(f, a) != before[k]}
+        return y.detach(), xl.grad, {k: v.grad for k, v in w.items()}, launches
+
+    out = dict(family=family, D=x.shape[1], experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+               I=cfg.moe_intermediate_size, I_shard=cfg.moe_intermediate_size // P28_TP, tokens=x.shape[0],
+               ep=P28_EP, tp=P28_TP, activation=cfg.activation, biased=cfg.expert_mlp_bias)
+    for backend, ref in (("a2a_fused", "ragged_fused"), ("a2a", "ragged")):
+        y4, dx4, dw4, l4 = run(backend, True)
+        y1, dx1, dw1, l1 = run(backend, False)
+        e = dict(launches=l4, one_rank_launches=l1, against=ref, out_row_err=row_rel_err(y4, y1),
+                 dx_row_err=grad_row_err(dx4, dx1),
+                 dw_row_err={k: row_rel_err(dw4[k].flatten(1), dw1[k].flatten(1)) for k in dw1})
+        out[backend] = e
+        n = P28_EP * P28_TP
+        want = dict(fem_fwd=n) if backend == "a2a_fused" else dict(gmm=2 * n)
+        if any(l4.get(k) != v for k, v in want.items()):
+            raise RuntimeError(f"28 (a) {family} {backend}: launches {l4}, want {want} (one a virtual rank)")
+        if (e["out_row_err"] > P28_TP_ROW_TOL or e["dx_row_err"] > P28_TP_ROW_TOL
+                or max(e["dw_row_err"].values()) > FEM_DW_ROW_TOL):
+            raise RuntimeError(f"28 (a) {family} {backend} at ep = {P28_EP} x tp = {P28_TP} disagrees with {ref}: {e}")
+        print(f"phase 28 (a) {family} {backend} at ep = {P28_EP} x tp = {P28_TP} against {ref}: {json.dumps(e)}",
+              flush=True)
+        del y4, dx4, dw4, y1, dx1, dw1
+    with torch.no_grad():
+        w = {k: v.detach() for k, v in block.experts.named_parameters()}
+        xs2, gsz, w0, C = p28_rank_rows(torch, x, [gate(t) for t in x.chunk(P28_EP)], w, cfg)
+        out["chunk_rows"] = C
+        out["timed"] = p28_time_kernels(torch, family, xs2, gsz, w0, cfg, *fused_act)
+    print(f"phase 28 (a) {family} layer at ep = {P28_EP} x tp = {P28_TP}: {json.dumps(out)}", flush=True)
+    del block, x, w, w0, xs2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p28_moonlight_config(tag: str, root, **over) -> dict:
+    """Moonlight-16B-A3B at P28_LAYERS layers, the same two rows each step
+    (phase 27 (a)'s), P28_STEPS steps."""
+    cfg = moonlight_train_config()
+    cfg["model"]["hf_config"]["num_hidden_layers"] = P28_LAYERS
+    cfg["dataset"]["num_samples"] = cfg["step_scheduler"]["grad_acc_steps"]
+    cfg["step_scheduler"].update(max_steps=P28_STEPS, num_epochs=P28_STEPS)
+    cfg["logging"]["metrics_path"] = str(root / f"{tag}.jsonl")
+    cfg.update(over)
+    return cfg
+
+
+P28_FSDP_TAGS = ("unwrapped", "expert_fsdp")
+
+
+def p28_fsdp_configs(root) -> list:
+    """28 (b)'s two configs, written under ``root``: Moonlight at
+    P28_LAYERS layers unwrapped and under FSDP2 at world 1
+    (``distributed: {dp_shard: -1}``: each MoE layer's experts an FSDP2
+    unit over expert_fsdp, sharding the model width) → their paths."""
+    root.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for tag, over in zip(P28_FSDP_TAGS, ({}, dict(distributed=dict(dp_shard=-1)))):
+        paths.append(root / f"{tag}.json")
+        paths[-1].write_text(json.dumps(p28_moonlight_config(tag, root, **over)))
+    return paths
+
+
+def p28_fsdp_results(root, runs: list) -> dict:
+    """The torchrun child's reading of 28 (b)'s two configs → their step
+    rows and run records (read before ``root`` goes)."""
+    return dict(runs=runs, rows={tag: [r for r in map(json.loads, open(root / f"{tag}.jsonl")) if "loss" in r]
+                                 for tag in P28_FSDP_TAGS})
+
+
+def p28_expert_fsdp(torch, root, done: dict | None = None) -> dict:
+    """28 (b): Moonlight at P28_LAYERS layers unwrapped and under FSDP2 at
+    world 1 in a one-rank NCCL torchrun child: the losses and grad norms
+    bit for bit. ``done``: the two runs phase 26's child already made
+    (``p28_fsdp_results``); without it (phase 28 alone) a child of its own
+    runs them."""
+    from pathlib import Path
+
+    if done is None:
+        here = Path(__file__).resolve().parent
+        paths = p28_fsdp_configs(root)
+        out_path = root / "child.json"
+        gc.collect()
+        torch.cuda.empty_cache()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+             str(here / "chip_smoke.py"), "--fsdp-child", str(out_path), *map(str, paths)],
+            cwd=str(here), env=dict(os.environ, PYTHONPATH=str(here)), capture_output=True, text=True,
+            timeout=FSDP_CHILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"28 (b): the torchrun child exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                               f"{proc.stderr[-6000:]}")
+        done = p28_fsdp_results(root, json.loads(out_path.read_text()))
+    runs, a, b = done["runs"], done["rows"]["unwrapped"], done["rows"]["expert_fsdp"]
+    moe_layers = P28_LAYERS - MOONLIGHT_16B_A3B["first_k_dense_replace"]
+    want = moe_layers * PRETRAIN_MOONLIGHT_16B_A3B["step_scheduler"]["grad_acc_steps"] * P28_STEPS
+    out = dict(layers=P28_LAYERS, losses=[r["loss"] for r in b], grad_norms=[r["grad_norm"] for r in b],
+               bit_for_bit=[(r["loss"], r["grad_norm"]) for r in a] == [(r["loss"], r["grad_norm"]) for r in b],
+               step_ms=1e3 * statistics.median(r["step_time_s"] for r in b[1:]),
+               step_ms_unwrapped=1e3 * statistics.median(r["step_time_s"] for r in a[1:]),
+               peak_gib=runs[1]["peak_gib"], peak_gib_unwrapped=runs[0]["peak_gib"],
+               k3_launches=runs[1]["moe_launches"], wall_s=[r["wall_s"] for r in runs])
+    print(f"phase 28 (b) expert_fsdp under FSDP2 at world 1, Moonlight at {P28_LAYERS} layers: {json.dumps(out)} | "
+          f"{card_line()}", flush=True)
+    if len(b) != P28_STEPS or not out["bit_for_bit"]:
+        raise RuntimeError(f"28 (b): FSDP2 {b} against the unwrapped {a}")
+    if any(r["moe_launches"].get("fem_fwd") != want for r in runs):
+        raise RuntimeError(f"28 (b): K3 launches {[r['moe_launches'] for r in runs]}, want {want} each")
+    return out
+
+
+def p28_optimizers(torch, root) -> dict:
+    """28 (c): muon, then adafactor, on Moonlight at P28_LAYERS layers for
+    P28_STEPS steps through the recipe: the partition (which JAX leaves
+    take Newton-Schulz and which Adam), the step time, the peak memory;
+    the loss must fall."""
+    out = {}
+    for name in ("muon", "adafactor"):
+        cfg = p28_moonlight_config(name, root, device=TRAIN_DEVICE)
+        cfg["optimizer"] = dict(name=name, lr=P28_OPT_LR[name], lr_schedule=dict(style="constant"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        recipe, rows, _, wall = run_recipe(torch, cfg)
+        opt = recipe.state.optimizer
+        steps = [r for r in rows if "loss" in r]
+        e = dict(losses=[r["loss"] for r in steps], step_ms=1e3 * statistics.median(r["step_time_s"] for r in steps[1:]),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall)
+        if name == "muon":
+            e["newton_schulz"] = sorted(opt.muon_leaves)
+            e["adam"] = sorted(lf.path for lf in opt.leaves if lf.path not in opt.muon_leaves)
+        else:
+            e["factored"] = sorted(p for p, d in opt.dims.items() if d is not None)
+            e["unfactored"] = sorted(p for p, d in opt.dims.items() if d is None)
+        out[name] = e
+        print(f"phase 28 (c) {name} on Moonlight at {P28_LAYERS} layers: {json.dumps(e)} | {card_line()}", flush=True)
+        if not e["losses"][-1] < e["losses"][0]:
+            raise RuntimeError(f"28 (c) {name}: the loss did not fall: {e['losses']}")
+        del recipe, opt
+    return out
+
+
+def p28_mxfp4(torch, root) -> dict:
+    """28 (d): gpt-oss-20b at phase 13's depth written from seeded weights
+    into an MXFP4 checkpoint (the experts' ``gate_up_proj`` / ``down_proj``
+    packed by ``pack_mxfp4`` on the card) and into a bf16 one of the
+    dequantized weights; both loaded with ``from_pretrained``: the logits
+    bit for bit, the MXFP4 load's seconds and GB/s; then one training step
+    of the MXFP4-loaded model through K3."""
+    from automodel_tpu_torch.auto_model import from_config, from_pretrained
+    from automodel_tpu_torch.checkpoint import quant_io
+    from automodel_tpu_torch.checkpoint.addons import write_hf_addons
+    from automodel_tpu_torch.checkpoint.hf_io import save_hf_checkpoint
+
+    cfg = gpt_oss_train_config()
+    hf, backend = cfg["model"]["hf_config"], cfg["model"]["backend"]
+    dev = torch.device(TRAIN_DEVICE)
+    src = from_config(hf, backend, device=dev, seed=cfg["seed"]).model
+    adapter = src.state_dict_adapter(src)
+    quant, dense = [], []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for key, t in adapter.to_hf(src.state_dict()):
+            if key.endswith(("experts.gate_up_proj", "experts.down_proj")):
+                blocks, scales = quant_io.pack_mxfp4(t)
+                quant += [(f"{key}_blocks", blocks.cpu()), (f"{key}_scales", scales.cpu())]
+                dense.append((key, quant_io.dequantize_mxfp4(blocks, scales).cpu()))
+            else:
+                quant.append((key, t.cpu()))
+                dense.append((key, t.cpu()))
+    pack_s = time.perf_counter() - t0
+    del src
+    for tag, tensors in (("mxfp4", quant), ("bf16", dense)):
+        save_hf_checkpoint(root / tag, tensors)
+        write_hf_addons(root / tag, hf_config=dict(hf, torch_dtype="bfloat16"))
+    file_bytes = {tag: sum(f.stat().st_size for f in (root / tag).glob("*.safetensors")) for tag in ("mxfp4", "bf16")}
+    del quant, dense
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = from_pretrained(root / "mxfp4", backend, device=dev, trainable=True).model
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = from_pretrained(root / "bf16", backend, device=dev).model
+    torch.cuda.synchronize()
+    bf16_load_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(281)
+    ids = torch.randint(0, hf["vocab_size"], (1, 1024), generator=g).to(dev)
+    with torch.no_grad():
+        a, _ = model(ids)
+        b, _ = ref(ids)
+    bitwise = torch.equal(a, b)
+    del ref, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    from automodel_tpu_torch.data.collators import default_collater
+    from automodel_tpu_torch.data.sft import MockSFTDataset
+
+    ds = MockSFTDataset(**{k: v for k, v in cfg["dataset"].items() if k != "_target_"})
+    mb = {k: torch.from_numpy(v).to(dev) for k, v in default_collater([ds[0]]).items() if hasattr(v, "shape")}
+    counters = {k: v for k, v in fused_kernel_counters().items() if not k.startswith("flash")}
+    step = moe_step(torch, model, mb, counters)
+    out = dict(layers=hf["num_hidden_layers"], file_bytes=file_bytes, pack_s=pack_s, load_s=load_s,
+               load_gbps=gbps(file_bytes["mxfp4"], load_s), bf16_load_s=bf16_load_s,
+               bf16_load_gbps=gbps(file_bytes["bf16"], bf16_load_s), logits_bitwise=bitwise, step=step)
+    print(f"phase 28 (d) gpt-oss-20b at {out['layers']} layers from MXFP4: {json.dumps(out)} | {card_line()}",
+          flush=True)
+    if not bitwise:
+        raise RuntimeError("28 (d): the MXFP4-loaded model's logits differ from the bf16 checkpoint's")
+    if step["launches"].get("fem_fwd") != hf["num_hidden_layers"] or not math.isfinite(step["loss"]):
+        raise RuntimeError(f"28 (d): the training step {step}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_rest(torch, fsdp_done: dict | None = None) -> dict:
+    """Phase 28: (a) tp on the experts at full width, (b) expert_fsdp under
+    FSDP2 (its runs made by phase 26's torchrun child, ``fsdp_done``),
+    (c) muon and adafactor on Moonlight, (d) GPT-OSS from MXFP4."""
+    import shutil
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent / "runs" / "chip_smoke" / f"moe_rest_{time.time_ns()}"
+    root.mkdir(parents=True, exist_ok=True)
+    try:
+        out = dict(tp=dict(moonlight=p28_tp_layer(torch, "moonlight"), gpt_oss=p28_tp_layer(torch, "gpt_oss")))
+        out["expert_fsdp"] = p28_expert_fsdp(torch, root, fsdp_done)
+        out["optimizers"] = p28_optimizers(torch, root)
+        out["mxfp4"] = p28_mxfp4(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks, fused,
                  gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass, fused_ptxas, spec,
-                 front, traced, rest, data, ring, parallel, moon) -> dict:
+                 front, traced, rest, data, ring, parallel, moon, rest_moe) -> dict:
     """The ``{"kernels": [...]}`` line: each kernel of the four paths, its
     launches on its path's run and its times at the main case; the paged
     kernel with its times as the context grows (card time with the host
@@ -6377,12 +6820,29 @@ def kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, train
             entry["launches_moonlight"] = moon["training"]["launches"][f"fem_{kind}"]
             if kind == "fwd":
                 entry["launches_a2a_fused_ep4"] = moon["experts"]["a2a_fused_ep4"]["launches"].get("fem_fwd")
+                entry.update(p28_kernel_entry(rest_moe, "fused_expert_mlp_fwd", "a2a_fused", "fem_fwd"))
+        if entry["name"] == "grouped_matmul_gmm":
+            entry.update(p28_kernel_entry(rest_moe, "grouped_matmul_gmm", "a2a", "gmm"))
     return line
+
+
+def p28_kernel_entry(rest_moe: dict, timed: str, backend: str, counter: str) -> dict:
+    """Phase 28's reading of K3's forward or K2's gmm: its launches at ep =
+    2 x tp = 2 (a), (b)'s and (d)'s runs, and its times at each layer's
+    I-shard on rank (0, 0)'s rows (Moonlight I 704, gpt-oss-20b I 1440)."""
+    tp = rest_moe["tp"]
+    return dict(
+        launches_tp2_ep2={f: tp[f][backend]["launches"].get(counter) for f in tp},
+        launches_expert_fsdp=rest_moe["expert_fsdp"]["k3_launches"].get(counter),
+        launches_mxfp4_step=rest_moe["mxfp4"]["step"]["launches"].get(counter),
+        tp_shards={f"{f} I={tp[f]['I_shard']}": tp[f]["timed"][timed] for f in tp},
+    )
 
 
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--fsdp-child":
         return fsdp_child(*sys.argv[2:])
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -6532,11 +6992,11 @@ def main() -> int:
               flush=True)
         t0 = time.perf_counter()
         data = phase_data(torch, dev)
-        print(f"phase 24 (the data path: corpora, pretrain llm at 16 layers, packing, resume): "
+        print(f"phase 24 (the data path: corpora, pretrain llm at {DATA_PRETRAIN_LAYERS} layers, packing, resume): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         obs = phase_observability(torch, dev)
-        print(f"phase 25 (telemetry, profiling, goodput, metrics port and guard at 16 layers): "
+        print(f"phase 25 (telemetry, profiling, goodput, metrics port and guard at {DATA_PRETRAIN_LAYERS} layers): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         ring = phase_ring(torch, dev)
@@ -6545,12 +7005,18 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         moon = phase_moonlight(torch, dev)
-        print(f"phase 27 (Moonlight-16B-A3B at 7 layers, K1 at H=192, the experts backends): "
+        print(f"phase 27 (Moonlight-16B-A3B at {MOONLIGHT_TRAIN_LAYERS} layers, K1 at H=192, the experts backends): "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        rest_moe = phase_moe_rest(torch, parallel["expert_fsdp_runs"])
+        print(f"phase 28 (tp on the experts, expert_fsdp under FSDP2, muon and adafactor on Moonlight, gpt-oss-20b "
+              f"from MXFP4): {time.perf_counter() - t0:.1f}s", flush=True)
 
+        print(f"whole run: {time.perf_counter() - t_start:.1f}s (torch's import, the build and phases 1-28)",
+              flush=True)
         line = kernels_line(kernels, serving_bf16, serving_int8, profile_bf16, flash, training, grouped, moe, sinks,
                             fused, gpt_oss, flash_cap, gemma, kd, flash_sass, grouped_ptxas, grouped_sass,
-                            fused_ptxas, spec, front, traced, rest, data, ring, parallel, moon)
+                            fused_ptxas, spec, front, traced, rest, data, ring, parallel, moon, rest_moe)
         splits = sorted({(tuple(v["setmaxnreg_dec"]), tuple(v["setmaxnreg_inc"])) for v in flash_sass.values()})
         print(f"flash_attention register split, read from this build's SASS over {len(flash_sass)} kernels: "
               + "; ".join(f"producer warpgroup setmaxnreg.dec {list(d)}, consumers setmaxnreg.inc {list(i)}"

@@ -1199,6 +1199,39 @@ def test_fused_expert_mlp_kernels_match_plain(M, D, I, sizes, act, limit, biased
     assert fem_ok(err), err
 
 
+# the tp = 2 I-shards of Moonlight-16B-A3B (I 1408 -> 704, 64 experts over
+# ep = 2) and of gpt-oss-20b (2880 -> 1440, swiglu_oai with its biases, 32
+# experts over ep = 2): multiples of 8 (the kernels' ALIGN), not of 128, so
+# K2's and K3's last I tile is partial
+TP_SHARD_FEM_CASES = [
+    (4096, 2048, 704, ragged_sizes(4096, 32, seed=11, empty=(5,)), "swiglu", None, False, 1.0),
+    (4096, 2880, 1440, ragged_sizes(4096, 16, seed=12, big=2), "swiglu_oai", 7.0, True, 1.0),
+]
+TP_SHARD_GROUPED_CASES = [
+    (4096, 2048, 2 * 704, ragged_sizes(4096, 32, seed=13)),  # Moonlight gate_up's I-shard
+    (4096, 704, 2048, ragged_sizes(4096, 32, seed=14, empty=(0, 31))),  # its down rows
+    (4096, 2880, 2 * 1440, ragged_sizes(4096, 16, seed=15)),  # gpt-oss-20b gate_up's I-shard
+    (4096, 1440, 2880, ragged_sizes(4096, 16, seed=16, big=9)),  # its down rows
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,sizes", TP_SHARD_GROUPED_CASES)
+def test_grouped_kernels_match_plain_at_tp_shards(M, K, N, sizes):
+    """K2 (gmm, gmm_t, tgmm) at the experts' tp = 2 shapes, I = 704 and
+    1440, against their plain versions: the ``a2a`` backend's products."""
+    test_grouped_kernels_match_plain(M, K, N, sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,I,sizes,act,limit,biased,scale", TP_SHARD_FEM_CASES)
+def test_fused_expert_mlp_kernels_match_plain_at_tp_shards(M, D, I, sizes, act, limit, biased, scale):
+    """K3 (the forward's two launches, bwd_gu, bwd_dwd, bwd_dx, bwd_act)
+    at the experts' tp = 2 shapes, I = 704 and 1440, against their plain
+    versions: the ``a2a_fused`` backend's kernels."""
+    test_fused_expert_mlp_kernels_match_plain(M, D, I, sizes, act, limit, biased, scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,D,I,sizes,act,limit,biased,scale", FEM_CASES)
 def test_bwd_act_kernel_matches_plain(M, D, I, sizes, act, limit, biased, scale):

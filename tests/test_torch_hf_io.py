@@ -253,25 +253,31 @@ def test_lazy_stacked_rows_and_materialize():
 
 
 def test_quantized_checkpoints_and_hub_ids_are_refused(tmp_path):
-    """FP8-blockwise and MXFP4 tensors, and a path that is no local
-    directory, raise naming what is not ported."""
+    """FP8-blockwise and MXFP4 tensors dequantize as JAX's reader does
+    (the same keys, the same bf16 bits; a lone fp8 tensor without its
+    scales stays fp8), and a path that is no local directory raises naming
+    what is not ported."""
+    from automodel_tpu.checkpoint.hf_io import HFCheckpointReader as JReader
+
     fp8 = tmp_path / "fp8"
     hf_io.save_hf_checkpoint(fp8, [
-        ("w", torch.randn(4, 4).to(torch.float8_e4m3fn)), ("w_scale_inv", torch.ones(1, 1)),
+        ("w", torch.randn(4, 4).to(torch.float8_e4m3fn)), ("w_scale_inv", torch.full((1, 1), 0.5)),
         ("plain_fp8", torch.randn(2).to(torch.float8_e4m3fn)),
     ])
-    reader = hf_io.HFCheckpointReader(fp8)
-    assert sorted(reader.keys()) == ["plain_fp8", "w"]
-    with pytest.raises(ValueError, match="FP8"):
-        reader.get_tensor("w")
+    reader, jreader = hf_io.HFCheckpointReader(fp8), JReader(fp8)
+    assert sorted(reader.keys()) == sorted(jreader.keys()) == ["plain_fp8", "w"]
+    w = reader.get_tensor("w")
+    assert w.dtype == torch.bfloat16
+    assert np.array_equal(w.view(torch.uint16).numpy(), np.asarray(jreader.get_tensor("w")).view(np.uint16))
     assert reader.get_tensor("plain_fp8").dtype == torch.float8_e4m3fn
     mx = tmp_path / "mxfp4"
-    hf_io.save_hf_checkpoint(mx, [("e_blocks", torch.zeros(2, 3, 4, 16, dtype=torch.uint8)),
-                                  ("e_scales", torch.zeros(2, 3, 4, dtype=torch.uint8))])
-    reader = hf_io.HFCheckpointReader(mx)
-    assert reader.keys() == ["e"]
-    with pytest.raises(ValueError, match="MXFP4"):
-        reader.get_tensor("e")
+    hf_io.save_hf_checkpoint(mx, [("e_blocks", torch.randint(0, 256, (2, 3, 4, 16), dtype=torch.uint8)),
+                                  ("e_scales", torch.randint(120, 130, (2, 3, 4), dtype=torch.uint8))])
+    reader, jreader = hf_io.HFCheckpointReader(mx), JReader(mx)
+    assert reader.keys() == jreader.keys() == ["e"]
+    e = reader.get_tensor("e")
+    assert tuple(e.shape) == (2, 128, 3) and reader.info("e") == jreader.info("e")
+    assert np.array_equal(e.view(torch.uint16).numpy(), np.asarray(jreader.get_tensor("e")).view(np.uint16))
     with pytest.raises(ValueError, match="pretrained_model_name_or_path.*hub"):
         from_pretrained("meta-llama/Meta-Llama-3-8B", FP32, device="cpu")
 

@@ -207,6 +207,14 @@ def test_check_tp_refusals():
     with pytest.raises(ValueError, match="vocab_size=127"):
         tplans.check_tp(M(), 2)
     tplans.check_tp(M(), 1)
+    # an MoE family trains under tp: each rank an I-shard of every expert
+    from automodel_tpu_torch.models.qwen3_moe.model import MoETransformerConfig
+
+    moe = dict(HF_TINY, model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2, moe_intermediate_size=24)
+    M.config = MoETransformerConfig.from_hf(moe)
+    tplans.check_tp(M(), 2)
+    with pytest.raises(ValueError, match="moe_intermediate_size=24"):
+        tplans.check_tp(M(), 16)
     np.testing.assert_equal(tplans.local(torch.ones(2)).numpy(), np.ones(2))
 
 

@@ -126,8 +126,14 @@ def test_jax_leaves_and_muon_labels():
     assert opt.muon_leaves == {"embed/embedding", "lm_head/kernel", "layers/input_norm/scale"}
     with pytest.raises(ValueError, match="names"):
         build_optimizer(tensors, name="adafactor")
+    moe_names = NAMES[:-1] + ["model.layers.0.mlp.experts.gate_up"]
     with pytest.raises(ValueError, match="layout is not mapped"):
-        build_optimizer(tensors, name="muon", names=NAMES[:-1] + ["model.layers.0.mlp.experts.gate_up"])
+        build_optimizer(tensors, name="muon", names=moe_names)  # the dense families' map
+    # the MoE families' map places the expert slab on its stacked leaf
+    from automodel_tpu_torch.models.qwen3_moe.state_dict_adapter import moe_jax_leaf_of
+
+    slab = {lf.path: lf for lf in jax_leaves(moe_names, moe_jax_leaf_of)}["moe_layers/moe/experts/gate_up"]
+    assert slab.stacked and not slab.transposed and slab.index == (len(NAMES) - 1,)
     with pytest.raises(ValueError, match="moments_dtype"):
         build_optimizer(tensors, moments_dtype="bf16")
     with pytest.raises(ValueError, match="Unknown optimizer"):
